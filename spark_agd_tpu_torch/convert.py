@@ -1,0 +1,66 @@
+"""Carry weights and optimizer state between numpy and the port.
+
+The JAX package's parameters convert to numpy with ``np.asarray``; these
+helpers take such arrays (or anything ``np.asarray`` accepts) to torch
+tensors on a device and back, for a single array or a dict/list/tuple of
+them.  ``warm_state_from_numpy`` turns a JAX ``AGDWarmState`` (or one
+rebuilt from its numpy fields) into the port's, so that a run started in
+the JAX package continues here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core import tvec
+from .core.agd import AGDWarmState
+
+
+def weights_from_numpy(tree, device, dtype=None):
+    """Tensors on ``device`` (copies), optionally cast to ``dtype``."""
+    def one(a):
+        t = torch.tensor(np.asarray(a), device=device)
+        return t if dtype is None else t.to(dtype)
+
+    return tvec.tmap(one, tree)
+
+
+def weights_to_numpy(tree):
+    """Numpy copies of a tensor or a dict/list/tuple of tensors."""
+    return tvec.tmap(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def warm_state_from_numpy(warm, device, dtype=None) -> AGDWarmState:
+    """The port's ``AGDWarmState`` from any object with the six fields
+    (``x``, ``z`` arrays; ``theta``, ``big_l``, ``bts``,
+    ``prior_iters`` scalars)."""
+    return AGDWarmState(
+        x=weights_from_numpy(warm.x, device, dtype),
+        z=weights_from_numpy(warm.z, device, dtype),
+        theta=float(np.asarray(warm.theta)),
+        big_l=float(np.asarray(warm.big_l)),
+        bts=bool(np.asarray(warm.bts)),
+        prior_iters=int(np.asarray(warm.prior_iters)))
+
+
+def warm_state_to_numpy(warm: AGDWarmState) -> AGDWarmState:
+    """The same carry with numpy arrays and Python scalars, which the JAX
+    package's ``run_agd(warm=...)`` accepts."""
+    def scalar(v):
+        return np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+
+    return AGDWarmState(
+        x=weights_to_numpy(warm.x), z=weights_to_numpy(warm.z),
+        theta=float(scalar(warm.theta)), big_l=float(scalar(warm.big_l)),
+        bts=bool(scalar(warm.bts)),
+        prior_iters=int(scalar(warm.prior_iters)))
+
+
+def warm_from_result(res, prior_iters: int) -> AGDWarmState:
+    """Continuation carry out of an ``AGDResult`` (counterpart of
+    ``spark_agd_tpu/utils/checkpoint.py:warm_from_result``)."""
+    return AGDWarmState(
+        x=res.weights, z=res.final_z, theta=float(res.final_theta),
+        big_l=float(res.final_l), bts=bool(res.final_bts),
+        prior_iters=int(prior_iters))
