@@ -1,21 +1,25 @@
 """spark_agd_tpu_torch — the PyTorch/CUDA port of ``spark_agd_tpu``.
 
 TFOCS-style accelerated proximal gradient descent on one NVIDIA GPU: the
-same losses, prox operators, optimizer loop and public API as the JAX
-package, with the fused margin loss+gradient kernel written by hand in
-CUDA for Hopper (``csrc/margin_loss_grad.cu``).  The package imports
+same losses, prox operators, optimizer loop, public API and GLM
+trainers as the JAX package, with the fused loss+gradient kernels written
+by hand in CUDA for Hopper (``csrc/margin_loss_grad.cu``,
+``csrc/softmax_loss_grad.cu``).  The package imports
 ``torch`` and never ``jax`` or ``spark_agd_tpu``.
 
 Layer map (this slice: dense data, one device):
 
 ====  ==========================  ===========================================
+L6    model layer                 ``models.glm`` trainers and models,
+                                  ``models.evaluation`` metrics
 L5    public API                  ``AcceleratedGradientDescent``, ``run``,
                                   ``make_runner`` (``api``)
 L4    optimizer core              ``core.agd.run_agd`` (Python loop)
 L3    math plugins                ``ops.losses`` (Gradient), ``ops.prox``
                                   (Updater), ``ops.fused_kernels`` (CUDA)
 L1    data                        ``data.synthetic``, ``data.device_synth``
-L0    local math                  ``core.tvec`` tensor / tree algebra
+L0    local math                  ``core.tvec`` tensor / tree algebra;
+                                  ``utils.checkpoint.atomic_savez``
 ====  ==========================  ===========================================
 
 Entry points run on the current CUDA device unless the caller passes
@@ -37,6 +41,7 @@ from .ops.losses import (  # noqa: F401
 from .ops.fused_kernels import (  # noqa: F401
     FusedMarginGradient,
     FusedLogisticGradient,
+    FusedSoftmaxGradient,
 )
 from .ops.prox import (  # noqa: F401
     Prox,

@@ -29,9 +29,7 @@
 // registers); y, m, w and every accumulator are f32.  Ragged row and
 // column edges are masked here, so X needs no padding.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_common.cuh"
 
 namespace {
 
@@ -40,10 +38,6 @@ constexpr int kWarps = kThreads / 32;
 
 enum LossKind { kLogistic = 0, kLeastSquares = 1, kHinge = 2 };
 enum XType { kF32 = 0, kBF16 = 1 };
-
-__host__ __device__ inline int64_t round_up(int64_t v, int64_t m) {
-  return (v + m - 1) / m * m;
-}
 
 // Shared-memory layout of one block: w and the gradient accumulator
 // (D floats each), the tile's multipliers, one loss slot per warp, then
@@ -55,14 +49,10 @@ __host__ __device__ inline int64_t x_tile_offset(int64_t d, int tile_rows) {
 
 __host__ __device__ inline int64_t smem_bytes(int64_t d, int tile_rows,
                                               int itemsize) {
-  return x_tile_offset(d, tile_rows) + int64_t(tile_rows) * d * itemsize + 16;
+  return x_tile_offset(d, tile_rows) + int64_t(tile_rows) * d * itemsize +
+         kTileSlack;
 }
 
-// Hopper's shared memory: 227 KB for one block, 228 KB on an SM, of
-// which the runtime keeps 1 KB per resident block.
-constexpr int64_t kSmemBlock = 232448;
-constexpr int64_t kSmemSM = 233472;
-constexpr int64_t kSmemReserved = 1024;
 constexpr int kMaxTileRows = 32;
 
 // Most rows (at most kMaxTileRows) whose block fits in `budget` bytes.
@@ -82,28 +72,6 @@ int choose_tile_rows(int64_t d, int itemsize) {
   rows = fit_rows(d, itemsize, kSmemBlock);
   return rows >= kWarps ? rows - rows % kWarps : rows;
 }
-
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Compensated summation, so that sums over many rows stay near the
-// exact value while accumulating in f32.
-struct Kahan {
-  float s = 0.f;
-  float c = 0.f;
-  __device__ void add(float v) {
-    float yv = v - c;
-    float t = s + yv;
-    c = (t - s) - yv;
-    s = t;
-  }
-};
 
 // The per-row middle, the same formulas as losses.py:152-179.
 template <int L>
@@ -126,47 +94,6 @@ __device__ __forceinline__ void loss_middle(float dot, float y, float* per,
     bool active = margin > 0.f;
     *per = active ? margin : 0.f;
     *mult = active ? -s : 0.f;
-  }
-}
-
-// Copy `nbytes` contiguous bytes starting at `src` into shared memory at
-// `dst_base + (src % 16)`: the middle with 16-byte loads, the unaligned
-// head and tail element by element.
-template <typename T>
-__device__ __forceinline__ void copy_tile(const T* __restrict__ src,
-                                          int64_t nbytes,
-                                          unsigned char* dst_base) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t floor16 = addr & ~uintptr_t(15);
-  const uintptr_t a_begin = (addr + 15) & ~uintptr_t(15);
-  const uintptr_t a_end = (addr + nbytes) & ~uintptr_t(15);
-  T* dst = reinterpret_cast<T*>(dst_base + (addr - floor16));
-  const int64_t n_elem = nbytes / int64_t(sizeof(T));
-  if (a_begin >= a_end) {
-    for (int64_t i = threadIdx.x; i < n_elem; i += kThreads) dst[i] = src[i];
-    return;
-  }
-  const int64_t head = int64_t(a_begin - addr) / int64_t(sizeof(T));
-  const int64_t tail0 = int64_t(a_end - addr) / int64_t(sizeof(T));
-  if (threadIdx.x < head) dst[threadIdx.x] = src[threadIdx.x];
-  for (int64_t i = tail0 + threadIdx.x; i < n_elem; i += kThreads)
-    dst[i] = src[i];
-  const uint4* gv = reinterpret_cast<const uint4*>(a_begin);
-  uint4* sv = reinterpret_cast<uint4*>(dst_base + (a_begin - floor16));
-  const int64_t nvec = int64_t(a_end - a_begin) / 16;
-  constexpr int kUnroll = 4;
-  for (int64_t i = threadIdx.x; i < nvec; i += kUnroll * kThreads) {
-    uint4 v[kUnroll];
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int64_t j = i + int64_t(k) * kThreads;
-      if (j < nvec) v[k] = gv[j];
-    }
-#pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      const int64_t j = i + int64_t(k) * kThreads;
-      if (j < nvec) sv[j] = v[k];
-    }
   }
 }
 
@@ -202,7 +129,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int64_t tile0 = r_begin; tile0 < r_end; tile0 += tile_rows) {
     const int rows = int(min64(tile_rows, r_end - tile0));
     const T* src = X + tile0 * d;
-    copy_tile<T>(src, int64_t(rows) * d * int64_t(sizeof(T)), x_base);
+    copy_tile<kThreads>(src, int64_t(rows) * d * int64_t(sizeof(T)), x_base);
     const T* xs = reinterpret_cast<const T*>(
         x_base + (reinterpret_cast<uintptr_t>(src) & 15));
     __syncthreads();

@@ -1,0 +1,409 @@
+"""Model layer — the ``GeneralizedLinearAlgorithm``-style callers.
+
+Counterpart of ``spark_agd_tpu/models/glm.py``.  The reference's optimizer
+implements MLlib's ``Optimizer`` trait so that it can sit in the optimizer
+seat of MLlib's ``GeneralizedLinearAlgorithm`` trainers; this module
+gives the same workflow on the port:
+
+- a trainer holding a configurable ``.optimizer`` (the MLlib pattern:
+  ``lr.optimizer.setNumIterations(...)``; ``set_device("cpu")`` picks the
+  CPU, the default being the current CUDA device);
+- ``train(X, y)`` returns a typed model with ``predict``;
+- ``add_intercept=True`` prepends the all-ones column (the intercept is
+  weight 0, the reference suite's convention).
+
+``predict``, ``margin`` and ``logits`` are plain ``torch`` products, as
+the JAX package leaves them to XLA.  Models save to one npz in the JAX
+package's layout (``class``, ``weights``, ``intercept``, ``threshold``,
+``__crc32__``), so a model saved by either package loads in the other.
+
+Not in this slice (each raises ``NotImplementedError``): ``train_path``
+and ``cross_validate``, which need ``api.sweep`` and
+``api.cross_validate``, and the ``*WithLBFGS`` trainers, which need
+``api.LBFGS``; all arrive with the optimizer-family slice.  Data is dense:
+a sparse (CSR) input raises ``TypeError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .. import api
+from .._device import resolve_device
+from ..ops.losses import (
+    Gradient,
+    HingeGradient,
+    LeastSquaresGradient,
+    LogisticGradient,
+    SoftmaxGradient,
+    _mm,
+    require_dense,
+)
+from ..ops.prox import IdentityProx, L1Prox, L2Prox, Prox
+
+_OPTIMIZER_FAMILY_LATER = (
+    "arrives with the port of the optimizer family (api.sweep, "
+    "api.cross_validate, api.LBFGS) in a later slice")
+
+
+def _as_tensor(a, device=None) -> torch.Tensor:
+    """A dense tensor: tensors are used as they are, anything numpy takes
+    becomes a tensor (on ``device`` when given)."""
+    if isinstance(a, (np.ndarray, list, tuple, float, int)):
+        t = torch.as_tensor(np.asarray(a))
+        return t if device is None else t.to(device)
+    require_dense(a)  # anything else but a dense tensor: TypeError
+    return a
+
+
+def _add_intercept(X):
+    """Prepend the all-ones column (reference Suite:47-49 convention: the
+    intercept is weight 0).  Dense only; the result lies where X lies."""
+    X = _as_tensor(X)
+    ones = torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
+    return torch.cat([ones, X], dim=1)
+
+
+class GLMModel:
+    """Trained linear model: ``margin(x) = w·x + intercept``.
+
+    The MLlib ``GeneralizedLinearModel`` analogue; ``weights`` is a
+    tensor, on the device the fit ran on."""
+
+    def __init__(self, weights, intercept: float = 0.0):
+        self.weights = _as_tensor(weights)
+        self.intercept = float(intercept)
+
+    def margin(self, X):
+        return _mm(_as_tensor(X, self.weights.device), self.weights) \
+            + self.intercept
+
+    def predict(self, X):
+        raise NotImplementedError
+
+    def predict_stream(self, dataset):
+        """Iterate predictions over batches ``(X, y, mask)`` (a streamed
+        dataset yields these).  Yields one numpy array per batch, padding
+        rows (mask 0) dropped."""
+        for X, _, mask in dataset:
+            pred = _numpy(self.predict(X))
+            if mask is not None:
+                pred = pred[_numpy(mask) > 0]
+            yield pred
+
+    def __repr__(self):
+        return (f"{type(self).__name__}(d={self.weights.shape[0]}, "
+                f"intercept={self.intercept:.4g})")
+
+    def save(self, path: str):
+        """Atomic npz snapshot (class name + arrays + scalars); reload
+        with :func:`load_model`."""
+        save_model(self, path)
+
+    @classmethod
+    def _from_arrays(cls, weights, intercept, threshold):
+        """Restore hook for :func:`load_model`; classes whose constructor
+        differs (no threshold, vector intercept) override it."""
+        return cls(weights, float(intercept), threshold=threshold)
+
+
+class LogisticRegressionModel(GLMModel):
+    """Binary logistic model.  With a threshold, ``predict`` returns
+    {0, 1}; after ``clear_threshold`` it returns probabilities (MLlib's
+    ``clearThreshold``)."""
+
+    def __init__(self, weights, intercept: float = 0.0,
+                 threshold: Optional[float] = 0.5):
+        super().__init__(weights, intercept)
+        self.threshold = threshold
+
+    def clear_threshold(self):
+        self.threshold = None
+        return self
+
+    def predict_proba(self, X):
+        return torch.sigmoid(self.margin(X))
+
+    def predict(self, X):
+        p = self.predict_proba(X)
+        if self.threshold is None:
+            return p
+        return (p > self.threshold).to(torch.float32)
+
+
+class SVMModel(GLMModel):
+    """Linear SVM: class = [margin > threshold] (default 0, as MLlib)."""
+
+    def __init__(self, weights, intercept: float = 0.0,
+                 threshold: Optional[float] = 0.0):
+        super().__init__(weights, intercept)
+        self.threshold = threshold
+
+    def clear_threshold(self):
+        self.threshold = None
+        return self
+
+    def predict(self, X):
+        m = self.margin(X)
+        if self.threshold is None:
+            return m
+        return (m > self.threshold).to(torch.float32)
+
+
+class LinearRegressionModel(GLMModel):
+    def predict(self, X):
+        return self.margin(X)
+
+    @classmethod
+    def _from_arrays(cls, weights, intercept, threshold):
+        del threshold  # regression has none
+        return cls(weights, float(intercept))
+
+
+class SoftmaxRegressionModel:
+    """Multinomial model with weight matrix ``(D, K)`` (BASELINE config
+    4).  ``intercept`` is a ``(K,)`` vector when the trainer added one,
+    else zeros."""
+
+    def __init__(self, weights, intercept=None):
+        self.weights = _as_tensor(weights)
+        k = self.weights.shape[1]
+        self.intercept = (
+            torch.zeros(k, dtype=self.weights.dtype,
+                        device=self.weights.device)
+            if intercept is None
+            else _as_tensor(intercept, self.weights.device))
+
+    @property
+    def num_classes(self) -> int:
+        return int(self.weights.shape[1])
+
+    def logits(self, X):
+        return _mm(_as_tensor(X, self.weights.device), self.weights) \
+            + self.intercept
+
+    def predict_proba(self, X):
+        return torch.softmax(self.logits(X), dim=-1)
+
+    def predict(self, X):
+        return torch.argmax(self.logits(X), dim=-1)
+
+    def __repr__(self):
+        d, k = self.weights.shape
+        return f"SoftmaxRegressionModel(d={d}, k={k})"
+
+    def save(self, path: str):
+        save_model(self, path)
+
+    @classmethod
+    def _from_arrays(cls, weights, intercept, threshold):
+        del threshold  # softmax predicts by argmax
+        return cls(weights, intercept)
+
+
+def _numpy(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _glm_payload(model) -> dict:
+    """The npz payload (class name, weights, intercept, NaN-encoded
+    optional threshold), as the JAX package writes it."""
+    thr = getattr(model, "threshold", None)
+    return {"class": np.asarray(type(model).__name__),
+            "weights": _numpy(model.weights),
+            "intercept": _numpy(model.intercept),
+            "threshold": np.asarray(np.nan if thr is None else float(thr))}
+
+
+def save_model(model, path: str):
+    """Persist a model as one npz (atomic write via
+    ``utils.checkpoint.atomic_savez``, with its ``__crc32__`` entry)."""
+    from ..utils.checkpoint import atomic_savez
+
+    atomic_savez(path, _glm_payload(model))
+
+
+_MODEL_CLASSES = {}
+
+
+def load_model(path: str, device=None):
+    """Reload a model saved by either package's ``save``; its arrays go
+    to ``device`` (default: the current CUDA device, raising when there
+    is none; pass ``"cpu"`` for the CPU)."""
+    dev = resolve_device(device)
+    with np.load(path) as z:
+        cls_name = str(z["class"])
+        cls = _MODEL_CLASSES.get(cls_name)
+        if cls is None:
+            raise ValueError(
+                f"unknown model class {cls_name!r} in {path}; known: "
+                f"{sorted(_MODEL_CLASSES)}")
+        thr = float(z["threshold"])
+        return cls._from_arrays(
+            torch.from_numpy(z["weights"]).to(dev),
+            torch.from_numpy(np.asarray(z["intercept"])).to(dev),
+            None if np.isnan(thr) else thr)
+
+
+class GeneralizedLinearAlgorithm:
+    """Base trainer: holds a public ``.optimizer`` the user configures
+    with the fluent setters (``algo.optimizer.setNumIterations(20)``),
+    with AGD in the optimizer seat."""
+
+    def __init__(self, gradient: Gradient, updater: Prox, *,
+                 add_intercept: bool = False, mesh=None, optimizer=None):
+        """``optimizer``: the object in the optimizer seat — default a
+        fresh ``AcceleratedGradientDescent(gradient, updater)``; anything
+        with the Optimizer trait's ``optimize`` may take its place, and
+        then carries its own gradient and updater.  ``mesh`` takes
+        ``None``/``False`` only in this slice."""
+        self.optimizer = (api.AcceleratedGradientDescent(gradient, updater)
+                          if optimizer is None else optimizer)
+        if mesh is not None:
+            self.optimizer.set_mesh(mesh)
+        self.add_intercept = bool(add_intercept)
+
+    def _create_model(self, weights, intercept) -> Any:
+        raise NotImplementedError
+
+    def _zero_weights(self, X):
+        d = X.shape[1] + (1 if self.add_intercept else 0)
+        return np.zeros(d, np.float32)
+
+    def _split_intercept(self, w):
+        if self.add_intercept:
+            return w[1:], float(w[0])
+        return w, 0.0
+
+    def _prepare_fit(self, X, initial_weights):
+        """The (possibly intercept-augmented) design matrix and starting
+        weights.  ``initial_weights`` is in augmented space when
+        ``add_intercept`` (intercept first)."""
+        data_X = _add_intercept(X) if self.add_intercept else X
+        w0 = (self._zero_weights(X) if initial_weights is None
+              else initial_weights)
+        return data_X, w0
+
+    def train(self, X, y, initial_weights=None):
+        """Fit and return the typed model (see ``_prepare_fit`` for the
+        ``initial_weights`` convention)."""
+        data_X, w0 = self._prepare_fit(X, initial_weights)
+        weights = self.optimizer.optimize((data_X, y), w0)
+        return self._create_model(*self._split_intercept(weights))
+
+    def train_path(self, X, y, reg_params, initial_weights=None):
+        """The regularization path needs ``api.sweep``: not ported yet."""
+        raise NotImplementedError(f"train_path {_OPTIMIZER_FAMILY_LATER}")
+
+    def cross_validate(self, X, y, reg_params, n_folds: int = 5,
+                       seed: int = 0, refit: bool = True):
+        """K-fold CV needs ``api.cross_validate``: not ported yet."""
+        raise NotImplementedError(
+            f"cross_validate {_OPTIMIZER_FAMILY_LATER}")
+
+
+class LogisticRegressionWithAGD(GeneralizedLinearAlgorithm):
+    """BASELINE config 1: LogisticGradient + SquaredL2Updater-style prox."""
+
+    def __init__(self, reg_param: float = 0.0, updater: Prox = None,
+                 add_intercept: bool = True, mesh=None):
+        super().__init__(
+            LogisticGradient(),
+            updater if updater is not None else L2Prox(),
+            add_intercept=add_intercept, mesh=mesh)
+        self.optimizer.set_reg_param(reg_param)
+
+    def _create_model(self, weights, intercept):
+        return LogisticRegressionModel(weights, intercept)
+
+
+class LogisticRegressionWithLBFGS(GeneralizedLinearAlgorithm):
+    """MLlib's ``LogisticRegressionWithLBFGS``: needs ``api.LBFGS``, not
+    ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"LogisticRegressionWithLBFGS {_OPTIMIZER_FAMILY_LATER}")
+
+
+class LinearRegressionWithAGD(GeneralizedLinearAlgorithm):
+    """BASELINE config 2: LeastSquaresGradient.  Unregularized by default;
+    a nonzero ``reg_param`` with no explicit updater selects the L2 prox
+    (ridge)."""
+
+    def __init__(self, reg_param: float = 0.0, updater: Prox = None,
+                 add_intercept: bool = True, mesh=None):
+        if updater is None:
+            updater = L2Prox() if reg_param else IdentityProx()
+        super().__init__(
+            LeastSquaresGradient(), updater,
+            add_intercept=add_intercept, mesh=mesh)
+        self.optimizer.set_reg_param(reg_param)
+
+    def _create_model(self, weights, intercept):
+        return LinearRegressionModel(weights, intercept)
+
+
+class SVMWithAGD(GeneralizedLinearAlgorithm):
+    """BASELINE config 3: HingeGradient + L1Updater (sparse-model SVM)."""
+
+    def __init__(self, reg_param: float = 0.0, updater: Prox = None,
+                 add_intercept: bool = True, mesh=None):
+        super().__init__(
+            HingeGradient(),
+            updater if updater is not None else L1Prox(),
+            add_intercept=add_intercept, mesh=mesh)
+        self.optimizer.set_reg_param(reg_param)
+
+    def _create_model(self, weights, intercept):
+        return SVMModel(weights, intercept)
+
+
+class SoftmaxRegressionWithAGD(GeneralizedLinearAlgorithm):
+    """BASELINE config 4 (MNIST-8M shape): multinomial softmax, weight
+    matrix ``(D, K)``.  Put ``FusedSoftmaxGradient`` in the seat
+    (``.optimizer.set_gradient``) to fit through the CUDA kernel."""
+
+    def __init__(self, num_classes: int, reg_param: float = 0.0,
+                 updater: Prox = None, add_intercept: bool = True,
+                 mesh=None, optimizer=None):
+        super().__init__(
+            SoftmaxGradient(num_classes),
+            updater if updater is not None else L2Prox(),
+            add_intercept=add_intercept, mesh=mesh, optimizer=optimizer)
+        self.num_classes = int(num_classes)
+        self.optimizer.set_reg_param(reg_param)
+
+    def _zero_weights(self, X):
+        d = X.shape[1] + (1 if self.add_intercept else 0)
+        return np.zeros((d, self.num_classes), np.float32)
+
+    def _split_intercept(self, w):
+        if self.add_intercept:
+            return w[1:, :], w[0, :]
+        return w, None
+
+    def _create_model(self, weights, intercept):
+        return SoftmaxRegressionModel(weights, intercept)
+
+
+class SoftmaxRegressionWithLBFGS(SoftmaxRegressionWithAGD):
+    """Multinomial classification with L-BFGS in the seat: needs
+    ``api.LBFGS``, not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"SoftmaxRegressionWithLBFGS {_OPTIMIZER_FAMILY_LATER}")
+
+
+_MODEL_CLASSES.update({
+    "LogisticRegressionModel": LogisticRegressionModel,
+    "SVMModel": SVMModel,
+    "LinearRegressionModel": LinearRegressionModel,
+    "SoftmaxRegressionModel": SoftmaxRegressionModel,
+})

@@ -53,10 +53,11 @@ class BuiltLibrary:
 
 def build(name: str, sources) -> BuiltLibrary:
     """Compile ``sources`` (file names under ``csrc/``) into
-    ``_build/lib<name>-<hash>.so``, unless it exists."""
+    ``_build/lib<name>-<hash>.so``, unless it exists.  The hash covers
+    the sources and every header under ``csrc/``."""
     paths = [CSRC / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + sorted(CSRC.glob("*.cuh")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

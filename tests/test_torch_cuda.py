@@ -1,4 +1,5 @@
-"""The port's CUDA kernel on the card (``-m cuda``; skips without one).
+"""The port's CUDA kernels and models on the card (``-m cuda``; skips
+without one).
 
 This file imports only torch and the port, so that it runs where JAX is
 not installed:
@@ -121,3 +122,132 @@ def test_fused_fit_on_the_card_matches_the_plain_fit(cuda):
                              num_iterations=8, convergence_tol=0.0,
                              initial_weights=w0)
     np.testing.assert_allclose(hist, hist_plain, rtol=1e-4)
+
+
+def _softmax_case(gen, dev, n, d, k):
+    X = torch.randn((n, d), generator=gen, device=dev)
+    y = torch.randint(0, k, (n,), generator=gen, device=dev)
+    m = (torch.rand(n, generator=gen, device=dev) < 0.7).float()
+    W = torch.randn((d, k), generator=gen, device=dev) / d ** 0.5
+    return X, y, m, W
+
+
+def _assert_softmax_close(loss, grad, ref_loss, ref_grad):
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-5)
+    torch.testing.assert_close(grad, ref_grad, rtol=1e-4,
+                               atol=1e-4 * float(ref_grad.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 10, 17, 32])
+def test_softmax_kernel_matches_plain_version(cuda, k):
+    """Ragged shapes, f32 and bf16 X, masked rows, W = 0 and random; two
+    calls give the same bits and each adds one launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    for n, d in [(1003, 777), (37, 13), (4099, 785)]:
+        X, y, m, W = _softmax_case(gen, cuda, n, d, k)
+        for xt in (X, X.to(torch.bfloat16)):
+            for mask in (None, m):
+                staged = fk.stage_softmax(xt, y, k, mask)
+                for w in (torch.zeros_like(W), W):
+                    before = fk.softmax_launch_count
+                    loss, grad = fk.fused_softmax_loss_grad(k, w, staged)
+                    loss2, grad2 = fk.fused_softmax_loss_grad(k, w, staged)
+                    torch.cuda.synchronize()
+                    assert fk.softmax_launch_count == before + 2
+                    assert torch.equal(loss, loss2)
+                    assert torch.equal(grad, grad2)
+                    _assert_softmax_close(
+                        loss, grad,
+                        *fk.fused_softmax_loss_grad_reference(k, w, staged))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_class_limit(cuda, dtype):
+    """At D = 785 the kernel takes every K up to its limit (at least 32);
+    one class more raises when staged and in the wrapper, launching
+    nothing."""
+    d = 785
+    k = fk.max_classes(d, dtype)
+    assert k >= 32
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    X, y, m, W = _softmax_case(gen, cuda, 2000, d, k)
+    staged = fk.stage_softmax(X.to(dtype), y, k, m)
+    _assert_softmax_close(*fk.fused_softmax_loss_grad(k, W, staged),
+                          *fk.fused_softmax_loss_grad_reference(k, W,
+                                                                staged))
+    before = fk.softmax_launch_count
+    g = fk.FusedSoftmaxGradient(losses.SoftmaxGradient(k + 1))
+    with pytest.raises(ValueError, match="classes"):
+        g.prepare(X.to(dtype), y)
+    with pytest.raises(ValueError, match="classes"):
+        fk.fused_softmax_loss_grad(
+            k + 1, torch.zeros((d, k + 1), device=cuda), staged)
+    assert fk.softmax_launch_count == before
+
+
+@pytest.mark.cuda
+def test_softmax_kernel_rejects_what_it_does_not_take(cuda):
+    X = torch.randn((8, 4), device=cuda)
+    staged = fk.stage_softmax(X, torch.zeros(8, device=cuda), 3)
+    with pytest.raises(ValueError, match="W must be"):
+        fk.fused_softmax_loss_grad(3, torch.zeros((4, 2), device=cuda),
+                                   staged)
+    bad = fk.StagedDense(X.T, staged.y, staged.m, staged.n_valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.fused_softmax_loss_grad(3, torch.zeros((8, 3), device=cuda), bad)
+
+
+@pytest.mark.cuda
+def test_fused_softmax_fit_on_the_card_matches_the_plain_fit(cuda):
+    rng = np.random.default_rng(4)
+    n, d, k = 20_000, 64, 5
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    W = rng.standard_normal((d, k)) / np.sqrt(d)
+    y = np.argmax(X @ W + rng.gumbel(size=(n, k)), axis=1).astype(np.int32)
+    w0 = np.zeros((d, k), np.float32)
+    g = fk.FusedSoftmaxGradient(losses.SoftmaxGradient(k))
+    before = fk.softmax_launch_count
+    w, hist = port.run((X, y), g, port.SquaredL2Updater(), reg_param=1e-3,
+                       num_iterations=8, convergence_tol=0.0,
+                       initial_weights=w0)
+    assert w.device.type == "cuda" and w.shape == (d, k)
+    assert fk.softmax_launch_count > before
+    _, hist_plain = port.run((X, y), losses.SoftmaxGradient(k),
+                             port.SquaredL2Updater(), reg_param=1e-3,
+                             num_iterations=8, convergence_tol=0.0,
+                             initial_weights=w0)
+    np.testing.assert_allclose(hist, hist_plain, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_models_on_the_card_predict_and_stream_with_device_masks(cuda,
+                                                                 tmp_path):
+    """A model saved from the card loads back there; a GLM model's
+    ``predict_stream`` takes batches whose X and mask lie on the card."""
+    from spark_agd_tpu_torch.models import glm
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    X = torch.randn((30, 6), generator=gen, device=cuda)
+    mask = (torch.arange(30, device=cuda) % 3 > 0).float()
+    for model in (glm.LogisticRegressionModel(
+                      torch.randn(6, generator=gen, device=cuda), 0.2),
+                  glm.SoftmaxRegressionModel(
+                      torch.randn((6, 4), generator=gen, device=cuda),
+                      torch.randn(4, generator=gen, device=cuda))):
+        model.save(str(tmp_path / "m.npz"))
+        loaded = glm.load_model(str(tmp_path / "m.npz"))
+        assert loaded.weights.device.type == "cuda"
+        pred = loaded.predict(X).cpu().numpy()
+        np.testing.assert_array_equal(pred, model.predict(X).cpu().numpy())
+        if not hasattr(loaded, "predict_stream"):  # softmax has none
+            continue
+        streamed = np.concatenate(list(loaded.predict_stream(
+            [(X[:10], None, None), (X[10:], None, mask[10:])])))
+        keep = np.concatenate([np.ones(10, bool),
+                               mask[10:].cpu().numpy() > 0])
+        np.testing.assert_array_equal(streamed, pred[keep])

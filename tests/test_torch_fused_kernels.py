@@ -208,3 +208,129 @@ def test_sparse_input_raises():
     g = fk.FusedLogisticGradient()
     with pytest.raises(TypeError, match="later slice"):
         g.prepare(torch.eye(4).to_sparse(), torch.zeros(4))
+
+
+# --- the softmax kernel module ---------------------------------------------
+
+def _softmax_data(n, d, k, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    W = (rng.standard_normal((d, k)) / np.sqrt(d)).astype(np.float32)
+    y = rng.integers(0, k, n).astype(np.float32)
+    mask = (rng.random(n) < 0.7).astype(np.float32)
+    return X, W, y, mask
+
+
+def _port_softmax(k, X, W, y, mask):
+    g = fk.FusedSoftmaxGradient(losses.SoftmaxGradient(k))
+    staged, y_out, m_out = g.prepare(
+        torch.from_numpy(X) if isinstance(X, np.ndarray) else X,
+        torch.from_numpy(y), None if mask is None else torch.from_numpy(mask))
+    assert isinstance(staged, fk.StagedDense)
+    assert y_out is None and m_out is None
+    return g.batch_loss_and_grad(torch.from_numpy(W), staged, None, None)
+
+
+def _pallas_softmax(k, X, W, y, mask):
+    from spark_agd_tpu.ops.pallas_kernels import PallasSoftmaxGradient
+
+    g = PallasSoftmaxGradient(jlosses.SoftmaxGradient(k), interpret=True)
+    args = g.prepare(jnp.asarray(X), jnp.asarray(y),
+                     None if mask is None else jnp.asarray(mask))
+    return g.batch_loss_and_grad(jnp.asarray(W), *args)
+
+
+def _assert_softmax_close(loss, grad, ref_loss, ref_grad):
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-5)
+    np.testing.assert_allclose(np.asarray(grad), np.asarray(ref_grad),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,k,masked", [
+    (37, 13, 3, False), (37, 13, 3, True), (37, 13, 1, True),
+    (700, 130, 10, False)], ids=["37x13x3", "37x13x3-masked",
+                                 "37x13x1-masked", "700x130x10"])
+def test_softmax_matches_pallas_interpret_and_softmax_gradient(n, d, k,
+                                                              masked):
+    """Unaligned shapes: Pallas pads rows, columns and classes (Kp = 128);
+    the CUDA kernel masks the ragged edges itself."""
+    X, W, y, mask = _softmax_data(n, d, k, seed=n + k)
+    m = mask if masked else None
+    loss, grad, count = _port_softmax(k, X, W, y, m)
+    assert loss.dtype == torch.float32 and grad.shape == (d, k)
+    p_loss, p_grad, p_n = _pallas_softmax(k, X, W, y, m)
+    _assert_softmax_close(loss, grad, p_loss, p_grad)
+    j_loss, j_grad, j_n = jlosses.SoftmaxGradient(k).batch_loss_and_grad(
+        jnp.asarray(W), jnp.asarray(X), jnp.asarray(y),
+        None if m is None else jnp.asarray(m))
+    _assert_softmax_close(loss, grad, j_loss, j_grad)
+    assert int(count) == int(j_n) == int(p_n)
+
+
+def test_softmax_bf16_input():
+    """bf16 X stays bf16 when staged (no copy) and is widened to f32 in
+    the kernel: held to the Pallas kernel on the same bf16 X."""
+    X, W, y, mask = _softmax_data(96, 24, 5, seed=3)
+    X16 = torch.from_numpy(X).to(torch.bfloat16)
+    g = fk.FusedSoftmaxGradient(losses.SoftmaxGradient(5))
+    staged, _, _ = g.prepare(X16, torch.from_numpy(y),
+                             torch.from_numpy(mask))
+    assert staged.X.dtype == torch.bfloat16
+    assert staged.X.data_ptr() == X16.data_ptr()
+    loss, grad, _ = g.batch_loss_and_grad(torch.from_numpy(W), staged, None)
+    Xj = jnp.asarray(X16.to(torch.float32).numpy()).astype(jnp.bfloat16)
+    p_loss, p_grad, _ = _pallas_softmax(5, Xj, W, y, mask)
+    _assert_softmax_close(loss, grad, p_loss, p_grad)
+
+
+def test_softmax_prepare_does_not_copy_contiguous_x():
+    X, W, y, _ = _softmax_data(40, 7, 4, seed=5)
+    Xt = torch.from_numpy(X)
+    labels = torch.from_numpy(y.astype(np.int32))
+    staged = fk.stage_softmax(Xt, labels, 4)
+    assert staged.X is Xt
+    assert staged.y.dtype == torch.float32
+    assert torch.equal(staged.y, torch.from_numpy(y))
+    assert bool((staged.m == 1).all()) and int(staged.n_valid) == 40
+
+
+def test_softmax_wrapper_rejects_other_gradients():
+    with pytest.raises(TypeError, match="FusedSoftmaxGradient wraps"):
+        fk.FusedSoftmaxGradient(losses.LogisticGradient())
+    with pytest.raises(TypeError, match="later slice"):
+        fk.FusedSoftmaxGradient(losses.SoftmaxGradient(3)).prepare(
+            torch.eye(4).to_sparse(), torch.zeros(4))
+    with pytest.raises(ValueError, match="2-D X"):
+        fk.stage_softmax(torch.zeros(8), torch.zeros(8), 3)
+
+
+def test_softmax_unprepared_call_and_cpu_launch_count():
+    X, W, y, mask = _softmax_data(50, 9, 4, seed=6)
+    before = fk.softmax_launch_count
+    g = fk.FusedSoftmaxGradient(losses.SoftmaxGradient(4))
+    loss, grad, n = g.batch_loss_and_grad(
+        torch.from_numpy(W).double(), torch.from_numpy(X),
+        torch.from_numpy(y), torch.from_numpy(mask))
+    assert loss.dtype == torch.float64 and grad.dtype == torch.float64
+    ref = losses.SoftmaxGradient(4).batch_loss_and_grad(
+        torch.from_numpy(W), torch.from_numpy(X), torch.from_numpy(y),
+        torch.from_numpy(mask))
+    _assert_softmax_close(loss, grad, ref[0], ref[1])
+    assert int(n) == int(ref[2])
+    assert fk.softmax_launch_count == before
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_fused_logistic_loss_grad_matches_jax_back_compat_wrapper(masked):
+    from spark_agd_tpu.ops.pallas_kernels import (
+        fused_logistic_loss_grad as pallas_logistic_loss_grad)
+
+    X, w, y, mask = _data(seed=7)
+    m = mask if masked else None
+    loss, grad = fk.fused_logistic_loss_grad(
+        torch.from_numpy(w), torch.from_numpy(X), torch.from_numpy(y),
+        None if m is None else torch.from_numpy(m))
+    p_loss, p_grad = pallas_logistic_loss_grad(
+        jnp.asarray(w), jnp.asarray(X), jnp.asarray(y),
+        None if m is None else jnp.asarray(m), interpret=True)
+    _assert_kernel_close(loss, grad, p_loss, p_grad)

@@ -105,6 +105,9 @@ import spark_agd_tpu_torch.api, spark_agd_tpu_torch.convert
 import spark_agd_tpu_torch.data.device_synth
 import spark_agd_tpu_torch.data.synthetic
 import spark_agd_tpu_torch.ops.fused_kernels
+import spark_agd_tpu_torch.models, spark_agd_tpu_torch.models.glm
+import spark_agd_tpu_torch.models.evaluation
+import spark_agd_tpu_torch.utils.checkpoint
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m == "jax" or m.startswith("jax.")
              or m == "spark_agd_tpu" or m.startswith("spark_agd_tpu."))
@@ -158,6 +161,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             port.SquaredL2Updater()).optimize((X, y), w0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         device_synth.class_logistic(8, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_synth.planted_softmax(8, 3, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_synth.softmax_params(3, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         port.run((X, y), port.LogisticGradient(), port.SquaredL2Updater(),
                  initial_weights=w0, device="cuda")
@@ -228,6 +235,32 @@ def test_planted_dense_linreg_on_cpu():
                                              device="cpu")
     w = torch.linalg.lstsq(X, y[:, None]).solution[:, 0]
     assert float((X @ w - y).abs().max()) < 1e-4
+
+
+def test_planted_softmax_on_cpu(monkeypatch):
+    n, d, k = 600, 12, 5
+    monkeypatch.setattr(device_synth, "_BLOCK_ROWS", 256)  # three blocks
+    X, y = device_synth.planted_softmax(n, d, k, seed=4, device="cpu")
+    assert X.shape == (n, d) and X.dtype == torch.float32
+    assert y.shape == (n,) and y.dtype == torch.int32
+    assert int(y.min()) >= 0 and int(y.max()) < k
+    assert len(y.unique()) == k
+    X2, y2 = device_synth.planted_softmax(n, d, k, seed=4, device="cpu")
+    assert torch.equal(X, X2) and torch.equal(y, y2)
+    # the in-place block fill equals generating each block on its own
+    W = device_synth.softmax_params(d, k, seed=4, device="cpu")
+    assert W.shape == (d, k)
+    blocks = [device_synth.softmax_block(W, min(256, n - r0), seed=4,
+                                         block=b)
+              for b, r0 in enumerate(range(0, n, 256))]
+    assert torch.equal(X, torch.cat([b[0] for b in blocks]))
+    assert torch.equal(y, torch.cat([b[1] for b in blocks]))
+    # labels follow the planted model: its argmax beats chance
+    acc = float(((X @ W).argmax(1) == y).float().mean())
+    assert acc > 1.5 / k
+    # another seed, other data
+    X3, _ = device_synth.planted_softmax(n, d, k, seed=5, device="cpu")
+    assert not torch.equal(X, X3)
 
 
 def test_numpy_synthetic_copy_matches_the_jax_package():
