@@ -18,9 +18,10 @@ Phases, each printing one JSON line:
    ragged shapes and at the kernel's width limit), each call repeated
    to check that it is bit-identical; one column past the limit raises;
 4. softmax_kernel: the CUDA softmax kernel against its plain version
-   (N = 100,003, D in {784, 785, 777}, K in {1, 2, 3, 10, 17, 32} and the
-   class limit, f32/bf16 x masked/unmasked x W = 0/random), each call
-   repeated; one class past the limit raises;
+   (N = 100,003, D in {784, 785, 777}, K in {1, 2, 3, 8, 9, 10, 16, 17,
+   32} and the class limit, f32/bf16 x masked/unmasked x W = 0/random),
+   each call repeated; at D = 785, K = 10 also against f64 sums; one
+   class past the limit raises;
 5. main path: a 10,000,000 x 1,000 f32 class-logistic dataset made on the
    card, fit with ``AcceleratedGradientDescent(FusedLogisticGradient(),
    SquaredL2Updater()).setRegParam(0.1).setNumIterations(40)
@@ -49,8 +50,19 @@ Launch counts are set to 0 just before each path (phases 5 and 7) and
 read just after it.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
 available.
+
+``python3 chip_smoke.py --ab NAME=SOURCE [...] [--seeds 3,4]`` runs none
+of the phases.  It times versions of the softmax kernel side by side
+instead: each SOURCE is a copy of ``csrc/softmax_loss_grad.cu`` with its
+C interface (the shipped file, a parent commit's, an edited variant),
+with ``tile_common.cuh`` beside it.  All are built at once, then for
+each seed phase 8's data and weights are made (planted-softmax data,
+the intercept column, W from 40 iterations of the plain fit), and the
+builds are timed in turns, A, B, ..., then back, each held to the f64
+sums; one ``ab`` line per seed.
 """
 
+import argparse
 import concurrent.futures
 import json
 import os
@@ -209,6 +221,16 @@ def same_stop(res, res_plain, hist, hist_plain):
                              rtol=1e-4, atol=0.0)))
 
 
+def build_report(b):
+    """A build's time, file and ``ptxas`` report (registers, spills)."""
+    lines = b.log.splitlines()
+    return {"nvcc_seconds": b.seconds, "library": b.path.name,
+            "ptxas": sorted({ln.split(":", 1)[1].strip() for ln in lines
+                             if "Used" in ln and "registers" in ln}),
+            "spills": sorted({ln.strip() for ln in lines if "spill" in ln
+                              and " 0 bytes spill" not in ln})}
+
+
 def phase_build(fk):
     """Both libraries, one ``nvcc`` each, started together."""
     t0 = time.perf_counter()
@@ -218,13 +240,7 @@ def phase_build(fk):
                                   (fk.library, fk.softmax_library))))
     out = {"phase": "build", "seconds": time.perf_counter() - t0}
     for name, b in built.items():
-        lines = b.log.splitlines()
-        out[name] = {
-            "nvcc_seconds": b.seconds, "library": b.path.name,
-            "ptxas": sorted({ln.split(":", 1)[1].strip() for ln in lines
-                             if "Used" in ln and "registers" in ln}),
-            "spills": sorted({ln.strip() for ln in lines if "spill" in ln
-                              and " 0 bytes spill" not in ln})}
+        out[name] = build_report(b)
     out["max_width"] = {"f32": fk.max_width(torch.float32),
                         "bf16": fk.max_width(torch.bfloat16)}
     out["softmax_max_classes_d785"] = {
@@ -294,7 +310,8 @@ def phase_softmax_kernel(fk):
     for d in (784, 785, 777):
         X32 = torch.randn((n, d), generator=gen, device=dev)
         mask = (torch.rand(n, generator=gen, device=dev) < 0.7).float()
-        ks = [1, 2, 3, 10, 17, 32]
+        # 8, 9 and 16: the edges of the one- and two-n8-tile buckets
+        ks = [1, 2, 3, 8, 9, 10, 16, 17, 32]
         if d == 785:
             ks = sorted(set(ks) | {fk.max_classes(d, torch.float32),
                                    fk.max_classes(d, torch.bfloat16)})
@@ -318,11 +335,23 @@ def phase_softmax_kernel(fk):
                         worst_grad = max(worst_grad, ge)
                         cases += 1
                 rows, grid = fk.softmax_launch_shape(X, k)
-                emit({"phase": "softmax_kernel", "shape": [n, d],
-                      "classes": k, "x_dtype": str(xt).replace("torch.", ""),
-                      "tile_rows": rows, "grid": grid, "cases": cases,
-                      "bit_identical": True, "max_loss_rel_err": worst_loss,
-                      "max_grad_abs_err": worst_grad})
+                out = {"phase": "softmax_kernel", "shape": [n, d],
+                       "classes": k, "x_dtype": str(xt).replace("torch.", ""),
+                       "tile_rows": rows, "grid": grid, "cases": cases,
+                       "bit_identical": True, "max_loss_rel_err": worst_loss,
+                       "max_grad_abs_err": worst_grad}
+                if d == 785 and k == 10:
+                    # held to f64 sums too: the tensor-core products keep
+                    # f32 accuracy only with their correction passes
+                    staged = fk.stage_softmax(X, y, k, mask)
+                    exact = softmax_f64(k, W_rand, staged)
+                    out["f64_loss_rel_err"], out["f64_grad_max_abs_err"] = \
+                        compare_softmax(
+                            fk, k, W_rand, staged,
+                            f"softmax {n}x{d} K={k} {xt} vs f64",
+                            plain=lambda: (exact[0].float(),
+                                           exact[1].float()))
+                emit(out)
                 del X
         del X32, mask
         torch.cuda.empty_cache()
@@ -658,7 +687,69 @@ def softmax_path(port, fk, device_synth):
             "two_matmuls_ms": two_mm_ms}
 
 
-def main():
+def softmax_ab(port, fk, device_synth, specs, seeds):
+    """``--ab``: the builds ``specs`` (NAME=SOURCE) of the softmax kernel
+    timed in turns at phase 8's shape, each held to the f64 sums."""
+    import ctypes
+
+    from spark_agd_tpu_torch.models import glm
+
+    names = [s.split("=", 1)[0] for s in specs]
+    sources = [os.path.abspath(s.split("=", 1)[1]) for s in specs]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(specs)) as pool:
+        libs = list(pool.map(fk.softmax_library, sources))
+    emit({"phase": "ab_build", "seconds": time.perf_counter() - t0,
+          "builds": {name: dict(build_report(b), source=src)
+                     for name, src, (_, b) in zip(names, sources, libs)}})
+    d = D_SM + 1
+    for seed in seeds:
+        X, y = device_synth.planted_softmax(N_SM, D_SM, K_SM, seed=seed)
+        X = glm._add_intercept(X)
+        W, _ = port.run((X, y), port.SoftmaxGradient(K_SM),
+                        port.SquaredL2Updater(), reg_param=REG_SM,
+                        num_iterations=ITERS, convergence_tol=TOL,
+                        initial_weights=torch.zeros((d, K_SM),
+                                                    device="cuda"))
+        staged = fk.stage_softmax(X, y, K_SM)
+        exact_loss, exact_grad = softmax_f64(K_SM, W, staged)
+        out = {"phase": "ab", "seed": seed, "shape": [N_SM, d],
+               "classes": K_SM, "grad_abs_max": float(exact_grad.abs().max()),
+               "card_before": card_state()}
+        for name, (lib, _) in zip(names + names[::-1], libs + libs[::-1]):
+            rows, grid = ctypes.c_int(), ctypes.c_int()
+            if lib.softmax_plan(N_SM, d, K_SM, 4,
+                                fk._device_sms(X.device.index),
+                                ctypes.byref(rows), ctypes.byref(grid)):
+                raise AssertionError(f"{name}: softmax_plan refused the shape")
+            plan = rows.value, grid.value
+
+            def call(lib=lib, plan=plan):
+                return fk._launch(lib, "softmax_loss_grad", "softmax", K_SM,
+                                  W, staged, plan)
+
+            loss, grad = call()
+            r = out.setdefault(name, {"tile_rows_grid": list(plan), "ms": []})
+            r["ms"].append(time_ms(call))
+            r["grad_max_abs_err_vs_f64"] = float(
+                (grad.double() - exact_grad).abs().max())
+            r["loss_rel_err_vs_f64"] = abs(
+                float(loss) - float(exact_loss)) / abs(float(exact_loss))
+        out["card_after"] = card_state()
+        emit(out)
+        del X, y, staged, exact_grad
+        torch.cuda.empty_cache()
+
+
+def main(argv):
+    parser = argparse.ArgumentParser(
+        description="Drive the PyTorch port on one CUDA card.")
+    parser.add_argument("--ab", nargs="+", metavar="NAME=SOURCE",
+                        help="time these builds of the softmax kernel "
+                             "instead of running the phases")
+    parser.add_argument("--seeds", default="3",
+                        help="data seeds of --ab, comma-separated")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs the port on a CUDA card", file=sys.stderr)
@@ -677,6 +768,10 @@ def main():
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+    if args.ab:
+        softmax_ab(port, fk, device_synth, args.ab,
+                   [int(s) for s in args.seeds.split(",")])
+        return 0
 
     # 2-4. build, and each kernel against its plain version
     phase_build(fk)
@@ -697,4 +792,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

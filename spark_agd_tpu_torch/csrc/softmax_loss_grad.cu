@@ -10,57 +10,89 @@
 // with lse_i = max_k z_ik + log(sum_k exp(z_ik - max_k z_ik)), in f32.
 //
 // What bounds it on this card: reading X once.  At the main path's shape
-// (8.1M x 785 f32, K = 10) that is 25.43 GB / 3.35 TB/s = 7.6 ms, while
-// the 4*N*D*K f32 flops of the two products take 254 GFLOP / 67 TFLOP/s
-// = 3.8 ms on the CUDA cores: bytes bind.  Two library products
-// (X @ W, then X^T @ resid) read X twice; this kernel keeps each row tile
-// in shared memory between them, so X crosses the memory bus once per
-// evaluation, and loads the next tile (cp.async) while it works on the
-// current one.  It stays well above the bound; the hypothesis, not yet
-// profiled, is instruction issue: W and the gradient accumulator fill a
-// quarter of shared memory, so one block of eight warps runs on each SM,
-// likely too few to hide the shared-memory latency of the two products
-// (PERF.md has the measurements).
+// (8.1M x 785 f32, K = 10) that is 25.43 GB / 3.35 TB/s = 7.6 ms.  Both
+// products run on the tensor cores in TF32 passes (three for the
+// gradient, four for the logits) with K padded to the 16-class fragment:
+// 7 * 2 * N * D * 16 = 1.42 TFLOP, 2.9 ms at the data sheet's 495
+// TFLOP/s dense TF32, so bytes bind.  Two library
+// products (X @ W, then X^T @ resid) read X twice; this kernel keeps each
+// row tile in shared memory between them, so X crosses the memory bus
+// once per evaluation, and loads the next tile (cp.async) while it works
+// on the current one.  On the card it is no faster than the CUDA-core
+// kernel it replaced and well above the byte bound: each product's loop
+// is latency-bound, and splitting X costs about as many instructions as
+// the FMAs that the tensor cores take over (PERF.md).
 //
-// Design.  Stage 1: every block walks a contiguous range of rows in tiles
-// of `tile_rows` full rows copied to shared memory (tile_common.cuh), two
-// buffers deep.  W is staged once per block, transposed to (KB, D) so
-// that lanes on neighbouring columns read neighbouring banks; the
-// gradient accumulator is (K, D) in shared memory.  Per tile:
-//   - logits: each warp takes groups of R rows, its lanes strided over D,
-//     holding R x KB dot partials in registers; a halving shuffle
-//     reduction and a per-warp scratch row give lane r row r's logits;
-//   - lane r of the warp then finishes row r of the group: row max, lse,
-//     the picked logit selected by class == y (never logit * onehot),
-//     loss += (lse - picked) * m with compensated adds, and
+// Tensor cores at f32 accuracy.  Every product is
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 in three passes,
+// a_hi b_hi + a_hi b_lo + a_lo b_hi, hi and lo rounded to TF32 to
+// nearest, ties away from zero, as cvt.rna.tf32.f32 rounds (split_tf32);
+// the dropped lo*lo term is about 2^-22 relative.  A bf16 X is exact in
+// TF32: its lo is zero and that pass is skipped.  hi + lo keeps 22 of
+// f32's 24 bits.  For X and the residuals that error differs from row to
+// row and averages out; W's is the same for every row, and over 8.1M rows
+// it put the gradient at up to 0.99 of its f64 tolerance (PERF.md).  So
+// the logit product has a fourth pass, x_hi w_lo2, with W split exactly:
+// hi, lo its remainder cut to TF32, lo2 what is left (at most 2 bits,
+// exact in TF32; split_w).  The tensor cores add a product's terms to C
+// with truncation after aligning them to the largest, which against a
+// large running C shaves every row's logits the same way; so hi*hi starts
+// from zero at each k-step and is added to its sum with a rounded f32
+// add, and the small terms run on in a second accumulator (mma3).  Fragments (PTX ISA, m16n8k8 .tf32; lane = 4g + t):
+//   A (16 x 8, row): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B (8 x 8, col):  b0 (k = t, n = g), b1 (k = t+4, n = g)
+//   C (16 x 8):      c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+//
+// Design.  Stage 1: one block of 16 warps an SM walks a contiguous range
+// of rows in tiles of at most 16 rows (one m-tile), copied to shared
+// memory (tile_common.cuh) two buffers deep, each to its own address
+// modulo 16 so that nothing is padded.  D is cut into 8-column steps, and
+// warp w owns the steps w, w + 16, ... of both products.  Per tile:
+//   - logits Z (rows x classes) = X_tile W: A = X, B = W (classes in n8
+//     tiles), contraction over the warp's steps of D; each warp writes its
+//     partial logits to shared memory.  W is staged once per block,
+//     transposed (classes x D), as (hi, w - hi) pairs when shared
+//     memory has room for them and a 16-row tile (one 8-byte load per B
+//     element; 0.5 ms faster at the main shape than splitting at each
+//     use, PERF.md), else raw and split at each use (wide K);
+//   - the middle: one thread per (row, class), KB threads a row: the sum
+//     of the warps' partials in warp order, then row max, sum of
+//     exponentials and the picked logit (select-then-sum: the logit whose
+//     class index equals the label) by xor-shuffles within the row's
+//     lanes; loss += (lse - picked) * m with compensated adds;
 //     resid = (softmax - onehot) * m into shared memory;
-//   - gradient: each thread owns CB columns and accumulates
-//     x[r, d] * resid[r, k] for all classes in registers over the tile,
-//     reading the tile again from shared memory, never from device
-//     memory, then adds them to its own columns of the accumulator.
-// Each block writes its partial loss and partial gradient.  Stage 2 sums
-// the partials in block order.  No float atomics anywhere: two calls on
-// the same inputs give the same bits.  X may be f32 or bf16 (widened to
-// f32 in registers); y, m, W and every accumulator are f32.  Ragged rows,
-// columns and classes are masked here, so nothing is padded in memory.
+//   - gradient G^T (classes x D) += R^T (classes x rows) X_tile: A = R^T
+//     (16 classes an m-tile, split once per tile into registers), B = X
+//     (the warp's steps of D as n8 tiles), contraction over the tile's
+//     rows in k8 steps; each n-tile's sums are added to the block's
+//     (K, D) accumulator in shared memory once per tile.
+// Ragged rows, columns and classes are masked where the fragments are
+// loaded (zeros), so a short tile, a width that is not a multiple of 8
+// and K below its bucket need no padding in memory.  Each block writes
+// its partial loss and partial gradient; stage 2 sums the partials in
+// block order.  No float atomics anywhere: two calls on the same inputs
+// give the same bits.
 //
-// Classes: the kernel is compiled for class buckets KB (kBuckets); a call
-// with K classes runs the smallest bucket KB >= K, the classes K..KB-1
-// masked out.  K is at most kMaxClasses, and less where W, the
-// accumulator and one row of X do not fit a block's shared memory
-// (softmax_max_classes).
+// Classes: the kernel is compiled for class buckets KB in {8, 16, 32}
+// (one, two or four n8 tiles); a call with K classes runs the smallest
+// bucket KB >= K, the classes K..KB-1 masked out.  K is at most
+// kMaxClasses, and less where W, the accumulator and one row of X do not
+// fit a block's shared memory (softmax_max_classes).
 
 #include "tile_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+// kThreads / KB >= kMaxTileRows: the middle gives every (row, class) of
+// a tile a thread.
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxClasses = 32;
-constexpr int kMaxTileRows = 64;
-// 10 is MNIST's class count (the main path); powers of two cover the rest
-// of 1-32.
-constexpr int kBuckets[] = {1, 2, 4, 8, 10, 16, 32};
+// One 16-row m-tile of the logit product, two 8-row k-steps of the
+// gradient product.
+constexpr int kMaxTileRows = 16;
+constexpr int kMaxKSteps = kMaxTileRows / 8;
+constexpr int kBuckets[] = {8, 16, 32};
 
 enum XType { kF32 = 0, kBF16 = 1 };
 
@@ -71,123 +103,177 @@ int bucket_of(int k) {
   return 0;
 }
 
-// Rows a warp's logit pass holds at once (their logits fill about one
-// 32-float group), and columns a thread's gradient pass holds at once
-// (about 48 f32 accumulators).
-__host__ __device__ constexpr int group_rows(int kb) {
-  return 32 / kb < 2 ? 2 : (32 / kb > 8 ? 8 : 32 / kb);
-}
-__host__ __device__ constexpr int thread_cols(int kb) {
-  return 48 / kb < 1 ? 1 : (48 / kb > 4 ? 4 : 48 / kb);
-}
-// Row stride of the residual tile: a multiple of 4 floats, for 16-byte
-// loads.
-__host__ __device__ constexpr int resid_stride(int kb) {
-  return (kb + 3) / 4 * 4;
-}
-// A warp's group logits (group_rows x KB partial dots per lane), padded
-// to a multiple of 32 for the halving reduction.
-__host__ __device__ constexpr int group_width(int kb) {
-  return (group_rows(kb) * kb + 31) / 32 * 32;
+// Row stride, in floats, of the partial-logit and residual tiles: at
+// least 16 classes plus 8, so that the lanes of one fragment load or
+// store hit distinct banks.
+__host__ __device__ constexpr int class_stride(int kb) {
+  return (kb > 16 ? kb : 16) + 8;
 }
 
-// Shared-memory layout of one block: the residual tile (tile_rows x
-// resid_stride floats) first, so that it is 16-byte aligned; one loss
-// slot per warp; one group's logits per warp; W transposed (KB x D); the
-// gradient accumulator (K x D); then two X tile buffers (the next tile
-// loads while the block works on the current one), each 16-byte aligned
-// with 16 bytes of slack so that its byte offset modulo 16 can match the
-// tile's address in device memory.
-__host__ __device__ inline int64_t x_tile_offset(int64_t d, int k, int kb,
-                                                 int tile_rows) {
-  return round_up(
-      4 * (int64_t(tile_rows) * resid_stride(kb) + kWarps +
-           kWarps * group_width(kb) + kb * d + k * d),
-      16);
+// The smallest s >= v with s % m == r.
+__host__ __device__ inline int64_t stride_at(int64_t v, int64_t m,
+                                             int64_t r) {
+  return v + ((r - v % m) % m + m) % m;
 }
 
-__host__ __device__ inline int64_t tile_buffer_bytes(int64_t d,
-                                                     int tile_rows,
-                                                     int itemsize) {
-  return round_up(int64_t(tile_rows) * d * itemsize + kTileSlack, 16);
+// Strides of the staged W and the gradient accumulator (columns padded to
+// a multiple of 8, then to a stride whose fragment loads are free of bank
+// conflicts): W split into (hi, lo) float2 pairs at s % 16 == 4, raw W at
+// s % 32 == 4, the accumulator (float2 read-modify-writes) at s % 32 == 8.
+__host__ __device__ inline int64_t w_stride(int64_t d, bool split) {
+  return stride_at(round_up(d, 8), split ? 16 : 32, 4);
+}
+__host__ __device__ inline int64_t g_stride(int64_t d) {
+  return stride_at(round_up(d, 8), 32, 8);
 }
 
-__host__ __device__ inline int64_t smem_bytes(int64_t d, int k, int kb,
-                                              int tile_rows, int itemsize) {
-  return x_tile_offset(d, k, kb, tile_rows) +
-         2 * tile_buffer_bytes(d, tile_rows, itemsize);
-}
+// Shared-memory layout of one block, byte offsets: the residual tile
+// (rows padded to 8 x class_stride); the warps' partial logits (kWarps x
+// rows x class_stride); one loss slot per warp; the staged W (k x
+// w_stride, float2 pairs or floats); the gradient accumulator (k x
+// g_stride); then two X tile buffers (the next tile loads while the block
+// works on the current one), each 16-byte aligned with 16 bytes of slack
+// so that its byte offset modulo 16 can match the tile's address in
+// device memory.
+struct Layout {
+  int64_t zp, loss, w, g, x, x_buf, total;
+  __host__ __device__ Layout(int64_t d, int k, int kb, int rows,
+                             int itemsize, bool split) {
+    const int64_t cs = class_stride(kb);
+    zp = 4 * round_up(rows, 8) * cs;
+    loss = zp + 4 * kWarps * int64_t(rows) * cs;
+    w = round_up(loss + 4 * kWarps, 16);
+    g = w + int64_t(k) * w_stride(d, split) * (split ? 8 : 4);
+    x = round_up(g + 4 * int64_t(k) * g_stride(d), 16);
+    x_buf = round_up(int64_t(rows) * d * itemsize + kTileSlack, 16);
+    total = x + 2 * x_buf;
+  }
+};
 
-// Most rows (at most kMaxTileRows) whose block fits in `budget` bytes.
-int fit_rows(int64_t d, int k, int kb, int itemsize, int64_t budget) {
+// Most rows (at most kMaxTileRows) whose block fits shared memory.
+int fit_rows(int64_t d, int k, int kb, int itemsize, bool split) {
   for (int rows = kMaxTileRows; rows >= 1; --rows)
-    if (smem_bytes(d, k, kb, rows, itemsize) <= budget) return rows;
+    if (Layout(d, k, kb, rows, itemsize, split).total <= kSmemBlock)
+      return rows;
   return 0;
 }
 
-// Rows of X one block keeps in shared memory: a multiple of one logit
-// pass of all warps (kWarps * R rows), small enough for two blocks an SM
-// where that fits, else for one; when not even one pass fits, whole row
-// groups (a multiple of R), else any rows; 0 when not even one row fits.
-int choose_tile_rows(int64_t d, int k, int itemsize) {
+// Tile rows and W staging for X of width d with k classes: a whole
+// 16-row m-tile with W split once where that fits a block's shared
+// memory; else raw W and as many rows as fit.  Returns false when not
+// even one row fits.
+bool choose_plan(int64_t d, int k, int itemsize, int* rows_out,
+                 bool* split_out) {
   const int kb = bucket_of(k);
-  if (kb == 0) return 0;
-  const int r = group_rows(kb);
-  const int unit = kWarps * r;
-  const int64_t budgets[] = {kSmemSM / 2 - kSmemReserved, kSmemBlock};
-  for (int64_t budget : budgets) {
-    const int rows = fit_rows(d, k, kb, itemsize, budget);
-    if (rows >= unit) return rows - rows % unit;
-  }
-  const int rows = fit_rows(d, k, kb, itemsize, kSmemBlock);
-  return rows >= r ? rows - rows % r : rows;
-}
-
-// Sums v[0..N) over the warp by recursive halving: at lane offset O each
-// lane keeps one half of its entries and adds its partner's copy of that
-// half, N/2 + N/4 + ... + N/32 shuffles in all instead of 5N.  Afterwards
-// lane l holds the sums of entries l*(N/32) .. l*(N/32) + N/32 - 1 in
-// v[0..N/32).  The order of the sums is fixed.
-template <int N, int O>
-__device__ __forceinline__ void warp_sum_halving(float* v, int lane) {
-  if constexpr (O > 0) {
-    constexpr int H = N / 2;
-    const bool upper = (lane & O) != 0;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float send = upper ? v[i] : v[H + i];
-      const float keep = upper ? v[H + i] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  if (kb == 0) return false;
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool split = pass == 0;
+    const int rows = fit_rows(d, k, kb, itemsize, split);
+    if (rows == kMaxTileRows || (!split && rows >= 1)) {
+      *rows_out = rows;
+      *split_out = split;
+      return true;
     }
-    warp_sum_halving<H, O / 2>(v, lane);
+  }
+  return false;
+}
+
+// ---- tensor-core pieces -------------------------------------------------
+
+// cvt.rna.tf32.f32 (nearest, ties away from zero) as the two integer
+// operations it compiles to for a finite v, without its test for inf and
+// NaN: an inf or NaN in X still makes lo, and so the result, NaN.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo + (about 2^-22 v), both TF32.  lo is handed to the tensor
+// cores unmasked: they ignore the low 13 bits of a .tf32 operand, so
+// adding half its last place is already round-to-nearest (ties away).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;
+}
+
+// c += a b for one m16n8k8 TF32 fragment triple.
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// w - hi (exact in f32, up to 13 bits) as lo, cut to TF32, and lo2, the
+// rest: hi + lo + lo2 == w exactly, and lo2 is exact in TF32.
+__device__ __forceinline__ void split_w(float rest, uint32_t& lo,
+                                        uint32_t& lo2) {
+  lo = __float_as_uint(rest) & 0xffffe000u;
+  lo2 = __float_as_uint(rest - __uint_as_float(lo));
+}
+
+// An element of X (widened to f32) as (hi, lo) TF32 halves; a bf16 value
+// is exact in TF32 (lo = 0, and its pass is skipped).
+template <typename T>
+__device__ __forceinline__ void split_x(float v, uint32_t& hi, uint32_t& lo) {
+  if constexpr (sizeof(T) == 4) {
+    split_tf32(v, hi, lo);
+  } else {
+    hi = __float_as_uint(v);
+    lo = 0u;
   }
 }
 
-template <typename T, int KB>
+// The three passes of one fragment product: hi*hi into `big`, the two
+// small terms into `small`; `kXLo` says whether the X operand has a lo
+// half (f32) or not (bf16).  The tensor cores add a product's terms to C
+// with truncation after aligning them to the largest, so a running C
+// would shave every hi*hi term toward zero, by the same sign on every
+// row: hi*hi starts from zero at each call and its result is added to
+// `big` with a rounded f32 add.  The small terms (2^-11 of it) run on in
+// `small`.
+template <bool kXisA, bool kXLo>
+__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
+                                     const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  float hh[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(hh, ah, bh);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) big[i] += hh[i];
+  if (kXisA ? true : kXLo) mma_tf32(small, ah, bl);
+  if (kXisA ? kXLo : true) mma_tf32(small, al, bh);
+}
+
+template <typename T, int KB, bool kSplitW>
 __global__ void __launch_bounds__(kThreads, 1)
     softmax_partials(const T* __restrict__ X, const float* __restrict__ y,
                      const float* __restrict__ mask,
                      const float* __restrict__ W, int64_t n, int d, int k,
                      int tile_rows, float* __restrict__ partial_loss,
                      float* __restrict__ partial_grad) {
-  constexpr int R = group_rows(KB);
-  constexpr int CB = thread_cols(KB);
-  constexpr int RS = resid_stride(KB);
-  constexpr int V = group_width(KB);
-  constexpr int P = V / 32;
+  constexpr int NT = KB / 8;                // logit n-tiles (classes)
+  constexpr int MG = (KB + 15) / 16;        // gradient m-tiles (classes)
+  constexpr int CS = class_stride(KB);
+  constexpr bool kXLo = sizeof(T) == 4;     // f32 X has a lo half
+  const Layout lay(d, k, KB, tile_rows, int(sizeof(T)), kSplitW);
   extern __shared__ __align__(16) unsigned char smem[];
-  float* resid_s = reinterpret_cast<float*>(smem);  // [tile_rows][RS]
-  float* warp_loss_s = resid_s + int64_t(tile_rows) * RS;
-  float* group_s = warp_loss_s + kWarps;  // [kWarps][V]
-  float* wt_s = group_s + kWarps * V;     // [KB][d]
-  float* g_s = wt_s + KB * d;             // [k][d]
-  unsigned char* x_buf0 = smem + x_tile_offset(d, k, KB, tile_rows);
-  const int64_t x_buf_bytes =
-      tile_buffer_bytes(d, tile_rows, int(sizeof(T)));
+  float* resid_s = reinterpret_cast<float*>(smem);  // [rows8][CS]
+  float* zp_s = reinterpret_cast<float*>(smem + lay.zp);
+  float* warp_loss_s = reinterpret_cast<float*>(smem + lay.loss);
+  float* g_s = reinterpret_cast<float*>(smem + lay.g);  // [k][GS]
+  unsigned char* x_buf0 = smem + lay.x;
+  const int WS = int(w_stride(d, kSplitW));
+  const int GS = int(g_stride(d));
+  const int ksteps = (d + 7) / 8;  // 8-column steps (and n-tiles) of D
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int64_t nblocks = gridDim.x;
   const int64_t rows_per_block = (n + nblocks - 1) / nblocks;
   const int64_t r_begin = min64(n, int64_t(blockIdx.x) * rows_per_block);
@@ -197,151 +283,200 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int rows = int(min64(tile_rows, r_end - tile0));
     copy_tile_async<kThreads>(X + tile0 * d,
                               int64_t(rows) * d * int64_t(sizeof(T)),
-                              x_buf0 + b * x_buf_bytes, X, X + n * d);
+                              x_buf0 + b * lay.x_buf, X, X + n * d);
   };
   if (r_begin < r_end) load(r_begin, 0);
   cp_async_commit();
 
-  for (int64_t i = tid; i < KB * d; i += kThreads) {
-    const int64_t kk = i / d, c = i % d;
-    wt_s[i] = kk < k ? W[c * k + kk] : 0.f;
+  // W transposed to (k, WS), zero past column d: as (hi, w - hi) pairs,
+  // or raw
+  const int dpad = ksteps * 8;
+  for (int64_t i = tid; i < int64_t(k) * dpad; i += kThreads) {
+    const int kk = int(i / dpad), c = int(i % dpad);
+    const float v = c < d ? W[int64_t(c) * k + kk] : 0.f;
+    if constexpr (kSplitW) {
+      const float hi = __uint_as_float(to_tf32(v));
+      reinterpret_cast<float2*>(smem + lay.w)[kk * WS + c] =
+          make_float2(hi, v - hi);
+    } else {
+      reinterpret_cast<float*>(smem + lay.w)[kk * WS + c] = v;
+    }
   }
-  for (int64_t i = tid; i < k * d; i += kThreads) g_s[i] = 0.f;
+  for (int64_t i = tid; i < int64_t(k) * GS; i += kThreads) g_s[i] = 0.f;
   Kahan loss_acc;
+
+  // B fragment of W for k-step `s` and n-tile `nt`, as (hi, lo, lo2)
+  auto w_frag = [&](int s, int nt, uint32_t (&bh)[2], uint32_t (&bl)[2],
+                    uint32_t (&bl2)[2]) {
+    const int cls = nt * 8 + g;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = s * 8 + t + 4 * h;
+      float2 v;  // (hi, w - hi)
+      if constexpr (kSplitW) {
+        v = cls < k
+            ? reinterpret_cast<const float2*>(smem + lay.w)[cls * WS + c]
+            : make_float2(0.f, 0.f);
+      } else {
+        const float w = cls < k
+            ? reinterpret_cast<const float*>(smem + lay.w)[cls * WS + c]
+            : 0.f;
+        v.x = __uint_as_float(to_tf32(w));
+        v.y = w - v.x;
+      }
+      bh[h] = __float_as_uint(v.x);
+      split_w(v.y, bl[h], bl2[h]);
+    }
+  };
 
   int buf = 0;
   for (int64_t tile0 = r_begin; tile0 < r_end;
        tile0 += tile_rows, buf ^= 1) {
     const int rows = int(min64(tile_rows, r_end - tile0));
-    // the next tile loads while this one is worked on; a group is
-    // committed every time, empty at the end, so that waiting for all but
-    // the newest group means this tile has landed
+    const int rows8 = (rows + 7) / 8 * 8;
+    // the label and mask of this thread's row in the middle, loaded ahead
+    const int mr = tid / KB;  // the middle's row
+    const float yv = mr < rows ? y[tile0 + mr] : -1.f;
+    const float mv = mr < rows ? mask[tile0 + mr] : 0.f;
+    // this tile has landed for every thread, and every thread is done
+    // with the last tile, so its buffer takes the next one
+    cp_async_wait<0>();
+    __syncthreads();
     if (tile0 + tile_rows < r_end) load(tile0 + tile_rows, buf ^ 1);
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
     const T* xs = reinterpret_cast<const T*>(
-        x_buf0 + buf * x_buf_bytes +
+        x_buf0 + buf * lay.x_buf +
         (reinterpret_cast<uintptr_t>(X + tile0 * d) & 15));
 
-    // logits and the softmax middle: warp `warp` takes row groups
-    // warp, warp + kWarps, ...; rows past the tile's end read its last
-    // row and are discarded
-    const int groups = (rows + R - 1) / R;
-    float* group = group_s + warp * V;
-    for (int g = warp; g < groups; g += kWarps) {
-      const int r0 = g * R;
-      // lane r's label and mask, loaded ahead of the logit loop
-      const bool owner = lane < R && r0 + lane < rows;
-      const int64_t gr = tile0 + r0 + lane;
-      const float yv = owner ? y[gr] : 0.f;
-      const float m = owner ? mask[gr] : 0.f;
-      const T* xr[R];
+    // logits: warp `warp` sums the k-steps warp, warp + kWarps, ...;
+    // rows and columns past the tile read as zeros
+    {
+      float big[NT][4], small[NT][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        xr[r] = xs + (r0 + r < rows ? r0 + r : rows - 1) * d;
-      float acc[V];  // acc[r * KB + kk]: row r0 + r, class kk
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int i = 0; i < V; ++i) acc[i] = 0.f;
+        for (int i = 0; i < 4; ++i) big[nt][i] = small[nt][i] = 0.f;
 #pragma unroll 4
-      for (int c = lane; c < d; c += 32) {
-        float wv[KB];
+      for (int s = warp; s < ksteps; s += kWarps) {
+        uint32_t bh[NT][2], bl[NT][2], bl2[NT][2];
 #pragma unroll
-        for (int kk = 0; kk < KB; ++kk) wv[kk] = wt_s[kk * d + c];
+        for (int nt = 0; nt < NT; ++nt)
+          w_frag(s, nt, bh[nt], bl[nt], bl2[nt]);
+        uint32_t ah[4], al[4];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float xv = to_f32(xr[r][c]);
+        for (int i = 0; i < 4; ++i) {
+          const int r = g + 8 * (i & 1);
+          const int c = s * 8 + t + 4 * (i >> 1);
+          split_x<T>(r < rows && c < d ? to_f32(xs[r * d + c]) : 0.f, ah[i],
+                     al[i]);
+        }
 #pragma unroll
-          for (int kk = 0; kk < KB; ++kk)
-            acc[r * KB + kk] = fmaf(xv, wv[kk], acc[r * KB + kk]);
+        for (int nt = 0; nt < NT; ++nt) {
+          mma3<true, kXLo>(big[nt], small[nt], ah, al, bh[nt], bl[nt]);
+          mma_tf32(small[nt], ah, bl2[nt]);  // x_hi w_lo2
         }
       }
-      warp_sum_halving<V, 16>(acc, lane);
+      float* zp = zp_s + warp * rows * CS;
 #pragma unroll
-      for (int j = 0; j < P; ++j) group[lane * P + j] = acc[j];
-      __syncwarp();
-
-      // lane r finishes row r0 + r of the group
-      if (owner) {
-        const float* z = group + lane * KB;
-        float zmax = -INFINITY;
+      for (int h = 0; h < 2; ++h) {
+        const int r = g + 8 * h;
+        if (r >= rows) continue;
 #pragma unroll
-        for (int kk = 0; kk < KB; ++kk)
-          if (kk < k) zmax = fmaxf(zmax, z[kk]);
-        float ez[KB];
-        float sez = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KB; ++kk) {
-          ez[kk] = kk < k ? expf(z[kk] - zmax) : 0.f;
-          sez += ez[kk];
-        }
-        const float lse = zmax + logf(sez);
-        // select-then-sum: the picked logit is the one whose class index
-        // equals the label (pallas_kernels.py:391-395)
-        float picked = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KB; ++kk)
-          if (kk < k && float(kk) == yv) picked += z[kk];
-        loss_acc.add((lse - picked) * m);
-        float* res = resid_s + (r0 + lane) * RS;
-#pragma unroll
-        for (int kk = 0; kk < KB; ++kk)
-          res[kk] = kk < k
-              ? (ez[kk] / sez - (float(kk) == yv ? 1.f : 0.f)) * m
-              : 0.f;
-#pragma unroll
-        for (int kk = KB; kk < RS; ++kk) res[kk] = 0.f;
+        for (int nt = 0; nt < NT; ++nt)
+          *reinterpret_cast<float2*>(zp + r * CS + nt * 8 + 2 * t) =
+              make_float2(big[nt][2 * h] + small[nt][2 * h],
+                          big[nt][2 * h + 1] + small[nt][2 * h + 1]);
       }
-      __syncwarp();
     }
     __syncthreads();
 
-    // gradient off the same tile: thread tid owns columns
-    // c0 + i * kThreads, i < CB, of each chunk c0
-    for (int c0 = tid; c0 < d; c0 += CB * kThreads) {
-      int cl[CB];  // column to load (clamped), the result discarded
+    // the middle: thread (row mr, class c), KB lanes a row; rows from
+    // `rows` to `rows8` get zero residuals, and warps past them idle
+    if (mr < rows8) {
+      const int c = tid % KB;
+      const bool live = mr < rows && c < k;
+      float z = 0.f;
+      if (live)
 #pragma unroll
-      for (int i = 0; i < CB; ++i) {
-        const int c = c0 + i * kThreads;
-        cl[i] = c < d ? c : d - 1;
+        for (int w = 0; w < kWarps; ++w) z += zp_s[(w * rows + mr) * CS + c];
+      float zmax = live ? z : -INFINITY;
+#pragma unroll
+      for (int off = KB / 2; off > 0; off >>= 1)
+        zmax = fmaxf(zmax, __shfl_xor_sync(0xffffffffu, zmax, off));
+      const float ez = live ? expf(z - zmax) : 0.f;
+      float sez = ez;
+      // select-then-sum: the picked logit is the one whose class index
+      // equals the label (pallas_kernels.py:391-395)
+      float picked = live && float(c) == yv ? z : 0.f;
+#pragma unroll
+      for (int off = KB / 2; off > 0; off >>= 1) {
+        sez += __shfl_xor_sync(0xffffffffu, sez, off);
+        picked += __shfl_xor_sync(0xffffffffu, picked, off);
       }
-      float acc[CB][KB];
-#pragma unroll
-      for (int i = 0; i < CB; ++i)
-#pragma unroll
-        for (int kk = 0; kk < KB; ++kk) acc[i][kk] = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < rows; ++r) {
-        float rv[RS];
-        const float4* rp = reinterpret_cast<const float4*>(resid_s + r * RS);
-#pragma unroll
-        for (int q = 0; q < RS / 4; ++q) {
-          const float4 v = rp[q];
-          rv[4 * q] = v.x;
-          rv[4 * q + 1] = v.y;
-          rv[4 * q + 2] = v.z;
-          rv[4 * q + 3] = v.w;
-        }
-        const T* xrow = xs + r * d;
-#pragma unroll
-        for (int i = 0; i < CB; ++i) {
-          const float xv = to_f32(xrow[cl[i]]);
-#pragma unroll
-          for (int kk = 0; kk < KB; ++kk)
-            acc[i][kk] = fmaf(xv, rv[kk], acc[i][kk]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < CB; ++i) {
-        const int c = c0 + i * kThreads;
-        if (c >= d) continue;
-#pragma unroll
-        for (int kk = 0; kk < KB; ++kk)
-          if (kk < k) g_s[kk * d + c] += acc[i][kk];
-      }
+      if (live && c == 0) loss_acc.add((zmax + logf(sez) - picked) * mv);
+      resid_s[mr * CS + c] =
+          live ? (ez / sez - (float(c) == yv ? 1.f : 0.f)) * mv : 0.f;
     }
     __syncthreads();
+
+    // gradient: R^T (classes x rows) as A, split once per tile; warp
+    // `warp` takes the n-tiles warp, warp + kWarps, ... of D
+    {
+      const int kst = rows8 / 8;
+      uint32_t rh[kMaxKSteps][MG][4], rl[kMaxKSteps][MG][4];
+#pragma unroll
+      for (int ks = 0; ks < kMaxKSteps; ++ks) {
+        if (ks >= kst) break;
+#pragma unroll
+        for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int cls = mg * 16 + g + 8 * (i & 1);
+            const int r = ks * 8 + t + 4 * (i >> 1);
+            split_tf32(cls < KB ? resid_s[r * CS + cls] : 0.f, rh[ks][mg][i],
+                       rl[ks][mg][i]);
+          }
+      }
+#pragma unroll 4
+      for (int j = warp; j < ksteps; j += kWarps) {
+        const int col = j * 8 + g;
+        float big[MG][4], small[MG][4];
+#pragma unroll
+        for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) big[mg][i] = small[mg][i] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < kMaxKSteps; ++ks) {
+          if (ks >= kst) break;
+          uint32_t bh[2], bl[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = ks * 8 + t + 4 * h;
+            split_x<T>(r < rows && col < d ? to_f32(xs[r * d + col]) : 0.f,
+                       bh[h], bl[h]);
+          }
+#pragma unroll
+          for (int mg = 0; mg < MG; ++mg)
+            mma3<false, kXLo>(big[mg], small[mg], rh[ks][mg], rl[ks][mg], bh,
+                              bl);
+        }
+#pragma unroll
+        for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int cls = mg * 16 + g + 8 * h;
+            if (cls >= k) continue;
+            float2* gp =
+                reinterpret_cast<float2*>(g_s + cls * GS + j * 8 + 2 * t);
+            float2 v = *gp;
+            v.x += big[mg][2 * h] + small[mg][2 * h];
+            v.y += big[mg][2 * h + 1] + small[mg][2 * h + 1];
+            *gp = v;
+          }
+      }
+    }
   }
+  __syncthreads();
 
   // block loss: the threads' sums in a fixed order
   float ls = loss_acc.s;
@@ -350,7 +485,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     ls += __shfl_xor_sync(0xffffffffu, ls, off);
   if (lane == 0) warp_loss_s[warp] = ls;
   float* pg = partial_grad + int64_t(blockIdx.x) * k * d;
-  for (int64_t i = tid; i < k * d; i += kThreads) pg[i] = g_s[i];
+  for (int64_t i = tid; i < int64_t(k) * d; i += kThreads)
+    pg[i] = g_s[(i / d) * GS + i % d];
   __syncthreads();
   if (tid == 0) {
     Kahan s;
@@ -383,13 +519,15 @@ __global__ void reduce_partials(const float* __restrict__ partial_loss,
   }
 }
 
-template <typename T, int KB>
+template <typename T, int KB, bool kSplitW>
 cudaError_t launch_partials(const void* X, const float* y, const float* mask,
                             const float* W, int64_t n, int64_t d, int k,
                             int tile_rows, int grid, float* partial_loss,
                             float* partial_grad, cudaStream_t stream) {
-  const int64_t smem = smem_bytes(d, k, KB, tile_rows, int(sizeof(T)));
-  auto kern = softmax_partials<T, KB>;
+  const int64_t smem =
+      Layout(d, k, KB, tile_rows, int(sizeof(T)), kSplitW).total;
+  if (smem > kSmemBlock) return cudaErrorInvalidValue;
+  auto kern = softmax_partials<T, KB, kSplitW>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -400,20 +538,19 @@ cudaError_t launch_partials(const void* X, const float* y, const float* mask,
 }
 
 template <typename T>
-cudaError_t launch_for_bucket(int kb, const void* X, const float* y,
-                              const float* mask, const float* W, int64_t n,
-                              int64_t d, int k, int tile_rows, int grid,
-                              float* pl, float* pg, cudaStream_t s) {
-#define SOFTMAX_BUCKET(B)                                              \
-  case B:                                                              \
-    return launch_partials<T, B>(X, y, mask, W, n, d, k, tile_rows, grid, \
-                                 pl, pg, s);
+cudaError_t launch_for_bucket(int kb, bool split, const void* X,
+                              const float* y, const float* mask,
+                              const float* W, int64_t n, int64_t d, int k,
+                              int tile_rows, int grid, float* pl, float* pg,
+                              cudaStream_t s) {
+#define SOFTMAX_BUCKET(B)                                                   \
+  case B:                                                                   \
+    return split ? launch_partials<T, B, true>(X, y, mask, W, n, d, k,      \
+                                               tile_rows, grid, pl, pg, s)  \
+                 : launch_partials<T, B, false>(X, y, mask, W, n, d, k,     \
+                                                tile_rows, grid, pl, pg, s);
   switch (kb) {
-    SOFTMAX_BUCKET(1)
-    SOFTMAX_BUCKET(2)
-    SOFTMAX_BUCKET(4)
     SOFTMAX_BUCKET(8)
-    SOFTMAX_BUCKET(10)
     SOFTMAX_BUCKET(16)
     SOFTMAX_BUCKET(32)
     default:
@@ -427,21 +564,21 @@ cudaError_t launch_for_bucket(int kb, const void* X, const float* y,
 extern "C" {
 
 // Launch shape for X (n, d) with `itemsize`-byte elements and k classes on
-// a card of `sms` SMs: the tile rows and the grid (a few blocks an SM, as
-// many as fit, at most one per tile).  Returns cudaErrorInvalidValue, and
+// a card of `sms` SMs: the tile rows and the grid (one block an SM, at
+// most one per tile).  Returns cudaErrorInvalidValue, and
 // sets nothing, when the kernel cannot take this width and class count.
 int softmax_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
                  int* tile_rows, int* grid) {
   if (n < 0 || d < 1 || sms < 1 || k < 1 || k > kMaxClasses ||
       (itemsize != 4 && itemsize != 2))
     return int(cudaErrorInvalidValue);
-  const int rows = choose_tile_rows(d, k, itemsize);
-  if (rows < 1) return int(cudaErrorInvalidValue);
-  int64_t per_sm = kSmemSM / (smem_bytes(d, k, bucket_of(k), rows, itemsize) +
-                              kSmemReserved);
-  per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
+  int rows;
+  bool split;
+  if (!choose_plan(d, k, itemsize, &rows, &split))
+    return int(cudaErrorInvalidValue);
+  // one block an SM: its threads take all of the SM's registers
   int64_t blocks = (n + rows - 1) / rows;
-  if (blocks > sms * per_sm) blocks = sms * per_sm;
+  if (blocks > sms) blocks = sms;
   *tile_rows = rows;
   *grid = int(blocks < 1 ? 1 : blocks);
   return 0;
@@ -451,8 +588,10 @@ int softmax_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
 // one class fits).
 int softmax_max_classes(int64_t d, int itemsize) {
   if (d < 1 || (itemsize != 4 && itemsize != 2)) return 0;
+  int rows;
+  bool split;
   for (int k = kMaxClasses; k >= 1; --k)
-    if (choose_tile_rows(d, k, itemsize) >= 1) return k;
+    if (choose_plan(d, k, itemsize, &rows, &split)) return k;
   return 0;
 }
 
@@ -465,8 +604,13 @@ int softmax_loss_grad(const void* X, int x_type, const void* y,
                       void* partial_grad, void* loss, void* grad,
                       void* stream) {
   const int kb = bucket_of(k);
+  const int itemsize = x_type == kBF16 ? 2 : 4;
+  int plan_rows;
+  bool split;
   if (n < 0 || d < 1 || d > kSmemBlock || kb == 0 || tile_rows < 1 ||
-      grid < 1)
+      tile_rows > kMaxTileRows || grid < 1 ||
+      (x_type != kF32 && x_type != kBF16) ||
+      !choose_plan(d, k, itemsize, &plan_rows, &split))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* yf = static_cast<const float*>(y);
@@ -474,15 +618,12 @@ int softmax_loss_grad(const void* X, int x_type, const void* y,
   const float* wf = static_cast<const float*>(W);
   float* pl = static_cast<float*>(partial_loss);
   float* pg = static_cast<float*>(partial_grad);
-  cudaError_t err;
-  if (x_type == kF32)
-    err = launch_for_bucket<float>(kb, X, yf, mf, wf, n, d, k, tile_rows,
-                                   grid, pl, pg, s);
-  else if (x_type == kBF16)
-    err = launch_for_bucket<__nv_bfloat16>(kb, X, yf, mf, wf, n, d, k,
-                                           tile_rows, grid, pl, pg, s);
-  else
-    err = cudaErrorInvalidValue;
+  const cudaError_t err =
+      x_type == kF32
+          ? launch_for_bucket<float>(kb, split, X, yf, mf, wf, n, d, k,
+                                     tile_rows, grid, pl, pg, s)
+          : launch_for_bucket<__nv_bfloat16>(kb, split, X, yf, mf, wf, n, d,
+                                             k, tile_rows, grid, pl, pg, s);
   if (err != cudaSuccess) return int(err);
   const int threads = 256;
   const int blocks = int((d * k + threads - 1) / threads);

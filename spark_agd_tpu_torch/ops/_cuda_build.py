@@ -52,12 +52,14 @@ class BuiltLibrary:
 
 
 def build(name: str, sources) -> BuiltLibrary:
-    """Compile ``sources`` (file names under ``csrc/``) into
-    ``_build/lib<name>-<hash>.so``, unless it exists.  The hash covers
-    the sources and every header under ``csrc/``."""
+    """Compile ``sources`` (file names under ``csrc/``, or paths to
+    sources elsewhere) into ``_build/lib<name>-<hash>.so``, unless it
+    exists.  The hash covers the sources and every header beside
+    them."""
     paths = [CSRC / s for s in sources]
+    headers = sorted({h for p in paths for h in p.parent.glob("*.cuh")})
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths + sorted(CSRC.glob("*.cuh")):
+    for p in paths + headers:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

@@ -141,11 +141,12 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _load(name: str, prefix: str):
-    """Build (at first use) and load ``csrc/<name>.cu``, with its launch
-    function ``<name>`` and ``<prefix>_error_string`` typed; returns
-    ``(ctypes library, BuiltLibrary)``."""
-    built = _cuda_build.build(name, [f"{name}.cu"])
+def _load(name: str, prefix: str, source=None):
+    """Build (at first use) and load ``csrc/<name>.cu`` (or ``source``, a
+    path to another version of it), with its launch function ``<name>``
+    and ``<prefix>_error_string`` typed; returns ``(ctypes library,
+    BuiltLibrary)``."""
+    built = _cuda_build.build(name, [source or f"{name}.cu"])
     lib = ctypes.CDLL(str(built.path))
     getattr(lib, name).argtypes = _ARGTYPES
     getattr(lib, name).restype = ctypes.c_int
@@ -358,10 +359,12 @@ def fused_softmax_loss_grad_reference(num_classes: int, W,
 
 
 @functools.cache
-def softmax_library():
-    """Build (at first use) and load ``csrc/softmax_loss_grad.cu``;
-    returns ``(ctypes library, BuiltLibrary)``."""
-    lib, built = _load("softmax_loss_grad", "softmax")
+def softmax_library(source=None):
+    """Build (at first use) and load ``csrc/softmax_loss_grad.cu``, or
+    ``source``: a path to another version of it with the same C
+    interface, for side-by-side timings; returns ``(ctypes library,
+    BuiltLibrary)``."""
+    lib, built = _load("softmax_loss_grad", "softmax", source)
     lib.softmax_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int,
                                  ctypes.POINTER(ctypes.c_int),
