@@ -43,13 +43,40 @@ Phases, each printing one JSON line:
    as phase 6 is, the kernel held to f64 sums there (the plain version's
    f32 products drift further from them over 8.1M rows; both errors are
    printed);
-9. the ``kernels`` line; then the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+9. sparse_ops: the CSR products (``ops/sparse.py``) on a 200,003 x
+   50,021 CSR made on the card with varied counts (empty rows, empty
+   columns, zero-value padding): matvec, rmatvec, matmat and rmatmat at
+   f32 within 1e-4 of the largest f64 result, each call repeated
+   bit-identical; ``FusedLogisticGradient`` and ``FusedSoftmaxGradient``
+   given a CSR launch no dense kernel;
+10. rcv1_path: BASELINE config 1 at its published scale, rcv1-like
+    697,641 x 47,236 with 74 nonzeros a row made on the card (seed 0),
+    fit with ``LogisticRegressionWithAGD(reg_param=1e-4)`` (40
+    iterations, convergence_tol 0) through ``train``, then ``run`` on the
+    intercept CSR, held to the same ``run`` at f64 (loss histories rtol
+    1e-4 until the two fits' step sizes part at a backtrack:
+    ``common_path``) and the f32 gradient at the final weights to f64
+    sums (1e-4 of its largest entry); ms per smooth evaluation and per
+    product against the bytes bound (nnz x 16 B), the cuSPARSE products
+    and a 1-D ``segment_reduce`` beside them;
+11. libsvm: phase 10's data written to a LIBSVM file in a temporary
+    directory, read back with the port's ``load_libsvm`` (the native
+    parser, or the phase fails), the parsed arrays equal to the card-made
+    ones bit for bit, and the same trainer fit from
+    ``CSRMatrix.from_csr_arrays(..., device="cuda")``: weights equal to
+    phase 10's bit for bit (the first 69,764 rows only, and then against
+    a fit of those rows, when writing all of them would take over 60 s);
+12. url_path: BASELINE config 3 at its published scale, url-like
+    2,396,130 x 3,231,961 with 116 nonzeros a row (seed 1), fit with
+    ``SVMWithAGD(reg_param=1e-5)`` (hinge + L1), read as phase 10, with
+    the count of exact-zero weights;
+13. the ``kernels`` line; then the card's name and power limit, and last
+    ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each path (phases 5 and 7) and
-read just after it.  Any failed check raises, and the script exits
-non-zero without the last line.  It also exits non-zero when CUDA is not
-available.
+Launch counts are set to 0 just before each path (phases 5, 7, 10-12)
+and read just after it; the sparse paths launch neither kernel.  Any
+failed check raises, and the script exits non-zero without the last
+line.  It also exits non-zero when CUDA is not available.
 
 ``python3 chip_smoke.py --ab NAME=SOURCE [...] [--seeds 3,4]`` runs none
 of the phases.  It times versions of the softmax kernel side by side
@@ -66,8 +93,10 @@ import argparse
 import concurrent.futures
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -86,6 +115,16 @@ N_SM, D_SM, K_SM, REG_SM = 8_100_000, 784, 10, 1e-4
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_REL = 1e-5, 1e-4, 1e-4  # test_pallas.py
+# BASELINE configs 1 and 3 (benchmarks/run.py:75-93): rcv1-like and
+# url-like shapes of benchmarks/datasets.py:112-122, with their seeds
+RCV1 = dict(n=697_641, d=47_236, k=74, seed=0, reg=1e-4, min_accuracy=0.6)
+# 40 iterations of hinge + L1 at 1e-5 leave url-like near chance (the
+# gradient of most of its 3.2M weights stays under the L1 threshold)
+URL = dict(n=2_396_130, d=3_231_961, k=116, seed=1, reg=1e-5,
+           min_accuracy=0.0)
+# the CSR values (4 B) and ids (4 B) read once by each of the two products
+SPARSE_BYTES_PER_NNZ = 16
+LIBSVM_WRITE_LIMIT_S, LIBSVM_REDUCED_ROWS = 60.0, 69_764
 
 
 def emit(obj):
@@ -687,6 +726,386 @@ def softmax_path(port, fk, device_synth):
             "two_matmuls_ms": two_mm_ms}
 
 
+def csr_f64(sparse, X):
+    """``X`` with f64 values (and twin values), sharing its ids and
+    offsets."""
+    twin = {}
+    if X.has_csc:
+        twin = dict(csc_row_ids=X.csc_row_ids, csc_col_ids=X.csc_col_ids,
+                    csc_values=X.csc_values.double())
+    return sparse.CSRMatrix(X.row_ids, X.col_ids, X.values.double(), X.shape,
+                            rows_sorted=True, **twin)
+
+
+def check_products(X, X64, cases, where):
+    """Each ``(name, fn, arg)``: ``fn(X, arg)`` twice (bit-identical), held
+    to ``fn(X64, arg in f64)`` within 1e-4 of its largest entry; returns
+    ``{name: {...}}`` with the error and the median time."""
+    out = {}
+    for name, fn, arg in cases:
+        a, b = fn(X, arg), fn(X, arg)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{where} {name}: repeated calls differ")
+        ref = fn(X64, arg.double())
+        err = float((a.double() - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not (torch.isfinite(a).all() and err <= 1e-4 * scale):
+            raise AssertionError(
+                f"{where} {name}: f32 is {err:.3e} from f64 (limit "
+                f"{1e-4 * scale:.3e})")
+        out[name] = {"max_abs_err_vs_f64": err, "abs_max_f64": scale,
+                     "ms": time_ms(lambda: fn(X, arg))}
+    return out
+
+
+def phase_sparse_ops(port, fk, sparse, device_synth, glm):
+    """Phase 9: the four CSR products at f32 against f64 on the card,
+    repeat bit-identical; no dense kernel launched for a CSR."""
+    t0 = time.perf_counter()
+    n, d_drawn, d, k = 200_003, 50_000, 50_021, 10
+    rid, cid, val, y = device_synth.planted_sparse_parts_varied(
+        n, d_drawn, 12, seed=9)
+    keep = rid % 97 != 0  # every 97th row loses its entries: empty rows
+    # the intercept column: one column holding every row, summed in chunks
+    X = glm._add_intercept(sparse.CSRMatrix(
+        rid[keep] + 0, cid[keep], val[keep], (n, d - 1),
+        rows_sorted=True)).with_csc()
+    del rid, cid, val, keep
+    X64 = csr_f64(sparse, X)
+    row_lengths = X.indptr[1:] - X.indptr[:-1]
+    empty_rows = int((row_lengths == 1).sum())  # the intercept entry only
+    empty_cols = int((X.colptr[1:] == X.colptr[:-1]).sum())
+    padding = int((X.values == 0).sum())
+    if not (empty_rows and empty_cols >= d - 1 - d_drawn and padding):
+        raise AssertionError("sparse_ops: the CSR lacks empty rows, empty "
+                             "columns or padding")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    w = torch.randn(d, generator=gen, device="cuda")
+    v = torch.randn(n, generator=gen, device="cuda")
+    W = torch.randn((d, k), generator=gen, device="cuda")
+    V = torch.randn((n, k), generator=gen, device="cuda")
+    products = check_products(X, X64, [
+        ("matvec", sparse.CSRMatrix.matvec, w),
+        ("rmatvec", sparse.CSRMatrix.rmatvec, v),
+        ("matmat", sparse.CSRMatrix.matmat, W),
+        ("rmatmat", sparse.CSRMatrix.rmatmat, V)], "sparse_ops")
+    # the fused gradients route a CSR to the sparse products
+    fk.launch_count = fk.softmax_launch_count = 0
+    labels = torch.randint(0, k, (n,), generator=gen, device="cuda")
+    for g, wt, yt in ((port.FusedLogisticGradient(), w, y),
+                      (port.FusedSoftmaxGradient(port.SoftmaxGradient(k)),
+                       W * 0.01, labels)):
+        Xp, yp, mp = g.prepare(X, yt)
+        loss, grad, _ = g.batch_loss_and_grad(wt, Xp, yp, mp)
+        if not (torch.isfinite(loss) and torch.isfinite(grad).all()):
+            raise AssertionError("sparse_ops: a fused gradient on CSR is "
+                                 "not finite")
+    torch.cuda.synchronize()
+    if fk.launch_count or fk.softmax_launch_count:
+        raise AssertionError("a CSR input launched a dense kernel")
+    emit({"phase": "sparse_ops", "shape": [n, d], "nnz": X.nnz,
+          "intercept_column": True,
+          "empty_rows_but_the_intercept": empty_rows,
+          "empty_columns": empty_cols,
+          "padding_entries": padding, "bit_identical": True,
+          "dense_kernel_launches": 0, "products": products,
+          "seconds": time.perf_counter() - t0})
+
+
+def common_path(res, res64, n_common):
+    """The iterations over which an f32 and an f64 fit are held to each
+    other: all of them while both took the same step sizes (``diag_l``
+    within 1e-4), else those before the step that preceded the first
+    parting.  A backtrack fires when a step overshot (the step size had
+    fallen below the loss's curvature), and that step amplifies rounding
+    (on the card, 1e-6 to 4e-5 of the loss in the step before the first
+    backtrack of the rcv1-like fits); the backtrack then estimates the
+    new step from a difference of two nearly equal losses, which f32
+    rounds (0.414 in f32, 0.359 in f64 there), so the fits part."""
+    l32 = res.diag_l[:n_common].double().cpu().numpy()
+    l64 = res64.diag_l[:n_common].double().cpu().numpy()
+    parted = ~np.isclose(l32, l64, rtol=1e-4, atol=0.0)
+    return int(np.argmax(parted)) - 1 if parted.any() else n_common
+
+
+def cusparse_ms(X, w, v):
+    """The library yardstick (timed here, used nowhere in the port): the
+    same two products as cuSPARSE CSR products through ``torch.sparse``,
+    with whether three repeats gave the same bits."""
+    try:
+        A = torch.sparse_csr_tensor(X.indptr.to(torch.int32), X.col_ids,
+                                    X.values, X.shape)
+        At = torch.sparse_csr_tensor(X.colptr.to(torch.int32),
+                                     X.csc_row_ids, X.csc_values,
+                                     X.shape[::-1])
+        mv = [A @ w for _ in range(3)]
+        rmv = [At @ v for _ in range(3)]
+        torch.cuda.synchronize()
+        return {"matvec_ms": time_ms(lambda: A @ w),
+                "rmatvec_ms": time_ms(lambda: At @ v),
+                "matvec_bit_identical": all(torch.equal(mv[0], r)
+                                            for r in mv),
+                "rmatvec_bit_identical": all(torch.equal(rmv[0], r)
+                                             for r in rmv)}
+    except RuntimeError as e:  # a yardstick only: record why it failed
+        return {"error": repr(e)[:300]}
+
+
+def sparse_path(port, fk, sparse, device_synth, glm, phase, cfg,
+                trainer_cls, loss_cls, updater_cls):
+    """Phases 10 and 12: a BASELINE sparse config at its published scale
+    through its trainer and ``run``, held to ``run`` at f64; returns the
+    data, the model and the product timings."""
+    t_phase = time.perf_counter()
+    n, d = cfg["n"], cfg["d"]
+    t0 = time.perf_counter()
+    rid, cid, val, y = device_synth.planted_sparse_parts(
+        n, d, cfg["k"], seed=cfg["seed"])
+    X = sparse.CSRMatrix(rid, cid, val, (n, d),
+                         rows_sorted=True).with_csc(lazy=True)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+
+    gradient = counting(loss_cls)()
+    trainer = trainer_cls(reg_param=cfg["reg"])
+    trainer.optimizer.set_gradient(gradient).setNumIterations(ITERS) \
+        .setConvergenceTol(TOL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.launch_count = fk.softmax_launch_count = 0
+    state_before = card_state()
+    t0 = time.perf_counter()
+    model = trainer.train(X, y)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    evaluations_train = gradient.evaluations
+
+    Xa = glm._add_intercept(X).with_csc()
+    w0 = torch.zeros(d + 1, dtype=torch.float32, device="cuda")
+    updater = updater_cls()
+    t0 = time.perf_counter()
+    w_run, hist, res = port.run(
+        (Xa, y), gradient, updater, reg_param=cfg["reg"],
+        num_iterations=ITERS, convergence_tol=TOL, initial_weights=w0,
+        return_result=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    dense_launches = fk.launch_count + fk.softmax_launch_count
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    Xa64, y64 = csr_f64(sparse, Xa), y.double()
+    t0 = time.perf_counter()
+    w64, hist64, res64 = port.run(
+        (Xa64, y64), loss_cls(), updater, reg_param=cfg["reg"],
+        num_iterations=ITERS, convergence_tol=TOL,
+        initial_weights=w0.double(), return_result=True)
+    torch.cuda.synchronize()
+    run64_s = time.perf_counter() - t0
+
+    plain = loss_cls()
+    loss32, g32, _ = plain.batch_loss_and_grad(w_run, Xa, y)
+    loss64, g64, _ = plain.batch_loss_and_grad(w_run.double(), Xa64, y64)
+    grad_err = float((g32.double() - g64).abs().max())
+    grad_max = float(g64.abs().max())
+    loss_err = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+
+    n_iters, n64 = int(res.num_iters), int(res64.num_iters)
+    n_common = min(n_iters, n64)
+    n_path = common_path(res, res64, n_common)
+    with torch.no_grad():
+        acc = float((model.predict(X) == y).float().mean())
+        acc64 = float(((Xa64.matvec(w64) > 0).to(y.dtype) == y)
+                      .float().mean())
+    checks = {
+        "train_evaluations_counted": evaluations_train > 0,
+        "no_dense_kernel_launch": dense_launches == 0,
+        "train_equals_run": bool(
+            torch.allclose(model.weights, w_run[1:], rtol=1e-6, atol=0.0)
+            and abs(model.intercept - float(w_run[0]))
+            <= 1e-6 * abs(float(w_run[0]))),
+        "same_stop_as_f64": same_stop(res, res64, hist, hist64),
+        "common_path_of_10_iterations_or_more": n_path >= 10,
+        "history_rtol_1e-4_vs_f64_on_the_common_path": bool(np.allclose(
+            hist[:n_path], hist64[:n_path], rtol=1e-4, atol=0.0)),
+        "grad_within_1e-4_of_f64": grad_err <= 1e-4 * grad_max,
+        "loss_decreases": bool(hist[-1] < hist[0]),
+        "finite": bool(np.isfinite(hist).all()
+                       and torch.isfinite(w_run).all()),
+        "weights_shape": tuple(w_run.shape) == (d + 1,),
+        "train_accuracy_within_0.002_of_f64": abs(acc - acc64) < 0.002,
+        f"train_accuracy_above_{cfg['min_accuracy']}":
+            acc > cfg["min_accuracy"],
+    }
+
+    # times at the fitted weights: one smooth evaluation, each product,
+    # and the cuSPARSE products beside them
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    v = torch.randn(n, generator=gen, device="cuda")
+    eval_ms = time_ms(lambda: plain.batch_loss_and_grad(w_run, Xa, y))
+    matvec_ms = time_ms(lambda: Xa.matvec(w_run))
+    rmatvec_ms = time_ms(lambda: Xa.rmatvec(v))
+    library = cusparse_ms(Xa, w_run, v)
+    # the same products reduced as 1-D arrays: segment_reduce then takes
+    # CUB's segmented reduction, the variant ops/sparse.py passes over
+    twin = (Xa.csc_values, Xa.csc_row_ids, v, Xa.colptr)
+    cub_1d = {name: time_ms(lambda a=args: torch.segment_reduce(
+                  a[0] * torch.index_select(a[2], 0, a[1]), "sum",
+                  offsets=a[3]))
+              for name, args in (
+                  ("matvec_ms", (Xa.values, Xa.col_ids, w_run, Xa.indptr)),
+                  ("rmatvec_ms", twin))}
+    state_after = card_state()
+    b_ms, bound_by = bound_ms(Xa.nnz * SPARSE_BYTES_PER_NNZ, 4 * Xa.nnz)
+    out = {
+        "phase": phase, "shape": [n, d], "nnz": X.nnz,
+        "nnz_with_intercept": Xa.nnz,
+        "x_gb": X.nnz * 12 / 1e9, "generate_s": gen_s, "train_s": train_s,
+        "run_s": run_s, "run_f64_s": run64_s, "num_iters": n_iters,
+        "num_iters_f64": n64, "converged": bool(res.converged),
+        "num_backtracks": int(res.num_backtracks),
+        "num_restarts": int(res.num_restarts),
+        "smooth_evaluations": gradient.evaluations,
+        "smooth_evaluations_train": evaluations_train,
+        "dense_kernel_launches": dense_launches,
+        "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+        "loss_last_f64": float(hist64[-1]),
+        "common_path_iterations": n_path,
+        "max_hist_rel_diff_vs_f64_on_the_common_path": float(np.max(
+            np.abs(hist[:n_path] - hist64[:n_path])
+            / np.abs(hist64[:n_path]))),
+        "max_hist_rel_diff_vs_f64": float(np.max(
+            np.abs(hist[:n_common] - hist64[:n_common])
+            / np.abs(hist64[:n_common]))),
+        "loss_history": hist.tolist(), "loss_history_f64": hist64.tolist(),
+        "step_l": res.diag_l[:n_iters].tolist(),
+        "step_l_f64": res64.diag_l[:n64].tolist(),
+        "grad_max_abs_err_vs_f64": grad_err, "grad_abs_max": grad_max,
+        "loss_rel_err_vs_f64": loss_err,
+        "train_bit_identical_to_run": bool(
+            torch.equal(model.weights, w_run[1:])
+            and model.intercept == float(w_run[0])),
+        "train_peak_gb": train_peak_gb, "peak_gb": peak_gb,
+        "train_accuracy": acc, "train_accuracy_f64": acc64,
+        "eval_ms": eval_ms, "matvec_ms": matvec_ms,
+        "rmatvec_ms": rmatvec_ms, "bound_ms": b_ms, "bound_by": bound_by,
+        "bound_source": "nnz x 16 B at 3.35 TB/s (H100 SXM data sheet)",
+        "eval_bound_frac": b_ms / eval_ms,
+        "evaluations_share_of_run_wall":
+            (gradient.evaluations - evaluations_train) * eval_ms
+            / (run_s * 1e3),
+        "cusparse": library, "segment_reduce_1d": cub_1d,
+        "card_before": state_before, "card_after": state_after}
+    if updater_cls is port.L1Prox:
+        out["exact_zero_weights"] = int((w_run == 0).sum())
+    out["checks"] = checks
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"{phase} checks failed: {failed}")
+    return {"X": X, "y": y, "model": model, "trainer_cls": trainer_cls,
+            "cfg": cfg,
+            "row": {"shape": [n, d + 1], "nnz": Xa.nnz, "eval_ms": eval_ms,
+                    "matvec_ms": matvec_ms, "rmatvec_ms": rmatvec_ms,
+                    "bound_ms": b_ms,
+                    "products_per_fit": 2 * (gradient.evaluations
+                                             - evaluations_train),
+                    "cusparse": library, "segment_reduce_1d": cub_1d}}
+
+
+def write_libsvm(path, cid, val, y, k, rows):
+    """The first ``rows`` rows (``k`` entries each) as LIBSVM text,
+    ``%.9g`` values (f32 round-trips exactly), a block of rows per
+    ``write``; returns the seconds it took."""
+    t0 = time.perf_counter()
+    block = 20_000
+    with open(path, "w", encoding="ascii") as f:
+        for r0 in range(0, rows, block):
+            r1 = min(rows, r0 + block)
+            a = np.empty((r1 - r0, 1 + 2 * k))
+            a[:, 0] = y[r0:r1]
+            a[:, 1::2] = cid[r0 * k:r1 * k].reshape(-1, k) + 1
+            a[:, 2::2] = val[r0 * k:r1 * k].reshape(-1, k)
+            line = "%.9g" + " %d:%.9g" * k + "\n"
+            f.write((line * (r1 - r0)) % tuple(a.ravel().tolist()))
+    return time.perf_counter() - t0
+
+
+def phase_libsvm(port, sparse, native, rcv1):
+    """Phase 11: phase 10's data through a LIBSVM file, the native parser
+    and the same trainer."""
+    t_phase = time.perf_counter()
+    cfg, X = rcv1["cfg"], rcv1["X"]
+    n, d, k = cfg["n"], cfg["d"], cfg["k"]
+    cid = X.col_ids.cpu().numpy()
+    val = X.values.cpu().numpy()
+    y = rcv1["y"].cpu().numpy()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_libsvm_")
+    try:
+        path = os.path.join(tmp, "rcv1_like.libsvm")
+        # time the reduced size first; the rest only if all of it fits
+        write_s = write_libsvm(path, cid, val, y, k, LIBSVM_REDUCED_ROWS)
+        rows = LIBSVM_REDUCED_ROWS
+        if write_s * n / LIBSVM_REDUCED_ROWS <= LIBSVM_WRITE_LIMIT_S:
+            write_s = write_libsvm(path, cid, val, y, k, n)
+            rows = n
+        file_mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        data = port.load_libsvm(path, n_features=d)
+        parse_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fallback = native.pop_fallback_event("libsvm_parser.so")
+    if fallback is not None or native.load_parser() is None:
+        raise AssertionError(f"libsvm: the native parser did not run "
+                             f"({fallback})")
+    m = rows * k
+    same = {"labels": np.array_equal(data.labels, y[:rows]),
+            "indptr": np.array_equal(data.indptr,
+                                     np.arange(rows + 1) * k),
+            "indices": np.array_equal(data.indices, cid[:m]),
+            "values": np.array_equal(data.values, val[:m])}
+    if not all(same.values()):
+        raise AssertionError(f"libsvm: parsed arrays differ from the "
+                             f"card-made ones: {same}")
+
+    def trainer():
+        t = rcv1["trainer_cls"](reg_param=cfg["reg"])
+        t.optimizer.setNumIterations(ITERS).setConvergenceTol(TOL)
+        return t
+
+    Xf = sparse.CSRMatrix.from_csr_arrays(data.indptr, data.indices,
+                                          data.values, d, device="cuda")
+    t0 = time.perf_counter()
+    model = trainer().train(Xf, data.binarized_labels())
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    ref = rcv1["model"]
+    if rows < n:  # the same rows, held in memory
+        ref = trainer().train(
+            sparse.CSRMatrix(X.row_ids[:m], X.col_ids[:m], X.values[:m],
+                             (rows, d), rows_sorted=True),
+            rcv1["y"][:rows])
+    equal = bool(torch.equal(model.weights, ref.weights)
+                 and model.intercept == ref.intercept)
+    emit({"phase": "libsvm", "rows": rows, "features": d, "nnz": m,
+          "reduced": None if rows == n else
+          f"first {rows} of {n} rows: writing all would take "
+          f"{write_s * n / rows:.1f} s, over {LIBSVM_WRITE_LIMIT_S} s",
+          "file_mb": file_mb, "write_s": write_s, "parse_s": parse_s,
+          "parse_mb_per_s": file_mb / parse_s, "native_parser": True,
+          "arrays_bit_identical": True, "train_s": train_s,
+          "weights_bit_identical": equal,
+          "seconds": time.perf_counter() - t_phase})
+    if not equal:
+        raise AssertionError("libsvm: the fit from the file differs from "
+                             "the in-memory fit")
+
+
 def softmax_ab(port, fk, device_synth, specs, seeds):
     """``--ab``: the builds ``specs`` (NAME=SOURCE) of the softmax kernel
     timed in turns at phase 8's shape, each held to the f64 sums."""
@@ -756,8 +1175,10 @@ def main(argv):
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import spark_agd_tpu_torch as port
+    from spark_agd_tpu_torch import native
     from spark_agd_tpu_torch.data import device_synth
-    from spark_agd_tpu_torch.ops import fused_kernels as fk, losses
+    from spark_agd_tpu_torch.models import glm
+    from spark_agd_tpu_torch.ops import fused_kernels as fk, losses, sparse
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -782,8 +1203,28 @@ def main(argv):
     margin = margin_path(port, fk, losses, device_synth)
     torch.cuda.empty_cache()
     softmax = softmax_path(port, fk, device_synth)
+    torch.cuda.empty_cache()
 
-    # 9. the kernels line, the card, the result
+    # 9-12. the sparse data plane: the products, BASELINE configs 1 and 3
+    t0 = time.perf_counter()
+    phase_sparse_ops(port, fk, sparse, device_synth, glm)
+    torch.cuda.empty_cache()
+    rcv1 = sparse_path(port, fk, sparse, device_synth, glm, "rcv1_path",
+                       RCV1, glm.LogisticRegressionWithAGD,
+                       port.LogisticGradient, port.L2Prox)
+    phase_libsvm(port, sparse, native, rcv1)
+    rows = {"rcv1_like": rcv1["row"]}
+    del rcv1
+    torch.cuda.empty_cache()
+    url = sparse_path(port, fk, sparse, device_synth, glm, "url_path", URL,
+                      glm.SVMWithAGD, port.HingeGradient, port.L1Prox)
+    rows["url_like"] = url["row"]
+    del url
+    torch.cuda.empty_cache()
+    emit({"phase": "sparse_products", **rows,
+          "seconds": time.perf_counter() - t0})
+
+    # 13. the kernels line, the card, the result
     emit({"kernels": [margin, softmax]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

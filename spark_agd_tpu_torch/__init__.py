@@ -7,7 +7,7 @@ by hand in CUDA for Hopper (``csrc/margin_loss_grad.cu``,
 ``csrc/softmax_loss_grad.cu``).  The package imports
 ``torch`` and never ``jax`` or ``spark_agd_tpu``.
 
-Layer map (this slice: dense data, one device):
+Layer map (dense and CSR data, one device):
 
 ====  ==========================  ===========================================
 L6    model layer                 ``models.glm`` trainers and models,
@@ -16,8 +16,10 @@ L5    public API                  ``AcceleratedGradientDescent``, ``run``,
                                   ``make_runner`` (``api``)
 L4    optimizer core              ``core.agd.run_agd`` (Python loop)
 L3    math plugins                ``ops.losses`` (Gradient), ``ops.prox``
-                                  (Updater), ``ops.fused_kernels`` (CUDA)
-L1    data                        ``data.synthetic``, ``data.device_synth``
+                                  (Updater), ``ops.fused_kernels`` (CUDA),
+                                  ``ops.sparse`` (CSRMatrix products)
+L1    data                        ``data.libsvm`` (+ ``native`` C++ parser),
+                                  ``data.synthetic``, ``data.device_synth``
 L0    local math                  ``core.tvec`` tensor / tree algebra;
                                   ``utils.checkpoint.atomic_savez``
 ====  ==========================  ===========================================
@@ -55,5 +57,7 @@ from .ops.prox import (  # noqa: F401
     L1Updater,
     PROXES,
 )
+from .ops.sparse import CSRMatrix  # noqa: F401
+from .data.libsvm import CSRData, load_libsvm  # noqa: F401
 from .api import AcceleratedGradientDescent, make_runner, run  # noqa: F401
 from .core.agd import AGDConfig, AGDResult, AGDWarmState  # noqa: F401

@@ -4,7 +4,8 @@ Counterpart of ``spark_agd_tpu/api.py``: the ``AcceleratedGradientDescent``
 class with its fluent setters (snake_case and camelCase), ``optimize``,
 the functional ``run(...) -> (weights, loss_history)`` and
 ``make_runner``.  Data is ``(X, y)`` or ``(X, y, mask)``, as tensors or
-numpy arrays; it is placed on the run's device once.
+numpy arrays, with X dense or an ``ops.sparse.CSRMatrix``; it is placed
+on the run's device once.
 
 The entry points run on the current CUDA device unless the caller passes
 ``device=`` (``"cpu"`` for the CPU); with no CUDA device and no explicit
@@ -25,6 +26,7 @@ from ._device import resolve_device
 from .core import agd, smooth as smooth_lib, tvec
 from .ops.losses import Gradient
 from .ops.prox import Prox
+from .ops.sparse import CSRMatrix
 
 _LATER = "is not ported yet: the PyTorch port runs single-device fits only"
 
@@ -52,11 +54,12 @@ def _normalize_data(data):
 
 
 def _place(a, device):
-    """A tensor on ``device``: numpy arrays are copied over, tensors
-    already there are used as they are (no copy of a large X)."""
+    """A tensor (or CSRMatrix) on ``device``: numpy arrays are copied
+    over, tensors already there are used as they are (no copy of a large
+    X)."""
     if a is None:
         return None
-    if isinstance(a, torch.Tensor):
+    if isinstance(a, (torch.Tensor, CSRMatrix)):
         return a.to(device)
     return torch.as_tensor(np.asarray(a)).to(device)
 

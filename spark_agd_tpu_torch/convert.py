@@ -5,7 +5,9 @@ helpers take such arrays (or anything ``np.asarray`` accepts) to torch
 tensors on a device and back, for a single array or a dict/list/tuple of
 them.  ``warm_state_from_numpy`` turns a JAX ``AGDWarmState`` (or one
 rebuilt from its numpy fields) into the port's, so that a run started in
-the JAX package continues here.
+the JAX package continues here.  ``csr_from_numpy`` and ``csr_to_numpy``
+carry a JAX ``CSRMatrix`` (its leaves as numpy arrays) into the port and
+back, its column-sorted twin included.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from .core import tvec
 from .core.agd import AGDWarmState
+from .ops.sparse import CSRMatrix
 
 
 def weights_from_numpy(tree, device, dtype=None):
@@ -64,3 +67,37 @@ def warm_from_result(res, prior_iters: int) -> AGDWarmState:
         x=res.weights, z=res.final_z, theta=float(res.final_theta),
         big_l=float(res.final_l), bts=bool(res.final_bts),
         prior_iters=int(prior_iters))
+
+
+def csr_from_numpy(row_ids, col_ids, values, shape, *, csc=None,
+                   device) -> CSRMatrix:
+    """The port's CSRMatrix on ``device`` from COO arrays (the leaves of
+    a JAX ``CSRMatrix``, ``np.asarray`` of each).  ``csc``, when given,
+    is its twin ``(csc_row_ids, csc_col_ids, csc_values)``, column-sorted
+    as the JAX package builds it.  Rows in any order are accepted (the
+    port sorts them once, stably)."""
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    twin = {}
+    if csc is not None:
+        twin = dict(zip(("csc_row_ids", "csc_col_ids", "csc_values"),
+                        map(t, csc)))
+    return CSRMatrix(t(row_ids), t(col_ids), t(values), shape, **twin)
+
+
+def csr_to_numpy(X: CSRMatrix) -> dict:
+    """The leaves of ``X`` as numpy arrays under the JAX ``CSRMatrix``'s
+    constructor names (``row_ids``, ``col_ids``, ``values``, ``shape``,
+    and the ``csc_*`` twin when ``X`` has one), so that
+    ``spark_agd_tpu.ops.sparse.CSRMatrix(**csr_to_numpy(X))`` rebuilds
+    it in the JAX package."""
+    out = {"row_ids": X.row_ids.cpu().numpy(),
+           "col_ids": X.col_ids.cpu().numpy(),
+           "values": X.values.cpu().numpy(), "shape": X.shape,
+           "rows_sorted": True}
+    if X.has_csc:
+        out.update(csc_row_ids=X.csc_row_ids.cpu().numpy(),
+                   csc_col_ids=X.csc_col_ids.cpu().numpy(),
+                   csc_values=X.csc_values.cpu().numpy())
+    return out

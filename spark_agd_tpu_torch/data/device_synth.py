@@ -1,6 +1,6 @@
 """On-device synthetic data: generated where it is consumed.
 
-Counterpart of ``spark_agd_tpu/data/device_synth.py:60-151``.  The data
+Counterpart of ``spark_agd_tpu/data/device_synth.py:60-234``.  The data
 is drawn by a ``torch.Generator`` on the target device from ``seed``, so
 no bulk host-to-device copy happens.  X is allocated once and filled in
 row blocks in place: at the benchmark scale (10M x 1000 f32, 40 GB) a
@@ -115,3 +115,70 @@ def planted_softmax(n: int, d: int, k: int, *, seed: int = 0, device=None
         _, y[r0:r0 + rows] = softmax_block(W, rows, seed=seed, block=block,
                                            out=X[r0:r0 + rows])
     return X, y
+
+
+def _planted_sparse_labels(gen, values, col_ids, n_rows: int, n_features: int,
+                           row_width: int, scale: float) -> torch.Tensor:
+    """Labels of the planted sparse logistic model: ``w ~ N(0, I) /
+    scale``, the margin of row r the sum of its ``row_width`` entries'
+    ``values * w[col_ids]`` (rows are runs of ``row_width`` entries, so
+    the sum is a reshape, in a fixed order), ``y ~ Bernoulli(sigmoid)``."""
+    dev = values.device
+    w = torch.randn(n_features, generator=gen, device=dev) / scale
+    margins = (values * torch.index_select(w, 0, col_ids)) \
+        .view(n_rows, row_width).sum(dim=1)
+    u = torch.rand(n_rows, generator=gen, device=dev)
+    return (u < torch.sigmoid(margins)).to(torch.float32)
+
+
+def planted_sparse_parts(n_rows: int, n_features: int, nnz_per_row: int, *,
+                         seed: int = 0, device=None):
+    """COO parts of a planted sparse logistic problem, made on the device:
+    ``(row_ids int32, col_ids int32, values f32, y f32)`` with exactly
+    ``nnz_per_row`` entries a row, row-sorted by construction.  Column ids
+    are uniform over ``[0, n_features)`` (a row may repeat one), values
+    N(0, 1), the planted weights N(0, 1) / sqrt(nnz_per_row) so each
+    margin has unit variance, labels in {0, 1} from the sigmoid.  Wrap
+    the parts in ``CSRMatrix(..., rows_sorted=True)``."""
+    dev = resolve_device(device)
+    gen = _generator(dev, seed)
+    nnz = n_rows * nnz_per_row
+    col_ids = torch.randint(0, n_features, (nnz,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    values = torch.randn(nnz, generator=gen, device=dev)
+    row_ids = torch.arange(n_rows, dtype=torch.int32, device=dev) \
+        .repeat_interleave(nnz_per_row)
+    y = _planted_sparse_labels(gen, values, col_ids, n_rows, n_features,
+                               nnz_per_row, math.sqrt(nnz_per_row))
+    return row_ids, col_ids, values, y
+
+
+def planted_sparse_parts_varied(n_rows: int, n_features: int, nnz_mean: int,
+                                sigma: float = 0.5, max_factor: int = 3, *,
+                                seed: int = 0, device=None):
+    """:func:`planted_sparse_parts` with a long-tailed count of nonzeros a
+    row: log-normal counts (``mu = ln(nnz_mean) - sigma^2 / 2``, so the
+    mean lands on ``nnz_mean``), rounded and clipped to ``[1,
+    max_factor * nnz_mean]``.  Every row holds ``max_factor * nnz_mean``
+    entries; those past the row's count keep their random column id and
+    get value 0 (inert padding), so margins, gradients and the nonzero
+    histogram follow the drawn counts."""
+    dev = resolve_device(device)
+    gen = _generator(dev, seed)
+    width = max_factor * nnz_mean
+    mu = math.log(nnz_mean) - 0.5 * sigma * sigma
+    counts = torch.clamp(torch.round(torch.exp(
+        mu + sigma * torch.randn(n_rows, generator=gen, device=dev))),
+        1, width).to(torch.int32)
+    nnz = n_rows * width
+    col_ids = torch.randint(0, n_features, (nnz,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    live = torch.arange(width, dtype=torch.int32, device=dev)[None, :] \
+        < counts[:, None]
+    values = torch.where(live.reshape(-1),
+                         torch.randn(nnz, generator=gen, device=dev), 0.0)
+    row_ids = torch.arange(n_rows, dtype=torch.int32, device=dev) \
+        .repeat_interleave(width)
+    y = _planted_sparse_labels(gen, values, col_ids, n_rows, n_features,
+                               width, math.sqrt(nnz_mean))
+    return row_ids, col_ids, values, y

@@ -20,8 +20,8 @@ package's layout (``class``, ``weights``, ``intercept``, ``threshold``,
 Not in this slice (each raises ``NotImplementedError``): ``train_path``
 and ``cross_validate``, which need ``api.sweep`` and
 ``api.cross_validate``, and the ``*WithLBFGS`` trainers, which need
-``api.LBFGS``; all arrive with the optimizer-family slice.  Data is dense:
-a sparse (CSR) input raises ``TypeError``.
+``api.LBFGS``; all arrive with the optimizer-family slice.  X is a dense
+tensor (or anything numpy takes) or an ``ops.sparse.CSRMatrix``.
 """
 
 from __future__ import annotations
@@ -40,29 +40,74 @@ from ..ops.losses import (
     LogisticGradient,
     SoftmaxGradient,
     _mm,
-    require_dense,
+    check_layout,
 )
 from ..ops.prox import IdentityProx, L1Prox, L2Prox, Prox
+from ..ops.sparse import CSRMatrix
 
 _OPTIMIZER_FAMILY_LATER = (
     "arrives with the port of the optimizer family (api.sweep, "
     "api.cross_validate, api.LBFGS) in a later slice")
 
 
-def _as_tensor(a, device=None) -> torch.Tensor:
-    """A dense tensor: tensors are used as they are, anything numpy takes
-    becomes a tensor (on ``device`` when given)."""
+def _as_tensor(a, device=None):
+    """A dense tensor or a CSRMatrix: tensors and CSR matrices are used as
+    they are (a CSRMatrix is moved to ``device`` when given), anything
+    numpy takes becomes a tensor (on ``device`` when given)."""
     if isinstance(a, (np.ndarray, list, tuple, float, int)):
         t = torch.as_tensor(np.asarray(a))
         return t if device is None else t.to(device)
-    require_dense(a)  # anything else but a dense tensor: TypeError
+    check_layout(a)  # anything else but a dense tensor or CSR: TypeError
+    if isinstance(a, CSRMatrix) and device is not None:
+        return a.to(device)
     return a
+
+
+def _add_intercept_csr(X: CSRMatrix) -> CSRMatrix:
+    """The intercept column of a CSRMatrix, in row order: row i's entry
+    at column 0 comes first in row i, the row's own entries follow with
+    their columns moved up by one, and the row offsets become ``indptr +
+    arange(n + 1)``.  (The JAX package puts all intercept entries first,
+    which leaves its rows unsorted; the port's products need them in
+    order.)  The twin, when there is one, stays column-sorted: the
+    intercept column first, then the old twin's entries; it equals the
+    twin ``with_csc`` would build from the new entries."""
+    n, d = X.shape
+    dev, nnz = X.device, X.nnz
+    # row i's intercept entry sits where row i starts, i entries later
+    first = X.indptr[:-1] + torch.arange(n, dtype=torch.int64, device=dev)
+    own = torch.ones(nnz + n, dtype=torch.bool, device=dev)
+    own[first] = False
+    counts = X.indptr[1:] - X.indptr[:-1] + 1
+    row_ids = torch.arange(n, dtype=X.row_ids.dtype, device=dev) \
+        .repeat_interleave(counts, output_size=nnz + n)
+    col_ids = torch.zeros(nnz + n, dtype=X.col_ids.dtype, device=dev) \
+        .masked_scatter_(own, X.col_ids + 1)
+    values = torch.ones(nnz + n, dtype=X.dtype, device=dev) \
+        .masked_scatter_(own, X.values)
+    del own
+    csc = {}
+    if X.has_csc:
+        csc = dict(
+            csc_row_ids=torch.cat([
+                torch.arange(n, dtype=X.csc_row_ids.dtype, device=dev),
+                X.csc_row_ids]),
+            csc_col_ids=torch.cat([
+                torch.zeros(n, dtype=X.csc_col_ids.dtype, device=dev),
+                X.csc_col_ids + 1]),
+            csc_values=torch.cat([
+                torch.ones(n, dtype=X.csc_values.dtype, device=dev),
+                X.csc_values]))
+    return CSRMatrix(row_ids, col_ids, values, (n, d + 1), rows_sorted=True,
+                     want_csc=X.want_csc, **csc)
 
 
 def _add_intercept(X):
     """Prepend the all-ones column (reference Suite:47-49 convention: the
-    intercept is weight 0).  Dense only; the result lies where X lies."""
+    intercept is weight 0).  The result lies where X lies."""
     X = _as_tensor(X)
+    if isinstance(X, CSRMatrix):
+        return _add_intercept_csr(X)
     ones = torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
     return torch.cat([ones, X], dim=1)
 

@@ -28,6 +28,11 @@ tensor it runs the plain version, which computes the same function in
 f32 with ``torch`` products.  ``prepare`` stages the operands once at
 data-placement time, without copying a contiguous f32 or bf16 X.
 
+Both kernels read dense X.  A :class:`~spark_agd_tpu_torch.ops.sparse.CSRMatrix`
+is routed by ``prepare`` to the wrapped loss, whose products go through
+``ops.sparse`` (as ``PallasMarginGradient``/``PallasSoftmaxGradient``
+route CSR to the jnp losses); no kernel is launched for it.
+
 The launch shapes (tile rows, grid) and the limits come from the CUDA
 sources (``margin_plan``/``margin_max_width``,
 ``softmax_plan``/``softmax_max_classes``), which alone know the kernels'
@@ -54,8 +59,9 @@ from .losses import (
     MarginGradient,
     SoftmaxGradient,
     _count,
-    require_dense,
+    check_layout,
 )
+from .sparse import CSRMatrix
 
 # Kernel launches since import (or since a caller reset them to 0).
 launch_count = 0
@@ -84,7 +90,11 @@ def _stage(X, y, mask, kernel: str, check) -> StagedDense:
     used as it is, never copied; any other dtype becomes f32.  For a CUDA
     X, ``check(d, dtype)`` raises ``ValueError`` here, before any copy,
     when the kernel cannot take it."""
-    require_dense(X)
+    check_layout(X)
+    if isinstance(X, CSRMatrix):
+        raise TypeError(f"the {kernel} kernel reads dense X; a CSRMatrix "
+                        f"goes through the sparse products (the fused "
+                        f"gradients' prepare routes it there)")
     if X.dim() != 2:
         raise ValueError(f"the {kernel} kernel takes a 2-D X; got shape "
                          f"{tuple(X.shape)}")
@@ -292,7 +302,8 @@ class FusedMarginGradient(MarginGradient):
     ``prepare`` (called once by the smooth factory) stages the operands
     into a :class:`StagedDense`.  CPU data takes the kernel's plain
     version; CUDA data launches the kernel, and raises where the kernel
-    cannot take it (X wider than :func:`max_width`)."""
+    cannot take it (X wider than :func:`max_width`).  A CSRMatrix takes
+    the wrapped loss's sparse products and launches nothing."""
 
     def __init__(self, inner: MarginGradient):
         if type(inner) not in _LOSS_CODES:
@@ -306,12 +317,17 @@ class FusedMarginGradient(MarginGradient):
         return self.inner.dots_loss_and_mult(dots, y)
 
     def prepare(self, X, y, mask=None):
-        """Stage once: ``(StagedDense, None, None)``."""
+        """Stage once: ``(StagedDense, None, None)``; a CSRMatrix gets the
+        plain staging (its twin) and the sparse products."""
         if isinstance(X, StagedDense):
             return X, y, mask
+        if isinstance(X, CSRMatrix):
+            return Gradient.prepare(self, X, y, mask)
         return stage_dense(X, y, mask), None, None
 
     def batch_loss_and_grad(self, weights, X, y, mask=None):
+        if isinstance(X, CSRMatrix):
+            return self.inner.batch_loss_and_grad(weights, X, y, mask)
         if not isinstance(X, StagedDense):
             X = stage_dense(X, y, mask)  # unprepared call: stage per call
         loss, grad = fused_margin_loss_grad(self.inner, weights, X)
@@ -450,7 +466,8 @@ class FusedSoftmaxGradient(Gradient):
     into a :class:`StagedDense`.  CPU data takes the kernel's plain
     version; CUDA data launches the kernel, and raises where the kernel
     cannot take it (more classes than :func:`max_classes` at X's
-    width)."""
+    width).  A CSRMatrix takes the wrapped loss's sparse products and
+    launches nothing."""
 
     def __init__(self, inner: SoftmaxGradient):
         if not isinstance(inner, SoftmaxGradient):
@@ -460,12 +477,17 @@ class FusedSoftmaxGradient(Gradient):
         self.num_classes = inner.num_classes
 
     def prepare(self, X, y, mask=None):
-        """Stage once: ``(StagedDense, None, None)``."""
+        """Stage once: ``(StagedDense, None, None)``; a CSRMatrix gets the
+        plain staging (its twin) and the sparse products."""
         if isinstance(X, StagedDense):
             return X, y, mask
+        if isinstance(X, CSRMatrix):
+            return Gradient.prepare(self, X, y, mask)
         return stage_softmax(X, y, self.num_classes, mask), None, None
 
     def batch_loss_and_grad(self, weights, X, y, mask=None):
+        if isinstance(X, CSRMatrix):
+            return self.inner.batch_loss_and_grad(weights, X, y, mask)
         if not isinstance(X, StagedDense):
             # unprepared call: stage per call
             X = stage_softmax(X, y, self.num_classes, mask)

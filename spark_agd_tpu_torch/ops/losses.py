@@ -16,7 +16,9 @@ Formulas follow spark-mllib 1.3.0 exactly as the JAX package does:
 - ``CustomGradient``: any batch loss over a tree of tensors,
   differentiated with ``torch.autograd``.
 
-This slice is dense only: a sparse (CSR) input raises ``TypeError``.
+X is a dense (strided) tensor or an ``ops.sparse.CSRMatrix``; the same
+classes serve both, the products going through ``ops.sparse`` for CSR, as
+the JAX losses do.  torch's own sparse layouts raise ``TypeError``.
 """
 
 from __future__ import annotations
@@ -26,18 +28,22 @@ from typing import Callable
 import torch
 
 from ..core import tvec
-
-_SPARSE_LATER = (
-    "the PyTorch port takes dense torch.Tensor data only; sparse (CSR) "
-    "input arrives with the port of ops/sparse.py in a later slice")
+from . import sparse
+from .sparse import CSRMatrix
 
 
-def require_dense(X):
-    """Raise ``TypeError`` unless ``X`` is a dense (strided) tensor."""
-    if not isinstance(X, torch.Tensor) or X.layout != torch.strided:
-        raise TypeError(f"{_SPARSE_LATER}; got {type(X).__name__}"
-                        + (f" with layout {X.layout}"
-                           if isinstance(X, torch.Tensor) else ""))
+def check_layout(X):
+    """Raise ``TypeError`` unless ``X`` is a dense (strided) tensor or a
+    :class:`~spark_agd_tpu_torch.ops.sparse.CSRMatrix`."""
+    if isinstance(X, CSRMatrix) or (isinstance(X, torch.Tensor)
+                                    and X.layout == torch.strided):
+        return
+    raise TypeError(
+        "the PyTorch port takes X as a dense (strided) torch.Tensor or a "
+        "spark_agd_tpu_torch.ops.sparse.CSRMatrix; got "
+        f"{type(X).__name__}"
+        + (f" with layout {X.layout} (build a CSRMatrix from its arrays)"
+           if isinstance(X, torch.Tensor) else ""))
 
 
 def _count(X, mask=None) -> torch.Tensor:
@@ -49,13 +55,18 @@ def _count(X, mask=None) -> torch.Tensor:
 
 def _mm(X, w):
     """``X @ w`` in the promoted dtype of the two (a bf16 X meets f32
-    weights in f32, as ``jnp.matmul`` promotes)."""
+    weights in f32, as ``jnp.matmul`` promotes); a CSRMatrix goes through
+    ``sparse.matvec``."""
+    if isinstance(X, CSRMatrix):
+        return sparse.matvec(X, w)
     dt = torch.promote_types(X.dtype, w.dtype)
     return X.to(dt) @ w.to(dt)
 
 
 def _rmm(X, r):
-    """``X.T @ r`` in the promoted dtype."""
+    """``X.T @ r`` in the promoted dtype (``sparse.rmatvec`` for CSR)."""
+    if isinstance(X, CSRMatrix):
+        return sparse.rmatvec(X, r)
     dt = torch.promote_types(X.dtype, r.dtype)
     return X.to(dt).T @ r.to(dt)
 
@@ -71,9 +82,14 @@ class Gradient:
 
     def prepare(self, X, y, mask=None):
         """One-time staging, called by the smooth factory when the data
-        is placed (outside the optimizer loop).  The default checks that
-        the data is dense and returns it unchanged."""
-        require_dense(X)
+        is placed (outside the optimizer loop).  The default checks X's
+        layout and builds a CSRMatrix's column-sorted twin when it lacks
+        one: every transpose product runs on the twin here, so it is
+        built once now rather than at each evaluation (the JAX package
+        builds it when ``want_csc`` asks, else scatters)."""
+        check_layout(X)
+        if isinstance(X, CSRMatrix) and not X.has_csc:
+            X = X.with_csc()
         return X, y, mask
 
     def mean_loss_and_grad(self, weights, X, y, mask=None):
@@ -94,7 +110,7 @@ class MarginGradient(Gradient):
         raise NotImplementedError
 
     def batch_loss_and_grad(self, weights, X, y, mask=None):
-        require_dense(X)
+        check_layout(X)
         dots = _mm(X, weights)
         per, mult = self.dots_loss_and_mult(dots, y.to(dots.dtype))
         if mask is not None:
@@ -142,7 +158,7 @@ class SoftmaxGradient(Gradient):
         self.num_classes = int(num_classes)
 
     def batch_loss_and_grad(self, weights, X, y, mask=None):
-        require_dense(X)
+        check_layout(X)
         logits = _mm(X, weights)  # (N, K)
         logz = torch.logsumexp(logits, dim=-1)
         labels = y.to(torch.int64)

@@ -252,3 +252,95 @@ def test_models_on_the_card_predict_and_stream_with_device_masks(cuda,
         keep = np.concatenate([np.ones(10, bool),
                                mask[10:].cpu().numpy() > 0])
         np.testing.assert_array_equal(streamed, pred[keep])
+
+
+# --- the sparse data plane --------------------------------------------------
+
+def _card_csr(dev, n=5_003, d=1_021, mean=9, seed=6):
+    """A CSR made on the card with varied counts (zero-value padding),
+    empty rows (every 13th row loses its entries) and empty columns (ids
+    below d - 5), with its twin."""
+    from spark_agd_tpu_torch.data import device_synth
+    from spark_agd_tpu_torch.ops import sparse
+
+    rid, cid, val, y = device_synth.planted_sparse_parts_varied(
+        n, d - 5, mean, seed=seed, device=dev)
+    keep = rid % 13 != 0
+    X = sparse.CSRMatrix(rid[keep], cid[keep], val[keep], (n, d),
+                         rows_sorted=True).with_csc()
+    X64 = sparse.CSRMatrix(
+        X.row_ids, X.col_ids, X.values.double(), X.shape, rows_sorted=True,
+        csc_row_ids=X.csc_row_ids, csc_col_ids=X.csc_col_ids,
+        csc_values=X.csc_values.double())
+    return X, X64, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product", ["matvec", "rmatvec", "matmat",
+                                     "rmatmat"])
+def test_sparse_products_repeat_bit_identical_and_match_f64(cuda, product):
+    X, X64, _ = _card_csr(cuda)
+    n, d = X.shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    shape = {"matvec": (d,), "rmatvec": (n,), "matmat": (d, 6),
+             "rmatmat": (n, 6)}[product]
+    a = torch.randn(shape, generator=gen, device=cuda)
+    out, again = getattr(X, product)(a), getattr(X, product)(a)
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda" and out.dtype == torch.float32
+    assert torch.equal(out, again)
+    ref = getattr(X64, product)(a.double())
+    torch.testing.assert_close(out.double(), ref, rtol=0.0,
+                               atol=1e-5 * float(ref.abs().max()))
+    # the same entries on the CPU: the same function
+    cpu = getattr(X.to("cpu"), product)(a.cpu())
+    torch.testing.assert_close(out.cpu(), cpu, rtol=1e-5,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_csr_on_the_card_launches_no_dense_kernel(cuda):
+    X, _, y = _card_csr(cuda)
+    before = (fk.launch_count, fk.softmax_launch_count)
+    w, hist = port.run((X, y), port.FusedLogisticGradient(), port.L2Prox(),
+                       reg_param=1e-3, num_iterations=5,
+                       initial_weights=np.zeros(X.shape[1], np.float32))
+    torch.cuda.synchronize()
+    assert (fk.launch_count, fk.softmax_launch_count) == before
+    assert w.device.type == "cuda" and np.isfinite(hist).all()
+
+
+@pytest.mark.cuda
+def test_libsvm_file_to_card_trainer(cuda, tmp_path):
+    """``load_libsvm`` -> ``CSRMatrix.from_csr_arrays(device="cuda")`` ->
+    one ``train`` step on the card, against the same step on the CPU."""
+    from spark_agd_tpu_torch import native
+    from spark_agd_tpu_torch.data import libsvm
+    from spark_agd_tpu_torch.models import glm
+    from spark_agd_tpu_torch.ops.sparse import CSRMatrix
+
+    rng = np.random.default_rng(8)
+    n, d = 3_000, 200
+    X = (rng.standard_normal((n, d))
+         * (rng.random((n, d)) < 0.05)).astype(np.float32)
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    path = str(tmp_path / "train.libsvm")
+    libsvm.save_libsvm(path, X, y)
+    data = port.load_libsvm(path, n_features=d)
+    assert native.pop_fallback_event("libsvm_parser.so") is None
+    models = {}
+    for dev in (cuda, "cpu"):
+        Xs = CSRMatrix.from_csr_arrays(data.indptr, data.indices,
+                                       data.values, d, device=dev)
+        assert Xs.device.type == torch.device(dev).type
+        t = glm.LogisticRegressionWithAGD(reg_param=1e-3)
+        t.optimizer.setNumIterations(1).set_device(dev)
+        models[str(dev)] = t.train(Xs, data.binarized_labels())
+    card, host = models[str(cuda)], models["cpu"]
+    assert card.weights.device.type == "cuda"
+    assert torch.isfinite(card.weights).all()
+    torch.testing.assert_close(card.weights.cpu(), host.weights, rtol=1e-5,
+                               atol=1e-7)
+    assert card.intercept == pytest.approx(host.intercept, rel=1e-5,
+                                           abs=1e-7)

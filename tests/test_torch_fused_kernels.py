@@ -19,6 +19,7 @@ from spark_agd_tpu.ops.pallas_kernels import (
     pad_dense,
 )
 from spark_agd_tpu_torch.ops import fused_kernels as fk, losses
+from spark_agd_tpu_torch.ops.sparse import CSRMatrix
 
 LOSSES = ["logistic", "least_squares", "hinge"]
 
@@ -205,9 +206,23 @@ def test_cpu_calls_do_not_count_as_launches():
 
 
 def test_sparse_input_raises():
+    """A torch sparse layout raises, naming CSRMatrix; a CSRMatrix takes
+    the sparse products and launches no kernel."""
     g = fk.FusedLogisticGradient()
-    with pytest.raises(TypeError, match="later slice"):
+    with pytest.raises(TypeError, match="CSRMatrix"):
         g.prepare(torch.eye(4).to_sparse(), torch.zeros(4))
+    csr = CSRMatrix.from_csr_arrays([0, 2, 3], [0, 3, 1],
+                                    np.ones(3, np.float32), 4, device="cpu")
+    with pytest.raises(TypeError, match="sparse products"):
+        fk.stage_dense(csr, torch.zeros(2))
+    before = fk.launch_count
+    Xp, y, _ = g.prepare(csr, torch.ones(2))
+    assert isinstance(Xp, CSRMatrix) and Xp.has_csc
+    loss, grad, n = g.batch_loss_and_grad(torch.zeros(4), Xp, y)
+    assert fk.launch_count == before and int(n) == 2
+    assert torch.allclose(loss, torch.tensor(2 * np.log(2.0),
+                                             dtype=torch.float32))
+    assert grad.shape == (4,)
 
 
 # --- the softmax kernel module ---------------------------------------------
@@ -297,7 +312,7 @@ def test_softmax_prepare_does_not_copy_contiguous_x():
 def test_softmax_wrapper_rejects_other_gradients():
     with pytest.raises(TypeError, match="FusedSoftmaxGradient wraps"):
         fk.FusedSoftmaxGradient(losses.LogisticGradient())
-    with pytest.raises(TypeError, match="later slice"):
+    with pytest.raises(TypeError, match="CSRMatrix"):
         fk.FusedSoftmaxGradient(losses.SoftmaxGradient(3)).prepare(
             torch.eye(4).to_sparse(), torch.zeros(4))
     with pytest.raises(ValueError, match="2-D X"):

@@ -313,14 +313,23 @@ def test_later_slice_methods_raise():
 
 
 def test_sparse_input_raises():
+    """A JAX CSRMatrix or a torch sparse layout raises, naming the port's
+    CSRMatrix, which is accepted."""
     from spark_agd_tpu.ops.sparse import CSRMatrix
 
     csr = CSRMatrix.from_csr_arrays(np.arange(4), np.arange(3), np.ones(3),
                                    n_features=3)
-    with pytest.raises(TypeError, match="later slice"):
+    with pytest.raises(TypeError, match="CSRMatrix"):
         tglm._add_intercept(csr)
-    with pytest.raises(TypeError, match="later slice"):
+    with pytest.raises(TypeError, match="CSRMatrix"):
         tglm._add_intercept(torch.eye(3).to_sparse())
+    tcsr = convert.csr_from_numpy(np.asarray(csr.row_ids),
+                                  np.asarray(csr.col_ids),
+                                  np.asarray(csr.values), csr.shape,
+                                  device="cpu")
+    Xi = tglm._add_intercept(tcsr)
+    assert Xi.shape == (3, 4) and Xi.nnz == 6
+    np.testing.assert_array_equal(Xi.col_ids.numpy(), [0, 1, 0, 2, 0, 3])
 
 
 def test_trainers_and_load_model_need_cuda_unless_told_cpu(monkeypatch,

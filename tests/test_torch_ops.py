@@ -14,6 +14,7 @@ from spark_agd_tpu.core import tvec as jtvec
 from spark_agd_tpu.ops import losses as jlosses, prox as jprox
 from spark_agd_tpu_torch.core import tvec
 from spark_agd_tpu_torch.ops import losses, prox
+from spark_agd_tpu_torch.ops.sparse import CSRMatrix
 
 RTOL = {np.float64: 1e-12, np.float32: 1e-5}
 # a gradient component near zero is a difference of large sums: its
@@ -155,12 +156,25 @@ def test_custom_gradient_rejects_unsupported_mask():
 
 
 def test_sparse_input_names_the_later_slice():
+    """torch's own sparse layouts still raise, naming CSRMatrix; a
+    CSRMatrix is accepted (its products: tests/test_torch_sparse.py)."""
     Xs = torch.eye(4).to_sparse()
     for g in (losses.LogisticGradient(), losses.SoftmaxGradient(3)):
-        with pytest.raises(TypeError, match="later slice"):
+        with pytest.raises(TypeError, match="CSRMatrix"):
             g.batch_loss_and_grad(torch.zeros(4), Xs, torch.zeros(4))
-    with pytest.raises(TypeError, match="later slice"):
+    with pytest.raises(TypeError, match="CSRMatrix"):
         losses.LogisticGradient().prepare(Xs, torch.zeros(4))
+    csr = CSRMatrix.from_csr_arrays([0, 1, 2, 3, 4], [0, 1, 2, 3],
+                                    np.ones(4), 4, device="cpu")
+    Xp, _, _ = losses.LogisticGradient().prepare(csr, torch.zeros(4))
+    assert isinstance(Xp, CSRMatrix) and Xp.has_csc
+    for g, w in ((losses.LogisticGradient(), torch.zeros(4,
+                                                         dtype=torch.float64)),
+                 (losses.SoftmaxGradient(3), torch.zeros((4, 3),
+                                                         dtype=torch.float64))):
+        loss, grad, n = g.batch_loss_and_grad(w, Xp, torch.zeros(4))
+        assert grad.shape == w.shape and int(n) == 4
+        assert torch.isfinite(loss)
 
 
 def test_registries_match():
