@@ -70,13 +70,53 @@ Phases, each printing one JSON line:
     2,396,130 x 3,231,961 with 116 nonzeros a row (seed 1), fit with
     ``SVMWithAGD(reg_param=1e-5)`` (hinge + L1), read as phase 10, with
     the count of exact-zero weights;
-13. the ``kernels`` line; then the card's name and power limit, and last
-    ``{"ok": true, "device": {...}}``.
+13. lbfgs_path, on phase 5's data (run after phase 6, before it is
+    freed): ``LBFGS(FusedLogisticGradient(), SquaredL2Updater())
+    .setRegParam(0.1).setNumIterations(40).optimize``, ``run_lbfgs``
+    with the same, and OWL-QN (``make_lbfgs_runner`` with ``L1Prox``, reg
+    1e-3, which must route to ``"owlqn"``), each held to the same fit
+    through the plain ``LogisticGradient``: loss histories at rtol 1e-4
+    over the iterations before the two fits' line searches first part
+    (``diag_step``/``diag_evals``), printed with where they part, the
+    evaluations, stop reasons and exact zeros;
+14. softmax_lbfgs_path, on phase 7's data (after phase 8):
+    ``SoftmaxRegressionWithLBFGS(10, reg_param=1e-4)`` with
+    ``FusedSoftmaxGradient`` in the seat (``train``, then ``run_lbfgs``),
+    held to ``run_lbfgs`` through the plain ``SoftmaxGradient`` as 13;
+15. rcv1_lbfgs, on phase 10's CSR (after phase 11):
+    ``LogisticRegressionWithLBFGS(reg_param=1e-4)`` at f32, held to the
+    same fit at f64 as 13, and the f32 gradient at the final weights to
+    f64 sums within 1e-4 of its largest entry;
+16. gd_gate: the reference's correctness spec (AGD at 10 iterations
+    within 2% of MLlib GD at 50, ``tests/test_reference_suite.py:38-50``)
+    at 10,000,000 rows of its own problem family
+    (``generate_gd_input(2, -1.5, seed 42)`` and the intercept column),
+    both through ``FusedLogisticGradient``; the kernel GD held to the
+    plain GD at rtol 1e-4; a GD at fraction 0.1 (seed 42) whose masks,
+    drawn on the card, equal the CPU draw bit for bit; the kernel's time
+    at this narrow shape beside its plain version's and its bound;
+17. linreg_path: BASELINE config 2 as published, 10,000,000 x 1,000
+    ``planted_dense_linreg`` (seed 2) through
+    ``LinearRegressionWithAGD(add_intercept=False)`` with
+    ``FusedMarginGradient(LeastSquaresGradient())`` in the seat (40
+    iterations, convergence_tol 0), held to the plain fit as phase 5 is;
+    GD at config 2's step 0.1 (50 iterations) through the kernel, held to
+    plain GD at rtol 1e-4;
+18. mlp_path: BASELINE config 5 as published, ``planted_mlp`` 1,000,000
+    x 1,024 (hidden 32, 2 classes, seed 4) through
+    ``MLPClassifierWithAGD(32, 2, reg_param=1e-5)`` (tanh, 40 iterations,
+    convergence_tol 0), held to the same fit at f64 over their common
+    path and the final gradient to f64 sums; the training accuracy;
+19. the ``kernels`` line (with each kernel's launches by path); then the
+    card's name and power limit, and last ``{"ok": true, "device":
+    {...}}``.
 
-Launch counts are set to 0 just before each path (phases 5, 7, 10-12)
-and read just after it; the sparse paths launch neither kernel.  Any
-failed check raises, and the script exits non-zero without the last
-line.  It also exits non-zero when CUDA is not available.
+Launch counts are set to 0 just before each path (phases 5, 7, 10-18)
+and read just after it; the sparse paths launch neither kernel, nor does
+the MLP.  Each phase from 13 on prints its fit wall times with the card's
+name and power limit.  Any failed check raises, and the script exits
+non-zero without the last line.  It also exits non-zero when CUDA is not
+available.
 
 ``python3 chip_smoke.py --ab NAME=SOURCE [...] [--seeds 3,4]`` runs none
 of the phases.  It times versions of the softmax kernel side by side
@@ -125,6 +165,14 @@ URL = dict(n=2_396_130, d=3_231_961, k=116, seed=1, reg=1e-5,
 # the CSR values (4 B) and ids (4 B) read once by each of the two products
 SPARSE_BYTES_PER_NNZ = 16
 LIBSVM_WRITE_LIMIT_S, LIBSVM_REDUCED_ROWS = 60.0, 69_764
+# OWL-QN on the flagship data (phase 13)
+L1_MAIN = 1e-3
+# the reference's GD gate (tests/test_reference_suite.py:38-50) at 10M
+# rows; the card's masks of a sampled GD are held to the CPU draw over
+# all rows at three iterations and over the first MASK_ROWS at the rest
+N_GATE, MASK_ROWS = 10_000_000, 250_000
+# BASELINE config 5 (benchmarks/run.py:102-106, datasets.py:148-154)
+MLP = dict(n=1_000_000, d=1_024, hidden=32, classes=2, seed=4, reg=1e-5)
 
 
 def emit(obj):
@@ -430,9 +478,10 @@ def counting(cls):
     return Counting
 
 
-def margin_path(port, fk, losses, device_synth):
-    """Phases 5 and 6; returns the margin kernel's numbers.  Its tensors
-    (X, the staged operands, the multipliers) are freed on return."""
+def margin_path(port, fk, losses, device_synth, after):
+    """Phases 5 and 6, then ``after(X, y)`` on the same data; returns the
+    margin kernel's numbers.  Its tensors (X, the staged operands, the
+    multipliers) are freed on return."""
     t0 = time.perf_counter()
     X, y = device_synth.class_logistic(N_MAIN, D_MAIN, seed=0)
     torch.cuda.synchronize()
@@ -544,7 +593,9 @@ def margin_path(port, fk, losses, device_synth):
           "main_shape_loss_rel_err": loss_err,
           "main_shape_grad_max_abs_err": max_abs_err,
           "card_before": state_before, "card_after": state_after})
-    del X, y, staged, mult
+    del staged, mult
+    after(X, y)
+    del X, y
     return {"name": "margin_loss_grad", "route": "cuda",
             "source": "spark_agd_tpu_torch/csrc/margin_loss_grad.cu",
             "replaces": "spark_agd_tpu/ops/pallas_kernels.py:182",
@@ -556,9 +607,10 @@ def margin_path(port, fk, losses, device_synth):
             "two_matmuls_ms": two_mm_ms}
 
 
-def softmax_path(port, fk, device_synth):
-    """Phases 7 and 8: BASELINE config 4 through the GLM trainer; returns
-    the softmax kernel's numbers."""
+def softmax_path(port, fk, device_synth, after):
+    """Phases 7 and 8: BASELINE config 4 through the GLM trainer, then
+    ``after(Xa, y)`` on the same data (with its intercept column);
+    returns the softmax kernel's numbers."""
     from spark_agd_tpu_torch.models import evaluation, glm
 
     t0 = time.perf_counter()
@@ -711,6 +763,8 @@ def softmax_path(port, fk, device_synth):
           "grad_max_abs_err_vs_plain_f32": err_vs_plain,
           "grad_abs_max": float(exact_grad.abs().max()),
           "card_before": state_before, "card_after": state_after})
+    del staged, resid
+    after(Xa, y)
     return {"name": "softmax_loss_grad", "route": "cuda",
             "source": "spark_agd_tpu_torch/csrc/softmax_loss_grad.cu",
             "replaces": "spark_agd_tpu/ops/pallas_kernels.py:406",
@@ -1106,6 +1160,516 @@ def phase_libsvm(port, sparse, native, rcv1):
                              "the in-memory fit")
 
 
+def lbfgs_common_path(res, ref):
+    """The iterations over which two L-BFGS fits are held to each other:
+    those before the first whose line search took another step or another
+    number of evaluations (``diag_step``, ``diag_evals``); the loss
+    history entries ``[:n + 1]`` precede that search."""
+    k = min(int(res.num_iters), int(ref.num_iters))
+    same = ((res.diag_evals[:k] == ref.diag_evals[:k])
+            & (res.diag_step[:k].double() == ref.diag_step[:k].double()))
+    return k if bool(same.all()) else int(torch.argmin(same.int()))
+
+
+def lbfgs_report(res, prefix=""):
+    """A fit's diagnostics for the phase line."""
+    from spark_agd_tpu_torch.core import lbfgs
+
+    k = int(res.num_iters)
+    hist = res.loss_history[:k + 1].double().numpy()
+    return {f"{prefix}num_iters": k,
+            f"{prefix}num_fn_evals": int(res.num_fn_evals),
+            f"{prefix}ls_stop_reason": lbfgs.ls_stop_reason_name(
+                res.ls_stop_reason),
+            f"{prefix}converged": bool(res.converged),
+            f"{prefix}ls_failed": bool(res.ls_failed),
+            f"{prefix}aborted_non_finite": bool(res.aborted_non_finite),
+            f"{prefix}loss_history": hist.tolist(),
+            f"{prefix}steps": res.diag_step[:k].tolist(),
+            f"{prefix}evals_per_iteration": res.diag_evals[:k].tolist()}
+
+
+def hold_lbfgs(res, ref, checks, label):
+    """Hold ``res`` to ``ref`` over their common path (histories rtol
+    1e-4) and add the checks every L-BFGS fit passes; returns the phase
+    line's fields for the pair."""
+    n_path = lbfgs_common_path(res, ref)
+    h = res.loss_history[:n_path + 1].double().numpy()
+    h_ref = ref.loss_history[:n_path + 1].double().numpy()
+    k = int(res.num_iters)
+    full = res.loss_history[:k + 1].double().numpy()
+    checks[f"{label}_history_rtol_1e-4_on_the_common_path"] = bool(
+        np.allclose(h, h_ref, rtol=1e-4, atol=0.0))
+    checks[f"{label}_loss_decreases"] = k > 0 and bool(full[-1] < full[0])
+    checks[f"{label}_finite"] = bool(
+        np.isfinite(full).all() and not bool(res.aborted_non_finite)
+        and torch.isfinite(res.weights).all())
+    return {f"{label}_common_path_iterations": n_path,
+            f"{label}_parts_at_iteration":
+                None if n_path == min(k, int(ref.num_iters)) else n_path,
+            f"{label}_max_hist_rel_diff_on_the_common_path": float(np.max(
+                np.abs(h - h_ref) / np.abs(h_ref)))}
+
+
+def timed(fn):
+    """``fn()`` and its wall time to ``torch.cuda.synchronize()``."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def finish(phase, out, checks, t_phase, smi):
+    """Emit the phase line (with the card, the checks and the seconds)
+    and raise if a check failed."""
+    out = {"phase": phase, **out, "card": smi, "checks": checks,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"{phase} checks failed: {failed}")
+
+
+def lbfgs_path(port, fk, smi, X, y, launches):
+    """Phase 13, on phase 5's data: the quasi-Newton member through the
+    margin kernel, ``LBFGS.optimize`` and ``run_lbfgs`` (L2), and OWL-QN
+    (``run_lbfgs`` with ``L1Prox``), each held to the same fit through
+    the plain ``LogisticGradient``."""
+    t_phase = time.perf_counter()
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    fused = counting(port.FusedLogisticGradient)()
+    kw = dict(reg_param=REG, num_iterations=ITERS, initial_weights=w0)
+    fk.launch_count = fk.softmax_launch_count = 0
+    w_opt, optimize_s = timed(lambda: port.LBFGS(
+        fused, port.SquaredL2Updater()).setRegParam(REG)
+        .setNumIterations(ITERS).optimize((X, y), w0))
+    launches_optimize, evals_optimize = fk.launch_count, fused.evaluations
+    res, run_s = timed(lambda: port.run_lbfgs(
+        (X, y), fused, port.SquaredL2Updater(), **kw))
+    launches_run = fk.launch_count - launches_optimize
+    fit = port.make_lbfgs_runner((X, y), fused, port.L1Prox(),
+                                 reg_param=L1_MAIN, num_iterations=ITERS)
+    res_l1, owlqn_s = timed(lambda: fit(w0))
+    launches_l1 = fk.launch_count - launches_optimize - launches_run
+    launches["lbfgs_path"] = fk.launch_count
+    softmax_launches = fk.softmax_launch_count
+    plain, plain_s = timed(lambda: port.run_lbfgs(
+        (X, y), port.LogisticGradient(), port.SquaredL2Updater(), **kw))
+    plain_l1, plain_l1_s = timed(lambda: port.run_lbfgs(
+        (X, y), port.LogisticGradient(), port.L1Prox(), reg_param=L1_MAIN,
+        num_iterations=ITERS, initial_weights=w0))
+    checks = {
+        "launches_equal_evaluations":
+            fk.launch_count == fused.evaluations > 0,
+        "run_launches_equal_num_fn_evals":
+            launches_run == int(res.num_fn_evals) > 0,
+        "owlqn_launches_equal_num_fn_evals":
+            launches_l1 == int(res_l1.num_fn_evals) > 0,
+        "optimize_launches_equal_its_evaluations":
+            launches_optimize == evals_optimize > 0,
+        "no_softmax_launch": softmax_launches == 0,
+        "optimize_equals_run": bool(torch.allclose(
+            w_opt, res.weights, rtol=1e-6, atol=0.0)),
+        "l1_routes_to_owlqn": fit.algorithm == "owlqn",
+        "weights_shape": tuple(res.weights.shape) == (D_MAIN,),
+    }
+    out = {"shape": [N_MAIN, D_MAIN], "reg": REG, "l1_reg": L1_MAIN,
+           "optimize_s": optimize_s, "run_s": run_s,
+           "plain_run_s": plain_s, "owlqn_run_s": owlqn_s,
+           "owlqn_plain_run_s": plain_l1_s,
+           "launches": fk.launch_count, "launches_run": launches_run,
+           "launches_owlqn": launches_l1,
+           "smooth_evaluations": fused.evaluations,
+           "algorithm_l1": fit.algorithm,
+           "optimize_bit_identical_to_run": bool(torch.equal(w_opt,
+                                                             res.weights)),
+           **lbfgs_report(res), **lbfgs_report(plain, "plain_"),
+           **lbfgs_report(res_l1, "owlqn_"),
+           **lbfgs_report(plain_l1, "owlqn_plain_"),
+           "owlqn_exact_zero_weights": int((res_l1.weights == 0).sum()),
+           "owlqn_plain_exact_zero_weights":
+               int((plain_l1.weights == 0).sum())}
+    out.update(hold_lbfgs(res, plain, checks, "lbfgs"))
+    out.update(hold_lbfgs(res_l1, plain_l1, checks, "owlqn"))
+    with torch.no_grad():
+        acc = float(((X[:1_000_000] @ res.weights > 0).float()
+                     == y[:1_000_000]).float().mean())
+    out["train_accuracy_1M"] = acc
+    checks["accuracy_above_0.8"] = acc > 0.8
+    finish("lbfgs_path", out, checks, t_phase, smi)
+
+
+def softmax_lbfgs_path(port, fk, glm, smi, Xa, y, launches):
+    """Phase 14, on phase 7's data: ``SoftmaxRegressionWithLBFGS`` with
+    ``FusedSoftmaxGradient`` in the seat (``train`` on X, whose
+    intercept copy it makes, then ``run_lbfgs`` on Xa), held to
+    ``run_lbfgs`` through the plain ``SoftmaxGradient``."""
+    t_phase = time.perf_counter()
+    d = D_SM + 1
+    w0 = torch.zeros((d, K_SM), dtype=torch.float32, device="cuda")
+    fused = counting(port.FusedSoftmaxGradient)(port.SoftmaxGradient(K_SM))
+    trainer = glm.SoftmaxRegressionWithLBFGS(K_SM, reg_param=REG_SM)
+    trainer.optimizer.set_gradient(fused).setNumIterations(ITERS)
+    torch.cuda.reset_peak_memory_stats()
+    fk.launch_count = fk.softmax_launch_count = 0
+    model, train_s = timed(lambda: trainer.train(Xa[:, 1:], y))
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches_train, evals_train = fk.softmax_launch_count, fused.evaluations
+    res, run_s = timed(lambda: port.run_lbfgs(
+        (Xa, y), fused, port.L2Prox(), reg_param=REG_SM,
+        num_iterations=ITERS, initial_weights=w0))
+    launches["softmax_lbfgs_path"] = fk.softmax_launch_count
+    margin_launches = fk.launch_count
+    plain, plain_s = timed(lambda: port.run_lbfgs(
+        (Xa, y), port.SoftmaxGradient(K_SM), port.L2Prox(),
+        reg_param=REG_SM, num_iterations=ITERS, initial_weights=w0))
+    checks = {
+        "train_launches_equal_evaluations":
+            launches_train == evals_train > 0,
+        "run_launches_equal_num_fn_evals":
+            fk.softmax_launch_count - launches_train
+            == int(res.num_fn_evals) > 0,
+        "no_margin_launch": margin_launches == 0,
+        "train_equals_run": bool(
+            torch.allclose(model.weights, res.weights[1:], rtol=1e-6,
+                           atol=0.0)
+            and torch.allclose(model.intercept, res.weights[0], rtol=1e-6,
+                               atol=0.0)),
+        "weights_shape": tuple(res.weights.shape) == (d, K_SM),
+    }
+    out = {"shape": [N_SM, D_SM], "classes": K_SM, "reg": REG_SM,
+           "train_s": train_s, "run_s": run_s, "plain_run_s": plain_s,
+           "train_peak_gb": train_peak_gb,
+           "launches": fk.softmax_launch_count,
+           "launches_train": launches_train,
+           "smooth_evaluations": fused.evaluations,
+           **lbfgs_report(res), **lbfgs_report(plain, "plain_")}
+    out.update(hold_lbfgs(res, plain, checks, "lbfgs"))
+    finish("softmax_lbfgs_path", out, checks, t_phase, smi)
+
+
+def rcv1_lbfgs(port, fk, sparse, glm, smi, rcv1):
+    """Phase 15, on phase 10's CSR: ``LogisticRegressionWithLBFGS`` at
+    f32 (``train``, then ``run_lbfgs`` on the intercept CSR), held to the
+    same ``run_lbfgs`` at f64 over their common path, and the f32
+    gradient at the final weights to f64 sums."""
+    t_phase = time.perf_counter()
+    cfg, X, y = rcv1["cfg"], rcv1["X"], rcv1["y"]
+    n, d = cfg["n"], cfg["d"]
+    gradient = counting(port.LogisticGradient)()
+    trainer = glm.LogisticRegressionWithLBFGS(reg_param=cfg["reg"])
+    trainer.optimizer.set_gradient(gradient).setNumIterations(ITERS)
+    fk.launch_count = fk.softmax_launch_count = 0
+    model, train_s = timed(lambda: trainer.train(X, y))
+    evaluations_train = gradient.evaluations
+    Xa = glm._add_intercept(X).with_csc()
+    w0 = torch.zeros(d + 1, dtype=torch.float32, device="cuda")
+    kw = dict(reg_param=cfg["reg"], num_iterations=ITERS)
+    res, run_s = timed(lambda: port.run_lbfgs(
+        (Xa, y), gradient, port.L2Prox(), initial_weights=w0, **kw))
+    dense_launches = fk.launch_count + fk.softmax_launch_count
+    Xa64, y64 = csr_f64(sparse, Xa), y.double()
+    res64, run64_s = timed(lambda: port.run_lbfgs(
+        (Xa64, y64), port.LogisticGradient(), port.L2Prox(),
+        initial_weights=w0.double(), **kw))
+    plain = port.LogisticGradient()
+    _, g32, _ = plain.batch_loss_and_grad(res.weights, Xa, y)
+    _, g64, _ = plain.batch_loss_and_grad(res.weights.double(), Xa64, y64)
+    grad_err = float((g32.double() - g64).abs().max())
+    grad_max = float(g64.abs().max())
+    with torch.no_grad():
+        acc = float((model.predict(X) == y).float().mean())
+    checks = {
+        "train_evaluations_counted": evaluations_train > 0,
+        "run_evaluations_equal_num_fn_evals":
+            gradient.evaluations - evaluations_train
+            == int(res.num_fn_evals),
+        "no_dense_kernel_launch": dense_launches == 0,
+        "train_equals_run": bool(
+            torch.allclose(model.weights, res.weights[1:], rtol=1e-6,
+                           atol=0.0)
+            and abs(model.intercept - float(res.weights[0]))
+            <= 1e-6 * abs(float(res.weights[0]))),
+        "grad_within_1e-4_of_f64": grad_err <= 1e-4 * grad_max,
+        f"train_accuracy_above_{cfg['min_accuracy']}":
+            acc > cfg["min_accuracy"],
+    }
+    out = {"shape": [n, d], "nnz_with_intercept": Xa.nnz, "reg": cfg["reg"],
+           "train_s": train_s, "run_s": run_s, "run_f64_s": run64_s,
+           "smooth_evaluations": gradient.evaluations,
+           "dense_kernel_launches": dense_launches,
+           "grad_max_abs_err_vs_f64": grad_err, "grad_abs_max": grad_max,
+           "train_accuracy": acc,
+           **lbfgs_report(res), **lbfgs_report(res64, "f64_")}
+    out.update(hold_lbfgs(res, res64, checks, "lbfgs"))
+    finish("rcv1_lbfgs", out, checks, t_phase, smi)
+
+
+def gd_gate(port, fk, smi, launches):
+    """Phase 16: the reference's correctness spec at 10M rows, AGD at 10
+    iterations within 2% of MLlib GD at 50 on the Suite's problem family
+    (``generate_gd_input``, A = 2, B = -1.5, seed 42, the intercept
+    column), both through the margin kernel; the kernel GD held to the
+    plain GD; a GD at fraction 0.1 whose masks, drawn on the card, equal
+    the CPU draw bit for bit; the kernel timed at this narrow shape."""
+    from spark_agd_tpu_torch.core import prng
+    from spark_agd_tpu_torch.data import synthetic
+
+    t_phase = time.perf_counter()
+    Xn, yn = synthetic.generate_gd_input(2.0, -1.5, N_GATE, 42)
+    X = torch.from_numpy(synthetic.with_intercept_column(Xn)).float().cuda()
+    y = torch.from_numpy(yn).float().cuda()
+    del Xn, yn
+    gen_s = time.perf_counter() - t_phase
+    w0 = torch.tensor([1.0, -1.0], device="cuda")
+    fused = counting(port.FusedLogisticGradient)()
+    fk.launch_count = fk.softmax_launch_count = 0
+    (w_agd, h_agd), agd_s = timed(lambda: port.run(
+        (X, y), fused, port.SimpleUpdater(), convergence_tol=1e-12,
+        num_iterations=10, initial_weights=w0))
+    launches_agd = fk.launch_count
+    (w_gd, h_gd), gd_s = timed(lambda: port.run_minibatch_sgd(
+        (X, y), fused, port.SimpleUpdater(), step_size=1.0,
+        num_iterations=50, reg_param=0.0, minibatch_fraction=1.0,
+        initial_weights=w0))
+    launches_gd = fk.launch_count - launches_agd
+    masks = []
+
+    class Recording(port.FusedLogisticGradient):
+        def batch_loss_and_grad(self, weights, X, y, mask=None):
+            masks.append(X.m > 0)
+            return super().batch_loss_and_grad(weights, X, y, mask)
+
+    (w_s, h_s), sampled_s = timed(lambda: port.run_minibatch_sgd(
+        (X, y), Recording(), port.SimpleUpdater(), step_size=1.0,
+        num_iterations=50, minibatch_fraction=0.1, initial_weights=w0,
+        seed=42))
+    launches["gd_gate"] = fk.launch_count
+    launches_sampled = fk.launch_count - launches_agd - launches_gd
+    (_, h_plain), plain_gd_s = timed(lambda: port.run_minibatch_sgd(
+        (X, y), port.LogisticGradient(), port.SimpleUpdater(),
+        step_size=1.0, num_iterations=50, reg_param=0.0,
+        minibatch_fraction=1.0, initial_weights=w0))
+    # the card's masks against the CPU draw: every row of iterations 1, 2
+    # and 50, the first MASK_ROWS rows of the others (the draw of a row
+    # does not depend on how many follow it)
+    t0 = time.perf_counter()
+    masks_equal = len(masks) == 50
+    for it, m in enumerate(masks, start=1):
+        rows = N_GATE if it in (1, 2, 50) else MASK_ROWS
+        cpu = prng.sample_mask(42, it, 0.1, rows, dtype=torch.float32,
+                               device="cpu") > 0
+        masks_equal = masks_equal and torch.equal(m[:rows].cpu(), cpu)
+    mask_check_s = time.perf_counter() - t0
+    # one evaluation at this narrow shape: the kernel against its plain
+    # version and the bound (reading X, y and the mask once)
+    staged = fk.stage_dense(X, y)
+    gradient = port.LogisticGradient()
+    kernel_ms = time_ms(lambda: fk.fused_margin_loss_grad(gradient, w_gd,
+                                                          staged))
+    plain_ms = time_ms(lambda: fk.fused_margin_loss_grad_reference(
+        gradient, w_gd, staged))
+    b_ms, bound_by = bound_ms(N_GATE * 2 * 4 + 2 * N_GATE * 4 + 16,
+                              4 * N_GATE * 2)
+    del staged
+    sample_fraction = float(torch.stack([m.float().mean() for m in masks])
+                            .mean())
+    loss_agd, loss_gd = float(h_agd[-1]), float(h_gd[-1])
+    rel = abs(loss_agd - loss_gd) / max(abs(loss_agd), abs(loss_gd))
+    checks = {
+        "agd_within_2pct_of_gd": rel <= 0.02,
+        "kernel_gd_history_rtol_1e-4_of_plain_gd": bool(np.allclose(
+            h_gd, h_plain, rtol=1e-4, atol=0.0)),
+        "agd_launched_the_kernel": launches_agd > 0,
+        "gd_one_launch_per_iteration": launches_gd == 50,
+        "sampled_gd_one_launch_per_iteration": launches_sampled == 50,
+        "launches_equal_evaluations":
+            launches["gd_gate"] == fused.evaluations + 50,
+        "card_masks_equal_cpu_draw": masks_equal,
+        "sample_fraction_near_0.1": abs(sample_fraction - 0.1) < 1e-3,
+        "finite": bool(np.isfinite(h_agd).all() and np.isfinite(h_gd).all()
+                       and np.isfinite(h_s).all()),
+    }
+    finish("gd_gate", {
+        "rows": N_GATE, "generate_s": gen_s, "agd_run_s": agd_s,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": bound_by, "tile_rows_grid": list(fk.launch_shape(X)),
+        "gd_run_s": gd_s, "plain_gd_run_s": plain_gd_s,
+        "sampled_gd_run_s": sampled_s, "mask_check_s": mask_check_s,
+        "mask_rows_checked_per_iteration": {"1, 2, 50": N_GATE,
+                                            "others": MASK_ROWS},
+        "launches": launches["gd_gate"], "launches_agd": launches_agd,
+        "launches_gd": launches_gd, "launches_sampled_gd": launches_sampled,
+        "agd_iterations": len(h_agd), "loss_agd_10": loss_agd,
+        "loss_gd_50": loss_gd, "rel_diff": rel, "rel_tol": 0.02,
+        "weights_agd": w_agd.tolist(), "weights_gd": w_gd.tolist(),
+        "max_gd_hist_rel_diff_vs_plain": float(np.max(
+            np.abs(h_gd - h_plain) / np.abs(h_plain))),
+        "loss_history_agd": h_agd.tolist(), "loss_history_gd": h_gd.tolist(),
+        "sample_fraction": sample_fraction,
+        "sampled_loss_last": float(h_s[-1])}, checks, t_phase, smi)
+
+
+def linreg_path(port, fk, device_synth, glm, smi, launches):
+    """Phase 17: BASELINE config 2 as published, least squares on
+    ``planted_dense_linreg`` 10M x 1000 (seed 2) through
+    ``LinearRegressionWithAGD`` with ``FusedMarginGradient(
+    LeastSquaresGradient())`` in the seat, held to the plain fit; then
+    MLlib GD at config 2's step 0.1 through the kernel, held to plain
+    GD."""
+    t_phase = time.perf_counter()
+    (X, y), gen_s = timed(lambda: device_synth.planted_dense_linreg(
+        N_MAIN, D_MAIN, seed=2))
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    fused = counting(port.FusedMarginGradient)(port.LeastSquaresGradient())
+    # config 2 fits X as it is (benchmarks/run.py: no intercept column),
+    # and a 40 GB intercept copy would not fit beside X
+    trainer = glm.LinearRegressionWithAGD(add_intercept=False)
+    trainer.optimizer.set_gradient(fused).setNumIterations(ITERS) \
+        .setConvergenceTol(TOL)
+    fk.launch_count = fk.softmax_launch_count = 0
+    model, train_s = timed(lambda: trainer.train(X, y))
+    launches_train, evals_train = fk.launch_count, fused.evaluations
+    kw = dict(num_iterations=ITERS, convergence_tol=TOL,
+              initial_weights=w0, return_result=True)
+    (w_run, hist, res), run_s = timed(lambda: port.run(
+        (X, y), fused, port.IdentityProx(), **kw))
+    launches_run = fk.launch_count - launches_train
+    gd_kw = dict(step_size=0.1, num_iterations=50, initial_weights=w0)
+    (w_gd, h_gd), gd_s = timed(lambda: port.run_minibatch_sgd(
+        (X, y), fused, port.IdentityProx(), **gd_kw))
+    launches["linreg_path"] = fk.launch_count
+    launches_gd = fk.launch_count - launches_train - launches_run
+    softmax_launches = fk.softmax_launch_count
+    (w_plain, hist_plain, res_plain), plain_s = timed(lambda: port.run(
+        (X, y), port.LeastSquaresGradient(), port.IdentityProx(), **kw))
+    (_, h_gd_plain), plain_gd_s = timed(lambda: port.run_minibatch_sgd(
+        (X, y), port.LeastSquaresGradient(), port.IdentityProx(), **gd_kw))
+    n_iters, n_plain = int(res.num_iters), int(res_plain.num_iters)
+    n_common = min(n_iters, n_plain)
+    with torch.no_grad():
+        r2 = 1.0 - float(((X[:1_000_000] @ w_run - y[:1_000_000]) ** 2)
+                         .mean() / y[:1_000_000].var())
+    checks = {
+        "train_launches_equal_evaluations":
+            launches_train == evals_train > 0,
+        "run_launches_equal_run_evaluations":
+            launches_run == fused.evaluations - evals_train - 50 > 0,
+        "gd_one_launch_per_iteration": launches_gd == 50,
+        "no_softmax_launch": softmax_launches == 0,
+        "train_equals_run": bool(torch.allclose(model.weights, w_run,
+                                                rtol=1e-6, atol=0.0)),
+        "same_stop_or_both_at_floor": same_stop(res, res_plain, hist,
+                                                hist_plain),
+        "history_rtol_1e-4": bool(np.allclose(
+            hist[:n_common], hist_plain[:n_common], rtol=1e-4, atol=0.0)),
+        "gd_history_rtol_1e-4_of_plain_gd": bool(np.allclose(
+            h_gd, h_gd_plain, rtol=1e-4, atol=0.0)),
+        "loss_decreases": bool(hist[-1] < hist[0] and h_gd[-1] < h_gd[0]),
+        "finite": bool(np.isfinite(hist).all() and np.isfinite(h_gd).all()
+                       and torch.isfinite(w_run).all()),
+        "r2_above_0.9": r2 > 0.9,
+    }
+    finish("linreg_path", {
+        "shape": [N_MAIN, D_MAIN], "generate_s": gen_s, "train_s": train_s,
+        "run_s": run_s, "plain_run_s": plain_s, "gd_run_s": gd_s,
+        "plain_gd_run_s": plain_gd_s, "num_iters": n_iters,
+        "num_iters_plain": n_plain, "num_backtracks": int(res.num_backtracks),
+        "num_restarts": int(res.num_restarts),
+        "launches": launches["linreg_path"], "launches_train": launches_train,
+        "launches_run": launches_run, "launches_gd": launches_gd,
+        "smooth_evaluations": fused.evaluations,
+        "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+        "loss_last_plain": float(hist_plain[-1]),
+        "max_hist_rel_diff": float(np.max(
+            np.abs(hist[:n_common] - hist_plain[:n_common])
+            / np.abs(hist_plain[:n_common]))),
+        "gd_loss_last": float(h_gd[-1]),
+        "max_gd_hist_rel_diff_vs_plain": float(np.max(
+            np.abs(h_gd - h_gd_plain) / np.abs(h_gd_plain))),
+        "loss_history": hist.tolist(), "gd_loss_history": h_gd.tolist(),
+        "r2_1M": r2}, checks, t_phase, smi)
+    del X, y
+
+
+def mlp_path(port, device_synth, smi, fk):
+    """Phase 18: BASELINE config 5 as published, ``planted_mlp`` 1M x
+    1024 (hidden 32, 2 classes, seed 4) through
+    ``MLPClassifierWithAGD(32, 2, reg_param=1e-5)`` (tanh), held to the
+    same fit at f64 over their common path and the final gradient to
+    f64 sums.  Its two products are torch's: no kernel of the port."""
+    from spark_agd_tpu_torch.models import mlp
+
+    t_phase = time.perf_counter()
+    n, d, h, k = MLP["n"], MLP["d"], MLP["hidden"], MLP["classes"]
+    (X, y), gen_s = timed(lambda: device_synth.planted_mlp(
+        n, d, h, seed=MLP["seed"]))
+    trainer = mlp.MLPClassifierWithAGD(h, k, reg_param=MLP["reg"])
+    trainer.optimizer.setNumIterations(ITERS).setConvergenceTol(TOL)
+    fk.launch_count = fk.softmax_launch_count = 0
+    model, train_s = timed(lambda: trainer.train(X, y))
+    p0 = mlp.init_mlp_params(d, h, k, seed=0)
+    kw = dict(reg_param=MLP["reg"], num_iterations=ITERS,
+              convergence_tol=TOL, return_result=True)
+    (w_run, hist, res), run_s = timed(lambda: port.run(
+        (X, y), mlp.mlp_gradient("tanh"), port.L2Prox(),
+        initial_weights=p0, **kw))
+    kernel_launches = fk.launch_count + fk.softmax_launch_count
+    X64 = X.double()
+    (w64, hist64, res64), run64_s = timed(lambda: port.run(
+        (X64, y), mlp.mlp_gradient("tanh"), port.L2Prox(),
+        initial_weights={n_: v.double() for n_, v in p0.items()}, **kw))
+    grad = mlp.mlp_gradient("tanh")
+    _, g32, _ = grad.batch_loss_and_grad(w_run, X, y)
+    _, g64, _ = grad.batch_loss_and_grad(
+        {n_: v.double() for n_, v in w_run.items()}, X64, y)
+    del X64
+    grad_err = {n_: float((g32[n_].double() - g64[n_]).abs().max())
+                for n_ in g64}
+    grad_max = {n_: float(g64[n_].abs().max()) for n_ in g64}
+    n_iters, n64 = int(res.num_iters), int(res64.num_iters)
+    n_path = common_path(res, res64, min(n_iters, n64))
+    with torch.no_grad():
+        acc = float((model.predict(X) == y).float().mean())
+        acc0 = float((mlp.MLPModel(p0).predict(X) == y).float().mean())
+    checks = {
+        "no_kernel_launch": kernel_launches == 0,
+        "train_equals_run": all(torch.allclose(
+            model.params[n_], w_run[n_], rtol=1e-6, atol=0.0)
+            for n_ in w_run),
+        "history_rtol_1e-4_vs_f64_on_the_common_path": bool(np.allclose(
+            hist[:n_path], hist64[:n_path], rtol=1e-4, atol=0.0)),
+        # the gradient is one vector to the optimizer: its f32 error is
+        # held to 1e-4 of that vector's largest f64 entry, as phase 10
+        # holds the GLM gradient (b2's entries are sums over every row
+        # that cancel to a few units, so its own largest entry is no
+        # scale for f32 rounding)
+        "grad_within_1e-4_of_f64": max(grad_err.values())
+        <= 1e-4 * max(grad_max.values()),
+        "loss_decreases": bool(hist[-1] < hist[0]),
+        "finite": bool(np.isfinite(hist).all() and all(
+            torch.isfinite(v).all() for v in w_run.values())),
+        "accuracy_rises": acc > acc0,
+    }
+    finish("mlp_path", {
+        "shape": [n, d], "hidden": h, "classes": k, "reg": MLP["reg"],
+        "generate_s": gen_s, "train_s": train_s, "run_s": run_s,
+        "run_f64_s": run64_s, "num_iters": n_iters, "num_iters_f64": n64,
+        "num_backtracks": int(res.num_backtracks),
+        "num_restarts": int(res.num_restarts),
+        "kernel_launches": kernel_launches,
+        "common_path_iterations": n_path,
+        "max_hist_rel_diff_vs_f64_on_the_common_path": float(np.max(
+            np.abs(hist[:n_path] - hist64[:n_path])
+            / np.abs(hist64[:n_path]))) if n_path else None,
+        "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+        "loss_last_f64": float(hist64[-1]),
+        "loss_history": hist.tolist(), "loss_history_f64": hist64.tolist(),
+        "grad_max_abs_err_vs_f64": grad_err, "grad_abs_max": grad_max,
+        "train_accuracy": acc, "train_accuracy_at_init": acc0},
+        checks, t_phase, smi)
+
+
 def softmax_ab(port, fk, device_synth, specs, seeds):
     """``--ab``: the builds ``specs`` (NAME=SOURCE) of the softmax kernel
     timed in turns at phase 8's shape, each held to the f64 sums."""
@@ -1199,10 +1763,16 @@ def main(argv):
     phase_kernel(fk, losses)
     phase_softmax_kernel(fk)
 
-    # 5-8. the two paths at full width, one after the other
-    margin = margin_path(port, fk, losses, device_synth)
+    # 5-8 and 13-14. the two dense paths at full width, one after the
+    # other, each followed by L-BFGS on the same data
+    launches = {}  # each path's kernel launches, for the kernels line
+    margin = margin_path(port, fk, losses, device_synth,
+                         lambda X, y: lbfgs_path(port, fk, smi, X, y,
+                                                 launches))
     torch.cuda.empty_cache()
-    softmax = softmax_path(port, fk, device_synth)
+    softmax = softmax_path(port, fk, device_synth,
+                           lambda Xa, y: softmax_lbfgs_path(
+                               port, fk, glm, smi, Xa, y, launches))
     torch.cuda.empty_cache()
 
     # 9-12. the sparse data plane: the products, BASELINE configs 1 and 3
@@ -1213,6 +1783,7 @@ def main(argv):
                        RCV1, glm.LogisticRegressionWithAGD,
                        port.LogisticGradient, port.L2Prox)
     phase_libsvm(port, sparse, native, rcv1)
+    rcv1_lbfgs(port, fk, sparse, glm, smi, rcv1)
     rows = {"rcv1_like": rcv1["row"]}
     del rcv1
     torch.cuda.empty_cache()
@@ -1224,7 +1795,20 @@ def main(argv):
     emit({"phase": "sparse_products", **rows,
           "seconds": time.perf_counter() - t0})
 
-    # 13. the kernels line, the card, the result
+    # 16-18. the GD gate, BASELINE configs 2 and 5
+    gd_gate(port, fk, smi, launches)
+    torch.cuda.empty_cache()
+    linreg_path(port, fk, device_synth, glm, smi, launches)
+    torch.cuda.empty_cache()
+    mlp_path(port, device_synth, smi, fk)
+
+    # 19. the kernels line, the card, the result
+    margin["launches_by_path"] = {
+        "main_path": margin["launches"],
+        **{p: launches[p] for p in ("lbfgs_path", "gd_gate", "linreg_path")}}
+    softmax["launches_by_path"] = {
+        "softmax_path": softmax["launches"],
+        "softmax_lbfgs_path": launches["softmax_lbfgs_path"]}
     emit({"kernels": [margin, softmax]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

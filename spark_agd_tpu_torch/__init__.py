@@ -11,10 +11,15 @@ Layer map (dense and CSR data, one device):
 
 ====  ==========================  ===========================================
 L6    model layer                 ``models.glm`` trainers and models,
+                                  ``models.mlp`` (config 5),
                                   ``models.evaluation`` metrics
 L5    public API                  ``AcceleratedGradientDescent``, ``run``,
-                                  ``make_runner`` (``api``)
-L4    optimizer core              ``core.agd.run_agd`` (Python loop)
+                                  ``make_runner``, ``run_minibatch_sgd``,
+                                  ``LBFGS``, ``run_lbfgs`` (``api``)
+L4    optimizer core              ``core.agd.run_agd``, ``core.gd``,
+                                  ``core.lbfgs`` (L-BFGS, OWL-QN) and
+                                  ``core.host_lbfgs`` (Python loops);
+                                  ``core.prng`` (JAX's Bernoulli bits)
 L3    math plugins                ``ops.losses`` (Gradient), ``ops.prox``
                                   (Updater), ``ops.fused_kernels`` (CUDA),
                                   ``ops.sparse`` (CSRMatrix products)
@@ -59,5 +64,36 @@ from .ops.prox import (  # noqa: F401
 )
 from .ops.sparse import CSRMatrix  # noqa: F401
 from .data.libsvm import CSRData, load_libsvm  # noqa: F401
-from .api import AcceleratedGradientDescent, make_runner, run  # noqa: F401
+from .api import (  # noqa: F401
+    AcceleratedGradientDescent,
+    LBFGS,
+    make_lbfgs_runner,
+    make_runner,
+    run,
+    run_lbfgs,
+    run_minibatch_agd,
+    run_minibatch_sgd,
+)
 from .core.agd import AGDConfig, AGDResult, AGDWarmState  # noqa: F401
+from .core.gd import GDResult  # noqa: F401
+from .core.lbfgs import (  # noqa: F401
+    LBFGSConfig,
+    LBFGSResult,
+    make_objective as make_lbfgs_objective,
+    run_owlqn,
+)
+from .core.host_lbfgs import (  # noqa: F401
+    HostLBFGSResult,
+    HostLBFGSWarm,
+    run_lbfgs_host,
+    run_owlqn_host,
+)
+from .models.glm import (  # noqa: F401
+    LogisticRegressionWithLBFGS,
+    SoftmaxRegressionWithLBFGS,
+)
+from .models.mlp import (  # noqa: F401
+    MLPClassifierWithAGD,
+    MLPModel,
+    mlp_gradient,
+)

@@ -1,6 +1,7 @@
 """On-device synthetic data: generated where it is consumed.
 
-Counterpart of ``spark_agd_tpu/data/device_synth.py:60-234``.  The data
+Counterpart of ``spark_agd_tpu/data/device_synth.py:60-234``, with
+``planted_mlp`` (``:154-167``).  The data
 is drawn by a ``torch.Generator`` on the target device from ``seed``, so
 no bulk host-to-device copy happens.  X is allocated once and filled in
 row blocks in place: at the benchmark scale (10M x 1000 f32, 40 GB) a
@@ -114,6 +115,28 @@ def planted_softmax(n: int, d: int, k: int, *, seed: int = 0, device=None
         rows = min(_BLOCK_ROWS, n - r0)
         _, y[r0:r0 + rows] = softmax_block(W, rows, seed=seed, block=block,
                                            out=X[r0:r0 + rows])
+    return X, y
+
+
+def planted_mlp(n: int, d: int, h: int, gain: float = 4.0, *,
+                seed: int = 0, device=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Binary labels from a planted two-layer tanh MLP (BASELINE config
+    5's data): ``X ~ N(0, I)``, ``W1 ~ N(0, I/d)`` (d, h), ``W2 ~ N(0,
+    I/h)`` (h,), ``y ~ Bernoulli(sigmoid(gain * tanh(X @ W1) @ W2))``.
+    Returns ``(X f32[n, d], y int32[n])``."""
+    dev = resolve_device(device)
+    gen = _generator(dev, seed)
+    W1 = torch.randn((d, h), generator=gen, device=dev) / math.sqrt(d)
+    W2 = torch.randn(h, generator=gen, device=dev) / math.sqrt(h)
+    X = torch.empty((n, d), dtype=torch.float32, device=dev)
+    y = torch.empty(n, dtype=torch.int32, device=dev)
+    for r0 in range(0, n, _BLOCK_ROWS):
+        block = X[r0:r0 + _BLOCK_ROWS]
+        block.normal_(generator=gen)
+        p = torch.sigmoid(gain * (torch.tanh(block @ W1) @ W2))
+        u = torch.rand(block.shape[0], generator=gen, device=dev)
+        y[r0:r0 + _BLOCK_ROWS] = (u < p).to(torch.int32)
     return X, y
 
 

@@ -1,7 +1,7 @@
 """Model layer: the ``GeneralizedLinearAlgorithm``-style callers the
-reference's optimizer was built to plug into (``glm.py``) and the
-``mllib.evaluation`` metric equivalents (``evaluation.py``).  The MLP of
-BASELINE config 5 (``models/mlp.py``) arrives in a later slice."""
+reference's optimizer was built to plug into (``glm.py``), the MLP of
+BASELINE config 5 (``mlp.py``) and the ``mllib.evaluation`` metric
+equivalents (``evaluation.py``)."""
 
 from .evaluation import (  # noqa: F401
     binary_metrics,
@@ -26,4 +26,12 @@ from .glm import (  # noqa: F401
     SoftmaxRegressionModel,
     SoftmaxRegressionWithAGD,
     SoftmaxRegressionWithLBFGS,
+)
+from .mlp import (  # noqa: F401
+    MLPClassifierWithAGD,
+    MLPModel,
+    init_mlp_params,
+    make_mlp_loss_sum,
+    mlp_forward,
+    mlp_gradient,
 )

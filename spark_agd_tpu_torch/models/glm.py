@@ -17,11 +17,12 @@ the JAX package leaves them to XLA.  Models save to one npz in the JAX
 package's layout (``class``, ``weights``, ``intercept``, ``threshold``,
 ``__crc32__``), so a model saved by either package loads in the other.
 
-Not in this slice (each raises ``NotImplementedError``): ``train_path``
-and ``cross_validate``, which need ``api.sweep`` and
-``api.cross_validate``, and the ``*WithLBFGS`` trainers, which need
-``api.LBFGS``; all arrive with the optimizer-family slice.  X is a dense
-tensor (or anything numpy takes) or an ``ops.sparse.CSRMatrix``.
+The ``*WithLBFGS`` trainers put ``api.LBFGS`` in the seat (L1 and
+elastic-net updaters go to OWL-QN).  Not in this slice (each raises
+``NotImplementedError``): ``train_path`` and ``cross_validate``, which
+need the lanes (``api.sweep``, ``api.cross_validate``,
+``LBFGS.sweep``).  X is a dense tensor (or anything numpy takes) or an
+``ops.sparse.CSRMatrix``.
 """
 
 from __future__ import annotations
@@ -45,9 +46,9 @@ from ..ops.losses import (
 from ..ops.prox import IdentityProx, L1Prox, L2Prox, Prox
 from ..ops.sparse import CSRMatrix
 
-_OPTIMIZER_FAMILY_LATER = (
-    "arrives with the port of the optimizer family (api.sweep, "
-    "api.cross_validate, api.LBFGS) in a later slice")
+_LANES_LATER = (
+    "arrives with the port of the lanes (api.sweep, api.cross_validate, "
+    "LBFGS.sweep) in a later slice")
 
 
 def _as_tensor(a, device=None):
@@ -148,6 +149,13 @@ class GLMModel:
         with :func:`load_model`."""
         save_model(self, path)
 
+    def _to_payload(self) -> dict:
+        return _glm_payload(self)
+
+    @classmethod
+    def _from_npz(cls, z, device):
+        return _decode_glm_npz(cls, z, device)
+
     @classmethod
     def _from_arrays(cls, weights, intercept, threshold):
         """Restore hook for :func:`load_model`; classes whose constructor
@@ -243,6 +251,13 @@ class SoftmaxRegressionModel:
     def save(self, path: str):
         save_model(self, path)
 
+    def _to_payload(self) -> dict:
+        return _glm_payload(self)
+
+    @classmethod
+    def _from_npz(cls, z, device):
+        return _decode_glm_npz(cls, z, device)
+
     @classmethod
     def _from_arrays(cls, weights, intercept, threshold):
         del threshold  # softmax predicts by argmax
@@ -265,12 +280,22 @@ def _glm_payload(model) -> dict:
             "threshold": np.asarray(np.nan if thr is None else float(thr))}
 
 
+def _decode_glm_npz(cls, z, device):
+    thr = float(z["threshold"])
+    return cls._from_arrays(
+        torch.from_numpy(z["weights"]).to(device),
+        torch.from_numpy(np.asarray(z["intercept"])).to(device),
+        None if np.isnan(thr) else thr)
+
+
 def save_model(model, path: str):
     """Persist a model as one npz (atomic write via
-    ``utils.checkpoint.atomic_savez``, with its ``__crc32__`` entry)."""
+    ``utils.checkpoint.atomic_savez``, with its ``__crc32__`` entry),
+    through the model's own ``_to_payload`` (the MLP's payload is not
+    the GLM one)."""
     from ..utils.checkpoint import atomic_savez
 
-    atomic_savez(path, _glm_payload(model))
+    atomic_savez(path, model._to_payload())
 
 
 _MODEL_CLASSES = {}
@@ -288,11 +313,7 @@ def load_model(path: str, device=None):
             raise ValueError(
                 f"unknown model class {cls_name!r} in {path}; known: "
                 f"{sorted(_MODEL_CLASSES)}")
-        thr = float(z["threshold"])
-        return cls._from_arrays(
-            torch.from_numpy(z["weights"]).to(dev),
-            torch.from_numpy(np.asarray(z["intercept"])).to(dev),
-            None if np.isnan(thr) else thr)
+        return cls._from_npz(z, dev)
 
 
 class GeneralizedLinearAlgorithm:
@@ -343,13 +364,13 @@ class GeneralizedLinearAlgorithm:
 
     def train_path(self, X, y, reg_params, initial_weights=None):
         """The regularization path needs ``api.sweep``: not ported yet."""
-        raise NotImplementedError(f"train_path {_OPTIMIZER_FAMILY_LATER}")
+        raise NotImplementedError(f"train_path {_LANES_LATER}")
 
     def cross_validate(self, X, y, reg_params, n_folds: int = 5,
                        seed: int = 0, refit: bool = True):
         """K-fold CV needs ``api.cross_validate``: not ported yet."""
         raise NotImplementedError(
-            f"cross_validate {_OPTIMIZER_FAMILY_LATER}")
+            f"cross_validate {_LANES_LATER}")
 
 
 class LogisticRegressionWithAGD(GeneralizedLinearAlgorithm):
@@ -368,12 +389,23 @@ class LogisticRegressionWithAGD(GeneralizedLinearAlgorithm):
 
 
 class LogisticRegressionWithLBFGS(GeneralizedLinearAlgorithm):
-    """MLlib's ``LogisticRegressionWithLBFGS``: needs ``api.LBFGS``, not
-    ported yet."""
+    """MLlib's ``LogisticRegressionWithLBFGS``: the same model and
+    workflow with ``api.LBFGS`` in the optimizer seat; an L1 or
+    elastic-net updater dispatches to OWL-QN."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"LogisticRegressionWithLBFGS {_OPTIMIZER_FAMILY_LATER}")
+    def __init__(self, reg_param: float = 0.0,
+                 num_corrections: int = 10, updater: Prox = None,
+                 add_intercept: bool = True, mesh=None):
+        updater = updater if updater is not None else L2Prox()
+        gradient = LogisticGradient()
+        super().__init__(
+            gradient, updater, add_intercept=add_intercept, mesh=mesh,
+            optimizer=api.LBFGS(gradient, updater))
+        self.optimizer.set_reg_param(reg_param)
+        self.optimizer.set_num_corrections(num_corrections)
+
+    def _create_model(self, weights, intercept):
+        return LogisticRegressionModel(weights, intercept)
 
 
 class LinearRegressionWithAGD(GeneralizedLinearAlgorithm):
@@ -438,12 +470,20 @@ class SoftmaxRegressionWithAGD(GeneralizedLinearAlgorithm):
 
 
 class SoftmaxRegressionWithLBFGS(SoftmaxRegressionWithAGD):
-    """Multinomial classification with L-BFGS in the seat: needs
-    ``api.LBFGS``, not ported yet."""
+    """Multinomial classification with ``api.LBFGS`` in the seat (MLlib
+    1.3's ``LogisticRegressionWithLBFGS.setNumClasses(K)``); put
+    ``FusedSoftmaxGradient`` in the seat (``.optimizer.set_gradient``)
+    to fit through the CUDA kernel."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"SoftmaxRegressionWithLBFGS {_OPTIMIZER_FAMILY_LATER}")
+    def __init__(self, num_classes: int, reg_param: float = 0.0,
+                 num_corrections: int = 10, updater: Prox = None,
+                 add_intercept: bool = True, mesh=None):
+        updater = updater if updater is not None else L2Prox()
+        super().__init__(
+            num_classes, reg_param=reg_param, updater=updater,
+            add_intercept=add_intercept, mesh=mesh,
+            optimizer=api.LBFGS(SoftmaxGradient(num_classes), updater))
+        self.optimizer.set_num_corrections(num_corrections)
 
 
 _MODEL_CLASSES.update({

@@ -84,6 +84,12 @@ class StagedDense:
     m: torch.Tensor
     n_valid: torch.Tensor
 
+    def masked(self, keep: torch.Tensor) -> "StagedDense":
+        """The same X and y with the rows where ``keep`` is 0 masked out
+        as well (a GD iteration's sample); X is not copied."""
+        m = self.m * keep.to(self.m.dtype)
+        return StagedDense(self.X, self.y, m, _count(self.X, m))
+
 
 def _stage(X, y, mask, kernel: str, check) -> StagedDense:
     """Stage (X, y, mask) for a kernel.  A contiguous f32 or bf16 X is

@@ -344,3 +344,121 @@ def test_libsvm_file_to_card_trainer(cuda, tmp_path):
                                atol=1e-7)
     assert card.intercept == pytest.approx(host.intercept, rel=1e-5,
                                            abs=1e-7)
+
+
+# --- the Optimizer family: GD, L-BFGS and OWL-QN, the MLP -------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sampler_on_the_card_equals_the_cpu_draw(cuda, dtype):
+    from spark_agd_tpu_torch.core import prng
+
+    for seed, it in ((0, 1), (42, 2), (2**31 - 1, 50)):
+        card = prng.sample_mask(seed, it, 0.37, 100_003, dtype=dtype,
+                                device=cuda)
+        host = prng.sample_mask(seed, it, 0.37, 100_003, dtype=dtype,
+                                device="cpu")
+        assert card.device.type == "cuda" and card.dtype == dtype
+        assert torch.equal(card.cpu(), host)
+
+
+def _logistic_card_data(n=20_000, d=64, seed=9):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    y = (rng.random(n) < 1 / (1 + np.exp(-X[:, 0] + X[:, 1]))) \
+        .astype(np.float32)
+    return X, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frac", [1.0, 0.3], ids=["full", "sampled"])
+def test_fused_gd_on_the_card_matches_the_plain_gd(cuda, frac):
+    """One launch an iteration, the sample folded into the staged mask;
+    the history within rtol 1e-4 of the plain gradient's."""
+    X, y = _logistic_card_data()
+    w0 = np.zeros(X.shape[1], np.float32)
+    kw = dict(step_size=1.0, num_iterations=20, reg_param=0.1,
+              minibatch_fraction=frac, initial_weights=w0, seed=5)
+    before = fk.launch_count
+    w, hist = port.run_minibatch_sgd((X, y), port.FusedLogisticGradient(),
+                                     port.SquaredL2Updater(), **kw)
+    assert fk.launch_count - before == 20
+    assert w.device.type == "cuda"
+    w_plain, hist_plain = port.run_minibatch_sgd(
+        (X, y), port.LogisticGradient(), port.SquaredL2Updater(), **kw)
+    np.testing.assert_allclose(hist, hist_plain, rtol=1e-4)
+    torch.testing.assert_close(w, w_plain, rtol=1e-3, atol=1e-5)
+
+
+def _common(a, b):
+    k = min(int(a.num_iters), int(b.num_iters))
+    return a.loss_history[:k + 1].numpy(), b.loss_history[:k + 1].numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("updater", ["l2", "l1"])
+def test_fused_lbfgs_on_the_card_matches_the_plain_fit(cuda, updater):
+    """L-BFGS (L2) and OWL-QN (L1) through the margin kernel: one launch
+    per objective evaluation; loss histories within rtol 1e-4 of the
+    plain fit over their common iterations."""
+    X, y = _logistic_card_data(seed=10)
+    upd, reg = ((port.SquaredL2Updater(), 0.05) if updater == "l2"
+                else (port.L1Prox(), 5e-3))
+    kw = dict(reg_param=reg, num_iterations=10, convergence_tol=0.0,
+              initial_weights=np.zeros(X.shape[1], np.float32))
+    before = fk.launch_count
+    res = port.run_lbfgs((X, y), port.FusedLogisticGradient(), upd, **kw)
+    assert fk.launch_count - before == int(res.num_fn_evals) > 0
+    plain = port.run_lbfgs((X, y), port.LogisticGradient(), upd, **kw)
+    assert res.weights.device.type == "cuda"
+    h, hp = _common(res, plain)
+    assert len(h) >= 4
+    np.testing.assert_allclose(h, hp, rtol=1e-4)
+    if updater == "l1":
+        assert int((res.weights == 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_fused_softmax_lbfgs_on_the_card_matches_the_plain_fit(cuda):
+    rng = np.random.default_rng(11)
+    n, d, k = 20_000, 64, 5
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    W = rng.standard_normal((d, k)) / np.sqrt(d)
+    y = np.argmax(X @ W + rng.gumbel(size=(n, k)), axis=1).astype(np.int32)
+    kw = dict(reg_param=1e-3, num_iterations=10, convergence_tol=0.0,
+              initial_weights=np.zeros((d, k), np.float32))
+    before = fk.softmax_launch_count
+    res = port.run_lbfgs((X, y), fk.FusedSoftmaxGradient(
+        losses.SoftmaxGradient(k)), port.SquaredL2Updater(), **kw)
+    assert fk.softmax_launch_count - before == int(res.num_fn_evals) > 0
+    plain = port.run_lbfgs((X, y), losses.SoftmaxGradient(k),
+                           port.SquaredL2Updater(), **kw)
+    h, hp = _common(res, plain)
+    assert len(h) >= 4
+    np.testing.assert_allclose(h, hp, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mlp_gradient_on_the_card_matches_the_cpu(cuda):
+    from spark_agd_tpu_torch.data import device_synth
+    from spark_agd_tpu_torch.models import mlp
+
+    X, y = device_synth.planted_mlp(4_096, 64, 8, seed=3, device=cuda)
+    assert X.device.type == "cuda" and y.dtype == torch.int32
+    params = mlp.init_mlp_params(64, 8, 2, seed=1, device=cuda)
+    for act in ("tanh", "relu", "gelu"):
+        g = mlp.mlp_gradient(act)
+        loss, grad, n = g.batch_loss_and_grad(params, X, y)
+        loss_c, grad_c, _ = g.batch_loss_and_grad(
+            {k: v.cpu() for k, v in params.items()}, X.cpu(), y.cpu())
+        assert int(n) == 4_096
+        assert float(loss) == pytest.approx(float(loss_c), rel=1e-5)
+        for k in grad:
+            torch.testing.assert_close(
+                grad[k].cpu(), grad_c[k], rtol=1e-4,
+                atol=1e-4 * float(grad_c[k].abs().max()))
+    t = mlp.MLPClassifierWithAGD(8, 2, reg_param=1e-5)
+    t.optimizer.setNumIterations(10)
+    model = t.train(X, y)
+    assert model.params["W1"].device.type == "cuda"
+    assert float((model.predict(X) == y).float().mean()) > 0.5

@@ -304,10 +304,11 @@ def test_later_slice_methods_raise():
         t.train_path(X, y, [0.1, 0.01])
     with pytest.raises(NotImplementedError, match="later slice"):
         t.cross_validate(X, y, [0.1, 0.01])
-    with pytest.raises(NotImplementedError, match="api.LBFGS"):
-        tglm.LogisticRegressionWithLBFGS()
-    with pytest.raises(NotImplementedError, match="api.LBFGS"):
-        tglm.SoftmaxRegressionWithLBFGS(3)
+    for lbfgs_trainer in (tglm.LogisticRegressionWithLBFGS(),
+                          tglm.SoftmaxRegressionWithLBFGS(3)):
+        lbfgs_trainer.optimizer.set_device("cpu")
+        with pytest.raises(NotImplementedError, match="LBFGS.sweep"):
+            lbfgs_trainer.train_path(X, y, [0.1, 0.01])
     with pytest.raises(NotImplementedError, match="mesh"):
         tglm.SVMWithAGD(mesh="data")
 

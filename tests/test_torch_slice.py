@@ -108,6 +108,9 @@ import spark_agd_tpu_torch.ops.fused_kernels
 import spark_agd_tpu_torch.models, spark_agd_tpu_torch.models.glm
 import spark_agd_tpu_torch.models.evaluation
 import spark_agd_tpu_torch.utils.checkpoint
+import spark_agd_tpu_torch.core.gd, spark_agd_tpu_torch.core.prng
+import spark_agd_tpu_torch.core.lbfgs, spark_agd_tpu_torch.core.host_lbfgs
+import spark_agd_tpu_torch.models.mlp
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m == "jax" or m.startswith("jax.")
              or m == "spark_agd_tpu" or m.startswith("spark_agd_tpu."))
@@ -215,7 +218,7 @@ def test_builder_setters_and_aliases():
     assert isinstance(b._updater, port.L1Prox)
     jb = jpkg.AcceleratedGradientDescent(None, None)
     for name in dir(jb):
-        if name.startswith("set") and name not in ("set_dist_mode",):
+        if name.startswith("set"):
             assert hasattr(b, name), name
 
 
