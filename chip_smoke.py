@@ -11,12 +11,16 @@ Phases, each printing one JSON line:
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
 2. build: both kernels' ``nvcc`` builds, started together; the margin
-   kernel's width limits and the softmax kernel's class limits at
+   kernel's widest X read once and the softmax kernel's class limits at
    D = 785;
 3. kernel: the CUDA margin kernel against its plain PyTorch version on
-   the card (3 losses x f32/bf16 x masked/unmasked x w = 0/random, on
-   ragged shapes and at the kernel's width limit), each call repeated
-   to check that it is bit-identical; one column past the limit raises;
+   the card (3 losses x f32/bf16 x masked/unmasked x w = 0/random) at
+   D in {1, 2, 3, 7, 8, 31, 32} (its narrow mode, at 2,000,003 rows, so
+   that each thread walks several groups of rows and a ragged last
+   group), at D in {33, 777, 1000} (its tile mode), at ``max_width`` and
+   one column past it (the two-pass mode), each call repeated to check
+   that it is bit-identical, each line with the plan and its launches; a
+   ``past_width_two_pass`` line;
 4. softmax_kernel: the CUDA softmax kernel against its plain version
    (N = 100,003, D in {784, 785, 777}, K in {1, 2, 3, 8, 9, 10, 16, 17,
    32} and the class limit, f32/bf16 x masked/unmasked x W = 0/random),
@@ -32,6 +36,10 @@ Phases, each printing one JSON line:
    warm-up): the kernel, its bound, its plain version, the two
    ``torch.matmul`` products alone, with the card's clocks, power and
    temperature read before and after (``card_before``/``card_after``);
+   also the kernel's device time by kernel name (``torch.profiler``,
+   without the wrapper's host time that the event times include) and
+   the two products' device time; so too in phases 16 and 19 and for
+   ``--ab margin:``;
 7. softmax_path: BASELINE config 4 at its published scale, 8,100,000 x
    784 with 10 classes made on the card, fit with
    ``SoftmaxRegressionWithAGD(10, reg_param=1e-4,
@@ -93,8 +101,11 @@ Phases, each printing one JSON line:
     (``generate_gd_input(2, -1.5, seed 42)`` and the intercept column),
     both through ``FusedLogisticGradient``; the kernel GD held to the
     plain GD at rtol 1e-4; a GD at fraction 0.1 (seed 42) whose masks,
-    drawn on the card, equal the CPU draw bit for bit; the kernel's time
-    at this narrow shape beside its plain version's and its bound;
+    drawn on the card, equal the CPU draw bit for bit; the kernel
+    against its plain version at this narrow shape (at the start and at
+    GD's weights: each thread walks about 74 rows), and its time there
+    (every launch in its narrow mode) beside its plain version's, the
+    two ``torch.matmul`` products' (which it must beat) and its bound;
 17. linreg_path: BASELINE config 2 as published, 10,000,000 x 1,000
     ``planted_dense_linreg`` (seed 2) through
     ``LinearRegressionWithAGD(add_intercept=False)`` with
@@ -107,11 +118,19 @@ Phases, each printing one JSON line:
     ``MLPClassifierWithAGD(32, 2, reg_param=1e-5)`` (tanh, 40 iterations,
     convergence_tol 0), held to the same fit at f64 over their common
     path and the final gradient to f64 sums; the training accuracy;
-19. the ``kernels`` line (with each kernel's launches by path); then the
-    card's name and power limit, and last ``{"ok": true, "device":
-    {...}}``.
+19. wide_path: X past one row in shared memory.  The margin kernel
+    against its plain version at D = 40,000 and 200,000 (3,000 rows, f32
+    and bf16, as phase 3); an AGD fit at 100,000 x 40,000 f32 made on
+    the card (16 GB, a gene-expression-like shape) through
+    ``FusedLogisticGradient`` and ``SquaredL2Updater`` (reg 0.1, 20
+    iterations, tol 0), every launch in the two-pass mode, held to the
+    plain fit as phase 5 is; ms per evaluation beside the two-pass bound
+    and the two ``torch.matmul`` products;
+20. the ``kernels`` line (with each kernel's launches by path, the margin
+    kernel's modes by path and its numbers by mode); then the card's
+    name and power limit, and last ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each path (phases 5, 7, 10-18)
+Launch counts are set to 0 just before each path (phases 5, 7, 10-19)
 and read just after it; the sparse paths launch neither kernel, nor does
 the MLP.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
@@ -127,6 +146,19 @@ each seed phase 8's data and weights are made (planted-softmax data,
 the intercept column, W from 40 iterations of the plain fit), and the
 builds are timed in turns, A, B, ..., then back, each held to the f64
 sums; one ``ab`` line per seed.
+
+``python3 chip_smoke.py --ab margin:NAME=SOURCE [...]`` does the same for
+copies of ``csrc/margin_loss_grad.cu`` (today's C interface, or the
+tile-only one of its first version), at 10,000,000 rows of f32 X of
+width 1, 2, 3, 8, 16, 32, 33, 64, 128, 256, 512 and 1000, and at
+100,000 x 40,000 for the builds that take it: one ``ab_margin`` line a
+width, with each build's plan, ms, error from f64 sums and whether its
+bits equal the first build's, the bound and the two ``torch.matmul``
+products' time.  It fails if a build's result is further from the f64
+sums than phase 3's tolerance (loss rtol 1e-5, gradient 1e-4 of each
+entry plus 1e-4 of the largest).  The tile-only interface is there for
+the comparison with the first version and goes with the next change to
+the margin kernel.
 """
 
 import argparse
@@ -173,6 +205,11 @@ L1_MAIN = 1e-3
 N_GATE, MASK_ROWS = 10_000_000, 250_000
 # BASELINE config 5 (benchmarks/run.py:102-106, datasets.py:148-154)
 MLP = dict(n=1_000_000, d=1_024, hidden=32, classes=2, seed=4, reg=1e-5)
+# phase 19: dense X past one row in shared memory, the shape of a
+# gene-expression matrix (about 20k-40k features, 1e4-1e5 samples), and
+# the kernel checks at a few thousand rows
+WIDE = dict(n=100_000, d=40_000, seed=5, reg=0.1, iters=20)
+WIDE_CHECK = dict(rows=3_000, widths=(40_000, 200_000))
 
 
 def emit(obj):
@@ -222,6 +259,38 @@ def time_ms(fn, repeats=20):
     return float(np.median(times))
 
 
+def device_ms(fn, calls=10):
+    """The mean device time of each kernel that ``fn`` launches (once a
+    call), in ms by kernel name (``torch.profiler``'s CUDA activity over
+    ``calls`` calls after a warm-up): without the host time between
+    launches that ``time_ms`` includes.  Each kernel's time is averaged
+    over the launches the profiler recorded, which can be fewer than the
+    calls.  Empty where it recorded none (callers report None then)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if us and e.count:
+            out[e.key[:80]] = us / 1e3 / e.count
+    return out
+
+
+def two_matmuls_device_ms(X, w, mult):
+    """The device time of the two ``torch.matmul`` products ``X @ w``
+    and ``mult @ X``, each profiled alone (``device_ms``) and summed;
+    None where the profiler recorded none."""
+    times = [device_ms(lambda: X @ w), device_ms(lambda: mult @ X)]
+    return sum(sum(t.values()) for t in times) if all(times) else None
+
+
 def bound_ms(bytes_moved, flops):
     """The least time the card could take: bytes over the memory rate
     against f32 flops over the CUDA-core rate; returns (ms, bound_by)."""
@@ -241,17 +310,25 @@ def compare(kernel, plain, where):
     if not (torch.equal(loss, loss2) and torch.equal(grad, grad2)):
         raise AssertionError(f"{where}: repeated kernel calls differ")
     ref_loss, ref_grad = plain()
+    return hold(loss, grad, ref_loss, ref_grad,
+                f"{where}: kernel disagrees with its plain version")
+
+
+def hold(loss, grad, ref_loss, ref_grad, what):
+    """Raise ``AssertionError(what ...)`` unless ``(loss, grad)`` is
+    within loss rtol LOSS_RTOL of ``ref_loss`` and ``grad`` within
+    GRAD_RTOL of each entry of ``ref_grad`` plus GRAD_ATOL_REL of its
+    largest; returns ``(loss relative error, grad max abs error)``."""
     loss_err = abs(float(loss) - float(ref_loss)) \
         / max(abs(float(ref_loss)), 1e-30)
-    abs_err = (grad - ref_grad).abs()
+    abs_err = (grad.to(ref_grad.dtype) - ref_grad).abs()
     gmax = float(ref_grad.abs().max())
     ok_grad = bool((abs_err <= GRAD_RTOL * ref_grad.abs()
                     + GRAD_ATOL_REL * gmax).all())
     if loss_err > LOSS_RTOL or not ok_grad or not torch.isfinite(grad).all():
         raise AssertionError(
-            f"{where}: kernel disagrees with its plain version: loss rel "
-            f"{loss_err:.3e} (tol {LOSS_RTOL}), grad max abs "
-            f"{float(abs_err.max()):.3e} (|g|max {gmax:.3e})")
+            f"{what}: loss rel {loss_err:.3e} (tol {LOSS_RTOL}), grad max "
+            f"abs {float(abs_err.max()):.3e} (|g|max {gmax:.3e})")
     return loss_err, float(abs_err.max())
 
 
@@ -336,57 +413,83 @@ def phase_build(fk):
     emit(out)
 
 
+# phase 3's widths: the narrow mode's bucket edges at KERNEL_NARROW_ROWS
+# rows, so that each thread walks several groups of rows (at 132 SMs a
+# thread's rows are 135,168 apart, 67,584 at D > 16, taken up to 4 at a
+# time) and a ragged last group; ragged and flagship tile widths at
+# KERNEL_ROWS; then, per dtype, the widest X read once and one column
+# past it (two-pass) at fewer rows
+KERNEL_NARROW_ROWS = 2_000_003
+KERNEL_NARROW_WIDTHS = (1, 2, 3, 7, 8, 31, 32)
+KERNEL_ROWS = 100_003
+KERNEL_WIDTHS = (33, 777, 1_000)
+KERNEL_WIDE_ROWS = {torch.float32: 20_000, torch.bfloat16: 8_192}
+
+
+def check_margin_kernel(fk, losses, X32, xt, gen, where):
+    """The margin kernel against its plain version on ``X32`` cast to
+    ``xt``: 3 losses x masked/unmasked x w = 0/random, each call repeated
+    bit-identical; returns the line's fields (the plan, the launches by
+    mode, the worst errors)."""
+    n, d = X32.shape
+    dev = X32.device
+    y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+    mask = (torch.rand(n, generator=gen, device=dev) < 0.7).float()
+    w_rand = torch.randn(d, generator=gen, device=dev) / d ** 0.5
+    X = X32 if xt == torch.float32 else X32.to(xt)
+    worst_loss = worst_grad = 0.0
+    cases = 0
+    plan = fk.launch_shape(X)
+    before = fk.margin_mode_launches[plan.mode]
+    for name in ("logistic", "least_squares", "hinge"):
+        for m in (None, mask):
+            staged = fk.stage_dense(X, y, m)
+            for w in (torch.zeros(d, device=dev), w_rand):
+                le, ge = compare_margin(
+                    fk, losses.GRADIENTS[name](), w, staged,
+                    f"{where} {n}x{d} {xt} {name} masked={m is not None}")
+                worst_loss = max(worst_loss, le)
+                worst_grad = max(worst_grad, ge)
+                cases += 1
+    launched = fk.margin_mode_launches[plan.mode] - before
+    if launched != 2 * cases:
+        raise AssertionError(f"{where} {n}x{d} {xt}: {launched} launches "
+                             f"in {plan.mode} mode for {cases} cases")
+    return {"shape": [n, d], "x_dtype": str(xt).replace("torch.", ""),
+            "plan": plan._asdict(), "cases": cases,
+            "launches": launched, "bit_identical": True,
+            "max_loss_rel_err": worst_loss, "max_grad_abs_err": worst_grad}
+
+
 def phase_kernel(fk, losses):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    shapes = [(100_003, 1_000, (torch.float32, torch.bfloat16)),
-              (100_003, 777, (torch.float32, torch.bfloat16)),
-              (20_000, fk.max_width(torch.float32), (torch.float32,)),
-              (8_192, fk.max_width(torch.bfloat16), (torch.bfloat16,))]
+    both = (torch.float32, torch.bfloat16)
+    shapes = [(KERNEL_NARROW_ROWS, d, both) for d in KERNEL_NARROW_WIDTHS]
+    shapes += [(KERNEL_ROWS, d, both) for d in KERNEL_WIDTHS]
+    for xt, n in KERNEL_WIDE_ROWS.items():
+        limit = fk.max_width(xt)
+        shapes += [(n, limit, (xt,)), (n, limit + 1, (xt,))]
+    past = {}
     for n, d, xtypes in shapes:
         X32 = torch.randn((n, d), generator=gen, device=dev)
-        y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
-        mask = (torch.rand(n, generator=gen, device=dev) < 0.7).float()
-        w_rand = torch.randn(d, generator=gen, device=dev) / d ** 0.5
         for xt in xtypes:
-            X = X32 if xt == torch.float32 else X32.to(xt)
-            worst_loss = worst_grad = 0.0
-            cases = 0
-            for name in ("logistic", "least_squares", "hinge"):
-                for m in (None, mask):
-                    staged = fk.stage_dense(X, y, m)
-                    for w in (torch.zeros(d, device=dev), w_rand):
-                        le, ge = compare_margin(
-                            fk, losses.GRADIENTS[name](), w, staged,
-                            f"{n}x{d} {xt} {name} masked={m is not None}")
-                        worst_loss = max(worst_loss, le)
-                        worst_grad = max(worst_grad, ge)
-                        cases += 1
-            rows, grid = fk.launch_shape(X)
-            emit({"phase": "kernel", "shape": [n, d],
-                  "x_dtype": str(xt).replace("torch.", ""),
-                  "tile_rows": rows, "grid": grid,
-                  "cases": cases, "bit_identical": True,
-                  "max_loss_rel_err": worst_loss,
-                  "max_grad_abs_err": worst_grad})
-            del X
-        del X32, y, mask
+            row = check_margin_kernel(fk, losses, X32, xt, gen, "kernel")
+            emit({"phase": "kernel", **row})
+            if d == fk.max_width(xt) + 1:
+                past[row["x_dtype"]] = row
+        del X32
         torch.cuda.empty_cache()
-    # one column past the limit: refused before any launch
-    for xt in (torch.float32, torch.bfloat16):
-        d = fk.max_width(xt) + 1
-        before = fk.launch_count
-        try:
-            fk.stage_dense(torch.zeros((2, d), dtype=xt, device=dev),
-                           torch.zeros(2, device=dev))
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"{xt} X of width {d} was not refused")
-        if fk.launch_count != before:
-            raise AssertionError("a refused X launched the kernel")
-    emit({"phase": "kernel", "past_width_limit_raises": True})
+    # one column past the widest X read once: computed in two passes
+    if sorted(past) != ["bfloat16", "float32"] or any(
+            r["plan"]["mode"] != "two_pass" for r in past.values()):
+        raise AssertionError(f"one column past max_width did not run "
+                             f"the two-pass mode: {past}")
+    emit({"phase": "kernel", "past_width_two_pass": {
+        k: {f: r[f] for f in ("shape", "plan", "launches",
+                              "max_loss_rel_err", "max_grad_abs_err")}
+        for k, r in past.items()}})
 
 
 def phase_softmax_kernel(fk):
@@ -464,6 +567,19 @@ def phase_softmax_kernel(fk):
     emit({"phase": "softmax_kernel", "past_class_limit_raises": True})
 
 
+def margin_modes(fk):
+    """The margin kernel's launches by mode since the counts were last
+    set to 0 (modes that ran only)."""
+    return {m: c for m, c in fk.margin_mode_launches.items() if c}
+
+
+def record_margin_path(fk, launches, path):
+    """The margin kernel's launches on ``path`` since the counts were
+    last set to 0: in all, and by mode under ``launches["modes"]``."""
+    launches[path] = fk.launch_count
+    launches.setdefault("modes", {})[path] = margin_modes(fk)
+
+
 def counting(cls):
     """``cls`` with a count of smooth evaluations, to hold launches
     against them."""
@@ -490,7 +606,7 @@ def margin_path(port, fk, losses, device_synth, after):
 
     fused = counting(port.FusedLogisticGradient)()
     torch.cuda.reset_peak_memory_stats()
-    fk.launch_count = fk.softmax_launch_count = 0
+    fk.reset_launch_counts()
     t0 = time.perf_counter()
     w_opt = (port.AcceleratedGradientDescent(fused, port.SquaredL2Updater())
              .setRegParam(REG).setNumIterations(ITERS)
@@ -507,6 +623,7 @@ def margin_path(port, fk, losses, device_synth, after):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = fk.launch_count
+    modes = margin_modes(fk)
     if fk.softmax_launch_count != 0:
         raise AssertionError("the margin path launched the softmax kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -574,20 +691,25 @@ def margin_path(port, fk, losses, device_synth, after):
     state_before = card_state()
     kernel_ms = time_ms(lambda: fk.fused_margin_loss_grad(gradient, w_run,
                                                           staged))
+    kernel_device_ms = device_ms(lambda: fk.fused_margin_loss_grad(
+        gradient, w_run, staged))
     plain_ms = time_ms(lambda: fk.fused_margin_loss_grad_reference(
         gradient, w_run, staged))
     mult = torch.randn(N_MAIN, device="cuda")
     two_mm_ms = time_ms(lambda: (X @ w_run, mult @ X))
+    two_mm_device_ms = two_matmuls_device_ms(X, w_run, mult)
     state_after = card_state()
     n, d = X.shape
     b_ms, bound_by = bound_ms(n * d * 4 + 2 * n * 4 + d * 4 + 4 + d * 4,
                               4 * n * d)
     per_fit = launches - launches_optimize  # the run's own launches
     emit({"phase": "times", "shape": [n, d], "kernel_ms": kernel_ms,
+          "kernel_device_ms": kernel_device_ms,
           "bound_ms": b_ms, "bound_by": bound_by,
           "bound_source": "H100 SXM data sheet 3.35 TB/s, 67 TFLOP/s f32",
           "kernel_bw_frac": b_ms / kernel_ms,
           "plain_ms": plain_ms, "two_matmuls_ms": two_mm_ms,
+          "two_matmuls_device_ms": two_mm_device_ms,
           "launches_per_fit": per_fit,
           "kernel_share_of_run_wall": per_fit * kernel_ms / (run_s * 1e3),
           "main_shape_loss_rel_err": loss_err,
@@ -604,7 +726,10 @@ def margin_path(port, fk, losses, device_synth, after):
             "launches": launches, "max_abs_err": max_abs_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": bound_by, "library_ms": None,
-            "two_matmuls_ms": two_mm_ms}
+            "two_matmuls_ms": two_mm_ms,
+            "device_ms": sum(kernel_device_ms.values()) or None,
+            "two_matmuls_device_ms": two_mm_device_ms,
+            "main_path_modes": modes}
 
 
 def softmax_path(port, fk, device_synth, after):
@@ -628,7 +753,7 @@ def softmax_path(port, fk, device_synth, after):
         .setConvergenceTol(TOL)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fk.launch_count = fk.softmax_launch_count = 0
+    fk.reset_launch_counts()
     t0 = time.perf_counter()
     model = trainer.train(X, y)
     torch.cuda.synchronize()
@@ -846,7 +971,7 @@ def phase_sparse_ops(port, fk, sparse, device_synth, glm):
         ("matmat", sparse.CSRMatrix.matmat, W),
         ("rmatmat", sparse.CSRMatrix.rmatmat, V)], "sparse_ops")
     # the fused gradients route a CSR to the sparse products
-    fk.launch_count = fk.softmax_launch_count = 0
+    fk.reset_launch_counts()
     labels = torch.randint(0, k, (n,), generator=gen, device="cuda")
     for g, wt, yt in ((port.FusedLogisticGradient(), w, y),
                       (port.FusedSoftmaxGradient(port.SoftmaxGradient(k)),
@@ -928,7 +1053,7 @@ def sparse_path(port, fk, sparse, device_synth, glm, phase, cfg,
         .setConvergenceTol(TOL)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fk.launch_count = fk.softmax_launch_count = 0
+    fk.reset_launch_counts()
     state_before = card_state()
     t0 = time.perf_counter()
     model = trainer.train(X, y)
@@ -1239,7 +1364,7 @@ def lbfgs_path(port, fk, smi, X, y, launches):
     w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
     fused = counting(port.FusedLogisticGradient)()
     kw = dict(reg_param=REG, num_iterations=ITERS, initial_weights=w0)
-    fk.launch_count = fk.softmax_launch_count = 0
+    fk.reset_launch_counts()
     w_opt, optimize_s = timed(lambda: port.LBFGS(
         fused, port.SquaredL2Updater()).setRegParam(REG)
         .setNumIterations(ITERS).optimize((X, y), w0))
@@ -1251,7 +1376,7 @@ def lbfgs_path(port, fk, smi, X, y, launches):
                                  reg_param=L1_MAIN, num_iterations=ITERS)
     res_l1, owlqn_s = timed(lambda: fit(w0))
     launches_l1 = fk.launch_count - launches_optimize - launches_run
-    launches["lbfgs_path"] = fk.launch_count
+    record_margin_path(fk, launches, "lbfgs_path")
     softmax_launches = fk.softmax_launch_count
     plain, plain_s = timed(lambda: port.run_lbfgs(
         (X, y), port.LogisticGradient(), port.SquaredL2Updater(), **kw))
@@ -1311,7 +1436,7 @@ def softmax_lbfgs_path(port, fk, glm, smi, Xa, y, launches):
     trainer = glm.SoftmaxRegressionWithLBFGS(K_SM, reg_param=REG_SM)
     trainer.optimizer.set_gradient(fused).setNumIterations(ITERS)
     torch.cuda.reset_peak_memory_stats()
-    fk.launch_count = fk.softmax_launch_count = 0
+    fk.reset_launch_counts()
     model, train_s = timed(lambda: trainer.train(Xa[:, 1:], y))
     train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches_train, evals_train = fk.softmax_launch_count, fused.evaluations
@@ -1359,7 +1484,7 @@ def rcv1_lbfgs(port, fk, sparse, glm, smi, rcv1):
     gradient = counting(port.LogisticGradient)()
     trainer = glm.LogisticRegressionWithLBFGS(reg_param=cfg["reg"])
     trainer.optimizer.set_gradient(gradient).setNumIterations(ITERS)
-    fk.launch_count = fk.softmax_launch_count = 0
+    fk.reset_launch_counts()
     model, train_s = timed(lambda: trainer.train(X, y))
     evaluations_train = gradient.evaluations
     Xa = glm._add_intercept(X).with_csc()
@@ -1423,7 +1548,7 @@ def gd_gate(port, fk, smi, launches):
     gen_s = time.perf_counter() - t_phase
     w0 = torch.tensor([1.0, -1.0], device="cuda")
     fused = counting(port.FusedLogisticGradient)()
-    fk.launch_count = fk.softmax_launch_count = 0
+    fk.reset_launch_counts()
     (w_agd, h_agd), agd_s = timed(lambda: port.run(
         (X, y), fused, port.SimpleUpdater(), convergence_tol=1e-12,
         num_iterations=10, initial_weights=w0))
@@ -1444,7 +1569,7 @@ def gd_gate(port, fk, smi, launches):
         (X, y), Recording(), port.SimpleUpdater(), step_size=1.0,
         num_iterations=50, minibatch_fraction=0.1, initial_weights=w0,
         seed=42))
-    launches["gd_gate"] = fk.launch_count
+    record_margin_path(fk, launches, "gd_gate")
     launches_sampled = fk.launch_count - launches_agd - launches_gd
     (_, h_plain), plain_gd_s = timed(lambda: port.run_minibatch_sgd(
         (X, y), port.LogisticGradient(), port.SimpleUpdater(),
@@ -1461,17 +1586,30 @@ def gd_gate(port, fk, smi, launches):
                                device="cpu") > 0
         masks_equal = masks_equal and torch.equal(m[:rows].cpu(), cpu)
     mask_check_s = time.perf_counter() - t0
-    # one evaluation at this narrow shape: the kernel against its plain
-    # version and the bound (reading X, y and the mask once)
+    # one evaluation at this narrow shape: the kernel (its narrow mode,
+    # where each thread walks many rows) held to its plain version at the
+    # start and at GD's weights, then timed against its plain version,
+    # the two torch.matmul products alone and the bound (reading X, y and
+    # the mask once)
     staged = fk.stage_dense(X, y)
     gradient = port.LogisticGradient()
+    plan = fk.launch_shape(X)
+    shape_errs = {label: compare_margin(fk, gradient, w, staged,
+                                        f"gd_gate shape at {label}")
+                  for label, w in (("w0", w0), ("w_gd", w_gd))}
+    state_before = card_state()
     kernel_ms = time_ms(lambda: fk.fused_margin_loss_grad(gradient, w_gd,
                                                           staged))
+    kernel_device_ms = device_ms(lambda: fk.fused_margin_loss_grad(
+        gradient, w_gd, staged))
     plain_ms = time_ms(lambda: fk.fused_margin_loss_grad_reference(
         gradient, w_gd, staged))
-    b_ms, bound_by = bound_ms(N_GATE * 2 * 4 + 2 * N_GATE * 4 + 16,
-                              4 * N_GATE * 2)
-    del staged
+    mult = torch.randn(N_GATE, device="cuda")
+    two_mm_ms = time_ms(lambda: (X @ w_gd, mult @ X))
+    two_mm_device_ms = two_matmuls_device_ms(X, w_gd, mult)
+    state_after = card_state()
+    (b_ms, bound_by), _ = margin_bounds(N_GATE, 2, 4)
+    del staged, mult
     sample_fraction = float(torch.stack([m.float().mean() for m in masks])
                             .mean())
     loss_agd, loss_gd = float(h_agd[-1]), float(h_gd[-1])
@@ -1486,14 +1624,23 @@ def gd_gate(port, fk, smi, launches):
         "launches_equal_evaluations":
             launches["gd_gate"] == fused.evaluations + 50,
         "card_masks_equal_cpu_draw": masks_equal,
+        "every_launch_narrow": launches["modes"]["gd_gate"]
+        == {"narrow": launches["gd_gate"]},
+        "narrow_mode_faster_than_two_matmuls": kernel_ms < two_mm_ms,
         "sample_fraction_near_0.1": abs(sample_fraction - 0.1) < 1e-3,
         "finite": bool(np.isfinite(h_agd).all() and np.isfinite(h_gd).all()
                        and np.isfinite(h_s).all()),
     }
     finish("gd_gate", {
         "rows": N_GATE, "generate_s": gen_s, "agd_run_s": agd_s,
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": bound_by, "tile_rows_grid": list(fk.launch_shape(X)),
+        "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
+        "plain_ms": plain_ms, "two_matmuls_ms": two_mm_ms,
+        "two_matmuls_device_ms": two_mm_device_ms, "bound_ms": b_ms,
+        "bound_by": bound_by, "plan": plan._asdict(),
+        "shape_loss_rel_err": {k: e[0] for k, e in shape_errs.items()},
+        "shape_grad_max_abs_err": {k: e[1] for k, e in shape_errs.items()},
+        "modes": launches["modes"]["gd_gate"],
+        "card_before": state_before, "card_after": state_after,
         "gd_run_s": gd_s, "plain_gd_run_s": plain_gd_s,
         "sampled_gd_run_s": sampled_s, "mask_check_s": mask_check_s,
         "mask_rows_checked_per_iteration": {"1, 2, 50": N_GATE,
@@ -1508,6 +1655,11 @@ def gd_gate(port, fk, smi, launches):
         "loss_history_agd": h_agd.tolist(), "loss_history_gd": h_gd.tolist(),
         "sample_fraction": sample_fraction,
         "sampled_loss_last": float(h_s[-1])}, checks, t_phase, smi)
+    return {"shape": [N_GATE, 2], "ms": kernel_ms,
+            "device_ms": sum(kernel_device_ms.values()) or None,
+            "plain_ms": plain_ms, "bound_ms": b_ms,
+            "two_matmuls_ms": two_mm_ms,
+            "two_matmuls_device_ms": two_mm_device_ms}
 
 
 def linreg_path(port, fk, device_synth, glm, smi, launches):
@@ -1527,7 +1679,7 @@ def linreg_path(port, fk, device_synth, glm, smi, launches):
     trainer = glm.LinearRegressionWithAGD(add_intercept=False)
     trainer.optimizer.set_gradient(fused).setNumIterations(ITERS) \
         .setConvergenceTol(TOL)
-    fk.launch_count = fk.softmax_launch_count = 0
+    fk.reset_launch_counts()
     model, train_s = timed(lambda: trainer.train(X, y))
     launches_train, evals_train = fk.launch_count, fused.evaluations
     kw = dict(num_iterations=ITERS, convergence_tol=TOL,
@@ -1538,7 +1690,7 @@ def linreg_path(port, fk, device_synth, glm, smi, launches):
     gd_kw = dict(step_size=0.1, num_iterations=50, initial_weights=w0)
     (w_gd, h_gd), gd_s = timed(lambda: port.run_minibatch_sgd(
         (X, y), fused, port.IdentityProx(), **gd_kw))
-    launches["linreg_path"] = fk.launch_count
+    record_margin_path(fk, launches, "linreg_path")
     launches_gd = fk.launch_count - launches_train - launches_run
     softmax_launches = fk.softmax_launch_count
     (w_plain, hist_plain, res_plain), plain_s = timed(lambda: port.run(
@@ -1606,7 +1758,7 @@ def mlp_path(port, device_synth, smi, fk):
         n, d, h, seed=MLP["seed"]))
     trainer = mlp.MLPClassifierWithAGD(h, k, reg_param=MLP["reg"])
     trainer.optimizer.setNumIterations(ITERS).setConvergenceTol(TOL)
-    fk.launch_count = fk.softmax_launch_count = 0
+    fk.reset_launch_counts()
     model, train_s = timed(lambda: trainer.train(X, y))
     p0 = mlp.init_mlp_params(d, h, k, seed=0)
     kw = dict(reg_param=MLP["reg"], num_iterations=ITERS,
@@ -1670,6 +1822,114 @@ def mlp_path(port, device_synth, smi, fk):
         checks, t_phase, smi)
 
 
+def wide_path(port, fk, losses, device_synth, smi, launches):
+    """Phase 19: X past one row in shared memory, where the margin
+    kernel runs its two-pass mode.  The kernel against its plain version
+    at WIDE_CHECK widths (f32 and bf16, repeat bit-identical); then an
+    AGD fit at WIDE's shape (a gene-expression-like dense X, made on the
+    card) through ``FusedLogisticGradient``, held to the plain fit over
+    their common iterations; and one evaluation timed against the
+    two-pass bound and the two ``torch.matmul`` products.  Returns the
+    kernel's numbers at that shape."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    checks = {}
+    kernel_rows = []
+    for d in WIDE_CHECK["widths"]:
+        X32 = torch.randn((WIDE_CHECK["rows"], d), generator=gen, device=dev)
+        for xt in (torch.float32, torch.bfloat16):
+            row = check_margin_kernel(fk, losses, X32, xt, gen, "wide_path")
+            kernel_rows.append(row)
+            checks[f"two_pass_at_{d}_{row['x_dtype']}"] = \
+                row["plan"]["mode"] == "two_pass"
+        del X32
+        torch.cuda.empty_cache()
+
+    n, d = WIDE["n"], WIDE["d"]
+    (X, y), gen_s = timed(lambda: device_synth.class_logistic(
+        n, d, seed=WIDE["seed"]))
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+    kw = dict(reg_param=WIDE["reg"], num_iterations=WIDE["iters"],
+              convergence_tol=0.0, initial_weights=w0, return_result=True)
+    fused = counting(port.FusedLogisticGradient)()
+    fk.reset_launch_counts()
+    (w_run, hist, res), run_s = timed(lambda: port.run(
+        (X, y), fused, port.SquaredL2Updater(), **kw))
+    record_margin_path(fk, launches, "wide_path")
+    softmax_launches = fk.softmax_launch_count
+    (_, hist_plain, res_plain), plain_s = timed(lambda: port.run(
+        (X, y), port.LogisticGradient(), port.SquaredL2Updater(), **kw))
+    n_iters, n_plain = int(res.num_iters), int(res_plain.num_iters)
+    n_common = min(n_iters, n_plain)
+
+    gradient = losses.LogisticGradient()
+    staged = fk.stage_dense(X, y)
+    loss_err, max_abs_err = compare_margin(fk, gradient, w_run, staged,
+                                           "wide_path shape")
+    plan = fk.launch_shape(X)
+    state_before = card_state()
+    kernel_ms = time_ms(lambda: fk.fused_margin_loss_grad(gradient, w_run,
+                                                          staged))
+    kernel_device_ms = device_ms(lambda: fk.fused_margin_loss_grad(
+        gradient, w_run, staged))
+    plain_ms = time_ms(lambda: fk.fused_margin_loss_grad_reference(
+        gradient, w_run, staged))
+    mult = torch.randn(n, device="cuda")
+    two_mm_ms = time_ms(lambda: (X @ w_run, mult @ X))
+    two_mm_device_ms = two_matmuls_device_ms(X, w_run, mult)
+    state_after = card_state()
+    (b_ms, bound_by), (b2_ms, _) = margin_bounds(n, d, 4)
+    del staged, mult
+    checks.update({
+        "every_launch_two_pass": launches["modes"]["wide_path"]
+        == {"two_pass": launches["wide_path"]},
+        "launches_equal_evaluations":
+            launches["wide_path"] == fused.evaluations > 0,
+        "no_softmax_launch": softmax_launches == 0,
+        "same_stop_or_both_at_floor": same_stop(res, res_plain, hist,
+                                                hist_plain),
+        "history_rtol_1e-4": bool(np.allclose(
+            hist[:n_common], hist_plain[:n_common], rtol=1e-4, atol=0.0)),
+        "loss_decreases": bool(hist[-1] < hist[0]),
+        "finite": bool(np.isfinite(hist).all()
+                       and torch.isfinite(w_run).all()),
+        "weights_shape": tuple(w_run.shape) == (d,),
+    })
+    with torch.no_grad():
+        acc = float(((X @ w_run > 0).float() == y).float().mean())
+    finish("wide_path", {
+        "kernel_checks": kernel_rows, "shape": [n, d],
+        "x_gb": X.numel() * 4 / 1e9, "generate_s": gen_s, "run_s": run_s,
+        "plain_run_s": plain_s, "num_iters": n_iters,
+        "num_iters_plain": n_plain, "num_backtracks": int(res.num_backtracks),
+        "launches": launches["wide_path"],
+        "modes": launches["modes"]["wide_path"],
+        "smooth_evaluations": fused.evaluations,
+        "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+        "loss_last_plain": float(hist_plain[-1]),
+        "max_hist_rel_diff": float(np.max(
+            np.abs(hist[:n_common] - hist_plain[:n_common])
+            / np.abs(hist_plain[:n_common]))),
+        "loss_history": hist.tolist(), "train_accuracy": acc,
+        "plan": plan._asdict(), "kernel_ms": kernel_ms,
+        "kernel_device_ms": kernel_device_ms, "plain_ms": plain_ms,
+        "two_matmuls_ms": two_mm_ms,
+        "two_matmuls_device_ms": two_mm_device_ms, "bound_ms": b_ms,
+        "bound_by": bound_by, "two_pass_bound_ms": b2_ms, "shape_loss_rel_err": loss_err,
+        "shape_grad_max_abs_err": max_abs_err,
+        "card_before": state_before, "card_after": state_after},
+        checks, t_phase, smi)
+    del X, y
+    return {"shape": [n, d], "ms": kernel_ms,
+            "device_ms": sum(kernel_device_ms.values()) or None,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms, "two_pass_bound_ms": b2_ms,
+            "two_matmuls_ms": two_mm_ms,
+            "two_matmuls_device_ms": two_mm_device_ms}
+
+
 def softmax_ab(port, fk, device_synth, specs, seeds):
     """``--ab``: the builds ``specs`` (NAME=SOURCE) of the softmax kernel
     timed in turns at phase 8's shape, each held to the f64 sums."""
@@ -1724,12 +1984,158 @@ def softmax_ab(port, fk, device_synth, specs, seeds):
         torch.cuda.empty_cache()
 
 
+# --ab margin: the widths swept at AB_ROWS rows, and one past a row in
+# shared memory at fewer rows (only the builds that take it)
+AB_ROWS = 10_000_000
+AB_WIDTHS = (1, 2, 3, 8, 16, 32, 33, 64, 128, 256, 512, 1000)
+AB_WIDE = (100_000, 40_000)
+
+
+def margin_build(fk, source):
+    """A build of the margin kernel from ``source`` with either C
+    interface: today's (a mode in each plan) or the tile-only one of its
+    first version (tile rows and grid).  Returns ``(BuiltLibrary, plan,
+    launch)`` with ``plan(n, d, itemsize, sms)`` a ``MarginPlan`` or None
+    where the build takes no such X, and ``launch(code, w, staged,
+    plan)`` -> ``(loss, grad)``."""
+    import ctypes
+
+    lib, built = fk._load("margin_loss_grad", "margin", fk._ARGTYPES, source)
+    if hasattr(lib, "margin_mode_name"):
+        lib, _ = fk.library(source)
+
+        def plan(n, d, itemsize, sms):
+            try:
+                return fk.plan_for(lib, n, d, itemsize, sms)
+            except ValueError:
+                return None
+
+        def launch(code, w, staged, p):
+            return fk.margin_launch(lib, code, w, staged, p)
+    else:
+        lib.margin_plan.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        lib.margin_plan.restype = ctypes.c_int
+
+        def plan(n, d, itemsize, sms):
+            rows, grid = ctypes.c_int(), ctypes.c_int()
+            if lib.margin_plan(n, d, itemsize, sms, ctypes.byref(rows),
+                               ctypes.byref(grid)):
+                return None
+            return fk.MarginPlan("tile", rows.value, grid.value, grid.value,
+                                 None)
+
+        def launch(code, w, staged, p):
+            return fk._launch(lib, "margin_loss_grad", "margin", code, w,
+                              staged, (p.tile_rows, p.grid),
+                              (p.grid, p.grid))
+    return built, plan, launch
+
+
+def margin_f64(w, staged, chunk_bytes=1 << 31):
+    """The logistic loss and gradient in f64 over row chunks."""
+    n, d = staged.X.shape
+    rows = max(1, chunk_bytes // (8 * d))
+    loss = torch.zeros((), dtype=torch.float64, device=staged.X.device)
+    grad = torch.zeros(d, dtype=torch.float64, device=staged.X.device)
+    w64 = w.double()
+    for r0 in range(0, n, rows):
+        Xb = staged.X[r0:r0 + rows].double()
+        z = Xb @ w64
+        yb = staged.y[r0:r0 + rows].double()
+        mb = staged.m[r0:r0 + rows].double()
+        loss += ((torch.nn.functional.softplus(-z) + (1 - yb) * z) * mb).sum()
+        grad += (mb * (torch.sigmoid(z) - yb)) @ Xb
+    return loss, grad
+
+
+def margin_bounds(n, d, itemsize):
+    """The bound of one evaluation (X, y and m read once) and the
+    two-pass mode's (X read twice, y and m once, the (N,) multipliers
+    written and read), in ms."""
+    one = bound_ms(n * d * itemsize + 8 * n + 8 * d + 4, 4 * n * d)
+    two = bound_ms(2 * n * d * itemsize + 16 * n + 8 * d + 4, 4 * n * d)
+    return one, two
+
+
+def margin_ab(fk, specs):
+    """``--ab margin:NAME=SOURCE ...``: builds of the margin kernel timed
+    in turns (A, B, ..., then back) at each of AB_WIDTHS x AB_ROWS f32
+    and at AB_WIDE, logistic, each held to f64 sums, with the two
+    ``torch.matmul`` products beside them; one ``ab_margin`` line a
+    width."""
+    names = [s.split("=", 1)[0] for s in specs]
+    sources = [os.path.abspath(s.split("=", 1)[1]) for s in specs]
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(specs)) as pool:
+        builds = list(pool.map(lambda src: margin_build(fk, src), sources))
+    emit({"phase": "ab_build", "seconds": time.perf_counter() - t0,
+          "builds": {name: dict(build_report(b), source=src)
+                     for name, src, (b, _, _) in zip(names, sources,
+                                                     builds)}})
+    dev = torch.device("cuda")
+    sms = fk._device_sms(0)
+    failed = []
+    shapes = [(AB_ROWS, d) for d in AB_WIDTHS] + [AB_WIDE]
+    for n, d in shapes:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(d)
+        X = torch.randn((n, d), generator=gen, device=dev)
+        y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+        w = torch.randn(d, generator=gen, device=dev) / d ** 0.5
+        staged = fk.stage_dense(X, y)
+        exact_loss, exact_grad = margin_f64(w, staged)
+        mult = torch.randn(n, generator=gen, device=dev)
+        (b_ms, bound_by), (b2_ms, _) = margin_bounds(n, d, 4)
+        out = {"phase": "ab_margin", "shape": [n, d], "bound_ms": b_ms,
+               "bound_by": bound_by, "two_pass_bound_ms": b2_ms,
+               "grad_abs_max": float(exact_grad.abs().max()),
+               "card_before": card_state()}
+        first = None
+        for name, (_, plan, launch) in zip(names + names[::-1],
+                                           builds + builds[::-1]):
+            p = plan(n, d, 4, sms)
+            if p is None:
+                out[name] = {"plan": None}
+                continue
+
+            def call(launch=launch, p=p):
+                return launch(0, w, staged, p)
+
+            loss, grad = call()
+            r = out.setdefault(name, {"plan": list(p), "ms": [],
+                                      "device_ms": []})
+            r["ms"].append(time_ms(call))
+            r["device_ms"].append(device_ms(call))
+            try:
+                r["loss_rel_err_vs_f64"], r["grad_max_abs_err_vs_f64"] = \
+                    hold(loss, grad, exact_loss, exact_grad,
+                         f"{name} at {n}x{d}: far from the f64 sums")
+            except AssertionError as e:
+                r["loss_rel_err_vs_f64"] = r["grad_max_abs_err_vs_f64"] = None
+                failed.append(str(e))
+            if first is None:
+                first = name, loss, grad
+            r[f"same_bits_as_{first[0]}"] = bool(
+                torch.equal(loss, first[1]) and torch.equal(grad, first[2]))
+        out["two_matmuls_ms"] = time_ms(lambda: (X @ w, mult @ X))
+        out["two_matmuls_device_ms"] = two_matmuls_device_ms(X, w, mult)
+        out["card_after"] = card_state()
+        emit(out)
+        del X, y, staged, mult, exact_grad, first
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 def main(argv):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card.")
-    parser.add_argument("--ab", nargs="+", metavar="NAME=SOURCE",
+    parser.add_argument("--ab", nargs="+", metavar="[margin:]NAME=SOURCE",
                         help="time these builds of the softmax kernel "
-                             "instead of running the phases")
+                             "(or, each prefixed margin:, of the margin "
+                             "kernel) instead of running the phases")
     parser.add_argument("--seeds", default="3",
                         help="data seeds of --ab, comma-separated")
     args = parser.parse_args(argv)
@@ -1754,8 +2160,15 @@ def main(argv):
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     if args.ab:
-        softmax_ab(port, fk, device_synth, args.ab,
-                   [int(s) for s in args.seeds.split(",")])
+        margin = [s.startswith("margin:") for s in args.ab]
+        if any(margin) and not all(margin):
+            parser.error("--ab takes softmax builds or margin: builds, "
+                         "not both")
+        if all(margin):
+            margin_ab(fk, [s[len("margin:"):] for s in args.ab])
+        else:
+            softmax_ab(port, fk, device_synth, args.ab,
+                       [int(s) for s in args.seeds.split(",")])
         return 0
 
     # 2-4. build, and each kernel against its plain version
@@ -1796,16 +2209,28 @@ def main(argv):
           "seconds": time.perf_counter() - t0})
 
     # 16-18. the GD gate, BASELINE configs 2 and 5
-    gd_gate(port, fk, smi, launches)
+    narrow = gd_gate(port, fk, smi, launches)
     torch.cuda.empty_cache()
     linreg_path(port, fk, device_synth, glm, smi, launches)
     torch.cuda.empty_cache()
     mlp_path(port, device_synth, smi, fk)
+    torch.cuda.empty_cache()
 
-    # 19. the kernels line, the card, the result
-    margin["launches_by_path"] = {
-        "main_path": margin["launches"],
-        **{p: launches[p] for p in ("lbfgs_path", "gd_gate", "linreg_path")}}
+    # 19. X past one row in shared memory: the two-pass mode
+    wide = wide_path(port, fk, losses, device_synth, smi, launches)
+
+    # 20. the kernels line, the card, the result
+    paths = ("lbfgs_path", "gd_gate", "linreg_path", "wide_path")
+    margin["launches_by_path"] = {"main_path": margin["launches"],
+                                  **{p: launches[p] for p in paths}}
+    margin["modes_by_path"] = {"main_path": margin.pop("main_path_modes"),
+                               **{p: launches["modes"][p] for p in paths}}
+    margin["by_mode"] = {
+        "tile": {k: margin[k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "two_matmuls_ms",
+                                        "two_matmuls_device_ms")}
+        | {"shape": [N_MAIN, D_MAIN]},
+        "narrow": narrow, "two_pass": wide}
     softmax["launches_by_path"] = {
         "softmax_path": softmax["launches"],
         "softmax_lbfgs_path": launches["softmax_lbfgs_path"]}

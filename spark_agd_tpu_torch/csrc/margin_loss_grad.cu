@@ -10,24 +10,44 @@
 // with (per, mult) the logistic, least-squares or hinge middle of
 // spark_agd_tpu/ops/losses.py (dots_loss_and_mult).
 //
-// What bounds it on this card: reading X once from device memory.  The
-// two products do 4*N*D flops on N*D*itemsize bytes, one flop per byte
-// in f32, far below the ~20 flop/byte where the H100's f32 rate would
-// take over.  Two library products (X @ w, then X^T @ mult) read X
-// twice; this kernel keeps each row tile in shared memory between the
-// two products, so X crosses the memory bus once per evaluation.
+// What bounds it on this card: reading X from device memory.  The two
+// products do 4*N*D flops on N*D*itemsize bytes, one flop per byte in
+// f32, far below the ~20 flop/byte where the H100's f32 rate would take
+// over.  Two library products (X @ w, then X^T @ mult) read X twice.
 //
-// Design.  Stage 1: every block walks a contiguous range of rows in
-// tiles of `tile_rows` full rows (a contiguous chunk of X, copied with
-// 16-byte loads).  One warp per row forms the dot with a shuffle
-// reduction and applies the loss middle in f32; then every thread sums
-// mult * x over the tile for the columns it owns, reading the tile again
-// from shared memory, never from device memory.  Each block writes its
-// own partial loss and partial gradient.  Stage 2 sums the partials in
-// block order.  No float atomics anywhere: two calls on the same inputs
-// give the same bits.  X may be f32 or bf16 (widened to f32 in
-// registers); y, m, w and every accumulator are f32.  Ragged row and
-// column edges are masked here, so X needs no padding.
+// margin_plan picks one of three modes by width; all of them write
+// per-block partials that reduce_partials sums in block order, with no
+// float atomics, so two calls on the same inputs give the same bits.  X
+// may be f32 or bf16 (widened to f32 in registers); y, m, w and every
+// accumulator are f32.  Ragged row and column edges are masked here, so
+// X needs no padding.
+//
+// Tile mode (the mid widths, up to margin_max_width): every block walks a
+// contiguous range of rows in tiles of `tile_rows` full rows (a
+// contiguous chunk of X, copied with 16-byte loads).  One warp per row
+// forms the dot with a shuffle reduction and applies the loss middle in
+// f32; then every thread sums mult * x over the tile for the columns it
+// owns, reading the tile again from shared memory, never from device
+// memory.  X crosses the memory bus once per evaluation.
+//
+// Narrow mode (D <= kNarrowMaxWidth): a tile of a few hundred bytes
+// between barriers leaves the card idle, so each thread owns whole rows
+// instead, with the row, w and its D gradient sums in registers (D
+// rounded up to a compile-time bucket and masked).  Neighbouring threads
+// take neighbouring rows, so a warp's loads are contiguous.  Each block
+// reduces its registers once at the end (a shuffle tree, then across
+// warps in a fixed order), and a warp per column sums the blocks'
+// partials.
+//
+// Two-pass mode (past margin_max_width, where not one row fits the
+// tile): pass 1 gives each row a warp that reads it from device memory
+// (16-byte loads where rows are aligned; w stays in L2), applies the
+// loss middle and writes m * mult to an (N,) scratch; pass 2 walks
+// column chunks x row groups, one column a thread with eight rows'
+// loads in flight, and reads X again.  Both grids are sized to what is
+// resident at once.  X crosses the bus twice, as it does through the
+// two library products that the TPU wrapper falls back to past its VMEM
+// budget; this mode has no width limit.
 
 #include "tile_common.cuh"
 
@@ -175,22 +195,319 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Narrow mode.  Widths up to kNarrowMaxWidth go to one of the register
+// buckets below (the row, w and the gradient sums each take DB
+// registers).  The grid is as many blocks as are resident at once, each
+// bucket's __launch_bounds__ holding its registers to that, so no block
+// waits for a second wave; each thread walks rows tid, tid + stride, ...
+// so that every thread walks many rows and a warp reads contiguous rows.
+constexpr int kNarrowMaxWidth = 32;
+constexpr int kNarrowThreads = 256;
+constexpr int kNarrowWarps = kNarrowThreads / 32;
+
+__host__ __device__ constexpr int narrow_blocks_per_sm(int bucket) {
+  return bucket <= 16 ? 4 : 2;
+}
+
+int narrow_bucket(int64_t d) {
+  return d <= 2 ? 2 : d <= 4 ? 4 : d <= 8 ? 8 : d <= 16 ? 16 : 32;
+}
+
+template <int Bytes>
+struct VecOf;
+template <>
+struct VecOf<4> {
+  using type = unsigned int;
+};
+template <>
+struct VecOf<8> {
+  using type = uint2;
+};
+template <>
+struct VecOf<16> {
+  using type = uint4;
+};
+
+// The DB elements of one row, widened to f32: as 4-, 8- or 16-byte
+// vectors when the row is exactly DB wide and X is aligned to them
+// (`vec`), else element by element, zero past column d.
+template <typename T, int DB>
+__device__ __forceinline__ void load_row(const T* __restrict__ row,
+                                         int64_t d, bool vec,
+                                         float (&x)[DB]) {
+  if (vec) {
+    constexpr int kBytes = DB * int(sizeof(T));
+    constexpr int kVec = kBytes < 16 ? kBytes : 16;
+    constexpr int kPer = kVec / int(sizeof(T));
+    using V = typename VecOf<kVec>::type;
+    const V* src = reinterpret_cast<const V*>(row);
+#pragma unroll
+    for (int i = 0; i < DB / kPer; ++i) {
+      const V v = src[i];
+      const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) x[i * kPer + j] = to_f32(e[j]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < DB; ++c) x[c] = c < d ? to_f32(row[c]) : 0.f;
+  }
+}
+
+template <typename T, int L, int DB>
+__global__ void __launch_bounds__(kNarrowThreads, narrow_blocks_per_sm(DB))
+    margin_narrow(const T* __restrict__ X, const float* __restrict__ y,
+                  const float* __restrict__ mask,
+                  const float* __restrict__ w, int64_t n, int64_t d,
+                  float* __restrict__ partial_loss,
+                  float* __restrict__ partial_grad) {
+  // rows whose loads are in flight together: more where rows are short
+  constexpr int U = DB <= 4 ? 4 : (DB <= 8 ? 2 : 1);
+  constexpr int kVecBytes = DB * int(sizeof(T)) < 16 ? DB * int(sizeof(T))
+                                                     : 16;
+  __shared__ float red_s[kNarrowWarps][DB + 1];
+  float wr[DB], g[DB];
+#pragma unroll
+  for (int c = 0; c < DB; ++c) {
+    wr[c] = c < d ? w[c] : 0.f;
+    g[c] = 0.f;
+  }
+  const bool vec =
+      d == DB && reinterpret_cast<uintptr_t>(X) % kVecBytes == 0;
+  Kahan loss_acc;
+  const int64_t stride = int64_t(gridDim.x) * kNarrowThreads;
+  for (int64_t r0 = int64_t(blockIdx.x) * kNarrowThreads + threadIdx.x;
+       r0 < n; r0 += U * stride) {
+    float x[U][DB], yv[U], mv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t r = r0 + u * stride;
+      if (r < n) {
+        load_row<T, DB>(X + r * d, d, vec, x[u]);
+        yv[u] = y[r];
+        mv[u] = mask[r];
+      } else {  // past the last row: contributes exactly 0
+#pragma unroll
+        for (int c = 0; c < DB; ++c) x[u][c] = 0.f;
+        yv[u] = 0.f;
+        mv[u] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float dot = 0.f;
+#pragma unroll
+      for (int c = 0; c < DB; ++c) dot = fmaf(x[u][c], wr[c], dot);
+      float per, mult;
+      loss_middle<L>(dot, yv[u], &per, &mult);
+      loss_acc.add(per * mv[u]);
+      const float mm = mult * mv[u];
+#pragma unroll
+      for (int c = 0; c < DB; ++c) g[c] = fmaf(mm, x[u][c], g[c]);
+    }
+  }
+
+  // once per block: a shuffle tree in each warp, then the warps in order
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float ls = loss_acc.s;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    ls += __shfl_xor_sync(0xffffffffu, ls, off);
+#pragma unroll
+    for (int c = 0; c < DB; ++c)
+      g[c] += __shfl_xor_sync(0xffffffffu, g[c], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < DB; ++c) red_s[warp][c] = g[c];
+    red_s[warp][DB] = ls;
+  }
+  __syncthreads();
+  const int c = threadIdx.x;
+  if (c <= DB) {
+    Kahan k;
+    for (int i = 0; i < kNarrowWarps; ++i) k.add(red_s[i][c]);
+    if (c == DB)
+      partial_loss[blockIdx.x] = k.s;
+    else if (c < d)
+      partial_grad[int64_t(blockIdx.x) * d + c] = k.s;
+  }
+}
+
+// Two-pass mode, pass 1: one warp per row (rows strided over the grid's
+// warps) forms the dot from device memory, four loads in flight a lane;
+// lane 0 applies the loss middle, writes m * mult for the row and adds
+// m * per to the warp's loss.  One loss partial per block.
+template <typename T, int L>
+__global__ void __launch_bounds__(kThreads)
+    margin_wide_dots(const T* __restrict__ X, const float* __restrict__ y,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ w, int64_t n, int64_t d,
+                     float* __restrict__ mult_out,
+                     float* __restrict__ partial_loss) {
+  __shared__ float warp_loss_s[kWarps];
+  constexpr int kVec = 16 / int(sizeof(T));
+  // every row starts 16-byte aligned
+  const bool vec = d % kVec == 0 &&
+                   reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  Kahan loss_acc;
+  const int64_t warps_total = int64_t(gridDim.x) * kWarps;
+  for (int64_t r = int64_t(blockIdx.x) * kWarps + warp; r < n;
+       r += warps_total) {
+    const T* row = X + r * d;
+    float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
+    if (vec) {
+      // 16-byte loads: kVec elements a lane, two vectors in flight
+      const uint4* rv = reinterpret_cast<const uint4*>(row);
+      const int64_t nv = d / kVec;
+      int64_t v = lane;
+      for (; v + 32 < nv; v += 64) {
+        const uint4 a = rv[v], b = rv[v + 32];
+        const T* ea = reinterpret_cast<const T*>(&a);
+        const T* eb = reinterpret_cast<const T*>(&b);
+        const float* wa = w + v * kVec;
+        const float* wb = w + (v + 32) * kVec;
+#pragma unroll
+        for (int j = 0; j < kVec; j += 2) {
+          acc0 = fmaf(to_f32(ea[j]), wa[j], acc0);
+          acc1 = fmaf(to_f32(ea[j + 1]), wa[j + 1], acc1);
+          acc2 = fmaf(to_f32(eb[j]), wb[j], acc2);
+          acc3 = fmaf(to_f32(eb[j + 1]), wb[j + 1], acc3);
+        }
+      }
+      for (; v < nv; v += 32) {
+        const uint4 a = rv[v];
+        const T* ea = reinterpret_cast<const T*>(&a);
+        const float* wa = w + v * kVec;
+#pragma unroll
+        for (int j = 0; j < kVec; j += 2) {
+          acc0 = fmaf(to_f32(ea[j]), wa[j], acc0);
+          acc1 = fmaf(to_f32(ea[j + 1]), wa[j + 1], acc1);
+        }
+      }
+    } else {
+      int64_t c = lane;
+      for (; c + 96 < d; c += 128) {
+        acc0 = fmaf(to_f32(row[c]), w[c], acc0);
+        acc1 = fmaf(to_f32(row[c + 32]), w[c + 32], acc1);
+        acc2 = fmaf(to_f32(row[c + 64]), w[c + 64], acc2);
+        acc3 = fmaf(to_f32(row[c + 96]), w[c + 96], acc3);
+      }
+      for (; c < d; c += 32) acc0 = fmaf(to_f32(row[c]), w[c], acc0);
+    }
+    float acc = (acc0 + acc1) + (acc2 + acc3);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      float per, mult;
+      loss_middle<L>(acc, y[r], &per, &mult);
+      const float m = mask[r];
+      mult_out[r] = mult * m;
+      loss_acc.add(per * m);
+    }
+  }
+  if (lane == 0) warp_loss_s[warp] = loss_acc.s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    Kahan k;
+    for (int i = 0; i < kWarps; ++i) k.add(warp_loss_s[i]);
+    partial_loss[blockIdx.x] = k.s;
+  }
+}
+
+// Two-pass mode, pass 2: block (x, y) owns columns [256 x, 256 x + 256),
+// one a thread, over row group y (gridDim.y groups of contiguous rows).
+// A warp reads 32 neighbouring columns of a row; the multipliers come in
+// chunks through shared memory.  Writes partial_grad[y, c].
+constexpr int kWideMultChunk = 2048;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    margin_wide_grad(const T* __restrict__ X, const float* __restrict__ mult,
+                     int64_t n, int64_t d,
+                     float* __restrict__ partial_grad) {
+  __shared__ float mult_s[kWideMultChunk];
+  const int64_t c = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t groups = gridDim.y;
+  const int64_t rows_per_group = (n + groups - 1) / groups;
+  const int64_t r_begin = min64(n, int64_t(blockIdx.y) * rows_per_group);
+  const int64_t r_end = min64(n, r_begin + rows_per_group);
+  float s[8] = {};
+  for (int64_t r0 = r_begin; r0 < r_end; r0 += kWideMultChunk) {
+    const int rows = int(min64(kWideMultChunk, r_end - r0));
+    __syncthreads();  // the previous chunk's multipliers are consumed
+    for (int i = threadIdx.x; i < rows; i += kThreads)
+      mult_s[i] = mult[r0 + i];
+    __syncthreads();
+    if (c < d) {
+      const T* col = X + r0 * d + c;
+      int i = 0;
+      for (; i + 7 < rows; i += 8) {
+        float x[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) x[k] = to_f32(col[int64_t(i + k) * d]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s[k] = fmaf(mult_s[i + k], x[k], s[k]);
+      }
+      for (; i < rows; ++i)
+        s[0] = fmaf(mult_s[i], to_f32(col[int64_t(i) * d]), s[0]);
+    }
+  }
+  if (c < d)
+    partial_grad[int64_t(blockIdx.y) * d + c] =
+        ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7]));
+}
+
+// Blocks of pass 1, and of pass 2 (column chunks x row groups): as many
+// as are resident at once, so no block waits for a second wave; each
+// pass-2 group at least kWideMultChunk rows where there are that many.
+constexpr int kWideBlocksPerSM = 8;
+constexpr int kWideGradBlocksPerSM = 8;
+
+// Stage 2 of the narrow mode: a warp per gradient column (and one for
+// the loss, warp d), each lane summing every 32nd partial, then a
+// shuffle tree; a fixed order, as reduce_partials keeps, but 32 lanes
+// wide where its one thread a column would walk every block's partial in
+// turn.
+__global__ void reduce_partials_warp(const float* __restrict__ partial_loss,
+                                     const float* __restrict__ partial_grad,
+                                     int nblocks, int64_t d,
+                                     float* __restrict__ loss,
+                                     float* __restrict__ grad) {
+  const int64_t c = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (c > d) return;  // whole warps leave together
+  Kahan k;
+  for (int b = lane; b < nblocks; b += 32)
+    k.add(c < d ? partial_grad[int64_t(b) * d + c] : partial_loss[b]);
+  float v = k.s;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (lane == 0) (c < d ? grad[c] : loss[0]) = v;
+}
+
 // Stage 2: fixed-order sums of the per-block partials, one thread per
 // gradient column; thread 0 also sums the loss.
 __global__ void reduce_partials(const float* __restrict__ partial_loss,
+                                int nloss,
                                 const float* __restrict__ partial_grad,
-                                int nblocks, int64_t d,
+                                int ngrad, int64_t d,
                                 float* __restrict__ loss,
                                 float* __restrict__ grad) {
   const int64_t c = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (c < d) {
     Kahan k;
-    for (int b = 0; b < nblocks; ++b) k.add(partial_grad[int64_t(b) * d + c]);
+    for (int b = 0; b < ngrad; ++b) k.add(partial_grad[int64_t(b) * d + c]);
     grad[c] = k.s;
   }
   if (c == 0) {
     Kahan k;
-    for (int b = 0; b < nblocks; ++b) k.add(partial_loss[b]);
+    for (int b = 0; b < nloss; ++b) k.add(partial_loss[b]);
     loss[0] = k.s;
   }
 }
@@ -211,24 +528,71 @@ cudaError_t launch_partials(const void* X, const float* y, const float* mask,
   return cudaGetLastError();
 }
 
+enum Mode { kTile = 0, kNarrow = 1, kTwoPass = 2 };
+
+// A launch plan, as margin_plan fills it: the mode; the tile rows (tile
+// mode), the register bucket (narrow mode) or 0 (two-pass); the blocks
+// of the (first) launch, one loss partial each; the gradient partials
+// (the grid, or pass 2's row groups).
+struct Plan {
+  int mode, rows, grid, partials;
+};
+
+template <typename T, int L>
+cudaError_t launch_mode(const Plan& p, const void* X, const float* y,
+                        const float* mask, const float* w, int64_t n,
+                        int64_t d, float* partial_loss, float* partial_grad,
+                        float* mult, cudaStream_t stream) {
+  if (p.mode == kTile)
+    return launch_partials<T, L>(X, y, mask, w, n, d, p.rows, p.grid,
+                                 partial_loss, partial_grad, stream);
+  const T* Xt = static_cast<const T*>(X);
+  if (p.mode == kNarrow) {
+#define MARGIN_NARROW(DB)                                                \
+  case DB:                                                               \
+    margin_narrow<T, L, DB><<<p.grid, kNarrowThreads, 0, stream>>>(      \
+        Xt, y, mask, w, n, d, partial_loss, partial_grad);               \
+    break;
+    switch (p.rows) {
+      MARGIN_NARROW(2)
+      MARGIN_NARROW(4)
+      MARGIN_NARROW(8)
+      MARGIN_NARROW(16)
+      MARGIN_NARROW(32)
+      default:
+        return cudaErrorInvalidValue;
+    }
+#undef MARGIN_NARROW
+    return cudaGetLastError();
+  }
+  margin_wide_dots<T, L><<<p.grid, kThreads, 0, stream>>>(
+      Xt, y, mask, w, n, d, mult, partial_loss);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid2(unsigned((d + kThreads - 1) / kThreads),
+                   unsigned(p.partials));
+  margin_wide_grad<T><<<grid2, kThreads, 0, stream>>>(Xt, mult, n, d,
+                                                     partial_grad);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch_for_loss(int loss_kind, const void* X, const float* y,
-                            const float* mask, const float* w, int64_t n,
-                            int64_t d, int tile_rows, int grid,
+cudaError_t launch_for_loss(int loss_kind, const Plan& p, const void* X,
+                            const float* y, const float* mask,
+                            const float* w, int64_t n, int64_t d,
                             float* partial_loss, float* partial_grad,
-                            cudaStream_t stream) {
+                            float* mult, cudaStream_t stream) {
   switch (loss_kind) {
     case kLogistic:
-      return launch_partials<T, kLogistic>(X, y, mask, w, n, d, tile_rows,
-                                           grid, partial_loss, partial_grad,
-                                           stream);
+      return launch_mode<T, kLogistic>(p, X, y, mask, w, n, d, partial_loss,
+                                       partial_grad, mult, stream);
     case kLeastSquares:
-      return launch_partials<T, kLeastSquares>(X, y, mask, w, n, d,
-                                               tile_rows, grid, partial_loss,
-                                               partial_grad, stream);
+      return launch_mode<T, kLeastSquares>(p, X, y, mask, w, n, d,
+                                           partial_loss, partial_grad, mult,
+                                           stream);
     case kHinge:
-      return launch_partials<T, kHinge>(X, y, mask, w, n, d, tile_rows, grid,
-                                        partial_loss, partial_grad, stream);
+      return launch_mode<T, kHinge>(p, X, y, mask, w, n, d, partial_loss,
+                                    partial_grad, mult, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -238,26 +602,67 @@ cudaError_t launch_for_loss(int loss_kind, const void* X, const float* y,
 
 extern "C" {
 
-// Launch shape for X (n, d) with `itemsize`-byte elements on a card of
-// `sms` SMs: the tile rows and the grid (a few blocks an SM, as many as
-// fit, at most one per tile).  Returns cudaErrorInvalidValue, and sets
-// nothing, when not even one row of X fits in shared memory.
-int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* tile_rows,
-                int* grid) {
+// Launch plan for X (n, d) with `itemsize`-byte elements on a card of
+// `sms` SMs, written to plan[0..3] = {mode, rows, grid, partials} (see
+// Plan): narrow mode up to kNarrowMaxWidth columns; tile mode while a row
+// fits the tile (a few blocks an SM, as many as fit, at most one per
+// tile); two-pass mode past that.  Returns cudaErrorInvalidValue, and
+// sets nothing, for arguments no mode takes.
+int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* plan) {
   if (n < 0 || d < 1 || sms < 1 || (itemsize != 4 && itemsize != 2))
     return int(cudaErrorInvalidValue);
-  const int rows = choose_tile_rows(d, itemsize);
-  if (rows < 1) return int(cudaErrorInvalidValue);
-  int64_t per_sm = kSmemSM / (smem_bytes(d, rows, itemsize) + kSmemReserved);
-  per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
-  int64_t blocks = (n + rows - 1) / rows;
-  if (blocks > sms * per_sm) blocks = sms * per_sm;
-  *tile_rows = rows;
-  *grid = int(blocks < 1 ? 1 : blocks);
+  Plan p;
+  if (d <= kNarrowMaxWidth) {
+    p.rows = narrow_bucket(d);
+    int64_t blocks = (n + kNarrowThreads - 1) / kNarrowThreads;
+    if (blocks > int64_t(sms) * narrow_blocks_per_sm(p.rows))
+      blocks = int64_t(sms) * narrow_blocks_per_sm(p.rows);
+    p.mode = kNarrow;
+    p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
+  } else if (const int rows = choose_tile_rows(d, itemsize); rows >= 1) {
+    int64_t per_sm = kSmemSM / (smem_bytes(d, rows, itemsize) + kSmemReserved);
+    per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
+    int64_t blocks = (n + rows - 1) / rows;
+    if (blocks > sms * per_sm) blocks = sms * per_sm;
+    p.mode = kTile;
+    p.rows = rows;
+    p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
+  } else {
+    int64_t blocks = (n + kWarps - 1) / kWarps;
+    if (blocks > int64_t(sms) * kWideBlocksPerSM)
+      blocks = int64_t(sms) * kWideBlocksPerSM;
+    const int64_t chunks = (d + kThreads - 1) / kThreads;
+    int64_t groups = int64_t(sms) * kWideGradBlocksPerSM / chunks;
+    const int64_t most = (n + kWideMultChunk - 1) / kWideMultChunk;
+    if (groups > most) groups = most;
+    p.mode = kTwoPass;
+    p.rows = 0;
+    p.grid = int(blocks < 1 ? 1 : blocks);
+    p.partials = int(groups < 1 ? 1 : groups);
+  }
+  plan[0] = p.mode;
+  plan[1] = p.rows;
+  plan[2] = p.grid;
+  plan[3] = p.partials;
   return 0;
 }
 
-// The widest X (in columns) whose rows fit the kernel's tile.
+// The name of a mode of margin_plan, or NULL past the last.
+const char* margin_mode_name(int mode) {
+  switch (mode) {
+    case kTile:
+      return "tile";
+    case kNarrow:
+      return "narrow";
+    case kTwoPass:
+      return "two_pass";
+    default:
+      return nullptr;
+  }
+}
+
+// The widest X (in columns) whose rows fit the tile: the widest read
+// once.  Wider X takes the two-pass mode.
 int64_t margin_max_width(int itemsize) {
   int64_t lo = 0, hi = kSmemBlock;  // lo fits (vacuously), hi does not
   while (hi - lo > 1) {
@@ -267,37 +672,52 @@ int64_t margin_max_width(int itemsize) {
   return lo;
 }
 
-// Launch both stages on `stream`.  `partial_loss` holds `grid` floats and
-// `partial_grad` grid * d floats of scratch.  Returns the CUDA error code
-// of the launches (0 on success); synchronises nothing.
+// Launch the plan's kernels and the final sum on `stream`.
+// `partial_loss` holds plan[2] floats, `partial_grad` plan[3] * d floats
+// and `mult` n floats (two-pass mode only; it may be NULL otherwise) of
+// scratch.  Returns the CUDA error code of the launches (0 on success);
+// synchronises nothing.
 int margin_loss_grad(const void* X, int x_type, const void* y,
                      const void* mask, const void* w, int64_t n, int64_t d,
-                     int loss_kind, int tile_rows, int grid,
-                     void* partial_loss, void* partial_grad, void* loss,
-                     void* grad, void* stream) {
-  if (n < 0 || d < 1 || tile_rows < 1 || grid < 1)
-    return int(cudaErrorInvalidValue);
+                     int loss_kind, const int* plan, void* partial_loss,
+                     void* partial_grad, void* mult, void* loss, void* grad,
+                     void* stream) {
+  const Plan p{plan[0], plan[1], plan[2], plan[3]};
+  const bool ok =
+      n >= 0 && d >= 1 && p.grid >= 1 && p.partials >= 1 &&
+      ((p.mode == kTile && p.rows >= 1 && p.partials == p.grid) ||
+       (p.mode == kNarrow && d <= p.rows && p.partials == p.grid) ||
+       (p.mode == kTwoPass && (mult != nullptr || n == 0)));
+  if (!ok) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* yf = static_cast<const float*>(y);
   const float* mf = static_cast<const float*>(mask);
   const float* wf = static_cast<const float*>(w);
   float* pl = static_cast<float*>(partial_loss);
   float* pg = static_cast<float*>(partial_grad);
+  float* mu = static_cast<float*>(mult);
   cudaError_t err;
   if (x_type == kF32)
-    err = launch_for_loss<float>(loss_kind, X, yf, mf, wf, n, d, tile_rows,
-                                 grid, pl, pg, s);
+    err = launch_for_loss<float>(loss_kind, p, X, yf, mf, wf, n, d, pl, pg,
+                                 mu, s);
   else if (x_type == kBF16)
-    err = launch_for_loss<__nv_bfloat16>(loss_kind, X, yf, mf, wf, n, d,
-                                         tile_rows, grid, pl, pg, s);
+    err = launch_for_loss<__nv_bfloat16>(loss_kind, p, X, yf, mf, wf, n, d,
+                                         pl, pg, mu, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return int(err);
   const int threads = 256;
-  const int blocks = int((d + threads - 1) / threads);
-  reduce_partials<<<blocks, threads, 0, s>>>(pl, pg, grid, d,
-                                             static_cast<float*>(loss),
-                                             static_cast<float*>(grad));
+  if (p.mode == kNarrow) {
+    const int blocks = int(((d + 1) * 32 + threads - 1) / threads);
+    reduce_partials_warp<<<blocks, threads, 0, s>>>(
+        pl, pg, p.grid, d, static_cast<float*>(loss),
+        static_cast<float*>(grad));
+  } else {
+    const int blocks = int((d + threads - 1) / threads);
+    reduce_partials<<<blocks, threads, 0, s>>>(pl, p.grid, pg, p.partials, d,
+                                               static_cast<float*>(loss),
+                                               static_cast<float*>(grad));
+  }
   return int(cudaGetLastError());
 }
 

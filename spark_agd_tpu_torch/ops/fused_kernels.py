@@ -3,17 +3,21 @@
 Counterpart of ``spark_agd_tpu/ops/pallas_kernels.py``.  The smooth
 evaluation is bound by device-memory bandwidth, and two library products
 (``X @ w`` then ``X.T @ mult``) read the (N, D) data matrix twice.  The
-CUDA kernels keep each row tile in shared memory between the two
-products and reduce per-block partials in a fixed order, so X is read
-once and the result is deterministic:
+CUDA kernels keep each row tile in shared memory (or, for narrow X, each
+row in registers) between the two products and reduce per-block
+partials in a fixed order, so X is read once and the result is
+deterministic:
 
 - ``csrc/margin_loss_grad.cu``: logistic, least-squares and hinge losses
   (the margin half).  :func:`fused_margin_loss_grad` is its wrapper,
   :func:`fused_margin_loss_grad_reference` its plain version, and
   :class:`FusedMarginGradient` wraps a margin
   :class:`~spark_agd_tpu_torch.ops.losses.MarginGradient` (counterpart of
-  ``PallasMarginGradient``).  It takes X up to :func:`max_width` columns
-  (its shared-memory tile); a wider CUDA X raises ``ValueError``.
+  ``PallasMarginGradient``).  It takes X of every width:
+  :func:`launch_shape` picks a register mode for narrow X, the
+  shared-memory tile up to :func:`max_width` columns, and past that a
+  two-pass mode that reads X twice (as the Pallas wrapper's fallback
+  past its VMEM budget does).
 - ``csrc/softmax_loss_grad.cu``: the multinomial softmax with a (D, K)
   weight matrix.  :func:`fused_softmax_loss_grad` is its wrapper,
   :func:`fused_softmax_loss_grad_reference` its plain version, and
@@ -33,20 +37,23 @@ is routed by ``prepare`` to the wrapped loss, whose products go through
 ``ops.sparse`` (as ``PallasMarginGradient``/``PallasSoftmaxGradient``
 route CSR to the jnp losses); no kernel is launched for it.
 
-The launch shapes (tile rows, grid) and the limits come from the CUDA
-sources (``margin_plan``/``margin_max_width``,
+The launch shapes and the limits come from the CUDA sources
+(``margin_plan``/``margin_max_width``,
 ``softmax_plan``/``softmax_max_classes``), which alone know the kernels'
 shared-memory layouts.
 
 ``launch_count`` and ``softmax_launch_count`` count kernel launches, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels;
+``margin_mode_launches`` splits the margin count by mode.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -63,13 +70,22 @@ from .losses import (
 )
 from .sparse import CSRMatrix
 
-# Kernel launches since import (or since a caller reset them to 0).
-launch_count = 0
-softmax_launch_count = 0
-
 _LOSS_CODES = {LogisticGradient: 0, LeastSquaresGradient: 1,
                HingeGradient: 2}
 _X_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches since import (or since a caller reset them to 0); the
+# margin kernel's also by mode name (a mode not launched reads 0).
+launch_count = 0
+softmax_launch_count = 0
+margin_mode_launches = collections.Counter()
+
+
+def reset_launch_counts():
+    """Set every launch count to 0."""
+    global launch_count, softmax_launch_count
+    launch_count = softmax_launch_count = 0
+    margin_mode_launches.clear()
 
 
 @dataclass(frozen=True)
@@ -120,8 +136,8 @@ def _stage(X, y, mask, kernel: str, check) -> StagedDense:
 
 
 def stage_dense(X, y, mask=None) -> StagedDense:
-    """Stage (X, y, mask) for the margin kernel; a CUDA X wider than the
-    kernel takes raises ``ValueError``."""
+    """Stage (X, y, mask) for the margin kernel, which takes every
+    width; a CUDA X with no columns raises ``ValueError``."""
     return _stage(X, y, mask, "margin", check_width)
 
 
@@ -148,23 +164,26 @@ def _device_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# Both kernels' launch functions: (X, x_type, y, mask, W, n, d, loss code
-# or classes, tile_rows, grid, partial_loss, partial_grad, loss, grad,
-# stream) -> CUDA error code.
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+# The kernels' launch functions: (X, x_type, y, mask, W, n, d, the loss
+# code or the class count, the plan, partial_loss, partial_grad[, the
+# margin kernel's (N,) multipliers], loss, grad, stream) -> CUDA error
+# code.  The softmax kernel's plan is (tile_rows, grid); the margin
+# kernel's, the int[4] that margin_plan fills.
+_HEAD = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+_ARGTYPES = _HEAD + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+_MARGIN_ARGTYPES = _HEAD + [ctypes.POINTER(ctypes.c_int)] \
+    + [ctypes.c_void_p] * 6
 
 
-def _load(name: str, prefix: str, source=None):
+def _load(name: str, prefix: str, argtypes, source=None):
     """Build (at first use) and load ``csrc/<name>.cu`` (or ``source``, a
     path to another version of it), with its launch function ``<name>``
-    and ``<prefix>_error_string`` typed; returns ``(ctypes library,
-    BuiltLibrary)``."""
+    typed by ``argtypes`` and ``<prefix>_error_string`` typed; returns
+    ``(ctypes library, BuiltLibrary)``."""
     built = _cuda_build.build(name, [source or f"{name}.cu"])
     lib = ctypes.CDLL(str(built.path))
-    getattr(lib, name).argtypes = _ARGTYPES
+    getattr(lib, name).argtypes = argtypes
     getattr(lib, name).restype = ctypes.c_int
     getattr(lib, f"{prefix}_error_string").argtypes = [ctypes.c_int]
     getattr(lib, f"{prefix}_error_string").restype = ctypes.c_char_p
@@ -172,25 +191,31 @@ def _load(name: str, prefix: str, source=None):
 
 
 def _launch(lib, name: str, prefix: str, code: int, W,
-            staged: StagedDense, plan):
+            staged: StagedDense, plan, partials, mult_rows=None):
     """Launch ``lib``'s ``name`` on the current stream with ``code`` (the
-    loss code or the class count) and ``plan`` = (tile_rows, grid).  The
-    scratch and the outputs, ``loss`` () and ``grad`` shaped like W, are
-    allocated here; raises if the launch fails."""
+    loss code or the class count) and ``plan`` (the plan arguments, see
+    ``_ARGTYPES``).  The scratch (``partials`` = (the count of loss
+    partials, the count of gradient partials, each of W's size), and
+    with ``mult_rows`` the margin kernel's (mult_rows,) multipliers,
+    NULL at 0) and the outputs, ``loss`` () and ``grad`` shaped like W,
+    are allocated here; raises if the launch fails."""
     X = staged.X
     n, d = X.shape
-    rows, grid = plan
     kw = dict(dtype=torch.float32, device=X.device)
-    partial_loss = torch.empty(grid, **kw)
-    partial_grad = torch.empty(grid * W.numel(), **kw)
+    partial_loss = torch.empty(partials[0], **kw)
+    partial_grad = torch.empty(partials[1] * W.numel(), **kw)
+    scratch = []
+    if mult_rows is not None:
+        mult = torch.empty(mult_rows, **kw)
+        scratch = [mult.data_ptr() if mult_rows else None]
     loss = torch.empty((), **kw)
     grad = torch.empty(W.shape, **kw)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = getattr(lib, name)(
             X.data_ptr(), _X_TYPES[X.dtype], staged.y.data_ptr(),
-            staged.m.data_ptr(), W.data_ptr(), n, d, code, rows, grid,
-            partial_loss.data_ptr(), partial_grad.data_ptr(),
+            staged.m.data_ptr(), W.data_ptr(), n, d, code, *plan,
+            partial_loss.data_ptr(), partial_grad.data_ptr(), *scratch,
             loss.data_ptr(), grad.data_ptr(), stream)
     if err != 0:
         message = getattr(lib, f"{prefix}_error_string")(err).decode()
@@ -200,14 +225,18 @@ def _launch(lib, name: str, prefix: str, code: int, W,
 
 
 @functools.cache
-def library():
-    """Build (at first use) and load ``csrc/margin_loss_grad.cu``;
-    returns ``(ctypes library, BuiltLibrary)``."""
-    lib, built = _load("margin_loss_grad", "margin")
+def library(source=None):
+    """Build (at first use) and load ``csrc/margin_loss_grad.cu``, or
+    ``source``: a path to another version of it with the same C
+    interface, for side-by-side timings; returns ``(ctypes library,
+    BuiltLibrary)``."""
+    lib, built = _load("margin_loss_grad", "margin", _MARGIN_ARGTYPES,
+                       source)
     lib.margin_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                                ctypes.POINTER(ctypes.c_int)]
+                                ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.margin_plan.restype = ctypes.c_int
+    lib.margin_mode_name.argtypes = [ctypes.c_int]
+    lib.margin_mode_name.restype = ctypes.c_char_p
     lib.margin_max_width.argtypes = [ctypes.c_int]
     lib.margin_max_width.restype = ctypes.c_int64
     return lib, built
@@ -220,37 +249,67 @@ def _itemsize(dtype) -> int:
 
 
 def max_width(dtype) -> int:
-    """The widest X, in columns, that the kernel takes for ``dtype``
-    (counterpart of ``PallasMarginGradient._supported_width``)."""
+    """The widest X, in columns, that the kernel reads once for
+    ``dtype``: one row fits its shared-memory tile (counterpart of
+    ``PallasMarginGradient._supported_width``).  Wider X takes the
+    two-pass mode."""
     lib, _ = library()
     return int(lib.margin_max_width(_itemsize(dtype)))
 
 
 def check_width(d: int, dtype):
-    """Raise ``ValueError`` when the kernel cannot take X of width ``d``
-    (not even one row fits its shared-memory tile)."""
-    limit = max_width(dtype)
-    if not 1 <= d <= limit:
-        kind = "bf16" if _itemsize(dtype) == 2 else "f32"
-        raise ValueError(
-            f"fused_margin_loss_grad: feature width {d} is outside the "
-            f"CUDA kernel's shared-memory tile (1 to {limit} columns of "
-            f"{kind} X); fit this X with the plain gradient (for example "
-            f"LogisticGradient) instead")
+    """Raise ``ValueError`` when the kernel cannot take X of width ``d``:
+    only for no columns, since its modes cover every width."""
+    if d < 1:
+        raise ValueError(f"fused_margin_loss_grad: X has {d} columns; the "
+                         f"kernel takes 1 or more")
 
 
-def launch_shape(X) -> tuple[int, int]:
-    """``(tile_rows, grid)`` of the kernel for the CUDA tensor ``X``
-    (N, D); raises ``ValueError`` when the kernel cannot take it."""
-    lib, _ = library()
-    rows, grid = ctypes.c_int(), ctypes.c_int()
+class MarginPlan(NamedTuple):
+    """A launch plan of the margin kernel (``margin_plan``): ``mode``
+    ("narrow", "tile" or "two_pass"); ``tile_rows``, the rows of a tile
+    (tile mode), the register bucket (narrow mode) or 0; ``grid``, the
+    blocks of the (first) launch; ``partials``, the gradient partials
+    summed at the end (the grid, or the row groups of the two-pass
+    mode's second pass); ``raw``, the four ints as ``margin_plan``
+    filled them (its mode code first), passed back at launch."""
+
+    mode: str
+    tile_rows: int
+    grid: int
+    partials: int
+    raw: tuple
+
+
+def plan_for(lib, n: int, d: int, itemsize: int, sms: int) -> MarginPlan:
+    """``lib``'s plan for X (n, d) of ``itemsize``-byte elements on a
+    card of ``sms`` SMs; raises ``ValueError`` where it has none."""
+    plan = (ctypes.c_int * 4)()
+    if lib.margin_plan(n, d, itemsize, sms, plan) != 0:
+        raise ValueError(f"fused_margin_loss_grad: no launch plan for X "
+                         f"({n}, {d}) of {itemsize}-byte elements")
+    return MarginPlan(lib.margin_mode_name(plan[0]).decode(), *plan[1:],
+                      tuple(plan))
+
+
+def launch_shape(X) -> MarginPlan:
+    """The kernel's :class:`MarginPlan` for the CUDA tensor ``X`` (N, D);
+    raises ``ValueError`` when the kernel cannot take it."""
     n, d = X.shape
-    if lib.margin_plan(n, d, X.element_size(), _device_sms(X.device.index),
-                       ctypes.byref(rows), ctypes.byref(grid)) != 0:
-        check_width(d, X.dtype)  # raises with the limit
-        raise ValueError(f"fused_margin_loss_grad: no launch shape for X "
-                         f"{tuple(X.shape)} of {X.dtype}")
-    return rows.value, grid.value
+    check_width(d, X.dtype)
+    return plan_for(library()[0], n, d, X.element_size(),
+                    _device_sms(X.device.index))
+
+
+def margin_launch(lib, code: int, w, staged: StagedDense,
+                  plan: MarginPlan):
+    """Launch ``lib``'s ``margin_loss_grad`` with ``plan`` on the current
+    stream for the loss ``code``; returns ``(loss, grad)``.  Raises if
+    the launch fails."""
+    rows = staged.X.shape[0] if plan.mode == "two_pass" else 0
+    return _launch(lib, "margin_loss_grad", "margin", code, w, staged,
+                   [(ctypes.c_int * 4)(*plan.raw)],
+                   (plan.grid, plan.partials), rows)
 
 
 def _check(cond: bool, msg: str, name: str = "fused_margin_loss_grad"):
@@ -274,12 +333,12 @@ def _check_staged(staged: StagedDense, name: str):
 
 def fused_margin_loss_grad(gradient: MarginGradient, w, staged: StagedDense):
     """``(loss_sum, grad_sum)`` in f32 of a logistic, least-squares or
-    hinge loss, reading X once.  CPU operands take the plain version;
-    CUDA operands launch the kernel on the current stream or raise.
+    hinge loss, reading X once (twice past :func:`max_width` columns).
+    CPU operands take the plain version; CUDA operands launch the kernel
+    on the current stream or raise.
 
     Replaces ``spark_agd_tpu/ops/pallas_kernels.py:fused_margin_loss_grad``;
-    on the H100 it is bound by reading X once at device-memory
-    bandwidth."""
+    on the H100 it is bound by reading X at device-memory bandwidth."""
     global launch_count
     X = staged.X
     if X.device.type == "cpu":
@@ -295,9 +354,10 @@ def fused_margin_loss_grad(gradient: MarginGradient, w, staged: StagedDense):
     wf = w.detach().to(torch.float32).contiguous()
     _check(wf.device == X.device and tuple(wf.shape) == (d,),
            f"w must be a ({d},) tensor on {X.device}")
-    loss, grad = _launch(library()[0], "margin_loss_grad", "margin", code,
-                         wf, staged, launch_shape(X))
+    plan = launch_shape(X)
+    loss, grad = margin_launch(library()[0], code, wf, staged, plan)
     launch_count += 1
+    margin_mode_launches[plan.mode] += 1
     return loss, grad
 
 
@@ -307,9 +367,8 @@ class FusedMarginGradient(MarginGradient):
 
     ``prepare`` (called once by the smooth factory) stages the operands
     into a :class:`StagedDense`.  CPU data takes the kernel's plain
-    version; CUDA data launches the kernel, and raises where the kernel
-    cannot take it (X wider than :func:`max_width`).  A CSRMatrix takes
-    the wrapped loss's sparse products and launches nothing."""
+    version; CUDA data launches the kernel at every width.  A CSRMatrix
+    takes the wrapped loss's sparse products and launches nothing."""
 
     def __init__(self, inner: MarginGradient):
         if type(inner) not in _LOSS_CODES:
@@ -386,7 +445,7 @@ def softmax_library(source=None):
     ``source``: a path to another version of it with the same C
     interface, for side-by-side timings; returns ``(ctypes library,
     BuiltLibrary)``."""
-    lib, built = _load("softmax_loss_grad", "softmax", source)
+    lib, built = _load("softmax_loss_grad", "softmax", _ARGTYPES, source)
     lib.softmax_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int,
                                  ctypes.POINTER(ctypes.c_int),
@@ -457,9 +516,9 @@ def fused_softmax_loss_grad(num_classes: int, W, staged: StagedDense):
     wf = W.detach().to(torch.float32).contiguous()
     _check(wf.device == X.device and tuple(wf.shape) == (d, k),
            f"W must be a ({d}, {k}) tensor on {X.device}", name)
+    rows, grid = softmax_launch_shape(X, k)
     loss, grad = _launch(softmax_library()[0], "softmax_loss_grad",
-                         "softmax", k, wf, staged,
-                         softmax_launch_shape(X, k))
+                         "softmax", k, wf, staged, (rows, grid), (grid, grid))
     softmax_launch_count += 1
     return loss, grad
 

@@ -69,39 +69,79 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                                   torch.zeros(8, device=cuda), bad)
 
 
+# the narrow mode's register-bucket edges, a tile width, the widest X
+# read once ("max", resolved on the card), one column past it (the
+# two-pass mode) and a gene-expression-like width
+WIDTHS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 1000, "max", "max+1", 40_000]
+
+
+def _expected_mode(d, limit):
+    return "narrow" if d <= 32 else "tile" if d <= limit else "two_pass"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_width_rule_and_tile_budget(cuda, dtype):
-    """At the widest X the kernel takes, its one-row tile fits shared
-    memory (the launch succeeds and agrees); one column more raises when
-    staged and when handed to the wrapper, and launches nothing."""
-    d = fk.max_width(dtype)
-    assert d > 1000
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("width", WIDTHS, ids=str)
+def test_width_rule_and_tile_budget(cuda, width, dtype):
+    """Every width launches the kernel: the narrow mode up to 32 columns,
+    the one-pass tile up to ``max_width`` (its one-row tile fits shared
+    memory there), the two-pass mode past it.  Each call agrees with the
+    plain version, repeats give the same bits, and each launch counts
+    once, under the mode that ``launch_shape`` reports."""
+    limit = fk.max_width(dtype)
+    assert limit > 1000
+    d = {"max": limit, "max+1": limit + 1}.get(width, width)
+    n = 4_099 if d <= 1000 else 300
     gen = torch.Generator(device=cuda)
     gen.manual_seed(2)
-    X = torch.randn((64, d + 1), generator=gen, device=cuda).to(dtype)
-    y = (torch.rand(64, generator=gen, device=cuda) < 0.5).float()
+    X = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+    m = (torch.rand(n, generator=gen, device=cuda) < 0.7).float()
     w = torch.randn(d, generator=gen, device=cuda) / d ** 0.5
-    staged = fk.stage_dense(X[:, :d].contiguous(), y)
-    rows, grid = fk.launch_shape(staged.X)
-    assert 1 <= rows < 8 and grid >= 1
+    staged = fk.FusedLogisticGradient().prepare(X, y, m)[0]
+    plan = fk.launch_shape(staged.X)
+    assert plan.mode == _expected_mode(d, limit)
+    if plan.mode == "tile":
+        # whole warps per tile, except the few rows of the widest X
+        assert plan.tile_rows % 8 == 0 or (d > 1000 and plan.tile_rows < 8)
+    assert plan.grid >= 1 and plan.partials >= 1
     inner = losses.LogisticGradient()
+    before = fk.launch_count
+    before_mode = fk.margin_mode_launches[plan.mode]
     loss, grad = fk.fused_margin_loss_grad(inner, w, staged)
+    assert fk.launch_count == before + 1
+    assert fk.margin_mode_launches[plan.mode] == before_mode + 1
+    loss2, grad2 = fk.fused_margin_loss_grad(inner, w, staged)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
     ref_loss, ref_grad = fk.fused_margin_loss_grad_reference(inner, w,
                                                              staged)
     assert float(loss) == pytest.approx(float(ref_loss), rel=1e-5)
     torch.testing.assert_close(grad, ref_grad, rtol=1e-4,
                                atol=1e-4 * float(ref_grad.abs().max()))
-    # narrow X: whole warps per tile
-    assert fk.launch_shape(X[:, :1000].contiguous())[0] % 8 == 0
-    before = fk.launch_count
-    with pytest.raises(ValueError, match="shared-memory tile"):
-        fk.FusedLogisticGradient().prepare(X, y)
-    wide = fk.StagedDense(X, staged.y, staged.m, staged.n_valid)
-    with pytest.raises(ValueError, match="shared-memory tile"):
-        fk.fused_margin_loss_grad(inner, torch.zeros(d + 1, device=cuda),
-                                  wide)
-    assert fk.launch_count == before
+
+
+@pytest.mark.cuda
+def test_wide_fused_fit_on_the_card_matches_the_plain_fit(cuda):
+    """2,000 x 25,000 f32, past the one-pass tile: the two-pass mode
+    carries the fit, one launch per evaluation."""
+    rng = np.random.default_rng(12)
+    n, d = 2_000, 25_000
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    y = (rng.random(n) < 1 / (1 + np.exp(-X[:, 0] + X[:, 1]))) \
+        .astype(np.float32)
+    w0 = np.zeros(d, np.float32)
+    kw = dict(reg_param=0.1, num_iterations=8, convergence_tol=0.0,
+              initial_weights=w0)
+    before = fk.margin_mode_launches["two_pass"]
+    w, hist = port.run((X, y), port.FusedLogisticGradient(),
+                       port.SquaredL2Updater(), **kw)
+    assert w.device.type == "cuda"
+    assert fk.margin_mode_launches["two_pass"] > before
+    _, hist_plain = port.run((X, y), port.LogisticGradient(),
+                             port.SquaredL2Updater(), **kw)
+    np.testing.assert_allclose(hist, hist_plain, rtol=1e-4)
 
 
 @pytest.mark.cuda

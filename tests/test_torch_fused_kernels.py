@@ -5,8 +5,8 @@ it, through ``FusedMarginGradient.prepare`` + ``batch_loss_and_grad``, to
 the Pallas kernel in interpret mode and to ``MarginGradient`` at the
 tolerances of ``tests/test_pallas.py`` (loss rtol 1e-5, gradient
 rtol/atol 1e-4), and check the staging and what takes the plain
-version.  The CUDA kernel itself, its launch shape and its width limit
-run only on the card: ``test_torch_cuda.py``."""
+version.  The CUDA kernel itself, its launch plan and its modes run only
+on the card: ``test_torch_cuda.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -74,6 +74,42 @@ def test_matches_pallas_interpret_and_margin_gradient(name, masked):
         None if m is None else jnp.asarray(m))
     _assert_kernel_close(loss, grad, j_loss, j_grad)
     assert int(n) == int(j_n)
+
+
+def _pallas_gradient(name, X, w, y, mask):
+    """``PallasMarginGradient`` in interpret mode through ``prepare`` and
+    ``batch_loss_and_grad``; also returns whether it padded X for its
+    kernel (it does up to its VMEM budget)."""
+    from spark_agd_tpu.ops.pallas_kernels import (PallasMarginGradient,
+                                                  PaddedDense)
+
+    g = PallasMarginGradient(jlosses.GRADIENTS[name](), interpret=True)
+    args = g.prepare(jnp.asarray(X), jnp.asarray(y),
+                     None if mask is None else jnp.asarray(mask))
+    return (*g.batch_loss_and_grad(jnp.asarray(w), *args),
+            isinstance(args[0], PaddedDense))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("name", LOSSES)
+@pytest.mark.parametrize("width", [1, 2, 3, 20_000])
+def test_every_width_matches_pallas_margin_gradient(width, name, masked):
+    """The narrow widths (where a CUDA X takes the kernel's register
+    mode) and 20,000 columns (past the kernel's one-pass tile of 19,364
+    f32 columns, under the Pallas kernel's VMEM budget, where the JAX
+    package runs its kernel).  On these CPU tensors the port's
+    ``FusedMarginGradient`` takes the kernel's plain version, and that
+    is what is held to ``PallasMarginGradient`` on the same inputs; the
+    CUDA modes themselves are held to the plain version in
+    ``tests/test_torch_cuda.py``."""
+    X, w, y, mask = _data(n=37 if width <= 3 else 48, d=width, seed=width)
+    m = mask if masked else None
+    loss, grad, n = _port(name, X, w, y, m)
+    assert grad.shape == (width,)
+    p_loss, p_grad, p_n, p_kernel = _pallas_gradient(name, X, w, y, m)
+    assert p_kernel
+    _assert_kernel_close(loss, grad, p_loss, p_grad)
+    assert int(n) == int(p_n)
 
 
 @pytest.mark.parametrize("name", LOSSES)
@@ -152,9 +188,10 @@ def test_prepare_rejects_a_non_matrix_x():
 
 
 def test_overwide_falls_back_and_counts():
-    """A CPU X wider than the CUDA kernel's tile is staged like any other
-    and takes the plain version, with no launch counted; on the card the
-    same X raises (``test_torch_cuda.py``)."""
+    """A CPU X wider than the CUDA kernel's one-pass tile is staged like
+    any other and takes the plain version, with no launch counted; on the
+    card the same X runs the kernel's two-pass mode
+    (``test_torch_cuda.py``)."""
     rng = np.random.default_rng(5)
     d = 25_000  # past the kernel's width limit in f32 and in bf16
     X = rng.standard_normal((4, d)).astype(np.float32)
