@@ -127,12 +127,44 @@ Phases, each printing one JSON line:
     plain fit as phase 5 is; ms per evaluation beside the two-pass bound
     and the two ``torch.matmul`` products;
 20. the ``kernels`` line (with each kernel's launches by path, the margin
-    kernel's modes by path and its numbers by mode); then the card's
-    name and power limit, and last ``{"ok": true, "device": {...}}``.
+    kernel's modes by path and its numbers by mode, the lanes kernel's
+    modes by path); then the card's name and power limit, and last
+    ``{"ok": true, "device": {...}}``;
+21. lanes_kernel, right after phase 4: the K-lane margin kernel
+    (``csrc/margin_lanes_loss_grad.cu``) against its plain version, and
+    each lane against the solo kernel, at K in {1, 2, 3, 8, 16, 17, 20}
+    (every lane bucket, one past the largest, two chunks) and D in {1,
+    2, 33, 1000, 40,000} plus each bucket's widest one-read width and
+    one column past it (the two-pass mode), f32/bf16 x masked/unmasked,
+    all three losses at D = 1000, K = 8, each call repeated
+    bit-identical;
+22. sweep_path, on phase 5's data after phase 13: ``AcceleratedGradient
+    Descent(FusedLogisticGradient(), SquaredL2Updater()).sweep`` over
+    the 8 strengths 10^-1 ... 10^-8 (40 iterations, tol 0), every launch
+    the lanes kernel, one per evaluation round; each lane held to the
+    same sweep through the plain ``LogisticGradient`` and the 0.1 lane
+    to phase 5's solo fit (rtol 1e-4 over common iterations,
+    ``same_stop``); the kernel held to f64 sums at 8 random weight rows,
+    its distance from them at the sweep's weights beside the solo
+    kernel's and the plain version's, and its ms per round beside its
+    bound, the plain version, the two ``torch.matmul`` products on (D,
+    8) and 8 solo launches; the sweep's wall time beside 8 x phase 5's
+    solo ``run``;
+23. cv_path, on the same data: ``LogisticRegressionWithAGD(add_intercept=
+    False).cross_validate`` over 4 strengths and 5 folds (20 lanes,
+    the plain gradient, no kernel launch) with its refit; the fold ids
+    drawn on the card equal to the CPU draw bit for bit, ``val_loss``
+    equal to each lane's held-out mean loss, two lanes held to solo
+    ``run``s under their train masks;
+24. softmax_sweep, on phase 7's data after phase 14:
+    ``SoftmaxRegressionWithAGD(10, add_intercept=False).train_path`` on
+    the intercept-augmented X with ``FusedSoftmaxGradient`` in the seat
+    (3 strengths, 10 iterations; one softmax launch a lane a round),
+    each lane held to the plain sweep.
 
-Launch counts are set to 0 just before each path (phases 5, 7, 10-19)
-and read just after it; the sparse paths launch neither kernel, nor does
-the MLP.  Each phase from 13 on prints its fit wall times with the card's
+Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
+22-24) and read just after it; the sparse paths launch neither kernel,
+nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
 available.
@@ -396,17 +428,22 @@ def build_report(b):
 
 
 def phase_build(fk):
-    """Both libraries, one ``nvcc`` each, started together."""
+    """The three libraries, one ``nvcc`` each, started together."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        built = dict(zip(("margin_loss_grad", "softmax_loss_grad"),
-                         pool.map(lambda lib: lib()[1],
-                                  (fk.library, fk.softmax_library))))
+    libs = {"margin_loss_grad": fk.library,
+            "margin_lanes_loss_grad": fk.lanes_library,
+            "softmax_loss_grad": fk.softmax_library}
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        built = dict(zip(libs, pool.map(lambda lib: lib()[1],
+                                        libs.values())))
     out = {"phase": "build", "seconds": time.perf_counter() - t0}
     for name, b in built.items():
         out[name] = build_report(b)
     out["max_width"] = {"f32": fk.max_width(torch.float32),
                         "bf16": fk.max_width(torch.bfloat16)}
+    out["lanes_max_width_k8"] = {"f32": fk.lanes_max_width(8, torch.float32),
+                                 "bf16": fk.lanes_max_width(8,
+                                                            torch.bfloat16)}
     out["softmax_max_classes_d785"] = {
         "f32": fk.max_classes(785, torch.float32),
         "bf16": fk.max_classes(785, torch.bfloat16)}
@@ -595,9 +632,10 @@ def counting(cls):
 
 
 def margin_path(port, fk, losses, device_synth, after):
-    """Phases 5 and 6, then ``after(X, y)`` on the same data; returns the
-    margin kernel's numbers.  Its tensors (X, the staged operands, the
-    multipliers) are freed on return."""
+    """Phases 5 and 6, then ``after(X, y, solo)`` on the same data, with
+    ``solo`` the run's ``(AGDResult, loss history, wall seconds)``;
+    returns the margin kernel's numbers.  Its tensors (X, the staged
+    operands, the multipliers) are freed on return."""
     t0 = time.perf_counter()
     X, y = device_synth.class_logistic(N_MAIN, D_MAIN, seed=0)
     torch.cuda.synchronize()
@@ -716,7 +754,7 @@ def margin_path(port, fk, losses, device_synth, after):
           "main_shape_grad_max_abs_err": max_abs_err,
           "card_before": state_before, "card_after": state_after})
     del staged, mult
-    after(X, y)
+    after(X, y, (res, hist, run_s))
     del X, y
     return {"name": "margin_loss_grad", "route": "cuda",
             "source": "spark_agd_tpu_torch/csrc/margin_loss_grad.cu",
@@ -2033,21 +2071,31 @@ def margin_build(fk, source):
     return built, plan, launch
 
 
-def margin_f64(w, staged, chunk_bytes=1 << 31):
-    """The logistic loss and gradient in f64 over row chunks."""
+def margin_lanes_f64(W, staged, chunk_bytes=1 << 31):
+    """The logistic loss and gradient of each row of W in f64 over row
+    chunks: (K,) and (K, D)."""
     n, d = staged.X.shape
     rows = max(1, chunk_bytes // (8 * d))
-    loss = torch.zeros((), dtype=torch.float64, device=staged.X.device)
-    grad = torch.zeros(d, dtype=torch.float64, device=staged.X.device)
-    w64 = w.double()
+    dev = staged.X.device
+    loss = torch.zeros(W.shape[0], dtype=torch.float64, device=dev)
+    grad = torch.zeros(W.shape, dtype=torch.float64, device=dev)
+    W64 = W.double()
     for r0 in range(0, n, rows):
         Xb = staged.X[r0:r0 + rows].double()
-        z = Xb @ w64
-        yb = staged.y[r0:r0 + rows].double()
-        mb = staged.m[r0:r0 + rows].double()
-        loss += ((torch.nn.functional.softplus(-z) + (1 - yb) * z) * mb).sum()
-        grad += (mb * (torch.sigmoid(z) - yb)) @ Xb
+        z = Xb @ W64.T
+        yb = staged.y[r0:r0 + rows].double()[:, None]
+        mb = staged.m[r0:r0 + rows].double()[:, None]
+        loss += ((torch.nn.functional.softplus(-z) + (1 - yb) * z)
+                 * mb).sum(0)
+        grad += (mb * (torch.sigmoid(z) - yb)).T @ Xb
     return loss, grad
+
+
+def margin_f64(w, staged):
+    """The logistic loss and gradient at one w in f64 (``margin_lanes_f64``
+    of one lane)."""
+    loss, grad = margin_lanes_f64(w[None], staged)
+    return loss[0], grad[0]
 
 
 def margin_bounds(n, d, itemsize):
@@ -2129,6 +2177,416 @@ def margin_ab(fk, specs):
         raise AssertionError("; ".join(failed))
 
 
+# ---------------------------------------------------------------------------
+# the lanes (phases 21-24): the lanes kernel, the regularization path,
+# cross-validation and the softmax path's lanes
+# ---------------------------------------------------------------------------
+
+# phase 21: every lane bucket edge (1, 2, 4, 8, 16) and one chunk past the
+# largest, at widths across both modes ("max": the widest X read once for
+# that bucket and dtype, resolved on the card), LANES_ROWS rows up to
+# 1,000 columns and LANES_WIDE_ROWS past them
+LANES_K = (1, 2, 3, 8, 16, 17, 20)
+LANES_WIDTHS = (1, 2, 33, 1_000, 40_000)
+LANES_ROWS, LANES_WIDE_ROWS = 100_003, 3_000
+# phase 22: tpu_checks.py:277's grid, 10^-1 ... 10^-8
+SWEEP_REGS = [10.0 ** -(i + 1) for i in range(8)]
+# phase 23: 4 strengths x 5 folds, 20 lanes
+CV_REGS, CV_FOLDS = [1e-1, 1e-2, 1e-3, 1e-4], 5
+# phase 24: 3 strengths, 10 iterations on phase 7's data
+SOFTMAX_SWEEP_REGS, SOFTMAX_SWEEP_ITERS = [1e-2, 1e-3, 1e-4], 10
+
+
+def counting_lanes(cls):
+    """``cls`` with a count of lanes evaluations (rounds), to hold
+    launches against them."""
+
+    class Counting(cls):
+        rounds = 0
+
+        def lanes_loss_and_grad(self, W, X, y, masks=None):
+            self.rounds += 1
+            return super().lanes_loss_and_grad(W, X, y, masks)
+
+    return Counting
+
+
+def hold_lanes(loss, grad, ref_loss, ref_grad, what):
+    """``hold`` lane by lane; returns the worst (loss relative error,
+    grad max abs error)."""
+    errs = [hold(loss[k], grad[k], ref_loss[k], ref_grad[k],
+                 f"{what}, lane {k}") for k in range(loss.shape[0])]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def compare_lanes(fk, gradient, W, staged, where):
+    """The lanes kernel twice (bit-identical) against its plain version,
+    and each lane against the solo kernel; returns the worst errors
+    against the plain version."""
+    loss, grad = repeat_lanes(fk, gradient, W, staged, where)
+    ref_loss, ref_grad = fk.fused_margin_lanes_loss_grad_reference(
+        gradient, W, staged)
+    errs = hold_lanes(loss, grad, ref_loss, ref_grad,
+                      f"{where}: lanes kernel vs its plain version")
+    solo = [fk.fused_margin_loss_grad(gradient, W[k], staged)
+            for k in range(W.shape[0])]
+    hold_lanes(loss, grad, torch.stack([s[0] for s in solo]),
+               torch.stack([s[1] for s in solo]),
+               f"{where}: lanes kernel vs the solo kernel")
+    return errs
+
+
+def repeat_lanes(fk, gradient, W, staged, where):
+    """The lanes kernel twice; raises unless both give the same bits."""
+    loss, grad = fk.fused_margin_lanes_loss_grad(gradient, W, staged)
+    loss2, grad2 = fk.fused_margin_lanes_loss_grad(gradient, W, staged)
+    torch.cuda.synchronize()
+    if not (torch.equal(loss, loss2) and torch.equal(grad, grad2)):
+        raise AssertionError(f"{where}: repeated lanes calls differ")
+    return loss, grad
+
+
+def phase_lanes_kernel(fk, losses):
+    """Phase 21: the lanes kernel against its plain version (and each
+    lane against the solo kernel) at every bucket and mode edge, f32 and
+    bf16, masked and unmasked, all three losses at D = 1000, K = 8."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    chunk = fk.max_lanes()
+    buckets = sorted({fk.lanes_launch_shape(
+        torch.empty((1, 1), device=dev), min(k, chunk)).bucket
+        for k in LANES_K})
+    worst, modes, cases = [0.0, 0.0], {}, 0
+    limits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        limits[kind] = {b: fk.lanes_max_width(b, dtype) for b in buckets}
+        widths = sorted(set(LANES_WIDTHS) | {w + e for w in
+                                             limits[kind].values()
+                                             for e in (0, 1)})
+        for d in widths:
+            n = LANES_ROWS if d <= 1_000 else LANES_WIDE_ROWS
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(d)
+            X = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+            y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+            m = (torch.rand(n, generator=gen, device=dev) < 0.7).float()
+            for k in LANES_K:
+                plan = fk.lanes_launch_shape(X, min(k, chunk))
+                edge = d in (limits[kind][plan.bucket],
+                             limits[kind][plan.bucket] + 1)
+                if d not in LANES_WIDTHS and not edge:
+                    continue
+                want = ("lanes_tile" if d <= limits[kind][plan.bucket]
+                        else "lanes_two_pass")
+                if plan.mode != want:
+                    raise AssertionError(f"lanes plan at d={d}, k={k}, "
+                                         f"{kind}: {plan.mode}, not {want}")
+                W = torch.randn((k, d), generator=gen, device=dev) / d ** 0.5
+                names = (("logistic", "least_squares", "hinge")
+                         if (d, k) == (1_000, 8) else ("logistic",))
+                for mask in (None, m):
+                    staged = fk.stage_dense(X, y, mask)
+                    for name in names:
+                        errs = compare_lanes(
+                            fk, losses.GRADIENTS[name](), W, staged,
+                            f"lanes d={d} k={k} {kind} {name} "
+                            f"{'masked' if mask is not None else 'plain'}")
+                        worst = [max(a, b) for a, b in zip(worst, errs)]
+                        cases += 1
+                modes[plan.mode] = modes.get(plan.mode, 0) + 1
+            del X, y, m
+    torch.cuda.empty_cache()
+    emit({"phase": "lanes_kernel", "cases": cases,
+          "lanes": list(LANES_K), "max_lanes": chunk,
+          "one_read_max_width_by_bucket": limits,
+          "plans_by_mode": modes, "max_loss_rel_err": worst[0],
+          "max_grad_abs_err": worst[1],
+          "seconds": time.perf_counter() - t0})
+
+
+class _Lane:
+    """Lane ``k`` of a batched ``AGDResult``, with the fields
+    ``same_stop`` reads."""
+
+    def __init__(self, res, k):
+        """``k``: the lane's index, or its (fold, strength) pair."""
+        self.num_iters = res.num_iters[k]
+        self.converged = res.converged[k]
+        self.aborted_non_finite = res.aborted_non_finite[k]
+        self.loss_history = res.loss_history[k]
+        self.hist = self.loss_history[:int(self.num_iters)].double().numpy()
+
+
+def hold_paths(res, ref, hist, ref_hist, checks, label):
+    """Two fits held over their common iterations (histories rtol 1e-4,
+    ``same_stop``); returns the worst relative history difference."""
+    n = min(len(hist), len(ref_hist))
+    ok = bool(np.allclose(hist[:n], ref_hist[:n], rtol=1e-4, atol=0.0))
+    checks[f"{label}_history_rtol_1e-4"] = ok
+    checks[f"{label}_same_stop_or_both_at_floor"] = same_stop(
+        res, ref, hist, ref_hist)
+    return float(np.max(np.abs(hist[:n] - ref_hist[:n])
+                        / np.abs(ref_hist[:n]))) if n else 0.0
+
+
+def hold_sweep(res, ref, checks, label):
+    """Every lane of ``res`` held to the same lane of ``ref``."""
+    k = int(res.num_iters.shape[0])
+    lane_checks, diffs = {}, []
+    for i in range(k):
+        a, b = _Lane(res, i), _Lane(ref, i)
+        diffs.append(hold_paths(a, b, a.hist, b.hist, lane_checks,
+                                f"lane_{i}"))
+    checks[f"{label}_every_lane_history_rtol_1e-4"] = all(
+        v for c, v in lane_checks.items() if c.endswith("rtol_1e-4"))
+    checks[f"{label}_every_lane_same_stop_or_both_at_floor"] = all(
+        v for c, v in lane_checks.items() if c.endswith("at_floor"))
+    checks[f"{label}_finite"] = bool(
+        torch.isfinite(res.weights).all()
+        and not bool(res.aborted_non_finite.any()))
+    return {f"{label}_max_hist_rel_diff_by_lane": diffs,
+            f"{label}_num_iters": res.num_iters.tolist(),
+            f"{label}_num_iters_plain": ref.num_iters.tolist(),
+            f"{label}_num_backtracks": res.num_backtracks.tolist(),
+            f"{label}_num_restarts": res.num_restarts.tolist()}
+
+
+def sweep_path(port, fk, losses, smi, X, y, solo, launches):
+    """Phase 22, on phase 5's data: the regularization path over
+    SWEEP_REGS through ``FusedLogisticGradient`` (every launch the lanes
+    kernel, one per evaluation round), each lane held to the plain sweep
+    and the 0.1 lane to phase 5's solo fit; the kernel at 10M x 1000, K =
+    8 held to f64 sums and timed.  Returns the lanes kernel's entry of the
+    kernels line."""
+    t_phase = time.perf_counter()
+    k = len(SWEEP_REGS)
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    fused = counting_lanes(port.FusedLogisticGradient)()
+
+    def opt(gradient):
+        return (port.AcceleratedGradientDescent(gradient,
+                                                port.SquaredL2Updater())
+                .setNumIterations(ITERS).setConvergenceTol(TOL))
+
+    fk.reset_launch_counts()
+    res, sweep_s = timed(lambda: opt(fused).sweep((X, y), SWEEP_REGS, w0))
+    lanes_launches, rounds = fk.lanes_launch_count, fused.rounds
+    modes = {m: c for m, c in fk.lanes_mode_launches.items() if c}
+    other = fk.launch_count + fk.softmax_launch_count
+    launches["sweep_path"] = lanes_launches
+    launches.setdefault("lanes_modes", {})["sweep_path"] = modes
+    plain, plain_s = timed(lambda: opt(port.LogisticGradient()).sweep(
+        (X, y), SWEEP_REGS, w0))
+    checks = {"launches_equal_rounds": lanes_launches == rounds > 0,
+              "only_the_lanes_kernel": other == 0,
+              "weights_shape": tuple(res.weights.shape) == (k, D_MAIN)}
+    out = {"shape": [N_MAIN, D_MAIN], "regs": SWEEP_REGS,
+           "iterations": ITERS, "sweep_s": sweep_s, "plain_sweep_s": plain_s,
+           "solo_run_s": solo[2], "eight_solo_runs_s": k * solo[2],
+           "rounds": rounds, "launches": lanes_launches, "modes": modes,
+           "wall_ms_per_round": sweep_s * 1e3 / rounds,
+           "loss_last_by_lane": [float(_Lane(res, i).hist[-1])
+                                 for i in range(k)]}
+    out.update(hold_sweep(res, plain, checks, "sweep"))
+    lane0 = _Lane(res, 0)
+    out["lane_0.1_max_hist_rel_diff_vs_solo"] = hold_paths(
+        lane0, solo[0], lane0.hist, solo[1], checks, "lane_0.1_vs_solo")
+
+    # the kernel at this shape held to f64 sums at 8 random weight rows
+    # (as --ab margin: holds the solo kernel), and at the sweep's final
+    # weights its distance from them beside the solo kernel's and the
+    # plain version's: there the small-strength lanes' gradients are
+    # near 0, a difference of sums over 10M rows, and every f32
+    # evaluation is about as far from f64 as their largest entry allows
+    gradient = losses.LogisticGradient()
+    staged = fk.stage_dense(X, y)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    W_rand = torch.randn((k, D_MAIN), generator=gen, device="cuda") \
+        / D_MAIN ** 0.5
+    loss, grad = repeat_lanes(fk, gradient, W_rand, staged,
+                              "sweep-path shape")
+    exact_loss, exact_grad = margin_lanes_f64(W_rand, staged)
+    loss_err, max_abs_err = hold_lanes(loss, grad, exact_loss, exact_grad,
+                                       "sweep-path shape vs f64 sums")
+    out["grad_abs_max_f64_random_w"] = float(exact_grad.abs().max())
+    W = res.weights.contiguous()
+    _, exact_grad = margin_lanes_f64(W, staged)
+    dist = {"lanes_kernel": fk.fused_margin_lanes_loss_grad(
+                gradient, W, staged)[1],
+            "solo_kernel": torch.stack([fk.fused_margin_loss_grad(
+                gradient, W[i], staged)[1] for i in range(k)]),
+            "plain": fk.fused_margin_lanes_loss_grad_reference(
+                gradient, W, staged)[1]}
+    out["at_sweep_weights_grad_abs_max_f64_by_lane"] = \
+        exact_grad.abs().amax(dim=1).tolist()
+    out["at_sweep_weights_grad_max_abs_err_vs_f64_by_lane"] = {
+        name: (g.double() - exact_grad).abs().amax(dim=1).tolist()
+        for name, g in dist.items()}
+    del dist, exact_grad
+    state_before = card_state()
+
+    def lanes_call():
+        return fk.fused_margin_lanes_loss_grad(gradient, W, staged)
+
+    kernel_ms = time_ms(lanes_call)
+    kernel_device_ms = device_ms(lanes_call)
+    plain_ms = time_ms(lambda: fk.fused_margin_lanes_loss_grad_reference(
+        gradient, W, staged))
+    mult = torch.randn((N_MAIN, k), device="cuda")
+    two_mm_ms = time_ms(lambda: (X @ W.T, mult.T @ X))
+    times = [device_ms(lambda: X @ W.T), device_ms(lambda: mult.T @ X)]
+    two_mm_device_ms = (sum(sum(t.values()) for t in times)
+                        if all(times) else None)
+    solo_ms = time_ms(lambda: [fk.fused_margin_loss_grad(gradient, W[i],
+                                                         staged)
+                               for i in range(k)])
+    state_after = card_state()
+    n, d = X.shape
+    b_ms, bound_by = bound_ms(n * d * 4 + 2 * n * 4 + 2 * k * d * 4 + k * 4,
+                              4 * n * d * k)
+    out.update({
+        "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
+        "bound_ms": b_ms, "bound_by": bound_by,
+        "bound_source": "H100 SXM data sheet 3.35 TB/s, 67 TFLOP/s f32",
+        "kernel_bound_frac": b_ms / kernel_ms, "plain_ms": plain_ms,
+        "two_matmuls_ms": two_mm_ms,
+        "two_matmuls_device_ms": two_mm_device_ms,
+        "eight_solo_launches_ms": solo_ms,
+        "kernel_share_of_sweep_wall": rounds * kernel_ms / (sweep_s * 1e3),
+        "plan": list(fk.lanes_launch_shape(X, k)[:5]),
+        "loss_rel_err_vs_f64": loss_err,
+        "grad_max_abs_err_vs_f64": max_abs_err,
+        "card_before": state_before, "card_after": state_after})
+    del staged, mult
+    finish("sweep_path", out, checks, t_phase, smi)
+    return {"name": "margin_lanes_loss_grad", "route": "cuda",
+            "source": "spark_agd_tpu_torch/csrc/margin_lanes_loss_grad.cu",
+            "replaces": "spark_agd_tpu/ops/pallas_kernels.py:207",
+            "counterpart": "spark_agd_tpu/ops/pallas_kernels.py:"
+                           "fused_margin_loss_grad under jax.vmap "
+                           "(api.sweep)",
+            "launches": lanes_launches,
+            # the error the run asserts: against the f64 sums
+            "max_abs_err": max_abs_err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "two_matmuls_ms": two_mm_ms,
+            "device_ms": sum(kernel_device_ms.values()) or None,
+            "two_matmuls_device_ms": two_mm_device_ms,
+            "eight_solo_launches_ms": solo_ms, "lanes": k,
+            "shape": [N_MAIN, D_MAIN]}
+
+
+def cv_path(port, fk, glm, smi, X, y, launches):
+    """Phase 23, on phase 5's data: 5-fold CV over CV_REGS (20 lanes)
+    through ``LogisticRegressionWithAGD(add_intercept=False)
+    .cross_validate`` with the plain gradient and its refit; the fold
+    ids drawn on the card against the CPU draw, two lanes against solo
+    runs under their train masks, ``val_loss`` against each lane's
+    held-out mean loss."""
+    from spark_agd_tpu_torch import api
+
+    t_phase = time.perf_counter()
+    trainer = glm.LogisticRegressionWithAGD(add_intercept=False)
+    trainer.optimizer.setNumIterations(ITERS).setConvergenceTol(TOL)
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    (model, cv), cv_s = timed(lambda: trainer.cross_validate(
+        X, y, CV_REGS, n_folds=CV_FOLDS))
+    launches["cv_path"] = fk.lanes_launch_count
+    kernel_launches = (fk.launch_count + fk.lanes_launch_count
+                       + fk.softmax_launch_count)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cpu_ids, cpu_draw_s = timed(lambda: api.fold_assignment(
+        N_MAIN, CV_FOLDS, 0, "cpu"))
+    res = cv.train_result
+    checks = {
+        "fold_ids_equal_the_cpu_draw": bool(torch.equal(cv.fold_ids.cpu(),
+                                                        cpu_ids)),
+        "plain_gradient_launches_no_kernel": kernel_launches == 0,
+        "shapes": tuple(cv.val_loss.shape) == (CV_FOLDS, len(CV_REGS))
+        and tuple(res.weights.shape) == (CV_FOLDS, len(CV_REGS), D_MAIN),
+        "val_loss_finite": bool(torch.isfinite(cv.val_loss).all()),
+        "refit_finite": bool(torch.isfinite(model.weights).all()),
+    }
+    out = {"shape": [N_MAIN, D_MAIN], "regs": CV_REGS, "folds": CV_FOLDS,
+           "lanes": CV_FOLDS * len(CV_REGS), "iterations": ITERS,
+           "cv_and_refit_s": cv_s, "cpu_fold_draw_s": cpu_draw_s,
+           "peak_gb": peak_gb, "val_loss": cv.val_loss.tolist(),
+           "mean_val_loss": cv.mean_val_loss.tolist(),
+           "best_index": int(cv.best_index),
+           "best_reg": CV_REGS[int(cv.best_index)],
+           "num_iters": res.num_iters.tolist()}
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    val_errs = []
+    gradient = port.LogisticGradient()
+    for f in range(CV_FOLDS):
+        held = (cv.fold_ids == f).float()
+        for r, reg in enumerate(CV_REGS):
+            ls, _, cnt = gradient.batch_loss_and_grad(res.weights[f, r], X,
+                                                      y, held)
+            want = float(ls) / float(cnt)
+            val_errs.append(abs(float(cv.val_loss[f, r]) - want) / abs(want))
+    checks["val_loss_equals_each_lanes_held_out_loss_rtol_1e-5"] = \
+        max(val_errs) < 1e-5
+    out["val_loss_max_rel_diff"] = max(val_errs)
+    solo_s = []
+    for f, r in ((0, 0), (CV_FOLDS - 1, len(CV_REGS) - 1)):
+        train = (cv.fold_ids != f).float()
+        (_, hist, solo), s = timed(lambda: port.run(
+            (X, y, train), port.LogisticGradient(), port.L2Prox(),
+            reg_param=float(np.float32(CV_REGS[r])), num_iterations=ITERS,
+            convergence_tol=TOL, initial_weights=w0, return_result=True))
+        solo_s.append(s)
+        lane = _Lane(res, (f, r))
+        out[f"lane_{f}_{r}_max_hist_rel_diff_vs_solo"] = hold_paths(
+            lane, solo, lane.hist, hist, checks, f"lane_{f}_{r}_vs_solo")
+    out["solo_run_s"] = solo_s
+    finish("cv_path", out, checks, t_phase, smi)
+
+
+def softmax_sweep(port, fk, glm, smi, Xa, y, launches):
+    """Phase 24, on phase 7's data with its intercept column:
+    ``SoftmaxRegressionWithAGD.train_path`` with ``FusedSoftmaxGradient``
+    in the seat (``add_intercept=False``: Xa has the column), one softmax
+    launch a lane per round, each lane held to the plain sweep."""
+    t_phase = time.perf_counter()
+    k = len(SOFTMAX_SWEEP_REGS)
+    fused = counting_lanes(port.FusedSoftmaxGradient)(
+        port.SoftmaxGradient(K_SM))
+    trainer = glm.SoftmaxRegressionWithAGD(
+        K_SM, updater=port.SquaredL2Updater(), add_intercept=False)
+    trainer.optimizer.set_gradient(fused) \
+        .setNumIterations(SOFTMAX_SWEEP_ITERS).setConvergenceTol(TOL)
+    fk.reset_launch_counts()
+    (models, res), path_s = timed(lambda: trainer.train_path(
+        Xa, y, SOFTMAX_SWEEP_REGS))
+    softmax_launches, rounds = fk.softmax_launch_count, fused.rounds
+    launches["softmax_sweep"] = softmax_launches
+    other = fk.launch_count + fk.lanes_launch_count
+    w0 = torch.zeros((Xa.shape[1], K_SM), dtype=torch.float32,
+                     device="cuda")
+    plain, plain_s = timed(lambda: port.sweep(
+        (Xa, y), port.SoftmaxGradient(K_SM), port.SquaredL2Updater(),
+        SOFTMAX_SWEEP_REGS, num_iterations=SOFTMAX_SWEEP_ITERS,
+        convergence_tol=TOL, initial_weights=w0))
+    checks = {
+        "one_softmax_launch_a_lane_per_round":
+            softmax_launches == k * rounds > 0,
+        "no_margin_launch": other == 0,
+        "models": len(models) == k
+        and tuple(models[0].weights.shape) == (Xa.shape[1], K_SM),
+    }
+    out = {"shape": list(Xa.shape), "classes": K_SM,
+           "regs": SOFTMAX_SWEEP_REGS, "iterations": SOFTMAX_SWEEP_ITERS,
+           "train_path_s": path_s, "plain_sweep_s": plain_s,
+           "rounds": rounds, "softmax_launches": softmax_launches}
+    out.update(hold_sweep(res, plain, checks, "softmax_sweep"))
+    finish("softmax_sweep", out, checks, t_phase, smi)
+
+
 def main(argv):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card.")
@@ -2175,17 +2633,29 @@ def main(argv):
     phase_build(fk)
     phase_kernel(fk, losses)
     phase_softmax_kernel(fk)
+    # 21. the lanes kernel at its bucket and mode edges
+    phase_lanes_kernel(fk, losses)
 
-    # 5-8 and 13-14. the two dense paths at full width, one after the
-    # other, each followed by L-BFGS on the same data
+    # 5-8, 13-14 and 22-24. the two dense paths at full width, one after
+    # the other, each followed by L-BFGS and the lanes on the same data
     launches = {}  # each path's kernel launches, for the kernels line
-    margin = margin_path(port, fk, losses, device_synth,
-                         lambda X, y: lbfgs_path(port, fk, smi, X, y,
-                                                 launches))
+    lanes = {}
+
+    def on_flagship(X, y, solo):
+        lbfgs_path(port, fk, smi, X, y, launches)
+        lanes.update(sweep_path(port, fk, losses, smi, X, y, solo,
+                                launches))
+        torch.cuda.empty_cache()
+        cv_path(port, fk, glm, smi, X, y, launches)
+        torch.cuda.empty_cache()
+
+    def on_softmax(Xa, y):
+        softmax_lbfgs_path(port, fk, glm, smi, Xa, y, launches)
+        softmax_sweep(port, fk, glm, smi, Xa, y, launches)
+
+    margin = margin_path(port, fk, losses, device_synth, on_flagship)
     torch.cuda.empty_cache()
-    softmax = softmax_path(port, fk, device_synth,
-                           lambda Xa, y: softmax_lbfgs_path(
-                               port, fk, glm, smi, Xa, y, launches))
+    softmax = softmax_path(port, fk, device_synth, on_softmax)
     torch.cuda.empty_cache()
 
     # 9-12. the sparse data plane: the products, BASELINE configs 1 and 3
@@ -2233,8 +2703,13 @@ def main(argv):
         "narrow": narrow, "two_pass": wide}
     softmax["launches_by_path"] = {
         "softmax_path": softmax["launches"],
-        "softmax_lbfgs_path": launches["softmax_lbfgs_path"]}
-    emit({"kernels": [margin, softmax]})
+        "softmax_lbfgs_path": launches["softmax_lbfgs_path"],
+        "softmax_sweep": launches["softmax_sweep"]}
+    lanes["launches_by_path"] = {p: launches[p]
+                                 for p in ("sweep_path", "cv_path")}
+    lanes["modes_by_path"] = {"sweep_path":
+                              launches["lanes_modes"]["sweep_path"]}
+    emit({"kernels": [margin, lanes, softmax]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

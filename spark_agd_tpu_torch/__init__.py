@@ -4,7 +4,7 @@ TFOCS-style accelerated proximal gradient descent on one NVIDIA GPU: the
 same losses, prox operators, optimizer loop, public API and GLM
 trainers as the JAX package, with the fused loss+gradient kernels written
 by hand in CUDA for Hopper (``csrc/margin_loss_grad.cu``,
-``csrc/softmax_loss_grad.cu``).  The package imports
+``csrc/margin_lanes_loss_grad.cu``, ``csrc/softmax_loss_grad.cu``).  The package imports
 ``torch`` and never ``jax`` or ``spark_agd_tpu``.
 
 Layer map (dense and CSR data, one device):
@@ -15,11 +15,14 @@ L6    model layer                 ``models.glm`` trainers and models,
                                   ``models.evaluation`` metrics
 L5    public API                  ``AcceleratedGradientDescent``, ``run``,
                                   ``make_runner``, ``run_minibatch_sgd``,
-                                  ``LBFGS``, ``run_lbfgs`` (``api``)
+                                  ``LBFGS``, ``run_lbfgs``; the lanes:
+                                  ``sweep``, ``cross_validate`` (``api``)
 L4    optimizer core              ``core.agd.run_agd``, ``core.gd``,
                                   ``core.lbfgs`` (L-BFGS, OWL-QN) and
                                   ``core.host_lbfgs`` (Python loops);
-                                  ``core.prng`` (JAX's Bernoulli bits)
+                                  ``core.host_agd`` (K lanes in
+                                  lock-step); ``core.prng`` (JAX's
+                                  Bernoulli bits and permutations)
 L3    math plugins                ``ops.losses`` (Gradient), ``ops.prox``
                                   (Updater), ``ops.fused_kernels`` (CUDA),
                                   ``ops.sparse`` (CSRMatrix products)
@@ -66,13 +69,19 @@ from .ops.sparse import CSRMatrix  # noqa: F401
 from .data.libsvm import CSRData, load_libsvm  # noqa: F401
 from .api import (  # noqa: F401
     AcceleratedGradientDescent,
+    CVResult,
     LBFGS,
+    cross_validate,
+    make_cv_runner,
     make_lbfgs_runner,
     make_runner,
+    make_sweep_runner,
     run,
     run_lbfgs,
     run_minibatch_agd,
     run_minibatch_sgd,
+    sweep,
+    sweep_warm_state,
 )
 from .core.agd import AGDConfig, AGDResult, AGDWarmState  # noqa: F401
 from .core.gd import GDResult  # noqa: F401
@@ -81,6 +90,13 @@ from .core.lbfgs import (  # noqa: F401
     LBFGSResult,
     make_objective as make_lbfgs_objective,
     run_owlqn,
+)
+from .core.host_agd import (  # noqa: F401
+    HostAGDMultiResult,
+    HostMultiWarm,
+    make_prox_multi,
+    multi_warm_state,
+    run_agd_host_multi,
 )
 from .core.host_lbfgs import (  # noqa: F401
     HostLBFGSResult,

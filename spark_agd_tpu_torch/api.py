@@ -6,31 +6,37 @@ the functional ``run(...) -> (weights, loss_history)``, ``make_runner``
 and ``run_minibatch_agd``; the rest of the Optimizer family: the GD
 comparator ``run_minibatch_sgd`` and the quasi-Newton member
 (``LBFGS``, ``run_lbfgs``, ``make_lbfgs_runner``, which route L1 and
-elastic-net updaters to OWL-QN).  Data is ``(X, y)`` or ``(X, y,
-mask)``, as tensors or numpy arrays, with X dense or an
-``ops.sparse.CSRMatrix``; it is placed on the run's device once.
+elastic-net updaters to OWL-QN); and the lanes: the regularization path
+(``sweep``, ``make_sweep_runner``, ``sweep_warm_state``) and K-fold
+cross-validation (``cross_validate``, ``make_cv_runner``, ``CVResult``),
+K fits in lock-step through ``core.host_agd`` where the JAX package
+``vmap``s its fused loop.  Data is ``(X, y)`` or ``(X, y, mask)``, as
+tensors or numpy arrays, with X dense or an ``ops.sparse.CSRMatrix``;
+it is placed on the run's device once.
 
 The entry points run on the current CUDA device unless the caller passes
 ``device=`` (``"cpu"`` for the CPU); with no CUDA device and no explicit
 device they raise.  ``dist_mode=`` is validated and, with no mesh,
 inert, as in the JAX package.  Meshes, the supervised path
 (``resilience=``, ``checkpointer=``, ``journal=``), telemetry,
-``verbose=True``, the sharded update and the lanes (``LBFGS.sweep``) are
-not in this slice: asking for them raises ``NotImplementedError``.
+``verbose=True``, the sharded update and the L-BFGS lanes
+(``LBFGS.sweep``) are not in this slice: asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from ._device import resolve_device
-from .core import agd, gd, lbfgs as lbfgs_lib, smooth as smooth_lib, tvec
+from .core import agd, gd, host_agd, lbfgs as lbfgs_lib, prng
+from .core import smooth as smooth_lib, tvec
 from .ops.losses import Gradient
-from .ops.prox import Prox
+from .ops.prox import IdentityProx, Prox
 from .ops.sparse import CSRMatrix
 
 _LATER = "is not ported yet: the PyTorch port runs single-device fits only"
@@ -58,6 +64,19 @@ def _check_dist_mode(dist_mode):
     if dist_mode not in _DIST_MODES:
         raise ValueError(f"unknown dist_mode {dist_mode!r}; expected one "
                          f"of {_DIST_MODES}")
+
+
+def _check_grid_fit(updater, reg_params, op_name: str):
+    """Shared guard of every grid fit: a grid through the identity prox
+    would be silently ignored."""
+    reg_params = list(reg_params)
+    if isinstance(updater, IdentityProx) and any(
+            float(r) != 0.0 for r in reg_params):
+        raise ValueError(
+            f"the updater is IdentityProx (no penalty), so "
+            f"reg_params would be ignored; use an explicit updater "
+            f"(e.g. L2Prox()) for {op_name}")
+    return reg_params
 
 
 def _normalize_data(data):
@@ -184,6 +203,343 @@ def run(
     return result.weights, loss_history
 
 
+# ---------------------------------------------------------------------------
+# The lanes: regularization paths and cross-validation (api.py:567-957)
+# ---------------------------------------------------------------------------
+
+
+def _regs(reg_params) -> torch.Tensor:
+    """The strengths as a 1-D f32 tensor: the JAX sweeps cast them to
+    float32 whatever the carry dtype (``api.py:635``, ``:925``), so an
+    f64 lane runs at ``float(np.float32(reg))``."""
+    regs = torch.as_tensor(np.asarray(reg_params, np.float32))
+    if regs.dim() != 1:
+        raise ValueError("reg_params must be 1-D")
+    return regs
+
+
+def _stack_lanes(initial_weights, k: int):
+    """Broadcast one starting point onto a leading K lane axis."""
+    return tvec.tmap(lambda a: torch.stack([a] * k), initial_weights)
+
+
+def _batched_result(run: host_agd.LaneRun, n: int) -> agd.AGDResult:
+    """A lock-step run as the JAX sweep's batched ``AGDResult``: every
+    field with a leading K axis, the per-iteration arrays ``(K, n)``,
+    NaN (False) past each lane's ``num_iters``."""
+    end = run.carry
+
+    def padded(rows, fill):
+        t = rows.shape[0]
+        out = torch.full((rows.shape[1], n), fill, dtype=rows.dtype)
+        out[:, :t] = rows.T
+        return out
+
+    return agd.AGDResult(
+        weights=end.x, loss_history=padded(run.loss, math.nan),
+        num_iters=run.num_iters.to(torch.int32),
+        aborted_non_finite=end.aborted, final_l=end.big_l,
+        num_backtracks=end.num_backtracks.to(torch.int32),
+        num_restarts=end.num_restarts.to(torch.int32), final_z=end.z,
+        final_theta=end.theta, final_bts=end.bts,
+        converged=end.converged,
+        diag_l=padded(run.diag_l, math.nan),
+        diag_theta=padded(run.diag_theta, math.nan),
+        diag_step=padded(run.diag_step, math.nan),
+        diag_restarted=padded(run.diag_restarted, False))
+
+
+def _warm_carry(warm: agd.AGDWarmState, k: int, dev) -> host_agd.LaneCarry:
+    """The lock-step carry of a batched ``AGDWarmState``: every lane
+    runs the next segment, a lane that stopped in the last one too (as
+    the JAX sweep's warm runs do); counters start at 0."""
+    dt = host_agd.carry_dtype(warm.x)
+
+    def t(a, dtype):
+        a = a if isinstance(a, torch.Tensor) else torch.as_tensor(
+            np.asarray(a))
+        return a.to(dtype).reshape(k).cpu().clone()
+
+    zeros = torch.zeros(k, dtype=torch.int64)
+    no = torch.zeros(k, dtype=torch.bool)
+    return host_agd.LaneCarry(
+        x=tvec.tmap(lambda a: _place(a, dev), warm.x),
+        z=tvec.tmap(lambda a: _place(a, dev), warm.z),
+        theta=t(warm.theta, dt), big_l=t(warm.big_l, dt),
+        bts=t(warm.bts, torch.bool),
+        prior_iters=t(warm.prior_iters, torch.int64),
+        active=torch.ones(k, dtype=torch.bool), num_backtracks=zeros,
+        num_restarts=zeros, aborted=no, converged=no)
+
+
+def make_sweep_runner(
+    data,
+    gradient: Gradient,
+    updater: Prox,
+    convergence_tol: float = 1e-4,
+    num_iterations: int = 100,
+    l0: float = 1.0,
+    l_exact: float = math.inf,
+    beta: float = 0.5,
+    alpha: float = 0.9,
+    may_restart: bool = True,
+    *,
+    mesh=False,
+    loss_mode: str = "x",
+    device=None,
+):
+    """Build ``fit(initial_weights, reg_params, warm=None) -> batched
+    AGDResult`` over data placed and prepared once: the regularization
+    path, K strengths fitted in lock-step, every evaluation one
+    ``lanes_loss_and_grad`` call for all lanes (one launch of the lanes
+    kernel through ``FusedMarginGradient``).  ``warm``: a batched
+    ``AGDWarmState`` (``sweep_warm_state``) continues every lane.
+    Single device only in this slice (``mesh`` takes ``None`` or
+    ``False``)."""
+    _reject_later(mesh=mesh)
+    cfg = agd.AGDConfig(
+        convergence_tol=convergence_tol, num_iterations=num_iterations,
+        l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
+        may_restart=may_restart, loss_mode=loss_mode)
+    dev = resolve_device(device)
+    X, y, mask = _normalize_data(data)
+    dargs = gradient.prepare(_place(X, dev), _place(y, dev),
+                             _place(mask, dev))
+    sm, sl = smooth_lib.lanes_smooth(gradient, *dargs)
+
+    def fit(initial_weights, reg_params, warm=None):
+        regs = _regs(reg_params)
+        k = regs.shape[0]
+        if warm is None:
+            w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
+            carry = host_agd.initial_carry(_stack_lanes(w0, k), cfg)
+        else:
+            carry = _warm_carry(warm, k, dev)
+        px, rv = host_agd.make_prox_multi(updater, regs)
+        run_ = host_agd.run_lanes(sm, px, rv, carry, cfg,
+                                  smooth_loss_multi=sl)
+        return _batched_result(run_, cfg.num_iterations)
+
+    fit.data_args = dargs
+    return fit
+
+
+def sweep_warm_state(res, prior_iters=0) -> agd.AGDWarmState:
+    """The batched continuation carry out of a sweep's ``AGDResult``, for
+    ``make_sweep_runner``'s ``fit(..., warm=...)``.  ``prior_iters``:
+    iterations executed before the segment ``res`` came from (pass the
+    previous warm's when chaining), so the ``nIter > 1`` gate sees the
+    total."""
+    prior = torch.as_tensor(np.asarray(prior_iters)).to(torch.int32)
+    return agd.AGDWarmState(
+        x=res.weights, z=res.final_z, theta=res.final_theta,
+        big_l=res.final_l, bts=res.final_bts,
+        prior_iters=prior + res.num_iters)
+
+
+def sweep(
+    data,
+    gradient: Gradient,
+    updater: Prox,
+    reg_params,
+    convergence_tol: float = 1e-4,
+    num_iterations: int = 100,
+    initial_weights: Any = None,
+    l0: float = 1.0,
+    l_exact: float = math.inf,
+    beta: float = 0.5,
+    alpha: float = 0.9,
+    may_restart: bool = True,
+    *,
+    mesh=False,
+    loss_mode: str = "x",
+    device=None,
+):
+    """Fit one problem at K regularization strengths: each lane equals a
+    solo ``run`` at its strength (cast to f32), and X is read once per
+    evaluation for all lanes.  Returns a batched ``AGDResult``: every
+    field gains a leading K axis, ``loss_history`` is ``(K,
+    num_iterations)``, NaN past each lane's ``num_iters``."""
+    if initial_weights is None:
+        raise ValueError("initial_weights is required")
+    fit = make_sweep_runner(
+        data, gradient, updater, convergence_tol=convergence_tol,
+        num_iterations=num_iterations, l0=l0, l_exact=l_exact, beta=beta,
+        alpha=alpha, may_restart=may_restart, mesh=mesh,
+        loss_mode=loss_mode, device=device)
+    return fit(initial_weights, reg_params)
+
+
+class CVResult(NamedTuple):
+    """``cross_validate`` output, indexed ``[fold, strength]``:
+    ``val_loss`` (F, R), the mean smooth loss on each held-out fold (NaN
+    for an empty one); ``train_result``, the batched ``AGDResult`` with
+    leading axes (F, R); ``mean_val_loss`` (R,), a ``nanmean`` over the
+    folds; ``best_index`` (), its argmin, never a NaN entry unless all
+    are; ``fold_ids`` (N,), the fold assignment; ``base_mask`` (N,), the
+    validity mask the CV ran under (all ones when the data had none)."""
+
+    val_loss: torch.Tensor
+    train_result: Any
+    mean_val_loss: torch.Tensor
+    best_index: torch.Tensor
+    fold_ids: torch.Tensor
+    base_mask: torch.Tensor
+
+
+def make_cv_runner(
+    data,
+    gradient: Gradient,
+    updater: Prox,
+    n_folds: int = 5,
+    convergence_tol: float = 1e-4,
+    num_iterations: int = 100,
+    l0: float = 1.0,
+    l_exact: float = math.inf,
+    beta: float = 0.5,
+    alpha: float = 0.9,
+    may_restart: bool = True,
+    *,
+    mesh=False,
+    loss_mode: str = "x",
+    seed: int = 0,
+    device=None,
+):
+    """Build ``fit(initial_weights, reg_params) -> CVResult`` with the
+    data placed and the folds assigned once (see
+    :func:`cross_validate`)."""
+    return _build_cv(data, gradient, updater, n_folds, convergence_tol,
+                     num_iterations, l0, l_exact, beta, alpha,
+                     may_restart, mesh, loss_mode, seed, device)
+
+
+def cross_validate(
+    data,
+    gradient: Gradient,
+    updater: Prox,
+    reg_params,
+    n_folds: int = 5,
+    convergence_tol: float = 1e-4,
+    num_iterations: int = 100,
+    initial_weights: Any = None,
+    l0: float = 1.0,
+    l_exact: float = math.inf,
+    beta: float = 0.5,
+    alpha: float = 0.9,
+    may_restart: bool = True,
+    *,
+    mesh=False,
+    loss_mode: str = "x",
+    seed: int = 0,
+    device=None,
+) -> CVResult:
+    """K-fold cross-validation over a regularization grid: the
+    ``n_folds x len(reg_params)`` fits run as lanes in lock-step, each
+    lane training under its fold's complement (an (N, K) mask, a column
+    a lane) and scored on its held-out fold.  Folds are JAX's
+    assignment for ``seed`` (:func:`fold_assignment`), so both packages
+    hold out the same rows.  Rows masked out by an input ``(X, y,
+    mask)`` stay out of training and validation everywhere.  The plain
+    gradients only: a fused gradient's staged X is refused, as the JAX
+    package refuses its Pallas layouts."""
+    fit = make_cv_runner(
+        data, gradient, updater, n_folds=n_folds,
+        convergence_tol=convergence_tol, num_iterations=num_iterations,
+        l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
+        may_restart=may_restart, mesh=mesh, loss_mode=loss_mode,
+        seed=seed, device=device)
+    return fit(initial_weights, reg_params)
+
+
+def fold_assignment(n: int, n_folds: int, seed: int, device) -> torch.Tensor:
+    """The JAX package's balanced fold ids (``api.py:836-843``): fold
+    ``i % n_folds`` for the i-th row of ``jax.random.permutation(
+    PRNGKey(seed), n)``, as an int32 tensor on ``device``."""
+    perm = prng.permutation(seed, n, device)
+    fold_ids = torch.zeros(n, dtype=torch.int32, device=device)
+    fold_ids[perm] = (torch.arange(n, device=device) % n_folds).to(
+        torch.int32)
+    return fold_ids
+
+
+def _nan_argmin(v: torch.Tensor) -> torch.Tensor:
+    """The argmin of ``v`` never at a NaN entry, unless every entry is
+    NaN (then 0)."""
+    nan = torch.isnan(v)
+    if bool(nan.all()):
+        return torch.zeros((), dtype=torch.int64, device=v.device)
+    return torch.where(nan, math.inf, v).argmin()
+
+
+def _build_cv(data, gradient, updater, n_folds, convergence_tol,
+              num_iterations, l0, l_exact, beta, alpha, may_restart,
+              mesh, loss_mode, seed, device):
+    """Stage the data and assign the folds once; ``fit(initial_weights,
+    reg_params)`` runs the lane grid."""
+    if n_folds < 2:
+        raise ValueError("n_folds must be >= 2")
+    _reject_later(mesh=mesh)
+    cfg = agd.AGDConfig(
+        convergence_tol=convergence_tol, num_iterations=num_iterations,
+        l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
+        may_restart=may_restart, loss_mode=loss_mode)
+    dev = resolve_device(device)
+    X, y, base_mask = _normalize_data(data)
+    n = X.shape[0]
+    base_mask = (torch.ones(n, dtype=torch.float32, device=dev)
+                 if base_mask is None
+                 else _place(base_mask, dev).to(torch.float32))
+    X, y, _ = gradient.prepare(_place(X, dev), _place(y, dev), None)
+    if getattr(X, "shape", (None,))[0] != n:
+        raise ValueError(
+            "cross_validate drives masks through the kernels, so a "
+            "gradient whose prepare() re-pads rows (e.g. the fused "
+            "Pallas layouts) is not supported here; use the plain "
+            "XLA gradients")
+    fold_ids = fold_assignment(n, n_folds, seed, dev)
+
+    def fit(initial_weights, reg_params):
+        if initial_weights is None:
+            raise ValueError("initial_weights is required")
+        regs = _regs(reg_params)
+        n_regs = regs.shape[0]
+        k = n_folds * n_regs
+        fold_lane = torch.arange(n_folds, dtype=torch.int32,
+                                 device=dev).repeat_interleave(n_regs)
+        held = fold_ids[:, None] == fold_lane[None, :]
+        train = base_mask[:, None] * ~held
+        sm, _ = smooth_lib.lanes_smooth(gradient, X, y, train)
+        w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
+        px, rv = host_agd.make_prox_multi(updater, regs.repeat(n_folds))
+        run_ = host_agd.run_lanes(
+            sm, px, rv, host_agd.initial_carry(_stack_lanes(w0, k), cfg),
+            cfg, smooth_loss_multi=lambda W: _mean_loss(gradient, W, X, y,
+                                                        train))
+        del train
+        res = _batched_result(run_, cfg.num_iterations)
+        val = _mean_loss(gradient, res.weights, X, y,
+                         base_mask[:, None] * held)
+        val_loss = val.reshape(n_folds, n_regs)
+        train_result = agd.AGDResult(*(
+            tvec.tmap(lambda a: a.reshape((n_folds, n_regs) + a.shape[1:]),
+                      field) for field in res))
+        mean_val = torch.nanmean(val_loss, dim=0)
+        return CVResult(val_loss=val_loss, train_result=train_result,
+                        mean_val_loss=mean_val,
+                        best_index=_nan_argmin(mean_val),
+                        fold_ids=fold_ids, base_mask=base_mask)
+
+    return fit
+
+
+def _mean_loss(gradient, W, X, y, masks):
+    """``(K,)`` mean losses of the lanes of ``W`` under ``masks``; an
+    empty selection reads NaN, never a perfect 0.0."""
+    ls, _, cnt = gradient.lanes_loss_and_grad(W, X, y, masks)
+    cnt = cnt.to(ls.dtype)
+    return torch.where(cnt > 0, ls / torch.clamp_min(cnt, 1), math.nan)
+
+
 class AcceleratedGradientDescent:
     """Config-holder class: the reference's setters and defaults, one
     ``optimize``; ``set_device`` picks the device (default: CUDA)."""
@@ -292,6 +648,39 @@ class AcceleratedGradientDescent:
             mesh=self._mesh, dist_mode=self._dist_mode,
             loss_mode=self._loss_mode, device=self._device)
         return weights
+
+    def _check_grid_fit(self, reg_params, op_name: str):
+        return _check_grid_fit(self._updater, reg_params, op_name)
+
+    def sweep(self, data, reg_params, initial_weights: Any):
+        """The regularization path with this object's configuration
+        (module-level :func:`sweep`); ``set_reg_param`` is ignored, the
+        grid supplies the strengths."""
+        reg_params = self._check_grid_fit(reg_params, "sweep")
+        return sweep(
+            data, self._gradient, self._updater, reg_params,
+            convergence_tol=self._convergence_tol,
+            num_iterations=self._num_iterations,
+            initial_weights=initial_weights,
+            l0=self._l0, l_exact=self._l_exact, beta=self._beta,
+            alpha=self._alpha, may_restart=self._may_restart,
+            mesh=self._mesh, loss_mode=self._loss_mode,
+            device=self._device)
+
+    def cross_validate(self, data, reg_params, initial_weights: Any,
+                       n_folds: int = 5, seed: int = 0) -> CVResult:
+        """K-fold CV over a grid with this object's configuration
+        (module-level :func:`cross_validate`)."""
+        reg_params = self._check_grid_fit(reg_params, "cross_validate")
+        return cross_validate(
+            data, self._gradient, self._updater, reg_params,
+            n_folds=n_folds, convergence_tol=self._convergence_tol,
+            num_iterations=self._num_iterations,
+            initial_weights=initial_weights,
+            l0=self._l0, l_exact=self._l_exact, beta=self._beta,
+            alpha=self._alpha, may_restart=self._may_restart,
+            mesh=self._mesh, loss_mode=self._loss_mode, seed=seed,
+            device=self._device)
 
 
 def run_minibatch_agd(data, gradient: Gradient, updater: Prox,
@@ -516,8 +905,10 @@ class LBFGS:
         return res.weights
 
     def sweep(self, data, reg_params, initial_weights: Any):
-        """The regularization path needs the lanes
-        (``make_lbfgs_sweep_runner``): not ported yet."""
+        """The L-BFGS regularization path (``make_lbfgs_sweep_runner``):
+        not ported yet."""
         raise NotImplementedError(
-            f"LBFGS.sweep {_LATER} (the lanes, api.sweep and "
-            f"make_lbfgs_sweep_runner, arrive in a later slice)")
+            "LBFGS.sweep is not ported yet: the L-BFGS lanes "
+            "(make_lbfgs_sweep_runner, run_lbfgs_host_multi) arrive in a "
+            "later slice; AcceleratedGradientDescent.sweep runs the path "
+            "today")

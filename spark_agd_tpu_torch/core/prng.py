@@ -106,3 +106,29 @@ def sample_mask(seed: int, it: int, p: float, n: int, *, dtype,
     0/1 values: ``bernoulli(fold_in(PRNGKey(seed), it), p, (n,))``."""
     key = fold_in(prng_key(seed), it)
     return bernoulli(key, p, n, dtype=dtype, device=device).to(dtype)
+
+
+def split(key: tuple[int, int]) -> tuple[tuple[int, int], tuple[int, int]]:
+    """``jax.random.split(key)`` (two keys) under the partitionable
+    threefry: the hash of the counters ``(0, 0)`` and ``(0, 1)``
+    (``_threefry_split_foldlike``)."""
+    b1, b2 = threefry2x32(key[0], key[1], 0, 0)
+    c1, c2 = threefry2x32(key[0], key[1], 0, 1)
+    return (b1, b2), (c1, c2)
+
+
+def permutation(seed: int, n: int, device) -> torch.Tensor:
+    """``jax.random.permutation(jax.random.PRNGKey(seed), n)`` as an
+    int64 tensor on ``device``.  JAX shuffles ``arange(n)`` by rounds
+    (``random._shuffle``): each splits the key, draws 32-bit words over
+    the rows and sorts the values by them, stably; there are
+    ``ceil(3 ln n / ln(2**32 - 1))`` rounds."""
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_M32)))
+    key = prng_key(seed)
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        bits1, bits2 = random_bits(sub, n, device)
+        order = torch.sort(bits1 ^ bits2, stable=True).indices
+        x = x[order]
+    return x

@@ -5,6 +5,10 @@ recurrences are vector-space operations that map leafwise, so the same
 AGD loop drives a GLM weight vector, a ``(D, K)`` matrix or a dict of
 MLP parameters.  Reductions (``dot``, ``norm``) return 0-d tensors on
 the leaves' device; the caller decides when a scalar goes to the host.
+
+The lanes (``lane``, ``stack_lanes``, ``lane_dot``) hold K trees of one
+structure stacked on a leading axis, the port's counterpart of a tree
+batched by ``jax.vmap``.
 """
 
 from __future__ import annotations
@@ -102,3 +106,21 @@ def isfinite_all(a):
     for p in parts[1:]:
         out = out & p
     return out
+
+
+def lane(tree, k: int):
+    """Lane ``k`` of a tree stacked on a leading lane axis."""
+    return tmap(lambda a: a[k], tree)
+
+
+def stack_lanes(trees):
+    """Stack trees of one structure on a new leading lane axis."""
+    return tmap(lambda *xs: torch.stack(xs), *trees)
+
+
+def lane_dot(a, b):
+    """``(K,)`` inner products of the lanes of two stacked trees, in the
+    leaf dtype."""
+    parts = leaves(tmap(lambda x, y: (x * y).reshape(x.shape[0], -1).sum(1),
+                        a, b))
+    return sum(parts[1:], parts[0])

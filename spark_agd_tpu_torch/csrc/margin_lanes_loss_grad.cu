@@ -1,0 +1,626 @@
+// K lanes of the fused margin-form GLM loss and gradient for Hopper
+// (sm_90a): the lanes of a regularization path, X read once for all.
+//
+// Replaces the TPU kernel spark_agd_tpu/ops/pallas_kernels.py:
+// fused_margin_loss_grad (body _margin_kernel) under jax.vmap, as
+// api.sweep runs it over the strengths of a path: Pallas batches the
+// kernel by adding a lane axis to its grid, one pass of X per lane.  For
+// X (N, D), labels y, one row mask m and the K rows w_k of W (K, D) it
+// returns, for every lane k,
+//
+//     loss[k] = sum_i m_i * per(x_i . w_k, y_i)
+//     grad[k] = sum_i m_i * mult(x_i . w_k, y_i) * x_i
+//
+// with (per, mult) the middles of margin_middle.cuh.
+//
+// What bounds it on this card: reading X, N*D*itemsize bytes, while the
+// 4*N*D*K flops take less time at the f32 rate (up to K = 20 for f32 X,
+// K = 10 for bf16).  Launched once per lane, the solo kernel
+// (margin_loss_grad.cu) would read X K times; the two library products
+// (X @ W^T, then M^T @ X) read it twice.
+//
+// lanes_plan picks the mode.  K is compiled in buckets (1, 2, 4, 8, 16
+// lanes; the lanes past K read zero weights and are not written), so one
+// launch takes up to kMaxLanes lanes and the wrapper runs more in chunks.
+// Every mode writes per-block partials that lanes_reduce sums in block
+// order, with no float atomics, so two calls on the same inputs give the
+// same bits.  X may be f32 or bf16 (widened to f32 in registers); y, m, W
+// and every accumulator are f32.  Ragged rows and columns are masked
+// here, so X needs no padding.
+//
+// Tile mode (one read of X, while the lanes' W, gradient partial and its
+// compensation, three KB x D f32 arrays, fit in shared memory beside two
+// tiles of at least one row: lanes_max_width): every block walks a contiguous range of rows
+// in tiles, the next tile copied with cp.async while the block computes
+// on the current one.  The K dots: a warp takes a group of R rows, each
+// lane summing every 32nd column of the R rows against every lane's
+// weights (R*KB sums in registers, each weight read from shared memory
+// once for R rows), then a shuffle tree; lane (r, k) of the warp applies
+// lane k's middle to row r and writes m * mult to the tile's (rows x KB)
+// multipliers.  The gradient: each thread owns kCols columns at a time
+// and sums mult[r][k] * x[r][c] over the tile into kCols x KB registers
+// (each row's KB multipliers read as broadcast vectors once for kCols
+// columns), then adds them to the block's partial in shared memory with
+// a compensated (Kahan) sum: a block walks some 75,000 rows at 10M rows,
+// and near an optimum the gradient is a small difference of large
+// partial sums, which plain f32 adds of each tile would blur.
+//
+// Two-pass mode (past lanes_max_width): pass 1 gives each row a warp
+// that reads it from device memory (W from L1/L2) and writes the K
+// multipliers to an (N, K) scratch; pass 2 walks column chunks x row
+// groups, one column and its KB sums a thread (plain sums over each
+// chunk of rows, compensated across chunks), and reads X again, as the
+// TPU wrapper's two library products do past its VMEM budget.  This mode
+// has no width limit.
+
+#include "tile_common.cuh"
+#include "margin_middle.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxLanes = 16;
+constexpr int kCols = 4;
+constexpr int kMaxTileRows = 32;
+
+// Rows of a warp's group in the dot product: R * KB sums in registers,
+// and R * KB <= 32, one lane of the middle each.  Two rows from 8 lanes
+// up, so that the 16-row tiles that fit at D = 1000 keep all 8 warps
+// busy.
+__host__ __device__ constexpr int group_rows(int kb) {
+  return kb >= 8 ? 2 : 4;
+}
+
+int bucket_of(int k) {
+  return k < 1 ? 0 : k <= 1 ? 1 : k <= 2 ? 2 : k <= 4 ? 4 : k <= 8 ? 8
+         : k <= kMaxLanes ? kMaxLanes : 0;
+}
+
+// Shared-memory layout of a tile-mode block (byte offsets): W at 0, the
+// gradient partial and its Kahan compensation (KB x D f32 each), the
+// tile's multipliers (rows x KB f32, 16-byte aligned for KB >= 4), one
+// loss slot a thread, then two X tile buffers, each 16-byte aligned with
+// 16 bytes of slack so that a tile's byte offset modulo 16 can match its
+// address in device memory.
+struct Layout {
+  int64_t g, comp, mult, loss, x, x_buf, total;
+  __host__ __device__ Layout(int64_t d, int kb, int rows, int itemsize) {
+    g = 4 * int64_t(kb) * d;
+    comp = 2 * g;
+    mult = 3 * g;
+    loss = mult + 4 * int64_t(rows) * kb;
+    x = round_up(loss + 4 * kThreads, 16);
+    x_buf = round_up(int64_t(rows) * d * itemsize + kTileSlack, 16);
+    total = x + 2 * x_buf;
+  }
+};
+
+// Most rows (at most kMaxTileRows, down to a multiple of the row group
+// where there are that many) whose block fits shared memory; 0 when not
+// even one row does.
+int choose_tile_rows(int64_t d, int kb, int itemsize) {
+  int rows = 0;
+  for (int r = kMaxTileRows; r >= 1 && rows == 0; --r)
+    if (Layout(d, kb, r, itemsize).total <= kSmemBlock) rows = r;
+  const int g = group_rows(kb);
+  return rows >= g ? rows - rows % g : rows;
+}
+
+// The KB floats at p (16-byte aligned when KB % 4 == 0).
+template <int KB>
+__device__ __forceinline__ void load_lanes(const float* p, float (&v)[KB]) {
+  if constexpr (KB % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < KB / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = q.x;
+      v[4 * i + 1] = q.y;
+      v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < KB; ++i) v[i] = p[i];
+  }
+}
+
+template <typename T, int L, int KB>
+__global__ void __launch_bounds__(kThreads)
+    lanes_tile(const T* __restrict__ X, const float* __restrict__ y,
+               const float* __restrict__ mask, const float* __restrict__ W,
+               int64_t n, int64_t d, int k, int tile_rows,
+               float* __restrict__ partial_loss,
+               float* __restrict__ partial_grad) {
+  constexpr int R = group_rows(KB);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay(d, KB, tile_rows, int(sizeof(T)));
+  float* w_s = reinterpret_cast<float*>(smem);
+  float* g_s = reinterpret_cast<float*>(smem + lay.g);
+  float* comp_s = reinterpret_cast<float*>(smem + lay.comp);
+  float* mult_s = reinterpret_cast<float*>(smem + lay.mult);
+  float* loss_s = reinterpret_cast<float*>(smem + lay.loss);
+  unsigned char* x_buf0 = smem + lay.x;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int64_t nblocks = gridDim.x;
+  const int64_t rows_per_block = (n + nblocks - 1) / nblocks;
+  const int64_t r_begin = min64(n, int64_t(blockIdx.x) * rows_per_block);
+  const int64_t r_end = min64(n, r_begin + rows_per_block);
+  // start copying the tile at row tile0 into buffer b
+  auto load = [&](int64_t tile0, int b) {
+    const int rows = int(min64(tile_rows, r_end - tile0));
+    copy_tile_async<kThreads>(X + tile0 * d,
+                              int64_t(rows) * d * int64_t(sizeof(T)),
+                              x_buf0 + b * lay.x_buf, X, X + n * d);
+  };
+  if (r_begin < r_end) load(r_begin, 0);
+  cp_async_commit();
+
+  for (int64_t i = tid; i < int64_t(KB) * d; i += kThreads) {
+    w_s[i] = i < int64_t(k) * d ? W[i] : 0.f;
+    g_s[i] = comp_s[i] = 0.f;
+  }
+  // this lane's place in the middle: row mid_r of its warp's group, lane
+  // mid_k of W
+  const int mid_r = lane / KB;
+  const int mid_k = lane % KB;
+  Kahan loss_acc;
+
+  int buf = 0;
+  for (int64_t tile0 = r_begin; tile0 < r_end;
+       tile0 += tile_rows, buf ^= 1) {
+    const int rows = int(min64(tile_rows, r_end - tile0));
+    // this tile has landed for every thread, and every thread is done
+    // with the last one (its buffer and the multipliers)
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tile0 + tile_rows < r_end) load(tile0 + tile_rows, buf ^ 1);
+    cp_async_commit();
+    const T* xs = reinterpret_cast<const T*>(
+        x_buf0 + buf * lay.x_buf +
+        (reinterpret_cast<uintptr_t>(X + tile0 * d) & 15));
+
+    // the K dots of each row: a warp a group of R rows
+    for (int r0 = warp * R; r0 < rows; r0 += kWarps * R) {
+      float acc[R][KB];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk) acc[r][kk] = 0.f;
+      for (int64_t c = lane; c < d; c += 32) {
+        float xv[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          xv[r] = r0 + r < rows ? to_f32(xs[int64_t(r0 + r) * d + c]) : 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk) {
+          const float wv = w_s[int64_t(kk) * d + c];
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r][kk] = fmaf(xv[r], wv, acc[r][kk]);
+        }
+      }
+      float dot = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk) {
+          float v = acc[r][kk];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, off);
+          if (r * KB + kk == lane) dot = v;
+        }
+      const int row = r0 + mid_r;
+      if (lane < R * KB && row < rows) {
+        float mm = 0.f;
+        if (mid_k < k) {
+          const int64_t gr = tile0 + row;
+          float per, mult;
+          loss_middle<L>(dot, y[gr], &per, &mult);
+          const float m = mask[gr];
+          mm = mult * m;
+          loss_acc.add(per * m);
+        }
+        mult_s[row * KB + mid_k] = mm;
+      }
+    }
+    __syncthreads();
+
+    // the gradient off the same tile: kCols columns a thread at a time
+    for (int64_t c0 = tid; c0 < d; c0 += int64_t(kCols) * kThreads) {
+      float s[kCols][KB];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk) s[j][kk] = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        float mv[KB];
+        load_lanes<KB>(mult_s + r * KB, mv);
+        const T* xr = xs + int64_t(r) * d;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const int64_t c = c0 + int64_t(j) * kThreads;
+          const float xv = c < d ? to_f32(xr[c]) : 0.f;
+#pragma unroll
+          for (int kk = 0; kk < KB; ++kk) s[j][kk] = fmaf(mv[kk], xv, s[j][kk]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int64_t c = c0 + int64_t(j) * kThreads;
+        if (c < d) {
+#pragma unroll
+          for (int kk = 0; kk < KB; ++kk) {
+            const int64_t i = int64_t(kk) * d + c;
+            const float v = s[j][kk] - comp_s[i];
+            const float t = g_s[i] + v;
+            comp_s[i] = (t - g_s[i]) - v;
+            g_s[i] = t;
+          }
+        }
+      }
+    }
+  }
+
+  loss_s[tid] = loss_acc.s;
+  __syncthreads();
+  const int64_t kd = int64_t(k) * d;
+  for (int64_t i = tid; i < kd; i += kThreads)
+    partial_grad[int64_t(blockIdx.x) * kd + i] = g_s[i];
+  if (tid < k) {
+    Kahan sum;
+    for (int w = 0; w < kWarps; ++w)
+      for (int l = tid; l < R * KB; l += KB) sum.add(loss_s[w * 32 + l]);
+    partial_loss[int64_t(blockIdx.x) * k + tid] = sum.s;
+  }
+}
+
+// Two-pass mode, pass 1: a warp per row (rows strided over the grid's
+// warps) forms the row's K dots from device memory; lane kk applies lane
+// kk's middle, writes m * mult to mult_out[r * k + kk] and adds m * per to
+// its loss.  One loss partial a lane per block.
+template <typename T, int L, int KB>
+__global__ void __launch_bounds__(kThreads)
+    lanes_wide_dots(const T* __restrict__ X, const float* __restrict__ y,
+                    const float* __restrict__ mask,
+                    const float* __restrict__ W, int64_t n, int64_t d, int k,
+                    float* __restrict__ mult_out,
+                    float* __restrict__ partial_loss) {
+  __shared__ float loss_s[kThreads];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  Kahan loss_acc;
+  const int64_t warps_total = int64_t(gridDim.x) * kWarps;
+  for (int64_t r = int64_t(blockIdx.x) * kWarps + warp; r < n;
+       r += warps_total) {
+    const T* row = X + r * d;
+    float acc[KB];
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) acc[kk] = 0.f;
+    for (int64_t c = lane; c < d; c += 32) {
+      const float xv = to_f32(row[c]);
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk)
+        if (kk < k) acc[kk] = fmaf(xv, __ldg(W + int64_t(kk) * d + c), acc[kk]);
+    }
+    float dot = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+      float v = acc[kk];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (kk == lane) dot = v;
+    }
+    if (lane < k) {
+      float per, mult;
+      loss_middle<L>(dot, y[r], &per, &mult);
+      const float m = mask[r];
+      mult_out[r * k + lane] = mult * m;
+      loss_acc.add(per * m);
+    }
+  }
+  loss_s[threadIdx.x] = loss_acc.s;
+  __syncthreads();
+  if (threadIdx.x < k) {
+    Kahan sum;
+    for (int w = 0; w < kWarps; ++w) sum.add(loss_s[w * 32 + threadIdx.x]);
+    partial_loss[int64_t(blockIdx.x) * k + threadIdx.x] = sum.s;
+  }
+}
+
+// Two-pass mode, pass 2: block (x, y) owns columns [256 x, 256 x + 256),
+// one a thread, over row group y; the multipliers come through shared
+// memory kWideChunk rows at a time, four rows' loads in flight, summed
+// plainly within a chunk and compensated across chunks.  Writes
+// partial_grad[(y * k + kk) * d + c].
+constexpr int kWideChunk = 256;
+constexpr int kWideBlocksPerSM = 8;
+
+template <typename T, int KB>
+__global__ void __launch_bounds__(kThreads)
+    lanes_wide_grad(const T* __restrict__ X, const float* __restrict__ mult,
+                    int64_t n, int64_t d, int k,
+                    float* __restrict__ partial_grad) {
+  __shared__ __align__(16) float mult_s[kWideChunk * KB];
+  const int64_t c = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t groups = gridDim.y;
+  const int64_t rows_per_group = (n + groups - 1) / groups;
+  const int64_t r_begin = min64(n, int64_t(blockIdx.y) * rows_per_group);
+  const int64_t r_end = min64(n, r_begin + rows_per_group);
+  Kahan sum[KB];
+  for (int64_t r0 = r_begin; r0 < r_end; r0 += kWideChunk) {
+    const int rows = int(min64(kWideChunk, r_end - r0));
+    __syncthreads();  // the last chunk's multipliers are consumed
+    for (int i = threadIdx.x; i < rows * KB; i += kThreads) {
+      const int kk = i % KB;
+      mult_s[i] = kk < k ? mult[(r0 + i / KB) * k + kk] : 0.f;
+    }
+    __syncthreads();
+    if (c < d) {
+      float s[KB];
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) s[kk] = 0.f;
+      const T* col = X + r0 * d + c;
+      int i = 0;
+      for (; i + 3 < rows; i += 4) {
+        float xv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) xv[u] = to_f32(col[int64_t(i + u) * d]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float mv[KB];
+          load_lanes<KB>(mult_s + (i + u) * KB, mv);
+#pragma unroll
+          for (int kk = 0; kk < KB; ++kk) s[kk] = fmaf(mv[kk], xv[u], s[kk]);
+        }
+      }
+      for (; i < rows; ++i) {
+        const float xv = to_f32(col[int64_t(i) * d]);
+        float mv[KB];
+        load_lanes<KB>(mult_s + i * KB, mv);
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk) s[kk] = fmaf(mv[kk], xv, s[kk]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) sum[kk].add(s[kk]);
+    }
+  }
+  if (c < d) {
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk)
+      if (kk < k)
+        partial_grad[(int64_t(blockIdx.y) * k + kk) * d + c] = sum[kk].s;
+  }
+}
+
+// Stage 2: fixed-order sums of the partials.  Thread i < k*d sums
+// gradient entry i over the ngrad gradient partials; thread k*d + kk sums
+// lane kk's loss over the nloss loss partials.
+__global__ void lanes_reduce(const float* __restrict__ partial_loss,
+                             int nloss, const float* __restrict__ partial_grad,
+                             int ngrad, int64_t kd, int k,
+                             float* __restrict__ loss,
+                             float* __restrict__ grad) {
+  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < kd) {
+    Kahan sum;
+    for (int b = 0; b < ngrad; ++b) sum.add(partial_grad[int64_t(b) * kd + i]);
+    grad[i] = sum.s;
+  } else if (i < kd + k) {
+    const int kk = int(i - kd);
+    Kahan sum;
+    for (int b = 0; b < nloss; ++b) sum.add(partial_loss[int64_t(b) * k + kk]);
+    loss[kk] = sum.s;
+  }
+}
+
+enum Mode { kLanesTile = 0, kLanesTwoPass = 1 };
+
+// A launch plan, as lanes_plan fills it: the mode; the lane bucket; the
+// tile rows (0 in two-pass mode); the blocks of the (first) launch, one
+// loss partial each; the gradient partials (the grid, or pass 2's row
+// groups).
+struct Plan {
+  int mode, kb, rows, grid, partials;
+};
+
+template <typename T, int L, int KB>
+cudaError_t launch_kb(const Plan& p, const T* X, const float* y,
+                      const float* mask, const float* W, int64_t n, int64_t d,
+                      int k, float* partial_loss, float* partial_grad,
+                      float* mult, cudaStream_t stream) {
+  if (p.mode == kLanesTile) {
+    const int64_t smem = Layout(d, KB, p.rows, int(sizeof(T))).total;
+    auto kern = lanes_tile<T, L, KB>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    kern<<<p.grid, kThreads, size_t(smem), stream>>>(
+        X, y, mask, W, n, d, k, p.rows, partial_loss, partial_grad);
+    return cudaGetLastError();
+  }
+  lanes_wide_dots<T, L, KB><<<p.grid, kThreads, 0, stream>>>(
+      X, y, mask, W, n, d, k, mult, partial_loss);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid2(unsigned((d + kThreads - 1) / kThreads),
+                   unsigned(p.partials));
+  lanes_wide_grad<T, KB><<<grid2, kThreads, 0, stream>>>(X, mult, n, d, k,
+                                                        partial_grad);
+  return cudaGetLastError();
+}
+
+template <typename T, int L>
+cudaError_t launch_loss(const Plan& p, const T* X, const float* y,
+                        const float* mask, const float* W, int64_t n,
+                        int64_t d, int k, float* pl, float* pg, float* mu,
+                        cudaStream_t s) {
+  switch (p.kb) {
+    case 1:
+      return launch_kb<T, L, 1>(p, X, y, mask, W, n, d, k, pl, pg, mu, s);
+    case 2:
+      return launch_kb<T, L, 2>(p, X, y, mask, W, n, d, k, pl, pg, mu, s);
+    case 4:
+      return launch_kb<T, L, 4>(p, X, y, mask, W, n, d, k, pl, pg, mu, s);
+    case 8:
+      return launch_kb<T, L, 8>(p, X, y, mask, W, n, d, k, pl, pg, mu, s);
+    case kMaxLanes:
+      return launch_kb<T, L, kMaxLanes>(p, X, y, mask, W, n, d, k, pl, pg,
+                                        mu, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_type(int loss_kind, const Plan& p, const void* X,
+                        const float* y, const float* mask, const float* W,
+                        int64_t n, int64_t d, int k, float* pl, float* pg,
+                        float* mu, cudaStream_t s) {
+  const T* Xt = static_cast<const T*>(X);
+  switch (loss_kind) {
+    case kLogistic:
+      return launch_loss<T, kLogistic>(p, Xt, y, mask, W, n, d, k, pl, pg,
+                                       mu, s);
+    case kLeastSquares:
+      return launch_loss<T, kLeastSquares>(p, Xt, y, mask, W, n, d, k, pl,
+                                           pg, mu, s);
+    case kHinge:
+      return launch_loss<T, kHinge>(p, Xt, y, mask, W, n, d, k, pl, pg, mu,
+                                    s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch plan for k lanes over X (n, d) with `itemsize`-byte elements on a
+// card of `sms` SMs, written to plan[0..4] = {mode, kb, rows, grid,
+// partials} (see Plan): tile mode while a row fits beside the lanes' W
+// and partial (a few blocks an SM where they fit, at most one per tile),
+// two-pass mode past that.  Returns cudaErrorInvalidValue, and sets
+// nothing, for arguments no mode takes (k outside 1..kMaxLanes).
+int lanes_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
+               int* plan) {
+  const int kb = bucket_of(k);
+  if (n < 0 || d < 1 || kb == 0 || sms < 1 ||
+      (itemsize != 4 && itemsize != 2))
+    return int(cudaErrorInvalidValue);
+  Plan p;
+  p.kb = kb;
+  if (const int rows = choose_tile_rows(d, kb, itemsize); rows >= 1) {
+    int64_t per_sm = kSmemSM / (Layout(d, kb, rows, itemsize).total +
+                                kSmemReserved);
+    per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
+    int64_t blocks = (n + rows - 1) / rows;
+    if (blocks > sms * per_sm) blocks = sms * per_sm;
+    p.mode = kLanesTile;
+    p.rows = rows;
+    p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
+  } else {
+    int64_t blocks = (n + kWarps - 1) / kWarps;
+    if (blocks > int64_t(sms) * kWideBlocksPerSM)
+      blocks = int64_t(sms) * kWideBlocksPerSM;
+    const int64_t chunks = (d + kThreads - 1) / kThreads;
+    int64_t groups = int64_t(sms) * kWideBlocksPerSM / chunks;
+    const int64_t most = (n + kWideChunk - 1) / kWideChunk;
+    if (groups > most) groups = most;
+    p.mode = kLanesTwoPass;
+    p.rows = 0;
+    p.grid = int(blocks < 1 ? 1 : blocks);
+    p.partials = int(groups < 1 ? 1 : groups);
+  }
+  plan[0] = p.mode;
+  plan[1] = p.kb;
+  plan[2] = p.rows;
+  plan[3] = p.grid;
+  plan[4] = p.partials;
+  return 0;
+}
+
+// The name of a mode of lanes_plan, or NULL past the last.
+const char* lanes_mode_name(int mode) {
+  switch (mode) {
+    case kLanesTile:
+      return "lanes_tile";
+    case kLanesTwoPass:
+      return "lanes_two_pass";
+    default:
+      return nullptr;
+  }
+}
+
+// The most lanes one launch takes.
+int lanes_max_lanes() { return kMaxLanes; }
+
+// The widest X (in columns) read once for k lanes: a row fits beside the
+// lanes' W and partial.  Wider X takes the two-pass mode.  0 for k
+// outside 1..kMaxLanes.
+int64_t lanes_max_width(int k, int itemsize) {
+  const int kb = bucket_of(k);
+  if (kb == 0) return 0;
+  int64_t lo = 0, hi = kSmemBlock;  // lo fits (vacuously), hi does not
+  while (hi - lo > 1) {
+    const int64_t mid = (lo + hi) / 2;
+    (choose_tile_rows(mid, kb, itemsize) >= 1 ? lo : hi) = mid;
+  }
+  return lo;
+}
+
+// Launch the plan's kernels and the final sums on `stream` for the k
+// rows of W (k, d).  `partial_loss` holds plan[3] * k floats,
+// `partial_grad` plan[4] * k * d floats and `mult` n * k floats
+// (two-pass mode only; it may be NULL otherwise) of scratch; `loss` gets
+// k floats and `grad` k * d.  Returns the CUDA error code of the
+// launches (0 on success); synchronises nothing.
+int margin_lanes_loss_grad(const void* X, int x_type, const void* y,
+                           const void* mask, const void* W, int64_t n,
+                           int64_t d, int loss_kind, int k, const int* plan,
+                           void* partial_loss, void* partial_grad,
+                           void* mult, void* loss, void* grad,
+                           void* stream) {
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4]};
+  const bool ok =
+      n >= 0 && d >= 1 && k >= 1 && bucket_of(k) == p.kb && p.grid >= 1 &&
+      p.partials >= 1 &&
+      ((p.mode == kLanesTile && p.rows >= 1 && p.partials == p.grid) ||
+       (p.mode == kLanesTwoPass && (mult != nullptr || n == 0)));
+  if (!ok) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* yf = static_cast<const float*>(y);
+  const float* mf = static_cast<const float*>(mask);
+  const float* wf = static_cast<const float*>(W);
+  float* pl = static_cast<float*>(partial_loss);
+  float* pg = static_cast<float*>(partial_grad);
+  float* mu = static_cast<float*>(mult);
+  cudaError_t err;
+  if (x_type == kF32)
+    err = launch_type<float>(loss_kind, p, X, yf, mf, wf, n, d, k, pl, pg,
+                             mu, s);
+  else if (x_type == kBF16)
+    err = launch_type<__nv_bfloat16>(loss_kind, p, X, yf, mf, wf, n, d, k,
+                                     pl, pg, mu, s);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return int(err);
+  const int64_t kd = int64_t(k) * d;
+  const int threads = 256;
+  const int blocks = int((kd + k + threads - 1) / threads);
+  lanes_reduce<<<blocks, threads, 0, s>>>(pl, p.grid, pg, p.partials, kd, k,
+                                          static_cast<float*>(loss),
+                                          static_cast<float*>(grad));
+  return int(cudaGetLastError());
+}
+
+const char* lanes_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -50,14 +50,13 @@
 // budget; this mode has no width limit.
 
 #include "tile_common.cuh"
+#include "margin_middle.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-enum LossKind { kLogistic = 0, kLeastSquares = 1, kHinge = 2 };
-enum XType { kF32 = 0, kBF16 = 1 };
 
 // Shared-memory layout of one block: w and the gradient accumulator
 // (D floats each), the tile's multipliers, one loss slot per warp, then
@@ -91,30 +90,6 @@ int choose_tile_rows(int64_t d, int itemsize) {
   if (rows >= kWarps) return rows - rows % kWarps;
   rows = fit_rows(d, itemsize, kSmemBlock);
   return rows >= kWarps ? rows - rows % kWarps : rows;
-}
-
-// The per-row middle, the same formulas as losses.py:152-179.
-template <int L>
-__device__ __forceinline__ void loss_middle(float dot, float y, float* per,
-                                            float* mult) {
-  if (L == kLogistic) {
-    // softplus(m) - (1 - y) m with m = -dot, in the exact form
-    // log1p(exp(-|m|)) + max(m, 0) (no threshold switch)
-    float m = -dot;
-    float sp = log1pf(expf(-fabsf(m))) + fmaxf(m, 0.f);
-    *per = sp - (1.f - y) * m;
-    *mult = 1.f / (1.f + expf(-dot)) - y;
-  } else if (L == kLeastSquares) {
-    float diff = dot - y;
-    *per = diff * diff;
-    *mult = 2.f * diff;
-  } else {
-    float s = 2.f * y - 1.f;
-    float margin = 1.f - s * dot;
-    bool active = margin > 0.f;
-    *per = active ? margin : 0.f;
-    *mult = active ? -s : 0.f;
-  }
 }
 
 template <typename T, int L>

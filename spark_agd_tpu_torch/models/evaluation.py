@@ -1,7 +1,8 @@
 """Model evaluation metrics — the ``mllib.evaluation`` surface in torch.
 
-Counterpart of ``spark_agd_tpu/models/evaluation.py`` (every metric but
-``cv_validation_scores``, which arrives with cross-validation).  Each
+Counterpart of ``spark_agd_tpu/models/evaluation.py``, every function of
+it, ``cv_validation_scores`` (any metric over the lanes of a
+cross-validation) included.  Each
 metric is a batched reduction on the device its inputs lie on: AUC is
 the rank-based Mann-Whitney statistic (one sort, average ranks for
 ties), the confusion matrix one ``bincount``.  Counts are exact: ranks
@@ -168,6 +169,47 @@ def confusion_matrix(predictions, labels, num_classes: int, mask=None):
         flat = torch.bincount(idx, weights=_t(mask, torch.float64, p.device),
                               minlength=size)
     return flat[:size].to(torch.float32).reshape(num_classes, num_classes)
+
+
+def cv_validation_scores(cv, X, y, *, score_fn, predict_fn=None,
+                         base_mask=None):
+    """Score every (fold, strength) lane of an ``api.cross_validate``
+    result with any metric, e.g. select by held-out AUC instead of loss.
+
+    ``score_fn(scores, labels, mask) -> scalar`` (e.g. :func:`roc_auc`);
+    ``predict_fn(w) -> scores`` maps one lane's weights to scores
+    (default: the margin ``X @ w``).  Rows the CV excluded stay excluded:
+    ``base_mask`` defaults to ``cv.base_mask``.  Returns ``(per_lane (F,
+    R), mean_per_strength (R,))``, the mean a ``nanmean`` over folds;
+    select with a NaN-aware arg-max or -min and check that the winner is
+    finite (a strength can be NaN in every fold)."""
+    from ..core import tvec
+    from ..ops.losses import _mm
+
+    n_folds, n_regs = cv.val_loss.shape
+    fold_ids = cv.fold_ids
+    dev = fold_ids.device
+    y = y if isinstance(y, torch.Tensor) else torch.as_tensor(np.asarray(y))
+    y = y.to(dev)
+    if base_mask is None:
+        base_mask = getattr(cv, "base_mask", None)
+    base = (torch.ones(y.shape[0], dtype=torch.float32, device=dev)
+            if base_mask is None else _t(base_mask, device=dev))
+    if predict_fn is None and not isinstance(X, torch.Tensor):
+        from ..ops.sparse import CSRMatrix
+
+        X = X.to(dev) if isinstance(X, CSRMatrix) \
+            else torch.as_tensor(np.asarray(X)).to(dev)
+    weights = cv.train_result.weights
+    per_lane = []
+    for f in range(n_folds):
+        val_mask = base * (fold_ids == f)
+        for r in range(n_regs):
+            w = tvec.tmap(lambda a: a[f, r], weights)
+            scores = _mm(X, w) if predict_fn is None else predict_fn(w)
+            per_lane.append(torch.as_tensor(score_fn(scores, y, val_mask)))
+    per_lane = torch.stack(per_lane).reshape(n_folds, n_regs)
+    return per_lane, torch.nanmean(per_lane, dim=0)
 
 
 def multiclass_metrics(predictions, labels, num_classes: int,

@@ -18,11 +18,13 @@ package's layout (``class``, ``weights``, ``intercept``, ``threshold``,
 ``__crc32__``), so a model saved by either package loads in the other.
 
 The ``*WithLBFGS`` trainers put ``api.LBFGS`` in the seat (L1 and
-elastic-net updaters go to OWL-QN).  Not in this slice (each raises
-``NotImplementedError``): ``train_path`` and ``cross_validate``, which
-need the lanes (``api.sweep``, ``api.cross_validate``,
-``LBFGS.sweep``).  X is a dense tensor (or anything numpy takes) or an
-``ops.sparse.CSRMatrix``.
+elastic-net updaters go to OWL-QN).  ``train_path`` fits a
+regularization path (``api.sweep`` through the optimizer seat) and
+``cross_validate`` runs K-fold CV over a grid, then refits the winner
+(``api.cross_validate``; AGD seats only).  Not in this slice:
+``train_path`` from an ``LBFGS`` seat, whose ``sweep`` raises
+``NotImplementedError`` until the L-BFGS lanes are ported.  X is a dense
+tensor (or anything numpy takes) or an ``ops.sparse.CSRMatrix``.
 """
 
 from __future__ import annotations
@@ -45,11 +47,6 @@ from ..ops.losses import (
 )
 from ..ops.prox import IdentityProx, L1Prox, L2Prox, Prox
 from ..ops.sparse import CSRMatrix
-
-_LANES_LATER = (
-    "arrives with the port of the lanes (api.sweep, api.cross_validate, "
-    "LBFGS.sweep) in a later slice")
-
 
 def _as_tensor(a, device=None):
     """A dense tensor or a CSRMatrix: tensors and CSR matrices are used as
@@ -362,15 +359,58 @@ class GeneralizedLinearAlgorithm:
         weights = self.optimizer.optimize((data_X, y), w0)
         return self._create_model(*self._split_intercept(weights))
 
+    def _require_grid_optimizer(self, op_name: str):
+        """Grid fits need the matching method on the optimizer seat (AGD
+        has ``sweep`` and ``cross_validate``; LBFGS has ``sweep``): a
+        seat without it gets a named error, not an AttributeError."""
+        if not hasattr(self.optimizer, op_name):
+            raise ValueError(
+                f"{op_name} requires an optimizer seat providing it "
+                f"(AcceleratedGradientDescent: sweep + cross_validate; "
+                f"LBFGS: sweep only); "
+                f"{type(self.optimizer).__name__} does not")
+
     def train_path(self, X, y, reg_params, initial_weights=None):
-        """The regularization path needs ``api.sweep``: not ported yet."""
-        raise NotImplementedError(f"train_path {_LANES_LATER}")
+        """Fit the regularization path: one typed model per strength, K
+        fits in lock-step (``optimizer.sweep``).  The trainer's own
+        ``reg_param`` is ignored; ``reg_params`` supplies the grid.
+        Returns ``(models, result)``: the models in ``reg_params`` order
+        and the batched ``AGDResult``."""
+        self._require_grid_optimizer("sweep")
+        data_X, w0 = self._prepare_fit(X, initial_weights)
+        res = self.optimizer.sweep((data_X, y), reg_params, w0)
+        w_all = res.weights
+        models = [self._create_model(*self._split_intercept(w_all[k]))
+                  for k in range(w_all.shape[0])]
+        return models, res
 
     def cross_validate(self, X, y, reg_params, n_folds: int = 5,
                        seed: int = 0, refit: bool = True):
-        """K-fold CV needs ``api.cross_validate``: not ported yet."""
-        raise NotImplementedError(
-            f"cross_validate {_LANES_LATER}")
+        """K-fold CV over ``reg_params`` (``optimizer.cross_validate``),
+        then (``refit=True``) one fit of the winning strength on all
+        rows.  Returns ``(model, cv)``, ``model`` None when
+        ``refit=False``."""
+        self._require_grid_optimizer("cross_validate")
+        reg_params = list(reg_params)  # consumed more than once below
+        data_X, w0 = self._prepare_fit(X, None)
+        cv = self.optimizer.cross_validate((data_X, y), reg_params, w0,
+                                           n_folds=n_folds, seed=seed)
+        model = None
+        if refit:
+            best_score = float(cv.mean_val_loss[int(cv.best_index)])
+            if not np.isfinite(best_score):
+                raise ValueError(
+                    "cross-validation produced no finite validation "
+                    "score (every fold/strength was empty or aborted); "
+                    "refusing to refit an arbitrary strength")
+            best = float(reg_params[int(cv.best_index)])
+            old = self.optimizer._reg_param
+            try:
+                self.optimizer.set_reg_param(best)
+                model = self.train(X, y)
+            finally:
+                self.optimizer.set_reg_param(old)
+        return model, cv
 
 
 class LogisticRegressionWithAGD(GeneralizedLinearAlgorithm):

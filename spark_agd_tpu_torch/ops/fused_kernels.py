@@ -18,6 +18,15 @@ deterministic:
   shared-memory tile up to :func:`max_width` columns, and past that a
   two-pass mode that reads X twice (as the Pallas wrapper's fallback
   past its VMEM budget does).
+- ``csrc/margin_lanes_loss_grad.cu``: the same three losses for K
+  weight vectors at once (the lanes of a sweep; counterpart of the margin
+  kernel under ``jax.vmap``, which Pallas runs as one pass of X per
+  lane).  :func:`fused_margin_lanes_loss_grad` is its wrapper and
+  :func:`fused_margin_lanes_loss_grad_reference` its plain version;
+  ``FusedMarginGradient.lanes_loss_and_grad`` calls it.  It reads X once
+  for up to :func:`max_lanes` lanes while their W and gradient fit in
+  shared memory beside a row (:func:`lanes_max_width`), and twice past
+  that; more lanes run in chunks of :func:`max_lanes`, one launch each.
 - ``csrc/softmax_loss_grad.cu``: the multinomial softmax with a (D, K)
   weight matrix.  :func:`fused_softmax_loss_grad` is its wrapper,
   :func:`fused_softmax_loss_grad_reference` its plain version, and
@@ -42,9 +51,12 @@ The launch shapes and the limits come from the CUDA sources
 ``softmax_plan``/``softmax_max_classes``), which alone know the kernels'
 shared-memory layouts.
 
-``launch_count`` and ``softmax_launch_count`` count kernel launches, so a
-run can show that its main path went through the kernels;
-``margin_mode_launches`` splits the margin count by mode.
+``launch_count``, ``lanes_launch_count`` and ``softmax_launch_count``
+count kernel launches, so a run can show that its main path went through
+the kernels; ``margin_mode_launches`` and ``lanes_mode_launches`` split
+the margin kernels' counts by mode.  ``FusedSoftmaxGradient`` runs its
+lanes lane by lane, one softmax launch each, as Pallas batches its
+kernel.
 """
 
 from __future__ import annotations
@@ -77,15 +89,18 @@ _X_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Kernel launches since import (or since a caller reset them to 0); the
 # margin kernel's also by mode name (a mode not launched reads 0).
 launch_count = 0
+lanes_launch_count = 0
 softmax_launch_count = 0
 margin_mode_launches = collections.Counter()
+lanes_mode_launches = collections.Counter()
 
 
 def reset_launch_counts():
     """Set every launch count to 0."""
-    global launch_count, softmax_launch_count
-    launch_count = softmax_launch_count = 0
+    global launch_count, lanes_launch_count, softmax_launch_count
+    launch_count = lanes_launch_count = softmax_launch_count = 0
     margin_mode_launches.clear()
+    lanes_mode_launches.clear()
 
 
 @dataclass(frozen=True)
@@ -361,6 +376,172 @@ def fused_margin_loss_grad(gradient: MarginGradient, w, staged: StagedDense):
     return loss, grad
 
 
+# ---------------------------------------------------------------------------
+# The margin kernel's lanes: K weight vectors, one read of X
+# ---------------------------------------------------------------------------
+
+def fused_margin_lanes_loss_grad_reference(gradient: MarginGradient, W,
+                                           staged: StagedDense):
+    """The plain version: the lanes kernel's function in f32, with two
+    torch products.  Returns ``(loss_sums, grad_sums)``, (K,) and (K, D)
+    f32."""
+    X = staged.X.to(torch.float32)
+    dots = X @ W.to(torch.float32).T
+    per, mult = gradient.dots_loss_and_mult(dots, staged.y[:, None])
+    m = staged.m[:, None]
+    return (per * m).sum(0), (mult * m).T @ X
+
+
+_LANES_ARGTYPES = _HEAD + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)] \
+    + [ctypes.c_void_p] * 6
+
+
+@functools.cache
+def lanes_library(source=None):
+    """Build (at first use) and load ``csrc/margin_lanes_loss_grad.cu``,
+    or ``source``, another version of it; returns ``(ctypes library,
+    BuiltLibrary)``."""
+    lib, built = _load("margin_lanes_loss_grad", "lanes", _LANES_ARGTYPES,
+                       source)
+    lib.lanes_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_int)]
+    lib.lanes_plan.restype = ctypes.c_int
+    lib.lanes_mode_name.argtypes = [ctypes.c_int]
+    lib.lanes_mode_name.restype = ctypes.c_char_p
+    lib.lanes_max_width.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.lanes_max_width.restype = ctypes.c_int64
+    lib.lanes_max_lanes.argtypes = []
+    lib.lanes_max_lanes.restype = ctypes.c_int
+    return lib, built
+
+
+def max_lanes() -> int:
+    """The most lanes one launch of the lanes kernel takes (its largest
+    lane bucket); a grid with more runs in chunks."""
+    return int(lanes_library()[0].lanes_max_lanes())
+
+
+def lanes_max_width(k: int, dtype) -> int:
+    """The widest X that the lanes kernel reads once for ``k`` lanes (a
+    row fits beside the lanes' W and gradient in shared memory)."""
+    return int(lanes_library()[0].lanes_max_width(k, _itemsize(dtype)))
+
+
+class LanesPlan(NamedTuple):
+    """A launch plan of the lanes kernel (``lanes_plan``): ``mode``
+    ("lanes_tile", one read of X, or "lanes_two_pass"); ``bucket``, the
+    lanes compiled for (K rounded up); ``tile_rows`` (0 in two-pass
+    mode); ``grid``, the blocks of the (first) launch; ``partials``, the
+    gradient partials summed at the end; ``raw``, the five ints as
+    ``lanes_plan`` filled them, passed back at launch."""
+
+    mode: str
+    bucket: int
+    tile_rows: int
+    grid: int
+    partials: int
+    raw: tuple
+
+
+def lanes_plan_for(lib, n: int, d: int, k: int, itemsize: int,
+                   sms: int) -> LanesPlan:
+    """``lib``'s plan for ``k`` lanes over X (n, d); raises
+    ``ValueError`` where it has none."""
+    plan = (ctypes.c_int * 5)()
+    if lib.lanes_plan(n, d, k, itemsize, sms, plan) != 0:
+        raise ValueError(f"fused_margin_lanes_loss_grad: no launch plan for "
+                         f"{k} lanes over X ({n}, {d}) of {itemsize}-byte "
+                         f"elements")
+    return LanesPlan(lib.lanes_mode_name(plan[0]).decode(), *plan[1:],
+                     tuple(plan))
+
+
+def lanes_launch_shape(X, k: int) -> LanesPlan:
+    """The lanes kernel's :class:`LanesPlan` for ``k`` lanes (at most
+    :func:`max_lanes`) over the CUDA tensor ``X`` (N, D)."""
+    n, d = X.shape
+    check_width(d, X.dtype)
+    return lanes_plan_for(lanes_library()[0], n, d, k, X.element_size(),
+                          _device_sms(X.device.index))
+
+
+def lanes_launch(lib, code: int, W, staged: StagedDense, plan: LanesPlan):
+    """Launch ``lib``'s ``margin_lanes_loss_grad`` with ``plan`` on the
+    current stream for the (k, D) f32 ``W``; returns ``(loss (k,), grad
+    (k, D))``.  Raises if the launch fails."""
+    X = staged.X
+    n, d = X.shape
+    k = W.shape[0]
+    kw = dict(dtype=torch.float32, device=X.device)
+    partial_loss = torch.empty(plan.grid * k, **kw)
+    partial_grad = torch.empty(plan.partials * k * d, **kw)
+    mult = (torch.empty(n * k, **kw) if plan.mode == "lanes_two_pass"
+            else None)
+    loss = torch.empty(k, **kw)
+    grad = torch.empty((k, d), **kw)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = lib.margin_lanes_loss_grad(
+            X.data_ptr(), _X_TYPES[X.dtype], staged.y.data_ptr(),
+            staged.m.data_ptr(), W.data_ptr(), n, d, code, k,
+            (ctypes.c_int * 5)(*plan.raw), partial_loss.data_ptr(),
+            partial_grad.data_ptr(),
+            None if mult is None else mult.data_ptr(), loss.data_ptr(),
+            grad.data_ptr(), stream)
+    if err != 0:
+        message = lib.lanes_error_string(err).decode()
+        raise RuntimeError(f"margin_lanes_loss_grad launch failed: CUDA "
+                           f"error {err} ({message})")
+    return loss, grad
+
+
+def fused_margin_lanes_loss_grad(gradient: MarginGradient, W,
+                                 staged: StagedDense):
+    """``(loss_sums (K,), grad_sums (K, D))`` in f32 of a logistic,
+    least-squares or hinge loss at the K rows of ``W``, reading X once
+    for up to :func:`max_lanes` lanes (twice past
+    :func:`lanes_max_width` columns); more lanes run in chunks, a launch
+    each.  CPU operands take the plain version; CUDA operands launch the
+    kernel on the current stream or raise.
+
+    Replaces ``spark_agd_tpu/ops/pallas_kernels.py:fused_margin_loss_grad``
+    under ``jax.vmap`` (``api.sweep``), where Pallas adds a lane axis to
+    the grid and reads X once per lane; on the H100 the lanes kernel is
+    bound by reading X once at device-memory bandwidth up to about 16
+    lanes."""
+    global lanes_launch_count
+    name = "fused_margin_lanes_loss_grad"
+    X = staged.X
+    if X.device.type == "cpu":
+        return fused_margin_lanes_loss_grad_reference(gradient, W, staged)
+    if X.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {X.device}")
+    code = _LOSS_CODES.get(type(gradient))
+    if code is None:
+        raise TypeError(f"the margin kernel has no loss middle for "
+                        f"{type(gradient).__name__}")
+    _, d = _check_staged(staged, name)
+    Wf = W.detach().to(torch.float32).contiguous()
+    _check(Wf.device == X.device and Wf.dim() == 2 and Wf.shape[1] == d
+           and Wf.shape[0] >= 1,
+           f"W must be a (K, {d}) tensor on {X.device}", name)
+    lib = lanes_library()[0]
+    chunk = max_lanes()
+    losses, grads = [], []
+    for k0 in range(0, Wf.shape[0], chunk):
+        Wc = Wf[k0:k0 + chunk]
+        plan = lanes_launch_shape(X, Wc.shape[0])
+        loss, grad = lanes_launch(lib, code, Wc, staged, plan)
+        lanes_launch_count += 1
+        lanes_mode_launches[plan.mode] += 1
+        losses.append(loss)
+        grads.append(grad)
+    if len(losses) == 1:
+        return losses[0], grads[0]
+    return torch.cat(losses), torch.cat(grads)
+
+
 class FusedMarginGradient(MarginGradient):
     """Runs a logistic, least-squares or hinge loss through the fused
     kernel on dense data (counterpart of ``PallasMarginGradient``).
@@ -397,6 +578,23 @@ class FusedMarginGradient(MarginGradient):
             X = stage_dense(X, y, mask)  # unprepared call: stage per call
         loss, grad = fused_margin_loss_grad(self.inner, weights, X)
         return loss.to(weights.dtype), grad.to(weights.dtype), X.n_valid
+
+    def lanes_loss_and_grad(self, W, X, y, masks=None):
+        """All K lanes of the (K, D) ``W`` in one call of the lanes
+        kernel, under the staged mask (per-lane masks are not the
+        kernel's: they raise).  A CSRMatrix takes the sparse products."""
+        if isinstance(X, CSRMatrix):
+            return self.inner.lanes_loss_and_grad(W, X, y, masks)
+        if masks is not None and (isinstance(X, StagedDense)
+                                  or masks.dim() != 1):
+            raise ValueError(
+                "FusedMarginGradient's lanes share one mask, the staged "
+                "one; per-lane masks go through the plain gradients")
+        if not isinstance(X, StagedDense):
+            X = stage_dense(X, y, masks)  # unprepared call: stage per call
+        loss, grad = fused_margin_lanes_loss_grad(self.inner, W, X)
+        return (loss.to(W.dtype), grad.to(W.dtype),
+                X.n_valid.expand(W.shape[0]))
 
 
 class FusedLogisticGradient(FusedMarginGradient):

@@ -19,6 +19,14 @@ Formulas follow spark-mllib 1.3.0 exactly as the JAX package does:
 X is a dense (strided) tensor or an ``ops.sparse.CSRMatrix``; the same
 classes serve both, the products going through ``ops.sparse`` for CSR, as
 the JAX losses do.  torch's own sparse layouts raise ``TypeError``.
+
+``lanes_loss_and_grad`` evaluates K weight vectors stacked on a leading
+lane axis at once (the counterpart of ``jax.vmap`` of
+``batch_loss_and_grad`` over the weights, as the sweeps and
+cross-validation use it), each lane under the shared mask or its own
+column of an (N, K) mask.  The margin losses form both products for all
+lanes (``X @ Wᵀ``, then ``multᵀ @ X``); any other loss runs lane by
+lane.
 """
 
 from __future__ import annotations
@@ -51,6 +59,21 @@ def _count(X, mask=None) -> torch.Tensor:
     if mask is None:
         return torch.tensor(X.shape[0], dtype=torch.int64, device=X.device)
     return (mask > 0).sum().to(torch.int64)
+
+
+def _lane_mask(masks, k: int):
+    """Lane ``k``'s mask: the shared (N,) mask, or column ``k`` of an
+    (N, K) one."""
+    if masks is None or masks.dim() == 1:
+        return masks
+    return masks[:, k]
+
+
+def _lane_counts(X, masks, k: int) -> torch.Tensor:
+    """``(K,)`` int64 valid-row counts of ``k`` lanes."""
+    if masks is not None and masks.dim() == 2:
+        return (masks > 0).sum(0).to(torch.int64)
+    return _count(X, masks).expand(k)
 
 
 def _mm(X, w):
@@ -97,6 +120,20 @@ class Gradient:
         n = n.to(loss_sum.dtype)
         return loss_sum / n, tvec.scale(1.0 / n, grad_sum)
 
+    def lanes_loss_and_grad(self, W, X, y, masks=None):
+        """K lanes at once: ``W`` stacked on a leading lane axis, ``masks``
+        ``None``, a shared (N,) mask or an (N, K) mask, a column a lane.
+        Returns ``((K,) loss sums, gradient sums stacked like W, (K,)
+        counts)``.  This default runs ``batch_loss_and_grad`` lane by
+        lane."""
+        k = tvec.leaves(W)[0].shape[0]
+        outs = [self.batch_loss_and_grad(tvec.lane(W, i), X, y,
+                                         _lane_mask(masks, i))
+                for i in range(k)]
+        return (torch.stack([o[0] for o in outs]),
+                tvec.stack_lanes([o[1] for o in outs]),
+                torch.stack([o[2] for o in outs]))
+
 
 class MarginGradient(Gradient):
     """A GLM loss that is a per-row function of the margin ``x·w``.
@@ -118,6 +155,20 @@ class MarginGradient(Gradient):
             per = per * m
             mult = mult * m
         return per.sum(), _rmm(X, mult), _count(X, mask)
+
+    def lanes_loss_and_grad(self, W, X, y, masks=None):
+        """Both products for all K lanes of the (K, D) ``W``: the margins
+        ``X @ Wᵀ`` (N, K), then ``multᵀ @ X``."""
+        check_layout(X)
+        dots = _mm(X, W.T)
+        per, mult = self.dots_loss_and_mult(dots, y.to(dots.dtype)[:, None])
+        if masks is not None:
+            m = masks.to(dots.dtype)
+            m = m[:, None] if m.dim() == 1 else m
+            per = per * m
+            mult = mult * m
+        return per.sum(0), _rmm(X, mult).T, _lane_counts(X, masks,
+                                                          W.shape[0])
 
 
 class LogisticGradient(MarginGradient):

@@ -502,3 +502,110 @@ def test_mlp_gradient_on_the_card_matches_the_cpu(cuda):
     model = t.train(X, y)
     assert model.params["W1"].device.type == "cuda"
     assert float((model.predict(X) == y).float().mean()) > 0.5
+
+
+# the lanes kernel: lane buckets (1, 2, 4, 8, 16) and their edges, one
+# chunk past the largest bucket, and widths across its two modes ("max":
+# the widest X read once for those lanes, resolved on the card)
+LANES = [1, 2, 3, 8, 16, 17, 20]
+LANE_WIDTHS = [1, 33, 1000, "max", "max+1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", LANES)
+def test_lanes_kernel_matches_plain_version(cuda, k, dtype):
+    """Each mode and bucket edge against the plain version, the same bits
+    on repeat, one launch a chunk of ``max_lanes`` lanes; each lane also
+    within the tolerances of the solo kernel's result."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    chunk = fk.max_lanes()
+    for width in LANE_WIDTHS:
+        limit = fk.lanes_max_width(min(k, chunk), dtype)
+        d = {"max": limit, "max+1": limit + 1}.get(width, width)
+        n = 3001 if d > 1000 else 20_011
+        X = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+        y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+        m = (torch.rand(n, generator=gen, device=cuda) < 0.7).float()
+        W = torch.randn((k, d), generator=gen, device=cuda) / d ** 0.5
+        staged = fk.stage_dense(X, y, m)
+        inner = losses.LogisticGradient()
+        plan = fk.lanes_launch_shape(X, min(k, chunk))
+        assert plan.mode == ("lanes_tile" if d <= limit
+                             else "lanes_two_pass"), (d, limit)
+        before = fk.lanes_launch_count
+        loss, grad = fk.fused_margin_lanes_loss_grad(inner, W, staged)
+        loss2, grad2 = fk.fused_margin_lanes_loss_grad(inner, W, staged)
+        torch.cuda.synchronize()
+        assert fk.lanes_launch_count == before + 2 * -(-k // chunk)
+        assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+        ref_loss, ref_grad = fk.fused_margin_lanes_loss_grad_reference(
+            inner, W, staged)
+        torch.testing.assert_close(loss, ref_loss, rtol=1e-5, atol=0.0)
+        torch.testing.assert_close(
+            grad, ref_grad, rtol=1e-4,
+            atol=1e-4 * float(ref_grad.abs().max()))
+        for lane in (0, k - 1):
+            s_loss, s_grad = fk.fused_margin_loss_grad(inner, W[lane], staged)
+            torch.testing.assert_close(loss[lane], s_loss, rtol=1e-5,
+                                       atol=0.0)
+            torch.testing.assert_close(
+                grad[lane], s_grad, rtol=1e-4,
+                atol=1e-4 * float(s_grad.abs().max()))
+
+
+@pytest.mark.cuda
+def test_lanes_kernel_rejects_what_it_does_not_take(cuda):
+    X = torch.randn((8, 4), device=cuda)
+    staged = fk.stage_dense(X, torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="W must be"):
+        fk.fused_margin_lanes_loss_grad(losses.LogisticGradient(),
+                                        torch.zeros(2, 5, device=cuda),
+                                        staged)
+    with pytest.raises(ValueError, match="per-lane masks"):
+        port.FusedLogisticGradient().lanes_loss_and_grad(
+            torch.zeros(2, 4, device=cuda), staged, None,
+            torch.ones(8, 2, device=cuda))
+
+
+@pytest.mark.cuda
+def test_fused_sweep_on_the_card_runs_the_lanes_kernel(cuda):
+    """A sweep through ``FusedLogisticGradient`` launches only the lanes
+    kernel, one launch per evaluation round, and follows the plain
+    sweep (loss rtol 1e-4 over the 8 iterations)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    n, d = 50_000, 100
+    X = torch.randn((n, d), generator=gen, device=cuda)
+    y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+    regs = [1.0, 0.1, 0.01]
+    kw = dict(num_iterations=8, convergence_tol=0.0,
+              initial_weights=torch.zeros(d, device=cuda))
+    g = port.FusedLogisticGradient()
+    rounds = g.lanes_loss_and_grad
+    count = {"rounds": 0}
+
+    def counted(*a):
+        count["rounds"] += 1
+        return rounds(*a)
+
+    g.lanes_loss_and_grad = counted
+    fk.reset_launch_counts()
+    fused = port.sweep((X, y), g, port.SquaredL2Updater(), regs, **kw)
+    assert fk.launch_count == 0 and fk.softmax_launch_count == 0
+    assert fk.lanes_launch_count == count["rounds"] >= 8
+    plain = port.sweep((X, y), port.LogisticGradient(),
+                       port.SquaredL2Updater(), regs, **kw)
+    torch.testing.assert_close(fused.loss_history, plain.loss_history,
+                               rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_cv_fold_ids_on_the_card_equal_the_cpu_draw(cuda):
+    from spark_agd_tpu_torch import api
+
+    for n in (1_000, 5_000, 3_000_000):
+        got = api.fold_assignment(n, 5, 0, cuda)
+        assert torch.equal(got.cpu(), api.fold_assignment(n, 5, 0, "cpu"))

@@ -571,7 +571,8 @@ def test_lbfgs_trainer_paths_still_raise_and_need_cuda(monkeypatch):
     t.optimizer.set_device("cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         t.train_path(X, y, [0.1, 0.01])
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # cross-validation is AGD-only in both packages: the JAX ValueError
+    with pytest.raises(ValueError, match="requires an optimizer seat"):
         tglm.SoftmaxRegressionWithLBFGS(2).cross_validate(X, y, [0.1])
     with pytest.raises(NotImplementedError, match="mesh"):
         tglm.LogisticRegressionWithLBFGS(mesh="data")

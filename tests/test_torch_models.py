@@ -299,11 +299,12 @@ def test_regression_and_multiclass_metrics_match_jax(masked):
 def test_later_slice_methods_raise():
     X, y = _binary()
     t = tglm.LogisticRegressionWithAGD()
-    t.optimizer.set_device("cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t.train_path(X, y, [0.1, 0.01])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t.cross_validate(X, y, [0.1, 0.01])
+    t.optimizer.set_device("cpu").set_num_iterations(3)
+    # the AGD seat's lanes are ported: the path and CV run
+    models, res = t.train_path(X, y, [0.1, 0.01])
+    assert len(models) == 2 and res.loss_history.shape == (2, 3)
+    model, cv = t.cross_validate(X, y, [0.1, 0.01], n_folds=2)
+    assert model is not None and cv.val_loss.shape == (2, 2)
     for lbfgs_trainer in (tglm.LogisticRegressionWithLBFGS(),
                           tglm.SoftmaxRegressionWithLBFGS(3)):
         lbfgs_trainer.optimizer.set_device("cpu")
