@@ -17,10 +17,14 @@ Phases, each printing one JSON line:
    the card (3 losses x f32/bf16 x masked/unmasked x w = 0/random) at
    D in {1, 2, 3, 7, 8, 31, 32} (its narrow mode, at 2,000,003 rows, so
    that each thread walks several groups of rows and a ragged last
-   group), at D in {33, 777, 1000} (its tile mode), at ``max_width`` and
-   one column past it (the two-pass mode), each call repeated to check
-   that it is bit-identical, each line with the plan and its launches; a
-   ``past_width_two_pass`` line;
+   group), at D in {33, 54, 64, 65, 90} and the warp-rows hand-over and
+   one column either side of it, and bf16 at 127 and 129 (its warp-rows
+   mode, and the tile past it, at 100,003 rows, not a multiple of a
+   warp's rows), at D in {777, 1000} (its tile mode), at ``max_width``
+   and one column past it (the two-pass mode), each call repeated to
+   check that it is bit-identical, each line with the plan and its
+   launches, each plan's mode held to the width rule; a
+   ``widths_by_mode`` and a ``past_width_two_pass`` line;
 4. softmax_kernel: the CUDA softmax kernel against its plain version
    (N = 100,003, D in {784, 785, 777}, K in {1, 2, 3, 8, 9, 10, 16, 17,
    32} and the class limit, f32/bf16 x masked/unmasked x W = 0/random),
@@ -134,10 +138,10 @@ Phases, each printing one JSON line:
     (``csrc/margin_lanes_loss_grad.cu``) against its plain version, and
     each lane against the solo kernel, at K in {1, 2, 3, 8, 16, 17, 20}
     (every lane bucket, one past the largest, two chunks) and D in {1,
-    2, 33, 1000, 40,000} plus each bucket's widest one-read width and
-    one column past it (the two-pass mode), f32/bf16 x masked/unmasked,
-    all three losses at D = 1000, K = 8, each call repeated
-    bit-identical;
+    2, 33, 1000, 1001, 1024, 40,000} plus each bucket's widest one-read
+    width and one column past it (the two-pass mode), f32/bf16 x
+    masked/unmasked, all three losses at D = 1000, K = 8, each call
+    repeated bit-identical;
 22. sweep_path, on phase 5's data after phase 13: ``AcceleratedGradient
     Descent(FusedLogisticGradient(), SquaredL2Updater()).sweep`` over
     the 8 strengths 10^-1 ... 10^-8 (40 iterations, tol 0), every launch
@@ -160,10 +164,17 @@ Phases, each printing one JSON line:
     ``SoftmaxRegressionWithAGD(10, add_intercept=False).train_path`` on
     the intercept-augmented X with ``FusedSoftmaxGradient`` in the seat
     (3 strengths, 10 iterations; one softmax launch a lane a round),
-    each lane held to the plain sweep.
+    each lane held to the plain sweep;
+25. mid_path, after phase 16: 10,000,000 x 54 f32 class-logistic data
+    made on the card (covtype.binary's width), the flagship's AGD fit
+    through ``run`` with ``FusedLogisticGradient``, every launch in the
+    margin kernel's warp-rows mode, held to the plain fit as phase 5 is;
+    the kernel at the fitted weights held to f64 sums (phase 3's
+    tolerance) and timed beside its bound, its plain version and the two
+    ``torch.matmul`` products, which it must beat.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-24) and read just after it; the sparse paths launch neither kernel,
+22-25) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -180,23 +191,34 @@ builds are timed in turns, A, B, ..., then back, each held to the f64
 sums; one ``ab`` line per seed.
 
 ``python3 chip_smoke.py --ab margin:NAME=SOURCE [...]`` does the same for
-copies of ``csrc/margin_loss_grad.cu`` (today's C interface, or the
-tile-only one of its first version), at 10,000,000 rows of f32 X of
-width 1, 2, 3, 8, 16, 32, 33, 64, 128, 256, 512 and 1000, and at
-100,000 x 40,000 for the builds that take it: one ``ab_margin`` line a
-width, with each build's plan, ms, error from f64 sums and whether its
-bits equal the first build's, the bound and the two ``torch.matmul``
-products' time.  It fails if a build's result is further from the f64
-sums than phase 3's tolerance (loss rtol 1e-5, gradient 1e-4 of each
-entry plus 1e-4 of the largest).  The tile-only interface is there for
-the comparison with the first version and goes with the next change to
-the margin kernel.
+copies of ``csrc/margin_loss_grad.cu`` with its C interface (this one or
+an earlier commit's), at 10,000,000 rows of f32 X of width 1, 2, 3, 8,
+16, 32, 33, 40, 48, 54, 64, 90, 96, 127, 128, 129, 192, 255, 256, 257,
+512 and 1000, of bf16 X of width 33, 64, 65, 127, 128, 129, 192, 255,
+256, 257 and 384 (the warp-rows mode's widths and its hand-overs to the
+tile, at odd and even widths), and at 100,000 x 40,000: one
+``ab_margin`` line a shape, with each build's plan, ms by CUDA events
+and by the profiler, error from f64 sums and whether its bits equal the
+first build's, the bound and the two ``torch.matmul`` products' time.
+It fails if a build's result is further from the f64 sums than phase
+3's tolerance (loss rtol 1e-5, gradient 1e-4 of each entry plus 1e-4 of
+the largest).
+
+``python3 chip_smoke.py --ab lanes:NAME=SOURCE [...]`` does the same for
+copies of ``csrc/margin_lanes_loss_grad.cu``: 10,000,000 rows of f32 X
+at D in {64, 256, 512, 1000} and K in {1, 2, 4, 8, 16}, then the first
+build's widest one-read width and one past it for each K at 100,003
+rows; one ``ab_lanes`` line a shape and K, with each build's plan, ms,
+error from f64 sums (held lane by lane) and same-bits flag, and the two
+``torch.matmul`` products on (D, K), ``X @ W.T`` and ``M.T @ X``, each
+alone and as a pair, by CUDA events (and the pair by the profiler).
 """
 
 import argparse
 import concurrent.futures
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -241,6 +263,10 @@ MLP = dict(n=1_000_000, d=1_024, hidden=32, classes=2, seed=4, reg=1e-5)
 # gene-expression matrix (about 20k-40k features, 1e4-1e5 samples), and
 # the kernel checks at a few thousand rows
 WIDE = dict(n=100_000, d=40_000, seed=5, reg=0.1, iters=20)
+# phase 25: covtype.binary's width (581,012 x 54 in the LIBSVM
+# collection) at the flagship's 10M rows, where the margin kernel runs its
+# warp-rows mode
+MID = dict(n=10_000_000, d=54, seed=7)
 WIDE_CHECK = dict(rows=3_000, widths=(40_000, 200_000))
 
 
@@ -417,14 +443,51 @@ def same_stop(res, res_plain, hist, hist_plain):
                              rtol=1e-4, atol=0.0)))
 
 
+# kernels whose registers and spills build_report lists one by one
+REPORTED_KERNELS = ("margin_warp_rows", "lanes_mma")
+
+
+def kernel_registers(log):
+    """``{kernel<template args>: [registers, spilled bytes stored and
+    loaded, stack frame bytes]}`` of each REPORTED_KERNELS kernel in a
+    ``ptxas -v`` log (a stack frame without spills is an array that
+    did not stay in registers)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?\w*?\d(" + "|".join(REPORTED_KERNELS)
+                      + r")I(\w+?)EEv", ln)
+        if m:  # the mangled template arguments: X's type, then ints
+            args = re.sub(r"^f", "f32,", m.group(2).replace(
+                "13__nv_bfloat16", "bf16,"))
+            args = re.sub(r"Li(\d+)E", r"\1,", args).rstrip(",")
+            cur = out.setdefault(f"{m.group(1)}<{args}>", [None, 0, 0])
+            continue
+        if re.search(r"(?:Compiling entry function|Function properties)",
+                     ln):
+            cur = None
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m:
+                cur[1] = int(m.group(2)) + int(m.group(3))
+                cur[2] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur[0] = int(m.group(1))
+    return out
+
+
 def build_report(b):
-    """A build's time, file and ``ptxas`` report (registers, spills)."""
+    """A build's time, file and ``ptxas`` report (registers, spills; each
+    REPORTED_KERNELS kernel's on its own)."""
     lines = b.log.splitlines()
     return {"nvcc_seconds": b.seconds, "library": b.path.name,
             "ptxas": sorted({ln.split(":", 1)[1].strip() for ln in lines
                              if "Used" in ln and "registers" in ln}),
             "spills": sorted({ln.strip() for ln in lines if "spill" in ln
-                              and " 0 bytes spill" not in ln})}
+                              and " 0 bytes spill" not in ln}),
+            "registers_spills_by_kernel": kernel_registers(b.log)}
 
 
 def phase_build(fk):
@@ -453,13 +516,19 @@ def phase_build(fk):
 # phase 3's widths: the narrow mode's bucket edges at KERNEL_NARROW_ROWS
 # rows, so that each thread walks several groups of rows (at 132 SMs a
 # thread's rows are 135,168 apart, 67,584 at D > 16, taken up to 4 at a
-# time) and a ragged last group; ragged and flagship tile widths at
-# KERNEL_ROWS; then, per dtype, the widest X read once and one column
-# past it (two-pass) at fewer rows
+# time) and a ragged last group; the warp-rows mode's column buckets and
+# unaligned rows (33, 54, 64, 65, 90), ragged and flagship tile widths at
+# KERNEL_ROWS (not a multiple of any warp's rows); the warp-rows hand-over
+# and one column either side there, and bf16's odd-width edge; then, per
+# dtype, the widest X read once and one column past it (two-pass) at
+# fewer rows
 KERNEL_NARROW_ROWS = 2_000_003
 KERNEL_NARROW_WIDTHS = (1, 2, 3, 7, 8, 31, 32)
 KERNEL_ROWS = 100_003
-KERNEL_WIDTHS = (33, 777, 1_000)
+KERNEL_WIDTHS = (33, 54, 64, 65, 90, 777, 1_000)
+# bf16 X of odd width: the warp-rows mode's last (127) and the tile's
+# first (129) past 128 columns
+KERNEL_BF16_ODD = (127, 129)
 KERNEL_WIDE_ROWS = {torch.float32: 20_000, torch.bfloat16: 8_192}
 
 
@@ -505,19 +574,37 @@ def phase_kernel(fk, losses):
     both = (torch.float32, torch.bfloat16)
     shapes = [(KERNEL_NARROW_ROWS, d, both) for d in KERNEL_NARROW_WIDTHS]
     shapes += [(KERNEL_ROWS, d, both) for d in KERNEL_WIDTHS]
+    hand = fk.warp_rows_max_width()
+    shapes += [(KERNEL_ROWS, hand + e, both) for e in (-1, 0, 1)]
+    shapes += [(KERNEL_ROWS, d, (torch.bfloat16,)) for d in KERNEL_BF16_ODD]
     for xt, n in KERNEL_WIDE_ROWS.items():
         limit = fk.max_width(xt)
         shapes += [(n, limit, (xt,)), (n, limit + 1, (xt,))]
-    past = {}
+    past, modes = {}, {}
     for n, d, xtypes in shapes:
         X32 = torch.randn((n, d), generator=gen, device=dev)
         for xt in xtypes:
             row = check_margin_kernel(fk, losses, X32, xt, gen, "kernel")
             emit({"phase": "kernel", **row})
-            if d == fk.max_width(xt) + 1:
+            limit = fk.max_width(xt)
+            want = ("narrow" if d <= 32 else "warp_rows"
+                    if d <= hand and (xt == torch.float32 or d % 2 == 0
+                                      or d <= 128)
+                    else "tile" if d <= limit else "two_pass")
+            if (want == "warp_rows") != fk.warp_rows_takes(d, xt):
+                raise AssertionError(f"warp_rows_takes({d}, {xt}) disagrees "
+                                     f"with the width rule")
+            if row["plan"]["mode"] != want:
+                raise AssertionError(f"kernel {n}x{d} {xt}: plan "
+                                     f"{row['plan']['mode']}, not {want}")
+            modes.setdefault(want, set()).add(d)
+            if d == limit + 1:
                 past[row["x_dtype"]] = row
         del X32
         torch.cuda.empty_cache()
+    emit({"phase": "kernel", "widths_by_mode": {
+        m: sorted(ws) for m, ws in modes.items()},
+        "warp_rows_max_width": hand})
     # one column past the widest X read once: computed in two passes
     if sorted(past) != ["bfloat16", "float32"] or any(
             r["plan"]["mode"] != "two_pass" for r in past.values()):
@@ -1700,6 +1787,104 @@ def gd_gate(port, fk, smi, launches):
             "two_matmuls_device_ms": two_mm_device_ms}
 
 
+def mid_path(port, fk, losses, device_synth, smi, launches):
+    """Phase 25: a dense X of covtype.binary's width (MID: 10M x 54 f32,
+    class-logistic data made on the card), where the margin kernel runs
+    its warp-rows mode: the flagship's AGD fit (reg 0.1, 40 iterations,
+    tol 0) through ``run`` with ``FusedLogisticGradient``, every launch
+    in that mode, held to the plain fit over their common iterations; the
+    kernel at the fitted weights held to f64 sums (phase 3's tolerance)
+    and timed beside its bound, its plain version and the two
+    ``torch.matmul`` products, which it must beat.  Returns the mode's
+    numbers for the kernels line."""
+    t_phase = time.perf_counter()
+    n, d = MID["n"], MID["d"]
+    (X, y), gen_s = timed(lambda: device_synth.class_logistic(
+        n, d, seed=MID["seed"]))
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+    kw = dict(reg_param=REG, num_iterations=ITERS, convergence_tol=TOL,
+              initial_weights=w0, return_result=True)
+    fused = counting(port.FusedLogisticGradient)()
+    fk.reset_launch_counts()
+    (w_run, hist, res), run_s = timed(lambda: port.run(
+        (X, y), fused, port.SquaredL2Updater(), **kw))
+    record_margin_path(fk, launches, "mid_path")
+    other = fk.lanes_launch_count + fk.softmax_launch_count
+    (_, hist_plain, res_plain), plain_s = timed(lambda: port.run(
+        (X, y), port.LogisticGradient(), port.SquaredL2Updater(), **kw))
+    n_iters, n_plain = int(res.num_iters), int(res_plain.num_iters)
+    n_common = min(n_iters, n_plain)
+
+    gradient = losses.LogisticGradient()
+    staged = fk.stage_dense(X, y)
+    loss, grad = fk.fused_margin_loss_grad(gradient, w_run, staged)
+    loss_err, max_abs_err = hold(loss, grad, *margin_f64(w_run, staged),
+                                 "mid_path shape: kernel vs f64 sums")
+    plan = fk.launch_shape(X)
+    state_before = card_state()
+    kernel_ms = time_ms(lambda: fk.fused_margin_loss_grad(gradient, w_run,
+                                                          staged))
+    kernel_device_ms = device_ms(lambda: fk.fused_margin_loss_grad(
+        gradient, w_run, staged))
+    plain_ms = time_ms(lambda: fk.fused_margin_loss_grad_reference(
+        gradient, w_run, staged))
+    mult = torch.randn(n, device="cuda")
+    two_mm_ms = time_ms(lambda: (X @ w_run, mult @ X))
+    two_mm_device_ms = two_matmuls_device_ms(X, w_run, mult)
+    state_after = card_state()
+    (b_ms, bound_by), _ = margin_bounds(n, d, 4)
+    del staged, mult
+    checks = {
+        "every_launch_warp_rows": launches["modes"]["mid_path"]
+        == {"warp_rows": launches["mid_path"]},
+        "launches_equal_evaluations":
+            launches["mid_path"] == fused.evaluations > 0,
+        "no_other_kernel": other == 0,
+        "same_stop_or_both_at_floor": same_stop(res, res_plain, hist,
+                                                hist_plain),
+        "history_rtol_1e-4": bool(np.allclose(
+            hist[:n_common], hist_plain[:n_common], rtol=1e-4, atol=0.0)),
+        "loss_decreases": bool(hist[-1] < hist[0]),
+        "finite": bool(np.isfinite(hist).all()
+                       and torch.isfinite(w_run).all()),
+        "weights_shape": tuple(w_run.shape) == (d,),
+        "faster_than_two_matmuls": kernel_ms < two_mm_ms,
+    }
+    with torch.no_grad():
+        acc = float(((X @ w_run > 0).float() == y).float().mean())
+    checks["accuracy_above_0.8"] = acc > 0.8
+    finish("mid_path", {
+        "shape": [n, d], "x_gb": X.numel() * 4 / 1e9, "generate_s": gen_s,
+        "run_s": run_s, "plain_run_s": plain_s, "num_iters": n_iters,
+        "num_iters_plain": n_plain, "num_backtracks": int(res.num_backtracks),
+        "launches": launches["mid_path"],
+        "modes": launches["modes"]["mid_path"],
+        "smooth_evaluations": fused.evaluations,
+        "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+        "loss_last_plain": float(hist_plain[-1]),
+        "max_hist_rel_diff": float(np.max(
+            np.abs(hist[:n_common] - hist_plain[:n_common])
+            / np.abs(hist_plain[:n_common]))),
+        "train_accuracy": acc, "plan": plan._asdict(),
+        "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
+        "plain_ms": plain_ms, "two_matmuls_ms": two_mm_ms,
+        "two_matmuls_device_ms": two_mm_device_ms, "bound_ms": b_ms,
+        "bound_by": bound_by,
+        "kernel_share_of_run_wall": launches["mid_path"] * kernel_ms
+        / (run_s * 1e3),
+        "shape_loss_rel_err_vs_f64": loss_err,
+        "shape_grad_max_abs_err_vs_f64": max_abs_err,
+        "card_before": state_before, "card_after": state_after},
+        checks, t_phase, smi)
+    del X, y
+    return {"shape": [n, d], "ms": kernel_ms,
+            "device_ms": sum(kernel_device_ms.values()) or None,
+            "plain_ms": plain_ms, "bound_ms": b_ms,
+            "two_matmuls_ms": two_mm_ms,
+            "two_matmuls_device_ms": two_mm_device_ms,
+            "max_abs_err_vs_f64": max_abs_err}
+
+
 def linreg_path(port, fk, device_synth, glm, smi, launches):
     """Phase 17: BASELINE config 2 as published, least squares on
     ``planted_dense_linreg`` 10M x 1000 (seed 2) through
@@ -1975,14 +2160,9 @@ def softmax_ab(port, fk, device_synth, specs, seeds):
 
     from spark_agd_tpu_torch.models import glm
 
-    names = [s.split("=", 1)[0] for s in specs]
-    sources = [os.path.abspath(s.split("=", 1)[1]) for s in specs]
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(specs)) as pool:
-        libs = list(pool.map(fk.softmax_library, sources))
-    emit({"phase": "ab_build", "seconds": time.perf_counter() - t0,
-          "builds": {name: dict(build_report(b), source=src)
-                     for name, src, (_, b) in zip(names, sources, libs)}})
+    names, builds = ab_builds(
+        specs, lambda src: fk.softmax_library(src)[::-1])
+    libs = [b[::-1] for b in builds]
     d = D_SM + 1
     for seed in seeds:
         X, y = device_synth.planted_softmax(N_SM, D_SM, K_SM, seed=seed)
@@ -2007,7 +2187,7 @@ def softmax_ab(port, fk, device_synth, specs, seeds):
 
             def call(lib=lib, plan=plan):
                 return fk._launch(lib, "softmax_loss_grad", "softmax", K_SM,
-                                  W, staged, plan)
+                                  W, staged, plan, (plan[1], plan[1]))
 
             loss, grad = call()
             r = out.setdefault(name, {"tile_rows_grid": list(plan), "ms": []})
@@ -2022,52 +2202,38 @@ def softmax_ab(port, fk, device_synth, specs, seeds):
         torch.cuda.empty_cache()
 
 
-# --ab margin: the widths swept at AB_ROWS rows, and one past a row in
-# shared memory at fewer rows (only the builds that take it)
+# --ab margin: the widths swept at AB_ROWS rows in f32 (and in bf16 at
+# the warp-rows mode's hand-over to the tile), and one past a row in
+# shared memory at fewer rows
 AB_ROWS = 10_000_000
-AB_WIDTHS = (1, 2, 3, 8, 16, 32, 33, 64, 128, 256, 512, 1000)
+AB_WIDTHS = (1, 2, 3, 8, 16, 32, 33, 40, 48, 54, 64, 90, 96, 127, 128, 129,
+             192, 255, 256, 257, 512, 1000)
+AB_BF16_WIDTHS = (33, 64, 65, 127, 128, 129, 192, 255, 256, 257, 384)
 AB_WIDE = (100_000, 40_000)
 
 
 def margin_build(fk, source):
-    """A build of the margin kernel from ``source`` with either C
-    interface: today's (a mode in each plan) or the tile-only one of its
-    first version (tile rows and grid).  Returns ``(BuiltLibrary, plan,
-    launch)`` with ``plan(n, d, itemsize, sms)`` a ``MarginPlan`` or None
-    where the build takes no such X, and ``launch(code, w, staged,
-    plan)`` -> ``(loss, grad)``."""
+    """A build of the margin kernel from ``source``, a copy of
+    ``csrc/margin_loss_grad.cu`` with its C interface (this one or an
+    earlier commit's).  Returns ``(BuiltLibrary, plan, launch)`` with
+    ``plan(n, d, itemsize, sms)`` a ``MarginPlan`` and ``launch(code, w,
+    staged, plan)`` -> ``(loss, grad)``."""
     import ctypes
 
-    lib, built = fk._load("margin_loss_grad", "margin", fk._ARGTYPES, source)
-    if hasattr(lib, "margin_mode_name"):
-        lib, _ = fk.library(source)
+    lib, built = fk._load("margin_loss_grad", "margin", fk._MARGIN_ARGTYPES,
+                          source)
+    lib.margin_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                                ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.margin_plan.restype = ctypes.c_int
+    lib.margin_mode_name.argtypes = [ctypes.c_int]
+    lib.margin_mode_name.restype = ctypes.c_char_p
 
-        def plan(n, d, itemsize, sms):
-            try:
-                return fk.plan_for(lib, n, d, itemsize, sms)
-            except ValueError:
-                return None
+    def plan(n, d, itemsize, sms):
+        return fk.plan_for(lib, n, d, itemsize, sms)
 
-        def launch(code, w, staged, p):
-            return fk.margin_launch(lib, code, w, staged, p)
-    else:
-        lib.margin_plan.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-        lib.margin_plan.restype = ctypes.c_int
+    def launch(code, w, staged, p):
+        return fk.margin_launch(lib, code, w, staged, p)
 
-        def plan(n, d, itemsize, sms):
-            rows, grid = ctypes.c_int(), ctypes.c_int()
-            if lib.margin_plan(n, d, itemsize, sms, ctypes.byref(rows),
-                               ctypes.byref(grid)):
-                return None
-            return fk.MarginPlan("tile", rows.value, grid.value, grid.value,
-                                 None)
-
-        def launch(code, w, staged, p):
-            return fk._launch(lib, "margin_loss_grad", "margin", code, w,
-                              staged, (p.tile_rows, p.grid),
-                              (p.grid, p.grid))
     return built, plan, launch
 
 
@@ -2107,71 +2273,157 @@ def margin_bounds(n, d, itemsize):
     return one, two
 
 
-def margin_ab(fk, specs):
-    """``--ab margin:NAME=SOURCE ...``: builds of the margin kernel timed
-    in turns (A, B, ..., then back) at each of AB_WIDTHS x AB_ROWS f32
-    and at AB_WIDE, logistic, each held to f64 sums, with the two
-    ``torch.matmul`` products beside them; one ``ab_margin`` line a
-    width."""
+def ab_builds(specs, build):
+    """``build(source)`` of each NAME=SOURCE in ``specs``, all at once,
+    each a tuple that starts with its ``BuiltLibrary``; emits the
+    ``ab_build`` line and returns ``(names, builds)``."""
     names = [s.split("=", 1)[0] for s in specs]
     sources = [os.path.abspath(s.split("=", 1)[1]) for s in specs]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(specs)) as pool:
-        builds = list(pool.map(lambda src: margin_build(fk, src), sources))
+        builds = list(pool.map(build, sources))
     emit({"phase": "ab_build", "seconds": time.perf_counter() - t0,
-          "builds": {name: dict(build_report(b), source=src)
-                     for name, src, (b, _, _) in zip(names, sources,
-                                                     builds)}})
+          "builds": {name: dict(build_report(b[0]), source=src)
+                     for name, src, b in zip(names, sources, builds)}})
+    return names, builds
+
+
+def in_turns(names, builds, out, call_of, exact, what):
+    """Time each build's ``call_of(build)`` in turns (A, B, ..., then
+    back) into ``out[name]`` (CUDA-event and profiler ms, the error from
+    the f64 sums ``exact`` = (loss, grad) held as ``hold_lanes`` holds
+    them, the same-bits flag against the first build); returns the
+    failed holds."""
+    failed, first = [], None
+    for name, b in zip(names + names[::-1], builds + builds[::-1]):
+        call, plan = call_of(b)
+        loss, grad = call()
+        r = out.setdefault(name, {"plan": list(plan), "ms": [],
+                                  "device_ms": []})
+        r["ms"].append(time_ms(call))
+        r["device_ms"].append(device_ms(call))
+        try:
+            r["loss_rel_err_vs_f64"], r["grad_max_abs_err_vs_f64"] = \
+                hold_lanes(loss.reshape(-1), grad.reshape(loss.numel(), -1),
+                           exact[0].reshape(-1),
+                           exact[1].reshape(loss.numel(), -1),
+                           f"{name} at {what}: far from the f64 sums")
+        except AssertionError as e:
+            r["loss_rel_err_vs_f64"] = r["grad_max_abs_err_vs_f64"] = None
+            failed.append(str(e))
+        if first is None:
+            first = name, loss, grad
+        r[f"same_bits_as_{first[0]}"] = bool(
+            torch.equal(loss, first[1]) and torch.equal(grad, first[2]))
+    return failed
+
+
+def margin_ab(fk, specs):
+    """``--ab margin:NAME=SOURCE ...``: builds of the margin kernel timed
+    in turns (A, B, ..., then back) at each of AB_WIDTHS x AB_ROWS f32,
+    AB_BF16_WIDTHS x AB_ROWS bf16 and AB_WIDE f32, logistic, each held
+    to f64 sums, with the two ``torch.matmul`` products beside them; one
+    ``ab_margin`` line a shape."""
+    names, builds = ab_builds(specs, lambda src: margin_build(fk, src))
     dev = torch.device("cuda")
     sms = fk._device_sms(0)
     failed = []
-    shapes = [(AB_ROWS, d) for d in AB_WIDTHS] + [AB_WIDE]
-    for n, d in shapes:
+    shapes = ([(AB_ROWS, d, torch.float32) for d in AB_WIDTHS]
+              + [(AB_ROWS, d, torch.bfloat16) for d in AB_BF16_WIDTHS]
+              + [(*AB_WIDE, torch.float32)])
+    for n, d, xt in shapes:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(d)
+        X = torch.randn((n, d), generator=gen, device=dev).to(xt)
+        y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+        w = torch.randn(d, generator=gen, device=dev) / d ** 0.5
+        staged = fk.stage_dense(X, y)
+        exact = margin_f64(w, staged)
+        mult = torch.randn(n, generator=gen, device=dev).to(xt)
+        itemsize = X.element_size()
+        (b_ms, bound_by), (b2_ms, _) = margin_bounds(n, d, itemsize)
+        out = {"phase": "ab_margin", "shape": [n, d],
+               "x_dtype": str(xt).replace("torch.", ""), "bound_ms": b_ms,
+               "bound_by": bound_by, "two_pass_bound_ms": b2_ms,
+               "grad_abs_max": float(exact[1].abs().max()),
+               "card_before": card_state()}
+
+        def call_of(b):
+            _, plan, launch = b
+            p = plan(n, d, itemsize, sms)
+            return (lambda: launch(0, w, staged, p)), p[:4]
+
+        failed += in_turns(names, builds, out, call_of, exact, f"{n}x{d}")
+        wx = w.to(xt)
+        out["two_matmuls_ms"] = time_ms(lambda: (X @ wx, mult @ X))
+        out["two_matmuls_device_ms"] = two_matmuls_device_ms(X, wx, mult)
+        out["card_after"] = card_state()
+        emit(out)
+        del X, y, staged, mult, exact
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+# --ab lanes: the lane counts and widths timed at LANES_AB_ROWS rows of
+# f32 X, then each lane bucket's widest one-read width and one past it
+# at LANES_AB_EDGE_ROWS
+LANES_AB_ROWS, LANES_AB_EDGE_ROWS = 10_000_000, 100_003
+LANES_AB_WIDTHS = (64, 256, 512, 1_000)
+LANES_AB_K = (1, 2, 4, 8, 16)
+
+
+def lanes_ab(fk, specs):
+    """``--ab lanes:NAME=SOURCE ...``: builds of the lanes kernel (copies
+    of ``csrc/margin_lanes_loss_grad.cu`` with its C interface) timed in
+    turns at LANES_AB_WIDTHS x LANES_AB_K, logistic, f32, each held to
+    f64 sums lane by lane, with the two ``torch.matmul`` products on (D,
+    K) timed each alone and as a pair; then the ``lanes_max_width`` edges
+    (of the first build) at fewer rows.  One ``ab_lanes`` line a shape."""
+    names, builds = ab_builds(specs, lambda src: fk.lanes_library(src)[::-1])
+    dev = torch.device("cuda")
+    sms = fk._device_sms(0)
+    first_lib = builds[0][1]
+    edges = sorted({(int(first_lib.lanes_max_width(k, 4)) + e, k)
+                    for k in LANES_AB_K for e in (0, 1)})
+    shapes = [(LANES_AB_ROWS, d, LANES_AB_K) for d in LANES_AB_WIDTHS]
+    shapes += [(LANES_AB_EDGE_ROWS, d, (k,)) for d, k in edges]
+    failed = []
+    for n, d, ks in shapes:
         gen = torch.Generator(device=dev)
         gen.manual_seed(d)
         X = torch.randn((n, d), generator=gen, device=dev)
         y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
-        w = torch.randn(d, generator=gen, device=dev) / d ** 0.5
         staged = fk.stage_dense(X, y)
-        exact_loss, exact_grad = margin_f64(w, staged)
-        mult = torch.randn(n, generator=gen, device=dev)
-        (b_ms, bound_by), (b2_ms, _) = margin_bounds(n, d, 4)
-        out = {"phase": "ab_margin", "shape": [n, d], "bound_ms": b_ms,
-               "bound_by": bound_by, "two_pass_bound_ms": b2_ms,
-               "grad_abs_max": float(exact_grad.abs().max()),
-               "card_before": card_state()}
-        first = None
-        for name, (_, plan, launch) in zip(names + names[::-1],
-                                           builds + builds[::-1]):
-            p = plan(n, d, 4, sms)
-            if p is None:
-                out[name] = {"plan": None}
-                continue
+        for k in ks:
+            W = torch.randn((k, d), generator=gen, device=dev) / d ** 0.5
+            exact = margin_lanes_f64(W, staged)
+            mult = torch.randn((n, k), generator=gen, device=dev)
+            b_ms, bound_by = bound_ms(n * d * 4 + 2 * n * 4 + 2 * k * d * 4
+                                      + k * 4, 4 * n * d * k)
+            out = {"phase": "ab_lanes", "shape": [n, d], "lanes": k,
+                   "bound_ms": b_ms, "bound_by": bound_by,
+                   "grad_abs_max": float(exact[1].abs().max()),
+                   "card_before": card_state()}
 
-            def call(launch=launch, p=p):
-                return launch(0, w, staged, p)
+            def call_of(b, W=W):
+                lib = b[1]
+                p = fk.lanes_plan_for(lib, n, d, k, 4, sms)
+                return (lambda: fk.lanes_launch(lib, 0, W, staged, p)), \
+                    (p.mode, *p[1:5])
 
-            loss, grad = call()
-            r = out.setdefault(name, {"plan": list(p), "ms": [],
-                                      "device_ms": []})
-            r["ms"].append(time_ms(call))
-            r["device_ms"].append(device_ms(call))
-            try:
-                r["loss_rel_err_vs_f64"], r["grad_max_abs_err_vs_f64"] = \
-                    hold(loss, grad, exact_loss, exact_grad,
-                         f"{name} at {n}x{d}: far from the f64 sums")
-            except AssertionError as e:
-                r["loss_rel_err_vs_f64"] = r["grad_max_abs_err_vs_f64"] = None
-                failed.append(str(e))
-            if first is None:
-                first = name, loss, grad
-            r[f"same_bits_as_{first[0]}"] = bool(
-                torch.equal(loss, first[1]) and torch.equal(grad, first[2]))
-        out["two_matmuls_ms"] = time_ms(lambda: (X @ w, mult @ X))
-        out["two_matmuls_device_ms"] = two_matmuls_device_ms(X, w, mult)
-        out["card_after"] = card_state()
-        emit(out)
-        del X, y, staged, mult, exact_grad, first
+            failed += in_turns(names, builds, out, call_of, exact,
+                               f"{n}x{d}, K = {k}")
+            out["xw_ms"] = time_ms(lambda: X @ W.T)
+            out["mx_ms"] = time_ms(lambda: mult.T @ X)
+            out["two_matmuls_ms"] = time_ms(lambda: (X @ W.T, mult.T @ X))
+            times = [device_ms(lambda: X @ W.T), device_ms(lambda: mult.T @ X)]
+            out["two_matmuls_device_ms"] = (sum(sum(t.values()) for t in times)
+                                            if all(times) else None)
+            out["card_after"] = card_state()
+            emit(out)
+            del W, mult, exact
+        del X, y, staged
         torch.cuda.empty_cache()
     if failed:
         raise AssertionError("; ".join(failed))
@@ -2187,7 +2439,7 @@ def margin_ab(fk, specs):
 # that bucket and dtype, resolved on the card), LANES_ROWS rows up to
 # 1,000 columns and LANES_WIDE_ROWS past them
 LANES_K = (1, 2, 3, 8, 16, 17, 20)
-LANES_WIDTHS = (1, 2, 33, 1_000, 40_000)
+LANES_WIDTHS = (1, 2, 33, 1_000, 1_001, 1_024, 40_000)
 LANES_ROWS, LANES_WIDE_ROWS = 100_003, 3_000
 # phase 22: tpu_checks.py:277's grid, 10^-1 ... 10^-8
 SWEEP_REGS = [10.0 ** -(i + 1) for i in range(8)]
@@ -2265,7 +2517,7 @@ def phase_lanes_kernel(fk, losses):
                                              limits[kind].values()
                                              for e in (0, 1)})
         for d in widths:
-            n = LANES_ROWS if d <= 1_000 else LANES_WIDE_ROWS
+            n = LANES_ROWS if d <= 1_024 else LANES_WIDE_ROWS
             gen = torch.Generator(device=dev)
             gen.manual_seed(d)
             X = torch.randn((n, d), generator=gen, device=dev).to(dtype)
@@ -2277,9 +2529,10 @@ def phase_lanes_kernel(fk, losses):
                              limits[kind][plan.bucket] + 1)
                 if d not in LANES_WIDTHS and not edge:
                     continue
-                want = ("lanes_tile" if d <= limits[kind][plan.bucket]
-                        else "lanes_two_pass")
-                if plan.mode != want:
+                want = (("lanes_mma", "lanes_tile")
+                        if d <= limits[kind][plan.bucket]
+                        else ("lanes_two_pass",))
+                if plan.mode not in want:
                     raise AssertionError(f"lanes plan at d={d}, k={k}, "
                                          f"{kind}: {plan.mode}, not {want}")
                 W = torch.randn((k, d), generator=gen, device=dev) / d ** 0.5
@@ -2590,10 +2843,12 @@ def softmax_sweep(port, fk, glm, smi, Xa, y, launches):
 def main(argv):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card.")
-    parser.add_argument("--ab", nargs="+", metavar="[margin:]NAME=SOURCE",
+    parser.add_argument("--ab", nargs="+",
+                        metavar="[margin:|lanes:]NAME=SOURCE",
                         help="time these builds of the softmax kernel "
-                             "(or, each prefixed margin:, of the margin "
-                             "kernel) instead of running the phases")
+                             "(or, each prefixed margin: or lanes:, of the "
+                             "margin or lanes kernel) instead of running "
+                             "the phases")
     parser.add_argument("--seeds", default="3",
                         help="data seeds of --ab, comma-separated")
     args = parser.parse_args(argv)
@@ -2618,14 +2873,19 @@ def main(argv):
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
     if args.ab:
-        margin = [s.startswith("margin:") for s in args.ab]
-        if any(margin) and not all(margin):
-            parser.error("--ab takes softmax builds or margin: builds, "
-                         "not both")
-        if all(margin):
-            margin_ab(fk, [s[len("margin:"):] for s in args.ab])
+        kinds = {s.split(":", 1)[0] if s.split("=", 1)[0].count(":") else ""
+                 for s in args.ab}
+        if len(kinds) != 1 or not kinds <= {"", "margin", "lanes"}:
+            parser.error("--ab takes softmax builds, margin: builds or "
+                         "lanes: builds, one kind at a time")
+        kind = kinds.pop()
+        specs = [s[len(kind) + 1:] if kind else s for s in args.ab]
+        if kind == "margin":
+            margin_ab(fk, specs)
+        elif kind == "lanes":
+            lanes_ab(fk, specs)
         else:
-            softmax_ab(port, fk, device_synth, args.ab,
+            softmax_ab(port, fk, device_synth, specs,
                        [int(s) for s in args.seeds.split(",")])
         return 0
 
@@ -2678,8 +2938,10 @@ def main(argv):
     emit({"phase": "sparse_products", **rows,
           "seconds": time.perf_counter() - t0})
 
-    # 16-18. the GD gate, BASELINE configs 2 and 5
+    # 16-18 and 25. the GD gate, the mid widths, BASELINE configs 2 and 5
     narrow = gd_gate(port, fk, smi, launches)
+    torch.cuda.empty_cache()
+    mid = mid_path(port, fk, losses, device_synth, smi, launches)
     torch.cuda.empty_cache()
     linreg_path(port, fk, device_synth, glm, smi, launches)
     torch.cuda.empty_cache()
@@ -2690,7 +2952,8 @@ def main(argv):
     wide = wide_path(port, fk, losses, device_synth, smi, launches)
 
     # 20. the kernels line, the card, the result
-    paths = ("lbfgs_path", "gd_gate", "linreg_path", "wide_path")
+    paths = ("lbfgs_path", "gd_gate", "mid_path", "linreg_path",
+             "wide_path")
     margin["launches_by_path"] = {"main_path": margin["launches"],
                                   **{p: launches[p] for p in paths}}
     margin["modes_by_path"] = {"main_path": margin.pop("main_path_modes"),
@@ -2700,7 +2963,7 @@ def main(argv):
                                         "bound_ms", "two_matmuls_ms",
                                         "two_matmuls_device_ms")}
         | {"shape": [N_MAIN, D_MAIN]},
-        "narrow": narrow, "two_pass": wide}
+        "narrow": narrow, "warp_rows": mid, "two_pass": wide}
     softmax["launches_by_path"] = {
         "softmax_path": softmax["launches"],
         "softmax_lbfgs_path": launches["softmax_lbfgs_path"],

@@ -15,9 +15,9 @@
 //
 // What bounds it on this card: reading X, N*D*itemsize bytes, while the
 // 4*N*D*K flops take less time at the f32 rate (up to K = 20 for f32 X,
-// K = 10 for bf16).  Launched once per lane, the solo kernel
-// (margin_loss_grad.cu) would read X K times; the two library products
-// (X @ W^T, then M^T @ X) read it twice.
+// K = 10 for bf16), and far less on the tensor cores.  Launched once per
+// lane, the solo kernel (margin_loss_grad.cu) would read X K times; the
+// two library products (X @ W^T, then M^T @ X) read it twice.
 //
 // lanes_plan picks the mode.  K is compiled in buckets (1, 2, 4, 8, 16
 // lanes; the lanes past K read zero weights and are not written), so one
@@ -27,6 +27,24 @@
 // same bits.  X may be f32 or bf16 (widened to f32 in registers); y, m, W
 // and every accumulator are f32.  Ragged rows and columns are masked
 // here, so X needs no padding.
+//
+// Tensor-core mode (from 8 lanes at every width it takes, 4 lanes past
+// 512 columns: where the `--ab lanes:` sweep found it faster than the
+// tile mode).  What held the tile mode back at 10M x 1000, K = 8: W, the
+// gradient partial and its compensation in shared memory (96 KB) left
+// room for one 256-thread block an SM; its 3.2e11 flops ran on the CUDA
+// cores with a shared-memory operand every 2 FMAs; and the K x D partial
+// was folded into shared memory after every 16-row tile.  Here both
+// products run on the tensor cores (mma.sync m16n8k8, TF32 operands
+// split in halves for f32 accuracy, W in three parts, tf32_mma.cuh):
+// the dots of a 16-row tile as X_tile W^T (the lanes as one or two n8
+// tiles), the gradient as X_tile^T M (16 columns of D an m16 tile, the
+// rows as two k8 steps).  Each of 16 warps owns fixed m-tiles of the
+// gradient for the block's whole row range, their sums and Kahan
+// compensations in registers, so nothing is folded into shared memory
+// and 512 threads share the SM; the next tile loads (cp.async) while the
+// block works on this one.  Past the registers (more than 8 m16 x n8
+// tiles a warp) or shared memory, the lanes keep the tile mode.
 //
 // Tile mode (one read of X, while the lanes' W, gradient partial and its
 // compensation, three KB x D f32 arrays, fit in shared memory beside two
@@ -55,6 +73,7 @@
 
 #include "tile_common.cuh"
 #include "margin_middle.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -278,6 +297,268 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- tensor-core mode -------------------------------------------------
+//
+// One block of kMmaWarps warps an SM walks a contiguous range of rows in
+// 16-row tiles (one m16 tile), cp.async double-buffered.  A tile's K
+// dots are Z (16 x 8 NT) = X_tile W^T: A = X, B = W^T in NT n8 tiles of
+// lanes, D stepped 8 columns at a time, warp w taking the steps w, w +
+// kMmaWarps, ...; each warp writes its partial Z to shared memory.  One
+// thread a (row, lane) sums the warps' partials in warp order and applies
+// the lane's middle, writing m * mult to the tile's M (16 x 8 NT).  The
+// gradient G^T (D x 8 NT) += X_tile^T M: A = X^T (16 columns of D an m16
+// tile, the tile's rows as two k8 steps), B = M.  Warp w owns the
+// m-tiles w, w + kMmaWarps, ... (MT of them) for the block's whole row
+// range, their sums and Kahan compensations in registers, and folds each
+// tile's product into them with a compensated add.
+constexpr int kMmaThreads = 512;
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kMmaRows = 16;
+// The m16 x n8 gradient tiles a warp may own (MT * NT, each 4 sums and 4
+// compensations a thread): past that the lanes keep the tile mode.
+constexpr int kMmaMaxTiles = 8;
+
+// Row stride, in floats, of W staged in shared memory: the columns padded
+// to a multiple of 8, then to s % 32 == 4, so that the lanes of a B
+// fragment load (lane g of W, column t) hit distinct banks.
+__host__ __device__ inline int64_t mma_w_stride(int64_t d) {
+  const int64_t s = round_up(d, 8);
+  return s + ((4 - s % 32) % 32 + 32) % 32;
+}
+
+// Row stride, in floats, of the partial dots and the multipliers: 8 for
+// one n8 tile of lanes, 24 for two, so that fragment stores and loads hit
+// distinct banks.
+__host__ __device__ constexpr int mma_lane_stride(int nt) {
+  return nt == 1 ? 8 : 24;
+}
+
+// The m16 tiles of D a warp owns, rounded up to 1, 2, 4 or 8; 0 past 8.
+__host__ __device__ inline int mma_tiles(int64_t d) {
+  const int64_t per_warp = ((d + 15) / 16 + kMmaWarps - 1) / kMmaWarps;
+  return per_warp <= 1 ? 1 : per_warp <= 2 ? 2 : per_warp <= 4 ? 4
+         : per_warp <= 8 ? 8 : 0;
+}
+
+// Shared-memory layout of a tensor-core block (byte offsets): W at 0 (8
+// NT x mma_w_stride floats, zero past lane k and column d), the warps'
+// partial dots (kMmaWarps x 16 x stride), the tile's multipliers (16 x
+// stride), then two X tile buffers as in tile mode.
+struct MmaLayout {
+  int64_t zp, mult, x, x_buf, total;
+  __host__ __device__ MmaLayout(int64_t d, int nt, int itemsize) {
+    const int ls = mma_lane_stride(nt);
+    zp = 4 * 8 * nt * mma_w_stride(d);
+    mult = zp + 4 * kMmaWarps * kMmaRows * ls;
+    x = round_up(mult + 4 * kMmaRows * ls, 16);
+    x_buf = round_up(int64_t(kMmaRows) * d * itemsize + kTileSlack, 16);
+    total = x + 2 * x_buf;
+  }
+};
+
+template <typename T, int L, int NT, int MT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    lanes_mma(const T* __restrict__ X, const float* __restrict__ y,
+              const float* __restrict__ mask, const float* __restrict__ W,
+              int64_t n, int d, int k, float* __restrict__ partial_loss,
+              float* __restrict__ partial_grad) {
+  constexpr bool kXLo = sizeof(T) == 4;  // f32 X has a lo half
+  constexpr int LS = mma_lane_stride(NT);
+  constexpr int KB = 8 * NT;             // lanes computed, k of them live
+  extern __shared__ __align__(16) unsigned char smem[];
+  const MmaLayout lay(d, NT, int(sizeof(T)));
+  float* w_s = reinterpret_cast<float*>(smem);
+  float* zp_s = reinterpret_cast<float*>(smem + lay.zp);
+  float* m_s = reinterpret_cast<float*>(smem + lay.mult);
+  unsigned char* x_buf0 = smem + lay.x;
+  const int ws = int(mma_w_stride(d));
+  const int ksteps = (d + 7) / 8;    // 8-column steps of the dots
+  const int mtiles = (d + 15) / 16;  // 16-column m-tiles of the gradient
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t nblocks = gridDim.x;
+  const int64_t rows_per_block = (n + nblocks - 1) / nblocks;
+  const int64_t r_begin = min64(n, int64_t(blockIdx.x) * rows_per_block);
+  const int64_t r_end = min64(n, r_begin + rows_per_block);
+  // start copying the tile at row tile0 into buffer b
+  auto load = [&](int64_t tile0, int b) {
+    const int rows = int(min64(kMmaRows, r_end - tile0));
+    copy_tile_async<kMmaThreads>(X + tile0 * d,
+                                 int64_t(rows) * d * int64_t(sizeof(T)),
+                                 x_buf0 + b * lay.x_buf, X, X + n * d);
+  };
+  if (r_begin < r_end) load(r_begin, 0);
+  cp_async_commit();
+
+  for (int i = tid; i < KB * ws; i += kMmaThreads) {
+    const int kk = i / ws, c = i % ws;
+    w_s[i] = kk < k && c < d ? W[int64_t(kk) * d + c] : 0.f;
+  }
+  float acc[MT][NT][4], comp[MT][NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][nt][i] = comp[m][nt][i] = 0.f;
+  // this thread's place in the middle: row mr of the tile, lane mk
+  const bool mid = tid < kMmaRows * KB;
+  const int mr = tid / KB, mk = tid % KB;
+  Kahan loss_acc;
+
+  int buf = 0;
+  for (int64_t tile0 = r_begin; tile0 < r_end;
+       tile0 += kMmaRows, buf ^= 1) {
+    const int rows = int(min64(kMmaRows, r_end - tile0));
+    const bool live = mid && mr < rows && mk < k;
+    const float yv = live ? y[tile0 + mr] : 0.f;
+    const float mv = live ? mask[tile0 + mr] : 0.f;
+    // this tile has landed for every thread, and every thread is done
+    // with the last one (its buffer, the partial dots, the multipliers)
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tile0 + kMmaRows < r_end) load(tile0 + kMmaRows, buf ^ 1);
+    cp_async_commit();
+    const T* xs = reinterpret_cast<const T*>(
+        x_buf0 + buf * lay.x_buf +
+        (reinterpret_cast<uintptr_t>(X + tile0 * d) & 15));
+
+    // the dots: warp w sums the 8-column steps w, w + kMmaWarps, ...;
+    // rows past the tile and columns past d read as zeros
+    {
+      float big[NT][4], small[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) big[nt][i] = small[nt][i] = 0.f;
+      for (int s = warp; s < ksteps; s += kMmaWarps) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = g + 8 * (i & 1);
+          const int c = s * 8 + t + 4 * (i >> 1);
+          split_x<T>(r < rows && c < d ? to_f32(xs[r * d + c]) : 0.f, ah[i],
+                     al[i]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t bh[2], bl[2], bl2[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            split_w(w_s[(nt * 8 + g) * ws + s * 8 + t + 4 * h], bh[h], bl[h],
+                    bl2[h]);
+          mma3<kXLo>(big[nt], small[nt], ah, al, bh, bl);
+          mma_tf32(small[nt], ah, bl2);  // x_hi w_lo2
+        }
+      }
+      float* zp = zp_s + warp * kMmaRows * LS;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          *reinterpret_cast<float2*>(zp + (g + 8 * h) * LS + nt * 8 + 2 * t) =
+              make_float2(big[nt][2 * h] + small[nt][2 * h],
+                          big[nt][2 * h + 1] + small[nt][2 * h + 1]);
+    }
+    __syncthreads();
+
+    // the middle: thread (row mr, lane mk); dead rows and lanes get 0
+    if (mid) {
+      float mm = 0.f;
+      if (live) {
+        float z = 0.f;
+#pragma unroll
+        for (int w = 0; w < kMmaWarps; ++w)
+          z += zp_s[(w * kMmaRows + mr) * LS + mk];
+        float per, mult;
+        loss_middle<L>(z, yv, &per, &mult);
+        mm = mult * mv;
+        loss_acc.add(per * mv);
+      }
+      m_s[mr * LS + mk] = mm;
+    }
+    __syncthreads();
+
+    // the gradient: M's fragments (the tile's two k8 steps of rows),
+    // split once; then warp w's m-tiles of D
+    {
+      uint32_t mh[2][NT][2], ml[2][NT][2];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            split_tf32(m_s[(ks * 8 + t + 4 * h) * LS + nt * 8 + g],
+                       mh[ks][nt][h], ml[ks][nt][h]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int mt = warp + kMmaWarps * m;
+        if (mt < mtiles) {
+          float big[NT][4], small[NT][4];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) big[nt][i] = small[nt][i] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int c = mt * 16 + g + 8 * (i & 1);
+              const int r = ks * 8 + t + 4 * (i >> 1);
+              split_x<T>(r < rows && c < d ? to_f32(xs[r * d + c]) : 0.f,
+                         ah[i], al[i]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma3<kXLo>(big[nt], small[nt], ah, al, mh[ks][nt],
+                         ml[ks][nt]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float v = (big[nt][i] + small[nt][i]) - comp[m][nt][i];
+              const float s = acc[m][nt][i] + v;
+              comp[m][nt][i] = (s - acc[m][nt][i]) - v;
+              acc[m][nt][i] = s;
+            }
+        }
+      }
+    }
+  }
+
+  // the block's partials: the gradient from the registers, the loss of
+  // each lane summed over the middle's rows in order
+  const int64_t kd = int64_t(k) * d;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int mt = warp + kMmaWarps * m;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = mt * 16 + g + 8 * (i >> 1);
+        const int kk = nt * 8 + 2 * t + (i & 1);
+        if (mt < mtiles && c < d && kk < k)
+          partial_grad[int64_t(blockIdx.x) * kd + int64_t(kk) * d + c] =
+              acc[m][nt][i];
+      }
+  }
+  __syncthreads();  // every thread is done with the partial dots
+  if (mid) zp_s[tid] = loss_acc.s;
+  __syncthreads();
+  if (tid < k) {
+    Kahan sum;
+    for (int r = 0; r < kMmaRows; ++r) sum.add(zp_s[r * KB + tid]);
+    partial_loss[int64_t(blockIdx.x) * k + tid] = sum.s;
+  }
+}
+
 // Two-pass mode, pass 1: a warp per row (rows strided over the grid's
 // warps) forms the row's K dots from device memory; lane kk applies lane
 // kk's middle, writes m * mult to mult_out[r * k + kk] and adds m * per to
@@ -418,7 +699,7 @@ __global__ void lanes_reduce(const float* __restrict__ partial_loss,
   }
 }
 
-enum Mode { kLanesTile = 0, kLanesTwoPass = 1 };
+enum Mode { kLanesTile = 0, kLanesTwoPass = 1, kLanesMma = 2 };
 
 // A launch plan, as lanes_plan fills it: the mode; the lane bucket; the
 // tile rows (0 in two-pass mode); the blocks of the (first) launch, one
@@ -428,11 +709,57 @@ struct Plan {
   int mode, kb, rows, grid, partials;
 };
 
+template <typename T, int L, int NT, int MT>
+cudaError_t launch_mma_tiles(const Plan& p, const T* X, const float* y,
+                             const float* mask, const float* W, int64_t n,
+                             int64_t d, int k, float* partial_loss,
+                             float* partial_grad, cudaStream_t stream) {
+  if constexpr (NT * MT > kMmaMaxTiles) {
+    return cudaErrorInvalidValue;
+  } else {
+    const int64_t smem = MmaLayout(d, NT, int(sizeof(T))).total;
+    auto kern = lanes_mma<T, L, NT, MT>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    kern<<<p.grid, kMmaThreads, size_t(smem), stream>>>(
+        X, y, mask, W, n, int(d), k, partial_loss, partial_grad);
+    return cudaGetLastError();
+  }
+}
+
+template <typename T, int L, int NT>
+cudaError_t launch_mma(const Plan& p, const T* X, const float* y,
+                       const float* mask, const float* W, int64_t n,
+                       int64_t d, int k, float* pl, float* pg,
+                       cudaStream_t s) {
+  switch (mma_tiles(d)) {
+    case 1:
+      return launch_mma_tiles<T, L, NT, 1>(p, X, y, mask, W, n, d, k, pl, pg,
+                                           s);
+    case 2:
+      return launch_mma_tiles<T, L, NT, 2>(p, X, y, mask, W, n, d, k, pl, pg,
+                                           s);
+    case 4:
+      return launch_mma_tiles<T, L, NT, 4>(p, X, y, mask, W, n, d, k, pl, pg,
+                                           s);
+    case 8:
+      return launch_mma_tiles<T, L, NT, 8>(p, X, y, mask, W, n, d, k, pl, pg,
+                                           s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int L, int KB>
 cudaError_t launch_kb(const Plan& p, const T* X, const float* y,
                       const float* mask, const float* W, int64_t n, int64_t d,
                       int k, float* partial_loss, float* partial_grad,
                       float* mult, cudaStream_t stream) {
+  if (p.mode == kLanesMma)
+    return launch_mma<T, L, (KB <= 8 ? 1 : 2)>(p, X, y, mask, W, n, d, k,
+                                               partial_loss, partial_grad,
+                                               stream);
   if (p.mode == kLanesTile) {
     const int64_t smem = Layout(d, KB, p.rows, int(sizeof(T))).total;
     auto kern = lanes_tile<T, L, KB>;
@@ -497,16 +824,38 @@ cudaError_t launch_type(int loss_kind, const Plan& p, const void* X,
   }
 }
 
+// Where the tensor-core mode was faster than the tile mode in the
+// `--ab lanes:` sweep of chip_smoke.py (PERF.md: 10M rows of f32 X at D
+// = 64, 256, 512, 1000): from 8 lanes at every width, 4 lanes past 512
+// columns.  At 1 or 2 lanes an n8 tile is mostly padding and the tile
+// mode's K sums a row are few.
+bool mma_faster(int64_t d, int kb, int /*itemsize*/) {
+  return kb >= 8 || (kb == 4 && d > 512);
+}
+
+// Whether the tensor-core mode takes kb lanes over X of width d: its
+// accumulators within the register budget (kMmaMaxTiles), its block
+// within shared memory, and faster there than the tile mode.
+bool mma_takes(int64_t d, int kb, int itemsize) {
+  const int nt = kb <= 8 ? 1 : 2;
+  const int mt = mma_tiles(d);
+  return mt >= 1 && mt * nt <= kMmaMaxTiles &&
+         MmaLayout(d, nt, itemsize).total <= kSmemBlock &&
+         mma_faster(d, kb, itemsize);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch plan for k lanes over X (n, d) with `itemsize`-byte elements on a
 // card of `sms` SMs, written to plan[0..4] = {mode, kb, rows, grid,
-// partials} (see Plan): tile mode while a row fits beside the lanes' W
-// and partial (a few blocks an SM where they fit, at most one per tile),
-// two-pass mode past that.  Returns cudaErrorInvalidValue, and sets
-// nothing, for arguments no mode takes (k outside 1..kMaxLanes).
+// partials} (see Plan): the tensor-core mode where mma_takes (one block
+// an SM, at most one per 16-row tile); else the tile mode while a row
+// fits beside the lanes' W and partial (a few blocks an SM where they
+// fit, at most one per tile), two-pass mode past that.  Returns
+// cudaErrorInvalidValue, and sets nothing, for arguments no mode takes
+// (k outside 1..kMaxLanes).
 int lanes_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
                int* plan) {
   const int kb = bucket_of(k);
@@ -515,7 +864,13 @@ int lanes_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
     return int(cudaErrorInvalidValue);
   Plan p;
   p.kb = kb;
-  if (const int rows = choose_tile_rows(d, kb, itemsize); rows >= 1) {
+  if (mma_takes(d, kb, itemsize)) {
+    int64_t blocks = (n + kMmaRows - 1) / kMmaRows;
+    if (blocks > sms) blocks = sms;
+    p.mode = kLanesMma;
+    p.rows = kMmaRows;
+    p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
+  } else if (const int rows = choose_tile_rows(d, kb, itemsize); rows >= 1) {
     int64_t per_sm = kSmemSM / (Layout(d, kb, rows, itemsize).total +
                                 kSmemReserved);
     per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
@@ -552,6 +907,8 @@ const char* lanes_mode_name(int mode) {
       return "lanes_tile";
     case kLanesTwoPass:
       return "lanes_two_pass";
+    case kLanesMma:
+      return "lanes_mma";
     default:
       return nullptr;
   }
@@ -591,6 +948,8 @@ int margin_lanes_loss_grad(const void* X, int x_type, const void* y,
       n >= 0 && d >= 1 && k >= 1 && bucket_of(k) == p.kb && p.grid >= 1 &&
       p.partials >= 1 &&
       ((p.mode == kLanesTile && p.rows >= 1 && p.partials == p.grid) ||
+       (p.mode == kLanesMma && p.rows == kMmaRows && p.partials == p.grid &&
+        mma_takes(d, p.kb, x_type == kBF16 ? 2 : 4)) ||
        (p.mode == kLanesTwoPass && (mult != nullptr || n == 0)));
   if (!ok) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

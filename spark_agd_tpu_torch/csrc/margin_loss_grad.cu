@@ -15,15 +15,35 @@
 // f32, far below the ~20 flop/byte where the H100's f32 rate would take
 // over.  Two library products (X @ w, then X^T @ mult) read X twice.
 //
-// margin_plan picks one of three modes by width; all of them write
-// per-block partials that reduce_partials sums in block order, with no
-// float atomics, so two calls on the same inputs give the same bits.  X
-// may be f32 or bf16 (widened to f32 in registers); y, m, w and every
-// accumulator are f32.  Ragged row and column edges are masked here, so
-// X needs no padding.
+// margin_plan picks one of four modes by width; all of them write
+// per-block partials that reduce_partials (or reduce_partials_warp) sums
+// in block order, with no float atomics, so two calls on the same inputs
+// give the same bits.  X may be f32 or bf16 (widened to f32 in
+// registers); y, m, w and every accumulator are f32.  Ragged row and
+// column edges are masked here, so X needs no padding.
 //
-// Tile mode (the mid widths, up to margin_max_width): every block walks a
-// contiguous range of rows in tiles of `tile_rows` full rows (a
+// Warp-rows mode (33 columns to kWarpRowsMaxWidth = 256, the hand-over to
+// the tile; bf16 X of odd width only to 128).  What held these widths
+// back in the tile: a 32-row tile of a few KB copied synchronously
+// between three barriers, at most four blocks an SM, so little of X in
+// flight and none while a block computes, and one thread a column in the
+// gradient (192 of 256 idle at D = 64): about 3.3 ms at 10M rows
+// whatever the width.  Here no tile
+// and no barrier sit in the row loop.  Each lane of a warp owns C of the
+// columns (C = 2, 4 or 8; adjacent pairs 2l, 2l + 1, 2l + 64, ... where
+// rows are aligned to two elements, loaded together, else l, l + 32,
+// ..., so that no width needs padding), with w and its gradient sums in
+// registers for the block's whole row range.  A warp takes U = 32 / C
+// consecutive rows at a time, each row's load coalesced across the
+// lanes, all U rows in flight together.  The U dots are reduced and
+// scattered across the lanes in log2(U) halving shuffle steps (and
+// 5 - log2(U) plain ones), so that every lane holds one row's dot and
+// the loss middle runs once for U rows, in parallel; each row's
+// multiplier comes back by one shuffle.  The block reduces its registers
+// once at the end.
+//
+// Tile mode (past the hand-over, up to margin_max_width): every block
+// walks a contiguous range of rows in tiles of `tile_rows` full rows (a
 // contiguous chunk of X, copied with 16-byte loads).  One warp per row
 // forms the dot with a shuffle reduction and applies the loss middle in
 // f32; then every thread sums mult * x over the tile for the columns it
@@ -310,6 +330,180 @@ __global__ void __launch_bounds__(kNarrowThreads, narrow_blocks_per_sm(DB))
   }
 }
 
+// Warp-rows mode.  Its widest X (C = 8) is the hand-over to the tile.
+constexpr int64_t kWarpRowsMaxWidth = 256;
+constexpr int64_t kWarpRowsBF16OddMaxWidth = 128;
+
+// Whether the warp-rows mode takes X of width d with `itemsize`-byte
+// elements, from the `--ab margin:` sweep of chip_smoke.py (PERF.md): f32
+// from 33 columns to the hand-over; bf16 too at even widths, whose rows
+// load as column pairs, but at odd widths only up to 128 columns (past
+// that its 2-byte loads, eight a row, made it slower than the tile).
+bool warp_rows_takes(int64_t d, int itemsize) {
+  return d > kNarrowMaxWidth && d <= kWarpRowsMaxWidth &&
+         (itemsize == 4 || d % 2 == 0 || d <= kWarpRowsBF16OddMaxWidth);
+}
+
+// Columns a lane owns (C) for X of width d; 32 * C >= d.
+int warp_rows_cols(int64_t d) { return d <= 64 ? 2 : d <= 128 ? 4 : 8; }
+
+// Blocks an SM, which __launch_bounds__ holds the registers to (85 a
+// thread): the U rows' C columns (32 floats), their U dots, and w and the
+// sums (2 C).  At four blocks (64 registers) the C = 8 build spills.
+constexpr int kWarpRowsBlocksPerSM = 3;
+
+// The column of the j-th value a lane holds: where X's rows are aligned
+// to two elements (`pairs`), lane l owns the adjacent columns 2l + 64 i
+// and 2l + 64 i + 1 and loads both at once (a 4-byte bf16 pair, an 8-byte
+// f32 pair; bf16 loaded one element at a time was up to 3x slower,
+// PERF.md); else lane l owns l + 32 j.
+__device__ __forceinline__ int warp_rows_col(int j, int lane, bool pairs) {
+  return pairs ? 64 * (j / 2) + 2 * lane + (j & 1) : lane + 32 * j;
+}
+
+template <typename T>
+struct PairOf;
+template <>
+struct PairOf<float> {
+  using type = float2;
+  __device__ static float2 widen(float2 v) { return v; }
+};
+template <>
+struct PairOf<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  __device__ static float2 widen(__nv_bfloat162 v) {
+    return __bfloat1622float2(v);
+  }
+};
+
+// Step I of the reduce-scatter of a warp's U dots: the lanes with bit
+// (4 - I) set keep the upper half of the sums they carry, the others the
+// lower half, each adding its partner's; after log2(U) steps lane l holds
+// (a part of) the dot of row l / (32 / U).  Unrolled at compile time, so
+// that p stays in registers.
+template <int U, int I = 0>
+__device__ __forceinline__ void reduce_scatter(float (&p)[U], int lane) {
+  if constexpr ((U >> I) > 1) {
+    constexpr int half = U >> (I + 1);
+    constexpr int off = 16 >> I;
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int v = 0; v < half; ++v) {
+      const float send = upper ? p[v] : p[v + half];
+      const float keep = upper ? p[v + half] : p[v];
+      p[v] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    reduce_scatter<U, I + 1>(p, lane);
+  }
+}
+
+template <typename T, int L, int C>
+__global__ void __launch_bounds__(kThreads, kWarpRowsBlocksPerSM)
+    margin_warp_rows(const T* __restrict__ X, const float* __restrict__ y,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ w, int64_t n, int d,
+                     float* __restrict__ partial_loss,
+                     float* __restrict__ partial_grad) {
+  constexpr int U = 32 / C;  // rows a warp takes at a time
+  constexpr int Q = U == 16 ? 4 : U == 8 ? 3 : 2;  // log2(U)
+  using Pair = typename PairOf<T>::type;
+  __shared__ float red_s[kWarps][32 * C + 1];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const bool pairs =
+      d % 2 == 0 && reinterpret_cast<uintptr_t>(X) % (2 * sizeof(T)) == 0;
+  float wr[C], g[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const int c = warp_rows_col(j, lane, pairs);
+    wr[j] = c < d ? w[c] : 0.f;
+    g[j] = 0.f;
+  }
+  const int64_t nblocks = gridDim.x;
+  const int64_t rows_per_block = (n + nblocks - 1) / nblocks;
+  const int64_t r_begin = min64(n, int64_t(blockIdx.x) * rows_per_block);
+  const int64_t r_end = min64(n, r_begin + rows_per_block);
+  // after the reduce-scatter this lane holds the dot of row `my_row` of
+  // the warp's U rows: row u sits in lanes u * C ... u * C + C - 1, and
+  // lane u * C (`lead`) counts its loss
+  const int my_row = lane / C;
+  const bool lead = lane % C == 0;
+  Kahan loss_acc;
+  for (int64_t r0 = r_begin + int64_t(warp) * U; r0 < r_end;
+       r0 += int64_t(kWarps) * U) {
+    float x[U][C];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t r = r0 + u;
+      const T* row = X + r * d;
+      if (pairs) {
+#pragma unroll
+        for (int i = 0; i < C / 2; ++i) {
+          const int c = 64 * i + 2 * lane;
+          float2 v = make_float2(0.f, 0.f);
+          if (r < r_end && c < d)
+            v = PairOf<T>::widen(*reinterpret_cast<const Pair*>(row + c));
+          x[u][2 * i] = v.x;
+          x[u][2 * i + 1] = v.y;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const int c = lane + 32 * j;
+          x[u][j] = r < r_end && c < d ? to_f32(row[c]) : 0.f;
+        }
+      }
+    }
+    const int64_t mr = r0 + my_row;
+    const bool live = mr < r_end;
+    const float yv = live ? y[mr] : 0.f;
+    const float mv = live ? mask[mr] : 0.f;
+    float p[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      p[u] = 0.f;
+#pragma unroll
+      for (int j = 0; j < C; ++j) p[u] = fmaf(x[u][j], wr[j], p[u]);
+    }
+    reduce_scatter<U>(p, lane);
+    float dot = p[0];
+#pragma unroll
+    for (int off = 16 >> Q; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    float per, mult;
+    loss_middle<L>(dot, yv, &per, &mult);
+    const float mm = live ? mult * mv : 0.f;
+    if (live && lead) loss_acc.add(per * mv);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float mu = __shfl_sync(0xffffffffu, mm, u * C);
+#pragma unroll
+      for (int j = 0; j < C; ++j) g[j] = fmaf(mu, x[u][j], g[j]);
+    }
+  }
+
+  // once per block: the warps' sums in a fixed order
+  float ls = loss_acc.s;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ls += __shfl_xor_sync(0xffffffffu, ls, off);
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    red_s[warp][warp_rows_col(j, lane, pairs)] = g[j];
+  if (lane == 0) red_s[warp][32 * C] = ls;
+  __syncthreads();
+  for (int c = threadIdx.x; c <= 32 * C; c += kThreads) {
+    if (c < d || c == 32 * C) {
+      Kahan k;
+      for (int i = 0; i < kWarps; ++i) k.add(red_s[i][c]);
+      if (c == 32 * C)
+        partial_loss[blockIdx.x] = k.s;
+      else
+        partial_grad[int64_t(blockIdx.x) * d + c] = k.s;
+    }
+  }
+}
+
 // Two-pass mode, pass 1: one warp per row (rows strided over the grid's
 // warps) forms the dot from device memory, four loads in flight a lane;
 // lane 0 applies the loss middle, writes m * mult for the row and adds
@@ -503,12 +697,13 @@ cudaError_t launch_partials(const void* X, const float* y, const float* mask,
   return cudaGetLastError();
 }
 
-enum Mode { kTile = 0, kNarrow = 1, kTwoPass = 2 };
+enum Mode { kTile = 0, kNarrow = 1, kTwoPass = 2, kWarpRows = 3 };
 
 // A launch plan, as margin_plan fills it: the mode; the tile rows (tile
-// mode), the register bucket (narrow mode) or 0 (two-pass); the blocks
-// of the (first) launch, one loss partial each; the gradient partials
-// (the grid, or pass 2's row groups).
+// mode), the register bucket (narrow mode), the columns a lane owns
+// (warp-rows mode) or 0 (two-pass); the blocks of the (first) launch,
+// one loss partial each; the gradient partials (the grid, or pass 2's
+// row groups).
 struct Plan {
   int mode, rows, grid, partials;
 };
@@ -538,6 +733,22 @@ cudaError_t launch_mode(const Plan& p, const void* X, const float* y,
         return cudaErrorInvalidValue;
     }
 #undef MARGIN_NARROW
+    return cudaGetLastError();
+  }
+  if (p.mode == kWarpRows) {
+#define MARGIN_WARP_ROWS(C)                                              \
+  case C:                                                                \
+    margin_warp_rows<T, L, C><<<p.grid, kThreads, 0, stream>>>(          \
+        Xt, y, mask, w, n, int(d), partial_loss, partial_grad);          \
+    break;
+    switch (p.rows) {
+      MARGIN_WARP_ROWS(2)
+      MARGIN_WARP_ROWS(4)
+      MARGIN_WARP_ROWS(8)
+      default:
+        return cudaErrorInvalidValue;
+    }
+#undef MARGIN_WARP_ROWS
     return cudaGetLastError();
   }
   margin_wide_dots<T, L><<<p.grid, kThreads, 0, stream>>>(
@@ -579,10 +790,11 @@ extern "C" {
 
 // Launch plan for X (n, d) with `itemsize`-byte elements on a card of
 // `sms` SMs, written to plan[0..3] = {mode, rows, grid, partials} (see
-// Plan): narrow mode up to kNarrowMaxWidth columns; tile mode while a row
-// fits the tile (a few blocks an SM, as many as fit, at most one per
-// tile); two-pass mode past that.  Returns cudaErrorInvalidValue, and
-// sets nothing, for arguments no mode takes.
+// Plan): narrow mode up to kNarrowMaxWidth columns; warp-rows mode up to
+// the hand-over (warp_rows_takes); tile mode while a row fits the tile (a
+// few blocks an SM, as many as fit, at most one per tile); two-pass mode
+// past that.  Returns cudaErrorInvalidValue, and sets nothing, for
+// arguments no mode takes.
 int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* plan) {
   if (n < 0 || d < 1 || sms < 1 || (itemsize != 4 && itemsize != 2))
     return int(cudaErrorInvalidValue);
@@ -593,6 +805,14 @@ int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* plan) {
     if (blocks > int64_t(sms) * narrow_blocks_per_sm(p.rows))
       blocks = int64_t(sms) * narrow_blocks_per_sm(p.rows);
     p.mode = kNarrow;
+    p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
+  } else if (warp_rows_takes(d, itemsize)) {
+    p.rows = warp_rows_cols(d);
+    const int64_t rows_a_block = int64_t(kWarps) * (32 / p.rows);
+    int64_t blocks = (n + rows_a_block - 1) / rows_a_block;
+    const int64_t most = int64_t(sms) * kWarpRowsBlocksPerSM;
+    if (blocks > most) blocks = most;
+    p.mode = kWarpRows;
     p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
   } else if (const int rows = choose_tile_rows(d, itemsize); rows >= 1) {
     int64_t per_sm = kSmemSM / (smem_bytes(d, rows, itemsize) + kSmemReserved);
@@ -631,9 +851,21 @@ const char* margin_mode_name(int mode) {
       return "narrow";
     case kTwoPass:
       return "two_pass";
+    case kWarpRows:
+      return "warp_rows";
     default:
       return nullptr;
   }
+}
+
+// The widest X (in columns) that takes the warp-rows mode: the hand-over
+// to the tile.
+int64_t margin_warp_rows_max_width() { return kWarpRowsMaxWidth; }
+
+// Whether X of width d with `itemsize`-byte elements takes the warp-rows
+// mode (1) or not (0).
+int margin_warp_rows_takes(int64_t d, int itemsize) {
+  return warp_rows_takes(d, itemsize) ? 1 : 0;
 }
 
 // The widest X (in columns) whose rows fit the tile: the widest read
@@ -662,6 +894,8 @@ int margin_loss_grad(const void* X, int x_type, const void* y,
       n >= 0 && d >= 1 && p.grid >= 1 && p.partials >= 1 &&
       ((p.mode == kTile && p.rows >= 1 && p.partials == p.grid) ||
        (p.mode == kNarrow && d <= p.rows && p.partials == p.grid) ||
+       (p.mode == kWarpRows && (p.rows == 2 || p.rows == 4 || p.rows == 8) &&
+        d <= 32 * p.rows && p.partials == p.grid) ||
        (p.mode == kTwoPass && (mult != nullptr || n == 0)));
   if (!ok) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -682,7 +916,7 @@ int margin_loss_grad(const void* X, int x_type, const void* y,
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return int(err);
   const int threads = 256;
-  if (p.mode == kNarrow) {
+  if (p.mode == kNarrow || p.mode == kWarpRows) {
     const int blocks = int(((d + 1) * 32 + threads - 1) / threads);
     reduce_partials_warp<<<blocks, threads, 0, s>>>(
         pl, pg, p.grid, d, static_cast<float*>(loss),

@@ -14,10 +14,11 @@ deterministic:
   :class:`FusedMarginGradient` wraps a margin
   :class:`~spark_agd_tpu_torch.ops.losses.MarginGradient` (counterpart of
   ``PallasMarginGradient``).  It takes X of every width:
-  :func:`launch_shape` picks a register mode for narrow X, the
-  shared-memory tile up to :func:`max_width` columns, and past that a
-  two-pass mode that reads X twice (as the Pallas wrapper's fallback
-  past its VMEM budget does).
+  :func:`launch_shape` picks a register mode for narrow X, a mode that
+  streams rows through whole warps up to :func:`warp_rows_max_width`
+  columns (:func:`warp_rows_takes`), the shared-memory tile up to
+  :func:`max_width` columns, and past that a two-pass mode that reads X
+  twice (as the Pallas wrapper's fallback past its VMEM budget does).
 - ``csrc/margin_lanes_loss_grad.cu``: the same three losses for K
   weight vectors at once (the lanes of a sweep; counterpart of the margin
   kernel under ``jax.vmap``, which Pallas runs as one pass of X per
@@ -25,8 +26,9 @@ deterministic:
   :func:`fused_margin_lanes_loss_grad_reference` its plain version;
   ``FusedMarginGradient.lanes_loss_and_grad`` calls it.  It reads X once
   for up to :func:`max_lanes` lanes while their W and gradient fit in
-  shared memory beside a row (:func:`lanes_max_width`), and twice past
-  that; more lanes run in chunks of :func:`max_lanes`, one launch each.
+  shared memory beside a row (:func:`lanes_max_width`; both products on
+  the tensor cores where that mode is faster), and twice past that; more
+  lanes run in chunks of :func:`max_lanes`, one launch each.
 - ``csrc/softmax_loss_grad.cu``: the multinomial softmax with a (D, K)
   weight matrix.  :func:`fused_softmax_loss_grad` is its wrapper,
   :func:`fused_softmax_loss_grad_reference` its plain version, and
@@ -254,6 +256,10 @@ def library(source=None):
     lib.margin_mode_name.restype = ctypes.c_char_p
     lib.margin_max_width.argtypes = [ctypes.c_int]
     lib.margin_max_width.restype = ctypes.c_int64
+    lib.margin_warp_rows_max_width.argtypes = []
+    lib.margin_warp_rows_max_width.restype = ctypes.c_int64
+    lib.margin_warp_rows_takes.argtypes = [ctypes.c_int64, ctypes.c_int]
+    lib.margin_warp_rows_takes.restype = ctypes.c_int
     return lib, built
 
 
@@ -272,6 +278,19 @@ def max_width(dtype) -> int:
     return int(lib.margin_max_width(_itemsize(dtype)))
 
 
+def warp_rows_max_width() -> int:
+    """The widest X, in columns, that the kernel streams through whole
+    warps (its "warp_rows" mode, from 33 columns on): the hand-over to
+    the tile.  bf16 X of odd width takes the mode up to 128 columns
+    only (:func:`warp_rows_takes`)."""
+    return int(library()[0].margin_warp_rows_max_width())
+
+
+def warp_rows_takes(d: int, dtype) -> bool:
+    """Whether X of width ``d`` and ``dtype`` takes the warp-rows mode."""
+    return bool(library()[0].margin_warp_rows_takes(d, _itemsize(dtype)))
+
+
 def check_width(d: int, dtype):
     """Raise ``ValueError`` when the kernel cannot take X of width ``d``:
     only for no columns, since its modes cover every width."""
@@ -282,8 +301,9 @@ def check_width(d: int, dtype):
 
 class MarginPlan(NamedTuple):
     """A launch plan of the margin kernel (``margin_plan``): ``mode``
-    ("narrow", "tile" or "two_pass"); ``tile_rows``, the rows of a tile
-    (tile mode), the register bucket (narrow mode) or 0; ``grid``, the
+    ("narrow", "warp_rows", "tile" or "two_pass"); ``tile_rows``, the rows
+    of a tile (tile mode), the register bucket (narrow mode), the columns
+    a lane owns (warp-rows mode) or 0; ``grid``, the
     blocks of the (first) launch; ``partials``, the gradient partials
     summed at the end (the grid, or the row groups of the two-pass
     mode's second pass); ``raw``, the four ints as ``margin_plan``
@@ -430,11 +450,11 @@ def lanes_max_width(k: int, dtype) -> int:
 
 class LanesPlan(NamedTuple):
     """A launch plan of the lanes kernel (``lanes_plan``): ``mode``
-    ("lanes_tile", one read of X, or "lanes_two_pass"); ``bucket``, the
-    lanes compiled for (K rounded up); ``tile_rows`` (0 in two-pass
-    mode); ``grid``, the blocks of the (first) launch; ``partials``, the
-    gradient partials summed at the end; ``raw``, the five ints as
-    ``lanes_plan`` filled them, passed back at launch."""
+    ("lanes_mma" or "lanes_tile", one read of X, or "lanes_two_pass");
+    ``bucket``, the lanes compiled for (K rounded up); ``tile_rows`` (0
+    in two-pass mode); ``grid``, the blocks of the (first) launch;
+    ``partials``, the gradient partials summed at the end; ``raw``, the
+    five ints as ``lanes_plan`` filled them, passed back at launch."""
 
     mode: str
     bucket: int

@@ -69,14 +69,24 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                                   torch.zeros(8, device=cuda), bad)
 
 
-# the narrow mode's register-bucket edges, a tile width, the widest X
-# read once ("max", resolved on the card), one column past it (the
+# the narrow mode's register-bucket edges, the warp-rows mode's column
+# buckets and its hand-over to the tile ("hand", resolved on the card), a
+# tile width, the widest X read once ("max"), one column past it (the
 # two-pass mode) and a gene-expression-like width
-WIDTHS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 1000, "max", "max+1", 40_000]
+WIDTHS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 127, 129, "hand-1",
+          "hand", "hand+1", 1000, "max", "max+1", 40_000]
 
 
-def _expected_mode(d, limit):
-    return "narrow" if d <= 32 else "tile" if d <= limit else "two_pass"
+def _warp_rows(d, dtype, hand):
+    """The warp-rows mode's widths: 33 to the hand-over, bf16 X of odd
+    width only to 128 columns."""
+    return 32 < d <= hand and (dtype == torch.float32 or d % 2 == 0
+                               or d <= 128)
+
+
+def _expected_mode(d, dtype, hand, limit):
+    return ("narrow" if d <= 32 else "warp_rows" if _warp_rows(d, dtype, hand)
+            else "tile" if d <= limit else "two_pass")
 
 
 @pytest.mark.cuda
@@ -90,8 +100,10 @@ def test_width_rule_and_tile_budget(cuda, width, dtype):
     plain version, repeats give the same bits, and each launch counts
     once, under the mode that ``launch_shape`` reports."""
     limit = fk.max_width(dtype)
-    assert limit > 1000
-    d = {"max": limit, "max+1": limit + 1}.get(width, width)
+    hand = fk.warp_rows_max_width()
+    assert 32 < hand < 1000 < limit
+    d = {"max": limit, "max+1": limit + 1, "hand-1": hand - 1, "hand": hand,
+         "hand+1": hand + 1}.get(width, width)
     n = 4_099 if d <= 1000 else 300
     gen = torch.Generator(device=cuda)
     gen.manual_seed(2)
@@ -101,7 +113,8 @@ def test_width_rule_and_tile_budget(cuda, width, dtype):
     w = torch.randn(d, generator=gen, device=cuda) / d ** 0.5
     staged = fk.FusedLogisticGradient().prepare(X, y, m)[0]
     plan = fk.launch_shape(staged.X)
-    assert plan.mode == _expected_mode(d, limit)
+    assert plan.mode == _expected_mode(d, dtype, hand, limit)
+    assert fk.warp_rows_takes(d, dtype) == (plan.mode == "warp_rows")
     if plan.mode == "tile":
         # whole warps per tile, except the few rows of the widest X
         assert plan.tile_rows % 8 == 0 or (d > 1000 and plan.tile_rows < 8)
@@ -120,6 +133,46 @@ def test_width_rule_and_tile_budget(cuda, width, dtype):
     assert float(loss) == pytest.approx(float(ref_loss), rel=1e-5)
     torch.testing.assert_close(grad, ref_grad, rtol=1e-4,
                                atol=1e-4 * float(ref_grad.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_warp_rows_mode_edges(cuda, dtype):
+    """The warp-rows mode at its edges: 32 | 33 columns (narrow | warp
+    rows), its column buckets (64 | 65, 128 | 129), widths whose rows are
+    not aligned to 16 bytes or to a column pair (54, 90, 127), the
+    hand-over to the tile and one column either side; row counts of 1,
+    one short of a warp's rows and not a multiple of them; masked and
+    unmasked.  Each call agrees with the plain version and repeats give
+    the same bits."""
+    hand = fk.warp_rows_max_width()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    inner = losses.LogisticGradient()
+    for d in (32, 33, 54, 64, 65, 90, 127, 128, 129, hand - 1, hand,
+              hand + 1):
+        for n in (1, 7, 4_099):
+            X = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+            y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+            m = (torch.rand(n, generator=gen, device=cuda) < 0.7).float()
+            w = torch.randn(d, generator=gen, device=cuda) / d ** 0.5
+            for mask in (None, m):
+                staged = fk.stage_dense(X, y, mask)
+                plan = fk.launch_shape(staged.X)
+                assert plan.mode == _expected_mode(
+                    d, dtype, hand, fk.max_width(dtype)), (d, plan)
+                loss, grad = fk.fused_margin_loss_grad(inner, w, staged)
+                loss2, grad2 = fk.fused_margin_loss_grad(inner, w, staged)
+                torch.cuda.synchronize()
+                assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+                ref_loss, ref_grad = fk.fused_margin_loss_grad_reference(
+                    inner, w, staged)
+                assert float(loss) == pytest.approx(float(ref_loss),
+                                                    rel=1e-5, abs=1e-30)
+                torch.testing.assert_close(
+                    grad, ref_grad, rtol=1e-4,
+                    atol=1e-4 * float(ref_grad.abs().max()))
 
 
 @pytest.mark.cuda
@@ -533,8 +586,8 @@ def test_lanes_kernel_matches_plain_version(cuda, k, dtype):
         staged = fk.stage_dense(X, y, m)
         inner = losses.LogisticGradient()
         plan = fk.lanes_launch_shape(X, min(k, chunk))
-        assert plan.mode == ("lanes_tile" if d <= limit
-                             else "lanes_two_pass"), (d, limit)
+        assert plan.mode in (("lanes_mma", "lanes_tile") if d <= limit
+                             else ("lanes_two_pass",)), (d, limit)
         before = fk.lanes_launch_count
         loss, grad = fk.fused_margin_lanes_loss_grad(inner, W, staged)
         loss2, grad2 = fk.fused_margin_lanes_loss_grad(inner, W, staged)
@@ -554,6 +607,45 @@ def test_lanes_kernel_matches_plain_version(cuda, k, dtype):
             torch.testing.assert_close(
                 grad[lane], s_grad, rtol=1e-4,
                 atol=1e-4 * float(s_grad.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 3, 8, 9, 16, 17])
+def test_lanes_kernel_at_fragment_edges(cuda, k, dtype):
+    """The lanes kernel where its tensor-core fragments end: widths of
+    one 8-column step, a multiple of 8 and 16 and one either side (999,
+    1000, 1001) and one of 32 (1024); row counts that are not a multiple
+    of the 16-row tile (5, 20,011); lane counts inside an n8 tile, at its
+    edge, past it and past one launch (17); masked and unmasked.  Each
+    call agrees with the plain version and repeats give the same bits."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(100 + k)
+    inner = losses.LogisticGradient()
+    for d in (8, 999, 1000, 1001, 1024):
+        for n in (5, 20_011):
+            X = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+            y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+            m = (torch.rand(n, generator=gen, device=cuda) < 0.7).float()
+            W = torch.randn((k, d), generator=gen, device=cuda) / d ** 0.5
+            for mask in (None, m):
+                staged = fk.stage_dense(X, y, mask)
+                loss, grad = fk.fused_margin_lanes_loss_grad(inner, W,
+                                                             staged)
+                loss2, grad2 = fk.fused_margin_lanes_loss_grad(inner, W,
+                                                               staged)
+                torch.cuda.synchronize()
+                assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+                ref_loss, ref_grad = \
+                    fk.fused_margin_lanes_loss_grad_reference(inner, W,
+                                                              staged)
+                torch.testing.assert_close(loss, ref_loss, rtol=1e-5,
+                                           atol=0.0)
+                for lane in range(k):
+                    torch.testing.assert_close(
+                        grad[lane], ref_grad[lane], rtol=1e-4,
+                        atol=1e-4 * float(ref_grad[lane].abs().max()))
 
 
 @pytest.mark.cuda

@@ -184,3 +184,108 @@ def test_lanes_refuse_per_lane_masks_and_stage_unprepared_calls():
     np.testing.assert_allclose(grad.numpy(), ref[1].numpy(), rtol=1e-4,
                                atol=1e-4)
     assert int(n[0]) == int((mask > 0).sum())
+
+
+# ---------------------------------------------------------------------------
+# A plain model of the card's tensor-core arithmetic (the lanes kernel's
+# "lanes_mma" mode, csrc/tf32_mma.cuh): every f32 operand split into TF32
+# halves, W into three parts, the products summed in f32
+# ---------------------------------------------------------------------------
+
+def _tf32(a, nearest=True):
+    """``a`` (f32) cut to TF32's 10 mantissa bits: to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds; or truncated."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    if nearest:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(a):
+    """a = hi + lo (+ about 2^-22 a), both TF32."""
+    hi = _tf32(a)
+    return hi, _tf32(a - hi)
+
+
+def _split_w(w):
+    """w = hi + lo + lo2 exactly, each TF32."""
+    hi = _tf32(w)
+    rest = w - hi
+    lo = _tf32(rest, nearest=False)
+    return hi, lo, rest - lo
+
+
+def _logistic_f32(dots, y):
+    m = -dots
+    per = np.log1p(np.exp(-np.abs(m))) + np.maximum(m, 0) - (1 - y) * m
+    return per.astype(np.float32), (1 / (1 + np.exp(-dots)) - y).astype(
+        np.float32)
+
+
+def _mma_model(X, W, y, mask, passes=3):
+    """The kernel's loss and gradient sums: the dots as x_hi w_hi + (x_hi
+    w_lo + x_lo w_hi + x_hi w_lo2), the gradient as M_hi^T x_hi + (M_lo^T
+    x_hi + M_hi^T x_lo), each product exact in f32 and summed in f32;
+    ``passes=1`` keeps the hi*hi products alone."""
+    xh, xl = _split(X)
+    wh, wl, wl2 = _split_w(W)
+    big = xh @ wh.T
+    small = xh @ wl.T + xl @ wh.T + xh @ wl2.T
+    dots = big + small if passes == 3 else big
+    per, mult = _logistic_f32(dots, y[:, None])
+    M = (mult * mask[:, None]).astype(np.float32)
+    mh, ml = _split(M)
+    grad = mh.T @ xh
+    if passes == 3:
+        grad = grad + (ml.T @ xh + mh.T @ xl)
+    loss = (per.astype(np.float64) * mask[:, None]).sum(0)
+    return loss, grad
+
+
+def _lane_errors(loss, grad, ref_loss, ref_grad):
+    """The worst (loss relative error, gradient error over its tolerance:
+    rtol 1e-4 of each entry plus 1e-4 of the lane's largest)."""
+    loss_err = np.max(np.abs(loss - ref_loss) / np.abs(ref_loss))
+    tol = 1e-4 * np.abs(ref_grad) + 1e-4 * np.abs(ref_grad).max(
+        axis=1, keepdims=True)
+    return loss_err, np.max(np.abs(grad - ref_grad) / tol)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_three_pass_tf32_model_holds_to_f64_at_k8(masked):
+    """At K = 8 the split products stay within the tolerances of
+    ``tests/test_pallas.py`` of the f64 sums (``jax.vmap`` of the jnp
+    logistic loss at f64), as the plain f32 version does, and at least a
+    hundred times closer to them than the hi*hi products alone."""
+    X, W, y, mask = _data(130, n=4_099, k=8, seed=3)
+    m = mask if masked else np.ones_like(mask)
+    ref = jax.vmap(lambda w: jlosses.LogisticGradient().batch_loss_and_grad(
+        w, jnp.asarray(X, jnp.float64), jnp.asarray(y, jnp.float64),
+        jnp.asarray(m, jnp.float64)))(jnp.asarray(W, jnp.float64))
+    ref_loss, ref_grad = np.asarray(ref[0]), np.asarray(ref[1])
+    staged = fk.stage_dense(torch.from_numpy(X), torch.from_numpy(y),
+                            torch.from_numpy(m))
+    plain = fk.fused_margin_lanes_loss_grad_reference(
+        losses.LogisticGradient(), torch.from_numpy(W), staged)
+    plain_errs = _lane_errors(plain[0].double().numpy(),
+                              plain[1].double().numpy(), ref_loss, ref_grad)
+    three = _lane_errors(*_mma_model(X, W, y, m), ref_loss, ref_grad)
+    one = _lane_errors(*_mma_model(X, W, y, m, passes=1), ref_loss, ref_grad)
+    for loss_err, grad_ratio in (plain_errs, three):
+        assert loss_err <= 1e-5 and grad_ratio <= 1.0
+    assert three[1] * 100 <= one[1]
+
+
+def test_tf32_rounding_keeps_ten_bits_to_nearest():
+    """``_tf32`` as ``cvt.rna`` rounds: 10 explicit mantissa bits, half
+    an ulp up away from zero, and the three-part split of W exact."""
+    one_ulp = np.float32(2.0 ** -10)
+    v = np.array([1 + one_ulp / 2, 1 + one_ulp / 2 - 2 ** -20, -(1 + one_ulp
+                  / 2), 3.0], np.float32)
+    np.testing.assert_array_equal(
+        _tf32(v), np.array([1 + one_ulp, 1, -(1 + one_ulp), 3], np.float32))
+    w = np.random.default_rng(0).standard_normal(1000).astype(np.float32)
+    hi, lo, lo2 = _split_w(w)
+    for part in (hi, lo, lo2):
+        np.testing.assert_array_equal(_tf32(part, nearest=False), part)
+    np.testing.assert_array_equal((hi.astype(np.float64) + lo + lo2), w)
