@@ -10,9 +10,9 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
-2. build: both kernels' ``nvcc`` builds, started together; the margin
-   kernel's widest X read once and the softmax kernel's class limits at
-   D = 785;
+2. build: the three libraries' ``nvcc`` builds, started together; the
+   margin kernel's widest X read once and the softmax kernel's (the
+   widest X its one-read kernel takes at K = 10, 20 and 32);
 3. kernel: the CUDA margin kernel against its plain PyTorch version on
    the card (3 losses x f32/bf16 x masked/unmasked x w = 0/random) at
    D in {1, 2, 3, 7, 8, 31, 32} (its narrow mode, at 2,000,003 rows, so
@@ -27,9 +27,12 @@ Phases, each printing one JSON line:
    ``widths_by_mode`` and a ``past_width_two_pass`` line;
 4. softmax_kernel: the CUDA softmax kernel against its plain version
    (N = 100,003, D in {784, 785, 777}, K in {1, 2, 3, 8, 9, 10, 16, 17,
-   32} and the class limit, f32/bf16 x masked/unmasked x W = 0/random),
-   each call repeated; at D = 785, K = 10 also against f64 sums; one
-   class past the limit raises;
+   32}, and 33 and 100 at D = 785, f32/bf16 x masked/unmasked x W =
+   0/random), each call repeated, each plan's mode ("one_read" up to 32
+   classes while a row tile fits, else "two_pass") held to that rule; at
+   D = 785, K = 10 and 33 also against f64 sums; then, against f64 sums,
+   1,000 classes at D = 785 and 10 classes at the one-read kernel's
+   widest X and one column past it;
 5. main path: a 10,000,000 x 1,000 f32 class-logistic dataset made on the
    card, fit with ``AcceleratedGradientDescent(FusedLogisticGradient(),
    SquaredL2Updater()).setRegParam(0.1).setNumIterations(40)
@@ -59,7 +62,9 @@ Phases, each printing one JSON line:
    50,021 CSR made on the card with varied counts (empty rows, empty
    columns, zero-value padding): matvec, rmatvec, matmat and rmatmat at
    f32 within 1e-4 of the largest f64 result, each call repeated
-   bit-identical; ``FusedLogisticGradient`` and ``FusedSoftmaxGradient``
+   bit-identical; the same matrix with bf16 values: matvec and rmatvec,
+   and the logistic loss and gradient (f32), against f64 sums over the
+   same values; ``FusedLogisticGradient`` and ``FusedSoftmaxGradient``
    given a CSR launch no dense kernel;
 10. rcv1_path: BASELINE config 1 at its published scale, rcv1-like
     697,641 x 47,236 with 74 nonzeros a row made on the card (seed 0),
@@ -131,9 +136,9 @@ Phases, each printing one JSON line:
     plain fit as phase 5 is; ms per evaluation beside the two-pass bound
     and the two ``torch.matmul`` products;
 20. the ``kernels`` line (with each kernel's launches by path, the margin
-    kernel's modes by path and its numbers by mode, the lanes kernel's
-    modes by path); then the card's name and power limit, and last
-    ``{"ok": true, "device": {...}}``;
+    and softmax kernels' modes by path and their numbers by mode, the
+    lanes kernel's modes by path); then the card's name and power limit,
+    and last ``{"ok": true, "device": {...}}``;
 21. lanes_kernel, right after phase 4: the K-lane margin kernel
     (``csrc/margin_lanes_loss_grad.cu``) against its plain version, and
     each lane against the solo kernel, at K in {1, 2, 3, 8, 16, 17, 20}
@@ -171,10 +176,25 @@ Phases, each printing one JSON line:
     margin kernel's warp-rows mode, held to the plain fit as phase 5 is;
     the kernel at the fitted weights held to f64 sums (phase 3's
     tolerance) and timed beside its bound, its plain version and the two
-    ``torch.matmul`` products, which it must beat.
+    ``torch.matmul`` products, which it must beat;
+26. softmax_wide, after phase 19: the softmax kernel's two-pass mode at
+    CIFAR-100's shape (50,000 x 3,072 f32, 100 classes) and LIBSVM's
+    aloi (108,000 x 128, 1,000 classes), data made on the card: held to
+    f64 sums (repeat bit-identical), timed by events and by the
+    profiler beside its bound (X read twice, the residuals written and
+    read), its plain version and the two ``torch.matmul`` products; and
+    a ``SoftmaxRegressionWithAGD`` fit (``run`` and ``train``) at
+    CIFAR-100's shape, every launch in the two-pass mode, held to the
+    plain fit over their common iterations;
+27. lbfgs_sweep_path, on phase 5's data after phase 22: ``LBFGS(
+    FusedLogisticGradient(), SquaredL2Updater()).sweep`` over the 8
+    strengths 10^-1 ... 10^-8 (40 iterations at MLlib's tol 1e-4), one
+    launch of the lanes kernel a round, each lane held to its solo
+    ``run_lbfgs`` through the margin kernel over their common path
+    (``hold_lbfgs``); the path's wall time beside the 8 solo fits'.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-25) and read just after it; the sparse paths launch neither kernel,
+22-27) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -182,13 +202,16 @@ available.
 
 ``python3 chip_smoke.py --ab NAME=SOURCE [...] [--seeds 3,4]`` runs none
 of the phases.  It times versions of the softmax kernel side by side
-instead: each SOURCE is a copy of ``csrc/softmax_loss_grad.cu`` with its
-C interface (the shipped file, a parent commit's, an edited variant),
-with ``tile_common.cuh`` beside it.  All are built at once, then for
-each seed phase 8's data and weights are made (planted-softmax data,
-the intercept column, W from 40 iterations of the plain fit), and the
-builds are timed in turns, A, B, ..., then back, each held to the f64
-sums; one ``ab`` line per seed.
+instead: each SOURCE is a copy of ``csrc/softmax_loss_grad.cu`` (the
+shipped file, a parent commit's with the one-read kernel's older C
+interface, an edited variant), with ``tile_common.cuh`` beside it.  All
+are built at once, then for each seed phase 8's data and weights are
+made (planted-softmax data, the intercept column, W from 40 iterations
+of the plain fit), and the builds are timed in turns, A, B, ..., then
+back, each held to the f64 sums: each build's one-read kernel (with a
+same-bits flag against the first build's) and, as ``NAME:two_pass``,
+its two-pass mode forced at this shape (with a same-bits-on-repeat
+flag), beside both modes' bounds; one ``ab`` line per seed.
 
 ``python3 chip_smoke.py --ab margin:NAME=SOURCE [...]`` does the same for
 copies of ``csrc/margin_loss_grad.cu`` with its C interface (this one or
@@ -444,7 +467,8 @@ def same_stop(res, res_plain, hist, hist_plain):
 
 
 # kernels whose registers and spills build_report lists one by one
-REPORTED_KERNELS = ("margin_warp_rows", "lanes_mma")
+REPORTED_KERNELS = ("margin_warp_rows", "lanes_mma", "softmax_tp_logits",
+                    "softmax_tp_grad")
 
 
 def kernel_registers(log):
@@ -507,9 +531,10 @@ def phase_build(fk):
     out["lanes_max_width_k8"] = {"f32": fk.lanes_max_width(8, torch.float32),
                                  "bf16": fk.lanes_max_width(8,
                                                             torch.bfloat16)}
-    out["softmax_max_classes_d785"] = {
-        "f32": fk.max_classes(785, torch.float32),
-        "bf16": fk.max_classes(785, torch.bfloat16)}
+    out["softmax_one_read_max_width"] = {
+        f"k{k}": {"f32": fk.softmax_one_read_max_width(k, torch.float32),
+                  "bf16": fk.softmax_one_read_max_width(k, torch.bfloat16)}
+        for k in (10, 20, 32)}
     emit(out)
 
 
@@ -616,6 +641,18 @@ def phase_kernel(fk, losses):
         for k, r in past.items()}})
 
 
+# phase 4's class counts: the one-read kernel's n8-tile bucket edges up
+# to its 32, then past them (the two-pass mode's 16- and 64-class chunks)
+SOFTMAX_KERNEL_K = (1, 2, 3, 8, 9, 10, 16, 17, 32)
+SOFTMAX_PAST_K = (33, 100, 1_000)
+
+
+def softmax_mode_want(fk, d, k, dtype):
+    """The mode the plan must give k classes over X of width d."""
+    return ("one_read" if d <= fk.softmax_one_read_max_width(k, dtype)
+            else "two_pass")
+
+
 def phase_softmax_kernel(fk):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -624,20 +661,19 @@ def phase_softmax_kernel(fk):
     for d in (784, 785, 777):
         X32 = torch.randn((n, d), generator=gen, device=dev)
         mask = (torch.rand(n, generator=gen, device=dev) < 0.7).float()
-        # 8, 9 and 16: the edges of the one- and two-n8-tile buckets
-        ks = [1, 2, 3, 8, 9, 10, 16, 17, 32]
-        if d == 785:
-            ks = sorted(set(ks) | {fk.max_classes(d, torch.float32),
-                                   fk.max_classes(d, torch.bfloat16)})
+        ks = SOFTMAX_KERNEL_K + (SOFTMAX_PAST_K[:2] if d == 785 else ())
         for k in ks:
             y = torch.randint(0, k, (n,), generator=gen, device=dev)
             W_rand = torch.randn((d, k), generator=gen, device=dev) / d ** 0.5
             for xt in (torch.float32, torch.bfloat16):
-                if k > fk.max_classes(d, xt):
-                    continue
                 X = X32 if xt == torch.float32 else X32.to(xt)
                 worst_loss = worst_grad = 0.0
                 cases = 0
+                plan = fk.softmax_launch_shape(X, k)
+                if plan.mode != softmax_mode_want(fk, d, k, xt):
+                    raise AssertionError(f"softmax {n}x{d} K={k} {xt}: "
+                                         f"plan {plan.mode}")
+                before = fk.softmax_mode_launches[plan.mode]
                 for m in (None, mask):
                     staged = fk.stage_softmax(X, y, k, m)
                     for W in (torch.zeros_like(W_rand), W_rand):
@@ -648,15 +684,17 @@ def phase_softmax_kernel(fk):
                         worst_loss = max(worst_loss, le)
                         worst_grad = max(worst_grad, ge)
                         cases += 1
-                rows, grid = fk.softmax_launch_shape(X, k)
                 out = {"phase": "softmax_kernel", "shape": [n, d],
                        "classes": k, "x_dtype": str(xt).replace("torch.", ""),
-                       "tile_rows": rows, "grid": grid, "cases": cases,
-                       "bit_identical": True, "max_loss_rel_err": worst_loss,
+                       "plan": plan._asdict(), "cases": cases,
+                       "launches": fk.softmax_mode_launches[plan.mode]
+                       - before, "bit_identical": True,
+                       "max_loss_rel_err": worst_loss,
                        "max_grad_abs_err": worst_grad}
-                if d == 785 and k == 10:
-                    # held to f64 sums too: the tensor-core products keep
-                    # f32 accuracy only with their correction passes
+                if d == 785 and k in (10, 33):
+                    # held to f64 sums too: the one-read kernel's tensor-core
+                    # products keep f32 accuracy only with their correction
+                    # passes; one class past its limit, the two-pass mode
                     staged = fk.stage_softmax(X, y, k, mask)
                     exact = softmax_f64(k, W_rand, staged)
                     out["f64_loss_rel_err"], out["f64_grad_max_abs_err"] = \
@@ -669,26 +707,36 @@ def phase_softmax_kernel(fk):
                 del X
         del X32, mask
         torch.cuda.empty_cache()
-    # one class past the limit: refused before any launch
+    # no class limit: 1,000 classes at D = 785 and 10 classes one column
+    # past the one-read kernel's widest X, each held to f64 sums
+    past = {}
     for xt in (torch.float32, torch.bfloat16):
-        k = fk.max_classes(785, xt) + 1
-        before = fk.softmax_launch_count
-        X = torch.zeros((2, 785), dtype=xt, device=dev)
-        for call in (
-                lambda: fk.stage_softmax(X, torch.zeros(2, device=dev), k),
-                lambda: fk.fused_softmax_loss_grad(
-                    k, torch.zeros((785, k), device=dev),
-                    fk.stage_softmax(X, torch.zeros(2, device=dev), 1))):
-            try:
-                call()
-            except ValueError:
-                pass
-            else:
-                raise AssertionError(f"{xt} X with {k} classes was not "
-                                     f"refused")
-        if fk.softmax_launch_count != before:
-            raise AssertionError("a refused softmax input launched")
-    emit({"phase": "softmax_kernel", "past_class_limit_raises": True})
+        kind = "bf16" if xt == torch.bfloat16 else "f32"
+        edge = fk.softmax_one_read_max_width(10, xt)
+        for rows, d, k in ((20_011, 785, SOFTMAX_PAST_K[-1]),
+                           (n, edge, 10), (n, edge + 1, 10)):
+            X = torch.randn((rows, d), generator=gen, device=dev).to(xt)
+            y = torch.randint(0, k, (rows,), generator=gen, device=dev)
+            m = (torch.rand(rows, generator=gen, device=dev) < 0.7).float()
+            W = torch.randn((d, k), generator=gen, device=dev) / d ** 0.5
+            staged = fk.stage_softmax(X, y, k, m)
+            plan = fk.softmax_launch_shape(X, k)
+            if plan.mode != softmax_mode_want(fk, d, k, xt):
+                raise AssertionError(f"softmax {rows}x{d} K={k} {xt}: plan "
+                                     f"{plan.mode}")
+            exact = softmax_f64(k, W, staged)
+            le, ge = compare_softmax(
+                fk, k, W, staged, f"softmax {rows}x{d} K={k} {xt} vs f64",
+                plain=lambda: (exact[0].float(), exact[1].float()))
+            past[f"{kind} {rows}x{d} K={k}"] = {
+                "mode": plan.mode, "f64_loss_rel_err": le,
+                "f64_grad_max_abs_err": ge}
+            del X, staged, exact
+        torch.cuda.empty_cache()
+    emit({"phase": "softmax_kernel", "no_class_limit_vs_f64": past,
+          "one_read_max_width_k10": {
+              "f32": fk.softmax_one_read_max_width(10, torch.float32),
+              "bf16": fk.softmax_one_read_max_width(10, torch.bfloat16)}})
 
 
 def margin_modes(fk):
@@ -702,6 +750,13 @@ def record_margin_path(fk, launches, path):
     last set to 0: in all, and by mode under ``launches["modes"]``."""
     launches[path] = fk.launch_count
     launches.setdefault("modes", {})[path] = margin_modes(fk)
+
+
+def softmax_modes(fk, launches, path):
+    """Record the softmax kernel's launches by mode since the counts were
+    last set to 0 under ``launches["softmax_modes"][path]``."""
+    launches.setdefault("softmax_modes", {})[path] = {
+        m: c for m, c in fk.softmax_mode_launches.items() if c}
 
 
 def counting(cls):
@@ -898,6 +953,7 @@ def softmax_path(port, fk, device_synth, after):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = fk.softmax_launch_count
+    path_modes = {m: c for m, c in fk.softmax_mode_launches.items() if c}
     if fk.launch_count != 0:
         raise AssertionError("the softmax path launched the margin kernel")
 
@@ -1000,7 +1056,7 @@ def softmax_path(port, fk, device_synth, after):
           "kernel_ms": kernel_ms, "bound_ms": b_ms, "bound_by": bound_by,
           "bound_source": "H100 SXM data sheet 3.35 TB/s, 67 TFLOP/s f32",
           "kernel_bound_frac": b_ms / kernel_ms,
-          "tile_rows_grid": list(fk.softmax_launch_shape(Xa, K_SM)),
+          "plan": fk.softmax_launch_shape(Xa, K_SM)._asdict(),
           "plain_ms": plain_ms, "two_matmuls_ms": two_mm_ms,
           "two_matmuls_note": "Xa @ W and Xa.T @ resid: two calls, no "
                               "single PyTorch call computes this function",
@@ -1020,7 +1076,7 @@ def softmax_path(port, fk, device_synth, after):
             "replaces": "spark_agd_tpu/ops/pallas_kernels.py:406",
             "counterpart": "spark_agd_tpu/ops/pallas_kernels.py:"
                            "fused_softmax_loss_grad",
-            "launches": launches,
+            "launches": launches, "softmax_path_modes": path_modes,
             # the error the run asserts: against the f64 sums
             "max_abs_err": err_f64,
             "max_abs_err_vs_plain_f32": err_vs_plain,
@@ -1028,6 +1084,154 @@ def softmax_path(port, fk, device_synth, after):
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": bound_by, "library_ms": None,
             "two_matmuls_ms": two_mm_ms}
+
+
+# phase 26: published shapes past the one-read softmax kernel: CIFAR-100
+# (50,000 x 3,072 pixels, 100 classes; past shared memory and past 32
+# classes) and LIBSVM's aloi (108,000 x 128, 1,000 classes)
+SOFTMAX_WIDE = {"cifar100": dict(n=50_000, d=3_072, k=100, seed=21),
+                "aloi": dict(n=108_000, d=128, k=1_000, seed=22)}
+
+
+def softmax_bound(n, d, k, itemsize):
+    """The two-pass mode's bound: X read twice and the (N, K) residuals
+    written and read (``2 N D itemsize + 2 N K 4`` bytes), against the
+    two products' ``4 N D K`` f32 flops; returns (ms, bound_by)."""
+    return bound_ms(2 * n * d * itemsize + 2 * n * k * 4, 4 * n * d * k)
+
+
+def softmax_timings(fk, k, W, staged):
+    """The kernel's event and device ms at ``(k, W, staged)`` (device ms
+    by kernel name for one launch, and summed over one call's launches),
+    its plain version's and the two ``torch.matmul`` products' (``X @
+    W``, ``X.T @ resid``), with the card's state around them."""
+    X = staged.X
+    resid = torch.randn((X.shape[0], k), device=X.device)
+    Xf = X.float()
+    state_before = card_state()
+
+    def kernel():
+        return fk.fused_softmax_loss_grad(k, W, staged)
+
+    per_launch = device_ms(kernel)
+    # the two-pass mode launches its two passes once per chunk of rows
+    plan = fk.softmax_launch_shape(X, k)
+    chunks = -(-X.shape[0] // plan.chunk) if plan.chunk else 1
+    out = {"kernel_ms": time_ms(kernel), "kernel_device_ms": per_launch,
+           "kernel_device_ms_per_call": sum(
+               t * (chunks if "softmax_tp_" in name else 1)
+               for name, t in per_launch.items()) or None,
+           "plain_ms": time_ms(lambda: fk.fused_softmax_loss_grad_reference(
+               k, W, staged)),
+           "two_matmuls_ms": time_ms(lambda: (Xf @ W, Xf.T @ resid))}
+    times = [device_ms(lambda: Xf @ W), device_ms(lambda: Xf.T @ resid)]
+    out["two_matmuls_device_ms"] = (sum(sum(t.values()) for t in times)
+                                    if all(times) else None)
+    out["card_before"], out["card_after"] = state_before, card_state()
+    return out
+
+
+def softmax_wide(port, fk, device_synth, glm, smi, launches):
+    """Phase 26: the softmax kernel's two-pass mode at SOFTMAX_WIDE's
+    published shapes, data made on the card: the kernel held to f64 sums
+    (repeat bit-identical) and timed beside its bound, its plain version
+    and the two products; and a ``SoftmaxRegressionWithAGD`` fit at
+    CIFAR-100's shape, every launch in the two-pass mode, held to the
+    plain fit over their common iterations.  Returns the mode's numbers
+    for the kernels line."""
+    t_phase = time.perf_counter()
+    checks, out, by_shape = {}, {}, {}
+    fk.reset_launch_counts()
+    for name, cfg in SOFTMAX_WIDE.items():
+        n, d, k = cfg["n"], cfg["d"], cfg["k"]
+        X, y = device_synth.planted_softmax(n, d, k, seed=cfg["seed"])
+        staged = fk.stage_softmax(X, y, k)
+        plan = fk.softmax_launch_shape(X, k)
+        checks[f"{name}_two_pass"] = plan.mode == "two_pass"
+        if name == "cifar100":
+            trainer = glm.SoftmaxRegressionWithAGD(
+                k, reg_param=REG_SM, updater=port.SquaredL2Updater(),
+                add_intercept=False)
+            fused = counting(port.FusedSoftmaxGradient)(
+                port.SoftmaxGradient(k))
+            trainer.optimizer.set_gradient(fused).setNumIterations(ITERS) \
+                .setConvergenceTol(TOL)
+            w0 = torch.zeros((d, k), dtype=torch.float32, device="cuda")
+            before = dict(fk.softmax_mode_launches)
+            (w_fit, hist, res), run_s = timed(lambda: port.run(
+                (X, y), fused, port.SquaredL2Updater(), reg_param=REG_SM,
+                num_iterations=ITERS, convergence_tol=TOL,
+                initial_weights=w0, return_result=True))
+            fit_launches = {m: c - before.get(m, 0)
+                            for m, c in fk.softmax_mode_launches.items()
+                            if c - before.get(m, 0)}
+            evals_run = fused.evaluations
+            (w_plain, hist_plain, res_plain), plain_s = timed(
+                lambda: port.run((X, y), port.SoftmaxGradient(k),
+                                 port.SquaredL2Updater(), reg_param=REG_SM,
+                                 num_iterations=ITERS, convergence_tol=TOL,
+                                 initial_weights=w0, return_result=True))
+            model, train_s = timed(lambda: trainer.train(X, y))
+            # the path's launches: the fit's run and train, before the
+            # kernel is compared and timed below
+            launches["softmax_wide"] = fk.softmax_launch_count
+            softmax_modes(fk, launches, "softmax_wide")
+            n_common = min(int(res.num_iters), int(res_plain.num_iters))
+            checks.update({
+                "fit_every_launch_two_pass":
+                    evals_run > 0
+                    and fit_launches == {"two_pass": evals_run},
+                "fit_history_rtol_1e-4": bool(np.allclose(
+                    hist[:n_common], hist_plain[:n_common], rtol=1e-4,
+                    atol=0.0)),
+                "fit_same_stop_or_both_at_floor": same_stop(
+                    res, res_plain, hist, hist_plain),
+                "fit_loss_decreases": bool(hist[-1] < hist[0]),
+                "fit_finite": bool(np.isfinite(hist).all()
+                                   and torch.isfinite(w_fit).all()),
+                "train_equals_run": bool(torch.allclose(
+                    model.weights, w_fit, rtol=1e-6, atol=0.0)),
+            })
+            out["cifar100_fit"] = {
+                "iterations": int(res.num_iters),
+                "iterations_plain": int(res_plain.num_iters),
+                "run_s": run_s, "plain_run_s": plain_s, "train_s": train_s,
+                "run_launches_by_mode": fit_launches,
+                "smooth_evaluations": evals_run,
+                "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
+                "loss_last_plain": float(hist_plain[-1]),
+                "max_hist_rel_diff": float(np.max(
+                    np.abs(hist[:n_common] - hist_plain[:n_common])
+                    / np.abs(hist_plain[:n_common])))}
+            W = w_fit
+        else:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(cfg["seed"])
+            W = torch.randn((d, k), generator=gen, device="cuda") / d ** 0.5
+        exact_loss, exact_grad = softmax_f64(k, W, staged)
+        loss_err, grad_err = compare_softmax(
+            fk, k, W, staged, f"{name} {n}x{d} K={k} vs f64",
+            plain=lambda: (exact_loss.float(), exact_grad.float()))
+        plain_loss, plain_grad = fk.fused_softmax_loss_grad_reference(
+            k, W, staged)
+        b_ms, bound_by = softmax_bound(n, d, k, 4)
+        row = {"shape": [n, d], "classes": k, "plan": plan._asdict(),
+               "loss_rel_err_vs_f64": loss_err,
+               "grad_max_abs_err_vs_f64": grad_err,
+               "plain_grad_max_abs_err_vs_f64": float(
+                   (plain_grad.double() - exact_grad).abs().max()),
+               "grad_abs_max": float(exact_grad.abs().max()),
+               "bit_identical": True, "bound_ms": b_ms, "bound_by": bound_by,
+               "scratch_mb": (plan.chunk * k + plan.partials * d * k
+                              + plan.loss_partials) * 4 / 1e6,
+               **softmax_timings(fk, k, W, staged)}
+        row["kernel_bound_frac"] = b_ms / row["kernel_ms"]
+        by_shape[name] = row
+        del X, y, staged, exact_grad, plain_grad
+        torch.cuda.empty_cache()
+    out.update(by_shape)
+    finish("softmax_wide", out, checks, t_phase, smi)
+    return by_shape
 
 
 def csr_f64(sparse, X):
@@ -1095,6 +1299,29 @@ def phase_sparse_ops(port, fk, sparse, device_synth, glm):
         ("rmatvec", sparse.CSRMatrix.rmatvec, v),
         ("matmat", sparse.CSRMatrix.matmat, W),
         ("rmatmat", sparse.CSRMatrix.rmatmat, V)], "sparse_ops")
+    # bf16 values: the products widen them and sum in f32; held to f64
+    # sums over the same (bf16-rounded) values, as is the logistic loss
+    # and gradient, which come back in f32
+    X16 = sparse.CSRMatrix(
+        X.row_ids, X.col_ids, X.values.to(torch.bfloat16), X.shape,
+        rows_sorted=True, csc_row_ids=X.csc_row_ids,
+        csc_col_ids=X.csc_col_ids, csc_values=X.csc_values.to(torch.bfloat16))
+    X16_64 = csr_f64(sparse, X16)
+    bf16 = check_products(X16, X16_64, [
+        ("matvec", sparse.CSRMatrix.matvec, w),
+        ("rmatvec", sparse.CSRMatrix.rmatvec, v)], "sparse_ops bf16")
+    logistic = port.LogisticGradient()
+    loss16, grad16, _ = logistic.batch_loss_and_grad(w, X16, y)
+    loss64, grad64, _ = logistic.batch_loss_and_grad(w.double(), X16_64,
+                                                     y.double())
+    if not (loss16.dtype == grad16.dtype == torch.float32):
+        raise AssertionError("sparse_ops bf16: the loss or gradient is not "
+                             "f32")
+    bf16["logistic_loss_rel_err_vs_f64"], \
+        bf16["logistic_grad_max_abs_err_vs_f64"] = hold(
+            loss16, grad16, loss64, grad64,
+            "sparse_ops bf16: logistic loss and gradient vs f64")
+    del X16, X16_64
     # the fused gradients route a CSR to the sparse products
     fk.reset_launch_counts()
     labels = torch.randint(0, k, (n,), generator=gen, device="cuda")
@@ -1115,6 +1342,7 @@ def phase_sparse_ops(port, fk, sparse, device_synth, glm):
           "empty_columns": empty_cols,
           "padding_entries": padding, "bit_identical": True,
           "dense_kernel_launches": 0, "products": products,
+          "bf16_values": bf16,
           "seconds": time.perf_counter() - t0})
 
 
@@ -1569,6 +1797,7 @@ def softmax_lbfgs_path(port, fk, glm, smi, Xa, y, launches):
         (Xa, y), fused, port.L2Prox(), reg_param=REG_SM,
         num_iterations=ITERS, initial_weights=w0))
     launches["softmax_lbfgs_path"] = fk.softmax_launch_count
+    softmax_modes(fk, launches, "softmax_lbfgs_path")
     margin_launches = fk.launch_count
     plain, plain_s = timed(lambda: port.run_lbfgs(
         (Xa, y), port.SoftmaxGradient(K_SM), port.L2Prox(),
@@ -2153,17 +2382,60 @@ def wide_path(port, fk, losses, device_synth, smi, launches):
             "two_matmuls_device_ms": two_mm_device_ms}
 
 
-def softmax_ab(port, fk, device_synth, specs, seeds):
-    """``--ab``: the builds ``specs`` (NAME=SOURCE) of the softmax kernel
-    timed in turns at phase 8's shape, each held to the f64 sums."""
+def softmax_build(fk, source):
+    """A build of the softmax kernel from ``source``, a copy of
+    ``csrc/softmax_loss_grad.cu`` with this C interface or, from before
+    the two-pass mode (no ``softmax_mode_name``), the one-read kernel's
+    own: ``softmax_plan`` filling tile rows and grid, and the launch
+    taking them as ints.  Returns ``(BuiltLibrary, calls)`` with
+    ``calls(n, d, sms)`` -> ``{mode: (plan, launch(W, staged))}``: the
+    one-read kernel, and the forced two-pass mode where the build has
+    one."""
     import ctypes
 
+    with open(source) as f:
+        modes = "softmax_mode_name" in f.read()
+    if modes:
+        lib, built = fk.softmax_library(source)
+    else:
+        lib, built = fk._load("softmax_loss_grad", "softmax", fk._HEAD + [
+            ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5, source)
+        lib.softmax_plan.argtypes = [ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int),
+                                     ctypes.POINTER(ctypes.c_int)]
+
+    def calls(n, d, sms):
+        if not modes:
+            rows, grid = ctypes.c_int(), ctypes.c_int()
+            if lib.softmax_plan(n, d, K_SM, 4, sms, ctypes.byref(rows),
+                                ctypes.byref(grid)):
+                raise AssertionError(f"{source}: softmax_plan refused the "
+                                     f"shape")
+            plan = rows.value, grid.value
+            return {"one_read": (plan, lambda W, st: fk._launch(
+                lib, "softmax_loss_grad", "softmax", K_SM, W, st, plan,
+                (plan[1], plan[1])))}
+        out = {}
+        for two_pass in (False, True):
+            plan = fk.softmax_plan_for(lib, n, d, K_SM, 4, sms, two_pass)
+            out[plan.mode] = (plan.raw, lambda W, st, plan=plan:
+                              fk.softmax_launch(lib, K_SM, W, st, plan))
+        return out
+
+    return built, calls
+
+
+def softmax_ab(port, fk, device_synth, specs, seeds):
+    """``--ab``: the builds ``specs`` (NAME=SOURCE) of the softmax kernel
+    timed in turns at phase 8's shape, each held to the f64 sums: the
+    one-read kernel of each build, and (as NAME:two_pass) the two-pass
+    mode forced where the build has it, with the two-pass bound."""
     from spark_agd_tpu_torch.models import glm
 
-    names, builds = ab_builds(
-        specs, lambda src: fk.softmax_library(src)[::-1])
-    libs = [b[::-1] for b in builds]
+    names, builds = ab_builds(specs, lambda src: softmax_build(fk, src))
     d = D_SM + 1
+    sms = fk._device_sms(0)
     for seed in seeds:
         X, y = device_synth.planted_softmax(N_SM, D_SM, K_SM, seed=seed)
         X = glm._add_intercept(X)
@@ -2176,26 +2448,37 @@ def softmax_ab(port, fk, device_synth, specs, seeds):
         exact_loss, exact_grad = softmax_f64(K_SM, W, staged)
         out = {"phase": "ab", "seed": seed, "shape": [N_SM, d],
                "classes": K_SM, "grad_abs_max": float(exact_grad.abs().max()),
+               "bound_ms": dict(zip(("one_read", "two_pass"), (
+                   bound_ms(N_SM * d * 4 + 2 * N_SM * 4 + 2 * d * K_SM * 4,
+                            4 * N_SM * d * K_SM)[0],
+                   softmax_bound(N_SM, d, K_SM, 4)[0]))),
                "card_before": card_state()}
-        for name, (lib, _) in zip(names + names[::-1], libs + libs[::-1]):
-            rows, grid = ctypes.c_int(), ctypes.c_int()
-            if lib.softmax_plan(N_SM, d, K_SM, 4,
-                                fk._device_sms(X.device.index),
-                                ctypes.byref(rows), ctypes.byref(grid)):
-                raise AssertionError(f"{name}: softmax_plan refused the shape")
-            plan = rows.value, grid.value
+        first = None
+        for name, (_, calls) in zip(names + names[::-1],
+                                    builds + builds[::-1]):
+            for mode, (plan, launch) in calls(N_SM, d, sms).items():
+                key = name if mode == "one_read" else f"{name}:{mode}"
 
-            def call(lib=lib, plan=plan):
-                return fk._launch(lib, "softmax_loss_grad", "softmax", K_SM,
-                                  W, staged, plan, (plan[1], plan[1]))
+                def call(launch=launch):
+                    return launch(W, staged)
 
-            loss, grad = call()
-            r = out.setdefault(name, {"tile_rows_grid": list(plan), "ms": []})
-            r["ms"].append(time_ms(call))
-            r["grad_max_abs_err_vs_f64"] = float(
-                (grad.double() - exact_grad).abs().max())
-            r["loss_rel_err_vs_f64"] = abs(
-                float(loss) - float(exact_loss)) / abs(float(exact_loss))
+                loss, grad = call()
+                r = out.setdefault(key, {"plan": list(plan), "ms": []})
+                r["ms"].append(time_ms(call))
+                r["grad_max_abs_err_vs_f64"] = float(
+                    (grad.double() - exact_grad).abs().max())
+                r["loss_rel_err_vs_f64"] = abs(
+                    float(loss) - float(exact_loss)) / abs(float(exact_loss))
+                if mode == "one_read":
+                    if first is None:
+                        first = name, loss, grad
+                    r[f"same_bits_as_{first[0]}"] = bool(
+                        torch.equal(loss, first[1])
+                        and torch.equal(grad, first[2]))
+                else:
+                    loss2, grad2 = call()
+                    r["same_bits_on_repeat"] = bool(
+                        torch.equal(loss, loss2) and torch.equal(grad, grad2))
         out["card_after"] = card_state()
         emit(out)
         del X, y, staged, exact_grad
@@ -2220,7 +2503,7 @@ def margin_build(fk, source):
     staged, plan)`` -> ``(loss, grad)``."""
     import ctypes
 
-    lib, built = fk._load("margin_loss_grad", "margin", fk._MARGIN_ARGTYPES,
+    lib, built = fk._load("margin_loss_grad", "margin", fk._PLAN_ARGTYPES,
                           source)
     lib.margin_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                                 ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -2732,6 +3015,68 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches):
             "shape": [N_MAIN, D_MAIN]}
 
 
+class _LbfgsLane:
+    """Lane ``k`` of a batched ``LBFGSResult``, with the fields
+    ``lbfgs_common_path`` and ``hold_lbfgs`` read."""
+
+    def __init__(self, res, k):
+        for f in ("weights", "loss_history", "num_iters", "num_fn_evals",
+                  "converged", "ls_failed", "aborted_non_finite",
+                  "ls_stop_reason", "diag_step", "diag_evals"):
+            setattr(self, f, getattr(res, f)[k])
+
+
+def lbfgs_sweep_path(port, fk, smi, X, y, launches):
+    """Phase 27, on phase 5's data after phase 22: the L-BFGS
+    regularization path over SWEEP_REGS (``LBFGS.sweep`` through
+    ``FusedLogisticGradient``, 40 iterations at MLlib's tol 1e-4): one
+    launch of the lanes kernel a round, every lane held to its solo
+    ``run_lbfgs`` through the margin kernel over their common path, and
+    the path's wall time beside the 8 solo fits'."""
+    t_phase = time.perf_counter()
+    k = len(SWEEP_REGS)
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    fused = counting_lanes(port.FusedLogisticGradient)()
+    fk.reset_launch_counts()
+    res, sweep_s = timed(lambda: port.LBFGS(fused, port.SquaredL2Updater())
+                         .setNumIterations(ITERS)
+                         .sweep((X, y), SWEEP_REGS, w0))
+    lanes_launches, rounds = fk.lanes_launch_count, fused.rounds
+    modes = {m: c for m, c in fk.lanes_mode_launches.items() if c}
+    other = fk.launch_count + fk.softmax_launch_count
+    launches["lbfgs_sweep_path"] = lanes_launches
+    launches.setdefault("lanes_modes", {})["lbfgs_sweep_path"] = modes
+    solos, solo_s = [], []
+    for reg in SWEEP_REGS:
+        r, t = timed(lambda reg=reg: port.run_lbfgs(
+            (X, y), port.FusedLogisticGradient(), port.SquaredL2Updater(),
+            reg_param=reg, num_iterations=ITERS, initial_weights=w0))
+        solos.append(r)
+        solo_s.append(t)
+    solo_launches = fk.launch_count
+    checks = {"one_lanes_launch_a_round": lanes_launches == rounds > 0,
+              "rounds_are_the_most_evaluations_of_a_lane":
+                  rounds == int(res.num_fn_evals.max()) == res.eval_rounds,
+              "no_other_kernel_in_the_sweep": other == 0,
+              "solo_launches_equal_their_evaluations": solo_launches
+              == sum(int(r.num_fn_evals) for r in solos),
+              "weights_shape": tuple(res.weights.shape) == (k, D_MAIN)}
+    out = {"shape": [N_MAIN, D_MAIN], "regs": SWEEP_REGS,
+           "iterations": ITERS, "sweep_s": sweep_s,
+           "eight_solo_run_lbfgs_s": sum(solo_s), "solo_run_s": solo_s,
+           "rounds": rounds, "launches": lanes_launches, "modes": modes,
+           "solo_evaluations": [int(r.num_fn_evals) for r in solos],
+           "wall_ms_per_round": sweep_s * 1e3 / rounds,
+           "num_iters": res.num_iters.tolist(),
+           "num_fn_evals": res.num_fn_evals.tolist(),
+           "ls_stop_reason": res.ls_stop_reason.tolist(),
+           "solo_num_iters": [int(r.num_iters) for r in solos]}
+    for i, solo in enumerate(solos):
+        out.update(hold_lbfgs(_LbfgsLane(res, i), solo, checks,
+                              f"lane_{i}"))
+    finish("lbfgs_sweep_path", out, checks, t_phase, smi)
+
+
 def cv_path(port, fk, glm, smi, X, y, launches):
     """Phase 23, on phase 5's data: 5-fold CV over CV_REGS (20 lanes)
     through ``LogisticRegressionWithAGD(add_intercept=False)
@@ -2818,6 +3163,7 @@ def softmax_sweep(port, fk, glm, smi, Xa, y, launches):
         Xa, y, SOFTMAX_SWEEP_REGS))
     softmax_launches, rounds = fk.softmax_launch_count, fused.rounds
     launches["softmax_sweep"] = softmax_launches
+    softmax_modes(fk, launches, "softmax_sweep")
     other = fk.launch_count + fk.lanes_launch_count
     w0 = torch.zeros((Xa.shape[1], K_SM), dtype=torch.float32,
                      device="cuda")
@@ -2906,6 +3252,8 @@ def main(argv):
         lanes.update(sweep_path(port, fk, losses, smi, X, y, solo,
                                 launches))
         torch.cuda.empty_cache()
+        lbfgs_sweep_path(port, fk, smi, X, y, launches)
+        torch.cuda.empty_cache()
         cv_path(port, fk, glm, smi, X, y, launches)
         torch.cuda.empty_cache()
 
@@ -2950,6 +3298,10 @@ def main(argv):
 
     # 19. X past one row in shared memory: the two-pass mode
     wide = wide_path(port, fk, losses, device_synth, smi, launches)
+    torch.cuda.empty_cache()
+
+    # 26. the softmax kernel's two-pass mode at published shapes
+    wide_softmax = softmax_wide(port, fk, device_synth, glm, smi, launches)
 
     # 20. the kernels line, the card, the result
     paths = ("lbfgs_path", "gd_gate", "mid_path", "linreg_path",
@@ -2964,14 +3316,26 @@ def main(argv):
                                         "two_matmuls_device_ms")}
         | {"shape": [N_MAIN, D_MAIN]},
         "narrow": narrow, "warp_rows": mid, "two_pass": wide}
-    softmax["launches_by_path"] = {
-        "softmax_path": softmax["launches"],
-        "softmax_lbfgs_path": launches["softmax_lbfgs_path"],
-        "softmax_sweep": launches["softmax_sweep"]}
-    lanes["launches_by_path"] = {p: launches[p]
-                                 for p in ("sweep_path", "cv_path")}
-    lanes["modes_by_path"] = {"sweep_path":
-                              launches["lanes_modes"]["sweep_path"]}
+    softmax_paths = ("softmax_lbfgs_path", "softmax_sweep", "softmax_wide")
+    softmax["launches_by_path"] = {"softmax_path": softmax["launches"],
+                                   **{p: launches[p] for p in softmax_paths}}
+    softmax["modes_by_path"] = {
+        "softmax_path": softmax.pop("softmax_path_modes"),
+        **{p: launches["softmax_modes"][p] for p in softmax_paths}}
+    softmax["by_mode"] = {
+        "one_read": {k: softmax[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "two_matmuls_ms")}
+        | {"shape": [N_SM, D_SM + 1], "classes": K_SM},
+        "two_pass": {name: {k: row[k] for k in (
+            "shape", "classes", "kernel_ms", "kernel_device_ms_per_call",
+            "plain_ms",
+            "bound_ms", "bound_by", "two_matmuls_ms",
+            "two_matmuls_device_ms", "grad_max_abs_err_vs_f64")}
+            for name, row in wide_softmax.items()}}
+    lanes_paths = ("sweep_path", "cv_path", "lbfgs_sweep_path")
+    lanes["launches_by_path"] = {p: launches[p] for p in lanes_paths}
+    lanes["modes_by_path"] = {p: launches["lanes_modes"][p]
+                              for p in ("sweep_path", "lbfgs_sweep_path")}
     emit({"kernels": [margin, lanes, softmax]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,11 +16,13 @@ L6    model layer                 ``models.glm`` trainers and models,
 L5    public API                  ``AcceleratedGradientDescent``, ``run``,
                                   ``make_runner``, ``run_minibatch_sgd``,
                                   ``LBFGS``, ``run_lbfgs``; the lanes:
-                                  ``sweep``, ``cross_validate`` (``api``)
+                                  ``sweep``, ``cross_validate``,
+                                  ``LBFGS.sweep`` (``api``)
 L4    optimizer core              ``core.agd.run_agd``, ``core.gd``,
                                   ``core.lbfgs`` (L-BFGS, OWL-QN) and
                                   ``core.host_lbfgs`` (Python loops);
-                                  ``core.host_agd`` (K lanes in
+                                  ``core.host_agd`` and
+                                  ``core.lbfgs.run_lanes`` (K lanes in
                                   lock-step); ``core.prng`` (JAX's
                                   Bernoulli bits and permutations)
 L3    math plugins                ``ops.losses`` (Gradient), ``ops.prox``
@@ -74,6 +76,7 @@ from .api import (  # noqa: F401
     cross_validate,
     make_cv_runner,
     make_lbfgs_runner,
+    make_lbfgs_sweep_runner,
     make_runner,
     make_sweep_runner,
     run,

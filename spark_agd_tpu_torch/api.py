@@ -6,11 +6,13 @@ the functional ``run(...) -> (weights, loss_history)``, ``make_runner``
 and ``run_minibatch_agd``; the rest of the Optimizer family: the GD
 comparator ``run_minibatch_sgd`` and the quasi-Newton member
 (``LBFGS``, ``run_lbfgs``, ``make_lbfgs_runner``, which route L1 and
-elastic-net updaters to OWL-QN); and the lanes: the regularization path
-(``sweep``, ``make_sweep_runner``, ``sweep_warm_state``) and K-fold
+elastic-net updaters to OWL-QN); and the lanes: the regularization paths
+(``sweep``, ``make_sweep_runner``, ``sweep_warm_state``; for L-BFGS
+``LBFGS.sweep`` and ``make_lbfgs_sweep_runner``) and K-fold
 cross-validation (``cross_validate``, ``make_cv_runner``, ``CVResult``),
-K fits in lock-step through ``core.host_agd`` where the JAX package
-``vmap``s its fused loop.  Data is ``(X, y)`` or ``(X, y, mask)``, as
+K fits in lock-step through ``core.host_agd`` and
+``core.lbfgs.run_lanes`` where the JAX package ``vmap``s its fused
+loops.  Data is ``(X, y)`` or ``(X, y, mask)``, as
 tensors or numpy arrays, with X dense or an ``ops.sparse.CSRMatrix``;
 it is placed on the run's device once.
 
@@ -19,9 +21,8 @@ The entry points run on the current CUDA device unless the caller passes
 device they raise.  ``dist_mode=`` is validated and, with no mesh,
 inert, as in the JAX package.  Meshes, the supervised path
 (``resilience=``, ``checkpointer=``, ``journal=``), telemetry,
-``verbose=True``, the sharded update and the L-BFGS lanes
-(``LBFGS.sweep``) are not in this slice: asking for them raises
-``NotImplementedError``.
+``verbose=True`` and the sharded update are not in this slice: asking
+for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -375,8 +376,10 @@ class CVResult(NamedTuple):
     ``val_loss`` (F, R), the mean smooth loss on each held-out fold (NaN
     for an empty one); ``train_result``, the batched ``AGDResult`` with
     leading axes (F, R); ``mean_val_loss`` (R,), a ``nanmean`` over the
-    folds; ``best_index`` (), its argmin, never a NaN entry unless all
-    are; ``fold_ids`` (N,), the fold assignment; ``base_mask`` (N,), the
+    folds; ``best_index`` (), its argmin as the JAX package takes it,
+    NaN counting as the least value (a strength with no valid fold wins;
+    the model layer refuses to refit a non-finite winner); ``fold_ids``
+    (N,), the fold assignment; ``base_mask`` (N,), the
     validity mask the CV ran under (all ones when the data had none)."""
 
     val_loss: torch.Tensor
@@ -462,13 +465,14 @@ def fold_assignment(n: int, n_folds: int, seed: int, device) -> torch.Tensor:
     return fold_ids
 
 
-def _nan_argmin(v: torch.Tensor) -> torch.Tensor:
-    """The argmin of ``v`` never at a NaN entry, unless every entry is
-    NaN (then 0)."""
+def _nan_first_argmin(v: torch.Tensor) -> torch.Tensor:
+    """The argmin of ``v`` with NaN taken as the least value: the first
+    NaN entry when there is one, else the argmin (what ``jnp.argmin``
+    returns, ``spark_agd_tpu/api.py:946``)."""
     nan = torch.isnan(v)
-    if bool(nan.all()):
-        return torch.zeros((), dtype=torch.int64, device=v.device)
-    return torch.where(nan, math.inf, v).argmin()
+    if bool(nan.any()):
+        return nan.to(torch.int8).argmax()
+    return v.argmin()
 
 
 def _build_cv(data, gradient, updater, n_folds, convergence_tol,
@@ -526,7 +530,7 @@ def _build_cv(data, gradient, updater, n_folds, convergence_tol,
         mean_val = torch.nanmean(val_loss, dim=0)
         return CVResult(val_loss=val_loss, train_result=train_result,
                         mean_val_loss=mean_val,
-                        best_index=_nan_argmin(mean_val),
+                        best_index=_nan_first_argmin(mean_val),
                         fold_ids=fold_ids, base_mask=base_mask)
 
     return fit
@@ -905,10 +909,80 @@ class LBFGS:
         return res.weights
 
     def sweep(self, data, reg_params, initial_weights: Any):
-        """The L-BFGS regularization path (``make_lbfgs_sweep_runner``):
-        not ported yet."""
-        raise NotImplementedError(
-            "LBFGS.sweep is not ported yet: the L-BFGS lanes "
-            "(make_lbfgs_sweep_runner, run_lbfgs_host_multi) arrive in a "
-            "later slice; AcceleratedGradientDescent.sweep runs the path "
-            "today")
+        """The L-BFGS regularization path with this object's configuration
+        (:func:`make_lbfgs_sweep_runner`; smooth penalties only, and
+        ``set_reg_param`` is ignored: the grid supplies the strengths).
+        It makes the ``*WithLBFGS`` trainers' ``train_path`` work as the
+        AGD seats' does."""
+        reg_params = _check_grid_fit(self._updater, reg_params, "sweep")
+        fit = make_lbfgs_sweep_runner(
+            data, self._gradient, self._updater,
+            num_corrections=self._num_corrections,
+            convergence_tol=self._convergence_tol,
+            num_iterations=self._num_iterations, grad_tol=self._grad_tol,
+            mesh=self._mesh, device=self._device)
+        return fit(initial_weights, reg_params)
+
+
+def make_lbfgs_sweep_runner(
+    data,
+    gradient: Gradient,
+    updater: Prox,
+    num_corrections: int = 10,
+    convergence_tol: float = 1e-4,
+    num_iterations: int = 100,
+    *,
+    grad_tol: float = 0.0,
+    mesh=False,
+    device=None,
+):
+    """Build ``fit(initial_weights, reg_params) -> batched LBFGSResult``
+    over data placed and prepared once: the regularization path of the
+    quasi-Newton member, K fits in lock-step (the JAX package ``vmap``s
+    its fused loop).  Each lane runs ``run_lbfgs``'s loop at its
+    strength, and each round evaluates every lane that is still running
+    in one ``lanes_loss_and_grad`` call (one launch of the lanes kernel
+    through ``FusedMarginGradient``; lane by lane for the softmax), plus
+    each lane's smooth penalty.  A lane that has stopped is frozen.
+    Smooth penalties only (L1 and elastic-net grids raise, as in the JAX
+    package, where the OWL-QN dispatch cannot join traced lanes).  The
+    result's fields gain a leading K axis; ``eval_rounds`` counts the
+    rounds.  Single device only in this slice (``mesh`` takes ``None`` or
+    ``False``)."""
+    _reject_later(mesh=mesh)
+    lbfgs_lib.check_smooth_penalty(updater, 1.0)
+    cfg = lbfgs_lib.LBFGSConfig(
+        num_corrections=num_corrections, convergence_tol=convergence_tol,
+        num_iterations=num_iterations, grad_tol=grad_tol)
+    dev = resolve_device(device)
+    X, y, mask = _normalize_data(data)
+    dargs = gradient.prepare(_place(X, dev), _place(y, dev),
+                             _place(mask, dev))
+    sm, _ = smooth_lib.lanes_smooth(gradient, *dargs)
+
+    def fit(initial_weights, reg_params):
+        reg_params = _check_grid_fit(updater, reg_params,
+                                     "make_lbfgs_sweep_runner")
+        # Python floats (f64): each lane's penalty at the precision a solo
+        # fit's reg_param carries (the JAX runner takes the default float
+        # dtype for the same reason)
+        regs = np.asarray(reg_params, np.float64)
+        if regs.ndim != 1:
+            raise ValueError("reg_params must be 1-D")
+        regs = [float(r) for r in regs]
+        w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
+
+        def objective_multi(W):
+            fs, G = sm(W)
+            pen = [updater.smooth_penalty(tvec.lane(W, i), r)
+                   for i, r in enumerate(regs)]
+            return (fs + torch.stack([torch.as_tensor(p[0]).to(fs)
+                                      for p in pen]),
+                    tvec.stack_lanes([tvec.add(tvec.lane(G, i), p[1])
+                                      for i, p in enumerate(pen)]))
+
+        return lbfgs_lib.run_lbfgs_lanes(
+            objective_multi, _stack_lanes(w0, len(regs)), cfg)
+
+    fit.data_args = dargs
+    return fit

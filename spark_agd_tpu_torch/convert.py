@@ -17,7 +17,7 @@ import torch
 
 from .core import tvec
 from .core.agd import AGDWarmState
-from .ops.sparse import CSRMatrix
+from .ops.sparse import CSRMatrix, _values_tensor
 
 
 def weights_from_numpy(tree, device, dtype=None):
@@ -77,7 +77,7 @@ def csr_from_numpy(row_ids, col_ids, values, shape, *, csc=None,
     as the JAX package builds it.  Rows in any order are accepted (the
     port sorts them once, stably)."""
     def t(a):
-        return torch.tensor(np.asarray(a), device=device)
+        return _values_tensor(np.array(a)).to(device)  # a writable copy
 
     twin = {}
     if csc is not None:

@@ -7,7 +7,9 @@ does.  It serves objectives that run their own host loop (a streamed
 smooth, a cross-process one) and carries the warm resume: a
 :class:`HostLBFGSWarm` (weights, value, gradient and curvature pairs)
 continues a run exactly where it stopped, and ``on_iteration`` hands out
-that carry after every accepted step.
+that carry after every accepted step.  :func:`run_lbfgs_host_multi` runs
+K lanes in lock-step over one multi-evaluation a round, each lane the
+solo loop's own generator (``core.lbfgs._lbfgs_gen``).
 
 Under f64 the two twins take the same branches; with an f32 objective a
 decision that sits on a Wolfe or convergence boundary can round
@@ -20,8 +22,9 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 
+from . import tvec
 from .lbfgs import (LBFGSConfig, _Out, _Scalars, _carry_dtype,
-                    _lbfgs_loop, _owlqn_loop)
+                    _lbfgs_loop, _owlqn_loop, run_lanes)
 
 
 class HostLBFGSResult(NamedTuple):
@@ -104,3 +107,54 @@ def run_owlqn_host(objective_smooth: Callable, w0: Any, l1_reg: float,
     return _host_result(_owlqn_loop(objective_smooth, w0, float(l1_reg),
                                     config, sc, warm=warm,
                                     on_iteration=on_iteration))
+
+
+class HostLBFGSMultiResult(NamedTuple):
+    """Same fields as the JAX package's ``HostLBFGSMultiResult``: each
+    lane's on a leading K axis; ``loss_history`` is ``(K, max_iters +
+    1)`` float64, NaN past each lane's ``num_iters + 1``; ``eval_rounds``
+    counts the multi-evaluations the lock-step schedule took."""
+
+    weights: Any
+    loss_history: np.ndarray
+    num_iters: np.ndarray
+    converged: np.ndarray
+    ls_failed: np.ndarray
+    aborted_non_finite: np.ndarray
+    grad_norm: np.ndarray
+    num_fn_evals: np.ndarray
+    eval_rounds: int
+    ls_stop_reason: np.ndarray = None
+
+
+def run_lbfgs_host_multi(objective_multi: Callable, w0_stacked: Any,
+                         config: LBFGSConfig = LBFGSConfig()
+                         ) -> HostLBFGSMultiResult:
+    """K lock-step L-BFGS lanes with float64 decisions over one
+    ``objective_multi(W_stacked) -> ((K,) values, stacked gradients)`` a
+    round: K strengths share each pass over the data.  Each lane runs
+    the solo algorithm exactly (``run_lbfgs_host``'s), so a lane matches
+    its solo run to the multi-evaluation's own rounding; a lane that
+    finishes early sends its final weights to later rounds and its
+    result is frozen."""
+    if not tvec.leaves(w0_stacked):
+        raise ValueError("w0_stacked must have at least one leaf")
+    sc = _Scalars(_carry_dtype(w0_stacked), host=True)
+    outs, rounds = run_lanes(objective_multi, w0_stacked, config, sc)
+    results = [_host_result(o) for o in outs]
+    hist = np.full((len(results), max(r.num_iters for r in results) + 1),
+                   np.nan)
+    for k, r in enumerate(results):
+        hist[k, :r.num_iters + 1] = r.loss_history
+    return HostLBFGSMultiResult(
+        weights=tvec.stack_lanes([r.weights for r in results]),
+        loss_history=hist,
+        num_iters=np.asarray([r.num_iters for r in results]),
+        converged=np.asarray([r.converged for r in results]),
+        ls_failed=np.asarray([r.ls_failed for r in results]),
+        aborted_non_finite=np.asarray(
+            [r.aborted_non_finite for r in results]),
+        grad_norm=np.asarray([r.grad_norm for r in results]),
+        num_fn_evals=np.asarray([r.num_fn_evals for r in results]),
+        eval_rounds=rounds,
+        ls_stop_reason=np.asarray([r.ls_stop_reason for r in results]))

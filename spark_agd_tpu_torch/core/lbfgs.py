@@ -103,14 +103,30 @@ def _carry_dtype(w0) -> torch.dtype:
     return dt
 
 
-def _pin_objective(objective, w_template):
+def _pin(g, w_template):
     """Cast each gradient leaf to its weight leaf's dtype (the value is
     cast where it is read, by :meth:`_Scalars.pull`)."""
+    return tvec.tmap(lambda gi, wi: gi.to(wi.dtype), g, w_template)
+
+
+def _pin_objective(objective, w_template):
+    """``objective`` with its gradient :func:`_pin`-ned."""
     def obj(w):
         f, g = objective(w)
-        return f, tvec.tmap(lambda gi, wi: gi.to(wi.dtype), g, w_template)
+        return f, _pin(g, w_template)
 
     return obj
+
+
+def _drive(gen, objective):
+    """Run a generator that yields the points to evaluate and is sent
+    ``objective(point)`` back; returns what it returns."""
+    try:
+        w = next(gen)
+        while True:
+            w = gen.send(objective(w))
+    except StopIteration as e:
+        return e.value
 
 
 class LBFGSResult(NamedTuple):
@@ -118,8 +134,10 @@ class LBFGSResult(NamedTuple):
     the port's: per accepted iteration, the line search's step
     (``diag_step``, NaN-padded to ``num_iterations``) and its objective
     evaluations (``diag_evals``, 0-padded), which show where two fits'
-    searches part.  ``weights`` lives on the weights' device; the
-    scalars and the arrays are CPU tensors."""
+    searches part; and, for the lanes of a sweep (every field then on a
+    leading K axis), ``eval_rounds``, the lock-step evaluation rounds.
+    ``weights`` lives on the weights' device; the scalars and the arrays
+    are CPU tensors."""
 
     weights: Any
     loss_history: torch.Tensor
@@ -132,6 +150,7 @@ class LBFGSResult(NamedTuple):
     ls_stop_reason: Any = LS_STOP_NONE
     diag_step: Any = None
     diag_evals: Any = None
+    eval_rounds: Any = None
 
 
 class _Scalars:
@@ -202,9 +221,10 @@ def _push_pair(pairs, m, s, y, sc: _Scalars):
             pairs.pop(0)
 
 
-def _wolfe_search(objective, w, f0, g0, d, cfg: LBFGSConfig,
-                  sc: _Scalars):
-    """Strong-Wolfe step along ``d``: returns ``(t, f_t, g_t, evals, ok,
+def _wolfe_gen(w, f0, g0, d, cfg: LBFGSConfig, sc: _Scalars, w_template):
+    """Strong-Wolfe step along ``d`` as a generator: each objective
+    evaluation is ``f, g = yield w_trial``, the gradient cast to
+    ``w_template``'s leaf dtypes.  Returns ``(t, f_t, g_t, evals, ok,
     fail_info)``.  On failure ``f_t``/``g_t`` are the last trial's and
     ``fail_info = (phase, f_lo, t_last, dg0)`` (phase 1 bracket, 2
     zoom) feeds the ``ls_stop_reason`` split."""
@@ -212,12 +232,13 @@ def _wolfe_search(objective, w, f0, g0, d, cfg: LBFGSConfig,
     c1, c2 = sc.const(cfg.c1), sc.const(cfg.c2)
 
     def at(t):
-        f, g = objective(tvec.axpby(1.0, w, float(t), d))
+        f, g = yield tvec.axpby(1.0, w, float(t), d)
+        g = _pin(g, w_template)
         f, dg = sc.pull(f, tvec.dot(g, d))
         return f, g, dg
 
     t = sc.const(1.0)
-    f_t, g_t, dg_t = at(t)
+    f_t, g_t, dg_t = yield from at(t)
     evals = 1
     t_lo, f_lo = sc.const(0.0), f0
     t_hi = sc.const(0.0)
@@ -240,7 +261,7 @@ def _wolfe_search(objective, w, f0, g0, d, cfg: LBFGSConfig,
                 if it >= cfg.max_ls_steps:
                     return t, f_t, g_t, evals, False, (1, f_lo, t, dg0)
                 t = t * cfg.max_step_growth
-                f_t, g_t, dg_t = at(t)
+                f_t, g_t, dg_t = yield from at(t)
                 evals += 1
                 continue
         else:
@@ -256,7 +277,7 @@ def _wolfe_search(objective, w, f0, g0, d, cfg: LBFGSConfig,
             if it >= cfg.max_ls_steps:
                 return t, f_t, g_t, evals, False, (2, f_lo, t, dg0)
         t = 0.5 * (t_lo + t_hi)
-        f_t, g_t, dg_t = at(t)
+        f_t, g_t, dg_t = yield from at(t)
         evals += 1
 
 
@@ -279,30 +300,35 @@ class _Out(NamedTuple):
     grad_norm: Any  # ‖g‖ (OWL-QN: of the pseudo-gradient) at exit
 
 
-def _start(objective, w0, warm, m, sc: _Scalars, extra=None):
-    """``(w, f, g, pairs, it, evals, extra_value)`` at the start: an
-    evaluation at ``w0``, or a warm carry (no evaluation).  ``extra(w)``
-    is read in the same copy as ``f``."""
+def _start(w0, warm, m, sc: _Scalars, extra=None):
+    """``(w, f, g, pairs, it, evals, extra_value)`` at the start, as a
+    generator: an evaluation at ``w0`` (``f, g = yield w0``), or a warm
+    carry (no evaluation).  ``extra(w)`` is read in the same copy as
+    ``f``."""
     if warm is not None:
         w, g = warm.w, warm.g
         vals = sc.pull(extra(w)) if extra else ()
         return (w, sc.const(warm.f), g, list(warm.pairs)[-m:],
                 int(warm.prior_iters), 0, *vals)
-    f, g = objective(w0)
+    f, g = yield w0
+    g = _pin(g, w0)
     vals = sc.pull(f, *([extra(w0)] if extra else []))
     return (w0, vals[0], g, [], 0, 1, *vals[1:])
 
 
-def _lbfgs_loop(objective, w0, cfg: LBFGSConfig, sc: _Scalars, *,
-                warm=None, on_iteration=None) -> _Out:
-    """The L-BFGS loop.  The fused twin (``sc.host`` false) also marks
-    an abort when a failed line search ended on a non-finite trial, as
-    the JAX loop does; the host twin, as ``host_lbfgs.py``, does not."""
+def _lbfgs_gen(w0, cfg: LBFGSConfig, sc: _Scalars, *, warm=None,
+               on_iteration=None):
+    """The L-BFGS loop as a generator (``f, g = yield w`` for each
+    objective evaluation; returns an :class:`_Out`): the one body of
+    decisions that the solo loops (:func:`_lbfgs_loop`) and the
+    lock-step lanes (:func:`run_lanes`) run.  The fused twin
+    (``sc.host`` false) also marks an abort when a failed line search
+    ended on a non-finite trial, as the JAX loop does; the host twin, as
+    ``host_lbfgs.py``, does not."""
     m = int(cfg.num_corrections)
     if m < 1:
         raise ValueError("num_corrections must be >= 1")
-    objective = _pin_objective(objective, w0)
-    w, f, g, pairs, it, evals = _start(objective, w0, warm, m, sc)
+    w, f, g, pairs, it, evals = yield from _start(w0, warm, m, sc)
     prior = it
     hist, steps = [f], []
     converged = ls_failed = False
@@ -315,8 +341,8 @@ def _lbfgs_loop(objective, w0, cfg: LBFGSConfig, sc: _Scalars, *,
         d = tvec.scale(-1.0, _two_loop(g, pairs, sc))
         if not bool(sc.pull(tvec.dot(g, d))[0] < 0):
             d = tvec.scale(-1.0, g)  # stale curvature: steepest descent
-        t, f_n, g_n, ev, ok, info = _wolfe_search(objective, w, f, g, d,
-                                                  cfg, sc)
+        t, f_n, g_n, ev, ok, info = yield from _wolfe_gen(w, f, g, d, cfg,
+                                                          sc, w0)
         evals += ev
         if not ok:
             ls_failed = True
@@ -350,6 +376,44 @@ def _lbfgs_loop(objective, w0, cfg: LBFGSConfig, sc: _Scalars, *,
                 ls_failed, aborted, reason, evals, tvec.norm(g))
 
 
+def _lbfgs_loop(objective, w0, cfg: LBFGSConfig, sc: _Scalars, *,
+                warm=None, on_iteration=None) -> _Out:
+    """The L-BFGS loop on ``objective(w) -> (f, g)``: :func:`_lbfgs_gen`
+    driven one evaluation at a time."""
+    return _drive(_lbfgs_gen(w0, cfg, sc, warm=warm,
+                             on_iteration=on_iteration), objective)
+
+
+def run_lanes(objective_multi, w0_stacked, cfg: LBFGSConfig,
+              sc: _Scalars):
+    """K lock-step L-BFGS lanes over one multi-evaluation a round,
+    ``objective_multi(W) -> ((K,) values, gradients stacked like W)``.
+    Each lane runs :func:`_lbfgs_gen`, the solo loop's own body, so no
+    lane's decisions can drift from a solo run's.  A lane that has
+    finished sends its final weights to later rounds (the evaluation
+    takes the whole stack) and its result is frozen.  Returns ``(outs,
+    rounds)``: each lane's :class:`_Out` and the evaluation rounds."""
+    k = tvec.leaves(w0_stacked)[0].shape[0]
+    gens = [_lbfgs_gen(tvec.lane(w0_stacked, i), cfg, sc)
+            for i in range(k)]
+    queries = [next(gen) for gen in gens]  # a fresh loop asks for w0
+    outs = [None] * k
+    rounds = 0
+    while any(o is None for o in outs):
+        fs, G = objective_multi(tvec.stack_lanes(
+            [queries[i] if outs[i] is None else outs[i].w
+             for i in range(k)]))
+        rounds += 1
+        for i in range(k):
+            if outs[i] is not None:
+                continue
+            try:
+                queries[i] = gens[i].send((fs[i], tvec.lane(G, i)))
+            except StopIteration as e:
+                outs[i] = e.value
+    return outs, rounds
+
+
 def _pseudo_gradient(w, g, l1: float):
     """Leafwise minimal-norm subgradient of ``f + l1·‖·‖₁`` at ``w``."""
     def leaf(wi, gi):
@@ -373,8 +437,8 @@ def _owlqn_loop(objective_smooth, w0, l1_reg: float, cfg: LBFGSConfig,
     objective_smooth = _pin_objective(objective_smooth, w0)
     l1 = sc.const(l1_reg)
     l1f = float(l1)  # the penalty as the weights see it
-    w, f, g, pairs, it, evals, l1n = _start(objective_smooth, w0, warm, m,
-                                            sc, extra=tvec.l1_norm)
+    w, f, g, pairs, it, evals, l1n = _drive(
+        _start(w0, warm, m, sc, extra=tvec.l1_norm), objective_smooth)
     prior = it
     big_f = f + l1 * l1n
     hist, steps = [big_f], []
@@ -473,6 +537,24 @@ def run_lbfgs(objective: Callable, w0: Any,
     dt = _carry_dtype(w0)
     out = _lbfgs_loop(objective, w0, config, _Scalars(dt, host=False))
     return _result(out, config.num_iterations, dt)
+
+
+def run_lbfgs_lanes(objective_multi: Callable, w0_stacked: Any,
+                    config: LBFGSConfig = LBFGSConfig()) -> LBFGSResult:
+    """K L-BFGS fits in lock-step (:func:`run_lanes`) with the decisions
+    of :func:`run_lbfgs` in the carry dtype, over
+    ``objective_multi(W_stacked) -> ((K,) values, stacked gradients)``:
+    the lanes of the JAX package's ``jax.vmap`` of its fused loop.
+    Returns a batched :class:`LBFGSResult`: each field on a leading K
+    axis (``loss_history`` ``(K, num_iterations + 1)``), and
+    ``eval_rounds``."""
+    dt = _carry_dtype(w0_stacked)
+    outs, rounds = run_lanes(objective_multi, w0_stacked, config,
+                             _Scalars(dt, host=False))
+    res = [_result(o, config.num_iterations, dt) for o in outs]
+    return LBFGSResult(
+        *(tvec.stack_lanes([getattr(r, f) for r in res])
+          for f in LBFGSResult._fields[:-1]), eval_rounds=rounds)
 
 
 def run_owlqn(objective_smooth: Callable, w0: Any, l1_reg: float,

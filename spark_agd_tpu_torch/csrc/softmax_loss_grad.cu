@@ -21,7 +21,10 @@
 // on the current one.  On the card it is no faster than the CUDA-core
 // kernel it replaced and well above the byte bound: each product's loop
 // is latency-bound, and splitting X costs about as many instructions as
-// the FMAs that the tensor cores take over (PERF.md).
+// the FMAs that the tensor cores take over (PERF.md).  The two-pass mode
+// (below) moves 2 N D itemsize + 2 N K 4 bytes (X twice, the residuals
+// written and read) and does 4 N D K flops on the CUDA cores (67 TFLOP/s
+// f32): at CIFAR-100's shape (50,000 x 3,072, K = 100) the flops bind.
 //
 // Tensor cores at f32 accuracy.  Every product is
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 in three passes,
@@ -73,11 +76,33 @@
 // block order.  No float atomics anywhere: two calls on the same inputs
 // give the same bits.
 //
-// Classes: the kernel is compiled for class buckets KB in {8, 16, 32}
-// (one, two or four n8 tiles); a call with K classes runs the smallest
-// bucket KB >= K, the classes K..KB-1 masked out.  K is at most
-// kMaxClasses, and less where W, the accumulator and one row of X do not
-// fit a block's shared memory (softmax_max_classes).
+// Classes: the one-read kernel is compiled for class buckets KB in {8,
+// 16, 32} (one, two or four n8 tiles); a call with K classes runs the
+// smallest bucket KB >= K, the classes K..KB-1 masked out.  It takes at
+// most kMaxClasses classes, and fewer where W, the accumulator and one row
+// of X do not fit a block's shared memory (choose_plan).
+//
+// Two-pass mode (everywhere else: K > 32, or a layout past shared memory;
+// softmax_plan picks it, as the Pallas wrapper computes through the jnp
+// loss past its VMEM budget).  Rows run in chunks of at most
+// kTPResidBytes of residuals, (rows x K) f32, so the scratch stays bounded
+// (the jnp path holds all N x K logits).  Per chunk:
+//   - pass 1 (softmax_tp_logits): a block walks 32-row tiles; for each
+//     chunk of KC classes it forms the logits X_tile W[:, chunk] with X
+//     and W staged in shared memory 32 columns at a time (CUDA-core FMAs,
+//     2 rows x KC/16 classes a thread), keeps each row's max and sum of
+//     exponentials online across the chunks and parks the logits in the
+//     residual scratch; then it rewrites them as (softmax - onehot) * m.
+//     The loss takes the label's logit by select-then-sum, as above, with
+//     compensated adds; each block writes its partial loss;
+//   - pass 2 (softmax_tp_grad): block (D chunk of 64, class chunk of KC,
+//     row group) sums X^T resid over its rows, 32 rows a step through
+//     shared memory, the steps' sums added with compensation, into its own
+//     (D, K) partial (chunks after the first add to it, in stream order).
+// A last kernel sums the partials in a fixed order.  X is read twice (and
+// W once per row tile), the residuals written and read twice; no float
+// atomics, so two calls give the same bits.  Ragged rows, columns and
+// classes are masked at load.
 
 #include "tile_common.cuh"
 
@@ -559,77 +584,435 @@ cudaError_t launch_for_bucket(int kb, bool split, const void* X,
 #undef SOFTMAX_BUCKET
 }
 
+// ---- two-pass mode ----------------------------------------------------
+
+constexpr int kTPThreads = 256;
+constexpr int kTPRows = 32;      // pass 1: rows of a tile
+constexpr int kTPCols = 32;      // pass 1: columns of X staged at a time
+constexpr int kTPGradCols = 64;  // pass 2: columns of D a block owns
+constexpr int kTPGradRows = 32;  // pass 2: rows staged at a time
+constexpr int kTPBlocksPerSM = 4;
+// the residual scratch of one chunk of rows, and the pass-2 partials
+constexpr int64_t kTPResidBytes = int64_t(64) << 20;
+constexpr int64_t kTPPartialBytes = int64_t(256) << 20;
+
+// Class chunk of the two-pass mode: 16 classes up to 16, else 64.
+__host__ __device__ constexpr int tp_class_chunk(int k) {
+  return k <= 16 ? 16 : 64;
+}
+
+// Pass 1 on `n` rows (a chunk): logits, online max and sum of
+// exponentials, the residuals into resid (n x k) and the loss.  Thread
+// (rg, cg) = (tid / 16, tid % 16) forms rows rg and rg + 16 of the tile
+// at classes cg + 16 j; thread (sr, sl) = (tid / 8, tid % 8) keeps row
+// sr's running max and sum over classes sl + 8 q, shuffling within its 8
+// lanes.  Every class chunk starts at a multiple of 8, so the thread that
+// parks a logit is the one that reads it back.
+template <typename T, int KC>
+__global__ void __launch_bounds__(kTPThreads)
+    softmax_tp_logits(const T* __restrict__ X, const float* __restrict__ y,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ W, int64_t n, int64_t d,
+                      int k, float* __restrict__ resid,
+                      float* __restrict__ partial_loss) {
+  constexpr int CJ = KC / 16;
+  __shared__ float xs[kTPRows][kTPCols + 1];
+  __shared__ float ws[kTPCols][KC];
+  __shared__ float zs[kTPRows][KC + 1];
+  __shared__ float row_loss_s[kTPRows];
+  const int tid = threadIdx.x;
+  const int rg = tid / 16, cg = tid % 16;
+  const int sr = tid / 8, sl = tid % 8;
+  Kahan loss_acc;  // row sr's losses, in lane sl == 0
+  const int64_t tiles = (n + kTPRows - 1) / kTPRows;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t row0 = tile * kTPRows;
+    const int64_t r = row0 + sr;
+    const bool live = r < n;
+    const float yv = live ? y[r] : -1.f;
+    float run_max = -INFINITY, run_sum = 0.f, picked = 0.f;
+    for (int kc0 = 0; kc0 < k; kc0 += KC) {
+      float acc[2][CJ];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) acc[0][j] = acc[1][j] = 0.f;
+      for (int64_t d0 = 0; d0 < d; d0 += kTPCols) {
+        for (int e = tid; e < kTPRows * kTPCols; e += kTPThreads) {
+          const int rr = e / kTPCols, cc = e % kTPCols;
+          const int64_t gr = row0 + rr, gc = d0 + cc;
+          xs[rr][cc] = gr < n && gc < d ? to_f32(X[gr * d + gc]) : 0.f;
+        }
+        for (int e = tid; e < kTPCols * KC; e += kTPThreads) {
+          const int cc = e / KC, kk = e % KC;
+          const int64_t gc = d0 + cc;
+          ws[cc][kk] = gc < d && kc0 + kk < k
+                           ? W[gc * k + kc0 + kk] : 0.f;
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int c = 0; c < kTPCols; ++c) {
+          const float a0 = xs[rg][c], a1 = xs[rg + 16][c];
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) {
+            const float b = ws[c][cg + 16 * j];
+            acc[0][j] = fmaf(a0, b, acc[0][j]);
+            acc[1][j] = fmaf(a1, b, acc[1][j]);
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        zs[rg][cg + 16 * j] = acc[0][j];
+        zs[rg + 16][cg + 16 * j] = acc[1][j];
+      }
+      __syncthreads();
+      float cmax = -INFINITY;
+      for (int c = sl; c < KC && kc0 + c < k; c += 8)
+        cmax = fmaxf(cmax, zs[sr][c]);
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+      const float new_max = fmaxf(run_max, cmax);
+      float s = 0.f;
+      for (int c = sl; c < KC && kc0 + c < k; c += 8) {
+        const float z = zs[sr][c];
+        s += expf(z - new_max);
+        // select-then-sum: the logit whose class index equals the label
+        if (float(kc0 + c) == yv) picked = z;
+        if (live) resid[r * k + kc0 + c] = z;
+      }
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      run_sum = (run_max == -INFINITY ? 0.f
+                                      : run_sum * expf(run_max - new_max)) +
+                s;
+      run_max = new_max;
+      __syncthreads();  // zs takes the next chunk's logits
+    }
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1)
+      picked += __shfl_xor_sync(0xffffffffu, picked, off);
+    const float lse = run_max + logf(run_sum);
+    const float mv = live ? mask[r] : 0.f;
+    if (live && sl == 0) loss_acc.add((lse - picked) * mv);
+    if (live)
+      for (int64_t c = sl; c < k; c += 8) {
+        const float z = resid[r * k + c];
+        resid[r * k + c] =
+            (expf(z - lse) - (float(c) == yv ? 1.f : 0.f)) * mv;
+      }
+  }
+  if (sl == 0) row_loss_s[sr] = loss_acc.s;
+  __syncthreads();
+  if (tid == 0) {
+    Kahan s;
+    for (int i = 0; i < kTPRows; ++i) s.add(row_loss_s[i]);
+    partial_loss[blockIdx.x] = s.s;
+  }
+}
+
+// Pass 2 on `n` rows (a chunk): block (x, y, z) sums X^T resid over row
+// group z for columns 64 x .. 64 x + 63 and classes KC y .. KC y + KC - 1;
+// thread (dg, kg) = (tid / 16, tid % 16) owns columns dg + 16 i and classes
+// kg + 16 j.  Writes (or, with `accumulate`, adds to) partial_grad[z] in
+// the gradient's (D, K) layout.
+template <typename T, int KC>
+__global__ void __launch_bounds__(kTPThreads)
+    softmax_tp_grad(const T* __restrict__ X, const float* __restrict__ resid,
+                    int64_t n, int64_t d, int k, int64_t rows_per_group,
+                    int accumulate, float* __restrict__ partial_grad) {
+  constexpr int CJ = KC / 16;
+  constexpr int DI = kTPGradCols / 16;
+  __shared__ float xs[kTPGradRows][kTPGradCols];
+  __shared__ float rs[kTPGradRows][KC];
+  const int tid = threadIdx.x;
+  const int dg = tid / 16, kg = tid % 16;
+  const int64_t d0 = int64_t(blockIdx.x) * kTPGradCols;
+  const int k0 = int(blockIdx.y) * KC;
+  const int64_t r_begin = min64(n, int64_t(blockIdx.z) * rows_per_group);
+  const int64_t r_end = min64(n, r_begin + rows_per_group);
+  Kahan sums[DI][CJ];
+  for (int64_t r0 = r_begin; r0 < r_end; r0 += kTPGradRows) {
+    for (int e = tid; e < kTPGradRows * kTPGradCols; e += kTPThreads) {
+      const int rr = e / kTPGradCols, cc = e % kTPGradCols;
+      const int64_t gr = r0 + rr, gc = d0 + cc;
+      xs[rr][cc] = gr < r_end && gc < d ? to_f32(X[gr * d + gc]) : 0.f;
+    }
+    for (int e = tid; e < kTPGradRows * KC; e += kTPThreads) {
+      const int rr = e / KC, kk = e % KC;
+      const int64_t gr = r0 + rr;
+      rs[rr][kk] = gr < r_end && k0 + kk < k ? resid[gr * k + k0 + kk] : 0.f;
+    }
+    __syncthreads();
+    float acc[DI][CJ];
+#pragma unroll
+    for (int i = 0; i < DI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int rr = 0; rr < kTPGradRows; ++rr) {
+      float a[DI], b[CJ];
+#pragma unroll
+      for (int i = 0; i < DI; ++i) a[i] = xs[rr][dg + 16 * i];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) b[j] = rs[rr][kg + 16 * j];
+#pragma unroll
+      for (int i = 0; i < DI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < DI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) sums[i][j].add(acc[i][j]);
+    __syncthreads();  // xs and rs take the next step's rows
+  }
+  float* pg = partial_grad + int64_t(blockIdx.z) * d * k;
+#pragma unroll
+  for (int i = 0; i < DI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const int64_t c = d0 + dg + 16 * i;
+      const int kk = k0 + kg + 16 * j;
+      if (c >= d || kk >= k) continue;
+      float* p = pg + c * k + kk;
+      *p = accumulate ? *p + sums[i][j].s : sums[i][j].s;
+    }
+}
+
+// The two-pass mode's last stage: each gradient entry the fixed-order
+// compensated sum of its `ngrad` partials ((D, K) each); thread 0 also
+// sums the `nloss` loss partials.
+__global__ void reduce_partials_dk(const float* __restrict__ partial_loss,
+                                   int64_t nloss,
+                                   const float* __restrict__ partial_grad,
+                                   int ngrad, int64_t size,
+                                   float* __restrict__ loss,
+                                   float* __restrict__ grad) {
+  const int64_t e = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e < size) {
+    Kahan s;
+    for (int b = 0; b < ngrad; ++b) s.add(partial_grad[int64_t(b) * size + e]);
+    grad[e] = s.s;
+  }
+  if (e == 0) {
+    Kahan s;
+    for (int64_t b = 0; b < nloss; ++b) s.add(partial_loss[b]);
+    loss[0] = s.s;
+  }
+}
+
+enum Mode { kOneRead = 0, kTwoPass = 1 };
+
+// A launch plan, as softmax_plan fills it: the mode; the tile rows
+// (one-read) or the class chunk (two-pass); the blocks of the (pass-1)
+// launch; the gradient partials (the grid, or pass 2's row groups); the
+// rows of a chunk (two-pass: the residual scratch holds chunk x k floats;
+// 0 one-read); the loss partials (the grid, or the grid times the
+// chunks).
+struct Plan {
+  int mode, rows, grid, partials, chunk, nloss;
+};
+
+int64_t tp_chunks(int64_t n, int chunk) {
+  return chunk < 1 ? 0 : (n + chunk - 1) / chunk;
+}
+
+template <typename T, int KC>
+cudaError_t launch_two_pass(const Plan& p, const T* X, const float* y,
+                            const float* mask, const float* W, int64_t n,
+                            int64_t d, int k, float* pl, float* pg,
+                            float* resid, cudaStream_t s) {
+  const dim3 grid2(unsigned((d + kTPGradCols - 1) / kTPGradCols),
+                   unsigned((k + KC - 1) / KC), unsigned(p.partials));
+  int64_t c = 0;
+  for (int64_t r0 = 0; r0 < n; r0 += p.chunk, ++c) {
+    const int64_t rows = n - r0 < p.chunk ? n - r0 : int64_t(p.chunk);
+    softmax_tp_logits<T, KC><<<p.grid, kTPThreads, 0, s>>>(
+        X + r0 * d, y + r0, mask + r0, W, rows, d, k, resid,
+        pl + c * p.grid);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int64_t groups = p.partials;
+    const int64_t per_group =
+        round_up((rows + groups - 1) / groups, kTPGradRows);
+    softmax_tp_grad<T, KC><<<grid2, kTPThreads, 0, s>>>(
+        X + r0 * d, resid, rows, d, k, per_group, c > 0 ? 1 : 0, pg);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_two_pass_for(const Plan& p, const void* X,
+                                const float* y, const float* mask,
+                                const float* W, int64_t n, int64_t d, int k,
+                                float* pl, float* pg, float* resid,
+                                cudaStream_t s) {
+  const T* Xt = static_cast<const T*>(X);
+  if (p.rows == 16)
+    return launch_two_pass<T, 16>(p, Xt, y, mask, W, n, d, k, pl, pg, resid,
+                                  s);
+  if (p.rows == 64)
+    return launch_two_pass<T, 64>(p, Xt, y, mask, W, n, d, k, pl, pg, resid,
+                                  s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch shape for X (n, d) with `itemsize`-byte elements and k classes on
-// a card of `sms` SMs: the tile rows and the grid (one block an SM, at
-// most one per tile).  Returns cudaErrorInvalidValue, and
-// sets nothing, when the kernel cannot take this width and class count.
+// Launch plan for X (n, d) with `itemsize`-byte elements and k classes on
+// a card of `sms` SMs, written to plan[0..5] (see Plan): the one-read
+// kernel wherever choose_plan fits it (one block an SM, at most one per
+// tile), else, or with `force_two_pass`, the two-pass mode (rows in
+// chunks of at most kTPResidBytes of residuals; pass 1 on as many blocks
+// as are resident, pass 2's row groups enough to fill the card, their
+// partials at most kTPPartialBytes).  Returns cudaErrorInvalidValue, and
+// sets nothing, for arguments no mode takes.
 int softmax_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
-                 int* tile_rows, int* grid) {
-  if (n < 0 || d < 1 || sms < 1 || k < 1 || k > kMaxClasses ||
+                 int force_two_pass, int* plan) {
+  if (n < 0 || d < 1 || sms < 1 || k < 1 ||
       (itemsize != 4 && itemsize != 2))
     return int(cudaErrorInvalidValue);
+  Plan p;
   int rows;
   bool split;
-  if (!choose_plan(d, k, itemsize, &rows, &split))
-    return int(cudaErrorInvalidValue);
-  // one block an SM: its threads take all of the SM's registers
-  int64_t blocks = (n + rows - 1) / rows;
-  if (blocks > sms) blocks = sms;
-  *tile_rows = rows;
-  *grid = int(blocks < 1 ? 1 : blocks);
+  if (!force_two_pass && k <= kMaxClasses &&
+      choose_plan(d, k, itemsize, &rows, &split)) {
+    int64_t blocks = (n + rows - 1) / rows;
+    if (blocks > sms) blocks = sms;
+    p.mode = kOneRead;
+    p.rows = rows;
+    p.grid = p.partials = p.nloss = int(blocks < 1 ? 1 : blocks);
+    p.chunk = 0;
+  } else {
+    const int kc = tp_class_chunk(k);
+    int64_t chunk = kTPResidBytes / (4 * int64_t(k)) / kTPRows * kTPRows;
+    if (chunk < kTPRows) chunk = kTPRows;
+    if (chunk > n) chunk = n < 1 ? 1 : n;
+    int64_t blocks = (chunk + kTPRows - 1) / kTPRows;
+    if (blocks > int64_t(sms) * kTPBlocksPerSM)
+      blocks = int64_t(sms) * kTPBlocksPerSM;
+    const int64_t tiles = (d + kTPGradCols - 1) / kTPGradCols *
+                          ((k + kc - 1) / kc);
+    int64_t groups = (int64_t(sms) * kTPBlocksPerSM + tiles - 1) / tiles;
+    const int64_t most_rows = (chunk + kTPGradRows - 1) / kTPGradRows;
+    const int64_t most_bytes = kTPPartialBytes / (4 * d * int64_t(k));
+    if (groups > most_rows) groups = most_rows;
+    if (groups > most_bytes) groups = most_bytes;
+    if (groups > 65535) groups = 65535;
+    p.mode = kTwoPass;
+    p.rows = kc;
+    p.grid = int(blocks);
+    p.partials = int(groups < 1 ? 1 : groups);
+    p.chunk = int(chunk);
+    const int64_t nloss = tp_chunks(n, p.chunk) * p.grid;
+    if (nloss > (int64_t(1) << 30)) return int(cudaErrorInvalidValue);
+    p.nloss = int(nloss < 1 ? 1 : nloss);
+  }
+  plan[0] = p.mode;
+  plan[1] = p.rows;
+  plan[2] = p.grid;
+  plan[3] = p.partials;
+  plan[4] = p.chunk;
+  plan[5] = p.nloss;
   return 0;
 }
 
-// The most classes the kernel takes for X of width d (0 when not even
-// one class fits).
-int softmax_max_classes(int64_t d, int itemsize) {
-  if (d < 1 || (itemsize != 4 && itemsize != 2)) return 0;
-  int rows;
-  bool split;
-  for (int k = kMaxClasses; k >= 1; --k)
-    if (choose_plan(d, k, itemsize, &rows, &split)) return k;
-  return 0;
+// The name of a mode of softmax_plan, or NULL past the last.
+const char* softmax_mode_name(int mode) {
+  switch (mode) {
+    case kOneRead:
+      return "one_read";
+    case kTwoPass:
+      return "two_pass";
+    default:
+      return nullptr;
+  }
 }
 
-// Launch both stages on `stream`.  `partial_loss` holds `grid` floats and
-// `partial_grad` grid * k * d floats of scratch.  Returns the CUDA error
-// code of the launches (0 on success); synchronises nothing.
+// The widest X (in columns) that the one-read kernel takes with k
+// classes (0 when it takes none): wider X, or more classes, takes the
+// two-pass mode.
+int64_t softmax_one_read_max_width(int k, int itemsize) {
+  if (k < 1 || k > kMaxClasses || (itemsize != 4 && itemsize != 2))
+    return 0;
+  int rows;
+  bool split;
+  int64_t lo = 0, hi = kSmemBlock;  // lo fits (vacuously), hi does not
+  while (hi - lo > 1) {
+    const int64_t mid = (lo + hi) / 2;
+    (choose_plan(mid, k, itemsize, &rows, &split) ? lo : hi) = mid;
+  }
+  return lo;
+}
+
+// Launch the plan's kernels and the final sum on `stream`.
+// `partial_loss` holds plan[5] floats, `partial_grad` plan[3] * d * k
+// floats and `resid` plan[4] * k floats (two-pass mode only; it may be
+// NULL otherwise) of scratch.  Returns the CUDA error code of the
+// launches (0 on success); synchronises nothing.
 int softmax_loss_grad(const void* X, int x_type, const void* y,
                       const void* mask, const void* W, int64_t n, int64_t d,
-                      int k, int tile_rows, int grid, void* partial_loss,
-                      void* partial_grad, void* loss, void* grad,
-                      void* stream) {
-  const int kb = bucket_of(k);
+                      int k, const int* plan, void* partial_loss,
+                      void* partial_grad, void* resid, void* loss,
+                      void* grad, void* stream) {
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
   const int itemsize = x_type == kBF16 ? 2 : 4;
   int plan_rows;
-  bool split;
-  if (n < 0 || d < 1 || d > kSmemBlock || kb == 0 || tile_rows < 1 ||
-      tile_rows > kMaxTileRows || grid < 1 ||
-      (x_type != kF32 && x_type != kBF16) ||
-      !choose_plan(d, k, itemsize, &plan_rows, &split))
-    return int(cudaErrorInvalidValue);
+  bool split = false;
+  const bool ok =
+      n >= 0 && d >= 1 && k >= 1 && p.grid >= 1 && p.partials >= 1 &&
+      (x_type == kF32 || x_type == kBF16) &&
+      ((p.mode == kOneRead && d <= kSmemBlock && bucket_of(k) != 0 &&
+        p.rows >= 1 && p.rows <= kMaxTileRows && p.partials == p.grid &&
+        p.nloss == p.grid &&
+        choose_plan(d, k, itemsize, &plan_rows, &split)) ||
+       (p.mode == kTwoPass && p.rows == tp_class_chunk(k) && p.chunk >= 1 &&
+        (resid != nullptr || n == 0) &&
+        p.nloss >= tp_chunks(n, p.chunk) * p.grid));
+  if (!ok) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* yf = static_cast<const float*>(y);
   const float* mf = static_cast<const float*>(mask);
   const float* wf = static_cast<const float*>(W);
   float* pl = static_cast<float*>(partial_loss);
   float* pg = static_cast<float*>(partial_grad);
+  const int threads = 256;
+  if (p.mode == kOneRead) {
+    const cudaError_t err =
+        x_type == kF32
+            ? launch_for_bucket<float>(bucket_of(k), split, X, yf, mf, wf,
+                                       n, d, k, p.rows, p.grid, pl, pg, s)
+            : launch_for_bucket<__nv_bfloat16>(bucket_of(k), split, X, yf,
+                                               mf, wf, n, d, k, p.rows,
+                                               p.grid, pl, pg, s);
+    if (err != cudaSuccess) return int(err);
+    const int blocks = int((d * k + threads - 1) / threads);
+    reduce_partials<<<blocks, threads, 0, s>>>(pl, pg, p.grid, d, k,
+                                               static_cast<float*>(loss),
+                                               static_cast<float*>(grad));
+    return int(cudaGetLastError());
+  }
+  float* rf = static_cast<float*>(resid);
   const cudaError_t err =
       x_type == kF32
-          ? launch_for_bucket<float>(kb, split, X, yf, mf, wf, n, d, k,
-                                     tile_rows, grid, pl, pg, s)
-          : launch_for_bucket<__nv_bfloat16>(kb, split, X, yf, mf, wf, n, d,
-                                             k, tile_rows, grid, pl, pg, s);
+          ? launch_two_pass_for<float>(p, X, yf, mf, wf, n, d, k, pl, pg, rf,
+                                       s)
+          : launch_two_pass_for<__nv_bfloat16>(p, X, yf, mf, wf, n, d, k,
+                                               pl, pg, rf, s);
   if (err != cudaSuccess) return int(err);
-  const int threads = 256;
-  const int blocks = int((d * k + threads - 1) / threads);
-  reduce_partials<<<blocks, threads, 0, s>>>(pl, pg, grid, d, k,
-                                             static_cast<float*>(loss),
-                                             static_cast<float*>(grad));
+  const int64_t chunks = tp_chunks(n, p.chunk);
+  const int64_t size = d * int64_t(k);
+  reduce_partials_dk<<<unsigned((size + threads - 1) / threads), threads, 0,
+                       s>>>(pl, chunks * p.grid, pg,
+                            chunks > 0 ? p.partials : 0, size,
+                            static_cast<float*>(loss),
+                            static_cast<float*>(grad));
   return int(cudaGetLastError());
 }
 

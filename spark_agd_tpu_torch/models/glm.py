@@ -19,12 +19,12 @@ package's layout (``class``, ``weights``, ``intercept``, ``threshold``,
 
 The ``*WithLBFGS`` trainers put ``api.LBFGS`` in the seat (L1 and
 elastic-net updaters go to OWL-QN).  ``train_path`` fits a
-regularization path (``api.sweep`` through the optimizer seat) and
-``cross_validate`` runs K-fold CV over a grid, then refits the winner
-(``api.cross_validate``; AGD seats only).  Not in this slice:
-``train_path`` from an ``LBFGS`` seat, whose ``sweep`` raises
-``NotImplementedError`` until the L-BFGS lanes are ported.  X is a dense
-tensor (or anything numpy takes) or an ``ops.sparse.CSRMatrix``.
+regularization path through the optimizer seat's ``sweep``
+(``api.sweep`` for AGD, ``api.make_lbfgs_sweep_runner`` for L-BFGS,
+smooth penalties only) and ``cross_validate`` runs K-fold CV over a
+grid, then refits the winner (``api.cross_validate``; AGD seats only,
+as in the JAX package).  X is a dense tensor (or anything numpy takes)
+or an ``ops.sparse.CSRMatrix``.
 """
 
 from __future__ import annotations
@@ -375,7 +375,8 @@ class GeneralizedLinearAlgorithm:
         fits in lock-step (``optimizer.sweep``).  The trainer's own
         ``reg_param`` is ignored; ``reg_params`` supplies the grid.
         Returns ``(models, result)``: the models in ``reg_params`` order
-        and the batched ``AGDResult``."""
+        and the batched ``AGDResult`` (``LBFGSResult`` from an LBFGS
+        seat)."""
         self._require_grid_optimizer("sweep")
         data_X, w0 = self._prepare_fit(X, initial_weights)
         res = self.optimizer.sweep((data_X, y), reg_params, w0)

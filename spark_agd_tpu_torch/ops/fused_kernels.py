@@ -34,9 +34,12 @@ deterministic:
   :func:`fused_softmax_loss_grad_reference` its plain version, and
   :class:`FusedSoftmaxGradient` wraps a
   :class:`~spark_agd_tpu_torch.ops.losses.SoftmaxGradient` (counterpart of
-  ``PallasSoftmaxGradient``).  It takes up to :func:`max_classes` classes
-  for a given width (W and the gradient accumulator live in shared
-  memory); a CUDA input past that raises ``ValueError``.
+  ``PallasSoftmaxGradient``).  It takes every width and class count:
+  :func:`softmax_launch_shape` picks the one-read kernel where W, the
+  gradient accumulator and a row tile fit shared memory (up to 32
+  classes, :func:`softmax_one_read_max_width` columns), and a two-pass
+  mode everywhere else (as the Pallas wrapper computes through the jnp
+  loss past its VMEM budget).
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version, which computes the same function in
@@ -50,13 +53,14 @@ route CSR to the jnp losses); no kernel is launched for it.
 
 The launch shapes and the limits come from the CUDA sources
 (``margin_plan``/``margin_max_width``,
-``softmax_plan``/``softmax_max_classes``), which alone know the kernels'
-shared-memory layouts.
+``softmax_plan``/``softmax_one_read_max_width``), which alone know the
+kernels' shared-memory layouts.
 
 ``launch_count``, ``lanes_launch_count`` and ``softmax_launch_count``
 count kernel launches, so a run can show that its main path went through
 the kernels; ``margin_mode_launches`` and ``lanes_mode_launches`` split
-the margin kernels' counts by mode.  ``FusedSoftmaxGradient`` runs its
+the margin kernels' counts by mode, ``softmax_mode_launches`` the
+softmax kernel's.  ``FusedSoftmaxGradient`` runs its
 lanes lane by lane, one softmax launch each, as Pallas batches its
 kernel.
 """
@@ -95,6 +99,7 @@ lanes_launch_count = 0
 softmax_launch_count = 0
 margin_mode_launches = collections.Counter()
 lanes_mode_launches = collections.Counter()
+softmax_mode_launches = collections.Counter()
 
 
 def reset_launch_counts():
@@ -103,6 +108,7 @@ def reset_launch_counts():
     launch_count = lanes_launch_count = softmax_launch_count = 0
     margin_mode_launches.clear()
     lanes_mode_launches.clear()
+    softmax_mode_launches.clear()
 
 
 @dataclass(frozen=True)
@@ -160,10 +166,12 @@ def stage_dense(X, y, mask=None) -> StagedDense:
 
 def stage_softmax(X, y, num_classes: int, mask=None) -> StagedDense:
     """Stage (X, labels, mask) for the softmax kernel (labels as f32
-    class indices); a CUDA X with more classes than the kernel takes at
-    its width raises ``ValueError``."""
-    return _stage(X, y, mask, "softmax",
-                  lambda d, dtype: check_classes(num_classes, d, dtype))
+    class indices), which takes every width and class count; fewer than
+    one class, or a CUDA X with no columns, raises ``ValueError``."""
+    if int(num_classes) < 1:
+        raise ValueError(f"fused_softmax_loss_grad: {num_classes} classes; "
+                         f"the kernel takes 1 or more")
+    return _stage(X, y, mask, "softmax", check_width)
 
 
 def fused_margin_loss_grad_reference(gradient: MarginGradient, w,
@@ -181,15 +189,15 @@ def _device_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# The kernels' launch functions: (X, x_type, y, mask, W, n, d, the loss
-# code or the class count, the plan, partial_loss, partial_grad[, the
-# margin kernel's (N,) multipliers], loss, grad, stream) -> CUDA error
-# code.  The softmax kernel's plan is (tile_rows, grid); the margin
-# kernel's, the int[4] that margin_plan fills.
+# The margin and softmax kernels' launch functions: (X, x_type, y, mask,
+# W, n, d, the loss code or the class count, the int[] plan that
+# margin_plan or softmax_plan fills, partial_loss, partial_grad, the
+# scratch of the two-pass modes (the margin kernel's (N,) multipliers,
+# the softmax kernel's chunk x K residuals; NULL otherwise), loss, grad,
+# stream) -> CUDA error code.
 _HEAD = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
-_ARGTYPES = _HEAD + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-_MARGIN_ARGTYPES = _HEAD + [ctypes.POINTER(ctypes.c_int)] \
+_PLAN_ARGTYPES = _HEAD + [ctypes.POINTER(ctypes.c_int)] \
     + [ctypes.c_void_p] * 6
 
 
@@ -211,11 +219,11 @@ def _launch(lib, name: str, prefix: str, code: int, W,
             staged: StagedDense, plan, partials, mult_rows=None):
     """Launch ``lib``'s ``name`` on the current stream with ``code`` (the
     loss code or the class count) and ``plan`` (the plan arguments, see
-    ``_ARGTYPES``).  The scratch (``partials`` = (the count of loss
+    ``_PLAN_ARGTYPES``).  The scratch (``partials`` = (the count of loss
     partials, the count of gradient partials, each of W's size), and
-    with ``mult_rows`` the margin kernel's (mult_rows,) multipliers,
-    NULL at 0) and the outputs, ``loss`` () and ``grad`` shaped like W,
-    are allocated here; raises if the launch fails."""
+    with ``mult_rows`` the two-pass modes' (mult_rows,) floats, NULL at
+    0) and the outputs, ``loss`` () and ``grad`` shaped like W, are
+    allocated here; raises if the launch fails."""
     X = staged.X
     n, d = X.shape
     kw = dict(dtype=torch.float32, device=X.device)
@@ -247,7 +255,7 @@ def library(source=None):
     ``source``: a path to another version of it with the same C
     interface, for side-by-side timings; returns ``(ctypes library,
     BuiltLibrary)``."""
-    lib, built = _load("margin_loss_grad", "margin", _MARGIN_ARGTYPES,
+    lib, built = _load("margin_loss_grad", "margin", _PLAN_ARGTYPES,
                        source)
     lib.margin_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                                 ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -663,65 +671,92 @@ def softmax_library(source=None):
     ``source``: a path to another version of it with the same C
     interface, for side-by-side timings; returns ``(ctypes library,
     BuiltLibrary)``."""
-    lib, built = _load("softmax_loss_grad", "softmax", _ARGTYPES, source)
+    lib, built = _load("softmax_loss_grad", "softmax", _PLAN_ARGTYPES,
+                       source)
     lib.softmax_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_int,
-                                 ctypes.POINTER(ctypes.c_int),
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.POINTER(ctypes.c_int)]
     lib.softmax_plan.restype = ctypes.c_int
-    lib.softmax_max_classes.argtypes = [ctypes.c_int64, ctypes.c_int]
-    lib.softmax_max_classes.restype = ctypes.c_int
+    lib.softmax_mode_name.argtypes = [ctypes.c_int]
+    lib.softmax_mode_name.restype = ctypes.c_char_p
+    lib.softmax_one_read_max_width.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.softmax_one_read_max_width.restype = ctypes.c_int64
     return lib, built
 
 
-def max_classes(d: int, dtype) -> int:
-    """The most classes the softmax kernel takes for X of width ``d``
-    and ``dtype`` (0 when it cannot take this width at all)."""
+def softmax_one_read_max_width(k: int, dtype) -> int:
+    """The widest X, in columns, that the softmax kernel reads once for
+    ``k`` classes and ``dtype`` (W, the gradient accumulator and a row
+    tile fit a block's shared memory; 0 past 32 classes).  Wider X, or
+    more classes, takes the two-pass mode."""
     lib, _ = softmax_library()
-    return int(lib.softmax_max_classes(d, _itemsize(dtype)))
+    return int(lib.softmax_one_read_max_width(k, _itemsize(dtype)))
 
 
-def check_classes(k: int, d: int, dtype):
-    """Raise ``ValueError`` when the softmax kernel cannot take ``k``
-    classes for X of width ``d``: W and the gradient accumulator (D x K
-    f32 each) and one row of X must fit a block's shared memory, and
-    the kernel is compiled for at most 32 classes."""
-    limit = max_classes(d, dtype)
-    if not 1 <= k <= limit:
-        kind = "bf16" if _itemsize(dtype) == 2 else "f32"
-        raise ValueError(
-            f"fused_softmax_loss_grad: {k} classes are outside the CUDA "
-            f"kernel's limit of 1 to {limit} classes for {kind} X of "
-            f"width {d}; fit this problem with the plain SoftmaxGradient "
-            f"instead")
+class SoftmaxPlan(NamedTuple):
+    """A launch plan of the softmax kernel (``softmax_plan``): ``mode``
+    ("one_read" or "two_pass"); ``rows``, the rows of a tile (one-read)
+    or the classes of a chunk (two-pass); ``grid``, the blocks of the
+    (first) launch; ``partials``, the gradient partials summed at the
+    end; ``chunk``, the rows of a chunk (two-pass: the residual scratch
+    holds ``chunk`` x K floats; 0 one-read); ``loss_partials``; ``raw``,
+    the six ints as ``softmax_plan`` filled them, passed back at
+    launch."""
+
+    mode: str
+    rows: int
+    grid: int
+    partials: int
+    chunk: int
+    loss_partials: int
+    raw: tuple
 
 
-def softmax_launch_shape(X, num_classes: int) -> tuple[int, int]:
-    """``(tile_rows, grid)`` of the softmax kernel for the CUDA tensor
-    ``X`` (N, D) and ``num_classes``; raises ``ValueError`` when the
-    kernel cannot take them."""
-    lib, _ = softmax_library()
-    rows, grid = ctypes.c_int(), ctypes.c_int()
+def softmax_plan_for(lib, n: int, d: int, k: int, itemsize: int, sms: int,
+                     two_pass: bool = False) -> SoftmaxPlan:
+    """``lib``'s plan for ``k`` classes over X (n, d) of ``itemsize``-byte
+    elements on a card of ``sms`` SMs (``two_pass``: the two-pass mode
+    even where the one-read kernel fits); raises ``ValueError`` where it
+    has none."""
+    plan = (ctypes.c_int * 6)()
+    if lib.softmax_plan(n, d, k, itemsize, sms, int(two_pass), plan) != 0:
+        raise ValueError(f"fused_softmax_loss_grad: no launch plan for {k} "
+                         f"classes over X ({n}, {d}) of {itemsize}-byte "
+                         f"elements")
+    return SoftmaxPlan(lib.softmax_mode_name(plan[0]).decode(), *plan[1:],
+                       tuple(plan))
+
+
+def softmax_launch_shape(X, num_classes: int) -> SoftmaxPlan:
+    """The softmax kernel's :class:`SoftmaxPlan` for the CUDA tensor
+    ``X`` (N, D) and ``num_classes``: the one-read kernel where it fits,
+    else the two-pass mode."""
     n, d = X.shape
-    if lib.softmax_plan(n, d, num_classes, X.element_size(),
-                        _device_sms(X.device.index), ctypes.byref(rows),
-                        ctypes.byref(grid)) != 0:
-        check_classes(num_classes, d, X.dtype)  # raises with the limit
-        raise ValueError(f"fused_softmax_loss_grad: no launch shape for X "
-                         f"{tuple(X.shape)} of {X.dtype} with "
-                         f"{num_classes} classes")
-    return rows.value, grid.value
+    check_width(d, X.dtype)
+    return softmax_plan_for(softmax_library()[0], n, d, int(num_classes),
+                            X.element_size(), _device_sms(X.device.index))
+
+
+def softmax_launch(lib, k: int, W, staged: StagedDense, plan: SoftmaxPlan):
+    """Launch ``lib``'s ``softmax_loss_grad`` with ``plan`` on the current
+    stream for the (D, k) f32 ``W``; returns ``(loss, grad)``.  Raises if
+    the launch fails."""
+    return _launch(lib, "softmax_loss_grad", "softmax", k, W, staged,
+                   [(ctypes.c_int * 6)(*plan.raw)],
+                   (plan.loss_partials, plan.partials), plan.chunk * k)
 
 
 def fused_softmax_loss_grad(num_classes: int, W, staged: StagedDense):
     """``(loss_sum, grad_sum)`` in f32 of the multinomial softmax with
-    weights ``W`` (D, K), reading X once.  CPU operands take the plain
+    weights ``W`` (D, K), at every width and class count: reading X once
+    where W, the gradient accumulator and a row tile fit shared memory
+    (up to 32 classes), else in two passes.  CPU operands take the plain
     version; CUDA operands launch the kernel on the current stream or
     raise.
 
     Replaces ``spark_agd_tpu/ops/pallas_kernels.py:fused_softmax_loss_grad``;
-    on the H100 it is bound by reading X once at device-memory
-    bandwidth."""
+    on the H100 the one-read mode is bound by reading X once at
+    device-memory bandwidth."""
     global softmax_launch_count
     name = "fused_softmax_loss_grad"
     X = staged.X
@@ -732,12 +767,12 @@ def fused_softmax_loss_grad(num_classes: int, W, staged: StagedDense):
     k = int(num_classes)
     _, d = _check_staged(staged, name)
     wf = W.detach().to(torch.float32).contiguous()
-    _check(wf.device == X.device and tuple(wf.shape) == (d, k),
-           f"W must be a ({d}, {k}) tensor on {X.device}", name)
-    rows, grid = softmax_launch_shape(X, k)
-    loss, grad = _launch(softmax_library()[0], "softmax_loss_grad",
-                         "softmax", k, wf, staged, (rows, grid), (grid, grid))
+    _check(k >= 1 and wf.device == X.device and tuple(wf.shape) == (d, k),
+           f"W must be a ({d}, {k}) tensor on {X.device}, k >= 1", name)
+    plan = softmax_launch_shape(X, k)
+    loss, grad = softmax_launch(softmax_library()[0], k, wf, staged, plan)
     softmax_launch_count += 1
+    softmax_mode_launches[plan.mode] += 1
     return loss, grad
 
 
@@ -747,9 +782,8 @@ class FusedSoftmaxGradient(Gradient):
 
     ``prepare`` (called once by the smooth factory) stages the operands
     into a :class:`StagedDense`.  CPU data takes the kernel's plain
-    version; CUDA data launches the kernel, and raises where the kernel
-    cannot take it (more classes than :func:`max_classes` at X's
-    width).  A CSRMatrix takes the wrapped loss's sparse products and
+    version; CUDA data launches the kernel at every width and class
+    count.  A CSRMatrix takes the wrapped loss's sparse products and
     launches nothing."""
 
     def __init__(self, inner: SoftmaxGradient):

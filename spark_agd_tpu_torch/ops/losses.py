@@ -203,7 +203,8 @@ class HingeGradient(MarginGradient):
 
 class SoftmaxGradient(Gradient):
     """Multinomial softmax regression with weight matrix ``(D, K)``
-    (plain PyTorch; its fused kernel is ported in a later slice)."""
+    (plain PyTorch; ``ops.fused_kernels.FusedSoftmaxGradient`` runs the
+    same loss through the CUDA softmax kernel)."""
 
     def __init__(self, num_classes: int):
         self.num_classes = int(num_classes)

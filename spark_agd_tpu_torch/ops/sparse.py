@@ -31,9 +31,12 @@ Padding contract (``spark_agd_tpu/ops/sparse.py:28-31``): ``nnz`` may
 count padding entries of value 0; they add nothing to either product,
 whatever row or column they point at.
 
-Values are f32 or f64; ids are int32 (or int64) and offsets int64, so a
-url-sized matrix (277.9M entries) fits int32 ids without overflowing
-its offsets.
+Values are f32, f64 or bf16; ids are int32 (or int64) and offsets int64,
+so a url-sized matrix (277.9M entries) fits int32 ids without
+overflowing its offsets.  The products run in the promoted dtype of the
+values and the dense operand, so bf16 values meet f32 weights in f32
+(widened once per entry, summed in f32), and a loss and gradient over
+bf16 values come back in f32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-_VALUE_TYPES = (torch.float32, torch.float64)
+_VALUE_TYPES = (torch.float32, torch.float64, torch.bfloat16)
 _ID_TYPES = (torch.int32, torch.int64)
 
 
@@ -108,15 +111,21 @@ def _gather_reduce(values, ids, x, offsets, plan):
 
 
 def _check_values(values: torch.Tensor):
-    if values.dtype in _VALUE_TYPES:
-        return
-    if values.is_floating_point():
-        raise TypeError(
-            f"CSRMatrix values of {values.dtype} are not ported: the sparse "
-            f"products take f32 or f64 values (bf16 CSR values arrive in a "
-            f"later slice)")
-    raise TypeError(f"CSRMatrix values must be f32 or f64; got "
-                    f"{values.dtype}")
+    if values.dtype not in _VALUE_TYPES:
+        raise TypeError(f"CSRMatrix values must be f32, f64 or bf16; got "
+                        f"{values.dtype}")
+
+
+def _values_tensor(values) -> torch.Tensor:
+    """CSR values as a tensor: a tensor as it is, a numpy array copied
+    over, and a bf16 array (the ``ml_dtypes`` type JAX hands out) by its
+    bits."""
+    if isinstance(values, torch.Tensor):
+        return values
+    values = np.asarray(values)
+    if values.dtype.name == "bfloat16":
+        return torch.from_numpy(values.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(values)
 
 
 def _as_ids(a, device) -> torch.Tensor:
@@ -195,7 +204,7 @@ class CSRMatrix:
                                device=dev).repeat_interleave(counts)
         X = cls(row_ids,
                 torch.from_numpy(indices.astype(np.int32, copy=False)).to(dev),
-                torch.from_numpy(np.asarray(values)).to(dev),
+                _values_tensor(values).to(dev),
                 (n_rows, int(n_features)), rows_sorted=True)
         return X.with_csc() if with_csc else X
 

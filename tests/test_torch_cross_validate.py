@@ -137,12 +137,36 @@ class TestCrossValidate:
         assert np.isfinite(tcv.mean_val_loss.numpy()).all()
         assert_same_cv(jcv, tcv)
 
-    def test_best_index_never_picks_a_nan_strength(self):
-        """``mean_val_loss`` is a ``nanmean``; its argmin skips a NaN
-        strength unless every strength is NaN."""
-        v = torch.tensor([np.nan, 2.0, 1.0, np.nan])
-        assert int(tapi._nan_argmin(v)) == 2
-        assert int(tapi._nan_argmin(torch.full((3,), np.nan))) == 0
+    def test_best_index_matches_jax_on_a_strength_with_no_valid_fold(self):
+        """``mean_val_loss`` is a ``nanmean``; a strength whose folds are
+        all NaN (a NaN strength: every lane's fit goes non-finite) stays
+        NaN, and ``best_index`` is JAX's ``jnp.argmin``, which takes the
+        first NaN entry; the trainers then refuse to refit it, in both
+        packages."""
+        X, y, w0 = _problem(4)
+        kw = dict(n_folds=3, num_iterations=3, convergence_tol=0.0,
+                  initial_weights=w0, seed=2)
+        regs = [0.1, np.nan, 1.0]
+        jcv, tcv = _pair((X, y), (X, y), regs, **kw)
+        assert np.isnan(tcv.val_loss[:, 1].numpy()).all()
+        np.testing.assert_array_equal(np.isnan(tcv.mean_val_loss.numpy()),
+                                      np.isnan(np.asarray(jcv.mean_val_loss)))
+        assert int(tcv.best_index) == int(jcv.best_index) == 1
+        v = torch.tensor([2.0, np.nan, 1.0, np.nan])
+        assert int(tapi._nan_first_argmin(v)) == int(jnp.argmin(
+            jnp.asarray(v.numpy()))) == 1
+        assert int(tapi._nan_first_argmin(v[[0, 2]])) == 1
+        from spark_agd_tpu.models import LogisticRegressionWithAGD as JLR
+
+        jt = JLR(add_intercept=False)
+        jt.optimizer.set_num_iterations(3).set_mesh(False)
+        tt = tglm.LogisticRegressionWithAGD(add_intercept=False)
+        tt.optimizer.set_num_iterations(3).set_device("cpu")
+        with pytest.raises(ValueError) as jerr:
+            jt.cross_validate(X, y, regs, n_folds=3, seed=2)
+        with pytest.raises(ValueError) as terr:
+            tt.cross_validate(X, y, regs, n_folds=3, seed=2)
+        assert str(terr.value) == str(jerr.value)
 
     def test_rejects_bad_inputs(self):
         X, y, w0 = _problem()
@@ -234,8 +258,9 @@ class TestTrainerCV:
         with pytest.raises(ValueError) as terr:
             t.cross_validate(X, y, [0.1])
         assert str(terr.value) == str(jerr.value)
-        with pytest.raises(NotImplementedError, match="L-BFGS lanes"):
-            t.train_path(X, y, [0.1, 0.01])
+        # the L-BFGS lanes are ported: the LBFGS seat's path runs
+        models, res = t.train_path(X, y, [0.1, 0.01])
+        assert len(models) == 2 and res.loss_history.shape[0] == 2
 
 
 def test_cv_validation_scores_match_jax():

@@ -257,30 +257,71 @@ def test_softmax_kernel_matches_plain_version(cuda, k):
                         *fk.fused_softmax_loss_grad_reference(k, w, staged))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_softmax_class_limit(cuda, dtype):
-    """At D = 785 the kernel takes every K up to its limit (at least 32);
-    one class more raises when staged and in the wrapper, launching
-    nothing."""
-    d = 785
-    k = fk.max_classes(d, dtype)
-    assert k >= 32
-    gen = torch.Generator(device=cuda)
-    gen.manual_seed(7)
-    X, y, m, W = _softmax_case(gen, cuda, 2000, d, k)
+def _softmax_mode_case(gen, cuda, n, d, k, dtype, want_mode):
+    """The kernel against its plain version at (n, d, k) in ``dtype``,
+    masked, with the plan's mode held to ``want_mode`` and the launch
+    counted under it."""
+    X, y, m, W = _softmax_case(gen, cuda, n, d, k)
     staged = fk.stage_softmax(X.to(dtype), y, k, m)
+    assert fk.softmax_launch_shape(staged.X, k).mode == want_mode
+    before = fk.softmax_mode_launches[want_mode]
     _assert_softmax_close(*fk.fused_softmax_loss_grad(k, W, staged),
                           *fk.fused_softmax_loss_grad_reference(k, W,
                                                                 staged))
-    before = fk.softmax_launch_count
-    g = fk.FusedSoftmaxGradient(losses.SoftmaxGradient(k + 1))
-    with pytest.raises(ValueError, match="classes"):
-        g.prepare(X.to(dtype), y)
-    with pytest.raises(ValueError, match="classes"):
-        fk.fused_softmax_loss_grad(
-            k + 1, torch.zeros((d, k + 1), device=cuda), staged)
-    assert fk.softmax_launch_count == before
+    assert fk.softmax_mode_launches[want_mode] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_class_limit(cuda, dtype):
+    """No class limit: across the hand-over from the one-read kernel to
+    the two-pass mode, at D = 785 with K = 32, 33, 64, 100 and 1000 and
+    at K = 10 around the widest X the one-read kernel takes, the kernel
+    agrees with its plain version in the mode the plan names."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    assert fk.softmax_one_read_max_width(32, dtype) >= 785
+    assert fk.softmax_one_read_max_width(33, dtype) == 0
+    for k in (32, 33, 64, 100, 1000):
+        _softmax_mode_case(gen, cuda, 2000, 785, k, dtype,
+                           "one_read" if k <= 32 else "two_pass")
+    edge = fk.softmax_one_read_max_width(10, dtype)
+    assert edge >= 785
+    for d in (edge - 1, edge, edge + 1):
+        _softmax_mode_case(gen, cuda, 1003, d, 10, dtype,
+                           "one_read" if d <= edge else "two_pass")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 100])
+def test_softmax_two_pass_same_bits_on_repeat(cuda, k):
+    """The two-pass mode (forced at K = 10, where the one-read kernel
+    fits; the plan's own at K = 100) gives the same bits on repeat and
+    agrees with the plain version; at K = 10 with the one-read kernel
+    too.  More rows than one chunk of residuals at K = 100."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    n = 180_001 if k == 100 else 20_011
+    X, y, m, W = _softmax_case(gen, cuda, n, 257, k)
+    lib = fk.softmax_library()[0]
+    sms = fk._device_sms(X.device.index)
+    for xt in (X, X.to(torch.bfloat16)):
+        staged = fk.stage_softmax(xt, y, k, m)
+        plan = fk.softmax_plan_for(lib, n, 257, k, xt.element_size(), sms,
+                                   two_pass=True)
+        assert plan.mode == "two_pass"
+        assert fk.softmax_launch_shape(xt, k).mode == (
+            "one_read" if k <= 32 else "two_pass")
+        if k == 100:
+            assert plan.chunk < n  # the rows run in several chunks
+        ref = fk.fused_softmax_loss_grad_reference(k, W, staged)
+        loss, grad = fk.softmax_launch(lib, k, W, staged, plan)
+        loss2, grad2 = fk.softmax_launch(lib, k, W, staged, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+        _assert_softmax_close(loss, grad, *ref)
+        _assert_softmax_close(*fk.fused_softmax_loss_grad(k, W, staged),
+                              *ref)
 
 
 @pytest.mark.cuda
@@ -692,6 +733,38 @@ def test_fused_sweep_on_the_card_runs_the_lanes_kernel(cuda):
                        port.SquaredL2Updater(), regs, **kw)
     torch.testing.assert_close(fused.loss_history, plain.loss_history,
                                rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_fused_lbfgs_sweep_on_the_card_runs_the_lanes_kernel(cuda):
+    """An L-BFGS path through ``FusedLogisticGradient`` launches only the
+    lanes kernel, one launch a round (rounds = the most evaluations of
+    any lane), and each lane follows the plain path over the iterations
+    before their line searches part."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    n, d = 50_000, 100
+    X = torch.randn((n, d), generator=gen, device=cuda)
+    y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+    regs = [1.0, 0.1, 0.01]
+    w0 = torch.zeros(d, device=cuda)
+    fk.reset_launch_counts()
+    fused = port.LBFGS(port.FusedLogisticGradient(),
+                       port.SquaredL2Updater()).setNumIterations(10) \
+        .sweep((X, y), regs, w0)
+    assert fk.launch_count == 0 and fk.softmax_launch_count == 0
+    assert fk.lanes_launch_count == fused.eval_rounds \
+        == int(fused.num_fn_evals.max()) > 0
+    plain = port.LBFGS(port.LogisticGradient(),
+                       port.SquaredL2Updater()).setNumIterations(10) \
+        .sweep((X, y), regs, w0)
+    for k in range(len(regs)):
+        same = (fused.diag_evals[k] == plain.diag_evals[k]) & (
+            fused.diag_step[k] == plain.diag_step[k])
+        common = int(same.int().cumprod(0).sum())
+        torch.testing.assert_close(fused.loss_history[k, :common + 1],
+                                   plain.loss_history[k, :common + 1],
+                                   rtol=1e-4, atol=0.0)
 
 
 @pytest.mark.cuda

@@ -429,8 +429,10 @@ def test_lbfgs_class_drop_in_and_setters():
     for name in dir(jopt):
         if name.startswith("set"):
             assert hasattr(opt, name), name
-    with pytest.raises(NotImplementedError, match="later slice"):
-        opt.sweep((X, y), [0.1, 0.01], np.zeros(6))
+    # the L-BFGS lanes are ported: the path runs with this configuration
+    path = opt.sweep((X, y), [0.1, 0.01], np.zeros(6))
+    assert path.weights.shape == (2, 6)
+    assert torch.equal(path.num_iters[0], ref.num_iters)
     with pytest.raises(NotImplementedError, match="mesh"):
         opt.set_mesh("data")
     with pytest.raises(NotImplementedError, match="telemetry"):
@@ -569,8 +571,9 @@ def test_lbfgs_trainer_paths_still_raise_and_need_cuda(monkeypatch):
     X, y = logistic_problem(seed=16, n=40, d=3)
     t = tglm.LogisticRegressionWithLBFGS()
     t.optimizer.set_device("cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t.train_path(X, y, [0.1, 0.01])
+    # the L-BFGS lanes are ported: the path runs from the LBFGS seat
+    models, res = t.train_path(X, y, [0.1, 0.01])
+    assert len(models) == 2 and res.weights.shape == (2, 4)
     # cross-validation is AGD-only in both packages: the JAX ValueError
     with pytest.raises(ValueError, match="requires an optimizer seat"):
         tglm.SoftmaxRegressionWithLBFGS(2).cross_validate(X, y, [0.1])

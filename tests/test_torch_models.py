@@ -305,11 +305,12 @@ def test_later_slice_methods_raise():
     assert len(models) == 2 and res.loss_history.shape == (2, 3)
     model, cv = t.cross_validate(X, y, [0.1, 0.01], n_folds=2)
     assert model is not None and cv.val_loss.shape == (2, 2)
+    # and so are the LBFGS seats' paths (the L-BFGS lanes)
     for lbfgs_trainer in (tglm.LogisticRegressionWithLBFGS(),
                           tglm.SoftmaxRegressionWithLBFGS(3)):
-        lbfgs_trainer.optimizer.set_device("cpu")
-        with pytest.raises(NotImplementedError, match="LBFGS.sweep"):
-            lbfgs_trainer.train_path(X, y, [0.1, 0.01])
+        lbfgs_trainer.optimizer.set_device("cpu").set_num_iterations(3)
+        models, res = lbfgs_trainer.train_path(X, y, [0.1, 0.01])
+        assert len(models) == 2 and res.loss_history.shape == (2, 4)
     with pytest.raises(NotImplementedError, match="mesh"):
         tglm.SVMWithAGD(mesh="data")
 

@@ -210,6 +210,49 @@ def test_unsorted_rows_are_sorted_once():
            np.asarray(ja.matvec(w)))
 
 
+@pytest.mark.parametrize("twin", [True, False], ids=["twin", "no_twin"])
+@pytest.mark.parametrize("build", ["convert", "from_csr_arrays"])
+def test_bf16_values_match_jax(build, twin):
+    """bf16 CSR values: the products widen them and sum in f32, and a
+    loss and gradient over them come back in f32, as the JAX
+    ``CSRMatrix.from_csr_arrays`` at the same values computes them (the
+    two sum in different orders: f32 tolerances)."""
+    indptr, indices, values, n, d = _problem(seed=29)
+    v16 = jax.numpy.asarray(values).astype(jax.numpy.bfloat16)
+    jx = jsparse.CSRMatrix.from_csr_arrays(indptr, indices, np.asarray(v16),
+                                           d, with_csc=twin)
+    if build == "convert":
+        tx = convert.csr_from_numpy(
+            np.asarray(jx.row_ids), np.asarray(jx.col_ids),
+            np.asarray(jx.values), jx.shape, device="cpu")
+    else:
+        tx = sparse.CSRMatrix.from_csr_arrays(indptr, indices,
+                                              np.asarray(v16), d,
+                                              with_csc=twin, device="cpu")
+    assert tx.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tx.values.float().numpy(),
+                                  np.asarray(jx.values, np.float32))
+    rng = np.random.default_rng(30)
+    w = rng.standard_normal(d).astype(np.float32)
+    v = rng.standard_normal(n).astype(np.float32)
+    y = (rng.random(n) < 0.5).astype(np.float32)
+    for t_out, j_out in (
+            (tx.matvec(torch.from_numpy(w)), jx.matvec(w)),
+            (tx.rmatvec(torch.from_numpy(v)), jx.rmatvec(v))):
+        assert t_out.dtype == torch.float32
+        assert np.asarray(j_out).dtype == np.float32
+        np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out),
+                                   rtol=1e-5, atol=1e-5)
+    tl, tg, tn = losses.LogisticGradient().batch_loss_and_grad(
+        torch.from_numpy(w), tx, torch.from_numpy(y))
+    jl, jg, jn = jlosses.LogisticGradient().batch_loss_and_grad(w, jx, y)
+    assert tl.dtype == tg.dtype == torch.float32
+    assert float(tl) == pytest.approx(float(jl), rel=1e-5)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-4,
+                               atol=1e-4)
+    assert int(tn) == int(jn) == n
+
+
 def test_csr_to_numpy_rebuilds_the_jax_matrix():
     _, tx, D = _pair(True, "from_csr_arrays")
     jx = jsparse.CSRMatrix(**convert.csr_to_numpy(tx))
@@ -220,11 +263,12 @@ def test_csr_to_numpy_rebuilds_the_jax_matrix():
 
 def test_construction_rejects_what_it_does_not_take():
     indptr, indices, values, n, d = _problem()
-    with pytest.raises(TypeError, match="later slice"):
-        sparse.CSRMatrix(torch.zeros(2, dtype=torch.int32),
-                         torch.zeros(2, dtype=torch.int32),
-                         torch.zeros(2, dtype=torch.bfloat16), (1, 1))
-    with pytest.raises(TypeError, match="f32 or f64"):
+    # bf16 values are taken, as the JAX CSRMatrix takes them
+    X16 = sparse.CSRMatrix(torch.zeros(2, dtype=torch.int32),
+                           torch.zeros(2, dtype=torch.int32),
+                           torch.zeros(2, dtype=torch.bfloat16), (1, 1))
+    assert X16.dtype == torch.bfloat16
+    with pytest.raises(TypeError, match="f32, f64 or bf16"):
         sparse.CSRMatrix(torch.zeros(2, dtype=torch.int32),
                          torch.zeros(2, dtype=torch.int32),
                          torch.zeros(2, dtype=torch.int64), (1, 1))
