@@ -178,11 +178,13 @@ Phases, each printing one JSON line:
     tolerance) and timed beside its bound, its plain version and the two
     ``torch.matmul`` products, which it must beat;
 26. softmax_wide, after phase 19: the softmax kernel's two-pass mode at
-    CIFAR-100's shape (50,000 x 3,072 f32, 100 classes) and LIBSVM's
-    aloi (108,000 x 128, 1,000 classes), data made on the card: held to
-    f64 sums (repeat bit-identical), timed by events and by the
-    profiler beside its bound (X read twice, the residuals written and
-    read), its plain version and the two ``torch.matmul`` products; and
+    CIFAR-100's shape (50,000 x 3,072 f32, 100 classes), LIBSVM's aloi
+    (108,000 x 128, 1,000 classes) and CIFAR-10's (50,000 x 3,072, 10
+    classes), data made on the card: held to f64 sums (repeat
+    bit-identical), timed by events and by the profiler (by pass)
+    beside its bound (``softmax_bound``: X once, or the products in
+    TF32; the two-pass design's floor and the f32-FMA figure beside
+    it), its plain version and the two ``torch.matmul`` products; and
     a ``SoftmaxRegressionWithAGD`` fit (``run`` and ``train``) at
     CIFAR-100's shape, every launch in the two-pass mode, held to the
     plain fit over their common iterations;
@@ -260,9 +262,11 @@ ITERS, REG, TOL = 40, 0.1, 0.0
 # BASELINE config 4: MNIST-8M's shape (benchmarks/datasets.py:136-145),
 # SquaredL2Updater at reg 1e-4 (benchmarks/run.py:96-100)
 N_SM, D_SM, K_SM, REG_SM = 8_100_000, 784, 10, 1e-4
-# H100 SXM data sheet: 3.35 TB/s of HBM3, 67 TFLOP/s f32 (no tensor core)
+# H100 SXM data sheet: 3.35 TB/s of HBM3, 67 TFLOP/s f32 (no tensor core),
+# 495 TFLOP/s dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_REL = 1e-5, 1e-4, 1e-4  # test_pallas.py
 # BASELINE configs 1 and 3 (benchmarks/run.py:75-93): rcv1-like and
 # url-like shapes of benchmarks/datasets.py:112-122, with their seeds
@@ -466,26 +470,30 @@ def same_stop(res, res_plain, hist, hist_plain):
                              rtol=1e-4, atol=0.0)))
 
 
-# kernels whose registers and spills build_report lists one by one
-REPORTED_KERNELS = ("margin_warp_rows", "lanes_mma", "softmax_tp_logits",
-                    "softmax_tp_grad")
-
-
 def kernel_registers(log):
     """``{kernel<template args>: [registers, spilled bytes stored and
-    loaded, stack frame bytes]}`` of each REPORTED_KERNELS kernel in a
-    ``ptxas -v`` log (a stack frame without spills is an array that
-    did not stay in registers)."""
+    loaded, stack frame bytes]}`` of every kernel in a ``ptxas -v`` log
+    (a stack frame without spills is an array that did not stay in
+    registers)."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?\w*?\d(" + "|".join(REPORTED_KERNELS)
-                      + r")I(\w+?)EEv", ln)
-        if m:  # the mangled template arguments: X's type, then ints
-            args = re.sub(r"^f", "f32,", m.group(2).replace(
-                "13__nv_bfloat16", "bf16,"))
-            args = re.sub(r"Li(\d+)E", r"\1,", args).rstrip(",")
-            cur = out.setdefault(f"{m.group(1)}<{args}>", [None, 0, 0])
+                      r"for) '?_ZN(\w+)", ln)
+        if m:  # the nested names <length><name>..., the kernel's last
+            rest, name = m.group(1), ""
+            while (n := re.match(r"\d+", rest)):
+                size = int(n.group())
+                name, rest = rest[n.end():n.end() + size], \
+                    rest[n.end() + size:]
+            t = re.match(r"I(\w+?)EEv", rest)
+            if t:  # the mangled template arguments: X's type, then values
+                args = re.sub(r"^f", "f32,", t.group(1).replace(
+                    "13__nv_bfloat16", "bf16,"))
+                args = re.sub(r"Li(\d+)E", r"\1,", args)
+                args = re.sub(r"Lb([01])E", lambda v: ("false", "true")[
+                    int(v.group(1))] + ",", args)
+                name += f"<{args.rstrip(',')}>"
+            cur = out.setdefault(name, [None, 0, 0])
             continue
         if re.search(r"(?:Compiling entry function|Function properties)",
                      ln):
@@ -504,7 +512,7 @@ def kernel_registers(log):
 
 def build_report(b):
     """A build's time, file and ``ptxas`` report (registers, spills; each
-    REPORTED_KERNELS kernel's on its own)."""
+    kernel's on its own)."""
     lines = b.log.splitlines()
     return {"nvcc_seconds": b.seconds, "library": b.path.name,
             "ptxas": sorted({ln.split(":", 1)[1].strip() for ln in lines
@@ -536,6 +544,7 @@ def phase_build(fk):
                   "bf16": fk.softmax_one_read_max_width(k, torch.bfloat16)}
         for k in (10, 20, 32)}
     emit(out)
+    return {name: out[name]["registers_spills_by_kernel"] for name in built}
 
 
 # phase 3's widths: the narrow mode's bucket edges at KERNEL_NARROW_ROWS
@@ -1088,23 +1097,53 @@ def softmax_path(port, fk, device_synth, after):
 
 # phase 26: published shapes past the one-read softmax kernel: CIFAR-100
 # (50,000 x 3,072 pixels, 100 classes; past shared memory and past 32
-# classes) and LIBSVM's aloi (108,000 x 128, 1,000 classes)
+# classes), LIBSVM's aloi (108,000 x 128, 1,000 classes) and CIFAR-10
+# (50,000 x 3,072, 10 classes: past the one-read kernel's 2,600 f32
+# columns, the two-pass mode's 16-class tile)
 SOFTMAX_WIDE = {"cifar100": dict(n=50_000, d=3_072, k=100, seed=21),
-                "aloi": dict(n=108_000, d=128, k=1_000, seed=22)}
+                "aloi": dict(n=108_000, d=128, k=1_000, seed=22),
+                "cifar10": dict(n=50_000, d=3_072, k=10, seed=23)}
 
 
 def softmax_bound(n, d, k, itemsize):
-    """The two-pass mode's bound: X read twice and the (N, K) residuals
-    written and read (``2 N D itemsize + 2 N K 4`` bytes), against the
-    two products' ``4 N D K`` f32 flops; returns (ms, bound_by)."""
-    return bound_ms(2 * n * d * itemsize + 2 * n * k * 4, 4 * n * d * k)
+    """The softmax kernel's bound at X (n, d) and k classes, counting
+    each input byte read once and each output byte written once: X, y,
+    the mask and W read once and the gradient written once at
+    HBM_BYTES_PER_S, against the 3 x 4 N D K flops of the two products
+    in three TF32 passes at TF32_FLOPS_PER_S;
+    beside it, under their own names, the two-pass design's floor (X
+    read twice, the (N, K) residuals written and read) and the f32-FMA
+    figure (4 N D K flops on the CUDA cores).  Returns a dict."""
+    t_bytes = (n * d * itemsize + 8 * n + 8 * d * k + 4) / HBM_BYTES_PER_S
+    t_ops = 3 * 4 * n * d * k / TF32_FLOPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "x_once_ms": t_bytes * 1e3, "tf32_ops_ms": t_ops * 1e3,
+            "two_pass_floor_ms": (2 * n * d * itemsize + 2 * n * k * 4)
+            / HBM_BYTES_PER_S * 1e3,
+            "f32_fma_ms": 4 * n * d * k / F32_FLOPS_PER_S * 1e3}
+
+
+# the two-pass mode's kernels by pass, as the profiler names them
+SOFTMAX_PASSES = {"pass1": "softmax_tp_logits", "pass2": "softmax_tp_grad",
+                  "final_sum": "reduce_partials_dk"}
+
+
+def softmax_device_by_pass(per_launch, chunks):
+    """The device ms of one two-pass call by pass: each kernel's mean
+    launch time (``device_ms``'s names) times its launches in a call,
+    the two passes once a chunk of rows, the final sum once."""
+    return {p: sum(t for name, t in per_launch.items() if kernel in name)
+            * (1 if p == "final_sum" else chunks)
+            for p, kernel in SOFTMAX_PASSES.items()}
 
 
 def softmax_timings(fk, k, W, staged):
     """The kernel's event and device ms at ``(k, W, staged)`` (device ms
-    by kernel name for one launch, and summed over one call's launches),
-    its plain version's and the two ``torch.matmul`` products' (``X @
-    W``, ``X.T @ resid``), with the card's state around them."""
+    by kernel name for one launch, by pass, and summed over one call's
+    launches), its plain version's and the two ``torch.matmul``
+    products' (``X @ W``, ``X.T @ resid``), with the card's state around
+    them."""
     X = staged.X
     resid = torch.randn((X.shape[0], k), device=X.device)
     Xf = X.float()
@@ -1114,13 +1153,12 @@ def softmax_timings(fk, k, W, staged):
         return fk.fused_softmax_loss_grad(k, W, staged)
 
     per_launch = device_ms(kernel)
-    # the two-pass mode launches its two passes once per chunk of rows
     plan = fk.softmax_launch_shape(X, k)
     chunks = -(-X.shape[0] // plan.chunk) if plan.chunk else 1
+    by_pass = softmax_device_by_pass(per_launch, chunks)
     out = {"kernel_ms": time_ms(kernel), "kernel_device_ms": per_launch,
-           "kernel_device_ms_per_call": sum(
-               t * (chunks if "softmax_tp_" in name else 1)
-               for name, t in per_launch.items()) or None,
+           "kernel_device_ms_by_pass": by_pass,
+           "kernel_device_ms_per_call": sum(by_pass.values()) or None,
            "plain_ms": time_ms(lambda: fk.fused_softmax_loss_grad_reference(
                k, W, staged)),
            "two_matmuls_ms": time_ms(lambda: (Xf @ W, Xf.T @ resid))}
@@ -1195,7 +1233,8 @@ def softmax_wide(port, fk, device_synth, glm, smi, launches):
             out["cifar100_fit"] = {
                 "iterations": int(res.num_iters),
                 "iterations_plain": int(res_plain.num_iters),
-                "run_s": run_s, "plain_run_s": plain_s, "train_s": train_s,
+                "run_s": run_s, "plain_run_s": plain_s,
+                "run_s_over_plain": run_s / plain_s, "train_s": train_s,
                 "run_launches_by_mode": fit_launches,
                 "smooth_evaluations": evals_run,
                 "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
@@ -1214,18 +1253,21 @@ def softmax_wide(port, fk, device_synth, glm, smi, launches):
             plain=lambda: (exact_loss.float(), exact_grad.float()))
         plain_loss, plain_grad = fk.fused_softmax_loss_grad_reference(
             k, W, staged)
-        b_ms, bound_by = softmax_bound(n, d, k, 4)
+        bound = softmax_bound(n, d, k, 4)
         row = {"shape": [n, d], "classes": k, "plan": plan._asdict(),
                "loss_rel_err_vs_f64": loss_err,
                "grad_max_abs_err_vs_f64": grad_err,
                "plain_grad_max_abs_err_vs_f64": float(
                    (plain_grad.double() - exact_grad).abs().max()),
                "grad_abs_max": float(exact_grad.abs().max()),
-               "bit_identical": True, "bound_ms": b_ms, "bound_by": bound_by,
+               "bit_identical": True, **bound,
                "scratch_mb": (plan.chunk * k + plan.partials * d * k
                               + plan.loss_partials) * 4 / 1e6,
                **softmax_timings(fk, k, W, staged)}
-        row["kernel_bound_frac"] = b_ms / row["kernel_ms"]
+        row["kernel_bound_frac"] = bound["bound_ms"] / row["kernel_ms"]
+        if row["kernel_device_ms_per_call"]:
+            row["kernel_device_bound_frac"] = (
+                bound["bound_ms"] / row["kernel_device_ms_per_call"])
         by_shape[name] = row
         del X, y, staged, exact_grad, plain_grad
         torch.cuda.empty_cache()
@@ -2382,15 +2424,61 @@ def wide_path(port, fk, losses, device_synth, smi, launches):
             "two_matmuls_device_ms": two_mm_device_ms}
 
 
+def mma_ab(specs):
+    """``--ab mma:``: the rate of ``mma.sync`` m16n8k8 in TF32 on this
+    card from each probe build in ``specs`` (NAME=SOURCE, e.g.
+    ``probes/mma_rate.cu``), the instruction of the softmax kernel's
+    products: each warp issues 2,048-flop products into 1 to 8
+    independent accumulators, at 8 to 32 warps an SM, timed by CUDA
+    events; TFLOP/s each, beside the data sheet's 495 (``wgmma``)."""
+    import ctypes
+
+    from spark_agd_tpu_torch.ops import _cuda_build, fused_kernels as fk
+
+    names, builds = ab_builds(
+        specs, lambda src: (_cuda_build.build("mma_rate", [src]),))
+    sms = fk._device_sms(0)
+    iters, threads = 4096, 256
+    for name, (built,) in zip(names, builds):
+        lib = ctypes.CDLL(str(built.path))
+        lib.mma_rate_launch.argtypes = ([ctypes.c_int] * 4
+                                        + [ctypes.c_void_p] * 2)
+        lib.mma_rate_launch.restype = ctypes.c_int
+        rows = []
+        for per_sm in (1, 2, 4):
+            blocks = sms * per_sm
+            out = torch.empty(blocks * threads, device="cuda")
+            stream = torch.cuda.current_stream().cuda_stream
+            for chains in (1, 2, 4, 8):
+                def launch():
+                    if lib.mma_rate_launch(chains, blocks, threads, iters,
+                                           out.data_ptr(), stream):
+                        raise RuntimeError("mma_rate_launch failed")
+
+                ms = time_ms(launch)
+                flops = (blocks * threads // 32 * iters * chains
+                         * 2 * 16 * 8 * 8)
+                rows.append({"warps_per_sm": per_sm * threads // 32,
+                             "chains": chains, "ms": ms,
+                             "tflops": flops / ms / 1e9})
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"{name}: non-finite sums")
+        emit({"phase": "ab_mma", "build": name, "instruction":
+              "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+              "data_sheet_tf32_tflops": TF32_FLOPS_PER_S / 1e12,
+              "rows": rows, "card": card_state()})
+
+
 def softmax_build(fk, source):
     """A build of the softmax kernel from ``source``, a copy of
-    ``csrc/softmax_loss_grad.cu`` with this C interface or, from before
-    the two-pass mode (no ``softmax_mode_name``), the one-read kernel's
-    own: ``softmax_plan`` filling tile rows and grid, and the launch
-    taking them as ints.  Returns ``(BuiltLibrary, calls)`` with
-    ``calls(n, d, sms)`` -> ``{mode: (plan, launch(W, staged))}``: the
-    one-read kernel, and the forced two-pass mode where the build has
-    one."""
+    ``csrc/softmax_loss_grad.cu`` with this C interface (a six-int plan)
+    or, from before the two-pass mode (no
+    ``softmax_mode_name``), the one-read kernel's own: ``softmax_plan``
+    filling tile rows and grid, and the launch taking them as ints.
+    Returns ``(BuiltLibrary, calls)`` with ``calls(n, d, sms, k)`` ->
+    ``{mode: (plan, launch(W, staged))}``: the one-read kernel where it
+    takes the shape, and the two-pass mode (forced where the one-read
+    kernel would take it) where the build has one."""
     import ctypes
 
     with open(source) as f:
@@ -2405,22 +2493,24 @@ def softmax_build(fk, source):
                                      ctypes.POINTER(ctypes.c_int),
                                      ctypes.POINTER(ctypes.c_int)]
 
-    def calls(n, d, sms):
+    def calls(n, d, sms, k=K_SM):
         if not modes:
+            if k != K_SM:  # the wide shapes: no two-pass mode to time
+                return {}
             rows, grid = ctypes.c_int(), ctypes.c_int()
-            if lib.softmax_plan(n, d, K_SM, 4, sms, ctypes.byref(rows),
+            if lib.softmax_plan(n, d, k, 4, sms, ctypes.byref(rows),
                                 ctypes.byref(grid)):
-                raise AssertionError(f"{source}: softmax_plan refused the "
-                                     f"shape")
+                raise RuntimeError(f"{source}: softmax_plan refused "
+                                   f"{n} x {d}, K = {k}")
             plan = rows.value, grid.value
             return {"one_read": (plan, lambda W, st: fk._launch(
-                lib, "softmax_loss_grad", "softmax", K_SM, W, st, plan,
+                lib, "softmax_loss_grad", "softmax", k, W, st, plan,
                 (plan[1], plan[1])))}
         out = {}
         for two_pass in (False, True):
-            plan = fk.softmax_plan_for(lib, n, d, K_SM, 4, sms, two_pass)
+            plan = fk.softmax_plan_for(lib, n, d, k, 4, sms, two_pass)
             out[plan.mode] = (plan.raw, lambda W, st, plan=plan:
-                              fk.softmax_launch(lib, K_SM, W, st, plan))
+                              fk.softmax_launch(lib, k, W, st, plan))
         return out
 
     return built, calls
@@ -2428,9 +2518,14 @@ def softmax_build(fk, source):
 
 def softmax_ab(port, fk, device_synth, specs, seeds):
     """``--ab``: the builds ``specs`` (NAME=SOURCE) of the softmax kernel
-    timed in turns at phase 8's shape, each held to the f64 sums: the
-    one-read kernel of each build, and (as NAME:two_pass) the two-pass
-    mode forced where the build has it, with the two-pass bound."""
+    timed in turns (A, B, ..., then back), each held to f64 sums: at
+    phase 8's shape, one line a seed, the one-read kernel of each build
+    (same-bits flag against the first) and, as NAME:two_pass, the
+    two-pass mode forced where the build has it; then at each of
+    SOFTMAX_WIDE's shapes (phase 26's), each build's two-pass mode with
+    its device ms by pass, beside the two ``torch.matmul`` products.
+    Raises at the end if a build was far from the f64 sums at a wide
+    shape."""
     from spark_agd_tpu_torch.models import glm
 
     names, builds = ab_builds(specs, lambda src: softmax_build(fk, src))
@@ -2448,11 +2543,7 @@ def softmax_ab(port, fk, device_synth, specs, seeds):
         exact_loss, exact_grad = softmax_f64(K_SM, W, staged)
         out = {"phase": "ab", "seed": seed, "shape": [N_SM, d],
                "classes": K_SM, "grad_abs_max": float(exact_grad.abs().max()),
-               "bound_ms": dict(zip(("one_read", "two_pass"), (
-                   bound_ms(N_SM * d * 4 + 2 * N_SM * 4 + 2 * d * K_SM * 4,
-                            4 * N_SM * d * K_SM)[0],
-                   softmax_bound(N_SM, d, K_SM, 4)[0]))),
-               "card_before": card_state()}
+               **softmax_bound(N_SM, d, K_SM, 4), "card_before": card_state()}
         first = None
         for name, (_, calls) in zip(names + names[::-1],
                                     builds + builds[::-1]):
@@ -2483,6 +2574,59 @@ def softmax_ab(port, fk, device_synth, specs, seeds):
         emit(out)
         del X, y, staged, exact_grad
         torch.cuda.empty_cache()
+    failed = []
+    for shape, cfg in SOFTMAX_WIDE.items():
+        n, dw, k = cfg["n"], cfg["d"], cfg["k"]
+        X, y = device_synth.planted_softmax(n, dw, k, seed=cfg["seed"])
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(cfg["seed"])
+        W = torch.randn((dw, k), generator=gen, device="cuda") / dw ** 0.5
+        staged = fk.stage_softmax(X, y, k)
+        exact = softmax_f64(k, W, staged)
+        out = {"phase": "ab_wide", "shape_name": shape, "shape": [n, dw],
+               "classes": k, "grad_abs_max": float(exact[1].abs().max()),
+               **softmax_bound(n, dw, k, 4), "card_before": card_state()}
+        for name, (_, calls) in zip(names + names[::-1],
+                                    builds + builds[::-1]):
+            two = calls(n, dw, sms, k).get("two_pass")
+            if two is None:
+                continue
+            plan, launch = two
+
+            def call(launch=launch):
+                return launch(W, staged)
+
+            loss, grad = call()
+            loss2, grad2 = call()
+            r = out.setdefault(f"{name}:two_pass", {
+                "plan": list(plan), "ms": [], "device_ms_by_pass": []})
+            r["ms"].append(time_ms(call))
+            chunks = -(-n // plan[4])
+            r["device_ms_by_pass"].append(
+                softmax_device_by_pass(device_ms(call), chunks))
+            r["same_bits_on_repeat"] = bool(
+                torch.equal(loss, loss2) and torch.equal(grad, grad2))
+            try:
+                r["loss_rel_err_vs_f64"], r["grad_max_abs_err_vs_f64"] = \
+                    hold(loss, grad, exact[0], exact[1],
+                         f"{name} at {shape}: far from the f64 sums")
+            except AssertionError as e:
+                r["loss_rel_err_vs_f64"] = r["grad_max_abs_err_vs_f64"] = None
+                failed.append(str(e))
+            if not r["same_bits_on_repeat"]:
+                failed.append(f"{name} at {shape}: repeated calls differ")
+        Xf = X.float()
+        resid = torch.randn((n, k), device="cuda")
+        out["two_matmuls_ms"] = time_ms(lambda: (Xf @ W, Xf.T @ resid))
+        times = [device_ms(lambda: Xf @ W), device_ms(lambda: Xf.T @ resid)]
+        out["two_matmuls_device_ms"] = (sum(sum(t.values()) for t in times)
+                                        if all(times) else None)
+        out["card_after"] = card_state()
+        emit(out)
+        del X, y, staged, exact, Xf, resid
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 # --ab margin: the widths swept at AB_ROWS rows in f32 (and in bf16 at
@@ -3190,11 +3334,12 @@ def main(argv):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card.")
     parser.add_argument("--ab", nargs="+",
-                        metavar="[margin:|lanes:]NAME=SOURCE",
+                        metavar="[margin:|lanes:|mma:]NAME=SOURCE",
                         help="time these builds of the softmax kernel "
-                             "(or, each prefixed margin: or lanes:, of the "
-                             "margin or lanes kernel) instead of running "
-                             "the phases")
+                             "(or, each prefixed margin:, lanes: or mma:, "
+                             "of the margin or lanes kernel or of the "
+                             "mma.sync rate probe) instead of running the "
+                             "phases")
     parser.add_argument("--seeds", default="3",
                         help="data seeds of --ab, comma-separated")
     args = parser.parse_args(argv)
@@ -3221,12 +3366,14 @@ def main(argv):
     if args.ab:
         kinds = {s.split(":", 1)[0] if s.split("=", 1)[0].count(":") else ""
                  for s in args.ab}
-        if len(kinds) != 1 or not kinds <= {"", "margin", "lanes"}:
-            parser.error("--ab takes softmax builds, margin: builds or "
-                         "lanes: builds, one kind at a time")
+        if len(kinds) != 1 or not kinds <= {"", "margin", "lanes", "mma"}:
+            parser.error("--ab takes softmax builds, margin: builds, "
+                         "lanes: builds or mma: probes, one kind at a time")
         kind = kinds.pop()
         specs = [s[len(kind) + 1:] if kind else s for s in args.ab]
-        if kind == "margin":
+        if kind == "mma":
+            mma_ab(specs)
+        elif kind == "margin":
             margin_ab(fk, specs)
         elif kind == "lanes":
             lanes_ab(fk, specs)
@@ -3236,7 +3383,7 @@ def main(argv):
         return 0
 
     # 2-4. build, and each kernel against its plain version
-    phase_build(fk)
+    registers = phase_build(fk)
     phase_kernel(fk, losses)
     phase_softmax_kernel(fk)
     # 21. the lanes kernel at its bucket and mode edges
@@ -3328,14 +3475,20 @@ def main(argv):
         | {"shape": [N_SM, D_SM + 1], "classes": K_SM},
         "two_pass": {name: {k: row[k] for k in (
             "shape", "classes", "kernel_ms", "kernel_device_ms_per_call",
-            "plain_ms",
-            "bound_ms", "bound_by", "two_matmuls_ms",
-            "two_matmuls_device_ms", "grad_max_abs_err_vs_f64")}
+            "kernel_device_ms_by_pass", "plain_ms", "bound_ms", "bound_by",
+            "x_once_ms", "two_pass_floor_ms", "f32_fma_ms",
+            "kernel_bound_frac", "two_matmuls_ms", "two_matmuls_device_ms",
+            "grad_max_abs_err_vs_f64")}
             for name, row in wide_softmax.items()}}
     lanes_paths = ("sweep_path", "cv_path", "lbfgs_sweep_path")
     lanes["launches_by_path"] = {p: launches[p] for p in lanes_paths}
     lanes["modes_by_path"] = {p: launches["lanes_modes"][p]
                               for p in ("sweep_path", "lbfgs_sweep_path")}
+    for entry, lib in ((margin, "margin_loss_grad"),
+                       (lanes, "margin_lanes_loss_grad"),
+                       (softmax, "softmax_loss_grad")):
+        # [registers, spilled bytes, stack frame bytes] of each kernel
+        entry["ptxas_by_kernel"] = registers[lib]
     emit({"kernels": [margin, lanes, softmax]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,9 +22,14 @@
 // kernel it replaced and well above the byte bound: each product's loop
 // is latency-bound, and splitting X costs about as many instructions as
 // the FMAs that the tensor cores take over (PERF.md).  The two-pass mode
-// (below) moves 2 N D itemsize + 2 N K 4 bytes (X twice, the residuals
-// written and read) and does 4 N D K flops on the CUDA cores (67 TFLOP/s
-// f32): at CIFAR-100's shape (50,000 x 3,072, K = 100) the flops bind.
+// (below) is bound, counting each input byte once (X, y, the mask and W
+// read once, the gradient written once, at 3.35 TB/s) against the two
+// products in three TF32 passes (3 x 4 N D K flops at 495 TFLOP/s), by
+// the operations wherever K is large: at CIFAR-100's shape (50,000 x
+// 3,072, K = 100) 0.372 ms against 0.183 for the bytes, at LIBSVM aloi's
+// (108,000 x 128, K = 1,000) 0.335 ms.  Its own design moves X twice and
+// the (N, K) residuals out and back, 2 N D itemsize + 2 N K 4 bytes
+// (config 4's shape forced to it: 15.4 ms).
 //
 // Tensor cores at f32 accuracy.  Every product is
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 in three passes,
@@ -84,25 +89,56 @@
 //
 // Two-pass mode (everywhere else: K > 32, or a layout past shared memory;
 // softmax_plan picks it, as the Pallas wrapper computes through the jnp
-// loss past its VMEM budget).  Rows run in chunks of at most
-// kTPResidBytes of residuals, (rows x K) f32, so the scratch stays bounded
-// (the jnp path holds all N x K logits).  Per chunk:
-//   - pass 1 (softmax_tp_logits): a block walks 32-row tiles; for each
-//     chunk of KC classes it forms the logits X_tile W[:, chunk] with X
-//     and W staged in shared memory 32 columns at a time (CUDA-core FMAs,
-//     2 rows x KC/16 classes a thread), keeps each row's max and sum of
-//     exponentials online across the chunks and parks the logits in the
-//     residual scratch; then it rewrites them as (softmax - onehot) * m.
-//     The loss takes the label's logit by select-then-sum, as above, with
-//     compensated adds; each block writes its partial loss;
-//   - pass 2 (softmax_tp_grad): block (D chunk of 64, class chunk of KC,
-//     row group) sums X^T resid over its rows, 32 rows a step through
-//     shared memory, the steps' sums added with compensation, into its own
-//     (D, K) partial (chunks after the first add to it, in stream order).
-// A last kernel sums the partials in a fixed order.  X is read twice (and
-// W once per row tile), the residuals written and read twice; no float
-// atomics, so two calls give the same bits.  Ragged rows, columns and
-// classes are masked at load.
+// loss past its VMEM budget).  Both products run on the tensor cores with
+// the fragments and splits above (the logits in four passes, W in three
+// parts; the gradient in three), in 256-thread blocks of 8 warps, two
+// blocks an SM; a class tile is 16, 32, 64 or 128 classes
+// (tp_class_tile), padded only to the n8 fragment (100 classes: 13 live
+// n8 tiles).  Rows run in chunks of at most kTPResidBytes of residuals,
+// (rows x K) f32, so the scratch stays bounded (the jnp path holds all
+// N x K logits).  Per chunk:
+//   - pass 1 (softmax_tp_logits): a block takes a tile of 64-256 rows
+//     (32 rows a warp beside the class tile's warps) and, for each class
+//     tile, forms the logits X_tile W[:, tile]: A = X, B = W, contraction
+//     over D in 64-column stages (32 for f32 X in class tiles of 16-32
+//     classes, so that two blocks fit an SM) through a 2-buffer cp.async
+//     ring (X's stage and W's, row-major, W's rows being D); where the
+//     classes take several tiles and the block's whole row tile fits
+//     beside the W stages (aloi: 64 x 128 f32, 33 KB), it stays resident,
+//     so X is read once at any class count.  Row tiles of 64 rows or
+//     more read W from L2 half as often as 32-row tiles, or less.  The
+//     middle works on the fragments' rows: each row's max and sum of
+//     exponentials online across the class tiles (the warps' shares met
+//     in shared memory in a fixed order), the label's logit by
+//     select-then-sum; the logits of every class tile but the last are
+//     parked in the residual scratch, and after the last the lane that
+//     parked them rewrites them as (softmax - onehot) * m;
+//   - pass 2 (softmax_tp_grad): block (64-256 columns of D, the class
+//     tile, a row group) sums X^T resid over its rows: A = X^T (columns
+//     of D as m16 tiles, read down the staged rows), B = the residuals,
+//     contraction over the rows in stages of as many rows through the
+//     same kind of ring; into its own (D, K) partial (chunks after the
+//     first add to it, in stream order).
+// Staged rows are padded so that every fragment load hits 32 distinct
+// banks (tp_stride); a row whose 16-byte chunks are not aligned (785 f32
+// columns, odd bf16 widths, K not a multiple of 4) takes 4-byte cp.async
+// copies (f32) or plain loads (bf16).  In both products each k8 step's
+// hi*hi starts from zero and is added to its sum with a rounded f32 add,
+// the small terms in their own accumulator (mma3); pass 2 adds its
+// stages' sums with compensation, the small terms riding in the
+// compensation.  A last kernel sums the gradient partials in block order
+// and, in its last block, the loss partials (a strided compensated share
+// a thread, then a fixed tree).  No float atomics, so two calls give the
+// same bits.  Ragged rows, columns and classes are masked at load.
+//
+// What bounds the two-pass mode (PERF.md): on an H100 80GB HBM3 at
+// 700 W, mma.sync m16n8k8 TF32 alone peaks near 320 TFLOP/s
+// (`chip_smoke.py --ab mma:probe=probes/mma_rate.cu`; wgmma's 495 needs
+// both TF32 operands K-major in shared memory, which X^T and the
+// residuals are not).  At that rate CIFAR-100's products take 0.70 ms;
+// the mode takes 2.13 ms of device time there, a third of the rate.  In
+// the code (cuobjdump -sass, not a measured rate) each mma.sync comes
+// with the 3xTF32 scheme's splits, fragment loads and f32 adds.
 
 #include "tile_common.cuh"
 
@@ -587,226 +623,601 @@ cudaError_t launch_for_bucket(int kb, bool split, const void* X,
 // ---- two-pass mode ----------------------------------------------------
 
 constexpr int kTPThreads = 256;
-constexpr int kTPRows = 32;      // pass 1: rows of a tile
-constexpr int kTPCols = 32;      // pass 1: columns of X staged at a time
-constexpr int kTPGradCols = 64;  // pass 2: columns of D a block owns
-constexpr int kTPGradRows = 32;  // pass 2: rows staged at a time
-constexpr int kTPBlocksPerSM = 4;
+constexpr int kTPWarps = kTPThreads / 32;
+// Two blocks an SM: their registers are capped at 128 a thread, which
+// spills a few bytes, but on the H100 16 warps an SM hide the loops'
+// latency far better than one block of 8 at 166-215 registers (PERF.md).
+// Every non-resident layout fits twice in an SM's shared memory (tp_step).
+constexpr int kTPMinBlocks = 2;
+// m16 tiles a warp: pass 1's rows, pass 2's columns of D
+constexpr int kTPMTiles = 2;
+// cp.async ring: kTPStages buffers, one in flight while the block works
+// on the other
+constexpr int kTPStages = 2;
+// pass 1: at most this many blocks an SM (the rest walk more row tiles);
+// pass 2: its row groups aim at this many blocks an SM
+constexpr int kTPMaxBlocksPerSM = 16;
+constexpr int kTPWaves = 4;
 // the residual scratch of one chunk of rows, and the pass-2 partials
 constexpr int64_t kTPResidBytes = int64_t(64) << 20;
 constexpr int64_t kTPPartialBytes = int64_t(256) << 20;
 
-// Class chunk of the two-pass mode: 16 classes up to 16, else 64.
-__host__ __device__ constexpr int tp_class_chunk(int k) {
-  return k <= 16 ? 16 : 64;
+// Class tile of the two-pass mode (pass 1's classes a sweep over D, pass
+// 2's classes a block): 16, 32, 64 or 128 classes, the smallest that
+// holds k; 128-class tiles past 128.
+__host__ __device__ constexpr int tp_class_tile(int k) {
+  return k <= 16 ? 16 : k <= 32 ? 32 : k <= 64 ? 64 : 128;
 }
 
-// Pass 1 on `n` rows (a chunk): logits, online max and sum of
-// exponentials, the residuals into resid (n x k) and the loss.  Thread
-// (rg, cg) = (tid / 16, tid % 16) forms rows rg and rg + 16 of the tile
-// at classes cg + 16 j; thread (sr, sl) = (tid / 8, tid % 8) keeps row
-// sr's running max and sum over classes sl + 8 q, shuffling within its 8
-// lanes.  Every class chunk starts at a multiple of 8, so the thread that
-// parks a logit is the one that reads it back.
-template <typename T, int KC>
-__global__ void __launch_bounds__(kTPThreads)
+// Warps across a class tile of kt classes (each takes kt / 8 / warps
+// n8 tiles, interleaved); the other kTPWarps / warps lie across rows
+// (pass 1) or columns of D (pass 2), kTPMTiles m16 tiles a warp.
+__host__ __device__ constexpr int tp_class_warps(int kt) {
+  return kt <= 32 ? 1 : kt / 32;
+}
+
+// Rows of a pass-1 block, and columns of D of a pass-2 block: 64-256.
+__host__ __device__ constexpr int tp_block_span(int kt) {
+  return 16 * kTPMTiles * (kTPWarps / tp_class_warps(kt));
+}
+
+// A stage, pass 1's columns of D and pass 2's rows: 64 (eight k8 steps),
+// or 32 for f32 X in class tiles of 16 or 32 classes, whose 256-row and
+// 256-column blocks would take 156-163 KB of 64-wide stages, one block
+// an SM; 32-wide, they take 78-87 KB and two fit.
+__host__ __device__ constexpr int tp_step(int itemsize, int kt) {
+  return itemsize == 4 && kt <= 32 ? 32 : 64;
+}
+
+// A row stride in shared memory: `bytes` rounded up to 16, then to
+// s % mod == rem, so that the lanes of one fragment load hit distinct
+// banks.  A fragments of a row-major tile (pass 1's X: lane (g, t) reads
+// row g, column t) take s % 32 == 16 (a word stride of 4 mod 8, f32 or
+// bf16); fragments read down a tile's columns (pass 1's W, pass 2's X^T
+// and residuals: lane (g, t) reads row t, column g) take s % 128 == 32.
+__host__ __device__ inline int64_t tp_stride(int64_t bytes, int64_t mod,
+                                             int64_t rem) {
+  return stride_at(round_up(bytes, 16), mod, rem);
+}
+
+// Pass 1's shared memory, byte offsets: the X stages (or, resident, the
+// block's whole row tile, columns padded to the stage), the W stages
+// (a stage's rows of D x kt classes each), then the cross-warp reductions
+// (row max, row sum: class warps x rows each), each row's picked logit
+// and one loss slot a warp.
+struct TP1Layout {
+  int64_t xs, ws, x_stage, w_stage, w, red, total;
+  __host__ __device__ TP1Layout(int64_t d, int kt, int itemsize,
+                                bool resident) {
+    const int64_t bm = tp_block_span(kt), step = tp_step(itemsize, kt);
+    xs = tp_stride((resident ? round_up(d, step) : step) * itemsize,
+                   32, 16);
+    ws = tp_stride(int64_t(kt) * 4, 128, 32);
+    x_stage = bm * xs;
+    w_stage = step * ws;
+    w = x_stage * (resident ? 1 : kTPStages);
+    red = w + w_stage * kTPStages;
+    total = red + 4 * ((2 * tp_class_warps(kt) + 1) * bm + kTPWarps);
+  }
+};
+
+// Pass 2's shared memory: kTPStages stages of (a stage's rows of X's
+// block columns, the same rows of the residuals' class tile).
+struct TP2Layout {
+  int64_t xs, rs, r, stage, total;
+  __host__ __device__ TP2Layout(int kt, int itemsize) {
+    const int64_t step = tp_step(itemsize, kt);
+    xs = tp_stride(int64_t(tp_block_span(kt)) * itemsize, 128, 32);
+    rs = tp_stride(int64_t(kt) * 4, 128, 32);
+    r = step * xs;
+    stage = r + step * rs;
+    total = stage * kTPStages;
+  }
+};
+
+// 4-byte cp.async (cached at all levels), for rows whose chunks are not
+// 16-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+// Stage rows [row0, row0 + rows) x columns [col0, col0 + cols) of the
+// row-major (nrows, ncols) array `src` into shared memory at `dst` (row
+// stride `stride` bytes), with kTPThreads threads: a 16-byte cp.async
+// per chunk that lies inside the array and is aligned, 4-byte ones (f32)
+// or plain loads (bf16) for one that is not, zeros past the array.
+// cols * sizeof(T) is a multiple of 16.
+template <typename T>
+__device__ __forceinline__ void tp_stage(unsigned char* dst, int64_t stride,
+                                         const T* __restrict__ src,
+                                         int64_t nrows, int64_t ncols,
+                                         int64_t row0, int rows,
+                                         int64_t col0, int cols) {
+  constexpr int E = 16 / int(sizeof(T));  // elements a chunk
+  const int cpr = cols / E;
+  for (int i = threadIdx.x; i < rows * cpr; i += kTPThreads) {
+    const int r = i / cpr, q = i % cpr;
+    const int64_t gr = row0 + r, gc = col0 + int64_t(q) * E;
+    unsigned char* p = dst + r * stride + q * 16;
+    if (gr >= nrows || gc >= ncols) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const T* s = src + gr * ncols + gc;
+    if (gc + E <= ncols && (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+      cp_async16(p, s);
+      continue;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if constexpr (sizeof(T) == 4) {
+        if (gc + e < ncols)
+          cp_async4(p + 4 * e, s + e);
+        else
+          reinterpret_cast<uint32_t*>(p)[e] = 0u;
+      } else {
+        reinterpret_cast<uint16_t*>(p)[e] =
+            gc + e < ncols ? reinterpret_cast<const uint16_t*>(s)[e]
+                           : uint16_t(0);
+      }
+    }
+  }
+}
+
+// An element of a staged tile, widened to f32.
+template <typename T>
+__device__ __forceinline__ float tp_at(const unsigned char* base,
+                                       int64_t stride, int r, int c) {
+  return to_f32(*reinterpret_cast<const T*>(base + r * stride +
+                                            c * int(sizeof(T))));
+}
+
+// Pass 1 on `n` rows (a chunk): block tiles of BM rows (a grid-stride
+// loop); for each class tile of KT classes the logits X_tile W[:, tile]
+// on the tensor cores, D in tp_step-column stages through a cp.async
+// ring (X's stage too, unless the block's whole row tile is resident);
+// then each row's max and sum of exponentials, updated online across the
+// class tiles, and the label's logit (select-then-sum).  The logits of
+// every class tile but the last are parked in `resid` (n x k); after the
+// last, the lane that parked them rewrites them as (softmax - onehot) *
+// m, and writes the last tile's from its registers.  Warp (wm, wn) =
+// (warp % WGM, warp / WGM) owns rows wm * 16 MT .. + 16 MT - 1 (MT
+// m-tiles) and the n8 tiles wn, wn + WGN, ... of the class tile.  Each
+// block writes its partial loss.
+template <typename T, int KT, bool kResident>
+__global__ void __launch_bounds__(kTPThreads, kTPMinBlocks)
     softmax_tp_logits(const T* __restrict__ X, const float* __restrict__ y,
                       const float* __restrict__ mask,
                       const float* __restrict__ W, int64_t n, int64_t d,
                       int k, float* __restrict__ resid,
                       float* __restrict__ partial_loss) {
-  constexpr int CJ = KC / 16;
-  __shared__ float xs[kTPRows][kTPCols + 1];
-  __shared__ float ws[kTPCols][KC];
-  __shared__ float zs[kTPRows][KC + 1];
-  __shared__ float row_loss_s[kTPRows];
+  constexpr int WGN = tp_class_warps(KT);
+  constexpr int WGM = kTPWarps / WGN;
+  constexpr int NTW = KT / 8 / WGN;  // n8 tiles a warp
+  constexpr int MT = kTPMTiles;
+  constexpr int BM = tp_block_span(KT);
+  constexpr bool kXLo = sizeof(T) == 4;
+  constexpr int STEP = tp_step(int(sizeof(T)), KT);
+  const TP1Layout lay(d, KT, int(sizeof(T)), kResident);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red_max = reinterpret_cast<float*>(smem + lay.red);  // [WGN][BM]
+  float* red_sum = red_max + WGN * BM;
+  float* pick = red_sum + WGN * BM;  // [BM]: the label's logit
+  float* warp_loss = pick + BM;
+
   const int tid = threadIdx.x;
-  const int rg = tid / 16, cg = tid % 16;
-  const int sr = tid / 8, sl = tid % 8;
-  Kahan loss_acc;  // row sr's losses, in lane sl == 0
-  const int64_t tiles = (n + kTPRows - 1) / kTPRows;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp % WGM, wn = warp / WGM;
+  const int dsteps = int((d + STEP - 1) / STEP);
+  const int ctiles = (k + KT - 1) / KT;
+  const int nstages = ctiles * dsteps;
+  const int64_t tiles = (n + BM - 1) / BM;
+  const int wsf = int(lay.ws / 4);  // W stage row stride, floats
+  Kahan loss_acc;  // the losses of this lane's rows (wn == 0, t == 0)
+  // this lane's row of m-tile mt, half h (rows g and g + 8)
+  auto row_of = [&](int mt, int h) {
+    return wm * 16 * MT + mt * 16 + g + 8 * h;
+  };
+  // this lane's class of n8 tile nt, column e of its pair, in class tile c0
+  auto class_of = [&](int c0, int nt, int e) {
+    return c0 + (wn + WGN * nt) * 8 + 2 * t + e;
+  };
+
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int64_t row0 = tile * kTPRows;
-    const int64_t r = row0 + sr;
-    const bool live = r < n;
-    const float yv = live ? y[r] : -1.f;
-    float run_max = -INFINITY, run_sum = 0.f, picked = 0.f;
-    for (int kc0 = 0; kc0 < k; kc0 += KC) {
-      float acc[2][CJ];
+    const int64_t row0 = tile * BM;
+    // this lane's rows' labels (-1 past n) and running max and sum of
+    // exponentials
+    auto label = [&](int mt, int h) {
+      const int64_t r = row0 + row_of(mt, h);
+      return r < n ? y[r] : -1.f;
+    };
+    float run_max[MT][2], run_sum[MT][2];
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[0][j] = acc[1][j] = 0.f;
-      for (int64_t d0 = 0; d0 < d; d0 += kTPCols) {
-        for (int e = tid; e < kTPRows * kTPCols; e += kTPThreads) {
-          const int rr = e / kTPCols, cc = e % kTPCols;
-          const int64_t gr = row0 + rr, gc = d0 + cc;
-          xs[rr][cc] = gr < n && gc < d ? to_f32(X[gr * d + gc]) : 0.f;
-        }
-        for (int e = tid; e < kTPCols * KC; e += kTPThreads) {
-          const int cc = e / KC, kk = e % KC;
-          const int64_t gc = d0 + cc;
-          ws[cc][kk] = gc < d && kc0 + kk < k
-                           ? W[gc * k + kc0 + kk] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int c = 0; c < kTPCols; ++c) {
-          const float a0 = xs[rg][c], a1 = xs[rg + 16][c];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) {
-            const float b = ws[c][cg + 16 * j];
-            acc[0][j] = fmaf(a0, b, acc[0][j]);
-            acc[1][j] = fmaf(a1, b, acc[1][j]);
+      for (int h = 0; h < 2; ++h) {
+        run_max[mt][h] = -INFINITY;
+        run_sum[mt][h] = 0.f;
+      }
+    auto load = [&](int s) {
+      const int buf = s % kTPStages, ct = s / dsteps, ds = s % dsteps;
+      if constexpr (!kResident)
+        tp_stage<T>(smem + buf * lay.x_stage, lay.xs, X, n, d, row0, BM,
+                    int64_t(ds) * STEP, STEP);
+      tp_stage<float>(smem + lay.w + buf * lay.w_stage, lay.ws, W, d, k,
+                      int64_t(ds) * STEP, STEP, int64_t(ct) * KT, KT);
+    };
+    // every warp is done with the last tile's buffers and reductions
+    __syncthreads();
+    for (int i = tid; i < BM; i += kTPThreads) pick[i] = 0.f;
+    if constexpr (kResident)
+      tp_stage<T>(smem, lay.xs, X, n, d, row0, BM, 0, dsteps * STEP);
+#pragma unroll
+    for (int s = 0; s < kTPStages - 1; ++s) {
+      if (s < nstages) load(s);
+      cp_async_commit();
+    }
+    float big[MT][NTW][4], small[MT][NTW][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) big[mt][nt][i] = small[mt][nt][i] = 0.f;
+
+    for (int s = 0; s < nstages; ++s) {
+      // stage s has landed for every thread, and every thread is done
+      // with stage s - 1, whose buffer takes stage s + kTPStages - 1
+      cp_async_wait<kTPStages - 2>();
+      __syncthreads();
+      if (s + kTPStages - 1 < nstages) load(s + kTPStages - 1);
+      cp_async_commit();
+      const int buf = s % kTPStages, ct = s / dsteps, ds = s % dsteps;
+      const int kc0 = ct * KT;
+      const unsigned char* xb =
+          kResident ? smem + ds * STEP * int(sizeof(T))
+                    : smem + buf * lay.x_stage;
+      const float* wb =
+          reinterpret_cast<const float*>(smem + lay.w + buf * lay.w_stage);
+#pragma unroll
+      for (int j = 0; j < STEP / 8; ++j) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_x<T>(tp_at<T>(xb, lay.xs, row_of(mt, i & 1),
+                                j * 8 + t + 4 * (i >> 1)),
+                       ah[mt][i], al[mt][i]);
+        // an n8 tile past k is skipped: that puts its mma.sync under a
+        // predicate and a WARPSYNC, but saves its four passes (3 of 16
+        // tiles at K = 100; pass 2 runs every tile, PERF.md)
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          if (class_of(kc0, nt, 0) - 2 * t >= k) continue;  // warp-uniform
+          uint32_t bh[2], bl[2], bl2[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float w =
+                wb[(j * 8 + t + 4 * h) * wsf + (wn + WGN * nt) * 8 + g];
+            bh[h] = to_tf32(w);
+            split_w(w - __uint_as_float(bh[h]), bl[h], bl2[h]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma3<true, kXLo>(big[mt][nt], small[mt][nt], ah[mt], al[mt], bh,
+                             bl);
+            mma_tf32(small[mt][nt], ah[mt], bl2);  // x_hi w_lo2
           }
         }
-        __syncthreads();
       }
+      if (ds != dsteps - 1) continue;
+
+      // ---- the middle, at the end of class tile ct: z = big + small ----
+      const bool last = ct == ctiles - 1;
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        zs[rg][cg + 16 * j] = acc[0][j];
-        zs[rg + 16][cg + 16 * j] = acc[1][j];
-      }
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            big[mt][nt][i] += small[mt][nt][i];
+            small[mt][nt][i] = 0.f;
+          }
+      float new_max[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (class_of(kc0, nt, e) < k)
+                mx = fmaxf(mx, big[mt][nt][2 * h + e]);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          if (t == 0) red_max[wn * BM + row_of(mt, h)] = mx;
+        }
       __syncthreads();
-      float cmax = -INFINITY;
-      for (int c = sl; c < KC && kc0 + c < k; c += 8)
-        cmax = fmaxf(cmax, zs[sr][c]);
 #pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
-      const float new_max = fmaxf(run_max, cmax);
-      float s = 0.f;
-      for (int c = sl; c < KC && kc0 + c < k; c += 8) {
-        const float z = zs[sr][c];
-        s += expf(z - new_max);
-        // select-then-sum: the logit whose class index equals the label
-        if (float(kc0 + c) == yv) picked = z;
-        if (live) resid[r * k + kc0 + c] = z;
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row_of(mt, h);
+          float mx = red_max[row];
+#pragma unroll
+          for (int w = 1; w < WGN; ++w) mx = fmaxf(mx, red_max[w * BM + row]);
+          new_max[mt][h] = fmaxf(run_max[mt][h], mx);
+          const float yv = label(mt, h);
+          float sez = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cls = class_of(kc0, nt, e);
+              const float z = big[mt][nt][2 * h + e];
+              if (cls < k) sez += expf(z - new_max[mt][h]);
+              // select-then-sum: the logit whose class index is the label
+              // (one lane of the block holds it)
+              if (cls < k && float(cls) == yv) pick[row] = z;
+            }
+          sez += __shfl_xor_sync(0xffffffffu, sez, 1);
+          sez += __shfl_xor_sync(0xffffffffu, sez, 2);
+          if (t == 0) red_sum[wn * BM + row] = sez;
+        }
+      __syncthreads();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row_of(mt, h);
+          float sez = 0.f;
+#pragma unroll
+          for (int w = 0; w < WGN; ++w) sez += red_sum[w * BM + row];
+          run_sum[mt][h] =
+              (run_max[mt][h] == -INFINITY
+                   ? 0.f
+                   : run_sum[mt][h] * expf(run_max[mt][h] - new_max[mt][h])) +
+              sez;
+          run_max[mt][h] = new_max[mt][h];
+        }
+      if (!last) {  // park this class tile's logits
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int64_t r = row0 + row_of(mt, h);
+#pragma unroll
+            for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int cls = class_of(kc0, nt, e);
+                if (r < n && cls < k)
+                  resid[r * k + cls] = big[mt][nt][2 * h + e];
+                big[mt][nt][2 * h + e] = 0.f;
+              }
+          }
+        continue;
       }
+      // the last class tile (pick[] was written before the last barrier):
+      // the loss and every residual of the rows
 #pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      run_sum = (run_max == -INFINITY ? 0.f
-                                      : run_sum * expf(run_max - new_max)) +
-                s;
-      run_max = new_max;
-      __syncthreads();  // zs takes the next chunk's logits
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row_of(mt, h);
+          const int64_t r = row0 + row;
+          if (r >= n) continue;
+          const float lse = run_max[mt][h] + logf(run_sum[mt][h]);
+          const float m = mask[r], yv = y[r];
+          if (wn == 0 && t == 0) loss_acc.add((lse - pick[row]) * m);
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cls = class_of(kc0, nt, e);
+              if (cls < k)
+                resid[r * k + cls] =
+                    (expf(big[mt][nt][2 * h + e] - lse) -
+                     (float(cls) == yv ? 1.f : 0.f)) * m;
+            }
+          for (int c0 = 0; c0 < kc0; c0 += KT)
+#pragma unroll
+            for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int cls = class_of(c0, nt, e);
+                float* p = resid + r * k + cls;
+                *p = (expf(*p - lse) - (float(cls) == yv ? 1.f : 0.f)) * m;
+              }
+        }
     }
-#pragma unroll
-    for (int off = 4; off > 0; off >>= 1)
-      picked += __shfl_xor_sync(0xffffffffu, picked, off);
-    const float lse = run_max + logf(run_sum);
-    const float mv = live ? mask[r] : 0.f;
-    if (live && sl == 0) loss_acc.add((lse - picked) * mv);
-    if (live)
-      for (int64_t c = sl; c < k; c += 8) {
-        const float z = resid[r * k + c];
-        resid[r * k + c] =
-            (expf(z - lse) - (float(c) == yv ? 1.f : 0.f)) * mv;
-      }
   }
-  if (sl == 0) row_loss_s[sr] = loss_acc.s;
+  // block loss: the lanes' sums in a fixed order
+  float ls = loss_acc.s;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ls += __shfl_xor_sync(0xffffffffu, ls, off);
+  if (lane == 0) warp_loss[warp] = ls;
   __syncthreads();
   if (tid == 0) {
     Kahan s;
-    for (int i = 0; i < kTPRows; ++i) s.add(row_loss_s[i]);
+    for (int i = 0; i < kTPWarps; ++i) s.add(warp_loss[i]);
     partial_loss[blockIdx.x] = s.s;
   }
 }
 
 // Pass 2 on `n` rows (a chunk): block (x, y, z) sums X^T resid over row
-// group z for columns 64 x .. 64 x + 63 and classes KC y .. KC y + KC - 1;
-// thread (dg, kg) = (tid / 16, tid % 16) owns columns dg + 16 i and classes
-// kg + 16 j.  Writes (or, with `accumulate`, adds to) partial_grad[z] in
-// the gradient's (D, K) layout.
-template <typename T, int KC>
-__global__ void __launch_bounds__(kTPThreads)
+// group z for the BD columns of D from BD x and the KT classes from KT y,
+// on the tensor cores: A = X^T (columns of D as m16 tiles), B = the
+// residuals (classes as n8 tiles), contraction over the rows in tp_step-
+// row stages through a cp.async ring.  Each k8 step's hi*hi starts from
+// zero and is added to the stage's sum with a rounded f32 add; the small
+// terms run on in the compensation of the sum over stages (ncomp, the
+// negated Kahan correction: the stage's sum plus ncomp is what the next
+// compensated add takes).  Warp (wm, wn) owns the columns wm * 16 MT ..
+// + 16 MT - 1 and the n8 tiles wn, wn + WGN, ....  Writes (or, with
+// `accumulate`, adds to) partial_grad[z] in the gradient's (D, K) layout.
+template <typename T, int KT>
+__global__ void __launch_bounds__(kTPThreads, kTPMinBlocks)
     softmax_tp_grad(const T* __restrict__ X, const float* __restrict__ resid,
                     int64_t n, int64_t d, int k, int64_t rows_per_group,
                     int accumulate, float* __restrict__ partial_grad) {
-  constexpr int CJ = KC / 16;
-  constexpr int DI = kTPGradCols / 16;
-  __shared__ float xs[kTPGradRows][kTPGradCols];
-  __shared__ float rs[kTPGradRows][KC];
+  constexpr int WGN = tp_class_warps(KT);
+  constexpr int WGM = kTPWarps / WGN;
+  constexpr int NTW = KT / 8 / WGN;
+  constexpr int MT = kTPMTiles;
+  constexpr int BD = tp_block_span(KT);
+  constexpr bool kXLo = sizeof(T) == 4;
+  constexpr int STEP = tp_step(int(sizeof(T)), KT);
+  const TP2Layout lay(KT, int(sizeof(T)));
+  extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
-  const int dg = tid / 16, kg = tid % 16;
-  const int64_t d0 = int64_t(blockIdx.x) * kTPGradCols;
-  const int k0 = int(blockIdx.y) * KC;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp % WGM, wn = warp / WGM;
+  const int64_t d0 = int64_t(blockIdx.x) * BD;
+  const int kc0 = int(blockIdx.y) * KT;
   const int64_t r_begin = min64(n, int64_t(blockIdx.z) * rows_per_group);
   const int64_t r_end = min64(n, r_begin + rows_per_group);
-  Kahan sums[DI][CJ];
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += kTPGradRows) {
-    for (int e = tid; e < kTPGradRows * kTPGradCols; e += kTPThreads) {
-      const int rr = e / kTPGradCols, cc = e % kTPGradCols;
-      const int64_t gr = r0 + rr, gc = d0 + cc;
-      xs[rr][cc] = gr < r_end && gc < d ? to_f32(X[gr * d + gc]) : 0.f;
-    }
-    for (int e = tid; e < kTPGradRows * KC; e += kTPThreads) {
-      const int rr = e / KC, kk = e % KC;
-      const int64_t gr = r0 + rr;
-      rs[rr][kk] = gr < r_end && k0 + kk < k ? resid[gr * k + k0 + kk] : 0.f;
-    }
+  const int nst = int((r_end - r_begin + STEP - 1) / STEP);
+  const int rsf = int(lay.rs / 4);  // residual stage row stride, floats
+
+  auto load = [&](int s) {
+    unsigned char* b = smem + (s % kTPStages) * lay.stage;
+    const int64_t r0 = r_begin + int64_t(s) * STEP;
+    tp_stage<T>(b, lay.xs, X, r_end, d, r0, STEP, d0, BD);
+    tp_stage<float>(b + lay.r, lay.rs, resid, r_end, k, r0, STEP, kc0,
+                    KT);
+  };
+#pragma unroll
+  for (int s = 0; s < kTPStages - 1; ++s) {
+    if (s < nst) load(s);
+    cp_async_commit();
+  }
+  float sum[MT][NTW][4], ncomp[MT][NTW][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[mt][nt][i] = ncomp[mt][nt][i] = 0.f;
+
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<kTPStages - 2>();
     __syncthreads();
-    float acc[DI][CJ];
+    if (s + kTPStages - 1 < nst) load(s + kTPStages - 1);
+    cp_async_commit();
+    const unsigned char* xb = smem + (s % kTPStages) * lay.stage;
+    const float* rb = reinterpret_cast<const float*>(xb + lay.r);
+    float big[MT][NTW][4];
 #pragma unroll
-    for (int i = 0; i < DI; ++i)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int rr = 0; rr < kTPGradRows; ++rr) {
-      float a[DI], b[CJ];
+      for (int nt = 0; nt < NTW; ++nt)
 #pragma unroll
-      for (int i = 0; i < DI; ++i) a[i] = xs[rr][dg + 16 * i];
+        for (int i = 0; i < 4; ++i) big[mt][nt][i] = 0.f;
+    // not unrolled: the whole stage at once spills 664 bytes at the
+    // register cap, one step at a time 104, and runs faster on the H100
+    // (PERF.md)
+#pragma unroll 1
+    for (int j = 0; j < STEP / 8; ++j) {
+      // A = X^T: a0 (col g, row t), a1 (g + 8, t), a2 (g, t + 4),
+      // a3 (g + 8, t + 4) of the warp's m-tile
+      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) b[j] = rs[rr][kg + 16 * j];
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < DI; ++i)
+        for (int i = 0; i < 4; ++i)
+          split_x<T>(tp_at<T>(xb, lay.xs, j * 8 + t + 4 * (i >> 1),
+                              wm * 16 * MT + mt * 16 + g + 8 * (i & 1)),
+                     ah[mt][i], al[mt][i]);
+      // every tile runs, those past k or d on the zeros staged there
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int nt = 0; nt < NTW; ++nt) {
+        const int ntg = wn + WGN * nt;
+        uint32_t bh[2], bl[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          split_tf32(rb[(j * 8 + t + 4 * h) * rsf + ntg * 8 + g], bh[h],
+                     bl[h]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3<true, kXLo>(big[mt][nt], ncomp[mt][nt], ah[mt], al[mt], bh,
+                           bl);
+      }
     }
+    // the stage's sum into the sum over stages, with compensation
 #pragma unroll
-    for (int i = 0; i < DI; ++i)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) sums[i][j].add(acc[i][j]);
-    __syncthreads();  // xs and rs take the next step's rows
+      for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = big[mt][nt][i] + ncomp[mt][nt][i];
+          const float s2 = sum[mt][nt][i] + v;
+          ncomp[mt][nt][i] = v - (s2 - sum[mt][nt][i]);
+          sum[mt][nt][i] = s2;
+        }
   }
   float* pg = partial_grad + int64_t(blockIdx.z) * d * k;
 #pragma unroll
-  for (int i = 0; i < DI; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      const int64_t c = d0 + dg + 16 * i;
-      const int kk = k0 + kg + 16 * j;
-      if (c >= d || kk >= k) continue;
-      float* p = pg + c * k + kk;
-      *p = accumulate ? *p + sums[i][j].s : sums[i][j].s;
-    }
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t c = d0 + wm * 16 * MT + mt * 16 + g + 8 * (i >> 1);
+        const int kk = kc0 + (wn + WGN * nt) * 8 + 2 * t + (i & 1);
+        if (c >= d || kk >= k) continue;
+        float* p = pg + c * k + kk;
+        // the small terms still in ncomp belong to the sum
+        const float v = sum[mt][nt][i] + ncomp[mt][nt][i];
+        *p = accumulate ? *p + v : v;
+      }
 }
 
 // The two-pass mode's last stage: each gradient entry the fixed-order
-// compensated sum of its `ngrad` partials ((D, K) each); thread 0 also
-// sums the `nloss` loss partials.
-__global__ void reduce_partials_dk(const float* __restrict__ partial_loss,
-                                   int64_t nloss,
-                                   const float* __restrict__ partial_grad,
-                                   int ngrad, int64_t size,
-                                   float* __restrict__ loss,
-                                   float* __restrict__ grad) {
-  const int64_t e = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+// compensated sum of its `ngrad` partials ((D, K) each), a thread an
+// entry; the grid's last block sums the `nloss` loss partials, each
+// thread a strided share with compensation, then a fixed tree.
+constexpr int kReduceThreads = 256;
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_partials_dk(const float* __restrict__ partial_loss, int64_t nloss,
+                       const float* __restrict__ partial_grad, int ngrad,
+                       int64_t size, float* __restrict__ loss,
+                       float* __restrict__ grad) {
+  if (blockIdx.x == gridDim.x - 1) {
+    __shared__ float part[kReduceThreads];
+    Kahan s;
+    for (int64_t b = threadIdx.x; b < nloss; b += kReduceThreads)
+      s.add(partial_loss[b]);
+    part[threadIdx.x] = s.s;
+    __syncthreads();
+    for (int w = kReduceThreads / 2; w > 0; w >>= 1) {
+      if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) loss[0] = part[0];
+    return;
+  }
+  const int64_t e = int64_t(blockIdx.x) * kReduceThreads + threadIdx.x;
   if (e < size) {
     Kahan s;
     for (int b = 0; b < ngrad; ++b) s.add(partial_grad[int64_t(b) * size + e]);
     grad[e] = s.s;
-  }
-  if (e == 0) {
-    Kahan s;
-    for (int64_t b = 0; b < nloss; ++b) s.add(partial_loss[b]);
-    loss[0] = s.s;
   }
 }
 
 enum Mode { kOneRead = 0, kTwoPass = 1 };
 
 // A launch plan, as softmax_plan fills it: the mode; the tile rows
-// (one-read) or the class chunk (two-pass); the blocks of the (pass-1)
+// (one-read) or the class tile (two-pass); the blocks of the (pass-1)
 // launch; the gradient partials (the grid, or pass 2's row groups); the
 // rows of a chunk (two-pass: the residual scratch holds chunk x k floats;
 // 0 one-read); the loss partials (the grid, or the grid times the
@@ -819,25 +1230,50 @@ int64_t tp_chunks(int64_t n, int chunk) {
   return chunk < 1 ? 0 : (n + chunk - 1) / chunk;
 }
 
-template <typename T, int KC>
+template <typename K>
+cudaError_t set_smem(K kern, int64_t bytes) {
+  if (bytes > kSmemBlock) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+}
+
+// Pass 1 keeps a block's whole row tile of X in shared memory where the
+// classes take more than one tile and the tile fits beside the W stages,
+// so that X is read once in pass 1 at any class count.
+bool tp_resident(int64_t d, int k, int itemsize) {
+  const int kt = tp_class_tile(k);
+  return k > kt && TP1Layout(d, kt, itemsize, true).total <= kSmemBlock;
+}
+
+template <typename T, int KT>
 cudaError_t launch_two_pass(const Plan& p, const T* X, const float* y,
                             const float* mask, const float* W, int64_t n,
                             int64_t d, int k, float* pl, float* pg,
                             float* resid, cudaStream_t s) {
-  const dim3 grid2(unsigned((d + kTPGradCols - 1) / kTPGradCols),
-                   unsigned((k + KC - 1) / KC), unsigned(p.partials));
+  const bool resident = tp_resident(d, k, int(sizeof(T)));
+  auto logits = resident ? softmax_tp_logits<T, KT, true>
+                         : softmax_tp_logits<T, KT, false>;
+  const int64_t smem1 = TP1Layout(d, KT, int(sizeof(T)), resident).total;
+  const int64_t smem2 = TP2Layout(KT, int(sizeof(T))).total;
+  cudaError_t err = set_smem(logits, smem1);
+  if (err != cudaSuccess) return err;
+  err = set_smem(softmax_tp_grad<T, KT>, smem2);
+  if (err != cudaSuccess) return err;
+  const int bd = tp_block_span(KT);
+  const dim3 grid2(unsigned((d + bd - 1) / bd), unsigned((k + KT - 1) / KT),
+                   unsigned(p.partials));
   int64_t c = 0;
   for (int64_t r0 = 0; r0 < n; r0 += p.chunk, ++c) {
     const int64_t rows = n - r0 < p.chunk ? n - r0 : int64_t(p.chunk);
-    softmax_tp_logits<T, KC><<<p.grid, kTPThreads, 0, s>>>(
+    logits<<<p.grid, kTPThreads, size_t(smem1), s>>>(
         X + r0 * d, y + r0, mask + r0, W, rows, d, k, resid,
         pl + c * p.grid);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const int64_t groups = p.partials;
     const int64_t per_group =
-        round_up((rows + groups - 1) / groups, kTPGradRows);
-    softmax_tp_grad<T, KC><<<grid2, kTPThreads, 0, s>>>(
+        round_up((rows + groups - 1) / groups, tp_step(int(sizeof(T)), KT));
+    softmax_tp_grad<T, KT><<<grid2, kTPThreads, size_t(smem2), s>>>(
         X + r0 * d, resid, rows, d, k, per_group, c > 0 ? 1 : 0, pg);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -852,13 +1288,19 @@ cudaError_t launch_two_pass_for(const Plan& p, const void* X,
                                 float* pl, float* pg, float* resid,
                                 cudaStream_t s) {
   const T* Xt = static_cast<const T*>(X);
-  if (p.rows == 16)
-    return launch_two_pass<T, 16>(p, Xt, y, mask, W, n, d, k, pl, pg, resid,
-                                  s);
-  if (p.rows == 64)
-    return launch_two_pass<T, 64>(p, Xt, y, mask, W, n, d, k, pl, pg, resid,
-                                  s);
-  return cudaErrorInvalidValue;
+#define TP_TILE(KT)                                                        \
+  case KT:                                                                 \
+    return launch_two_pass<T, KT>(p, Xt, y, mask, W, n, d, k, pl, pg,      \
+                                  resid, s);
+  switch (p.rows) {
+    TP_TILE(16)
+    TP_TILE(32)
+    TP_TILE(64)
+    TP_TILE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef TP_TILE
 }
 
 }  // namespace
@@ -868,11 +1310,12 @@ extern "C" {
 // Launch plan for X (n, d) with `itemsize`-byte elements and k classes on
 // a card of `sms` SMs, written to plan[0..5] (see Plan): the one-read
 // kernel wherever choose_plan fits it (one block an SM, at most one per
-// tile), else, or with `force_two_pass`, the two-pass mode (rows in
-// chunks of at most kTPResidBytes of residuals; pass 1 on as many blocks
-// as are resident, pass 2's row groups enough to fill the card, their
-// partials at most kTPPartialBytes).  Returns cudaErrorInvalidValue, and
-// sets nothing, for arguments no mode takes.
+// tile), else, or with `force_two_pass`, the two-pass mode (the class
+// tile by k; rows in chunks of at most kTPResidBytes of residuals; pass 1
+// a block a row tile, at most kTPMaxBlocksPerSM an SM; pass 2's row
+// groups enough for kTPWaves blocks an SM, their partials at most
+// kTPPartialBytes).  Returns cudaErrorInvalidValue, and sets nothing, for
+// arguments no mode takes.
 int softmax_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
                  int force_two_pass, int* plan) {
   if (n < 0 || d < 1 || sms < 1 || k < 1 ||
@@ -890,23 +1333,24 @@ int softmax_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
     p.grid = p.partials = p.nloss = int(blocks < 1 ? 1 : blocks);
     p.chunk = 0;
   } else {
-    const int kc = tp_class_chunk(k);
-    int64_t chunk = kTPResidBytes / (4 * int64_t(k)) / kTPRows * kTPRows;
-    if (chunk < kTPRows) chunk = kTPRows;
+    const int kt = tp_class_tile(k);
+    const int span = tp_block_span(kt);
+    int64_t chunk = kTPResidBytes / (4 * int64_t(k)) / span * span;
+    if (chunk < span) chunk = span;
     if (chunk > n) chunk = n < 1 ? 1 : n;
-    int64_t blocks = (chunk + kTPRows - 1) / kTPRows;
-    if (blocks > int64_t(sms) * kTPBlocksPerSM)
-      blocks = int64_t(sms) * kTPBlocksPerSM;
-    const int64_t tiles = (d + kTPGradCols - 1) / kTPGradCols *
-                          ((k + kc - 1) / kc);
-    int64_t groups = (int64_t(sms) * kTPBlocksPerSM + tiles - 1) / tiles;
-    const int64_t most_rows = (chunk + kTPGradRows - 1) / kTPGradRows;
+    int64_t blocks = (chunk + span - 1) / span;
+    if (blocks > int64_t(sms) * kTPMaxBlocksPerSM)
+      blocks = int64_t(sms) * kTPMaxBlocksPerSM;
+    const int64_t tiles = (d + span - 1) / span * ((k + kt - 1) / kt);
+    int64_t groups = (int64_t(sms) * kTPWaves + tiles - 1) / tiles;
+    const int step = tp_step(itemsize, kt);
+    const int64_t most_rows = (chunk + step - 1) / step;
     const int64_t most_bytes = kTPPartialBytes / (4 * d * int64_t(k));
     if (groups > most_rows) groups = most_rows;
     if (groups > most_bytes) groups = most_bytes;
     if (groups > 65535) groups = 65535;
     p.mode = kTwoPass;
-    p.rows = kc;
+    p.rows = kt;
     p.grid = int(blocks);
     p.partials = int(groups < 1 ? 1 : groups);
     p.chunk = int(chunk);
@@ -972,7 +1416,7 @@ int softmax_loss_grad(const void* X, int x_type, const void* y,
         p.rows >= 1 && p.rows <= kMaxTileRows && p.partials == p.grid &&
         p.nloss == p.grid &&
         choose_plan(d, k, itemsize, &plan_rows, &split)) ||
-       (p.mode == kTwoPass && p.rows == tp_class_chunk(k) && p.chunk >= 1 &&
+       (p.mode == kTwoPass && p.rows == tp_class_tile(k) && p.chunk >= 1 &&
         (resid != nullptr || n == 0) &&
         p.nloss >= tp_chunks(n, p.chunk) * p.grid));
   if (!ok) return int(cudaErrorInvalidValue);
@@ -1008,11 +1452,11 @@ int softmax_loss_grad(const void* X, int x_type, const void* y,
   if (err != cudaSuccess) return int(err);
   const int64_t chunks = tp_chunks(n, p.chunk);
   const int64_t size = d * int64_t(k);
-  reduce_partials_dk<<<unsigned((size + threads - 1) / threads), threads, 0,
-                       s>>>(pl, chunks * p.grid, pg,
-                            chunks > 0 ? p.partials : 0, size,
-                            static_cast<float*>(loss),
-                            static_cast<float*>(grad));
+  reduce_partials_dk<<<unsigned((size + kReduceThreads - 1) / kReduceThreads +
+                                1),
+                       kReduceThreads, 0, s>>>(
+      pl, chunks * p.grid, pg, chunks > 0 ? p.partials : 0, size,
+      static_cast<float*>(loss), static_cast<float*>(grad));
   return int(cudaGetLastError());
 }
 

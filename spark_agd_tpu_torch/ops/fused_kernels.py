@@ -696,7 +696,7 @@ def softmax_one_read_max_width(k: int, dtype) -> int:
 class SoftmaxPlan(NamedTuple):
     """A launch plan of the softmax kernel (``softmax_plan``): ``mode``
     ("one_read" or "two_pass"); ``rows``, the rows of a tile (one-read)
-    or the classes of a chunk (two-pass); ``grid``, the blocks of the
+    or the classes of a class tile (two-pass); ``grid``, the blocks of the
     (first) launch; ``partials``, the gradient partials summed at the
     end; ``chunk``, the rows of a chunk (two-pass: the residual scratch
     holds ``chunk`` x K floats; 0 one-read); ``loss_partials``; ``raw``,
@@ -750,13 +750,14 @@ def fused_softmax_loss_grad(num_classes: int, W, staged: StagedDense):
     """``(loss_sum, grad_sum)`` in f32 of the multinomial softmax with
     weights ``W`` (D, K), at every width and class count: reading X once
     where W, the gradient accumulator and a row tile fit shared memory
-    (up to 32 classes), else in two passes.  CPU operands take the plain
-    version; CUDA operands launch the kernel on the current stream or
-    raise.
+    (up to 32 classes), else in two passes, both products on the tensor
+    cores in either mode.  CPU operands take the plain version; CUDA
+    operands launch the kernel on the current stream or raise.
 
     Replaces ``spark_agd_tpu/ops/pallas_kernels.py:fused_softmax_loss_grad``;
     on the H100 the one-read mode is bound by reading X once at
-    device-memory bandwidth."""
+    device-memory bandwidth, the two-pass mode at many classes by its
+    products' TF32 operations."""
     global softmax_launch_count
     name = "fused_softmax_loss_grad"
     X = staged.X

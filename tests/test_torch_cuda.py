@@ -324,6 +324,67 @@ def test_softmax_two_pass_same_bits_on_repeat(cuda, k):
                               *ref)
 
 
+# the two-pass mode's edges: class counts around its 16-, 32-, 64- and
+# 128-class tiles and past one tile; widths of 1 and 7 columns, one past
+# a 128-column block and one past 3,072 (rows that are not 16-byte
+# aligned); bf16 of odd width; fewer rows than one tile and ragged tiles
+TWO_PASS_K = [1, 8, 9, 33, 100, 127, 128, 129, 1000]
+TWO_PASS_SHAPES = [(5, 7, torch.float32), (37, 1, torch.float32),
+                   (1003, 129, torch.float32), (301, 3073, torch.float32),
+                   (517, 129, torch.bfloat16), (70, 3073, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", TWO_PASS_K)
+def test_softmax_two_pass_edges(cuda, k):
+    """The two-pass mode (forced where the one-read kernel takes the
+    shape) at every TWO_PASS_SHAPES shape, masked and not, against the
+    plain version; two calls give the same bits."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(k)
+    lib = fk.softmax_library()[0]
+    for n, d, dtype in TWO_PASS_SHAPES:
+        X, y, m, W = _softmax_case(gen, cuda, n, d, k)
+        X = X.to(dtype)
+        sms = fk._device_sms(X.device.index)
+        plan = fk.softmax_plan_for(lib, n, d, k, X.element_size(), sms,
+                                   two_pass=True)
+        assert plan.mode == "two_pass"
+        for mask in (None, m):
+            staged = fk.stage_softmax(X, y, k, mask)
+            loss, grad = fk.softmax_launch(lib, k, W, staged, plan)
+            loss2, grad2 = fk.softmax_launch(lib, k, W, staged, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+            _assert_softmax_close(
+                loss, grad,
+                *fk.fused_softmax_loss_grad_reference(k, W, staged))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_two_pass_over_chunks_of_rows(cuda, dtype):
+    """K = 1,000 at N = 20,000: the residual scratch takes the rows in
+    two chunks, whose pass-2 partials add up in stream order; masked
+    rows; the plan's own mode, a launch counted a call, the same bits on
+    repeat."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1000)
+    n, d, k = 20_000, 129, 1000
+    X, y, m, W = _softmax_case(gen, cuda, n, d, k)
+    staged = fk.stage_softmax(X.to(dtype), y, k, m)
+    plan = fk.softmax_launch_shape(staged.X, k)
+    assert plan.mode == "two_pass" and plan.chunk < n < 2 * plan.chunk + 1
+    before = fk.softmax_mode_launches["two_pass"]
+    loss, grad = fk.fused_softmax_loss_grad(k, W, staged)
+    loss2, grad2 = fk.fused_softmax_loss_grad(k, W, staged)
+    torch.cuda.synchronize()
+    assert fk.softmax_mode_launches["two_pass"] == before + 2
+    assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+    _assert_softmax_close(loss, grad,
+                          *fk.fused_softmax_loss_grad_reference(k, W, staged))
+
+
 @pytest.mark.cuda
 def test_softmax_kernel_rejects_what_it_does_not_take(cuda):
     X = torch.randn((8, 4), device=cuda)

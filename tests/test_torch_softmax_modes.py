@@ -10,9 +10,9 @@ held to on the card (``test_torch_cuda.py``).  Here it is held to
 at shapes past the one-read kernel's reach (40 and 100 classes; 3,000
 columns at 10 classes), at the tolerances of ``tests/test_pallas.py``
 (loss rtol 1e-5, gradient rtol/atol 1e-4).  A plain numpy model of the
-two-pass mode's arithmetic (class chunks with an online max and sum of
-exponentials, row chunks, row groups summed with compensation) is held
-to the jnp loss at f64."""
+two-pass mode's arithmetic in its order of sums (class tiles with an
+online max and sum of exponentials, row stages summed with compensation,
+row groups, row chunks) is held to the jnp loss at f64."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,66 +100,92 @@ def _kahan(values):
     return s
 
 
+def _class_tile(k):
+    """The two-pass mode's class tile (``tp_class_tile``)."""
+    return 16 if k <= 16 else 32 if k <= 32 else 64 if k <= 64 else 128
+
+
+def _kahan_rows(acc, comp, v):
+    """One compensated add of the array ``v`` into ``(acc, comp)``."""
+    t = acc + (v - comp)
+    return t, (t - acc) - (v - comp)
+
+
 def _two_pass_model(X, W, y, m, chunk_rows, groups):
-    """The two-pass mode's arithmetic in numpy (f64): pass 1 forms the
-    logits a class chunk at a time (16 classes up to 16, else 64),
-    keeping each row's max and sum of exponentials online, then writes
-    ``(softmax - onehot) * m``; pass 2 sums ``X.T @ resid`` over row
-    groups of each row chunk, 32 rows a step added with compensation,
-    the chunks added in order; the partials and the loss are summed last
-    with compensation."""
+    """The two-pass mode's arithmetic on f32 X in numpy (f64), in its
+    order of sums: pass 1 walks row tiles (256, 128 or 64 rows as the
+    class tile is 16-32, 64 or 128 classes) and forms the logits a class
+    tile at a time, D in 8-column steps summed plainly (the kernel's
+    64-column stages, 32 at class tiles of 16-32, add no rounding of
+    their own), keeping each row's max and sum of exponentials online
+    across the class tiles, then writes ``(softmax - onehot) * m``; each
+    row tile's losses are summed with compensation into its partial.
+    Pass 2 sums ``X.T @ resid`` over the row groups of each row chunk,
+    in stages of 64 rows (32 at class tiles of 16-32) of 8-row steps
+    (the steps summed plainly, the stages with compensation), the chunks
+    added in order; the partials and the loss are summed last with
+    compensation."""
     n, d = X.shape
     k = W.shape[1]
-    kc = 16 if k <= 16 else 64
+    kt = _class_tile(k)
+    tile_rows = 32 * 8 // (1 if kt <= 32 else kt // 32)
+    step = 32 if kt <= 32 else 64
     classes = np.arange(k, dtype=np.float64)
-    losses_, partials = [], np.zeros((groups, d, k))
+    loss_partials, partials = [], np.zeros((groups, d, k))
     for r0 in range(0, n, chunk_rows):
         Xc, yc, mc = X[r0:r0 + chunk_rows], y[r0:r0 + chunk_rows], \
             m[r0:r0 + chunk_rows]
         rows = Xc.shape[0]
-        run_max = np.full(rows, -np.inf)
-        run_sum = np.zeros(rows)
-        z = np.empty((rows, k))
-        for k0 in range(0, k, kc):
-            zc = Xc @ W[:, k0:k0 + kc]
-            z[:, k0:k0 + kc] = zc
-            new_max = np.maximum(run_max, zc.max(axis=1))
-            scale = np.where(run_max == -np.inf, 0.0,
-                             np.exp(run_max - new_max))
-            run_sum = run_sum * scale + np.exp(zc - new_max[:, None]).sum(1)
-            run_max = new_max
-        lse = run_max + np.log(run_sum)
-        onehot = classes[None, :] == yc[:, None]
-        picked = np.where(onehot, z, 0.0).sum(1)
-        losses_.extend((lse - picked) * mc)
-        resid = (np.exp(z - lse[:, None]) - onehot) * mc[:, None]
-        per_group = -(-rows // groups)  # ceil, then up to 32 rows
-        per_group = -(-per_group // 32) * 32
+        resid = np.empty((rows, k))
+        for t0 in range(0, rows, tile_rows):
+            Xt = Xc[t0:t0 + tile_rows]
+            yt, mt = yc[t0:t0 + tile_rows], mc[t0:t0 + tile_rows]
+            run_max = np.full(Xt.shape[0], -np.inf)
+            run_sum = np.zeros(Xt.shape[0])
+            z = np.empty((Xt.shape[0], k))
+            for k0 in range(0, k, kt):
+                zc = np.zeros((Xt.shape[0], min(kt, k - k0)))
+                for c0 in range(0, d, 8):  # 8-column steps, summed plainly
+                    zc += Xt[:, c0:c0 + 8] @ W[c0:c0 + 8, k0:k0 + kt]
+                z[:, k0:k0 + kt] = zc
+                new_max = np.maximum(run_max, zc.max(axis=1))
+                scale = np.where(run_max == -np.inf, 0.0,
+                                 np.exp(run_max - new_max))
+                run_sum = run_sum * scale + np.exp(
+                    zc - new_max[:, None]).sum(1)
+                run_max = new_max
+            lse = run_max + np.log(run_sum)
+            onehot = classes[None, :] == yt[:, None]
+            picked = np.where(onehot, z, 0.0).sum(1)
+            loss_partials.append(_kahan((lse - picked) * mt))
+            resid[t0:t0 + tile_rows] = (np.exp(z - lse[:, None])
+                                        - onehot) * mt[:, None]
+        per_group = -(-rows // groups)  # ceil, then up to a stage
+        per_group = -(-per_group // step) * step
         for g in range(groups):
             g0, g1 = min(rows, g * per_group), min(rows, (g + 1) * per_group)
-            steps = [Xc[s:min(g1, s + 32)].T @ resid[s:min(g1, s + 32)]
-                     for s in range(g0, g1, 32)]
             acc = np.zeros((d, k))
             comp = np.zeros((d, k))
-            for v in steps:  # elementwise Kahan over the steps
-                t = acc + (v - comp)
-                comp = (t - acc) - (v - comp)
-                acc = t
+            for s in range(g0, g1, step):  # stages, with compensation
+                stage = np.zeros((d, k))
+                for r in range(s, min(g1, s + step), 8):  # steps, plainly
+                    stage += Xc[r:min(g1, r + 8)].T @ resid[r:min(g1, r + 8)]
+                acc, comp = _kahan_rows(acc, comp, stage)
             partials[g] += acc
     grad = np.zeros((d, k))
     comp = np.zeros((d, k))
     for v in partials:
-        t = grad + (v - comp)
-        comp = (t - grad) - (v - comp)
-        grad = t
-    return _kahan(losses_), grad
+        grad, comp = _kahan_rows(grad, comp, v)
+    return _kahan(loss_partials), grad
 
 
-@pytest.mark.parametrize("k", [1, 10, 16, 17, 64, 65, 100, 300])
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 33, 64, 65, 100, 128, 129,
+                               300])
 def test_two_pass_arithmetic_matches_the_jnp_loss_at_f64(k):
-    """Class chunks of 16 and 64 and their edges, row chunks that do not
-    divide N, more row groups than some chunks fill: the online max and
-    sum of exponentials give the jnp loss and gradient to f64 rounding."""
+    """Class tiles of 16, 32, 64 and 128 and their edges, row chunks that
+    do not divide N, more row groups than some chunks fill: the online
+    max and sum of exponentials give the jnp loss and gradient to f64
+    rounding."""
     n, d = 203, 37
     rng = np.random.default_rng(k)
     X = rng.standard_normal((n, d))
