@@ -21,10 +21,10 @@ Phases, each printing one JSON line:
    one column either side of it, and bf16 at 127 and 129 (its warp-rows
    mode, and the tile past it, at 100,003 rows, not a multiple of a
    warp's rows), at D in {777, 1000} (its tile mode), at ``max_width``
-   and one column past it (the two-pass mode), each call repeated to
+   and one column past it (the cluster mode), each call repeated to
    check that it is bit-identical, each line with the plan and its
    launches, each plan's mode held to the width rule; a
-   ``widths_by_mode`` and a ``past_width_two_pass`` line;
+   ``widths_by_mode`` and a ``past_width_cluster`` line;
 4. softmax_kernel: the CUDA softmax kernel against its plain version
    (N = 100,003, D in {784, 785, 777}, K in {1, 2, 3, 8, 9, 10, 16, 17,
    32}, and 33 and 100 at D = 785, f32/bf16 x masked/unmasked x W =
@@ -128,17 +128,26 @@ Phases, each printing one JSON line:
     convergence_tol 0), held to the same fit at f64 over their common
     path and the final gradient to f64 sums; the training accuracy;
 19. wide_path: X past one row in shared memory.  The margin kernel
-    against its plain version at D = 40,000 and 200,000 (3,000 rows, f32
-    and bf16, as phase 3); an AGD fit at 100,000 x 40,000 f32 made on
-    the card (16 GB, a gene-expression-like shape) through
-    ``FusedLogisticGradient`` and ``SquaredL2Updater`` (reg 0.1, 20
-    iterations, tol 0), every launch in the two-pass mode, held to the
-    plain fit as phase 5 is; ms per evaluation beside the two-pass bound
-    and the two ``torch.matmul`` products;
+    against its plain version at D = 40,000 and 200,000 (3,000 rows) and
+    one column past ``cluster_max_width`` (300 rows), f32 and bf16, as
+    phase 3, each plan's mode held to the width rule (the cluster mode
+    up to ``cluster_max_width``, 40,000 columns in it, the two-pass mode
+    past it); an AGD fit at 100,000 x 40,000 f32 made on the card (16 GB,
+    a gene-expression-like shape) through ``FusedLogisticGradient`` and
+    ``SquaredL2Updater`` (reg 0.1, 20 iterations, tol 0), every launch
+    in the cluster mode, held to the plain fit as phase 5 is; the kernel
+    there held to f64 sums and its ms per evaluation beside the bound (X
+    read once), the two-pass floor (X twice) and the two
+    ``torch.matmul`` products; then the two-pass mode held to f64 sums
+    and timed at 10,000 rows one column past the cluster mode's reach,
+    and the lanes kernel's two-pass mode at 100,003 rows one column past
+    ``lanes_max_width`` for 8 lanes (``lanes_two_pass_times``);
 20. the ``kernels`` line (with each kernel's launches by path, the margin
     and softmax kernels' modes by path and their numbers by mode, the
-    lanes kernel's modes by path); then the card's name and power limit,
-    and last ``{"ok": true, "device": {...}}``;
+    lanes kernel's modes by path and its two-pass mode's numbers, and
+    each library's registers and spills by kernel, the margin cluster
+    mode's instantiations among them); then the card's name and power
+    limit, and last ``{"ok": true, "device": {...}}``;
 21. lanes_kernel, right after phase 4: the K-lane margin kernel
     (``csrc/margin_lanes_loss_grad.cu``) against its plain version, and
     each lane against the solo kernel, at K in {1, 2, 3, 8, 16, 17, 20}
@@ -216,12 +225,13 @@ its two-pass mode forced at this shape (with a same-bits-on-repeat
 flag), beside both modes' bounds; one ``ab`` line per seed.
 
 ``python3 chip_smoke.py --ab margin:NAME=SOURCE [...]`` does the same for
-copies of ``csrc/margin_loss_grad.cu`` with its C interface (this one or
-an earlier commit's), at 10,000,000 rows of f32 X of width 1, 2, 3, 8,
-16, 32, 33, 40, 48, 54, 64, 90, 96, 127, 128, 129, 192, 255, 256, 257,
-512 and 1000, of bf16 X of width 33, 64, 65, 127, 128, 129, 192, 255,
-256, 257 and 384 (the warp-rows mode's widths and its hand-overs to the
-tile, at odd and even widths), and at 100,000 x 40,000: one
+copies of ``csrc/margin_loss_grad.cu`` with its C interface (this one, or
+an earlier commit's with the four-int plan of the sources from before
+the cluster mode), at 10,000,000 rows of f32 X of width 1, 2, 3, 8, 16,
+32, 33, 40, 48, 54, 64, 90, 96, 127, 128, 129, 192, 255, 256, 257, 512
+and 1000, of bf16 X of width 33, 64, 65, 127, 128, 129, 192, 255, 256,
+257 and 384 (the warp-rows mode's widths and its hand-overs to the
+tile, at odd and even widths), and at 100,000 x 40,000 f32 and bf16: one
 ``ab_margin`` line a shape, with each build's plan, ms by CUDA events
 and by the profiler, error from f64 sums and whether its bits equal the
 first build's, the bound and the two ``torch.matmul`` products' time.
@@ -294,7 +304,12 @@ WIDE = dict(n=100_000, d=40_000, seed=5, reg=0.1, iters=20)
 # collection) at the flagship's 10M rows, where the margin kernel runs its
 # warp-rows mode
 MID = dict(n=10_000_000, d=54, seed=7)
-WIDE_CHECK = dict(rows=3_000, widths=(40_000, 200_000))
+WIDE_CHECK = dict(rows=3_000, widths=(40_000, 200_000), past_rows=300)
+# the margin kernel's two-pass mode timed one column past the cluster
+# mode's reach, and the lanes kernel's one column past lanes_max_width
+# (K = 8 lanes, 2,224 columns on the H100)
+WIDE_TWO_PASS_ROWS = 10_000
+LANES_TWO_PASS_ROWS, LANES_TWO_PASS_K = 100_003, 8
 
 
 def emit(obj):
@@ -624,7 +639,9 @@ def phase_kernel(fk, losses):
             want = ("narrow" if d <= 32 else "warp_rows"
                     if d <= hand and (xt == torch.float32 or d % 2 == 0
                                       or d <= 128)
-                    else "tile" if d <= limit else "two_pass")
+                    else "tile" if d <= limit
+                    else "cluster" if d <= fk.cluster_max_width(xt)
+                    else "two_pass")
             if (want == "warp_rows") != fk.warp_rows_takes(d, xt):
                 raise AssertionError(f"warp_rows_takes({d}, {xt}) disagrees "
                                      f"with the width rule")
@@ -639,12 +656,12 @@ def phase_kernel(fk, losses):
     emit({"phase": "kernel", "widths_by_mode": {
         m: sorted(ws) for m, ws in modes.items()},
         "warp_rows_max_width": hand})
-    # one column past the widest X read once: computed in two passes
+    # one column past the tile's widest X: read once across a cluster
     if sorted(past) != ["bfloat16", "float32"] or any(
-            r["plan"]["mode"] != "two_pass" for r in past.values()):
+            r["plan"]["mode"] != "cluster" for r in past.values()):
         raise AssertionError(f"one column past max_width did not run "
-                             f"the two-pass mode: {past}")
-    emit({"phase": "kernel", "past_width_two_pass": {
+                             f"the cluster mode: {past}")
+    emit({"phase": "kernel", "past_width_cluster": {
         k: {f: r[f] for f in ("shape", "plan", "launches",
                               "max_loss_rel_err", "max_grad_abs_err")}
         for k, r in past.items()}})
@@ -2317,27 +2334,39 @@ def mlp_path(port, device_synth, smi, fk):
 
 
 def wide_path(port, fk, losses, device_synth, smi, launches):
-    """Phase 19: X past one row in shared memory, where the margin
-    kernel runs its two-pass mode.  The kernel against its plain version
-    at WIDE_CHECK widths (f32 and bf16, repeat bit-identical); then an
+    """Phase 19: X past one row in shared memory.  The kernel against its
+    plain version at WIDE_CHECK widths and one column past the cluster
+    mode's reach (f32 and bf16, repeat bit-identical), each plan's mode
+    held to the width rule (40,000 columns in the cluster mode); then an
     AGD fit at WIDE's shape (a gene-expression-like dense X, made on the
-    card) through ``FusedLogisticGradient``, held to the plain fit over
-    their common iterations; and one evaluation timed against the
-    two-pass bound and the two ``torch.matmul`` products.  Returns the
-    kernel's numbers at that shape."""
+    card) through ``FusedLogisticGradient``, every launch in the cluster
+    mode, held to the plain fit over their common iterations; one
+    evaluation timed against the bound (X read once), the two-pass
+    mode's floor (X twice) and the two ``torch.matmul`` products; and
+    the two-pass mode timed past the cluster mode's reach
+    (WIDE_TWO_PASS_ROWS rows).  Returns the kernel's numbers by mode."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     checks = {}
     kernel_rows = []
-    for d in WIDE_CHECK["widths"]:
-        X32 = torch.randn((WIDE_CHECK["rows"], d), generator=gen, device=dev)
-        for xt in (torch.float32, torch.bfloat16):
+    both = (torch.float32, torch.bfloat16)
+    reach = {xt: fk.cluster_max_width(xt) for xt in both}
+    cases = [(WIDE_CHECK["rows"], d, both) for d in WIDE_CHECK["widths"]]
+    cases += [(WIDE_CHECK["past_rows"], reach[xt] + 1, (xt,)) for xt in both]
+    for rows, d, xtypes in cases:
+        X32 = torch.randn((rows, d), generator=gen, device=dev)
+        for xt in xtypes:
             row = check_margin_kernel(fk, losses, X32, xt, gen, "wide_path")
             kernel_rows.append(row)
-            checks[f"two_pass_at_{d}_{row['x_dtype']}"] = \
-                row["plan"]["mode"] == "two_pass"
+            want = ("cluster" if fk.max_width(xt) < d <= reach[xt]
+                    else "two_pass")
+            checks[f"{want}_at_{d}_{row['x_dtype']}"] = \
+                row["plan"]["mode"] == want
+            if d == WIDE["d"]:
+                checks[f"cluster_at_{d}_{row['x_dtype']}"] = \
+                    row["plan"]["mode"] == "cluster"
         del X32
         torch.cuda.empty_cache()
 
@@ -2362,6 +2391,9 @@ def wide_path(port, fk, losses, device_synth, smi, launches):
     staged = fk.stage_dense(X, y)
     loss_err, max_abs_err = compare_margin(fk, gradient, w_run, staged,
                                            "wide_path shape")
+    loss, grad = fk.fused_margin_loss_grad(gradient, w_run, staged)
+    f64_loss_err, f64_abs_err = hold(loss, grad, *margin_f64(w_run, staged),
+                                     "wide_path shape: kernel vs f64 sums")
     plan = fk.launch_shape(X)
     state_before = card_state()
     kernel_ms = time_ms(lambda: fk.fused_margin_loss_grad(gradient, w_run,
@@ -2375,10 +2407,10 @@ def wide_path(port, fk, losses, device_synth, smi, launches):
     two_mm_device_ms = two_matmuls_device_ms(X, w_run, mult)
     state_after = card_state()
     (b_ms, bound_by), (b2_ms, _) = margin_bounds(n, d, 4)
-    del staged, mult
+    del staged, mult, loss, grad
     checks.update({
-        "every_launch_two_pass": launches["modes"]["wide_path"]
-        == {"two_pass": launches["wide_path"]},
+        "every_launch_cluster": launches["modes"]["wide_path"]
+        == {"cluster": launches["wide_path"]},
         "launches_equal_evaluations":
             launches["wide_path"] == fused.evaluations > 0,
         "no_softmax_launch": softmax_launches == 0,
@@ -2393,9 +2425,15 @@ def wide_path(port, fk, losses, device_synth, smi, launches):
     })
     with torch.no_grad():
         acc = float(((X @ w_run > 0).float() == y).float().mean())
+    del X, y
+    torch.cuda.empty_cache()
+    two_pass = wide_two_pass_times(fk, gradient, reach[torch.float32] + 1)
+    checks["two_pass_past_reach"] = two_pass["plan"]["mode"] == "two_pass"
     finish("wide_path", {
-        "kernel_checks": kernel_rows, "shape": [n, d],
-        "x_gb": X.numel() * 4 / 1e9, "generate_s": gen_s, "run_s": run_s,
+        "kernel_checks": kernel_rows, "cluster_max_width": {
+            str(xt).replace("torch.", ""): w for xt, w in reach.items()},
+        "shape": [n, d],
+        "x_gb": n * d * 4 / 1e9, "generate_s": gen_s, "run_s": run_s,
         "plain_run_s": plain_s, "num_iters": n_iters,
         "num_iters_plain": n_plain, "num_backtracks": int(res.num_backtracks),
         "launches": launches["wide_path"],
@@ -2411,17 +2449,106 @@ def wide_path(port, fk, losses, device_synth, smi, launches):
         "kernel_device_ms": kernel_device_ms, "plain_ms": plain_ms,
         "two_matmuls_ms": two_mm_ms,
         "two_matmuls_device_ms": two_mm_device_ms, "bound_ms": b_ms,
-        "bound_by": bound_by, "two_pass_bound_ms": b2_ms, "shape_loss_rel_err": loss_err,
+        "bound_by": bound_by, "kernel_bound_frac": b_ms / kernel_ms,
+        "two_pass_bound_ms": b2_ms, "shape_loss_rel_err": loss_err,
         "shape_grad_max_abs_err": max_abs_err,
+        "shape_loss_rel_err_vs_f64": f64_loss_err,
+        "shape_grad_max_abs_err_vs_f64": f64_abs_err,
+        "two_pass_past_reach": two_pass,
         "card_before": state_before, "card_after": state_after},
         checks, t_phase, smi)
-    del X, y
-    return {"shape": [n, d], "ms": kernel_ms,
+    cluster = {"shape": [n, d], "ms": kernel_ms,
+               "device_ms": sum(kernel_device_ms.values()) or None,
+               "plain_ms": plain_ms, "bound_ms": b_ms,
+               "two_pass_bound_ms": b2_ms, "two_matmuls_ms": two_mm_ms,
+               "two_matmuls_device_ms": two_mm_device_ms,
+               "max_abs_err_vs_f64": f64_abs_err, "plan": plan._asdict(),
+               "cluster_max_width": {
+                   str(xt).replace("torch.", ""): w
+                   for xt, w in reach.items()}}
+    return cluster, two_pass
+
+
+def wide_two_pass_times(fk, gradient, d):
+    """The two-pass mode at WIDE_TWO_PASS_ROWS x d f32 (d past the cluster
+    mode's reach): held to f64 sums, timed beside its bound, its plain
+    version and the two ``torch.matmul`` products."""
+    n = WIDE_TWO_PASS_ROWS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    X = torch.randn((n, d), generator=gen, device="cuda")
+    y = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
+    w = torch.randn(d, generator=gen, device="cuda") / d ** 0.5
+    staged = fk.stage_dense(X, y)
+    plan = fk.launch_shape(X)
+    loss, grad = fk.fused_margin_loss_grad(gradient, w, staged)
+    _, abs_err = hold(loss, grad, *margin_f64(w, staged),
+                      f"two-pass mode {n}x{d}: kernel vs f64 sums")
+    kernel_ms = time_ms(lambda: fk.fused_margin_loss_grad(gradient, w,
+                                                          staged))
+    kernel_device_ms = device_ms(lambda: fk.fused_margin_loss_grad(
+        gradient, w, staged))
+    plain_ms = time_ms(lambda: fk.fused_margin_loss_grad_reference(
+        gradient, w, staged))
+    mult = torch.randn(n, generator=gen, device="cuda")
+    two_mm_ms = time_ms(lambda: (X @ w, mult @ X))
+    two_mm_device_ms = two_matmuls_device_ms(X, w, mult)
+    (b_ms, bound_by), (b2_ms, _) = margin_bounds(n, d, 4)
+    del X, y, staged, mult
+    torch.cuda.empty_cache()
+    return {"shape": [n, d], "plan": plan._asdict(), "ms": kernel_ms,
             "device_ms": sum(kernel_device_ms.values()) or None,
-            "plain_ms": plain_ms,
-            "bound_ms": b_ms, "two_pass_bound_ms": b2_ms,
-            "two_matmuls_ms": two_mm_ms,
-            "two_matmuls_device_ms": two_mm_device_ms}
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": bound_by,
+            "two_pass_bound_ms": b2_ms, "two_matmuls_ms": two_mm_ms,
+            "two_matmuls_device_ms": two_mm_device_ms,
+            "max_abs_err_vs_f64": abs_err}
+
+
+def lanes_two_pass_times(fk, losses):
+    """The lanes kernel's two-pass mode at LANES_TWO_PASS_ROWS rows of f32
+    X one column past ``lanes_max_width`` for LANES_TWO_PASS_K lanes: held
+    to f64 sums lane by lane, timed beside its bound (X, W, y and the
+    mask read once), its plain version and the two ``torch.matmul``
+    products on (D, K)."""
+    n, k = LANES_TWO_PASS_ROWS, LANES_TWO_PASS_K
+    d = fk.lanes_max_width(k, torch.float32) + 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    X = torch.randn((n, d), generator=gen, device="cuda")
+    y = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
+    W = torch.randn((k, d), generator=gen, device="cuda") / d ** 0.5
+    staged = fk.stage_dense(X, y)
+    gradient = losses.LogisticGradient()
+    plan = fk.lanes_launch_shape(X, k)
+    loss, grad = fk.fused_margin_lanes_loss_grad(gradient, W, staged)
+    _, abs_err = hold_lanes(loss, grad, *margin_lanes_f64(W, staged),
+                            f"lanes two-pass {n}x{d}, K = {k}")
+    kernel_ms = time_ms(lambda: fk.fused_margin_lanes_loss_grad(
+        gradient, W, staged))
+    kernel_device_ms = device_ms(lambda: fk.fused_margin_lanes_loss_grad(
+        gradient, W, staged))
+    plain_ms = time_ms(lambda: fk.fused_margin_lanes_loss_grad_reference(
+        gradient, W, staged))
+    mult = torch.randn((n, k), generator=gen, device="cuda")
+    two_mm_ms = time_ms(lambda: (X @ W.T, mult.T @ X))
+    times = [device_ms(lambda: X @ W.T), device_ms(lambda: mult.T @ X)]
+    b_ms, bound_by = bound_ms(n * d * 4 + 2 * n * 4 + 2 * k * d * 4 + k * 4,
+                              4 * n * d * k)
+    out = {"shape": [n, d], "lanes": k, "plan": list(plan[:5]),
+           "ms": kernel_ms,
+           "device_ms": sum(kernel_device_ms.values()) or None,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": bound_by,
+           "two_matmuls_ms": two_mm_ms,
+           "two_matmuls_device_ms": (sum(sum(t.values()) for t in times)
+                                     if all(times) else None),
+           "max_abs_err_vs_f64": abs_err}
+    emit({"phase": "lanes_two_pass_times", **out})
+    if plan.mode != "lanes_two_pass":
+        raise AssertionError(f"lanes kernel at {n}x{d}, K = {k}: plan "
+                             f"{plan.mode}, not lanes_two_pass")
+    del X, y, W, staged, mult
+    torch.cuda.empty_cache()
+    return out
 
 
 def mma_ab(specs):
@@ -2630,21 +2757,28 @@ def softmax_ab(port, fk, device_synth, specs, seeds):
 
 
 # --ab margin: the widths swept at AB_ROWS rows in f32 (and in bf16 at
-# the warp-rows mode's hand-over to the tile), and one past a row in
-# shared memory at fewer rows
+# the warp-rows mode's hand-over to the tile), one past a row in shared
+# memory at fewer rows, and the cluster mode's two ends, f32 and bf16:
+# the tile's widest and one column past it (the smallest clusters) at
+# AB_TILE_END_ROWS, and the reach (the largest, a row a stage) at
+# AB_REACH_ROWS, rows enough for every resident cluster to take many
+# stages
 AB_ROWS = 10_000_000
 AB_WIDTHS = (1, 2, 3, 8, 16, 32, 33, 40, 48, 54, 64, 90, 96, 127, 128, 129,
              192, 255, 256, 257, 512, 1000)
 AB_BF16_WIDTHS = (33, 64, 65, 127, 128, 129, 192, 255, 256, 257, 384)
-AB_WIDE = (100_000, 40_000)
+AB_WIDE = ((100_000, 40_000, torch.float32), (100_000, 40_000,
+                                               torch.bfloat16))
+AB_TILE_END_ROWS, AB_REACH_ROWS = 100_000, 20_000
 
 
 def margin_build(fk, source):
     """A build of the margin kernel from ``source``, a copy of
-    ``csrc/margin_loss_grad.cu`` with its C interface (this one or an
-    earlier commit's).  Returns ``(BuiltLibrary, plan, launch)`` with
-    ``plan(n, d, itemsize, sms)`` a ``MarginPlan`` and ``launch(code, w,
-    staged, plan)`` -> ``(loss, grad)``."""
+    ``csrc/margin_loss_grad.cu`` with its C interface (a source from
+    before the cluster mode fills four ints of the plan).  Returns
+    ``(BuiltLibrary, plan, launch)`` with ``plan(n, d, itemsize, sms)`` a
+    ``MarginPlan`` and ``launch(code, w, staged, plan)`` -> ``(loss,
+    grad)``."""
     import ctypes
 
     lib, built = fk._load("margin_loss_grad", "margin", fk._PLAN_ARGTYPES,
@@ -2656,7 +2790,8 @@ def margin_build(fk, source):
     lib.margin_mode_name.restype = ctypes.c_char_p
 
     def plan(n, d, itemsize, sms):
-        return fk.plan_for(lib, n, d, itemsize, sms)
+        with torch.cuda.device(0):
+            return fk.plan_for(lib, n, d, itemsize, sms)
 
     def launch(code, w, staged, p):
         return fk.margin_launch(lib, code, w, staged, p)
@@ -2748,16 +2883,21 @@ def in_turns(names, builds, out, call_of, exact, what):
 def margin_ab(fk, specs):
     """``--ab margin:NAME=SOURCE ...``: builds of the margin kernel timed
     in turns (A, B, ..., then back) at each of AB_WIDTHS x AB_ROWS f32,
-    AB_BF16_WIDTHS x AB_ROWS bf16 and AB_WIDE f32, logistic, each held
-    to f64 sums, with the two ``torch.matmul`` products beside them; one
-    ``ab_margin`` line a shape."""
+    AB_BF16_WIDTHS x AB_ROWS bf16, AB_WIDE and the cluster mode's ends
+    (this tree's ``max_width``, one past it and ``cluster_max_width``),
+    logistic, each held to f64 sums, with the two ``torch.matmul``
+    products beside them; one ``ab_margin`` line a shape."""
     names, builds = ab_builds(specs, lambda src: margin_build(fk, src))
     dev = torch.device("cuda")
     sms = fk._device_sms(0)
     failed = []
     shapes = ([(AB_ROWS, d, torch.float32) for d in AB_WIDTHS]
               + [(AB_ROWS, d, torch.bfloat16) for d in AB_BF16_WIDTHS]
-              + [(*AB_WIDE, torch.float32)])
+              + list(AB_WIDE))
+    for xt in (torch.float32, torch.bfloat16):
+        shapes += [(AB_TILE_END_ROWS, fk.max_width(xt) + e, xt)
+                   for e in (0, 1)]
+        shapes.append((AB_REACH_ROWS, fk.cluster_max_width(xt), xt))
     for n, d, xt in shapes:
         gen = torch.Generator(device=dev)
         gen.manual_seed(d)
@@ -2778,7 +2918,7 @@ def margin_ab(fk, specs):
         def call_of(b):
             _, plan, launch = b
             p = plan(n, d, itemsize, sms)
-            return (lambda: launch(0, w, staged, p)), p[:4]
+            return (lambda: launch(0, w, staged, p)), p[:5]
 
         failed += in_turns(names, builds, out, call_of, exact, f"{n}x{d}")
         wx = w.to(xt)
@@ -3443,9 +3583,12 @@ def main(argv):
     mlp_path(port, device_synth, smi, fk)
     torch.cuda.empty_cache()
 
-    # 19. X past one row in shared memory: the two-pass mode
-    wide = wide_path(port, fk, losses, device_synth, smi, launches)
+    # 19. X past one row in shared memory: the cluster mode, and the
+    # two-pass mode past its reach; the lanes kernel's two-pass mode
+    wide, wide_two_pass = wide_path(port, fk, losses, device_synth, smi,
+                                    launches)
     torch.cuda.empty_cache()
+    lanes_two_pass = lanes_two_pass_times(fk, losses)
 
     # 26. the softmax kernel's two-pass mode at published shapes
     wide_softmax = softmax_wide(port, fk, device_synth, glm, smi, launches)
@@ -3462,7 +3605,8 @@ def main(argv):
                                         "bound_ms", "two_matmuls_ms",
                                         "two_matmuls_device_ms")}
         | {"shape": [N_MAIN, D_MAIN]},
-        "narrow": narrow, "warp_rows": mid, "two_pass": wide}
+        "narrow": narrow, "warp_rows": mid, "cluster": wide,
+        "two_pass": wide_two_pass}
     softmax_paths = ("softmax_lbfgs_path", "softmax_sweep", "softmax_wide")
     softmax["launches_by_path"] = {"softmax_path": softmax["launches"],
                                    **{p: launches[p] for p in softmax_paths}}
@@ -3484,6 +3628,7 @@ def main(argv):
     lanes["launches_by_path"] = {p: launches[p] for p in lanes_paths}
     lanes["modes_by_path"] = {p: launches["lanes_modes"][p]
                               for p in ("sweep_path", "lbfgs_sweep_path")}
+    lanes["by_mode"] = {"lanes_two_pass": lanes_two_pass}
     for entry, lib in ((margin, "margin_loss_grad"),
                        (lanes, "margin_lanes_loss_grad"),
                        (softmax, "softmax_loss_grad")):

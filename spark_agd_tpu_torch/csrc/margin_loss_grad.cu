@@ -15,12 +15,12 @@
 // f32, far below the ~20 flop/byte where the H100's f32 rate would take
 // over.  Two library products (X @ w, then X^T @ mult) read X twice.
 //
-// margin_plan picks one of four modes by width; all of them write
-// per-block partials that reduce_partials (or reduce_partials_warp) sums
-// in block order, with no float atomics, so two calls on the same inputs
-// give the same bits.  X may be f32 or bf16 (widened to f32 in
-// registers); y, m, w and every accumulator are f32.  Ragged row and
-// column edges are masked here, so X needs no padding.
+// margin_plan picks one of five modes by width; all of them write
+// per-block (cluster mode: per-cluster) partials that reduce_partials (or
+// reduce_partials_warp) sums in a fixed order, with no float atomics, so
+// two calls on the same inputs give the same bits.  X may be f32 or bf16
+// (widened to f32 in registers); y, m, w and every accumulator are f32.
+// Ragged row and column edges are masked here, so X needs no padding.
 //
 // Warp-rows mode (33 columns to kWarpRowsMaxWidth = 256, the hand-over to
 // the tile; bf16 X of odd width only to 128).  What held these widths
@@ -59,15 +59,26 @@
 // warps in a fixed order), and a warp per column sums the blocks'
 // partials.
 //
-// Two-pass mode (past margin_max_width, where not one row fits the
-// tile): pass 1 gives each row a warp that reads it from device memory
-// (16-byte loads where rows are aligned; w stays in L2), applies the
-// loss middle and writes m * mult to an (N,) scratch; pass 2 walks
-// column chunks x row groups, one column a thread with eight rows'
-// loads in flight, and reads X again.  Both grids are sized to what is
-// resident at once.  X crosses the bus twice, as it does through the
-// two library products that the TPU wrapper falls back to past its VMEM
-// budget; this mode has no width limit.
+// Cluster mode (past margin_max_width, where not one row fits a block's
+// tile, up to margin_cluster_max_width): the TPU kernel reads X once at
+// far wider rows, since its VMEM holds two 8-row blocks of a full-width
+// row; one SM's shared memory does not.  A thread block cluster of 2-16
+// blocks on as many SMs holds a stage of full-width rows split by
+// columns, each block w's slice, its rows' slices and its slice of the
+// gradient; the blocks swap their partial dots through distributed
+// shared memory, so X crosses the bus once (details at margin_cluster).
+//
+// Two-pass mode (past the cluster mode's reach): pass 1 gives each row a
+// warp that reads it from device memory (16-byte loads where rows are
+// aligned; w stays in L2), applies the loss middle and writes m * mult to
+// an (N,) scratch; pass 2 walks column chunks x row groups, one column a
+// thread with eight rows' loads in flight, and reads X again.  Both grids
+// are sized to what is resident at once.  X crosses the bus twice, as it
+// does through the two library products that the TPU wrapper falls back
+// to past its VMEM budget; this mode has no width limit.
+
+#include <atomic>
+#include <type_traits>
 
 #include "tile_common.cuh"
 #include "margin_middle.cuh"
@@ -637,6 +648,375 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kWideBlocksPerSM = 8;
 constexpr int kWideGradBlocksPerSM = 8;
 
+// Cluster mode: X past the tile, read once.  A thread block cluster of C
+// blocks, one an SM, holds a stage of full-width rows split by columns:
+// block (rank) q owns the column slice [q S, q S + S) (the last block the
+// rest), with w's slice in shared memory and the slice's gradient sums in
+// registers (kClusterThreads threads, column j + kClusterThreads i for
+// thread j, up to J columns a thread) for the cluster's whole row range.
+// Rows stream through a ring of kClusterStages stages of `rows` rows;
+// each stage is filled with 1-D bulk copies (cp.async.bulk, completing on
+// an mbarrier) where every row slice is 16-byte aligned, else with
+// 16-byte cp.async copies of the chunks that cover it (copy_tile_async).
+// Each block stores its partial dot of each row of a stage into every
+// block's shared memory (distributed shared memory, st.async), in the
+// sender's slot, counted on the receiver's mbarrier; each block waits for
+// its C partials of the stage and adds them in rank order, so all of them
+// form the same dot, and applies the loss middle itself; rank 0 alone
+// counts the loss.  No cluster-wide barrier sits in the row loop: a
+// barrier.cluster after each stage, with every block then reading its
+// peers' partials (ld.shared::cluster), took 7.72 ms of device time at
+// 100,000 x 40,000 f32 on an H100 80GB HBM3 against 5.43 for these
+// one-way stores (PERF.md).  The slots
+// and their mbarriers alternate by stage parity: a block stores its
+// partials of stage s + 2 only after it has received every peer's of
+// stage s + 1, which each peer sends after reading its slots of stage s.
+// Each cluster writes one loss partial and its partial gradient, which
+// reduce_partials sums in cluster order.
+constexpr int kClusterThreads = 512;
+constexpr int kClusterWarps = kClusterThreads / 32;
+constexpr int kClusterStages = 2;
+constexpr int kClusterMaxRows = 8;
+// A cluster's columns are cut into slices of a multiple of this many
+// columns (64 or 128 bytes), so that every slice starts where its row
+// does, modulo 16 bytes.
+constexpr int kSliceAlign = 32;
+// Columns a thread owns at most (the largest register bucket J), which
+// bounds a slice at kClusterThreads * kClusterMaxCols columns.
+constexpr int kClusterMaxCols = 32;
+constexpr int kClusterSizes[] = {2, 4, 8, 16};
+constexpr int kClusterMaxSize = 16;
+constexpr int kPortableCluster = 8;
+
+__host__ __device__ inline int64_t cluster_slice(int64_t d, int c) {
+  return round_up((d + c - 1) / c, kSliceAlign);
+}
+
+// f(std::integral_constant<int, J>{}) with J the register bucket of a
+// slice: the columns a thread owns, rounded up to a multiple of
+// kClusterBucketStep.  Each column of a bucket past the slice costs a
+// guarded iteration in both loops: buckets of 8, 16 and 32 columns took
+// 4.28 ms at 100,000 x 40,000 bf16 (20 columns a thread) on an H100
+// 80GB HBM3, buckets of 4 3.22 (PERF.md).
+constexpr int kClusterBucketStep = 4;
+
+template <int J = kClusterBucketStep, typename F>
+auto with_bucket(int64_t slice, F&& f) {
+  if constexpr (J < kClusterMaxCols) {
+    if ((slice + kClusterThreads - 1) / kClusterThreads > J)
+      return with_bucket<J + kClusterBucketStep>(slice, f);
+  }
+  return f(std::integral_constant<int, J>{});
+}
+
+// Shared-memory layout of one block of the cluster mode: the stages'
+// mbarriers and the two parities' partial-dot mbarriers, the warps'
+// partial dots of a stage, the two parities' slots of the ranks' partial
+// dots (a row's kClusterMaxSize slots, one a rank), the stage's
+// multipliers, w's slice, then the ring (stages x rows, each row slice
+// 16-byte aligned with 16 bytes of slack, so that its byte offset modulo
+// 16 can match its address in device memory).
+struct ClusterLayout {
+  int64_t mbar, red, slot, mult, w, ring, row_stride, total;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int64_t slice,
+                                                        int rows,
+                                                        int itemsize) {
+  ClusterLayout s;
+  s.mbar = 0;
+  s.red = 8 * (kClusterStages + 2);
+  s.slot = s.red + 4 * kClusterMaxRows * kClusterWarps;
+  s.mult = s.slot + 4 * 2 * kClusterMaxRows * kClusterMaxSize;
+  s.w = round_up(s.mult + 4 * kClusterMaxRows, 16);
+  s.ring = round_up(s.w + 4 * slice, 128);
+  s.row_stride = round_up(slice * itemsize, 16) + kTileSlack;
+  s.total = s.ring + int64_t(kClusterStages) * rows * s.row_stride;
+  return s;
+}
+
+// Rows a stage holds for X of width d in clusters of c blocks (at most
+// kClusterMaxRows), or 0 where not one row fits, or the slice is too wide
+// for the register buckets or leaves the last block no columns.
+int cluster_rows(int64_t d, int c, int itemsize) {
+  const int64_t slice = cluster_slice(d, c);
+  if (slice > int64_t(kClusterThreads) * kClusterMaxCols ||
+      d - (c - 1) * slice < 1)
+    return 0;
+  for (int rows = kClusterMaxRows; rows >= 1; --rows)
+    if (cluster_layout(slice, rows, itemsize).total <= kSmemBlock)
+      return rows;
+  return 0;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_blocks() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_id() {
+  int r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_count() {
+  int r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster waits for all of them (at
+// the start, so that no block stores into a peer not yet running; at the
+// end, so that none leaves while a peer may still store into it).
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Store v at `p` (an address in this block's shared memory) in block
+// `rank`'s shared memory, counted as 4 bytes on that block's copy of the
+// mbarrier `bar`.
+__device__ __forceinline__ void send_peer(float* p, float v, uint64_t* bar,
+                                          int rank) {
+  uint32_t to, to_bar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(to)
+               : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(to_bar)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(to),
+      "f"(v), "r"(to_bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_bytes(uint64_t* bar,
+                                                  uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A 1-D bulk copy (TMA, no tensor map) of `bytes` (a multiple of 16) from
+// 16-byte aligned device memory into this block's shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+template <typename T, int L, int J>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    margin_cluster(const T* __restrict__ X, const float* __restrict__ y,
+                   const float* __restrict__ mask,
+                   const float* __restrict__ w, int64_t n, int64_t d,
+                   int rows, int64_t slice, int bulk,
+                   float* __restrict__ partial_loss,
+                   float* __restrict__ partial_grad) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const ClusterLayout lay = cluster_layout(slice, rows, int(sizeof(T)));
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(smem + lay.mbar);
+  float* red_s = reinterpret_cast<float*>(smem + lay.red);
+  float* slot_s = reinterpret_cast<float*>(smem + lay.slot);
+  float* mult_s = reinterpret_cast<float*>(smem + lay.mult);
+  float* w_s = reinterpret_cast<float*>(smem + lay.w);
+  unsigned char* ring = smem + lay.ring;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int rank = cluster_rank();
+  const int blocks = cluster_blocks();
+  const int64_t cid = cluster_id();
+  const int64_t clusters = cluster_count();
+  const int64_t c0 = int64_t(rank) * slice;
+  // this block's columns (at most kClusterThreads * J)
+  const int cols = int(rank == blocks - 1 ? d - c0 : slice);
+  const int64_t rows_per_cluster = (n + clusters - 1) / clusters;
+  const int64_t r_begin = min64(n, cid * rows_per_cluster);
+  const int64_t r_end = min64(n, r_begin + rows_per_cluster);
+  const int64_t stages = (r_end - r_begin + rows - 1) / rows;
+  const T* x_end = X + n * d;
+
+  for (int c = tid; c < cols; c += kClusterThreads) w_s[c] = w[c0 + c];
+  uint64_t* dots_bar = mbar + kClusterStages;  // a parity's partials in
+  if (tid == 0) {
+    for (int b = 0; b < kClusterStages + 2; ++b) mbar_init(&mbar[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();
+
+  // Fill stage s's buffer: the row slices of its rows, each at its own
+  // address modulo 16 (0 for bulk copies).
+  auto issue = [&](int64_t s) {
+    const int64_t row0 = r_begin + s * rows;
+    const int here = int(min64(rows, r_end - row0));
+    unsigned char* buf =
+        ring + int64_t(s % kClusterStages) * rows * lay.row_stride;
+    if (bulk) {
+      if (tid == 0) {
+        uint64_t* bar = &mbar[s % kClusterStages];
+        const uint32_t bytes = uint32_t(cols) * uint32_t(sizeof(T));
+        mbar_expect_bytes(bar, bytes * uint32_t(here));
+        for (int r = 0; r < here; ++r)
+          bulk_copy(buf + r * lay.row_stride, X + (row0 + r) * d + c0, bytes,
+                    bar);
+      }
+    } else {
+      for (int r = 0; r < here; ++r)
+        copy_tile_async<kClusterThreads>(
+            X + (row0 + r) * d + c0, int64_t(cols) * int64_t(sizeof(T)),
+            buf + r * lay.row_stride, X, x_end);
+    }
+  };
+  // row r of stage s in shared memory
+  auto row_of = [&](int64_t s, int r) {
+    const T* src = X + (r_begin + s * rows + r) * d + c0;
+    return reinterpret_cast<const T*>(
+        ring + (int64_t(s % kClusterStages) * rows + r) * lay.row_stride +
+        (reinterpret_cast<uintptr_t>(src) & 15));
+  };
+
+  for (int s = 0; s < kClusterStages; ++s) {
+    if (s < stages) issue(s);
+    if (!bulk) cp_async_commit();
+  }
+
+  float g[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) g[j] = 0.f;
+  Kahan loss_acc;
+  for (int64_t s = 0; s < stages; ++s) {
+    const int64_t row0 = r_begin + s * rows;
+    const int here = int(min64(rows, r_end - row0));
+    // the middle's inputs, loaded while the stage lands
+    float yv = 0.f, mv = 0.f;
+    if (tid < here) {
+      yv = y[row0 + tid];
+      mv = mask[row0 + tid];
+    }
+    if (bulk)
+      mbar_wait(&mbar[s % kClusterStages],
+                uint32_t((s / kClusterStages) & 1));
+    else
+      cp_async_wait<kClusterStages - 1>();
+    __syncthreads();
+
+    // this block's partial dots: each thread over its columns, a shuffle
+    // tree, then the warps in order
+    for (int r = 0; r < here; ++r) {
+      const T* xr = row_of(s, r);
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int c = tid + j * kClusterThreads;
+        if (c < cols) acc = fmaf(to_f32(xr[c]), w_s[c], acc);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) red_s[r * kClusterWarps + warp] = acc;
+    }
+    __syncthreads();
+    // row r's partial from rank q lands in slot[r * kClusterMaxSize + q]
+    float* slot = slot_s + (s & 1) * kClusterMaxRows * kClusterMaxSize;
+    uint64_t* bar = &dots_bar[s & 1];
+    if (tid == 0) mbar_expect_bytes(bar, uint32_t(blocks * here * 4));
+    if (tid < here) {
+      float p = 0.f;
+      for (int i = 0; i < kClusterWarps; ++i)
+        p += red_s[tid * kClusterWarps + i];
+      for (int q = 0; q < blocks; ++q)
+        send_peer(&slot[tid * kClusterMaxSize + rank], p, bar, q);
+    }
+    mbar_wait(bar, uint32_t((s >> 1) & 1));
+    // the whole dot, the same in every block: the ranks' partials in order
+    if (tid < here) {
+      float dot = 0.f;
+      for (int q = 0; q < blocks; ++q)
+        dot += slot[tid * kClusterMaxSize + q];
+      float per, mult;
+      loss_middle<L>(dot, yv, &per, &mult);
+      mult_s[tid] = mult * mv;
+      if (rank == 0) loss_acc.add(per * mv);
+    }
+    __syncthreads();
+
+    // the gradient over this block's columns from the resident rows
+    for (int r = 0; r < here; ++r) {
+      const T* xr = row_of(s, r);
+      const float mr = mult_s[r];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int c = tid + j * kClusterThreads;
+        if (c < cols) g[j] = fmaf(mr, to_f32(xr[c]), g[j]);
+      }
+    }
+    __syncthreads();  // the stage's buffer is free
+    if (s + kClusterStages < stages) issue(s + kClusterStages);
+    if (!bulk) cp_async_commit();
+  }
+  cluster_sync();
+
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = tid + j * kClusterThreads;
+    if (c < cols) partial_grad[cid * d + c0 + c] = g[j];
+  }
+  if (rank == 0) {
+    if (tid < kClusterMaxRows) red_s[tid] = loss_acc.s;
+    __syncthreads();
+    if (tid == 0) {
+      Kahan k;
+      for (int i = 0; i < kClusterMaxRows; ++i) k.add(red_s[i]);
+      partial_loss[cid] = k.s;
+    }
+  }
+}
+
 // Stage 2 of the narrow mode: a warp per gradient column (and one for
 // the loss, warp d), each lane summing every 32nd partial, then a
 // shuffle tree; a fixed order, as reduce_partials keeps, but 32 lanes
@@ -697,22 +1077,107 @@ cudaError_t launch_partials(const void* X, const float* y, const float* mask,
   return cudaGetLastError();
 }
 
-enum Mode { kTile = 0, kNarrow = 1, kTwoPass = 2, kWarpRows = 3 };
+enum Mode { kTile = 0, kNarrow = 1, kTwoPass = 2, kWarpRows = 3,
+            kCluster = 4 };
 
 // A launch plan, as margin_plan fills it: the mode; the tile rows (tile
 // mode), the register bucket (narrow mode), the columns a lane owns
-// (warp-rows mode) or 0 (two-pass); the blocks of the (first) launch,
-// one loss partial each; the gradient partials (the grid, or pass 2's
-// row groups).
+// (warp-rows mode), the rows of a stage (cluster mode) or 0 (two-pass);
+// the blocks of the (first) launch; the gradient partials (the grid,
+// pass 2's row groups, or the clusters); the blocks of a cluster
+// (cluster mode; 0 otherwise).  One loss partial a block, or a cluster.
 struct Plan {
-  int mode, rows, grid, partials;
+  int mode, rows, grid, partials, cluster;
 };
+
+// The launch configuration of the cluster mode: `blocks` blocks in
+// clusters of `c`, with `smem` bytes of shared memory each.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int blocks, int c, int64_t smem, cudaStream_t stream) {
+    cfg.gridDim = dim3(unsigned(blocks));
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = size_t(smem);
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = unsigned(c);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Let margin_cluster<T, L, J> take a block's whole shared memory and
+// clusters past the portable size, once a device (function attributes
+// belong to the kernel on the current device).  Where the card refuses
+// the non-portable size, clusters of that size stay refused and
+// cluster_plan skips them.
+template <typename T, int L, int J>
+cudaError_t cluster_attributes() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const auto kern = margin_cluster<T, L, J>;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmemBlock));
+  if (err != cudaSuccess) return err;
+  if (cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
+      cudaSuccess)
+    cudaGetLastError();
+  done.fetch_or(bit, std::memory_order_release);
+  return cudaSuccess;
+}
+
+// The clusters of c blocks, each with `smem` bytes, that the card keeps
+// resident at once for margin_cluster<T, L, J>
+// (cudaOccupancyMaxActiveClusters: the SMs of a GPC bound where clusters
+// go, so it is not sms / c).
+template <typename T, int L, int J>
+cudaError_t cluster_occupancy(int c, int64_t smem, int* clusters) {
+  const cudaError_t err = cluster_attributes<T, L, J>();
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(c, c, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(clusters, margin_cluster<T, L, J>,
+                                        &l.cfg);
+}
+
+template <typename T, int L, int J>
+cudaError_t launch_cluster(const Plan& p, const T* X, const float* y,
+                           const float* mask, const float* w, int64_t n,
+                           int64_t d, float* partial_loss,
+                           float* partial_grad, cudaStream_t stream) {
+  const int64_t slice = cluster_slice(d, p.cluster);
+  const int64_t smem = cluster_layout(slice, p.rows, int(sizeof(T))).total;
+  cudaError_t err = cluster_attributes<T, L, J>();
+  if (err != cudaSuccess) return err;
+  // bulk copies where every row slice is 16-byte aligned (the slices
+  // start at multiples of kSliceAlign columns)
+  const int bulk = (d * int64_t(sizeof(T))) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(X) % 16 == 0;
+  ClusterLaunch l(p.grid, p.cluster, smem, stream);
+  err = cudaLaunchKernelEx(&l.cfg, margin_cluster<T, L, J>, X, y, mask, w,
+                           n, d, p.rows, slice, bulk, partial_loss,
+                           partial_grad);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
 
 template <typename T, int L>
 cudaError_t launch_mode(const Plan& p, const void* X, const float* y,
                         const float* mask, const float* w, int64_t n,
                         int64_t d, float* partial_loss, float* partial_grad,
                         float* mult, cudaStream_t stream) {
+  if (p.mode == kCluster)
+    return with_bucket(cluster_slice(d, p.cluster), [&](auto j) {
+      return launch_cluster<T, L, decltype(j)::value>(
+          p, static_cast<const T*>(X), y, mask, w, n, d, partial_loss,
+          partial_grad, stream);
+    });
   if (p.mode == kTile)
     return launch_partials<T, L>(X, y, mask, w, n, d, p.rows, p.grid,
                                  partial_loss, partial_grad, stream);
@@ -784,21 +1249,84 @@ cudaError_t launch_for_loss(int loss_kind, const Plan& p, const void* X,
   }
 }
 
+// The clusters of c blocks, with `rows` rows a stage of X of width d,
+// that the card keeps resident at once (every loss's kernel takes the
+// same threads and shared memory, one block an SM: the logistic one is
+// asked).
+template <typename T>
+cudaError_t cluster_resident(int64_t d, int c, int rows, int* clusters) {
+  const int64_t slice = cluster_slice(d, c);
+  const int64_t smem = cluster_layout(slice, rows, int(sizeof(T))).total;
+  return with_bucket(slice, [&](auto j) {
+    return cluster_occupancy<T, kLogistic, decltype(j)::value>(c, smem,
+                                                               clusters);
+  });
+}
+
+// A stage of this many rows is preferred to a smaller cluster.
+constexpr int kClusterMinRows = 2;
+
+// The cluster mode's plan for X (n, d): the smallest cluster the card
+// schedules whose stages hold kClusterMinRows rows, else the smallest that
+// holds one; as many clusters as are resident at once, at most one a
+// stage of rows.  Sets p->mode to -1 where no cluster holds a row.
+// Clusters past the portable size that the card refuses are skipped; any
+// other CUDA error is returned.
+cudaError_t cluster_plan(int64_t n, int64_t d, int itemsize, Plan* p) {
+  p->mode = -1;
+  const int leasts[] = {kClusterMinRows, 1};
+  for (int least : leasts) {
+    for (int c : kClusterSizes) {
+      const int rows = cluster_rows(d, c, itemsize);
+      if (rows < least) continue;
+      int resident = 0;
+      const cudaError_t err =
+          itemsize == 4 ? cluster_resident<float>(d, c, rows, &resident)
+                        : cluster_resident<__nv_bfloat16>(d, c, rows,
+                                                          &resident);
+      if (err != cudaSuccess) {
+        if (c <= kPortableCluster) return err;
+        cudaGetLastError();  // not schedulable here
+        continue;
+      }
+      if (resident < 1) continue;
+      int64_t clusters = (n + rows - 1) / rows;
+      if (clusters > resident) clusters = resident;
+      if (clusters < 1) clusters = 1;
+      *p = Plan{kCluster, rows, int(clusters * c), int(clusters), c};
+      return cudaSuccess;
+    }
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch plan for X (n, d) with `itemsize`-byte elements on a card of
-// `sms` SMs, written to plan[0..3] = {mode, rows, grid, partials} (see
-// Plan): narrow mode up to kNarrowMaxWidth columns; warp-rows mode up to
-// the hand-over (warp_rows_takes); tile mode while a row fits the tile (a
-// few blocks an SM, as many as fit, at most one per tile); two-pass mode
-// past that.  Returns cudaErrorInvalidValue, and sets nothing, for
-// arguments no mode takes.
+// Launch plan for X (n, d) with `itemsize`-byte elements on the current
+// device, of `sms` SMs (checked against the device), written to
+// plan[0..4] = {mode, rows, grid, partials, cluster} (see Plan): narrow
+// mode up to kNarrowMaxWidth columns; warp-rows mode up to the hand-over
+// (warp_rows_takes); tile mode while a row fits the tile (a few blocks an
+// SM, as many as fit, at most one per tile); cluster mode past that while
+// a cluster that the device schedules holds a row (cluster_plan);
+// two-pass mode past that.  Callers work a plan out once a shape.  Returns
+// cudaErrorInvalidValue, and sets nothing, for arguments no mode takes or
+// an `sms` that is not the device's, and the CUDA error of a device query
+// if it fails.
 int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* plan) {
   if (n < 0 || d < 1 || sms < 1 || (itemsize != 4 && itemsize != 2))
     return int(cudaErrorInvalidValue);
-  Plan p;
+  int dev = 0, dev_sms = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev); err != cudaSuccess)
+    return int(err);
+  if (const cudaError_t err = cudaDeviceGetAttribute(
+          &dev_sms, cudaDevAttrMultiProcessorCount, dev);
+      err != cudaSuccess)
+    return int(err);
+  if (dev_sms != sms) return int(cudaErrorInvalidValue);
+  Plan p{};
   if (d <= kNarrowMaxWidth) {
     p.rows = narrow_bucket(d);
     int64_t blocks = (n + kNarrowThreads - 1) / kNarrowThreads;
@@ -822,7 +1350,10 @@ int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* plan) {
     p.mode = kTile;
     p.rows = rows;
     p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
-  } else {
+  } else if (const cudaError_t err = cluster_plan(n, d, itemsize, &p);
+             err != cudaSuccess) {
+    return int(err);
+  } else if (p.mode != kCluster) {
     int64_t blocks = (n + kWarps - 1) / kWarps;
     if (blocks > int64_t(sms) * kWideBlocksPerSM)
       blocks = int64_t(sms) * kWideBlocksPerSM;
@@ -839,6 +1370,7 @@ int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* plan) {
   plan[1] = p.rows;
   plan[2] = p.grid;
   plan[3] = p.partials;
+  plan[4] = p.cluster;
   return 0;
 }
 
@@ -853,6 +1385,8 @@ const char* margin_mode_name(int mode) {
       return "two_pass";
     case kWarpRows:
       return "warp_rows";
+    case kCluster:
+      return "cluster";
     default:
       return nullptr;
   }
@@ -868,8 +1402,8 @@ int margin_warp_rows_takes(int64_t d, int itemsize) {
   return warp_rows_takes(d, itemsize) ? 1 : 0;
 }
 
-// The widest X (in columns) whose rows fit the tile: the widest read
-// once.  Wider X takes the two-pass mode.
+// The widest X (in columns) whose rows fit one block's tile.  Wider X
+// takes the cluster mode, up to margin_cluster_max_width.
 int64_t margin_max_width(int itemsize) {
   int64_t lo = 0, hi = kSmemBlock;  // lo fits (vacuously), hi does not
   while (hi - lo > 1) {
@@ -879,24 +1413,51 @@ int64_t margin_max_width(int itemsize) {
   return lo;
 }
 
+// The widest X (in columns) that the cluster mode takes on the current
+// device: the widest read once.  Wider X takes the two-pass mode.
+// Returns 0 where no cluster is scheduled, and minus the CUDA error code
+// if the query fails.
+int64_t margin_cluster_max_width(int itemsize) {
+  if (itemsize != 4 && itemsize != 2) return -int64_t(cudaErrorInvalidValue);
+  // lo is taken (or the tile's), hi is not: no slice is that wide
+  int64_t lo = margin_max_width(itemsize);
+  int64_t hi = int64_t(kClusterSizes[3]) * kClusterThreads * kClusterMaxCols
+               + 1;
+  const int64_t tile = lo;
+  while (hi - lo > 1) {
+    const int64_t mid = (lo + hi) / 2;
+    Plan p{};
+    const cudaError_t err = cluster_plan(1, mid, itemsize, &p);
+    if (err != cudaSuccess) return -int64_t(err);
+    (p.mode == kCluster ? lo : hi) = mid;
+  }
+  return lo == tile ? 0 : lo;
+}
+
 // Launch the plan's kernels and the final sum on `stream`.
 // `partial_loss` holds plan[2] floats, `partial_grad` plan[3] * d floats
 // and `mult` n floats (two-pass mode only; it may be NULL otherwise) of
-// scratch.  Returns the CUDA error code of the launches (0 on success);
-// synchronises nothing.
+// scratch.  Returns the CUDA error code of the launches (0 on success):
+// a cluster launch that the card refuses returns its error, and nothing
+// is launched in its place.  Synchronises nothing.
 int margin_loss_grad(const void* X, int x_type, const void* y,
                      const void* mask, const void* w, int64_t n, int64_t d,
                      int loss_kind, const int* plan, void* partial_loss,
                      void* partial_grad, void* mult, void* loss, void* grad,
                      void* stream) {
-  const Plan p{plan[0], plan[1], plan[2], plan[3]};
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4]};
   const bool ok =
       n >= 0 && d >= 1 && p.grid >= 1 && p.partials >= 1 &&
       ((p.mode == kTile && p.rows >= 1 && p.partials == p.grid) ||
        (p.mode == kNarrow && d <= p.rows && p.partials == p.grid) ||
        (p.mode == kWarpRows && (p.rows == 2 || p.rows == 4 || p.rows == 8) &&
         d <= 32 * p.rows && p.partials == p.grid) ||
-       (p.mode == kTwoPass && (mult != nullptr || n == 0)));
+       (p.mode == kTwoPass && (mult != nullptr || n == 0)) ||
+       (p.mode == kCluster && p.rows >= 1 && p.rows <= kClusterMaxRows &&
+        (p.cluster == 2 || p.cluster == 4 || p.cluster == 8 ||
+         p.cluster == 16) &&
+        p.grid == p.partials * p.cluster &&
+        cluster_rows(d, p.cluster, x_type == kBF16 ? 2 : 4) >= p.rows));
   if (!ok) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* yf = static_cast<const float*>(y);
@@ -922,8 +1483,10 @@ int margin_loss_grad(const void* X, int x_type, const void* y,
         pl, pg, p.grid, d, static_cast<float*>(loss),
         static_cast<float*>(grad));
   } else {
+    // a loss partial a block, but a cluster's in the cluster mode
+    const int nloss = p.mode == kCluster ? p.partials : p.grid;
     const int blocks = int((d + threads - 1) / threads);
-    reduce_partials<<<blocks, threads, 0, s>>>(pl, p.grid, pg, p.partials, d,
+    reduce_partials<<<blocks, threads, 0, s>>>(pl, nloss, pg, p.partials, d,
                                                static_cast<float*>(loss),
                                                static_cast<float*>(grad));
   }

@@ -17,8 +17,11 @@ deterministic:
   :func:`launch_shape` picks a register mode for narrow X, a mode that
   streams rows through whole warps up to :func:`warp_rows_max_width`
   columns (:func:`warp_rows_takes`), the shared-memory tile up to
-  :func:`max_width` columns, and past that a two-pass mode that reads X
-  twice (as the Pallas wrapper's fallback past its VMEM budget does).
+  :func:`max_width` columns, a mode that holds each row across the
+  shared memory of a thread block cluster up to
+  :func:`cluster_max_width` columns (X still read once), and past that a
+  two-pass mode that reads X twice (as the Pallas wrapper's fallback
+  past its VMEM budget does).
 - ``csrc/margin_lanes_loss_grad.cu``: the same three losses for K
   weight vectors at once (the lanes of a sweep; counterpart of the margin
   kernel under ``jax.vmap``, which Pallas runs as one pass of X per
@@ -53,8 +56,9 @@ route CSR to the jnp losses); no kernel is launched for it.
 
 The launch shapes and the limits come from the CUDA sources
 (``margin_plan``/``margin_max_width``,
-``softmax_plan``/``softmax_one_read_max_width``), which alone know the
-kernels' shared-memory layouts.
+``margin_cluster_max_width``, ``softmax_plan``/
+``softmax_one_read_max_width``), which alone know the kernels'
+shared-memory layouts and ask the card which clusters it schedules.
 
 ``launch_count``, ``lanes_launch_count`` and ``softmax_launch_count``
 count kernel launches, so a run can show that its main path went through
@@ -264,6 +268,8 @@ def library(source=None):
     lib.margin_mode_name.restype = ctypes.c_char_p
     lib.margin_max_width.argtypes = [ctypes.c_int]
     lib.margin_max_width.restype = ctypes.c_int64
+    lib.margin_cluster_max_width.argtypes = [ctypes.c_int]
+    lib.margin_cluster_max_width.restype = ctypes.c_int64
     lib.margin_warp_rows_max_width.argtypes = []
     lib.margin_warp_rows_max_width.restype = ctypes.c_int64
     lib.margin_warp_rows_takes.argtypes = [ctypes.c_int64, ctypes.c_int]
@@ -278,12 +284,25 @@ def _itemsize(dtype) -> int:
 
 
 def max_width(dtype) -> int:
-    """The widest X, in columns, that the kernel reads once for
-    ``dtype``: one row fits its shared-memory tile (counterpart of
-    ``PallasMarginGradient._supported_width``).  Wider X takes the
-    two-pass mode."""
+    """The widest X, in columns, whose rows fit one block's shared-memory
+    tile for ``dtype`` (the tile mode).  Wider X takes the cluster mode,
+    up to :func:`cluster_max_width`."""
     lib, _ = library()
     return int(lib.margin_max_width(_itemsize(dtype)))
+
+
+def cluster_max_width(dtype) -> int:
+    """The widest X, in columns, that the kernel reads once for ``dtype``
+    on the current device (counterpart of
+    ``PallasMarginGradient._supported_width``): a row fits across the
+    shared memory of a thread block cluster that the card schedules (its
+    "cluster" mode, past :func:`max_width`; 0 where it schedules none).
+    Wider X takes the two-pass mode."""
+    width = int(library()[0].margin_cluster_max_width(_itemsize(dtype)))
+    if width < 0:
+        raise RuntimeError(f"margin_cluster_max_width failed: CUDA error "
+                           f"{-width}")
+    return width
 
 
 def warp_rows_max_width() -> int:
@@ -309,49 +328,63 @@ def check_width(d: int, dtype):
 
 class MarginPlan(NamedTuple):
     """A launch plan of the margin kernel (``margin_plan``): ``mode``
-    ("narrow", "warp_rows", "tile" or "two_pass"); ``tile_rows``, the rows
-    of a tile (tile mode), the register bucket (narrow mode), the columns
-    a lane owns (warp-rows mode) or 0; ``grid``, the
-    blocks of the (first) launch; ``partials``, the gradient partials
-    summed at the end (the grid, or the row groups of the two-pass
-    mode's second pass); ``raw``, the four ints as ``margin_plan``
-    filled them (its mode code first), passed back at launch."""
+    ("narrow", "warp_rows", "tile", "cluster" or "two_pass");
+    ``tile_rows``, the rows of a tile (tile mode), the register bucket
+    (narrow mode), the columns a lane owns (warp-rows mode), the rows of
+    a stage (cluster mode) or 0; ``grid``, the blocks of the (first)
+    launch; ``partials``, the gradient partials summed at the end (the
+    grid, the row groups of the two-pass mode's second pass, or the
+    clusters); ``cluster``, the blocks of a cluster (cluster mode, else
+    0); ``raw``, the ints as ``margin_plan`` filled them (its mode code
+    first), passed back at launch."""
 
     mode: str
     tile_rows: int
     grid: int
     partials: int
+    cluster: int
     raw: tuple
 
 
 def plan_for(lib, n: int, d: int, itemsize: int, sms: int) -> MarginPlan:
-    """``lib``'s plan for X (n, d) of ``itemsize``-byte elements on a
-    card of ``sms`` SMs; raises ``ValueError`` where it has none."""
-    plan = (ctypes.c_int * 4)()
+    """``lib``'s plan for X (n, d) of ``itemsize``-byte elements on the
+    current device, of ``sms`` SMs; raises ``ValueError`` where it has
+    none.  A source from before the cluster mode fills four of the five
+    ints and leaves ``cluster`` at 0."""
+    plan = (ctypes.c_int * 5)()
     if lib.margin_plan(n, d, itemsize, sms, plan) != 0:
         raise ValueError(f"fused_margin_loss_grad: no launch plan for X "
                          f"({n}, {d}) of {itemsize}-byte elements")
-    return MarginPlan(lib.margin_mode_name(plan[0]).decode(), *plan[1:],
+    return MarginPlan(lib.margin_mode_name(plan[0]).decode(), *plan[1:5],
                       tuple(plan))
 
 
 def launch_shape(X) -> MarginPlan:
-    """The kernel's :class:`MarginPlan` for the CUDA tensor ``X`` (N, D);
-    raises ``ValueError`` when the kernel cannot take it."""
+    """The kernel's :class:`MarginPlan` for the CUDA tensor ``X`` (N, D)
+    on its device; raises ``ValueError`` when the kernel cannot take
+    it."""
     n, d = X.shape
     check_width(d, X.dtype)
-    return plan_for(library()[0], n, d, X.element_size(),
-                    _device_sms(X.device.index))
+    return _device_plan(X.device.index, n, d, X.element_size())
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(index: int, n: int, d: int, itemsize: int) -> MarginPlan:
+    """The plan on CUDA device ``index``, worked out once a shape (the
+    cluster mode's asks the card which clusters it schedules)."""
+    with torch.cuda.device(index):
+        return plan_for(library()[0], n, d, itemsize, _device_sms(index))
 
 
 def margin_launch(lib, code: int, w, staged: StagedDense,
                   plan: MarginPlan):
     """Launch ``lib``'s ``margin_loss_grad`` with ``plan`` on the current
     stream for the loss ``code``; returns ``(loss, grad)``.  Raises if
-    the launch fails."""
+    the launch fails (a cluster launch that the card refuses too: no
+    other mode is launched in its place)."""
     rows = staged.X.shape[0] if plan.mode == "two_pass" else 0
     return _launch(lib, "margin_loss_grad", "margin", code, w, staged,
-                   [(ctypes.c_int * 4)(*plan.raw)],
+                   [(ctypes.c_int * len(plan.raw))(*plan.raw)],
                    (plan.grid, plan.partials), rows)
 
 
@@ -376,9 +409,10 @@ def _check_staged(staged: StagedDense, name: str):
 
 def fused_margin_loss_grad(gradient: MarginGradient, w, staged: StagedDense):
     """``(loss_sum, grad_sum)`` in f32 of a logistic, least-squares or
-    hinge loss, reading X once (twice past :func:`max_width` columns).
-    CPU operands take the plain version; CUDA operands launch the kernel
-    on the current stream or raise.
+    hinge loss, reading X once (past :func:`max_width` columns across a
+    thread block cluster, twice past :func:`cluster_max_width`).  CPU
+    operands take the plain version; CUDA operands launch the kernel on
+    the current stream or raise.
 
     Replaces ``spark_agd_tpu/ops/pallas_kernels.py:fused_margin_loss_grad``;
     on the H100 it is bound by reading X at device-memory bandwidth."""

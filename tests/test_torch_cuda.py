@@ -71,10 +71,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 # the narrow mode's register-bucket edges, the warp-rows mode's column
 # buckets and its hand-over to the tile ("hand", resolved on the card), a
-# tile width, the widest X read once ("max"), one column past it (the
-# two-pass mode) and a gene-expression-like width
+# tile width, the tile's widest X ("max"), one column past it (the cluster
+# mode), a gene-expression-like width, the cluster mode's widest X
+# ("cmax") and one column past it (the two-pass mode)
 WIDTHS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 127, 129, "hand-1",
-          "hand", "hand+1", 1000, "max", "max+1", 40_000]
+          "hand", "hand+1", 1000, "max", "max+1", 40_000, "cmax", "cmax+1"]
 
 
 def _warp_rows(d, dtype, hand):
@@ -84,9 +85,10 @@ def _warp_rows(d, dtype, hand):
                                or d <= 128)
 
 
-def _expected_mode(d, dtype, hand, limit):
+def _expected_mode(d, dtype, hand, limit, cmax):
     return ("narrow" if d <= 32 else "warp_rows" if _warp_rows(d, dtype, hand)
-            else "tile" if d <= limit else "two_pass")
+            else "tile" if d <= limit else "cluster" if d <= cmax
+            else "two_pass")
 
 
 @pytest.mark.cuda
@@ -96,14 +98,17 @@ def _expected_mode(d, dtype, hand, limit):
 def test_width_rule_and_tile_budget(cuda, width, dtype):
     """Every width launches the kernel: the narrow mode up to 32 columns,
     the one-pass tile up to ``max_width`` (its one-row tile fits shared
-    memory there), the two-pass mode past it.  Each call agrees with the
-    plain version, repeats give the same bits, and each launch counts
-    once, under the mode that ``launch_shape`` reports."""
+    memory there), the cluster mode past it up to ``cluster_max_width``
+    (at least 40,000 columns), the two-pass mode past that.  Each call
+    agrees with the plain version, repeats give the same bits, and each
+    launch counts once, under the mode that ``launch_shape`` reports."""
     limit = fk.max_width(dtype)
     hand = fk.warp_rows_max_width()
-    assert 32 < hand < 1000 < limit
+    cmax = fk.cluster_max_width(dtype)
+    assert 32 < hand < 1000 < limit < 40_000 <= cmax
     d = {"max": limit, "max+1": limit + 1, "hand-1": hand - 1, "hand": hand,
-         "hand+1": hand + 1}.get(width, width)
+         "hand+1": hand + 1, "cmax": cmax, "cmax+1": cmax + 1}.get(width,
+                                                                  width)
     n = 4_099 if d <= 1000 else 300
     gen = torch.Generator(device=cuda)
     gen.manual_seed(2)
@@ -113,8 +118,9 @@ def test_width_rule_and_tile_budget(cuda, width, dtype):
     w = torch.randn(d, generator=gen, device=cuda) / d ** 0.5
     staged = fk.FusedLogisticGradient().prepare(X, y, m)[0]
     plan = fk.launch_shape(staged.X)
-    assert plan.mode == _expected_mode(d, dtype, hand, limit)
+    assert plan.mode == _expected_mode(d, dtype, hand, limit, cmax)
     assert fk.warp_rows_takes(d, dtype) == (plan.mode == "warp_rows")
+    assert (plan.cluster > 1) == (plan.mode == "cluster")
     if plan.mode == "tile":
         # whole warps per tile, except the few rows of the widest X
         assert plan.tile_rows % 8 == 0 or (d > 1000 and plan.tile_rows < 8)
@@ -161,7 +167,8 @@ def test_warp_rows_mode_edges(cuda, dtype):
                 staged = fk.stage_dense(X, y, mask)
                 plan = fk.launch_shape(staged.X)
                 assert plan.mode == _expected_mode(
-                    d, dtype, hand, fk.max_width(dtype)), (d, plan)
+                    d, dtype, hand, fk.max_width(dtype),
+                    fk.cluster_max_width(dtype)), (d, plan)
                 loss, grad = fk.fused_margin_loss_grad(inner, w, staged)
                 loss2, grad2 = fk.fused_margin_loss_grad(inner, w, staged)
                 torch.cuda.synchronize()
@@ -175,26 +182,119 @@ def test_warp_rows_mode_edges(cuda, dtype):
                     atol=1e-4 * float(ref_grad.abs().max()))
 
 
-@pytest.mark.cuda
-def test_wide_fused_fit_on_the_card_matches_the_plain_fit(cuda):
-    """2,000 x 25,000 f32, past the one-pass tile: the two-pass mode
-    carries the fit, one launch per evaluation."""
-    rng = np.random.default_rng(12)
-    n, d = 2_000, 25_000
+def _wide_fit(n, d, seed, mode):
+    """An 8-iteration logistic AGD fit of n x d f32 X through the kernel,
+    every launch in ``mode``, against the plain fit."""
+    rng = np.random.default_rng(seed)
     X = rng.standard_normal((n, d)).astype(np.float32)
     y = (rng.random(n) < 1 / (1 + np.exp(-X[:, 0] + X[:, 1]))) \
         .astype(np.float32)
     w0 = np.zeros(d, np.float32)
     kw = dict(reg_param=0.1, num_iterations=8, convergence_tol=0.0,
               initial_weights=w0)
-    before = fk.margin_mode_launches["two_pass"]
+    before = fk.launch_count
+    before_mode = fk.margin_mode_launches[mode]
     w, hist = port.run((X, y), port.FusedLogisticGradient(),
                        port.SquaredL2Updater(), **kw)
     assert w.device.type == "cuda"
-    assert fk.margin_mode_launches["two_pass"] > before
+    launched = fk.launch_count - before
+    assert launched > 0
+    assert fk.margin_mode_launches[mode] - before_mode == launched
     _, hist_plain = port.run((X, y), port.LogisticGradient(),
                              port.SquaredL2Updater(), **kw)
     np.testing.assert_allclose(hist, hist_plain, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wide_fused_fit_on_the_card_matches_the_plain_fit(cuda):
+    """2,000 x 25,000 f32, past the one-pass tile: the cluster mode
+    carries the fit, one launch per evaluation."""
+    _wide_fit(2_000, 25_000, 12, "cluster")
+
+
+@pytest.mark.cuda
+def test_fit_past_the_cluster_reach_runs_the_two_pass_mode(cuda):
+    """A few rows one column past the cluster mode's reach: the two-pass
+    mode carries the fit."""
+    _wide_fit(64, fk.cluster_max_width(torch.float32) + 1, 13, "two_pass")
+
+
+def _cluster_case(gen, cuda, n, d, dtype, offset):
+    """n x d X of ``dtype`` starting ``offset`` elements into its buffer
+    (an offset of 1 leaves no row slice 16-byte aligned), labels, a mask
+    and weights."""
+    buf = torch.randn(n * d + offset, generator=gen, device=cuda).to(dtype)
+    X = buf[offset:].view(n, d)
+    y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+    m = (torch.rand(n, generator=gen, device=cuda) < 0.7).float()
+    w = torch.randn(d, generator=gen, device=cuda) / d ** 0.5
+    return X, y, m, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cluster_mode_edges(cuda, dtype):
+    """The cluster mode at its edges: one column past the tile, widths
+    whose rows are 16-byte aligned (bulk copies) or not (odd widths, and
+    X one element into its buffer: cp.async copies), so that the last
+    block's slice is ragged, and the mode's widest X; no rows, rows of 1,
+    7 and not a multiple of a stage's rows times the clusters; masked and
+    unmasked; all three losses at one width.  Each call agrees with the
+    plain version and repeats give the same bits."""
+    limit = fk.max_width(dtype)
+    cmax = fk.cluster_max_width(dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(14)
+    cases = [(limit + 1, 0), (40_000, 0), (40_000, 1), (40_001, 0),
+             (65_537, 0), (cmax, 0)]
+    for d, offset in cases:
+        for n in (0, 1, 7, 1_003 if d < cmax else 97):
+            X, y, m, w = _cluster_case(gen, cuda, n, d, dtype, offset)
+            names = (["logistic", "least_squares", "hinge"]
+                     if d == 40_001 else ["logistic"])
+            for name, mask in [(nm, mk) for nm in names for mk in (None, m)]:
+                inner = losses.GRADIENTS[name]()
+                staged = fk.stage_dense(X, y, mask)
+                plan = fk.launch_shape(staged.X)
+                assert plan.mode == "cluster" and plan.cluster > 1, (d, plan)
+                assert plan.grid == plan.partials * plan.cluster
+                before = fk.margin_mode_launches["cluster"]
+                loss, grad = fk.fused_margin_loss_grad(inner, w, staged)
+                loss2, grad2 = fk.fused_margin_loss_grad(inner, w, staged)
+                torch.cuda.synchronize()
+                assert fk.margin_mode_launches["cluster"] == before + 2
+                assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+                ref_loss, ref_grad = fk.fused_margin_loss_grad_reference(
+                    inner, w, staged)
+                assert float(loss) == pytest.approx(float(ref_loss),
+                                                    rel=1e-5, abs=1e-30)
+                torch.testing.assert_close(
+                    grad, ref_grad, rtol=1e-4,
+                    atol=1e-4 * float(ref_grad.abs().max()))
+
+
+@pytest.mark.cuda
+def test_rejected_cluster_plan_raises_and_launches_nothing_else(cuda,
+                                                                monkeypatch):
+    """A cluster plan that fails the kernel's check of its arguments (a
+    grid that is not whole clusters) comes back as a CUDA error code: the
+    wrapper raises on it, counts nothing and launches no other mode in
+    its place, as it does for any code that the launch returns."""
+    d = 40_000
+    X = torch.randn((64, d), device=cuda)
+    staged = fk.stage_dense(X, torch.zeros(64, device=cuda))
+    plan = fk.launch_shape(X)
+    assert plan.mode == "cluster"
+    raw = list(plan.raw)
+    raw[2] += 1
+    monkeypatch.setattr(fk, "launch_shape", lambda X: plan._replace(
+        grid=raw[2], raw=tuple(raw)))
+    before = fk.launch_count, dict(fk.margin_mode_launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fk.fused_margin_loss_grad(losses.LogisticGradient(),
+                                  torch.zeros(d, device=cuda), staged)
+    assert (fk.launch_count, dict(fk.margin_mode_launches)) == before
 
 
 @pytest.mark.cuda
