@@ -20,8 +20,10 @@ Phases, each printing one JSON line:
    group), at D in {33, 54, 64, 65, 90} and the warp-rows hand-over and
    one column either side of it, and bf16 at 127 and 129 (its warp-rows
    mode, and the tile past it, at 100,003 rows, not a multiple of a
-   warp's rows), at D in {777, 1000} (its tile mode), at ``max_width``
-   and one column past it (the cluster mode), each call repeated to
+   warp's rows), at ``tile_max_width`` and one column past it (the tile's
+   hand-over to the stream mode), at D in {777, 1000} (the stream mode;
+   bf16 777 the tile), at ``max_width`` and one column past it (the
+   cluster mode), each call repeated to
    check that it is bit-identical, each line with the plan and its
    launches, each plan's mode held to the width rule; a
    ``widths_by_mode`` and a ``past_width_cluster`` line;
@@ -203,9 +205,13 @@ Phases, each printing one JSON line:
     launch of the lanes kernel a round, each lane held to its solo
     ``run_lbfgs`` through the margin kernel over their common path
     (``hold_lbfgs``); the path's wall time beside the 8 solo fits'.
+28. epsilon_path, after phase 25: 400,000 x 2,000 f32 class-logistic
+    data made on the card (LIBSVM's epsilon, the PASCAL Large Scale
+    Learning Challenge's dense set), read as phase 25 is, every launch
+    in the margin kernel's stream mode (the plan's for 2,000 columns).
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-27) and read just after it; the sparse paths launch neither kernel,
+22-28) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -228,13 +234,29 @@ flag), beside both modes' bounds; one ``ab`` line per seed.
 copies of ``csrc/margin_loss_grad.cu`` with its C interface (this one, or
 an earlier commit's with the four-int plan of the sources from before
 the cluster mode), at 10,000,000 rows of f32 X of width 1, 2, 3, 8, 16,
-32, 33, 40, 48, 54, 64, 90, 96, 127, 128, 129, 192, 255, 256, 257, 512
-and 1000, of bf16 X of width 33, 64, 65, 127, 128, 129, 192, 255, 256,
-257 and 384 (the warp-rows mode's widths and its hand-overs to the
-tile, at odd and even widths), and at 100,000 x 40,000 f32 and bf16: one
+32, 33, 40, 48, 54, 64, 90, 96, 127, 128, 129, 192, 255, 256, 257, 264,
+265, 272, 273, 288, 289, 320, 384, 448, 512 and 1000, of bf16 X of width
+33, 64, 65, 127, 128, 129, 192, 255, 256, 257, 384, 512, 768, 793, 794,
+800, 896 and 897 (the warp-rows mode's widths and its hand-overs, the
+tile's hand-over, at odd and even widths), the single-block range (f32 1,001
+and 1,024 at 10,000,000 rows and 2,000, 2,001, 3,072, 4,096, 5,000,
+8,191, 8,192, 12,288 and 16,384 at the rows that make f32 X about 8 GB;
+bf16 1,000 and 1,001 at 10,000,000 rows and 2,000, 2,001, 3,072, 4,096,
+8,192, 16,383 and 16,384 likewise), the cluster
+mode's two ends (the tile's widest before the stream mode, 19,364 f32
+and 23,238 bf16, this tree's ``max_width``, one column past each, at
+100,000 rows, and ``cluster_max_width``) and 100,000 x 40,000 f32 and
+bf16: one
 ``ab_margin`` line a shape, with each build's plan, ms by CUDA events
 and by the profiler, error from f64 sums and whether its bits equal the
 first build's, the bound and the two ``torch.matmul`` products' time.
+Past the warp-rows mode the first build that can force a mode
+(``margin_mode_plan``) also times the tile, the stream mode and the
+cluster mode at 2 and 4 blocks wherever they take the width
+(``NAME:tile``, ``NAME:cluster2``, ...).  Last, each build runs the
+flagship fit (10,000,000 x 1,000 f32, logistic AGD) at AB_FIT_ITERS
+iterations, in turns: one ``ab_margin_fit`` line with each build's wall
+seconds, iterations, evaluations and final loss.
 It fails if a build's result is further from the f64 sums than phase
 3's tolerance (loss rtol 1e-5, gradient 1e-4 of each entry plus 1e-4 of
 the largest).
@@ -304,6 +326,9 @@ WIDE = dict(n=100_000, d=40_000, seed=5, reg=0.1, iters=20)
 # collection) at the flagship's 10M rows, where the margin kernel runs its
 # warp-rows mode
 MID = dict(n=10_000_000, d=54, seed=7)
+# phase 28: LIBSVM's epsilon (PASCAL Large Scale Learning Challenge,
+# 400,000 x 2,000 dense), where the margin kernel runs its stream mode
+EPSILON = dict(n=400_000, d=2_000, seed=8)
 WIDE_CHECK = dict(rows=3_000, widths=(40_000, 200_000), past_rows=300)
 # the margin kernel's two-pass mode timed one column past the cluster
 # mode's reach, and the lanes kernel's one column past lanes_max_width
@@ -549,6 +574,8 @@ def phase_build(fk):
     out = {"phase": "build", "seconds": time.perf_counter() - t0}
     for name, b in built.items():
         out[name] = build_report(b)
+    out["tile_max_width"] = {"f32": fk.tile_max_width(torch.float32),
+                             "bf16": fk.tile_max_width(torch.bfloat16)}
     out["max_width"] = {"f32": fk.max_width(torch.float32),
                         "bf16": fk.max_width(torch.bfloat16)}
     out["lanes_max_width_k8"] = {"f32": fk.lanes_max_width(8, torch.float32),
@@ -566,7 +593,7 @@ def phase_build(fk):
 # rows, so that each thread walks several groups of rows (at 132 SMs a
 # thread's rows are 135,168 apart, 67,584 at D > 16, taken up to 4 at a
 # time) and a ragged last group; the warp-rows mode's column buckets and
-# unaligned rows (33, 54, 64, 65, 90), ragged and flagship tile widths at
+# unaligned rows (33, 54, 64, 65, 90), ragged and flagship widths at
 # KERNEL_ROWS (not a multiple of any warp's rows); the warp-rows hand-over
 # and one column either side there, and bf16's odd-width edge; then, per
 # dtype, the widest X read once and one column past it (two-pass) at
@@ -626,6 +653,10 @@ def phase_kernel(fk, losses):
     hand = fk.warp_rows_max_width()
     shapes += [(KERNEL_ROWS, hand + e, both) for e in (-1, 0, 1)]
     shapes += [(KERNEL_ROWS, d, (torch.bfloat16,)) for d in KERNEL_BF16_ODD]
+    # the tile's hand-over to the stream mode and one column past it
+    for xt in both:
+        shapes += [(KERNEL_ROWS, fk.tile_max_width(xt) + e, (xt,))
+                   for e in (0, 1)]
     for xt, n in KERNEL_WIDE_ROWS.items():
         limit = fk.max_width(xt)
         shapes += [(n, limit, (xt,)), (n, limit + 1, (xt,))]
@@ -639,7 +670,8 @@ def phase_kernel(fk, losses):
             want = ("narrow" if d <= 32 else "warp_rows"
                     if d <= hand and (xt == torch.float32 or d % 2 == 0
                                       or d <= 128)
-                    else "tile" if d <= limit
+                    else "tile" if d <= fk.tile_max_width(xt)
+                    else "stream" if d <= limit
                     else "cluster" if d <= fk.cluster_max_width(xt)
                     else "two_pass")
             if (want == "warp_rows") != fk.warp_rows_takes(d, xt):
@@ -656,7 +688,8 @@ def phase_kernel(fk, losses):
     emit({"phase": "kernel", "widths_by_mode": {
         m: sorted(ws) for m, ws in modes.items()},
         "warp_rows_max_width": hand})
-    # one column past the tile's widest X: read once across a cluster
+    # one column past the widest X one block takes: read once across a
+    # cluster
     if sorted(past) != ["bfloat16", "float32"] or any(
             r["plan"]["mode"] != "cluster" for r in past.values()):
         raise AssertionError(f"one column past max_width did not run "
@@ -926,7 +959,7 @@ def margin_path(port, fk, losses, device_synth, after):
     del X, y
     return {"name": "margin_loss_grad", "route": "cuda",
             "source": "spark_agd_tpu_torch/csrc/margin_loss_grad.cu",
-            "replaces": "spark_agd_tpu/ops/pallas_kernels.py:182",
+            "replaces": "spark_agd_tpu/ops/pallas_kernels.py:184",
             "counterpart": "spark_agd_tpu/ops/pallas_kernels.py:"
                            "fused_margin_loss_grad",
             "launches": launches, "max_abs_err": max_abs_err,
@@ -1099,7 +1132,7 @@ def softmax_path(port, fk, device_synth, after):
     after(Xa, y)
     return {"name": "softmax_loss_grad", "route": "cuda",
             "source": "spark_agd_tpu_torch/csrc/softmax_loss_grad.cu",
-            "replaces": "spark_agd_tpu/ops/pallas_kernels.py:406",
+            "replaces": "spark_agd_tpu/ops/pallas_kernels.py:409",
             "counterpart": "spark_agd_tpu/ops/pallas_kernels.py:"
                            "fused_softmax_loss_grad",
             "launches": launches, "softmax_path_modes": path_modes,
@@ -2076,19 +2109,36 @@ def gd_gate(port, fk, smi, launches):
 
 
 def mid_path(port, fk, losses, device_synth, smi, launches):
-    """Phase 25: a dense X of covtype.binary's width (MID: 10M x 54 f32,
-    class-logistic data made on the card), where the margin kernel runs
-    its warp-rows mode: the flagship's AGD fit (reg 0.1, 40 iterations,
-    tol 0) through ``run`` with ``FusedLogisticGradient``, every launch
-    in that mode, held to the plain fit over their common iterations; the
-    kernel at the fitted weights held to f64 sums (phase 3's tolerance)
-    and timed beside its bound, its plain version and the two
-    ``torch.matmul`` products, which it must beat.  Returns the mode's
-    numbers for the kernels line."""
+    """Phase 25: a dense X of covtype.binary's width (MID: 10M x 54 f32),
+    where the margin kernel runs its warp-rows mode (``dense_fit_path``).
+    Returns the mode's numbers for the kernels line."""
+    return dense_fit_path(port, fk, losses, device_synth, smi, launches,
+                          "mid_path", MID, "warp_rows")
+
+
+def epsilon_path(port, fk, losses, device_synth, smi, launches):
+    """Phase 28: a dense X of LIBSVM epsilon's shape (EPSILON: 400,000 x
+    2,000 f32), where the margin kernel runs its stream mode
+    (``dense_fit_path``).  Returns the mode's numbers for the kernels
+    line."""
+    return dense_fit_path(port, fk, losses, device_synth, smi, launches,
+                          "epsilon_path", EPSILON, "stream")
+
+
+def dense_fit_path(port, fk, losses, device_synth, smi, launches, path,
+                   cfg, want):
+    """A dense fit phase: class-logistic data of ``cfg``'s shape made on
+    the card (its seed), the flagship's AGD fit (reg 0.1, 40 iterations,
+    tol 0) through ``run`` with ``FusedLogisticGradient``, every launch in
+    the margin kernel's mode ``want`` (the plan's for this width), held
+    to the plain fit over their common iterations; the kernel at the
+    fitted weights held to f64 sums (phase 3's tolerance) and timed
+    beside its bound, its plain version and the two ``torch.matmul``
+    products, which it must beat.  Returns the mode's numbers."""
     t_phase = time.perf_counter()
-    n, d = MID["n"], MID["d"]
+    n, d = cfg["n"], cfg["d"]
     (X, y), gen_s = timed(lambda: device_synth.class_logistic(
-        n, d, seed=MID["seed"]))
+        n, d, seed=cfg["seed"]))
     w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
     kw = dict(reg_param=REG, num_iterations=ITERS, convergence_tol=TOL,
               initial_weights=w0, return_result=True)
@@ -2096,7 +2146,7 @@ def mid_path(port, fk, losses, device_synth, smi, launches):
     fk.reset_launch_counts()
     (w_run, hist, res), run_s = timed(lambda: port.run(
         (X, y), fused, port.SquaredL2Updater(), **kw))
-    record_margin_path(fk, launches, "mid_path")
+    record_margin_path(fk, launches, path)
     other = fk.lanes_launch_count + fk.softmax_launch_count
     (_, hist_plain, res_plain), plain_s = timed(lambda: port.run(
         (X, y), port.LogisticGradient(), port.SquaredL2Updater(), **kw))
@@ -2107,7 +2157,7 @@ def mid_path(port, fk, losses, device_synth, smi, launches):
     staged = fk.stage_dense(X, y)
     loss, grad = fk.fused_margin_loss_grad(gradient, w_run, staged)
     loss_err, max_abs_err = hold(loss, grad, *margin_f64(w_run, staged),
-                                 "mid_path shape: kernel vs f64 sums")
+                                 f"{path} shape: kernel vs f64 sums")
     plan = fk.launch_shape(X)
     state_before = card_state()
     kernel_ms = time_ms(lambda: fk.fused_margin_loss_grad(gradient, w_run,
@@ -2123,10 +2173,11 @@ def mid_path(port, fk, losses, device_synth, smi, launches):
     (b_ms, bound_by), _ = margin_bounds(n, d, 4)
     del staged, mult
     checks = {
-        "every_launch_warp_rows": launches["modes"]["mid_path"]
-        == {"warp_rows": launches["mid_path"]},
+        f"every_launch_{want}": launches["modes"][path]
+        == {want: launches[path]},
+        "plan_mode": plan.mode == want,
         "launches_equal_evaluations":
-            launches["mid_path"] == fused.evaluations > 0,
+            launches[path] == fused.evaluations > 0,
         "no_other_kernel": other == 0,
         "same_stop_or_both_at_floor": same_stop(res, res_plain, hist,
                                                 hist_plain),
@@ -2141,12 +2192,12 @@ def mid_path(port, fk, losses, device_synth, smi, launches):
     with torch.no_grad():
         acc = float(((X @ w_run > 0).float() == y).float().mean())
     checks["accuracy_above_0.8"] = acc > 0.8
-    finish("mid_path", {
+    finish(path, {
         "shape": [n, d], "x_gb": X.numel() * 4 / 1e9, "generate_s": gen_s,
         "run_s": run_s, "plain_run_s": plain_s, "num_iters": n_iters,
         "num_iters_plain": n_plain, "num_backtracks": int(res.num_backtracks),
-        "launches": launches["mid_path"],
-        "modes": launches["modes"]["mid_path"],
+        "launches": launches[path],
+        "modes": launches["modes"][path],
         "smooth_evaluations": fused.evaluations,
         "loss_first": float(hist[0]), "loss_last": float(hist[-1]),
         "loss_last_plain": float(hist_plain[-1]),
@@ -2158,7 +2209,7 @@ def mid_path(port, fk, losses, device_synth, smi, launches):
         "plain_ms": plain_ms, "two_matmuls_ms": two_mm_ms,
         "two_matmuls_device_ms": two_mm_device_ms, "bound_ms": b_ms,
         "bound_by": bound_by,
-        "kernel_share_of_run_wall": launches["mid_path"] * kernel_ms
+        "kernel_share_of_run_wall": launches[path] * kernel_ms
         / (run_s * 1e3),
         "shape_loss_rel_err_vs_f64": loss_err,
         "shape_grad_max_abs_err_vs_f64": max_abs_err,
@@ -2757,28 +2808,58 @@ def softmax_ab(port, fk, device_synth, specs, seeds):
 
 
 # --ab margin: the widths swept at AB_ROWS rows in f32 (and in bf16 at
-# the warp-rows mode's hand-over to the tile), one past a row in shared
-# memory at fewer rows, and the cluster mode's two ends, f32 and bf16:
-# the tile's widest and one column past it (the smallest clusters) at
-# AB_TILE_END_ROWS, and the reach (the largest, a row a stage) at
-# AB_REACH_ROWS, rows enough for every resident cluster to take many
-# stages
+# the warp-rows mode's hand-over), the single-block range past it
+# (AB_RANGE_*: at AB_ROWS rows up to AB_RANGE_ROWS_UP_TO columns, else at
+# the rows that make f32 X about AB_RANGE_X_BYTES, so that every SM walks
+# many stages; 400,000 x 2,000 is LIBSVM's epsilon), one past a row in
+# shared memory at fewer rows, and the cluster mode's two ends, f32 and
+# bf16: the tile's widest before the stream mode (AB_RANGE_END) and this
+# tree's max_width, each with one column past it, at AB_TILE_END_ROWS,
+# and the reach (the largest, a row a stage) at AB_REACH_ROWS, rows
+# enough for every resident cluster to take many stages.  Past the
+# warp-rows mode the first build that can force a mode (margin_mode_plan)
+# also runs the modes of AB_FORCED that take the width (the number: a
+# cluster's blocks).  The f32 widths 257-289 and bf16 768-800 bracket
+# the tile-to-stream hand-over (tile_max_width: 264|265 and 794|795); the
+# odd widths (257, 265, 273, 289, 793, 897, 1,001, 2,001, 8,191, 16,383)
+# have rows that are not 16-byte aligned.
 AB_ROWS = 10_000_000
 AB_WIDTHS = (1, 2, 3, 8, 16, 32, 33, 40, 48, 54, 64, 90, 96, 127, 128, 129,
-             192, 255, 256, 257, 512, 1000)
-AB_BF16_WIDTHS = (33, 64, 65, 127, 128, 129, 192, 255, 256, 257, 384)
+             192, 255, 256, 257, 264, 265, 272, 273, 288, 289, 320, 384, 448,
+             512, 1000)
+AB_BF16_WIDTHS = (33, 64, 65, 127, 128, 129, 192, 255, 256, 257, 384, 512,
+                  768, 793, 794, 800, 896, 897)
+AB_RANGE_F32 = (1_001, 1_024, 2_000, 2_001, 3_072, 4_096, 5_000, 8_191,
+                8_192, 12_288, 16_384)
+AB_RANGE_BF16 = (1_000, 1_001, 2_000, 2_001, 3_072, 4_096, 8_192, 16_383,
+                 16_384)
+AB_RANGE_ROWS_UP_TO, AB_RANGE_X_BYTES = 1_024, 8_000_000_000
+AB_RANGE_END = {torch.float32: 19_364, torch.bfloat16: 23_238}
 AB_WIDE = ((100_000, 40_000, torch.float32), (100_000, 40_000,
                                                torch.bfloat16))
 AB_TILE_END_ROWS, AB_REACH_ROWS = 100_000, 20_000
+AB_FORCED = (("tile", 0), ("stream", 0), ("cluster", 2), ("cluster", 4))
+# the flagship fit of --ab margin: at a fixed count of iterations, so that
+# each build's fit takes as many steps (the fit stops early at the f32
+# loss floor, which summation order decides: 30 or 40 iterations)
+AB_FIT_ITERS = 30
+
+
+def ab_range_rows(d):
+    """The rows of the single-block range's shapes at width d."""
+    return (AB_ROWS if d <= AB_RANGE_ROWS_UP_TO
+            else AB_RANGE_X_BYTES // (4 * d))
 
 
 def margin_build(fk, source):
     """A build of the margin kernel from ``source``, a copy of
     ``csrc/margin_loss_grad.cu`` with its C interface (a source from
     before the cluster mode fills four ints of the plan).  Returns
-    ``(BuiltLibrary, plan, launch)`` with ``plan(n, d, itemsize, sms)`` a
-    ``MarginPlan`` and ``launch(code, w, staged, plan)`` -> ``(loss,
-    grad)``."""
+    ``(BuiltLibrary, plan, launch, forced)`` with ``plan(n, d, itemsize,
+    sms)`` a ``MarginPlan``, ``launch(code, w, staged, plan)`` -> ``(loss,
+    grad)`` and ``forced(n, d, itemsize, sms, mode, cluster)`` the plan of
+    that mode (``margin_mode_plan``), or None where the source has no such
+    function or the mode does not take the width."""
     import ctypes
 
     lib, built = fk._load("margin_loss_grad", "margin", fk._PLAN_ARGTYPES,
@@ -2796,7 +2877,23 @@ def margin_build(fk, source):
     def launch(code, w, staged, p):
         return fk.margin_launch(lib, code, w, staged, p)
 
-    return built, plan, launch
+    if hasattr(lib, "margin_mode_plan"):
+        lib.margin_mode_plan.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.margin_mode_plan.restype = ctypes.c_int
+
+    def forced(n, d, itemsize, sms, mode, cluster):
+        if not hasattr(lib, "margin_mode_plan"):
+            return None
+        with torch.cuda.device(0):
+            try:
+                return fk.mode_plan_for(lib, n, d, itemsize, sms, mode,
+                                        cluster)
+            except ValueError:
+                return None
+
+    return built, plan, launch, forced
 
 
 def margin_lanes_f64(W, staged, chunk_bytes=1 << 31):
@@ -2880,22 +2977,31 @@ def in_turns(names, builds, out, call_of, exact, what):
     return failed
 
 
-def margin_ab(fk, specs):
+def margin_ab(port, fk, device_synth, specs):
     """``--ab margin:NAME=SOURCE ...``: builds of the margin kernel timed
     in turns (A, B, ..., then back) at each of AB_WIDTHS x AB_ROWS f32,
-    AB_BF16_WIDTHS x AB_ROWS bf16, AB_WIDE and the cluster mode's ends
-    (this tree's ``max_width``, one past it and ``cluster_max_width``),
+    AB_BF16_WIDTHS x AB_ROWS bf16, the single-block range (AB_RANGE_*),
+    AB_WIDE and the cluster mode's ends (the tile's widest before the
+    stream mode and this tree's ``max_width``, one past each, and
+    ``cluster_max_width``),
     logistic, each held to f64 sums, with the two ``torch.matmul``
-    products beside them; one ``ab_margin`` line a shape."""
+    products beside them; past the warp-rows mode also the forced modes
+    of AB_FORCED through the first build that can force them
+    (``NAME:MODE`` and a cluster's blocks); one ``ab_margin`` line a
+    shape, then ``margin_fit_ab``'s ``ab_margin_fit`` line."""
     names, builds = ab_builds(specs, lambda src: margin_build(fk, src))
     dev = torch.device("cuda")
     sms = fk._device_sms(0)
     failed = []
     shapes = ([(AB_ROWS, d, torch.float32) for d in AB_WIDTHS]
               + [(AB_ROWS, d, torch.bfloat16) for d in AB_BF16_WIDTHS]
+              + [(ab_range_rows(d), d, torch.float32) for d in AB_RANGE_F32]
+              + [(ab_range_rows(d), d, torch.bfloat16)
+                 for d in AB_RANGE_BF16]
               + list(AB_WIDE))
     for xt in (torch.float32, torch.bfloat16):
-        shapes += [(AB_TILE_END_ROWS, fk.max_width(xt) + e, xt)
+        shapes += [(AB_TILE_END_ROWS, w + e, xt)
+                   for w in sorted({AB_RANGE_END[xt], fk.max_width(xt)})
                    for e in (0, 1)]
         shapes.append((AB_REACH_ROWS, fk.cluster_max_width(xt), xt))
     for n, d, xt in shapes:
@@ -2914,13 +3020,28 @@ def margin_ab(fk, specs):
                "bound_by": bound_by, "two_pass_bound_ms": b2_ms,
                "grad_abs_max": float(exact[1].abs().max()),
                "card_before": card_state()}
+        # each build's own plan, then the forced modes that the first
+        # build able to force them runs here
+        entries = [(name, b, b[1](n, d, itemsize, sms))
+                   for name, b in zip(names, builds)]
+        for name, b, own in list(entries):
+            if fk.warp_rows_takes(d, xt) or d <= 32:
+                break
+            forced = [(f"{name}:{mode}{c or ''}", b, p)
+                      for mode, c in AB_FORCED
+                      if (p := b[3](n, d, itemsize, sms, mode, c))
+                      is not None and p.raw != own.raw]
+            if forced:
+                entries += forced
+                break
+        by_name = {name: (b, p) for name, b, p in entries}
 
-        def call_of(b):
-            _, plan, launch = b
-            p = plan(n, d, itemsize, sms)
+        def call_of(name):
+            (_, _, launch, _), p = by_name[name]
             return (lambda: launch(0, w, staged, p)), p[:5]
 
-        failed += in_turns(names, builds, out, call_of, exact, f"{n}x{d}")
+        failed += in_turns(list(by_name), list(by_name), out, call_of,
+                           exact, f"{n}x{d}")
         wx = w.to(xt)
         out["two_matmuls_ms"] = time_ms(lambda: (X @ wx, mult @ X))
         out["two_matmuls_device_ms"] = two_matmuls_device_ms(X, wx, mult)
@@ -2928,8 +3049,76 @@ def margin_ab(fk, specs):
         emit(out)
         del X, y, staged, mult, exact
         torch.cuda.empty_cache()
+    failed += margin_fit_ab(port, device_synth, names, builds, sms)
     if failed:
         raise AssertionError("; ".join(failed))
+
+
+def build_gradient(port, launch, plan):
+    """A ``FusedLogisticGradient`` that launches a build's kernel
+    (``launch`` of ``margin_build``) with ``plan``, counting its
+    evaluations."""
+
+    class BuildGradient(port.FusedLogisticGradient):
+        evaluations = 0
+
+        def batch_loss_and_grad(self, weights, X, y, mask=None):
+            self.evaluations += 1
+            loss, grad = launch(0, weights.float().contiguous(), X, plan)
+            return (loss.to(weights.dtype), grad.to(weights.dtype),
+                    X.n_valid)
+
+    return BuildGradient()
+
+
+def margin_fit_ab(port, device_synth, names, builds, sms):
+    """The flagship fit (N_MAIN x D_MAIN f32 class-logistic data made on
+    the card, seed 0; AGD with SquaredL2Updater at REG, tol 0) at
+    AB_FIT_ITERS iterations through each build's kernel at its own plan,
+    in turns (A, B, ..., then back); emits one ``ab_margin_fit`` line
+    with each build's plan, wall seconds, iterations, evaluations, final
+    loss and whether its weights equal the first build's.  Returns the
+    failed holds: a fit whose loss history is further than rtol 1e-4 from
+    the first build's."""
+    X, y = device_synth.class_logistic(N_MAIN, D_MAIN, seed=0)
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    out = {"phase": "ab_margin_fit", "shape": [N_MAIN, D_MAIN],
+           "num_iterations": AB_FIT_ITERS, "card_before": card_state()}
+    failed, first = [], None
+    for name, (_, plan, launch, _) in zip(names + names[::-1],
+                                          builds + builds[::-1]):
+        p = plan(N_MAIN, D_MAIN, 4, sms)
+        gradient = build_gradient(port, launch, p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, hist, res = port.run(
+            (X, y), gradient, port.SquaredL2Updater(), reg_param=REG,
+            num_iterations=AB_FIT_ITERS, convergence_tol=TOL,
+            initial_weights=w0, return_result=True)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        r = out.setdefault(name, {"plan": list(p[:5]), "run_s": [],
+                                  "num_iters": [], "evaluations": []})
+        r["run_s"].append(run_s)
+        r["num_iters"].append(int(res.num_iters))
+        r["evaluations"].append(gradient.evaluations)
+        r["loss_last"] = float(hist[-1])
+        if first is None:
+            first = name, w, hist
+        n_common = min(len(hist), len(first[2]))
+        r[f"weights_equal_{first[0]}"] = bool(torch.equal(w, first[1]))
+        r[f"max_hist_rel_diff_vs_{first[0]}"] = float(np.max(
+            np.abs(hist[:n_common] - first[2][:n_common])
+            / np.abs(first[2][:n_common])))
+        if not np.allclose(hist[:n_common], first[2][:n_common], rtol=1e-4,
+                           atol=0.0):
+            failed.append(f"{name}'s fit: loss history further than rtol "
+                          f"1e-4 from {first[0]}'s")
+    out["card_after"] = card_state()
+    emit(out)
+    del X, y
+    torch.cuda.empty_cache()
+    return failed
 
 
 # --ab lanes: the lane counts and widths timed at LANES_AB_ROWS rows of
@@ -3514,7 +3703,7 @@ def main(argv):
         if kind == "mma":
             mma_ab(specs)
         elif kind == "margin":
-            margin_ab(fk, specs)
+            margin_ab(port, fk, device_synth, specs)
         elif kind == "lanes":
             lanes_ab(fk, specs)
         else:
@@ -3578,6 +3767,9 @@ def main(argv):
     torch.cuda.empty_cache()
     mid = mid_path(port, fk, losses, device_synth, smi, launches)
     torch.cuda.empty_cache()
+    # 28. LIBSVM epsilon's shape: the stream mode
+    epsilon = epsilon_path(port, fk, losses, device_synth, smi, launches)
+    torch.cuda.empty_cache()
     linreg_path(port, fk, device_synth, glm, smi, launches)
     torch.cuda.empty_cache()
     mlp_path(port, device_synth, smi, fk)
@@ -3594,19 +3786,24 @@ def main(argv):
     wide_softmax = softmax_wide(port, fk, device_synth, glm, smi, launches)
 
     # 20. the kernels line, the card, the result
-    paths = ("lbfgs_path", "gd_gate", "mid_path", "linreg_path",
-             "wide_path")
+    paths = ("lbfgs_path", "gd_gate", "mid_path", "epsilon_path",
+             "linreg_path", "wide_path")
     margin["launches_by_path"] = {"main_path": margin["launches"],
                                   **{p: launches[p] for p in paths}}
     margin["modes_by_path"] = {"main_path": margin.pop("main_path_modes"),
                                **{p: launches["modes"][p] for p in paths}}
+    # each mode's numbers at a shape of a path that runs it: the stream
+    # mode's at the main path's shape and at epsilon's
+    if set(margin["modes_by_path"]["main_path"]) != {"stream"}:
+        raise AssertionError("the main path ran the margin kernel in "
+                             f"{margin['modes_by_path']['main_path']}, "
+                             "not only in the stream mode")
     margin["by_mode"] = {
-        "tile": {k: margin[k] for k in ("ms", "device_ms", "plain_ms",
-                                        "bound_ms", "two_matmuls_ms",
-                                        "two_matmuls_device_ms")}
-        | {"shape": [N_MAIN, D_MAIN]},
-        "narrow": narrow, "warp_rows": mid, "cluster": wide,
-        "two_pass": wide_two_pass}
+        "stream": {k: margin[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "two_matmuls_ms",
+            "two_matmuls_device_ms")} | {"shape": [N_MAIN, D_MAIN]},
+        "stream_epsilon": epsilon, "narrow": narrow, "warp_rows": mid,
+        "cluster": wide, "two_pass": wide_two_pass}
     softmax_paths = ("softmax_lbfgs_path", "softmax_sweep", "softmax_wide")
     softmax["launches_by_path"] = {"softmax_path": softmax["launches"],
                                    **{p: launches[p] for p in softmax_paths}}

@@ -15,7 +15,7 @@
 // f32, far below the ~20 flop/byte where the H100's f32 rate would take
 // over.  Two library products (X @ w, then X^T @ mult) read X twice.
 //
-// margin_plan picks one of five modes by width; all of them write
+// margin_plan picks one of six modes by width; all of them write
 // per-block (cluster mode: per-cluster) partials that reduce_partials (or
 // reduce_partials_warp) sums in a fixed order, with no float atomics, so
 // two calls on the same inputs give the same bits.  X may be f32 or bf16
@@ -42,13 +42,20 @@
 // multiplier comes back by one shuffle.  The block reduces its registers
 // once at the end.
 //
-// Tile mode (past the hand-over, up to margin_max_width): every block
-// walks a contiguous range of rows in tiles of `tile_rows` full rows (a
-// contiguous chunk of X, copied with 16-byte loads).  One warp per row
-// forms the dot with a shuffle reduction and applies the loss middle in
-// f32; then every thread sums mult * x over the tile for the columns it
-// owns, reading the tile again from shared memory, never from device
-// memory.  X crosses the memory bus once per evaluation.
+// Tile mode (past the hand-over up to margin_tile_max_width, 264 f32 or
+// 794 bf16 columns, and bf16 of odd width from 129, where the card timed
+// it faster than the stream mode):
+// every block walks a contiguous range of rows in tiles of `tile_rows`
+// full rows (a contiguous chunk of X, copied with 16-byte loads).  One
+// warp per row forms the dot with a shuffle reduction and applies the
+// loss middle in f32; then every thread sums mult * x over the tile for
+// the columns it owns, reading the tile again from shared memory, never
+// from device memory.  X crosses the memory bus once per evaluation.
+//
+// Stream mode (past the tile, up to margin_max_width: 8,192 f32 or
+// 16,384 bf16 columns): one 512-thread block an SM, w and the gradient
+// sums in registers, rows streamed through a ring of shared-memory
+// stages filled by bulk copies on mbarriers (details at margin_stream).
 //
 // Narrow mode (D <= kNarrowMaxWidth): a tile of a few hundred bytes
 // between barriers leaves the card idle, so each thread owns whole rows
@@ -59,10 +66,10 @@
 // warps in a fixed order), and a warp per column sums the blocks'
 // partials.
 //
-// Cluster mode (past margin_max_width, where not one row fits a block's
-// tile, up to margin_cluster_max_width): the TPU kernel reads X once at
-// far wider rows, since its VMEM holds two 8-row blocks of a full-width
-// row; one SM's shared memory does not.  A thread block cluster of 2-16
+// Cluster mode (past margin_max_width, up to margin_cluster_max_width):
+// the TPU kernel reads X once at far wider rows, since its VMEM holds two
+// 8-row blocks of a full-width row; one SM's shared memory does not (nor
+// do one block's registers).  A thread block cluster of 2-16
 // blocks on as many SMs holds a stage of full-width rows split by
 // columns, each block w's slice, its rows' slices and its slice of the
 // gradient; the blocks swap their partial dots through distributed
@@ -805,9 +812,11 @@ __device__ __forceinline__ void send_peer(float* p, float v, uint64_t* bar,
       : "memory");
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
+// Initialise the mbarrier `bar` for `count` arrivals a phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
                : "memory");
 }
 
@@ -1017,6 +1026,296 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   }
 }
 
+// Stream mode: the single-block counterpart of the cluster mode, past
+// the tile's few hundred columns up to stream_max_width (8,192 f32 or
+// 16,384 bf16 columns; single_block_mode).  What held these widths back
+// in the tile: w and the gradient sums in shared memory beside the tile, a
+// tile copied synchronously between three barriers, one warp a row for
+// the dots, and past about 1,900 f32 columns one block an SM, so nothing
+// in flight while it computed.  Here each of kStreamThreads threads owns
+// the columns tid + kStreamThreads j (j < J, J the register bucket) with
+// w and the gradient sums in registers for the block's whole row range,
+// and rows stream through a ring of `stages` stages of R =
+// stream_rows(J, itemsize) contiguous rows (one cp.async.bulk a stage
+// of the 16-byte chunks that cover its rows, completing on the stage's
+// mbarrier, whatever the rows' alignment: issue_stage).
+// Every warp works on every row of a stage: each thread's partial dots
+// of the R rows, reduced across the warp and scattered so that lane l
+// holds row l / (32 / R)'s (reduce_scatter); after a barrier thread r
+// adds the warps' partials of row r in warp order and applies the loss
+// middle; after a second, every thread adds mult * x into its registers.
+// Two barriers a stage and none a row; a stage's buffer is refilled once
+// every thread has passed the next stage's first barrier.  The blocks'
+// partials go through reduce_partials in block order.
+constexpr int kStreamThreads = kClusterThreads;
+constexpr int kStreamWarps = kStreamThreads / 32;
+constexpr int kStreamMaxCols = 32;
+// Bytes of X a stage holds at most.
+constexpr int64_t kStreamStageBytes = 64 * 1024;
+// The ring's stages (fewer where they do not fit), and the fewest taken.
+constexpr int kStreamStages = 4;
+constexpr int kStreamMinStages = 2;
+
+// Rows of a stage for the register bucket J and `itemsize`-byte
+// elements: a power of 2 (for reduce_scatter), at most 32, whose rows of
+// kStreamThreads * J columns take at most kStreamStageBytes.
+__host__ __device__ constexpr int stream_rows(int j, int itemsize) {
+  int rows = 32;
+  while (rows > 1 &&
+         int64_t(rows) * kStreamThreads * j * itemsize > kStreamStageBytes)
+    rows /= 2;
+  return rows;
+}
+
+__host__ __device__ constexpr int log2_of(int v) {
+  return v <= 1 ? 0 : 1 + log2_of(v / 2);
+}
+
+// f(std::integral_constant<int, J>{}) with J the register bucket of X of
+// width d: 1, 2, then multiples of 4 up to kStreamMaxCols (each column of
+// a bucket past d costs a guarded iteration, as in the cluster mode).
+template <int J = 1, typename F>
+auto with_stream_bucket(int64_t d, F&& f) {
+  if constexpr (J < kStreamMaxCols) {
+    if ((d + kStreamThreads - 1) / kStreamThreads > J)
+      return with_stream_bucket<J < 4 ? 2 * J : J + 4>(d, f);
+  }
+  return f(std::integral_constant<int, J>{});
+}
+
+// Columns a thread owns at most: kStreamMaxCols in bf16, 16 in f32 (past
+// that the cluster mode at 2 blocks took no longer, single_block_mode).
+__host__ __device__ constexpr int stream_max_cols(int itemsize) {
+  return itemsize == 4 ? 16 : kStreamMaxCols;
+}
+
+// The widest X the stream mode takes.
+int64_t stream_max_width(int itemsize) {
+  return int64_t(kStreamThreads) * stream_max_cols(itemsize);
+}
+
+// Fill `buf` with the elements [a, e) of X (whose elements lie in [lo_x,
+// hi_x)), each at its address modulo 16 past buf, completing on `bar`
+// (one arrival): one bulk copy of the 16-byte chunks that cover [a, e)
+// and lie in X, and plain copies by this thread of the elements left
+// over at X's ends (those of a chunk that X does not fill), stored
+// before the arrival that releases them.  A chunk that straddles two
+// stages is read by both.
+template <typename T>
+__device__ __forceinline__ void issue_stage(unsigned char* buf,
+                                            const T* a, const T* e,
+                                            const T* lo_x, const T* hi_x,
+                                            uint64_t* bar) {
+  const uintptr_t ua = reinterpret_cast<uintptr_t>(a);
+  const uintptr_t ue = reinterpret_cast<uintptr_t>(e);
+  const uintptr_t base = ua & ~uintptr_t(15);
+  uintptr_t lo = (reinterpret_cast<uintptr_t>(lo_x) + 15) & ~uintptr_t(15);
+  uintptr_t hi = reinterpret_cast<uintptr_t>(hi_x) & ~uintptr_t(15);
+  lo = lo > base ? lo : base;
+  const uintptr_t e16 = (ue + 15) & ~uintptr_t(15);
+  hi = hi < e16 ? hi : e16;
+  if (hi <= lo) lo = hi = ue;  // no whole chunk: every element plainly
+  auto plain = [&](uintptr_t from, uintptr_t to) {
+    for (uintptr_t q = from; q < to; q += sizeof(T))
+      *reinterpret_cast<T*>(buf + (q - base)) =
+          *reinterpret_cast<const T*>(q);
+  };
+  plain(ua, lo < ue ? lo : ue);
+  plain(hi > ua ? hi : ua, ue);
+  mbar_expect_bytes(bar, uint32_t(hi - lo));
+  if (hi > lo)
+    bulk_copy(buf + (lo - base), reinterpret_cast<const void*>(lo),
+              uint32_t(hi - lo), bar);
+}
+
+// Rows of a stage for X of width d (0 where the mode does not take it).
+int stream_bucket_rows(int64_t d, int itemsize) {
+  if (d > stream_max_width(itemsize)) return 0;
+  return with_stream_bucket(d, [&](auto j) {
+    return stream_rows(decltype(j)::value, itemsize);
+  });
+}
+
+// Shared-memory layout of one block of the stream mode: the stages'
+// mbarriers, the warps' partial dots of a stage (kStreamWarps x 32
+// rows), the stage's multipliers, then the ring (each stage R rows of X,
+// contiguous, placed at their address modulo 16 with 16 bytes of slack
+// for the chunks that cover them).
+struct StreamLayout {
+  int64_t mbar, red, mult, ring, stage, total;
+};
+
+__host__ __device__ inline StreamLayout stream_layout(int64_t d, int rows,
+                                                      int stages,
+                                                      int itemsize) {
+  StreamLayout s;
+  s.mbar = 0;
+  s.red = 8 * kStreamStages;
+  s.mult = s.red + 4 * 32 * kStreamWarps;
+  s.ring = round_up(s.mult + 4 * 32, 128);
+  s.stage = round_up(rows * d * itemsize, 16) + kTileSlack;
+  s.total = s.ring + stages * s.stage;
+  return s;
+}
+
+// The ring's stages for X of width d (at most kStreamStages), or 0 where
+// the mode does not take d or kStreamMinStages stages do not fit.
+int stream_stages(int64_t d, int itemsize) {
+  const int rows = stream_bucket_rows(d, itemsize);
+  if (rows < 1) return 0;
+  for (int st = kStreamStages; st >= kStreamMinStages; --st)
+    if (stream_layout(d, rows, st, itemsize).total <= kSmemBlock) return st;
+  return 0;
+}
+
+// The middle of loss `kind` (a runtime switch: the stream mode's kernels
+// are instantiated once for all three losses).
+__device__ __forceinline__ void loss_middle_of(int kind, float dot, float y,
+                                               float* per, float* mult) {
+  if (kind == kLogistic)
+    loss_middle<kLogistic>(dot, y, per, mult);
+  else if (kind == kLeastSquares)
+    loss_middle<kLeastSquares>(dot, y, per, mult);
+  else
+    loss_middle<kHinge>(dot, y, per, mult);
+}
+
+template <typename T, int J>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+    margin_stream(const T* __restrict__ X, const float* __restrict__ y,
+                  const float* __restrict__ mask,
+                  const float* __restrict__ w, int64_t n, int d, int stages,
+                  int loss_kind, float* __restrict__ partial_loss,
+                  float* __restrict__ partial_grad) {
+  constexpr int R = stream_rows(J, int(sizeof(T)));
+  constexpr int Q = log2_of(R);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const StreamLayout lay = stream_layout(d, R, stages, int(sizeof(T)));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.mbar);
+  float* red_s = reinterpret_cast<float*>(smem + lay.red);
+  float* mult_s = reinterpret_cast<float*>(smem + lay.mult);
+  unsigned char* ring = smem + lay.ring;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int64_t nblocks = gridDim.x;
+  const int64_t rows_per_block = (n + nblocks - 1) / nblocks;
+  const int64_t r_begin = min64(n, int64_t(blockIdx.x) * rows_per_block);
+  const int64_t r_end = min64(n, r_begin + rows_per_block);
+  const int64_t nst = (r_end - r_begin + R - 1) / R;
+  const T* x_end = X + n * d;
+
+  float wr[J], g[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = tid + j * kStreamThreads;
+    wr[j] = c < d ? w[c] : 0.f;
+    g[j] = 0.f;
+  }
+  if (tid == 0) {
+    for (int b = 0; b < stages; ++b)
+      mbar_init(&full[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Fill stage s's buffer with its rows, at their address modulo 16.
+  auto issue = [&](int64_t s) {
+    if (tid != 0) return;
+    const int64_t row0 = r_begin + s * R;
+    const int64_t row1 = min64(r_end, row0 + R);
+    issue_stage(ring + (s % stages) * lay.stage, X + row0 * d, X + row1 * d,
+                X, x_end, &full[s % stages]);
+  };
+  for (int64_t s = 0; s < stages && s < nst; ++s) issue(s);
+
+  // the middle's inputs of row tid of stage s, loaded a stage ahead (at
+  // 10M rows y and the mask come from device memory, not L2: loaded
+  // where they are used, their latency stood in every stage)
+  auto load_middle = [&](int64_t s, float* yv, float* mv) {
+    const int64_t row = r_begin + s * R + tid;
+    const bool live = tid < R && s < nst && row < r_end;
+    *yv = live ? y[row] : 0.f;
+    *mv = live ? mask[row] : 0.f;
+  };
+  float y_next, m_next;
+  load_middle(0, &y_next, &m_next);
+
+  Kahan loss_acc;
+  for (int64_t s = 0; s < nst; ++s) {
+    const int64_t row0 = r_begin + s * R;
+    const int here = int(min64(R, r_end - row0));
+    const float yv = y_next, mv = m_next;
+    load_middle(s + 1, &y_next, &m_next);
+    mbar_wait(&full[s % stages], uint32_t((s / stages) & 1));
+    const T* xs = reinterpret_cast<const T*>(
+        ring + (s % stages) * lay.stage +
+        (reinterpret_cast<uintptr_t>(X + row0 * d) & 15));
+
+    // each thread's partial dots of the stage's rows, over its columns
+    float p[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      p[u] = 0.f;
+      if (u < here) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int c = tid + j * kStreamThreads;
+          if (c < d) p[u] = fmaf(to_f32(xs[u * d + c]), wr[j], p[u]);
+        }
+      }
+    }
+    // the warp's sums, lane l holding row l / (32 / R)'s
+    reduce_scatter<R>(p, lane);
+    float dot = p[0];
+#pragma unroll
+    for (int off = 16 >> Q; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (lane % (32 / R) == 0) red_s[warp * 32 + lane / (32 / R)] = dot;
+    __syncthreads();
+    // every thread is past the previous stage: refill its buffer
+    if (s >= 1 && s - 1 + stages < nst) issue(s - 1 + stages);
+    // the whole dot of row tid: the warps' partials in order
+    if (tid < here) {
+      float full_dot = 0.f;
+      for (int i = 0; i < kStreamWarps; ++i) full_dot += red_s[i * 32 + tid];
+      float per, mult;
+      loss_middle_of(loss_kind, full_dot, yv, &per, &mult);
+      mult_s[tid] = mult * mv;
+      loss_acc.add(per * mv);
+    }
+    __syncthreads();
+
+    // the gradient over this thread's columns from the resident rows
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      if (u < here) {
+        const float mu = mult_s[u];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int c = tid + j * kStreamThreads;
+          if (c < d) g[j] = fmaf(mu, to_f32(xs[u * d + c]), g[j]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = tid + j * kStreamThreads;
+    if (c < d) partial_grad[int64_t(blockIdx.x) * d + c] = g[j];
+  }
+  // no thread reads red_s past the last stage's second barrier
+  if (tid < R) red_s[tid] = loss_acc.s;
+  __syncthreads();
+  if (tid == 0) {
+    Kahan k;
+    for (int i = 0; i < R; ++i) k.add(red_s[i]);
+    partial_loss[blockIdx.x] = k.s;
+  }
+}
+
 // Stage 2 of the narrow mode: a warp per gradient column (and one for
 // the loss, warp d), each lane summing every 32nd partial, then a
 // shuffle tree; a fixed order, as reduce_partials keeps, but 32 lanes
@@ -1078,11 +1377,12 @@ cudaError_t launch_partials(const void* X, const float* y, const float* mask,
 }
 
 enum Mode { kTile = 0, kNarrow = 1, kTwoPass = 2, kWarpRows = 3,
-            kCluster = 4 };
+            kCluster = 4, kStream = 5 };
 
 // A launch plan, as margin_plan fills it: the mode; the tile rows (tile
 // mode), the register bucket (narrow mode), the columns a lane owns
-// (warp-rows mode), the rows of a stage (cluster mode) or 0 (two-pass);
+// (warp-rows mode), the rows of a stage (cluster mode), the stages of
+// the ring (stream mode) or 0 (two-pass);
 // the blocks of the (first) launch; the gradient partials (the grid,
 // pass 2's row groups, or the clusters); the blocks of a cluster
 // (cluster mode; 0 otherwise).  One loss partial a block, or a cluster.
@@ -1109,29 +1409,34 @@ struct ClusterLaunch {
   }
 };
 
-// Let margin_cluster<T, L, J> take a block's whole shared memory and
-// clusters past the portable size, once a device (function attributes
-// belong to the kernel on the current device).  Where the card refuses
-// the non-portable size, clusters of that size stay refused and
-// cluster_plan skips them.
-template <typename T, int L, int J>
-cudaError_t cluster_attributes() {
-  static std::atomic<unsigned long long> done{0};
+// Let `kern` take a block's whole shared memory (and, with `clusters`,
+// clusters past the portable size), once a device: function attributes
+// belong to the kernel on the current device, and `done` holds a bit a
+// device.  Where the card refuses the non-portable size, clusters of that
+// size stay refused and cluster_plan skips them.
+template <typename K>
+cudaError_t smem_attributes(K kern, std::atomic<unsigned long long>& done,
+                            bool clusters) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  const auto kern = margin_cluster<T, L, J>;
   err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmemBlock));
   if (err != cudaSuccess) return err;
-  if (cudaFuncSetAttribute(
-          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
-      cudaSuccess)
+  if (clusters && cudaFuncSetAttribute(
+                      kern, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                      1) != cudaSuccess)
     cudaGetLastError();
   done.fetch_or(bit, std::memory_order_release);
   return cudaSuccess;
+}
+
+template <typename T, int L, int J>
+cudaError_t cluster_attributes() {
+  static std::atomic<unsigned long long> done{0};
+  return smem_attributes(margin_cluster<T, L, J>, done, true);
 }
 
 // The clusters of c blocks, each with `smem` bytes, that the card keeps
@@ -1167,6 +1472,24 @@ cudaError_t launch_cluster(const Plan& p, const T* X, const float* y,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+template <typename T, int J>
+cudaError_t launch_stream(const Plan& p, const T* X, const float* y,
+                          const float* mask, const float* w, int64_t n,
+                          int64_t d, int loss_kind, float* partial_loss,
+                          float* partial_grad, cudaStream_t stream) {
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t err = smem_attributes(margin_stream<T, J>, done, false);
+  if (err != cudaSuccess) return err;
+  const int64_t smem =
+      stream_layout(d, stream_rows(J, int(sizeof(T))), p.rows,
+                    int(sizeof(T)))
+          .total;
+  margin_stream<T, J><<<p.grid, kStreamThreads, size_t(smem), stream>>>(
+      X, y, mask, w, n, int(d), p.rows, loss_kind, partial_loss,
+      partial_grad);
+  return cudaGetLastError();
+}
+
 template <typename T, int L>
 cudaError_t launch_mode(const Plan& p, const void* X, const float* y,
                         const float* mask, const float* w, int64_t n,
@@ -1177,6 +1500,16 @@ cudaError_t launch_mode(const Plan& p, const void* X, const float* y,
       return launch_cluster<T, L, decltype(j)::value>(
           p, static_cast<const T*>(X), y, mask, w, n, d, partial_loss,
           partial_grad, stream);
+    });
+  if (p.mode == kStream)
+    return with_stream_bucket(d, [&](auto j) {
+      constexpr int J = decltype(j)::value;
+      if constexpr (J <= stream_max_cols(int(sizeof(T))))
+        return launch_stream<T, J>(p, static_cast<const T*>(X), y, mask, w,
+                                   n, d, L, partial_loss, partial_grad,
+                                   stream);
+      else
+        return cudaError_t(cudaErrorInvalidValue);  // checked: not reached
     });
   if (p.mode == kTile)
     return launch_partials<T, L>(X, y, mask, w, n, d, p.rows, p.grid,
@@ -1266,38 +1599,119 @@ cudaError_t cluster_resident(int64_t d, int c, int rows, int* clusters) {
 // A stage of this many rows is preferred to a smaller cluster.
 constexpr int kClusterMinRows = 2;
 
+// The cluster mode's plan for X (n, d) in clusters of c blocks: as many
+// clusters as are resident at once, at most one a stage of rows.  Sets
+// p->mode to -1 where a stage of c blocks holds fewer than `least` rows,
+// or the card keeps no such cluster resident.  A cluster past the
+// portable size that the card refuses is skipped the same way; any
+// other CUDA error is returned.
+cudaError_t cluster_plan_of(int64_t n, int64_t d, int itemsize, int c,
+                            int least, Plan* p) {
+  p->mode = -1;
+  const int rows = cluster_rows(d, c, itemsize);
+  if (rows < least || rows < 1) return cudaSuccess;
+  int resident = 0;
+  const cudaError_t err =
+      itemsize == 4 ? cluster_resident<float>(d, c, rows, &resident)
+                    : cluster_resident<__nv_bfloat16>(d, c, rows, &resident);
+  if (err != cudaSuccess) {
+    if (c <= kPortableCluster) return err;
+    cudaGetLastError();  // not schedulable here
+    return cudaSuccess;
+  }
+  if (resident < 1) return cudaSuccess;
+  int64_t clusters = (n + rows - 1) / rows;
+  if (clusters > resident) clusters = resident;
+  if (clusters < 1) clusters = 1;
+  *p = Plan{kCluster, rows, int(clusters * c), int(clusters), c};
+  return cudaSuccess;
+}
+
 // The cluster mode's plan for X (n, d): the smallest cluster the card
 // schedules whose stages hold kClusterMinRows rows, else the smallest that
-// holds one; as many clusters as are resident at once, at most one a
-// stage of rows.  Sets p->mode to -1 where no cluster holds a row.
-// Clusters past the portable size that the card refuses are skipped; any
-// other CUDA error is returned.
+// holds one.  Sets p->mode to -1 where no cluster holds a row.
 cudaError_t cluster_plan(int64_t n, int64_t d, int itemsize, Plan* p) {
   p->mode = -1;
   const int leasts[] = {kClusterMinRows, 1};
-  for (int least : leasts) {
+  for (int least : leasts)
     for (int c : kClusterSizes) {
-      const int rows = cluster_rows(d, c, itemsize);
-      if (rows < least) continue;
-      int resident = 0;
-      const cudaError_t err =
-          itemsize == 4 ? cluster_resident<float>(d, c, rows, &resident)
-                        : cluster_resident<__nv_bfloat16>(d, c, rows,
-                                                          &resident);
-      if (err != cudaSuccess) {
-        if (c <= kPortableCluster) return err;
-        cudaGetLastError();  // not schedulable here
-        continue;
-      }
-      if (resident < 1) continue;
-      int64_t clusters = (n + rows - 1) / rows;
-      if (clusters > resident) clusters = resident;
-      if (clusters < 1) clusters = 1;
-      *p = Plan{kCluster, rows, int(clusters * c), int(clusters), c};
-      return cudaSuccess;
+      const cudaError_t err = cluster_plan_of(n, d, itemsize, c, least, p);
+      if (err != cudaSuccess || p->mode == kCluster) return err;
     }
-  }
   return cudaSuccess;
+}
+
+// The tile mode's plan for X (n, d) (a few blocks an SM, as many as fit,
+// at most one per tile); p->mode is -1 where not one row fits a tile.
+void tile_plan(int64_t n, int64_t d, int itemsize, int sms, Plan* p) {
+  p->mode = -1;
+  const int rows = choose_tile_rows(d, itemsize);
+  if (rows < 1) return;
+  int64_t per_sm = kSmemSM / (smem_bytes(d, rows, itemsize) + kSmemReserved);
+  per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
+  int64_t blocks = (n + rows - 1) / rows;
+  if (blocks > sms * per_sm) blocks = sms * per_sm;
+  *p = Plan{kTile, rows, int(blocks < 1 ? 1 : blocks), 0, 0};
+  p->partials = p->grid;
+}
+
+// The stream mode's plan for X (n, d): a ring of stream_stages stages,
+// one block an SM, at most one a stage of rows.  p->mode is -1 where the
+// mode does not take the width.
+void stream_plan(int64_t n, int64_t d, int itemsize, int sms, Plan* p) {
+  p->mode = -1;
+  const int st = stream_stages(d, itemsize);
+  if (st < kStreamMinStages) return;
+  const int rows = stream_bucket_rows(d, itemsize);
+  int64_t blocks = (n + rows - 1) / rows;
+  if (blocks > sms) blocks = sms;
+  const int grid = int(blocks < 1 ? 1 : blocks);
+  *p = Plan{kStream, st, grid, grid, 0};
+}
+
+// The mode that takes X of width d (past the warp-rows mode) in one
+// block a row, or -1 where the cluster mode takes it, by the times of
+// chip_smoke.py --ab margin: at 10M rows (PERF.md; an H100 80GB
+// HBM3): the tile up to tile_max_width, where a stage of the stream mode
+// holds 32 rows of one or two columns a thread and its per-row sums cost
+// more than the tile's copy (f32: the tile won at 257 and 264 columns,
+// the stream mode from 265; bf16: the tile won to 768 and at 794, the
+// stream mode from 800, where the tile's blocks an SM fall from four to
+// three); the stream mode up to stream_max_width; the cluster mode past
+// that (at 2 blocks it matched the stream mode in f32 at 8,192 and
+// 12,288 columns and beat it at 16,384; in bf16 the stream mode won at
+// 16,384).
+int64_t tile_max_width(int itemsize) { return itemsize == 4 ? 264 : 794; }
+
+int single_block_mode(int64_t d, int itemsize) {
+  if (d <= tile_max_width(itemsize)) return kTile;
+  if (d <= stream_max_width(itemsize) &&
+      stream_stages(d, itemsize) >= kStreamMinStages)
+    return kStream;
+  return -1;
+}
+
+// The arguments every plan query checks: a shape and element size a mode
+// takes, and `sms` the current device's SM count.
+cudaError_t check_plan_args(int64_t n, int64_t d, int itemsize, int sms) {
+  if (n < 0 || d < 1 || sms < 1 || (itemsize != 4 && itemsize != 2))
+    return cudaErrorInvalidValue;
+  int dev = 0, dev_sms = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev); err != cudaSuccess)
+    return err;
+  if (const cudaError_t err = cudaDeviceGetAttribute(
+          &dev_sms, cudaDevAttrMultiProcessorCount, dev);
+      err != cudaSuccess)
+    return err;
+  return dev_sms == sms ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+void write_plan(const Plan& p, int* plan) {
+  plan[0] = p.mode;
+  plan[1] = p.rows;
+  plan[2] = p.grid;
+  plan[3] = p.partials;
+  plan[4] = p.cluster;
 }
 
 }  // namespace
@@ -1308,24 +1722,17 @@ extern "C" {
 // device, of `sms` SMs (checked against the device), written to
 // plan[0..4] = {mode, rows, grid, partials, cluster} (see Plan): narrow
 // mode up to kNarrowMaxWidth columns; warp-rows mode up to the hand-over
-// (warp_rows_takes); tile mode while a row fits the tile (a few blocks an
-// SM, as many as fit, at most one per tile); cluster mode past that while
-// a cluster that the device schedules holds a row (cluster_plan);
+// (warp_rows_takes); then the tile mode and the stream mode, each where
+// the card timed it faster (single_block_mode); cluster mode past that
+// while a cluster that the device schedules holds a row (cluster_plan);
 // two-pass mode past that.  Callers work a plan out once a shape.  Returns
 // cudaErrorInvalidValue, and sets nothing, for arguments no mode takes or
 // an `sms` that is not the device's, and the CUDA error of a device query
 // if it fails.
 int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* plan) {
-  if (n < 0 || d < 1 || sms < 1 || (itemsize != 4 && itemsize != 2))
-    return int(cudaErrorInvalidValue);
-  int dev = 0, dev_sms = 0;
-  if (const cudaError_t err = cudaGetDevice(&dev); err != cudaSuccess)
-    return int(err);
-  if (const cudaError_t err = cudaDeviceGetAttribute(
-          &dev_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (const cudaError_t err = check_plan_args(n, d, itemsize, sms);
       err != cudaSuccess)
     return int(err);
-  if (dev_sms != sms) return int(cudaErrorInvalidValue);
   Plan p{};
   if (d <= kNarrowMaxWidth) {
     p.rows = narrow_bucket(d);
@@ -1342,35 +1749,65 @@ int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* plan) {
     if (blocks > most) blocks = most;
     p.mode = kWarpRows;
     p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
-  } else if (const int rows = choose_tile_rows(d, itemsize); rows >= 1) {
-    int64_t per_sm = kSmemSM / (smem_bytes(d, rows, itemsize) + kSmemReserved);
-    per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
-    int64_t blocks = (n + rows - 1) / rows;
-    if (blocks > sms * per_sm) blocks = sms * per_sm;
-    p.mode = kTile;
-    p.rows = rows;
-    p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
-  } else if (const cudaError_t err = cluster_plan(n, d, itemsize, &p);
-             err != cudaSuccess) {
-    return int(err);
-  } else if (p.mode != kCluster) {
-    int64_t blocks = (n + kWarps - 1) / kWarps;
-    if (blocks > int64_t(sms) * kWideBlocksPerSM)
-      blocks = int64_t(sms) * kWideBlocksPerSM;
-    const int64_t chunks = (d + kThreads - 1) / kThreads;
-    int64_t groups = int64_t(sms) * kWideGradBlocksPerSM / chunks;
-    const int64_t most = (n + kWideMultChunk - 1) / kWideMultChunk;
-    if (groups > most) groups = most;
-    p.mode = kTwoPass;
-    p.rows = 0;
-    p.grid = int(blocks < 1 ? 1 : blocks);
-    p.partials = int(groups < 1 ? 1 : groups);
+  } else {
+    p.mode = -1;
+    const int mode = single_block_mode(d, itemsize);
+    if (mode == kTile)
+      tile_plan(n, d, itemsize, sms, &p);
+    else if (mode == kStream)
+      stream_plan(n, d, itemsize, sms, &p);
+    if (p.mode == -1)
+      if (const cudaError_t err = cluster_plan(n, d, itemsize, &p);
+          err != cudaSuccess)
+        return int(err);
+    if (p.mode == -1) {
+      int64_t blocks = (n + kWarps - 1) / kWarps;
+      if (blocks > int64_t(sms) * kWideBlocksPerSM)
+        blocks = int64_t(sms) * kWideBlocksPerSM;
+      const int64_t chunks = (d + kThreads - 1) / kThreads;
+      int64_t groups = int64_t(sms) * kWideGradBlocksPerSM / chunks;
+      const int64_t most = (n + kWideMultChunk - 1) / kWideMultChunk;
+      if (groups > most) groups = most;
+      p = Plan{kTwoPass, 0, int(blocks < 1 ? 1 : blocks),
+               int(groups < 1 ? 1 : groups), 0};
+    }
   }
-  plan[0] = p.mode;
-  plan[1] = p.rows;
-  plan[2] = p.grid;
-  plan[3] = p.partials;
-  plan[4] = p.cluster;
+  write_plan(p, plan);
+  return 0;
+}
+
+// The plan of one mode, chosen by the caller, for X (n, d), written to
+// plan[0..4] as margin_plan writes its own: `mode` is a mode code of
+// margin_mode_name; the tile mode (kTile), the stream mode (kStream) and
+// the cluster mode (kCluster, in clusters of `cluster` blocks; the other
+// modes ignore it) are taken.  For timing
+// a mode at widths its plan does not give it (chip_smoke.py --ab
+// margin:); the kernel checks a forced plan as any other.  Returns
+// cudaErrorInvalidValue, and sets nothing, where the mode cannot take X
+// of width d (or the card keeps no such cluster resident), and the CUDA
+// error of a device query if it fails.
+int margin_mode_plan(int64_t n, int64_t d, int itemsize, int sms, int mode,
+                     int cluster, int* plan) {
+  if (const cudaError_t err = check_plan_args(n, d, itemsize, sms);
+      err != cudaSuccess)
+    return int(err);
+  Plan p{};
+  p.mode = -1;
+  if (mode == kTile) {
+    tile_plan(n, d, itemsize, sms, &p);
+  } else if (mode == kStream) {
+    stream_plan(n, d, itemsize, sms, &p);
+  } else if (mode == kCluster) {
+    bool size_ok = false;
+    for (int c : kClusterSizes) size_ok = size_ok || c == cluster;
+    if (size_ok)
+      if (const cudaError_t err =
+              cluster_plan_of(n, d, itemsize, cluster, 1, &p);
+          err != cudaSuccess)
+        return int(err);
+  }
+  if (p.mode != mode) return int(cudaErrorInvalidValue);
+  write_plan(p, plan);
   return 0;
 }
 
@@ -1387,6 +1824,8 @@ const char* margin_mode_name(int mode) {
       return "warp_rows";
     case kCluster:
       return "cluster";
+    case kStream:
+      return "stream";
     default:
       return nullptr;
   }
@@ -1402,13 +1841,20 @@ int margin_warp_rows_takes(int64_t d, int itemsize) {
   return warp_rows_takes(d, itemsize) ? 1 : 0;
 }
 
-// The widest X (in columns) whose rows fit one block's tile.  Wider X
-// takes the cluster mode, up to margin_cluster_max_width.
+// The widest X (in columns) that the tile mode takes (single_block_mode);
+// the stream mode takes the next column on.
+int64_t margin_tile_max_width(int itemsize) {
+  return tile_max_width(itemsize);
+}
+
+// The widest X (in columns) that one block a row takes (the stream or
+// tile mode, single_block_mode).  Wider X takes the cluster mode, up to
+// margin_cluster_max_width.
 int64_t margin_max_width(int itemsize) {
-  int64_t lo = 0, hi = kSmemBlock;  // lo fits (vacuously), hi does not
+  int64_t lo = 0, hi = kSmemBlock;  // lo is taken (vacuously), hi is not
   while (hi - lo > 1) {
     const int64_t mid = (lo + hi) / 2;
-    (choose_tile_rows(mid, itemsize) >= 1 ? lo : hi) = mid;
+    (single_block_mode(mid, itemsize) != -1 ? lo : hi) = mid;
   }
   return lo;
 }
@@ -1453,6 +1899,9 @@ int margin_loss_grad(const void* X, int x_type, const void* y,
        (p.mode == kWarpRows && (p.rows == 2 || p.rows == 4 || p.rows == 8) &&
         d <= 32 * p.rows && p.partials == p.grid) ||
        (p.mode == kTwoPass && (mult != nullptr || n == 0)) ||
+       (p.mode == kStream && p.partials == p.grid &&
+        p.rows >= kStreamMinStages &&
+        stream_stages(d, x_type == kBF16 ? 2 : 4) == p.rows) ||
        (p.mode == kCluster && p.rows >= 1 && p.rows <= kClusterMaxRows &&
         (p.cluster == 2 || p.cluster == 4 || p.cluster == 8 ||
          p.cluster == 16) &&

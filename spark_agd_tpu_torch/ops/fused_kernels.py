@@ -16,12 +16,13 @@ deterministic:
   ``PallasMarginGradient``).  It takes X of every width:
   :func:`launch_shape` picks a register mode for narrow X, a mode that
   streams rows through whole warps up to :func:`warp_rows_max_width`
-  columns (:func:`warp_rows_takes`), the shared-memory tile up to
-  :func:`max_width` columns, a mode that holds each row across the
-  shared memory of a thread block cluster up to
-  :func:`cluster_max_width` columns (X still read once), and past that a
-  two-pass mode that reads X twice (as the Pallas wrapper's fallback
-  past its VMEM budget does).
+  columns (:func:`warp_rows_takes`), a few rows a block in shared
+  memory up to :func:`tile_max_width` columns, a mode that streams
+  stages of rows through a ring in one block's shared memory up
+  to :func:`max_width` columns, a mode that holds each row across the
+  shared memory of a thread block cluster up to :func:`cluster_max_width` columns (X still
+  read once), and past that a two-pass mode that reads X twice (as the
+  Pallas wrapper's fallback past its VMEM budget does).
 - ``csrc/margin_lanes_loss_grad.cu``: the same three losses for K
   weight vectors at once (the lanes of a sweep; counterpart of the margin
   kernel under ``jax.vmap``, which Pallas runs as one pass of X per
@@ -266,6 +267,12 @@ def library(source=None):
     lib.margin_plan.restype = ctypes.c_int
     lib.margin_mode_name.argtypes = [ctypes.c_int]
     lib.margin_mode_name.restype = ctypes.c_char_p
+    lib.margin_mode_plan.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.margin_mode_plan.restype = ctypes.c_int
+    lib.margin_tile_max_width.argtypes = [ctypes.c_int]
+    lib.margin_tile_max_width.restype = ctypes.c_int64
     lib.margin_max_width.argtypes = [ctypes.c_int]
     lib.margin_max_width.restype = ctypes.c_int64
     lib.margin_cluster_max_width.argtypes = [ctypes.c_int]
@@ -283,10 +290,19 @@ def _itemsize(dtype) -> int:
     return 2 if dtype == torch.bfloat16 else 4
 
 
+def tile_max_width(dtype) -> int:
+    """The widest X, in columns, that the kernel takes in its "tile" mode
+    (from the warp-rows hand-over on; bf16 X of odd width from 129): a
+    few rows a block in shared memory, where the card timed it faster
+    than the stream mode.  Wider X takes the stream mode."""
+    return int(library()[0].margin_tile_max_width(_itemsize(dtype)))
+
+
 def max_width(dtype) -> int:
-    """The widest X, in columns, whose rows fit one block's shared-memory
-    tile for ``dtype`` (the tile mode).  Wider X takes the cluster mode,
-    up to :func:`cluster_max_width`."""
+    """The widest X, in columns, that the kernel takes in one block a row
+    for ``dtype`` (its "stream" mode past :func:`tile_max_width`: a row's
+    columns in the registers of one block's threads).  Wider X takes the
+    cluster mode, up to :func:`cluster_max_width`."""
     lib, _ = library()
     return int(lib.margin_max_width(_itemsize(dtype)))
 
@@ -328,15 +344,16 @@ def check_width(d: int, dtype):
 
 class MarginPlan(NamedTuple):
     """A launch plan of the margin kernel (``margin_plan``): ``mode``
-    ("narrow", "warp_rows", "tile", "cluster" or "two_pass");
-    ``tile_rows``, the rows of a tile (tile mode), the register bucket
-    (narrow mode), the columns a lane owns (warp-rows mode), the rows of
-    a stage (cluster mode) or 0; ``grid``, the blocks of the (first)
-    launch; ``partials``, the gradient partials summed at the end (the
-    grid, the row groups of the two-pass mode's second pass, or the
-    clusters); ``cluster``, the blocks of a cluster (cluster mode, else
-    0); ``raw``, the ints as ``margin_plan`` filled them (its mode code
-    first), passed back at launch."""
+    ("narrow", "warp_rows", "tile", "stream", "cluster" or "two_pass");
+    ``tile_rows``, the
+    rows of a tile (tile mode), the register bucket (narrow mode), the
+    columns a lane owns (warp-rows mode), the stages of the ring (stream
+    mode), the rows of a stage (cluster mode) or 0; ``grid``, the blocks
+    of the (first) launch; ``partials``, the gradient partials summed at
+    the end (the grid, the row groups of the two-pass mode's second
+    pass, or the clusters); ``cluster``, the blocks of a cluster
+    (cluster mode, else 0); ``raw``, the ints as ``margin_plan`` filled
+    them (its mode code first), passed back at launch."""
 
     mode: str
     tile_rows: int
@@ -357,6 +374,27 @@ def plan_for(lib, n: int, d: int, itemsize: int, sms: int) -> MarginPlan:
                          f"({n}, {d}) of {itemsize}-byte elements")
     return MarginPlan(lib.margin_mode_name(plan[0]).decode(), *plan[1:5],
                       tuple(plan))
+
+
+def mode_plan_for(lib, n: int, d: int, itemsize: int, sms: int, mode: str,
+                  cluster: int = 0) -> MarginPlan:
+    """``lib``'s plan of the named ``mode`` (and, for "cluster", clusters
+    of ``cluster`` blocks) for X (n, d), whether or not ``margin_plan``
+    gives that mode this width (``margin_mode_plan``; for timing modes
+    side by side); raises ``ValueError`` where the mode does not take
+    it."""
+    codes = {}
+    for code in range(16):
+        name = lib.margin_mode_name(code)
+        if name is None:
+            break
+        codes[name.decode()] = code
+    plan = (ctypes.c_int * 5)()
+    if mode not in codes or lib.margin_mode_plan(
+            n, d, itemsize, sms, codes[mode], cluster, plan) != 0:
+        raise ValueError(f"fused_margin_loss_grad: the {mode} mode takes no "
+                         f"X ({n}, {d}) of {itemsize}-byte elements")
+    return MarginPlan(mode, *plan[1:5], tuple(plan))
 
 
 def launch_shape(X) -> MarginPlan:

@@ -70,12 +70,15 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 
 # the narrow mode's register-bucket edges, the warp-rows mode's column
-# buckets and its hand-over to the tile ("hand", resolved on the card), a
-# tile width, the tile's widest X ("max"), one column past it (the cluster
-# mode), a gene-expression-like width, the cluster mode's widest X
-# ("cmax") and one column past it (the two-pass mode)
+# buckets and its hand-over to the tile ("hand", resolved on the card),
+# the tile's hand-over to the stream mode ("tile"), the stream mode's
+# register buckets where its rows a stage change (1,024 | 1,025, 2,048 |
+# 2,049, 4,096 | 4,097), its widest X ("max"), one column past it (the
+# cluster mode), a gene-expression-like width, the cluster mode's widest
+# X ("cmax") and one column past it (the two-pass mode)
 WIDTHS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 127, 129, "hand-1",
-          "hand", "hand+1", 1000, "max", "max+1", 40_000, "cmax", "cmax+1"]
+          "hand", "hand+1", "tile", "tile+1", 1000, 1_024, 1_025, 2_048,
+          2_049, 4_096, 4_097, "max", "max+1", 40_000, "cmax", "cmax+1"]
 
 
 def _warp_rows(d, dtype, hand):
@@ -87,7 +90,8 @@ def _warp_rows(d, dtype, hand):
 
 def _expected_mode(d, dtype, hand, limit, cmax):
     return ("narrow" if d <= 32 else "warp_rows" if _warp_rows(d, dtype, hand)
-            else "tile" if d <= limit else "cluster" if d <= cmax
+            else "tile" if d <= fk.tile_max_width(dtype)
+            else "stream" if d <= limit else "cluster" if d <= cmax
             else "two_pass")
 
 
@@ -97,18 +101,21 @@ def _expected_mode(d, dtype, hand, limit, cmax):
 @pytest.mark.parametrize("width", WIDTHS, ids=str)
 def test_width_rule_and_tile_budget(cuda, width, dtype):
     """Every width launches the kernel: the narrow mode up to 32 columns,
-    the one-pass tile up to ``max_width`` (its one-row tile fits shared
-    memory there), the cluster mode past it up to ``cluster_max_width``
-    (at least 40,000 columns), the two-pass mode past that.  Each call
-    agrees with the plain version, repeats give the same bits, and each
-    launch counts once, under the mode that ``launch_shape`` reports."""
+    the warp-rows mode to its hand-over, the tile up to
+    ``tile_max_width``, the stream mode up to ``max_width`` (the widest X
+    one block a row takes), the cluster mode past it up to
+    ``cluster_max_width`` (at least 40,000 columns), the two-pass mode
+    past that.  Each call agrees with the plain version, repeats give the
+    same bits, and each launch counts once, under the mode that
+    ``launch_shape`` reports."""
     limit = fk.max_width(dtype)
     hand = fk.warp_rows_max_width()
+    tile = fk.tile_max_width(dtype)
     cmax = fk.cluster_max_width(dtype)
-    assert 32 < hand < 1000 < limit < 40_000 <= cmax
+    assert 32 < hand < tile < 1000 < 8_192 <= limit < 40_000 <= cmax
     d = {"max": limit, "max+1": limit + 1, "hand-1": hand - 1, "hand": hand,
-         "hand+1": hand + 1, "cmax": cmax, "cmax+1": cmax + 1}.get(width,
-                                                                  width)
+         "hand+1": hand + 1, "tile": tile, "tile+1": tile + 1,
+         "cmax": cmax, "cmax+1": cmax + 1}.get(width, width)
     n = 4_099 if d <= 1000 else 300
     gen = torch.Generator(device=cuda)
     gen.manual_seed(2)
@@ -122,8 +129,12 @@ def test_width_rule_and_tile_budget(cuda, width, dtype):
     assert fk.warp_rows_takes(d, dtype) == (plan.mode == "warp_rows")
     assert (plan.cluster > 1) == (plan.mode == "cluster")
     if plan.mode == "tile":
-        # whole warps per tile, except the few rows of the widest X
-        assert plan.tile_rows % 8 == 0 or (d > 1000 and plan.tile_rows < 8)
+        # whole warps per tile
+        assert plan.tile_rows % 8 == 0
+    if plan.mode == "stream":
+        # a ring of 2 to 4 stages, one block an SM
+        assert 2 <= plan.tile_rows <= 4 and plan.grid == plan.partials
+        assert plan.grid <= fk._device_sms(cuda.index or 0)
     assert plan.grid >= 1 and plan.partials >= 1
     inner = losses.LogisticGradient()
     before = fk.launch_count
@@ -172,6 +183,53 @@ def test_warp_rows_mode_edges(cuda, dtype):
                 loss, grad = fk.fused_margin_loss_grad(inner, w, staged)
                 loss2, grad2 = fk.fused_margin_loss_grad(inner, w, staged)
                 torch.cuda.synchronize()
+                assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+                ref_loss, ref_grad = fk.fused_margin_loss_grad_reference(
+                    inner, w, staged)
+                assert float(loss) == pytest.approx(float(ref_loss),
+                                                    rel=1e-5, abs=1e-30)
+                torch.testing.assert_close(
+                    grad, ref_grad, rtol=1e-4,
+                    atol=1e-4 * float(ref_grad.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_stream_mode_edges(cuda, dtype):
+    """The stream mode at its edges: the narrowest width it takes (one
+    past ``tile_max_width``), a flagship width, rows not 16-byte aligned
+    (odd widths, and X one element into its buffer: each stage's bulk
+    copy covers its rows with whole 16-byte chunks, and the elements of
+    a chunk that X does not fill are copied plainly) and the widest X it
+    takes; no rows,
+    one row, fewer rows than a stage and a ragged last stage; masked and
+    unmasked; all three losses at one width.  Each call agrees with the
+    plain version (loss rtol 1e-5, gradient rtol 1e-4 + 1e-4 max|g|),
+    repeats give the same bits, and each launch counts once under the
+    stream mode."""
+    limit = fk.max_width(dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(15)
+    first = fk.tile_max_width(dtype) + 1
+    cases = [(first, 0), (1000, 0), (1000, 1), (2_001, 0), (limit, 0),
+             (limit, 1)]
+    for d, offset in cases:
+        for n in (0, 1, 7, 1_003):
+            X, y, m, w = _cluster_case(gen, cuda, n, d, dtype, offset)
+            names = (["logistic", "least_squares", "hinge"]
+                     if d == 2_001 else ["logistic"])
+            for name, mask in [(nm, mk) for nm in names for mk in (None, m)]:
+                inner = losses.GRADIENTS[name]()
+                staged = fk.stage_dense(X, y, mask)
+                plan = fk.launch_shape(staged.X)
+                assert plan.mode == "stream", (d, plan)
+                before = fk.launch_count, fk.margin_mode_launches["stream"]
+                loss, grad = fk.fused_margin_loss_grad(inner, w, staged)
+                loss2, grad2 = fk.fused_margin_loss_grad(inner, w, staged)
+                torch.cuda.synchronize()
+                assert (fk.launch_count, fk.margin_mode_launches["stream"]) \
+                    == (before[0] + 2, before[1] + 2)
                 assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
                 ref_loss, ref_grad = fk.fused_margin_loss_grad_reference(
                     inner, w, staged)
@@ -290,6 +348,33 @@ def test_rejected_cluster_plan_raises_and_launches_nothing_else(cuda,
     raw[2] += 1
     monkeypatch.setattr(fk, "launch_shape", lambda X: plan._replace(
         grid=raw[2], raw=tuple(raw)))
+    before = fk.launch_count, dict(fk.margin_mode_launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fk.fused_margin_loss_grad(losses.LogisticGradient(),
+                                  torch.zeros(d, device=cuda), staged)
+    assert (fk.launch_count, dict(fk.margin_mode_launches)) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [-1, 1, 3])
+def test_stream_plan_of_another_depth_raises(cuda, monkeypatch, offset):
+    """The stream mode's ring has the one depth its plan gives the width:
+    a plan of another depth fails the kernel's check, the wrapper raises,
+    counts nothing and launches no other mode; a forced stream plan
+    (``mode_plan_for``) is the plan's own whatever its last argument."""
+    d = 2_000
+    X = torch.randn((64, d), device=cuda)
+    staged = fk.stage_dense(X, torch.zeros(64, device=cuda))
+    plan = fk.launch_shape(X)
+    assert plan.mode == "stream"
+    lib = fk.library()[0]
+    sms = fk._device_sms(cuda.index or 0)
+    for c in (0, 2, 6):
+        assert fk.mode_plan_for(lib, 64, d, 4, sms, "stream", c) == plan
+    raw = list(plan.raw)
+    raw[1] += offset
+    monkeypatch.setattr(fk, "launch_shape", lambda X: plan._replace(
+        tile_rows=raw[1], raw=tuple(raw)))
     before = fk.launch_count, dict(fk.margin_mode_launches)
     with pytest.raises(RuntimeError, match="launch failed"):
         fk.fused_margin_loss_grad(losses.LogisticGradient(),

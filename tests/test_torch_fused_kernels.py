@@ -95,9 +95,11 @@ def _pallas_gradient(name, X, w, y, mask):
 @pytest.mark.parametrize("width", [1, 2, 3, 20_000])
 def test_every_width_matches_pallas_margin_gradient(width, name, masked):
     """The narrow widths (where a CUDA X takes the kernel's register
-    mode) and 20,000 columns (past the kernel's one-pass tile of 19,364
-    f32 columns, under the Pallas kernel's VMEM budget, where the JAX
-    package runs its kernel).  On these CPU tensors the port's
+    mode) and 20,000 columns (past the widest f32 X one block a row
+    takes, 8,192 columns (``fused_kernels.max_width``), where a CUDA X
+    takes the kernel's cluster mode; under
+    the Pallas kernel's VMEM budget, where the JAX package runs its
+    kernel).  On these CPU tensors the port's
     ``FusedMarginGradient`` takes the kernel's plain version, and that
     is what is held to ``PallasMarginGradient`` on the same inputs; the
     CUDA modes themselves are held to the plain version in
@@ -188,12 +190,12 @@ def test_prepare_rejects_a_non_matrix_x():
 
 
 def test_overwide_falls_back_and_counts():
-    """A CPU X wider than the CUDA kernel's one-pass tile is staged like
-    any other and takes the plain version, with no launch counted; on the
-    card the same X runs the kernel's two-pass mode
+    """A CPU X wider than one block of the CUDA kernel takes a row of is
+    staged like any other and takes the plain version, with no launch
+    counted; on the card the same X runs the kernel's cluster mode
     (``test_torch_cuda.py``)."""
     rng = np.random.default_rng(5)
-    d = 25_000  # past the kernel's width limit in f32 and in bf16
+    d = 25_000  # past one block's row in f32 and in bf16
     X = rng.standard_normal((4, d)).astype(np.float32)
     w = (rng.standard_normal(d) / np.sqrt(d)).astype(np.float32)
     y = np.array([0, 1, 1, 0], np.float32)
