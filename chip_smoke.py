@@ -143,10 +143,13 @@ Phases, each printing one JSON line:
     ``torch.matmul`` products; then the two-pass mode held to f64 sums
     and timed at 10,000 rows one column past the cluster mode's reach,
     and the lanes kernel's two-pass mode at 100,003 rows one column past
-    ``lanes_max_width`` for 8 lanes (``lanes_two_pass_times``);
+    ``lanes_max_width`` for 8 lanes, the reach of its cluster mode
+    (``lanes_two_pass_times``);
 20. the ``kernels`` line (with each kernel's launches by path, the margin
     and softmax kernels' modes by path and their numbers by mode, the
-    lanes kernel's modes by path and its two-pass mode's numbers, and
+    lanes kernel's modes by path and its numbers by mode: ``lanes_mma``
+    at phase 22's shape, ``lanes_cluster`` at phase 29's, the two-pass
+    mode at phase 19's, and
     each library's registers and spills by kernel, the margin cluster
     mode's instantiations among them); then the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``;
@@ -154,10 +157,15 @@ Phases, each printing one JSON line:
     (``csrc/margin_lanes_loss_grad.cu``) against its plain version, and
     each lane against the solo kernel, at K in {1, 2, 3, 8, 16, 17, 20}
     (every lane bucket, one past the largest, two chunks) and D in {1,
-    2, 33, 1000, 1001, 1024, 40,000} plus each bucket's widest one-read
-    width and one column past it (the two-pass mode), f32/bf16 x
-    masked/unmasked, all three losses at D = 1000, K = 8, each call
-    repeated bit-identical;
+    2, 33, 1000, 1001, 1024, 40,000} plus each bucket's ``lanes_mma``
+    reach, the column before its cluster mode's first
+    (``lanes_cluster_min_width``), its widest one-read width
+    (``lanes_max_width``, the cluster mode's reach) and one column past
+    each, f32/bf16 x masked/unmasked,
+    all three losses at D = 1000, K = 8, each call repeated
+    bit-identical, each plan's mode held to the width rule (one block a
+    row below ``lanes_cluster_min_width``, the cluster mode from there to
+    ``lanes_max_width``, the two-pass mode past it);
 22. sweep_path, on phase 5's data after phase 13: ``AcceleratedGradient
     Descent(FusedLogisticGradient(), SquaredL2Updater()).sweep`` over
     the 8 strengths 10^-1 ... 10^-8 (40 iterations, tol 0), every launch
@@ -208,10 +216,14 @@ Phases, each printing one JSON line:
 28. epsilon_path, after phase 25: 400,000 x 2,000 f32 class-logistic
     data made on the card (LIBSVM's epsilon, the PASCAL Large Scale
     Learning Challenge's dense set), read as phase 25 is, every launch
-    in the margin kernel's stream mode (the plan's for 2,000 columns).
+    in the margin kernel's stream mode (the plan's for 2,000 columns);
+29. epsilon_sweep, on phase 28's data: the path of phase 22 (8
+    strengths, 40 iterations, tol 0) read as phase 22 is, every launch
+    in the lanes kernel's cluster mode, the 0.1 lane held to phase 28's
+    solo ``run``.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-28) and read just after it; the sparse paths launch neither kernel,
+22-29) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -261,14 +273,26 @@ It fails if a build's result is further from the f64 sums than phase
 3's tolerance (loss rtol 1e-5, gradient 1e-4 of each entry plus 1e-4 of
 the largest).
 
-``python3 chip_smoke.py --ab lanes:NAME=SOURCE [...]`` does the same for
-copies of ``csrc/margin_lanes_loss_grad.cu``: 10,000,000 rows of f32 X
-at D in {64, 256, 512, 1000} and K in {1, 2, 4, 8, 16}, then the first
-build's widest one-read width and one past it for each K at 100,003
-rows; one ``ab_lanes`` line a shape and K, with each build's plan, ms,
-error from f64 sums (held lane by lane) and same-bits flag, and the two
-``torch.matmul`` products on (D, K), ``X @ W.T`` and ``M.T @ X``, each
-alone and as a pair, by CUDA events (and the pair by the profiler).
+``python3 chip_smoke.py --ab lanes:NAME=SOURCE [...] [--shapes
+sweep,edges,handover]`` does the same for copies of
+``csrc/margin_lanes_loss_grad.cu``: "sweep", 10,000,000 rows of f32 X at
+D in {64, 256, 512, 1000} and K in {1, 2, 4, 8, 16}; "edges", for each
+K the widths of the first build that knows them, at 100,003 rows:
+``lanes_mma``'s reach, the widest one-read width, and one past each, and
+the first width of the cluster mode (f32 and bf16) and one before it;
+"handover", the widths that decide the plan's hand-overs
+(LANES_AB_HANDOVER: f32 1,024-12,000 and 40,000 columns, LIBSVM
+epsilon's 400,000 x 2,000, bf16 1,280-12,000, at the lane counts that
+run there); one ``ab_lanes`` line a shape and K, with each
+build's plan, ms by CUDA events and by the profiler, error from f64 sums
+(held lane by lane) and same-bits flag, and the two ``torch.matmul``
+products on (D, K), ``X @ W.T`` and ``M.T @ X``, each alone and as a
+pair, by CUDA events (and the pair by the profiler).  At the edges and
+handover shapes the first build that can force a mode
+(``lanes_mode_plan``) also times ``lanes_mma``, ``lanes_tile``,
+``lanes_cluster`` at 2, 4, 8 and 16 blocks and ``lanes_two_pass``
+wherever they take the width (``NAME:lanes_tile``,
+``NAME:lanes_cluster2``, ...).
 """
 
 import argparse
@@ -332,7 +356,7 @@ EPSILON = dict(n=400_000, d=2_000, seed=8)
 WIDE_CHECK = dict(rows=3_000, widths=(40_000, 200_000), past_rows=300)
 # the margin kernel's two-pass mode timed one column past the cluster
 # mode's reach, and the lanes kernel's one column past lanes_max_width
-# (K = 8 lanes, 2,224 columns on the H100)
+# (K = 8 lanes: the reach of its cluster mode on the card)
 WIDE_TWO_PASS_ROWS = 10_000
 LANES_TWO_PASS_ROWS, LANES_TWO_PASS_K = 100_003, 8
 
@@ -2116,17 +2140,17 @@ def mid_path(port, fk, losses, device_synth, smi, launches):
                           "mid_path", MID, "warp_rows")
 
 
-def epsilon_path(port, fk, losses, device_synth, smi, launches):
+def epsilon_path(port, fk, losses, device_synth, smi, launches, after):
     """Phase 28: a dense X of LIBSVM epsilon's shape (EPSILON: 400,000 x
     2,000 f32), where the margin kernel runs its stream mode
-    (``dense_fit_path``).  Returns the mode's numbers for the kernels
-    line."""
+    (``dense_fit_path``), then ``after(X, y, solo)`` on the same data
+    (phase 29).  Returns the mode's numbers for the kernels line."""
     return dense_fit_path(port, fk, losses, device_synth, smi, launches,
-                          "epsilon_path", EPSILON, "stream")
+                          "epsilon_path", EPSILON, "stream", after)
 
 
 def dense_fit_path(port, fk, losses, device_synth, smi, launches, path,
-                   cfg, want):
+                   cfg, want, after=None):
     """A dense fit phase: class-logistic data of ``cfg``'s shape made on
     the card (its seed), the flagship's AGD fit (reg 0.1, 40 iterations,
     tol 0) through ``run`` with ``FusedLogisticGradient``, every launch in
@@ -2134,7 +2158,9 @@ def dense_fit_path(port, fk, losses, device_synth, smi, launches, path,
     to the plain fit over their common iterations; the kernel at the
     fitted weights held to f64 sums (phase 3's tolerance) and timed
     beside its bound, its plain version and the two ``torch.matmul``
-    products, which it must beat.  Returns the mode's numbers."""
+    products, which it must beat; then ``after(X, y, solo)``, if given,
+    with ``solo`` the run's ``(AGDResult, loss history, wall seconds)``.
+    Returns the mode's numbers."""
     t_phase = time.perf_counter()
     n, d = cfg["n"], cfg["d"]
     (X, y), gen_s = timed(lambda: device_synth.class_logistic(
@@ -2215,6 +2241,8 @@ def dense_fit_path(port, fk, losses, device_synth, smi, launches, path,
         "shape_grad_max_abs_err_vs_f64": max_abs_err,
         "card_before": state_before, "card_after": state_after},
         checks, t_phase, smi)
+    if after is not None:
+        after(X, y, (res, hist, run_s))
     del X, y
     return {"shape": [n, d], "ms": kernel_ms,
             "device_ms": sum(kernel_device_ms.values()) or None,
@@ -2583,9 +2611,8 @@ def lanes_two_pass_times(fk, losses):
     mult = torch.randn((n, k), generator=gen, device="cuda")
     two_mm_ms = time_ms(lambda: (X @ W.T, mult.T @ X))
     times = [device_ms(lambda: X @ W.T), device_ms(lambda: mult.T @ X)]
-    b_ms, bound_by = bound_ms(n * d * 4 + 2 * n * 4 + 2 * k * d * 4 + k * 4,
-                              4 * n * d * k)
-    out = {"shape": [n, d], "lanes": k, "plan": list(plan[:5]),
+    b_ms, bound_by = lanes_bound_ms(n, d, k, 4)
+    out = {"shape": [n, d], "lanes": k, "plan": list(plan[:6]),
            "ms": kernel_ms,
            "device_ms": sum(kernel_device_ms.values()) or None,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": bound_by,
@@ -3121,64 +3148,146 @@ def margin_fit_ab(port, device_synth, names, builds, sms):
     return failed
 
 
-# --ab lanes: the lane counts and widths timed at LANES_AB_ROWS rows of
-# f32 X, then each lane bucket's widest one-read width and one past it
-# at LANES_AB_EDGE_ROWS
+# --ab lanes: three groups of shapes (--shapes picks among them):
+# "sweep", the lane counts and widths timed at LANES_AB_ROWS rows of f32
+# X; "edges", for each lane bucket, at LANES_AB_EDGE_ROWS: lanes_mma's
+# reach and the one-read reach (lanes_max_width) in f32, and the first
+# width the plan gives the cluster mode (lanes_cluster_min_width) in f32
+# and bf16, each with the column beside it on the other side; and
+# "handover", the widths that decide the plan's hand-overs
+# (LANES_AB_HANDOVER: lanes_mma's reach and one past it, the tile's
+# widest at 8 and 16 lanes and one past it, LIBSVM epsilon's 2,000
+# columns at its 400,000 rows, CIFAR's 3,072, gisette's 5,000, 8,000 and
+# a gene panel's 40,000; 1,536-2,560 f32 and 2,560-12,000 bf16 columns
+# at 1 and 2 lanes, where the tile holds several rows; bf16 1,280-2,314
+# at 4 and 8 lanes, where lanes_mma's block holds them).  The first
+# build that can force a mode (lanes_mode_plan) also runs the modes of
+# LANES_AB_FORCED that take the width (the number: a cluster's blocks)
+# at the shapes of the edges and handover groups.
 LANES_AB_ROWS, LANES_AB_EDGE_ROWS = 10_000_000, 100_003
 LANES_AB_WIDTHS = (64, 256, 512, 1_000)
 LANES_AB_K = (1, 2, 4, 8, 16)
+LANES_AB_GROUPS = ("sweep", "edges", "handover")
+_F32, _BF16, _E = torch.float32, torch.bfloat16, LANES_AB_EDGE_ROWS
+LANES_AB_HANDOVER = (  # (rows, width, X's dtype, lane counts)
+    (_E, 1_394, _F32, (8,)), (_E, 1_395, _F32, (1, 2, 4, 8)),
+    (_E, 1_024, _F32, (16,)), (_E, 1_025, _F32, (16,)),
+    (_E, 1_156, _F32, (16,)), (_E, 1_157, _F32, (16,)),
+    (EPSILON["n"], EPSILON["d"], _F32, (1, 2, 4, 8, 16)),
+    (_E, 2_224, _F32, (8,)), (_E, 2_225, _F32, (8,)),
+    (_E, 3_072, _F32, (1, 2, 4, 8, 16)), (_E, 4_131, _F32, (4,)),
+    (_E, 4_132, _F32, (4,)), (_E, 5_000, _F32, (1, 2, 4, 8)),
+    (_E, 8_000, _F32, (1, 2)), (_E, 40_000, _F32, (8,)),
+    (_E, 1_536, _F32, (1, 2)), (_E, 1_792, _F32, (1, 2)),
+    (_E, 2_048, _F32, (1, 2)), (_E, 2_304, _F32, (1, 2)),
+    (_E, 2_560, _F32, (1, 2)), (_E, 2_560, _BF16, (1, 2)),
+    (_E, 3_072, _BF16, (1, 2)), (_E, 3_584, _BF16, (1, 2)),
+    (_E, 4_096, _BF16, (1, 2)), (_E, 4_097, _BF16, (1, 2)),
+    (_E, 6_000, _BF16, (1, 2)), (_E, 8_000, _BF16, (1, 2)),
+    (_E, 10_000, _BF16, (1, 2)), (_E, 12_000, _BF16, (1, 2)),
+    (_E, 12_000, _F32, (1, 2)),
+    (_E, 1_280, _BF16, (4, 8)), (_E, 1_536, _BF16, (4, 8)),
+    (_E, 2_048, _BF16, (8,)), (_E, 2_049, _BF16, (1, 2, 4, 8, 16)),
+    (_E, 2_313, _BF16, (8,)), (_E, 2_314, _BF16, (8,)),
+    (_E, 5_000, _BF16, (1, 2, 4, 8, 16)))
+LANES_AB_FORCED = (("lanes_mma", 0), ("lanes_tile", 0), ("lanes_cluster", 2),
+                   ("lanes_cluster", 4), ("lanes_cluster", 8),
+                   ("lanes_cluster", 16), ("lanes_two_pass", 0))
 
 
-def lanes_ab(fk, specs):
+def lanes_bound_ms(n, d, k, itemsize):
+    """The lanes kernel's bound: X, y and the mask read once, W read and
+    the gradients written once, against 4 N D K f32 flops."""
+    return bound_ms(n * d * itemsize + 2 * n * 4 + 2 * k * d * 4 + k * 4,
+                    4 * n * d * k)
+
+
+def lanes_ab(fk, specs, groups=LANES_AB_GROUPS):
     """``--ab lanes:NAME=SOURCE ...``: builds of the lanes kernel (copies
     of ``csrc/margin_lanes_loss_grad.cu`` with its C interface) timed in
-    turns at LANES_AB_WIDTHS x LANES_AB_K, logistic, f32, each held to
-    f64 sums lane by lane, with the two ``torch.matmul`` products on (D,
-    K) timed each alone and as a pair; then the ``lanes_max_width`` edges
-    (of the first build) at fewer rows.  One ``ab_lanes`` line a shape."""
+    turns at the shapes of ``groups`` (see LANES_AB_GROUPS), logistic,
+    each held to f64 sums lane by lane, with the two ``torch.matmul``
+    products on (D, K) timed each alone and as a pair; at the edges and
+    handover shapes also the forced modes of LANES_AB_FORCED through the
+    first build that can force them (``NAME:MODE`` and a cluster's
+    blocks).  One ``ab_lanes`` line a shape and lane count."""
     names, builds = ab_builds(specs, lambda src: fk.lanes_library(src)[::-1])
     dev = torch.device("cuda")
     sms = fk._device_sms(0)
-    first_lib = builds[0][1]
-    edges = sorted({(int(first_lib.lanes_max_width(k, 4)) + e, k)
-                    for k in LANES_AB_K for e in (0, 1)})
-    shapes = [(LANES_AB_ROWS, d, LANES_AB_K) for d in LANES_AB_WIDTHS]
-    shapes += [(LANES_AB_EDGE_ROWS, d, (k,)) for d, k in edges]
+    shapes = []
+    if "sweep" in groups:
+        shapes += [(LANES_AB_ROWS, d, _F32, LANES_AB_K, False)
+                   for d in LANES_AB_WIDTHS]
+    if "edges" in groups:
+        # the edges of the first build that knows the cluster mode's
+        lib = next((b[1] for b in builds
+                    if hasattr(b[1], "lanes_cluster_min_width")), builds[0][1])
+        edges = {(int(lib.lanes_max_width(k, 4)) + e, 4, k)
+                 for k in LANES_AB_K for e in (0, 1)}
+        if hasattr(lib, "lanes_cluster_min_width"):
+            edges |= {(int(lib.lanes_mma_max_width(k, 4)) + e, 4, k)
+                      for k in LANES_AB_K for e in (0, 1)}
+            edges |= {(int(lib.lanes_cluster_min_width(k, it)) + e, it, k)
+                      for k in LANES_AB_K for it in (4, 2) for e in (-1, 0)}
+        shapes += [(_E, d, _F32 if it == 4 else _BF16, (k,), True)
+                   for d, it, k in sorted(edges)]
+    if "handover" in groups:
+        shapes += [shape + (True,) for shape in LANES_AB_HANDOVER]
     failed = []
-    for n, d, ks in shapes:
+    for n, d, xt, ks, force in shapes:
         gen = torch.Generator(device=dev)
         gen.manual_seed(d)
-        X = torch.randn((n, d), generator=gen, device=dev)
+        X = torch.randn((n, d), generator=gen, device=dev).to(xt)
         y = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
         staged = fk.stage_dense(X, y)
+        itemsize = X.element_size()
         for k in ks:
             W = torch.randn((k, d), generator=gen, device=dev) / d ** 0.5
             exact = margin_lanes_f64(W, staged)
-            mult = torch.randn((n, k), generator=gen, device=dev)
-            b_ms, bound_by = bound_ms(n * d * 4 + 2 * n * 4 + 2 * k * d * 4
-                                      + k * 4, 4 * n * d * k)
+            mult = torch.randn((n, k), generator=gen, device=dev).to(xt)
+            b_ms, bound_by = lanes_bound_ms(n, d, k, itemsize)
             out = {"phase": "ab_lanes", "shape": [n, d], "lanes": k,
+                   "x_dtype": str(xt).replace("torch.", ""),
                    "bound_ms": b_ms, "bound_by": bound_by,
                    "grad_abs_max": float(exact[1].abs().max()),
                    "card_before": card_state()}
+            # each build's own plan, then the forced modes that the first
+            # build able to force them runs here
+            entries = [(name, b[1], fk.lanes_plan_for(b[1], n, d, k,
+                                                      itemsize, sms))
+                       for name, b in zip(names, builds)]
+            for name, lib, own in list(entries):
+                if not force or not hasattr(lib, "lanes_mode_plan"):
+                    continue
+                for mode, c in LANES_AB_FORCED:
+                    try:
+                        p = fk.lanes_mode_plan_for(lib, n, d, k, itemsize,
+                                                   sms, mode, c)
+                    except ValueError:
+                        continue
+                    if p.raw != own.raw:
+                        entries.append((f"{name}:{mode}{c or ''}", lib, p))
+                break
+            by_name = {name: (lib, p) for name, lib, p in entries}
 
-            def call_of(b, W=W):
-                lib = b[1]
-                p = fk.lanes_plan_for(lib, n, d, k, 4, sms)
+            def call_of(name, W=W):
+                lib, p = by_name[name]
                 return (lambda: fk.lanes_launch(lib, 0, W, staged, p)), \
-                    (p.mode, *p[1:5])
+                    (p.mode, *p[1:6])
 
-            failed += in_turns(names, builds, out, call_of, exact,
-                               f"{n}x{d}, K = {k}")
-            out["xw_ms"] = time_ms(lambda: X @ W.T)
+            failed += in_turns(list(by_name), list(by_name), out, call_of,
+                               exact, f"{n}x{d}, K = {k}")
+            Wx = W.to(xt)
+            out["xw_ms"] = time_ms(lambda: X @ Wx.T)
             out["mx_ms"] = time_ms(lambda: mult.T @ X)
-            out["two_matmuls_ms"] = time_ms(lambda: (X @ W.T, mult.T @ X))
-            times = [device_ms(lambda: X @ W.T), device_ms(lambda: mult.T @ X)]
+            out["two_matmuls_ms"] = time_ms(lambda: (X @ Wx.T, mult.T @ X))
+            times = [device_ms(lambda: X @ Wx.T),
+                     device_ms(lambda: mult.T @ X)]
             out["two_matmuls_device_ms"] = (sum(sum(t.values()) for t in times)
                                             if all(times) else None)
             out["card_after"] = card_state()
             emit(out)
-            del W, mult, exact
+            del W, Wx, mult, exact
         del X, y, staged
         torch.cuda.empty_cache()
     if failed:
@@ -3191,9 +3300,10 @@ def lanes_ab(fk, specs):
 # ---------------------------------------------------------------------------
 
 # phase 21: every lane bucket edge (1, 2, 4, 8, 16) and one chunk past the
-# largest, at widths across both modes ("max": the widest X read once for
-# that bucket and dtype, resolved on the card), LANES_ROWS rows up to
-# 1,000 columns and LANES_WIDE_ROWS past them
+# largest, at widths across the modes (and, resolved on the card for each
+# bucket and dtype, lanes_mma's reach, the column before the cluster
+# mode's first, the widest X read once and one column past each),
+# LANES_ROWS rows up to 1,024 columns and LANES_WIDE_ROWS past them
 LANES_K = (1, 2, 3, 8, 16, 17, 20)
 LANES_WIDTHS = (1, 2, 33, 1_000, 1_001, 1_024, 40_000)
 LANES_ROWS, LANES_WIDE_ROWS = 100_003, 3_000
@@ -3265,13 +3375,18 @@ def phase_lanes_kernel(fk, losses):
         torch.empty((1, 1), device=dev), min(k, chunk)).bucket
         for k in LANES_K})
     worst, modes, cases = [0.0, 0.0], {}, 0
-    limits = {}
+    limits, reaches, starts = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
         limits[kind] = {b: fk.lanes_max_width(b, dtype) for b in buckets}
-        widths = sorted(set(LANES_WIDTHS) | {w + e for w in
-                                             limits[kind].values()
-                                             for e in (0, 1)})
+        reaches[kind] = {b: fk.lanes_mma_max_width(b, dtype)
+                         for b in buckets}
+        starts[kind] = {b: fk.lanes_cluster_min_width(b, dtype)
+                        for b in buckets}
+        edges = {b: {w + e for w in (limits[kind][b], reaches[kind][b],
+                                     starts[kind][b] - 1)
+                     for e in (0, 1)} for b in buckets}
+        widths = sorted(set(LANES_WIDTHS).union(*edges.values()))
         for d in widths:
             n = LANES_ROWS if d <= 1_024 else LANES_WIDE_ROWS
             gen = torch.Generator(device=dev)
@@ -3281,13 +3396,15 @@ def phase_lanes_kernel(fk, losses):
             m = (torch.rand(n, generator=gen, device=dev) < 0.7).float()
             for k in LANES_K:
                 plan = fk.lanes_launch_shape(X, min(k, chunk))
-                edge = d in (limits[kind][plan.bucket],
-                             limits[kind][plan.bucket] + 1)
-                if d not in LANES_WIDTHS and not edge:
+                b = plan.bucket
+                if d not in LANES_WIDTHS and d not in edges[b]:
                     continue
-                want = (("lanes_mma", "lanes_tile")
-                        if d <= limits[kind][plan.bucket]
-                        else ("lanes_two_pass",))
+                # the width rule: one block a row below the cluster mode's
+                # first width, the cluster mode up to the widest X read
+                # once, the two-pass mode past it
+                want = (("lanes_two_pass",) if d > limits[kind][b]
+                        else ("lanes_cluster",) if d >= starts[kind][b]
+                        else ("lanes_mma", "lanes_tile"))
                 if plan.mode not in want:
                     raise AssertionError(f"lanes plan at d={d}, k={k}, "
                                          f"{kind}: {plan.mode}, not {want}")
@@ -3309,6 +3426,8 @@ def phase_lanes_kernel(fk, losses):
     emit({"phase": "lanes_kernel", "cases": cases,
           "lanes": list(LANES_K), "max_lanes": chunk,
           "one_read_max_width_by_bucket": limits,
+          "lanes_mma_max_width_by_bucket": reaches,
+          "cluster_min_width_by_bucket": starts,
           "plans_by_mode": modes, "max_loss_rel_err": worst[0],
           "max_grad_abs_err": worst[1],
           "seconds": time.perf_counter() - t0})
@@ -3361,16 +3480,20 @@ def hold_sweep(res, ref, checks, label):
             f"{label}_num_restarts": res.num_restarts.tolist()}
 
 
-def sweep_path(port, fk, losses, smi, X, y, solo, launches):
-    """Phase 22, on phase 5's data: the regularization path over
+def sweep_path(port, fk, losses, smi, X, y, solo, launches,
+               path="sweep_path", want=None):
+    """Phase 22, on phase 5's data (and phase 29, ``path`` =
+    "epsilon_sweep", on phase 28's): the regularization path over
     SWEEP_REGS through ``FusedLogisticGradient`` (every launch the lanes
-    kernel, one per evaluation round), each lane held to the plain sweep
-    and the 0.1 lane to phase 5's solo fit; the kernel at 10M x 1000, K =
-    8 held to f64 sums and timed.  Returns the lanes kernel's entry of the
-    kernels line."""
+    kernel, one per evaluation round, and with ``want`` every launch in
+    that mode), each lane held to the plain sweep and the 0.1 lane to the
+    solo fit ``solo`` on the same data (``(AGDResult, loss history, wall
+    seconds)``); the kernel at this shape, K = 8, held to f64 sums and
+    timed.  Returns the lanes kernel's entry of the kernels line."""
     t_phase = time.perf_counter()
     k = len(SWEEP_REGS)
-    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    n, d = X.shape
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
     fused = counting_lanes(port.FusedLogisticGradient)()
 
     def opt(gradient):
@@ -3383,14 +3506,16 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches):
     lanes_launches, rounds = fk.lanes_launch_count, fused.rounds
     modes = {m: c for m, c in fk.lanes_mode_launches.items() if c}
     other = fk.launch_count + fk.softmax_launch_count
-    launches["sweep_path"] = lanes_launches
-    launches.setdefault("lanes_modes", {})["sweep_path"] = modes
+    launches[path] = lanes_launches
+    launches.setdefault("lanes_modes", {})[path] = modes
     plain, plain_s = timed(lambda: opt(port.LogisticGradient()).sweep(
         (X, y), SWEEP_REGS, w0))
     checks = {"launches_equal_rounds": lanes_launches == rounds > 0,
               "only_the_lanes_kernel": other == 0,
-              "weights_shape": tuple(res.weights.shape) == (k, D_MAIN)}
-    out = {"shape": [N_MAIN, D_MAIN], "regs": SWEEP_REGS,
+              "weights_shape": tuple(res.weights.shape) == (k, d)}
+    if want is not None:
+        checks[f"every_launch_{want}"] = modes == {want: lanes_launches}
+    out = {"shape": [n, d], "regs": SWEEP_REGS,
            "iterations": ITERS, "sweep_s": sweep_s, "plain_sweep_s": plain_s,
            "solo_run_s": solo[2], "eight_solo_runs_s": k * solo[2],
            "rounds": rounds, "launches": lanes_launches, "modes": modes,
@@ -3412,13 +3537,11 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches):
     staged = fk.stage_dense(X, y)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
-    W_rand = torch.randn((k, D_MAIN), generator=gen, device="cuda") \
-        / D_MAIN ** 0.5
-    loss, grad = repeat_lanes(fk, gradient, W_rand, staged,
-                              "sweep-path shape")
+    W_rand = torch.randn((k, d), generator=gen, device="cuda") / d ** 0.5
+    loss, grad = repeat_lanes(fk, gradient, W_rand, staged, f"{path} shape")
     exact_loss, exact_grad = margin_lanes_f64(W_rand, staged)
     loss_err, max_abs_err = hold_lanes(loss, grad, exact_loss, exact_grad,
-                                       "sweep-path shape vs f64 sums")
+                                       f"{path} shape vs f64 sums")
     out["grad_abs_max_f64_random_w"] = float(exact_grad.abs().max())
     W = res.weights.contiguous()
     _, exact_grad = margin_lanes_f64(W, staged)
@@ -3443,7 +3566,7 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches):
     kernel_device_ms = device_ms(lanes_call)
     plain_ms = time_ms(lambda: fk.fused_margin_lanes_loss_grad_reference(
         gradient, W, staged))
-    mult = torch.randn((N_MAIN, k), device="cuda")
+    mult = torch.randn((n, k), device="cuda")
     two_mm_ms = time_ms(lambda: (X @ W.T, mult.T @ X))
     times = [device_ms(lambda: X @ W.T), device_ms(lambda: mult.T @ X)]
     two_mm_device_ms = (sum(sum(t.values()) for t in times)
@@ -3452,9 +3575,8 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches):
                                                          staged)
                                for i in range(k)])
     state_after = card_state()
-    n, d = X.shape
-    b_ms, bound_by = bound_ms(n * d * 4 + 2 * n * 4 + 2 * k * d * 4 + k * 4,
-                              4 * n * d * k)
+    b_ms, bound_by = lanes_bound_ms(n, d, k, 4)
+    plan = fk.lanes_launch_shape(X, k)
     out.update({
         "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
         "bound_ms": b_ms, "bound_by": bound_by,
@@ -3464,12 +3586,14 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches):
         "two_matmuls_device_ms": two_mm_device_ms,
         "eight_solo_launches_ms": solo_ms,
         "kernel_share_of_sweep_wall": rounds * kernel_ms / (sweep_s * 1e3),
-        "plan": list(fk.lanes_launch_shape(X, k)[:5]),
+        "plan": list(plan[:6]),
         "loss_rel_err_vs_f64": loss_err,
         "grad_max_abs_err_vs_f64": max_abs_err,
         "card_before": state_before, "card_after": state_after})
+    if want is not None:
+        checks["plan_mode"] = plan.mode == want
     del staged, mult
-    finish("sweep_path", out, checks, t_phase, smi)
+    finish(path, out, checks, t_phase, smi)
     return {"name": "margin_lanes_loss_grad", "route": "cuda",
             "source": "spark_agd_tpu_torch/csrc/margin_lanes_loss_grad.cu",
             "replaces": "spark_agd_tpu/ops/pallas_kernels.py:207",
@@ -3485,7 +3609,7 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches):
             "device_ms": sum(kernel_device_ms.values()) or None,
             "two_matmuls_device_ms": two_mm_device_ms,
             "eight_solo_launches_ms": solo_ms, "lanes": k,
-            "shape": [N_MAIN, D_MAIN]}
+            "shape": [n, d], "plan": list(plan[:6])}
 
 
 class _LbfgsLane:
@@ -3671,6 +3795,9 @@ def main(argv):
                              "phases")
     parser.add_argument("--seeds", default="3",
                         help="data seeds of --ab, comma-separated")
+    parser.add_argument("--shapes", default=",".join(LANES_AB_GROUPS),
+                        help="the shape groups of --ab lanes:, "
+                             "comma-separated (sweep, edges, handover)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3705,7 +3832,10 @@ def main(argv):
         elif kind == "margin":
             margin_ab(port, fk, device_synth, specs)
         elif kind == "lanes":
-            lanes_ab(fk, specs)
+            groups = args.shapes.split(",")
+            if not set(groups) <= set(LANES_AB_GROUPS):
+                parser.error(f"--shapes takes {', '.join(LANES_AB_GROUPS)}")
+            lanes_ab(fk, specs, groups)
         else:
             softmax_ab(port, fk, device_synth, specs,
                        [int(s) for s in args.seeds.split(",")])
@@ -3767,8 +3897,14 @@ def main(argv):
     torch.cuda.empty_cache()
     mid = mid_path(port, fk, losses, device_synth, smi, launches)
     torch.cuda.empty_cache()
-    # 28. LIBSVM epsilon's shape: the stream mode
-    epsilon = epsilon_path(port, fk, losses, device_synth, smi, launches)
+    # 28-29. LIBSVM epsilon's shape: the stream mode, then the path over 8
+    # strengths in the lanes kernel's cluster mode
+    epsilon_sweep = {}
+    epsilon = epsilon_path(
+        port, fk, losses, device_synth, smi, launches,
+        lambda X, y, solo: epsilon_sweep.update(sweep_path(
+            port, fk, losses, smi, X, y, solo, launches, "epsilon_sweep",
+            "lanes_cluster")))
     torch.cuda.empty_cache()
     linreg_path(port, fk, device_synth, glm, smi, launches)
     torch.cuda.empty_cache()
@@ -3821,11 +3957,24 @@ def main(argv):
             "kernel_bound_frac", "two_matmuls_ms", "two_matmuls_device_ms",
             "grad_max_abs_err_vs_f64")}
             for name, row in wide_softmax.items()}}
-    lanes_paths = ("sweep_path", "cv_path", "lbfgs_sweep_path")
+    lanes_paths = ("sweep_path", "cv_path", "lbfgs_sweep_path",
+                   "epsilon_sweep")
     lanes["launches_by_path"] = {p: launches[p] for p in lanes_paths}
     lanes["modes_by_path"] = {p: launches["lanes_modes"][p]
-                              for p in ("sweep_path", "lbfgs_sweep_path")}
-    lanes["by_mode"] = {"lanes_two_pass": lanes_two_pass}
+                              for p in ("sweep_path", "lbfgs_sweep_path",
+                                        "epsilon_sweep")}
+    # each mode's numbers at a shape of a path that runs it: lanes_mma's
+    # at the main path's (the entry's own), lanes_cluster's at epsilon's
+    lanes["by_mode"] = {
+        "lanes_mma": {key: lanes[key] for key in (
+            "shape", "plan", "ms", "device_ms", "plain_ms", "bound_ms",
+            "two_matmuls_ms", "two_matmuls_device_ms",
+            "eight_solo_launches_ms")},
+        "lanes_cluster": {key: epsilon_sweep[key] for key in (
+            "shape", "plan", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "two_matmuls_ms", "two_matmuls_device_ms",
+            "eight_solo_launches_ms", "max_abs_err")},
+        "lanes_two_pass": lanes_two_pass}
     for entry, lib in ((margin, "margin_loss_grad"),
                        (lanes, "margin_lanes_loss_grad"),
                        (softmax, "softmax_loss_grad")):

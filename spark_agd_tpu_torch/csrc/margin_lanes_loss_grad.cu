@@ -19,14 +19,20 @@
 // lane, the solo kernel (margin_loss_grad.cu) would read X K times; the
 // two library products (X @ W^T, then M^T @ X) read it twice.
 //
-// lanes_plan picks the mode.  K is compiled in buckets (1, 2, 4, 8, 16
+// lanes_plan picks one of four modes by width and lanes: the tensor-core
+// mode (lanes_mma) and the tile mode (lanes_tile) while one block's
+// shared memory holds the lanes' W beside a row tile, the cluster mode
+// (lanes_cluster) from where lanes_mma's block stops fitting up to the
+// reach of a 16-block cluster, and the two-pass mode past that: each
+// hand-over where `--ab lanes:` of chip_smoke.py timed the next mode
+// faster (cluster_from).  K is compiled in buckets (1, 2, 4, 8, 16
 // lanes; the lanes past K read zero weights and are not written), so one
 // launch takes up to kMaxLanes lanes and the wrapper runs more in chunks.
-// Every mode writes per-block partials that lanes_reduce sums in block
-// order, with no float atomics, so two calls on the same inputs give the
-// same bits.  X may be f32 or bf16 (widened to f32 in registers); y, m, W
-// and every accumulator are f32.  Ragged rows and columns are masked
-// here, so X needs no padding.
+// Every mode writes per-block (cluster mode: per-cluster) partials that
+// lanes_reduce sums in block order, with no float atomics, so two calls
+// on the same inputs give the same bits.  X may be f32 or bf16 (widened
+// to f32 in registers); y, m, W and every accumulator are f32.  Ragged
+// rows and columns are masked here, so X needs no padding.
 //
 // Tensor-core mode (from 8 lanes at every width it takes, 4 lanes past
 // 512 columns: where the `--ab lanes:` sweep found it faster than the
@@ -47,21 +53,30 @@
 // tiles a warp) or shared memory, the lanes keep the tile mode.
 //
 // Tile mode (one read of X, while the lanes' W, gradient partial and its
-// compensation, three KB x D f32 arrays, fit in shared memory beside two
-// tiles of at least one row: lanes_max_width): every block walks a contiguous range of rows
-// in tiles, the next tile copied with cp.async while the block computes
-// on the current one.  The K dots: a warp takes a group of R rows, each
-// lane summing every 32nd column of the R rows against every lane's
-// weights (R*KB sums in registers, each weight read from shared memory
-// once for R rows), then a shuffle tree; lane (r, k) of the warp applies
-// lane k's middle to row r and writes m * mult to the tile's (rows x KB)
-// multipliers.  The gradient: each thread owns kCols columns at a time
-// and sums mult[r][k] * x[r][c] over the tile into kCols x KB registers
-// (each row's KB multipliers read as broadcast vectors once for kCols
-// columns), then adds them to the block's partial in shared memory with
-// a compensated (Kahan) sum: a block walks some 75,000 rows at 10M rows,
-// and near an optimum the gradient is a small difference of large
-// partial sums, which plain f32 adds of each tile would blur.
+// compensation, three KB x D f32 arrays, fit in shared memory beside two tiles
+// of at least one row: choose_tile_rows): every block walks a contiguous
+// range of rows in tiles, the next tile copied with cp.async while the block
+// computes on the current one.  The K dots: a warp takes a group of R rows,
+// each lane summing every 32nd column of the R rows against every lane's
+// weights (R*KB sums in registers, each weight read from shared memory once for
+// R rows), then a shuffle tree; lane (r, k) of the warp applies lane k's middle
+// to row r and writes m * mult to the tile's (rows x KB) multipliers.  The
+// gradient: each thread owns kCols columns at a time and sums mult[r][k] *
+// x[r][c] over the tile into kCols x KB registers (each row's KB multipliers
+// read as broadcast vectors once for kCols columns), then adds them to the
+// block's partial in shared memory with a compensated (Kahan) sum: a block
+// walks some 75,000 rows at 10M rows, and near an optimum the gradient is a
+// small difference of large partial sums, which plain f32 adds of each tile
+// would blur.
+//
+// Cluster mode (from cluster_from to lanes_max_width): what held these
+// widths back was one block a row.  lanes_tile past lanes_mma's reach
+// holds 1-2 rows a tile beside the lanes' K x D arrays, one 256-thread
+// block an SM; the two-pass mode reads X twice, and W from L2 for every
+// row.  Here a thread block cluster of 2-16 blocks holds each 16-row tile
+// split by columns, each block lanes_mma's design over its slice, the
+// partial dots swapped through distributed shared memory, so X is read
+// once (details at lanes_cluster).
 //
 // Two-pass mode (past lanes_max_width): pass 1 gives each row a warp
 // that reads it from device memory (W from L1/L2) and writes the K
@@ -71,9 +86,12 @@
 // TPU wrapper's two library products do past its VMEM budget.  This mode
 // has no width limit.
 
-#include "tile_common.cuh"
+#include <atomic>
+
+#include "cluster_common.cuh"
 #include "margin_middle.cuh"
 #include "tf32_mma.cuh"
+#include "tile_common.cuh"
 
 namespace {
 
@@ -559,6 +577,361 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
 }
 
+// ---- cluster mode -----------------------------------------------------
+//
+// Past what one block's shared memory holds (lanes_mma's W and two
+// 16-row tiles, lanes_tile's three K x D arrays beside a row), a thread
+// block cluster of C = 2-16 blocks of kMmaThreads threads, one an SM,
+// holds each 16-row tile of the cluster's contiguous row range split by
+// columns: block (rank) q owns the column slice [q S, q S + S) (S =
+// cluster_slice(d, C), a multiple of kSliceAlign; the last block the
+// rest), with W's slice in shared memory (8 NT x mma_w_stride(S) floats,
+// zero past lane k and the slice) and a ring of `stages` 16-row stages of
+// row slices, each row slice placed at its address modulo 16 and filled
+// by one cp.async.bulk of the 16-byte chunks that cover it, issued by a
+// warp of its own, all of a stage completing on the stage's mbarrier
+// (issue_stage: rows aligned or not; the elements at X's ends that fill
+// no chunk copied plainly).
+// Each block forms its partial Z (16 x 8 NT) = X_slice W_slice^T on the
+// tensor cores, as lanes_mma does (warp w the 8-column steps w, w +
+// kMmaWarps, ... of the slice; the warps' partials added in warp order),
+// and stores the live entries (rows of the tile, lanes below k) into
+// every block's shared memory (distributed shared memory, st.async), in
+// its own rank's slot, counted on the receiver's mbarrier; the slots and
+// their mbarriers alternate by tile parity, as in the margin kernel's
+// cluster mode (a block stores tile s + 2's partials only after it has
+// received every peer's of tile s + 1, which each peer sends after
+// reading its slots of tile s).  Each block adds the C partials in rank
+// order, so every block holds the same dots, and applies the middle
+// itself (loss_middle_of, chosen at run time: one instantiation serves
+// the three losses); rank 0 alone counts the loss.  The gradient of the
+// block's slice, G^T (S x 8 NT) += X_slice^T M, runs as in lanes_mma:
+// each warp owns fixed m16 tiles of the slice for the cluster's whole
+// row range, their sums and Kahan compensations in registers.  X crosses
+// the bus once.  Each cluster writes one loss partial and its gradient
+// partial, which lanes_reduce sums in cluster order.  The cluster's size
+// and the grid come from cudaOccupancyMaxActiveClusters (lanes_plan).
+constexpr int kLanesClusterMaxStages = 4;
+constexpr int kLanesClusterMinStages = 2;
+
+// Shared-memory layout of one block of the cluster mode (byte offsets):
+// the stages' mbarriers (kLanesClusterMaxStages) and the two parities'
+// partial-dot mbarriers at 0, the warps' partial dots (kMmaWarps x 16 x
+// mma_lane_stride), the two parities' slots of the ranks' partial dots
+// (c ranks x 16 rows x 8 NT lanes each), the tile's multipliers, W's
+// slice, then the ring (stages x 16 row slices, each 16-byte aligned with
+// 16 bytes of slack, so that its byte offset modulo 16 can match its
+// address in device memory; for f32 a row's stride is S + 4 floats, so
+// that the lanes of an A fragment load hit distinct banks).
+struct LanesClusterLayout {
+  int64_t zp, slot, mult, w, ring, row_stride, stage, total;
+};
+
+__host__ __device__ inline LanesClusterLayout lanes_cluster_layout(
+    int64_t slice, int nt, int c, int stages, int itemsize) {
+  const int ls = mma_lane_stride(nt);
+  LanesClusterLayout s;
+  s.zp = 8 * (kLanesClusterMaxStages + 2);
+  s.slot = s.zp + 4 * kMmaWarps * kMmaRows * ls;
+  s.mult = s.slot + 4 * 2 * int64_t(c) * kMmaRows * 8 * nt;
+  s.w = round_up(s.mult + 4 * kMmaRows * ls, 16);
+  s.ring = round_up(s.w + 4 * 8 * nt * mma_w_stride(slice), 128);
+  s.row_stride = round_up(slice * itemsize, 16) + kTileSlack;
+  s.stage = kMmaRows * s.row_stride;
+  s.total = s.ring + stages * s.stage;
+  return s;
+}
+
+// The ring's stages for kb lanes over X of width d in clusters of c
+// blocks (as many as fit, at most kLanesClusterMaxStages), or 0 where
+// kLanesClusterMinStages do not fit, the slice's m16 tiles are past the
+// registers (kMmaMaxTiles), or the last block would own no column.
+int lanes_cluster_stages(int64_t d, int kb, int c, int itemsize) {
+  const int64_t slice = cluster_slice(d, c);
+  const int nt = kb <= 8 ? 1 : 2;
+  const int mt = mma_tiles(slice);
+  if (d - (c - 1) * slice < 1 || mt < 1 || mt * nt > kMmaMaxTiles) return 0;
+  for (int st = kLanesClusterMaxStages; st >= kLanesClusterMinStages; --st)
+    if (lanes_cluster_layout(slice, nt, c, st, itemsize).total <= kSmemBlock)
+      return st;
+  return 0;
+}
+
+template <typename T, int NT, int MT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    lanes_cluster(const T* __restrict__ X, const float* __restrict__ y,
+                  const float* __restrict__ mask, const float* __restrict__ W,
+                  int64_t n, int64_t d, int k, int loss_kind, int stages,
+                  int slice, float* __restrict__ partial_loss,
+                  float* __restrict__ partial_grad) {
+  constexpr bool kXLo = sizeof(T) == 4;  // f32 X has a lo half
+  constexpr int LS = mma_lane_stride(NT);
+  constexpr int KB = 8 * NT;             // lanes computed, k of them live
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int rank = cluster_rank();
+  const int blocks = cluster_blocks();
+  const int64_t cid = cluster_id();
+  const int64_t clusters = cluster_count();
+  const LanesClusterLayout lay =
+      lanes_cluster_layout(slice, NT, blocks, stages, int(sizeof(T)));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* dots_bar = full + kLanesClusterMaxStages;  // a parity's slots
+  float* zp_s = reinterpret_cast<float*>(smem + lay.zp);
+  float* slot_s = reinterpret_cast<float*>(smem + lay.slot);
+  float* m_s = reinterpret_cast<float*>(smem + lay.mult);
+  float* w_s = reinterpret_cast<float*>(smem + lay.w);
+  unsigned char* ring = smem + lay.ring;
+  // 32-bit offsets in the ring, and the slice's first column: fewer
+  // registers held across the row loop (the 8-tile build spilled more)
+  const int row_stride = int(lay.row_stride), stage_bytes = int(lay.stage);
+  const int ws = int(mma_w_stride(slice));
+  const int c0 = rank * slice;
+  // this block's columns (at most slice)
+  const int cols = int(rank == blocks - 1 ? d - c0 : slice);
+  const int ksteps = (cols + 7) / 8;    // 8-column steps of the dots
+  const int mtiles = (cols + 15) / 16;  // 16-column m-tiles of the gradient
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t rows_per_cluster = (n + clusters - 1) / clusters;
+  const int64_t r_begin = min64(n, cid * rows_per_cluster);
+  const int64_t r_end = min64(n, r_begin + rows_per_cluster);
+  const int tiles = int((r_end - r_begin + kMmaRows - 1) / kMmaRows);
+
+  for (int i = tid; i < KB * ws; i += kMmaThreads) {
+    const int kk = i / ws, c = i % ws;
+    w_s[i] = kk < k && c < cols ? W[int64_t(kk) * d + c0 + c] : 0.f;
+  }
+  static_assert(kMmaWarps == kMmaRows, "a warp issues a row of a stage");
+  if (tid == 0) {
+    for (int b = 0; b < kLanesClusterMaxStages; ++b)
+      mbar_init(&full[b], kMmaRows);
+    for (int b = 0; b < 2; ++b) mbar_init(&dots_bar[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();
+
+  // Fill tile s's stage: row r's slice by lane 0 of warp r, one bulk copy
+  // of the 16-byte chunks that cover it (the elements at X's ends that
+  // fill no chunk copied plainly first), its bytes expected on the
+  // stage's mbarrier with the warp's arrival (kMmaRows arrivals a phase; a
+  // row past the tile arrives with none).  One thread issuing a stage's
+  // 16 copies in turn took 1.6-1.7x as long a tile (PERF.md).
+  auto issue = [&](int s) {
+    if (lane != 0) return;
+    const int64_t row = r_begin + int64_t(s) * kMmaRows + warp;
+    unsigned char* dst = ring + (s % stages) * stage_bytes + warp * row_stride;
+    uint64_t* bar = &full[s % stages];
+    if (row < r_end) {
+      const T* a = X + row * d + c0;
+      issue_stage(dst, a, a + cols, X, X + n * d, bar);
+    } else {
+      mbar_expect_bytes(bar, 0);
+    }
+  };
+  for (int s = 0; s < stages && s < tiles; ++s) issue(s);
+
+  float acc[MT][NT][4], comp[MT][NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][nt][i] = comp[m][nt][i] = 0.f;
+  // this thread's place in the middle: row mr of the tile, lane mk
+  const bool mid = tid < kMmaRows * KB;
+  const int mr = tid / KB, mk = tid % KB;
+  Kahan loss_acc;
+
+  for (int s = 0; s < tiles; ++s) {
+    const int64_t row0 = r_begin + int64_t(s) * kMmaRows;
+    const int rows = int(min64(kMmaRows, r_end - row0));
+    const bool live = mid && mr < rows && mk < k;
+    const float yv = live ? y[row0 + mr] : 0.f;
+    const float mv = live ? mask[row0 + mr] : 0.f;
+    mbar_wait(&full[s % stages], uint32_t((s / stages) & 1));
+    // every thread is done with the last tile (its stage, the partial
+    // dots, the multipliers): refill its stage
+    __syncthreads();
+    if (s >= 1 && s - 1 + stages < tiles) issue(s - 1 + stages);
+    const T* xs = reinterpret_cast<const T*>(ring + (s % stages) * stage_bytes);
+    // where row r of the tile starts in xs (r below rows): its slice sits
+    // at its address modulo 16
+    auto row_at = [&](int r) {
+      return int((r * row_stride +
+                  (reinterpret_cast<uintptr_t>(X + (row0 + r) * d + c0) &
+                   15)) /
+                 int64_t(sizeof(T)));
+    };
+
+    // the block's partial dots: warp w sums the 8-column steps w, w +
+    // kMmaWarps, ...; rows past the tile and columns past the slice read
+    // as zeros
+    {
+      const int xa[2] = {row_at(g < rows ? g : 0),
+                         row_at(g + 8 < rows ? g + 8 : 0)};
+      const bool ra[2] = {g < rows, g + 8 < rows};
+      float big[NT][4], small[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) big[nt][i] = small[nt][i] = 0.f;
+      for (int st = warp; st < ksteps; st += kMmaWarps) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = st * 8 + t + 4 * (i >> 1);
+          split_x<T>(ra[i & 1] && c < cols ? to_f32(xs[xa[i & 1] + c]) : 0.f,
+                     ah[i], al[i]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t bh[2], bl[2], bl2[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            split_w(w_s[(nt * 8 + g) * ws + st * 8 + t + 4 * h], bh[h], bl[h],
+                    bl2[h]);
+          mma3<kXLo>(big[nt], small[nt], ah, al, bh, bl);
+          mma_tf32(small[nt], ah, bl2);  // x_hi w_lo2
+        }
+      }
+      float* zp = zp_s + warp * kMmaRows * LS;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          *reinterpret_cast<float2*>(zp + (g + 8 * h) * LS + nt * 8 + 2 * t) =
+              make_float2(big[nt][2 * h] + small[nt][2 * h],
+                          big[nt][2 * h + 1] + small[nt][2 * h + 1]);
+    }
+    __syncthreads();
+
+    // the block's partial of (row mr, lane mk), the warps' in order, into
+    // slot (rank, mr, mk) of every block of the cluster
+    float* slot = slot_s + (s & 1) * blocks * kMmaRows * KB;
+    uint64_t* bar = &dots_bar[s & 1];
+    if (tid == 0) mbar_expect_bytes(bar, uint32_t(blocks * rows * k * 4));
+    if (live) {
+      float p = 0.f;
+#pragma unroll
+      for (int w = 0; w < kMmaWarps; ++w)
+        p += zp_s[(w * kMmaRows + mr) * LS + mk];
+      for (int q = 0; q < blocks; ++q)
+        send_peer(&slot[(rank * kMmaRows + mr) * KB + mk], p, bar, q);
+    }
+    mbar_wait(bar, uint32_t((s >> 1) & 1));
+    // the middle: the whole dot, the same in every block (the ranks'
+    // partials in order); dead rows and lanes get 0
+    if (mid) {
+      float mm = 0.f;
+      if (live) {
+        float z = 0.f;
+        for (int q = 0; q < blocks; ++q)
+          z += slot[(q * kMmaRows + mr) * KB + mk];
+        float per, mult;
+        loss_middle_of(loss_kind, z, yv, &per, &mult);
+        mm = mult * mv;
+        if (rank == 0) loss_acc.add(per * mv);
+      }
+      m_s[mr * LS + mk] = mm;
+    }
+    __syncthreads();
+
+    // the gradient of the slice: M's fragments (the tile's two k8 steps
+    // of rows), split at each m-tile (fewer registers held across the
+    // m-tiles than the halves); then warp w's m-tiles
+    {
+      float mf[2][NT][2];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            mf[ks][nt][h] = m_s[(ks * 8 + t + 4 * h) * LS + nt * 8 + g];
+      // this thread's rows of the A fragments: t, t + 4, t + 8, t + 12
+      int xr[4];
+      bool rr[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        rr[j] = t + 4 * j < rows;
+        xr[j] = row_at(rr[j] ? t + 4 * j : 0);
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int mt = warp + kMmaWarps * m;
+        if (mt < mtiles) {
+          float big[NT][4], small[NT][4];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) big[nt][i] = small[nt][i] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int c = mt * 16 + g + 8 * (i & 1);
+              const int j = 2 * ks + (i >> 1);
+              split_x<T>(rr[j] && c < cols ? to_f32(xs[xr[j] + c]) : 0.f,
+                         ah[i], al[i]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              uint32_t mh[2], ml[2];
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                split_tf32(mf[ks][nt][h], mh[h], ml[h]);
+              mma3<kXLo>(big[nt], small[nt], ah, al, mh, ml);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float v = (big[nt][i] + small[nt][i]) - comp[m][nt][i];
+              const float sum = acc[m][nt][i] + v;
+              comp[m][nt][i] = (sum - acc[m][nt][i]) - v;
+              acc[m][nt][i] = sum;
+            }
+        }
+      }
+    }
+  }
+
+  // the cluster's partials: each block its slice of the gradient from the
+  // registers; rank 0 the loss of each lane, summed over the middle's
+  // rows in order
+  const int64_t kd = int64_t(k) * d;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int mt = warp + kMmaWarps * m;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = mt * 16 + g + 8 * (i >> 1);
+        const int kk = nt * 8 + 2 * t + (i & 1);
+        if (mt < mtiles && c < cols && kk < k)
+          partial_grad[cid * kd + int64_t(kk) * d + c0 + c] = acc[m][nt][i];
+      }
+  }
+  if (rank == 0) {
+    __syncthreads();  // every thread is done with the partial dots
+    if (mid) zp_s[tid] = loss_acc.s;
+    __syncthreads();
+    if (tid < k) {
+      Kahan sum;
+      for (int r = 0; r < kMmaRows; ++r) sum.add(zp_s[r * KB + tid]);
+      partial_loss[cid * k + tid] = sum.s;
+    }
+  }
+  cluster_sync();
+}
+
 // Two-pass mode, pass 1: a warp per row (rows strided over the grid's
 // warps) forms the row's K dots from device memory; lane kk applies lane
 // kk's middle, writes m * mult to mult_out[r * k + kk] and adds m * per to
@@ -699,14 +1072,21 @@ __global__ void lanes_reduce(const float* __restrict__ partial_loss,
   }
 }
 
-enum Mode { kLanesTile = 0, kLanesTwoPass = 1, kLanesMma = 2 };
+enum Mode {
+  kLanesTile = 0,
+  kLanesTwoPass = 1,
+  kLanesMma = 2,
+  kLanesCluster = 3
+};
 
 // A launch plan, as lanes_plan fills it: the mode; the lane bucket; the
-// tile rows (0 in two-pass mode); the blocks of the (first) launch, one
-// loss partial each; the gradient partials (the grid, or pass 2's row
-// groups).
+// tile rows (tile and tensor-core modes), the ring's stages (cluster
+// mode) or 0 (two-pass mode); the blocks of the (first) launch; the
+// gradient partials (the grid, pass 2's row groups, or the clusters); the
+// blocks of a cluster (cluster mode, else 0).  One loss partial a block,
+// or a cluster.
 struct Plan {
-  int mode, kb, rows, grid, partials;
+  int mode, kb, rows, grid, partials, cluster;
 };
 
 template <typename T, int L, int NT, int MT>
@@ -824,6 +1204,92 @@ cudaError_t launch_type(int loss_kind, const Plan& p, const void* X,
   }
 }
 
+// The cluster mode's kernels take X's type as a template argument and
+// the loss at run time.
+template <typename T>
+using ClusterKernel = void (*)(const T*, const float*, const float*,
+                               const float*, int64_t, int64_t, int, int, int,
+                               int, float*, float*);
+
+// The cluster-mode kernel of NT n8 tiles of lanes and MT m16 tiles a
+// warp, its attributes set on the current device (once).
+template <typename T, int NT, int MT>
+cudaError_t cluster_kernel_of(ClusterKernel<T>* kern) {
+  static std::atomic<unsigned long long> done{0};
+  *kern = lanes_cluster<T, NT, MT>;
+  return smem_attributes(lanes_cluster<T, NT, MT>, done, true);
+}
+
+// The cluster-mode kernel for kb lanes over slices of `slice` columns.
+template <typename T>
+cudaError_t cluster_kernel(int64_t slice, int kb, ClusterKernel<T>* kern) {
+  switch ((kb <= 8 ? 100 : 200) + mma_tiles(slice)) {
+    case 101:
+      return cluster_kernel_of<T, 1, 1>(kern);
+    case 102:
+      return cluster_kernel_of<T, 1, 2>(kern);
+    case 104:
+      return cluster_kernel_of<T, 1, 4>(kern);
+    case 108:
+      return cluster_kernel_of<T, 1, 8>(kern);
+    case 201:
+      return cluster_kernel_of<T, 2, 1>(kern);
+    case 202:
+      return cluster_kernel_of<T, 2, 2>(kern);
+    case 204:
+      return cluster_kernel_of<T, 2, 4>(kern);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_cluster(const Plan& p, const void* X, const float* y,
+                           const float* mask, const float* W, int64_t n,
+                           int64_t d, int k, int loss_kind, float* pl,
+                           float* pg, cudaStream_t stream) {
+  const int64_t slice = cluster_slice(d, p.cluster);
+  ClusterKernel<T> kern = nullptr;
+  cudaError_t err = cluster_kernel<T>(slice, p.kb, &kern);
+  if (err != cudaSuccess) return err;
+  const int64_t smem = lanes_cluster_layout(slice, p.kb <= 8 ? 1 : 2,
+                                            p.cluster, p.rows,
+                                            int(sizeof(T)))
+                           .total;
+  ClusterLaunch l(p.grid, p.cluster, kMmaThreads, smem, stream);
+  err = cudaLaunchKernelEx(&l.cfg, kern, static_cast<const T*>(X), y, mask,
+                           W, n, d, k, loss_kind, p.rows, int(slice), pl, pg);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Whether lanes_mma's block holds kb lanes over X of width d: its
+// accumulators within the register budget (kMmaMaxTiles) and its block
+// within shared memory.
+bool mma_fits(int64_t d, int kb, int itemsize) {
+  const int nt = kb <= 8 ? 1 : 2;
+  const int mt = mma_tiles(d);
+  return mt >= 1 && mt * nt <= kMmaMaxTiles &&
+         MmaLayout(d, nt, itemsize).total <= kSmemBlock;
+}
+
+// The widest X (in columns) for which fits(d) holds, searched up to
+// `most` (fits holds from 1 column on, and not past its widest).
+template <typename F>
+int64_t widest(int64_t most, F&& fits) {
+  int64_t lo = 0, hi = most + 1;  // lo fits (vacuously), hi does not
+  while (hi - lo > 1) {
+    const int64_t mid = (lo + hi) / 2;
+    (fits(mid) ? lo : hi) = mid;
+  }
+  return lo;
+}
+
+// The widest X whose kb lanes lanes_mma's block holds.
+int64_t mma_max_width(int kb, int itemsize) {
+  return widest(kSmemBlock,
+                [&](int64_t d) { return mma_fits(d, kb, itemsize); });
+}
+
 // Where the tensor-core mode was faster than the tile mode in the
 // `--ab lanes:` sweep of chip_smoke.py (PERF.md: 10M rows of f32 X at D
 // = 64, 256, 512, 1000): from 8 lanes at every width, 4 lanes past 512
@@ -833,70 +1299,222 @@ bool mma_faster(int64_t d, int kb, int /*itemsize*/) {
   return kb >= 8 || (kb == 4 && d > 512);
 }
 
-// Whether the tensor-core mode takes kb lanes over X of width d: its
-// accumulators within the register budget (kMmaMaxTiles), its block
-// within shared memory, and faster there than the tile mode.
+// Whether the plan gives kb lanes over X of width d to the tensor-core
+// mode: its block fits, and it was timed faster there than the tile mode.
 bool mma_takes(int64_t d, int kb, int itemsize) {
-  const int nt = kb <= 8 ? 1 : 2;
-  const int mt = mma_tiles(d);
-  return mt >= 1 && mt * nt <= kMmaMaxTiles &&
-         MmaLayout(d, nt, itemsize).total <= kSmemBlock &&
-         mma_faster(d, kb, itemsize);
+  return mma_fits(d, kb, itemsize) && mma_faster(d, kb, itemsize);
+}
+
+// The narrowest X that the plan gives to the cluster mode, where
+// chip_smoke.py --ab lanes: timed it faster than one block a row (PERF.md;
+// an H100 80GB HBM3).  From 4 lanes up, where lanes_mma's block stops
+// fitting (lanes_tile past it holds 1-8 rows a tile), but for bf16 X at
+// 4 and 8 lanes from kBf16ClusterFrom: its lanes_mma block did more work
+// a tile for the same bytes, and lost from 1,536 columns (it won at
+// 1,280).  At 1 and 2 lanes, where lanes_tile is the single-block mode,
+// from where its row tile falls below 12 rows (16 for bf16 at 2 lanes):
+// tiles of 12 rows tied with the cluster mode, and of 8 lost by 15-30%.
+constexpr int64_t kBf16ClusterFrom = 1409;
+
+int64_t cluster_from(int kb, int itemsize) {
+  if (kb > 2)
+    return itemsize == 2 && kb <= 8 ? kBf16ClusterFrom
+                                    : mma_max_width(kb, itemsize) + 1;
+  const int rows = itemsize == 2 && kb == 2 ? 16 : 12;
+  return widest(kSmemBlock, [&](int64_t d) {
+           return choose_tile_rows(d, kb, itemsize) >= rows;
+         }) + 1;
+}
+
+// The clusters of c blocks, each with `smem` bytes, that the card keeps
+// resident at once for the cluster-mode kernel of kb lanes over slices of
+// `slice` columns (cudaOccupancyMaxActiveClusters: the SMs of a GPC bound
+// where clusters go, so it is not sms / c).
+template <typename T>
+cudaError_t cluster_resident(int64_t slice, int kb, int c, int64_t smem,
+                             int* clusters) {
+  ClusterKernel<T> kern = nullptr;
+  const cudaError_t err = cluster_kernel<T>(slice, kb, &kern);
+  if (err != cudaSuccess) return err;
+  ClusterLaunch l(c, c, kMmaThreads, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(clusters, kern, &l.cfg);
+}
+
+// The cluster mode's plan for kb lanes over X (n, d) in clusters of c
+// blocks: as many clusters as are resident at once, at most one a 16-row
+// tile.  Sets p->mode to -1 where the slices do not fit
+// (lanes_cluster_stages) or the card keeps no such cluster resident; a
+// cluster past the portable size that the card refuses is skipped the
+// same way; any other CUDA error is returned.
+cudaError_t cluster_plan_of(int64_t n, int64_t d, int kb, int itemsize, int c,
+                            Plan* p) {
+  p->mode = -1;
+  const int stages = lanes_cluster_stages(d, kb, c, itemsize);
+  if (stages < kLanesClusterMinStages) return cudaSuccess;
+  const int64_t slice = cluster_slice(d, c);
+  const int64_t smem =
+      lanes_cluster_layout(slice, kb <= 8 ? 1 : 2, c, stages, itemsize)
+          .total;
+  int resident = 0;
+  const cudaError_t err =
+      itemsize == 4
+          ? cluster_resident<float>(slice, kb, c, smem, &resident)
+          : cluster_resident<__nv_bfloat16>(slice, kb, c, smem, &resident);
+  if (err != cudaSuccess) {
+    if (c <= kPortableCluster) return err;
+    cudaGetLastError();  // not schedulable here
+    return cudaSuccess;
+  }
+  if (resident < 1) return cudaSuccess;
+  int64_t clusters = (n + kMmaRows - 1) / kMmaRows;
+  if (clusters > resident) clusters = resident;
+  if (clusters < 1) clusters = 1;
+  *p = Plan{kLanesCluster, kb, stages, int(clusters * c), int(clusters), c};
+  return cudaSuccess;
+}
+
+// The largest cluster the plan gives a width: 8 blocks for one lane of
+// f32 X, where the two-pass mode (whose passes for one lane are light)
+// was timed faster than 16 blocks (12,000 columns; PERF.md), else 16.
+int most_blocks(int kb, int itemsize) {
+  return kb == 1 && itemsize == 4 ? 8 : kClusterMaxSize;
+}
+
+// The cluster mode's plan: the smallest cluster the card schedules that
+// takes the width (the fewest tiles a cluster), up to most_blocks;
+// p->mode is -1 where none does.
+cudaError_t cluster_plan(int64_t n, int64_t d, int kb, int itemsize,
+                         Plan* p) {
+  p->mode = -1;
+  for (int c : kClusterSizes) {
+    if (c > most_blocks(kb, itemsize)) break;
+    const cudaError_t err = cluster_plan_of(n, d, kb, itemsize, c, p);
+    if (err != cudaSuccess || p->mode == kLanesCluster) return err;
+  }
+  return cudaSuccess;
+}
+
+// The tensor-core mode's plan: one block an SM, at most one per 16-row
+// tile; p->mode is -1 where its block does not fit.
+void mma_plan(int64_t n, int64_t d, int kb, int itemsize, int sms, Plan* p) {
+  p->mode = -1;
+  if (!mma_fits(d, kb, itemsize)) return;
+  int64_t blocks = (n + kMmaRows - 1) / kMmaRows;
+  if (blocks > sms) blocks = sms;
+  const int grid = int(blocks < 1 ? 1 : blocks);
+  *p = Plan{kLanesMma, kb, kMmaRows, grid, grid, 0};
+}
+
+// The tile mode's plan: a few blocks an SM where they fit, at most one per
+// tile; p->mode is -1 where not one row fits beside the lanes' W and
+// partial.
+void tile_plan(int64_t n, int64_t d, int kb, int itemsize, int sms,
+               Plan* p) {
+  p->mode = -1;
+  const int rows = choose_tile_rows(d, kb, itemsize);
+  if (rows < 1) return;
+  int64_t per_sm =
+      kSmemSM / (Layout(d, kb, rows, itemsize).total + kSmemReserved);
+  per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
+  int64_t blocks = (n + rows - 1) / rows;
+  if (blocks > sms * per_sm) blocks = sms * per_sm;
+  const int grid = int(blocks < 1 ? 1 : blocks);
+  *p = Plan{kLanesTile, kb, rows, grid, grid, 0};
+}
+
+// The two-pass mode's plan (every width).
+void two_pass_plan(int64_t n, int64_t d, int kb, int sms, Plan* p) {
+  int64_t blocks = (n + kWarps - 1) / kWarps;
+  if (blocks > int64_t(sms) * kWideBlocksPerSM)
+    blocks = int64_t(sms) * kWideBlocksPerSM;
+  const int64_t chunks = (d + kThreads - 1) / kThreads;
+  int64_t groups = int64_t(sms) * kWideBlocksPerSM / chunks;
+  const int64_t most = (n + kWideChunk - 1) / kWideChunk;
+  if (groups > most) groups = most;
+  *p = Plan{kLanesTwoPass, kb, 0, int(blocks < 1 ? 1 : blocks),
+            int(groups < 1 ? 1 : groups), 0};
+}
+
+void write_plan(const Plan& p, int* plan) {
+  plan[0] = p.mode;
+  plan[1] = p.kb;
+  plan[2] = p.rows;
+  plan[3] = p.grid;
+  plan[4] = p.partials;
+  plan[5] = p.cluster;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch plan for k lanes over X (n, d) with `itemsize`-byte elements on a
-// card of `sms` SMs, written to plan[0..4] = {mode, kb, rows, grid,
-// partials} (see Plan): the tensor-core mode where mma_takes (one block
-// an SM, at most one per 16-row tile); else the tile mode while a row
-// fits beside the lanes' W and partial (a few blocks an SM where they
-// fit, at most one per tile), two-pass mode past that.  Returns
-// cudaErrorInvalidValue, and sets nothing, for arguments no mode takes
-// (k outside 1..kMaxLanes).
+// Launch plan for k lanes over X (n, d) with `itemsize`-byte elements on
+// the current device, of `sms` SMs (checked against the device), written
+// to plan[0..5] = {mode, kb, rows, grid, partials, cluster} (see Plan):
+// below cluster_from the tensor-core mode where mma_takes, else the tile
+// mode; from there the cluster mode while a cluster that the device
+// schedules takes the width (cluster_plan), and the two-pass mode past
+// it.  Returns cudaErrorInvalidValue, and sets nothing, for arguments no
+// mode takes (k outside 1..kMaxLanes) or an `sms` that is not the
+// device's, and the CUDA error of a device query if it fails.
 int lanes_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
                int* plan) {
   const int kb = bucket_of(k);
-  if (n < 0 || d < 1 || kb == 0 || sms < 1 ||
-      (itemsize != 4 && itemsize != 2))
-    return int(cudaErrorInvalidValue);
-  Plan p;
-  p.kb = kb;
-  if (mma_takes(d, kb, itemsize)) {
-    int64_t blocks = (n + kMmaRows - 1) / kMmaRows;
-    if (blocks > sms) blocks = sms;
-    p.mode = kLanesMma;
-    p.rows = kMmaRows;
-    p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
-  } else if (const int rows = choose_tile_rows(d, kb, itemsize); rows >= 1) {
-    int64_t per_sm = kSmemSM / (Layout(d, kb, rows, itemsize).total +
-                                kSmemReserved);
-    per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
-    int64_t blocks = (n + rows - 1) / rows;
-    if (blocks > sms * per_sm) blocks = sms * per_sm;
-    p.mode = kLanesTile;
-    p.rows = rows;
-    p.grid = p.partials = int(blocks < 1 ? 1 : blocks);
-  } else {
-    int64_t blocks = (n + kWarps - 1) / kWarps;
-    if (blocks > int64_t(sms) * kWideBlocksPerSM)
-      blocks = int64_t(sms) * kWideBlocksPerSM;
-    const int64_t chunks = (d + kThreads - 1) / kThreads;
-    int64_t groups = int64_t(sms) * kWideBlocksPerSM / chunks;
-    const int64_t most = (n + kWideChunk - 1) / kWideChunk;
-    if (groups > most) groups = most;
-    p.mode = kLanesTwoPass;
-    p.rows = 0;
-    p.grid = int(blocks < 1 ? 1 : blocks);
-    p.partials = int(groups < 1 ? 1 : groups);
+  if (kb == 0) return int(cudaErrorInvalidValue);
+  if (const cudaError_t err = check_plan_args(n, d, itemsize, sms);
+      err != cudaSuccess)
+    return int(err);
+  Plan p{};
+  p.mode = -1;
+  if (d < cluster_from(kb, itemsize)) {
+    if (mma_takes(d, kb, itemsize))
+      mma_plan(n, d, kb, itemsize, sms, &p);
+    else
+      tile_plan(n, d, kb, itemsize, sms, &p);
+  } else if (const cudaError_t err = cluster_plan(n, d, kb, itemsize, &p);
+             err != cudaSuccess) {
+    return int(err);
   }
-  plan[0] = p.mode;
-  plan[1] = p.kb;
-  plan[2] = p.rows;
-  plan[3] = p.grid;
-  plan[4] = p.partials;
+  if (p.mode == -1) two_pass_plan(n, d, kb, sms, &p);
+  write_plan(p, plan);
+  return 0;
+}
+
+// The plan of one mode, chosen by the caller, for k lanes over X (n, d),
+// written to plan[0..5] as lanes_plan writes its own: `mode` is a mode
+// code of lanes_mode_name; the cluster mode takes clusters of `cluster`
+// blocks (the other modes ignore it), the tensor-core mode any width its
+// block holds.  For timing a mode at widths its plan does not give it
+// (chip_smoke.py --ab lanes:); the kernel checks a forced plan as any
+// other.  Returns cudaErrorInvalidValue, and sets nothing, where the mode
+// cannot take X of width d (or the card keeps no such cluster resident),
+// and the CUDA error of a device query if it fails.
+int lanes_mode_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
+                    int mode, int cluster, int* plan) {
+  const int kb = bucket_of(k);
+  if (kb == 0) return int(cudaErrorInvalidValue);
+  if (const cudaError_t err = check_plan_args(n, d, itemsize, sms);
+      err != cudaSuccess)
+    return int(err);
+  Plan p{};
+  p.mode = -1;
+  if (mode == kLanesTile) {
+    tile_plan(n, d, kb, itemsize, sms, &p);
+  } else if (mode == kLanesMma) {
+    mma_plan(n, d, kb, itemsize, sms, &p);
+  } else if (mode == kLanesTwoPass) {
+    two_pass_plan(n, d, kb, sms, &p);
+  } else if (mode == kLanesCluster) {
+    bool size_ok = false;
+    for (int c : kClusterSizes) size_ok = size_ok || c == cluster;
+    if (size_ok)
+      if (const cudaError_t err =
+              cluster_plan_of(n, d, kb, itemsize, cluster, &p);
+          err != cudaSuccess)
+        return int(err);
+  }
+  if (p.mode != mode) return int(cudaErrorInvalidValue);
+  write_plan(p, plan);
   return 0;
 }
 
@@ -909,6 +1527,8 @@ const char* lanes_mode_name(int mode) {
       return "lanes_two_pass";
     case kLanesMma:
       return "lanes_mma";
+    case kLanesCluster:
+      return "lanes_cluster";
     default:
       return nullptr;
   }
@@ -917,18 +1537,40 @@ const char* lanes_mode_name(int mode) {
 // The most lanes one launch takes.
 int lanes_max_lanes() { return kMaxLanes; }
 
-// The widest X (in columns) read once for k lanes: a row fits beside the
-// lanes' W and partial.  Wider X takes the two-pass mode.  0 for k
+// The widest X (in columns) that lanes_mma's block holds for k lanes
+// (whether or not the plan gives it that width: mma_faster); 0 for k
 // outside 1..kMaxLanes.
+int64_t lanes_mma_max_width(int k, int itemsize) {
+  const int kb = bucket_of(k);
+  return kb == 0 ? 0 : mma_max_width(kb, itemsize);
+}
+
+// The narrowest X (in columns) that the plan gives to the cluster mode
+// for k lanes (cluster_from); 0 for k outside 1..kMaxLanes.
+int64_t lanes_cluster_min_width(int k, int itemsize) {
+  const int kb = bucket_of(k);
+  return kb == 0 ? 0 : cluster_from(kb, itemsize);
+}
+
+// The widest X (in columns) read once for k lanes on the current device:
+// the reach of the cluster mode that the plan gives (cluster_plan).
+// Wider X takes the two-pass mode.  Returns 0 for k outside 1..kMaxLanes,
+// and minus the CUDA error code if a query fails.
 int64_t lanes_max_width(int k, int itemsize) {
   const int kb = bucket_of(k);
   if (kb == 0) return 0;
-  int64_t lo = 0, hi = kSmemBlock;  // lo fits (vacuously), hi does not
-  while (hi - lo > 1) {
-    const int64_t mid = (lo + hi) / 2;
-    (choose_tile_rows(mid, kb, itemsize) >= 1 ? lo : hi) = mid;
-  }
-  return lo;
+  if (itemsize != 4 && itemsize != 2) return -int64_t(cudaErrorInvalidValue);
+  const int64_t from = cluster_from(kb, itemsize);
+  cudaError_t err = cudaSuccess;
+  const int64_t reach = widest(
+      int64_t(kClusterMaxSize) * kMmaWarps * 16 * kMmaMaxTiles,
+      [&](int64_t d) {
+        if (d < from || err != cudaSuccess) return true;
+        Plan p{};
+        err = cluster_plan(1, d, kb, itemsize, &p);
+        return p.mode == kLanesCluster;
+      });
+  return err != cudaSuccess ? -int64_t(err) : reach;
 }
 
 // Launch the plan's kernels and the final sums on `stream` for the k
@@ -936,21 +1578,29 @@ int64_t lanes_max_width(int k, int itemsize) {
 // `partial_grad` plan[4] * k * d floats and `mult` n * k floats
 // (two-pass mode only; it may be NULL otherwise) of scratch; `loss` gets
 // k floats and `grad` k * d.  Returns the CUDA error code of the
-// launches (0 on success); synchronises nothing.
+// launches (0 on success): a cluster launch that the card refuses
+// returns its error, and nothing is launched in its place.  Synchronises
+// nothing.
 int margin_lanes_loss_grad(const void* X, int x_type, const void* y,
                            const void* mask, const void* W, int64_t n,
                            int64_t d, int loss_kind, int k, const int* plan,
                            void* partial_loss, void* partial_grad,
                            void* mult, void* loss, void* grad,
                            void* stream) {
-  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4]};
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5]};
+  const int itemsize = x_type == kBF16 ? 2 : 4;
   const bool ok =
       n >= 0 && d >= 1 && k >= 1 && bucket_of(k) == p.kb && p.grid >= 1 &&
-      p.partials >= 1 &&
+      p.partials >= 1 && loss_kind >= kLogistic && loss_kind <= kHinge &&
       ((p.mode == kLanesTile && p.rows >= 1 && p.partials == p.grid) ||
        (p.mode == kLanesMma && p.rows == kMmaRows && p.partials == p.grid &&
-        mma_takes(d, p.kb, x_type == kBF16 ? 2 : 4)) ||
-       (p.mode == kLanesTwoPass && (mult != nullptr || n == 0)));
+        mma_fits(d, p.kb, itemsize)) ||
+       (p.mode == kLanesTwoPass && (mult != nullptr || n == 0)) ||
+       (p.mode == kLanesCluster &&
+        (p.cluster == 2 || p.cluster == 4 || p.cluster == 8 ||
+         p.cluster == 16) &&
+        p.grid == p.partials * p.cluster &&
+        p.rows == lanes_cluster_stages(d, p.kb, p.cluster, itemsize)));
   if (!ok) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* yf = static_cast<const float*>(y);
@@ -960,19 +1610,27 @@ int margin_lanes_loss_grad(const void* X, int x_type, const void* y,
   float* pg = static_cast<float*>(partial_grad);
   float* mu = static_cast<float*>(mult);
   cudaError_t err;
-  if (x_type == kF32)
+  if (x_type != kF32 && x_type != kBF16)
+    err = cudaErrorInvalidValue;
+  else if (p.mode == kLanesCluster)
+    err = x_type == kF32
+              ? launch_cluster<float>(p, X, yf, mf, wf, n, d, k, loss_kind,
+                                      pl, pg, s)
+              : launch_cluster<__nv_bfloat16>(p, X, yf, mf, wf, n, d, k,
+                                              loss_kind, pl, pg, s);
+  else if (x_type == kF32)
     err = launch_type<float>(loss_kind, p, X, yf, mf, wf, n, d, k, pl, pg,
                              mu, s);
-  else if (x_type == kBF16)
+  else
     err = launch_type<__nv_bfloat16>(loss_kind, p, X, yf, mf, wf, n, d, k,
                                      pl, pg, mu, s);
-  else
-    err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return int(err);
+  // a loss partial a block, but a cluster's in the cluster mode
+  const int nloss = p.mode == kLanesCluster ? p.partials : p.grid;
   const int64_t kd = int64_t(k) * d;
   const int threads = 256;
   const int blocks = int((kd + k + threads - 1) / threads);
-  lanes_reduce<<<blocks, threads, 0, s>>>(pl, p.grid, pg, p.partials, kd, k,
+  lanes_reduce<<<blocks, threads, 0, s>>>(pl, nloss, pg, p.partials, kd, k,
                                           static_cast<float*>(loss),
                                           static_cast<float*>(grad));
   return int(cudaGetLastError());

@@ -1,9 +1,9 @@
 // The margin losses' per-row middle, shared by the port's margin kernels
 // (margin_loss_grad.cu, margin_lanes_loss_grad.cu): the loss codes and X
-// types of their C interfaces, and loss_middle, the per-example loss and
-// gradient multiplier of spark_agd_tpu/ops/losses.py
-// (dots_loss_and_mult).  Each kernel source is its own library, so
-// everything here has internal linkage.
+// types of their C interfaces, and loss_middle (loss_middle_of, the loss
+// chosen at run time), the per-example loss and gradient multiplier of
+// spark_agd_tpu/ops/losses.py (dots_loss_and_mult).  Each kernel source
+// is its own library, so everything here has internal linkage.
 
 #pragma once
 
@@ -34,6 +34,19 @@ __device__ __forceinline__ void loss_middle(float dot, float y, float* per,
     *per = active ? margin : 0.f;
     *mult = active ? -s : 0.f;
   }
+}
+
+// The middle of loss `kind` (a runtime switch, for kernels instantiated
+// once for all three losses: the margin kernel's stream mode, the lanes
+// kernel's cluster mode).
+__device__ __forceinline__ void loss_middle_of(int kind, float dot, float y,
+                                               float* per, float* mult) {
+  if (kind == kLogistic)
+    loss_middle<kLogistic>(dot, y, per, mult);
+  else if (kind == kLeastSquares)
+    loss_middle<kLeastSquares>(dot, y, per, mult);
+  else
+    loss_middle<kHinge>(dot, y, per, mult);
 }
 
 }  // namespace

@@ -29,10 +29,12 @@ deterministic:
   lane).  :func:`fused_margin_lanes_loss_grad` is its wrapper and
   :func:`fused_margin_lanes_loss_grad_reference` its plain version;
   ``FusedMarginGradient.lanes_loss_and_grad`` calls it.  It reads X once
-  for up to :func:`max_lanes` lanes while their W and gradient fit in
-  shared memory beside a row (:func:`lanes_max_width`; both products on
-  the tensor cores where that mode is faster), and twice past that; more
-  lanes run in chunks of :func:`max_lanes`, one launch each.
+  for up to :func:`max_lanes` lanes: in one block a row while the lanes'
+  W fits in shared memory beside a row tile (both products on the tensor
+  cores where that mode is faster), from :func:`lanes_cluster_min_width`
+  across a thread block cluster, up to :func:`lanes_max_width` columns;
+  twice past that.  More lanes run in chunks of :func:`max_lanes`, one
+  launch each.
 - ``csrc/softmax_loss_grad.cu``: the multinomial softmax with a (D, K)
   weight matrix.  :func:`fused_softmax_loss_grad` is its wrapper,
   :func:`fused_softmax_loss_grad_reference` its plain version, and
@@ -376,6 +378,18 @@ def plan_for(lib, n: int, d: int, itemsize: int, sms: int) -> MarginPlan:
                       tuple(plan))
 
 
+def _mode_codes(mode_name) -> dict:
+    """``{name: code}`` of a library's modes, from its ``*_mode_name``
+    (NULL past the last code)."""
+    codes = {}
+    for code in range(16):
+        name = mode_name(code)
+        if name is None:
+            break
+        codes[name.decode()] = code
+    return codes
+
+
 def mode_plan_for(lib, n: int, d: int, itemsize: int, sms: int, mode: str,
                   cluster: int = 0) -> MarginPlan:
     """``lib``'s plan of the named ``mode`` (and, for "cluster", clusters
@@ -383,12 +397,7 @@ def mode_plan_for(lib, n: int, d: int, itemsize: int, sms: int, mode: str,
     gives that mode this width (``margin_mode_plan``; for timing modes
     side by side); raises ``ValueError`` where the mode does not take
     it."""
-    codes = {}
-    for code in range(16):
-        name = lib.margin_mode_name(code)
-        if name is None:
-            break
-        codes[name.decode()] = code
+    codes = _mode_codes(lib.margin_mode_name)
     plan = (ctypes.c_int * 5)()
     if mode not in codes or lib.margin_mode_plan(
             n, d, itemsize, sms, codes[mode], cluster, plan) != 0:
@@ -500,7 +509,9 @@ _LANES_ARGTYPES = _HEAD + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)] \
 def lanes_library(source=None):
     """Build (at first use) and load ``csrc/margin_lanes_loss_grad.cu``,
     or ``source``, another version of it; returns ``(ctypes library,
-    BuiltLibrary)``."""
+    BuiltLibrary)``.  A source from before the cluster mode lacks
+    ``lanes_mode_plan``, ``lanes_mma_max_width`` and
+    ``lanes_cluster_min_width``."""
     lib, built = _load("margin_lanes_loss_grad", "lanes", _LANES_ARGTYPES,
                        source)
     lib.lanes_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
@@ -513,6 +524,15 @@ def lanes_library(source=None):
     lib.lanes_max_width.restype = ctypes.c_int64
     lib.lanes_max_lanes.argtypes = []
     lib.lanes_max_lanes.restype = ctypes.c_int
+    if hasattr(lib, "lanes_mode_plan"):
+        lib.lanes_mode_plan.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
+        lib.lanes_mode_plan.restype = ctypes.c_int
+        for name in ("lanes_mma_max_width", "lanes_cluster_min_width"):
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int64
     return lib, built
 
 
@@ -523,32 +543,57 @@ def max_lanes() -> int:
 
 
 def lanes_max_width(k: int, dtype) -> int:
-    """The widest X that the lanes kernel reads once for ``k`` lanes (a
-    row fits beside the lanes' W and gradient in shared memory)."""
-    return int(lanes_library()[0].lanes_max_width(k, _itemsize(dtype)))
+    """The widest X that the lanes kernel reads once for ``k`` lanes on
+    the current device: a 16-row tile fits across the shared memory of a
+    thread block cluster that the card schedules (its "lanes_cluster"
+    mode).  Wider X takes the two-pass mode."""
+    width = int(lanes_library()[0].lanes_max_width(k, _itemsize(dtype)))
+    if width < 0:
+        raise RuntimeError(f"lanes_max_width failed: CUDA error {-width}")
+    return width
+
+
+def lanes_mma_max_width(k: int, dtype) -> int:
+    """The widest X whose ``k`` lanes the "lanes_mma" mode's block holds
+    (whether or not the plan gives it that width)."""
+    return int(lanes_library()[0].lanes_mma_max_width(k, _itemsize(dtype)))
+
+
+def lanes_cluster_min_width(k: int, dtype) -> int:
+    """The narrowest X that the plan gives to the "lanes_cluster" mode for
+    ``k`` lanes: from there up to :func:`lanes_max_width` every plan for
+    ``k`` lanes is that mode's."""
+    return int(lanes_library()[0].lanes_cluster_min_width(k,
+                                                          _itemsize(dtype)))
 
 
 class LanesPlan(NamedTuple):
     """A launch plan of the lanes kernel (``lanes_plan``): ``mode``
-    ("lanes_mma" or "lanes_tile", one read of X, or "lanes_two_pass");
-    ``bucket``, the lanes compiled for (K rounded up); ``tile_rows`` (0
-    in two-pass mode); ``grid``, the blocks of the (first) launch;
-    ``partials``, the gradient partials summed at the end; ``raw``, the
-    five ints as ``lanes_plan`` filled them, passed back at launch."""
+    ("lanes_mma", "lanes_tile" or "lanes_cluster", one read of X, or
+    "lanes_two_pass"); ``bucket``, the lanes compiled for (K rounded up);
+    ``tile_rows``, the rows of a tile, the stages of the cluster mode's
+    ring or 0 (two-pass mode); ``grid``, the blocks of the (first)
+    launch; ``partials``, the gradient partials summed at the end (the
+    clusters in the cluster mode); ``cluster``, the blocks of a cluster
+    (cluster mode, else 0); ``raw``, the six ints as ``lanes_plan`` filled
+    them, passed back at launch."""
 
     mode: str
     bucket: int
     tile_rows: int
     grid: int
     partials: int
+    cluster: int
     raw: tuple
 
 
 def lanes_plan_for(lib, n: int, d: int, k: int, itemsize: int,
                    sms: int) -> LanesPlan:
-    """``lib``'s plan for ``k`` lanes over X (n, d); raises
-    ``ValueError`` where it has none."""
-    plan = (ctypes.c_int * 5)()
+    """``lib``'s plan for ``k`` lanes over X (n, d) on the current device,
+    of ``sms`` SMs; raises ``ValueError`` where it has none.  A source
+    from before the cluster mode fills five of the six ints and leaves
+    ``cluster`` at 0."""
+    plan = (ctypes.c_int * 6)()
     if lib.lanes_plan(n, d, k, itemsize, sms, plan) != 0:
         raise ValueError(f"fused_margin_lanes_loss_grad: no launch plan for "
                          f"{k} lanes over X ({n}, {d}) of {itemsize}-byte "
@@ -557,19 +602,46 @@ def lanes_plan_for(lib, n: int, d: int, k: int, itemsize: int,
                      tuple(plan))
 
 
+def lanes_mode_plan_for(lib, n: int, d: int, k: int, itemsize: int,
+                        sms: int, mode: str, cluster: int = 0) -> LanesPlan:
+    """``lib``'s plan of the named ``mode`` (and, for "lanes_cluster",
+    clusters of ``cluster`` blocks) for ``k`` lanes over X (n, d), whether
+    or not ``lanes_plan`` gives that mode this width
+    (``lanes_mode_plan``; for timing modes side by side); raises
+    ``ValueError`` where the mode does not take it."""
+    codes = _mode_codes(lib.lanes_mode_name)
+    plan = (ctypes.c_int * 6)()
+    if mode not in codes or lib.lanes_mode_plan(
+            n, d, k, itemsize, sms, codes[mode], cluster, plan) != 0:
+        raise ValueError(f"fused_margin_lanes_loss_grad: the {mode} mode "
+                         f"takes no {k} lanes over X ({n}, {d}) of "
+                         f"{itemsize}-byte elements")
+    return LanesPlan(mode, *plan[1:], tuple(plan))
+
+
 def lanes_launch_shape(X, k: int) -> LanesPlan:
     """The lanes kernel's :class:`LanesPlan` for ``k`` lanes (at most
-    :func:`max_lanes`) over the CUDA tensor ``X`` (N, D)."""
+    :func:`max_lanes`) over the CUDA tensor ``X`` (N, D) on its device."""
     n, d = X.shape
     check_width(d, X.dtype)
-    return lanes_plan_for(lanes_library()[0], n, d, k, X.element_size(),
-                          _device_sms(X.device.index))
+    return _device_lanes_plan(X.device.index, n, d, k, X.element_size())
+
+
+@functools.lru_cache(maxsize=256)
+def _device_lanes_plan(index: int, n: int, d: int, k: int,
+                       itemsize: int) -> LanesPlan:
+    """The plan on CUDA device ``index``, worked out once a shape (the
+    cluster mode's asks the card which clusters it schedules)."""
+    with torch.cuda.device(index):
+        return lanes_plan_for(lanes_library()[0], n, d, k, itemsize,
+                              _device_sms(index))
 
 
 def lanes_launch(lib, code: int, W, staged: StagedDense, plan: LanesPlan):
     """Launch ``lib``'s ``margin_lanes_loss_grad`` with ``plan`` on the
     current stream for the (k, D) f32 ``W``; returns ``(loss (k,), grad
-    (k, D))``.  Raises if the launch fails."""
+    (k, D))``.  Raises if the launch fails (a cluster launch that the card
+    refuses too: no other mode is launched in its place)."""
     X = staged.X
     n, d = X.shape
     k = W.shape[0]
@@ -585,7 +657,7 @@ def lanes_launch(lib, code: int, W, staged: StagedDense, plan: LanesPlan):
         err = lib.margin_lanes_loss_grad(
             X.data_ptr(), _X_TYPES[X.dtype], staged.y.data_ptr(),
             staged.m.data_ptr(), W.data_ptr(), n, d, code, k,
-            (ctypes.c_int * 5)(*plan.raw), partial_loss.data_ptr(),
+            (ctypes.c_int * 6)(*plan.raw), partial_loss.data_ptr(),
             partial_grad.data_ptr(),
             None if mult is None else mult.data_ptr(), loss.data_ptr(),
             grad.data_ptr(), stream)
@@ -600,9 +672,9 @@ def fused_margin_lanes_loss_grad(gradient: MarginGradient, W,
                                  staged: StagedDense):
     """``(loss_sums (K,), grad_sums (K, D))`` in f32 of a logistic,
     least-squares or hinge loss at the K rows of ``W``, reading X once
-    for up to :func:`max_lanes` lanes (twice past
-    :func:`lanes_max_width` columns); more lanes run in chunks, a launch
-    each.  CPU operands take the plain version; CUDA operands launch the
+    for up to :func:`max_lanes` lanes (across a thread block cluster from
+    :func:`lanes_cluster_min_width` columns, twice past
+    :func:`lanes_max_width`); more lanes run in chunks, a launch each.  CPU operands take the plain version; CUDA operands launch the
     kernel on the current stream or raise.
 
     Replaces ``spark_agd_tpu/ops/pallas_kernels.py:fused_margin_loss_grad``

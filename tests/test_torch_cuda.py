@@ -845,10 +845,22 @@ def test_mlp_gradient_on_the_card_matches_the_cpu(cuda):
 
 
 # the lanes kernel: lane buckets (1, 2, 4, 8, 16) and their edges, one
-# chunk past the largest bucket, and widths across its two modes ("max":
-# the widest X read once for those lanes, resolved on the card)
+# chunk past the largest bucket, and widths across its modes ("max": the
+# widest X read once for those lanes, resolved on the card)
 LANES = [1, 2, 3, 8, 16, 17, 20]
 LANE_WIDTHS = [1, 33, 1000, "max", "max+1"]
+
+
+def _lanes_modes_at(d, k, dtype):
+    """The modes the plan may give k lanes (at most one launch's) over X
+    of width d: the cluster mode from ``lanes_cluster_min_width`` to
+    ``lanes_max_width``, the two-pass mode past it, one block a row
+    below."""
+    if d > fk.lanes_max_width(k, dtype):
+        return ("lanes_two_pass",)
+    if d >= fk.lanes_cluster_min_width(k, dtype):
+        return ("lanes_cluster",)
+    return ("lanes_mma", "lanes_tile")
 
 
 @pytest.mark.cuda
@@ -873,8 +885,8 @@ def test_lanes_kernel_matches_plain_version(cuda, k, dtype):
         staged = fk.stage_dense(X, y, m)
         inner = losses.LogisticGradient()
         plan = fk.lanes_launch_shape(X, min(k, chunk))
-        assert plan.mode in (("lanes_mma", "lanes_tile") if d <= limit
-                             else ("lanes_two_pass",)), (d, limit)
+        assert plan.mode in _lanes_modes_at(d, min(k, chunk), dtype), \
+            (d, limit, plan)
         before = fk.lanes_launch_count
         loss, grad = fk.fused_margin_lanes_loss_grad(inner, W, staged)
         loss2, grad2 = fk.fused_margin_lanes_loss_grad(inner, W, staged)
@@ -936,6 +948,103 @@ def test_lanes_kernel_at_fragment_edges(cuda, k, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 9, 16])
+def test_lanes_cluster_mode_edges(cuda, k, dtype):
+    """The cluster mode at its edges for each lane bucket: lanes_mma's
+    reach and one column past it, the narrowest width the plan gives the
+    cluster mode and one column narrower, and the mode's reach and one
+    past it (the two-pass mode); rows none, one, ragged to the 16-row tile, and enough that
+    each cluster walks several tiles; X one element into its buffer (no
+    row slice 16-byte aligned) at one width; masked and unmasked; all
+    three losses at the first width past lanes_mma's reach.  Each plan's
+    mode is the rule's, each call agrees with the plain version and
+    repeats give the same bits."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(200 + k)
+    reach = fk.lanes_mma_max_width(k, dtype)
+    start = fk.lanes_cluster_min_width(k, dtype)
+    limit = fk.lanes_max_width(k, dtype)
+    assert 1 < start <= limit
+    widths = sorted({reach, reach + 1, start - 1, start, limit, limit + 1})
+    for d in widths:
+        for n in ((0, 1, 37, 4_001) if d < 4_000 else (1, 37, 1_003)):
+            offset = 1 if d == reach + 1 and n == 37 else 0
+            buf = torch.randn(n * d + offset, generator=gen,
+                              device=cuda).to(dtype)
+            X = buf[offset:].view(n, d)
+            y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+            m = (torch.rand(n, generator=gen, device=cuda) < 0.7).float()
+            W = torch.randn((k, d), generator=gen, device=cuda) / d ** 0.5
+            names = (["logistic", "least_squares", "hinge"]
+                     if d == reach + 1 and n == 37 else ["logistic"])
+            for name, mask in [(nm, mk) for nm in names for mk in (None, m)]:
+                inner = losses.GRADIENTS[name]()
+                staged = fk.stage_dense(X, y, mask)
+                plan = fk.lanes_launch_shape(staged.X, k)
+                assert plan.mode in _lanes_modes_at(d, k, dtype), (d, plan)
+                if plan.mode == "lanes_cluster":
+                    assert plan.cluster > 1
+                    assert plan.grid == plan.partials * plan.cluster
+                before = fk.lanes_mode_launches[plan.mode]
+                loss, grad = fk.fused_margin_lanes_loss_grad(inner, W, staged)
+                loss2, grad2 = fk.fused_margin_lanes_loss_grad(inner, W,
+                                                               staged)
+                torch.cuda.synchronize()
+                assert fk.lanes_mode_launches[plan.mode] == before + 2
+                assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+                ref_loss, ref_grad = \
+                    fk.fused_margin_lanes_loss_grad_reference(inner, W,
+                                                              staged)
+                if n == 0:
+                    assert not loss.any() and not grad.any()
+                    continue
+                torch.testing.assert_close(loss, ref_loss, rtol=1e-5,
+                                           atol=0.0)
+                for lane in range(k):
+                    torch.testing.assert_close(
+                        grad[lane], ref_grad[lane], rtol=1e-4,
+                        atol=1e-4 * float(ref_grad[lane].abs().max()))
+
+
+@pytest.mark.cuda
+def test_forced_lanes_plan_the_mode_does_not_take_raises(cuda,
+                                                         monkeypatch):
+    """``lanes_mode_plan`` refuses a mode at a width it does not take (the
+    cluster mode in a cluster size that is none of 2, 4, 8 and 16, or
+    where the last block would own no column; lanes_mma past its block;
+    the tile past one row), and a cluster plan that fails the kernel's
+    check of its arguments (a grid that is not whole clusters) comes back
+    as a CUDA error: the wrapper raises, counts nothing and launches no
+    other mode in its place."""
+    lib = fk.lanes_library()[0]
+    sms = fk._device_sms(cuda.index or 0)
+    for mode, d, c in (("lanes_cluster", 3_000, 3), ("lanes_cluster", 40, 4),
+                       ("lanes_mma", 40_000, 0), ("lanes_tile", 40_000, 0)):
+        with pytest.raises(ValueError, match="takes no"):
+            fk.lanes_mode_plan_for(lib, 64, d, 8, 4, sms, mode, c)
+    d = 3_000
+    X = torch.randn((64, d), device=cuda)
+    staged = fk.stage_dense(X, torch.zeros(64, device=cuda))
+    plan = fk.lanes_launch_shape(X, 8)
+    assert plan.mode == "lanes_cluster"
+    forced = fk.lanes_mode_plan_for(lib, 64, d, 8, 4, sms, "lanes_cluster",
+                                    plan.cluster)
+    assert forced == plan
+    raw = list(plan.raw)
+    raw[3] += 1
+    monkeypatch.setattr(fk, "lanes_launch_shape", lambda X, k: plan._replace(
+        grid=raw[3], raw=tuple(raw)))
+    before = fk.lanes_launch_count, dict(fk.lanes_mode_launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fk.fused_margin_lanes_loss_grad(losses.LogisticGradient(),
+                                        torch.zeros(8, d, device=cuda),
+                                        staged)
+    assert (fk.lanes_launch_count, dict(fk.lanes_mode_launches)) == before
+
+
+@pytest.mark.cuda
 def test_lanes_kernel_rejects_what_it_does_not_take(cuda):
     X = torch.randn((8, 4), device=cuda)
     staged = fk.stage_dense(X, torch.zeros(8, device=cuda))
@@ -975,6 +1084,21 @@ def test_fused_sweep_on_the_card_runs_the_lanes_kernel(cuda):
     fused = port.sweep((X, y), g, port.SquaredL2Updater(), regs, **kw)
     assert fk.launch_count == 0 and fk.softmax_launch_count == 0
     assert fk.lanes_launch_count == count["rounds"] >= 8
+    plain = port.sweep((X, y), port.LogisticGradient(),
+                       port.SquaredL2Updater(), regs, **kw)
+    torch.testing.assert_close(fused.loss_history, plain.loss_history,
+                               rtol=1e-4, atol=0.0)
+    # and at a width in the cluster mode: every launch there
+    n, d = 20_000, 3_000
+    X = torch.randn((n, d), generator=gen, device=cuda)
+    y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+    kw["initial_weights"] = torch.zeros(d, device=cuda)
+    count["rounds"] = 0
+    fk.reset_launch_counts()
+    fused = port.sweep((X, y), g, port.SquaredL2Updater(), regs, **kw)
+    assert fk.launch_count == 0 and fk.softmax_launch_count == 0
+    assert dict(fk.lanes_mode_launches) == {
+        "lanes_cluster": count["rounds"]} and count["rounds"] >= 8
     plain = port.sweep((X, y), port.LogisticGradient(),
                        port.SquaredL2Updater(), regs, **kw)
     torch.testing.assert_close(fused.loss_history, plain.loss_history,
