@@ -141,15 +141,18 @@ Phases, each printing one JSON line:
     there held to f64 sums and its ms per evaluation beside the bound (X
     read once), the two-pass floor (X twice) and the two
     ``torch.matmul`` products; then the two-pass mode held to f64 sums
-    and timed at 10,000 rows one column past the cluster mode's reach,
-    and the lanes kernel's two-pass mode at 100,003 rows one column past
-    ``lanes_max_width`` for 8 lanes, the reach of its cluster mode
-    (``lanes_two_pass_times``);
+    and timed at 10,000 rows one column past the cluster mode's reach;
+    then phase 30 on its data; then the lanes kernel's two-pass mode at
+    100,003 rows one column past ``lanes_max_width`` for 8 and for 16
+    lanes (``lanes_two_pass_times``: held to f64 sums, the plan held to
+    the two-pass mode, device ms by kernel name, so by pass, beside the
+    bound, the two-pass floor of X read twice, the plain version and the
+    two products);
 20. the ``kernels`` line (with each kernel's launches by path, the margin
     and softmax kernels' modes by path and their numbers by mode, the
     lanes kernel's modes by path and its numbers by mode: ``lanes_mma``
     at phase 22's shape, ``lanes_cluster`` at phase 29's, the two-pass
-    mode at phase 19's, and
+    mode at phase 30's and phase 19's, and
     each library's registers and spills by kernel, the margin cluster
     mode's instantiations among them); then the card's name and power
     limit, and last ``{"ok": true, "device": {...}}``;
@@ -165,7 +168,9 @@ Phases, each printing one JSON line:
     all three losses at D = 1000, K = 8, each call repeated
     bit-identical, each plan's mode held to the width rule (one block a
     row below ``lanes_cluster_min_width``, the cluster mode from there to
-    ``lanes_max_width``, the two-pass mode past it);
+    ``lanes_max_width``, the two-pass mode past it: ``lanes_max_width``
+    ends where the plan hands over to the two-pass mode, so the edges
+    follow the hand-over);
 22. sweep_path, on phase 5's data after phase 13: ``AcceleratedGradient
     Descent(FusedLogisticGradient(), SquaredL2Updater()).sweep`` over
     the 8 strengths 10^-1 ... 10^-8 (40 iterations, tol 0), every launch
@@ -220,10 +225,19 @@ Phases, each printing one JSON line:
 29. epsilon_sweep, on phase 28's data: the path of phase 22 (8
     strengths, 40 iterations, tol 0) read as phase 22 is, every launch
     in the lanes kernel's cluster mode, the 0.1 lane held to phase 28's
-    solo ``run``.
+    solo ``run``;
+30. wide_sweep, on phase 19's data (100,000 x 40,000 f32) after its
+    fit: the path of phase 22 (8 strengths, phase 19's 20 iterations,
+    tol 0) read as phase 22 is, every launch in the mode the lanes
+    kernel's plan gives there (its two-pass mode: 40,000 columns lie
+    past ``lanes_max_width`` for 8 lanes), the 0.1 lane held to phase
+    19's solo fit; the kernel held to f64 sums at 8 random weight rows
+    and timed by events and by the profiler, by pass, beside its bound,
+    the two-pass floor, the plain version, the two products and 8 solo
+    launches; the path's wall time beside 8 solo ``run``s.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-29) and read just after it; the sparse paths launch neither kernel,
+22-30) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -274,7 +288,7 @@ It fails if a build's result is further from the f64 sums than phase
 the largest).
 
 ``python3 chip_smoke.py --ab lanes:NAME=SOURCE [...] [--shapes
-sweep,edges,handover]`` does the same for copies of
+sweep,edges,handover,two_pass]`` does the same for copies of
 ``csrc/margin_lanes_loss_grad.cu``: "sweep", 10,000,000 rows of f32 X at
 D in {64, 256, 512, 1000} and K in {1, 2, 4, 8, 16}; "edges", for each
 K the widths of the first build that knows them, at 100,003 rows:
@@ -283,7 +297,13 @@ the first width of the cluster mode (f32 and bf16) and one before it;
 "handover", the widths that decide the plan's hand-overs
 (LANES_AB_HANDOVER: f32 1,024-12,000 and 40,000 columns, LIBSVM
 epsilon's 400,000 x 2,000, bf16 1,280-12,000, at the lane counts that
-run there); one ``ab_lanes`` line a shape and K, with each
+run there); "two_pass", the two-pass mode's shapes
+(LANES_AB_TWO_PASS: each K's reach of the cluster mode and one column
+past it, 40,000 columns, 100,000 x 40,000, 10,000 x 262,145, bf16 past
+the reach, the hand-over region under the f32 reach), where every build
+that can force it also runs its two-pass mode (``NAME:lanes_two_pass``)
+and each line carries the two-pass floor (X read twice); one
+``ab_lanes`` line a shape and K, with each
 build's plan, ms by CUDA events and by the profiler, error from f64 sums
 (held lane by lane) and same-bits flag, and the two ``torch.matmul``
 products on (D, K), ``X @ W.T`` and ``M.T @ X``, each alone and as a
@@ -356,9 +376,9 @@ EPSILON = dict(n=400_000, d=2_000, seed=8)
 WIDE_CHECK = dict(rows=3_000, widths=(40_000, 200_000), past_rows=300)
 # the margin kernel's two-pass mode timed one column past the cluster
 # mode's reach, and the lanes kernel's one column past lanes_max_width
-# (K = 8 lanes: the reach of its cluster mode on the card)
+# at 8 and 16 lanes (the widest X it reads once for each)
 WIDE_TWO_PASS_ROWS = 10_000
-LANES_TWO_PASS_ROWS, LANES_TWO_PASS_K = 100_003, 8
+LANES_TWO_PASS_ROWS, LANES_TWO_PASS_K = 100_003, (8, 16)
 
 
 def emit(obj):
@@ -2412,7 +2432,7 @@ def mlp_path(port, device_synth, smi, fk):
         checks, t_phase, smi)
 
 
-def wide_path(port, fk, losses, device_synth, smi, launches):
+def wide_path(port, fk, losses, device_synth, smi, launches, after=None):
     """Phase 19: X past one row in shared memory.  The kernel against its
     plain version at WIDE_CHECK widths and one column past the cluster
     mode's reach (f32 and bf16, repeat bit-identical), each plan's mode
@@ -2423,7 +2443,9 @@ def wide_path(port, fk, losses, device_synth, smi, launches):
     evaluation timed against the bound (X read once), the two-pass
     mode's floor (X twice) and the two ``torch.matmul`` products; and
     the two-pass mode timed past the cluster mode's reach
-    (WIDE_TWO_PASS_ROWS rows).  Returns the kernel's numbers by mode."""
+    (WIDE_TWO_PASS_ROWS rows); then ``after(X, y, solo)``, if given, with
+    ``solo`` the fit's ``(AGDResult, loss history, wall seconds)``.
+    Returns the kernel's numbers by mode."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -2504,7 +2526,6 @@ def wide_path(port, fk, losses, device_synth, smi, launches):
     })
     with torch.no_grad():
         acc = float(((X @ w_run > 0).float() == y).float().mean())
-    del X, y
     torch.cuda.empty_cache()
     two_pass = wide_two_pass_times(fk, gradient, reach[torch.float32] + 1)
     checks["two_pass_past_reach"] = two_pass["plan"]["mode"] == "two_pass"
@@ -2545,6 +2566,10 @@ def wide_path(port, fk, losses, device_synth, smi, launches):
                "cluster_max_width": {
                    str(xt).replace("torch.", ""): w
                    for xt, w in reach.items()}}
+    if after is not None:
+        after(X, y, (res, hist, run_s))
+    del X, y
+    torch.cuda.empty_cache()
     return cluster, two_pass
 
 
@@ -2585,47 +2610,58 @@ def wide_two_pass_times(fk, gradient, d):
 
 def lanes_two_pass_times(fk, losses):
     """The lanes kernel's two-pass mode at LANES_TWO_PASS_ROWS rows of f32
-    X one column past ``lanes_max_width`` for LANES_TWO_PASS_K lanes: held
-    to f64 sums lane by lane, timed beside its bound (X, W, y and the
-    mask read once), its plain version and the two ``torch.matmul``
-    products on (D, K)."""
-    n, k = LANES_TWO_PASS_ROWS, LANES_TWO_PASS_K
-    d = fk.lanes_max_width(k, torch.float32) + 1
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(9)
-    X = torch.randn((n, d), generator=gen, device="cuda")
-    y = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
-    W = torch.randn((k, d), generator=gen, device="cuda") / d ** 0.5
-    staged = fk.stage_dense(X, y)
-    gradient = losses.LogisticGradient()
-    plan = fk.lanes_launch_shape(X, k)
-    loss, grad = fk.fused_margin_lanes_loss_grad(gradient, W, staged)
-    _, abs_err = hold_lanes(loss, grad, *margin_lanes_f64(W, staged),
-                            f"lanes two-pass {n}x{d}, K = {k}")
-    kernel_ms = time_ms(lambda: fk.fused_margin_lanes_loss_grad(
-        gradient, W, staged))
-    kernel_device_ms = device_ms(lambda: fk.fused_margin_lanes_loss_grad(
-        gradient, W, staged))
-    plain_ms = time_ms(lambda: fk.fused_margin_lanes_loss_grad_reference(
-        gradient, W, staged))
-    mult = torch.randn((n, k), generator=gen, device="cuda")
-    two_mm_ms = time_ms(lambda: (X @ W.T, mult.T @ X))
-    times = [device_ms(lambda: X @ W.T), device_ms(lambda: mult.T @ X)]
-    b_ms, bound_by = lanes_bound_ms(n, d, k, 4)
-    out = {"shape": [n, d], "lanes": k, "plan": list(plan[:6]),
-           "ms": kernel_ms,
-           "device_ms": sum(kernel_device_ms.values()) or None,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": bound_by,
-           "two_matmuls_ms": two_mm_ms,
-           "two_matmuls_device_ms": (sum(sum(t.values()) for t in times)
-                                     if all(times) else None),
-           "max_abs_err_vs_f64": abs_err}
-    emit({"phase": "lanes_two_pass_times", **out})
-    if plan.mode != "lanes_two_pass":
-        raise AssertionError(f"lanes kernel at {n}x{d}, K = {k}: plan "
-                             f"{plan.mode}, not lanes_two_pass")
-    del X, y, W, staged, mult
-    torch.cuda.empty_cache()
+    X one column past ``lanes_max_width`` for each of LANES_TWO_PASS_K
+    lanes: held to f64 sums lane by lane, timed by events and by the
+    profiler (device ms by kernel name: pass 1, the middle, pass 2, the
+    final sums) beside its bound (X, W, y and the mask read once), the
+    two-pass floor (X twice), its plain version and the two
+    ``torch.matmul`` products on (D, K); each plan held to the two-pass
+    mode.  One line a lane count; returns them by K."""
+    out = {}
+    for k in LANES_TWO_PASS_K:
+        n = LANES_TWO_PASS_ROWS
+        d = fk.lanes_max_width(k, torch.float32) + 1
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(9)
+        X = torch.randn((n, d), generator=gen, device="cuda")
+        y = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
+        W = torch.randn((k, d), generator=gen, device="cuda") / d ** 0.5
+        staged = fk.stage_dense(X, y)
+        gradient = losses.LogisticGradient()
+        plan = fk.lanes_launch_shape(X, k)
+
+        def call():
+            return fk.fused_margin_lanes_loss_grad(gradient, W, staged)
+
+        loss, grad = call()
+        _, abs_err = hold_lanes(loss, grad, *margin_lanes_f64(W, staged),
+                                f"lanes two-pass {n}x{d}, K = {k}")
+        kernel_ms = time_ms(call)
+        kernel_device_ms = device_ms(call)
+        plain_ms = time_ms(lambda: fk.fused_margin_lanes_loss_grad_reference(
+            gradient, W, staged))
+        mult = torch.randn((n, k), generator=gen, device="cuda")
+        two_mm_ms = time_ms(lambda: (X @ W.T, mult.T @ X))
+        times = [device_ms(lambda: X @ W.T), device_ms(lambda: mult.T @ X)]
+        b_ms, bound_by = lanes_bound_ms(n, d, k, 4)
+        row = {"shape": [n, d], "lanes": k, "plan": list(plan[:6]),
+               "ms": kernel_ms,
+               "device_ms": sum(kernel_device_ms.values()) or None,
+               "device_ms_by_kernel": kernel_device_ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": bound_by,
+               "two_pass_floor_ms": lanes_two_pass_floor_ms(n, d, k, 4),
+               "two_matmuls_ms": two_mm_ms,
+               "two_matmuls_device_ms": (sum(sum(t.values())
+                                             for t in times)
+                                         if all(times) else None),
+               "max_abs_err_vs_f64": abs_err}
+        emit({"phase": "lanes_two_pass_times", **row})
+        if plan.mode != "lanes_two_pass":
+            raise AssertionError(f"lanes kernel at {n}x{d}, K = {k}: plan "
+                                 f"{plan.mode}, not lanes_two_pass")
+        out[f"k{k}"] = row
+        del X, y, W, staged, mult, loss, grad
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3167,7 +3203,7 @@ def margin_fit_ab(port, device_synth, names, builds, sms):
 LANES_AB_ROWS, LANES_AB_EDGE_ROWS = 10_000_000, 100_003
 LANES_AB_WIDTHS = (64, 256, 512, 1_000)
 LANES_AB_K = (1, 2, 4, 8, 16)
-LANES_AB_GROUPS = ("sweep", "edges", "handover")
+LANES_AB_GROUPS = ("sweep", "edges", "handover", "two_pass")
 _F32, _BF16, _E = torch.float32, torch.bfloat16, LANES_AB_EDGE_ROWS
 LANES_AB_HANDOVER = (  # (rows, width, X's dtype, lane counts)
     (_E, 1_394, _F32, (8,)), (_E, 1_395, _F32, (1, 2, 4, 8)),
@@ -3193,6 +3229,40 @@ LANES_AB_HANDOVER = (  # (rows, width, X's dtype, lane counts)
 LANES_AB_FORCED = (("lanes_mma", 0), ("lanes_tile", 0), ("lanes_cluster", 2),
                    ("lanes_cluster", 4), ("lanes_cluster", 8),
                    ("lanes_cluster", 16), ("lanes_two_pass", 0))
+# "two_pass": the two-pass mode's shapes (rows, width, X's dtype, lane
+# counts): each K's reach of the cluster mode (14,336 f32 columns at 16
+# lanes, 20,480 at 4 and 8, 10,496 at 1) and one past it, 40,000 columns,
+# phase 19's 100,000 x 40,000, the margin two-pass mode's 10,000 x
+# 262,145 at one lane, bf16 one past the reach at 8 and 16 lanes, and
+# the hand-over region under the f32 reach (12,000 and 16,384 columns),
+# and the pairs of widths either side of each hand-over to the two-pass
+# mode where the plan caps the clusters (most_blocks: f32 16 lanes 2,048
+# | 2,049; bf16 16 lanes 1,024 | 1,025, 1-8 lanes 4,096 | 4,097) and
+# the widths between that decided each cap (f32 16 lanes 1,025-10,000,
+# 8 lanes 8,000-18,000, 2 lanes at the reach; bf16 16 lanes
+# 1,536-16,384, 1-4 lanes 8,192-32,768); every build runs its own plan
+# and, where it can force it, its two-pass mode (NAME:lanes_two_pass),
+# and the first build the other modes
+LANES_AB_TWO_PASS = (
+    (_E, 14_336, _F32, (16,)), (_E, 14_337, _F32, (16,)),
+    (_E, 20_480, _F32, (4, 8)), (_E, 20_481, _F32, (4, 8)),
+    (_E, 10_496, _F32, (1,)), (_E, 10_497, _F32, (1,)),
+    (_E, 40_000, _F32, (8, 16)), (WIDE["n"], WIDE["d"], _F32, (8,)),
+    (10_000, 262_145, _F32, (1,)), (_E, 32_769, _BF16, (8,)),
+    (_E, 16_385, _BF16, (16,)), (_E, 12_000, _F32, (8, 16)),
+    (_E, 16_384, _F32, (8, 16)), (_E, 2_048, _F32, (16,)),
+    (_E, 2_049, _F32, (16,)), (_E, 1_024, _BF16, (16,)),
+    (_E, 1_025, _BF16, (16,)), (_E, 4_096, _BF16, (1, 2, 4, 8)),
+    (_E, 4_097, _BF16, (1, 2, 4, 8)), (_E, 8_192, _BF16, (1, 4, 16)),
+    (_E, 1_025, _F32, (16,)), (_E, 3_072, _F32, (16,)),
+    (_E, 4_000, _F32, (16,)), (_E, 6_000, _F32, (16,)),
+    (_E, 8_000, _F32, (8, 16)), (_E, 10_000, _F32, (8, 16)),
+    (_E, 14_336, _F32, (8,)), (_E, 18_000, _F32, (8,)),
+    (_E, 20_480, _F32, (2,)), (_E, 1_536, _BF16, (16,)),
+    (_E, 2_048, _BF16, (16,)), (_E, 2_049, _BF16, (16,)),
+    (_E, 3_072, _BF16, (16,)), (_E, 12_000, _BF16, (16,)),
+    (_E, 16_384, _BF16, (4, 8, 16)), (_E, 24_000, _BF16, (8,)),
+    (_E, 32_768, _BF16, (1, 4, 8)))
 
 
 def lanes_bound_ms(n, d, k, itemsize):
@@ -3200,6 +3270,14 @@ def lanes_bound_ms(n, d, k, itemsize):
     the gradients written once, against 4 N D K f32 flops."""
     return bound_ms(n * d * itemsize + 2 * n * 4 + 2 * k * d * 4 + k * 4,
                     4 * n * d * k)
+
+
+def lanes_two_pass_floor_ms(n, d, k, itemsize):
+    """The two-pass design's floor: X read twice, y and the mask once, W
+    read and the gradients written once, the (N, K) multipliers written
+    and read, at the memory rate (ms)."""
+    return (2 * n * d * itemsize + 2 * n * 4 + 2 * k * d * 4 + k * 4
+            + 2 * n * k * 4) / HBM_BYTES_PER_S * 1e3
 
 
 def lanes_ab(fk, specs, groups=LANES_AB_GROUPS):
@@ -3233,6 +3311,8 @@ def lanes_ab(fk, specs, groups=LANES_AB_GROUPS):
                    for d, it, k in sorted(edges)]
     if "handover" in groups:
         shapes += [shape + (True,) for shape in LANES_AB_HANDOVER]
+    if "two_pass" in groups:
+        shapes += [shape + ("two_pass",) for shape in LANES_AB_TWO_PASS]
     failed = []
     for n, d, xt, ks, force in shapes:
         gen = torch.Generator(device=dev)
@@ -3249,6 +3329,8 @@ def lanes_ab(fk, specs, groups=LANES_AB_GROUPS):
             out = {"phase": "ab_lanes", "shape": [n, d], "lanes": k,
                    "x_dtype": str(xt).replace("torch.", ""),
                    "bound_ms": b_ms, "bound_by": bound_by,
+                   "two_pass_floor_ms": lanes_two_pass_floor_ms(
+                       n, d, k, itemsize),
                    "grad_abs_max": float(exact[1].abs().max()),
                    "card_before": card_state()}
             # each build's own plan, then the forced modes that the first
@@ -3256,10 +3338,13 @@ def lanes_ab(fk, specs, groups=LANES_AB_GROUPS):
             entries = [(name, b[1], fk.lanes_plan_for(b[1], n, d, k,
                                                       itemsize, sms))
                        for name, b in zip(names, builds)]
+            first = True
             for name, lib, own in list(entries):
                 if not force or not hasattr(lib, "lanes_mode_plan"):
                     continue
                 for mode, c in LANES_AB_FORCED:
+                    if not first and mode != "lanes_two_pass":
+                        continue
                     try:
                         p = fk.lanes_mode_plan_for(lib, n, d, k, itemsize,
                                                    sms, mode, c)
@@ -3267,7 +3352,9 @@ def lanes_ab(fk, specs, groups=LANES_AB_GROUPS):
                         continue
                     if p.raw != own.raw:
                         entries.append((f"{name}:{mode}{c or ''}", lib, p))
-                break
+                if force != "two_pass":
+                    break
+                first = False
             by_name = {name: (lib, p) for name, lib, p in entries}
 
             def call_of(name, W=W):
@@ -3481,15 +3568,17 @@ def hold_sweep(res, ref, checks, label):
 
 
 def sweep_path(port, fk, losses, smi, X, y, solo, launches,
-               path="sweep_path", want=None):
+               path="sweep_path", want=None, iters=ITERS):
     """Phase 22, on phase 5's data (and phase 29, ``path`` =
-    "epsilon_sweep", on phase 28's): the regularization path over
-    SWEEP_REGS through ``FusedLogisticGradient`` (every launch the lanes
-    kernel, one per evaluation round, and with ``want`` every launch in
-    that mode), each lane held to the plain sweep and the 0.1 lane to the
-    solo fit ``solo`` on the same data (``(AGDResult, loss history, wall
-    seconds)``); the kernel at this shape, K = 8, held to f64 sums and
-    timed.  Returns the lanes kernel's entry of the kernels line."""
+    "epsilon_sweep", on phase 28's; phase 30, "wide_sweep", on phase
+    19's): the regularization path over SWEEP_REGS through
+    ``FusedLogisticGradient`` at ``iters`` iterations (every launch the
+    lanes kernel, one per evaluation round, and with ``want`` every launch
+    in that mode), each lane held to the plain sweep and the 0.1 lane to
+    the solo fit ``solo`` on the same data (``(AGDResult, loss history,
+    wall seconds)``); the kernel at this shape, K = 8, held to f64 sums
+    and timed (device ms by kernel name: by pass in the two-pass mode).
+    Returns the lanes kernel's entry of the kernels line."""
     t_phase = time.perf_counter()
     k = len(SWEEP_REGS)
     n, d = X.shape
@@ -3499,7 +3588,7 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches,
     def opt(gradient):
         return (port.AcceleratedGradientDescent(gradient,
                                                 port.SquaredL2Updater())
-                .setNumIterations(ITERS).setConvergenceTol(TOL))
+                .setNumIterations(iters).setConvergenceTol(TOL))
 
     fk.reset_launch_counts()
     res, sweep_s = timed(lambda: opt(fused).sweep((X, y), SWEEP_REGS, w0))
@@ -3516,7 +3605,7 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches,
     if want is not None:
         checks[f"every_launch_{want}"] = modes == {want: lanes_launches}
     out = {"shape": [n, d], "regs": SWEEP_REGS,
-           "iterations": ITERS, "sweep_s": sweep_s, "plain_sweep_s": plain_s,
+           "iterations": iters, "sweep_s": sweep_s, "plain_sweep_s": plain_s,
            "solo_run_s": solo[2], "eight_solo_runs_s": k * solo[2],
            "rounds": rounds, "launches": lanes_launches, "modes": modes,
            "wall_ms_per_round": sweep_s * 1e3 / rounds,
@@ -3576,10 +3665,12 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches,
                                for i in range(k)])
     state_after = card_state()
     b_ms, bound_by = lanes_bound_ms(n, d, k, 4)
+    floor_ms = lanes_two_pass_floor_ms(n, d, k, 4)
     plan = fk.lanes_launch_shape(X, k)
     out.update({
         "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
         "bound_ms": b_ms, "bound_by": bound_by,
+        "two_pass_floor_ms": floor_ms,
         "bound_source": "H100 SXM data sheet 3.35 TB/s, 67 TFLOP/s f32",
         "kernel_bound_frac": b_ms / kernel_ms, "plain_ms": plain_ms,
         "two_matmuls_ms": two_mm_ms,
@@ -3605,11 +3696,31 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches,
             "max_abs_err": max_abs_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": bound_by, "library_ms": None,
+            "two_pass_floor_ms": floor_ms,
             "two_matmuls_ms": two_mm_ms,
             "device_ms": sum(kernel_device_ms.values()) or None,
+            "device_ms_by_kernel": kernel_device_ms,
             "two_matmuls_device_ms": two_mm_device_ms,
             "eight_solo_launches_ms": solo_ms, "lanes": k,
             "shape": [n, d], "plan": list(plan[:6])}
+
+
+def wide_sweep_path(port, fk, losses, smi, X, y, solo, launches):
+    """Phase 30, on phase 19's data (WIDE, 100,000 x 40,000 f32): the
+    path of phase 22 (SWEEP_REGS, WIDE's iterations, tol 0) read as phase
+    22 is, every launch in the mode the lanes kernel's plan gives there,
+    which the width rule makes the two-pass mode (40,000 columns lie past
+    ``lanes_max_width`` for 8 lanes); the 0.1 lane held to phase 19's
+    solo fit."""
+    k, d = len(SWEEP_REGS), X.shape[1]
+    want = fk.lanes_launch_shape(X, k).mode
+    rule = ("lanes_two_pass" if d > fk.lanes_max_width(k, X.dtype)
+            else "lanes_cluster")
+    if want != rule:
+        raise AssertionError(f"wide_sweep: the plan gives {want} at "
+                             f"{d} columns, the width rule {rule}")
+    return sweep_path(port, fk, losses, smi, X, y, solo, launches,
+                      "wide_sweep", want, WIDE["iters"])
 
 
 class _LbfgsLane:
@@ -3797,7 +3908,8 @@ def main(argv):
                         help="data seeds of --ab, comma-separated")
     parser.add_argument("--shapes", default=",".join(LANES_AB_GROUPS),
                         help="the shape groups of --ab lanes:, "
-                             "comma-separated (sweep, edges, handover)")
+                             "comma-separated (sweep, edges, handover, "
+                             "two_pass)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3912,9 +4024,14 @@ def main(argv):
     torch.cuda.empty_cache()
 
     # 19. X past one row in shared memory: the cluster mode, and the
-    # two-pass mode past its reach; the lanes kernel's two-pass mode
-    wide, wide_two_pass = wide_path(port, fk, losses, device_synth, smi,
-                                    launches)
+    # two-pass mode past its reach; 30. on its data, the path over 8
+    # strengths in the lanes kernel's plan there (its two-pass mode); then
+    # the lanes kernel's two-pass mode past each reach
+    wide_sweep = {}
+    wide, wide_two_pass = wide_path(
+        port, fk, losses, device_synth, smi, launches,
+        lambda X, y, solo: wide_sweep.update(wide_sweep_path(
+            port, fk, losses, smi, X, y, solo, launches)))
     torch.cuda.empty_cache()
     lanes_two_pass = lanes_two_pass_times(fk, losses)
 
@@ -3958,13 +4075,14 @@ def main(argv):
             "grad_max_abs_err_vs_f64")}
             for name, row in wide_softmax.items()}}
     lanes_paths = ("sweep_path", "cv_path", "lbfgs_sweep_path",
-                   "epsilon_sweep")
+                   "epsilon_sweep", "wide_sweep")
     lanes["launches_by_path"] = {p: launches[p] for p in lanes_paths}
     lanes["modes_by_path"] = {p: launches["lanes_modes"][p]
                               for p in ("sweep_path", "lbfgs_sweep_path",
-                                        "epsilon_sweep")}
+                                        "epsilon_sweep", "wide_sweep")}
     # each mode's numbers at a shape of a path that runs it: lanes_mma's
-    # at the main path's (the entry's own), lanes_cluster's at epsilon's
+    # at the main path's (the entry's own), lanes_cluster's at epsilon's,
+    # lanes_two_pass's at phase 30's (and one past each reach)
     lanes["by_mode"] = {
         "lanes_mma": {key: lanes[key] for key in (
             "shape", "plan", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -3974,7 +4092,12 @@ def main(argv):
             "shape", "plan", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "two_matmuls_ms", "two_matmuls_device_ms",
             "eight_solo_launches_ms", "max_abs_err")},
-        "lanes_two_pass": lanes_two_pass}
+        "lanes_two_pass": {key: wide_sweep[key] for key in (
+            "shape", "plan", "ms", "device_ms", "device_ms_by_kernel",
+            "plain_ms", "bound_ms", "bound_by", "two_pass_floor_ms",
+            "two_matmuls_ms", "two_matmuls_device_ms",
+            "eight_solo_launches_ms", "max_abs_err")},
+        "lanes_two_pass_past_reach": lanes_two_pass}
     for entry, lib in ((margin, "margin_loss_grad"),
                        (lanes, "margin_lanes_loss_grad"),
                        (softmax, "softmax_loss_grad")):

@@ -23,16 +23,18 @@
 // mode (lanes_mma) and the tile mode (lanes_tile) while one block's
 // shared memory holds the lanes' W beside a row tile, the cluster mode
 // (lanes_cluster) from where lanes_mma's block stops fitting up to the
-// reach of a 16-block cluster, and the two-pass mode past that: each
-// hand-over where `--ab lanes:` of chip_smoke.py timed the next mode
-// faster (cluster_from).  K is compiled in buckets (1, 2, 4, 8, 16
-// lanes; the lanes past K read zero weights and are not written), so one
-// launch takes up to kMaxLanes lanes and the wrapper runs more in chunks.
-// Every mode writes per-block (cluster mode: per-cluster) partials that
-// lanes_reduce sums in block order, with no float atomics, so two calls
-// on the same inputs give the same bits.  X may be f32 or bf16 (widened
-// to f32 in registers); y, m, W and every accumulator are f32.  Ragged
-// rows and columns are masked here, so X needs no padding.
+// reach of its largest cluster (most_blocks: 2-16 blocks by lanes and
+// type; none for 16 lanes of bf16), and the two-pass mode past that:
+// each hand-over where `--ab lanes:` of chip_smoke.py timed the next mode
+// faster (cluster_from, most_blocks).  K is compiled in buckets (1, 2, 4,
+// 8, 16 lanes; the lanes past K read zero weights and are not written),
+// so one launch takes up to kMaxLanes lanes and the wrapper runs more in
+// chunks.  Every mode writes per-block (cluster mode: per-cluster)
+// partials that lanes_reduce sums in block order (the two-pass mode's
+// loss partials come from its middle's blocks), with no float atomics,
+// so two calls on the same inputs give the same bits.  X may be f32 or
+// bf16 (widened to f32 in registers); y, m, W and every accumulator are
+// f32.  Ragged rows and columns are masked here, so X needs no padding.
 //
 // Tensor-core mode (from 8 lanes at every width it takes, 4 lanes past
 // 512 columns: where the `--ab lanes:` sweep found it faster than the
@@ -78,15 +80,18 @@
 // partial dots swapped through distributed shared memory, so X is read
 // once (details at lanes_cluster).
 //
-// Two-pass mode (past lanes_max_width): pass 1 gives each row a warp
-// that reads it from device memory (W from L1/L2) and writes the K
-// multipliers to an (N, K) scratch; pass 2 walks column chunks x row
-// groups, one column and its KB sums a thread (plain sums over each
-// chunk of rows, compensated across chunks), and reads X again, as the
-// TPU wrapper's two library products do past its VMEM budget.  This mode
-// has no width limit.
+// Two-pass mode (past lanes_max_width): X read twice, as the TPU
+// wrapper's two library products do past its VMEM budget, both products
+// on the tensor cores.  W (K x D f32: 0.9 MB at K = 16 and 14,337
+// columns, past L1) read from L2 for every row would move some 16 times
+// the bytes of X; so pass 1 forms the dots of a 128-row tile as X_tile
+// W^T with W's columns staged beside X's, and W leaves L2 once a tile;
+// the middle is a pass over the (N, 8 NT) dots; pass 2 forms X^T M on
+// the tensor cores over (256 columns, row group) blocks.  This mode has
+// no width limit (details at lanes_tp_dots).
 
 #include <atomic>
+#include <type_traits>
 
 #include "cluster_common.cuh"
 #include "margin_middle.cuh"
@@ -932,123 +937,482 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   cluster_sync();
 }
 
-// Two-pass mode, pass 1: a warp per row (rows strided over the grid's
-// warps) forms the row's K dots from device memory; lane kk applies lane
-// kk's middle, writes m * mult to mult_out[r * k + kk] and adds m * per to
-// its loss.  One loss partial a lane per block.
-template <typename T, int L, int KB>
-__global__ void __launch_bounds__(kThreads)
-    lanes_wide_dots(const T* __restrict__ X, const float* __restrict__ y,
-                    const float* __restrict__ mask,
-                    const float* __restrict__ W, int64_t n, int64_t d, int k,
-                    float* __restrict__ mult_out,
-                    float* __restrict__ partial_loss) {
-  __shared__ float loss_s[kThreads];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  Kahan loss_acc;
-  const int64_t warps_total = int64_t(gridDim.x) * kWarps;
-  for (int64_t r = int64_t(blockIdx.x) * kWarps + warp; r < n;
-       r += warps_total) {
-    const T* row = X + r * d;
-    float acc[KB];
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk) acc[kk] = 0.f;
-    for (int64_t c = lane; c < d; c += 32) {
-      const float xv = to_f32(row[c]);
-#pragma unroll
-      for (int kk = 0; kk < KB; ++kk)
-        if (kk < k) acc[kk] = fmaf(xv, __ldg(W + int64_t(kk) * d + c), acc[kk]);
-    }
-    float dot = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KB; ++kk) {
-      float v = acc[kk];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (kk == lane) dot = v;
-    }
-    if (lane < k) {
-      float per, mult;
-      loss_middle<L>(dot, y[r], &per, &mult);
-      const float m = mask[r];
-      mult_out[r * k + lane] = mult * m;
-      loss_acc.add(per * m);
-    }
-  }
-  loss_s[threadIdx.x] = loss_acc.s;
-  __syncthreads();
-  if (threadIdx.x < k) {
-    Kahan sum;
-    for (int w = 0; w < kWarps; ++w) sum.add(loss_s[w * 32 + threadIdx.x]);
-    partial_loss[int64_t(blockIdx.x) * k + threadIdx.x] = sum.s;
-  }
+// ---- two-pass mode ----------------------------------------------------
+//
+// X read twice, both products on the tensor cores with the fragments and
+// splits of lanes_mma (tf32_mma.cuh), in three launches and the final
+// sums:
+//   - pass 1 (lanes_tp_dots): block (row tile, D split) forms the partial
+//     dots Z (128 rows x 8 NT lanes) = X_tile W^T over its columns: warp
+//     w owns rows 16 w .. 16 w + 15 (an m16 tile) and every lane; D runs
+//     in stages of 256 bytes of each row (64 f32 or 128 bf16 columns)
+//     through a two-stage ring that carries X's stage and W's (the k
+//     lanes' same columns), so W leaves L2 once a tile and not once a row.
+//     Tiles of 256 rows by 128 bytes took 15-20% longer in pass 1 on the
+//     H100, and a third stage at one block an SM 30% longer (PERF.md):
+//     a stage's bulk copies are as many as its rows.
+//     Each stage's sum (hi*hi from zero at each k8 step, added with a
+//     rounded f32 add; the small terms in the compensation) is added to
+//     the sum over stages with compensation.  The block writes its partial
+//     Z into the (splits, N, LS) scratch (LS = mma_lane_stride: 8 floats a
+//     row, 24 for two n8 tiles, so that pass 2's B loads hit distinct
+//     banks).  Where the row tiles leave the card's waves short (10,000
+//     rows are 79 tiles for 264 resident blocks), D is split across
+//     blocks: the fewest splits whose blocks fill their waves
+//     (two_pass_plan);
+//   - the middle (lanes_tp_middle): a thread an element (row, lane) of
+//     the dots: the splits' partials added in split order, the lane's
+//     middle applied, m * mult written over the first split's dot (the
+//     (N, LS) multipliers, 0 past lane k), m * per added to the thread's
+//     loss; each block's loss of each lane summed in a fixed tree;
+//   - pass 2 (lanes_tp_grad): block (256 columns of D, row group) forms
+//     G^T (256 x 8 NT) = X^T M over the group's rows: warp w owns
+//     columns 32 w .. 32 w + 31 (two m16 tiles of A = X^T, read down the
+//     staged rows) and every lane (B = M), in stages of 32 f32 or 64 bf16
+//     rows through a two-stage ring, the stages added with compensation,
+//     into its group's gradient partial; the row groups are as many as
+//     fill the card's waves at every width (two_pass_plan).
+// A stage's rows arrive by one bulk copy each (cp.async.bulk of the
+// 16-byte chunks that cover the row's columns, issue_stage), each row at
+// its address modulo 16, so rows of any width (14,337 f32 columns: no row
+// but every fourth is aligned) need no padding; a thread a row issues
+// them, and the stage completes on its mbarrier.  The first build copied
+// the 16-byte chunks with cp.async, about 9 a thread a stage, and took
+// 1.3-1.5x as long (PERF.md).  Columns past the last
+// stage of D are masked at the fragment loads (pass 1) or land only in
+// G^T's rows past d, which are not written (pass 2); rows past the tile
+// give dots that are not written (pass 1) and are zeroed in both
+// operands (pass 2); lanes past k give dots that the middle does not
+// read.  No float atomics: two calls give the same bits.
+constexpr int kTPThreads = kThreads;
+// pass 1: m16 tiles of rows a warp, so rows a block; bytes of each row a
+// stage (so its columns a stage: tp_step); the ring's stages; blocks an
+// SM (their registers capped to fit)
+constexpr int kTP1MTiles = 1;
+constexpr int kTP1Rows = 16 * kTP1MTiles * kWarps;
+constexpr int kTP1RowBytes = 256;
+constexpr int kTP1Stages = 2;
+constexpr int kTP1MinBlocks = 2;
+// pass 2: m16 tiles of columns a warp, so columns a block; a stage's
+// bytes of X (so its rows: tp_rows); blocks an SM
+constexpr int kTP2MTiles = 2;
+constexpr int kTP2Cols = 16 * kTP2MTiles * kWarps;
+constexpr int kTP2StageBytes = 32 * 1024;
+constexpr int kTP2MinBlocks = 2;
+// D splits of pass 1: at most kTPMaxSplits, each at least kTPMinSplitStages
+// stages; pass 2's row groups: at least kTPWaves waves of blocks, their
+// partials at most kTPPartialBytes; the middle: at most kTPMiddlePerSM
+// blocks an SM (its loss partials)
+constexpr int kTPMaxSplits = 32;
+constexpr int kTPMinSplitStages = 16;
+constexpr int kTPWaves = 4;
+constexpr int64_t kTPPartialBytes = int64_t(256) << 20;
+constexpr int kTPMiddlePerSM = 4;
+
+// Pass 1's columns a stage and pass 2's rows a stage, for X of `itemsize`.
+__host__ __device__ constexpr int tp_step(int itemsize) {
+  return kTP1RowBytes / itemsize;
+}
+__host__ __device__ constexpr int tp_rows(int itemsize) {
+  return kTP2StageBytes / (kTP2Cols * itemsize);
 }
 
-// Two-pass mode, pass 2: block (x, y) owns columns [256 x, 256 x + 256),
-// one a thread, over row group y; the multipliers come through shared
-// memory kWideChunk rows at a time, four rows' loads in flight, summed
-// plainly within a chunk and compensated across chunks.  Writes
-// partial_grad[(y * k + kk) * d + c].
-constexpr int kWideChunk = 256;
-constexpr int kWideBlocksPerSM = 8;
+// A row stride in shared memory: `bytes` rounded up to 16, then to s %
+// 128 == rem, so that the lanes of a fragment load hit distinct banks
+// (32 banks of 4 bytes).  Fragments across a row (pass 1's A = X and B =
+// W^T: lane (g, t) reads row g, column t) take rem 16, a word stride of 4
+// mod 32; fragments down the columns (pass 2's A = X^T and B = M: lane
+// (g, t) reads row t, column g) take rem 32, 8 mod 32.
+__host__ __device__ constexpr int tp_stride(int bytes, int rem) {
+  return (bytes + 15) / 16 * 16 +
+         ((rem - (bytes + 15) / 16 * 16 % 128) % 128 + 128) % 128;
+}
 
-template <typename T, int KB>
-__global__ void __launch_bounds__(kThreads)
-    lanes_wide_grad(const T* __restrict__ X, const float* __restrict__ mult,
-                    int64_t n, int64_t d, int k,
-                    float* __restrict__ partial_grad) {
-  __shared__ __align__(16) float mult_s[kWideChunk * KB];
-  const int64_t c = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t groups = gridDim.y;
-  const int64_t rows_per_group = (n + groups - 1) / groups;
-  const int64_t r_begin = min64(n, int64_t(blockIdx.y) * rows_per_group);
-  const int64_t r_end = min64(n, r_begin + rows_per_group);
-  Kahan sum[KB];
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += kWideChunk) {
-    const int rows = int(min64(kWideChunk, r_end - r0));
-    __syncthreads();  // the last chunk's multipliers are consumed
-    for (int i = threadIdx.x; i < rows * KB; i += kThreads) {
-      const int kk = i % KB;
-      mult_s[i] = kk < k ? mult[(r0 + i / KB) * k + kk] : 0.f;
+// Pass 1's shared memory (byte offsets): kTP1Stages stages, each the X
+// stage (kTP1Rows rows of kTP1RowBytes, each at its address modulo 16)
+// then W's (8 NT lanes of the same columns, in f32); then the stages'
+// mbarriers.
+struct TP1Layout {
+  int xs, ws, x, stage, bar, total;
+  __host__ __device__ constexpr TP1Layout(int itemsize, int nt)
+      : xs(tp_stride(kTP1RowBytes + 16, 16)),
+        ws(tp_stride(tp_step(itemsize) * 4 + 16, 16)),
+        x(kTP1Rows * xs),
+        stage(x + 8 * nt * ws),
+        bar(kTP1Stages * stage),
+        total(bar + 8 * kTP1Stages) {}
+};
+
+// Pass 2's shared memory (byte offsets): two stages, each the X stage
+// (tp_rows rows of 256 columns, each at its address modulo 16) then M's
+// (the same rows of the multipliers, as the scratch holds them:
+// mma_lane_stride floats a row); then the stages' mbarriers.
+struct TP2Layout {
+  int xs, ms, x, stage, bar, total;
+  __host__ __device__ constexpr TP2Layout(int itemsize, int nt)
+      : xs(tp_stride(kTP2Cols * itemsize + 16, 32)),
+        ms(4 * mma_lane_stride(nt)),
+        x(tp_rows(itemsize) * xs),
+        stage(x + tp_rows(itemsize) * ms),
+        bar(2 * stage),
+        total(bar + 16) {}
+};
+
+// Where element c of a staged row starts: the row's byte address modulo
+// 16, in elements.
+template <typename T>
+__device__ __forceinline__ int tp_offset(const T* base, int64_t elem) {
+  return int(((reinterpret_cast<uintptr_t>(base) +
+               uintptr_t(elem) * sizeof(T)) & 15) / sizeof(T));
+}
+
+// The stage's sum (`big`, the small terms in `ncomp`) into the sum over
+// stages with compensation: ncomp is the negated Kahan correction, so the
+// stage's sum plus ncomp is what the next compensated add takes.
+template <int MT, int NT>
+__device__ __forceinline__ void tp_add_stage(float (&sum)[MT][NT][4],
+                                             float (&ncomp)[MT][NT][4],
+                                             const float (&big)[MT][NT][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v = big[mt][nt][i] + ncomp[mt][nt][i];
+        const float s = sum[mt][nt][i] + v;
+        ncomp[mt][nt][i] = v - (s - sum[mt][nt][i]);
+        sum[mt][nt][i] = s;
+      }
+}
+
+// Pass 1: block (x, y) forms the partial dots of rows [256 x, 256 x +
+// 256) over the columns [y split_cols, (y + 1) split_cols) of D (a
+// multiple of the stage) and writes them to zp[(y n + row) LS + lane]
+// (rows below n, all 8 NT lanes; LS = mma_lane_stride).  Stage s: row r
+// of the tile by thread r, lane kk of W by thread kk, one bulk copy each
+// (issue_stage), an arrival each on the stage's mbarrier (with no bytes
+// past the tile and past lane k).  A fragments: a0 (row g, column t), a1
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4) of the warp's m-tile; B:
+// b0 (column t, lane g), b1 (t + 4, g); C: c0 (row g, lane 2t), c1 (g,
+// 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kTPThreads, kTP1MinBlocks)
+    lanes_tp_dots(const T* __restrict__ X, const float* __restrict__ W,
+                  int64_t n, int64_t d, int k, int64_t split_cols,
+                  float* __restrict__ zp) {
+  constexpr bool kXLo = sizeof(T) == 4;  // f32 X has a lo half
+  constexpr int MT = kTP1MTiles;
+  constexpr int STEP = tp_step(int(sizeof(T)));
+  constexpr int LS = mma_lane_stride(NT);
+  constexpr TP1Layout lay(int(sizeof(T)), NT);
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t row0 = int64_t(blockIdx.x) * kTP1Rows;
+  const int rows = int(min64(kTP1Rows, n - row0));
+  const int64_t dbeg = int64_t(blockIdx.y) * split_cols;
+  const int64_t dend = min64(d, dbeg + split_cols);
+  const int nst = int((dend - dbeg + STEP - 1) / STEP);
+  const T* xt = X + row0 * d;
+  // where this lane's rows (m-tile mt, half h) and lanes (n8 tile nt)
+  // start in a stage, in elements: the same in every stage, whose first
+  // column lies a multiple of 16 bytes on
+  int xo[MT][2], wo[NT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 * MT + mt * 16 + g + 8 * h;
+      xo[mt][h] = r * (lay.xs / int(sizeof(T))) + tp_offset(xt, r * d);
     }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    wo[nt] = (nt * 8 + g) * (lay.ws / 4) + tp_offset(W, (nt * 8 + g) * d);
+  static_assert(kTP1Rows <= kTPThreads, "a thread a row");
+  if (tid == 0) {
+    for (int b = 0; b < kTP1Stages; ++b)
+      mbar_init(&full[b], kTP1Rows + 8 * NT);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue = [&](int s) {
+    unsigned char* st = smem + (s % kTP1Stages) * lay.stage;
+    uint64_t* bar = &full[s % kTP1Stages];
+    const int64_t c0 = dbeg + int64_t(s) * STEP;
+    const int64_t c1 = min64(dend, c0 + STEP);
+    if (tid < rows) {
+      const T* a = xt + tid * d;
+      issue_stage(st + tid * lay.xs, a + c0, a + c1, X, X + n * d, bar);
+    } else if (tid < kTP1Rows) {
+      mbar_expect_bytes(bar, 0);
+    }
+    if (tid < k) {
+      const float* a = W + tid * d;
+      issue_stage(st + lay.x + tid * lay.ws, a + c0, a + c1, W,
+                  W + int64_t(k) * d, bar);
+    } else if (tid < 8 * NT) {
+      mbar_expect_bytes(bar, 0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kTP1Stages - 1; ++s)
+    if (s < nst) issue(s);
+  float sum[MT][NT][4], ncomp[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[mt][nt][i] = ncomp[mt][nt][i] = 0.f;
+
+  for (int s = 0; s < nst; ++s) {
+    mbar_wait(&full[s % kTP1Stages], uint32_t((s / kTP1Stages) & 1));
+    // every thread is done with stage s - 1, whose buffer takes stage s +
+    // kTP1Stages - 1
     __syncthreads();
-    if (c < d) {
-      float s[KB];
+    if (s + kTP1Stages - 1 < nst) issue(s + kTP1Stages - 1);
+    const unsigned char* st = smem + (s % kTP1Stages) * lay.stage;
+    const T* xs = reinterpret_cast<const T*>(st);
+    const float* ws = reinterpret_cast<const float*>(st + lay.x);
+    // the stage's live columns: fewer only in the last stage of D, whose
+    // columns past them are masked to zero in both operands
+    const int live = int(min64(STEP, dend - dbeg - int64_t(s) * STEP));
+    float big[MT][NT][4];
 #pragma unroll
-      for (int kk = 0; kk < KB; ++kk) s[kk] = 0.f;
-      const T* col = X + r0 * d + c;
-      int i = 0;
-      for (; i + 3 < rows; i += 4) {
-        float xv[4];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) xv[u] = to_f32(col[int64_t(i + u) * d]);
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          float mv[KB];
-          load_lanes<KB>(mult_s + (i + u) * KB, mv);
+        for (int i = 0; i < 4; ++i) big[mt][nt][i] = 0.f;
+    auto dots = [&](auto tail) {
+      constexpr bool kTail = decltype(tail)::value;
+#pragma unroll 4
+      for (int j = 0; j < STEP / 8; ++j) {
+        uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-          for (int kk = 0; kk < KB; ++kk) s[kk] = fmaf(mv[kk], xv[u], s[kk]);
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = j * 8 + t + 4 * (i >> 1);
+            const float v = to_f32(xs[xo[mt][i & 1] + c]);
+            split_x<T>(!kTail || c < live ? v : 0.f, ah[mt][i], al[mt][i]);
+          }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t bh[2], bl[2], bl2[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = j * 8 + t + 4 * h;
+            const float v = ws[wo[nt] + c];
+            split_w(!kTail || c < live ? v : 0.f, bh[h], bl[h], bl2[h]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma3<kXLo>(big[mt][nt], ncomp[mt][nt], ah[mt], al[mt], bh, bl);
+            mma_tf32(ncomp[mt][nt], ah[mt], bl2);  // x_hi w_lo2
+          }
         }
       }
-      for (; i < rows; ++i) {
-        const float xv = to_f32(col[int64_t(i) * d]);
-        float mv[KB];
-        load_lanes<KB>(mult_s + i * KB, mv);
+    };
+    if (live == STEP)
+      dots(std::false_type{});
+    else
+      dots(std::true_type{});
+    tp_add_stage(sum, ncomp, big);
+  }
+
+  float* out = zp + (int64_t(blockIdx.y) * n + row0) * LS;
 #pragma unroll
-        for (int kk = 0; kk < KB; ++kk) s[kk] = fmaf(mv[kk], xv, s[kk]);
-      }
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int kk = 0; kk < KB; ++kk) sum[kk].add(s[kk]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 * MT + mt * 16 + g + 8 * h;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<float2*>(out + r * LS + nt * 8 + 2 * t) =
+            make_float2(sum[mt][nt][2 * h] + ncomp[mt][nt][2 * h],
+                        sum[mt][nt][2 * h + 1] + ncomp[mt][nt][2 * h + 1]);
     }
+}
+
+// The middle: element (row, lane) of the dots (lane below ms = 8 NT), a
+// thread each in a grid-stride loop over row ms + lane (the stride a
+// multiple of ms, so that a thread keeps its lane): the `splits`
+// partials at zp + (s n + row) ls + lane added in split order, lane's
+// middle applied, m * mult written over the first split's dot (0 past
+// lane k), m * per added to the thread's loss.  Each block's loss of each
+// lane, summed in a fixed tree, goes to partial_loss[block k + lane].
+__global__ void __launch_bounds__(kTPThreads)
+    lanes_tp_middle(const float* __restrict__ y,
+                    const float* __restrict__ mask, int64_t n, int k, int ms,
+                    int ls, int splits, int loss_kind, float* __restrict__ zp,
+                    float* __restrict__ partial_loss) {
+  __shared__ float loss_s[kTPThreads];
+  const int lane = threadIdx.x % ms;
+  Kahan acc;
+  for (int64_t e = int64_t(blockIdx.x) * kTPThreads + threadIdx.x;
+       e < n * ms; e += int64_t(gridDim.x) * kTPThreads) {
+    const int64_t r = e / ms;
+    float* p = zp + r * ls + lane;
+    float mm = 0.f;
+    if (lane < k) {
+      float z = 0.f;
+      for (int s = 0; s < splits; ++s) z += p[s * n * ls];
+      float per, mult;
+      loss_middle_of(loss_kind, z, y[r], &per, &mult);
+      const float m = mask[r];
+      mm = mult * m;
+      acc.add(per * m);
+    }
+    *p = mm;
   }
-  if (c < d) {
+  loss_s[threadIdx.x] = acc.s;
+  __syncthreads();
+  for (int w = kTPThreads / 2; w >= ms; w >>= 1) {
+    if (threadIdx.x < w) loss_s[threadIdx.x] += loss_s[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x < k)
+    partial_loss[int64_t(blockIdx.x) * k + threadIdx.x] = loss_s[threadIdx.x];
+}
+
+// Pass 2: block (x, y) forms G^T = X^T M for the columns [256 x, 256 x +
+// 256) of D over the rows [y rows_per_group, ...) (a multiple of the
+// stage), M the (n, LS) multipliers (LS = mma_lane_stride, lanes past 8
+// NT unread), and writes partial_grad[(y k + kk) d + c] (c below d, kk
+// below k).  Stage s: row r by thread r (one bulk copy, issue_stage; a
+// row past the group zeroed by its thread), M's rows by thread R (one
+// bulk copy; rows past the group zeroed), an arrival each on the stage's
+// mbarrier.  A = X^T: a0 (column g, row t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4) of the warp's m-tile; B = M: b0 (row t, lane g), b1
+// (t + 4, g); C: c0 (column g, lane 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
+// c3 (g + 8, 2t + 1).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kTPThreads, kTP2MinBlocks)
+    lanes_tp_grad(const T* __restrict__ X, const float* __restrict__ mult,
+                  int64_t n, int64_t d, int k, int64_t rows_per_group,
+                  float* __restrict__ partial_grad) {
+  constexpr bool kXLo = sizeof(T) == 4;
+  constexpr int MT = kTP2MTiles;
+  constexpr int LS = mma_lane_stride(NT);
+  constexpr int R = tp_rows(int(sizeof(T)));
+  constexpr TP2Layout lay(int(sizeof(T)), NT);
+  static_assert(R < kTPThreads, "a thread a row and one for M");
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t d0 = int64_t(blockIdx.x) * kTP2Cols;
+  const int64_t c1 = min64(d, d0 + kTP2Cols);
+  const int64_t r_begin = min64(n, int64_t(blockIdx.y) * rows_per_group);
+  const int64_t r_end = min64(n, r_begin + rows_per_group);
+  const int nst = int((r_end - r_begin + R - 1) / R);
+  // a row's bytes modulo 16, for the staged rows' offsets
+  const uint32_t row_bytes = uint32_t((d * int64_t(sizeof(T))) & 15);
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) mbar_init(&full[b], R + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto issue = [&](int s) {
+    unsigned char* st = smem + (s & 1) * lay.stage;
+    uint64_t* bar = &full[s & 1];
+    const int64_t r0 = r_begin + int64_t(s) * R;
+    const int rows = int(min64(R, r_end - r0));
+    if (tid < rows) {
+      const T* a = X + (r0 + tid) * d;
+      issue_stage(st + tid * lay.xs, a + d0, a + c1, X, X + n * d, bar);
+    } else if (tid < R) {  // rows past the group read as zeros
+      uint4* z = reinterpret_cast<uint4*>(st + tid * lay.xs);
+      for (int i = 0; i < lay.xs / 16; ++i) z[i] = make_uint4(0u, 0u, 0u, 0u);
+      mbar_expect_bytes(bar, 0);
+    } else if (tid == R) {
+      float* m = reinterpret_cast<float*>(st + lay.x);
+      for (int i = rows * LS; i < R * LS; ++i) m[i] = 0.f;
+      issue_stage(st + lay.x, mult + r0 * LS, mult + (r0 + rows) * LS, mult,
+                  mult + n * LS, bar);
+    }
+  };
+  if (nst > 0) issue(0);
+  float sum[MT][NT][4], ncomp[MT][NT][4];
 #pragma unroll
-    for (int kk = 0; kk < KB; ++kk)
-      if (kk < k)
-        partial_grad[(int64_t(blockIdx.y) * k + kk) * d + c] = sum[kk].s;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[mt][nt][i] = ncomp[mt][nt][i] = 0.f;
+
+  for (int s = 0; s < nst; ++s) {
+    mbar_wait(&full[s & 1], uint32_t((s >> 1) & 1));
+    __syncthreads();
+    if (s + 1 < nst) issue(s + 1);
+    const unsigned char* st = smem + (s & 1) * lay.stage;
+    const T* xs = reinterpret_cast<const T*>(st);
+    const float* ms = reinterpret_cast<const float*>(st + lay.x);
+    // the stage's first row at column d0, modulo 16 bytes
+    const uint32_t base = uint32_t(
+        (reinterpret_cast<uintptr_t>(X + d0) +
+         uintptr_t(r_begin + int64_t(s) * R) * uintptr_t(d) * sizeof(T)) &
+        15);
+    float big[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) big[mt][nt][i] = 0.f;
+#pragma unroll 2
+    for (int j = 0; j < R / 8; ++j) {
+      // this lane's rows j 8 + t and j 8 + t + 4, each at its address
+      // modulo 16 (a zeroed row past the group reads zeros wherever)
+      int xr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = j * 8 + t + 4 * h;
+        xr[h] = r * (lay.xs / int(sizeof(T))) +
+                int(((base + uint32_t(r) * row_bytes) & 15) / sizeof(T));
+      }
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_x<T>(to_f32(xs[xr[i >> 1] + warp * 16 * MT + mt * 16 + g +
+                               8 * (i & 1)]),
+                     ah[mt][i], al[mt][i]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t bh[2], bl[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          split_tf32(ms[(j * 8 + t + 4 * h) * LS + nt * 8 + g], bh[h], bl[h]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3<kXLo>(big[mt][nt], ncomp[mt][nt], ah[mt], al[mt], bh, bl);
+      }
+    }
+    tp_add_stage(sum, ncomp, big);
   }
+
+  float* pg = partial_grad + int64_t(blockIdx.y) * k * d;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t c = d0 + warp * 16 * MT + mt * 16 + g + 8 * (i >> 1);
+        const int kk = nt * 8 + 2 * t + (i & 1);
+        if (c < d && kk < k)
+          pg[int64_t(kk) * d + c] = sum[mt][nt][i] + ncomp[mt][nt][i];
+      }
 }
 
 // Stage 2: fixed-order sums of the partials.  Thread i < k*d sums
@@ -1081,10 +1445,11 @@ enum Mode {
 
 // A launch plan, as lanes_plan fills it: the mode; the lane bucket; the
 // tile rows (tile and tensor-core modes), the ring's stages (cluster
-// mode) or 0 (two-pass mode); the blocks of the (first) launch; the
-// gradient partials (the grid, pass 2's row groups, or the clusters); the
-// blocks of a cluster (cluster mode, else 0).  One loss partial a block,
-// or a cluster.
+// mode) or pass 1's D splits (two-pass mode); the blocks of the launch
+// (two-pass mode: of the middle); the gradient partials (the grid, pass
+// 2's row groups, or the clusters); the blocks of a cluster (cluster
+// mode, else 0).  One loss partial a block (two-pass mode: a block of the
+// middle), or a cluster.
 struct Plan {
   int mode, kb, rows, grid, partials, cluster;
 };
@@ -1135,49 +1500,38 @@ template <typename T, int L, int KB>
 cudaError_t launch_kb(const Plan& p, const T* X, const float* y,
                       const float* mask, const float* W, int64_t n, int64_t d,
                       int k, float* partial_loss, float* partial_grad,
-                      float* mult, cudaStream_t stream) {
+                      cudaStream_t stream) {
   if (p.mode == kLanesMma)
     return launch_mma<T, L, (KB <= 8 ? 1 : 2)>(p, X, y, mask, W, n, d, k,
                                                partial_loss, partial_grad,
                                                stream);
-  if (p.mode == kLanesTile) {
-    const int64_t smem = Layout(d, KB, p.rows, int(sizeof(T))).total;
-    auto kern = lanes_tile<T, L, KB>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    kern<<<p.grid, kThreads, size_t(smem), stream>>>(
-        X, y, mask, W, n, d, k, p.rows, partial_loss, partial_grad);
-    return cudaGetLastError();
-  }
-  lanes_wide_dots<T, L, KB><<<p.grid, kThreads, 0, stream>>>(
-      X, y, mask, W, n, d, k, mult, partial_loss);
-  const cudaError_t err = cudaGetLastError();
+  const int64_t smem = Layout(d, KB, p.rows, int(sizeof(T))).total;
+  auto kern = lanes_tile<T, L, KB>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid2(unsigned((d + kThreads - 1) / kThreads),
-                   unsigned(p.partials));
-  lanes_wide_grad<T, KB><<<grid2, kThreads, 0, stream>>>(X, mult, n, d, k,
-                                                        partial_grad);
+  kern<<<p.grid, kThreads, size_t(smem), stream>>>(
+      X, y, mask, W, n, d, k, p.rows, partial_loss, partial_grad);
   return cudaGetLastError();
 }
 
 template <typename T, int L>
 cudaError_t launch_loss(const Plan& p, const T* X, const float* y,
                         const float* mask, const float* W, int64_t n,
-                        int64_t d, int k, float* pl, float* pg, float* mu,
+                        int64_t d, int k, float* pl, float* pg,
                         cudaStream_t s) {
   switch (p.kb) {
     case 1:
-      return launch_kb<T, L, 1>(p, X, y, mask, W, n, d, k, pl, pg, mu, s);
+      return launch_kb<T, L, 1>(p, X, y, mask, W, n, d, k, pl, pg, s);
     case 2:
-      return launch_kb<T, L, 2>(p, X, y, mask, W, n, d, k, pl, pg, mu, s);
+      return launch_kb<T, L, 2>(p, X, y, mask, W, n, d, k, pl, pg, s);
     case 4:
-      return launch_kb<T, L, 4>(p, X, y, mask, W, n, d, k, pl, pg, mu, s);
+      return launch_kb<T, L, 4>(p, X, y, mask, W, n, d, k, pl, pg, s);
     case 8:
-      return launch_kb<T, L, 8>(p, X, y, mask, W, n, d, k, pl, pg, mu, s);
+      return launch_kb<T, L, 8>(p, X, y, mask, W, n, d, k, pl, pg, s);
     case kMaxLanes:
       return launch_kb<T, L, kMaxLanes>(p, X, y, mask, W, n, d, k, pl, pg,
-                                        mu, s);
+                                        s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1187,21 +1541,87 @@ template <typename T>
 cudaError_t launch_type(int loss_kind, const Plan& p, const void* X,
                         const float* y, const float* mask, const float* W,
                         int64_t n, int64_t d, int k, float* pl, float* pg,
-                        float* mu, cudaStream_t s) {
+                        cudaStream_t s) {
   const T* Xt = static_cast<const T*>(X);
   switch (loss_kind) {
     case kLogistic:
       return launch_loss<T, kLogistic>(p, Xt, y, mask, W, n, d, k, pl, pg,
-                                       mu, s);
+                                       s);
     case kLeastSquares:
       return launch_loss<T, kLeastSquares>(p, Xt, y, mask, W, n, d, k, pl,
-                                           pg, mu, s);
+                                           pg, s);
     case kHinge:
-      return launch_loss<T, kHinge>(p, Xt, y, mask, W, n, d, k, pl, pg, mu,
-                                    s);
+      return launch_loss<T, kHinge>(p, Xt, y, mask, W, n, d, k, pl, pg, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The columns of each of pass 1's `splits` D splits (a multiple of its
+// stage; the last split takes the rest).
+int64_t tp_split_cols(int64_t d, int64_t splits, int itemsize) {
+  return round_up((d + splits - 1) / splits, tp_step(itemsize));
+}
+
+// Pass 2's rows a group for `groups` groups over n rows (a multiple of
+// its stage).
+int64_t tp_rows_per_group(int64_t n, int64_t groups, int itemsize) {
+  return round_up((n + groups - 1) / groups, tp_rows(itemsize));
+}
+
+template <typename K>
+cudaError_t set_smem(K kern, int64_t bytes) {
+  return cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+}
+
+// The two-pass mode's three launches (see lanes_tp_dots): pass 1 on
+// (row tiles, p.rows D splits), the middle on p.grid blocks, pass 2 on
+// (256-column blocks, p.partials row groups).  `zp` holds p.rows x n x
+// mma_lane_stride(NT) floats.
+template <typename T, int NT>
+cudaError_t launch_two_pass(const Plan& p, int loss_kind, const T* X,
+                            const float* y, const float* mask,
+                            const float* W, int64_t n, int64_t d, int k,
+                            float* pl, float* pg, float* zp,
+                            cudaStream_t s) {
+  constexpr int itemsize = int(sizeof(T));
+  constexpr TP1Layout l1(itemsize, NT);
+  constexpr TP2Layout l2(itemsize, NT);
+  cudaError_t err = set_smem(lanes_tp_dots<T, NT>, l1.total);
+  if (err != cudaSuccess) return err;
+  err = set_smem(lanes_tp_grad<T, NT>, l2.total);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (n + kTP1Rows - 1) / kTP1Rows;
+  if (tiles > 0) {
+    lanes_tp_dots<T, NT>
+        <<<dim3(unsigned(tiles), unsigned(p.rows)), kTPThreads, l1.total, s>>>(
+            X, W, n, d, k, tp_split_cols(d, p.rows, itemsize), zp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  lanes_tp_middle<<<p.grid, kTPThreads, 0, s>>>(
+      y, mask, n, k, 8 * NT, mma_lane_stride(NT), p.rows, loss_kind, zp, pl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid2(unsigned((d + kTP2Cols - 1) / kTP2Cols),
+                   unsigned(p.partials));
+  lanes_tp_grad<T, NT><<<grid2, kTPThreads, l2.total, s>>>(
+      X, zp, n, d, k, tp_rows_per_group(n, p.partials, itemsize), pg);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_two_pass_for(const Plan& p, int loss_kind, const void* X,
+                                const float* y, const float* mask,
+                                const float* W, int64_t n, int64_t d, int k,
+                                float* pl, float* pg, float* zp,
+                                cudaStream_t s) {
+  const T* Xt = static_cast<const T*>(X);
+  return p.kb <= 8 ? launch_two_pass<T, 1>(p, loss_kind, Xt, y, mask, W, n,
+                                           d, k, pl, pg, zp, s)
+                   : launch_two_pass<T, 2>(p, loss_kind, Xt, y, mask, W, n,
+                                           d, k, pl, pg, zp, s);
 }
 
 // The cluster mode's kernels take X's type as a template argument and
@@ -1373,11 +1793,21 @@ cudaError_t cluster_plan_of(int64_t n, int64_t d, int kb, int itemsize, int c,
   return cudaSuccess;
 }
 
-// The largest cluster the plan gives a width: 8 blocks for one lane of
-// f32 X, where the two-pass mode (whose passes for one lane are light)
-// was timed faster than 16 blocks (12,000 columns; PERF.md), else 16.
+// The largest cluster the plan gives a width, past which it gives the
+// two-pass mode, where `--ab lanes:` of chip_smoke.py timed that faster
+// than the next cluster size (PERF.md, an H100 80GB HBM3; 100,003 rows):
+// f32 X, 1 lane 8 blocks (the earlier CUDA-core two-pass design against
+// 16 blocks at 12,000 columns), 16 lanes 2 (2,049
+// columns 0.79-0.81 ms against 1.00-1.01 in 4-block clusters; 2,048
+// 0.70-0.78 against 0.64 in 2-block ones), else 16 (within 5% of
+// 16-block clusters either way at 8 lanes, slower at 1-4 at their
+// reach); bf16 X, 16 lanes none (1,025-3,072 columns 10-43% under every
+// cluster size), else 2 (8 lanes: 4,096 0.69-0.71 against 0.64-0.65,
+// 4,097 0.71-0.75 against 0.94-0.96; 1-4 lanes: 8,192 1.20-1.28 against
+// 4-block clusters' 1.31-1.40).
 int most_blocks(int kb, int itemsize) {
-  return kb == 1 && itemsize == 4 ? 8 : kClusterMaxSize;
+  if (itemsize == 2) return kb == kMaxLanes ? 0 : 2;
+  return kb == kMaxLanes ? 2 : kb == 1 ? 8 : kClusterMaxSize;
 }
 
 // The cluster mode's plan: the smallest cluster the card schedules that
@@ -1422,17 +1852,60 @@ void tile_plan(int64_t n, int64_t d, int kb, int itemsize, int sms,
   *p = Plan{kLanesTile, kb, rows, grid, grid, 0};
 }
 
-// The two-pass mode's plan (every width).
-void two_pass_plan(int64_t n, int64_t d, int kb, int sms, Plan* p) {
-  int64_t blocks = (n + kWarps - 1) / kWarps;
-  if (blocks > int64_t(sms) * kWideBlocksPerSM)
-    blocks = int64_t(sms) * kWideBlocksPerSM;
-  const int64_t chunks = (d + kThreads - 1) / kThreads;
-  int64_t groups = int64_t(sms) * kWideBlocksPerSM / chunks;
-  const int64_t most = (n + kWideChunk - 1) / kWideChunk;
-  if (groups > most) groups = most;
-  *p = Plan{kLanesTwoPass, kb, 0, int(blocks < 1 ? 1 : blocks),
-            int(groups < 1 ? 1 : groups), 0};
+// The share of its waves that `blocks` blocks fill, `slots` resident at
+// once.
+double wave_fill(int64_t blocks, int64_t slots) {
+  return double(blocks) / double((blocks + slots - 1) / slots * slots);
+}
+
+// The smallest count c in [lo, hi] for which per * c blocks fill 90% of
+// their waves, else the one that fills the most.
+int64_t fill_waves(int64_t per, int64_t lo, int64_t hi, int64_t slots) {
+  int64_t best = lo;
+  for (int64_t c = lo; c <= hi; ++c) {
+    const double f = wave_fill(per * c, slots);
+    if (f >= 0.9) return c;
+    if (f > wave_fill(per * best, slots)) best = c;
+  }
+  return best;
+}
+
+// The two-pass mode's plan (every width): rows = pass 1's D splits, the
+// fewest whose (row tile, split) blocks fill the card's waves (two blocks
+// an SM), each split at least kTPMinSplitStages stages; grid = the
+// middle's blocks (one loss partial each); partials = pass 2's row
+// groups, the fewest from kTPWaves waves of (256 columns, row group)
+// blocks that fill theirs, at most one a stage of rows and
+// kTPPartialBytes of gradient partials.
+void two_pass_plan(int64_t n, int64_t d, int kb, int itemsize, int sms,
+                   Plan* p) {
+  const int64_t slots = int64_t(sms) * kTP1MinBlocks;
+  const int64_t tiles = (n + kTP1Rows - 1) / kTP1Rows;
+  const int64_t stages = (d + tp_step(itemsize) - 1) / tp_step(itemsize);
+  int64_t most = stages / kTPMinSplitStages;
+  most = most < 1 ? 1 : (most > kTPMaxSplits ? kTPMaxSplits : most);
+  int64_t splits = tiles < 1 ? 1 : fill_waves(tiles, 1, most, slots);
+  splits = (d + tp_split_cols(d, splits, itemsize) - 1) /
+           tp_split_cols(d, splits, itemsize);
+  const int64_t ms = kb <= 8 ? 8 : 16;
+  int64_t middle = (n * ms + kTPThreads - 1) / kTPThreads;
+  if (middle > int64_t(sms) * kTPMiddlePerSM)
+    middle = int64_t(sms) * kTPMiddlePerSM;
+  const int64_t slots2 = int64_t(sms) * kTP2MinBlocks;
+  const int64_t cols = (d + kTP2Cols - 1) / kTP2Cols;
+  const int64_t lo = (slots2 * kTPWaves + cols - 1) / cols;
+  int64_t groups = fill_waves(cols, lo, 2 * lo, slots2);
+  const int64_t most_rows = (n + tp_rows(itemsize) - 1) / tp_rows(itemsize);
+  const int64_t most_bytes = kTPPartialBytes / (4 * d * kb);
+  if (groups > most_rows) groups = most_rows;
+  if (groups > most_bytes) groups = most_bytes;
+  if (groups > 65535) groups = 65535;
+  if (groups < 1) groups = 1;
+  // the groups that hold rows
+  const int64_t per_group = tp_rows_per_group(n, groups, itemsize);
+  if (per_group > 0) groups = (n + per_group - 1) / per_group;
+  *p = Plan{kLanesTwoPass, kb, int(splits), int(middle < 1 ? 1 : middle),
+            int(groups), 0};
 }
 
 void write_plan(const Plan& p, int* plan) {
@@ -1453,10 +1926,11 @@ extern "C" {
 // to plan[0..5] = {mode, kb, rows, grid, partials, cluster} (see Plan):
 // below cluster_from the tensor-core mode where mma_takes, else the tile
 // mode; from there the cluster mode while a cluster that the device
-// schedules takes the width (cluster_plan), and the two-pass mode past
-// it.  Returns cudaErrorInvalidValue, and sets nothing, for arguments no
-// mode takes (k outside 1..kMaxLanes) or an `sms` that is not the
-// device's, and the CUDA error of a device query if it fails.
+// schedules takes the width (cluster_plan: up to most_blocks), and the
+// two-pass mode past it.  Returns cudaErrorInvalidValue, and sets
+// nothing, for arguments no mode takes (k outside 1..kMaxLanes) or an
+// `sms` that is not the device's, and the CUDA error of a device query
+// if it fails.
 int lanes_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
                int* plan) {
   const int kb = bucket_of(k);
@@ -1475,7 +1949,7 @@ int lanes_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
              err != cudaSuccess) {
     return int(err);
   }
-  if (p.mode == -1) two_pass_plan(n, d, kb, sms, &p);
+  if (p.mode == -1) two_pass_plan(n, d, kb, itemsize, sms, &p);
   write_plan(p, plan);
   return 0;
 }
@@ -1503,7 +1977,7 @@ int lanes_mode_plan(int64_t n, int64_t d, int k, int itemsize, int sms,
   } else if (mode == kLanesMma) {
     mma_plan(n, d, kb, itemsize, sms, &p);
   } else if (mode == kLanesTwoPass) {
-    two_pass_plan(n, d, kb, sms, &p);
+    two_pass_plan(n, d, kb, itemsize, sms, &p);
   } else if (mode == kLanesCluster) {
     bool size_ok = false;
     for (int c : kClusterSizes) size_ok = size_ok || c == cluster;
@@ -1553,9 +2027,10 @@ int64_t lanes_cluster_min_width(int k, int itemsize) {
 }
 
 // The widest X (in columns) read once for k lanes on the current device:
-// the reach of the cluster mode that the plan gives (cluster_plan).
-// Wider X takes the two-pass mode.  Returns 0 for k outside 1..kMaxLanes,
-// and minus the CUDA error code if a query fails.
+// the reach of the cluster mode that the plan gives (cluster_plan, its
+// clusters up to most_blocks; where it gives none, lanes_mma's or the
+// tile's last width).  Wider X takes the two-pass mode.  Returns 0 for k
+// outside 1..kMaxLanes, and minus the CUDA error code if a query fails.
 int64_t lanes_max_width(int k, int itemsize) {
   const int kb = bucket_of(k);
   if (kb == 0) return 0;
@@ -1575,8 +2050,9 @@ int64_t lanes_max_width(int k, int itemsize) {
 
 // Launch the plan's kernels and the final sums on `stream` for the k
 // rows of W (k, d).  `partial_loss` holds plan[3] * k floats,
-// `partial_grad` plan[4] * k * d floats and `mult` n * k floats
-// (two-pass mode only; it may be NULL otherwise) of scratch; `loss` gets
+// `partial_grad` plan[4] * k * d floats and `mult` plan[2] * n * (8, or
+// 24 past 8 lanes) floats (two-pass mode only, its dots and multipliers;
+// it may be NULL otherwise) of scratch; `loss` gets
 // k floats and `grad` k * d.  Returns the CUDA error code of the
 // launches (0 on success): a cluster launch that the card refuses
 // returns its error, and nothing is launched in its place.  Synchronises
@@ -1595,7 +2071,8 @@ int margin_lanes_loss_grad(const void* X, int x_type, const void* y,
       ((p.mode == kLanesTile && p.rows >= 1 && p.partials == p.grid) ||
        (p.mode == kLanesMma && p.rows == kMmaRows && p.partials == p.grid &&
         mma_fits(d, p.kb, itemsize)) ||
-       (p.mode == kLanesTwoPass && (mult != nullptr || n == 0)) ||
+       (p.mode == kLanesTwoPass && p.rows >= 1 && p.rows <= 65535 &&
+        p.partials <= 65535 && (mult != nullptr || n == 0)) ||
        (p.mode == kLanesCluster &&
         (p.cluster == 2 || p.cluster == 4 || p.cluster == 8 ||
          p.cluster == 16) &&
@@ -1618,14 +2095,22 @@ int margin_lanes_loss_grad(const void* X, int x_type, const void* y,
                                       pl, pg, s)
               : launch_cluster<__nv_bfloat16>(p, X, yf, mf, wf, n, d, k,
                                               loss_kind, pl, pg, s);
+  else if (p.mode == kLanesTwoPass)
+    err = x_type == kF32
+              ? launch_two_pass_for<float>(p, loss_kind, X, yf, mf, wf, n, d,
+                                           k, pl, pg, mu, s)
+              : launch_two_pass_for<__nv_bfloat16>(p, loss_kind, X, yf, mf,
+                                                   wf, n, d, k, pl, pg, mu,
+                                                   s);
   else if (x_type == kF32)
     err = launch_type<float>(loss_kind, p, X, yf, mf, wf, n, d, k, pl, pg,
-                             mu, s);
+                             s);
   else
     err = launch_type<__nv_bfloat16>(loss_kind, p, X, yf, mf, wf, n, d, k,
-                                     pl, pg, mu, s);
+                                     pl, pg, s);
   if (err != cudaSuccess) return int(err);
-  // a loss partial a block, but a cluster's in the cluster mode
+  // a loss partial a block (of the middle, in the two-pass mode), but a
+  // cluster's in the cluster mode
   const int nloss = p.mode == kLanesCluster ? p.partials : p.grid;
   const int64_t kd = int64_t(k) * d;
   const int threads = 256;

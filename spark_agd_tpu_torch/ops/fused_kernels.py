@@ -33,8 +33,10 @@ deterministic:
   W fits in shared memory beside a row tile (both products on the tensor
   cores where that mode is faster), from :func:`lanes_cluster_min_width`
   across a thread block cluster, up to :func:`lanes_max_width` columns;
-  twice past that.  More lanes run in chunks of :func:`max_lanes`, one
-  launch each.
+  twice past that, both products on the tensor cores over row tiles and
+  column blocks (its two-pass mode, which the plan gives every width past
+  the largest cluster that was timed faster).  More lanes run in chunks
+  of :func:`max_lanes`, one launch each.
 - ``csrc/softmax_loss_grad.cu``: the multinomial softmax with a (D, K)
   weight matrix.  :func:`fused_softmax_loss_grad` is its wrapper,
   :func:`fused_softmax_loss_grad_reference` its plain version, and
@@ -543,10 +545,12 @@ def max_lanes() -> int:
 
 
 def lanes_max_width(k: int, dtype) -> int:
-    """The widest X that the lanes kernel reads once for ``k`` lanes on
-    the current device: a 16-row tile fits across the shared memory of a
-    thread block cluster that the card schedules (its "lanes_cluster"
-    mode).  Wider X takes the two-pass mode."""
+    """The widest X that the lanes kernel's plan reads once for ``k``
+    lanes on the current device: a 16-row tile fits across the shared
+    memory of a thread block cluster that the card schedules and that the
+    plan gives that width (its "lanes_cluster" mode, in clusters of at
+    most 2-16 blocks by lanes and type: past them the two-pass mode was
+    timed faster).  Wider X takes the two-pass mode."""
     width = int(lanes_library()[0].lanes_max_width(k, _itemsize(dtype)))
     if width < 0:
         raise RuntimeError(f"lanes_max_width failed: CUDA error {-width}")
@@ -562,7 +566,8 @@ def lanes_mma_max_width(k: int, dtype) -> int:
 def lanes_cluster_min_width(k: int, dtype) -> int:
     """The narrowest X that the plan gives to the "lanes_cluster" mode for
     ``k`` lanes: from there up to :func:`lanes_max_width` every plan for
-    ``k`` lanes is that mode's."""
+    ``k`` lanes is that mode's (none where that is narrower: 16 lanes of
+    bf16, which the plan gives to the two-pass mode from here)."""
     return int(lanes_library()[0].lanes_cluster_min_width(k,
                                                           _itemsize(dtype)))
 
@@ -572,8 +577,9 @@ class LanesPlan(NamedTuple):
     ("lanes_mma", "lanes_tile" or "lanes_cluster", one read of X, or
     "lanes_two_pass"); ``bucket``, the lanes compiled for (K rounded up);
     ``tile_rows``, the rows of a tile, the stages of the cluster mode's
-    ring or 0 (two-pass mode); ``grid``, the blocks of the (first)
-    launch; ``partials``, the gradient partials summed at the end (the
+    ring or pass 1's D splits (two-pass mode); ``grid``, the blocks of the
+    launch (two-pass mode: of its middle), one loss partial each;
+    ``partials``, the gradient partials summed at the end (the
     clusters in the cluster mode); ``cluster``, the blocks of a cluster
     (cluster mode, else 0); ``raw``, the six ints as ``lanes_plan`` filled
     them, passed back at launch."""
@@ -648,8 +654,12 @@ def lanes_launch(lib, code: int, W, staged: StagedDense, plan: LanesPlan):
     kw = dict(dtype=torch.float32, device=X.device)
     partial_loss = torch.empty(plan.grid * k, **kw)
     partial_grad = torch.empty(plan.partials * k * d, **kw)
-    mult = (torch.empty(n * k, **kw) if plan.mode == "lanes_two_pass"
-            else None)
+    # the two-pass mode's dots and multipliers: (D splits, n, 8 floats,
+    # or 24 past 8 lanes); a source from before its redesign (no splits)
+    # takes the (n, k) multipliers
+    mult = (torch.empty(max(plan.tile_rows, 1) * n
+                        * (8 if plan.bucket <= 8 else 24), **kw)
+            if plan.mode == "lanes_two_pass" else None)
     loss = torch.empty(k, **kw)
     grad = torch.empty((k, d), **kw)
     with torch.cuda.device(X.device):
@@ -674,7 +684,8 @@ def fused_margin_lanes_loss_grad(gradient: MarginGradient, W,
     least-squares or hinge loss at the K rows of ``W``, reading X once
     for up to :func:`max_lanes` lanes (across a thread block cluster from
     :func:`lanes_cluster_min_width` columns, twice past
-    :func:`lanes_max_width`); more lanes run in chunks, a launch each.  CPU operands take the plain version; CUDA operands launch the
+    :func:`lanes_max_width`); more lanes run in chunks, a launch each.
+    CPU operands take the plain version; CUDA operands launch the
     kernel on the current stream or raise.
 
     Replaces ``spark_agd_tpu/ops/pallas_kernels.py:fused_margin_loss_grad``

@@ -854,8 +854,10 @@ LANE_WIDTHS = [1, 33, 1000, "max", "max+1"]
 def _lanes_modes_at(d, k, dtype):
     """The modes the plan may give k lanes (at most one launch's) over X
     of width d: the cluster mode from ``lanes_cluster_min_width`` to
-    ``lanes_max_width``, the two-pass mode past it, one block a row
-    below."""
+    ``lanes_max_width`` (which ends where the plan hands over to the
+    two-pass mode, at the cluster mode's reach or, where the two-pass
+    mode was timed faster, before it), the two-pass mode past it, one
+    block a row below."""
     if d > fk.lanes_max_width(k, dtype):
         return ("lanes_two_pass",)
     if d >= fk.lanes_cluster_min_width(k, dtype):
@@ -960,13 +962,16 @@ def test_lanes_cluster_mode_edges(cuda, k, dtype):
     row slice 16-byte aligned) at one width; masked and unmasked; all
     three losses at the first width past lanes_mma's reach.  Each plan's
     mode is the rule's, each call agrees with the plain version and
-    repeats give the same bits."""
+    repeats give the same bits.  Where the plan gives the cluster mode no
+    width (16 lanes of bf16, timed slower there than the two-pass mode),
+    its first width is one past the widest X read once, and the plan
+    there is the two-pass mode's."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(200 + k)
     reach = fk.lanes_mma_max_width(k, dtype)
     start = fk.lanes_cluster_min_width(k, dtype)
     limit = fk.lanes_max_width(k, dtype)
-    assert 1 < start <= limit
+    assert 1 < start <= limit + 1
     widths = sorted({reach, reach + 1, start - 1, start, limit, limit + 1})
     for d in widths:
         for n in ((0, 1, 37, 4_001) if d < 4_000 else (1, 37, 1_003)):
@@ -1000,6 +1005,109 @@ def test_lanes_cluster_mode_edges(cuda, k, dtype):
                 if n == 0:
                     assert not loss.any() and not grad.any()
                     continue
+                torch.testing.assert_close(loss, ref_loss, rtol=1e-5,
+                                           atol=0.0)
+                for lane in range(k):
+                    torch.testing.assert_close(
+                        grad[lane], ref_grad[lane], rtol=1e-4,
+                        atol=1e-4 * float(ref_grad[lane].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 9, 16])
+def test_lanes_two_pass_mode_edges(cuda, k, dtype):
+    """The two-pass mode at each lane bucket: one column past the widest
+    X read once (the plan's first two-pass width), a width whose last
+    stage of D is ragged (40 columns past it) and an odd one (77 past);
+    rows none, one, one past a row tile and enough for several tiles
+    (where pass 1 splits D across blocks for fewer); X one element into
+    its buffer (no row 16-byte aligned) at one shape; masked and
+    unmasked.  Each plan is the two-pass mode's, each call adds one
+    launch of that mode, agrees with the plain version and repeats give
+    the same bits."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(300 + k)
+    limit = fk.lanes_max_width(k, dtype)
+    inner = losses.LogisticGradient()
+    for d in (limit + 1, limit + 40, limit + 77):
+        for n in (0, 1, 129, 3_001):
+            offset = 1 if (d, n) == (limit + 40, 129) else 0
+            buf = torch.randn(n * d + offset, generator=gen,
+                              device=cuda).to(dtype)
+            X = buf[offset:].view(n, d)
+            y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+            m = (torch.rand(n, generator=gen, device=cuda) < 0.7).float()
+            W = torch.randn((k, d), generator=gen, device=cuda) / d ** 0.5
+            for mask in (None, m):
+                staged = fk.stage_dense(X, y, mask)
+                plan = fk.lanes_launch_shape(staged.X, k)
+                assert plan.mode == "lanes_two_pass", (d, plan)
+                assert plan.tile_rows >= 1  # pass 1's D splits
+                before = fk.lanes_mode_launches["lanes_two_pass"]
+                loss, grad = fk.fused_margin_lanes_loss_grad(inner, W, staged)
+                loss2, grad2 = fk.fused_margin_lanes_loss_grad(inner, W,
+                                                               staged)
+                torch.cuda.synchronize()
+                assert fk.lanes_mode_launches["lanes_two_pass"] == before + 2
+                assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+                ref_loss, ref_grad = \
+                    fk.fused_margin_lanes_loss_grad_reference(inner, W,
+                                                              staged)
+                if n == 0:
+                    assert not loss.any() and not grad.any()
+                    continue
+                torch.testing.assert_close(loss, ref_loss, rtol=1e-5,
+                                           atol=0.0)
+                for lane in range(k):
+                    torch.testing.assert_close(
+                        grad[lane], ref_grad[lane], rtol=1e-4,
+                        atol=1e-4 * float(ref_grad[lane].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["logistic", "least_squares", "hinge"])
+def test_forced_lanes_two_pass_inside_the_cluster_range(cuda, name, dtype):
+    """``lanes_mode_plan`` forces the two-pass mode at widths the plan
+    gives to the other modes (lanes_mma's range, the cluster mode's first
+    width and 3,001 columns, those up to ``lanes_max_width``): each launch
+    agrees with the plain version and with the plan's own mode there, and
+    repeats give the same bits.  The hinge loss runs at 37 rows, as in
+    ``test_lanes_cluster_mode_edges``: its multiplier jumps where a
+    row's margin is 0, and two correct orders of summation can put a row
+    either side of it (at 20,011 rows one row did, moving the gradient by
+    that row of X while the loss agreed)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(400)
+    lib = fk.lanes_library()[0]
+    sms = fk._device_sms(cuda.index or 0)
+    inner = losses.GRADIENTS[name]()
+    code = fk._LOSS_CODES[type(inner)]
+    for k in (3, 8, 16):
+        widths = {1_000, fk.lanes_cluster_min_width(k, dtype), 3_001}
+        for d in sorted(w for w in widths
+                        if w <= fk.lanes_max_width(k, dtype)):
+            n = 37 if name == "hinge" else 20_011
+            X = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+            y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+            m = (torch.rand(n, generator=gen, device=cuda) < 0.7).float()
+            W = torch.randn((k, d), generator=gen, device=cuda) / d ** 0.5
+            staged = fk.stage_dense(X, y, m)
+            forced = fk.lanes_mode_plan_for(lib, n, d, k, X.element_size(),
+                                            sms, "lanes_two_pass")
+            assert forced.mode == "lanes_two_pass"
+            assert fk.lanes_launch_shape(X, k).mode != "lanes_two_pass"
+            loss, grad = fk.lanes_launch(lib, code, W, staged, forced)
+            loss2, grad2 = fk.lanes_launch(lib, code, W, staged, forced)
+            torch.cuda.synchronize()
+            assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+            for ref_loss, ref_grad in (
+                    fk.fused_margin_lanes_loss_grad_reference(inner, W,
+                                                              staged),
+                    fk.fused_margin_lanes_loss_grad(inner, W, staged)):
                 torch.testing.assert_close(loss, ref_loss, rtol=1e-5,
                                            atol=0.0)
                 for lane in range(k):
@@ -1099,6 +1207,39 @@ def test_fused_sweep_on_the_card_runs_the_lanes_kernel(cuda):
     assert fk.launch_count == 0 and fk.softmax_launch_count == 0
     assert dict(fk.lanes_mode_launches) == {
         "lanes_cluster": count["rounds"]} and count["rounds"] >= 8
+    plain = port.sweep((X, y), port.LogisticGradient(),
+                       port.SquaredL2Updater(), regs, **kw)
+    torch.testing.assert_close(fused.loss_history, plain.loss_history,
+                               rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_fused_sweep_past_the_reach_runs_the_two_pass_mode(cuda):
+    """A sweep at a width past the widest X read once for its lanes
+    launches the lanes kernel's two-pass mode in every round, and follows
+    the plain sweep (loss rtol 1e-4 over the 8 iterations)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    regs = [1.0, 0.1, 0.01]
+    n, d = 3_001, fk.lanes_max_width(len(regs), torch.float32) + 1
+    X = torch.randn((n, d), generator=gen, device=cuda)
+    y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+    kw = dict(num_iterations=8, convergence_tol=0.0,
+              initial_weights=torch.zeros(d, device=cuda))
+    g = port.FusedLogisticGradient()
+    rounds = g.lanes_loss_and_grad
+    count = {"rounds": 0}
+
+    def counted(*a):
+        count["rounds"] += 1
+        return rounds(*a)
+
+    g.lanes_loss_and_grad = counted
+    fk.reset_launch_counts()
+    fused = port.sweep((X, y), g, port.SquaredL2Updater(), regs, **kw)
+    assert fk.launch_count == 0 and fk.softmax_launch_count == 0
+    assert dict(fk.lanes_mode_launches) == {
+        "lanes_two_pass": count["rounds"]} and count["rounds"] >= 8
     plain = port.sweep((X, y), port.LogisticGradient(),
                        port.SquaredL2Updater(), regs, **kw)
     torch.testing.assert_close(fused.loss_history, plain.loss_history,
