@@ -11,8 +11,9 @@ Phases, each printing one JSON line:
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
 2. build: the three libraries' ``nvcc`` builds, started together; the
-   margin kernel's widest X read once and the softmax kernel's (the
-   widest X its one-read kernel takes at K = 10, 20 and 32);
+   margin kernel's hand-overs (its cluster mode's widest X and its grid
+   mode's, the widest read once) and the softmax kernel's (the widest X
+   its one-read kernel takes at K = 10, 20 and 32);
 3. kernel: the CUDA margin kernel against its plain PyTorch version on
    the card (3 losses x f32/bf16 x masked/unmasked x w = 0/random) at
    D in {1, 2, 3, 7, 8, 31, 32} (its narrow mode, at 2,000,003 rows, so
@@ -25,8 +26,11 @@ Phases, each printing one JSON line:
    bf16 777 the tile), at ``max_width`` and one column past it (the
    cluster mode), each call repeated to
    check that it is bit-identical, each line with the plan and its
-   launches, each plan's mode held to the width rule; a
-   ``widths_by_mode`` and a ``past_width_cluster`` line;
+   launches, each plan's mode held to the width rule (narrow, warp-rows,
+   tile, stream, cluster to ``cluster_max_width`` but f32 rows not
+   16-byte aligned from ``grid_unaligned_from_width``, grid to
+   ``grid_max_width``, two-pass past it); a ``widths_by_mode`` and a
+   ``past_width_cluster`` line;
 4. softmax_kernel: the CUDA softmax kernel against its plain version
    (N = 100,003, D in {784, 785, 777}, K in {1, 2, 3, 8, 9, 10, 16, 17,
    32}, and 33 and 100 at D = 785, f32/bf16 x masked/unmasked x W =
@@ -130,18 +134,22 @@ Phases, each printing one JSON line:
     convergence_tol 0), held to the same fit at f64 over their common
     path and the final gradient to f64 sums; the training accuracy;
 19. wide_path: X past one row in shared memory.  The margin kernel
-    against its plain version at D = 40,000 and 200,000 (3,000 rows) and
-    one column past ``cluster_max_width`` (300 rows), f32 and bf16, as
-    phase 3, each plan's mode held to the width rule (the cluster mode
-    up to ``cluster_max_width``, 40,000 columns in it, the two-pass mode
-    past it); an AGD fit at 100,000 x 40,000 f32 made on the card (16 GB,
-    a gene-expression-like shape) through ``FusedLogisticGradient`` and
-    ``SquaredL2Updater`` (reg 0.1, 20 iterations, tol 0), every launch
-    in the cluster mode, held to the plain fit as phase 5 is; the kernel
-    there held to f64 sums and its ms per evaluation beside the bound (X
-    read once), the two-pass floor (X twice) and the two
-    ``torch.matmul`` products; then the two-pass mode held to f64 sums
-    and timed at 10,000 rows one column past the cluster mode's reach;
+    against its plain version at D = 40,000 and 200,000 (3,000 rows),
+    one column past ``cluster_max_width`` and one past
+    ``grid_max_width`` (300 rows), f32 and bf16, as phase 3, each plan's
+    mode held to the width rule (the cluster mode up to
+    ``cluster_max_width``, 40,000 columns in it, the grid mode up to
+    ``grid_max_width``, the two-pass mode past it); an AGD fit at
+    100,000 x 40,000 f32 made on the card (16 GB, a gene-expression-like
+    shape) through ``FusedLogisticGradient`` and ``SquaredL2Updater``
+    (reg 0.1, 20 iterations, tol 0), every launch in the cluster mode,
+    held to the plain fit as phase 5 is; the kernel there held to f64
+    sums and its ms per evaluation beside the bound (X read once), the
+    two-pass floor (X twice) and the two ``torch.matmul`` products;
+    then the grid mode held to f64 sums and timed (device ms by kernel
+    name) at 10,000 x 262,145 and 262,148 f32 and 262,145 bf16
+    (``margin_times``), and the two-pass mode at 300 rows one column past
+    ``grid_max_width`` (f32);
     then phase 30 on its data; then the lanes kernel's two-pass mode at
     100,003 rows one column past ``lanes_max_width`` for 8 and for 16
     lanes (``lanes_two_pass_times``: held to f64 sums, the plan held to
@@ -149,13 +157,14 @@ Phases, each printing one JSON line:
     bound, the two-pass floor of X read twice, the plain version and the
     two products);
 20. the ``kernels`` line (with each kernel's launches by path, the margin
-    and softmax kernels' modes by path and their numbers by mode, the
-    lanes kernel's modes by path and its numbers by mode: ``lanes_mma``
-    at phase 22's shape, ``lanes_cluster`` at phase 29's, the two-pass
-    mode at phase 30's and phase 19's, and
+    and softmax kernels' modes by path and their numbers by mode (the
+    margin grid mode's at phase 31's shape and at phase 19's
+    GRID_TIMES), the lanes kernel's modes by path and its numbers by
+    mode: ``lanes_mma`` at phase 22's shape, ``lanes_cluster`` at phase
+    29's, the two-pass mode at phase 30's and phase 19's, and
     each library's registers and spills by kernel, the margin cluster
-    mode's instantiations among them); then the card's name and power
-    limit, and last ``{"ok": true, "device": {...}}``;
+    and grid modes' instantiations among them); then the card's name and
+    power limit, and last ``{"ok": true, "device": {...}}``;
 21. lanes_kernel, right after phase 4: the K-lane margin kernel
     (``csrc/margin_lanes_loss_grad.cu``) against its plain version, and
     each lane against the solo kernel, at K in {1, 2, 3, 8, 16, 17, 20}
@@ -234,10 +243,14 @@ Phases, each printing one JSON line:
     19's solo fit; the kernel held to f64 sums at 8 random weight rows
     and timed by events and by the profiler, by pass, beside its bound,
     the two-pass floor, the plain version, the two products and 8 solo
-    launches; the path's wall time beside 8 solo ``run``s.
+    launches; the path's wall time beside 8 solo ``run``s;
+31. snp_path, after phase 19 (whose X is freed first): 10,000 x 500,000
+    f32 class-logistic data made on the card (20 GB; a genotype matrix's
+    width: SNP arrays measure 500,000-800,000 markers), read as phase 25
+    is, every launch in the margin kernel's grid mode.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-30) and read just after it; the sparse paths launch neither kernel,
+22-31) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -256,10 +269,11 @@ same-bits flag against the first build's) and, as ``NAME:two_pass``,
 its two-pass mode forced at this shape (with a same-bits-on-repeat
 flag), beside both modes' bounds; one ``ab`` line per seed.
 
-``python3 chip_smoke.py --ab margin:NAME=SOURCE [...]`` does the same for
-copies of ``csrc/margin_loss_grad.cu`` with its C interface (this one, or
-an earlier commit's with the four-int plan of the sources from before
-the cluster mode), at 10,000,000 rows of f32 X of width 1, 2, 3, 8, 16,
+``python3 chip_smoke.py --ab margin:NAME=SOURCE [...] [--shapes
+sweep,grid]`` does the same for copies of ``csrc/margin_loss_grad.cu``
+with its C interface (this one, or an earlier commit's with the four-int
+plan of the sources from before the cluster mode).  "sweep": at
+10,000,000 rows of f32 X of width 1, 2, 3, 8, 16,
 32, 33, 40, 48, 54, 64, 90, 96, 127, 128, 129, 192, 255, 256, 257, 264,
 265, 272, 273, 288, 289, 320, 384, 448, 512 and 1000, of bf16 X of width
 33, 64, 65, 127, 128, 129, 192, 255, 256, 257, 384, 512, 768, 793, 794,
@@ -276,13 +290,22 @@ bf16: one
 ``ab_margin`` line a shape, with each build's plan, ms by CUDA events
 and by the profiler, error from f64 sums and whether its bits equal the
 first build's, the bound and the two ``torch.matmul`` products' time.
-Past the warp-rows mode the first build that can force a mode
-(``margin_mode_plan``) also times the tile, the stream mode and the
-cluster mode at 2 and 4 blocks wherever they take the width
-(``NAME:tile``, ``NAME:cluster2``, ...).  Last, each build runs the
+Past the warp-rows mode the tile, the stream mode and the cluster mode
+at 2 and 4 blocks are each forced, wherever they take the width, through
+the first build that can force them (``margin_mode_plan``;
+``NAME:tile``, ``NAME:cluster2``, ...).  Last, each build runs the
 flagship fit (10,000,000 x 1,000 f32, logistic AGD) at AB_FIT_ITERS
 iterations, in turns: one ``ab_margin_fit`` line with each build's wall
-seconds, iterations, evaluations and final loss.
+seconds, iterations, evaluations and final loss.  "grid": the grid
+mode's shapes at AB_GRID_ROWS rows (AB_GRID_SHAPES: the hand-over from
+the cluster mode at 131,072, 196,608 and 262,144 columns and one column
+under each, f32 and bf16; 262,145 f32 and bf16 and 262,148 f32, past
+the cluster mode's reach; the 500,000 of phase 31; this tree's
+``grid_max_width`` and one column past it at fewer rows), where the
+cluster mode at 8 and 16 blocks, the grid mode and the two-pass mode are
+each forced through the first build that can force them, every line
+with each build's device ms by kernel name (so the two-pass mode's by
+pass).
 It fails if a build's result is further from the f64 sums than phase
 3's tolerance (loss rtol 1e-5, gradient 1e-4 of each entry plus 1e-4 of
 the largest).
@@ -374,10 +397,16 @@ MID = dict(n=10_000_000, d=54, seed=7)
 # 400,000 x 2,000 dense), where the margin kernel runs its stream mode
 EPSILON = dict(n=400_000, d=2_000, seed=8)
 WIDE_CHECK = dict(rows=3_000, widths=(40_000, 200_000), past_rows=300)
-# the margin kernel's two-pass mode timed one column past the cluster
-# mode's reach, and the lanes kernel's one column past lanes_max_width
-# at 8 and 16 lanes (the widest X it reads once for each)
-WIDE_TWO_PASS_ROWS = 10_000
+# phase 31: a genotype matrix's width (SNP arrays: 500,000-800,000
+# markers) at 10,000 samples, where the margin kernel runs its grid mode
+SNP = dict(n=10_000, d=500_000, seed=9)
+# the margin kernel's grid mode timed one column past the cluster mode's
+# reach (rows not 16-byte aligned), at 262,148 f32 columns (aligned) and
+# in bf16; and the lanes kernel's two-pass mode one column past
+# lanes_max_width at 8 and 16 lanes (the widest X it reads once for each)
+GRID_TIMES_ROWS = 10_000
+GRID_TIMES = ((262_145, torch.float32), (262_148, torch.float32),
+              (262_145, torch.bfloat16))
 LANES_TWO_PASS_ROWS, LANES_TWO_PASS_K = 100_003, (8, 16)
 
 
@@ -620,8 +649,10 @@ def phase_build(fk):
         out[name] = build_report(b)
     out["tile_max_width"] = {"f32": fk.tile_max_width(torch.float32),
                              "bf16": fk.tile_max_width(torch.bfloat16)}
-    out["max_width"] = {"f32": fk.max_width(torch.float32),
-                        "bf16": fk.max_width(torch.bfloat16)}
+    for name in ("max_width", "cluster_max_width", "grid_max_width",
+                 "grid_unaligned_from_width"):
+        out[name] = {"f32": getattr(fk, name)(torch.float32),
+                     "bf16": getattr(fk, name)(torch.bfloat16)}
     out["lanes_max_width_k8"] = {"f32": fk.lanes_max_width(8, torch.float32),
                                  "bf16": fk.lanes_max_width(8,
                                                             torch.bfloat16)}
@@ -687,6 +718,18 @@ def check_margin_kernel(fk, losses, X32, xt, gen, where):
             "max_loss_rel_err": worst_loss, "max_grad_abs_err": worst_grad}
 
 
+def wide_mode(fk, d, dtype):
+    """The margin kernel's mode past one block a row for X of width d:
+    the width rule of its hand-overs (f32 rows that are not 16-byte
+    aligned take the grid mode from ``grid_unaligned_from_width``)."""
+    unaligned_from = fk.grid_unaligned_from_width(dtype)
+    unaligned = d * torch.tensor([], dtype=dtype).element_size() % 16 != 0
+    if d <= fk.cluster_max_width(dtype) and not (
+            unaligned and unaligned_from and d >= unaligned_from):
+        return "cluster"
+    return "grid" if d <= fk.grid_max_width(dtype) else "two_pass"
+
+
 def phase_kernel(fk, losses):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -716,8 +759,7 @@ def phase_kernel(fk, losses):
                                       or d <= 128)
                     else "tile" if d <= fk.tile_max_width(xt)
                     else "stream" if d <= limit
-                    else "cluster" if d <= fk.cluster_max_width(xt)
-                    else "two_pass")
+                    else wide_mode(fk, d, xt))
             if (want == "warp_rows") != fk.warp_rows_takes(d, xt):
                 raise AssertionError(f"warp_rows_takes({d}, {xt}) disagrees "
                                      f"with the width rule")
@@ -2169,6 +2211,15 @@ def epsilon_path(port, fk, losses, device_synth, smi, launches, after):
                           "epsilon_path", EPSILON, "stream", after)
 
 
+def snp_path(port, fk, losses, device_synth, smi, launches):
+    """Phase 31: a dense X of a genotype matrix's width (SNP: 10,000 x
+    500,000 f32, 20 GB), where the margin kernel runs its grid mode
+    (``dense_fit_path``).  Returns the mode's numbers for the kernels
+    line."""
+    return dense_fit_path(port, fk, losses, device_synth, smi, launches,
+                          "snp_path", SNP, "grid")
+
+
 def dense_fit_path(port, fk, losses, device_synth, smi, launches, path,
                    cfg, want, after=None):
     """A dense fit phase: class-logistic data of ``cfg``'s shape made on
@@ -2435,17 +2486,19 @@ def mlp_path(port, device_synth, smi, fk):
 def wide_path(port, fk, losses, device_synth, smi, launches, after=None):
     """Phase 19: X past one row in shared memory.  The kernel against its
     plain version at WIDE_CHECK widths and one column past the cluster
-    mode's reach (f32 and bf16, repeat bit-identical), each plan's mode
-    held to the width rule (40,000 columns in the cluster mode); then an
-    AGD fit at WIDE's shape (a gene-expression-like dense X, made on the
-    card) through ``FusedLogisticGradient``, every launch in the cluster
-    mode, held to the plain fit over their common iterations; one
-    evaluation timed against the bound (X read once), the two-pass
-    mode's floor (X twice) and the two ``torch.matmul`` products; and
-    the two-pass mode timed past the cluster mode's reach
-    (WIDE_TWO_PASS_ROWS rows); then ``after(X, y, solo)``, if given, with
+    mode's and the grid mode's reach (f32 and bf16, repeat
+    bit-identical), each plan's mode held to the width rule (40,000
+    columns in the cluster mode); then an AGD fit at WIDE's shape (a
+    gene-expression-like dense X, made on the card) through
+    ``FusedLogisticGradient``, every launch in the cluster mode, held to
+    the plain fit over their common iterations; one evaluation timed
+    against the bound (X read once), the two-pass mode's floor (X twice)
+    and the two ``torch.matmul`` products; the grid mode timed at
+    GRID_TIMES and the two-pass mode one column past the grid mode's
+    reach (``margin_times``); then ``after(X, y, solo)``, if given, with
     ``solo`` the fit's ``(AGDResult, loss history, wall seconds)``.
-    Returns the kernel's numbers by mode."""
+    Returns the kernel's numbers by mode: the cluster mode's, the grid
+    mode's rows, the two-pass mode's."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -2454,15 +2507,16 @@ def wide_path(port, fk, losses, device_synth, smi, launches, after=None):
     kernel_rows = []
     both = (torch.float32, torch.bfloat16)
     reach = {xt: fk.cluster_max_width(xt) for xt in both}
+    grid_reach = {xt: fk.grid_max_width(xt) for xt in both}
     cases = [(WIDE_CHECK["rows"], d, both) for d in WIDE_CHECK["widths"]]
-    cases += [(WIDE_CHECK["past_rows"], reach[xt] + 1, (xt,)) for xt in both]
+    cases += [(WIDE_CHECK["past_rows"], edge[xt] + 1, (xt,))
+              for edge in (reach, grid_reach) for xt in both]
     for rows, d, xtypes in cases:
         X32 = torch.randn((rows, d), generator=gen, device=dev)
         for xt in xtypes:
             row = check_margin_kernel(fk, losses, X32, xt, gen, "wide_path")
             kernel_rows.append(row)
-            want = ("cluster" if fk.max_width(xt) < d <= reach[xt]
-                    else "two_pass")
+            want = wide_mode(fk, d, xt)
             checks[f"{want}_at_{d}_{row['x_dtype']}"] = \
                 row["plan"]["mode"] == want
             if d == WIDE["d"]:
@@ -2527,11 +2581,16 @@ def wide_path(port, fk, losses, device_synth, smi, launches, after=None):
     with torch.no_grad():
         acc = float(((X @ w_run > 0).float() == y).float().mean())
     torch.cuda.empty_cache()
-    two_pass = wide_two_pass_times(fk, gradient, reach[torch.float32] + 1)
-    checks["two_pass_past_reach"] = two_pass["plan"]["mode"] == "two_pass"
+    grid = [margin_times(fk, gradient, GRID_TIMES_ROWS, d, xt, "grid")
+            for d, xt in GRID_TIMES]
+    two_pass = margin_times(fk, gradient, WIDE_CHECK["past_rows"],
+                            grid_reach[torch.float32] + 1, torch.float32,
+                            "two_pass")
     finish("wide_path", {
         "kernel_checks": kernel_rows, "cluster_max_width": {
             str(xt).replace("torch.", ""): w for xt, w in reach.items()},
+        "grid_max_width": {
+            str(xt).replace("torch.", ""): w for xt, w in grid_reach.items()},
         "shape": [n, d],
         "x_gb": n * d * 4 / 1e9, "generate_s": gen_s, "run_s": run_s,
         "plain_run_s": plain_s, "num_iters": n_iters,
@@ -2554,7 +2613,7 @@ def wide_path(port, fk, losses, device_synth, smi, launches, after=None):
         "shape_grad_max_abs_err": max_abs_err,
         "shape_loss_rel_err_vs_f64": f64_loss_err,
         "shape_grad_max_abs_err_vs_f64": f64_abs_err,
-        "two_pass_past_reach": two_pass,
+        "grid_times": grid, "two_pass_past_grid_reach": two_pass,
         "card_before": state_before, "card_after": state_after},
         checks, t_phase, smi)
     cluster = {"shape": [n, d], "ms": kernel_ms,
@@ -2570,42 +2629,59 @@ def wide_path(port, fk, losses, device_synth, smi, launches, after=None):
         after(X, y, (res, hist, run_s))
     del X, y
     torch.cuda.empty_cache()
-    return cluster, two_pass
+    return cluster, grid, two_pass
 
 
-def wide_two_pass_times(fk, gradient, d):
-    """The two-pass mode at WIDE_TWO_PASS_ROWS x d f32 (d past the cluster
-    mode's reach): held to f64 sums, timed beside its bound, its plain
-    version and the two ``torch.matmul`` products."""
-    n = WIDE_TWO_PASS_ROWS
+def margin_times(fk, gradient, n, d, dtype, want):
+    """The margin kernel at n x d X of ``dtype`` (random, seed 8), its
+    plan held to the mode ``want``: held to f64 sums (repeat
+    bit-identical), timed by events and by the profiler (device ms by
+    kernel name: the two-pass mode's by pass) beside its bound (X read
+    once), the two-pass floor (X twice), its plain version and the two
+    ``torch.matmul`` products on X's dtype.  Emits and returns one
+    ``margin_times`` line."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
-    X = torch.randn((n, d), generator=gen, device="cuda")
+    X = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
     y = (torch.rand(n, generator=gen, device="cuda") < 0.5).float()
     w = torch.randn(d, generator=gen, device="cuda") / d ** 0.5
     staged = fk.stage_dense(X, y)
     plan = fk.launch_shape(X)
-    loss, grad = fk.fused_margin_loss_grad(gradient, w, staged)
+
+    def call():
+        return fk.fused_margin_loss_grad(gradient, w, staged)
+
+    loss, grad = call()
+    loss2, grad2 = call()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(loss, loss2) and torch.equal(grad, grad2))
     _, abs_err = hold(loss, grad, *margin_f64(w, staged),
-                      f"two-pass mode {n}x{d}: kernel vs f64 sums")
-    kernel_ms = time_ms(lambda: fk.fused_margin_loss_grad(gradient, w,
-                                                          staged))
-    kernel_device_ms = device_ms(lambda: fk.fused_margin_loss_grad(
-        gradient, w, staged))
+                      f"{plan.mode} mode {n}x{d} {dtype}: kernel vs f64 sums")
+    kernel_ms = time_ms(call)
+    kernel_device_ms = device_ms(call)
     plain_ms = time_ms(lambda: fk.fused_margin_loss_grad_reference(
         gradient, w, staged))
-    mult = torch.randn(n, generator=gen, device="cuda")
-    two_mm_ms = time_ms(lambda: (X @ w, mult @ X))
-    two_mm_device_ms = two_matmuls_device_ms(X, w, mult)
-    (b_ms, bound_by), (b2_ms, _) = margin_bounds(n, d, 4)
-    del X, y, staged, mult
+    mult = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    wx = w.to(dtype)
+    two_mm_ms = time_ms(lambda: (X @ wx, mult @ X))
+    two_mm_device_ms = two_matmuls_device_ms(X, wx, mult)
+    (b_ms, bound_by), (b2_ms, _) = margin_bounds(n, d, X.element_size())
+    row = {"shape": [n, d], "x_dtype": str(dtype).replace("torch.", ""),
+           "plan": plan._asdict(), "ms": kernel_ms,
+           "device_ms": sum(kernel_device_ms.values()) or None,
+           "device_ms_by_kernel": kernel_device_ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": bound_by, "two_pass_bound_ms": b2_ms,
+           "two_matmuls_ms": two_mm_ms,
+           "two_matmuls_device_ms": two_mm_device_ms,
+           "max_abs_err_vs_f64": abs_err, "bit_identical": same}
+    emit({"phase": "margin_times", **row})
+    del X, y, staged, mult, loss, grad, loss2, grad2
     torch.cuda.empty_cache()
-    return {"shape": [n, d], "plan": plan._asdict(), "ms": kernel_ms,
-            "device_ms": sum(kernel_device_ms.values()) or None,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": bound_by,
-            "two_pass_bound_ms": b2_ms, "two_matmuls_ms": two_mm_ms,
-            "two_matmuls_device_ms": two_mm_device_ms,
-            "max_abs_err_vs_f64": abs_err}
+    if plan.mode != want or not same:
+        raise AssertionError(f"margin kernel at {n}x{d} {dtype}: plan "
+                             f"{plan.mode} (not {want}), repeat same bits "
+                             f"{same}")
+    return row
 
 
 def lanes_two_pass_times(fk, losses):
@@ -2902,6 +2978,27 @@ AB_WIDE = ((100_000, 40_000, torch.float32), (100_000, 40_000,
                                                torch.bfloat16))
 AB_TILE_END_ROWS, AB_REACH_ROWS = 100_000, 20_000
 AB_FORCED = (("tile", 0), ("stream", 0), ("cluster", 2), ("cluster", 4))
+# the "grid" group: the hand-over from the cluster mode (its probes and
+# one column under each, rows not 16-byte aligned; and f32 widths
+# between 131,071 and 196,607, rows not aligned, where it goes for
+# those rows: 184,317 and 184,321 either side of the width at which a
+# 16-block cluster's stage falls to one row), past the cluster mode's reach (262,145 and 262,148,
+# aligned), phase 31's width, at AB_GRID_ROWS; the grid mode's reach and
+# one column past it (appended per tree) at AB_GRID_REACH_ROWS; the modes
+# forced there
+AB_GRID_ROWS, AB_GRID_REACH_ROWS = 10_000, 1_000
+AB_GRID_SHAPES = tuple(
+    (AB_GRID_ROWS, d, xt) for d in (131_071, 131_072, 196_607, 196_608,
+                                    262_143, 262_144, 262_145)
+    for xt in (torch.float32, torch.bfloat16)) + tuple(
+    (AB_GRID_ROWS, d, torch.float32) for d in (150_001, 170_001, 180_001,
+                                               184_317, 184_321,
+                                               190_001)) + (
+    (AB_GRID_ROWS, 262_148, torch.float32),
+    (AB_GRID_ROWS, 500_000, torch.float32))
+AB_GRID_FORCED = (("cluster", 8), ("cluster", 16), ("grid", 0),
+                  ("two_pass", 0))
+MARGIN_AB_GROUPS = ("sweep", "grid")
 # the flagship fit of --ab margin: at a fixed count of iterations, so that
 # each build's fit takes as many steps (the fit stops early at the f32
 # loss floor, which summation order decides: 30 or 40 iterations)
@@ -2923,15 +3020,7 @@ def margin_build(fk, source):
     grad)`` and ``forced(n, d, itemsize, sms, mode, cluster)`` the plan of
     that mode (``margin_mode_plan``), or None where the source has no such
     function or the mode does not take the width."""
-    import ctypes
-
-    lib, built = fk._load("margin_loss_grad", "margin", fk._PLAN_ARGTYPES,
-                          source)
-    lib.margin_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.margin_plan.restype = ctypes.c_int
-    lib.margin_mode_name.argtypes = [ctypes.c_int]
-    lib.margin_mode_name.restype = ctypes.c_char_p
+    lib, built = fk.library(source)
 
     def plan(n, d, itemsize, sms):
         with torch.cuda.device(0):
@@ -2939,12 +3028,6 @@ def margin_build(fk, source):
 
     def launch(code, w, staged, p):
         return fk.margin_launch(lib, code, w, staged, p)
-
-    if hasattr(lib, "margin_mode_plan"):
-        lib.margin_mode_plan.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.margin_mode_plan.restype = ctypes.c_int
 
     def forced(n, d, itemsize, sms, mode, cluster):
         if not hasattr(lib, "margin_mode_plan"):
@@ -3040,34 +3123,53 @@ def in_turns(names, builds, out, call_of, exact, what):
     return failed
 
 
-def margin_ab(port, fk, device_synth, specs):
+def margin_ab_shapes(fk, groups):
+    """The shapes of --ab margin:'s ``groups``, each ``(rows, width, X's
+    dtype, forced modes)``."""
+    shapes = []
+    if "sweep" in groups:
+        sweep = ([(AB_ROWS, d, torch.float32) for d in AB_WIDTHS]
+                 + [(AB_ROWS, d, torch.bfloat16) for d in AB_BF16_WIDTHS]
+                 + [(ab_range_rows(d), d, torch.float32)
+                    for d in AB_RANGE_F32]
+                 + [(ab_range_rows(d), d, torch.bfloat16)
+                    for d in AB_RANGE_BF16]
+                 + list(AB_WIDE))
+        for xt in (torch.float32, torch.bfloat16):
+            sweep += [(AB_TILE_END_ROWS, w + e, xt)
+                      for w in sorted({AB_RANGE_END[xt], fk.max_width(xt)})
+                      for e in (0, 1)]
+            sweep.append((AB_REACH_ROWS, fk.cluster_max_width(xt), xt))
+        shapes += [(n, d, xt, AB_FORCED) for n, d, xt in sweep]
+    if "grid" in groups:
+        grid = list(AB_GRID_SHAPES)
+        for xt in (torch.float32, torch.bfloat16):
+            reach = fk.grid_max_width(xt)
+            grid += [(AB_GRID_REACH_ROWS, reach + e, xt) for e in (0, 1)]
+        shapes += [(n, d, xt, AB_GRID_FORCED) for n, d, xt in grid]
+    return shapes
+
+
+def margin_ab(port, fk, device_synth, specs, groups):
     """``--ab margin:NAME=SOURCE ...``: builds of the margin kernel timed
-    in turns (A, B, ..., then back) at each of AB_WIDTHS x AB_ROWS f32,
+    in turns (A, B, ..., then back) at the shapes of ``groups``
+    (``margin_ab_shapes``): "sweep", AB_WIDTHS x AB_ROWS f32,
     AB_BF16_WIDTHS x AB_ROWS bf16, the single-block range (AB_RANGE_*),
     AB_WIDE and the cluster mode's ends (the tile's widest before the
     stream mode and this tree's ``max_width``, one past each, and
-    ``cluster_max_width``),
-    logistic, each held to f64 sums, with the two ``torch.matmul``
-    products beside them; past the warp-rows mode also the forced modes
-    of AB_FORCED through the first build that can force them
+    ``cluster_max_width``); "grid", AB_GRID_SHAPES and this tree's
+    ``grid_max_width`` and one past it.  Logistic, each held to f64
+    sums, with the two ``torch.matmul`` products beside them; past the
+    warp-rows mode also the group's forced modes (AB_FORCED,
+    AB_GRID_FORCED), each through the first build that can force it
     (``NAME:MODE`` and a cluster's blocks); one ``ab_margin`` line a
-    shape, then ``margin_fit_ab``'s ``ab_margin_fit`` line."""
+    shape, then, with "sweep", ``margin_fit_ab``'s ``ab_margin_fit``
+    line."""
     names, builds = ab_builds(specs, lambda src: margin_build(fk, src))
     dev = torch.device("cuda")
     sms = fk._device_sms(0)
     failed = []
-    shapes = ([(AB_ROWS, d, torch.float32) for d in AB_WIDTHS]
-              + [(AB_ROWS, d, torch.bfloat16) for d in AB_BF16_WIDTHS]
-              + [(ab_range_rows(d), d, torch.float32) for d in AB_RANGE_F32]
-              + [(ab_range_rows(d), d, torch.bfloat16)
-                 for d in AB_RANGE_BF16]
-              + list(AB_WIDE))
-    for xt in (torch.float32, torch.bfloat16):
-        shapes += [(AB_TILE_END_ROWS, w + e, xt)
-                   for w in sorted({AB_RANGE_END[xt], fk.max_width(xt)})
-                   for e in (0, 1)]
-        shapes.append((AB_REACH_ROWS, fk.cluster_max_width(xt), xt))
-    for n, d, xt in shapes:
+    for n, d, xt, forced_modes in margin_ab_shapes(fk, groups):
         gen = torch.Generator(device=dev)
         gen.manual_seed(d)
         X = torch.randn((n, d), generator=gen, device=dev).to(xt)
@@ -3083,20 +3185,20 @@ def margin_ab(port, fk, device_synth, specs):
                "bound_by": bound_by, "two_pass_bound_ms": b2_ms,
                "grad_abs_max": float(exact[1].abs().max()),
                "card_before": card_state()}
-        # each build's own plan, then the forced modes that the first
-        # build able to force them runs here
+        # each build's own plan, then each forced mode through the first
+        # build able to force it here
         entries = [(name, b, b[1](n, d, itemsize, sms))
                    for name, b in zip(names, builds)]
-        for name, b, own in list(entries):
+        own = list(entries)
+        for mode, c in forced_modes:
             if fk.warp_rows_takes(d, xt) or d <= 32:
                 break
-            forced = [(f"{name}:{mode}{c or ''}", b, p)
-                      for mode, c in AB_FORCED
-                      if (p := b[3](n, d, itemsize, sms, mode, c))
-                      is not None and p.raw != own.raw]
-            if forced:
-                entries += forced
-                break
+            for name, b, mine in own:
+                p = b[3](n, d, itemsize, sms, mode, c)
+                if p is not None:
+                    if p.raw != mine.raw:
+                        entries.append((f"{name}:{mode}{c or ''}", b, p))
+                    break
         by_name = {name: (b, p) for name, b, p in entries}
 
         def call_of(name):
@@ -3112,7 +3214,8 @@ def margin_ab(port, fk, device_synth, specs):
         emit(out)
         del X, y, staged, mult, exact
         torch.cuda.empty_cache()
-    failed += margin_fit_ab(port, device_synth, names, builds, sms)
+    if "sweep" in groups:
+        failed += margin_fit_ab(port, device_synth, names, builds, sms)
     if failed:
         raise AssertionError("; ".join(failed))
 
@@ -3906,10 +4009,11 @@ def main(argv):
                              "phases")
     parser.add_argument("--seeds", default="3",
                         help="data seeds of --ab, comma-separated")
-    parser.add_argument("--shapes", default=",".join(LANES_AB_GROUPS),
-                        help="the shape groups of --ab lanes:, "
-                             "comma-separated (sweep, edges, handover, "
-                             "two_pass)")
+    parser.add_argument("--shapes",
+                        help="the shape groups of --ab lanes: (sweep, "
+                             "edges, handover, two_pass) or --ab margin: "
+                             "(sweep, grid), comma-separated; all by "
+                             "default")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3941,13 +4045,15 @@ def main(argv):
         specs = [s[len(kind) + 1:] if kind else s for s in args.ab]
         if kind == "mma":
             mma_ab(specs)
-        elif kind == "margin":
-            margin_ab(port, fk, device_synth, specs)
-        elif kind == "lanes":
-            groups = args.shapes.split(",")
-            if not set(groups) <= set(LANES_AB_GROUPS):
-                parser.error(f"--shapes takes {', '.join(LANES_AB_GROUPS)}")
-            lanes_ab(fk, specs, groups)
+        elif kind in ("margin", "lanes"):
+            known = MARGIN_AB_GROUPS if kind == "margin" else LANES_AB_GROUPS
+            groups = args.shapes.split(",") if args.shapes else list(known)
+            if not set(groups) <= set(known):
+                parser.error(f"--shapes of {kind}: takes {', '.join(known)}")
+            if kind == "margin":
+                margin_ab(port, fk, device_synth, specs, groups)
+            else:
+                lanes_ab(fk, specs, groups)
         else:
             softmax_ab(port, fk, device_synth, specs,
                        [int(s) for s in args.seeds.split(",")])
@@ -4023,30 +4129,35 @@ def main(argv):
     mlp_path(port, device_synth, smi, fk)
     torch.cuda.empty_cache()
 
-    # 19. X past one row in shared memory: the cluster mode, and the
-    # two-pass mode past its reach; 30. on its data, the path over 8
-    # strengths in the lanes kernel's plan there (its two-pass mode); then
-    # the lanes kernel's two-pass mode past each reach
+    # 19. X past one row in shared memory: the cluster mode, the grid
+    # mode past its reach and the two-pass mode past the grid mode's; 30.
+    # on its data, the path over 8 strengths in the lanes kernel's plan
+    # there (its two-pass mode); then the lanes kernel's two-pass mode
+    # past each reach
     wide_sweep = {}
-    wide, wide_two_pass = wide_path(
+    wide, wide_grid, wide_two_pass = wide_path(
         port, fk, losses, device_synth, smi, launches,
         lambda X, y, solo: wide_sweep.update(wide_sweep_path(
             port, fk, losses, smi, X, y, solo, launches)))
     torch.cuda.empty_cache()
     lanes_two_pass = lanes_two_pass_times(fk, losses)
+    # 31. a genotype matrix's width, past the cluster mode: the grid mode
+    snp = snp_path(port, fk, losses, device_synth, smi, launches)
+    torch.cuda.empty_cache()
 
     # 26. the softmax kernel's two-pass mode at published shapes
     wide_softmax = softmax_wide(port, fk, device_synth, glm, smi, launches)
 
     # 20. the kernels line, the card, the result
     paths = ("lbfgs_path", "gd_gate", "mid_path", "epsilon_path",
-             "linreg_path", "wide_path")
+             "linreg_path", "wide_path", "snp_path")
     margin["launches_by_path"] = {"main_path": margin["launches"],
                                   **{p: launches[p] for p in paths}}
     margin["modes_by_path"] = {"main_path": margin.pop("main_path_modes"),
                                **{p: launches["modes"][p] for p in paths}}
     # each mode's numbers at a shape of a path that runs it: the stream
-    # mode's at the main path's shape and at epsilon's
+    # mode's at the main path's shape and at epsilon's, the grid mode's at
+    # phase 31's (and at phase 19's GRID_TIMES)
     if set(margin["modes_by_path"]["main_path"]) != {"stream"}:
         raise AssertionError("the main path ran the margin kernel in "
                              f"{margin['modes_by_path']['main_path']}, "
@@ -4056,7 +4167,8 @@ def main(argv):
             "ms", "device_ms", "plain_ms", "bound_ms", "two_matmuls_ms",
             "two_matmuls_device_ms")} | {"shape": [N_MAIN, D_MAIN]},
         "stream_epsilon": epsilon, "narrow": narrow, "warp_rows": mid,
-        "cluster": wide, "two_pass": wide_two_pass}
+        "cluster": wide, "grid": snp, "grid_past_cluster_reach": wide_grid,
+        "two_pass": wide_two_pass}
     softmax_paths = ("softmax_lbfgs_path", "softmax_sweep", "softmax_wide")
     softmax["launches_by_path"] = {"softmax_path": softmax["launches"],
                                    **{p: launches[p] for p in softmax_paths}}

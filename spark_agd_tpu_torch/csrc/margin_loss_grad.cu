@@ -15,9 +15,10 @@
 // f32, far below the ~20 flop/byte where the H100's f32 rate would take
 // over.  Two library products (X @ w, then X^T @ mult) read X twice.
 //
-// margin_plan picks one of six modes by width; all of them write
-// per-block (cluster mode: per-cluster) partials that reduce_partials (or
-// reduce_partials_warp) sums in a fixed order, with no float atomics, so
+// margin_plan picks one of seven modes by width; all but the grid mode
+// write per-block (cluster mode: per-cluster) partials that
+// reduce_partials (or reduce_partials_warp) sums in a fixed order, and the
+// grid mode's blocks own disjoint columns; no mode uses float atomics, so
 // two calls on the same inputs give the same bits.  X may be f32 or bf16
 // (widened to f32 in registers); y, m, w and every accumulator are f32.
 // Ragged row and column edges are masked here, so X needs no padding.
@@ -75,7 +76,13 @@
 // gradient; the blocks swap their partial dots through distributed
 // shared memory, so X crosses the bus once (details at margin_cluster).
 //
-// Two-pass mode (past the cluster mode's reach): pass 1 gives each row a
+// Grid mode (past the cluster mode, up to margin_grid_max_width: about
+// 2.16M columns on 132 SMs): the cluster mode's design with one block on
+// every SM, launched cooperatively so that all are resident at once, the
+// blocks' partial dots swapped through L2 instead of distributed shared
+// memory; X crosses the bus once (details at margin_grid).
+//
+// Two-pass mode (past the grid mode's reach): pass 1 gives each row a
 // warp that reads it from device memory (16-byte loads where rows are
 // aligned; w stays in L2), applies the loss middle and writes m * mult to
 // an (N,) scratch; pass 2 walks column chunks x row groups, one column a
@@ -1159,6 +1166,480 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
   }
 }
 
+// Grid mode: X past the cluster mode, read once.  What stops the cluster
+// mode at 262,144 columns: a cluster holds at most 16 blocks of
+// kClusterThreads threads x kClusterMaxCols register columns, and 16-block
+// clusters leave SMs of the card idle; the two-pass mode past it read X
+// twice and w from L2 once a row.  Here the grid is one kGridThreads-thread
+// block on each SM (at most; fewer where X has fewer units of
+// kSliceAlign columns), launched cooperatively so that every block is
+// resident at once (the blocks wait on each other; a launch that the card
+// refuses returns its error and nothing runs in its place).  Block b owns
+// a column slice of every row: X's units of kSliceAlign columns are dealt
+// in order, the first units % blocks blocks one more than the rest
+// (grid_slice), so that every block has columns, every slice starts on a
+// unit and the slices differ by at most a unit (a slice ceil(d / blocks)
+// rounded up to the unit can leave the last blocks nothing: 262,145
+// columns in 132 blocks).  Each thread keeps w and the gradient sums of
+// the columns tid + kGridThreads j (j < J, the register bucket) in
+// registers for all N rows.  Rows stream through a ring of S stages of
+// `rows` rows: the last warp copies a stage, lane r row r's slice with one
+// cp.async.bulk of the 16-byte chunks that cover it, completing on the
+// stage's mbarrier, whatever the rows' alignment (issue_rows).
+//
+// A stage: its rows' partial dots over the block's slice (each thread's
+// over its columns, reduce-scattered across the warp as in the stream
+// mode, then the warps' in order) go through L2, each as one 64-bit word
+// that carries its stage: block b stores its partial dot of row r of stage
+// t, tagged t + 1, at parts[t % kGridSlots][r][b] (a relaxed store from a
+// warp that gathers nothing: the value and its tag are one
+// single-copy-atomic word, so no fence orders them); warp r of every block
+// reads row r's word of every block (lane l the blocks l, l + 32, ...,
+// relaxed loads past L1) until each carries the tag t + 1, then adds the
+// values in a fixed order (lane l its blocks in turn, then a shuffle
+// tree), so every block forms the same dot bit for bit and applies the
+// loss middle itself; block 0 alone counts the loss; then every thread
+// adds mult * x into its registers.  Three barriers a stage, no float
+// atomics, no fence and no grid-wide barrier.  A block publishes stage
+// t + A's partials (A = kGridAhead stages ahead, fewer where the ring is
+// short) before it needs stage t's, and where A >= 2 it loads stage
+// t + 1's words in iteration t, so the L2 round trip (about 2 µs while X
+// streams) stays off the stage's path.  (This code at kGridAhead = 1
+// timed as fast as at 2; the same loop rewritten for one stage ahead
+// alone, without the early loads, 1.27x slower at 262,145 f32 columns,
+// with 22 registers fewer: PERF.md.)  A first build, a flag word a block
+// published with a release store after the partials and read after an
+// acquire fence, ran no faster than the two-pass mode (PERF.md).
+// The slots: a block stores stage t + A's partials in its iteration t,
+// after it has read every block's stage t - 1 words, which every block
+// stored in its iteration t - 1 - A, after it had read stage t - 2 - A's;
+// so stages t - 1 - A ... t + A may be in use, and 2 A + 2 slots suffice
+// (kGridSlots).  The words are zeroed on the call's stream before each
+// launch (launch_grid), so no tag of an earlier call is read.  Each block
+// writes its slice of the gradient, and block 0 the loss, straight to the
+// outputs.
+constexpr int kGridThreads = kClusterThreads;
+constexpr int kGridWarps = kGridThreads / 32;
+constexpr int kGridMaxRows = 8;
+// The ring's stages at most and at least, and the stages a block
+// publishes ahead of the one whose dots it needs (fewer where the ring has
+// fewer than kGridAhead + 2 stages).
+constexpr int kGridStages = 4;
+constexpr int kGridMinStages = 3;
+constexpr int kGridAhead = 2;
+constexpr int kGridSlots = 2 * kGridAhead + 2;
+// Columns a thread owns at most (the largest register bucket), and the
+// most blocks a warp's lanes read (5 a lane; the H100 has 132 SMs).
+constexpr int kGridMaxCols = kClusterMaxCols;
+constexpr int kGridMaxBlocks = 160;
+static_assert(kGridMaxRows <= kGridWarps - 2,
+              "warp r < rows gathers row r; the last two warps store the "
+              "partial dots and copy the rows");
+static_assert((kGridMaxRows & (kGridMaxRows - 1)) == 0 && kGridMaxRows <= 32,
+              "a stage's dots are reduce-scattered across a warp");
+// A block that waits this long for its peers' words traps (the launch
+// fails with an error) instead of hanging: with every block resident
+// that does not happen.
+constexpr uint64_t kGridWaitNs = 20'000'000'000ull;
+
+// X's units of kSliceAlign columns.
+__host__ __device__ inline int64_t grid_units(int64_t d) {
+  return (d + kSliceAlign - 1) / kSliceAlign;
+}
+
+// Block b's slice of X of width d in `blocks` blocks: its first column and
+// its columns.
+__host__ __device__ inline void grid_slice(int64_t d, int blocks, int b,
+                                           int64_t* c0, int* cols) {
+  const int64_t units = grid_units(d);
+  const int64_t q = units / blocks, r = units % blocks;
+  const int64_t first = b * q + (b < r ? b : r);
+  const int64_t end = (first + q + (b < r ? 1 : 0)) * kSliceAlign;
+  *c0 = first * kSliceAlign;
+  *cols = int((end < d ? end : d) - *c0);
+}
+
+// The widest slice, in columns.
+__host__ __device__ inline int64_t grid_slice_max(int64_t d, int blocks) {
+  const int64_t units = grid_units(d);
+  return (units / blocks + (units % blocks ? 1 : 0)) * kSliceAlign;
+}
+
+// Shared-memory layout of one block of the grid mode: the stages'
+// mbarriers, the warps' partial dots of a stage (row-major), the stage's
+// multipliers, then the ring (stages x rows, each row slice at its
+// address modulo 16 with 16 bytes of slack).
+struct GridLayout {
+  int64_t mbar, red, mult, ring, row_stride, total;
+};
+
+__host__ __device__ inline GridLayout grid_layout(int64_t slice, int rows,
+                                                  int stages, int itemsize) {
+  GridLayout s;
+  s.mbar = 0;
+  s.red = 8 * kGridStages;
+  s.mult = s.red + 4 * kGridMaxRows * kGridWarps;
+  s.ring = round_up(s.mult + 4 * kGridMaxRows, 128);
+  s.row_stride = round_up(slice * itemsize, 16) + kTileSlack;
+  s.total = s.ring + int64_t(stages) * rows * s.row_stride;
+  return s;
+}
+
+// The ring's stages for X of width d in `blocks` blocks: kGridStages where
+// that many stages of one row fit, else kGridMinStages; 0 where a slice
+// is too wide for the register buckets or kGridMinStages rows do not fit.
+int grid_stages(int64_t d, int blocks, int itemsize) {
+  if (blocks < 1 || blocks > kGridMaxBlocks || grid_units(d) < blocks)
+    return 0;
+  const int64_t slice = grid_slice_max(d, blocks);
+  if (slice > int64_t(kGridThreads) * kGridMaxCols) return 0;
+  for (int stages = kGridStages; stages >= kGridMinStages; --stages)
+    if (grid_layout(slice, 1, stages, itemsize).total <= kSmemBlock)
+      return stages;
+  return 0;
+}
+
+// Rows a stage holds for X of width d in `blocks` blocks (at most
+// kGridMaxRows, in a ring of grid_stages stages), or 0 where the mode does
+// not take the width.
+int grid_rows(int64_t d, int blocks, int itemsize) {
+  const int stages = grid_stages(d, blocks, itemsize);
+  if (stages == 0) return 0;
+  const int64_t slice = grid_slice_max(d, blocks);
+  for (int rows = kGridMaxRows; rows >= 1; --rows)
+    if (grid_layout(slice, rows, stages, itemsize).total <= kSmemBlock)
+      return rows;
+  return 0;
+}
+
+// Floats of the exchange scratch for `blocks` blocks and stages of `rows`
+// rows: the slots' tagged words, two floats each.
+int64_t grid_scratch_floats(int blocks, int rows) {
+  return 2 * int64_t(kGridSlots) * rows * blocks;
+}
+
+__device__ __forceinline__ uint64_t ld_relaxed64(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed64(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Fill `buf` (stride `stride` a row) with the `here` (at most 32) row
+// slices of `cols` elements that start at `a` and lie `d` elements apart
+// in X (whose elements lie in [lo_x, hi_x)), each at its address modulo 16
+// past its row of buf, completing on `bar` (one arrival), with the lanes
+// of one warp, lane r row r: a bulk copy of the 16-byte chunks that cover
+// the slice and lie in X, and plain copies of the elements at X's ends
+// that no such chunk holds, stored before the arrival that releases them.
+// (One thread issuing a stage's 7 rows at 262,145 f32 columns kept the
+// rest of the block at the next barrier for about 1 µs a stage.)
+template <typename T>
+__device__ __forceinline__ void issue_rows(unsigned char* buf,
+                                           int64_t stride, const T* a,
+                                           int cols, int64_t d, int here,
+                                           const T* lo_x, const T* hi_x,
+                                           uint64_t* bar, int lane) {
+  // this lane's slice [ua, ue), the 16-byte boundary below it and the
+  // chunks [lo, hi) that cover it within X (lo = hi = ue where none does)
+  uintptr_t ua = 0, ue = 0, base = 0, lo = 0, hi = 0;
+  if (lane < here) {
+    ua = reinterpret_cast<uintptr_t>(a + lane * d);
+    ue = ua + uintptr_t(cols) * sizeof(T);
+    base = ua & ~uintptr_t(15);
+    const uintptr_t lo_c =
+        (reinterpret_cast<uintptr_t>(lo_x) + 15) & ~uintptr_t(15);
+    const uintptr_t hi_c =
+        reinterpret_cast<uintptr_t>(hi_x) & ~uintptr_t(15);
+    const uintptr_t e16 = (ue + 15) & ~uintptr_t(15);
+    lo = lo_c > base ? lo_c : base;
+    hi = hi_c < e16 ? hi_c : e16;
+    if (hi <= lo) lo = hi = ue;
+    unsigned char* row = buf + lane * stride;
+    for (uintptr_t q = ua; q < (lo < ue ? lo : ue); q += sizeof(T))
+      *reinterpret_cast<T*>(row + (q - base)) =
+          *reinterpret_cast<const T*>(q);
+    for (uintptr_t q = hi > ua ? hi : ua; q < ue; q += sizeof(T))
+      *reinterpret_cast<T*>(row + (q - base)) =
+          *reinterpret_cast<const T*>(q);
+  }
+  const uint32_t bytes =
+      __reduce_add_sync(0xffffffffu, uint32_t(hi - lo));
+  // the lanes' plain stores, ordered before lane 0's arrival (whose
+  // release covers them), and the arrival before the bulk copies
+  __syncwarp();
+  if (lane == 0) mbar_expect_bytes(bar, bytes);
+  __syncwarp();
+  if (hi > lo)
+    bulk_copy(buf + lane * stride + (lo - base),
+              reinterpret_cast<const void*>(lo), uint32_t(hi - lo), bar);
+}
+
+template <typename T, int J>
+__global__ void __launch_bounds__(kGridThreads, 1)
+    margin_grid(const T* __restrict__ X, const float* __restrict__ y,
+                const float* __restrict__ mask, const float* __restrict__ w,
+                int64_t n, int64_t d, int rows, int stages, int loss_kind,
+                uint64_t* parts, float* __restrict__ loss_out,
+                float* __restrict__ grad_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int blocks = gridDim.x;
+  const int b = blockIdx.x;
+  const GridLayout lay = grid_layout(grid_slice_max(d, blocks), rows, stages,
+                                     int(sizeof(T)));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.mbar);
+  float* red_s = reinterpret_cast<float*>(smem + lay.red);
+  float* mult_s = reinterpret_cast<float*>(smem + lay.mult);
+  unsigned char* ring = smem + lay.ring;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // the warp that copies the rows and the warp that stores the block's
+  // partial dots: warps that gather no row
+  const int issuer = kGridWarps - 1;
+  const int storer = kGridWarps - 2;
+  const int ahead = stages - 2 < kGridAhead ? stages - 2 : kGridAhead;
+  int64_t c0;
+  int cols;
+  grid_slice(d, blocks, b, &c0, &cols);
+
+  float wr[J], g[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = tid + j * kGridThreads;
+    wr[j] = c < cols ? w[c0 + c] : 0.f;
+    g[j] = 0.f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // A stage's number, its buffer in the ring and its mbarrier's phase,
+  // stepped one stage at a time: no division by the ring's length (a
+  // 64-bit one by a run-time value costs hundreds of cycles).
+  struct Pos {
+    int s, buf;
+    uint32_t phase;
+  };
+  auto next = [&](Pos& p) {
+    ++p.s;
+    if (++p.buf == stages) {
+      p.buf = 0;
+      p.phase ^= 1u;
+    }
+  };
+  auto here_of = [&](int s) {
+    return int(min64(rows, n - int64_t(s) * rows));
+  };
+  // the first element of stage s's row r in X
+  auto src_of = [&](int s, int r) {
+    return X + (int64_t(s) * rows + r) * d + c0;
+  };
+  // row r of the stage at p in shared memory
+  auto row_of = [&](const Pos& p, int r) {
+    return reinterpret_cast<const T*>(
+        ring + int64_t(p.buf * rows + r) * lay.row_stride +
+        (reinterpret_cast<uintptr_t>(src_of(p.s, r)) & 15));
+  };
+  // Fill the buffer of the stage at p with its row slices.
+  auto issue = [&](const Pos& p) {
+    if (warp == issuer)
+      issue_rows(ring + int64_t(p.buf * rows) * lay.row_stride,
+                 lay.row_stride, src_of(p.s, 0), cols, d, here_of(p.s), X,
+                 X + n * d, &full[p.buf], lane);
+  };
+  // stage s's tagged words of row r
+  auto words = [&](int s, int r) {
+    return parts + int64_t((s % kGridSlots) * rows + r) * blocks;
+  };
+
+  // The partial dots of this block's slice of the stage at p, stored
+  // tagged: each thread's over its columns for every row of the stage,
+  // reduced across the warp and scattered so that lane u * (32 /
+  // kGridMaxRows) holds row u's (reduce_scatter: log2(kGridMaxRows)
+  // halving steps for all the rows at once, where a shuffle tree a row
+  // took 0.13 µs a row at 262,145 f32), then the warps' in order.
+  auto publish = [&](const Pos& p) {
+    constexpr int R = kGridMaxRows;
+    constexpr int Q = log2_of(R);
+    const int here = here_of(p.s);
+    mbar_wait(&full[p.buf], p.phase);
+    float acc[R];
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      acc[u] = 0.f;
+      if (u < here) {
+        const T* xr = row_of(p, u);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int c = tid + j * kGridThreads;
+          if (c < cols) acc[u] = fmaf(to_f32(xr[c]), wr[j], acc[u]);
+        }
+      }
+    }
+    reduce_scatter<R>(acc, lane);
+    float dot = acc[0];
+#pragma unroll
+    for (int off = 16 >> Q; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (lane % (32 / R) == 0)
+      red_s[(lane / (32 / R)) * kGridWarps + warp] = dot;
+    __syncthreads();
+    if (warp == storer && lane < here) {
+      float sum = 0.f;
+      for (int i = 0; i < kGridWarps; ++i)
+        sum += red_s[lane * kGridWarps + i];
+      st_relaxed64(words(p.s, lane) + b, (uint64_t(p.s + 1) << 32) |
+                                             __float_as_uint(sum));
+    }
+  };
+
+  // Stages below nst; the grid mode's X has fewer than 2^31 rows.
+  const int nst = int((n + rows - 1) / rows);
+  Pos fill{0, 0, 0};  // the next stage to copy
+  for (int k = 0; k < stages && fill.s < nst; ++k) {
+    issue(fill);
+    next(fill);
+  }
+  Pos pub{0, 0, 0};  // the next stage to publish
+  for (int k = 0; k < ahead && pub.s < nst; ++k) {
+    publish(pub);
+    next(pub);
+    // The storer reads red_s past publish's barrier, and the next
+    // publish writes it at once: this barrier keeps them apart (in the
+    // loop, a stage's own two barriers do).
+    __syncthreads();
+  }
+
+  // The middle's inputs of row `warp` of stage s and every block's word
+  // of it, loaded by the warps that gather that stage.  Under a full
+  // stream of X an L2 round trip took about 2 µs: loaded at the top of
+  // the iteration that used them, the words held a stage of 7 rows at
+  // 262,145 f32 for 1.2 µs past its dots.  So where the stages are
+  // published two or more ahead, stage t + 1's are loaded in iteration t,
+  // an iteration after its peers stored them.
+  struct Inputs {
+    float y, m;
+    uint64_t v[kGridMaxBlocks / 32];
+  };
+  auto fetch = [&](int s, Inputs& in) {
+    if (s < nst && warp < here_of(s)) {
+      const int64_t row = int64_t(s) * rows + warp;
+      in.y = y[row];
+      in.m = mask[row];
+      const uint64_t* mine = words(s, warp);
+#pragma unroll
+      for (int k = 0; k < kGridMaxBlocks / 32; ++k)
+        if (lane + 32 * k < blocks)
+          in.v[k] = ld_relaxed64(mine + lane + 32 * k);
+    }
+  };
+  const bool early = ahead >= 2;
+  Inputs next_in;
+  if (early) fetch(0, next_in);
+
+  Kahan loss_acc;  // block 0, lane 0 of warp r: row r of every stage
+  for (Pos cur{0, 0, 0}; cur.s < nst; next(cur)) {
+    const int t = cur.s;
+    const int here = here_of(t);
+    const bool gathers = warp < here;
+    Inputs in;
+    if (early) {
+      in = next_in;
+      fetch(t + 1, next_in);
+    } else {
+      fetch(t, in);
+    }
+    if (pub.s < nst) {
+      publish(pub);
+      next(pub);
+    }
+
+    // row `warp`'s whole dot: every block's partial, in a fixed order
+    if (gathers) {
+      const uint32_t want = uint32_t(t + 1);
+      const uint64_t* mine = words(t, warp);
+      uint64_t since = 0;
+      for (;;) {
+        bool ready = true;
+#pragma unroll
+        for (int k = 0; k < kGridMaxBlocks / 32; ++k)
+          if (lane + 32 * k < blocks)
+            ready &= uint32_t(in.v[k] >> 32) == want;
+        if (__all_sync(0xffffffffu, ready)) break;
+        if (since == 0) since = global_ns();
+        if (global_ns() - since > kGridWaitNs) __trap();
+#pragma unroll
+        for (int k = 0; k < kGridMaxBlocks / 32; ++k)
+          if (lane + 32 * k < blocks && uint32_t(in.v[k] >> 32) != want)
+            in.v[k] = ld_relaxed64(mine + lane + 32 * k);
+      }
+      float dot = 0.f;
+#pragma unroll
+      for (int k = 0; k < kGridMaxBlocks / 32; ++k)
+        if (lane + 32 * k < blocks) dot += __uint_as_float(uint32_t(in.v[k]));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0) {
+        float per, mult;
+        loss_middle_of(loss_kind, dot, in.y, &per, &mult);
+        mult_s[warp] = mult * in.m;
+        if (b == 0) loss_acc.add(per * in.m);
+      }
+    }
+    __syncthreads();
+
+    // the gradient over this block's columns from the resident rows
+    for (int r = 0; r < here; ++r) {
+      const T* xr = row_of(cur, r);
+      const float mr = mult_s[r];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int c = tid + j * kGridThreads;
+        if (c < cols) g[j] = fmaf(mr, to_f32(xr[c]), g[j]);
+      }
+    }
+    __syncthreads();  // stage t's buffer is free
+    if (fill.s < nst) {
+      issue(fill);
+      next(fill);
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = tid + j * kGridThreads;
+    if (c < cols) grad_out[c0 + c] = g[j];
+  }
+  if (b == 0) {
+    // no thread reads red_s past the last stage's barriers
+    if (lane == 0 && warp < kGridMaxRows) red_s[warp] = loss_acc.s;
+    __syncthreads();
+    if (tid == 0) {
+      Kahan k;
+      for (int i = 0; i < kGridMaxRows; ++i) k.add(red_s[i]);
+      loss_out[0] = k.s;
+    }
+  }
+}
+
 // Stage 2 of the narrow mode: a warp per gradient column (and one for
 // the loss, warp d), each lane summing every 32nd partial, then a
 // shuffle tree; a fixed order, as reduce_partials keeps, but 32 lanes
@@ -1220,15 +1701,16 @@ cudaError_t launch_partials(const void* X, const float* y, const float* mask,
 }
 
 enum Mode { kTile = 0, kNarrow = 1, kTwoPass = 2, kWarpRows = 3,
-            kCluster = 4, kStream = 5 };
+            kCluster = 4, kStream = 5, kGrid = 6 };
 
 // A launch plan, as margin_plan fills it: the mode; the tile rows (tile
 // mode), the register bucket (narrow mode), the columns a lane owns
-// (warp-rows mode), the rows of a stage (cluster mode), the stages of
-// the ring (stream mode) or 0 (two-pass);
+// (warp-rows mode), the rows of a stage (cluster and grid modes), the
+// stages of the ring (stream mode) or 0 (two-pass);
 // the blocks of the (first) launch; the gradient partials (the grid,
-// pass 2's row groups, or the clusters); the blocks of a cluster
-// (cluster mode; 0 otherwise).  One loss partial a block, or a cluster.
+// pass 2's row groups, or the clusters; 0 in the grid mode, which writes
+// the outputs itself); the blocks of a cluster (cluster mode; 0
+// otherwise).  One loss partial a block, or a cluster.
 struct Plan {
   int mode, rows, grid, partials, cluster;
 };
@@ -1288,6 +1770,72 @@ cudaError_t launch_stream(const Plan& p, const T* X, const float* y,
       X, y, mask, w, n, int(d), p.rows, loss_kind, partial_loss,
       partial_grad);
   return cudaGetLastError();
+}
+
+template <typename T, int J>
+cudaError_t grid_attributes() {
+  static std::atomic<unsigned long long> done{0};
+  return smem_attributes(margin_grid<T, J>, done, false);
+}
+
+// The shared memory of one block of the grid plan (d, blocks, rows).
+int64_t grid_smem(int64_t d, int blocks, int rows, int itemsize) {
+  return grid_layout(grid_slice_max(d, blocks), rows,
+                     grid_stages(d, blocks, itemsize), itemsize)
+      .total;
+}
+
+// The blocks of the grid plan (d, blocks, rows) that an SM keeps
+// resident at once.
+template <typename T>
+cudaError_t grid_resident(int64_t d, int blocks, int rows, int* per_sm) {
+  const int64_t smem = grid_smem(d, blocks, rows, int(sizeof(T)));
+  return with_bucket(grid_slice_max(d, blocks), [&](auto j) {
+    constexpr int J = decltype(j)::value;
+    const cudaError_t err = grid_attributes<T, J>();
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, margin_grid<T, J>, kGridThreads, size_t(smem));
+  });
+}
+
+// Zero the tagged words of `scratch` on `stream`, then launch the grid
+// plan's kernel cooperatively: every block resident at once, or the launch
+// fails (cudaErrorCooperativeLaunchTooLarge) and its error is returned.
+template <typename T>
+cudaError_t launch_grid(const Plan& p, const T* X, const float* y,
+                        const float* mask, const float* w, int64_t n,
+                        int64_t d, int loss_kind, float* scratch, float* loss,
+                        float* grad, cudaStream_t stream) {
+  const int itemsize = int(sizeof(T));
+  const int stages = grid_stages(d, p.grid, itemsize);
+  const int64_t smem = grid_smem(d, p.grid, p.rows, itemsize);
+  return with_bucket(grid_slice_max(d, p.grid), [&](auto j) {
+    constexpr int J = decltype(j)::value;
+    cudaError_t err = grid_attributes<T, J>();
+    if (err != cudaSuccess) return err;
+    const size_t words = size_t(grid_scratch_floats(p.grid, p.rows));
+    err = cudaMemsetAsync(scratch, 0, sizeof(float) * words, stream);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg{};
+    cfg.gridDim = dim3(unsigned(p.grid));
+    cfg.blockDim = dim3(unsigned(kGridThreads));
+    cfg.dynamicSmemBytes = size_t(smem);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, margin_grid<T, J>, X, y, mask, w, n, d,
+                             p.rows, stages, loss_kind,
+                             reinterpret_cast<uint64_t*>(scratch), loss,
+                             grad);
+    // a refused launch leaves its error for the next cudaGetLastError,
+    // which would report it against the next kernel launched: clear it
+    if (err != cudaSuccess) cudaGetLastError();
+    return err != cudaSuccess ? err : cudaGetLastError();
+  });
 }
 
 template <typename T, int L>
@@ -1441,6 +1989,61 @@ cudaError_t cluster_plan(int64_t n, int64_t d, int itemsize, Plan* p) {
   return cudaSuccess;
 }
 
+// The grid mode's plan for X of width d: a block on each of the `sms`
+// SMs (fewer where X has fewer units of kSliceAlign columns, at most
+// kGridMaxBlocks), stages of grid_rows rows.  Sets p->mode to -1 where a
+// slice is too wide for the register buckets or the ring, or the card
+// cannot keep every block resident at once; returns the CUDA error of a
+// device query if it fails.
+cudaError_t grid_plan(int64_t d, int itemsize, int sms, Plan* p) {
+  p->mode = -1;
+  int64_t blocks = grid_units(d);
+  if (blocks > sms) blocks = sms;
+  if (blocks > kGridMaxBlocks) blocks = kGridMaxBlocks;
+  const int rows = grid_rows(d, int(blocks), itemsize);
+  if (rows < 1) return cudaSuccess;
+  int per_sm = 0;
+  const cudaError_t err =
+      itemsize == 4
+          ? grid_resident<float>(d, int(blocks), rows, &per_sm)
+          : grid_resident<__nv_bfloat16>(d, int(blocks), rows, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (int64_t(per_sm) * sms < blocks) return cudaSuccess;
+  *p = Plan{kGrid, rows, int(blocks), 0, 0};
+  return cudaSuccess;
+}
+
+// f32 X whose rows are not 16-byte aligned takes the grid mode from this
+// width on, where the cluster mode still takes X (its unaligned rows go
+// through 16-byte cp.async copies, the grid mode's through bulk copies of
+// the chunks that cover them): the width at which a 16-block cluster's
+// stage falls from two rows to one (cluster_rows).  chip_smoke.py --ab
+// margin: --shapes grid timed the grid mode faster from there (190,001,
+// 196,607 and 262,143 columns) and the cluster mode faster below it
+// (131,071 to 180,001), and at every aligned or bf16 width up to its
+// reach (PERF.md; an H100 80GB HBM3).
+constexpr int64_t kGridUnalignedFrom = 184'321;
+
+bool grid_before_cluster(int64_t d, int itemsize) {
+  return itemsize == 4 && (d * itemsize) % 16 != 0 &&
+         d >= kGridUnalignedFrom;
+}
+
+// The two-pass mode's plan for X (n, d): pass 1 as many blocks as are
+// resident at once, at most a warp a row; pass 2's row groups filling the
+// card with the column chunks, each at least kWideMultChunk rows.
+Plan two_pass_plan(int64_t n, int64_t d, int sms) {
+  int64_t blocks = (n + kWarps - 1) / kWarps;
+  if (blocks > int64_t(sms) * kWideBlocksPerSM)
+    blocks = int64_t(sms) * kWideBlocksPerSM;
+  const int64_t chunks = (d + kThreads - 1) / kThreads;
+  int64_t groups = int64_t(sms) * kWideGradBlocksPerSM / chunks;
+  const int64_t most = (n + kWideMultChunk - 1) / kWideMultChunk;
+  if (groups > most) groups = most;
+  return Plan{kTwoPass, 0, int(blocks < 1 ? 1 : blocks),
+              int(groups < 1 ? 1 : groups), 0};
+}
+
 // The tile mode's plan for X (n, d) (a few blocks an SM, as many as fit,
 // at most one per tile); p->mode is -1 where not one row fits a tile.
 void tile_plan(int64_t n, int64_t d, int itemsize, int sms, Plan* p) {
@@ -1509,8 +2112,11 @@ extern "C" {
 // mode up to kNarrowMaxWidth columns; warp-rows mode up to the hand-over
 // (warp_rows_takes); then the tile mode and the stream mode, each where
 // the card timed it faster (single_block_mode); cluster mode past that
-// while a cluster that the device schedules holds a row (cluster_plan);
-// two-pass mode past that.  Callers work a plan out once a shape.  Returns
+// while a cluster that the device schedules holds a row (cluster_plan),
+// but for f32 rows that are not 16-byte aligned from kGridUnalignedFrom
+// columns on; grid mode past that while a block on each SM holds a slice
+// (grid_plan); two-pass mode past that.  Callers work a plan out once a
+// shape.  Returns
 // cudaErrorInvalidValue, and sets nothing, for arguments no mode takes or
 // an `sms` that is not the device's, and the CUDA error of a device query
 // if it fails.
@@ -1541,21 +2147,19 @@ int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* plan) {
       tile_plan(n, d, itemsize, sms, &p);
     else if (mode == kStream)
       stream_plan(n, d, itemsize, sms, &p);
+    if (p.mode == -1 && grid_before_cluster(d, itemsize))
+      if (const cudaError_t err = grid_plan(d, itemsize, sms, &p);
+          err != cudaSuccess)
+        return int(err);
     if (p.mode == -1)
       if (const cudaError_t err = cluster_plan(n, d, itemsize, &p);
           err != cudaSuccess)
         return int(err);
-    if (p.mode == -1) {
-      int64_t blocks = (n + kWarps - 1) / kWarps;
-      if (blocks > int64_t(sms) * kWideBlocksPerSM)
-        blocks = int64_t(sms) * kWideBlocksPerSM;
-      const int64_t chunks = (d + kThreads - 1) / kThreads;
-      int64_t groups = int64_t(sms) * kWideGradBlocksPerSM / chunks;
-      const int64_t most = (n + kWideMultChunk - 1) / kWideMultChunk;
-      if (groups > most) groups = most;
-      p = Plan{kTwoPass, 0, int(blocks < 1 ? 1 : blocks),
-               int(groups < 1 ? 1 : groups), 0};
-    }
+    if (p.mode == -1)
+      if (const cudaError_t err = grid_plan(d, itemsize, sms, &p);
+          err != cudaSuccess)
+        return int(err);
+    if (p.mode == -1) p = two_pass_plan(n, d, sms);
   }
   write_plan(p, plan);
   return 0;
@@ -1563,9 +2167,10 @@ int margin_plan(int64_t n, int64_t d, int itemsize, int sms, int* plan) {
 
 // The plan of one mode, chosen by the caller, for X (n, d), written to
 // plan[0..4] as margin_plan writes its own: `mode` is a mode code of
-// margin_mode_name; the tile mode (kTile), the stream mode (kStream) and
-// the cluster mode (kCluster, in clusters of `cluster` blocks; the other
-// modes ignore it) are taken.  For timing
+// margin_mode_name; the tile mode (kTile), the stream mode (kStream), the
+// cluster mode (kCluster, in clusters of `cluster` blocks; the other
+// modes ignore it), the grid mode (kGrid) and the two-pass mode
+// (kTwoPass, every width) are taken.  For timing
 // a mode at widths its plan does not give it (chip_smoke.py --ab
 // margin:); the kernel checks a forced plan as any other.  Returns
 // cudaErrorInvalidValue, and sets nothing, where the mode cannot take X
@@ -1590,6 +2195,12 @@ int margin_mode_plan(int64_t n, int64_t d, int itemsize, int sms, int mode,
               cluster_plan_of(n, d, itemsize, cluster, 1, &p);
           err != cudaSuccess)
         return int(err);
+  } else if (mode == kGrid) {
+    if (const cudaError_t err = grid_plan(d, itemsize, sms, &p);
+        err != cudaSuccess)
+      return int(err);
+  } else if (mode == kTwoPass) {
+    p = two_pass_plan(n, d, sms);
   }
   if (p.mode != mode) return int(cudaErrorInvalidValue);
   write_plan(p, plan);
@@ -1611,6 +2222,8 @@ const char* margin_mode_name(int mode) {
       return "cluster";
     case kStream:
       return "stream";
+    case kGrid:
+      return "grid";
     default:
       return nullptr;
   }
@@ -1645,9 +2258,10 @@ int64_t margin_max_width(int itemsize) {
 }
 
 // The widest X (in columns) that the cluster mode takes on the current
-// device: the widest read once.  Wider X takes the two-pass mode.
-// Returns 0 where no cluster is scheduled, and minus the CUDA error code
-// if the query fails.
+// device (f32 X whose rows are not 16-byte aligned only short of
+// margin_grid_unaligned_from_width).  Wider X takes the grid mode, up to
+// margin_grid_max_width.  Returns 0 where no cluster is scheduled, and
+// minus the CUDA error code if the query fails.
 int64_t margin_cluster_max_width(int itemsize) {
   if (itemsize != 4 && itemsize != 2) return -int64_t(cudaErrorInvalidValue);
   // lo is taken (or the tile's), hi is not: no slice is that wide
@@ -1665,20 +2279,75 @@ int64_t margin_cluster_max_width(int itemsize) {
   return lo == tile ? 0 : lo;
 }
 
+// The widest X (in columns) that the grid mode takes on the current
+// device: the widest read once (about 132 x 16,384 columns on an H100).
+// Wider X takes the two-pass mode.  Returns 0 where the grid mode takes
+// no width past the cluster mode, and minus the CUDA error code if a
+// query fails.
+int64_t margin_grid_max_width(int itemsize) {
+  if (itemsize != 4 && itemsize != 2) return -int64_t(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev); err != cudaSuccess)
+    return -int64_t(err);
+  if (const cudaError_t err = cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, dev);
+      err != cudaSuccess)
+    return -int64_t(err);
+  // lo is taken (or the cluster mode's), hi is not: no slice is that wide
+  int64_t lo = margin_cluster_max_width(itemsize);
+  if (lo < 0) return lo;
+  if (lo < margin_max_width(itemsize)) lo = margin_max_width(itemsize);
+  int64_t hi = int64_t(sms) * kGridThreads * kGridMaxCols + 1;
+  const int64_t before = lo;
+  while (hi - lo > 1) {
+    const int64_t mid = (lo + hi) / 2;
+    Plan p{};
+    const cudaError_t err = grid_plan(mid, itemsize, sms, &p);
+    if (err != cudaSuccess) return -int64_t(err);
+    (p.mode == kGrid ? lo : hi) = mid;
+  }
+  return lo == before ? 0 : lo;
+}
+
+// The narrowest X (in columns) of rows that are not 16-byte aligned that
+// the plan gives the grid mode where the cluster mode would take it: f32
+// only (0 for bf16: none).
+int64_t margin_grid_unaligned_from_width(int itemsize) {
+  return itemsize == 4 ? kGridUnalignedFrom : 0;
+}
+
+// Floats of the `mult` scratch that margin_loss_grad needs for the plan
+// plan[0..4] and n rows: the two-pass mode's multipliers (n), the grid
+// mode's tagged partial dots, else 0.
+int64_t margin_scratch_floats(int64_t n, const int* plan) {
+  if (plan[0] == kTwoPass) return n;
+  if (plan[0] == kGrid && plan[1] >= 1 && plan[2] >= 1)
+    return grid_scratch_floats(plan[2], plan[1]);
+  return 0;
+}
+
 // Launch the plan's kernels and the final sum on `stream`.
 // `partial_loss` holds plan[2] floats, `partial_grad` plan[3] * d floats
-// and `mult` n floats (two-pass mode only; it may be NULL otherwise) of
-// scratch.  Returns the CUDA error code of the launches (0 on success):
-// a cluster launch that the card refuses returns its error, and nothing
-// is launched in its place.  Synchronises nothing.
+// and `mult` margin_scratch_floats (two-pass mode: n; grid mode: its
+// exchange; it may be NULL otherwise) of scratch.  Returns the CUDA error
+// code of the launches (0 on success): a cluster or cooperative (grid)
+// launch that the card refuses returns its error, and nothing is
+// launched in its place.  Synchronises nothing.
 int margin_loss_grad(const void* X, int x_type, const void* y,
                      const void* mask, const void* w, int64_t n, int64_t d,
                      int loss_kind, const int* plan, void* partial_loss,
                      void* partial_grad, void* mult, void* loss, void* grad,
                      void* stream) {
   const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4]};
+  const int itemsize = x_type == kBF16 ? 2 : 4;
+  const bool grid_ok =
+      p.mode == kGrid && p.rows >= 1 && p.rows <= kGridMaxRows &&
+      p.grid >= 1 && p.partials == 0 && p.cluster == 0 && mult != nullptr &&
+      n < (int64_t(1) << 31) &&
+      (x_type == kF32 || x_type == kBF16) && loss_kind >= kLogistic &&
+      loss_kind <= kHinge && grid_rows(d, p.grid, itemsize) >= p.rows;
   const bool ok =
-      n >= 0 && d >= 1 && p.grid >= 1 && p.partials >= 1 &&
+      n >= 0 && d >= 1 && (grid_ok || (p.grid >= 1 && p.partials >= 1 &&
       ((p.mode == kTile && p.rows >= 1 && p.partials == p.grid) ||
        (p.mode == kNarrow && d <= p.rows && p.partials == p.grid) ||
        (p.mode == kWarpRows && (p.rows == 2 || p.rows == 4 || p.rows == 8) &&
@@ -1686,12 +2355,12 @@ int margin_loss_grad(const void* X, int x_type, const void* y,
        (p.mode == kTwoPass && (mult != nullptr || n == 0)) ||
        (p.mode == kStream && p.partials == p.grid &&
         p.rows >= kStreamMinStages &&
-        stream_stages(d, x_type == kBF16 ? 2 : 4) == p.rows) ||
+        stream_stages(d, itemsize) == p.rows) ||
        (p.mode == kCluster && p.rows >= 1 && p.rows <= kClusterMaxRows &&
         (p.cluster == 2 || p.cluster == 4 || p.cluster == 8 ||
          p.cluster == 16) &&
         p.grid == p.partials * p.cluster &&
-        cluster_rows(d, p.cluster, x_type == kBF16 ? 2 : 4) >= p.rows));
+        cluster_rows(d, p.cluster, itemsize) >= p.rows))));
   if (!ok) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* yf = static_cast<const float*>(y);
@@ -1700,6 +2369,17 @@ int margin_loss_grad(const void* X, int x_type, const void* y,
   float* pl = static_cast<float*>(partial_loss);
   float* pg = static_cast<float*>(partial_grad);
   float* mu = static_cast<float*>(mult);
+  if (p.mode == kGrid)  // the blocks write the outputs themselves
+    return int(
+        x_type == kF32
+            ? launch_grid<float>(p, static_cast<const float*>(X), yf, mf, wf,
+                                 n, d, loss_kind, mu,
+                                 static_cast<float*>(loss),
+                                 static_cast<float*>(grad), s)
+            : launch_grid<__nv_bfloat16>(
+                  p, static_cast<const __nv_bfloat16*>(X), yf, mf, wf, n, d,
+                  loss_kind, mu, static_cast<float*>(loss),
+                  static_cast<float*>(grad), s));
   cudaError_t err;
   if (x_type == kF32)
     err = launch_for_loss<float>(loss_kind, p, X, yf, mf, wf, n, d, pl, pg,

@@ -20,7 +20,9 @@ deterministic:
   memory up to :func:`tile_max_width` columns, a mode that streams
   stages of rows through a ring in one block's shared memory up
   to :func:`max_width` columns, a mode that holds each row across the
-  shared memory of a thread block cluster up to :func:`cluster_max_width` columns (X still
+  shared memory of a thread block cluster up to :func:`cluster_max_width`
+  columns, a mode that holds it across a block on every SM, the partial
+  dots swapped through L2, up to :func:`grid_max_width` columns (X still
   read once), and past that a two-pass mode that reads X twice (as the
   Pallas wrapper's fallback past its VMEM budget does).
 - ``csrc/margin_lanes_loss_grad.cu``: the same three losses for K
@@ -61,7 +63,7 @@ route CSR to the jnp losses); no kernel is launched for it.
 
 The launch shapes and the limits come from the CUDA sources
 (``margin_plan``/``margin_max_width``,
-``margin_cluster_max_width``, ``softmax_plan``/
+``margin_cluster_max_width``, ``margin_grid_max_width``, ``softmax_plan``/
 ``softmax_one_read_max_width``), which alone know the kernels'
 shared-memory layouts and ask the card which clusters it schedules.
 
@@ -202,8 +204,9 @@ def _device_sms(index: int) -> int:
 # W, n, d, the loss code or the class count, the int[] plan that
 # margin_plan or softmax_plan fills, partial_loss, partial_grad, the
 # scratch of the two-pass modes (the margin kernel's (N,) multipliers,
-# the softmax kernel's chunk x K residuals; NULL otherwise), loss, grad,
-# stream) -> CUDA error code.
+# the softmax kernel's chunk x K residuals; the margin kernel's grid mode
+# its tagged partial dots; NULL otherwise), loss, grad, stream) -> CUDA
+# error code.
 _HEAD = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
 _PLAN_ARGTYPES = _HEAD + [ctypes.POINTER(ctypes.c_int)] \
@@ -230,9 +233,9 @@ def _launch(lib, name: str, prefix: str, code: int, W,
     loss code or the class count) and ``plan`` (the plan arguments, see
     ``_PLAN_ARGTYPES``).  The scratch (``partials`` = (the count of loss
     partials, the count of gradient partials, each of W's size), and
-    with ``mult_rows`` the two-pass modes' (mult_rows,) floats, NULL at
-    0) and the outputs, ``loss`` () and ``grad`` shaped like W, are
-    allocated here; raises if the launch fails."""
+    with ``mult_rows`` the (mult_rows,) floats of the two-pass modes or
+    the grid mode, NULL at 0) and the outputs, ``loss`` () and ``grad``
+    shaped like W, are allocated here; raises if the launch fails."""
     X = staged.X
     n, d = X.shape
     kw = dict(dtype=torch.float32, device=X.device)
@@ -258,33 +261,44 @@ def _launch(lib, name: str, prefix: str, code: int, W,
     return loss, grad
 
 
+# The margin library's functions besides its launch: (name, argument
+# types, result type).  A source from before a mode lacks the functions
+# that came with it.
+_MARGIN_FUNCTIONS = (
+    ("margin_plan", [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                     ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+     ctypes.c_int),
+    ("margin_mode_name", [ctypes.c_int], ctypes.c_char_p),
+    ("margin_mode_plan", [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
+    ("margin_tile_max_width", [ctypes.c_int], ctypes.c_int64),
+    ("margin_max_width", [ctypes.c_int], ctypes.c_int64),
+    ("margin_cluster_max_width", [ctypes.c_int], ctypes.c_int64),
+    ("margin_grid_max_width", [ctypes.c_int], ctypes.c_int64),
+    ("margin_grid_unaligned_from_width", [ctypes.c_int], ctypes.c_int64),
+    ("margin_scratch_floats", [ctypes.c_int64,
+                               ctypes.POINTER(ctypes.c_int)],
+     ctypes.c_int64),
+    ("margin_warp_rows_max_width", [], ctypes.c_int64),
+    ("margin_warp_rows_takes", [ctypes.c_int64, ctypes.c_int],
+     ctypes.c_int),
+)
+
+
 @functools.cache
 def library(source=None):
     """Build (at first use) and load ``csrc/margin_loss_grad.cu``, or
-    ``source``: a path to another version of it with the same C
-    interface, for side-by-side timings; returns ``(ctypes library,
+    ``source``: a path to another version of it with its C interface,
+    for side-by-side timings, with every function of
+    ``_MARGIN_FUNCTIONS`` that it has typed; returns ``(ctypes library,
     BuiltLibrary)``."""
     lib, built = _load("margin_loss_grad", "margin", _PLAN_ARGTYPES,
                        source)
-    lib.margin_plan.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.margin_plan.restype = ctypes.c_int
-    lib.margin_mode_name.argtypes = [ctypes.c_int]
-    lib.margin_mode_name.restype = ctypes.c_char_p
-    lib.margin_mode_plan.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.margin_mode_plan.restype = ctypes.c_int
-    lib.margin_tile_max_width.argtypes = [ctypes.c_int]
-    lib.margin_tile_max_width.restype = ctypes.c_int64
-    lib.margin_max_width.argtypes = [ctypes.c_int]
-    lib.margin_max_width.restype = ctypes.c_int64
-    lib.margin_cluster_max_width.argtypes = [ctypes.c_int]
-    lib.margin_cluster_max_width.restype = ctypes.c_int64
-    lib.margin_warp_rows_max_width.argtypes = []
-    lib.margin_warp_rows_max_width.restype = ctypes.c_int64
-    lib.margin_warp_rows_takes.argtypes = [ctypes.c_int64, ctypes.c_int]
-    lib.margin_warp_rows_takes.restype = ctypes.c_int
+    for name, argtypes, restype in _MARGIN_FUNCTIONS:
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = restype
     return lib, built
 
 
@@ -311,18 +325,40 @@ def max_width(dtype) -> int:
     return int(lib.margin_max_width(_itemsize(dtype)))
 
 
+def _width_query(name: str, dtype) -> int:
+    width = int(getattr(library()[0], name)(_itemsize(dtype)))
+    if width < 0:
+        raise RuntimeError(f"{name} failed: CUDA error {-width}")
+    return width
+
+
 def cluster_max_width(dtype) -> int:
+    """The widest X, in columns, that the kernel takes in its "cluster"
+    mode for ``dtype`` on the current device (past :func:`max_width`): a
+    row across the shared memory of a thread block cluster that the card
+    schedules (0 where it schedules none); f32 X whose rows are not
+    16-byte aligned only short of :func:`grid_unaligned_from_width`.
+    Wider X takes the grid mode, up to :func:`grid_max_width`."""
+    return _width_query("margin_cluster_max_width", dtype)
+
+
+def grid_max_width(dtype) -> int:
     """The widest X, in columns, that the kernel reads once for ``dtype``
     on the current device (counterpart of
-    ``PallasMarginGradient._supported_width``): a row fits across the
-    shared memory of a thread block cluster that the card schedules (its
-    "cluster" mode, past :func:`max_width`; 0 where it schedules none).
-    Wider X takes the two-pass mode."""
-    width = int(library()[0].margin_cluster_max_width(_itemsize(dtype)))
-    if width < 0:
-        raise RuntimeError(f"margin_cluster_max_width failed: CUDA error "
-                           f"{-width}")
-    return width
+    ``PallasMarginGradient._supported_width``): its "grid" mode, past
+    :func:`cluster_max_width`, holds each row across a block on every SM
+    (0 where it takes no width past the cluster mode).  Wider X takes the
+    two-pass mode."""
+    return _width_query("margin_grid_max_width", dtype)
+
+
+def grid_unaligned_from_width(dtype) -> int:
+    """The narrowest X, in columns, of rows that are not 16-byte aligned
+    (``d * itemsize % 16 != 0``) that the kernel takes in its grid mode
+    where the cluster mode would also take it, as the card timed it
+    faster: f32 only (0 for bf16)."""
+    return int(library()[0].margin_grid_unaligned_from_width(
+        _itemsize(dtype)))
 
 
 def warp_rows_max_width() -> int:
@@ -348,14 +384,15 @@ def check_width(d: int, dtype):
 
 class MarginPlan(NamedTuple):
     """A launch plan of the margin kernel (``margin_plan``): ``mode``
-    ("narrow", "warp_rows", "tile", "stream", "cluster" or "two_pass");
-    ``tile_rows``, the
+    ("narrow", "warp_rows", "tile", "stream", "cluster", "grid" or
+    "two_pass"); ``tile_rows``, the
     rows of a tile (tile mode), the register bucket (narrow mode), the
     columns a lane owns (warp-rows mode), the stages of the ring (stream
-    mode), the rows of a stage (cluster mode) or 0; ``grid``, the blocks
-    of the (first) launch; ``partials``, the gradient partials summed at
-    the end (the grid, the row groups of the two-pass mode's second
-    pass, or the clusters); ``cluster``, the blocks of a cluster
+    mode), the rows of a stage (cluster and grid modes) or 0; ``grid``,
+    the blocks of the (first) launch; ``partials``, the gradient partials
+    summed at the end (the grid, the row groups of the two-pass mode's
+    second pass, or the clusters; 0 in the grid mode, whose blocks write
+    the outputs); ``cluster``, the blocks of a cluster
     (cluster mode, else 0); ``raw``, the ints as ``margin_plan`` filled
     them (its mode code first), passed back at launch."""
 
@@ -396,9 +433,10 @@ def mode_plan_for(lib, n: int, d: int, itemsize: int, sms: int, mode: str,
                   cluster: int = 0) -> MarginPlan:
     """``lib``'s plan of the named ``mode`` (and, for "cluster", clusters
     of ``cluster`` blocks) for X (n, d), whether or not ``margin_plan``
-    gives that mode this width (``margin_mode_plan``; for timing modes
-    side by side); raises ``ValueError`` where the mode does not take
-    it."""
+    gives that mode this width (``margin_mode_plan``: "tile", "stream",
+    "cluster", and from the grid mode's source on "grid" and "two_pass";
+    for timing modes side by side); raises ``ValueError`` where the mode
+    does not take it."""
     codes = _mode_codes(lib.margin_mode_name)
     plan = (ctypes.c_int * 5)()
     if mode not in codes or lib.margin_mode_plan(
@@ -429,12 +467,16 @@ def margin_launch(lib, code: int, w, staged: StagedDense,
                   plan: MarginPlan):
     """Launch ``lib``'s ``margin_loss_grad`` with ``plan`` on the current
     stream for the loss ``code``; returns ``(loss, grad)``.  Raises if
-    the launch fails (a cluster launch that the card refuses too: no
-    other mode is launched in its place)."""
-    rows = staged.X.shape[0] if plan.mode == "two_pass" else 0
+    the launch fails (a cluster or cooperative launch that the card
+    refuses too: no other mode is launched in its place)."""
+    raw = (ctypes.c_int * len(plan.raw))(*plan.raw)
+    n = staged.X.shape[0]
+    if hasattr(lib, "margin_scratch_floats"):
+        scratch = int(lib.margin_scratch_floats(n, raw))
+    else:  # a source from before the grid mode
+        scratch = n if plan.mode == "two_pass" else 0
     return _launch(lib, "margin_loss_grad", "margin", code, w, staged,
-                   [(ctypes.c_int * len(plan.raw))(*plan.raw)],
-                   (plan.grid, plan.partials), rows)
+                   [raw], (plan.grid, plan.partials), scratch)
 
 
 def _check(cond: bool, msg: str, name: str = "fused_margin_loss_grad"):
@@ -459,7 +501,8 @@ def _check_staged(staged: StagedDense, name: str):
 def fused_margin_loss_grad(gradient: MarginGradient, w, staged: StagedDense):
     """``(loss_sum, grad_sum)`` in f32 of a logistic, least-squares or
     hinge loss, reading X once (past :func:`max_width` columns across a
-    thread block cluster, twice past :func:`cluster_max_width`).  CPU
+    thread block cluster, past :func:`cluster_max_width` across a block
+    on every SM, twice past :func:`grid_max_width`).  CPU
     operands take the plain version; CUDA operands launch the kernel on
     the current stream or raise.
 

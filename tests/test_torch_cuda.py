@@ -75,10 +75,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 # register buckets where its rows a stage change (1,024 | 1,025, 2,048 |
 # 2,049, 4,096 | 4,097), its widest X ("max"), one column past it (the
 # cluster mode), a gene-expression-like width, the cluster mode's widest
-# X ("cmax") and one column past it (the two-pass mode)
+# X ("cmax") and one column past it (the grid mode), the grid mode's
+# widest X ("gmax") and one column past it (the two-pass mode)
 WIDTHS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 127, 129, "hand-1",
           "hand", "hand+1", "tile", "tile+1", 1000, 1_024, 1_025, 2_048,
-          2_049, 4_096, 4_097, "max", "max+1", 40_000, "cmax", "cmax+1"]
+          2_049, 4_096, 4_097, "max", "max+1", 40_000, "cmax", "cmax+1",
+          "gmax", "gmax+1"]
 
 
 def _warp_rows(d, dtype, hand):
@@ -88,11 +90,22 @@ def _warp_rows(d, dtype, hand):
                                or d <= 128)
 
 
+def _wide_mode(d, dtype, cmax):
+    """Past one block a row: the cluster mode to ``cmax``, but f32 rows
+    that are not 16-byte aligned from ``grid_unaligned_from_width``; the
+    grid mode to ``grid_max_width``; the two-pass mode past it."""
+    unaligned_from = fk.grid_unaligned_from_width(dtype)
+    unaligned = d * torch.tensor([], dtype=dtype).element_size() % 16 != 0
+    if d <= cmax and not (unaligned and unaligned_from
+                          and d >= unaligned_from):
+        return "cluster"
+    return "grid" if d <= fk.grid_max_width(dtype) else "two_pass"
+
+
 def _expected_mode(d, dtype, hand, limit, cmax):
     return ("narrow" if d <= 32 else "warp_rows" if _warp_rows(d, dtype, hand)
             else "tile" if d <= fk.tile_max_width(dtype)
-            else "stream" if d <= limit else "cluster" if d <= cmax
-            else "two_pass")
+            else "stream" if d <= limit else _wide_mode(d, dtype, cmax))
 
 
 @pytest.mark.cuda
@@ -104,7 +117,8 @@ def test_width_rule_and_tile_budget(cuda, width, dtype):
     the warp-rows mode to its hand-over, the tile up to
     ``tile_max_width``, the stream mode up to ``max_width`` (the widest X
     one block a row takes), the cluster mode past it up to
-    ``cluster_max_width`` (at least 40,000 columns), the two-pass mode
+    ``cluster_max_width`` (at least 40,000 columns), the grid mode up to
+    ``grid_max_width`` (past 2M columns on 132 SMs), the two-pass mode
     past that.  Each call agrees with the plain version, repeats give the
     same bits, and each launch counts once, under the mode that
     ``launch_shape`` reports."""
@@ -112,10 +126,12 @@ def test_width_rule_and_tile_budget(cuda, width, dtype):
     hand = fk.warp_rows_max_width()
     tile = fk.tile_max_width(dtype)
     cmax = fk.cluster_max_width(dtype)
-    assert 32 < hand < tile < 1000 < 8_192 <= limit < 40_000 <= cmax
+    gmax = fk.grid_max_width(dtype)
+    assert 32 < hand < tile < 1000 < 8_192 <= limit < 40_000 <= cmax < gmax
     d = {"max": limit, "max+1": limit + 1, "hand-1": hand - 1, "hand": hand,
          "hand+1": hand + 1, "tile": tile, "tile+1": tile + 1,
-         "cmax": cmax, "cmax+1": cmax + 1}.get(width, width)
+         "cmax": cmax, "cmax+1": cmax + 1, "gmax": gmax,
+         "gmax+1": gmax + 1}.get(width, width)
     n = 4_099 if d <= 1000 else 300
     gen = torch.Generator(device=cuda)
     gen.manual_seed(2)
@@ -135,7 +151,12 @@ def test_width_rule_and_tile_budget(cuda, width, dtype):
         # a ring of 2 to 4 stages, one block an SM
         assert 2 <= plan.tile_rows <= 4 and plan.grid == plan.partials
         assert plan.grid <= fk._device_sms(cuda.index or 0)
-    assert plan.grid >= 1 and plan.partials >= 1
+    if plan.mode == "grid":
+        # a block on every SM, stages of 1 to 8 rows, the outputs written
+        # by the blocks themselves
+        assert plan.grid == fk._device_sms(cuda.index or 0)
+        assert 1 <= plan.tile_rows <= 8 and plan.partials == 0
+    assert plan.grid >= 1 and plan.partials >= (plan.mode != "grid")
     inner = losses.LogisticGradient()
     before = fk.launch_count
     before_mode = fk.margin_mode_launches[plan.mode]
@@ -272,9 +293,16 @@ def test_wide_fused_fit_on_the_card_matches_the_plain_fit(cuda):
 
 @pytest.mark.cuda
 def test_fit_past_the_cluster_reach_runs_the_two_pass_mode(cuda):
-    """A few rows one column past the cluster mode's reach: the two-pass
-    mode carries the fit."""
-    _wide_fit(64, fk.cluster_max_width(torch.float32) + 1, 13, "two_pass")
+    """A few rows one column past the grid mode's reach, which lies past
+    the cluster mode's: the two-pass mode carries the fit."""
+    _wide_fit(64, fk.grid_max_width(torch.float32) + 1, 13, "two_pass")
+
+
+@pytest.mark.cuda
+def test_fit_past_the_cluster_mode_runs_the_grid_mode(cuda):
+    """A few rows one column past the cluster mode's widest X: the grid
+    mode carries the fit, one launch per evaluation."""
+    _wide_fit(64, fk.cluster_max_width(torch.float32) + 1, 15, "grid")
 
 
 def _cluster_case(gen, cuda, n, d, dtype, offset):
@@ -353,6 +381,192 @@ def test_rejected_cluster_plan_raises_and_launches_nothing_else(cuda,
         fk.fused_margin_loss_grad(losses.LogisticGradient(),
                                   torch.zeros(d, device=cuda), staged)
     assert (fk.launch_count, dict(fk.margin_mode_launches)) == before
+
+
+def _assert_plain(loss, grad, inner, w, staged):
+    ref_loss, ref_grad = fk.fused_margin_loss_grad_reference(inner, w,
+                                                             staged)
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-5,
+                                        abs=1e-30)
+    torch.testing.assert_close(grad, ref_grad, rtol=1e-4,
+                               atol=1e-4 * float(ref_grad.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_grid_mode_edges(cuda, dtype):
+    """The grid mode one column past the hand-over from the cluster mode,
+    one past the cluster mode's reach (262,145: rows not 16-byte
+    aligned), and at 262,152 columns, whose rows are aligned (bulk
+    copies), and the same with X one element into its buffer (cp.async
+    copies); no rows, rows of 1, 7 and 97 (not a multiple of a stage's
+    rows); masked and unmasked; all three losses at two widths.  Each
+    call agrees with the plain version, repeats give the same bits and
+    each launch counts once under the grid mode."""
+    cmax = fk.cluster_max_width(dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(16)
+    cases = [(cmax + 1, 0), (262_145, 0), (262_152, 0), (262_152, 1)]
+    for d, offset in cases:
+        for n in (0, 1, 7, 97):
+            X, y, m, w = _cluster_case(gen, cuda, n, d, dtype, offset)
+            names = (["logistic", "least_squares", "hinge"]
+                     if d in (cmax + 1, 262_152) and n == 97
+                     else ["logistic"])
+            for name, mask in [(nm, mk) for nm in names for mk in (None, m)]:
+                inner = losses.GRADIENTS[name]()
+                staged = fk.stage_dense(X, y, mask)
+                plan = fk.launch_shape(staged.X)
+                assert plan.mode == "grid" and plan.partials == 0, (d, plan)
+                before = fk.margin_mode_launches["grid"]
+                loss, grad = fk.fused_margin_loss_grad(inner, w, staged)
+                loss2, grad2 = fk.fused_margin_loss_grad(inner, w, staged)
+                torch.cuda.synchronize()
+                assert fk.margin_mode_launches["grid"] == before + 2
+                assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+                _assert_plain(loss, grad, inner, w, staged)
+
+
+@pytest.mark.cuda
+def test_grid_mode_words_are_clean_between_calls(cuda):
+    """The grid mode's tagged words start at zero in every call: a call,
+    the same call back to back, then after a call with no rows and one
+    with a single row (whose words end at other stages), gives the same
+    bits."""
+    d = fk.cluster_max_width(torch.float32) + 1
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(17)
+    inner = losses.LogisticGradient()
+    X, y, m, w = _cluster_case(gen, cuda, 97, d, torch.float32, 0)
+    staged = fk.stage_dense(X, y, m)
+    first = fk.fused_margin_loss_grad(inner, w, staged)
+    again = fk.fused_margin_loss_grad(inner, w, staged)
+    for n in (0, 1):
+        Xs, ys, _, _ = _cluster_case(gen, cuda, n, d, torch.float32, 0)
+        other = fk.stage_dense(Xs, ys)
+        assert fk.launch_shape(other.X).mode == "grid"
+        fk.fused_margin_loss_grad(inner, w, other)
+        after = fk.fused_margin_loss_grad(inner, w, staged)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], after[0])
+        assert torch.equal(first[1], after[1])
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                           again[1])
+    _assert_plain(*first, inner, w, staged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_grid_plan_takes_the_widths_between_the_hand_overs(cuda, dtype):
+    """At a few hundred rows the plan gives the cluster mode up to
+    ``cluster_max_width``, the grid mode from the next column up to
+    ``grid_max_width`` and the two-pass mode one column past it; f32 rows
+    that are not 16-byte aligned take the grid mode from
+    ``grid_unaligned_from_width`` (184,321 columns: the unaligned width
+    under it, and aligned widths about it, the cluster mode; bf16 none); a
+    grid plan has a block on every SM."""
+    lib = fk.library()[0]
+    sms = fk._device_sms(cuda.index or 0)
+    size = torch.tensor([], dtype=dtype).element_size()
+    cmax, gmax = fk.cluster_max_width(dtype), fk.grid_max_width(dtype)
+    assert cmax < 500_000 < gmax
+    unaligned_from = fk.grid_unaligned_from_width(dtype)
+    assert unaligned_from == (184_321 if size == 4 else 0)
+    cases = [(cmax, "cluster"), (cmax + 1, "grid"), (500_000, "grid"),
+             (gmax, "grid"), (gmax + 1, "two_pass"),
+             (184_317, "cluster"), (184_320, "cluster"),
+             (184_321, "grid" if size == 4 else "cluster"),
+             (196_607, "grid" if size == 4 else "cluster"),
+             (262_143, "grid" if size == 4 else "cluster")]
+    for d, want in cases:
+        plan = fk.plan_for(lib, 300, d, size, sms)
+        assert plan.mode == want, (d, plan)
+        if want == "grid":
+            assert plan.grid == sms and plan.partials == plan.cluster == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1_000, 5_000, 40_000])
+def test_forced_grid_plan_below_the_hand_over_matches_plain(cuda, d):
+    """The grid mode forced where the plan gives another mode (a block
+    for each 32-column unit at 1,000 columns, fewer blocks than SMs; a
+    block on every SM at 5,000 and 40,000): the plain version's result,
+    the same bits on repeat."""
+    lib = fk.library()[0]
+    sms = fk._device_sms(cuda.index or 0)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(18)
+    inner = losses.HingeGradient()
+    X, y, m, w = _cluster_case(gen, cuda, 1_003, d, torch.float32, 0)
+    staged = fk.stage_dense(X, y, m)
+    plan = fk.mode_plan_for(lib, 1_003, d, 4, sms, "grid")
+    assert plan.mode == "grid" and fk.launch_shape(X).mode != "grid"
+    assert plan.grid == min(sms, -(-d // 32))
+    loss, grad = fk.margin_launch(lib, 2, w, staged, plan)
+    loss2, grad2 = fk.margin_launch(lib, 2, w, staged, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+    _assert_plain(loss, grad, inner, w, staged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("units", [1, 2])
+def test_forced_grid_plan_at_narrow_slices_repeats_its_bits(cuda, dtype,
+                                                            units):
+    """The grid mode forced at 32 and 64 columns a block on every SM (the
+    last block a column short), where a stage's dots take a block least
+    time and its warps run furthest ahead of its partial-dot store: 20
+    calls of 4,003 rows give the same bits, and the plain version's
+    result."""
+    lib = fk.library()[0]
+    sms = fk._device_sms(cuda.index or 0)
+    d = sms * 32 * units - 1
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(19)
+    X, y, m, w = _cluster_case(gen, cuda, 4_003, d, dtype, 0)
+    staged = fk.stage_dense(X, y, m)
+    plan = fk.mode_plan_for(lib, 4_003, d, X.element_size(), sms, "grid")
+    assert plan.mode == "grid" and plan.grid == sms
+    for code, inner in ((0, losses.LogisticGradient()),
+                        (2, losses.HingeGradient())):
+        loss, grad = fk.margin_launch(lib, code, w, staged, plan)
+        for _ in range(20):
+            loss2, grad2 = fk.margin_launch(lib, code, w, staged, plan)
+            assert torch.equal(loss, loss2) and torch.equal(grad, grad2)
+        _assert_plain(loss, grad, inner, w, staged)
+
+
+@pytest.mark.cuda
+def test_refused_cooperative_launch_raises_and_launches_nothing_else(
+        cuda, monkeypatch):
+    """A grid plan of one block more than the SMs, whose blocks take more
+    than half an SM's shared memory, cannot be resident at once: the
+    card refuses the cooperative launch, the wrapper raises, counts
+    nothing and launches no other mode in its place; the refusal is not
+    reported again against the next launch."""
+    d = 300_000
+    X = torch.randn((64, d), device=cuda)
+    staged = fk.stage_dense(X, torch.zeros(64, device=cuda))
+    plan = fk.launch_shape(X)
+    assert plan.mode == "grid"
+    raw = list(plan.raw)
+    raw[2] += 1
+    monkeypatch.setattr(fk, "launch_shape", lambda X: plan._replace(
+        grid=raw[2], raw=tuple(raw)))
+    before = fk.launch_count, dict(fk.margin_mode_launches)
+    w = torch.zeros(d, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fk.fused_margin_loss_grad(losses.LogisticGradient(), w, staged)
+    assert (fk.launch_count, dict(fk.margin_mode_launches)) == before
+    loss, grad = fk.margin_launch(fk.library()[0], 0, w, staged, plan)
+    ref_loss, ref_grad = fk.fused_margin_loss_grad_reference(
+        losses.LogisticGradient(), w, staged)
+    torch.cuda.synchronize()
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-5)
 
 
 @pytest.mark.cuda
