@@ -156,10 +156,12 @@ Phases, each printing one JSON line:
     the two-pass mode, device ms by kernel name, so by pass, beside the
     bound, the two-pass floor of X read twice, the plain version and the
     two products);
-20. the ``kernels`` line (with each kernel's launches by path, the margin
-    and softmax kernels' modes by path and their numbers by mode (the
-    margin grid mode's at phase 31's shape and at phase 19's
-    GRID_TIMES), the lanes kernel's modes by path and its numbers by
+20. the ``kernels`` line (with each kernel's launches by path, the
+    streamed paths of phases 32-34 among them, the margin and softmax
+    kernels' modes by path and their numbers by mode (the margin grid
+    mode's at phase 31's shape and at phase 19's GRID_TIMES, the stream
+    mode's a batch at a time in phase 32), the lanes kernel's modes by
+    path and its numbers by
     mode: ``lanes_mma`` at phase 22's shape, ``lanes_cluster`` at phase
     29's, the two-pass mode at phase 30's and phase 19's, and
     each library's registers and spills by kernel, the margin cluster
@@ -247,10 +249,36 @@ Phases, each printing one JSON line:
 31. snp_path, after phase 19 (whose X is freed first): 10,000 x 500,000
     f32 class-logistic data made on the card (20 GB; a genotype matrix's
     width: SNP arrays measure 500,000-800,000 markers), read as phase 25
-    is, every launch in the margin kernel's grid mode.
+    is, every launch in the margin kernel's grid mode;
+32. stream_path, after phase 5 (whose data was copied once into pinned
+    host memory at the end of phase 23, after ``MemAvailable`` was read
+    and found to hold it; the card's copy is freed): the data streamed
+    through ``StreamingDataset.from_arrays`` in batches of 1,048,576
+    rows (the last a ragged 562,816), 2 batches prepared ahead,
+    ``make_streaming_smooth(FusedLogisticGradient())`` and
+    ``run_agd_host`` at phase 5's settings capped at 10 iterations:
+    every launch in the margin kernel's stream mode, one a batch a pass;
+    the first evaluation and one at phase 5's weights held to f64 sums
+    over the same stream, the loss history to phase 5's over their
+    common iterations (rtol 1e-4); the pass seconds, the stall share,
+    the host-to-device GB/s beside plain pinned ``copy_``s of one batch
+    and of the whole pass back to back (``pass_copy_s_best``), the
+    kernel's device ms a batch, the card's peak allocation (under 2 + 2
+    batches + 1 GB) and ``MemAvailable``;
+33. stream_sweep, on phase 32's stream: ``streaming_sweep`` over the 8
+    strengths of phase 22 capped at 10 iterations, every launch in the
+    lanes kernel's ``lanes_mma`` mode, one a batch a round, each lane
+    held to phase 22's; then ``streaming_lbfgs_sweep`` over the same
+    strengths, each lane held to phase 27's;
+34. stream_libsvm, inside phase 11: its file cut into 8 LIBSVM part
+    files, streamed through ``from_libsvm_parts`` (65,536 rows a batch, 2
+    ahead) for a 3-iteration logistic AGD fit through ``run_agd_host``,
+    held to the same fit of the parsed arrays in memory over common
+    iterations (rtol 1e-4); the parse MB/s, the passes' MB/s and the
+    stall share; CSR launches no kernel.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-31) and read just after it; the sparse paths launch neither kernel,
+22-34) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -1745,30 +1773,36 @@ def write_libsvm(path, cid, val, y, k, rows):
     return time.perf_counter() - t0
 
 
-def phase_libsvm(port, sparse, native, rcv1):
+def phase_libsvm(port, sparse, native, rcv1, after=None):
     """Phase 11: phase 10's data through a LIBSVM file, the native parser
-    and the same trainer."""
+    and the same trainer; then ``after(path, data, Xf)`` on the file, the
+    parsed arrays and their CSR on the card (phase 34) before the file is
+    removed."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_libsvm_")
+    try:
+        _phase_libsvm(port, sparse, native, rcv1, tmp, after)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_libsvm(port, sparse, native, rcv1, tmp, after):
     t_phase = time.perf_counter()
     cfg, X = rcv1["cfg"], rcv1["X"]
     n, d, k = cfg["n"], cfg["d"], cfg["k"]
     cid = X.col_ids.cpu().numpy()
     val = X.values.cpu().numpy()
     y = rcv1["y"].cpu().numpy()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_libsvm_")
-    try:
-        path = os.path.join(tmp, "rcv1_like.libsvm")
-        # time the reduced size first; the rest only if all of it fits
-        write_s = write_libsvm(path, cid, val, y, k, LIBSVM_REDUCED_ROWS)
-        rows = LIBSVM_REDUCED_ROWS
-        if write_s * n / LIBSVM_REDUCED_ROWS <= LIBSVM_WRITE_LIMIT_S:
-            write_s = write_libsvm(path, cid, val, y, k, n)
-            rows = n
-        file_mb = os.path.getsize(path) / 1e6
-        t0 = time.perf_counter()
-        data = port.load_libsvm(path, n_features=d)
-        parse_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    path = os.path.join(tmp, "rcv1_like.libsvm")
+    # time the reduced size first; the rest only if all of it fits
+    write_s = write_libsvm(path, cid, val, y, k, LIBSVM_REDUCED_ROWS)
+    rows = LIBSVM_REDUCED_ROWS
+    if write_s * n / LIBSVM_REDUCED_ROWS <= LIBSVM_WRITE_LIMIT_S:
+        write_s = write_libsvm(path, cid, val, y, k, n)
+        rows = n
+    file_mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    data = port.load_libsvm(path, n_features=d)
+    parse_s = time.perf_counter() - t0
     fallback = native.pop_fallback_event("libsvm_parser.so")
     if fallback is not None or native.load_parser() is None:
         raise AssertionError(f"libsvm: the native parser did not run "
@@ -1814,6 +1848,8 @@ def phase_libsvm(port, sparse, native, rcv1):
     if not equal:
         raise AssertionError("libsvm: the fit from the file differs from "
                              "the in-memory fit")
+    if after is not None:
+        after(path, data, Xf)
 
 
 def lbfgs_common_path(res, ref):
@@ -3671,7 +3707,7 @@ def hold_sweep(res, ref, checks, label):
 
 
 def sweep_path(port, fk, losses, smi, X, y, solo, launches,
-               path="sweep_path", want=None, iters=ITERS):
+               path="sweep_path", want=None, iters=ITERS, keep=None):
     """Phase 22, on phase 5's data (and phase 29, ``path`` =
     "epsilon_sweep", on phase 28's; phase 30, "wide_sweep", on phase
     19's): the regularization path over SWEEP_REGS through
@@ -3681,7 +3717,9 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches,
     the solo fit ``solo`` on the same data (``(AGDResult, loss history,
     wall seconds)``); the kernel at this shape, K = 8, held to f64 sums
     and timed (device ms by kernel name: by pass in the two-pass mode).
-    Returns the lanes kernel's entry of the kernels line."""
+    Returns the lanes kernel's entry of the kernels line; ``keep["res"]``
+    (a dict, optional) receives the sweep's result (phase 33 holds its
+    streamed path to it)."""
     t_phase = time.perf_counter()
     k = len(SWEEP_REGS)
     n, d = X.shape
@@ -3715,6 +3753,8 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches,
            "loss_last_by_lane": [float(_Lane(res, i).hist[-1])
                                  for i in range(k)]}
     out.update(hold_sweep(res, plain, checks, "sweep"))
+    if keep is not None:
+        keep["res"] = res
     lane0 = _Lane(res, 0)
     out["lane_0.1_max_hist_rel_diff_vs_solo"] = hold_paths(
         lane0, solo[0], lane0.hist, solo[1], checks, "lane_0.1_vs_solo")
@@ -3837,13 +3877,14 @@ class _LbfgsLane:
             setattr(self, f, getattr(res, f)[k])
 
 
-def lbfgs_sweep_path(port, fk, smi, X, y, launches):
+def lbfgs_sweep_path(port, fk, smi, X, y, launches, keep=None):
     """Phase 27, on phase 5's data after phase 22: the L-BFGS
     regularization path over SWEEP_REGS (``LBFGS.sweep`` through
     ``FusedLogisticGradient``, 40 iterations at MLlib's tol 1e-4): one
     launch of the lanes kernel a round, every lane held to its solo
     ``run_lbfgs`` through the margin kernel over their common path, and
-    the path's wall time beside the 8 solo fits'."""
+    the path's wall time beside the 8 solo fits'; ``keep["res"]`` (a
+    dict, optional) receives the path's result."""
     t_phase = time.perf_counter()
     k = len(SWEEP_REGS)
     w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
@@ -3885,6 +3926,8 @@ def lbfgs_sweep_path(port, fk, smi, X, y, launches):
     for i, solo in enumerate(solos):
         out.update(hold_lbfgs(_LbfgsLane(res, i), solo, checks,
                               f"lane_{i}"))
+    if keep is not None:
+        keep["res"] = res
     finish("lbfgs_sweep_path", out, checks, t_phase, smi)
 
 
@@ -3997,6 +4040,427 @@ def softmax_sweep(port, fk, glm, smi, Xa, y, launches):
     finish("softmax_sweep", out, checks, t_phase, smi)
 
 
+# ---------------------------------------------------------------------------
+# Phases 32-34: the streamed data plane
+# ---------------------------------------------------------------------------
+
+# phases 32-33: phase 5's data streamed from pinned host memory in
+# macro-batches of STREAM_ROWS rows (the last a ragged 562,816), phase 32
+# with STREAM_PREFETCH batches prepared ahead (the sweeps take no thread);
+# each fit capped at STREAM_ITERS
+STREAM_ROWS, STREAM_PREFETCH, STREAM_ITERS = 1_048_576, 2, 10
+# phase 34: phase 10's rcv1-like data as LIBSVM part files
+STREAM_PARTS, STREAM_PART_BATCH_ROWS, STREAM_LIBSVM_ITERS = 8, 65_536, 3
+# host memory to leave free beside the pinned copy of phase 5's data
+STREAM_HOST_HEADROOM = 8 << 30
+
+
+def mem_available():
+    """``MemAvailable`` of ``/proc/meminfo`` in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+def pinned_copy(streaming, X, y):
+    """X and y copied once into pinned host memory (``pin_host``: page-
+    locked at their exact size); raises, before allocating, when the
+    host has not the memory for them."""
+    need = X.numel() * X.element_size() + y.numel() * 4
+    available = mem_available()
+    if available < need + STREAM_HOST_HEADROOM:
+        raise AssertionError(
+            f"stream_path: MemAvailable {available / 1e9:.1f} GB cannot "
+            f"hold phase 5's data ({need / 1e9:.1f} GB) and "
+            f"{STREAM_HOST_HEADROOM / 1e9:.1f} GB beside it")
+    t0 = time.perf_counter()
+    Xh = streaming.pin_host(torch.empty(X.shape, dtype=X.dtype))
+    yh = streaming.pin_host(torch.empty(y.shape, dtype=torch.float32))
+    pin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Xh.copy_(X)
+    yh.copy_(y)
+    torch.cuda.synchronize()
+    return {"X": Xh, "y": yh, "mem_available_gb": available / 1e9,
+            "pin_s": pin_s, "d2h_s": time.perf_counter() - t0}
+
+
+def copy_yardstick(X, y, rows, repeats=3):
+    """Plain pinned ``copy_`` rates in GB/s, each by CUDA events: one
+    batch (X's first ``rows`` rows and their labels) 5 times, and the
+    whole pass (every batch back to back on one stream into two device
+    buffers in turn) ``repeats`` times.  Returns both lists and the
+    first batch on the card."""
+    n = X.shape[0]
+    row_bytes = X[0].numel() * X.element_size() + y.element_size()
+    bufs = [(torch.empty((rows,) + tuple(X.shape[1:]), dtype=X.dtype,
+                         device="cuda"),
+             torch.empty(rows, dtype=y.dtype, device="cuda"))
+            for _ in range(2)]
+
+    def copy(i, lo):
+        hi = min(lo + rows, n)
+        dX, dy = bufs[i]
+        dX[:hi - lo].copy_(X[lo:hi], non_blocking=True)
+        dy[:hi - lo].copy_(y[lo:hi], non_blocking=True)
+        return (hi - lo) * row_bytes
+
+    def whole_pass():
+        return sum(copy(b % 2, lo)
+                   for b, lo in enumerate(range(0, n, rows)))
+
+    def gb_per_s(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        nbytes = fn()
+        end.record()
+        end.synchronize()
+        return nbytes / (start.elapsed_time(end) / 1e3) / 1e9
+
+    copy(0, 0)
+    torch.cuda.synchronize()
+    one = [gb_per_s(lambda: copy(0, 0)) for _ in range(5)]
+    whole = [gb_per_s(whole_pass) for _ in range(repeats)]
+    copy(0, 0)
+    torch.cuda.synchronize()
+    return one, whole, bufs[0]
+
+
+def pass_report(stats, prefix=""):
+    """The passes' wall seconds, the stall and throttle shares and the
+    host-to-device GB/s, from ``fold_stream``'s stats."""
+    pass_s = [s["pass_s"] for s in stats]
+    total = sum(pass_s)
+    return {f"{prefix}passes": len(stats),
+            f"{prefix}pass_s_mean": total / len(stats),
+            f"{prefix}pass_s_min": min(pass_s),
+            f"{prefix}pass_s_max": max(pass_s),
+            f"{prefix}stall_share": sum(s["stall_s"] for s in stats) / total,
+            f"{prefix}throttle_share": sum(s.get("throttle_s", 0.0)
+                                           for s in stats) / total,
+            f"{prefix}h2d_gb_per_s": sum(s.get("h2d_bytes", 0)
+                                         for s in stats) / total / 1e9}
+
+
+class _F64Sums:
+    """A gradient whose batch sums are the f64 ones (``margin_f64``), for
+    holding a streamed evaluation to f64 over the same stream."""
+
+    def __init__(self, fk):
+        self.fk = fk
+
+    def batch_loss_and_grad(self, weights, X, y, mask=None):
+        staged = self.fk.stage_dense(X, y, mask)
+        loss, grad = margin_f64(weights, staged)
+        return loss, grad, staged.n_valid
+
+
+def stream_path(port, fk, streaming, smi, host, solo, launches):
+    """Phase 32: phase 5's data from pinned host memory through
+    ``StreamingDataset.from_arrays`` (STREAM_ROWS a batch, STREAM_PREFETCH
+    ahead), ``make_streaming_smooth(FusedLogisticGradient())`` and
+    ``run_agd_host`` at phase 5's settings capped at STREAM_ITERS: every
+    launch in the stream mode, one a batch a pass; its first evaluation
+    and one at phase 5's weights held to f64 sums over the same stream,
+    its loss history to phase 5's over their common iterations (rtol
+    1e-4); pass seconds, stall share, host-to-device GB/s beside plain
+    pinned copies of one batch and of the whole pass back to back
+    (``copy_yardstick``), the kernel's device ms a batch and the card's
+    peak allocation, which must stay under (prefetch + 2) batches + 1
+    GB."""
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+
+    t_phase = time.perf_counter()
+    Xh, yh = host["X"], host["y"]
+    n, d = Xh.shape
+    batches = -(-n // STREAM_ROWS)
+    batch_bytes = STREAM_ROWS * d * Xh.element_size()
+    ds = streaming.StreamingDataset.from_arrays(Xh, yh, STREAM_ROWS)
+    one_copy, pass_copy, (dX, dy) = copy_yardstick(Xh, yh, STREAM_ROWS)
+    gradient = port.LogisticGradient()
+    staged = fk.stage_dense(dX, dy)
+    w_solo = solo[0].weights
+    kernel_device_ms = device_ms(lambda: fk.fused_margin_loss_grad(
+        gradient, w_solo, staged))
+    plan = fk.launch_shape(dX)
+    del staged, dX, dy
+    torch.cuda.empty_cache()
+
+    fused = counting(port.FusedLogisticGradient)()
+    stats = []
+    sm, sl = streaming.make_streaming_smooth(
+        fused, ds, prefetch=STREAM_PREFETCH, pass_stats=stats)
+    px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), REG)
+    cfg = port.AGDConfig(convergence_tol=TOL, num_iterations=STREAM_ITERS)
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fk.reset_launch_counts()
+    res, fit_s = timed(lambda: port.run_agd_host(sm, px, rv, w0, cfg,
+                                                 smooth_loss=sl))
+    launches_fit = fk.launch_count
+    evaluations_fit = fused.evaluations  # batch calls: one a batch a pass
+    modes = margin_modes(fk)
+    other = fk.lanes_launch_count + fk.softmax_launch_count
+    record_margin_path(fk, launches, "stream_path")
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    fit_stats = list(stats)
+
+    # the first evaluation (at w0) and one at phase 5's weights against
+    # f64 sums over the same stream
+    sm64, _ = streaming.make_streaming_smooth(_F64Sums(fk), ds,
+                                              prefetch=STREAM_PREFETCH)
+    errs = {}
+    for name, w in (("first_evaluation", w0), ("at_phase5_weights",
+                                               w_solo)):
+        f, g = sm(w)
+        f64, g64 = sm64(w)
+        errs[name] = hold(f, g, f64, g64, f"stream_path {name} vs f64 sums")
+
+    hist, ref = res.loss_history, solo[1]
+    n_common = min(len(hist), len(ref))
+    pass_bytes = Xh.numel() * Xh.element_size() + n * 4
+    report = pass_report(fit_stats)
+    checks = {
+        "one_launch_a_batch_a_pass":
+            launches_fit == batches * len(fit_stats) == evaluations_fit > 0,
+        "every_launch_stream": modes == {"stream": launches_fit}
+        and plan.mode == "stream",
+        "no_other_kernel": other == 0,
+        "every_pass_every_row": all(s["rows"] == n and s["batches"]
+                                    == batches for s in fit_stats),
+        "history_rtol_1e-4_vs_phase5": bool(np.allclose(
+            hist[:n_common], ref[:n_common], rtol=1e-4, atol=0.0)),
+        "iterations": res.num_iters == STREAM_ITERS,
+        "finite": bool(np.isfinite(hist).all()
+                       and torch.isfinite(res.weights).all()),
+        "peak_under_prefetch_plus_2_batches_plus_1GB":
+            peak_gb * 1e9 < (STREAM_PREFETCH + 2) * batch_bytes + 1e9,
+        "direct_copies_only": all(
+            s["h2d_bytes"] == pass_bytes and s["staged_copies"] == 0
+            for s in fit_stats)}
+    out = {"shape": [n, d], "batch_rows": STREAM_ROWS,
+           "last_batch_rows": n - (batches - 1) * STREAM_ROWS,
+           "batches": batches, "prefetch": STREAM_PREFETCH,
+           "mem_available_gb": host["mem_available_gb"],
+           "pin_s": host["pin_s"], "d2h_s": host["d2h_s"],
+           "fit_s": fit_s, "num_iters": res.num_iters,
+           "num_backtracks": res.num_backtracks,
+           "batch_evaluations": evaluations_fit, "launches": launches_fit,
+           "modes": modes, "plan": list(plan[:5]),
+           "loss_history": hist.tolist(),
+           "phase5_loss_history": ref[:n_common].tolist(),
+           "max_hist_rel_diff_vs_phase5": float(np.max(
+               np.abs(hist[:n_common] - ref[:n_common])
+               / np.abs(ref[:n_common]))),
+           "vs_f64": {k: {"loss_rel_err": v[0], "grad_max_abs_err": v[1]}
+                      for k, v in errs.items()},
+           **report,
+           "pass_bytes": pass_bytes,
+           "one_copy_gb_per_s": one_copy,
+           "pass_copy_gb_per_s": pass_copy,
+           "pass_copy_s_best": pass_bytes / (max(pass_copy) * 1e9),
+           "pass_s_over_pass_copy_s_best": report["pass_s_mean"]
+           / (pass_bytes / (max(pass_copy) * 1e9)),
+           "kernel_device_ms_per_batch": kernel_device_ms,
+           "kernel_share_of_pass": batches * sum(kernel_device_ms.values())
+           / 1e3 / report["pass_s_mean"] if kernel_device_ms else None,
+           "peak_gb": peak_gb,
+           "peak_limit_gb": ((STREAM_PREFETCH + 2) * batch_bytes + 1e9)
+           / 1e9,
+           "dataset_gb": pass_bytes / 1e9}
+    finish("stream_path", out, checks, t_phase, smi)
+    return {"kernel_device_ms_per_batch": kernel_device_ms,
+            "pass_s_mean": report["pass_s_mean"]}
+
+
+def stream_sweep(port, fk, streaming, smi, host, sweep_ref, lbfgs_ref,
+                 launches):
+    """Phase 33, on phase 32's stream: ``streaming_sweep`` over
+    SWEEP_REGS through ``FusedLogisticGradient`` capped at STREAM_ITERS,
+    every launch in the lanes kernel's ``lanes_mma`` mode at K = 8, one a
+    batch a pass, each lane held to phase 22's in-memory sweep over
+    common iterations (rtol 1e-4); then ``streaming_lbfgs_sweep`` over
+    the same strengths, each lane held to phase 27's ``LBFGS.sweep``
+    over common iterations."""
+    t_phase = time.perf_counter()
+    Xh, yh = host["X"], host["y"]
+    n, d = Xh.shape
+    k = len(SWEEP_REGS)
+    batches = -(-n // STREAM_ROWS)
+    ds = streaming.StreamingDataset.from_arrays(Xh, yh, STREAM_ROWS)
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+    stats = []
+    fused = counting_lanes(port.FusedLogisticGradient)()
+    fk.reset_launch_counts()
+    res, sweep_s = timed(lambda: port.streaming_sweep(
+        ds, fused, port.SquaredL2Updater(), SWEEP_REGS,
+        num_iterations=STREAM_ITERS, convergence_tol=TOL,
+        initial_weights=w0, pass_stats=stats))
+    lanes_launches = fk.lanes_launch_count
+    modes = {m: c for m, c in fk.lanes_mode_launches.items() if c}
+    other = fk.launch_count + fk.softmax_launch_count
+    launches["stream_sweep"] = lanes_launches
+    launches.setdefault("lanes_modes", {})["stream_sweep"] = modes
+    checks = {"one_lanes_launch_a_batch_a_pass":
+              lanes_launches == batches * len(stats) == fused.rounds > 0,
+              "every_launch_lanes_mma": modes == {"lanes_mma":
+                                                  lanes_launches},
+              "no_other_kernel": other == 0}
+    diffs = []
+    for i in range(k):
+        hist = res.loss_history[:int(res.num_iters[i]), i]
+        ref = _Lane(sweep_ref, i).hist
+        m = min(len(hist), len(ref))
+        checks[f"lane_{i}_history_rtol_1e-4_vs_phase22"] = bool(
+            np.allclose(hist[:m], ref[:m], rtol=1e-4, atol=0.0))
+        diffs.append(float(np.max(np.abs(hist[:m] - ref[:m])
+                                  / np.abs(ref[:m]))))
+    checks["finite"] = bool(torch.isfinite(res.weights).all()
+                            and not res.aborted_non_finite.any())
+    out = {"shape": [n, d], "regs": SWEEP_REGS, "batch_rows": STREAM_ROWS,
+           "iterations": STREAM_ITERS, "sweep_s": sweep_s, "rounds": fused.rounds,
+           "launches": lanes_launches, "modes": modes,
+           "num_iters": res.num_iters.tolist(),
+           "max_hist_rel_diff_vs_phase22_by_lane": diffs,
+           **pass_report(stats)}
+
+    lstats = []
+    fused_l = counting_lanes(port.FusedLogisticGradient)()
+    fk.reset_launch_counts()
+    lres, lbfgs_s = timed(lambda: port.streaming_lbfgs_sweep(
+        ds, fused_l, port.SquaredL2Updater(), SWEEP_REGS,
+        num_iterations=STREAM_ITERS, initial_weights=w0,
+        pass_stats=lstats))
+    l_launches = fk.lanes_launch_count
+    l_modes = {m: c for m, c in fk.lanes_mode_launches.items() if c}
+    l_other = fk.launch_count + fk.softmax_launch_count
+    launches["stream_lbfgs_sweep"] = l_launches
+    launches["lanes_modes"]["stream_lbfgs_sweep"] = l_modes
+    checks.update({
+        "lbfgs_one_lanes_launch_a_batch_a_round":
+            l_launches == batches * lres.eval_rounds == batches
+            * len(lstats) > 0,
+        "lbfgs_every_launch_lanes_mma": l_modes == {"lanes_mma":
+                                                    l_launches},
+        "lbfgs_no_other_kernel": l_other == 0})
+    l_diffs, l_evals = [], []
+    for i in range(k):
+        hist = lres.loss_history[i, :int(lres.num_iters[i]) + 1]
+        ref = _LbfgsLane(lbfgs_ref, i)
+        ref_hist = ref.loss_history[:int(ref.num_iters) + 1].double().numpy()
+        m = min(len(hist), len(ref_hist))
+        checks[f"lbfgs_lane_{i}_history_rtol_1e-4_vs_phase27"] = bool(
+            np.allclose(hist[:m], ref_hist[:m], rtol=1e-4, atol=0.0))
+        l_diffs.append(float(np.max(np.abs(hist[:m] - ref_hist[:m])
+                                    / np.abs(ref_hist[:m]))))
+        l_evals.append([int(lres.num_fn_evals[i]), 1 + int(
+            ref.diag_evals[:int(lres.num_iters[i])].sum())])
+    checks["lbfgs_finite"] = bool(torch.isfinite(lres.weights).all()
+                                  and not lres.aborted_non_finite.any())
+    out.update({"lbfgs_s": lbfgs_s, "lbfgs_eval_rounds": lres.eval_rounds,
+                "lbfgs_launches": l_launches, "lbfgs_modes": l_modes,
+                "lbfgs_num_iters": lres.num_iters.tolist(),
+                "lbfgs_max_hist_rel_diff_vs_phase27_by_lane": l_diffs,
+                "lbfgs_evaluations_vs_phase27_same_iterations": l_evals,
+                **pass_report(lstats, "lbfgs_")})
+    finish("stream_sweep", out, checks, t_phase, smi)
+
+
+def split_libsvm(path, parts, out_dir):
+    """``path`` cut at line ends into ``parts`` files of about equal
+    size; returns their paths."""
+    with open(path, "rb") as f:
+        data = f.read()
+    cuts = [0]
+    for i in range(1, parts):
+        at = data.find(b"\n", len(data) * i // parts)
+        cuts.append(len(data) if at < 0 else at + 1)
+    cuts.append(len(data))
+    paths = []
+    for i in range(parts):
+        p = os.path.join(out_dir, f"part-{i:05d}")
+        with open(p, "wb") as f:
+            f.write(data[cuts[i]:cuts[i + 1]])
+        paths.append(p)
+    return paths
+
+
+def stream_libsvm(port, streaming, smi, path, data, Xf, cfg, launches):
+    """Phase 34, inside phase 11 on its file: phase 10's rcv1-like data
+    cut into STREAM_PARTS LIBSVM part files, streamed through
+    ``from_libsvm_parts`` (STREAM_PART_BATCH_ROWS a batch, STREAM_PREFETCH
+    ahead) for a STREAM_LIBSVM_ITERS-iteration logistic AGD fit through
+    ``run_agd_host``, held to the same fit of the parsed arrays in memory
+    (``run``) over common iterations (rtol 1e-4); the parse MB/s of one
+    part, the passes' MB/s and stall share.  CSR runs the sparse
+    products: no kernel launches."""
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+    from spark_agd_tpu_torch.ops import fused_kernels as fk
+
+    t_phase = time.perf_counter()
+    d = cfg["d"]
+    t0 = time.perf_counter()
+    paths = split_libsvm(path, STREAM_PARTS, os.path.dirname(path))
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    port.load_libsvm(paths[0], n_features=d)
+    parse_s = time.perf_counter() - t0
+    part_mb = os.path.getsize(paths[0]) / 1e6
+    file_mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    stats = []
+    ds = streaming.StreamingDataset.from_libsvm_parts(
+        paths, n_features=d, batch_rows=STREAM_PART_BATCH_ROWS)
+    sm, sl = streaming.make_streaming_smooth(
+        port.LogisticGradient(), ds, prefetch=STREAM_PREFETCH,
+        pass_stats=stats)
+    px, rv = smooth_lib.make_prox(port.L2Prox(), cfg["reg"])
+    agd_cfg = port.AGDConfig(convergence_tol=TOL,
+                             num_iterations=STREAM_LIBSVM_ITERS)
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+    fk.reset_launch_counts()
+    res, fit_s = timed(lambda: port.run_agd_host(sm, px, rv, w0, agd_cfg,
+                                                 smooth_loss=sl))
+    launched = fk.launch_count + fk.lanes_launch_count \
+        + fk.softmax_launch_count
+    launches["stream_libsvm"] = launched
+    launches.setdefault("modes", {})["stream_libsvm"] = {}
+    labels = torch.from_numpy(data.binarized_labels().astype(np.float32))
+    _, ref, ref_res = port.run(
+        (Xf, labels), port.LogisticGradient(), port.L2Prox(),
+        reg_param=cfg["reg"], num_iterations=STREAM_LIBSVM_ITERS,
+        convergence_tol=TOL, initial_weights=w0, return_result=True)
+    hist = res.loss_history
+    m = min(len(hist), len(ref))
+    rows = len(data.labels)
+    checks = {"no_kernel_launch": launched == 0,
+              "every_pass_every_row": all(s["rows"] == rows
+                                          for s in stats),
+              "history_rtol_1e-4_vs_in_memory": bool(np.allclose(
+                  hist[:m], ref[:m], rtol=1e-4, atol=0.0)),
+              "iterations": res.num_iters == int(ref_res.num_iters)
+              == STREAM_LIBSVM_ITERS,
+              "finite": bool(np.isfinite(hist).all()
+                             and torch.isfinite(res.weights).all())}
+    report = pass_report(stats)
+    out = {"rows": rows, "features": d, "parts": STREAM_PARTS,
+           "batch_rows": STREAM_PART_BATCH_ROWS,
+           "prefetch": STREAM_PREFETCH, "file_mb": file_mb,
+           "split_s": split_s, "parse_mb_per_s_one_part": part_mb / parse_s,
+           "pass_mb_per_s": file_mb / report["pass_s_mean"],
+           "fit_s": fit_s, "num_iters": res.num_iters,
+           "loss_history": hist.tolist(), "in_memory_loss_history":
+           [float(v) for v in ref[:m]],
+           "max_hist_rel_diff": float(np.max(np.abs(hist[:m] - ref[:m])
+                                             / np.abs(ref[:m]))),
+           **report}
+    finish("stream_libsvm", out, checks, t_phase, smi)
+
+
 def main(argv):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card.")
@@ -4022,7 +4486,7 @@ def main(argv):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import spark_agd_tpu_torch as port
     from spark_agd_tpu_torch import native
-    from spark_agd_tpu_torch.data import device_synth
+    from spark_agd_tpu_torch.data import device_synth, streaming
     from spark_agd_tpu_torch.models import glm
     from spark_agd_tpu_torch.ops import fused_kernels as fk, losses, sparse
 
@@ -4070,22 +4534,36 @@ def main(argv):
     # the other, each followed by L-BFGS and the lanes on the same data
     launches = {}  # each path's kernel launches, for the kernels line
     lanes = {}
+    # phases 22 and 27's results and phase 5's data in pinned host memory
+    # with its fit, for the streamed phases 32-33
+    sweep_ref, lbfgs_ref, flagship = {}, {}, {}
 
     def on_flagship(X, y, solo):
         lbfgs_path(port, fk, smi, X, y, launches)
         lanes.update(sweep_path(port, fk, losses, smi, X, y, solo,
-                                launches))
+                                launches, keep=sweep_ref))
         torch.cuda.empty_cache()
-        lbfgs_sweep_path(port, fk, smi, X, y, launches)
+        lbfgs_sweep_path(port, fk, smi, X, y, launches, keep=lbfgs_ref)
         torch.cuda.empty_cache()
         cv_path(port, fk, glm, smi, X, y, launches)
         torch.cuda.empty_cache()
+        flagship.update(host=pinned_copy(streaming, X, y), solo=solo)
 
     def on_softmax(Xa, y):
         softmax_lbfgs_path(port, fk, glm, smi, Xa, y, launches)
         softmax_sweep(port, fk, glm, smi, Xa, y, launches)
 
     margin = margin_path(port, fk, losses, device_synth, on_flagship)
+    torch.cuda.empty_cache()
+    # 32-33. the same data streamed from pinned host memory, the card's
+    # copy freed: the fit, then the AGD and L-BFGS paths
+    stream = stream_path(port, fk, streaming, smi, flagship["host"],
+                         flagship["solo"], launches)
+    stream_sweep(port, fk, streaming, smi, flagship["host"],
+                 sweep_ref.pop("res"), lbfgs_ref.pop("res"), launches)
+    for t in (flagship["host"]["X"], flagship["host"]["y"]):
+        streaming.unpin_host(t)
+    flagship.clear()
     torch.cuda.empty_cache()
     softmax = softmax_path(port, fk, device_synth, on_softmax)
     torch.cuda.empty_cache()
@@ -4097,7 +4575,10 @@ def main(argv):
     rcv1 = sparse_path(port, fk, sparse, device_synth, glm, "rcv1_path",
                        RCV1, glm.LogisticRegressionWithAGD,
                        port.LogisticGradient, port.L2Prox)
-    phase_libsvm(port, sparse, native, rcv1)
+    # 34 (inside 11). the file cut into part files and streamed
+    phase_libsvm(port, sparse, native, rcv1, lambda path, data, Xf:
+                 stream_libsvm(port, streaming, smi, path, data, Xf,
+                               rcv1["cfg"], launches))
     rcv1_lbfgs(port, fk, sparse, glm, smi, rcv1)
     rows = {"rcv1_like": rcv1["row"]}
     del rcv1
@@ -4150,7 +4631,8 @@ def main(argv):
 
     # 20. the kernels line, the card, the result
     paths = ("lbfgs_path", "gd_gate", "mid_path", "epsilon_path",
-             "linreg_path", "wide_path", "snp_path")
+             "linreg_path", "wide_path", "snp_path", "stream_path",
+             "stream_libsvm")
     margin["launches_by_path"] = {"main_path": margin["launches"],
                                   **{p: launches[p] for p in paths}}
     margin["modes_by_path"] = {"main_path": margin.pop("main_path_modes"),
@@ -4168,7 +4650,7 @@ def main(argv):
             "two_matmuls_device_ms")} | {"shape": [N_MAIN, D_MAIN]},
         "stream_epsilon": epsilon, "narrow": narrow, "warp_rows": mid,
         "cluster": wide, "grid": snp, "grid_past_cluster_reach": wide_grid,
-        "two_pass": wide_two_pass}
+        "two_pass": wide_two_pass, "stream_streamed": stream}
     softmax_paths = ("softmax_lbfgs_path", "softmax_sweep", "softmax_wide")
     softmax["launches_by_path"] = {"softmax_path": softmax["launches"],
                                    **{p: launches[p] for p in softmax_paths}}
@@ -4187,11 +4669,14 @@ def main(argv):
             "grad_max_abs_err_vs_f64")}
             for name, row in wide_softmax.items()}}
     lanes_paths = ("sweep_path", "cv_path", "lbfgs_sweep_path",
-                   "epsilon_sweep", "wide_sweep")
+                   "epsilon_sweep", "wide_sweep", "stream_sweep",
+                   "stream_lbfgs_sweep")
     lanes["launches_by_path"] = {p: launches[p] for p in lanes_paths}
     lanes["modes_by_path"] = {p: launches["lanes_modes"][p]
                               for p in ("sweep_path", "lbfgs_sweep_path",
-                                        "epsilon_sweep", "wide_sweep")}
+                                        "epsilon_sweep", "wide_sweep",
+                                        "stream_sweep",
+                                        "stream_lbfgs_sweep")}
     # each mode's numbers at a shape of a path that runs it: lanes_mma's
     # at the main path's (the entry's own), lanes_cluster's at epsilon's,
     # lanes_two_pass's at phase 30's (and one past each reach)

@@ -17,10 +17,14 @@ L5    public API                  ``AcceleratedGradientDescent``, ``run``,
                                   ``make_runner``, ``run_minibatch_sgd``,
                                   ``LBFGS``, ``run_lbfgs``; the lanes:
                                   ``sweep``, ``cross_validate``,
-                                  ``LBFGS.sweep`` (``api``)
+                                  ``LBFGS.sweep``; streamed:
+                                  ``streaming_sweep``,
+                                  ``streaming_lbfgs_sweep`` (``api``)
 L4    optimizer core              ``core.agd.run_agd``, ``core.gd``,
                                   ``core.lbfgs`` (L-BFGS, OWL-QN) and
                                   ``core.host_lbfgs`` (Python loops);
+                                  ``core.host_agd.run_agd_host`` (the
+                                  streamed driver);
                                   ``core.host_agd`` and
                                   ``core.lbfgs.run_lanes`` (K lanes in
                                   lock-step); ``core.prng`` (JAX's
@@ -28,10 +32,17 @@ L4    optimizer core              ``core.agd.run_agd``, ``core.gd``,
 L3    math plugins                ``ops.losses`` (Gradient), ``ops.prox``
                                   (Updater), ``ops.fused_kernels`` (CUDA),
                                   ``ops.sparse`` (CSRMatrix products)
+L2    data plane                  ``data.streaming`` (macro-batches
+                                  through pinned memory on a side
+                                  stream, ``StreamingDataset``,
+                                  ``fold_stream``), ``data.ingest``,
+                                  ``resilience.retry``/``errors``
 L1    data                        ``data.libsvm`` (+ ``native`` C++ parser),
                                   ``data.synthetic``, ``data.device_synth``
 L0    local math                  ``core.tvec`` tensor / tree algebra;
-                                  ``utils.checkpoint.atomic_savez``
+                                  ``utils.checkpoint.atomic_savez``;
+                                  ``utils.logging`` and ``obs.schema``
+                                  (log lines and run records)
 ====  ==========================  ===========================================
 
 Entry points run on the current CUDA device unless the caller passes
@@ -83,6 +94,8 @@ from .api import (  # noqa: F401
     run_lbfgs,
     run_minibatch_agd,
     run_minibatch_sgd,
+    streaming_lbfgs_sweep,
+    streaming_sweep,
     sweep,
     sweep_warm_state,
 )
@@ -96,9 +109,11 @@ from .core.lbfgs import (  # noqa: F401
 )
 from .core.host_agd import (  # noqa: F401
     HostAGDMultiResult,
+    HostAGDResult,
     HostMultiWarm,
     make_prox_multi,
     multi_warm_state,
+    run_agd_host,
     run_agd_host_multi,
 )
 from .core.host_lbfgs import (  # noqa: F401
@@ -115,4 +130,10 @@ from .models.mlp import (  # noqa: F401
     MLPClassifierWithAGD,
     MLPModel,
     mlp_gradient,
+)
+from . import obs  # noqa: F401
+from .data.streaming import (  # noqa: F401
+    StreamingDataset,
+    make_streaming_eval_multi,
+    make_streaming_smooth,
 )

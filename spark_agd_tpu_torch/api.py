@@ -12,17 +12,20 @@ elastic-net updaters to OWL-QN); and the lanes: the regularization paths
 cross-validation (``cross_validate``, ``make_cv_runner``, ``CVResult``),
 K fits in lock-step through ``core.host_agd`` and
 ``core.lbfgs.run_lanes`` where the JAX package ``vmap``s its fused
-loops.  Data is ``(X, y)`` or ``(X, y, mask)``, as
-tensors or numpy arrays, with X dense or an ``ops.sparse.CSRMatrix``;
-it is placed on the run's device once.
+loops; and the streamed paths over data larger than the card
+(``streaming_sweep``, ``streaming_lbfgs_sweep``, over a
+``data.streaming.StreamingDataset``).  Data is ``(X, y)`` or ``(X, y,
+mask)``, as tensors or numpy arrays, with X dense or an
+``ops.sparse.CSRMatrix``; it is placed on the run's device once.
 
 The entry points run on the current CUDA device unless the caller passes
 ``device=`` (``"cpu"`` for the CPU); with no CUDA device and no explicit
 device they raise.  ``dist_mode=`` is validated and, with no mesh,
-inert, as in the JAX package.  Meshes, the supervised path
-(``resilience=``, ``checkpointer=``, ``journal=``), telemetry,
-``verbose=True`` and the sharded update are not in this slice: asking
-for them raises ``NotImplementedError``.
+inert, as in the JAX package.  ``verbose=True`` logs the fit's
+per-iteration lines through ``utils.logging.log_result``.  Meshes, the
+supervised path (``resilience=``, ``checkpointer=``, ``journal=``),
+telemetry and the sharded update are not in this slice: asking for them
+raises ``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -34,27 +37,12 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from ._later import reject_later
 from .core import agd, gd, host_agd, lbfgs as lbfgs_lib, prng
 from .core import smooth as smooth_lib, tvec
 from .ops.losses import Gradient
 from .ops.prox import IdentityProx, Prox
 from .ops.sparse import CSRMatrix
-
-_LATER = "is not ported yet: the PyTorch port runs single-device fits only"
-
-
-def _reject_later(**options):
-    """Raise for an option of the JAX API this slice does not carry."""
-    for name, value in options.items():
-        if name == "mesh":
-            if value is not None and value is not False:
-                raise NotImplementedError(
-                    f"mesh= {_LATER} (the mesh path, parallel/, arrives in "
-                    f"a later slice); pass mesh=None or mesh=False")
-        elif value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}= {_LATER} (it arrives in a later slice)")
-
 
 _DIST_MODES = ("shard_map", "auto")
 
@@ -130,8 +118,8 @@ def make_runner(
     """Build ``fit(initial_weights) -> AGDResult`` over data placed and
     prepared once (``gradient.prepare`` runs here, not per fit)."""
     _check_dist_mode(dist_mode)
-    _reject_later(mesh=mesh, telemetry=telemetry,
-                  sharded_update=sharded_update)
+    reject_later(mesh=mesh, telemetry=telemetry,
+                 sharded_update=sharded_update)
     dev = resolve_device(device)
     X, y, mask = _normalize_data(data)
     build, dargs = smooth_lib.make_smooth_staged(
@@ -180,16 +168,14 @@ def run(
     """Functional entry point, signature-parity with reference ``run``.
     Returns ``(weights, loss_history)`` with ``loss_history`` a numpy
     array of one entry per executed iteration; ``return_result=True``
-    also returns the full ``AGDResult``."""
+    also returns the full ``AGDResult``.  ``verbose=True`` logs the
+    per-iteration lines and the reference's completion line
+    (``utils.logging.log_result``, on the ``spark_agd_tpu`` logger)
+    after the fit."""
     if initial_weights is None:
         raise ValueError("initial_weights is required")
-    if verbose:
-        raise NotImplementedError(
-            "verbose=True is not ported yet: its log lines come from "
-            "utils/logging.py, which needs obs/schema.py (the obs slice "
-            "arrives in a later slice); pass verbose=False")
-    _reject_later(resilience=resilience, checkpointer=checkpointer,
-                  journal=journal)
+    reject_later(resilience=resilience, checkpointer=checkpointer,
+                 journal=journal)
     fit = make_runner(
         data, gradient, updater, convergence_tol=convergence_tol,
         num_iterations=num_iterations, reg_param=reg_param, l0=l0,
@@ -199,6 +185,10 @@ def run(
     result = fit(initial_weights)
     n = int(result.num_iters)
     loss_history = result.loss_history[:n].numpy()
+    if verbose:
+        from .utils import logging as logging_utils
+
+        logging_utils.log_result(result)
     if return_result:
         return result.weights, loss_history, result
     return result.weights, loss_history
@@ -297,7 +287,7 @@ def make_sweep_runner(
     ``AGDWarmState`` (``sweep_warm_state``) continues every lane.
     Single device only in this slice (``mesh`` takes ``None`` or
     ``False``)."""
-    _reject_later(mesh=mesh)
+    reject_later(mesh=mesh)
     cfg = agd.AGDConfig(
         convergence_tol=convergence_tol, num_iterations=num_iterations,
         l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
@@ -482,7 +472,7 @@ def _build_cv(data, gradient, updater, n_folds, convergence_tol,
     reg_params)`` runs the lane grid."""
     if n_folds < 2:
         raise ValueError("n_folds must be >= 2")
-    _reject_later(mesh=mesh)
+    reject_later(mesh=mesh)
     cfg = agd.AGDConfig(
         convergence_tol=convergence_tol, num_iterations=num_iterations,
         l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
@@ -606,7 +596,7 @@ class AcceleratedGradientDescent:
 
     def set_mesh(self, mesh):
         """Only ``None`` and ``False`` (single device) in this slice."""
-        _reject_later(mesh=mesh)
+        reject_later(mesh=mesh)
         self._mesh = mesh
         return self
 
@@ -729,7 +719,7 @@ def run_minibatch_sgd(
     this slice (``mesh`` takes ``None`` or ``False``)."""
     if initial_weights is None:
         raise ValueError("initial_weights is required")
-    _reject_later(mesh=mesh)
+    reject_later(mesh=mesh)
     dev = resolve_device(device)
     X, y, mask = _normalize_data(data)
     res = gd.run_minibatch_sgd(
@@ -771,7 +761,7 @@ def make_lbfgs_runner(
             "AcceleratedGradientDescent")
     l1_coeff, extra = decomp
     _check_dist_mode(dist_mode)
-    _reject_later(mesh=mesh, telemetry=telemetry)
+    reject_later(mesh=mesh, telemetry=telemetry)
     dev = resolve_device(device)
     X, y, mask = _normalize_data(data)
     build, dargs = smooth_lib.make_smooth_staged(
@@ -874,7 +864,7 @@ class LBFGS:
 
     def set_mesh(self, mesh):
         """Only ``None`` and ``False`` (single device) in this slice."""
-        _reject_later(mesh=mesh)
+        reject_later(mesh=mesh)
         self._mesh = mesh
         return self
 
@@ -949,7 +939,7 @@ def make_lbfgs_sweep_runner(
     result's fields gain a leading K axis; ``eval_rounds`` counts the
     rounds.  Single device only in this slice (``mesh`` takes ``None`` or
     ``False``)."""
-    _reject_later(mesh=mesh)
+    reject_later(mesh=mesh)
     lbfgs_lib.check_smooth_penalty(updater, 1.0)
     cfg = lbfgs_lib.LBFGSConfig(
         num_corrections=num_corrections, convergence_tol=convergence_tol,
@@ -961,28 +951,151 @@ def make_lbfgs_sweep_runner(
     sm, _ = smooth_lib.lanes_smooth(gradient, *dargs)
 
     def fit(initial_weights, reg_params):
-        reg_params = _check_grid_fit(updater, reg_params,
-                                     "make_lbfgs_sweep_runner")
-        # Python floats (f64): each lane's penalty at the precision a solo
-        # fit's reg_param carries (the JAX runner takes the default float
-        # dtype for the same reason)
-        regs = np.asarray(reg_params, np.float64)
-        if regs.ndim != 1:
-            raise ValueError("reg_params must be 1-D")
-        regs = [float(r) for r in regs]
+        regs = _lbfgs_regs(_check_grid_fit(updater, reg_params,
+                                           "make_lbfgs_sweep_runner"))
         w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
-
-        def objective_multi(W):
-            fs, G = sm(W)
-            pen = [updater.smooth_penalty(tvec.lane(W, i), r)
-                   for i, r in enumerate(regs)]
-            return (fs + torch.stack([torch.as_tensor(p[0]).to(fs)
-                                      for p in pen]),
-                    tvec.stack_lanes([tvec.add(tvec.lane(G, i), p[1])
-                                      for i, p in enumerate(pen)]))
-
         return lbfgs_lib.run_lbfgs_lanes(
-            objective_multi, _stack_lanes(w0, len(regs)), cfg)
+            _penalized_lanes(sm, updater, regs),
+            _stack_lanes(w0, len(regs)), cfg)
 
     fit.data_args = dargs
     return fit
+
+
+def _lbfgs_regs(reg_params):
+    """An L-BFGS path's strengths as Python floats (f64): each lane's
+    penalty at the precision a solo fit's reg_param carries (the JAX
+    runners take the default float dtype for the same reason)."""
+    regs = np.asarray(reg_params, np.float64)
+    if regs.ndim != 1:
+        raise ValueError("reg_params must be 1-D")
+    return [float(r) for r in regs]
+
+
+def _penalized_lanes(smooth_multi, updater, regs):
+    """``objective_multi(W)`` of an L-BFGS path: each lane's smooth value
+    and gradient plus its smooth penalty at its strength."""
+
+    def objective_multi(W):
+        fs, G = smooth_multi(W)
+        pen = [updater.smooth_penalty(tvec.lane(W, i), r)
+               for i, r in enumerate(regs)]
+        return (fs + torch.stack([torch.as_tensor(p[0]).to(fs)
+                                  for p in pen]),
+                tvec.stack_lanes([tvec.add(tvec.lane(G, i), p[1])
+                                  for i, p in enumerate(pen)]))
+
+    return objective_multi
+
+
+# ---------------------------------------------------------------------------
+# The streamed paths: data larger than the card (api.py:1108, :1579)
+# ---------------------------------------------------------------------------
+
+
+def streaming_sweep(
+    dataset,
+    gradient: Gradient,
+    updater: Prox,
+    reg_params,
+    convergence_tol: float = 1e-4,
+    num_iterations: int = 100,
+    initial_weights: Any = None,
+    l0: float = 1.0,
+    l_exact: float = math.inf,
+    beta: float = 0.5,
+    alpha: float = 0.9,
+    may_restart: bool = True,
+    *,
+    mesh=None,
+    pad_to=None,
+    csr_nnz_per_shard=None,
+    loss_mode: str = "x",
+    device=None,
+    pass_stats: list | None = None,
+):
+    """Train a K-strength regularization path over a streamed dataset
+    (a ``data.streaming.StreamingDataset``): one stream read per trial
+    for all lanes.  The K lanes run the host driver in lock-step
+    (``core.host_agd.run_agd_host_multi``) over a multi-lane streamed
+    smooth (``data.streaming.make_streaming_eval_multi``): per
+    macro-batch the K lanes are one ``gradient.lanes_loss_and_grad``
+    call, one launch of the lanes kernel through ``FusedMarginGradient``.
+
+    Returns a ``core.host_agd.HostAGDMultiResult`` (a leading K axis per
+    field; ``loss_history[:, k][:num_iters[k]]`` is lane k's history).
+    Port-only keywords: ``device`` (the current CUDA device by default,
+    ``"cpu"`` for the CPU) and ``pass_stats`` (a list that receives each
+    pass's stats).
+    ``mesh=`` and ``csr_nnz_per_shard=`` come with the mesh slice and
+    raise."""
+    from .data import streaming as streaming_lib
+
+    if initial_weights is None:
+        raise ValueError("initial_weights is required")
+    reject_later(mesh=mesh, csr_nnz_per_shard=csr_nnz_per_shard)
+    regs = list(reg_params)
+    dev = resolve_device(device)
+    # one placer for both evaluators: one ring of pinned staging buffers
+    sm, sl = streaming_lib._eval_multi_pair(gradient, dataset, pad_to, dev,
+                                            pass_stats)
+    pxm, rvm = host_agd.make_prox_multi(updater, regs)
+    w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
+    cfg = agd.AGDConfig(
+        convergence_tol=convergence_tol, num_iterations=num_iterations,
+        l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
+        may_restart=may_restart, loss_mode=loss_mode)
+    return host_agd.run_agd_host_multi(sm, pxm, rvm,
+                                       _stack_lanes(w0, len(regs)), cfg,
+                                       smooth_loss_multi=sl)
+
+
+def streaming_lbfgs_sweep(
+    dataset,
+    gradient: Gradient,
+    updater: Prox,
+    reg_params,
+    num_corrections: int = 10,
+    convergence_tol: float = 1e-4,
+    num_iterations: int = 100,
+    initial_weights: Any = None,
+    *,
+    grad_tol: float = 0.0,
+    mesh=None,
+    pad_to=None,
+    csr_nnz_per_shard=None,
+    device=None,
+    pass_stats: list | None = None,
+):
+    """A K-strength L-BFGS regularization path over a streamed dataset:
+    one stream read per evaluation round for all lanes.  Each lane runs
+    the solo host algorithm (``core.host_lbfgs.run_lbfgs_host``'s), the
+    lanes' pending evaluations batched into one
+    ``data.streaming.make_streaming_eval_multi`` pass, plus each lane's
+    smooth penalty.  Smooth penalties only, as in
+    :func:`make_lbfgs_sweep_runner`.
+
+    Returns a ``core.host_lbfgs.HostLBFGSMultiResult`` (a leading K axis;
+    ``eval_rounds`` counts the stream passes).  Port-only keywords as in
+    :func:`streaming_sweep`."""
+    from .core import host_lbfgs
+    from .data import streaming as streaming_lib
+
+    if initial_weights is None:
+        raise ValueError("initial_weights is required")
+    reject_later(mesh=mesh, csr_nnz_per_shard=csr_nnz_per_shard)
+    # the guard LBFGS.sweep applies: a no-penalty updater would return K
+    # identical lanes
+    regs = _lbfgs_regs(_check_grid_fit(updater, reg_params,
+                                       "streaming_lbfgs_sweep"))
+    lbfgs_lib.check_smooth_penalty(updater, 1.0)
+    dev = resolve_device(device)
+    sm_multi = streaming_lib.make_streaming_eval_multi(
+        gradient, dataset, pad_to=pad_to, device=dev, pass_stats=pass_stats)
+    w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
+    cfg = lbfgs_lib.LBFGSConfig(
+        num_corrections=num_corrections, convergence_tol=convergence_tol,
+        num_iterations=num_iterations, grad_tol=grad_tol)
+    return host_lbfgs.run_lbfgs_host_multi(
+        _penalized_lanes(sm_multi, updater, regs),
+        _stack_lanes(w0, len(regs)), cfg)

@@ -103,6 +103,7 @@ def run_agd(
     *,
     smooth_loss: Callable | None = None,
     warm: AGDWarmState | None = None,
+    on_iteration: Callable | None = None,
 ) -> AGDResult:
     """Run AGD from ``w0`` (or continue ``warm``, of which ``w0`` is then
     only the structure).
@@ -111,7 +112,8 @@ def run_agd(
     (w_new, reg_value)``; ``reg_value(w)``; ``smooth_loss(w) ->
     mean_loss`` is used by ``loss_mode='x'`` when backtracking is off
     (``beta >= 1``).  A warm run executes up to ``num_iterations``
-    further iterations."""
+    further iterations.  ``on_iteration(state_dict)`` is called after
+    every outer iteration with the continuation carry (:func:`_carry`)."""
     cfg = config
     if cfg.loss_mode not in ("x", "x_strict", "y"):
         raise ValueError(f"unknown loss_mode {cfg.loss_mode!r}")
@@ -240,6 +242,11 @@ def run_agd(
             bts = True
             n_restart += 1
         diag_restarted[it - 1] = restart
+        if on_iteration is not None:
+            on_iteration(_carry(x, z, float(theta), float(big_l), bts,
+                                prior_iters + it, float(loss),
+                                aborted=aborted, stopped=done,
+                                last=it == n))
 
     return AGDResult(
         weights=x, loss_history=loss_hist,
@@ -253,3 +260,14 @@ def run_agd(
         diag_l=diag_l, diag_theta=diag_theta, diag_step=diag_step,
         diag_restarted=diag_restarted,
     )
+
+
+def _carry(x, z, theta, big_l, bts, n_iter, loss, aborted=False,
+           stopped=False, last=False) -> dict:
+    """The on_iteration payload: the exact continuation carry + metrics.
+    ``stopped`` marks the converged final iteration; ``aborted`` the
+    non-finite one (which also stops); ``last`` the iteration-cap exit:
+    one of the three is always true on a run's final callback."""
+    return dict(x=x, z=z, theta=theta, big_l=big_l, bts=bts,
+                prior_iters=n_iter, loss=loss, aborted=aborted,
+                stopped=stopped or aborted, last=last or aborted)

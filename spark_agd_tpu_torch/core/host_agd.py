@@ -1,10 +1,19 @@
-"""K-lane lock-step AGD: the regularization path and cross-validation.
+"""Host-orchestrated AGD: the streamed driver and the K-lane lock-step.
 
-Counterpart of the multi-lane half of ``spark_agd_tpu/core/host_agd.py``
-(``HostAGDMultiResult``, ``HostMultiWarm``, ``multi_warm_state``,
-``make_prox_multi``, ``run_agd_host_multi``), and the engine under
-``api.sweep`` and ``api.cross_validate``, where the JAX package runs
-``jax.vmap`` of the fused loop (``core/agd.py``) over the lanes.
+Counterpart of ``spark_agd_tpu/core/host_agd.py``.  :func:`run_agd_host`
+(``HostAGDResult``) is the solo driver a *streamed* smooth needs
+(``data.streaming``): ``core.agd.run_agd``, whose loop already runs on
+the host, with the JAX host driver's result type (Python scalars, a
+numpy history), so at f64 the two packages take the same steps.  Its
+``on_iteration`` callback receives the continuation carry after each
+outer iteration (``utils.logging.make_host_logger`` logs from it).
+
+The rest is the multi-lane half (``HostAGDMultiResult``,
+``HostMultiWarm``, ``multi_warm_state``, ``make_prox_multi``,
+``run_agd_host_multi``), and the engine under ``api.sweep``,
+``api.cross_validate`` and ``api.streaming_sweep``, where the JAX
+package runs ``jax.vmap`` of the fused loop (``core/agd.py``) over the
+lanes.
 
 K fits of one problem run side by side, their weights stacked on a
 leading lane axis.  Each backtracking trial evaluates every lane in one
@@ -28,8 +37,60 @@ import numpy as np
 import torch
 
 from . import tvec
-from .agd import AGDConfig
+from .agd import AGDConfig, _carry, run_agd  # noqa: F401 (_carry)
 from ..ops.prox import lane_view
+
+
+class HostAGDResult(NamedTuple):
+    """Same fields as the JAX package's ``HostAGDResult``: the weights
+    and ``final_z`` on the weights' device, ``loss_history`` a float64
+    numpy array of one entry per executed iteration, the scalars Python
+    values."""
+
+    weights: Any
+    loss_history: np.ndarray
+    num_iters: int
+    aborted_non_finite: bool
+    final_l: float
+    num_backtracks: int
+    num_restarts: int
+    # continuation carry (mirrors core.agd.AGDResult)
+    final_z: Any = None
+    final_theta: float = math.inf
+    final_bts: bool = True
+    # stopped by its own criteria (not the cap, not an abort)
+    converged: bool = False
+
+
+def run_agd_host(
+    smooth: Callable,
+    prox: Callable,
+    reg_value: Callable,
+    w0: Any,
+    config: AGDConfig,
+    *,
+    smooth_loss: Callable | None = None,
+    warm=None,
+    on_iteration: Callable | None = None,
+) -> HostAGDResult:
+    """``core.agd.run_agd`` with the JAX host driver's result: Python
+    scalars and a float64 history of the executed iterations.  ``warm``
+    is a ``core.agd.AGDWarmState`` (or any object with its fields) to
+    continue a run; ``on_iteration(state_dict)`` is called after every
+    outer iteration with the full continuation carry plus that
+    iteration's loss."""
+    res = run_agd(smooth, prox, reg_value, w0, config,
+                  smooth_loss=smooth_loss, warm=warm,
+                  on_iteration=on_iteration)
+    n = int(res.num_iters)
+    return HostAGDResult(
+        weights=res.weights,
+        loss_history=res.loss_history[:n].to(torch.float64).numpy(),
+        num_iters=n, aborted_non_finite=bool(res.aborted_non_finite),
+        final_l=float(res.final_l), num_backtracks=int(res.num_backtracks),
+        num_restarts=int(res.num_restarts), final_z=res.final_z,
+        final_theta=float(res.final_theta), final_bts=bool(res.final_bts),
+        converged=bool(res.converged))
 
 
 class LaneCarry(NamedTuple):

@@ -1,1 +1,2 @@
-"""Utilities (this slice: the atomic npz writer, ``checkpoint``)."""
+"""Utilities: the atomic npz writer (``checkpoint``) and the structured
+per-iteration log lines and records (``logging``)."""

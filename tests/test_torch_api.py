@@ -28,7 +28,8 @@ def _data(n=64, d=4, seed=3):
 
 
 @pytest.mark.parametrize("name", ["run", "make_runner", "run_lbfgs",
-                                  "make_lbfgs_runner", "run_minibatch_sgd"])
+                                  "make_lbfgs_runner", "run_minibatch_sgd",
+                                  "streaming_sweep", "streaming_lbfgs_sweep"])
 def test_port_takes_every_keyword_of_the_jax_entry_point(name):
     jparams = inspect.signature(getattr(japi, name)).parameters
     tparams = inspect.signature(getattr(tapi, name)).parameters
@@ -81,15 +82,27 @@ def test_unknown_dist_mode_raises_value_error():
         opt.set_dist_mode("pmap").optimize((X, y), np.zeros(4))
 
 
-def test_verbose_raises_naming_the_obs_slice_and_false_is_accepted():
+def test_verbose_raises_naming_the_obs_slice_and_false_is_accepted(caplog):
+    """``verbose=True`` raised until ``utils/logging.py`` and
+    ``obs/schema.py`` were ported; it now logs the fit's lines (as the
+    JAX package does), and ``verbose=False`` logs nothing."""
+    import logging
+
     X, y = _data()
     kw = dict(initial_weights=np.zeros(4), num_iterations=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="obs"):
-        port.run((X, y), port.LogisticGradient(), port.L2Prox(),
-                 verbose=True, **kw)
-    w, h = port.run((X, y), port.LogisticGradient(), port.L2Prox(),
-                    verbose=False, **kw)
+    with caplog.at_level(logging.INFO, logger="spark_agd_tpu"):
+        w, h = port.run((X, y), port.LogisticGradient(), port.L2Prox(),
+                        verbose=True, **kw)
+    lines = [r.getMessage() for r in caplog.records
+             if r.name == "spark_agd_tpu"]
+    assert len(h) == 2 and len(lines) == 3
+    assert lines[0].startswith("iter=1 ")
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="spark_agd_tpu"):
+        w, h = port.run((X, y), port.LogisticGradient(), port.L2Prox(),
+                        verbose=False, **kw)
     assert len(h) == 2
+    assert not [r for r in caplog.records if r.name == "spark_agd_tpu"]
 
 
 def test_pyproject_ships_the_native_parser_sources():

@@ -1499,3 +1499,270 @@ def test_cv_fold_ids_on_the_card_equal_the_cpu_draw(cuda):
     for n in (1_000, 5_000, 3_000_000):
         got = api.fold_assignment(n, 5, 0, cuda)
         assert torch.equal(got.cpu(), api.fold_assignment(n, 5, 0, "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the streamed data plane: pinned staging, a side stream, prefetch threads
+
+
+def _stream_data(n=10_003, d=300, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    y = (rng.random(n) < 0.5).astype(np.float32)
+    return X, y
+
+
+def _streamed(ds, prefetch=0, gradient=None, stats=None):
+    from spark_agd_tpu_torch.data import streaming
+
+    return streaming.make_streaming_smooth(
+        gradient or port.FusedLogisticGradient(), ds, prefetch=prefetch,
+        pass_stats=stats)
+
+
+@pytest.mark.cuda
+def test_streamed_pass_same_bits_20_times_with_the_ring_reused(cuda):
+    from spark_agd_tpu_torch.data import streaming
+
+    X, y = _stream_data()
+    ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=2048)
+    stats = []
+    sm, sl = _streamed(ds, prefetch=2, stats=stats)
+    w = torch.randn(300, device=cuda) / 20
+    f0, g0 = sm(w)
+    for _ in range(19):
+        f, g = sm(w)
+        assert torch.equal(f, f0) and torch.equal(g, g0)
+    assert all(s["batches"] == 5 and s["rows"] == 10_003 for s in stats)
+    assert all(s["h2d_bytes"] >= X.nbytes for s in stats)
+
+
+@pytest.mark.cuda
+def test_streamed_prefetch_depths_give_equal_bits(cuda):
+    from spark_agd_tpu_torch.data import streaming
+
+    X, y = _stream_data(seed=1)
+    ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=1500)
+    w = torch.randn(300, device=cuda) / 20
+    outs = [_streamed(ds, prefetch=p)[0](w) for p in (0, 1, 3)]
+    for f, g in outs[1:]:
+        assert torch.equal(f, outs[0][0]) and torch.equal(g, outs[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [54, 300, 1000])
+def test_streamed_smooth_equals_the_in_memory_fused_smooth(cuda, d):
+    """A ragged tail, every launch in the mode margin_plan gives the
+    width, one launch a batch."""
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+    from spark_agd_tpu_torch.data import streaming
+
+    X, y = _stream_data(n=20_001, d=d, seed=2)
+    w = torch.randn(d, device=cuda) / d ** 0.5
+    Xd, yd = torch.from_numpy(X).to(cuda), torch.from_numpy(y).to(cuda)
+    ref_f, ref_g = smooth_lib.make_smooth(port.FusedLogisticGradient(),
+                                          Xd, yd)(w)
+    ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=4096)
+    sm, sl = _streamed(ds, prefetch=2)
+    fk.reset_launch_counts()
+    f, g = sm(w)
+    torch.cuda.synchronize()
+    mode = fk.launch_shape(Xd[:4096]).mode
+    assert fk.launch_count == 5
+    assert dict(fk.margin_mode_launches) == {mode: 5}
+    assert float(f) == pytest.approx(float(ref_f), rel=1e-5)
+    torch.testing.assert_close(g, ref_g, rtol=1e-4,
+                               atol=1e-4 * float(ref_g.abs().max()))
+    assert float(sl(w)) == pytest.approx(float(ref_f), rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_a_kernel_that_raises_mid_pass_leaves_no_thread(cuda):
+    import threading
+    import time
+
+    from spark_agd_tpu_torch.data import streaming
+
+    X, y = _stream_data(seed=3)
+    ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=1024)
+
+    class Raising(port.FusedLogisticGradient):
+        calls = 0
+
+        def batch_loss_and_grad(self, weights, X, y, mask=None):
+            Raising.calls += 1
+            if Raising.calls == 3:
+                raise RuntimeError("kernel blew up")
+            return super().batch_loss_and_grad(weights, X, y, mask)
+
+    w = torch.randn(300, device=cuda) / 20
+    sm, _ = _streamed(ds, prefetch=2, gradient=Raising())
+    with pytest.raises(RuntimeError, match="kernel blew up"):
+        sm(w)
+    deadline = time.monotonic() + 5.0
+    while time.monotonic() < deadline and any(
+            t.name == "fold-stream-prefetch" and t.is_alive()
+            for t in threading.enumerate()):
+        time.sleep(0.01)
+    assert not [t for t in threading.enumerate()
+                if t.name == "fold-stream-prefetch" and t.is_alive()]
+    f, g = sm(w)  # the next pass is right
+    ref_f, ref_g = _streamed(ds)[0](w)
+    assert torch.equal(f, ref_f) and torch.equal(g, ref_g)
+
+
+@pytest.mark.cuda
+def test_a_pinned_tensor_and_a_numpy_array_stream_the_same_bits(cuda):
+    from spark_agd_tpu_torch.data import streaming
+
+    X, y = _stream_data(seed=4)
+    Xt = streaming.pin_host(torch.from_numpy(X.copy()))
+    yt = streaming.pin_host(torch.from_numpy(y.copy()))
+    try:
+        assert Xt.is_pinned() and yt.is_pinned()
+        w = torch.randn(300, device=cuda) / 20
+        placer_direct = streaming._make_placer(cuda, None, 2)
+        ds_pinned = streaming.StreamingDataset.from_arrays(Xt, yt, 2048)
+        ds_numpy = streaming.StreamingDataset.from_arrays(X, y, 2048)
+        a = _streamed(ds_pinned, prefetch=2)[0](w)
+        b = _streamed(ds_numpy, prefetch=2)[0](w)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        # the pinned source is copied directly: no staging slot is filled
+        acc, n = streaming.fold_stream(
+            lambda w_, X_, y_, m_: (X_.sum(), torch.tensor(X_.shape[0])),
+            lambda u, v: [u[0] + v[0]], placer_direct, ds_pinned, None)
+        assert n == 10_003
+        assert placer_direct.copies["direct"] == 10
+        assert placer_direct.copies["staged"] == 0
+        assert float(acc[0]) == pytest.approx(float(X.sum(dtype=np.float64)),
+                                              rel=1e-4)
+    finally:
+        streaming.unpin_host(Xt)
+        streaming.unpin_host(yt)
+
+
+@pytest.mark.cuda
+def test_the_card_holds_at_most_prefetch_plus_two_batches(cuda):
+    from spark_agd_tpu_torch.data import streaming
+
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((64 * 8192, 256)).astype(np.float32)
+    y = (rng.random(X.shape[0]) < 0.5).astype(np.float32)
+    batch_bytes = 8192 * 256 * 4
+    ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=8192)
+    sm, _ = _streamed(ds, prefetch=2)
+    w = torch.zeros(256, device=cuda)
+    sm(w)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sm(w)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= (2 + 2) * batch_bytes + (16 << 20), peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_csc", ["lazy", True])
+def test_a_csr_stream_on_the_card_equals_the_cpu_stream(cuda, with_csc):
+    from spark_agd_tpu_torch.data import streaming
+
+    rng = np.random.default_rng(6)
+    n, d = 30_011, 5_000
+    counts = rng.integers(1, 40, n)
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    indices = rng.integers(0, d, int(indptr[-1])).astype(np.int32)
+    values = rng.standard_normal(int(indptr[-1])).astype(np.float32)
+    y = (rng.random(n) < 0.5).astype(np.float32)
+    ds = streaming.StreamingDataset.from_csr(
+        indptr, indices, values, d, y, batch_rows=4096, with_csc=with_csc)
+    w = torch.from_numpy(rng.standard_normal(d).astype(np.float32) / 10)
+    fk.reset_launch_counts()
+    f, g = streaming.make_streaming_smooth(losses.LogisticGradient(), ds,
+                                           prefetch=2)[0](w.to(cuda))
+    assert fk.launch_count == 0  # CSR goes through the sparse products
+    f_cpu, g_cpu = streaming.make_streaming_smooth(
+        losses.LogisticGradient(), ds, device="cpu")[0](w)
+    assert float(f) == pytest.approx(float(f_cpu), rel=1e-5)
+    torch.testing.assert_close(g.cpu(), g_cpu, rtol=1e-4,
+                               atol=1e-4 * float(g_cpu.abs().max()))
+
+
+@pytest.mark.cuda
+def test_streaming_sweep_on_the_card_runs_the_lanes_kernel(cuda):
+    from spark_agd_tpu_torch.data import streaming
+
+    X, y = _stream_data(seed=7)
+    ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=4096)
+    regs = [0.1, 0.01, 0.001, 1e-4]
+    stats = []
+    fk.reset_launch_counts()
+    res = port.streaming_sweep(ds, port.FusedLogisticGradient(),
+                               port.SquaredL2Updater(), regs,
+                               num_iterations=5, convergence_tol=0.0,
+                               initial_weights=torch.zeros(300),
+                               pass_stats=stats)
+    assert fk.launch_count == 0
+    assert fk.lanes_launch_count == 3 * len(stats) > 0
+    plain = port.streaming_sweep(ds, losses.LogisticGradient(),
+                                 port.SquaredL2Updater(), regs,
+                                 num_iterations=5, convergence_tol=0.0,
+                                 initial_weights=torch.zeros(300))
+    np.testing.assert_allclose(res.loss_history, plain.loss_history,
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_staging_ring_under_fast_thread_switching(cuda):
+    """The producer fills pinned slots while the consumer copies from
+    them: with the interpreter switching threads every microsecond, many
+    small batches and several depths, every pass gives the bits of the
+    single-threaded pass (a slot refilled before its copy finished would
+    change them)."""
+    import sys
+
+    from spark_agd_tpu_torch.data import streaming
+
+    X, y = _stream_data(n=6_001, d=64, seed=8)
+    ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=64)
+    w = torch.randn(64, device=cuda) / 8
+    ref_f, ref_g = _streamed(ds)[0](w)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for depth in (1, 3, 6):
+            stats = []
+            sm = _streamed(ds, prefetch=depth, stats=stats)[0]
+            for _ in range(5):
+                f, g = sm(w)
+                assert torch.equal(f, ref_f) and torch.equal(g, ref_g)
+            assert all(s["staged_copies"] == 2 * s["batches"]
+                       for s in stats)
+    finally:
+        sys.setswitchinterval(old)
+
+
+@pytest.mark.cuda
+def test_a_streaming_sweep_over_numpy_pins_one_ring(cuda, monkeypatch):
+    """The sweep's two evaluators (with and without the gradient) share
+    one placer, so a source that is not pinned registers one ring of
+    staging slots (2 at the sweeps' depth 0), not one a evaluator."""
+    from spark_agd_tpu_torch.data import streaming
+
+    registered = []
+    real = streaming.pin_host
+
+    def counting(t):
+        registered.append(t.numel())
+        return real(t)
+
+    monkeypatch.setattr(streaming, "pin_host", counting)
+    X, y = _stream_data(seed=9)
+    ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=4096)
+    stats = []
+    port.streaming_sweep(ds, port.FusedLogisticGradient(),
+                         port.SquaredL2Updater(), [0.1, 0.01],
+                         num_iterations=3, convergence_tol=0.0, beta=1.0,
+                         initial_weights=torch.zeros(300), pass_stats=stats)
+    assert stats and all(s["staged_copies"] > 0 for s in stats)
+    assert len(registered) == 2, registered

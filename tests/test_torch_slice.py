@@ -111,6 +111,9 @@ import spark_agd_tpu_torch.utils.checkpoint
 import spark_agd_tpu_torch.core.gd, spark_agd_tpu_torch.core.prng
 import spark_agd_tpu_torch.core.lbfgs, spark_agd_tpu_torch.core.host_lbfgs
 import spark_agd_tpu_torch.models.mlp
+import spark_agd_tpu_torch.data.streaming, spark_agd_tpu_torch.data.ingest
+import spark_agd_tpu_torch.core.host_agd, spark_agd_tpu_torch.utils.logging
+import spark_agd_tpu_torch.obs.schema, spark_agd_tpu_torch.resilience.retry
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m == "jax" or m.startswith("jax.")
              or m == "spark_agd_tpu" or m.startswith("spark_agd_tpu."))
