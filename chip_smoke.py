@@ -275,10 +275,45 @@ Phases, each printing one JSON line:
     ahead) for a 3-iteration logistic AGD fit through ``run_agd_host``,
     held to the same fit of the parsed arrays in memory over common
     iterations (rtol 1e-4); the parse MB/s, the passes' MB/s and the
-    stall share; CSR launches no kernel.
+    stall share; CSR launches no kernel;
+35. supervised_fit, on phase 5's data after phase 27: the flagship fit
+    under the supervisor (``ResiliencePolicy(segment_iters=5)``, an
+    ``AutoCheckpointer`` every 5 iterations keeping 2 generations): (a)
+    ``run(..., resilience=, checkpointer=)`` gives phase 5's bits
+    (weights and history); (b) ``run_agd_supervised`` under
+    ``FaultScript(device_loss_at_iter=10, nan_at_iter=20)``: one retry,
+    one rollback, the ledger as scripted, the fit ends at phase 5's loss
+    (rtol 1e-4); (c) ``FaultScript(sigterm_at_iter=15)`` raises
+    ``Preempted``, the newest generation is truncated, and the rerun
+    resumes from the generation that survives to (a)'s bits; the wall
+    seconds beside phase 5's, the checkpointer's device-to-host copy and
+    npz write ms per save and their share of the wall time; every launch
+    the margin kernel's stream mode;
+36. supervised_path, after phase 35: ``run_agd_multi_checkpointed`` over
+    phase 22's 8 strengths, stopped after 20 iterations and resumed,
+    gives lane by lane the bits of the same call run straight (every
+    launch ``lanes_mma``), with its largest difference from phase 22's
+    ``sweep``; ``run_lbfgs_checkpointed`` on the flagship split 2 + 3
+    gives the bits of the same call run straight for 5, held to phase
+    13's ``run_lbfgs`` at rtol 1e-4;
+37. supervised_stream, after phase 33 on its stream (the pinned source
+    still held): a 3-iteration ``run_agd_supervised(driver="host")``
+    over the streamed smooth, a segment an iteration, a
+    ``StreamCheckpoint`` every 4 batches, a SIGTERM from a
+    ``threading.Timer`` about half a pass into iteration 2; resumed from
+    the newest generation (iteration 2 replayed) and from the cursor's
+    (its committed batches skipped), each to the bits of phase 32's fit
+    after 3 iterations; where the signal landed and what was replayed;
+38. chaos_soak, on phase 28's data after phase 29: five seeded
+    ``ChaosCampaign``s (their faults: nan, device_loss, sigterm, fatal,
+    truncate_ckpt, scramble_ckpt and slow_host) through ``run_campaign``
+    in segments of 4, the clean supervised run first (phase 28's bits):
+    every outcome ``converged`` (the clean run's final loss; its bits
+    where no NaN rolled a segment back) or ``gave_up`` where a fatal
+    fault fired, never ``mismatch`` or ``stalled``.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-34) and read just after it; the sparse paths launch neither kernel,
+22-38) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -368,13 +403,16 @@ wherever they take the width (``NAME:lanes_tile``,
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1922,11 +1960,12 @@ def finish(phase, out, checks, t_phase, smi):
         raise AssertionError(f"{phase} checks failed: {failed}")
 
 
-def lbfgs_path(port, fk, smi, X, y, launches):
+def lbfgs_path(port, fk, smi, X, y, launches, keep=None):
     """Phase 13, on phase 5's data: the quasi-Newton member through the
     margin kernel, ``LBFGS.optimize`` and ``run_lbfgs`` (L2), and OWL-QN
     (``run_lbfgs`` with ``L1Prox``), each held to the same fit through
-    the plain ``LogisticGradient``."""
+    the plain ``LogisticGradient``; ``keep["res"]`` (a dict, optional)
+    receives the ``run_lbfgs`` result (phase 36 holds to it)."""
     t_phase = time.perf_counter()
     w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
     fused = counting(port.FusedLogisticGradient)()
@@ -1988,6 +2027,8 @@ def lbfgs_path(port, fk, smi, X, y, launches):
                      == y[:1_000_000]).float().mean())
     out["train_accuracy_1M"] = acc
     checks["accuracy_above_0.8"] = acc > 0.8
+    if keep is not None:
+        keep["res"] = res
     finish("lbfgs_path", out, checks, t_phase, smi)
 
 
@@ -4158,7 +4199,8 @@ class _F64Sums:
         return loss, grad, staged.n_valid
 
 
-def stream_path(port, fk, streaming, smi, host, solo, launches):
+def stream_path(port, fk, streaming, smi, host, solo, launches,
+                keep=None):
     """Phase 32: phase 5's data from pinned host memory through
     ``StreamingDataset.from_arrays`` (STREAM_ROWS a batch, STREAM_PREFETCH
     ahead), ``make_streaming_smooth(FusedLogisticGradient())`` and
@@ -4170,7 +4212,8 @@ def stream_path(port, fk, streaming, smi, host, solo, launches):
     pinned copies of one batch and of the whole pass back to back
     (``copy_yardstick``), the kernel's device ms a batch and the card's
     peak allocation, which must stay under (prefetch + 2) batches + 1
-    GB."""
+    GB.  ``keep["carry"]`` (a dict, optional) receives the fit's carry
+    after SUP_STREAM_ITERS iterations (phase 37 holds to it)."""
     from spark_agd_tpu_torch.core import smooth as smooth_lib
 
     t_phase = time.perf_counter()
@@ -4200,8 +4243,14 @@ def stream_path(port, fk, streaming, smi, host, solo, launches):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     fk.reset_launch_counts()
-    res, fit_s = timed(lambda: port.run_agd_host(sm, px, rv, w0, cfg,
-                                                 smooth_loss=sl))
+    carries = {} if keep is None else keep
+
+    def on_iteration(carry):
+        if carry["prior_iters"] == SUP_STREAM_ITERS:
+            carries["carry"] = carry
+
+    res, fit_s = timed(lambda: port.run_agd_host(
+        sm, px, rv, w0, cfg, smooth_loss=sl, on_iteration=on_iteration))
     launches_fit = fk.launch_count
     evaluations_fit = fused.evaluations  # batch calls: one a batch a pass
     modes = margin_modes(fk)
@@ -4274,6 +4323,7 @@ def stream_path(port, fk, streaming, smi, host, solo, launches):
            / 1e9,
            "dataset_gb": pass_bytes / 1e9}
     finish("stream_path", out, checks, t_phase, smi)
+    carries.update(loss_history=hist, pass_s_mean=report["pass_s_mean"])
     return {"kernel_device_ms_per_batch": kernel_device_ms,
             "pass_s_mean": report["pass_s_mean"]}
 
@@ -4461,6 +4511,538 @@ def stream_libsvm(port, streaming, smi, path, data, Xf, cfg, launches):
     finish("stream_libsvm", out, checks, t_phase, smi)
 
 
+# ---------------------------------------------------------------------------
+# Phases 35-38: single-device resilience
+# ---------------------------------------------------------------------------
+
+# phase 35: the supervised flagship fit in segments of SUP_SEGMENT
+# iterations, checkpointed every SUP_SEGMENT with SUP_KEEP generations;
+# the scripted faults of (b) and (c)
+SUP_SEGMENT, SUP_KEEP = 5, 2
+SUP_FAULTS = dict(device_loss_at_iter=10, nan_at_iter=20)
+SUP_SIGTERM_AT = 15
+# phase 36: the AGD path stopped after SUP_PATH_STOP iterations and
+# resumed, in segments of SUP_PATH_SEGMENT; L-BFGS split 2 + 3
+SUP_PATH_STOP, SUP_PATH_SEGMENT = 20, 10
+SUP_LBFGS_SPLIT = (2, 5)
+# phase 37: a streamed fit of SUP_STREAM_ITERS iterations, a segment an
+# iteration, a cursor committed every SUP_STREAM_COMMIT batches
+SUP_STREAM_ITERS, SUP_STREAM_COMMIT = 3, 4
+# phase 38: seeded campaigns that together carry every in-run and file
+# kind the campaign draw makes (nan, device_loss, sigterm, fatal,
+# truncate_ckpt and scramble_ckpt), in segments of CHAOS_SEGMENT
+CHAOS_SEEDS, CHAOS_SEGMENT = (0, 1, 5, 7, 13), 4
+
+
+def sup_policy(port, **kw):
+    """The supervised phases' policy: no backoff sleeps, no jitter."""
+    return port.ResiliencePolicy(backoff_base=0.0, jitter=0.0, seed=0,
+                                 **kw)
+
+
+def save_costs(ck, wall_s):
+    """An ``AutoCheckpointer``'s host copies and file writes: ms each and
+    their share of the fit's wall seconds."""
+    copy, write = ck.copy_seconds, ck.write_seconds
+    return {"updates": len(copy), "saves": len(write),
+            "d2h_ms_per_update": [t * 1e3 for t in copy],
+            "write_ms_per_save": [t * 1e3 for t in write],
+            "save_share_of_wall": (sum(copy) + sum(write)) / wall_s}
+
+
+def chain_iters(ckpt, path, keep, template):
+    """``prior_iters`` of each generation of the chain at ``path``
+    (newest first; None for a missing or corrupt file)."""
+    from spark_agd_tpu_torch.resilience import generation_paths
+
+    out = []
+    for g in generation_paths(path, keep):
+        try:
+            loaded = ckpt.load_checkpoint(g, template,
+                                          fallback_to_bak=False)
+        except ckpt.CheckpointCorruptError:
+            loaded = None
+        out.append(None if loaded is None else int(loaded.warm.prior_iters))
+    return out
+
+
+def supervised_fit(port, fk, smi, X, y, solo, launches):
+    """Phase 35, on phase 5's data: the flagship fit under the supervisor
+    (ResiliencePolicy(segment_iters=SUP_SEGMENT), an AutoCheckpointer
+    every SUP_SEGMENT iterations, SUP_KEEP generations): (a) the clean
+    supervised ``run`` gives phase 5's bits, in at most 1.1x phase 5's
+    wall time (the limit of PERF.md section 2); (b) a scripted device loss
+    and NaN: one retry, one rollback, the ledger as scripted, the fit
+    ends at phase 5's loss floor; (c) a scripted SIGTERM raises
+    ``Preempted``, the newest generation is truncated, and the rerun
+    resumes from what survives to (a)'s bits.  Every launch the margin
+    kernel's stream mode; the checkpointer's host copies and writes
+    timed."""
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+    from spark_agd_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    policy = sup_policy(port, segment_iters=SUP_SEGMENT)
+    fused = counting(port.FusedLogisticGradient)()
+    kw = dict(reg_param=REG, num_iterations=ITERS, convergence_tol=TOL,
+              initial_weights=w0, return_result=True)
+    res5, hist5, run5_s = solo
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        fk.reset_launch_counts()
+        ck_a = resilience.AutoCheckpointer(
+            os.path.join(tmp, "a.npz"), every_iters=SUP_SEGMENT,
+            keep=SUP_KEEP)
+        (w_a, hist_a, sres_a), run_a_s = timed(lambda: port.run(
+            (X, y), fused, port.SquaredL2Updater(), resilience=policy,
+            checkpointer=ck_a, **kw))
+        launches_a = fk.launch_count
+
+        staged = smooth_lib.make_smooth_staged(fused, X, y)
+        px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), REG)
+        cfg = port.AGDConfig(convergence_tol=TOL, num_iterations=ITERS)
+
+        def supervise(path, faults=None):
+            return resilience.run_agd_supervised(
+                prox=px, reg_value=rv, w0=w0, config=cfg, policy=policy,
+                staged=staged, faults=faults,
+                checkpointer=resilience.AutoCheckpointer(
+                    path, every_iters=SUP_SEGMENT, keep=SUP_KEEP))
+
+        script = resilience.FaultScript(**SUP_FAULTS)
+        sres_b, run_b_s = timed(lambda: supervise(
+            os.path.join(tmp, "b.npz"), script))
+
+        path_c = os.path.join(tmp, "c.npz")
+        t0 = time.perf_counter()
+        preempted = False
+        try:
+            supervise(path_c, resilience.FaultScript(
+                sigterm_at_iter=SUP_SIGTERM_AT))
+        except resilience.Preempted:
+            preempted = True
+        killed_s = time.perf_counter() - t0
+        chain_before = chain_iters(ckpt, path_c, SUP_KEEP, w0)
+        torn_bytes = resilience.faults.truncate_file(path_c, 0.4)
+        chain_torn = chain_iters(ckpt, path_c, SUP_KEEP, w0)
+        ck_c = resilience.AutoCheckpointer(path_c, every_iters=SUP_SEGMENT,
+                                           keep=SUP_KEEP)
+        (w_c, hist_c, sres_c), resume_c_s = timed(lambda: port.run(
+            (X, y), fused, port.SquaredL2Updater(), resilience=policy,
+            checkpointer=ck_c, **kw))
+        record_margin_path(fk, launches, "supervised_fit")
+        other = fk.lanes_launch_count + fk.softmax_launch_count
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    ledger_b = [(e["outcome"], e["failure_kind"], e["start_iter"])
+                for e in sres_b.attempts]
+    want_b = [("ok", None, 0), ("ok", None, 5),
+              ("failed", "transient", 10), ("ok", None, 10),
+              ("ok", None, 15), ("aborted_non_finite", "numeric", 20),
+              ("ok", None, 20)]
+    modes = launches["modes"]["supervised_fit"]
+    checks = {
+        "a_weights_bit_identical_to_phase5":
+            bool(torch.equal(w_a, res5.weights)),
+        "a_history_bit_identical_to_phase5":
+            bool(np.array_equal(hist_a, hist5)),
+        "a_segments_all_ok": [e["outcome"] for e in sres_a.attempts]
+        == ["ok"] * -(-len(hist5) // SUP_SEGMENT),
+        "a_within_1.1x_phase5_wall": run_a_s <= 1.1 * run5_s,
+        "b_one_retry_one_rollback": (sres_b.retries, sres_b.rollbacks)
+        == (1, 1),
+        "b_fired_as_scripted": script.fired == [
+            ("device_loss", SUP_FAULTS["device_loss_at_iter"]),
+            ("nan", SUP_FAULTS["nan_at_iter"])],
+        "b_ledger_as_scripted": ledger_b[:len(want_b)] == want_b
+        and all(e[0] == "ok" for e in ledger_b[len(want_b):]),
+        "b_finishes": bool(sres_b.converged
+                           or sres_b.num_iters == ITERS),
+        "b_final_loss_rtol_1e-4_vs_phase5": bool(np.isclose(
+            sres_b.loss_history[-1], hist5[-1], rtol=1e-4, atol=0.0)),
+        "b_finite": bool(np.isfinite(sres_b.loss_history).all()
+                         and torch.isfinite(sres_b.weights).all()),
+        "c_preempted": preempted,
+        "c_resumes_from_what_survives":
+            sres_c.resumed_from == next(i for i in chain_torn
+                                        if i is not None) > 0,
+        "c_weights_bit_identical_to_a": bool(torch.equal(w_c, w_a)),
+        "c_history_bit_identical_to_a": bool(np.array_equal(hist_c,
+                                                            hist_a)),
+        "launches_equal_evaluations": launches["supervised_fit"]
+        == fused.evaluations > 0,
+        "every_launch_stream": modes == {"stream":
+                                         launches["supervised_fit"]},
+        "no_other_kernel": other == 0}
+    finish("supervised_fit", {
+        "shape": [N_MAIN, D_MAIN], "segment_iters": SUP_SEGMENT,
+        "every_iters": SUP_SEGMENT, "keep": SUP_KEEP,
+        "phase5_run_s": run5_s, "a_run_s": run_a_s,
+        "a_over_phase5_wall": run_a_s / run5_s, "a_launches": launches_a,
+        "a_num_iters": len(hist_a), **{f"a_{k}": v for k, v in
+                                       save_costs(ck_a, run_a_s).items()},
+        "b_run_s": run_b_s, "b_num_iters": sres_b.num_iters,
+        "b_retries": sres_b.retries, "b_rollbacks": sres_b.rollbacks,
+        "b_ledger": ledger_b, "b_fired": script.fired,
+        "b_loss_last": float(sres_b.loss_history[-1]),
+        "phase5_loss_last": float(hist5[-1]),
+        "c_killed_run_s": killed_s, "c_chain_prior_iters": chain_before,
+        "c_truncated_to_bytes": torn_bytes,
+        "c_chain_after_truncation": chain_torn,
+        "c_resumed_from": sres_c.resumed_from, "c_resume_run_s": resume_c_s,
+        "launches": launches["supervised_fit"], "modes": modes,
+        "smooth_evaluations": fused.evaluations}, checks, t_phase, smi)
+
+
+def supervised_path(port, fk, smi, X, y, sweep_ref, lbfgs_ref, launches):
+    """Phase 36, on phase 5's data: ``run_agd_multi_checkpointed`` over
+    SWEEP_REGS (phase 22's strengths, 40 iterations, tol 0) stopped after
+    SUP_PATH_STOP iterations and resumed gives, lane by lane, the bits of
+    the same call run straight, every launch the lanes kernel in
+    ``lanes_mma``; its largest difference from phase 22's ``sweep``
+    (the same lock-step driver); then ``run_lbfgs_checkpointed`` on the
+    flagship split 2 + 3 gives the bits of the same call run straight
+    for 5, held to phase 13's ``run_lbfgs`` over their common iterations
+    at phase 13's tolerance (rtol 1e-4)."""
+    from spark_agd_tpu_torch.core import host_agd, lbfgs as lbfgs_lib
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+    from spark_agd_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    k = len(SWEEP_REGS)
+    fused = counting_lanes(port.FusedLogisticGradient)()
+    sm, sl = smooth_lib.lanes_smooth(fused, *fused.prepare(X, y, None))
+    px, rv = host_agd.make_prox_multi(port.SquaredL2Updater(), torch.tensor(
+        SWEEP_REGS, dtype=torch.float32))
+    w0 = torch.zeros((k, D_MAIN), dtype=torch.float32, device="cuda")
+    cfg = port.AGDConfig(convergence_tol=TOL, num_iterations=ITERS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        def multi(path, config):
+            return ckpt.run_agd_multi_checkpointed(
+                sm, px, rv, w0, config, path=os.path.join(tmp, path),
+                segment_iters=SUP_PATH_SEGMENT, smooth_loss_multi=sl)
+
+        fk.reset_launch_counts()
+        straight, straight_s = timed(lambda: multi("straight.npz", cfg))
+        part, part_s = timed(lambda: multi(
+            "killed.npz", dataclasses.replace(cfg,
+                                              num_iterations=SUP_PATH_STOP)))
+        resumed, resumed_s = timed(lambda: multi("killed.npz", cfg))
+        lanes_launches, rounds = fk.lanes_launch_count, fused.rounds
+        lanes_modes = {m: c for m, c in fk.lanes_mode_launches.items() if c}
+        other = fk.launch_count + fk.softmax_launch_count
+        launches["supervised_path"] = lanes_launches
+        launches.setdefault("lanes_modes", {})["supervised_path"] = \
+            lanes_modes
+
+        solo = counting(port.FusedLogisticGradient)()
+        obj = lbfgs_lib.make_objective(smooth_lib.make_smooth(solo, X, y),
+                                       port.SquaredL2Updater(), REG)
+        w1 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+        first, total = SUP_LBFGS_SPLIT
+        lcfg = port.LBFGSConfig(num_iterations=total)
+
+        def lbfgs(path, config, segment):
+            return ckpt.run_lbfgs_checkpointed(
+                obj, w1, config, os.path.join(tmp, path),
+                segment_iters=segment)
+
+        fk.reset_launch_counts()
+        l_straight, l_straight_s = timed(lambda: lbfgs("l.npz", lcfg,
+                                                       total))
+        l_part, _ = timed(lambda: lbfgs(
+            "lk.npz", dataclasses.replace(lcfg, num_iterations=first),
+            first))
+        l_resumed, l_resumed_s = timed(lambda: lbfgs("lk.npz", lcfg,
+                                                     total - first))
+        record_margin_path(fk, launches, "supervised_path_lbfgs")
+        l_other = fk.lanes_launch_count + fk.softmax_launch_count
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    sweep = sweep_ref["res"]
+    w_diff = float((straight.weights - sweep.weights).abs().max())
+    h_diff = 0.0
+    for i in range(k):
+        n_i = int(straight.num_iters[i])
+        a = straight.loss_history[:n_i, i]
+        b = sweep.loss_history[i, :n_i].double().numpy()
+        h_diff = max(h_diff, float(np.max(np.abs(a - b))) if n_i else 0.0)
+    ref = lbfgs_ref["res"]
+    m = min(l_resumed.num_iters, int(ref.num_iters)) + 1
+    ref_hist = ref.loss_history[:m].double().numpy()
+    l_modes = launches["modes"]["supervised_path_lbfgs"]
+    checks = {
+        "path_resumed_from_the_stop": bool(
+            (resumed.resumed_from == SUP_PATH_STOP).all()),
+        "path_weights_bit_identical_lane_by_lane": bool(
+            torch.equal(resumed.weights, straight.weights)),
+        "path_history_bit_identical": bool(np.array_equal(
+            resumed.loss_history, straight.loss_history)),
+        "path_num_iters_identical": bool(np.array_equal(
+            resumed.num_iters, straight.num_iters)),
+        "path_one_lanes_launch_a_round": lanes_launches == rounds > 0,
+        "path_every_launch_lanes_mma": lanes_modes == {
+            "lanes_mma": lanes_launches},
+        "path_no_other_kernel": other == 0,
+        "lbfgs_resumed_from_the_split": l_resumed.resumed_from == first,
+        "lbfgs_weights_bit_identical": bool(torch.equal(
+            l_resumed.weights, l_straight.weights)),
+        "lbfgs_history_bit_identical": bool(np.array_equal(
+            l_resumed.loss_history, l_straight.loss_history)),
+        "lbfgs_history_rtol_1e-4_vs_phase13": bool(np.allclose(
+            l_resumed.loss_history[:m], ref_hist, rtol=1e-4, atol=0.0)),
+        "lbfgs_launches_equal_evaluations":
+            launches["supervised_path_lbfgs"] == solo.evaluations > 0,
+        "lbfgs_every_launch_stream": l_modes == {
+            "stream": launches["supervised_path_lbfgs"]},
+        "lbfgs_no_other_kernel": l_other == 0}
+    finish("supervised_path", {
+        "shape": [N_MAIN, D_MAIN], "regs": SWEEP_REGS, "iterations": ITERS,
+        "stop_at": SUP_PATH_STOP, "segment_iters": SUP_PATH_SEGMENT,
+        "straight_s": straight_s, "killed_s": part_s,
+        "resumed_s": resumed_s, "num_iters": straight.num_iters.tolist(),
+        "rounds": rounds, "launches": lanes_launches, "modes": lanes_modes,
+        "max_weight_abs_diff_vs_phase22_sweep": w_diff,
+        "max_history_abs_diff_vs_phase22_sweep": h_diff,
+        "lbfgs_split": list(SUP_LBFGS_SPLIT),
+        "lbfgs_straight_s": l_straight_s, "lbfgs_resumed_s": l_resumed_s,
+        "lbfgs_num_iters": l_resumed.num_iters,
+        "lbfgs_converged": l_resumed.converged,
+        "lbfgs_loss_history": l_resumed.loss_history.tolist(),
+        "phase13_loss_history": ref_hist.tolist(),
+        "lbfgs_launches": launches["supervised_path_lbfgs"],
+        "lbfgs_modes": l_modes}, checks, t_phase, smi)
+
+
+def supervised_stream(port, fk, streaming, smi, host, stream_ref, launches):
+    """Phase 37, on phase 32's stream (the pinned source still held): a
+    SUP_STREAM_ITERS-iteration ``run_agd_supervised(driver="host")`` over
+    the streamed smooth, a segment an iteration, a ``StreamCheckpoint``
+    every SUP_STREAM_COMMIT batches; a SIGTERM from a ``threading.Timer``
+    about half a pass into iteration 2 raises ``Preempted`` (the
+    handler's flush carries the cursor, the abandon flush after it the
+    clean boundary).  Two resumes: from the newest generation (iteration
+    2 replayed from its start) and from a copy of the cursor's generation
+    (its committed batches skipped); each gives the bits of phase 32's
+    fit after SUP_STREAM_ITERS iterations.  Every launch the margin
+    kernel's stream mode."""
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+    from spark_agd_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    Xh, yh = host["X"], host["y"]
+    n, d = Xh.shape
+    batches = -(-n // STREAM_ROWS)
+    ds = streaming.StreamingDataset.from_arrays(Xh, yh, STREAM_ROWS)
+    px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), REG)
+    cfg = port.AGDConfig(convergence_tol=TOL, num_iterations=SUP_STREAM_ITERS)
+    policy = sup_policy(port, segment_iters=1)
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+    fused = counting(port.FusedLogisticGradient)()
+    pass_s = stream_ref["pass_s_mean"]
+    carry = stream_ref["carry"]
+
+    def fit(path, stats, on_commit=None):
+        ck = resilience.AutoCheckpointer(path, every_iters=1, keep=2)
+        sc = streaming.StreamCheckpoint(
+            ck, every_batches=SUP_STREAM_COMMIT,
+            on_commit=None if on_commit is None else
+            lambda count: on_commit(ck, count))
+        sm, sl = streaming.make_streaming_smooth(
+            fused, ds, prefetch=STREAM_PREFETCH, stream_ckpt=sc,
+            pass_stats=stats)
+        return resilience.run_agd_supervised(
+            smooth=sm, smooth_loss=sl, prox=px, reg_value=rv, w0=w0,
+            config=cfg, policy=policy, checkpointer=ck, driver="host")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    timers = []
+
+    def arm(ck, count):
+        # two updates (generation zero, iteration 1's boundary) and no
+        # third: the first commit of iteration 2, about 0.4 of a pass in
+        if len(ck.copy_seconds) == 2 and not timers:
+            timers.append(threading.Timer(
+                0.1 * pass_s, os.kill, (os.getpid(), signal.SIGTERM)))
+            timers[0].start()
+
+    try:
+        # a signal can land between a launch and its count, so the
+        # killed run's launches are added to the path's uncompared
+        fk.reset_launch_counts()
+        path = os.path.join(tmp, "s.npz")
+        killed_stats = []
+        t0 = time.perf_counter()
+        preempted = False
+        try:
+            fit(path, killed_stats, arm)
+        except resilience.Preempted:
+            preempted = True
+        finally:
+            for t in timers:  # a timer that has not fired never will
+                t.cancel()
+                t.join()
+        killed_s = time.perf_counter() - t0
+        killed_launches, killed_modes = fk.launch_count, margin_modes(fk)
+        killed_evaluations = fused.evaluations
+        bak = resilience.generation_paths(path, 2)[1]
+        landed = ckpt.load_checkpoint(bak, w0, fallback_to_bak=False)
+        cursor = streaming.cursor_from_extras(landed.extras)
+        newest = ckpt.load_checkpoint(path, w0, fallback_to_bak=False)
+        cursor_path = os.path.join(tmp, "cursor.npz")
+        shutil.copyfile(bak, cursor_path)
+
+        boundary_stats, cursor_stats = [], []
+        fk.reset_launch_counts()
+        res_b, resume_b_s = timed(lambda: fit(path, boundary_stats))
+        res_c, resume_c_s = timed(lambda: fit(cursor_path, cursor_stats))
+        record_margin_path(fk, launches, "supervised_stream")
+        other = fk.lanes_launch_count + fk.softmax_launch_count
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    ref_hist = stream_ref["loss_history"][:SUP_STREAM_ITERS]
+    modes = launches["modes"]["supervised_stream"]
+    skipped = sum(s.get("skipped_batches", 0) for s in cursor_stats)
+    checks = {
+        "preempted": preempted,
+        "landed_in_iteration_2": landed.warm.prior_iters == 1
+        and newest.warm.prior_iters == 1,
+        "cursor_rode_the_flush": cursor is not None,
+        "abandon_flush_is_a_clean_boundary": newest.extras == {},
+        "boundary_resume_from_iteration_1": res_b.resumed_from == 1,
+        "cursor_resume_from_iteration_1": res_c.resumed_from == 1,
+        "cursor_resume_skipped_the_committed_batches":
+            cursor is not None and skipped == cursor.batch_index > 0,
+        "boundary_resume_bits_equal_phase32": bool(
+            torch.equal(res_b.weights, carry["x"])),
+        "cursor_resume_bits_equal_phase32": bool(
+            torch.equal(res_c.weights, carry["x"])),
+        "boundary_history_equals_phase32": bool(np.array_equal(
+            res_b.loss_history, ref_hist)),
+        "cursor_history_equals_phase32": bool(np.array_equal(
+            res_c.loss_history, ref_hist)),
+        "resume_launches_equal_batch_evaluations":
+            launches["supervised_stream"]
+            == fused.evaluations - killed_evaluations > 0,
+        "every_launch_stream": set(modes) | set(killed_modes)
+        == {"stream"},
+        "no_other_kernel": other == 0}
+    launches["supervised_stream"] += killed_launches
+    modes = launches["modes"]["supervised_stream"] = {
+        "stream": launches["supervised_stream"]}
+    replayed = (None if cursor is None
+                else cursor.pass_offset * batches + cursor.batch_index)
+    finish("supervised_stream", {
+        "shape": [n, d], "batch_rows": STREAM_ROWS, "batches": batches,
+        "iterations": SUP_STREAM_ITERS,
+        "commit_every_batches": SUP_STREAM_COMMIT,
+        "timer_s_after_first_commit_of_iteration_2": 0.1 * pass_s,
+        "killed_run_s": killed_s, "killed_passes": len(killed_stats),
+        "killed_launches": killed_launches,
+        "landed_pass_since_boundary": None if cursor is None
+        else cursor.pass_offset,
+        "landed_after_committed_batch": None if cursor is None
+        else cursor.batch_index,
+        "boundary_resume_replayed_at_least_batches": replayed,
+        "boundary_resume_s": resume_b_s,
+        "boundary_resume_passes": len(boundary_stats),
+        "cursor_resume_s": resume_c_s,
+        "cursor_resume_passes": len(cursor_stats),
+        "cursor_resume_skipped_batches": skipped,
+        "loss_history": res_b.loss_history.tolist(),
+        "phase32_loss_history": list(map(float, ref_hist)),
+        "launches": launches["supervised_stream"], "modes": modes},
+        checks, t_phase, smi)
+
+
+def chaos_soak(port, fk, smi, X, y, solo, launches):
+    """Phase 38, on phase 28's data (epsilon's shape, 400,000 x 2,000
+    f32): the CHAOS_SEEDS campaigns (``ChaosCampaign.generate(seed,
+    iters=40)``) through ``run_campaign`` over the flagship's settings, in
+    segments of CHAOS_SEGMENT, every launch the margin kernel's stream
+    mode; every outcome ``converged`` (within run_campaign's 1e-6 of the
+    clean supervised run's final loss, which has phase 28's bits, and
+    the clean run's bits exactly where no NaN rolled a segment back) or
+    ``gave_up`` (typed, where a ``fatal`` fault fired), never
+    ``mismatch`` or ``stalled``."""
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+
+    t_phase = time.perf_counter()
+    n, d = X.shape
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+    fused = counting(port.FusedLogisticGradient)()
+    staged = smooth_lib.make_smooth_staged(fused, X, y)
+    px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), REG)
+    cfg = port.AGDConfig(convergence_tol=TOL, num_iterations=ITERS)
+    policy = sup_policy(port, segment_iters=CHAOS_SEGMENT)
+    seg_cache = {}
+    fk.reset_launch_counts()
+    clean, clean_s = timed(lambda: resilience.run_agd_supervised(
+        prox=px, reg_value=rv, w0=w0, config=cfg, policy=policy,
+        staged=staged, seg_cache=seg_cache))
+    baseline = float(clean.loss_history[-1])
+    rows, kinds = [], set()
+    for seed in CHAOS_SEEDS:
+        campaign = resilience.ChaosCampaign.generate(seed, iters=ITERS)
+        kinds |= {f.kind for f in campaign.faults}
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+        try:
+            out, seconds = timed(lambda: resilience.run_campaign(
+                campaign, staged=staged, prox=px, reg_value=rv, w0=w0,
+                config=cfg, policy=policy, workdir=workdir,
+                baseline_loss=baseline, seg_cache=seg_cache))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        rows.append({"seed": seed, "campaign": campaign.describe(),
+                     "outcome": out.outcome, "diff": out.diff,
+                     "relaunches": out.relaunches, "fired": out.fired,
+                     "file_applied": out.file_applied,
+                     "num_iters": out.num_iters,
+                     "expects_giveup": campaign.expects_giveup,
+                     "rolled_back": any(f == "nan" for f, _ in out.fired),
+                     "weights_equal_clean": out.weights is not None
+                     and bool(torch.equal(out.weights, clean.weights)),
+                     "giveup": out.giveup_message, "seconds": seconds})
+    record_margin_path(fk, launches, "chaos_soak")
+    other = fk.lanes_launch_count + fk.softmax_launch_count
+    modes = launches["modes"]["chaos_soak"]
+    checks = {
+        "clean_run_bits_equal_phase28": bool(torch.equal(
+            clean.weights, solo[0].weights)),
+        "every_kind_drawn": kinds >= {"nan", "device_loss", "sigterm",
+                                      "fatal", "truncate_ckpt",
+                                      "scramble_ckpt"},
+        "no_mismatch_or_stalled": all(
+            r["outcome"] in ("converged", "gave_up") for r in rows),
+        # a fit that stops (an exact-zero step at the f32 floor) before
+        # its fatal iteration never meets the fault
+        "gave_up_exactly_where_a_fatal_fired": all(
+            (r["outcome"] == "gave_up")
+            == any(kind == "fatal" for kind, _ in r["fired"])
+            for r in rows),
+        "clean_bits_where_nothing_rolled_back": all(
+            r["diff"] == 0.0 and r["weights_equal_clean"] for r in rows
+            if r["outcome"] == "converged" and not r["rolled_back"]),
+        "every_launch_stream": modes == {"stream": launches["chaos_soak"]},
+        "launches_equal_evaluations": launches["chaos_soak"]
+        == fused.evaluations > 0,
+        "no_other_kernel": other == 0}
+    finish("chaos_soak", {
+        "shape": [n, d], "iterations": ITERS,
+        "segment_iters": CHAOS_SEGMENT, "clean_run_s": clean_s,
+        "phase28_run_s": solo[2], "baseline_loss": baseline,
+        "campaigns": rows, "launches": launches["chaos_soak"],
+        "modes": modes}, checks, t_phase, smi)
+
+
 def main(argv):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card.")
@@ -4537,13 +5119,18 @@ def main(argv):
     # phases 22 and 27's results and phase 5's data in pinned host memory
     # with its fit, for the streamed phases 32-33
     sweep_ref, lbfgs_ref, flagship = {}, {}, {}
+    lbfgs13, stream_ref = {}, {}  # phases 13 and 32 for phases 36-37
 
     def on_flagship(X, y, solo):
-        lbfgs_path(port, fk, smi, X, y, launches)
+        lbfgs_path(port, fk, smi, X, y, launches, keep=lbfgs13)
         lanes.update(sweep_path(port, fk, losses, smi, X, y, solo,
                                 launches, keep=sweep_ref))
         torch.cuda.empty_cache()
         lbfgs_sweep_path(port, fk, smi, X, y, launches, keep=lbfgs_ref)
+        torch.cuda.empty_cache()
+        # 35-36. the supervised fit, the checkpointed path and L-BFGS
+        supervised_fit(port, fk, smi, X, y, solo, launches)
+        supervised_path(port, fk, smi, X, y, sweep_ref, lbfgs13, launches)
         torch.cuda.empty_cache()
         cv_path(port, fk, glm, smi, X, y, launches)
         torch.cuda.empty_cache()
@@ -4555,12 +5142,16 @@ def main(argv):
 
     margin = margin_path(port, fk, losses, device_synth, on_flagship)
     torch.cuda.empty_cache()
-    # 32-33. the same data streamed from pinned host memory, the card's
-    # copy freed: the fit, then the AGD and L-BFGS paths
+    # 32-33 and 37. the same data streamed from pinned host memory, the
+    # card's copy freed: the fit, the AGD and L-BFGS paths, the
+    # supervised streamed fit preempted mid-pass and resumed
     stream = stream_path(port, fk, streaming, smi, flagship["host"],
-                         flagship["solo"], launches)
+                         flagship["solo"], launches, keep=stream_ref)
     stream_sweep(port, fk, streaming, smi, flagship["host"],
                  sweep_ref.pop("res"), lbfgs_ref.pop("res"), launches)
+    supervised_stream(port, fk, streaming, smi, flagship["host"],
+                      stream_ref, launches)
+    stream_ref.clear()
     for t in (flagship["host"]["X"], flagship["host"]["y"]):
         streaming.unpin_host(t)
     flagship.clear()
@@ -4596,14 +5187,18 @@ def main(argv):
     torch.cuda.empty_cache()
     mid = mid_path(port, fk, losses, device_synth, smi, launches)
     torch.cuda.empty_cache()
-    # 28-29. LIBSVM epsilon's shape: the stream mode, then the path over 8
-    # strengths in the lanes kernel's cluster mode
+    # 28-29 and 38. LIBSVM epsilon's shape: the stream mode, the path over
+    # 8 strengths in the lanes kernel's cluster mode, the chaos campaigns
     epsilon_sweep = {}
-    epsilon = epsilon_path(
-        port, fk, losses, device_synth, smi, launches,
-        lambda X, y, solo: epsilon_sweep.update(sweep_path(
+
+    def on_epsilon(X, y, solo):
+        epsilon_sweep.update(sweep_path(
             port, fk, losses, smi, X, y, solo, launches, "epsilon_sweep",
-            "lanes_cluster")))
+            "lanes_cluster"))
+        chaos_soak(port, fk, smi, X, y, solo, launches)
+
+    epsilon = epsilon_path(port, fk, losses, device_synth, smi, launches,
+                           on_epsilon)
     torch.cuda.empty_cache()
     linreg_path(port, fk, device_synth, glm, smi, launches)
     torch.cuda.empty_cache()
@@ -4632,7 +5227,8 @@ def main(argv):
     # 20. the kernels line, the card, the result
     paths = ("lbfgs_path", "gd_gate", "mid_path", "epsilon_path",
              "linreg_path", "wide_path", "snp_path", "stream_path",
-             "stream_libsvm")
+             "stream_libsvm", "supervised_fit", "supervised_path_lbfgs",
+             "supervised_stream", "chaos_soak")
     margin["launches_by_path"] = {"main_path": margin["launches"],
                                   **{p: launches[p] for p in paths}}
     margin["modes_by_path"] = {"main_path": margin.pop("main_path_modes"),
@@ -4670,13 +5266,14 @@ def main(argv):
             for name, row in wide_softmax.items()}}
     lanes_paths = ("sweep_path", "cv_path", "lbfgs_sweep_path",
                    "epsilon_sweep", "wide_sweep", "stream_sweep",
-                   "stream_lbfgs_sweep")
+                   "stream_lbfgs_sweep", "supervised_path")
     lanes["launches_by_path"] = {p: launches[p] for p in lanes_paths}
     lanes["modes_by_path"] = {p: launches["lanes_modes"][p]
                               for p in ("sweep_path", "lbfgs_sweep_path",
                                         "epsilon_sweep", "wide_sweep",
                                         "stream_sweep",
-                                        "stream_lbfgs_sweep")}
+                                        "stream_lbfgs_sweep",
+                                        "supervised_path")}
     # each mode's numbers at a shape of a path that runs it: lanes_mma's
     # at the main path's (the entry's own), lanes_cluster's at epsilon's,
     # lanes_two_pass's at phase 30's (and one past each reach)

@@ -32,15 +32,18 @@ L4    optimizer core              ``core.agd.run_agd``, ``core.gd``,
 L3    math plugins                ``ops.losses`` (Gradient), ``ops.prox``
                                   (Updater), ``ops.fused_kernels`` (CUDA),
                                   ``ops.sparse`` (CSRMatrix products)
-L2    data plane                  ``data.streaming`` (macro-batches
+L2    data plane, resilience      ``data.streaming`` (macro-batches
                                   through pinned memory on a side
                                   stream, ``StreamingDataset``,
-                                  ``fold_stream``), ``data.ingest``,
-                                  ``resilience.retry``/``errors``
+                                  ``fold_stream``), ``data.ingest``;
+                                  ``resilience`` (the supervisor,
+                                  ``AutoCheckpointer``, faults, chaos,
+                                  ``retry``/``errors``)
 L1    data                        ``data.libsvm`` (+ ``native`` C++ parser),
                                   ``data.synthetic``, ``data.device_synth``
 L0    local math                  ``core.tvec`` tensor / tree algebra;
-                                  ``utils.checkpoint.atomic_savez``;
+                                  ``utils.checkpoint`` (npz checkpoints
+                                  in the JAX package's format);
                                   ``utils.logging`` and ``obs.schema``
                                   (log lines and run records)
 ====  ==========================  ===========================================
@@ -136,4 +139,13 @@ from .data.streaming import (  # noqa: F401
     StreamingDataset,
     make_streaming_eval_multi,
     make_streaming_smooth,
+)
+from . import resilience  # noqa: F401
+from .resilience import (  # noqa: F401
+    AutoCheckpointer,
+    ChaosCampaign,
+    FaultScript,
+    ResiliencePolicy,
+    SupervisedResult,
+    run_agd_supervised,
 )

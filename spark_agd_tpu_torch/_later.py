@@ -15,10 +15,13 @@ _SLICES = {
     "mesh": "the mesh slice, parallel/",
     "csr_nnz_per_shard": "the mesh slice, parallel/",
     "sharded_update": "the mesh slice, parallel/sharded_update.py",
-    "resilience": "the resilience slice, resilience/",
-    "checkpointer": "the resilience slice, resilience/",
-    "journal": "the resilience slice, resilience/",
-    "chaos": "the resilience slice, resilience/chaos.py",
+    "heartbeat": "the multi-host resilience slice after the mesh "
+                 "slice, resilience/distributed.py",
+    "monitor": "the multi-host resilience slice after the mesh slice, "
+               "resilience/distributed.py",
+    "scheduler": "the multi-host resilience slice after the mesh slice, "
+                 "resilience/scheduler.py",
+    "journal": "the observability slice, resilience/journal.py with obs/",
     "telemetry": "the observability slice, obs/",
 }
 

@@ -22,10 +22,12 @@ The entry points run on the current CUDA device unless the caller passes
 ``device=`` (``"cpu"`` for the CPU); with no CUDA device and no explicit
 device they raise.  ``dist_mode=`` is validated and, with no mesh,
 inert, as in the JAX package.  ``verbose=True`` logs the fit's
-per-iteration lines through ``utils.logging.log_result``.  Meshes, the
-supervised path (``resilience=``, ``checkpointer=``, ``journal=``),
-telemetry and the sharded update are not in this slice: asking for them
-raises ``NotImplementedError`` naming the slice that brings them.
+per-iteration lines through ``utils.logging.log_result``.
+``run(resilience=..., checkpointer=...)`` runs the fit under the
+single-device supervisor (``resilience.supervisor``): segments, retries,
+rollbacks and an ``AutoCheckpointer``.  Meshes, ``journal=``, telemetry
+and the sharded update are not in this slice: asking for them raises
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -95,6 +97,15 @@ def _owned(a, device):
     return torch.tensor(np.asarray(a), device=device)
 
 
+def _stage(data, gradient: Gradient, device):
+    """``(device, (build, data_args))``: the data placed on the run's
+    device once and prepared (``core.smooth.make_smooth_staged``)."""
+    dev = resolve_device(device)
+    X, y, mask = _normalize_data(data)
+    return dev, smooth_lib.make_smooth_staged(
+        gradient, _place(X, dev), _place(y, dev), _place(mask, dev))
+
+
 def make_runner(
     data,
     gradient: Gradient,
@@ -120,10 +131,7 @@ def make_runner(
     _check_dist_mode(dist_mode)
     reject_later(mesh=mesh, telemetry=telemetry,
                  sharded_update=sharded_update)
-    dev = resolve_device(device)
-    X, y, mask = _normalize_data(data)
-    build, dargs = smooth_lib.make_smooth_staged(
-        gradient, _place(X, dev), _place(y, dev), _place(mask, dev))
+    dev, (build, dargs) = _stage(data, gradient, device)
     px, rv = smooth_lib.make_prox(updater, reg_param)
     cfg = agd.AGDConfig(
         convergence_tol=convergence_tol, num_iterations=num_iterations,
@@ -171,11 +179,34 @@ def run(
     also returns the full ``AGDResult``.  ``verbose=True`` logs the
     per-iteration lines and the reference's completion line
     (``utils.logging.log_result``, on the ``spark_agd_tpu`` logger)
-    after the fit."""
+    after the fit.
+
+    ``resilience`` (a ``resilience.ResiliencePolicy``, or ``True`` for
+    the defaults; off by default): run under the supervisor instead of
+    one straight fit: segments, bounded retries with backoff on
+    transient failures, rollback to the last good warm state with a step
+    cut on non-finite numerics.  ``checkpointer`` (supervised path only,
+    a ``resilience.AutoCheckpointer``) adds preemption-safe
+    checkpoints and a corruption-tolerant resume.  ``return_result=True``
+    then returns the ``SupervisedResult`` third, and ``verbose=True``
+    logs one line of its retries and rollbacks.  ``journal=`` comes with
+    the observability slice and raises."""
     if initial_weights is None:
         raise ValueError("initial_weights is required")
-    reject_later(resilience=resilience, checkpointer=checkpointer,
-                 journal=journal)
+    reject_later(journal=journal)
+    if resilience is not None:
+        cfg = agd.AGDConfig(
+            convergence_tol=convergence_tol, num_iterations=num_iterations,
+            l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
+            may_restart=may_restart, loss_mode=loss_mode)
+        return _run_supervised(
+            data, gradient, updater, cfg, reg_param, initial_weights,
+            mesh, dist_mode, return_result, device, telemetry, verbose,
+            resilience, checkpointer, sharded_update)
+    if checkpointer is not None:
+        raise ValueError(
+            "checkpointer=/journal= require the supervised path; pass "
+            "resilience=True (or a ResiliencePolicy) as well")
     fit = make_runner(
         data, gradient, updater, convergence_tol=convergence_tol,
         num_iterations=num_iterations, reg_param=reg_param, l0=l0,
@@ -192,6 +223,38 @@ def run(
     if return_result:
         return result.weights, loss_history, result
     return result.weights, loss_history
+
+
+def _run_supervised(data, gradient, updater, cfg, reg_param,
+                    initial_weights, mesh, dist_mode, return_result,
+                    device, telemetry, verbose, resilience, checkpointer,
+                    sharded_update):
+    """The ``resilience=`` branch of :func:`run`: the staging of
+    :func:`make_runner`, driven by
+    ``resilience.supervisor.run_agd_supervised``."""
+    from .resilience import supervisor as supervisor_lib
+
+    _check_dist_mode(dist_mode)
+    reject_later(mesh=mesh, telemetry=telemetry,
+                 sharded_update=sharded_update)
+    policy = None if resilience is True else resilience
+    dev, staged = _stage(data, gradient, device)
+    px, rv = smooth_lib.make_prox(updater, reg_param)
+    sres = supervisor_lib.run_agd_supervised(
+        prox=px, reg_value=rv, w0=initial_weights, config=cfg,
+        policy=policy, checkpointer=checkpointer, staged=staged,
+        place_w=lambda w: tvec.tmap(lambda a: _owned(a, dev), w))
+    loss_history = np.asarray(sres.loss_history)
+    if verbose:
+        from .utils import logging as logging_utils
+
+        logging_utils.logger.info(
+            "supervised run: %d iterations, %d retries, %d rollbacks, "
+            "resumed from %d", sres.num_iters, sres.retries,
+            sres.rollbacks, sres.resumed_from)
+    if return_result:
+        return sres.weights, loss_history, sres
+    return sres.weights, loss_history
 
 
 # ---------------------------------------------------------------------------

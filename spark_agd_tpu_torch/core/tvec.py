@@ -25,6 +25,19 @@ def leaves(tree):
     return [tree]
 
 
+def unflatten_like(tree, leaves):
+    """Tensors of the ``leaves`` iterator (tensors or arrays) in
+    ``tree``'s structure and on its leaves' devices, in the order of
+    :func:`leaves`."""
+    if isinstance(tree, dict):
+        out = {k: unflatten_like(tree[k], leaves) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        parts = [unflatten_like(t, leaves) for t in tree]
+        return tuple(parts) if isinstance(tree, tuple) else parts
+    return torch.as_tensor(next(leaves)).to(tree.device)
+
+
 def tmap(fn, *trees):
     """Apply ``fn`` leafwise over trees of one structure; mismatched
     structures raise instead of silently truncating."""

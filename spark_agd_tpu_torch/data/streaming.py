@@ -244,6 +244,13 @@ def cursor_from_extras(extras) -> Optional[StreamCursor]:
         return None
 
 
+class AbandonedAttempt(RuntimeError):
+    """Raised in a supervised attempt that the watchdog gave up on, at
+    its next pass or commit, once a retry has claimed the
+    :class:`StreamCheckpoint`: the abandoned attempt stops there, before
+    it touches the pass counter or the checkpoint again."""
+
+
 class StreamCheckpoint:
     """The mid-epoch commit protocol between :func:`fold_stream` and a
     checkpointer: every ``every_batches`` folded batches the current
@@ -256,7 +263,14 @@ class StreamCheckpoint:
     The checkpointer is duck-typed: it has ``stream_hook`` (set to this
     object here), ``update_stream`` and ``loaded_extras`` (rider entries
     of a loaded checkpoint, adopted here).  ``on_commit(count)``
-    (optional) fires after each commit."""
+    (optional) fires after each commit.
+
+    A supervisor calls :meth:`on_attempt` from the thread of each
+    attempt it starts: the pass counter goes back to the boundary, and
+    from then on only that thread may begin a pass or commit (another
+    thread gets :class:`AbandonedAttempt`), so an attempt that timed out
+    and still runs can neither shift the retry's pass ordinals nor write
+    a cursor of its own."""
 
     def __init__(self, checkpointer, *, every_batches: int,
                  on_commit: Optional[Callable[[int], None]] = None):
@@ -268,22 +282,33 @@ class StreamCheckpoint:
         self.commits = 0
         self._pass = 0  # passes begun since the last boundary commit
         self._pending: Optional[StreamCursor] = None
+        self._armed: Optional[StreamCursor] = None  # pending at boundary
+        self._owner: Optional[int] = None  # the live attempt's thread
+        self._lock = threading.Lock()
         checkpointer.stream_hook = self
         if getattr(checkpointer, "loaded_extras", None):
             self.adopt(checkpointer.loaded_extras)
+
+    def _check_owner(self) -> None:
+        if self._owner is not None \
+                and self._owner != threading.get_ident():
+            raise AbandonedAttempt(
+                "a retry took over this attempt's streamed passes")
 
     def begin_pass(self) -> Tuple[int, Optional[StreamCursor]]:
         """Start one streamed pass: returns ``(ordinal, cursor)`` where
         the cursor is non-None exactly when this pass is the one a
         loaded checkpoint interrupted (consumed once)."""
-        ordinal = self._pass
-        self._pass += 1
-        cur = None
-        if self._pending is not None \
-                and self._pending.pass_offset == ordinal:
-            cur = self._pending
-            self._pending = None
-        return ordinal, cur
+        with self._lock:
+            self._check_owner()
+            ordinal = self._pass
+            self._pass += 1
+            cur = None
+            if self._pending is not None \
+                    and self._pending.pass_offset == ordinal:
+                cur = self._pending
+                self._pending = None
+            return ordinal, cur
 
     def maybe_commit(self, ordinal: int, batch_index: int, acc,
                      ns) -> bool:
@@ -295,27 +320,41 @@ class StreamCheckpoint:
         leaves = tuple(_host_array(x) for x in tvec.leaves(acc))
         cur = StreamCursor(int(ordinal), int(batch_index),
                            sum(int(x) for x in ns), leaves)
-        if not self.checkpointer.update_stream(cursor_to_extra(cur)):
-            return False  # no boundary carry yet to anchor the cursor
-        self.commits += 1
+        with self._lock:
+            self._check_owner()
+            if not self.checkpointer.update_stream(cursor_to_extra(cur)):
+                return False  # no boundary carry yet to anchor the cursor
+            self.commits += 1
         if self.on_commit is not None:
             self.on_commit(self.commits)
         return True
 
     # -- checkpointer hook interface --------------------------------------
+    def on_attempt(self) -> None:
+        """An attempt starts on the calling thread, from the last
+        boundary carry: its passes count from 0 again, a cursor armed
+        at the boundary is armed again, and the thread owns the
+        protocol until the next attempt starts."""
+        with self._lock:
+            self._owner = threading.get_ident()
+            self._pass = 0
+            self._pending = self._armed
+
     def on_boundary(self) -> None:
         """A boundary commit landed: the pass counter resets and any
         not-yet-consumed cursor is stale.  A boundary seen before any
         pass began keeps the pending cursor (nothing was replayed)."""
-        if self._pass > 0:
-            self._pending = None
-        self._pass = 0
+        with self._lock:
+            if self._pass > 0:
+                self._pending = self._armed = None
+            self._pass = 0
 
     def adopt(self, extras) -> None:
         """Arm the pending cursor from loaded checkpoint extras."""
         cur = cursor_from_extras(extras)
         if cur is not None:
-            self._pending = cur
+            with self._lock:
+                self._pending = self._armed = cur
 
 
 class StreamingDataset:
@@ -388,13 +427,19 @@ class StreamingDataset:
           (sticky, on ``dataset.quarantined``) until fewer than
           ``min_data_fraction`` of the shards survive, and then the
           stream raises
-          :class:`~spark_agd_tpu_torch.resilience.errors.StreamDataLoss`.
+          :class:`~spark_agd_tpu_torch.resilience.errors.StreamDataLoss`;
+        - ``chaos`` (a ``resilience.chaos.ChaosSchedule``): fault
+          injection for drills: ``before_shard(visit, path=...)`` fires
+          inside each retried shard read (``visit`` counts the shard
+          reads of every pass), so ``slow_reader``/``hang_reader``
+          sleeps run under the watchdog and ``corrupt_shard`` garbles
+          the file before the parse that finds it.
 
-        ``telemetry=`` and ``chaos=`` come with later slices and raise.
+        ``telemetry=`` comes with the observability slice and raises.
         """
         from . import ingest, libsvm
 
-        reject_later(telemetry=telemetry, chaos=chaos)
+        reject_later(telemetry=telemetry)
         paths = list(paths)
         if not paths:
             raise ValueError("from_libsvm_parts needs at least one path")
@@ -410,10 +455,14 @@ class StreamingDataset:
             policy = dataclasses.replace(
                 policy, attempt_timeout=float(read_timeout))
         quarantined: dict = {}
+        visit = [0]  # cumulative shard-read index (chaos at_iter axis)
 
-        def parse_part(path):
-            """One attempt at one shard: parse, index-range check,
+        def parse_part(path, visit_index=0, use_chaos=True):
+            """One attempt at one shard: the chaos hook (inside the
+            retry loop, under the watchdog), parse, index-range check,
             validation policy."""
+            if use_chaos and chaos is not None:
+                chaos.before_shard(visit_index, path=path)
             d = libsvm.load_libsvm(path, n_features=n_features)
             if len(d.indices) and int(d.indices.max()) >= n_features:
                 raise ValueError(
@@ -429,6 +478,8 @@ class StreamingDataset:
         def load_part(path):
             """One shard under the retry/quarantine contract; None =
             quarantined (skip), any raise is fatal for the epoch."""
+            vi = visit[0]
+            visit[0] += 1
             attempts = [1]
 
             def on_retry(n_failures, exc, delay):
@@ -440,8 +491,8 @@ class StreamingDataset:
 
             try:
                 return retry_lib.call_with_retry(
-                    parse_part, path, policy=policy, label="stream_shard",
-                    on_retry=on_retry)
+                    parse_part, path, visit_index=vi, policy=policy,
+                    label="stream_shard", on_retry=on_retry)
             except Exception as e:  # noqa: BLE001 — policy applied below
                 if quarantine is None:
                     raise
@@ -460,12 +511,13 @@ class StreamingDataset:
 
         first_cache = {}
         if nnz_pad is None:
-            # shape inference runs outside the quarantine path:
-            # construction fails loudly on unreadable data rather than
-            # sizing the shape off a degraded subset
+            # shape inference runs outside the chaos and quarantine
+            # paths: construction fails loudly on unreadable data rather
+            # than sizing the shape off a degraded subset
             for path in paths:  # the first non-empty part sizes the shape
                 arrays = retry_lib.call_with_retry(
-                    parse_part, path, policy=policy, label="stream_shard")
+                    parse_part, path, use_chaos=False, policy=policy,
+                    label="stream_shard")
                 m0 = _max_batch_nnz(arrays[0], batch_rows)
                 if m0:
                     first_cache[path] = arrays
@@ -659,20 +711,32 @@ class _DevicePlacer:
         self.prefetch = int(prefetch)
         self.side = None
         self.rings = []  # the current staging ring is the last
+        self.open = 0  # placements not yet closed
+        self._lock = threading.RLock()
         self.copies = collections.Counter()
 
     def open_pass(self) -> "_PassPlacement":
-        if self.side is None:
-            self.side = torch.cuda.Stream(device=self.device)
-            self.new_ring()
-            weakref.finalize(self, _release_rings, self.rings)
-        return _PassPlacement(self)
+        """A placement for one pass, on the current ring; on a ring of
+        its own while another pass is still open (an attempt that the
+        supervisor's watchdog gave up on may still be streaming), so two
+        live passes never fill the same staging slot."""
+        with self._lock:
+            if self.side is None:
+                self.side = torch.cuda.Stream(device=self.device)
+                self.new_ring()
+                weakref.finalize(self, _release_rings, self.rings)
+            elif self.open:
+                self.new_ring()
+            self.open += 1
+            return _PassPlacement(self)
 
     def new_ring(self):
         """Start a staging ring of ``prefetch + 2`` slots: at first use,
-        and when a producer thread outlived its pass (its ring is left to
-        it, and released with the placer)."""
-        self.rings.append([_Slot() for _ in range(self.prefetch + 2)])
+        while another pass is open, and when a producer thread outlived
+        its pass (its ring is left to it, and released with the
+        placer)."""
+        with self._lock:
+            self.rings.append([_Slot() for _ in range(self.prefetch + 2)])
 
 
 class _PassPlacement:
@@ -787,7 +851,10 @@ class _PassPlacement:
         return _assemble(hb.kind, out, hb.meta)
 
     def close(self):
-        self.stop.set()
+        if not self.stop.is_set():
+            self.stop.set()
+            with self.placer._lock:
+                self.placer.open -= 1
 
 
 def _make_placer(device: torch.device, pad_to, prefetch: int = 0):
@@ -801,19 +868,6 @@ def _make_placer(device: torch.device, pad_to, prefetch: int = 0):
         return _place_cpu(X, y, mask, pad_to)
 
     return _place
-
-
-def _unflatten_like(tree, leaves):
-    """Tensors of the ``leaves`` iterator in ``tree``'s structure and on
-    its leaves' devices (the order of ``tvec.leaves``: dicts by sorted
-    key)."""
-    if isinstance(tree, dict):
-        out = {k: _unflatten_like(tree[k], leaves) for k in sorted(tree)}
-        return {k: out[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
-        parts = [_unflatten_like(t, leaves) for t in tree]
-        return tuple(parts) if isinstance(tree, tuple) else parts
-    return torch.as_tensor(next(leaves)).to(tree.device)
 
 
 def _mean_divisor(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -876,7 +930,7 @@ def make_streaming_smooth(
             if len(leaves) != 1 + len(ref):
                 return None
             return [torch.as_tensor(leaves[0]).to(ref[0].device),
-                    _unflatten_like(w, iter(leaves[1:]))]
+                    tvec.unflatten_like(w, iter(leaves[1:]))]
 
         stats: dict = {}
         (ls, gs), n = fold_stream(

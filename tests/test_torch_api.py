@@ -82,7 +82,7 @@ def test_unknown_dist_mode_raises_value_error():
         opt.set_dist_mode("pmap").optimize((X, y), np.zeros(4))
 
 
-def test_verbose_raises_naming_the_obs_slice_and_false_is_accepted(caplog):
+def test_verbose_true_logs_the_fits_lines_and_false_logs_none(caplog):
     """``verbose=True`` raised until ``utils/logging.py`` and
     ``obs/schema.py`` were ported; it now logs the fit's lines (as the
     JAX package does), and ``verbose=False`` logs nothing."""

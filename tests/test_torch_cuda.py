@@ -1766,3 +1766,294 @@ def test_a_streaming_sweep_over_numpy_pins_one_ring(cuda, monkeypatch):
                          initial_weights=torch.zeros(300), pass_stats=stats)
     assert stats and all(s["staged_copies"] > 0 for s in stats)
     assert len(registered) == 2, registered
+
+
+# ---------------------------------------------------------------------------
+# single-device resilience on the card: supervised fits, checkpoints,
+# rollback, the watchdog and a preempted process
+
+# (mode, rows, width) a margin mode each; widths past the stream mode's
+# reach are resolved on the card
+SUPERVISED_MODES = [("narrow", 20_003, 8), ("warp_rows", 20_003, 54),
+                    ("tile", 4_003, "tile"), ("stream", 4_003, 1_000),
+                    ("cluster", 1_003, 40_000), ("grid", 203, "cmax+1"),
+                    ("two_pass", 37, "gmax+1")]
+
+
+def _resolve_width(width):
+    f32 = torch.float32
+    return {"tile": fk.tile_max_width(f32),
+            "cmax+1": fk.cluster_max_width(f32) + 1,
+            "gmax+1": fk.grid_max_width(f32) + 1}.get(width, width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,rows,width", SUPERVISED_MODES,
+                         ids=[m[0] for m in SUPERVISED_MODES])
+def test_a_supervised_fit_in_segments_gives_the_straight_bits(
+        cuda, mode, rows, width):
+    from spark_agd_tpu_torch.data import device_synth
+
+    d = _resolve_width(width)
+    X, y = device_synth.class_logistic(rows, d, seed=11)
+    assert fk.launch_shape(X).mode == mode
+    kw = dict(reg_param=0.1, num_iterations=8, convergence_tol=0.0,
+              initial_weights=torch.zeros(d, device=cuda))
+    w, h = port.run((X, y), port.FusedLogisticGradient(),
+                    port.SquaredL2Updater(), **kw)
+    fk.reset_launch_counts()
+    ws, hs, sres = port.run(
+        (X, y), port.FusedLogisticGradient(), port.SquaredL2Updater(),
+        resilience=port.ResiliencePolicy(segment_iters=3, jitter=0.0,
+                                         seed=0),
+        return_result=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ws, w) and np.array_equal(hs, h)
+    assert [a["start_iter"] for a in sres.attempts] == [0, 3, 6]
+    assert fk.launch_count > 0
+    assert {m for m, c in fk.margin_mode_launches.items() if c} == {mode}
+
+
+@pytest.mark.cuda
+def test_a_checkpoint_of_card_tensors_loads_onto_the_templates_device(
+        cuda, tmp_path):
+    from spark_agd_tpu_torch.utils import checkpoint as ckpt
+
+    x = torch.randn(1_000, device=cuda)
+    tree = {"W": torch.randn((3, 4), device=cuda), "b": x[:4] * 2}
+    warm = port.AGDWarmState(x=tree, z=tree, theta=0.25, big_l=3.0,
+                             bts=False, prior_iters=7)
+    path = str(tmp_path / "card.npz")
+    ckpt.save_checkpoint(path, warm, [0.5, 0.25])
+    on_card = ckpt.load_checkpoint(path, tree)
+    assert on_card.warm.x["W"].device.type == "cuda"
+    assert torch.equal(on_card.warm.x["W"], tree["W"])
+    assert torch.equal(on_card.warm.z["b"], tree["b"])
+    on_cpu = ckpt.load_checkpoint(path, {k: v.cpu()
+                                         for k, v in tree.items()})
+    assert on_cpu.warm.x["W"].device.type == "cpu"
+    assert torch.equal(on_cpu.warm.x["W"], tree["W"].cpu())
+    assert (on_card.warm.theta, on_card.warm.big_l, on_card.warm.bts,
+            on_card.warm.prior_iters) == (0.25, 3.0, False, 7)
+
+
+def _card_problem(cuda, n=20_003, d=300, seed=12):
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+    from spark_agd_tpu_torch.data import device_synth
+
+    X, y = device_synth.class_logistic(n, d, seed=seed)
+    staged = smooth_lib.make_smooth_staged(port.FusedLogisticGradient(),
+                                           X, y)
+    px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), 0.1)
+    return staged, px, rv, torch.zeros(d, device=cuda)
+
+
+@pytest.mark.cuda
+def test_a_poisoned_segment_rolls_back_and_leaves_its_anchor(cuda):
+    from spark_agd_tpu_torch.resilience import faults
+
+    staged, px, rv, w0 = _card_problem(cuda)
+    sm, sl = staged[0](*staged[1])
+    cfg = port.AGDConfig(convergence_tol=0.0, num_iterations=4)
+    first = port.run_agd_host(sm, px, rv, w0, cfg, smooth_loss=sl)
+    warm = port.AGDWarmState(
+        x=first.weights, z=first.final_z, theta=first.final_theta,
+        big_l=first.final_l, bts=first.final_bts, prior_iters=4)
+    anchor = (warm.x.clone(), warm.z.clone())
+    bad = port.run_agd_host(faults.poison_smooth(sm), px, rv, w0, cfg,
+                            smooth_loss=sl, warm=warm)
+    assert bad.aborted_non_finite
+    assert torch.equal(warm.x, anchor[0]) and torch.equal(warm.z, anchor[1])
+    policy = port.ResiliencePolicy(segment_iters=4, backoff_base=0.0,
+                                   jitter=0.0, seed=0)
+    res = port.run_agd_supervised(
+        prox=px, reg_value=rv, w0=w0, staged=staged, policy=policy,
+        config=port.AGDConfig(convergence_tol=0.0, num_iterations=16),
+        faults=port.FaultScript(nan_at_iter=4))
+    assert res.rollbacks == 1 and res.num_iters == 16
+    assert np.isfinite(res.loss_history).all()
+    assert [a["outcome"] for a in res.attempts][1] == "aborted_non_finite"
+
+
+@pytest.mark.cuda
+def test_an_attempt_past_its_timeout_is_retried_to_the_same_bits(cuda):
+    import threading
+    import time
+
+    staged, px, rv, w0 = _card_problem(cuda, seed=13)
+    build, dargs = staged
+    cfg = port.AGDConfig(convergence_tol=0.0, num_iterations=10)
+    sm, sl = build(*dargs)
+    straight = port.run_agd_host(sm, px, rv, w0, cfg, smooth_loss=sl)
+    calls = []
+
+    def slow_first(*da):
+        inner, inner_loss = build(*da)
+
+        def smooth(w):
+            calls.append(1)
+            if len(calls) == 1:
+                time.sleep(1.5)  # the watchdog fires; this attempt runs on
+            return inner(w)
+        return smooth, inner_loss
+
+    res = port.run_agd_supervised(
+        prox=px, reg_value=rv, w0=w0, config=cfg,
+        staged=(slow_first, dargs),
+        policy=port.ResiliencePolicy(segment_iters=10, attempt_timeout=0.5,
+                                     backoff_base=0.0, jitter=0.0, seed=0))
+    for t in threading.enumerate():
+        if t.name.startswith("attempt:"):
+            t.join(timeout=60)
+            assert not t.is_alive()
+    torch.cuda.synchronize()
+    assert res.retries == 1 and "AttemptTimeout" in res.attempts[0]["error"]
+    assert torch.equal(res.weights, straight.weights)
+    np.testing.assert_array_equal(res.loss_history, straight.loss_history)
+
+
+
+@pytest.mark.cuda
+def test_a_pass_opened_while_another_is_open_stages_on_its_own_ring(cuda):
+    """Two live passes of one placer (an attempt the watchdog gave up on
+    and its retry) never share staging slots; once no pass is open, the
+    next one reuses the newest ring."""
+    from spark_agd_tpu_torch.data import streaming
+
+    placer = streaming._DevicePlacer(cuda, None, prefetch=1)
+    p1 = placer.open_pass()
+    p2 = placer.open_pass()
+    assert p2.slots is not p1.slots
+    p1.close()
+    p3 = placer.open_pass()  # p2 is still open
+    assert p3.slots is not p2.slots and p3.slots is not p1.slots
+    p2.close()
+    p3.close()
+    p3.close()  # closing twice counts once
+    rings = len(placer.rings)
+    p4 = placer.open_pass()
+    assert p4.slots is placer.rings[-1] and len(placer.rings) == rings
+    p4.close()
+    assert placer.open == 0
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_cursor", [False, True],
+                         ids=["no_cursor", "stream_checkpoint"])
+def test_a_timed_out_streamed_attempt_leaves_the_retry_its_bits(
+        cuda, tmp_path, with_cursor):
+    """A streamed fit (numpy batches through the pinned ring, a prefetch
+    thread) whose first attempt blocks inside its second pass past
+    ``attempt_timeout``; the retry releases it from inside its own second
+    pass, so both stream at once.  The retry's passes stage through a
+    ring of their own (and, with a ``StreamCheckpoint``, the abandoned
+    attempt stops at its next commit): the fit has the straight streamed
+    fit's bits."""
+    import threading
+
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+    from spark_agd_tpu_torch.data import streaming
+    from spark_agd_tpu_torch.resilience import AutoCheckpointer
+
+    X, y = _stream_data(seed=21)
+    px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), 0.1)
+    cfg = port.AGDConfig(convergence_tol=0.0, num_iterations=6)
+    w0 = torch.zeros(300, device=cuda)
+    plain = streaming.StreamingDataset.from_arrays(X, y, batch_rows=1500)
+    sm, sl = _streamed(plain, prefetch=1)
+    straight = port.run_agd_host(sm, px, rv, w0, cfg, smooth_loss=sl)
+
+    go, woke = threading.Event(), []
+    passes = []
+
+    def factory():
+        passes.append(1)
+        p = len(passes)
+        for i, b in enumerate(plain):
+            if (p, i) == (2, 3):  # the first attempt's second pass
+                woke.append(go.wait(timeout=20))
+            if (p, i) == (4, 1):  # the retry's second pass
+                go.set()
+                threading.Event().wait(0.3)  # both attempts stream now
+            yield b
+
+    ds = streaming.StreamingDataset(factory, 1500)
+    ck = AutoCheckpointer(str(tmp_path / "ck.npz"), every_iters=3)
+    stream_ckpt = (streaming.StreamCheckpoint(ck, every_batches=1)
+                   if with_cursor else None)
+    sm2, sl2 = streaming.make_streaming_smooth(
+        port.FusedLogisticGradient(), ds, prefetch=1,
+        stream_ckpt=stream_ckpt)
+    res = port.run_agd_supervised(
+        smooth=sm2, smooth_loss=sl2, prox=px, reg_value=rv, w0=w0,
+        config=cfg, driver="host", checkpointer=ck,
+        policy=port.ResiliencePolicy(segment_iters=3, attempt_timeout=1.0,
+                                     backoff_base=0.0, jitter=0.0, seed=0))
+    for t in threading.enumerate():
+        if t.name.startswith("attempt:"):
+            t.join(timeout=60)
+            assert not t.is_alive()
+    torch.cuda.synchronize()
+    assert woke == [True]
+    assert res.retries == 1 and "AttemptTimeout" in res.attempts[0]["error"]
+    assert torch.equal(res.weights, straight.weights)
+    np.testing.assert_array_equal(res.loss_history, straight.loss_history)
+
+_CHILD = """
+import sys
+import torch
+import spark_agd_tpu_torch as port
+from spark_agd_tpu_torch.core import smooth as smooth_lib
+from spark_agd_tpu_torch.data import device_synth
+
+X, y = device_synth.class_logistic(20_003, 300, seed=14)
+staged = smooth_lib.make_smooth_staged(port.FusedLogisticGradient(), X, y)
+px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), 0.1)
+try:
+    port.run_agd_supervised(
+        prox=px, reg_value=rv, w0=torch.zeros(300, device="cuda"),
+        staged=staged,
+        config=port.AGDConfig(convergence_tol=0.0, num_iterations=12),
+        policy=port.ResiliencePolicy(segment_iters=2, backoff_base=0.0,
+                                     jitter=0.0, seed=0),
+        checkpointer=port.AutoCheckpointer(sys.argv[1], every_iters=2),
+        faults=port.FaultScript(sigterm_at_iter=6))
+except port.resilience.Preempted:
+    sys.exit(75)
+"""
+
+
+@pytest.mark.cuda
+def test_a_preempted_child_is_resumed_to_the_uninterrupted_bits(
+        cuda, tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+    from spark_agd_tpu_torch.data import device_synth
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = str(tmp_path / "child.npz")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    child = subprocess.run([sys.executable, "-c", _CHILD, path], env=env,
+                           cwd=root, capture_output=True, text=True,
+                           timeout=600)
+    assert child.returncode == 75, child.stderr[-2000:]
+    X, y = device_synth.class_logistic(20_003, 300, seed=14)
+    staged = smooth_lib.make_smooth_staged(port.FusedLogisticGradient(),
+                                           X, y)
+    px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), 0.1)
+    kw = dict(prox=px, reg_value=rv, w0=torch.zeros(300, device=cuda),
+              staged=staged,
+              config=port.AGDConfig(convergence_tol=0.0, num_iterations=12),
+              policy=port.ResiliencePolicy(segment_iters=2, backoff_base=0.0,
+                                           jitter=0.0, seed=0))
+    resumed = port.run_agd_supervised(
+        checkpointer=port.AutoCheckpointer(path, every_iters=2), **kw)
+    straight = port.run_agd_supervised(**kw)
+    assert resumed.resumed_from == 6
+    assert torch.equal(resumed.weights, straight.weights)
+    np.testing.assert_array_equal(resumed.loss_history,
+                                  straight.loss_history)

@@ -182,7 +182,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(resilience=True), dict(checkpointer=object()),
+    dict(mesh=object()),
+    # the supervised path is ported: with it, the options of later
+    # slices still raise
+    dict(resilience=True, telemetry=object()),
+    dict(checkpointer=object(), resilience=True, journal="j.wal"),
     dict(journal="j.wal"), dict(telemetry=object()),
     dict(sharded_update=True)], ids=lambda o: next(iter(o)))
 def test_later_slice_options_raise(option):

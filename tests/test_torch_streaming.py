@@ -809,9 +809,10 @@ def test_streaming_smooth_later_slice_options_raise(option):
                                                 ds, device="cpu", **option)
 
 
-@pytest.mark.parametrize("option", [dict(telemetry=object()),
-                                    dict(chaos=object())],
-                         ids=lambda o: next(iter(o)))
+@pytest.mark.parametrize("option", [
+    dict(telemetry=object()),
+    # chaos= is ported; beside it telemetry= still raises
+    dict(chaos=object(), telemetry=object())], ids=lambda o: next(iter(o)))
 def test_libsvm_parts_later_slice_options_raise(tmp_path, option):
     paths = _write_parts(tmp_path, n_shards=1)
     with pytest.raises(NotImplementedError, match="later slice"):
