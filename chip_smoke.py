@@ -310,10 +310,35 @@ Phases, each printing one JSON line:
     in segments of 4, the clean supervised run first (phase 28's bits):
     every outcome ``converged`` (the clean run's final loss; its bits
     where no NaN rolled a segment back) or ``gave_up`` where a fatal
-    fault fired, never ``mismatch`` or ``stalled``.
+    fault fired, never ``mismatch`` or ``stalled``;
+39. mesh_fit, first on phase 5's data: the same fit through
+    ``run(mesh=)`` over meshes of 1, 3 and 4 slots, each the one card (3
+    slots pad two rows), each held to phase 5's fit over common
+    iterations (rtol 1e-4) and its final gradient to f64 sums; the
+    margin kernel launched once a slot an evaluation (``stream``); the
+    card's peak within phase 5's plus the padding rows plus 1 GB (the
+    shards are views of X); wall time beside phase 5's and the
+    combine's share of an evaluation;
+40. mesh_softmax, first on phase 7's data (config 4 over 4 slots, a
+    softmax launch a slot an evaluation, held to phase 7, no third copy
+    of X), and mesh_sparse_rcv1 after phase 10 (config 1 as a
+    ``RowShardedCSR`` over 4 slots, nnz-balanced, held to phase 10 over
+    the iterations before they part and to f64 sums);
+41. mesh_stream, after phase 37 on the pinned stream: 2 slots at 3
+    iterations, held to phase 32's history, each batch copied once a
+    pass, directly from the pinned source through the card's placer;
+    then
+    ``parallel.dryrun.dryrun_multichip(4, "cuda")``;
+42. multiprocess, inside phase 34 while its part files exist: two
+    processes on the card in a gloo group (``--mp-child``), each reading
+    its 4 of the 8 parts with ``from_partitioned_files_csr`` onto a
+    4-slot mesh across them, 10 iterations: the ranks' histories and
+    weights bit-equal and held to the one-process fit on all files; then
+    a one-rank NCCL group fitting phase 5's problem on 1M rows over 2
+    slots, held to the same fit on one device.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-38) and read just after it; the sparse paths launch neither kernel,
+22-42) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -1018,6 +1043,7 @@ def margin_path(port, fk, losses, device_synth, after):
     if fk.softmax_launch_count != 0:
         raise AssertionError("the margin path launched the softmax kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    PEAKS["main_path"] = peak_gb
 
     t0 = time.perf_counter()
     w_plain, hist_plain, res_plain = port.run(
@@ -1281,7 +1307,7 @@ def softmax_path(port, fk, device_synth, after):
           "grad_abs_max": float(exact_grad.abs().max()),
           "card_before": state_before, "card_after": state_after})
     del staged, resid
-    after(Xa, y)
+    after(Xa, y, (res, hist))
     return {"name": "softmax_loss_grad", "route": "cuda",
             "source": "spark_agd_tpu_torch/csrc/softmax_loss_grad.cu",
             "replaces": "spark_agd_tpu/ops/pallas_kernels.py:409",
@@ -1784,7 +1810,7 @@ def sparse_path(port, fk, sparse, device_synth, glm, phase, cfg,
     if failed:
         raise AssertionError(f"{phase} checks failed: {failed}")
     return {"X": X, "y": y, "model": model, "trainer_cls": trainer_cls,
-            "cfg": cfg,
+            "cfg": cfg, "run": (res, hist),
             "row": {"shape": [n, d + 1], "nnz": Xa.nnz, "eval_ms": eval_ms,
                     "matvec_ms": matvec_ms, "rmatvec_ms": rmatvec_ms,
                     "bound_ms": b_ms,
@@ -4251,6 +4277,7 @@ def stream_path(port, fk, streaming, smi, host, solo, launches,
 
     res, fit_s = timed(lambda: port.run_agd_host(
         sm, px, rv, w0, cfg, smooth_loss=sl, on_iteration=on_iteration))
+    carries["hist"] = res.loss_history
     launches_fit = fk.launch_count
     evaluations_fit = fused.evaluations  # batch calls: one a batch a pass
     modes = margin_modes(fk)
@@ -4509,6 +4536,7 @@ def stream_libsvm(port, streaming, smi, path, data, Xf, cfg, launches):
                                              / np.abs(ref[:m]))),
            **report}
     finish("stream_libsvm", out, checks, t_phase, smi)
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -5043,6 +5071,554 @@ def chaos_soak(port, fk, smi, X, y, solo, launches):
         "modes": modes}, checks, t_phase, smi)
 
 
+# ---------------------------------------------------------------------------
+# Phases 39-42: data parallelism (the mesh slice)
+# ---------------------------------------------------------------------------
+
+# phase 39: phase 5's flagship over meshes of these slot counts on the one
+# card (3 slots pad two rows; 4 divide 10M rows)
+MESH_SLOTS = (1, 3, 4)
+# phase 40: configs 1 and 4 over 4 slots
+MESH_SPARSE_SLOTS = 4
+# phase 41: phase 32's stream over 2 slots at 3 iterations
+MESH_STREAM_SLOTS, MESH_STREAM_ITERS = 2, 3
+# phase 42: two processes on the card over phase 34's part files, and a
+# one-rank NCCL group fitting phase 39's problem on 1M rows
+MP_ITERS, MP_NCCL_ROWS = 10, 1_000_000
+# a child's wall limit, and the limit of each of its collectives
+MP_CHILD_TIMEOUT_S, MP_COLLECTIVE_TIMEOUT_S = 240, 120
+# every peak of the main path as it ran (phase 5's, for phase 39's check)
+PEAKS = {}
+
+
+def card_mesh(mesh_lib, k):
+    """A mesh of ``k`` slots, each the current card."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return mesh_lib.make_mesh({mesh_lib.DATA_AXIS: k}, devices=[dev] * k)
+
+
+def combine_times(gradient, mesh, X, y, w, repeats=20):
+    """Evaluations of the mesh smooth, each timed whole and its combine
+    (``dist_smooth._combine``: the slots' sums added on the lead device in
+    slot order; off the lead device also their copies, none here) timed
+    inside it, by CUDA events recorded on the card's stream just before
+    and just after the combine's launches: the combine's device time,
+    with any wait for the host to launch it.  Medians over ``repeats``
+    evaluations after a warm-up."""
+    from spark_agd_tpu_torch.parallel import dist_smooth
+
+    build, shards = dist_smooth.make_dist_smooth_staged(gradient, X, y,
+                                                        mesh=mesh)
+    smooth = build(*shards)[0]
+    real = dist_smooth._combine
+    marks = []
+
+    def timed_combine(*a):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real(*a)
+        ev[1].record()
+        marks.append(ev)
+        return out
+
+    smooth(w)
+    torch.cuda.synchronize()
+    whole = []
+    dist_smooth._combine = timed_combine
+    try:
+        for _ in range(repeats):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            smooth(w)
+            ev[1].record()
+            whole.append(ev)
+    finally:
+        dist_smooth._combine = real
+    torch.cuda.synchronize()
+    smooth_ms = float(np.median([a.elapsed_time(b) for a, b in whole]))
+    combine_ms = float(np.median([a.elapsed_time(b) for a, b in marks]))
+    return {"smooth_ms": smooth_ms, "combine_ms": combine_ms,
+            "combine_share": combine_ms / smooth_ms,
+            "combine_timed_inside_evaluations": len(marks), "w_copies": 0}
+
+
+def mesh_fit(port, fk, smi, X, y, solo, launches):
+    """Phase 39, inside phase 5's ``after`` on its 10M x 1000 f32 X: the
+    flagship fit (``run(mesh=)``, ``FusedLogisticGradient``) over MESH_SLOTS
+    slots of the card, each held to phase 5's fit over common iterations
+    (rtol 1e-4) and its final gradient to f64 sums; the margin kernel
+    launched once a slot an evaluation, all in the stream mode; the
+    card's peak within phase 5's plus one shard's padding rows plus 1 GB
+    (shards are views of X); wall time beside phase 5's fit and the
+    combine's share of one evaluation."""
+    from spark_agd_tpu_torch.parallel import dist_smooth, mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    res5, hist5, run5_s = solo
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    staged = fk.stage_dense(X, y)
+    rows, checks = {}, {}
+    for k in MESH_SLOTS:
+        mesh = card_mesh(mesh_lib, k)
+        fused = counting(port.FusedLogisticGradient)()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fk.reset_launch_counts()
+        dist_smooth.reset_counts()
+        (w, hist, res), wall = timed(lambda: port.run(
+            (X, y), fused, port.SquaredL2Updater(), reg_param=REG,
+            num_iterations=ITERS, convergence_tol=TOL, initial_weights=w0,
+            mesh=mesh, return_result=True))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        evals = dist_smooth.mesh_evaluations
+        slot_evals = dist_smooth.slot_evaluations
+        launched = fk.launch_count
+        modes = margin_modes(fk)
+        path = f"mesh_fit_{k}"
+        record_margin_path(fk, launches, path)
+        n_common = min(int(res.num_iters), int(res5.num_iters))
+        rps = -(-N_MAIN // k)
+        tail_gb = (rps * k - N_MAIN) * D_MAIN * 4 / 1e9
+        loss64, grad64 = margin_f64(w, staged)
+        mean64 = grad64 / N_MAIN
+        sm = dist_smooth.make_dist_smooth(port.FusedLogisticGradient(), X,
+                                          y, mesh=mesh)[0]
+        f_mesh, g_mesh = sm(w)
+        g_err = float((g_mesh.double() - mean64).abs().max())
+        g_max = float(mean64.abs().max())
+        row = {
+            "slots": k, "wall_s": wall, "phase5_run_s": run5_s,
+            "wall_vs_phase5": wall / run5_s, "num_iters": int(res.num_iters),
+            "mesh_evaluations": evals, "slot_evaluations": slot_evals,
+            "kernel_launches": launched,
+            "modes": modes, "peak_gb": peak,
+            "phase5_peak_gb": PEAKS["main_path"], "pad_rows": rps * k
+            - N_MAIN, "tail_gb": tail_gb,
+            "max_hist_rel_diff_vs_phase5": float(np.max(
+                np.abs(hist[:n_common] - hist5[:n_common])
+                / np.abs(hist5[:n_common]))),
+            "loss_rel_err_vs_f64": abs(float(f_mesh) * N_MAIN
+                                       - float(loss64)) / abs(float(loss64)),
+            "grad_max_abs_err_vs_f64": g_err, "grad_abs_max": g_max,
+            **combine_times(port.FusedLogisticGradient(), mesh, X, y, w)}
+        rows[str(k)] = row
+        checks.update({
+            f"{k}_launches_equal_slots_x_evaluations":
+                launched == fused.evaluations == k * evals > 0,
+            f"{k}_every_launch_stream": set(modes) == {"stream"},
+            f"{k}_same_stop_or_both_at_floor": same_stop(res, res5, hist,
+                                                         hist5),
+            f"{k}_history_rtol_1e-4_vs_phase5": bool(np.allclose(
+                hist[:n_common], hist5[:n_common], rtol=1e-4, atol=0.0)),
+            f"{k}_grad_within_1e-4_of_f64": g_err <= 1e-4 * g_max,
+            f"{k}_peak_within_phase5_plus_tail_plus_1gb":
+                peak <= PEAKS["main_path"] + tail_gb + 1.0,
+            f"{k}_finite": bool(np.isfinite(hist).all()
+                                and torch.isfinite(w).all())})
+    del staged
+    launches["mesh_fit"] = sum(launches[f"mesh_fit_{k}"] for k in MESH_SLOTS)
+    launches["modes"]["mesh_fit"] = {"stream": launches["mesh_fit"]}
+    finish("mesh_fit", {"shape": [N_MAIN, D_MAIN], "by_slots": rows},
+           checks, t_phase, smi)
+
+
+def mesh_rcv1(port, fk, sparse, glm, smi, rcv1, launches):
+    """Phase 40 (a), after phase 10 on its data: BASELINE config 1
+    (rcv1-like, with the trainer's intercept column) as a
+    ``RowShardedCSR`` over MESH_SPARSE_SLOTS slots (nnz-balanced,
+    ``shard_csr_batch``) through ``run(mesh=)``, held to phase 10's fit
+    over the iterations before they part (rtol 1e-4) and its final
+    gradient to f64 sums; no dense kernel launched; the card's peak."""
+    from spark_agd_tpu_torch.parallel import dist_smooth, mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    cfg = rcv1["cfg"]
+    res10, hist10 = rcv1["run"]
+    d = cfg["d"] + 1
+    Xa = glm._add_intercept(rcv1["X"]).with_csc()
+    y = rcv1["y"]
+    mesh = card_mesh(mesh_lib, MESH_SPARSE_SLOTS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batch, layout_s = timed(lambda: mesh_lib.shard_csr_batch(mesh, Xa, y))
+    fk.reset_launch_counts()
+    dist_smooth.reset_counts()
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+    (w, hist, res), wall = timed(lambda: port.run(
+        batch, port.LogisticGradient(), port.L2Prox(), reg_param=cfg["reg"],
+        num_iterations=ITERS, convergence_tol=TOL, initial_weights=w0,
+        return_result=True))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    dense = fk.launch_count + fk.softmax_launch_count + fk.lanes_launch_count
+    n_common = min(int(res.num_iters), int(res10.num_iters))
+    n_path = common_path(res, res10, n_common)
+    Xa64 = csr_f64(sparse, Xa)
+    _, g64, _ = port.LogisticGradient().batch_loss_and_grad(
+        w.double(), Xa64, y.double())
+    sm = dist_smooth.make_dist_smooth(port.LogisticGradient(), batch,
+                                      mesh=mesh)[0]
+    g_mesh = sm(w)[1]
+    mean64 = g64 / cfg["n"]
+    g_err = float((g_mesh.double() - mean64).abs().max())
+    g_max = float(mean64.abs().max())
+    out = {"shape": [cfg["n"], d], "nnz": Xa.nnz, "slots": MESH_SPARSE_SLOTS,
+           "nnz_per_shard": batch.X.nnz_per_shard,
+           "rows_per_shard": batch.X.rows_per_shard, "layout_s": layout_s,
+           "wall_s": wall, "num_iters": int(res.num_iters),
+           "mesh_evaluations": dist_smooth.mesh_evaluations,
+           "slot_evaluations": dist_smooth.slot_evaluations,
+           "dense_kernel_launches": dense, "common_path_iterations": n_path,
+           "max_hist_rel_diff_vs_phase10_on_the_common_path": float(np.max(
+               np.abs(hist[:n_path] - hist10[:n_path])
+               / np.abs(hist10[:n_path]))),
+           "grad_max_abs_err_vs_f64": g_err, "grad_abs_max": g_max,
+           "peak_gb_above_phase10_data": peak}
+    checks = {
+        "no_dense_kernel_launch": dense == 0,
+        "slot_evaluations": dist_smooth.slot_evaluations
+        == MESH_SPARSE_SLOTS * dist_smooth.mesh_evaluations > 0,
+        "common_path_of_10_iterations_or_more": n_path >= 10,
+        "history_rtol_1e-4_vs_phase10_on_the_common_path": bool(np.allclose(
+            hist[:n_path], hist10[:n_path], rtol=1e-4, atol=0.0)),
+        "grad_within_1e-4_of_f64": g_err <= 1e-4 * g_max,
+        "finite": bool(np.isfinite(hist).all()
+                       and torch.isfinite(w).all())}
+    del batch, Xa, Xa64
+    finish("mesh_sparse_rcv1", out, checks, t_phase, smi)
+
+
+def mesh_softmax(port, fk, smi, Xa, y, solo, launches):
+    """Phase 40 (b), inside phase 7's ``after`` on its data (X with the
+    intercept column, 25.4 GB): BASELINE config 4 through ``run(mesh=)``
+    over MESH_SPARSE_SLOTS slots with ``FusedSoftmaxGradient``, a softmax
+    launch a slot an evaluation, held to phase 7's fit over common
+    iterations (rtol 1e-4); the card holds no third copy of X (the
+    shards are views: the peak stays within 1 GB of what phase 7 left
+    allocated)."""
+    from spark_agd_tpu_torch.parallel import dist_smooth, mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    res7, hist7 = solo
+    d = D_SM + 1
+    mesh = card_mesh(mesh_lib, MESH_SPARSE_SLOTS)
+    fused = counting(port.FusedSoftmaxGradient)(port.SoftmaxGradient(K_SM))
+    w0 = torch.zeros((d, K_SM), dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    dist_smooth.reset_counts()
+    (w, hist, res), wall = timed(lambda: port.run(
+        (Xa, y), fused, port.SquaredL2Updater(), reg_param=REG_SM,
+        num_iterations=ITERS, convergence_tol=TOL, initial_weights=w0,
+        mesh=mesh, return_result=True))
+    peak_above = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launched = fk.softmax_launch_count
+    launches["mesh_softmax"] = launched
+    softmax_modes(fk, launches, "mesh_softmax")
+    n_common = min(int(res.num_iters), int(res7.num_iters))
+    out = {"shape": [N_SM, d], "classes": K_SM, "slots": MESH_SPARSE_SLOTS,
+           "x_gb": Xa.numel() * 4 / 1e9, "wall_s": wall,
+           "num_iters": int(res.num_iters),
+           "mesh_evaluations": dist_smooth.mesh_evaluations,
+           "kernel_launches": launched,
+           "modes": launches["softmax_modes"]["mesh_softmax"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_gb_above_x": peak_above,
+           "max_hist_rel_diff_vs_phase7": float(np.max(
+               np.abs(hist[:n_common] - hist7[:n_common])
+               / np.abs(hist7[:n_common])))}
+    checks = {
+        "launches_equal_slots_x_evaluations": launched == fused.evaluations
+        == MESH_SPARSE_SLOTS * dist_smooth.mesh_evaluations > 0,
+        "no_margin_kernel_launch": fk.launch_count == 0,
+        "same_stop_or_both_at_floor": same_stop(res, res7, hist, hist7),
+        "history_rtol_1e-4_vs_phase7": bool(np.allclose(
+            hist[:n_common], hist7[:n_common], rtol=1e-4, atol=0.0)),
+        "no_third_copy_of_x": peak_above < 1.0,
+        "finite": bool(np.isfinite(hist).all()
+                       and torch.isfinite(w).all())}
+    finish("mesh_softmax", out, checks, t_phase, smi)
+
+
+def mesh_stream(port, fk, streaming, smi, host, stream_ref, launches):
+    """Phase 41: phase 32's stream (phase 5's data in pinned host memory,
+    batches of STREAM_ROWS) through ``make_streaming_smooth(mesh=)`` over
+    MESH_STREAM_SLOTS slots, ``run_agd_host`` at MESH_STREAM_ITERS
+    iterations, held to phase 32's history (rtol 1e-4), the margin kernel
+    launched once a slot a batch, each batch copied to the card once a
+    pass (directly: the source is pinned); then
+    ``dryrun_multichip(4, "cuda")``
+    (dense DP, CSR DP, the fused kernel in each shard, the mesh-streamed
+    CSR fit, mesh L-BFGS, each held to its single-device run)."""
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+    from spark_agd_tpu_torch.parallel import dist_smooth, dryrun
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    ds = streaming.StreamingDataset.from_arrays(host["X"], host["y"],
+                                                STREAM_ROWS)
+    mesh = card_mesh(mesh_lib, MESH_STREAM_SLOTS)
+    fused = counting(port.FusedLogisticGradient)()
+    stats = []
+    sm, sl = streaming.make_streaming_smooth(fused, ds, mesh=mesh,
+                                             pass_stats=stats)
+    px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), REG)
+    cfg = port.AGDConfig(convergence_tol=TOL,
+                         num_iterations=MESH_STREAM_ITERS)
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    dist_smooth.reset_counts()
+    res, fit_s = timed(lambda: port.run_agd_host(sm, px, rv, w0, cfg,
+                                                 smooth_loss=sl))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launched = fk.launch_count
+    evals = dist_smooth.mesh_evaluations
+    modes = margin_modes(fk)
+    record_margin_path(fk, launches, "mesh_stream")
+    batches = -(-N_MAIN // STREAM_ROWS)
+    ref = stream_ref["hist"]
+    m = min(len(res.loss_history), len(ref))
+    fk.reset_launch_counts()
+    dry, dry_s = timed(lambda: dryrun.dryrun_multichip(4, "cuda"))
+    record_margin_path(fk, launches, "dryrun")
+    out = {"shape": [N_MAIN, D_MAIN], "slots": MESH_STREAM_SLOTS,
+           "batch_rows": STREAM_ROWS, "fit_s": fit_s,
+           "num_iters": res.num_iters, "mesh_evaluations": evals,
+           "passes": evals // batches, "kernel_launches": launched,
+           "modes": modes, "peak_gb_above_before": peak,
+           "loss_history": list(res.loss_history),
+           "phase32_loss_history": [float(v) for v in ref[:m]],
+           "max_hist_rel_diff_vs_phase32": float(np.max(
+               np.abs(res.loss_history[:m] - ref[:m]) / np.abs(ref[:m]))),
+           "pass_s": [st["pass_s"] for st in stats],
+           "h2d_bytes_per_pass": [st["h2d_bytes"] for st in stats],
+           "direct_copies_per_pass": [st["direct_copies"] for st in stats],
+           "staged_copies_per_pass": [st["staged_copies"] for st in stats],
+           "throttle_s_per_pass": [st["throttle_s"] for st in stats],
+           "dryrun_slot_evaluations": dry, "dryrun_s": dry_s,
+           "dryrun_kernel_launches": launches["dryrun"]}
+    pass_bytes = host["X"].nbytes + host["y"].nbytes
+    checks = {
+        "launches_equal_slots_x_batches_x_passes": launched
+        == fused.evaluations
+        == MESH_STREAM_SLOTS * evals > 0 and evals % batches == 0,
+        "every_launch_stream": set(modes) == {"stream"},
+        "history_rtol_1e-4_vs_phase32": bool(np.allclose(
+            res.loss_history[:m], ref[:m], rtol=1e-4, atol=0.0)),
+        "iterations": res.num_iters == MESH_STREAM_ITERS,
+        "each_batch_copied_once_directly_from_pinned_memory": bool(stats)
+        and all(st["h2d_bytes"] == pass_bytes and st["batches"] == batches
+                and st["staged_copies"] == 0 for st in stats),
+        "dryrun_fused_launches_a_slot_an_evaluation":
+            launches["dryrun"] == dry["fused_dp"] > 0,
+        "peak_within_4_batches_plus_1gb": peak <= 4 * STREAM_ROWS * D_MAIN
+        * 4 / 1e9 + 1.0}
+    finish("mesh_stream", out, checks, t_phase, smi)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _hexes(a):
+    return [float(v).hex() for v in np.asarray(a, np.float64).reshape(-1)]
+
+
+def mp_child(port, spec):
+    """The child of phase 42 (``--mp-child BACKEND ADDR WORLD RANK DIR``):
+    one rank of a process group on the card.  With a part directory,
+    ``from_partitioned_files_csr`` over its part files onto a mesh of 2
+    slots a rank and MP_ITERS iterations of logistic AGD; with ``-`` (a
+    one-rank NCCL group), phase 39's fit on MP_NCCL_ROWS rows over 2
+    slots against the same fit without a mesh.  Prints one RESULT line."""
+    import datetime
+    import glob
+    import hashlib
+
+    from spark_agd_tpu_torch.data import device_synth, ingest
+    from spark_agd_tpu_torch.ops import fused_kernels as fk
+    from spark_agd_tpu_torch.parallel import dist_smooth, mesh as mesh_lib
+    from spark_agd_tpu_torch.parallel import multihost as mh
+
+    backend, addr, world, rank, parts = spec
+    world, rank = int(world), int(rank)
+    mh.initialize(addr, world, rank, backend=backend, device="cuda:0",
+                  timeout=datetime.timedelta(
+                      seconds=MP_COLLECTIVE_TIMEOUT_S))
+    out = {"rank": rank, "backend": backend, "world": mh.process_count()}
+    mesh = mesh_lib.make_mesh({mesh_lib.DATA_AXIS: 2 * world},
+                              devices=[torch.device("cuda", 0)] * 2)
+    fk.reset_launch_counts()
+    dist_smooth.reset_counts()
+    if parts != "-":
+        paths = sorted(glob.glob(os.path.join(parts, "part-*")))
+        d = RCV1["d"]
+        (batch, ingest_s) = timed(lambda: ingest.from_partitioned_files_csr(
+            paths, mesh, n_features=d))
+        w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+        (w, hist, res), fit_s = timed(lambda: port.run(
+            batch, port.LogisticGradient(), port.L2Prox(),
+            reg_param=RCV1["reg"], num_iterations=MP_ITERS,
+            convergence_tol=TOL, initial_weights=w0, return_result=True))
+        out.update(rows=batch.X.shape[0], ingest_s=ingest_s)
+    else:
+        X, y = device_synth.class_logistic(MP_NCCL_ROWS, D_MAIN, seed=0)
+        w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+        kw = dict(reg_param=REG, num_iterations=ITERS, convergence_tol=TOL,
+                  initial_weights=w0, return_result=True)
+        (w, hist, res), fit_s = timed(lambda: port.run(
+            (X, y), port.FusedLogisticGradient(), port.SquaredL2Updater(),
+            mesh=mesh, **kw))
+        out["kernel_launches"] = fk.launch_count
+        _, hist1, res1 = port.run((X, y), port.FusedLogisticGradient(),
+                                  port.SquaredL2Updater(), mesh=False,
+                                  device="cuda", **kw)
+        n_common = min(int(res.num_iters), int(res1.num_iters))
+        out["single_device_hist"] = _hexes(hist1)
+        out["max_hist_rel_diff_vs_single_device"] = float(np.max(
+            np.abs(hist[:n_common] - hist1[:n_common])
+            / np.abs(hist1[:n_common])))
+        out["history_rtol_1e-4_vs_single_device"] = bool(np.allclose(
+            hist[:n_common], hist1[:n_common], rtol=1e-4, atol=0.0))
+    out.update(hist=_hexes(hist), diag_l=_hexes(res.diag_l[:len(hist)]),
+               w_sha256=hashlib.sha256(
+                   w.detach().cpu().numpy().tobytes()).hexdigest(),
+               iters=int(res.num_iters), fit_s=fit_s,
+               mesh_evaluations=dist_smooth.mesh_evaluations,
+               slot_evaluations=dist_smooth.slot_evaluations)
+    torch.cuda.synchronize()
+    print("RESULT " + json.dumps(out), flush=True)
+    mh.shutdown()
+    return 0
+
+
+def run_children(args_list):
+    """Start the children together, wait for each under
+    MP_CHILD_TIMEOUT_S, kill any left; on a failure print each child's
+    stderr and raise.  Returns their RESULT objects."""
+    script = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, script, "--mp-child", *a],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              cwd=os.path.dirname(script))
+             for a in args_list]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=MP_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+                err += f"\n[timed out after {MP_CHILD_TIMEOUT_S} s]"
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rc, out, err in outs:
+        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        if rc != 0 or not line:
+            for i, (_, _, e) in enumerate(outs):
+                print(f"--- child {i} stderr ---\n{e[-6000:]}",
+                      file=sys.stderr, flush=True)
+            raise AssertionError(f"multiprocess: a child failed (rc {rc})")
+        results.append(json.loads(line[-1][len("RESULT "):]))
+    return results
+
+
+def multiprocess(port, fk, smi, paths, launches):
+    """Phase 42, inside phase 11 while phase 34's part files exist: two
+    processes on the one card in a gloo group
+    (``multihost.initialize(backend="gloo")``: NCCL refuses two ranks on
+    one device), each reading its 4 of the 8 rcv1-like part files with
+    ``from_partitioned_files_csr`` onto a 4-slot mesh across them
+    (MP_ITERS iterations of logistic AGD); both ranks' histories and
+    weights bit-equal, and held to the one-process fit on all 8 files
+    over the iterations before they part (rtol 1e-4).  Then a one-rank
+    NCCL group fitting phase 39's problem on MP_NCCL_ROWS rows, its
+    combine through the group's all-gather, held to the same fit without
+    a mesh.  Every child runs under a timeout; its stderr is printed on a
+    failure."""
+    from spark_agd_tpu_torch.data import ingest
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    parts_dir = os.path.dirname(paths[0])
+    addr = f"localhost:{_free_port()}"
+    (r0, r1), gloo_s = timed(lambda: run_children(
+        [("gloo", addr, "2", str(r), parts_dir) for r in range(2)]))
+    d = RCV1["d"]
+    mesh = card_mesh(mesh_lib, 4)
+    batch = ingest.from_partitioned_files_csr(paths, mesh, n_features=d)
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+    _, hist_ref, res_ref = port.run(
+        batch, port.LogisticGradient(), port.L2Prox(), reg_param=RCV1["reg"],
+        num_iterations=MP_ITERS, convergence_tol=TOL, initial_weights=w0,
+        return_result=True)
+    del batch
+    hist = np.array([float.fromhex(v) for v in r0["hist"]])
+    l_mp = np.array([float.fromhex(v) for v in r0["diag_l"]])
+    n_common = min(len(hist), int(res_ref.num_iters))
+    l_ref = res_ref.diag_l[:n_common].double().numpy()
+    parted = ~np.isclose(l_mp[:n_common], l_ref, rtol=1e-4, atol=0.0)
+    n_path = int(np.argmax(parted)) - 1 if parted.any() else n_common
+    fk.reset_launch_counts()
+    (nccl,), nccl_s = timed(lambda: run_children(
+        [("nccl", f"localhost:{_free_port()}", "1", "0", "-")]))
+    launches["multiprocess"] = nccl["kernel_launches"]
+    launches.setdefault("modes", {})["multiprocess"] = {
+        "stream": nccl["kernel_launches"]}
+    out = {"parts": len(paths), "gloo_ranks": 2, "slots_per_rank": 2,
+           "gloo_wall_s": gloo_s, "rank_fit_s": [r0["fit_s"], r1["fit_s"]],
+           "rank_ingest_s": [r0["ingest_s"], r1["ingest_s"]],
+           "rows": r0["rows"], "num_iters": r0["iters"],
+           "common_path_iterations": n_path,
+           "max_hist_rel_diff_vs_one_process": float(np.max(
+               np.abs(hist[:n_path] - hist_ref[:n_path])
+               / np.abs(hist_ref[:n_path]))) if n_path > 0 else None,
+           "loss_history": hist.tolist(),
+           "one_process_loss_history": hist_ref.tolist(),
+           "nccl_wall_s": nccl_s, "nccl_fit_s": nccl["fit_s"],
+           "nccl_shape": [MP_NCCL_ROWS, D_MAIN],
+           "nccl_kernel_launches": nccl["kernel_launches"],
+           "nccl_mesh_evaluations": nccl["mesh_evaluations"],
+           "nccl_max_hist_rel_diff_vs_single_device":
+               nccl["max_hist_rel_diff_vs_single_device"]}
+    checks = {
+        "ranks_bit_equal": (r0["hist"], r0["diag_l"], r0["w_sha256"])
+        == (r1["hist"], r1["diag_l"], r1["w_sha256"]),
+        "ranks_in_a_group_of_2": (r0["world"], r1["world"]) == (2, 2),
+        "iterations": r0["iters"] == int(res_ref.num_iters) == MP_ITERS,
+        "common_path_of_3_iterations_or_more": n_path >= 3,
+        "history_rtol_1e-4_vs_one_process_on_the_common_path": bool(
+            np.allclose(hist[:n_path], hist_ref[:n_path], rtol=1e-4,
+                        atol=0.0)),
+        "slot_evaluations": r0["slot_evaluations"]
+        == 2 * r0["mesh_evaluations"] > 0,
+        "nccl_group_of_1": nccl["world"] == 1,
+        "nccl_launches_a_slot_an_evaluation": nccl["kernel_launches"]
+        == nccl["slot_evaluations"] == 2 * nccl["mesh_evaluations"] > 0,
+        "nccl_history_rtol_1e-4_vs_single_device":
+            nccl["history_rtol_1e-4_vs_single_device"],
+        "finite": bool(np.isfinite(hist).all())}
+    finish("multiprocess", out, checks, t_phase, smi)
+
+
 def main(argv):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card.")
@@ -5060,6 +5636,10 @@ def main(argv):
                              "edges, handover, two_pass) or --ab margin: "
                              "(sweep, grid), comma-separated; all by "
                              "default")
+    parser.add_argument("--mp-child", nargs=5,
+                        metavar=("BACKEND", "ADDR", "WORLD", "RANK", "DIR"),
+                        help="run one rank of phase 42's process group "
+                             "(started by the script itself)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5074,6 +5654,8 @@ def main(argv):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.mp_child:
+        return mp_child(port, args.mp_child)
 
     # 1. device
     smi = gpu_name_and_power()
@@ -5122,6 +5704,9 @@ def main(argv):
     lbfgs13, stream_ref = {}, {}  # phases 13 and 32 for phases 36-37
 
     def on_flagship(X, y, solo):
+        # 39. the same fit over meshes of 1, 3 and 4 slots of the card
+        mesh_fit(port, fk, smi, X, y, solo, launches)
+        torch.cuda.empty_cache()
         lbfgs_path(port, fk, smi, X, y, launches, keep=lbfgs13)
         lanes.update(sweep_path(port, fk, losses, smi, X, y, solo,
                                 launches, keep=sweep_ref))
@@ -5136,7 +5721,10 @@ def main(argv):
         torch.cuda.empty_cache()
         flagship.update(host=pinned_copy(streaming, X, y), solo=solo)
 
-    def on_softmax(Xa, y):
+    def on_softmax(Xa, y, solo):
+        # 40 (b). config 4 over 4 slots, shard views of Xa
+        mesh_softmax(port, fk, smi, Xa, y, solo, launches)
+        torch.cuda.empty_cache()
         softmax_lbfgs_path(port, fk, glm, smi, Xa, y, launches)
         softmax_sweep(port, fk, glm, smi, Xa, y, launches)
 
@@ -5151,6 +5739,9 @@ def main(argv):
                  sweep_ref.pop("res"), lbfgs_ref.pop("res"), launches)
     supervised_stream(port, fk, streaming, smi, flagship["host"],
                       stream_ref, launches)
+    # 41. the stream over a mesh of 2 slots, then the dry run
+    mesh_stream(port, fk, streaming, smi, flagship["host"], stream_ref,
+                launches)
     stream_ref.clear()
     for t in (flagship["host"]["X"], flagship["host"]["y"]):
         streaming.unpin_host(t)
@@ -5166,10 +5757,15 @@ def main(argv):
     rcv1 = sparse_path(port, fk, sparse, device_synth, glm, "rcv1_path",
                        RCV1, glm.LogisticRegressionWithAGD,
                        port.LogisticGradient, port.L2Prox)
-    # 34 (inside 11). the file cut into part files and streamed
+    # 40 (a). config 1 as a RowShardedCSR over 4 slots
+    mesh_rcv1(port, fk, sparse, glm, smi, rcv1, launches)
+    torch.cuda.empty_cache()
+    # 34 and 42 (inside 11). the file cut into part files and streamed,
+    # then read by two processes of a gloo group
     phase_libsvm(port, sparse, native, rcv1, lambda path, data, Xf:
-                 stream_libsvm(port, streaming, smi, path, data, Xf,
-                               rcv1["cfg"], launches))
+                 multiprocess(port, fk, smi, stream_libsvm(
+                     port, streaming, smi, path, data, Xf, rcv1["cfg"],
+                     launches), launches))
     rcv1_lbfgs(port, fk, sparse, glm, smi, rcv1)
     rows = {"rcv1_like": rcv1["row"]}
     del rcv1
@@ -5228,7 +5824,8 @@ def main(argv):
     paths = ("lbfgs_path", "gd_gate", "mid_path", "epsilon_path",
              "linreg_path", "wide_path", "snp_path", "stream_path",
              "stream_libsvm", "supervised_fit", "supervised_path_lbfgs",
-             "supervised_stream", "chaos_soak")
+             "supervised_stream", "chaos_soak", "mesh_fit", "mesh_stream",
+             "dryrun", "multiprocess")
     margin["launches_by_path"] = {"main_path": margin["launches"],
                                   **{p: launches[p] for p in paths}}
     margin["modes_by_path"] = {"main_path": margin.pop("main_path_modes"),
@@ -5247,7 +5844,8 @@ def main(argv):
         "stream_epsilon": epsilon, "narrow": narrow, "warp_rows": mid,
         "cluster": wide, "grid": snp, "grid_past_cluster_reach": wide_grid,
         "two_pass": wide_two_pass, "stream_streamed": stream}
-    softmax_paths = ("softmax_lbfgs_path", "softmax_sweep", "softmax_wide")
+    softmax_paths = ("softmax_lbfgs_path", "softmax_sweep", "softmax_wide",
+                     "mesh_softmax")
     softmax["launches_by_path"] = {"softmax_path": softmax["launches"],
                                    **{p: launches[p] for p in softmax_paths}}
     softmax["modes_by_path"] = {

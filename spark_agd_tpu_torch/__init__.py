@@ -1,13 +1,13 @@
 """spark_agd_tpu_torch — the PyTorch/CUDA port of ``spark_agd_tpu``.
 
-TFOCS-style accelerated proximal gradient descent on one NVIDIA GPU: the
-same losses, prox operators, optimizer loop, public API and GLM
-trainers as the JAX package, with the fused loss+gradient kernels written
+TFOCS-style accelerated proximal gradient descent on NVIDIA GPUs (one, or
+a mesh of them): the same losses, prox operators, optimizer loop, public
+API and GLM trainers as the JAX package, with the fused loss+gradient kernels written
 by hand in CUDA for Hopper (``csrc/margin_loss_grad.cu``,
 ``csrc/margin_lanes_loss_grad.cu``, ``csrc/softmax_loss_grad.cu``).  The package imports
 ``torch`` and never ``jax`` or ``spark_agd_tpu``.
 
-Layer map (dense and CSR data, one device):
+Layer map (dense and CSR data, one device or a mesh of them):
 
 ====  ==========================  ===========================================
 L6    model layer                 ``models.glm`` trainers and models,
@@ -32,6 +32,12 @@ L4    optimizer core              ``core.agd.run_agd``, ``core.gd``,
 L3    math plugins                ``ops.losses`` (Gradient), ``ops.prox``
                                   (Updater), ``ops.fused_kernels`` (CUDA),
                                   ``ops.sparse`` (CSRMatrix products)
+L2    data parallelism            ``parallel.mesh`` (``Mesh``, slots that
+                                  may repeat a device; ``shard_batch``
+                                  as views), ``parallel.dist_smooth``
+                                  (a launch a slot, the slots' sums in
+                                  slot order), ``parallel.multihost``
+                                  (``torch.distributed``)
 L2    data plane, resilience      ``data.streaming`` (macro-batches
                                   through pinned memory on a side
                                   stream, ``StreamingDataset``,

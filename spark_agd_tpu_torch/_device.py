@@ -24,3 +24,17 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            f"available")
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether ``a`` and ``b`` name one device, ``"cuda"`` standing for
+    the current CUDA device (so ``"cuda"`` is a mesh's lead ``cuda:0``
+    when that is the current device)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type == "cuda" and a.index is None:
+        a = torch.device("cuda", torch.cuda.current_device())
+    if b.type == "cuda" and b.index is None:
+        b = torch.device("cuda", torch.cuda.current_device())
+    return a == b

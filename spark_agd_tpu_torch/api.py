@@ -16,18 +16,27 @@ loops; and the streamed paths over data larger than the card
 (``streaming_sweep``, ``streaming_lbfgs_sweep``, over a
 ``data.streaming.StreamingDataset``).  Data is ``(X, y)`` or ``(X, y,
 mask)``, as tensors or numpy arrays, with X dense or an
-``ops.sparse.CSRMatrix``; it is placed on the run's device once.
+``ops.sparse.CSRMatrix``, or a ``parallel.mesh.ShardedBatch`` already
+placed on a mesh; it is placed once.
 
 The entry points run on the current CUDA device unless the caller passes
 ``device=`` (``"cpu"`` for the CPU); with no CUDA device and no explicit
-device they raise.  ``dist_mode=`` is validated and, with no mesh,
-inert, as in the JAX package.  ``verbose=True`` logs the fit's
-per-iteration lines through ``utils.logging.log_result``.
-``run(resilience=..., checkpointer=...)`` runs the fit under the
-single-device supervisor (``resilience.supervisor``): segments, retries,
-rollbacks and an ``AutoCheckpointer``.  Meshes, ``journal=``, telemetry
-and the sharded update are not in this slice: asking for them raises
-``NotImplementedError`` naming the slice that brings them.
+device they raise.  ``mesh=`` (``run``, ``make_runner``, ``run_lbfgs``,
+``make_lbfgs_runner``, ``run_minibatch_sgd``, the optimizers'
+``set_mesh``) runs data parallelism over a ``parallel.mesh.Mesh``'s data
+axis (``parallel.dist_smooth``), the carry on the mesh's lead device;
+``mesh=None`` does what the JAX package does: with no ``device=`` and
+more than one visible CUDA device (or a process group of more than one
+rank) it shards over all of them, else it runs locally; ``mesh=False``
+runs locally.  ``dist_mode=`` is validated and, with no mesh, inert, as
+in the JAX package.  ``verbose=True`` logs the fit's per-iteration lines
+through ``utils.logging.log_result``.  ``run(resilience=...,
+checkpointer=...)`` runs the fit under the supervisor
+(``resilience.supervisor``): segments, retries, rollbacks and an
+``AutoCheckpointer``.  A mesh's model axis, the grid fits over a mesh,
+``journal=``, telemetry and the sharded update are not in this slice:
+asking for them raises ``NotImplementedError`` naming the slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -38,13 +47,14 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ._device import resolve_device
-from ._later import reject_later
+from ._device import resolve_device, same_device
+from ._later import reject_grid_mesh, reject_later
 from .core import agd, gd, host_agd, lbfgs as lbfgs_lib, prng
 from .core import smooth as smooth_lib, tvec
 from .ops.losses import Gradient
 from .ops.prox import IdentityProx, Prox
-from .ops.sparse import CSRMatrix
+from .ops.sparse import CSRMatrix, RowShardedCSR
+from .parallel import dist_smooth, mesh as mesh_lib, multihost
 
 _DIST_MODES = ("shard_map", "auto")
 
@@ -71,12 +81,95 @@ def _check_grid_fit(updater, reg_params, op_name: str):
 
 
 def _normalize_data(data):
-    """Accept (X, y) or (X, y, mask)."""
+    """Accept (X, y), (X, y, mask) or a ShardedBatch (returned as it
+    is)."""
+    if isinstance(data, mesh_lib.ShardedBatch):
+        return data
     if isinstance(data, (tuple, list)) and len(data) in (2, 3):
         X, y = data[0], data[1]
         return X, y, data[2] if len(data) == 3 else None
-    raise TypeError("data must be (X, y) or (X, y, mask); got "
-                    f"{type(data).__name__}")
+    raise TypeError("data must be (X, y), (X, y, mask) or a ShardedBatch; "
+                    f"got {type(data).__name__}")
+
+
+def _resolve_mesh(mesh, device=None):
+    """``False`` -> local; ``None`` -> a data mesh over every visible CUDA
+    device when there is more than one (or over the process group's ranks
+    when it has more than one) and no ``device=`` was named, else local;
+    a ``Mesh`` -> itself, checked (a model axis raises; a ``device=``
+    must be its lead device)."""
+    if mesh is False:
+        return None
+    if mesh is None:
+        if device is not None:
+            return None
+        multihost.check_launch()
+        cards = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if cards <= 1 and multihost.process_count() <= 1:
+            return None
+        return mesh_lib.make_mesh()
+    mesh_lib.check_data_mesh(mesh)
+    if device is not None and not same_device(device, mesh.lead):
+        raise ValueError(f"device={device} is not the mesh's lead device "
+                         f"{mesh.lead}; drop one of the two")
+    return mesh
+
+
+def _batch_mesh(batch: "mesh_lib.ShardedBatch"):
+    """The mesh a pre-placed batch lives on (dense or CSR alike)."""
+    return batch.X.mesh
+
+
+def _resolve_fit_mesh(data, mesh, device=None):
+    """The one mesh-dispatch decision of the mesh-capable entry points.
+    Returns ``(m, batch, csr_raw)``: ``batch`` is the ``ShardedBatch``
+    when ``data`` is pre-placed (``m`` is then its mesh, and an explicit
+    ``mesh`` must be it or this raises), else None; ``m`` the resolved
+    mesh (None: one device); ``csr_raw``: ``data`` is a raw
+    ``(CSRMatrix, ...)`` tuple."""
+    if isinstance(data, mesh_lib.ShardedBatch):
+        m = _batch_mesh(data)
+        if mesh not in (None, False) and mesh != m:
+            raise ValueError(
+                "explicit mesh differs from the ShardedBatch's mesh; "
+                "re-shard the batch or drop the mesh argument")
+        return m, data, False
+    csr_raw = (isinstance(data, (tuple, list))
+               and isinstance(data[0], CSRMatrix))
+    return _resolve_mesh(mesh, device), None, csr_raw
+
+
+def _reconcile_runner_mesh(data, mesh, dist_mode: str, device=None):
+    """The ``make_*_runner`` preamble on :func:`_resolve_fit_mesh`:
+    ``mesh=False`` forces one device even on a pre-placed batch, and raw
+    CSR forces the explicit ``shard_map`` mode.  Returns ``(data,
+    resolved_mesh, dist_mode)``."""
+    data = _normalize_data(data)
+    m, batch, csr_raw = _resolve_fit_mesh(data, mesh, device)
+    if batch is not None and mesh is False:
+        m = None
+    if csr_raw:
+        dist_mode = "shard_map"
+    return data, m, dist_mode
+
+
+def _grid_mesh(data, mesh):
+    """The mesh a grid fit was asked to run on: a pre-placed batch's own
+    when ``data`` is one (the grid fits run on one device in this slice,
+    so either raises)."""
+    return _batch_mesh(data) if isinstance(data, mesh_lib.ShardedBatch) \
+        else mesh
+
+
+def _gathered(batch: "mesh_lib.ShardedBatch"):
+    """A dense pre-placed batch's (X, y, mask) as whole tensors on the
+    CPU (``mesh=False`` on a ShardedBatch)."""
+    if isinstance(batch.X, RowShardedCSR):
+        raise ValueError("mesh=False on a row-sharded CSR batch: pass the "
+                         "CSRMatrix itself for a single-device fit")
+    return (batch.X.gather(), batch.y.gather(),
+            None if batch.mask is None else batch.mask.gather())
 
 
 def _place(a, device):
@@ -97,13 +190,24 @@ def _owned(a, device):
     return torch.tensor(np.asarray(a), device=device)
 
 
-def _stage(data, gradient: Gradient, device):
-    """``(device, (build, data_args))``: the data placed on the run's
-    device once and prepared (``core.smooth.make_smooth_staged``)."""
-    dev = resolve_device(device)
-    X, y, mask = _normalize_data(data)
-    return dev, smooth_lib.make_smooth_staged(
-        gradient, _place(X, dev), _place(y, dev), _place(mask, dev))
+def _stage(data, gradient: Gradient, device, mesh=False,
+           dist_mode: str = "shard_map"):
+    """``(device, (build, data_args))``: the data placed once and
+    prepared, on the run's device (``core.smooth.make_smooth_staged``)
+    or sharded over the resolved mesh (``parallel.dist_smooth``), whose
+    lead device is then the run's."""
+    data, m, dist_mode = _reconcile_runner_mesh(data, mesh, dist_mode,
+                                                device)
+    if m is None:
+        dev = resolve_device(device)
+        X, y, mask = (_gathered(data)
+                      if isinstance(data, mesh_lib.ShardedBatch) else data)
+        return dev, smooth_lib.make_smooth_staged(
+            gradient, _place(X, dev), _place(y, dev), _place(mask, dev))
+    batch = (data if isinstance(data, mesh_lib.ShardedBatch)
+             else mesh_lib.shard_batch(m, *data))
+    return m.lead, dist_smooth.make_dist_smooth_staged(
+        gradient, batch, mesh=m, mode=dist_mode)
 
 
 def make_runner(
@@ -127,11 +231,11 @@ def make_runner(
     sharded_update: bool = False,
 ):
     """Build ``fit(initial_weights) -> AGDResult`` over data placed and
-    prepared once (``gradient.prepare`` runs here, not per fit)."""
+    prepared once (``gradient.prepare`` runs here, not per fit; on a
+    mesh once a shard)."""
     _check_dist_mode(dist_mode)
-    reject_later(mesh=mesh, telemetry=telemetry,
-                 sharded_update=sharded_update)
-    dev, (build, dargs) = _stage(data, gradient, device)
+    reject_later(telemetry=telemetry, sharded_update=sharded_update)
+    dev, (build, dargs) = _stage(data, gradient, device, mesh, dist_mode)
     px, rv = smooth_lib.make_prox(updater, reg_param)
     cfg = agd.AGDConfig(
         convergence_tol=convergence_tol, num_iterations=num_iterations,
@@ -235,10 +339,9 @@ def _run_supervised(data, gradient, updater, cfg, reg_param,
     from .resilience import supervisor as supervisor_lib
 
     _check_dist_mode(dist_mode)
-    reject_later(mesh=mesh, telemetry=telemetry,
-                 sharded_update=sharded_update)
+    reject_later(telemetry=telemetry, sharded_update=sharded_update)
     policy = None if resilience is True else resilience
-    dev, staged = _stage(data, gradient, device)
+    dev, staged = _stage(data, gradient, device, mesh, dist_mode)
     px, rv = smooth_lib.make_prox(updater, reg_param)
     sres = supervisor_lib.run_agd_supervised(
         prox=px, reg_value=rv, w0=initial_weights, config=cfg,
@@ -348,9 +451,9 @@ def make_sweep_runner(
     ``lanes_loss_and_grad`` call for all lanes (one launch of the lanes
     kernel through ``FusedMarginGradient``).  ``warm``: a batched
     ``AGDWarmState`` (``sweep_warm_state``) continues every lane.
-    Single device only in this slice (``mesh`` takes ``None`` or
-    ``False``)."""
-    reject_later(mesh=mesh)
+    Single device only in this slice: a mesh raises (the mesh sweeps
+    come with a later slice)."""
+    reject_grid_mesh(_grid_mesh(data, mesh), "the sweep")
     cfg = agd.AGDConfig(
         convergence_tol=convergence_tol, num_iterations=num_iterations,
         l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
@@ -535,7 +638,7 @@ def _build_cv(data, gradient, updater, n_folds, convergence_tol,
     reg_params)`` runs the lane grid."""
     if n_folds < 2:
         raise ValueError("n_folds must be >= 2")
-    reject_later(mesh=mesh)
+    reject_grid_mesh(_grid_mesh(data, mesh), "cross_validate")
     cfg = agd.AGDConfig(
         convergence_tol=convergence_tol, num_iterations=num_iterations,
         l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
@@ -658,8 +761,10 @@ class AcceleratedGradientDescent:
         return self
 
     def set_mesh(self, mesh):
-        """Only ``None`` and ``False`` (single device) in this slice."""
-        reject_later(mesh=mesh)
+        """A data-axis ``parallel.mesh.Mesh``, ``None`` (the default rule
+        of :func:`run`) or ``False`` (one device); a model axis raises."""
+        if mesh is not None and mesh is not False:
+            mesh_lib.check_data_mesh(mesh)
         self._mesh = mesh
         return self
 
@@ -778,13 +883,45 @@ def run_minibatch_sgd(
 ):
     """MLlib ``GradientDescent.runMiniBatchSGD``, the oracle the
     reference tests against: returns ``(weights, loss_history)``, one
-    history entry per iteration (``core.gd``).  Single device only in
-    this slice (``mesh`` takes ``None`` or ``False``)."""
+    history entry per iteration (``core.gd``).
+
+    ``mesh=False`` (the default) runs on one device.  A ``Mesh``, ``None``
+    (the rule of :func:`run`) or a dense ``ShardedBatch`` shards the rows
+    over the mesh's data axis: the samples are the single-device run's
+    on the identically padded rows (each slot slices its block of one
+    global draw), and each iteration's sums are combined across the
+    slots.  Dense only: the nnz-balanced CSR layout permutes rows, which
+    would break the global sample."""
     if initial_weights is None:
         raise ValueError("initial_weights is required")
-    reject_later(mesh=mesh)
+    data = _normalize_data(data)
+    m, batch, csr_raw = _resolve_fit_mesh(data, mesh, device)
+    if csr_raw:
+        if mesh not in (None, False):
+            raise ValueError(
+                "mesh run_minibatch_sgd supports dense data only (the "
+                "nnz-balanced CSR layout permutes rows, breaking the "
+                "global Bernoulli sample slicing); drop the mesh "
+                "argument for a single-device oracle run")
+        m = None
+    if m is not None:
+        if batch is None:
+            batch = mesh_lib.shard_batch(m, *data)
+        elif isinstance(batch.X, RowShardedCSR):
+            raise ValueError(
+                "mesh run_minibatch_sgd supports dense batches only (the "
+                "nnz-balanced CSR layout permutes rows, breaking the "
+                "global Bernoulli sample slicing)")
+        res = gd.run_minibatch_sgd_mesh(
+            gradient, updater, batch, m,
+            tvec.tmap(lambda a: _owned(a, m.lead), initial_weights),
+            step_size=step_size, num_iterations=num_iterations,
+            reg_param=reg_param, minibatch_fraction=minibatch_fraction,
+            seed=seed)
+        return res.weights, res.loss_history.numpy()
     dev = resolve_device(device)
-    X, y, mask = _normalize_data(data)
+    X, y, mask = (_gathered(data) if isinstance(data, mesh_lib.ShardedBatch)
+                  else data)
     res = gd.run_minibatch_sgd(
         gradient, updater, _place(X, dev), _place(y, dev),
         tvec.tmap(lambda a: _owned(a, dev), initial_weights),
@@ -814,7 +951,7 @@ def make_lbfgs_runner(
     penalty folded into the objective; an L1 or elastic-net updater
     routes to OWL-QN through ``Prox.owlqn_decomposition``, checked
     before any staging.  ``fit.algorithm`` is ``"lbfgs"`` or
-    ``"owlqn"``."""
+    ``"owlqn"``.  ``mesh`` composes as in :func:`make_runner`."""
     decomp = updater.owlqn_decomposition(float(reg_param))
     if decomp is None:
         raise ValueError(
@@ -824,11 +961,8 @@ def make_lbfgs_runner(
             "AcceleratedGradientDescent")
     l1_coeff, extra = decomp
     _check_dist_mode(dist_mode)
-    reject_later(mesh=mesh, telemetry=telemetry)
-    dev = resolve_device(device)
-    X, y, mask = _normalize_data(data)
-    build, dargs = smooth_lib.make_smooth_staged(
-        gradient, _place(X, dev), _place(y, dev), _place(mask, dev))
+    reject_later(telemetry=telemetry)
+    dev, (build, dargs) = _stage(data, gradient, device, mesh, dist_mode)
     cfg = lbfgs_lib.LBFGSConfig(
         num_corrections=num_corrections, convergence_tol=convergence_tol,
         num_iterations=num_iterations, grad_tol=grad_tol)
@@ -926,8 +1060,10 @@ class LBFGS:
         return self
 
     def set_mesh(self, mesh):
-        """Only ``None`` and ``False`` (single device) in this slice."""
-        reject_later(mesh=mesh)
+        """A data-axis ``parallel.mesh.Mesh``, ``None`` (the default rule
+        of :func:`run`) or ``False`` (one device); a model axis raises."""
+        if mesh is not None and mesh is not False:
+            mesh_lib.check_data_mesh(mesh)
         self._mesh = mesh
         return self
 
@@ -1000,9 +1136,9 @@ def make_lbfgs_sweep_runner(
     Smooth penalties only (L1 and elastic-net grids raise, as in the JAX
     package, where the OWL-QN dispatch cannot join traced lanes).  The
     result's fields gain a leading K axis; ``eval_rounds`` counts the
-    rounds.  Single device only in this slice (``mesh`` takes ``None`` or
-    ``False``)."""
-    reject_later(mesh=mesh)
+    rounds.  Single device only in this slice: a mesh raises (the mesh
+    sweeps come with a later slice)."""
+    reject_grid_mesh(_grid_mesh(data, mesh), "the L-BFGS sweep")
     lbfgs_lib.check_smooth_penalty(updater, 1.0)
     cfg = lbfgs_lib.LBFGSConfig(
         num_corrections=num_corrections, convergence_tol=convergence_tol,
@@ -1090,13 +1226,14 @@ def streaming_sweep(
     Port-only keywords: ``device`` (the current CUDA device by default,
     ``"cpu"`` for the CPU) and ``pass_stats`` (a list that receives each
     pass's stats).
-    ``mesh=`` and ``csr_nnz_per_shard=`` come with the mesh slice and
-    raise."""
+    ``mesh=`` (the streamed sweeps over a mesh, the grid family) comes
+    with a later slice and raises; ``csr_nnz_per_shard`` is inert
+    without it."""
     from .data import streaming as streaming_lib
 
     if initial_weights is None:
         raise ValueError("initial_weights is required")
-    reject_later(mesh=mesh, csr_nnz_per_shard=csr_nnz_per_shard)
+    reject_grid_mesh(mesh, "streaming_sweep")
     regs = list(reg_params)
     dev = resolve_device(device)
     # one placer for both evaluators: one ring of pinned staging buffers
@@ -1146,7 +1283,7 @@ def streaming_lbfgs_sweep(
 
     if initial_weights is None:
         raise ValueError("initial_weights is required")
-    reject_later(mesh=mesh, csr_nnz_per_shard=csr_nnz_per_shard)
+    reject_grid_mesh(mesh, "streaming_lbfgs_sweep")
     # the guard LBFGS.sweep applies: a no-penalty updater would return K
     # identical lanes
     regs = _lbfgs_regs(_check_grid_fit(updater, reg_params,

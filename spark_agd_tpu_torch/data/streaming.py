@@ -38,6 +38,17 @@ Placement on the card:
 With ``device="cpu"`` the batches are used where they lie, the fused
 gradients run their plain versions, and nothing is pinned.  Counts are
 Python ints (no wrap at any scale).
+
+With ``mesh=`` (a data-axis ``parallel.mesh.Mesh``) each macro-batch is
+sharded over the mesh as the in-memory mesh path shards its data: dense
+by ``mesh.shard_batch`` (views of the batch, a shard copied to its slot),
+CSR by the nnz-balanced ``mesh.shard_csr_batch`` under one fixed entry
+budget a shard (``csr_nnz_per_shard``); each slot evaluates its shard and
+the slots' sums are added in slot order (``parallel.dist_smooth``).  On
+the card the placement is the one above, a pinned ring and side stream
+for each distinct slot device: each device's rows (dense) or stacked
+shards (CSR) are staged and copied as one run, and each slot's shard is a
+view of it, so slots that repeat one card copy the batch once.
 """
 
 from __future__ import annotations
@@ -56,11 +67,12 @@ from typing import (Callable, Iterable, Iterator, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from .._device import resolve_device
-from .._later import reject_later
+from .._device import resolve_device, same_device
+from .._later import reject_grid_mesh, reject_later
 from ..core import tvec
 from ..ops.losses import Gradient
 from ..ops.sparse import CSRMatrix, _values_tensor
+from ..parallel.mesh import host_tensor
 from ..resilience import retry as retry_lib
 from ..resilience.errors import StreamDataLoss
 
@@ -553,21 +565,6 @@ class StreamingDataset:
 # ---------------------------------------------------------------------------
 
 
-def _cpu_tensor(a) -> torch.Tensor:
-    """A host array as a tensor without a copy (bf16 numpy by its bits;
-    a read-only array, a memmap's for example, is only read)."""
-    if isinstance(a, torch.Tensor):
-        return a
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return _values_tensor(np.ascontiguousarray(a))
-    if not a.flags.writeable:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)
-            return torch.from_numpy(a)
-    return torch.from_numpy(a)
-
-
 def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     """``t`` with zero rows appended up to ``rows``."""
     pad = torch.zeros((rows - t.shape[0],) + tuple(t.shape[1:]),
@@ -600,23 +597,23 @@ def _split(X, y, mask, pad_to):
     raw batch: padding is recorded, not applied."""
     if isinstance(X, CSRMatrix):
         leaves = [(getattr(X, name), None) for name in _CSR_LEAVES]
-        leaves += [(_cpu_tensor(y), None),
-                   (None if mask is None else _cpu_tensor(mask), None)]
+        leaves += [(host_tensor(y), None),
+                   (None if mask is None else host_tensor(mask), None)]
         return "csr", leaves, (X.shape, X.want_csc)
-    X, y = _cpu_tensor(X), _cpu_tensor(y)
+    X, y = host_tensor(X), host_tensor(y)
     n = X.shape[0]
     if pad_to is not None and n < pad_to:
         base = (torch.ones(n, dtype=torch.float32) if mask is None
-                else _cpu_tensor(mask).to(torch.float32))
+                else host_tensor(mask).to(torch.float32))
         return "dense", [(X, pad_to), (y, pad_to), (base, pad_to)], ()
-    m = None if mask is None else _cpu_tensor(mask)
+    m = None if mask is None else host_tensor(mask)
     return "dense", [(X, None), (y, None), (m, None)], ()
 
 
 def _assemble(kind, leaves, meta):
     """The device batch ``(X, y, mask)`` of placed leaves; a CSR batch
     that wants its column-sorted twin gets it here, on the device."""
-    if kind == "dense":
+    if kind in ("dense", "leaves"):
         return tuple(leaves)
     rid, cid, val, crid, ccid, cval, y, mask = leaves
     shape, want_csc = meta
@@ -767,8 +764,14 @@ class _PassPlacement:
 
     def host(self, X, y, mask) -> _HostBatch:
         """Pad and stage one raw batch (producer side)."""
+        return self.stage(*_split(X, y, mask, self.placer.pad_to))
+
+    def stage(self, kind, leaves, meta) -> _HostBatch:
+        """Stage ``leaves``, ``(tensor or None, padded rows or None)``
+        pairs, into one slot of the ring (producer side); :meth:`place`
+        rebuilds the batch by ``kind`` (``"leaves"``: the tuple of placed
+        tensors)."""
         dev = self.placer.device
-        kind, leaves, meta = _split(X, y, mask, self.placer.pad_to)
 
         def direct(t, rows):
             return rows is None and (t.device == dev or t.is_pinned())
@@ -870,6 +873,212 @@ def _make_placer(device: torch.device, pad_to, prefetch: int = 0):
     return _place
 
 
+def _device_groups(mesh) -> dict:
+    """Each distinct device of this process's slots -> ``(first slot, one
+    past its last slot)``, in the order of first appearance."""
+    groups = {}
+    for s, dev in enumerate(mesh.slots()):
+        groups[dev] = (groups.get(dev, (s, s))[0], s + 1)
+    return groups
+
+
+class _MeshSplit:
+    """The host half of a mesh placement, the same on the CPU and the
+    card: :meth:`split` shards a raw batch's rows over the mesh (dense by
+    ``mesh.shard_spans``, ``shard_batch``'s even split, its padding not
+    stored; CSR by the nnz-balanced ``mesh.csr_batch_layout`` under the
+    fixed entry budget, resolved from the first batch when not given)
+    and groups the leaves by slot device: each device takes one
+    contiguous run of rows (dense) or of stacked shards (CSR) covering
+    its slots.  ``build(placed)`` then takes each slot's shard as a view
+    of its device's placed leaves."""
+
+    def __init__(self, mesh, pad_to, csr_nnz_per_shard):
+        self.mesh = mesh
+        self.pad_to = pad_to
+        self.budget = csr_nnz_per_shard
+        self.groups = _device_groups(mesh)
+        self.warned_eager_twin = False
+
+    def split(self, X, y, mask):
+        """``(leaves by device, build)`` of one raw batch."""
+        if isinstance(X, CSRMatrix):
+            return self._split_csr(X, y, mask)
+        return self._split_dense(X, y, mask)
+
+    def _split_dense(self, X, y, mask):
+        from ..parallel import mesh as mesh_lib
+
+        mesh = self.mesh
+        X, y = host_tensor(X), host_tensor(y)
+        n = X.shape[0]
+        rps, spans = mesh_lib.shard_spans(mesh, n, self.pad_to)
+        k = mesh.shape[mesh_lib.DATA_AXIS]
+        masked = mask is not None or rps * k != n
+        m = None if mask is None else host_tensor(mask).to(torch.float32)
+        starts = {dev: spans[lo][0] for dev, (lo, _) in self.groups.items()}
+        leaves = {}
+        for dev, (lo, hi) in self.groups.items():
+            a, b = spans[lo][0], spans[hi - 1][1]
+            leaves[dev] = (X[a:b], y[a:b], None if m is None else m[a:b])
+
+        def build(placed):
+            xs, ys, ms = [], [], []
+            for dev, (a, b) in zip(mesh.slots(), spans):
+                Xd, yd, md = placed[dev]
+                i, j = a - starts[dev], b - starts[dev]
+                xs.append(Xd[i:j])
+                ys.append(yd[i:j])
+                if md is not None:
+                    ms.append(md[i:j])
+                elif masked:
+                    ms.append(torch.ones(j - i, dtype=torch.float32,
+                                         device=dev))
+            return mesh_lib.sharded_rows_batch(
+                mesh, xs, ys, ms if masked else None, spans, rps, k,
+                X.shape[1:], y.shape[1:])
+
+        return leaves, build
+
+    def _split_csr(self, X, y, mask):
+        from ..parallel import mesh as mesh_lib
+
+        mesh = self.mesh
+        if X.has_csc and not self.warned_eager_twin:
+            self.warned_eager_twin = True
+            warnings.warn(
+                "mesh CSR streaming with an eager per-batch CSC twin: "
+                "the sharder builds per-shard twins and drops the "
+                "batch's; build the dataset with with_csc='lazy' to "
+                "skip the wasted per-batch sort", stacklevel=3)
+        if self.budget is None:
+            n_shards = mesh.shape[mesh_lib.DATA_AXIS]
+            self.budget = max(128, -(-int(X.nnz * 1.25 / n_shards)
+                                     // 128) * 128)
+        lay = mesh_lib.csr_batch_layout(mesh, X, y, mask,
+                                        nnz_per_shard=self.budget)
+        stacked = mesh_lib.csr_layout_tensors(lay, X.values.dtype)
+        names = tuple(stacked)
+        leaves = {dev: tuple(stacked[nm][lo:hi] for nm in names)
+                  for dev, (lo, hi) in self.groups.items()}
+
+        def build(placed):
+            per_slot = {nm: [] for nm in names}
+            for s, dev in enumerate(mesh.slots()):
+                first = self.groups[dev][0]
+                for nm, t in zip(names, placed[dev]):
+                    per_slot[nm].append(t[s - first])
+            return mesh_lib.csr_batch_of_shards(
+                per_slot, mesh, X.shape[0], X.shape[1], lay["rps"])
+
+        return leaves, build
+
+
+class _MeshPlacer:
+    """Macro-batches onto a mesh with CUDA slots: one
+    :class:`_DevicePlacer` (its pinned staging ring and side stream) for
+    each distinct CUDA device of the slots.  The host half
+    (:class:`_MeshSplit`) runs where the batch is pulled and stages each
+    device's leaves in that device's ring; the device half copies them
+    and takes the slots' shards as views, so a mesh whose slots repeat
+    one card copies each batch once, as the single-device stream does.
+    A CPU slot's leaves are used where they lie."""
+
+    def __init__(self, mesh, pad_to, csr_nnz_per_shard, prefetch: int):
+        self.split = _MeshSplit(mesh, pad_to, csr_nnz_per_shard).split
+        self.devices = {dev: _DevicePlacer(dev, None, prefetch)
+                        for dev in _device_groups(mesh)
+                        if dev.type == "cuda"}
+
+    @property
+    def copies(self) -> collections.Counter:
+        out = collections.Counter()
+        for p in self.devices.values():
+            out.update(p.copies)
+        return out
+
+    def open_pass(self) -> "_MeshPassPlacement":
+        return _MeshPassPlacement(self)
+
+    def new_ring(self):
+        for p in self.devices.values():
+            p.new_ring()
+
+
+class _MeshPassPlacement:
+    """One pass of a :class:`_MeshPlacer`: a :class:`_PassPlacement` for
+    each CUDA device, driven as one."""
+
+    def __init__(self, placer: _MeshPlacer):
+        self.split = placer.split
+        self.parts = {dev: p.open_pass() for dev, p in placer.devices.items()}
+
+    @property
+    def throttle_s(self) -> float:
+        return sum(p.throttle_s for p in self.parts.values())
+
+    def host(self, X, y, mask):
+        leaves, build = self.split(X, y, mask)
+        staged = {dev: (self.parts[dev].stage(
+                      "leaves", [(t, None) for t in ts], ())
+                        if dev in self.parts else ts)
+                  for dev, ts in leaves.items()}
+        return staged, build
+
+    def discard(self, hb):
+        for dev, h in hb[0].items():
+            if dev in self.parts:
+                self.parts[dev].discard(h)
+
+    def place(self, hb):
+        staged, build = hb
+        return build({dev: (self.parts[dev].place(h) if dev in self.parts
+                            else h) for dev, h in staged.items()})
+
+    def close(self):
+        for p in self.parts.values():
+            p.close()
+
+
+def _make_mesh_placer(mesh, pad_to, csr_nnz_per_shard, prefetch: int = 0):
+    """The mesh placement of raw batches, sharded over ``mesh`` (padded to
+    ``pad_to`` rows, CSR under ``csr_nnz_per_shard``): a
+    :class:`_MeshPlacer` when a slot is on a CUDA device, else a function
+    of the raw batch returning its ``ShardedBatch``."""
+    if any(dev.type == "cuda" for dev in mesh.slots()):
+        return _MeshPlacer(mesh, pad_to, csr_nnz_per_shard, prefetch)
+    split = _MeshSplit(mesh, pad_to, csr_nnz_per_shard).split
+
+    def _place(X, y, mask):
+        leaves, build = split(X, y, mask)
+        return build(leaves)
+
+    return _place
+
+
+def _mesh_batch_sums(gradient, mesh, with_grad):
+    """The batch kernel of a mesh stream: each slot's shard of the placed
+    batch through ``gradient.batch_loss_and_grad`` (the fused gradients
+    stage a shard per call, without copying it), the slots' sums added
+    in slot order."""
+    from ..ops.sparse import RowShardedCSR
+    from ..parallel import dist_smooth
+
+    def kernel(w, X, y, mask):
+        if isinstance(X, RowShardedCSR):
+            ls, gs, n = dist_smooth.csr_shard_sums(
+                gradient, X, y, mask, mesh)[0](w)
+        else:
+            ops = [None if xs.shape[0] == 0 else
+                   (xs, ys, None if mask is None else mask.shards[i])
+                   for i, (xs, ys) in enumerate(zip(X.shards, y.shards))]
+            ls, gs, n = dist_smooth._slot_sums(gradient, mesh, ops, w,
+                                               X.dtype)
+        return (ls, gs, n) if with_grad else (ls, n)
+
+    return kernel
+
+
 def _mean_divisor(n: int, like: torch.Tensor) -> torch.Tensor:
     """The row count as a 0-d CPU tensor of ``like``'s dtype (the JAX
     package divides by the count cast to the sums' dtype)."""
@@ -906,21 +1115,37 @@ def make_streaming_smooth(
     two functions share one pass counter, as host AGD calls them in a
     fixed order.  ``pass_stats`` (a list, port only) receives one dict a
     pass of either function (:func:`fold_stream`'s ``stats``).
-    ``mesh=``, ``csr_nnz_per_shard=`` and ``telemetry=`` come with later
-    slices and raise.
+    ``mesh`` (a data-axis ``parallel.mesh.Mesh``) shards each batch over
+    the mesh (see the module docstring); ``device`` is then its lead
+    device.  ``csr_nnz_per_shard`` pins the entries a shard of every CSR
+    batch (default ``1.25 x batch nnz / shards``, rounded up to 128): a
+    batch that cannot fit raises with the knob's name; it is inert
+    without a mesh.  Build a CSR dataset with ``with_csc="lazy"`` for
+    the mesh: the sharder builds each shard's twin.  ``telemetry=`` comes
+    with the observability slice and raises.
     """
-    reject_later(mesh=mesh, csr_nnz_per_shard=csr_nnz_per_shard,
-                 telemetry=telemetry)
-    dev = resolve_device(device)
-    _place = _make_placer(dev, pad_to, prefetch)
+    reject_later(telemetry=telemetry)
+    if mesh is not None and mesh is not False:
+        from ..parallel import mesh as mesh_lib
+
+        mesh_lib.check_data_mesh(mesh)
+        if device is not None and not same_device(device, mesh.lead):
+            raise ValueError(f"device={device} is not the mesh's lead "
+                             f"device {mesh.lead}")
+        _place = _make_mesh_placer(mesh, pad_to, csr_nnz_per_shard,
+                                   prefetch)
+        batch_sums = _mesh_batch_sums(gradient, mesh, True)
+        batch_loss_sums = _mesh_batch_sums(gradient, mesh, False)
+    else:
+        _place = _make_placer(resolve_device(device), pad_to, prefetch)
+
+        def batch_sums(w, X, y, mask):
+            return gradient.batch_loss_and_grad(w, X, y, mask)
+
+        def batch_loss_sums(w, X, y, mask):
+            ls, _, n = gradient.batch_loss_and_grad(w, X, y, mask)
+            return ls, n
     pass_stats = [] if pass_stats is None else pass_stats
-
-    def batch_sums(w, X, y, mask):
-        return gradient.batch_loss_and_grad(w, X, y, mask)
-
-    def batch_loss_sums(w, X, y, mask):
-        ls, _, n = gradient.batch_loss_and_grad(w, X, y, mask)
-        return ls, n
 
     def smooth(w):
         def unflatten(leaves):
@@ -981,10 +1206,11 @@ def make_streaming_eval_multi(
     ``gradient.lanes_loss_and_grad``, which reads X once for up to 16
     lanes where the gradient has the lanes kernel
     (``FusedMarginGradient``).  ``device`` and ``pass_stats`` as in
-    :func:`make_streaming_smooth`; ``mesh=`` and ``csr_nnz_per_shard=``
-    come with the mesh slice and raise.
+    :func:`make_streaming_smooth`; ``mesh=`` (the streamed sweeps over a
+    mesh, the grid family) comes with a later slice and raises, and
+    ``csr_nnz_per_shard`` is inert without it.
     """
-    reject_later(mesh=mesh, csr_nnz_per_shard=csr_nnz_per_shard)
+    reject_grid_mesh(mesh, "make_streaming_eval_multi")
     eval_multi, eval_loss_multi = _eval_multi_pair(
         gradient, dataset, pad_to, resolve_device(device), pass_stats)
     return eval_multi if with_grad else eval_loss_multi

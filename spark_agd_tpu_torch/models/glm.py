@@ -323,8 +323,9 @@ class GeneralizedLinearAlgorithm:
         """``optimizer``: the object in the optimizer seat — default a
         fresh ``AcceleratedGradientDescent(gradient, updater)``; anything
         with the Optimizer trait's ``optimize`` may take its place, and
-        then carries its own gradient and updater.  ``mesh`` takes
-        ``None``/``False`` only in this slice."""
+        then carries its own gradient and updater.  ``mesh`` (a data-axis
+        ``parallel.mesh.Mesh``, or ``False``) goes to the optimizer's
+        ``set_mesh``; a model axis raises."""
         self.optimizer = (api.AcceleratedGradientDescent(gradient, updater)
                           if optimizer is None else optimizer)
         if mesh is not None:

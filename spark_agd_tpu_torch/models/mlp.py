@@ -166,7 +166,7 @@ class MLPClassifierWithAGD:
             mlp_gradient(self._act), updater)
         self.optimizer.set_reg_param(reg_param)
         if mesh is not None:
-            self.optimizer.set_mesh(mesh)  # raises: one device only
+            self.optimizer.set_mesh(mesh)  # a model axis raises
 
     def train(self, X, y, initial_params=None) -> MLPModel:
         """Fit from ``initial_params`` (default: :func:`init_mlp_params`

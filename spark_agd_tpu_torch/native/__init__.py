@@ -1,15 +1,15 @@
-"""Native (C++) host-runtime component, loaded over ctypes: the LIBSVM
-parser.
+"""Native (C++) host-runtime components, loaded over ctypes: the LIBSVM
+parser and the shard balancer.
 
-Counterpart of ``spark_agd_tpu/native/__init__.py:34-113,185-220`` (the
-parser half; the shard balancer comes with the multi-GPU slice).  Bulk
-text ingest runs on the host in C++ (``libsvm_parser.cpp``, a byte-for-
-byte copy of the JAX package's), compiled on first use with the in-tree
-``Makefile`` into this directory.  Without a toolchain the caller falls
-back to the pure-Python tokenizer of ``data/libsvm.py``, which gives the
-same arrays; ``pop_fallback_event`` reports, once, why that happened.
-This is host ingest, not a device path: the parsed arrays are the same
-either way.
+Counterpart of ``spark_agd_tpu/native/__init__.py``.  Bulk text ingest
+(``libsvm_parser.cpp``) and the greedy nnz balancer behind the
+row-sharded CSR layout (``shard_balance.cpp``) run on the host in C++,
+byte-for-byte copies of the JAX package's sources, compiled on first use
+with the in-tree ``Makefile`` into this directory.  Without a toolchain
+the callers fall back to their pure-Python paths, which give the same
+arrays (the parser: the tokenizer of ``data/libsvm.py``; the balancer:
+the heap loop in :func:`greedy_balance`); ``pop_fallback_event``
+reports, once, why that happened.  This is host work, not a device path.
 """
 
 from __future__ import annotations
@@ -109,6 +109,83 @@ def load_parser() -> Optional[ctypes.CDLL]:
     """Return the native parser library, building it if needed; None if the
     native path is unavailable (callers must fall back)."""
     return _load_lib("libsvm_parser.so", _configure_parser)
+
+
+def _configure_balancer(lib):
+    lib.greedy_balance.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.greedy_balance.restype = ctypes.c_int
+
+
+def load_balancer() -> Optional[ctypes.CDLL]:
+    """Return the native shard balancer, building it if needed; None if
+    unavailable (``greedy_balance`` then runs its Python loop)."""
+    return _load_lib("shard_balance.so", _configure_balancer)
+
+
+def greedy_balance(counts, n_shards: int, capacity: int):
+    """Greedy heaviest-first balanced shard assignment.
+
+    Each item goes onto the currently lightest shard with remaining
+    capacity (load ties -> lowest shard id), local slots in placement
+    order.  Returns ``(shard_of, local_of)`` int64 arrays.  Raises
+    ValueError when ``n_shards * capacity`` cannot hold the items, before
+    dispatch, so the error is the same with or without the toolchain.
+    C++ core (``shard_balance.cpp``); the Python loop below is the
+    bit-identical specification it is tested against."""
+    import numpy as np
+
+    counts = np.ascontiguousarray(counts, np.int64)
+    n = len(counts)
+    if n_shards * capacity < n:
+        raise ValueError(
+            f"{n} items exceed {n_shards} shards x capacity {capacity}")
+    lib = load_balancer()
+    if lib is not None:
+        shard_of = np.empty(n, np.int32)
+        local_of = np.empty(n, np.int32)
+        rc = lib.greedy_balance(
+            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            ctypes.c_int64(n), ctypes.c_int32(int(n_shards)),
+            ctypes.c_int64(int(capacity)),
+            shard_of.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            local_of.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        if rc != 0:
+            raise ValueError(f"greedy_balance failed (code {rc})")
+        return shard_of.astype(np.int64), local_of.astype(np.int64)
+    return greedy_balance_python(counts, n_shards, capacity)
+
+
+def greedy_balance_python(counts, n_shards: int, capacity: int):
+    """The Python loop of :func:`greedy_balance` (its fallback and its
+    specification)."""
+    import heapq
+
+    import numpy as np
+
+    counts = np.ascontiguousarray(counts, np.int64)
+    n = len(counts)
+    order = np.argsort(-counts, kind="stable")
+    shard_of = np.empty(n, np.int64)
+    local_of = np.empty(n, np.int64)
+    heap = [(0, s) for s in range(n_shards)]
+    cap = [capacity] * n_shards
+    next_local = [0] * n_shards
+    nnz_list = counts[order].tolist()
+    for rank, r in enumerate(order.tolist()):
+        while True:
+            load, s = heapq.heappop(heap)
+            if cap[s]:
+                break
+        shard_of[r] = s
+        local_of[r] = next_local[s]
+        next_local[s] += 1
+        cap[s] -= 1
+        heapq.heappush(heap, (load + nnz_list[rank], s))
+    return shard_of, local_of
 
 
 def parse_libsvm_native(path: str):

@@ -1,6 +1,6 @@
 """CSR sparse matrix with deterministic products.
 
-Counterpart of ``spark_agd_tpu/ops/sparse.py:44-191,278-291``.  rcv1.binary
+Counterpart of ``spark_agd_tpu/ops/sparse.py:44-291``.  rcv1.binary
 (47,236 features) and url_combined (3,231,961 features) are far too
 sparse to densify, so the sparse path is a gather and a sorted segment
 sum, as in the JAX package:
@@ -30,6 +30,10 @@ The forward arrays are kept in row order: a matrix built with
 Padding contract (``spark_agd_tpu/ops/sparse.py:28-31``): ``nnz`` may
 count padding entries of value 0; they add nothing to either product,
 whatever row or column they point at.
+
+:class:`RowShardedCSR` is a CSR batch split over a mesh's data axis:
+one local ``CSRMatrix`` a shard, each on its slot's device (built by
+``parallel.mesh.shard_csr_batch`` or the partitioned ingest).
 
 Values are f32, f64 or bf16; ids are int32 (or int64) and offsets int64,
 so a url-sized matrix (277.9M entries) fits int32 ids without
@@ -263,6 +267,17 @@ class CSRMatrix:
                 f"dtype={self.dtype}, device={self.device}, "
                 f"has_csc={self.has_csc})")
 
+    def plan(self) -> "CSRMatrix":
+        """Work out the reduction plans of both products now (each reads
+        the longest segment on the host once), rather than at the first
+        product; returns the matrix.  The mesh smooth calls it once a
+        shard when it is built."""
+        if "rows" not in self._plans:
+            self._plans["rows"] = _plan(self.indptr)
+        if self.has_csc and "columns" not in self._plans:
+            self._plans["columns"] = _plan(self.colptr)
+        return self
+
     # -- products ----------------------------------------------------------
     def _rows(self, x):
         if "rows" not in self._plans:
@@ -293,6 +308,71 @@ class CSRMatrix:
     def rmatmat(self, V):
         """``X.T @ V`` for (n_rows, K) dense V -> (n_features, K)."""
         return self._columns(V)
+
+
+class RowShardedCSR:
+    """A CSR batch laid out over a mesh's data axis (sparse DP;
+    counterpart of ``spark_agd_tpu/ops/sparse.py:RowShardedCSR``).
+
+    ``shards`` are this process's local ``CSRMatrix`` slices, one a slot,
+    each of shape ``(rows_per_shard, D)`` on its slot's device: rows
+    re-indexed to local ids, entries padded to one ``nnz_per_shard`` with
+    inert 0.0 entries at the last local row and column; row slots past a
+    shard's real rows carry mask 0 in the batch's mask.  ``shape`` is the
+    global logical shape (unpadded rows), ``n_shards`` the global shard
+    count (more than ``len(shards)`` in a mesh across processes).  JAX
+    stacks the shards' arrays in one sharded array and rebuilds each
+    inside ``shard_map`` (``local_csr``); here each shard is built once,
+    where its slot lies, and :meth:`local_csr` returns it."""
+
+    def __init__(self, shards, shape: Tuple[int, int], rows_per_shard: int,
+                 n_shards: int, *, mesh=None):
+        self.shards = list(shards)
+        self.shape = (int(shape[0]), int(shape[1]))
+        self.rows_per_shard = int(rows_per_shard)
+        self.n_shards = int(n_shards)
+        self.mesh = mesh
+
+    @property
+    def has_csc(self) -> bool:
+        return all(s.has_csc for s in self.shards)
+
+    @property
+    def want_csc(self) -> bool:
+        return any(s.want_csc for s in self.shards)
+
+    @property
+    def nnz_per_shard(self) -> int:
+        return self.shards[0].nnz
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+    def local_csr(self, s: int) -> CSRMatrix:
+        """This process's shard ``s`` as a local ``CSRMatrix``."""
+        return self.shards[s]
+
+    def _stacked(self, name):
+        parts = [getattr(s, name) for s in self.shards]
+        if any(p is None for p in parts):
+            return None
+        return torch.cat([p.cpu() for p in parts])
+
+    # the JAX layout's stacked (n_shards * nnz_per_shard,) arrays, on the
+    # CPU (this process's shards)
+    row_ids = property(lambda self: self._stacked("row_ids"))
+    col_ids = property(lambda self: self._stacked("col_ids"))
+    values = property(lambda self: self._stacked("values"))
+    csc_row_ids = property(lambda self: self._stacked("csc_row_ids"))
+    csc_col_ids = property(lambda self: self._stacked("csc_col_ids"))
+    csc_values = property(lambda self: self._stacked("csc_values"))
+
+    def __repr__(self):
+        return (f"RowShardedCSR(shape={self.shape}, shards="
+                f"{len(self.shards)}/{self.n_shards}, rows_per_shard="
+                f"{self.rows_per_shard}, nnz_per_shard="
+                f"{self.nnz_per_shard}, has_csc={self.has_csc})")
 
 
 def matvec(X, w):

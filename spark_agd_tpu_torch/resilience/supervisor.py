@@ -193,8 +193,8 @@ def run_agd_supervised(
                                       None) is not None:
         raise NotImplementedError(
             f"a sharded-update build (make_agd_run) {NOT_PORTED} (it "
-            "arrives in a later slice: the mesh slice, "
-            "parallel/sharded_update.py)")
+            "arrives in a later slice: the model-parallel slice after the "
+            "mesh slice, parallel/sharded_update.py)")
     policy = policy or ResiliencePolicy()
     w0 = tvec.tmap(_as_tensor, w0)
     if place_w is not None:

@@ -2057,3 +2057,237 @@ def test_a_preempted_child_is_resumed_to_the_uninterrupted_bits(
     assert torch.equal(resumed.weights, straight.weights)
     np.testing.assert_array_equal(resumed.loss_history,
                                   straight.loss_history)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism on the card: meshes whose slots repeat the one card
+
+
+def _card_mesh(k):
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return mesh_lib.make_mesh({"data": k}, devices=[dev] * k)
+
+
+def _plain_sharded(inner, w, shards, softmax_k=None):
+    """The plain versions of the slots' kernels on the same staged
+    shards, added in slot order, then the means."""
+    loss = grad = None
+    n = 0
+    for ops in shards:
+        staged = ops[0]
+        if softmax_k is None:
+            ls, gs = fk.fused_margin_loss_grad_reference(inner, w, staged)
+        else:
+            ls, gs = fk.fused_softmax_loss_grad_reference(softmax_k, w,
+                                                          staged)
+        loss = ls if loss is None else loss + ls
+        grad = gs if grad is None else grad + gs
+        n += int(staged.n_valid)
+    return loss / n, grad / n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [2, 4])
+@pytest.mark.parametrize("mode", ["narrow", "stream", "cluster"])
+def test_mesh_on_the_card_matches_the_plain_sharded_version(cuda, slots,
+                                                            mode):
+    """Each slot launches the margin kernel on its shard (a view of X) in
+    the width's mode, once an evaluation; the same bits on repeat; held
+    to the plain versions on the same shards."""
+    from spark_agd_tpu_torch.parallel import dist_smooth
+
+    d = {"narrow": 8, "stream": 1000,
+         "cluster": fk.max_width(torch.float32) + 1}[mode]
+    n = {"narrow": 100_003, "stream": 20_003, "cluster": 2_003}[mode]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(slots)
+    X = torch.randn((n, d), generator=gen, device=cuda)
+    y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+    m = (torch.rand(n, generator=gen, device=cuda) < 0.9).float()
+    w = torch.randn(d, generator=gen, device=cuda) / d ** 0.5
+    mesh = _card_mesh(slots)
+    gradient = port.FusedLogisticGradient()
+    build, shards = dist_smooth.make_dist_smooth_staged(gradient, X, y, m,
+                                                        mesh=mesh)
+    rps = -(-n // slots)
+    for i, ops in enumerate(shards):
+        assert ops[0].X.data_ptr() == X[i * rps:].data_ptr()
+        assert fk.launch_shape(ops[0].X).mode == mode
+    smooth = build(*shards)[0]
+    before = fk.launch_count
+    before_mode = fk.margin_mode_launches[mode]
+    f, g = smooth(w)
+    f2, g2 = smooth(w)
+    torch.cuda.synchronize()
+    assert fk.launch_count == before + 2 * slots
+    assert fk.margin_mode_launches[mode] == before_mode + 2 * slots
+    assert torch.equal(f, f2) and torch.equal(g, g2)
+    ref_f, ref_g = _plain_sharded(gradient.inner, w, shards)
+    assert float(f) == pytest.approx(float(ref_f), rel=1e-5)
+    torch.testing.assert_close(g, ref_g, rtol=1e-4,
+                               atol=1e-4 * float(ref_g.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_mesh_stream_on_the_card_copies_each_batch_once(cuda, prefetch):
+    """A dense stream over 4 slots of the card through the pinned ring
+    and side stream: each batch staged and copied once (the slots' shards
+    are views of it), a margin launch a slot a batch, the same bits on
+    repeat and at every prefetch depth, held to the single-device stream
+    and to the same mesh stream on CPU slots."""
+    from spark_agd_tpu_torch.data import streaming
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+
+    X, y = _stream_data(n=10_003, d=300, seed=12)
+    ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=2048)
+    batches = -(-X.shape[0] // 2048)
+    w = torch.randn(300, device=cuda) / 20
+    stats = []
+    sm = streaming.make_streaming_smooth(
+        port.FusedLogisticGradient(), ds, mesh=_card_mesh(4),
+        prefetch=prefetch, pass_stats=stats)[0]
+    before = fk.launch_count
+    f, g = sm(w)
+    f2, g2 = sm(w)
+    torch.cuda.synchronize()
+    assert fk.launch_count == before + 2 * 4 * batches
+    assert torch.equal(f, f2) and torch.equal(g, g2)
+    for st in stats:
+        assert st["batches"] == batches
+        assert st["h2d_bytes"] == X.nbytes + y.nbytes
+        assert st["staged_copies"] == 2 * batches  # X and y, one run each
+    ref_f, ref_g = _streamed(ds)[0](w)
+    assert float(f) == pytest.approx(float(ref_f), rel=1e-5)
+    torch.testing.assert_close(g, ref_g, rtol=1e-4,
+                               atol=1e-4 * float(ref_g.abs().max()))
+    cpu_mesh = mesh_lib.make_mesh({"data": 4}, devices=["cpu"] * 4)
+    cf, cg = streaming.make_streaming_smooth(
+        port.LogisticGradient(), ds, mesh=cpu_mesh, device="cpu")[0](
+        w.cpu().double())
+    assert float(f) == pytest.approx(float(cf), rel=1e-5)
+    torch.testing.assert_close(g.cpu().double(), cg, rtol=1e-4,
+                               atol=1e-4 * float(cg.abs().max()))
+
+
+@pytest.mark.cuda
+def test_csr_mesh_stream_on_the_card_places_stacked_shards(cuda):
+    """A CSR stream over 3 slots of the card: each batch's nnz-balanced
+    layout staged and copied as one run of stacked shards, each slot's
+    local CSR a view of it; held to the same mesh stream on CPU slots at
+    f64."""
+    from spark_agd_tpu_torch.data import streaming
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+
+    rng = np.random.default_rng(13)
+    n, d = 5_001, 400
+    counts = rng.integers(1, 30, n)
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    nnz = int(indptr[-1])
+    indices = rng.integers(0, d, nnz).astype(np.int32)
+    values = rng.standard_normal(nnz).astype(np.float32)
+    y = (rng.random(n) < 0.5).astype(np.float32)
+    ds = streaming.StreamingDataset.from_csr(indptr, indices, values, d, y,
+                                             1024, with_csc="lazy")
+    w = torch.randn(d, device=cuda) / 20
+    stats = []
+    sm = streaming.make_streaming_smooth(
+        port.LogisticGradient(), ds, mesh=_card_mesh(3), pass_stats=stats,
+        csr_nnz_per_shard=8192)[0]
+    f, g = sm(w)
+    f2, g2 = sm(w)
+    assert torch.equal(f, f2) and torch.equal(g, g2)
+    assert all(st["staged_copies"] > 0 for st in stats)
+    cpu_mesh = mesh_lib.make_mesh({"data": 3}, devices=["cpu"] * 3)
+    cf, cg = streaming.make_streaming_smooth(
+        port.LogisticGradient(), ds, mesh=cpu_mesh, device="cpu",
+        csr_nnz_per_shard=8192)[0](w.cpu().double())
+    assert float(f) == pytest.approx(float(cf), rel=1e-5)
+    torch.testing.assert_close(g.cpu().double(), cg, rtol=1e-4,
+                               atol=1e-4 * float(cg.abs().max()))
+
+
+@pytest.mark.cuda
+def test_softmax_mesh_on_the_card(cuda):
+    from spark_agd_tpu_torch.parallel import dist_smooth
+
+    n, d, k, slots = 30_001, 785, 10, 3
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    X = torch.randn((n, d), generator=gen, device=cuda)
+    y = torch.randint(0, k, (n,), generator=gen, device=cuda)
+    W = torch.randn((d, k), generator=gen, device=cuda) / d ** 0.5
+    gradient = port.FusedSoftmaxGradient(port.SoftmaxGradient(k))
+    build, shards = dist_smooth.make_dist_smooth_staged(
+        gradient, X, y, mesh=_card_mesh(slots))
+    smooth = build(*shards)[0]
+    before = fk.softmax_launch_count
+    f, g = smooth(W)
+    f2, g2 = smooth(W)
+    torch.cuda.synchronize()
+    assert fk.softmax_launch_count == before + 2 * slots
+    assert torch.equal(f, f2) and torch.equal(g, g2)
+    ref_f, ref_g = _plain_sharded(None, W, shards, softmax_k=k)
+    assert float(f) == pytest.approx(float(ref_f), rel=1e-5)
+    torch.testing.assert_close(g, ref_g, rtol=1e-4,
+                               atol=1e-4 * float(ref_g.abs().max()))
+
+
+@pytest.mark.cuda
+def test_two_process_gloo_group_on_the_card(cuda, tmp_path):
+    """Two ranks on the one card (gloo: NCCL refuses two ranks on one
+    device) read their halves of 8 part files onto a 4-slot mesh and fit
+    AGD at f64: both ranks hold the same bits, and the one-process fit on
+    all files agrees."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from spark_agd_tpu_torch.data import ingest, libsvm
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+
+    rng = np.random.default_rng(11)
+    for k, rows in enumerate((13, 7, 10, 5, 9, 6, 11, 8)):
+        Xp = (rng.random((rows, 9)) * (rng.random((rows, 9)) < 0.5)).astype(
+            np.float32)
+        Xp[0, -1] = 0.3
+        libsvm.save_libsvm(str(tmp_path / f"part-{k}.libsvm"), Xp,
+                           np.where(rng.random(rows) < 0.5, 1.0, -1.0))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port_no = s.getsockname()[1]
+    child = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "torch_multihost_child.py")
+    procs = [subprocess.Popen(
+        [sys.executable, child, f"localhost:{port_no}", "2", str(r),
+         str(tmp_path), "cuda:0"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append((*p.communicate(timeout=300), p.returncode))
+    finally:
+        for p in procs:
+            p.kill()
+    results = []
+    for out, err, rc in outs:
+        assert rc == 0, err[-3000:]
+        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        results.append(json.loads(line[0][len("RESULT "):]))
+    for kind in ("dense", "csr"):
+        assert results[0][kind] == results[1][kind], kind
+    paths = sorted(str(p) for p in tmp_path.glob("part-*.libsvm"))
+    mesh = mesh_lib.make_mesh({"data": 4},
+                              devices=[torch.device("cuda", 0)] * 4)
+    _, hist = port.run(ingest.from_partitioned_files(paths, mesh,
+                                                     n_features=9),
+                       port.LogisticGradient(), port.L2Prox(),
+                       reg_param=0.05, num_iterations=10,
+                       convergence_tol=1e-12, initial_weights=np.zeros(9))
+    np.testing.assert_allclose(
+        [float.fromhex(v) for v in results[0]["dense"]["hist"]], hist,
+        rtol=1e-9)

@@ -18,6 +18,7 @@ import torch
 from spark_agd_tpu import api as japi
 from spark_agd_tpu.ops import losses as jlosses, prox as jprox
 import spark_agd_tpu_torch as port
+from spark_agd_tpu_torch.parallel import mesh as tmesh
 from spark_agd_tpu_torch.core import gd, prng
 from spark_agd_tpu_torch.ops import fused_kernels as fk
 
@@ -266,10 +267,11 @@ def test_minibatch_entry_points_reject_what_they_do_not_take(monkeypatch):
     with pytest.raises(ValueError, match="initial_weights"):
         port.run_minibatch_sgd((X, y), port.LogisticGradient(),
                                port.L2Prox(), device="cpu")
+    # a mesh's model axis comes with a later slice
     with pytest.raises(NotImplementedError, match="mesh"):
         port.run_minibatch_sgd((X, y), port.LogisticGradient(),
                                port.L2Prox(), initial_weights=np.zeros(6),
-                               mesh=object(), device="cpu")
+                               mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port.run_minibatch_sgd((X, y), port.LogisticGradient(),

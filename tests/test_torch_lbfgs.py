@@ -28,6 +28,7 @@ from spark_agd_tpu.ops import losses as jlosses, prox as jprox
 from spark_agd_tpu.ops import sparse as jsparse
 from spark_agd_tpu.ops.pallas_kernels import PallasLogisticGradient
 import spark_agd_tpu_torch as port
+from spark_agd_tpu_torch.parallel import mesh as tmesh
 from spark_agd_tpu_torch import convert
 from spark_agd_tpu_torch.core import host_lbfgs, lbfgs, smooth
 from spark_agd_tpu_torch.models import glm as tglm
@@ -434,7 +435,7 @@ def test_lbfgs_class_drop_in_and_setters():
     assert path.weights.shape == (2, 6)
     assert torch.equal(path.num_iters[0], ref.num_iters)
     with pytest.raises(NotImplementedError, match="mesh"):
-        opt.set_mesh("data")
+        opt.set_mesh(tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
     with pytest.raises(NotImplementedError, match="telemetry"):
         port.run_lbfgs((X, y), port.LogisticGradient(), port.L2Prox(),
                        initial_weights=np.zeros(6), device="cpu",
@@ -578,7 +579,8 @@ def test_lbfgs_trainer_paths_still_raise_and_need_cuda(monkeypatch):
     with pytest.raises(ValueError, match="requires an optimizer seat"):
         tglm.SoftmaxRegressionWithLBFGS(2).cross_validate(X, y, [0.1])
     with pytest.raises(NotImplementedError, match="mesh"):
-        tglm.LogisticRegressionWithLBFGS(mesh="data")
+        tglm.LogisticRegressionWithLBFGS(
+            mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tglm.LogisticRegressionWithLBFGS().train(X, y)

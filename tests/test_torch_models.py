@@ -18,6 +18,7 @@ import spark_agd_tpu as jpkg
 from spark_agd_tpu.models import evaluation as jeval, glm as jglm
 from spark_agd_tpu.ops.pallas_kernels import PallasSoftmaxGradient
 from spark_agd_tpu.utils.checkpoint import read_npz_entries
+from spark_agd_tpu_torch.parallel import mesh as tmesh
 import spark_agd_tpu_torch as port
 from spark_agd_tpu_torch import convert
 from spark_agd_tpu_torch.models import evaluation as teval, glm as tglm
@@ -311,8 +312,10 @@ def test_later_slice_methods_raise():
         lbfgs_trainer.optimizer.set_device("cpu").set_num_iterations(3)
         models, res = lbfgs_trainer.train_path(X, y, [0.1, 0.01])
         assert len(models) == 2 and res.loss_history.shape == (2, 4)
+    # a data mesh is ported; a model axis comes with a later slice
     with pytest.raises(NotImplementedError, match="mesh"):
-        tglm.SVMWithAGD(mesh="data")
+        tglm.SVMWithAGD(mesh=tmesh.make_mesh({"data": 1, "model": 2},
+                                             devices=["cpu"] * 2))
 
 
 def test_sparse_input_raises():

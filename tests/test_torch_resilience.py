@@ -34,6 +34,7 @@ from spark_agd_tpu.resilience import (
     run_agd_supervised as jrun_agd_supervised,
 )
 import spark_agd_tpu_torch as port
+from spark_agd_tpu_torch.parallel import mesh as tmesh
 from spark_agd_tpu_torch.core import agd, host_agd, smooth as tsmooth
 from spark_agd_tpu_torch.ops import losses, prox
 from spark_agd_tpu_torch.resilience import (
@@ -612,7 +613,7 @@ def test_run_checkpointer_needs_resilience_and_resumes(problem, tmp_path):
         return_result=True, **kw)
     assert sres.resumed_from == 12 and torch.equal(again, first[0])
     for option in (dict(journal="j.wal"), dict(telemetry=object()),
-                   dict(mesh=object())):
+                   dict(mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))):
         with pytest.raises(NotImplementedError, match="later slice"):
             port.run((X, y), port.LogisticGradient(), port.L2Prox(),
                      resilience=True, **option, **kw)

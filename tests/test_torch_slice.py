@@ -21,6 +21,7 @@ import torch
 import spark_agd_tpu as jpkg
 from spark_agd_tpu.ops.pallas_kernels import PallasLogisticGradient
 import spark_agd_tpu_torch as port
+from spark_agd_tpu_torch.parallel import mesh as tmesh
 from spark_agd_tpu_torch import convert
 from spark_agd_tpu_torch.data import device_synth, synthetic
 from spark_agd_tpu_torch.ops import fused_kernels as fk
@@ -114,6 +115,9 @@ import spark_agd_tpu_torch.models.mlp
 import spark_agd_tpu_torch.data.streaming, spark_agd_tpu_torch.data.ingest
 import spark_agd_tpu_torch.core.host_agd, spark_agd_tpu_torch.utils.logging
 import spark_agd_tpu_torch.obs.schema, spark_agd_tpu_torch.resilience.retry
+import spark_agd_tpu_torch.parallel.mesh, spark_agd_tpu_torch.parallel.multihost
+import spark_agd_tpu_torch.parallel.dist_smooth
+import spark_agd_tpu_torch.parallel.dryrun, spark_agd_tpu_torch.native
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m == "jax" or m.startswith("jax.")
              or m == "spark_agd_tpu" or m.startswith("spark_agd_tpu."))
@@ -182,7 +186,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()),
+    # a data mesh is ported; a model axis still raises
+    dict(mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)),
     # the supervised path is ported: with it, the options of later
     # slices still raise
     dict(resilience=True, telemetry=object()),
@@ -207,7 +212,8 @@ def test_single_device_mesh_values_are_accepted():
         assert len(h) == 2
     with pytest.raises(NotImplementedError, match="mesh"):
         port.AcceleratedGradientDescent(
-            port.LogisticGradient(), port.SquaredL2Updater()).set_mesh("m")
+            port.LogisticGradient(), port.SquaredL2Updater()).set_mesh(
+                tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
 
 
 def test_builder_setters_and_aliases():

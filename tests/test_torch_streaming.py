@@ -30,6 +30,7 @@ from spark_agd_tpu.ops.pallas_kernels import PallasLogisticGradient
 from spark_agd_tpu.resilience.errors import StreamDataLoss as JStreamDataLoss
 from spark_agd_tpu.resilience.retry import RetryPolicy as JRetryPolicy
 import spark_agd_tpu_torch as port
+from spark_agd_tpu_torch.parallel import mesh as tmesh
 from spark_agd_tpu_torch.core import smooth as tsmooth
 from spark_agd_tpu_torch.data import libsvm, streaming
 from spark_agd_tpu_torch.models import glm as tglm
@@ -796,7 +797,10 @@ def test_fused_logistic_stream_fit_matches_pallas_fit():
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(csr_nnz_per_shard=256),
+    # a data mesh and its budget are ported: beside a model axis they
+    # still raise
+    dict(mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)),
+    dict(csr_nnz_per_shard=256, mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)),
     dict(telemetry=object())], ids=lambda o: next(iter(o)))
 def test_streaming_smooth_later_slice_options_raise(option):
     ds = streaming.StreamingDataset.from_arrays(*_dense(n=8), batch_rows=4)
