@@ -335,10 +335,40 @@ Phases, each printing one JSON line:
     4-slot mesh across them, 10 iterations: the ranks' histories and
     weights bit-equal and held to the one-process fit on all files; then
     a one-rank NCCL group fitting phase 5's problem on 1M rows over 2
-    slots, held to the same fit on one device.
+    slots, held to the same fit on one device;
+43. dist_ckpt_fit, after phase 36 on phase 5's data: the fit through
+    ``run(resilience=, checkpointer=DistributedCheckpointer(every_iters=
+    5))`` and through ``run_agd_supervised`` with a ``HeartbeatWriter``,
+    a ``HostMonitor`` and a ``StragglerScheduler`` on one process, each
+    phase 5's bits, its wall time less its timed file I/O within 1.1x
+    phase 5's (the raw ratio beside it), each generation's shard write
+    and commit timed apart; a SIGTERM at 15, the newest committed
+    shard truncated: ``load_for_topology`` falls back one generation and
+    ``run`` resumes to the same bits (every launch ``stream``);
+44. dist_fault_drill, after phase 25: covtype.binary's published size
+    (581,012 x 54) made on the card, written as 8 LIBSVM part files; two
+    pairs of gloo ranks (``--mp-child ... --drill``), 4 parts a rank
+    through ``from_partitioned_files`` onto 2 slots a rank (every launch
+    ``warp_rows``), a generation committed every 5 iterations: (a)
+    uninterrupted; (b) rank 1 SIGKILLed at 15, the loss read from its
+    heartbeat by the parent's ``HostMonitor`` (latency from the last
+    beat), the survivor reaped, the newest shard truncated, one process
+    resuming elastically on all 8 parts to (a)'s final loss (rtol
+    1e-5); (c) a ``DegradedCheckpointer(surviving=[0])`` continuation
+    on rank 0's parts, bit-equal to an uninterrupted fit from the same
+    iterate;
+45. straggler_rebalance, on phase 44's files: two gloo ranks, rank 1 a
+    persistent ``slow_host`` scaled by its share of the parts, the fit
+    with an observe-only scheduler, with a ``StragglerScheduler`` that
+    rebuilds its data (``from_partitioned_files(assignment=,
+    pad_to_rows=)``) and with no straggler and the same decisions
+    replayed: a rebalance committed in the next generation, the
+    rebalanced fit bit-equal to the replay and its loss within rtol 1e-5
+    of 44 (a), its wall time below the observe-only fit's, rank 1 read
+    SLOW and never LOST.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-42) and read just after it; the sparse paths launch neither kernel,
+22-45) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -1819,22 +1849,99 @@ def sparse_path(port, fk, sparse, device_synth, glm, phase, cfg,
                     "cusparse": library, "segment_reduce_1d": cub_1d}}
 
 
+def decimal_fields(v):
+    """The decimal text of the f32 values ``v`` as a (len, 15) uint8
+    array, 0 where a field has no byte: ``[-]d[.dddddddd]e[-]d[d]``,
+    nine significant digits (an f32 reads back exactly), the fraction's
+    trailing zeros dropped; a zero as ``0``."""
+    v = np.asarray(v, np.float32)
+    a = np.abs(v).astype(np.float64)
+    zero = a == 0
+    a[zero] = 1.0
+    e = np.floor(np.log10(a))
+    m = np.rint(a / 10.0 ** (e - 8))
+    off = (m < 1e8).astype(np.int8) - (m >= 1e9)  # log10 a power off
+    if off.any():
+        e -= off
+        m = np.where(off != 0, np.rint(a / 10.0 ** (e - 8)), m)
+    up = m >= 1e9  # rounded up to the next power of ten
+    e += up
+    m[up] = 1e8
+    m, e = m.astype(np.uint32), e.astype(np.int32)
+    digits = []
+    for _ in range(9):
+        m, digit = np.divmod(m, np.uint32(10))
+        digits.append(digit.astype(np.uint8))
+    digits.reverse()
+    blank = np.uint8(0)
+    cols = [np.where(v < 0, np.uint8(ord("-")), blank),
+            digits[0] + np.uint8(ord("0"))]
+    kept, fraction = np.zeros(v.size, bool), []
+    for digit in reversed(digits[1:]):  # a digit stays if any after it
+        kept = kept | (digit != 0)      # is nonzero
+        fraction.append(np.where(kept, digit + np.uint8(ord("0")), blank))
+    cols.append(np.where(kept, np.uint8(ord(".")), blank))
+    cols += reversed(fraction)
+    tens, units = np.divmod(np.abs(e).astype(np.uint8), np.uint8(10))
+    cols += [np.full(v.size, ord("e"), np.uint8),
+             np.where(e < 0, np.uint8(ord("-")), blank),
+             np.where(tens > 0, tens + np.uint8(ord("0")), blank),
+             units + np.uint8(ord("0"))]
+    out = np.stack(cols, axis=1)
+    out[zero] = 0
+    out[zero, 1] = ord("0")
+    return out
+
+
 def write_libsvm(path, cid, val, y, k, rows):
-    """The first ``rows`` rows (``k`` entries each) as LIBSVM text,
-    ``%.9g`` values (f32 round-trips exactly), a block of rows per
-    ``write``; returns the seconds it took."""
+    """The first ``rows`` rows (``k`` entries each: column ids ``cid``,
+    f32 values ``val``) as LIBSVM text, every number read back exactly
+    (:func:`decimal_fields`), built in numpy about 2^20 entries at a
+    time; returns the seconds it took."""
     t0 = time.perf_counter()
-    block = 20_000
-    with open(path, "w", encoding="ascii") as f:
+    width = len(str(int(cid[:rows * k].max()) + 1)) if rows else 1
+    block = max(1, (1 << 20) // k)
+    with open(path, "wb") as f:
         for r0 in range(0, rows, block):
             r1 = min(rows, r0 + block)
-            a = np.empty((r1 - r0, 1 + 2 * k))
-            a[:, 0] = y[r0:r1]
-            a[:, 1::2] = cid[r0 * k:r1 * k].reshape(-1, k) + 1
-            a[:, 2::2] = val[r0 * k:r1 * k].reshape(-1, k)
-            line = "%.9g" + " %d:%.9g" * k + "\n"
-            f.write((line * (r1 - r0)) % tuple(a.ravel().tolist()))
+            n = r1 - r0
+            ids = cid[r0 * k:r1 * k].astype(np.uint32) + np.uint32(1)
+            cols = []
+            for _ in range(width):  # leading zeros left out
+                ids, digit = np.divmod(ids, np.uint32(10))
+                cols.append(np.where((digit > 0) | (ids > 0),
+                                     digit.astype(np.uint8)
+                                     + np.uint8(ord("0")), np.uint8(0)))
+            cols.reverse()
+            entry = np.concatenate(
+                [np.full((n * k, 1), ord(" "), np.uint8),
+                 np.stack(cols, axis=1),
+                 np.full((n * k, 1), ord(":"), np.uint8),
+                 decimal_fields(val[r0 * k:r1 * k])], axis=1)
+            line = np.concatenate(
+                [decimal_fields(y[r0:r1]), entry.reshape(n, -1),
+                 np.full((n, 1), ord("\n"), np.uint8)], axis=1).ravel()
+            f.write(line[line != 0].tobytes())
     return time.perf_counter() - t0
+
+
+def write_parts(X, y, parts, out_dir):
+    """Dense rows as ``parts`` LIBSVM part files of contiguous rows, every
+    column written (:func:`write_libsvm`), a thread a part.  Returns the
+    paths and each part's rows."""
+    X, y = X.cpu().numpy(), y.cpu().numpy()
+    n, d = X.shape
+
+    def write(i):
+        r0, r1 = n * i // parts, n * (i + 1) // parts
+        path = os.path.join(out_dir, f"part-{i:05d}")
+        write_libsvm(path, np.tile(np.arange(d), r1 - r0),
+                     X[r0:r1].ravel(), y[r0:r1], d, r1 - r0)
+        return path, r1 - r0
+
+    with concurrent.futures.ThreadPoolExecutor(parts) as pool:
+        paths, rows = zip(*pool.map(write, range(parts)))
+    return list(paths), list(rows)
 
 
 def phase_libsvm(port, sparse, native, rcv1, after=None):
@@ -5436,13 +5543,15 @@ def _hexes(a):
     return [float(v).hex() for v in np.asarray(a, np.float64).reshape(-1)]
 
 
-def mp_child(port, spec):
-    """The child of phase 42 (``--mp-child BACKEND ADDR WORLD RANK DIR``):
-    one rank of a process group on the card.  With a part directory,
-    ``from_partitioned_files_csr`` over its part files onto a mesh of 2
-    slots a rank and MP_ITERS iterations of logistic AGD; with ``-`` (a
-    one-rank NCCL group), phase 39's fit on MP_NCCL_ROWS rows over 2
-    slots against the same fit without a mesh.  Prints one RESULT line."""
+def mp_child(port, spec, drill=None):
+    """The child of phases 42, 44 and 45 (``--mp-child BACKEND ADDR WORLD
+    RANK DIR``): one rank of a process group on the card.  With a part
+    directory, ``from_partitioned_files_csr`` over its part files onto a
+    mesh of 2 slots a rank and MP_ITERS iterations of logistic AGD; with
+    ``-`` (a one-rank NCCL group), phase 39's fit on MP_NCCL_ROWS rows
+    over 2 slots against the same fit without a mesh; with ``--drill
+    JSON``, the supervised fits of phases 44-45 (:func:`drill_child`).
+    Prints one RESULT line."""
     import datetime
     import glob
     import hashlib
@@ -5460,6 +5569,12 @@ def mp_child(port, spec):
     out = {"rank": rank, "backend": backend, "world": mh.process_count()}
     mesh = mesh_lib.make_mesh({mesh_lib.DATA_AXIS: 2 * world},
                               devices=[torch.device("cuda", 0)] * 2)
+    if drill is not None:
+        out.update(drill_child(port, mesh, parts, json.loads(drill)))
+        torch.cuda.synchronize()
+        print("RESULT " + json.dumps(out), flush=True)
+        mh.shutdown()
+        return 0
     fk.reset_launch_counts()
     dist_smooth.reset_counts()
     if parts != "-":
@@ -5504,16 +5619,26 @@ def mp_child(port, spec):
     return 0
 
 
-def run_children(args_list):
-    """Start the children together, wait for each under
-    MP_CHILD_TIMEOUT_S, kill any left; on a failure print each child's
-    stderr and raise.  Returns their RESULT objects."""
+def start_children(args_list):
+    """Start one ``--mp-child`` process an argument tuple, all together."""
     script = os.path.abspath(__file__)
-    procs = [subprocess.Popen([sys.executable, script, "--mp-child", *a],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True,
-                              cwd=os.path.dirname(script))
-             for a in args_list]
+    return [subprocess.Popen([sys.executable, script, "--mp-child", *a],
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             cwd=os.path.dirname(script))
+            for a in args_list]
+
+
+def run_children(args_list):
+    """Start the children together and collect them
+    (:func:`collect_children`)."""
+    return collect_children(start_children(args_list))
+
+
+def collect_children(procs):
+    """Wait for each child under MP_CHILD_TIMEOUT_S, kill any left; on a
+    failure print each child's stderr and raise.  Returns their RESULT
+    objects."""
     outs = []
     try:
         for p in procs:
@@ -5619,6 +5744,740 @@ def multiprocess(port, fk, smi, paths, launches):
     finish("multiprocess", out, checks, t_phase, smi)
 
 
+# ---------------------------------------------------------------------------
+# Phases 43-45: multi-host resilience
+# ---------------------------------------------------------------------------
+
+# phase 43: phase 5's fit with a generation committed every SUP_SEGMENT
+# iterations (DIST_KEEP kept), a SIGTERM at SUP_SIGTERM_AT
+DIST_KEEP = 2
+# phases 44-45: covtype.binary's published size and width, made on the
+# card and written as DRILL_PARTS LIBSVM part files; two gloo ranks, 2
+# slots a rank, ITERS iterations of the flagship's fit in segments of
+# DRILL_SEGMENT, a generation committed every segment; rank 1 killed at
+# the boundary of DRILL_KILL_AT; the parent's HostMonitor window
+DRILL = dict(n=581_012, d=54, seed=11)
+DRILL_PARTS, DRILL_SEGMENT, DRILL_KILL_AT, DRILL_STALE_S = 8, 5, 15, 2.0
+# phase 45: fits of STRAGGLER_ITERS iterations, under where the f32 fit
+# stops on its own (its iterate frozen: 20 iterations on this data), so
+# every fit compared runs as many iterations, and a multiple of
+# DRILL_SEGMENT, so phase 44 (a) has a generation there; segments of
+# STRAGGLER_SEGMENT; rank 1 sleeps STRAGGLER_SLOW_S at every boundary,
+# scaled by its share of the parts; the scheduler decides after 2 syncs
+# over threshold; the monitor's window
+STRAGGLER_SEGMENT, STRAGGLER_ITERS = 1, 15
+STRAGGLER_SLOW_S, STRAGGLER_STALE_S = 0.6, 5.0
+
+
+def time_calls(obj, name):
+    """Wrap the method ``obj.name`` so that each call's wall seconds land
+    in the returned list."""
+    seconds, call = [], getattr(obj, name)
+
+    def timed_call(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return call(*a, **kw)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(obj, name, timed_call)
+    return seconds
+
+
+def dist_ckpt_fit(port, fk, smi, X, y, solo, launches):
+    """Phase 43, on phase 5's data: the flagship fit checkpointed in
+    barrier-committed generations on one process.  (a) ``run(...,
+    resilience=, checkpointer=DistributedCheckpointer(every_iters=5))``,
+    then ``run_agd_supervised`` with the same checkpointer kind and a
+    ``HeartbeatWriter``, a ``HostMonitor`` and a ``StragglerScheduler``:
+    both give phase 5's bits, and each fit's wall time is held to 1.1x
+    phase 5's; each generation's shard write and commit (the exchange
+    and the manifest writes, on the checkpointer's writer thread), the
+    time each save held the fit, and each beat and monitor check are
+    timed; (b) a scripted SIGTERM at SUP_SIGTERM_AT flushes a
+    generation and raises ``Preempted``; the newest committed shard is
+    truncated, ``load_for_topology`` refuses it and falls back one
+    generation, and ``run`` resumes from there to (a)'s bits.  Every
+    launch the margin kernel's stream mode."""
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+
+    t_phase = time.perf_counter()
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    policy = sup_policy(port, segment_iters=SUP_SEGMENT)
+    fused = counting(port.FusedLogisticGradient)()
+    kw = dict(reg_param=REG, num_iterations=ITERS, convergence_tol=TOL,
+              initial_weights=w0, return_result=True)
+    res5, hist5, run5_s = solo
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+
+    def checkpointer(name):
+        return resilience.DistributedCheckpointer(
+            os.path.join(tmp, name), every_iters=SUP_SEGMENT, keep=DIST_KEEP)
+
+    try:
+        fk.reset_launch_counts()
+        ck_a = checkpointer("a")
+        (w_a, hist_a, _), run_a_s = timed(lambda: port.run(
+            (X, y), fused, port.SquaredL2Updater(), resilience=policy,
+            checkpointer=ck_a, **kw))
+        staged = smooth_lib.make_smooth_staged(fused, X, y)
+        px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), REG)
+        cfg = port.AGDConfig(convergence_tol=TOL, num_iterations=ITERS)
+        hb_dir = os.path.join(tmp, "hb")
+        hb = resilience.HeartbeatWriter(hb_dir)
+        monitor = resilience.HostMonitor(hb_dir)
+        beat_s, check_s = time_calls(hb, "beat"), time_calls(monitor,
+                                                            "check")
+        sched = resilience.StragglerScheduler(["flagship"])
+        ck_h = checkpointer("h")
+        sres_h, run_h_s = timed(lambda: resilience.run_agd_supervised(
+            prox=px, reg_value=rv, w0=w0, config=cfg, policy=policy,
+            staged=staged, checkpointer=ck_h, heartbeat=hb,
+            monitor=monitor, scheduler=sched))
+        last_beat = json.loads(open(hb.path).read())
+
+        dir_b = os.path.join(tmp, "b")
+        t0 = time.perf_counter()
+        preempted = False
+        try:
+            resilience.run_agd_supervised(
+                prox=px, reg_value=rv, w0=w0, config=cfg, policy=policy,
+                staged=staged, checkpointer=checkpointer("b"),
+                faults=resilience.FaultScript(sigterm_at_iter=SUP_SIGTERM_AT))
+        except resilience.Preempted:
+            preempted = True
+        killed_s = time.perf_counter() - t0
+        gens = resilience.manifest.committed_generations(dir_b)
+        newest = resilience.manifest.load_manifest(dir_b, gens[0])
+        torn_bytes = resilience.faults.truncate_file(
+            newest.shard_path(dir_b, 0), 0.4)
+        fallback = resilience.load_for_topology(dir_b, w0)
+        ck_b = checkpointer("b")
+        (w_b, hist_b, sres_b), resume_b_s = timed(lambda: port.run(
+            (X, y), fused, port.SquaredL2Updater(), resilience=policy,
+            checkpointer=ck_b, **kw))
+        record_margin_path(fk, launches, "dist_ckpt_fit")
+        other = fk.lanes_launch_count + fk.softmax_launch_count
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    modes = launches["modes"]["dist_ckpt_fit"]
+    ms = lambda ts: [t * 1e3 for t in ts]  # noqa: E731
+    held_a = sum(ck_a.copy_seconds) + sum(ck_a.save_seconds)
+    held_h = (sum(ck_h.copy_seconds) + sum(ck_h.save_seconds)
+              + sum(beat_s) + sum(check_s))
+    checks = {
+        "a_weights_bit_identical_to_phase5":
+            bool(torch.equal(w_a, res5.weights)),
+        "a_history_bit_identical_to_phase5":
+            bool(np.array_equal(hist_a, hist5)),
+        "a_within_1.1x_phase5_wall": run_a_s <= 1.1 * run5_s,
+        "a_generation_a_segment": ck_a.saves == ITERS // SUP_SEGMENT + 2,
+        "hooks_weights_bit_identical_to_phase5":
+            bool(torch.equal(sres_h.weights, res5.weights)),
+        "hooks_history_bit_identical_to_phase5":
+            bool(np.array_equal(sres_h.loss_history, hist5)),
+        "hooks_within_1.1x_phase5_wall": run_h_s <= 1.1 * run5_s,
+        "hooks_beat_every_boundary_and_at_exit":
+            hb.beats == ITERS // SUP_SEGMENT + 1
+            and last_beat["phase"] == "exit",
+        "hooks_no_rebalance_on_one_process": sched.rebalances == 0,
+        "b_preempted": preempted,
+        "b_newest_generation_at_the_signal":
+            newest.prior_iters == SUP_SIGTERM_AT,
+        "b_torn_generation_refused_one_back":
+            fallback is not None and fallback.generation == gens[1],
+        "b_resumes_from_the_fallback":
+            sres_b.resumed_from == fallback.warm.prior_iters > 0,
+        "b_weights_bit_identical_to_a": bool(torch.equal(w_b, w_a)),
+        "b_history_bit_identical_to_a": bool(np.array_equal(hist_b,
+                                                            hist_a)),
+        "launches_equal_evaluations": launches["dist_ckpt_fit"]
+        == fused.evaluations > 0,
+        "every_launch_stream": modes == {"stream":
+                                         launches["dist_ckpt_fit"]},
+        "no_other_kernel": other == 0}
+    finish("dist_ckpt_fit", {
+        "shape": [N_MAIN, D_MAIN], "segment_iters": SUP_SEGMENT,
+        "every_iters": SUP_SEGMENT, "keep": DIST_KEEP,
+        "phase5_run_s": run5_s, "a_run_s": run_a_s,
+        "a_over_phase5_wall": run_a_s / run5_s, "a_held_s": held_a,
+        "a_generations": ck_a.saves,
+        "a_d2h_ms_per_update": ms(ck_a.copy_seconds),
+        "a_save_held_ms": ms(ck_a.save_seconds),
+        "a_shard_write_ms": ms(ck_a.write_seconds),
+        "a_commit_ms": ms(ck_a.commit_seconds),
+        "a_held_share_of_wall": held_a / run_a_s,
+        "hooks_run_s": run_h_s, "hooks_over_phase5_wall": run_h_s / run5_s,
+        "hooks_held_s": held_h,
+        "hooks_beat_ms": ms(beat_s), "hooks_check_ms": ms(check_s),
+        "hooks_save_held_ms": ms(ck_h.save_seconds),
+        "hooks_shard_write_ms": ms(ck_h.write_seconds),
+        "hooks_commit_ms": ms(ck_h.commit_seconds),
+        "hooks_beats": hb.beats,
+        "b_killed_run_s": killed_s, "b_generations": gens,
+        "b_newest_prior_iters": newest.prior_iters,
+        "b_truncated_to_bytes": torn_bytes,
+        "b_fallback_generation": fallback.generation,
+        "b_resumed_from": sres_b.resumed_from, "b_resume_run_s": resume_b_s,
+        "launches": launches["dist_ckpt_fit"], "modes": modes,
+        "smooth_evaluations": fused.evaluations}, checks, t_phase, smi)
+
+
+def parse_parts(port, paths, cache=None):
+    """The parts not in ``cache`` parsed, the native parser on a thread a
+    part (it releases the GIL), and added to it: path -> ``CSRData``."""
+    cache = {} if cache is None else cache
+    todo = [p for p in paths if p not in cache]
+    if todo:
+        with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
+            cache.update(zip(todo, pool.map(
+                lambda p: port.load_libsvm(p, n_features=DRILL["d"]),
+                todo)))
+    return cache
+
+
+def drill_staged(port, mesh, paths, cache, assignment=None, pad=None):
+    """``from_partitioned_files`` over the parts (parsed parts from
+    ``cache``, others parsed and added), staged for the flagship's fused
+    gradient over ``mesh``."""
+    from spark_agd_tpu_torch.data import ingest
+    from spark_agd_tpu_torch.parallel import dist_smooth
+
+    def loader(path, n_features=None):
+        if path not in cache:
+            cache[path] = port.load_libsvm(path, n_features=n_features)
+        return cache[path]
+
+    batch = ingest.from_partitioned_files(
+        paths, mesh, n_features=DRILL["d"], loader=loader,
+        assignment=assignment, pad_to_rows=pad)
+    return dist_smooth.make_dist_smooth_staged(
+        port.FusedLogisticGradient(), batch, mesh=mesh)
+
+
+def drill_fit(port, staged, segment, iters=ITERS, **kw):
+    """The drill's supervised fit: the flagship's AGD (reg 0.1, ``iters``
+    iterations, tol 0) over ``staged`` in segments of ``segment``."""
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+
+    px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), REG)
+    w0 = torch.zeros(DRILL["d"], dtype=torch.float32, device="cuda")
+    return resilience.run_agd_supervised(
+        prox=px, reg_value=rv, w0=w0, config=drill_config(port, iters),
+        policy=sup_policy(port, segment_iters=segment), staged=staged, **kw)
+
+
+def drill_config(port, iters=ITERS):
+    return port.AGDConfig(convergence_tol=TOL, num_iterations=iters)
+
+
+def drill_fingerprint(port, iters=ITERS):
+    from spark_agd_tpu_torch.utils import checkpoint as ckpt
+
+    w0 = torch.zeros(DRILL["d"], dtype=torch.float32, device="cuda")
+    return ckpt.problem_fingerprint(w0, drill_config(port, iters))
+
+
+def drill_child(port, mesh, parts_dir, spec):
+    """One rank's fits in phases 44-45 (``--drill JSON``).  ``kind``
+    "base": the supervised fit over its round-robin half of the parts, a
+    generation committed into ``work/ck`` every segment, heartbeats into
+    ``work/hb``; "killed": the same, rank 1 SIGKILLing itself at the
+    boundary of ``kill_at``; "straggler": two fits in segments of
+    STRAGGLER_SEGMENT, rank 1 sleeping ``slow_s`` at every boundary
+    (a persistent ``slow_host``, scaled by its share of the parts,
+    beating ``"slow"``), first with an observe-only scheduler, then with
+    a ``StragglerScheduler`` that rebuilds the data for ``decision.mine``
+    with ``from_partitioned_files(assignment=, pad_to_rows=)``, then with
+    no straggler and the same decisions replayed at the same
+    boundaries."""
+    import glob
+
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.data import ingest
+    from spark_agd_tpu_torch.ops import fused_kernels as fk
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+    from spark_agd_tpu_torch.parallel import multihost as mh
+
+    rank, world = mh.process_index(), mh.process_count()
+    paths = sorted(glob.glob(os.path.join(parts_dir, "part-*")))
+    mine = ingest.local_partitions(paths)
+    (cache, parse_s) = timed(lambda: parse_parts(port, mine))
+    staged, ingest_s = timed(lambda: drill_staged(port, mesh, paths, cache))
+    fk.reset_launch_counts()
+
+    def fit(work, segment, iters=ITERS, **kw):
+        hb = resilience.HeartbeatWriter(os.path.join(work, "hb"))
+        ck = resilience.DistributedCheckpointer(
+            os.path.join(work, "ck"), every_iters=segment, keep=spec["keep"],
+            fingerprint=drill_fingerprint(port, iters),
+            mesh_shape=dict(mesh.shape), partitions=mine)
+        res, fit_s = timed(lambda: drill_fit(
+            port, staged, segment, iters, checkpointer=ck, heartbeat=hb,
+            **kw))
+        return {"hist": _hexes(res.loss_history),
+                "w": _hexes(res.weights.cpu()), "iters": int(res.num_iters),
+                "fit_s": fit_s, "beats": hb.beats,
+                "shard_write_ms": [t * 1e3 for t in ck.write_seconds],
+                "commit_ms": [t * 1e3 for t in ck.commit_seconds]}
+
+    out = {"parse_s": parse_s, "ingest_s": ingest_s,
+           "rows": sum(len(cache[p].labels) for p in mine)}
+    if spec["kind"] in ("base", "killed"):
+        faults = (resilience.FaultScript(sigkill_at_iter=spec["kill_at"])
+                  if spec["kind"] == "killed" and rank == 1 else None)
+        out.update(fit(spec["work"], DRILL_SEGMENT, faults=faults))
+    else:
+        rows_of = dict(zip(paths, spec["part_rows"]))
+        rebuilt = []  # (decision, what the rebuild did)
+
+        def rebuild(decision):
+            pad = max(sum(rows_of[p] for p in a)
+                      for a in decision.assignments)
+            slots = mesh.local_shape[mesh_lib.DATA_AXIS]
+            pad = -(-pad // slots) * slots
+            new, dt = timed(lambda: drill_staged(
+                port, mesh, paths, parse_parts(port, decision.mine, cache),
+                list(decision.mine), pad))
+            rebuilt.append((decision, {
+                "at_iter": decision.at_iter,
+                "assignments": decision.assignments, "skew": decision.skew,
+                "straggler": decision.straggler, "rebuild_s": dt,
+                "pad_to_rows": pad}))
+            return new
+
+        for name, rebalance in (("observe", False), ("rebalance", True)):
+            sched = resilience.StragglerScheduler(
+                paths, policy=resilience.ReschedulePolicy(
+                    trigger_segments=2, min_shard=1, rebalance=rebalance),
+                rebuild=rebuild if rebalance else None)
+            scales = []  # each sleep's scale: its share over an even one
+
+            def scale(s=sched):
+                scales.append(len(s.assignment) * world / len(s.union))
+                return scales[-1]
+
+            chaos = (resilience.ChaosSchedule(
+                [resilience.ScheduledFault("slow_host", 0,
+                                           payload=spec["slow_s"],
+                                           persist=True)],
+                slow_scale=scale) if rank == 1 else None)
+            out[name] = fit(os.path.join(spec["work"], name),
+                            STRAGGLER_SEGMENT, STRAGGLER_ITERS,
+                            faults=chaos, scheduler=sched)
+            out[name].update(rebalances=sched.rebalances,
+                             assignment=sched.assignment,
+                             slow_sleeps=len(chaos.fired) if chaos else 0,
+                             slow_scales=scales)
+        made = list(rebuilt)
+        out["rebalance"]["rebuilt"] = [info for _, info in made]
+        # the rebalanced fit's data schedule with no straggler: the same
+        # decisions applied at the same boundaries
+        out["scripted"] = fit(os.path.join(spec["work"], "scripted"),
+                              STRAGGLER_SEGMENT, STRAGGLER_ITERS,
+                              scheduler=_Scripted(
+                                  [d for d, _ in made], rebuild))
+    out.update(launches=fk.launch_count, modes=margin_modes(fk))
+    return out
+
+
+class _Scripted:
+    """A scheduler that applies recorded ``RebalanceDecision``s at the
+    boundaries they were made at, with no exchange: a straggler's
+    rebalances replayed on a fit without the straggler."""
+
+    def __init__(self, decisions, rebuild):
+        self.decisions, self.rebuild = list(decisions), rebuild
+
+    def after_segment(self, *, start_iter, iters, boundary_s,
+                      segment_s=None):
+        return next((d for d in self.decisions
+                     if d.at_iter == start_iter + iters), None)
+
+    def apply(self, decision, *, checkpointer=None):
+        checkpointer.partitions = list(decision.mine)
+        return self.rebuild(decision)
+
+
+def _unhex(values):
+    return np.array([float.fromhex(v) for v in values])
+
+
+def drill_args(addr, parts_dir, spec):
+    return [("gloo", addr, "2", str(r), parts_dir, "--drill",
+             json.dumps(spec)) for r in range(2)]
+
+
+def dist_fault_drill(port, fk, smi, device_synth, launches):
+    """Phase 44: covtype.binary's published size (DRILL: 581,012 x 54
+    f32) made on the card from its seed and written as DRILL_PARTS
+    LIBSVM part files; two pairs of gloo ranks on the card at once
+    (``--mp-child ... --drill``), each rank reading its 4 parts with
+    ``from_partitioned_files`` onto a 2-slot mesh, the fused gradient in
+    its warp-rows mode: (a) the uninterrupted supervised fit, a
+    generation committed every DRILL_SEGMENT iterations and heartbeats,
+    the ranks bit-equal; (b) the same fit, rank 1 SIGKILLing itself at
+    DRILL_KILL_AT: the parent's ``HostMonitor`` raises ``HostLost`` from
+    the dead rank's heartbeat alone (the detection latency from its last
+    beat) and reaps the survivor; the parent truncates the newest
+    generation's shard, ``load_for_topology`` on one process refuses it
+    and falls back one generation, and one process resumes elastically
+    (2 -> 1, the 8 parts re-split by ``reshard_partitions``) to (a)'s
+    final loss (rtol 1e-5, the port's f32 mesh tolerance) and history
+    over their common iterations; (c) from the same generation, a
+    ``DegradedCheckpointer(surviving=[0])`` continuation on rank 0's
+    parts only, bit-equal to an uninterrupted fit over those parts from
+    the same iterate.  Then phase 45 on the same files."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+    try:
+        parts_dir, part_rows, base = _dist_fault_drill(
+            port, fk, smi, device_synth, launches, tmp)
+        straggler_rebalance(port, fk, smi, parts_dir, part_rows, base,
+                            launches, os.path.join(tmp, "s"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dist_fault_drill(port, fk, smi, device_synth, launches, tmp):
+    """Phase 44 in ``tmp``; returns the part directory, each part's rows
+    and (a)'s history and weights at STRAGGLER_ITERS (its generation
+    there) for phase 45."""
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.core import agd, smooth as smooth_lib
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+    from spark_agd_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    parts_dir = os.path.join(tmp, "parts")
+    os.makedirs(parts_dir)
+    X, y = device_synth.class_logistic(DRILL["n"], DRILL["d"],
+                                       seed=DRILL["seed"])
+    (paths, part_rows), write_s = timed(lambda: write_parts(
+        X, y, DRILL_PARTS, parts_dir))
+    del X, y
+    torch.cuda.empty_cache()
+    file_mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    base_dir, killed_dir = (os.path.join(tmp, k) for k in ("a", "b"))
+    t0 = time.perf_counter()
+    base = start_children(drill_args(
+        f"localhost:{_free_port()}", parts_dir,
+        {"kind": "base", "work": base_dir, "keep": 8}))
+    killed = start_children(drill_args(
+        f"localhost:{_free_port()}", parts_dir,
+        {"kind": "killed", "work": killed_dir, "keep": 4,
+         "kill_at": DRILL_KILL_AT}))
+    try:
+        victim_rc = killed[1].wait(timeout=MP_CHILD_TIMEOUT_S)
+        t_exit = time.time()
+        if victim_rc != -signal.SIGKILL:
+            print(killed[1].stderr.read()[-6000:], file=sys.stderr,
+                  flush=True)
+        monitor = resilience.HostMonitor(
+            os.path.join(killed_dir, "hb"), expected=[1],
+            stale_after_s=DRILL_STALE_S)
+        lost, deadline = None, time.monotonic() + 60
+        while lost is None and time.monotonic() < deadline:
+            try:
+                monitor.check()
+                time.sleep(0.05)
+            except resilience.HostLost as e:
+                lost, t_lost = e, time.time()
+        last_beat = json.loads(open(os.path.join(
+            killed_dir, "hb", "heartbeat.h001.json")).read())
+        survivor_alive = killed[0].poll() is None
+        if survivor_alive:
+            killed[0].kill()
+        survivor_out, survivor_err = killed[0].communicate(timeout=60)
+        killed_s = time.perf_counter() - t0
+        r0, r1 = collect_children(base)
+        base_s = time.perf_counter() - t0
+    finally:
+        for p in base + killed:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if lost is None:
+        print(survivor_err[-6000:], file=sys.stderr, flush=True)
+        raise AssertionError("dist_fault_drill: no HostLost from the "
+                             "dead rank's heartbeat")
+
+    base_ck = os.path.join(base_dir, "ck")
+    base_newest = resilience.manifest.load_manifest(base_ck)
+    # (a) at STRAGGLER_ITERS, phase 45's reference: its generation there
+    base_at = next(m for g in resilience.manifest.committed_generations(
+        base_ck) if (m := resilience.manifest.load_manifest(
+            base_ck, g)).prior_iters == STRAGGLER_ITERS)
+    base_at = ckpt.read_npz_entries(base_at.shard_path(base_ck, 0))
+    base_at = {"hist": _hexes(base_at["loss_history"]),
+               "w": _hexes(base_at["x_0"])}
+    ck_dir = os.path.join(killed_dir, "ck")
+    gens = resilience.manifest.committed_generations(ck_dir)
+    newest = resilience.manifest.load_manifest(ck_dir, gens[0])
+    torn_bytes = resilience.faults.truncate_file(
+        newest.shard_path(ck_dir, 0), 0.4)
+    w0 = torch.zeros(DRILL["d"], dtype=torch.float32, device="cuda")
+    fp = drill_fingerprint(port)
+    fallback = resilience.load_for_topology(
+        ck_dir, w0, process_index=0, process_count=1, fingerprint=fp)
+    degraded_dir = os.path.join(tmp, "c")
+    shutil.copytree(ck_dir, degraded_dir)
+    mesh = card_mesh(mesh_lib, 2)
+    cache, parse_s = timed(lambda: parse_parts(port, paths))
+    fk.reset_launch_counts()
+    ck = resilience.DistributedCheckpointer(
+        ck_dir, every_iters=DRILL_SEGMENT, keep=4, fingerprint=fp,
+        process_index=0, process_count=1)
+    elastic, elastic_s = timed(lambda: drill_fit(
+        port, drill_staged(port, mesh, paths, cache,
+                           list(fallback.partitions)),
+        DRILL_SEGMENT, checkpointer=ck))
+    dck = resilience.DegradedCheckpointer(
+        degraded_dir, surviving=[0], original_process_index=0,
+        every_iters=DRILL_SEGMENT, keep=4, fingerprint=fp)
+    dl = dck.load(w0)
+    staged = drill_staged(port, mesh, paths, cache, list(dl.partitions))
+    degraded, degraded_s = timed(lambda: drill_fit(
+        port, staged, DRILL_SEGMENT, checkpointer=dck))
+    sm, sl = staged[0](*staged[1])
+    px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), REG)
+    ref = agd.run_agd(sm, px, rv, dl.warm.x, dataclasses.replace(
+        drill_config(port), num_iterations=ITERS - dl.warm.prior_iters),
+        smooth_loss=sl, warm=dl.warm)
+    parent_launches, parent_modes = fk.launch_count, margin_modes(fk)
+    del cache, staged, sm, sl
+    torch.cuda.empty_cache()
+
+    hist_a = _unhex(r0["hist"])
+    n_common = min(len(hist_a), len(elastic.loss_history))
+    n_ref = int(ref.num_iters)
+    ref_hist = ref.loss_history[:n_ref].cpu().numpy()
+    launches["dist_fault_drill"] = (r0["launches"] + r1["launches"]
+                                    + parent_launches)
+    modes = {}
+    for m in (r0["modes"], r1["modes"], parent_modes):
+        for k, v in m.items():
+            modes[k] = modes.get(k, 0) + v
+    launches["modes"]["dist_fault_drill"] = modes
+    checks = {
+        "a_ranks_bit_equal": (r0["hist"], r0["w"]) == (r1["hist"],
+                                                      r1["w"]),
+        "a_iterations_past_the_kill": r0["iters"] > DRILL_KILL_AT,
+        "a_final_state_committed": (base_newest.prior_iters,
+                                    base_newest.process_count)
+        == (r0["iters"], 2),
+        "a_history_committed_at_phase45_iters":
+            base_at["hist"] == r0["hist"][:STRAGGLER_ITERS],
+        "a_rows_of_the_dataset": r0["rows"] + r1["rows"] == DRILL["n"],
+        "b_victim_died_by_sigkill": victim_rc == -signal.SIGKILL,
+        "b_host_lost_from_heartbeats": lost.process_index == 1,
+        "b_last_beat_at_the_kill": last_beat["iter"] == DRILL_KILL_AT,
+        "b_survivor_did_not_finish": "RESULT " not in survivor_out,
+        "b_newest_generation_at_the_kill":
+            newest.prior_iters == DRILL_KILL_AT,
+        "b_torn_generation_refused_one_back":
+            fallback.generation == gens[1] and fallback.elastic,
+        "b_elastic_all_parts": tuple(fallback.partitions)
+        == tuple(sorted(paths)),
+        "b_resumed_from_the_fallback":
+            elastic.resumed_from == fallback.warm.prior_iters > 0,
+        "b_final_loss_rtol_1e-5_vs_a": bool(np.isclose(
+            elastic.loss_history[-1], hist_a[-1], rtol=1e-5, atol=0.0)),
+        "b_history_rtol_1e-5_vs_a_on_common_iterations": bool(np.allclose(
+            elastic.loss_history[:n_common], hist_a[:n_common], rtol=1e-5,
+            atol=0.0)),
+        "c_same_generation_as_b": dl.generation == fallback.generation,
+        "c_rank0_parts_only": tuple(dl.partitions)
+        == tuple(sorted(paths)[0::2]),
+        "c_dropped_rank1_parts": dck.dropped_partitions
+        == tuple(sorted(paths)[1::2]),
+        "c_weights_bit_equal_to_uninterrupted": bool(torch.equal(
+            degraded.weights, ref.weights)),
+        "c_history_bit_equal_to_uninterrupted": bool(np.array_equal(
+            degraded.loss_history[dl.warm.prior_iters:], ref_hist)),
+        "every_launch_warp_rows": set(modes) == {"warp_rows"},
+        "finite": bool(np.isfinite(elastic.loss_history).all()
+                       and np.isfinite(degraded.loss_history).all())}
+    finish("dist_fault_drill", {
+        "shape": [DRILL["n"], DRILL["d"]], "parts": len(paths),
+        "part_rows": part_rows, "file_mb": file_mb, "write_s": write_s,
+        "gloo_ranks": 2, "slots_per_rank": 2, "segment_iters": DRILL_SEGMENT,
+        "a_rank_parse_s": [r0["parse_s"], r1["parse_s"]],
+        "a_rank_ingest_s": [r0["ingest_s"], r1["ingest_s"]],
+        "a_rank_fit_s": [r0["fit_s"], r1["fit_s"]],
+        "a_shard_write_ms": r0["shard_write_ms"],
+        "a_commit_ms": [r0["commit_ms"], r1["commit_ms"]],
+        "a_children_wall_s": base_s,
+        "a_num_iters": r0["iters"], "a_loss_last": float(hist_a[-1]),
+        "b_kill_at": DRILL_KILL_AT, "b_victim_rc": victim_rc,
+        "b_stale_after_s": DRILL_STALE_S,
+        "b_detection_s_from_last_beat": t_lost - last_beat["time"],
+        "b_detection_s_from_exit": t_lost - t_exit,
+        "b_survivor_alive_at_detection": survivor_alive,
+        "b_survivor_rc": killed[0].returncode,
+        "b_children_wall_s": killed_s, "b_generations": gens,
+        "b_truncated_to_bytes": torn_bytes,
+        "b_fallback_generation": fallback.generation,
+        "b_resumed_from": elastic.resumed_from, "b_resume_run_s": elastic_s,
+        "b_parent_parse_s": parse_s,
+        "b_loss_last": float(elastic.loss_history[-1]),
+        "b_final_loss_rel_diff_vs_a": float(abs(
+            elastic.loss_history[-1] - hist_a[-1]) / abs(hist_a[-1])),
+        "c_generation": dl.generation, "c_resumed_from": degraded.resumed_from,
+        "c_run_s": degraded_s, "c_dropped_parts": len(dck.dropped_partitions),
+        "c_loss_last": float(degraded.loss_history[-1]),
+        "launches": launches["dist_fault_drill"], "modes": modes},
+        checks, t_phase, smi)
+    return parts_dir, part_rows, base_at
+
+
+def straggler_rebalance(port, fk, smi, parts_dir, part_rows, base,
+                        launches, work):
+    """Phase 45, on phase 44's files: two gloo ranks (``--drill``
+    "straggler"), rank 1 sleeping STRAGGLER_SLOW_S at every boundary
+    times its share of the parts (``ChaosSchedule(slow_scale=)``, its
+    heartbeat beating ``"slow"`` through each sleep), each rank running
+    the fit with an observe-only ``StragglerScheduler``, then with one
+    that rebalances and rebuilds its data for ``decision.mine``
+    (``from_partitioned_files(assignment=, pad_to_rows=)``), then with
+    no straggler and the same decisions applied at the same boundaries;
+    each fit STRAGGLER_ITERS iterations.  At least one rebalance,
+    committed in the generation right after it (every shard carrying its
+    process's new parts); the rebalanced fit bit-equal to that last fit
+    (the same rows on every slot at every iteration), its final loss and
+    history within rtol 1e-5 of phase 44 (a) at STRAGGLER_ITERS (the
+    same objective, the rows summed in another order; its weights'
+    distance reported); the observe-only fit bit-equal to 44 (a) there;
+    the rebalanced fit's wall time below the observe-only one's, and the
+    straggler size where the sleep it saves pays for its rebuild
+    reported; the parent's ``HostMonitor`` reads rank 1 SLOW, never
+    LOST."""
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    procs = start_children(drill_args(
+        f"localhost:{_free_port()}", parts_dir,
+        {"kind": "straggler", "work": work, "keep": 64,
+         "slow_s": STRAGGLER_SLOW_S, "part_rows": part_rows}))
+    monitors = {name: resilience.HostMonitor(
+        os.path.join(work, name, "hb"), stale_after_s=STRAGGLER_STALE_S)
+        for name in ("observe", "rebalance")}
+    seen = {name: {0: set(), 1: set()} for name in monitors}
+    try:
+        while any(p.poll() is None for p in procs):
+            for name, mon in monitors.items():
+                beats = mon.poll()
+                for p, verdict in mon.verdicts().items():
+                    if beats.get(p, {}).get("phase") != "exit":
+                        seen[name][p].add(verdict)
+            time.sleep(0.05)
+        r0, r1 = collect_children(procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t_phase
+
+    reb, obs = r0["rebalance"], r0["observe"]
+    decisions = reb["rebuilt"]
+    ck_dir = os.path.join(work, "rebalance", "ck")
+    committed = None
+    if decisions:
+        # the generation right after the decision: the forced commit
+        at = decisions[0]["at_iter"]
+        gens = sorted(resilience.manifest.committed_generations(ck_dir))
+        at_gens = [g for g in gens if resilience.manifest.load_manifest(
+            ck_dir, g).prior_iters == at]
+        m = resilience.manifest.load_manifest(ck_dir, at_gens[-1])
+        committed = [[str(p) for p in ckpt.read_npz_entries(
+            m.shard_path(ck_dir, r))["partitions"]] for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)
+    hist_a, w_a = _unhex(base["hist"]), _unhex(base["w"])
+    hist_r, w_r = _unhex(reb["hist"]), _unhex(reb["w"])
+    n_common = min(len(hist_a), len(hist_r))
+    launches["straggler_rebalance"] = r0["launches"] + r1["launches"]
+    modes = {}
+    for m in (r0["modes"], r1["modes"]):
+        for k, v in m.items():
+            modes[k] = modes.get(k, 0) + v
+    launches["modes"]["straggler_rebalance"] = modes
+    fit_s = {name: max(r0[name]["fit_s"], r1[name]["fit_s"])
+             for name in ("observe", "rebalance")}
+    # the straggler's sleep the rebalance saved, in units of slow_s, and
+    # the size at which that pays for the rebuild
+    saved_units = (sum(r1["observe"]["slow_scales"])
+                   - sum(r1["rebalance"]["slow_scales"]))
+    rebuild_s = decisions[0]["rebuild_s"] if decisions else None
+    checks = {
+        "ranks_bit_equal": all(
+            (r0[n]["hist"], r0[n]["w"]) == (r1[n]["hist"], r1[n]["w"])
+            for n in ("observe", "rebalance", "scripted")),
+        "every_fit_runs_straggler_iters": all(
+            r[n]["iters"] == STRAGGLER_ITERS for r in (r0, r1)
+            for n in ("observe", "rebalance", "scripted")),
+        "observe_no_rebalance": obs["rebalances"] == 0,
+        "rebalanced_at_least_once": reb["rebalances"] >= 1,
+        "rebalance_names_rank1": bool(decisions)
+        and decisions[0]["straggler"] == 1,
+        "rebalance_moves_parts_off_rank1": bool(decisions) and len(
+            decisions[0]["assignments"][1]) < len(
+            decisions[0]["assignments"][0]),
+        "next_generation_carries_the_new_assignment":
+            committed is not None and committed == [
+                sorted(a) for a in decisions[0]["assignments"]],
+        "rebalance_bit_equal_to_its_schedule_without_the_straggler":
+            (reb["hist"], reb["w"]) == (r0["scripted"]["hist"],
+                                        r0["scripted"]["w"]),
+        "rebalance_final_loss_rtol_1e-5_vs_44a": bool(np.isclose(
+            hist_r[-1], hist_a[-1], rtol=1e-5, atol=0.0)),
+        "rebalance_history_rtol_1e-5_vs_44a": bool(np.allclose(
+            hist_r[:n_common], hist_a[:n_common], rtol=1e-5, atol=0.0)),
+        "observe_bit_equal_to_44a": (obs["hist"], obs["w"])
+        == (base["hist"], base["w"]),
+        "rebalance_wall_below_observe": fit_s["rebalance"]
+        < fit_s["observe"],
+        "rank1_read_slow_never_lost": all(
+            "slow" in seen[n][1] and "lost" not in seen[n][1]
+            and "lost" not in seen[n][0] for n in seen),
+        "every_launch_warp_rows": set(modes) == {"warp_rows"}}
+    finish("straggler_rebalance", {
+        "shape": [DRILL["n"], DRILL["d"]], "parts": DRILL_PARTS,
+        "segment_iters": STRAGGLER_SEGMENT, "iterations": STRAGGLER_ITERS,
+        "slow_s": STRAGGLER_SLOW_S,
+        "observe_fit_s": fit_s["observe"],
+        "rebalance_fit_s": fit_s["rebalance"],
+        "rebalance_over_observe_wall": fit_s["rebalance"] / fit_s["observe"],
+        "rank1_slow_sleeps": {n: r1[n]["slow_sleeps"]
+                              for n in ("observe", "rebalance")},
+        "rank1_slow_scales": {n: r1[n]["slow_scales"]
+                              for n in ("observe", "rebalance")},
+        "saved_sleep_s": saved_units * STRAGGLER_SLOW_S,
+        "rebuild_s": rebuild_s,
+        "break_even_slow_s": (rebuild_s / saved_units
+                              if rebuild_s and saved_units > 0 else None),
+        "decisions": decisions, "rebalances": reb["rebalances"],
+        "rank_assignment_after": [r0["rebalance"]["assignment"],
+                                  r1["rebalance"]["assignment"]],
+        "committed_after_decision": committed,
+        "verdicts_seen": {n: {str(p): sorted(v) for p, v in seen[n].items()}
+                          for n in seen},
+        "rebalance_weight_rel_diff_vs_44a": float(
+            np.linalg.norm(w_r - w_a) / np.linalg.norm(w_a)),
+        "rebalance_max_abs_weight_diff_vs_44a": float(np.max(
+            np.abs(w_r - w_a))),
+        "rebalance_max_entry_rel_diff_vs_44a": float(np.max(
+            np.abs(w_r - w_a) / np.maximum(np.abs(w_a), 1e-30))),
+        "rebalance_loss_last": float(hist_r[-1]),
+        "children_wall_s": wall_s,
+        "launches": launches["straggler_rebalance"], "modes": modes},
+        checks, t_phase, smi)
+
+
 def main(argv):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card.")
@@ -5638,8 +6497,11 @@ def main(argv):
                              "default")
     parser.add_argument("--mp-child", nargs=5,
                         metavar=("BACKEND", "ADDR", "WORLD", "RANK", "DIR"),
-                        help="run one rank of phase 42's process group "
-                             "(started by the script itself)")
+                        help="run one rank of phase 42's, 44's or 45's "
+                             "process group (started by the script itself)")
+    parser.add_argument("--drill", metavar="JSON",
+                        help="with --mp-child: the supervised fits of "
+                             "phases 44-45 this rank runs")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5655,7 +6517,7 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.mp_child:
-        return mp_child(port, args.mp_child)
+        return mp_child(port, args.mp_child, args.drill)
 
     # 1. device
     smi = gpu_name_and_power()
@@ -5717,6 +6579,8 @@ def main(argv):
         supervised_fit(port, fk, smi, X, y, solo, launches)
         supervised_path(port, fk, smi, X, y, sweep_ref, lbfgs13, launches)
         torch.cuda.empty_cache()
+        # 43. the same fit checkpointed in barrier-committed generations
+        dist_ckpt_fit(port, fk, smi, X, y, solo, launches)
         cv_path(port, fk, glm, smi, X, y, launches)
         torch.cuda.empty_cache()
         flagship.update(host=pinned_copy(streaming, X, y), solo=solo)
@@ -5783,6 +6647,11 @@ def main(argv):
     torch.cuda.empty_cache()
     mid = mid_path(port, fk, losses, device_synth, smi, launches)
     torch.cuda.empty_cache()
+    # 44-45. covtype.binary's published size as part files over two gloo
+    # ranks: a rank killed, detected from heartbeats, resumed elastically
+    # and degraded; then a straggler rebalanced away
+    dist_fault_drill(port, fk, smi, device_synth, launches)
+    torch.cuda.empty_cache()
     # 28-29 and 38. LIBSVM epsilon's shape: the stream mode, the path over
     # 8 strengths in the lanes kernel's cluster mode, the chaos campaigns
     epsilon_sweep = {}
@@ -5825,7 +6694,8 @@ def main(argv):
              "linreg_path", "wide_path", "snp_path", "stream_path",
              "stream_libsvm", "supervised_fit", "supervised_path_lbfgs",
              "supervised_stream", "chaos_soak", "mesh_fit", "mesh_stream",
-             "dryrun", "multiprocess")
+             "dryrun", "multiprocess", "dist_ckpt_fit", "dist_fault_drill",
+             "straggler_rebalance")
     margin["launches_by_path"] = {"main_path": margin["launches"],
                                   **{p: launches[p] for p in paths}}
     margin["modes_by_path"] = {"main_path": margin.pop("main_path_modes"),

@@ -146,6 +146,13 @@ from .data.streaming import (  # noqa: F401
     make_streaming_eval_multi,
     make_streaming_smooth,
 )
+from .parallel.mesh import (  # noqa: F401
+    ShardedBatch,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shard_csr_batch,
+)
 from . import resilience  # noqa: F401
 from .resilience import (  # noqa: F401
     AutoCheckpointer,

@@ -12,7 +12,6 @@ NOT_PORTED = ("is not ported yet: the PyTorch port runs data parallelism "
               "streamed")
 
 _A8 = "the model-parallel slice after the mesh slice (ROADMAP A.8)"
-_A10 = "the multi-host resilience slice (ROADMAP A.10)"
 
 # option -> the later slice that carries it
 _SLICES = {
@@ -23,9 +22,6 @@ _SLICES = {
                         f"parallel/feature_sharded.py",
     "grid_mesh": f"{_A8}: the mesh sweeps and cross-validation of "
                  f"parallel/grid.py, and the streamed sweeps' mesh=",
-    "heartbeat": f"{_A10}, resilience/distributed.py",
-    "monitor": f"{_A10}, resilience/distributed.py",
-    "scheduler": f"{_A10}, resilience/scheduler.py",
     "journal": "the observability slice, resilience/journal.py with obs/",
     "telemetry": "the observability slice, obs/",
 }

@@ -1,14 +1,18 @@
-"""``spark_agd_tpu_torch.resilience``: single-device fault tolerance.
+"""``spark_agd_tpu_torch.resilience``: fault tolerance on one device and
+across the processes of a ``torch.distributed`` group.
 
 The failure taxonomy and the retry engine (``errors`` and ``retry``,
 copies of the JAX package's stdlib-only modules), fault injection
 (``faults``), the preemption-safe ``AutoCheckpointer`` (``autockpt``),
 the fault-aware supervisor (``supervisor``: retries, rollbacks,
-checkpoints) and seeded chaos campaigns (``chaos``).
+checkpoints, heartbeats, host monitoring, straggler scheduling) and
+seeded chaos campaigns (``chaos``).  Across processes: checksummed
+generation manifests (``manifest``, a copy), the barrier-committed
+``DistributedCheckpointer`` with elastic resume, ``HeartbeatWriter``
+and ``HostMonitor`` (``distributed``), quorum degradation (``degrade``)
+and the straggler scheduler with speculative segments (``scheduler``).
 ``api.run(..., resilience=ResiliencePolicy(...))`` is the one-argument
-entry point.  The multi-host members (``distributed``, ``degrade``,
-``scheduler``, ``manifest``) come after the mesh slice, and ``journal``
-with the observability slice."""
+entry point.  ``journal`` comes with the observability slice."""
 
 from .errors import (  # noqa: F401
     FATAL,
@@ -42,10 +46,35 @@ from .supervisor import (  # noqa: F401
 )
 from . import faults  # noqa: F401
 from .faults import FaultScript  # noqa: F401
+from . import manifest  # noqa: F401
+from .distributed import (  # noqa: F401
+    DistributedCheckpointer,
+    HeartbeatWriter,
+    HostMonitor,
+    LoadedDistCheckpoint,
+    load_for_topology,
+)
 from . import chaos  # noqa: F401
 from .chaos import (  # noqa: F401
     ChaosCampaign,
     ChaosSchedule,
     ScheduledFault,
     run_campaign,
+)
+from . import degrade  # noqa: F401
+from .degrade import (  # noqa: F401
+    DegradePolicy,
+    DegradedCheckpointer,
+    load_degraded,
+)
+from . import scheduler  # noqa: F401
+from .scheduler import (  # noqa: F401
+    RebalanceDecision,
+    ReschedulePolicy,
+    SkewTracker,
+    StragglerScheduler,
+    assign_weighted,
+    resolve_speculation,
+    run_speculative_segment,
+    speculation_due,
 )

@@ -1,7 +1,8 @@
 """Chaos campaigns: seeded, composable multi-fault schedules and the
 campaign executor that proves recovery against fault sequences.
 
-Counterpart of ``spark_agd_tpu/resilience/chaos.py``, single-process.
+Counterpart of ``spark_agd_tpu/resilience/chaos.py``; the campaign
+executor is single-process, a schedule serves any process of a group.
 ``resilience.faults.FaultScript`` arms one fault of each kind; this
 module generalizes it:
 
@@ -125,15 +126,24 @@ class ChaosSchedule:
 
     PERSISTENT ``slow_host`` faults (``ScheduledFault(persist=True)``)
     fire at every boundary at or past their iteration, never exhaust,
-    and never interrupt.  ``telemetry=`` (the ``chaos`` records) comes
-    with the observability slice and raises; the heartbeat binding and
-    the straggler scale of the JAX package's schedule come with the
-    multi-host slice, and the replica kinds (``before_request``) with
-    the serving slice: a schedule of them raises."""
+    and never interrupt.  ``slow_scale`` (optional callable returning a
+    float) scales every slow-host sleep when it fires: wired to the
+    process's current share of the data, a rebalance that moves
+    partitions off the slow process shrinks its delay.  A bound
+    heartbeat (:meth:`bind_heartbeat`; the supervisor binds its own
+    writer) is beaten ``phase="slow"`` at the start of every injected
+    sleep and every ``beat_interval_s`` during it, so a sleep longer
+    than a monitor's staleness window reads as SLOW, not LOST
+    (``distributed.HostMonitor.verdicts``).  ``telemetry=`` (the
+    ``chaos`` records) comes with the observability slice and raises;
+    the replica kinds (``before_request``) come with the serving slice,
+    and a schedule of them raises."""
 
     def __init__(self, faults: Sequence[ScheduledFault], *,
                  telemetry=None, seed: Optional[int] = None,
-                 sleep: Callable[[float], None] = time.sleep):
+                 sleep: Callable[[float], None] = time.sleep,
+                 slow_scale: Optional[Callable[[], float]] = None,
+                 beat_interval_s: float = 0.25):
         reject_later(telemetry=telemetry)
         for f in faults:
             if f.kind in FILE_KINDS:
@@ -161,10 +171,40 @@ class ChaosSchedule:
                          and f.kind not in READER_KINDS]
         self.seed = seed  # the campaign's
         self._sleep = sleep
+        self._slow_scale = slow_scale
+        self._beat_interval_s = float(beat_interval_s)
+        self._heartbeat = None
         self.fired: List[Tuple[str, int]] = []  # (kind, boundary iter)
+
+    def bind_heartbeat(self, heartbeat) -> None:
+        """Attach the process's ``HeartbeatWriter`` (the supervisor
+        does), so injected sleeps keep beating (class docstring)."""
+        self._heartbeat = heartbeat
 
     def _emit(self, fault: ScheduledFault, global_iter: int) -> None:
         self.fired.append((fault.kind, global_iter))
+
+    def _scale(self) -> float:
+        return (max(0.0, float(self._slow_scale()))
+                if self._slow_scale is not None else 1.0)
+
+    def _slow_sleep(self, seconds: float, global_iter: int) -> None:
+        """One injected straggler sleep: with a bound heartbeat, in
+        sub-intervals with a ``phase="slow"`` beat before each, so the
+        process's heartbeat file never goes stale mid-sleep; without
+        one, a single call."""
+        if self._heartbeat is None:
+            self._sleep(seconds)
+            return
+        remaining = float(seconds)
+        while remaining > 0:
+            try:
+                self._heartbeat.beat(iter=global_iter, phase="slow")
+            except OSError:
+                pass  # a dying filesystem must not mask the drill
+            chunk = min(remaining, self._beat_interval_s)
+            self._sleep(chunk)
+            remaining -= chunk
 
     # -- the supervisor hooks (FaultScript interface) ---------------------
     def before_segment(self, global_iter: int) -> None:
@@ -173,16 +213,19 @@ class ChaosSchedule:
                 continue
             eff = float(f.payload) * (float(f.decay)
                                       ** self._persist_fired[i])
+            eff *= self._scale()
             self._persist_fired[i] += 1
             if eff > 1e-9:
-                # a fully decayed persistent straggler goes quiet
+                # a straggler rebalanced fully away, or fully decayed,
+                # goes quiet
                 self._emit(f, global_iter)
-                self._sleep(eff)
+                self._slow_sleep(eff, global_iter)
         while self._pending and self._pending[0].at_iter <= global_iter:
             f = self._pending.pop(0)
             self._emit(f, global_iter)
             if f.kind == "slow_host":
-                self._sleep(float(f.payload) or 0.25)
+                self._slow_sleep((float(f.payload) or 0.25)
+                                 * self._scale(), global_iter)
                 continue  # a straggler interrupts nothing
             if f.kind == "sigkill":
                 os.kill(os.getpid(), signal_lib.SIGKILL)

@@ -24,10 +24,11 @@ No segment writes into the tensors of the warm state it started from
 (the optimizer loop updates nothing in place), so a failed segment is
 retried from an intact anchor.  The ``attempt`` ledger has the JAX
 package's entries; its ``attempt``/``recovery`` records come with the
-observability slice, as do ``telemetry=``; ``heartbeat=``, ``monitor=``
-and ``scheduler=`` come with the multi-host slice, and a ``staged`` build
+observability slice, as does ``telemetry=``, and a ``staged`` build
 with ``make_agd_run`` with the sharded update: they raise
-``NotImplementedError``.
+``NotImplementedError``.  ``heartbeat=``, ``monitor=`` and
+``scheduler=`` (``resilience.distributed``, ``resilience.scheduler``)
+run as the JAX package wires them.
 """
 
 from __future__ import annotations
@@ -171,10 +172,30 @@ def run_agd_supervised(
     attempt at its next pass or commit.
 
     ``seg_cache`` (a dict, default private): the built ``(smooth,
-    smooth_loss)`` pair per ``(segment length, poisoned)``; share one
-    dict only across calls of one problem."""
-    reject_later(telemetry=telemetry, heartbeat=heartbeat,
-                 monitor=monitor, scheduler=scheduler)
+    smooth_loss)`` pair per ``(segment length, poisoned)``, beside the
+    ``staged`` pair it was built over (a pair built over other data is
+    built anew); share one dict only across calls of one problem.
+
+    ``heartbeat`` (a :class:`~spark_agd_tpu_torch.resilience.
+    distributed.HeartbeatWriter`): beaten at every segment boundary and
+    once at exit, and bound to a ``faults`` schedule that has
+    ``bind_heartbeat`` (an injected straggler sleep beats ``"slow"``).
+    ``monitor`` (a :class:`~spark_agd_tpu_torch.resilience.distributed.
+    HostMonitor`): checked at each boundary; a stale peer raises
+    ``HostLost``, classified TRANSIENT and retried with backoff.  A
+    process inside a collective against a dead peer does not reach its
+    next boundary (the collective fails or waits for the group's
+    timeout): whoever launched the group reads the loss from the
+    heartbeats and reaps it.
+
+    ``scheduler`` (a :class:`~spark_agd_tpu_torch.resilience.scheduler.
+    StragglerScheduler`): each successful segment's boundary seconds
+    (the hooks above, this process's own work) feed
+    ``scheduler.after_segment``; a returned decision is applied at the
+    generation boundary: ``staged`` becomes the rebuilt pair (the
+    smooths built over the old data are dropped) and the checkpointer
+    force-commits a generation carrying the new partition list."""
+    reject_later(telemetry=telemetry)
     if w0 is None or config is None:
         raise ValueError("w0 and config are required")
     if staged is None and smooth is None:
@@ -195,6 +216,11 @@ def run_agd_supervised(
             f"a sharded-update build (make_agd_run) {NOT_PORTED} (it "
             "arrives in a later slice: the model-parallel slice after the "
             "mesh slice, parallel/sharded_update.py)")
+    if scheduler is not None and getattr(scheduler, "rebuild", None) \
+            is not None and staged is None:
+        raise ValueError(
+            "scheduler rebalancing swaps the staged data arguments: "
+            "pass staged=(build, data_args), not a closure smooth")
     policy = policy or ResiliencePolicy()
     w0 = tvec.tmap(_as_tensor, w0)
     if place_w is not None:
@@ -205,13 +231,16 @@ def run_agd_supervised(
 
     def segment_smooth(k: int, poisoned: bool):
         key = (k, poisoned)
-        if key not in seg_fns:
+        entry = seg_fns.get(key)
+        # a built smooth closes over the data it was built from: after a
+        # rebalance swaps ``staged``, it is built anew
+        if entry is None or entry[0] is not staged:
             sm, sl = (staged[0](*staged[1]) if staged is not None
                       else (smooth, smooth_loss))
             if poisoned:
                 sm = faults_lib.poison_smooth(sm)
-            seg_fns[key] = (sm, sl)
-        return seg_fns[key]
+            entry = seg_fns[key] = (staged, sm, sl)
+        return entry[1:]
 
     begin_attempt = getattr(checkpointer, "begin_attempt", None)
 
@@ -295,6 +324,12 @@ def run_agd_supervised(
         if delay:
             sleep(delay)
 
+    if faults is not None and heartbeat is not None \
+            and hasattr(faults, "bind_heartbeat"):
+        # injected slow_host sleeps beat the heartbeat in sub-intervals,
+        # so a monitor reads the process SLOW, not LOST
+        faults.bind_heartbeat(heartbeat)
+
     finished = False
     try:
         if checkpointer is not None:
@@ -318,9 +353,17 @@ def run_agd_supervised(
                         f"{elapsed:.3f}s at iteration {start} ({retries} "
                         f"retries, {rollbacks} rollbacks so far); not "
                         "retrying further", ledger)
-            if faults is not None:
+            # the boundary hooks are this process's own work (no
+            # collective): their seconds are what the scheduler folds
+            t_bnd = time.perf_counter()
+            if heartbeat is not None:
+                heartbeat.beat(iter=start, phase="segment")
+            if faults is not None or monitor is not None:
                 try:
-                    faults.before_segment(start)
+                    if faults is not None:
+                        faults.before_segment(start)
+                    if monitor is not None:
+                        monitor.check()
                 except Exception as e:  # noqa: BLE001 (classified below)
                     attempt_no += 1
                     kind = errors.classify_failure(e)
@@ -337,6 +380,7 @@ def run_agd_supervised(
                         raise
                     transient(start, e)
                     continue
+            boundary_s = time.perf_counter() - t_bnd
             poisoned = faults is not None and faults.take_poison(start)
 
             attempt_no += 1
@@ -381,6 +425,24 @@ def run_agd_supervised(
             seg_failures = 0
             if checkpointer is not None:
                 checkpointer.update(warm, hist, converged=converged)
+            if scheduler is not None and not converged and done > 0:
+                decision = scheduler.after_segment(
+                    start_iter=start, iters=done, boundary_s=boundary_s,
+                    segment_s=dt)
+                if decision is not None:
+                    # the generation-boundary rebalance: swap in the
+                    # rebuilt data, then commit a generation that carries
+                    # the new assignment
+                    new_staged = scheduler.apply(decision,
+                                                 checkpointer=checkpointer)
+                    if new_staged is not None:
+                        for key in [key for key, entry in seg_fns.items()
+                                    if entry[0] is staged]:
+                            del seg_fns[key]
+                        staged = new_staged
+                    if checkpointer is not None:
+                        checkpointer.update(warm, hist,
+                                            converged=converged, force=True)
             if converged or done == 0:
                 break
         finished = True
@@ -391,6 +453,11 @@ def run_agd_supervised(
                              finished)
             finally:
                 checkpointer.uninstall_signal_handlers()
+        if heartbeat is not None:
+            try:
+                heartbeat.beat(iter=int(warm.prior_iters), phase="exit")
+            except OSError:  # a dying filesystem must not mask the
+                pass         # real exit path
 
     return SupervisedResult(
         weights=warm.x, loss_history=np.asarray(hist),

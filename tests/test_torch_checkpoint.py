@@ -629,3 +629,19 @@ def test_the_port_module_keeps_the_jax_entry_names():
     jwarm = jagd.AGDWarmState.initial(jnp.zeros(2), jagd.AGDConfig())
     assert set(ckpt.warm_payload(warm, extra={"stream_n": 1})) \
         == set(jckpt.warm_payload(jwarm, extra={"stream_n": 1}))
+
+
+def test_atomic_savez_writes_the_jax_bytes(tmp_path):
+    """The bytes of a checkpoint file are the JAX package's for the same
+    payload (the zip entries' timestamps held to one second)."""
+    warm = ckpt.host_warm(agd.AGDWarmState.initial(
+        torch.arange(5, dtype=torch.float64), agd.AGDConfig()))
+    payload = ckpt.warm_payload(warm, np.linspace(1.0, 0.5, 7),
+                                fingerprint="fp", extra={"stream_pass": 3})
+    with mock.patch("time.time", return_value=1.7e9):
+        ckpt.atomic_savez(str(tmp_path / "port.npz"), payload)
+        jckpt.atomic_savez(str(tmp_path / "jax.npz"), payload)
+    assert (tmp_path / "port.npz").read_bytes() \
+        == (tmp_path / "jax.npz").read_bytes()
+    assert ckpt.read_npz_entries(str(tmp_path / "port.npz")).keys() \
+        == payload.keys()

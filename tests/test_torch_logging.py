@@ -1,12 +1,12 @@
 """The port's structured logging (``utils/logging.py``), its run-record
 schema (``obs/schema.py``) and the copied resilience leaves
-(``resilience/errors.py``, ``resilience/retry.py``) against the JAX
-package's, on the CPU.
+(``resilience/errors.py``, ``resilience/retry.py``,
+``resilience/manifest.py``) against the JAX package's, on the CPU.
 
 ``log_result`` and ``iteration_records`` give JAX's lines and records for
 the same fit; ``run(..., verbose=True)`` logs them; every record passes
 both packages' validators; ``make_host_logger`` follows a streamed
-``run_agd_host`` as JAX's follows JAX's; and the three copies equal their
+``run_agd_host`` as JAX's follows JAX's; and the four copies equal their
 originals after their module docstrings, line for line."""
 
 import ast
@@ -204,7 +204,8 @@ def _after_docstring(path: Path) -> str:
 
 
 @pytest.mark.parametrize("rel", ["resilience/errors.py",
-                                 "resilience/retry.py", "obs/schema.py"])
+                                 "resilience/retry.py", "obs/schema.py",
+                                 "resilience/manifest.py"])
 def test_copied_module_equals_the_original(rel):
     mine = ROOT / "spark_agd_tpu_torch" / rel
     theirs = ROOT / "spark_agd_tpu" / rel

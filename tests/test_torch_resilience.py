@@ -530,12 +530,26 @@ def test_the_watchdog_times_out_and_the_retry_gives_the_same_bits(problem):
             assert not t.is_alive()
 
 
-def test_later_slice_options_raise(problem):
+def test_later_slice_options_raise(problem, tmp_path):
     build, dargs, px, rv, w0, _ = problem
     cfg = agd.AGDConfig(num_iterations=2)
-    for option in ("telemetry", "heartbeat", "monitor", "scheduler"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            _supervise(problem, cfg, **{option: object()})
+    with pytest.raises(NotImplementedError, match="later slice"):
+        _supervise(problem, cfg, telemetry=object())
+    # the multi-host slice's options run: a heartbeat, a monitor and a
+    # scheduler leave a single-process fit's bits as they were
+    from spark_agd_tpu_torch.resilience import (HeartbeatWriter,
+                                                HostMonitor,
+                                                StragglerScheduler)
+
+    cfg = agd.AGDConfig(num_iterations=12, convergence_tol=0.0)
+    plain = _supervise(problem, cfg, policy=_policy())
+    hb = HeartbeatWriter(str(tmp_path))
+    res = _supervise(problem, cfg, policy=_policy(), heartbeat=hb,
+                     monitor=HostMonitor(str(tmp_path)),
+                     scheduler=StragglerScheduler(["a", "b"]))
+    assert torch.equal(res.weights, plain.weights)
+    assert np.array_equal(res.loss_history, plain.loss_history)
+    assert hb.beats == 12 // 5 + 2  # a beat a segment, and one at exit
 
     def sharded(*da):
         return build(*da)

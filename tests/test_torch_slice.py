@@ -155,6 +155,40 @@ def test_sources_import_nothing_of_jax(rel):
     assert not [n for n in names if _is_jax_side(n)], names
 
 
+# the JAX package root's public names the port does not export yet, each
+# with the slice that brings it
+ROOT_NAMES_TO_PORT = {
+    "Telemetry": "A.12, the observability slice",
+    "serve": "A.11, the serving slice",
+}
+
+
+def _root_public_names(path: Path):
+    """The names a package ``__init__.py`` binds: what it imports and
+    defines at module level, private ones left out."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_port_root_exports_every_name_of_the_jax_root():
+    jax_names = _root_public_names(ROOT / "spark_agd_tpu" / "__init__.py")
+    assert {"make_mesh", "ShardedBatch", "run"} <= jax_names
+    missing = sorted(n for n in jax_names if not hasattr(port, n))
+    assert missing == sorted(ROOT_NAMES_TO_PORT), missing
+    for name in ("ShardedBatch", "make_mesh", "replicate", "shard_batch",
+                 "shard_csr_batch"):
+        assert getattr(port, name) is getattr(tmesh, name)
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     X, y = _logistic_data(n=16, d=3)

@@ -14,8 +14,15 @@ streamed in batches of 8 (``make_streaming_smooth(mesh=)``, a tail batch
 of 3).  The rank that holds no rows joins every collective with zero
 sums.
 
+With ``--drill WORK`` it runs one rank of the multi-host resilience drill
+(``tests/test_torch_dist_resilience.py``): an f64 supervised fit over
+its round-robin half of ``PART_DIR/part-*.libsvm`` (a 4-slot mesh), a
+``DistributedCheckpointer`` committing every segment into ``WORK/ck`` and
+a ``HeartbeatWriter`` beating into ``WORK/hb``; with ``--kill-at=N`` the
+rank SIGKILLs itself at the boundary of iteration N.
+
 Usage: python torch_multihost_child.py ADDR NPROC RANK PART_DIR [DEVICE]
-       [--tail]
+       [--tail | --drill WORK [--kill-at=N]]
 """
 
 import datetime
@@ -69,9 +76,54 @@ def _tail_fits(port, mesh_lib, part_dir, device, nproc):
     return out
 
 
+# the drill's fit: iterations, segment (= checkpoint cadence) and width
+DRILL_ITERS, DRILL_SEGMENT, DRILL_WIDTH = 24, 3, 5
+
+
+def _drill(part_dir, work, kill_at):
+    """One rank of the resilience drill (module docstring)."""
+    from spark_agd_tpu_torch.core import agd, smooth
+    from spark_agd_tpu_torch.data import ingest
+    from spark_agd_tpu_torch.ops import losses, prox
+    from spark_agd_tpu_torch.parallel import dist_smooth, mesh as mesh_lib
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.utils import checkpoint as ckpt
+
+    paths = sorted(glob.glob(os.path.join(part_dir, "part-*.libsvm")))
+    mesh = mesh_lib.make_mesh({"data": 4}, devices=["cpu"] * 2)
+    batch = ingest.from_partitioned_files(paths, mesh,
+                                          n_features=DRILL_WIDTH,
+                                          dtype=np.float64)
+    staged = dist_smooth.make_dist_smooth_staged(
+        losses.LogisticGradient(), batch, mesh=mesh)
+    px, rv = smooth.make_prox(prox.L2Prox(), 0.1)
+    w0 = torch.zeros(DRILL_WIDTH, dtype=torch.float64)
+    cfg = agd.AGDConfig(convergence_tol=0.0, num_iterations=DRILL_ITERS)
+    res = resilience.run_agd_supervised(
+        prox=px, reg_value=rv, w0=w0, config=cfg, staged=staged,
+        policy=resilience.ResiliencePolicy(
+            backoff_base=0.0, jitter=0.0, seed=0,
+            segment_iters=DRILL_SEGMENT),
+        checkpointer=resilience.DistributedCheckpointer(
+            os.path.join(work, "ck"), every_iters=DRILL_SEGMENT, keep=4,
+            fingerprint=ckpt.problem_fingerprint(w0, cfg),
+            mesh_shape=dict(mesh.shape),
+            partitions=ingest.local_partitions(paths)),
+        heartbeat=resilience.HeartbeatWriter(os.path.join(work, "hb")),
+        faults=(None if kill_at is None else
+                resilience.FaultScript(sigkill_at_iter=kill_at)))
+    return {"hist": _hex(res.loss_history), "w": _hex(res.weights),
+            "iters": int(res.num_iters)}
+
+
 def main():
-    flags = [a for a in sys.argv[1:] if a.startswith("--")]
-    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    argv = sys.argv[1:]
+    work = None
+    if "--drill" in argv:
+        i = argv.index("--drill")
+        work = argv.pop(i + 1)
+    flags = [a for a in argv if a.startswith("--")]
+    args = [a for a in argv if not a.startswith("--")]
     addr, nproc, rank, part_dir = args[:4]
     device = args[4] if len(args) > 4 else "cpu"
     nproc, rank = int(nproc), int(rank)
@@ -95,6 +147,13 @@ def main():
     assert hyb.shape == {"data": 2 * nproc}
 
     out = {"rank": rank}
+    if work is not None:
+        kill = [int(f.split("=", 1)[1]) for f in flags
+                if f.startswith("--kill-at=")]
+        out.update(_drill(part_dir, work, kill[0] if kill else None))
+        print("RESULT " + json.dumps(out), flush=True)
+        mh.shutdown()
+        return
     if "--tail" in flags:
         out.update(_tail_fits(port, mesh_lib, part_dir, device, nproc))
         print("RESULT " + json.dumps(out), flush=True)
