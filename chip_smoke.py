@@ -327,8 +327,11 @@ Phases, each printing one JSON line:
 41. mesh_stream, after phase 37 on the pinned stream: 2 slots at 3
     iterations, held to phase 32's history, each batch copied once a
     pass, directly from the pinned source through the card's placer;
-    then
-    ``parallel.dryrun.dryrun_multichip(4, "cuda")``;
+    then ``streaming_sweep(mesh=)`` over the same 2 slots (a lanes
+    launch a slot a batch, every launch ``lanes_mma``), each lane held to
+    phase 33's; then ``parallel.dryrun.dryrun_multichip(4, "cuda")``
+    (its eight paths: DP x TP softmax, feature sharding and the mesh
+    sweep among them; the mesh sweep's lanes launches a slot a round);
 42. multiprocess, inside phase 34 while its part files exist: two
     processes on the card in a gloo group (``--mp-child``), each reading
     its 4 of the 8 parts with ``from_partitioned_files_csr`` onto a
@@ -365,10 +368,37 @@ Phases, each printing one JSON line:
     replayed: a rebalance committed in the next generation, the
     rebalanced fit bit-equal to the replay and its loss within rtol 1e-5
     of 44 (a), its wall time below the observe-only fit's, rank 1 read
-    SLOW and never LOST.
+    SLOW and never LOST;
+46. mesh_sweep, on phase 5's data after phase 23: ``sweep(mesh=)`` over
+    4 slots of the card through ``FusedLogisticGradient`` (one lanes
+    launch a slot a round, all ``lanes_mma``), every lane held to phase
+    22's (the same iterations or both at the loss floor, histories at
+    the mesh tolerances 1e-5/1e-7), the card's peak within phase 22's +
+    1 GB; ``LBFGS.sweep(mesh=)`` held to phase 27; the trainer's
+    ``cross_validate`` over the mesh (plain gradient) held to phase 23
+    (fold ids, best strength, validation losses rtol 1e-4); wall times
+    beside theirs;
+47. sharded_update, on phase 5's data after 46: ``run(mesh=,
+    sharded_update=True)`` over 4 slots with the plain gradient held to
+    the replicated mesh fit, ``FusedLogisticGradient`` refused with a
+    ``ValueError``, a generation written in either mode resumed in the
+    other; then sharded_update_mp, after phase 45 on its files: two gloo
+    ranks with ``sharded_update=True``, bit-equal, held to the
+    one-process replicated fit, each rank's census of collectives;
+48. tensor_parallel, on phase 7's data after 40: a {data: 2, model: 2}
+    mesh in ``dist_mode="auto"``: the plain class-sharded fit held to
+    phase 7's plain fit, ``FusedSoftmaxGradient`` (a ``one_read`` launch
+    a data slot an evaluation) held to phase 7's fit and to the plain
+    mesh fit, its evaluation to f64 sums at W = 0, random W and the fit's,
+    ``SoftmaxRegressionWithAGD(mesh=)``; no further copy of Xa;
+49. feature_sharded_rcv1, after phase 40 (a): config 1's columns over 4
+    model slots (``shard_csr_by_columns``), held to phase 10, its host
+    layout's seconds; feature_sharded_epsilon, inside phase 28's
+    ``after``: ``shard_batch_by_features`` over 4 model slots, held to
+    phase 28's plain fit, its pad weights exactly zero.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-45) and read just after it; the sparse paths launch neither kernel,
+22-49) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -459,6 +489,7 @@ wherever they take the width (``NAME:lanes_tile``,
 import argparse
 import concurrent.futures
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -1337,7 +1368,7 @@ def softmax_path(port, fk, device_synth, after):
           "grad_abs_max": float(exact_grad.abs().max()),
           "card_before": state_before, "card_after": state_after})
     del staged, resid
-    after(Xa, y, (res, hist))
+    after(Xa, y, (res, hist, res_plain, hist_plain))
     return {"name": "softmax_loss_grad", "route": "cuda",
             "source": "spark_agd_tpu_torch/csrc/softmax_loss_grad.cu",
             "replaces": "spark_agd_tpu/ops/pallas_kernels.py:409",
@@ -3906,7 +3937,11 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches,
                 .setNumIterations(iters).setConvergenceTol(TOL))
 
     fk.reset_launch_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     res, sweep_s = timed(lambda: opt(fused).sweep((X, y), SWEEP_REGS, w0))
+    peak_above = (torch.cuda.max_memory_allocated() - base) / 1e9
     lanes_launches, rounds = fk.lanes_launch_count, fused.rounds
     modes = {m: c for m, c in fk.lanes_mode_launches.items() if c}
     other = fk.launch_count + fk.softmax_launch_count
@@ -3927,8 +3962,9 @@ def sweep_path(port, fk, losses, smi, X, y, solo, launches,
            "loss_last_by_lane": [float(_Lane(res, i).hist[-1])
                                  for i in range(k)]}
     out.update(hold_sweep(res, plain, checks, "sweep"))
+    out["peak_gb_above_x"] = peak_above
     if keep is not None:
-        keep["res"] = res
+        keep.update(res=res, s=sweep_s, peak_above=peak_above)
     lane0 = _Lane(res, 0)
     out["lane_0.1_max_hist_rel_diff_vs_solo"] = hold_paths(
         lane0, solo[0], lane0.hist, solo[1], checks, "lane_0.1_vs_solo")
@@ -4101,17 +4137,18 @@ def lbfgs_sweep_path(port, fk, smi, X, y, launches, keep=None):
         out.update(hold_lbfgs(_LbfgsLane(res, i), solo, checks,
                               f"lane_{i}"))
     if keep is not None:
-        keep["res"] = res
+        keep.update(res=res, s=sweep_s)
     finish("lbfgs_sweep_path", out, checks, t_phase, smi)
 
 
-def cv_path(port, fk, glm, smi, X, y, launches):
+def cv_path(port, fk, glm, smi, X, y, launches, keep=None):
     """Phase 23, on phase 5's data: 5-fold CV over CV_REGS (20 lanes)
     through ``LogisticRegressionWithAGD(add_intercept=False)
     .cross_validate`` with the plain gradient and its refit; the fold
     ids drawn on the card against the CPU draw, two lanes against solo
     runs under their train masks, ``val_loss`` against each lane's
-    held-out mean loss."""
+    held-out mean loss.  ``keep`` (a dict, optional) receives the
+    ``CVResult``, the refit model and the wall seconds."""
     from spark_agd_tpu_torch import api
 
     t_phase = time.perf_counter()
@@ -4170,6 +4207,8 @@ def cv_path(port, fk, glm, smi, X, y, launches):
         out[f"lane_{f}_{r}_max_hist_rel_diff_vs_solo"] = hold_paths(
             lane, solo, lane.hist, hist, checks, f"lane_{f}_{r}_vs_solo")
     out["solo_run_s"] = solo_s
+    if keep is not None:
+        keep.update(cv=cv, model=model, s=cv_s)
     finish("cv_path", out, checks, t_phase, smi)
 
 
@@ -4463,14 +4502,15 @@ def stream_path(port, fk, streaming, smi, host, solo, launches,
 
 
 def stream_sweep(port, fk, streaming, smi, host, sweep_ref, lbfgs_ref,
-                 launches):
+                 launches, keep=None):
     """Phase 33, on phase 32's stream: ``streaming_sweep`` over
     SWEEP_REGS through ``FusedLogisticGradient`` capped at STREAM_ITERS,
     every launch in the lanes kernel's ``lanes_mma`` mode at K = 8, one a
     batch a pass, each lane held to phase 22's in-memory sweep over
     common iterations (rtol 1e-4); then ``streaming_lbfgs_sweep`` over
     the same strengths, each lane held to phase 27's ``LBFGS.sweep``
-    over common iterations."""
+    over common iterations.  ``keep`` (a dict, optional) receives the
+    streamed sweep's result (phase 41 holds its mesh stream to it)."""
     t_phase = time.perf_counter()
     Xh, yh = host["X"], host["y"]
     n, d = Xh.shape
@@ -4512,6 +4552,8 @@ def stream_sweep(port, fk, streaming, smi, host, sweep_ref, lbfgs_ref,
            "num_iters": res.num_iters.tolist(),
            "max_hist_rel_diff_vs_phase22_by_lane": diffs,
            **pass_report(stats)}
+    if keep is not None:
+        keep["res"] = res
 
     lstats = []
     fused_l = counting_lanes(port.FusedLogisticGradient)()
@@ -5409,7 +5451,7 @@ def mesh_softmax(port, fk, smi, Xa, y, solo, launches):
     from spark_agd_tpu_torch.parallel import dist_smooth, mesh as mesh_lib
 
     t_phase = time.perf_counter()
-    res7, hist7 = solo
+    res7, hist7 = solo[:2]
     d = D_SM + 1
     mesh = card_mesh(mesh_lib, MESH_SPARSE_SLOTS)
     fused = counting(port.FusedSoftmaxGradient)(port.SoftmaxGradient(K_SM))
@@ -5452,16 +5494,21 @@ def mesh_softmax(port, fk, smi, Xa, y, solo, launches):
     finish("mesh_softmax", out, checks, t_phase, smi)
 
 
-def mesh_stream(port, fk, streaming, smi, host, stream_ref, launches):
+def mesh_stream(port, fk, streaming, smi, host, stream_ref, sweep33,
+                launches):
     """Phase 41: phase 32's stream (phase 5's data in pinned host memory,
     batches of STREAM_ROWS) through ``make_streaming_smooth(mesh=)`` over
     MESH_STREAM_SLOTS slots, ``run_agd_host`` at MESH_STREAM_ITERS
     iterations, held to phase 32's history (rtol 1e-4), the margin kernel
     launched once a slot a batch, each batch copied to the card once a
-    pass (directly: the source is pinned); then
-    ``dryrun_multichip(4, "cuda")``
-    (dense DP, CSR DP, the fused kernel in each shard, the mesh-streamed
-    CSR fit, mesh L-BFGS, each held to its single-device run)."""
+    pass (directly: the source is pinned); then ``streaming_sweep(mesh=)``
+    over the same slots at MESH_STREAM_ITERS iterations, one lanes launch
+    a slot a batch, every lane held to phase 33's streamed sweep
+    ``sweep33`` over their common iterations (rtol 1e-4); then
+    ``dryrun_multichip(4, "cuda")`` (dense DP, DP x TP softmax, feature
+    sharding, CSR DP, the fused kernel in each shard, the mesh-streamed
+    CSR fit, the mesh sweep through the lanes kernel, mesh L-BFGS, each
+    held to its single-device run)."""
     from spark_agd_tpu_torch.core import smooth as smooth_lib
     from spark_agd_tpu_torch.parallel import dist_smooth, dryrun
     from spark_agd_tpu_torch.parallel import mesh as mesh_lib
@@ -5493,9 +5540,33 @@ def mesh_stream(port, fk, streaming, smi, host, stream_ref, launches):
     batches = -(-N_MAIN // STREAM_ROWS)
     ref = stream_ref["hist"]
     m = min(len(res.loss_history), len(ref))
+    # the streamed sweep over the same mesh: a lanes launch a slot a batch
+    sstats = []
+    fused_s = counting_lanes(port.FusedLogisticGradient)()
+    fk.reset_launch_counts()
+    sres, ssweep_s = timed(lambda: port.streaming_sweep(
+        ds, fused_s, port.SquaredL2Updater(), SWEEP_REGS,
+        num_iterations=MESH_STREAM_ITERS, convergence_tol=TOL,
+        initial_weights=w0, mesh=mesh, pass_stats=sstats))
+    s_launches = fk.lanes_launch_count
+    s_modes = {k_: c for k_, c in fk.lanes_mode_launches.items() if c}
+    launches["mesh_stream_sweep"] = s_launches
+    launches.setdefault("lanes_modes", {})["mesh_stream_sweep"] = s_modes
+    s_diffs, s_ok = [], True
+    for i in range(len(SWEEP_REGS)):
+        hist_i = sres.loss_history[:int(sres.num_iters[i]), i]
+        ref_i = sweep33.loss_history[:int(sweep33.num_iters[i]), i]
+        mi = min(len(hist_i), len(ref_i))
+        s_ok = s_ok and bool(np.allclose(hist_i[:mi], ref_i[:mi],
+                                         rtol=1e-4, atol=0.0))
+        s_diffs.append(float(np.max(np.abs(hist_i[:mi] - ref_i[:mi])
+                                    / np.abs(ref_i[:mi]))))
     fk.reset_launch_counts()
     dry, dry_s = timed(lambda: dryrun.dryrun_multichip(4, "cuda"))
     record_margin_path(fk, launches, "dryrun")
+    launches["dryrun_lanes"] = fk.lanes_launch_count
+    launches["lanes_modes"]["dryrun"] = {
+        k_: c for k_, c in fk.lanes_mode_launches.items() if c}
     out = {"shape": [N_MAIN, D_MAIN], "slots": MESH_STREAM_SLOTS,
            "batch_rows": STREAM_ROWS, "fit_s": fit_s,
            "num_iters": res.num_iters, "mesh_evaluations": evals,
@@ -5510,8 +5581,13 @@ def mesh_stream(port, fk, streaming, smi, host, stream_ref, launches):
            "direct_copies_per_pass": [st["direct_copies"] for st in stats],
            "staged_copies_per_pass": [st["staged_copies"] for st in stats],
            "throttle_s_per_pass": [st["throttle_s"] for st in stats],
+           "sweep_s": ssweep_s, "sweep_launches": s_launches,
+           "sweep_modes": s_modes, "sweep_rounds": fused_s.rounds,
+           "sweep_num_iters": sres.num_iters.tolist(),
+           "sweep_max_hist_rel_diff_vs_phase33_by_lane": s_diffs,
            "dryrun_slot_evaluations": dry, "dryrun_s": dry_s,
-           "dryrun_kernel_launches": launches["dryrun"]}
+           "dryrun_kernel_launches": launches["dryrun"],
+           "dryrun_lanes_launches": launches["dryrun_lanes"]}
     pass_bytes = host["X"].nbytes + host["y"].nbytes
     checks = {
         "launches_equal_slots_x_batches_x_passes": launched
@@ -5526,6 +5602,13 @@ def mesh_stream(port, fk, streaming, smi, host, stream_ref, launches):
                 and st["staged_copies"] == 0 for st in stats),
         "dryrun_fused_launches_a_slot_an_evaluation":
             launches["dryrun"] == dry["fused_dp"] > 0,
+        "dryrun_mesh_sweep_a_lanes_launch_a_slot_a_round":
+            launches["dryrun_lanes"] == dry["mesh_sweep"] > 0,
+        "sweep_one_lanes_launch_a_slot_a_batch": s_launches
+        == fused_s.rounds == MESH_STREAM_SLOTS * batches * len(sstats) > 0,
+        "sweep_every_launch_lanes_mma": s_modes == {"lanes_mma":
+                                                    s_launches},
+        "sweep_every_lane_history_rtol_1e-4_vs_phase33": s_ok,
         "peak_within_4_batches_plus_1gb": peak <= 4 * STREAM_ROWS * D_MAIN
         * 4 / 1e9 + 1.0}
     finish("mesh_stream", out, checks, t_phase, smi)
@@ -5939,23 +6022,29 @@ def parse_parts(port, paths, cache=None):
     return cache
 
 
-def drill_staged(port, mesh, paths, cache, assignment=None, pad=None):
-    """``from_partitioned_files`` over the parts (parsed parts from
-    ``cache``, others parsed and added), staged for the flagship's fused
-    gradient over ``mesh``."""
+def drill_batch(port, mesh, paths, cache, assignment=None, pad=None):
+    """``from_partitioned_files`` over the parts onto ``mesh`` (parsed
+    parts from ``cache``, others parsed and added)."""
     from spark_agd_tpu_torch.data import ingest
-    from spark_agd_tpu_torch.parallel import dist_smooth
 
     def loader(path, n_features=None):
         if path not in cache:
             cache[path] = port.load_libsvm(path, n_features=n_features)
         return cache[path]
 
-    batch = ingest.from_partitioned_files(
+    return ingest.from_partitioned_files(
         paths, mesh, n_features=DRILL["d"], loader=loader,
         assignment=assignment, pad_to_rows=pad)
+
+
+def drill_staged(port, mesh, paths, cache, assignment=None, pad=None):
+    """:func:`drill_batch` staged for the flagship's fused gradient over
+    ``mesh``."""
+    from spark_agd_tpu_torch.parallel import dist_smooth
+
     return dist_smooth.make_dist_smooth_staged(
-        port.FusedLogisticGradient(), batch, mesh=mesh)
+        port.FusedLogisticGradient(),
+        drill_batch(port, mesh, paths, cache, assignment, pad), mesh=mesh)
 
 
 def drill_fit(port, staged, segment, iters=ITERS, **kw):
@@ -5994,7 +6083,9 @@ def drill_child(port, mesh, parts_dir, spec):
     a ``StragglerScheduler`` that rebuilds the data for ``decision.mine``
     with ``from_partitioned_files(assignment=, pad_to_rows=)``, then with
     no straggler and the same decisions replayed at the same
-    boundaries."""
+    boundaries; "sharded": the flagship's AGD with the plain gradient
+    and ``sharded_update=True`` over its half of the parts, SHARDED_ITERS
+    iterations, and the rank's census of collectives."""
     import glob
 
     from spark_agd_tpu_torch import resilience
@@ -6027,7 +6118,18 @@ def drill_child(port, mesh, parts_dir, spec):
 
     out = {"parse_s": parse_s, "ingest_s": ingest_s,
            "rows": sum(len(cache[p].labels) for p in mine)}
-    if spec["kind"] in ("base", "killed"):
+    if spec["kind"] == "sharded":
+        mh.reset_census()
+        w0 = torch.zeros(DRILL["d"], dtype=torch.float32, device="cuda")
+        (w, hist, res), fit_s = timed(lambda: port.run(
+            drill_batch(port, mesh, paths, cache), port.LogisticGradient(),
+            port.SquaredL2Updater(), reg_param=REG,
+            num_iterations=SHARDED_ITERS, convergence_tol=TOL,
+            initial_weights=w0, sharded_update=True, return_result=True))
+        out.update(hist=_hexes(hist), w=_hexes(w.cpu()),
+                   iters=int(res.num_iters), fit_s=fit_s,
+                   census=dict(mh.census))
+    elif spec["kind"] in ("base", "killed"):
         faults = (resilience.FaultScript(sigkill_at_iter=spec["kill_at"])
                   if spec["kind"] == "killed" and rank == 1 else None)
         out.update(fit(spec["work"], DRILL_SEGMENT, faults=faults))
@@ -6138,6 +6240,8 @@ def dist_fault_drill(port, fk, smi, device_synth, launches):
             port, fk, smi, device_synth, launches, tmp)
         straggler_rebalance(port, fk, smi, parts_dir, part_rows, base,
                             launches, os.path.join(tmp, "s"))
+        # 47 (b). the sharded update over two gloo ranks
+        sharded_update_mp(port, fk, smi, parts_dir, launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -6478,6 +6582,558 @@ def straggler_rebalance(port, fk, smi, parts_dir, part_rows, base,
         checks, t_phase, smi)
 
 
+# --- model parallelism (phases 46-49) -------------------------------------
+
+# slots of the card on the meshes of phases 46, 47 and 49; phase 48's
+# mesh; the iterations of phase 47's fits
+MODEL_SLOTS = 4
+TP_AXES = {"data": 2, "model": 2}
+SHARDED_ITERS = 20
+_RTOL, _ATOL = 1e-5, 1e-7  # the mesh paths' (__graft_entry__.py:28-29)
+
+
+def hold_mesh_lanes(res, ref, checks, label):
+    """Every lane of a mesh grid fit held to the same lane of its
+    one-device run: the same ``num_iters`` (or both stopped at the f32
+    loss floor, ``same_stop``) and the histories over their common
+    iterations at the mesh paths' ``_RTOL``/``_ATOL``; returns the worst
+    relative difference by lane."""
+    diffs, same_iters, ok, stop = [], True, True, True
+    for i in range(int(res.num_iters.shape[0])):
+        a, b = _Lane(res, i), _Lane(ref, i)
+        n = min(len(a.hist), len(b.hist))
+        same_iters = same_iters and len(a.hist) == len(b.hist)
+        stop = stop and same_stop(a, b, a.hist, b.hist)
+        ok = ok and bool(np.allclose(a.hist[:n], b.hist[:n], rtol=_RTOL,
+                                     atol=_ATOL))
+        diffs.append(float(np.max(np.abs(a.hist[:n] - b.hist[:n])
+                                  / np.abs(b.hist[:n]))) if n else 0.0)
+    checks[f"{label}_same_num_iters_or_both_at_floor"] = stop
+    checks[f"{label}_every_lane_history_within_rtol_atol"] = ok
+    return {f"{label}_same_num_iters": same_iters,
+            f"{label}_max_hist_rel_diff_by_lane": diffs,
+            f"{label}_num_iters": res.num_iters.tolist()}
+
+
+def mesh_sweep(port, fk, glm, smi, X, y, refs, launches):
+    """Phase 46, inside phase 5's ``after`` after phases 22, 27 and 23
+    (``refs``: their results and wall seconds): the grid fits over
+    MODEL_SLOTS slots of the card, rows sharded as views of X.
+    ``sweep(mesh=)`` over SWEEP_REGS through ``FusedLogisticGradient``,
+    one launch of the lanes kernel a slot a round (all ``lanes_mma``),
+    every lane held to phase 22's (the same ``num_iters``, histories at
+    ``_RTOL``/``_ATOL``), the card's peak within phase 22's + 1 GB;
+    ``LBFGS.sweep(mesh=)`` held to phase 27 as phase 33 holds it; and
+    ``cross_validate(mesh=)`` (the trainer's, plain gradient, CV_FOLDS x
+    CV_REGS, its refit over the mesh) held to phase 23: the same fold
+    ids, best strength and validation losses (rtol 1e-4).  Wall times
+    beside phases 22, 27 and 23's."""
+    from spark_agd_tpu_torch.parallel import dist_smooth, mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    k, d = len(SWEEP_REGS), X.shape[1]
+    mesh = card_mesh(mesh_lib, MODEL_SLOTS)
+    w0 = torch.zeros(d, dtype=torch.float32, device="cuda")
+    fused = counting_lanes(port.FusedLogisticGradient)()
+    fk.reset_launch_counts()
+    dist_smooth.reset_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, sweep_s = timed(lambda: (
+        port.AcceleratedGradientDescent(fused, port.SquaredL2Updater())
+        .setNumIterations(ITERS).setConvergenceTol(TOL).set_mesh(mesh)
+        .sweep((X, y), SWEEP_REGS, w0)))
+    peak_above = (torch.cuda.max_memory_allocated() - base) / 1e9
+    rounds = dist_smooth.mesh_evaluations
+    lanes_launches = fk.lanes_launch_count
+    modes = {m: c for m, c in fk.lanes_mode_launches.items() if c}
+    other = fk.launch_count + fk.softmax_launch_count
+    launches["mesh_sweep"] = lanes_launches
+    launches.setdefault("lanes_modes", {})["mesh_sweep"] = modes
+    ref22 = refs["sweep"]
+    checks = {
+        "sweep_launches_equal_slots_x_rounds": lanes_launches
+        == fused.rounds == MODEL_SLOTS * rounds > 0,
+        "sweep_every_launch_lanes_mma": modes == {"lanes_mma":
+                                                  lanes_launches},
+        "sweep_no_other_kernel": other == 0,
+        "sweep_peak_within_phase22_plus_1gb":
+            peak_above <= ref22["peak_above"] + 1.0,
+        "sweep_finite": bool(torch.isfinite(res.weights).all())}
+    out = {"shape": [N_MAIN, d], "slots": MODEL_SLOTS, "regs": SWEEP_REGS,
+           "iterations": ITERS, "sweep_s": sweep_s,
+           "phase22_sweep_s": ref22["s"], "rounds": rounds,
+           "launches": lanes_launches, "modes": modes,
+           "wall_ms_per_round": sweep_s * 1e3 / rounds,
+           "peak_gb_above_x": peak_above,
+           "phase22_peak_gb_above_x": ref22["peak_above"]}
+    out.update(hold_mesh_lanes(res, ref22["res"], checks, "sweep"))
+    del res
+    torch.cuda.empty_cache()
+
+    # the L-BFGS path over the same mesh
+    fused_l = counting_lanes(port.FusedLogisticGradient)()
+    fk.reset_launch_counts()
+    dist_smooth.reset_counts()
+    lres, lbfgs_s = timed(lambda: port.LBFGS(fused_l,
+                                             port.SquaredL2Updater())
+                          .setNumIterations(ITERS).set_mesh(mesh)
+                          .sweep((X, y), SWEEP_REGS, w0))
+    l_launches = fk.lanes_launch_count
+    l_modes = {m: c for m, c in fk.lanes_mode_launches.items() if c}
+    launches["mesh_lbfgs_sweep"] = l_launches
+    launches["lanes_modes"]["mesh_lbfgs_sweep"] = l_modes
+    ref27 = refs["lbfgs"]
+    l_diffs, l_ok = [], True
+    for i in range(k):
+        hist = lres.loss_history[i, :int(lres.num_iters[i]) + 1]
+        r = _LbfgsLane(ref27["res"], i)
+        rh = r.loss_history[:int(r.num_iters) + 1]
+        m = min(len(hist), len(rh))
+        l_ok = l_ok and bool(np.allclose(hist[:m].double().numpy(),
+                                         rh[:m].double().numpy(),
+                                         rtol=1e-4, atol=0.0))
+        l_diffs.append(float(((hist[:m].double() - rh[:m].double()).abs()
+                              / rh[:m].double().abs()).max()))
+    checks.update({
+        "lbfgs_launches_equal_slots_x_rounds": l_launches
+        == fused_l.rounds == MODEL_SLOTS * lres.eval_rounds > 0,
+        "lbfgs_every_launch_lanes_mma": l_modes == {"lanes_mma":
+                                                    l_launches},
+        "lbfgs_every_lane_history_rtol_1e-4_vs_phase27": l_ok})
+    out.update({"lbfgs_s": lbfgs_s, "phase27_lbfgs_s": ref27["s"],
+                "lbfgs_eval_rounds": lres.eval_rounds,
+                "lbfgs_launches": l_launches, "lbfgs_modes": l_modes,
+                "lbfgs_num_iters": lres.num_iters.tolist(),
+                "lbfgs_num_iters_phase27":
+                    ref27["res"].num_iters.tolist(),
+                "lbfgs_max_hist_rel_diff_vs_phase27_by_lane": l_diffs})
+    del lres
+    torch.cuda.empty_cache()
+
+    # cross-validation over the same mesh: the plain gradient
+    trainer = glm.LogisticRegressionWithAGD(add_intercept=False)
+    trainer.optimizer.setNumIterations(ITERS).setConvergenceTol(TOL) \
+        .set_mesh(mesh)
+    fk.reset_launch_counts()
+    (model, cv), cv_s = timed(lambda: trainer.cross_validate(
+        X, y, CV_REGS, n_folds=CV_FOLDS))
+    kernels = (fk.launch_count + fk.lanes_launch_count
+               + fk.softmax_launch_count)
+    ref23 = refs["cv"]
+    cv23 = ref23["cv"]
+    val_diff = float(((cv.val_loss.double() - cv23.val_loss.double()).abs()
+                      / cv23.val_loss.double().abs()).max())
+    checks.update({
+        "cv_fold_ids_equal_phase23": bool(torch.equal(
+            cv.fold_ids.cpu(), cv23.fold_ids.cpu())),
+        "cv_best_strength_equals_phase23":
+            int(cv.best_index) == int(cv23.best_index),
+        "cv_val_loss_rtol_1e-4_vs_phase23": val_diff <= 1e-4,
+        "cv_plain_gradient_launches_no_kernel": kernels == 0,
+        "cv_refit_finite": bool(torch.isfinite(model.weights).all())})
+    out.update({"cv_and_refit_s": cv_s, "phase23_cv_and_refit_s":
+                ref23["s"], "cv_val_loss_max_rel_diff_vs_phase23": val_diff,
+                "cv_best_reg": CV_REGS[int(cv.best_index)],
+                "cv_num_iters": cv.train_result.num_iters.tolist()})
+    finish("mesh_sweep", out, checks, t_phase, smi)
+
+
+def sharded_update(port, fk, smi, X, y, launches):
+    """Phase 47 (a), inside phase 5's ``after``: the flagship over
+    MODEL_SLOTS slots with ``run(mesh=, sharded_update=True)`` and the
+    plain ``LogisticGradient`` (SHARDED_ITERS iterations), held to the
+    replicated mesh fit with the same gradient (the same iterations,
+    histories at ``_RTOL``/``_ATOL``); ``FusedLogisticGradient`` refused
+    with the JAX package's ``ValueError``; a generation written in one
+    mode resumed in the other, both ways (``AutoCheckpointer`` and a
+    one-process ``DistributedCheckpointer``), each resumed fit held to
+    the uninterrupted fit of its mode at ``_RTOL``."""
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.parallel import dist_smooth, mesh as mesh_lib
+    from spark_agd_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    mesh = card_mesh(mesh_lib, MODEL_SLOTS)
+    w0 = torch.zeros(X.shape[1], dtype=torch.float32, device="cuda")
+    kw = dict(reg_param=REG, num_iterations=SHARDED_ITERS,
+              convergence_tol=TOL, initial_weights=w0, mesh=mesh,
+              return_result=True)
+    fk.reset_launch_counts()
+    (_, h_rep, r_rep), rep_s = timed(lambda: port.run(
+        (X, y), port.LogisticGradient(), port.SquaredL2Updater(), **kw))
+    multihost.reset_census()
+    dist_smooth.reset_counts()
+    (w_sh, h_sh, r_sh), sh_s = timed(lambda: port.run(
+        (X, y), port.LogisticGradient(), port.SquaredL2Updater(),
+        sharded_update=True, **kw))
+    slot_evals = dist_smooth.slot_evaluations
+    evals = dist_smooth.mesh_evaluations
+    try:
+        port.run((X, y), port.FusedLogisticGradient(),
+                 port.SquaredL2Updater(), sharded_update=True, **kw)
+        refused = False
+    except ValueError as e:
+        refused = "fused" in str(e)
+    kernels = (fk.launch_count + fk.lanes_launch_count
+               + fk.softmax_launch_count)
+    pol = sup_policy(port, segment_iters=4)
+    half = 8  # a boundary of the checkpointers' cadence of 4
+    resumed = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        for first, second, ck_of in (
+                (False, True, lambda d: resilience.AutoCheckpointer(
+                    os.path.join(d, "c.npz"), every_iters=4)),
+                (True, False, lambda d: resilience.DistributedCheckpointer(
+                    d, every_iters=4, process_index=0, process_count=1))):
+            d = os.path.join(tmp, f"{int(first)}{int(second)}")
+            os.makedirs(d)
+            port.run((X, y), port.LogisticGradient(),
+                     port.SquaredL2Updater(), resilience=pol,
+                     checkpointer=ck_of(d), sharded_update=first,
+                     **dict(kw, num_iterations=half))
+            (_, h, sres), t = timed(lambda: port.run(
+                (X, y), port.LogisticGradient(), port.SquaredL2Updater(),
+                resilience=pol, checkpointer=ck_of(d),
+                sharded_update=second, **kw))
+            ref = h_sh if second else h_rep
+            m = min(len(h), len(ref))
+            resumed["sharded_resumes_replicated" if second
+                    else "replicated_resumes_sharded"] = {
+                "resumed_from": sres.resumed_from, "run_s": t,
+                "iterations": len(h),
+                "max_hist_rel_diff_vs_uninterrupted": float(np.max(
+                    np.abs(h[:m] - ref[:m]) / np.abs(ref[:m]))),
+                "ok": sres.resumed_from == half and bool(np.allclose(
+                    h[:m], ref[:m], rtol=_RTOL, atol=_ATOL))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = min(len(h_sh), len(h_rep))
+    checks = {
+        "same_iterations_as_replicated": int(r_sh.num_iters)
+        == int(r_rep.num_iters),
+        "history_within_rtol_atol_vs_replicated": bool(np.allclose(
+            h_sh[:n], h_rep[:n], rtol=_RTOL, atol=_ATOL)),
+        "weights_within_rtol_atol_vs_replicated": bool(torch.allclose(
+            w_sh, r_rep.weights, rtol=_RTOL, atol=_ATOL)),
+        "slot_evaluations_equal_slots_x_evaluations":
+            slot_evals == MODEL_SLOTS * evals > 0,
+        "fused_gradient_refused_with_value_error": refused,
+        "plain_gradient_launches_no_kernel": kernels == 0,
+        **{f"{k}_resumed_within_rtol_atol": v["ok"]
+           for k, v in resumed.items()},
+        "finite": bool(np.isfinite(h_sh).all())}
+    finish("sharded_update", {
+        "shape": [N_MAIN, X.shape[1]], "slots": MODEL_SLOTS,
+        "iterations": SHARDED_ITERS, "replicated_s": rep_s,
+        "sharded_s": sh_s, "sharded_vs_replicated": sh_s / rep_s,
+        "num_iters": int(r_sh.num_iters), "mesh_evaluations": evals,
+        "max_hist_rel_diff_vs_replicated": float(np.max(
+            np.abs(h_sh[:n] - h_rep[:n]) / np.abs(h_rep[:n]))),
+        "max_weight_abs_diff_vs_replicated": float(
+            (w_sh - r_rep.weights).abs().max()),
+        "census_one_process": dict(multihost.census),
+        "cross_mode_resume": resumed}, checks, t_phase, smi)
+
+
+def sharded_update_mp(port, fk, smi, parts_dir, launches):
+    """Phase 47 (b), on phase 44's files: two gloo ranks on the card
+    (``--drill`` "sharded"), each reading its 4 parts onto a 2-slot mesh
+    and fitting with ``sharded_update=True`` and the plain gradient
+    (SHARDED_ITERS iterations): the ranks bit-equal (the gathered
+    weights, the histories), held to the one-process replicated fit on
+    all 8 parts over a 4-slot mesh (histories at ``_RTOL``/``_ATOL``);
+    each rank's census of collectives printed: the reduce-scatter of the
+    gradient, the all-gather of the weights, the control scalars."""
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    paths = sorted(glob.glob(os.path.join(parts_dir, "part-*")))
+    (r0, r1), children_s = timed(lambda: run_children(drill_args(
+        f"localhost:{_free_port()}", parts_dir, {"kind": "sharded",
+                                                 "keep": 1})))
+    mesh = card_mesh(mesh_lib, 4)
+    w0 = torch.zeros(DRILL["d"], dtype=torch.float32, device="cuda")
+    (w1, h1, res1), one_s = timed(lambda: port.run(
+        drill_batch(port, mesh, paths, {}), port.LogisticGradient(),
+        port.SquaredL2Updater(), reg_param=REG, num_iterations=SHARDED_ITERS,
+        convergence_tol=TOL, initial_weights=w0, return_result=True))
+    h0 = _unhex(r0["hist"])
+    n = min(len(h0), len(h1))
+    censuses = [r0["census"], r1["census"]]
+    checks = {
+        "ranks_bit_equal": (r0["hist"], r0["w"]) == (r1["hist"], r1["w"]),
+        "same_iterations_as_one_process": r0["iters"] == int(res1.num_iters),
+        "history_within_rtol_atol_vs_one_process_replicated": bool(
+            np.allclose(h0[:n], h1[:n], rtol=_RTOL, atol=_ATOL)),
+        "census_reduce_scatter_and_all_gather": all(
+            c.get("reduce-scatter", {}).get("count", 0) > 0
+            and c.get("all-gather", {}).get("count", 0) > 0
+            and "sums" not in c for c in censuses),
+        "scalar_collectives_at_most_96_bytes": all(
+            c["scalars"]["max_bytes"] <= 96 for c in censuses)}
+    finish("sharded_update_mp", {
+        "shape": [DRILL["n"], DRILL["d"]], "parts": len(paths),
+        "gloo_ranks": 2, "slots_per_rank": 2, "iterations": SHARDED_ITERS,
+        "rank_fit_s": [r0["fit_s"], r1["fit_s"]],
+        "children_wall_s": children_s, "one_process_run_s": one_s,
+        "max_hist_rel_diff_vs_one_process": float(np.max(
+            np.abs(h0[:n] - h1[:n]) / np.abs(h1[:n]))),
+        "census_by_rank": censuses}, checks, t_phase, smi)
+
+
+def tensor_parallel(port, fk, glm, smi, Xa, y, solo, launches):
+    """Phase 48, inside phase 7's ``after`` on its data (config 4 with
+    the intercept column, 25.4 GB): a {data: 2, model: 2} mesh of the
+    card, ``run(mesh=, dist_mode="auto")``.  The plain
+    ``SoftmaxGradient``'s class-sharded evaluation (each slot its
+    classes' logits, the rows' max and sum of exponentials combined over
+    the model slots, each slot its gradient columns) held to phase 7's
+    plain fit; ``FusedSoftmaxGradient``, W's classes gathered onto each
+    data slot, one softmax launch a data slot an evaluation (all
+    ``one_read``), held to phase 7's fused fit and to the plain mesh fit
+    just before it, and its evaluation at W = 0, at random W and at its
+    fit's weights held to the f64 sums at the kernel's tolerance (the
+    plain class-sharded evaluation's errors reported beside); then
+    ``SoftmaxRegressionWithAGD(mesh=)`` (``add_intercept=False`` on the
+    same Xa, the optimizer in ``dist_mode="auto"``) held to the plain
+    fit; no further copy of Xa (the peak within 1 GB of what phase 7
+    left allocated)."""
+    from spark_agd_tpu_torch.parallel import dist_smooth, mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    res7, hist7, res7p, hist7p = solo
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_lib.make_mesh(TP_AXES, devices=[dev] * 4)
+    d = D_SM + 1
+    w0 = torch.zeros((d, K_SM), dtype=torch.float32, device="cuda")
+    kw = dict(reg_param=REG_SM, num_iterations=ITERS, convergence_tol=TOL,
+              initial_weights=w0, mesh=mesh, dist_mode="auto",
+              return_result=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    dist_smooth.reset_counts()
+    (wp, hp, rp), plain_s = timed(lambda: port.run(
+        (Xa, y), port.SoftmaxGradient(K_SM), port.SquaredL2Updater(), **kw))
+    plain_launches = fk.softmax_launch_count + fk.launch_count
+    plain_evals = dist_smooth.slot_evaluations
+    plain_mesh_evals = dist_smooth.mesh_evaluations
+    fused = counting(port.FusedSoftmaxGradient)(port.SoftmaxGradient(K_SM))
+    fk.reset_launch_counts()
+    dist_smooth.reset_counts()
+    (wf, hf, rf), fused_s = timed(lambda: port.run(
+        (Xa, y), fused, port.SquaredL2Updater(), **kw))
+    launched = fk.softmax_launch_count
+    evals = dist_smooth.mesh_evaluations
+    launches["tensor_parallel"] = launched
+    softmax_modes(fk, launches, "tensor_parallel")
+    modes = launches["softmax_modes"]["tensor_parallel"]
+    trainer = glm.SoftmaxRegressionWithAGD(K_SM, reg_param=REG_SM,
+                                           updater=port.SquaredL2Updater(),
+                                           add_intercept=False, mesh=mesh)
+    trainer.optimizer.setNumIterations(ITERS).setConvergenceTol(TOL) \
+        .set_dist_mode("auto")
+    model, train_s = timed(lambda: trainer.train(Xa, y))
+    peak_above = (torch.cuda.max_memory_allocated() - base) / 1e9
+    # the kernel on this path's inputs and shapes held to the f64 sums at
+    # the kernel's stated tolerance (as phase 8 holds it: over 8.1M rows
+    # two f32 sums differ by their order, so the plain f32 evaluation is
+    # no yardstick; its error is reported beside): the mesh evaluations
+    # at the fits' start (W = 0), at seeded random weights and at the
+    # fused fit's weights (these launches are not the path's: its counts
+    # were read above)
+    sm_k = dist_smooth.make_dist_smooth(
+        port.FusedSoftmaxGradient(port.SoftmaxGradient(K_SM)), Xa, y,
+        mesh=mesh, mode="auto")[0]
+    sm_p = dist_smooth.make_dist_smooth(
+        port.SoftmaxGradient(K_SM), Xa, y, mesh=mesh, mode="auto")[0]
+    staged = fk.stage_softmax(Xa, y, K_SM)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(48)
+    at_w = {}
+    for name, W in (("zero", torch.zeros_like(wf)),
+                    ("random", torch.randn(wf.shape, generator=gen,
+                                           device="cuda") / d ** 0.5),
+                    ("fused_fit", wf)):
+        exact_loss, exact_grad = softmax_f64(K_SM, W, staged)
+        exact_loss, exact_grad = exact_loss / N_SM, exact_grad / N_SM
+        gmax = float(exact_grad.abs().max())
+        out = {"grad_max_abs_f64": gmax}
+        for who, sm in (("fused", sm_k), ("plain", sm_p)):
+            f, g = sm(W)
+            err = (g.double() - exact_grad).abs()
+            out[who + "_loss_rel_err_vs_f64"] = abs(
+                float(f) - float(exact_loss)) / abs(float(exact_loss))
+            out[who + "_grad_max_abs_err_vs_f64"] = float(err.max())
+            out[who + "_within_kernel_tol"] = bool(
+                out[who + "_loss_rel_err_vs_f64"] <= LOSS_RTOL
+                and (err <= GRAD_RTOL * exact_grad.abs()
+                     + GRAD_ATOL_REL * gmax).all())
+        at_w[name] = out
+    del sm_k, sm_p, staged, exact_grad, g, err
+    np_, nf = min(len(hp), len(hist7p)), min(len(hf), len(hist7))
+    nfp = min(len(hf), len(hp))
+    tw = torch.cat([model.intercept.reshape(1, -1), model.weights]) \
+        if model.weights.shape[0] == d - 1 else model.weights
+    checks = {
+        "plain_launches_no_kernel": plain_launches == 0,
+        "plain_one_evaluation_a_data_slot":
+            plain_evals == TP_AXES["data"] * plain_mesh_evals > 0,
+        "plain_same_stop_or_both_at_floor_vs_phase7_plain": same_stop(
+            rp, res7p, hp, hist7p),
+        "plain_history_rtol_1e-4_vs_phase7_plain": bool(np.allclose(
+            hp[:np_], hist7p[:np_], rtol=1e-4, atol=0.0)),
+        "fused_launches_equal_data_slots_x_evaluations": launched
+        == fused.evaluations == TP_AXES["data"] * evals > 0,
+        "fused_every_launch_one_read": modes == {"one_read": launched},
+        "fused_no_margin_kernel_launch": fk.launch_count == 0,
+        "fused_same_stop_or_both_at_floor_vs_phase7": same_stop(
+            rf, res7, hf, hist7),
+        "fused_history_rtol_1e-4_vs_phase7": bool(np.allclose(
+            hf[:nf], hist7[:nf], rtol=1e-4, atol=0.0)),
+        "fused_same_stop_or_both_at_floor_vs_plain_mesh_fit": same_stop(
+            rf, rp, hf, hp),
+        "fused_history_rtol_1e-4_vs_plain_mesh_fit": bool(np.allclose(
+            hf[:nfp], hp[:nfp], rtol=1e-4, atol=0.0)),
+        "fused_eval_within_kernel_tol_of_f64_at_zero_random_and_fit_w":
+            all(v["fused_within_kernel_tol"] for v in at_w.values()),
+        "trainer_weights_close_to_the_plain_run": bool(torch.allclose(
+            tw, wp, rtol=1e-3, atol=1e-4)),
+        "no_further_copy_of_xa": peak_above < 1.0,
+        "finite": bool(np.isfinite(hp).all() and np.isfinite(hf).all())}
+    finish("tensor_parallel", {
+        "shape": [N_SM, d], "classes": K_SM, "mesh": TP_AXES,
+        "plain_run_s": plain_s, "fused_run_s": fused_s,
+        "trainer_train_s": train_s, "num_iters_plain": int(rp.num_iters),
+        "num_iters_fused": int(rf.num_iters),
+        "mesh_evaluations_fused": evals, "kernel_launches": launched,
+        "modes": modes, "peak_gb_above_xa": peak_above,
+        "plain_max_hist_rel_diff_vs_phase7_plain": float(np.max(
+            np.abs(hp[:np_] - hist7p[:np_]) / np.abs(hist7p[:np_]))),
+        "fused_max_hist_rel_diff_vs_phase7": float(np.max(
+            np.abs(hf[:nf] - hist7[:nf]) / np.abs(hist7[:nf]))),
+        "fused_max_hist_rel_diff_vs_plain_mesh_fit": float(np.max(
+            np.abs(hf[:nfp] - hp[:nfp]) / np.abs(hp[:nfp]))),
+        "eval_vs_f64": at_w},
+        checks, t_phase, smi)
+
+
+def feature_sharded_rcv1(port, fk, sparse, glm, smi, rcv1, launches):
+    """Phase 49 (a), after phase 40 (a) on phase 10's data: BASELINE
+    config 1 (rcv1-like, with the trainer's intercept column) with its
+    columns over MODEL_SLOTS model slots (``shard_csr_by_columns``: the
+    greedy nnz balance, a local CSR with its column-sorted twin a slot),
+    the AGD fit on the padded state held to phase 10's fit over the
+    iterations before they part (rtol 1e-4); the host layout's seconds;
+    the unused padded positions exactly zero; no dense kernel launched."""
+    from spark_agd_tpu_torch.core import agd, smooth as smooth_lib
+    from spark_agd_tpu_torch.parallel import feature_sharded
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    cfg = rcv1["cfg"]
+    res10, hist10 = rcv1["run"]
+    d = cfg["d"] + 1
+    Xa = glm._add_intercept(rcv1["X"])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_lib.make_mesh({mesh_lib.MODEL_AXIS: MODEL_SLOTS},
+                              devices=[dev] * MODEL_SLOTS)
+    host = (Xa.indptr.cpu().numpy(), Xa.col_ids.cpu().numpy(),
+            Xa.values.cpu().numpy(), rcv1["y"].cpu().numpy())
+    del Xa
+    batch, layout_s = timed(lambda: feature_sharded.shard_csr_by_columns(
+        host[0], host[1], host[2], d, host[3], mesh))
+    sm, sl = feature_sharded.make_feature_sharded_smooth(
+        port.LogisticGradient(), batch, mesh=mesh)
+    px, rv = smooth_lib.make_prox(port.L2Prox(), cfg["reg"])
+    fk.reset_launch_counts()
+    res, fit_s = timed(lambda: agd.run_agd(
+        sm, px, rv, feature_sharded.shard_weights(np.zeros(d), batch, mesh),
+        port.AGDConfig(num_iterations=ITERS, convergence_tol=TOL),
+        smooth_loss=sl))
+    dense = fk.launch_count + fk.softmax_launch_count + fk.lanes_launch_count
+    hist = res.loss_history[:int(res.num_iters)].double().numpy()
+    n_common = min(int(res.num_iters), int(res10.num_iters))
+    n_path = common_path(res, res10, n_common)
+    full = res.weights.cpu().numpy()
+    unused = np.ones(full.shape[0], bool)
+    unused[batch.positions] = False
+    nnz = [s.nnz for s in batch.shards]
+    checks = {
+        "no_dense_kernel_launch": dense == 0,
+        "common_path_of_10_iterations_or_more": n_path >= 10,
+        "history_rtol_1e-4_vs_phase10_on_the_common_path": bool(np.allclose(
+            hist[:n_path], hist10[:n_path], rtol=1e-4, atol=0.0)),
+        "unused_positions_exactly_zero": bool((full[unused] == 0).all()),
+        "finite": bool(np.isfinite(hist).all())}
+    finish("feature_sharded_rcv1", {
+        "shape": [cfg["n"], d], "model_slots": MODEL_SLOTS,
+        "d_local": batch.d_local, "nnz_per_shard": nnz,
+        "nnz_padding_blowup": MODEL_SLOTS * max(nnz) / len(host[1]),
+        "host_layout_s": layout_s, "fit_s": fit_s,
+        "num_iters": int(res.num_iters), "common_path_iterations": n_path,
+        "max_hist_rel_diff_vs_phase10_on_the_common_path": float(np.max(
+            np.abs(hist[:n_path] - hist10[:n_path])
+            / np.abs(hist10[:n_path])))}, checks, t_phase, smi)
+
+
+def feature_sharded_dense(port, fk, smi, X, y, launches):
+    """Phase 49 (b), inside phase 28's ``after`` on its data (LIBSVM
+    epsilon's 400,000 x 2,000 f32): ``shard_batch_by_features`` over
+    MODEL_SLOTS model slots (column views of X), ``run(dist_mode=
+    "auto")`` from ``shard_weights_by_features``, the plain
+    ``LogisticGradient`` (the partial dots summed over the slots in slot
+    order), held to phase 28's plain fit (the same ``run``, recomputed
+    here) over common iterations (rtol 1e-4); the pad columns' weights
+    exactly zero; no kernel launched."""
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    n, d = X.shape
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_lib.make_mesh({mesh_lib.MODEL_AXIS: MODEL_SLOTS},
+                              devices=[dev] * MODEL_SLOTS)
+    batch = mesh_lib.shard_batch_by_features(mesh, X, y)
+    w0 = mesh_lib.shard_weights_by_features(
+        torch.zeros(d, dtype=torch.float32, device="cuda"), batch, mesh)
+    kw = dict(reg_param=REG, num_iterations=ITERS, convergence_tol=TOL,
+              return_result=True)
+    fk.reset_launch_counts()
+    (w, hist, res), fit_s = timed(lambda: port.run(
+        batch, port.LogisticGradient(), port.SquaredL2Updater(),
+        dist_mode="auto", initial_weights=w0, **kw))
+    kernels = fk.launch_count + fk.softmax_launch_count \
+        + fk.lanes_launch_count
+    (w1, hist1, res1), plain_s = timed(lambda: port.run(
+        (X, y), port.LogisticGradient(), port.SquaredL2Updater(),
+        initial_weights=torch.zeros(d, dtype=torch.float32, device="cuda"),
+        **kw))
+    m = min(len(hist), len(hist1))
+    checks = {
+        "no_kernel_launch": kernels == 0,
+        "views_of_x": all(s.data_ptr() == X[:, i * batch.X.cols_per_shard:]
+                          .data_ptr() for i, s in enumerate(batch.X.shards)),
+        "same_stop_or_both_at_floor_vs_phase28_plain": same_stop(
+            res, res1, hist, hist1),
+        "history_rtol_1e-4_vs_phase28_plain": bool(np.allclose(
+            hist[:m], hist1[:m], rtol=1e-4, atol=0.0)),
+        "pad_weights_exactly_zero": bool((w[d:] == 0).all()),
+        "finite": bool(np.isfinite(hist).all())}
+    finish("feature_sharded_epsilon", {
+        "shape": [n, d], "model_slots": MODEL_SLOTS,
+        "padded_width": batch.X.shape[1], "fit_s": fit_s,
+        "plain_run_s": plain_s, "num_iters": int(res.num_iters),
+        "num_iters_plain": int(res1.num_iters),
+        "max_hist_rel_diff_vs_phase28_plain": float(np.max(
+            np.abs(hist[:m] - hist1[:m]) / np.abs(hist1[:m]))),
+        "max_weight_abs_diff_vs_plain": float(
+            (w[:d] - w1).abs().max())}, checks, t_phase, smi)
+
+
 def main(argv):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card.")
@@ -6564,6 +7220,7 @@ def main(argv):
     # with its fit, for the streamed phases 32-33
     sweep_ref, lbfgs_ref, flagship = {}, {}, {}
     lbfgs13, stream_ref = {}, {}  # phases 13 and 32 for phases 36-37
+    cv_ref, stream33 = {}, {}  # phases 23 and 33 for phases 46 and 41
 
     def on_flagship(X, y, solo):
         # 39. the same fit over meshes of 1, 3 and 4 slots of the card
@@ -6581,13 +7238,24 @@ def main(argv):
         torch.cuda.empty_cache()
         # 43. the same fit checkpointed in barrier-committed generations
         dist_ckpt_fit(port, fk, smi, X, y, solo, launches)
-        cv_path(port, fk, glm, smi, X, y, launches)
+        cv_path(port, fk, glm, smi, X, y, launches, keep=cv_ref)
+        torch.cuda.empty_cache()
+        # 46-47. the grid fits over 4 slots held to phases 22, 27 and 23;
+        # the sharded weight update
+        mesh_sweep(port, fk, glm, smi, X, y, {
+            "sweep": sweep_ref, "lbfgs": lbfgs_ref, "cv": cv_ref}, launches)
+        cv_ref.clear()
+        torch.cuda.empty_cache()
+        sharded_update(port, fk, smi, X, y, launches)
         torch.cuda.empty_cache()
         flagship.update(host=pinned_copy(streaming, X, y), solo=solo)
 
     def on_softmax(Xa, y, solo):
         # 40 (b). config 4 over 4 slots, shard views of Xa
         mesh_softmax(port, fk, smi, Xa, y, solo, launches)
+        torch.cuda.empty_cache()
+        # 48. a {data: 2, model: 2} mesh: classes over the model axis
+        tensor_parallel(port, fk, glm, smi, Xa, y, solo, launches)
         torch.cuda.empty_cache()
         softmax_lbfgs_path(port, fk, glm, smi, Xa, y, launches)
         softmax_sweep(port, fk, glm, smi, Xa, y, launches)
@@ -6600,12 +7268,13 @@ def main(argv):
     stream = stream_path(port, fk, streaming, smi, flagship["host"],
                          flagship["solo"], launches, keep=stream_ref)
     stream_sweep(port, fk, streaming, smi, flagship["host"],
-                 sweep_ref.pop("res"), lbfgs_ref.pop("res"), launches)
+                 sweep_ref.pop("res"), lbfgs_ref.pop("res"), launches,
+                 keep=stream33)
     supervised_stream(port, fk, streaming, smi, flagship["host"],
                       stream_ref, launches)
     # 41. the stream over a mesh of 2 slots, then the dry run
     mesh_stream(port, fk, streaming, smi, flagship["host"], stream_ref,
-                launches)
+                stream33.pop("res"), launches)
     stream_ref.clear()
     for t in (flagship["host"]["X"], flagship["host"]["y"]):
         streaming.unpin_host(t)
@@ -6623,6 +7292,9 @@ def main(argv):
                        port.LogisticGradient, port.L2Prox)
     # 40 (a). config 1 as a RowShardedCSR over 4 slots
     mesh_rcv1(port, fk, sparse, glm, smi, rcv1, launches)
+    torch.cuda.empty_cache()
+    # 49 (a). its columns over 4 model slots
+    feature_sharded_rcv1(port, fk, sparse, glm, smi, rcv1, launches)
     torch.cuda.empty_cache()
     # 34 and 42 (inside 11). the file cut into part files and streamed,
     # then read by two processes of a gloo group
@@ -6661,6 +7333,8 @@ def main(argv):
             port, fk, losses, smi, X, y, solo, launches, "epsilon_sweep",
             "lanes_cluster"))
         chaos_soak(port, fk, smi, X, y, solo, launches)
+        # 49 (b). its columns over 4 model slots
+        feature_sharded_dense(port, fk, smi, X, y, launches)
 
     epsilon = epsilon_path(port, fk, losses, device_synth, smi, launches,
                            on_epsilon)
@@ -6715,7 +7389,7 @@ def main(argv):
         "cluster": wide, "grid": snp, "grid_past_cluster_reach": wide_grid,
         "two_pass": wide_two_pass, "stream_streamed": stream}
     softmax_paths = ("softmax_lbfgs_path", "softmax_sweep", "softmax_wide",
-                     "mesh_softmax")
+                     "mesh_softmax", "tensor_parallel")
     softmax["launches_by_path"] = {"softmax_path": softmax["launches"],
                                    **{p: launches[p] for p in softmax_paths}}
     softmax["modes_by_path"] = {
@@ -6734,14 +7408,18 @@ def main(argv):
             for name, row in wide_softmax.items()}}
     lanes_paths = ("sweep_path", "cv_path", "lbfgs_sweep_path",
                    "epsilon_sweep", "wide_sweep", "stream_sweep",
-                   "stream_lbfgs_sweep", "supervised_path")
+                   "stream_lbfgs_sweep", "supervised_path", "mesh_sweep",
+                   "mesh_lbfgs_sweep", "mesh_stream_sweep")
     lanes["launches_by_path"] = {p: launches[p] for p in lanes_paths}
+    lanes["launches_by_path"]["dryrun"] = launches["dryrun_lanes"]
     lanes["modes_by_path"] = {p: launches["lanes_modes"][p]
                               for p in ("sweep_path", "lbfgs_sweep_path",
                                         "epsilon_sweep", "wide_sweep",
                                         "stream_sweep",
                                         "stream_lbfgs_sweep",
-                                        "supervised_path")}
+                                        "supervised_path", "mesh_sweep",
+                                        "mesh_lbfgs_sweep",
+                                        "mesh_stream_sweep", "dryrun")}
     # each mode's numbers at a shape of a path that runs it: lanes_mma's
     # at the main path's (the entry's own), lanes_cluster's at epsilon's,
     # lanes_two_pass's at phase 30's (and one past each reach)

@@ -33,8 +33,15 @@ in the JAX package.  ``verbose=True`` logs the fit's per-iteration lines
 through ``utils.logging.log_result``.  ``run(resilience=...,
 checkpointer=...)`` runs the fit under the supervisor
 (``resilience.supervisor``): segments, retries, rollbacks and an
-``AutoCheckpointer``.  A mesh's model axis, the grid fits over a mesh,
-``journal=``, telemetry and the sharded update are not in this slice:
+``AutoCheckpointer``.  A mesh may have a ``model`` axis:
+``dist_mode="auto"`` then splits a softmax's classes over it
+(``parallel.dist_smooth``), and a ``ShardedBatch`` from
+``mesh.shard_batch_by_features`` splits the features.
+``sharded_update=True`` (``run``, ``make_runner``; a mesh and
+``dist_mode="shard_map"``) runs the update on 1/N shards of the weights
+(``parallel.sharded_update``).  The grid fits (the sweeps, the L-BFGS
+sweep, cross-validation and the streamed sweeps) take ``mesh=`` too
+(``parallel.grid``).  ``journal=`` and telemetry are not in this slice:
 asking for them raises ``NotImplementedError`` naming the slice that
 brings them.
 """
@@ -48,7 +55,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device, same_device
-from ._later import reject_grid_mesh, reject_later
+from ._later import reject_later
 from .core import agd, gd, host_agd, lbfgs as lbfgs_lib, prng
 from .core import smooth as smooth_lib, tvec
 from .ops.losses import Gradient
@@ -96,8 +103,8 @@ def _resolve_mesh(mesh, device=None):
     """``False`` -> local; ``None`` -> a data mesh over every visible CUDA
     device when there is more than one (or over the process group's ranks
     when it has more than one) and no ``device=`` was named, else local;
-    a ``Mesh`` -> itself, checked (a model axis raises; a ``device=``
-    must be its lead device)."""
+    a ``Mesh`` -> itself, checked (a ``device=`` must be its lead
+    device)."""
     if mesh is False:
         return None
     if mesh is None:
@@ -154,12 +161,17 @@ def _reconcile_runner_mesh(data, mesh, dist_mode: str, device=None):
     return data, m, dist_mode
 
 
-def _grid_mesh(data, mesh):
-    """The mesh a grid fit was asked to run on: a pre-placed batch's own
-    when ``data`` is one (the grid fits run on one device in this slice,
-    so either raises)."""
-    return _batch_mesh(data) if isinstance(data, mesh_lib.ShardedBatch) \
-        else mesh
+def _grid_mesh_batch(data, mesh, device=None):
+    """The mesh and row-sharded batch of a grid fit (the sweeps, the
+    L-BFGS sweep): ``(None, None)`` on one device (``mesh=False``, the
+    grid fits' default, or ``None`` with one device); a pre-placed batch
+    brings its own mesh; raw data is sharded over the resolved mesh."""
+    m, batch, _ = _resolve_fit_mesh(data, mesh, device)
+    if m is None:
+        return None, None
+    if batch is None:
+        batch = mesh_lib.shard_batch(m, *_normalize_data(data))
+    return m, batch
 
 
 def _gathered(batch: "mesh_lib.ShardedBatch"):
@@ -191,13 +203,32 @@ def _owned(a, device):
 
 
 def _stage(data, gradient: Gradient, device, mesh=False,
-           dist_mode: str = "shard_map"):
+           dist_mode: str = "shard_map", sharded_update: bool = False):
     """``(device, (build, data_args))``: the data placed once and
     prepared, on the run's device (``core.smooth.make_smooth_staged``)
     or sharded over the resolved mesh (``parallel.dist_smooth``), whose
-    lead device is then the run's."""
+    lead device is then the run's.  ``sharded_update=True``: the build is
+    a ``parallel.sharded_update.ShardedUpdateBuild``, whose
+    ``make_agd_run`` hook runs the whole loop (the JAX package's checks:
+    it requires a mesh and ``dist_mode='shard_map'``)."""
     data, m, dist_mode = _reconcile_runner_mesh(data, mesh, dist_mode,
                                                 device)
+    if sharded_update:
+        if m is None:
+            raise ValueError(
+                "sharded_update=True requires a mesh (the 1/N weight "
+                "shard is per-replica); pass mesh= or a ShardedBatch, "
+                "or drop sharded_update on a single-device run")
+        if dist_mode != "shard_map":
+            raise ValueError(
+                "sharded_update=True requires dist_mode='shard_map' "
+                "(the sharded carry is an explicit-SPMD construction "
+                "the GSPMD partitioner cannot express)")
+        from .parallel import sharded_update as sharded_lib
+
+        # a ShardedBatch unpacks to its placed (X, y, mask)
+        return m.lead, sharded_lib.make_sharded_staged(gradient, *data,
+                                                       mesh=m)
     if m is None:
         dev = resolve_device(device)
         X, y, mask = (_gathered(data)
@@ -234,13 +265,26 @@ def make_runner(
     prepared once (``gradient.prepare`` runs here, not per fit; on a
     mesh once a shard)."""
     _check_dist_mode(dist_mode)
-    reject_later(telemetry=telemetry, sharded_update=sharded_update)
-    dev, (build, dargs) = _stage(data, gradient, device, mesh, dist_mode)
+    reject_later(telemetry=telemetry)
+    dev, (build, dargs) = _stage(data, gradient, device, mesh, dist_mode,
+                                 sharded_update)
     px, rv = smooth_lib.make_prox(updater, reg_param)
     cfg = agd.AGDConfig(
         convergence_tol=convergence_tol, num_iterations=num_iterations,
         l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
         may_restart=may_restart, loss_mode=loss_mode)
+    agd_run = getattr(build, "make_agd_run", None)
+    if agd_run is not None:
+        # the sharded update: the whole loop over 1/N shards, full trees
+        # in and out
+        run_sh = agd_run(px, rv, cfg)
+
+        def fit_sharded(initial_weights):
+            w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
+            return run_sh(w0, dargs)
+
+        fit_sharded.data_args = dargs
+        return fit_sharded
 
     def fit(initial_weights):
         w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
@@ -339,9 +383,10 @@ def _run_supervised(data, gradient, updater, cfg, reg_param,
     from .resilience import supervisor as supervisor_lib
 
     _check_dist_mode(dist_mode)
-    reject_later(telemetry=telemetry, sharded_update=sharded_update)
+    reject_later(telemetry=telemetry)
     policy = None if resilience is True else resilience
-    dev, staged = _stage(data, gradient, device, mesh, dist_mode)
+    dev, staged = _stage(data, gradient, device, mesh, dist_mode,
+                         sharded_update)
     px, rv = smooth_lib.make_prox(updater, reg_param)
     sres = supervisor_lib.run_agd_supervised(
         prox=px, reg_value=rv, w0=initial_weights, config=cfg,
@@ -451,18 +496,41 @@ def make_sweep_runner(
     ``lanes_loss_and_grad`` call for all lanes (one launch of the lanes
     kernel through ``FusedMarginGradient``).  ``warm``: a batched
     ``AGDWarmState`` (``sweep_warm_state``) continues every lane.
-    Single device only in this slice: a mesh raises (the mesh sweeps
-    come with a later slice)."""
-    reject_grid_mesh(_grid_mesh(data, mesh), "the sweep")
+    ``mesh``: ``False`` (default) runs on one device; a ``Mesh`` (or
+    ``None`` for the all-device data mesh, or a ``ShardedBatch``, which
+    brings its own) also shards the rows over the mesh's data axis, each
+    round one ``lanes_loss_and_grad`` call a slot
+    (``parallel.grid.make_mesh_sweep_fit``)."""
     cfg = agd.AGDConfig(
         convergence_tol=convergence_tol, num_iterations=num_iterations,
         l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
         may_restart=may_restart, loss_mode=loss_mode)
+    m, batch = _grid_mesh_batch(data, mesh, device)
+    if m is not None:
+        from .parallel import grid
+
+        mesh_fit = grid.make_mesh_sweep_fit(gradient, updater, batch, m,
+                                            cfg)
+
+        def mesh_path(initial_weights, reg_params, warm=None):
+            return mesh_fit(reg_params, initial_weights, warm=warm)
+
+        mesh_path.data_args = mesh_fit.data_args
+        return mesh_path
     dev = resolve_device(device)
     X, y, mask = _normalize_data(data)
     dargs = gradient.prepare(_place(X, dev), _place(y, dev),
                              _place(mask, dev))
     sm, sl = smooth_lib.lanes_smooth(gradient, *dargs)
+    fit = _lanes_fit(sm, sl, updater, cfg, dev)
+    fit.data_args = dargs
+    return fit
+
+
+def _lanes_fit(sm, sl, updater, cfg, dev):
+    """``fit(initial_weights, reg_params, warm=None) -> batched
+    AGDResult``: the lock-step lanes over ``(smooth_multi,
+    smooth_loss_multi)``, one device's or a mesh's."""
 
     def fit(initial_weights, reg_params, warm=None):
         regs = _regs(reg_params)
@@ -477,7 +545,6 @@ def make_sweep_runner(
                                   smooth_loss_multi=sl)
         return _batched_result(run_, cfg.num_iterations)
 
-    fit.data_args = dargs
     return fit
 
 
@@ -638,11 +705,14 @@ def _build_cv(data, gradient, updater, n_folds, convergence_tol,
     reg_params)`` runs the lane grid."""
     if n_folds < 2:
         raise ValueError("n_folds must be >= 2")
-    reject_grid_mesh(_grid_mesh(data, mesh), "cross_validate")
     cfg = agd.AGDConfig(
         convergence_tol=convergence_tol, num_iterations=num_iterations,
         l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
         may_restart=may_restart, loss_mode=loss_mode)
+    m, batch, _ = _resolve_fit_mesh(data, mesh, device)
+    if m is not None:
+        return _build_mesh_cv(data, m, batch, gradient, updater, n_folds,
+                              cfg, seed)
     dev = resolve_device(device)
     X, y, base_mask = _normalize_data(data)
     n = X.shape[0]
@@ -679,15 +749,70 @@ def _build_cv(data, gradient, updater, n_folds, convergence_tol,
         res = _batched_result(run_, cfg.num_iterations)
         val = _mean_loss(gradient, res.weights, X, y,
                          base_mask[:, None] * held)
-        val_loss = val.reshape(n_folds, n_regs)
-        train_result = agd.AGDResult(*(
-            tvec.tmap(lambda a: a.reshape((n_folds, n_regs) + a.shape[1:]),
-                      field) for field in res))
-        mean_val = torch.nanmean(val_loss, dim=0)
-        return CVResult(val_loss=val_loss, train_result=train_result,
-                        mean_val_loss=mean_val,
-                        best_index=_nan_first_argmin(mean_val),
-                        fold_ids=fold_ids, base_mask=base_mask)
+        return _cv_result(val, res, n_folds, n_regs, fold_ids, base_mask)
+
+    return fit
+
+
+def _cv_result(val, res, n_folds, n_regs, fold_ids, base_mask):
+    """The ``CVResult`` of the flat lane grid's validation losses and
+    batched result."""
+    val_loss = val.reshape(n_folds, n_regs)
+    train_result = agd.AGDResult(*(
+        tvec.tmap(lambda a: a.reshape((n_folds, n_regs) + a.shape[1:]),
+                  field) for field in res))
+    mean_val = torch.nanmean(val_loss, dim=0)
+    return CVResult(val_loss=val_loss, train_result=train_result,
+                    mean_val_loss=mean_val,
+                    best_index=_nan_first_argmin(mean_val),
+                    fold_ids=fold_ids, base_mask=base_mask)
+
+
+def _build_mesh_cv(data, m, batch, gradient, updater, n_folds, cfg, seed):
+    """The mesh branch of :func:`_build_cv` (``parallel.grid
+    .make_mesh_cv_fit``).  Raw data: the folds are JAX's assignment over
+    the input rows, placed by ``grid.shard_row_array`` (dense) or through
+    the CSR balancer's permutation by ``shard_csr_batch(extras=)``; a
+    pre-placed batch: the folds are assigned over its padded layout, as
+    the JAX package assigns them."""
+    from .parallel import grid
+
+    lead = m.lead
+    if batch is not None:
+        n = batch.y.shape[0]  # the padded layout; the mask covers padding
+        fold_ids = fold_assignment(n, n_folds, seed, lead)
+        base_mask = (batch.mask.gather().to(lead)
+                     if batch.mask is not None
+                     else torch.ones(n, dtype=torch.float32, device=lead))
+        fids = grid.shard_row_array(m, fold_ids.cpu().numpy(), n, fill=-1)
+    else:
+        X, y, base_mask = _normalize_data(data)
+        n = X.shape[0]
+        fold_ids = fold_assignment(n, n_folds, seed, lead)
+        base_mask = (torch.ones(n, dtype=torch.float32, device=lead)
+                     if base_mask is None
+                     else _place(base_mask, lead).to(torch.float32))
+        if isinstance(X, CSRMatrix):
+            batch, placed = mesh_lib.shard_csr_batch(
+                m, X, y, base_mask.cpu().numpy(),
+                extras={"fold_ids": fold_ids.cpu().numpy()})
+            fids = placed["fold_ids"]
+        else:
+            batch = mesh_lib.shard_batch(m, X, y, base_mask.cpu().numpy())
+            fids = grid.shard_row_array(m, fold_ids.cpu().numpy(),
+                                        batch.y.shape[0], fill=-1)
+    mesh_fit = grid.make_mesh_cv_fit(gradient, updater, batch, fids, m, cfg)
+
+    def fit(initial_weights, reg_params):
+        if initial_weights is None:
+            raise ValueError("initial_weights is required")
+        regs = _regs(reg_params)
+        n_regs = regs.shape[0]
+        fold_lane = torch.arange(n_folds, dtype=torch.int32) \
+            .repeat_interleave(n_regs)
+        val, res = mesh_fit(fold_lane, regs.repeat(n_folds),
+                            initial_weights)
+        return _cv_result(val, res, n_folds, n_regs, fold_ids, base_mask)
 
     return fit
 
@@ -696,8 +821,7 @@ def _mean_loss(gradient, W, X, y, masks):
     """``(K,)`` mean losses of the lanes of ``W`` under ``masks``; an
     empty selection reads NaN, never a perfect 0.0."""
     ls, _, cnt = gradient.lanes_loss_and_grad(W, X, y, masks)
-    cnt = cnt.to(ls.dtype)
-    return torch.where(cnt > 0, ls / torch.clamp_min(cnt, 1), math.nan)
+    return smooth_lib.lanes_mean_or_nan(ls, cnt)
 
 
 class AcceleratedGradientDescent:
@@ -761,8 +885,10 @@ class AcceleratedGradientDescent:
         return self
 
     def set_mesh(self, mesh):
-        """A data-axis ``parallel.mesh.Mesh``, ``None`` (the default rule
-        of :func:`run`) or ``False`` (one device); a model axis raises."""
+        """A ``parallel.mesh.Mesh`` (its rows over the data axis; with
+        ``dist_mode="auto"`` a softmax's classes over a ``model`` axis),
+        ``None`` (the default rule of :func:`run`) or ``False`` (one
+        device)."""
         if mesh is not None and mesh is not False:
             mesh_lib.check_data_mesh(mesh)
         self._mesh = mesh
@@ -1060,8 +1186,10 @@ class LBFGS:
         return self
 
     def set_mesh(self, mesh):
-        """A data-axis ``parallel.mesh.Mesh``, ``None`` (the default rule
-        of :func:`run`) or ``False`` (one device); a model axis raises."""
+        """A ``parallel.mesh.Mesh`` (its rows over the data axis; with
+        ``dist_mode="auto"`` a softmax's classes over a ``model`` axis),
+        ``None`` (the default rule of :func:`run`) or ``False`` (one
+        device)."""
         if mesh is not None and mesh is not False:
             mesh_lib.check_data_mesh(mesh)
         self._mesh = mesh
@@ -1136,13 +1264,27 @@ def make_lbfgs_sweep_runner(
     Smooth penalties only (L1 and elastic-net grids raise, as in the JAX
     package, where the OWL-QN dispatch cannot join traced lanes).  The
     result's fields gain a leading K axis; ``eval_rounds`` counts the
-    rounds.  Single device only in this slice: a mesh raises (the mesh
-    sweeps come with a later slice)."""
-    reject_grid_mesh(_grid_mesh(data, mesh), "the L-BFGS sweep")
+    rounds.  ``mesh`` as in :func:`make_sweep_runner`: the rows sharded
+    over a mesh's data axis, each round one call a slot
+    (``parallel.grid.make_mesh_lbfgs_sweep_fit``)."""
     lbfgs_lib.check_smooth_penalty(updater, 1.0)
     cfg = lbfgs_lib.LBFGSConfig(
         num_corrections=num_corrections, convergence_tol=convergence_tol,
         num_iterations=num_iterations, grad_tol=grad_tol)
+    m, batch = _grid_mesh_batch(data, mesh, device)
+    if m is not None:
+        from .parallel import grid
+
+        mesh_fit = grid.make_mesh_lbfgs_sweep_fit(gradient, updater, batch,
+                                                  m, cfg)
+
+        def mesh_path(initial_weights, reg_params):
+            return mesh_fit(_check_grid_fit(updater, reg_params,
+                                            "make_lbfgs_sweep_runner"),
+                            initial_weights)
+
+        mesh_path.data_args = mesh_fit.data_args
+        return mesh_path
     dev = resolve_device(device)
     X, y, mask = _normalize_data(data)
     dargs = gradient.prepare(_place(X, dev), _place(y, dev),
@@ -1226,19 +1368,21 @@ def streaming_sweep(
     Port-only keywords: ``device`` (the current CUDA device by default,
     ``"cpu"`` for the CPU) and ``pass_stats`` (a list that receives each
     pass's stats).
-    ``mesh=`` (the streamed sweeps over a mesh, the grid family) comes
-    with a later slice and raises; ``csr_nnz_per_shard`` is inert
-    without it."""
+    ``mesh`` (a data-axis ``parallel.mesh.Mesh``) shards each
+    macro-batch over the mesh, one lanes launch a slot a batch
+    (``data.streaming.make_streaming_eval_multi(mesh=)``); ``device`` is
+    then its lead device, and ``csr_nnz_per_shard`` pins a CSR shard's
+    entries (inert without a mesh)."""
     from .data import streaming as streaming_lib
 
     if initial_weights is None:
         raise ValueError("initial_weights is required")
-    reject_grid_mesh(mesh, "streaming_sweep")
     regs = list(reg_params)
-    dev = resolve_device(device)
-    # one placer for both evaluators: one ring of pinned staging buffers
-    sm, sl = streaming_lib._eval_multi_pair(gradient, dataset, pad_to, dev,
-                                            pass_stats)
+    # one placer for both evaluators: one ring of pinned staging buffers;
+    # dev is the device the lanes live on (a mesh's lead device)
+    sm, sl, dev = streaming_lib._eval_multi_pair(
+        gradient, dataset, pad_to, device, pass_stats, mesh=mesh,
+        csr_nnz_per_shard=csr_nnz_per_shard)
     pxm, rvm = host_agd.make_prox_multi(updater, regs)
     w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
     cfg = agd.AGDConfig(
@@ -1277,21 +1421,20 @@ def streaming_lbfgs_sweep(
 
     Returns a ``core.host_lbfgs.HostLBFGSMultiResult`` (a leading K axis;
     ``eval_rounds`` counts the stream passes).  Port-only keywords as in
-    :func:`streaming_sweep`."""
+    :func:`streaming_sweep`, and ``mesh`` too."""
     from .core import host_lbfgs
     from .data import streaming as streaming_lib
 
     if initial_weights is None:
         raise ValueError("initial_weights is required")
-    reject_grid_mesh(mesh, "streaming_lbfgs_sweep")
     # the guard LBFGS.sweep applies: a no-penalty updater would return K
     # identical lanes
     regs = _lbfgs_regs(_check_grid_fit(updater, reg_params,
                                        "streaming_lbfgs_sweep"))
     lbfgs_lib.check_smooth_penalty(updater, 1.0)
-    dev = resolve_device(device)
-    sm_multi = streaming_lib.make_streaming_eval_multi(
-        gradient, dataset, pad_to=pad_to, device=dev, pass_stats=pass_stats)
+    sm_multi, _, dev = streaming_lib._eval_multi_pair(
+        gradient, dataset, pad_to, device, pass_stats, mesh=mesh,
+        csr_nnz_per_shard=csr_nnz_per_shard)
     w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
     cfg = lbfgs_lib.LBFGSConfig(
         num_corrections=num_corrections, convergence_tol=convergence_tol,

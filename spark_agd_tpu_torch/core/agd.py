@@ -104,6 +104,7 @@ def run_agd(
     smooth_loss: Callable | None = None,
     warm: AGDWarmState | None = None,
     on_iteration: Callable | None = None,
+    shard_dot: Callable | None = None,
 ) -> AGDResult:
     """Run AGD from ``w0`` (or continue ``warm``, of which ``w0`` is then
     only the structure).
@@ -113,7 +114,18 @@ def run_agd(
     mean_loss`` is used by ``loss_mode='x'`` when backtracking is off
     (``beta >= 1``).  A warm run executes up to ``num_iterations``
     further iterations.  ``on_iteration(state_dict)`` is called after
-    every outer iteration with the continuation carry (:func:`_carry`)."""
+    every outer iteration with the continuation carry (:func:`_carry`).
+
+    ``shard_dot(a, b) -> 0-d tensor`` (the twin of JAX's ``axis_name=``,
+    the sharded weight update): the carry is a sharded tree
+    (``parallel.sharded_update``), whose shards the elementwise math
+    updates where they lie, and every dot and squared norm of the loop
+    (``xy_sq``, the curvature dots, the stop norms, the restart dot) is
+    this global inner product, summed across the shards in one fixed
+    order, so every slot and rank takes the same branches.  ``smooth``
+    then returns the gradient sharded like its argument, and
+    ``reg_value`` the global penalty.  ``None`` (default) keeps the plain
+    reductions of :mod:`tvec`."""
     cfg = config
     if cfg.loss_mode not in ("x", "x_strict", "y"):
         raise ValueError(f"unknown loss_mode {cfg.loss_mode!r}")
@@ -144,6 +156,16 @@ def run_agd(
     alpha = s(cfg.alpha)
     nan = s(math.nan)
     backtracking = cfg.beta < 1.0
+    if shard_dot is None:
+        _dot, _sq_norm = tvec.dot, tvec.sq_norm
+    else:
+        _dot = shard_dot
+
+        def _sq_norm(a):
+            return shard_dot(a, a)
+
+    def _norm(a):
+        return torch.sqrt(_sq_norm(a))
 
     x, z = warm.x, warm.z
     theta, big_l = s(warm.theta), s(warm.big_l)
@@ -180,7 +202,7 @@ def run_agd(
                 break
 
             xy = tvec.sub(x, y)
-            xy_sq = s(tvec.sq_norm(xy))
+            xy_sq = s(_sq_norm(xy))
             # trivial accepts: an exact-zero step (x == y, so f(x) = f(y))
             # or a non-finite f_y, which the NaN guard below aborts on
             if bool(xy_sq == 0.0) or not bool(torch.isfinite(f_y)):
@@ -189,11 +211,11 @@ def run_agd(
 
             f_x, g_x = norm_smooth(x_old, smooth(x))
             if bts:
-                q_x = f_y + s(tvec.dot(xy, g_y)) + 0.5 * big_l * xy_sq
+                q_x = f_y + s(_dot(xy, g_y)) + 0.5 * big_l * xy_sq
                 local_l = big_l + 2.0 * torch.clamp_min(f_x - q_x, 0.0) \
                     / xy_sq
             else:
-                local_l = 2.0 * s(tvec.dot(xy, tvec.sub(g_x, g_y))) / xy_sq
+                local_l = 2.0 * s(_dot(xy, tvec.sub(g_x, g_y))) / xy_sq
             bts = bts and bool(
                 torch.abs(f_y - f_x)
                 >= btol * torch.maximum(torch.abs(f_x), torch.abs(f_y)))
@@ -228,14 +250,14 @@ def run_agd(
         n_bt += trial_bt
 
         aborted = not bool(torch.isfinite(f_y))
-        norm_x = s(tvec.norm(x))
-        norm_dx = s(tvec.norm(tvec.sub(x, x_old)))
+        norm_x = s(_norm(x))
+        norm_dx = s(_norm(tvec.sub(x, x_old)))
         done = (aborted
                 or (bool(norm_dx == 0.0) and it + prior_iters > 1)
                 or bool(norm_dx < tol * torch.clamp_min(norm_x, 1.0)))
 
         restart = (cfg.may_restart and not done
-                   and bool(s(tvec.dot(g_y, tvec.sub(x, x_old))) > 0.0))
+                   and bool(s(_dot(g_y, tvec.sub(x, x_old))) > 0.0))
         if restart:
             z = x
             theta = s(math.inf)

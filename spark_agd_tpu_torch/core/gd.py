@@ -108,8 +108,7 @@ def run_minibatch_sgd_mesh(
     from ..parallel import dist_smooth, multihost
 
     X, y, mask = batch
-    prepared = dist_smooth._prepare_shards(
-        gradient, X.shards, y.shards, None if mask is None else mask.shards)
+    prepared = dist_smooth.shard_operands(gradient, X, y, mask)
     rank = multihost.process_index() if mesh.process_count > 1 else 0
     first = rank * len(X.shards)
     offsets = [(first + i) * X.rows_per_shard for i in range(len(X.shards))]

@@ -11,7 +11,10 @@ K-lane form the sweeps and cross-validation drive (the counterpart of
 
 from __future__ import annotations
 
+import math
 from typing import Callable
+
+import torch
 
 from ..ops.losses import Gradient
 from ..ops.prox import Prox, lane_view
@@ -67,22 +70,36 @@ def make_prox(p: Prox, reg_param: float):
 
 def lanes_smooth(gradient: Gradient, X, y, masks=None):
     """``(smooth_multi, smooth_loss_multi)`` over prepared operands for K
-    lanes at once: ``smooth_multi(W) -> ((K,) mean losses, mean gradients
-    stacked like W)`` and ``smooth_loss_multi(W) -> (K,) mean losses``,
-    each lane over its own count (``masks``: ``None``, a shared (N,) mask
-    or an (N, K) mask, a column a lane).  One call evaluates every lane:
-    through ``gradient.lanes_loss_and_grad``, which reads X once for all
-    of them where the gradient has a lanes kernel."""
+    lanes at once (:func:`lanes_pair`), each lane over its own count
+    (``masks``: ``None``, a shared (N,) mask or an (N, K) mask, a column
+    a lane).  One call evaluates every lane: through
+    ``gradient.lanes_loss_and_grad``, which reads X once for all of them
+    where the gradient has a lanes kernel."""
+    return lanes_pair(lambda W: gradient.lanes_loss_and_grad(W, X, y, masks))
+
+
+def lanes_pair(sums: Callable):
+    """``(smooth_multi, smooth_loss_multi)`` of a K-lane sums function
+    ``sums(W) -> ((K,) loss sums, gradient sums stacked like W, (K,)
+    counts)``: ``smooth_multi(W) -> ((K,) mean losses, mean gradients)``
+    and ``smooth_loss_multi(W) -> (K,) mean losses``."""
 
     def smooth_multi(W):
-        loss_sum, grad_sum, n = gradient.lanes_loss_and_grad(W, X, y, masks)
+        loss_sum, grad_sum, n = sums(W)
         n = n.to(loss_sum.dtype)
         inv = 1.0 / n
         return loss_sum / n, tvec.tmap(lambda g: lane_view(inv, g) * g,
                                        grad_sum)
 
     def smooth_loss_multi(W):
-        loss_sum, _, n = gradient.lanes_loss_and_grad(W, X, y, masks)
+        loss_sum, _, n = sums(W)
         return loss_sum / n.to(loss_sum.dtype)
 
     return smooth_multi, smooth_loss_multi
+
+
+def lanes_mean_or_nan(loss_sum, n):
+    """``(K,)`` mean losses of loss sums over counts; a lane that selected
+    no rows reads NaN, never a perfect 0.0."""
+    n = n.to(loss_sum.dtype)
+    return torch.where(n > 0, loss_sum / torch.clamp_min(n, 1), math.nan)

@@ -68,7 +68,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, same_device
-from .._later import reject_grid_mesh, reject_later
+from .._later import reject_later
 from ..core import tvec
 from ..ops.losses import Gradient
 from ..ops.sparse import CSRMatrix, _values_tensor
@@ -1056,24 +1056,30 @@ def _make_mesh_placer(mesh, pad_to, csr_nnz_per_shard, prefetch: int = 0):
     return _place
 
 
-def _mesh_batch_sums(gradient, mesh, with_grad):
+def _mesh_batch_sums(gradient, mesh, with_grad, lanes: bool = False):
     """The batch kernel of a mesh stream: each slot's shard of the placed
-    batch through ``gradient.batch_loss_and_grad`` (the fused gradients
-    stage a shard per call, without copying it), the slots' sums added
-    in slot order."""
+    batch through ``gradient.batch_loss_and_grad`` (a dense shard as it
+    is: the fused gradients stage a shard per call, without copying it;
+    a CSR shard prepared, its twin and reduction plans), the slots' sums
+    added in slot order.  ``lanes``: ``w`` is stacked on a lane axis and
+    each slot's shard makes one ``gradient.lanes_loss_and_grad`` call
+    (one launch of the lanes kernel a slot a batch through
+    ``FusedMarginGradient``); the count, the mask's, is one for every
+    lane."""
     from ..ops.sparse import RowShardedCSR
     from ..parallel import dist_smooth
 
     def kernel(w, X, y, mask):
         if isinstance(X, RowShardedCSR):
-            ls, gs, n = dist_smooth.csr_shard_sums(
-                gradient, X, y, mask, mesh)[0](w)
+            ops = dist_smooth.shard_operands(gradient, X, y, mask)
         else:
             ops = [None if xs.shape[0] == 0 else
                    (xs, ys, None if mask is None else mask.shards[i])
                    for i, (xs, ys) in enumerate(zip(X.shards, y.shards))]
-            ls, gs, n = dist_smooth._slot_sums(gradient, mesh, ops, w,
-                                               X.dtype)
+        ls, gs, n = dist_smooth._slot_sums(gradient, mesh, ops, w, X.dtype,
+                                           lanes=lanes)
+        if lanes:
+            n = n[0]
         return (ls, gs, n) if with_grad else (ls, n)
 
     return kernel
@@ -1131,7 +1137,7 @@ def make_streaming_smooth(
         mesh_lib.check_data_mesh(mesh)
         if device is not None and not same_device(device, mesh.lead):
             raise ValueError(f"device={device} is not the mesh's lead "
-                             f"device {mesh.lead}")
+                             f"device {mesh.lead}; drop one of the two")
         _place = _make_mesh_placer(mesh, pad_to, csr_nnz_per_shard,
                                    prefetch)
         batch_sums = _mesh_batch_sums(gradient, mesh, True)
@@ -1206,30 +1212,51 @@ def make_streaming_eval_multi(
     ``gradient.lanes_loss_and_grad``, which reads X once for up to 16
     lanes where the gradient has the lanes kernel
     (``FusedMarginGradient``).  ``device`` and ``pass_stats`` as in
-    :func:`make_streaming_smooth`; ``mesh=`` (the streamed sweeps over a
-    mesh, the grid family) comes with a later slice and raises, and
-    ``csr_nnz_per_shard`` is inert without it.
+    :func:`make_streaming_smooth`.  ``mesh`` (a data-axis
+    ``parallel.mesh.Mesh``) shards each macro-batch over the mesh as
+    :func:`make_streaming_smooth` does, each slot's shard one
+    ``lanes_loss_and_grad`` call (one lanes launch a slot a batch), the
+    slots' sums added in slot order; ``device`` is then its lead device,
+    and ``csr_nnz_per_shard`` pins a CSR shard's entries (inert without
+    a mesh).
     """
-    reject_grid_mesh(mesh, "make_streaming_eval_multi")
-    eval_multi, eval_loss_multi = _eval_multi_pair(
-        gradient, dataset, pad_to, resolve_device(device), pass_stats)
+    eval_multi, eval_loss_multi, _ = _eval_multi_pair(
+        gradient, dataset, pad_to, device, pass_stats, mesh=mesh,
+        csr_nnz_per_shard=csr_nnz_per_shard)
     return eval_multi if with_grad else eval_loss_multi
 
 
-def _eval_multi_pair(gradient, dataset, pad_to, dev, pass_stats):
+def _eval_multi_pair(gradient, dataset, pad_to, device, pass_stats, *,
+                     mesh=None, csr_nnz_per_shard=None):
     """:func:`make_streaming_eval_multi`'s two evaluators, with and
     without the gradient, over one placer: a sweep needs both, and they
-    share one ring of pinned staging buffers."""
-    _place = _make_placer(dev, pad_to)
+    share one ring of pinned staging buffers (on a mesh, one placer).
+    Returns them and the device the lanes live on: ``device`` resolved,
+    or a mesh's lead device (a ``device=`` must name it)."""
     pass_stats = [] if pass_stats is None else pass_stats
+    if mesh is not None and mesh is not False:
+        from ..parallel import mesh as mesh_lib
 
-    def batch_sums(W, X, y, mask):
-        ls, gs, n = gradient.lanes_loss_and_grad(W, X, y, mask)
-        return ls, gs, n[0]  # the count is the mask's: the same per lane
+        mesh_lib.check_data_mesh(mesh)
+        if device is not None and not same_device(device, mesh.lead):
+            raise ValueError(f"device={device} is not the mesh's lead "
+                             f"device {mesh.lead}; drop one of the two")
+        dev = mesh.lead
+        _place = _make_mesh_placer(mesh, pad_to, csr_nnz_per_shard)
+        batch_sums = _mesh_batch_sums(gradient, mesh, True, lanes=True)
+        batch_loss_sums = _mesh_batch_sums(gradient, mesh, False,
+                                           lanes=True)
+    else:
+        dev = resolve_device(device)
+        _place = _make_placer(dev, pad_to)
 
-    def batch_loss_sums(W, X, y, mask):
-        ls, _, n = gradient.lanes_loss_and_grad(W, X, y, mask)
-        return ls, n[0]
+        def batch_sums(W, X, y, mask):
+            ls, gs, n = gradient.lanes_loss_and_grad(W, X, y, mask)
+            return ls, gs, n[0]  # the count is the mask's: one per lane
+
+        def batch_loss_sums(W, X, y, mask):
+            ls, _, n = gradient.lanes_loss_and_grad(W, X, y, mask)
+            return ls, n[0]
 
     def lanes(W):
         return tvec.tmap(lambda a: torch.as_tensor(a, device=dev), W)
@@ -1251,7 +1278,7 @@ def _eval_multi_pair(gradient, dataset, pad_to, dev, pass_stats):
         pass_stats.append(stats)
         return ls / _mean_divisor(n, ls)
 
-    return eval_multi, eval_loss_multi
+    return eval_multi, eval_loss_multi, dev
 
 
 class _Prefetcher:

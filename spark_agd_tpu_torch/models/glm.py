@@ -323,9 +323,11 @@ class GeneralizedLinearAlgorithm:
         """``optimizer``: the object in the optimizer seat — default a
         fresh ``AcceleratedGradientDescent(gradient, updater)``; anything
         with the Optimizer trait's ``optimize`` may take its place, and
-        then carries its own gradient and updater.  ``mesh`` (a data-axis
+        then carries its own gradient and updater.  ``mesh`` (a
         ``parallel.mesh.Mesh``, or ``False``) goes to the optimizer's
-        ``set_mesh``; a model axis raises."""
+        ``set_mesh``; with a ``model`` axis and the optimizer's
+        ``set_dist_mode("auto")`` a softmax's classes are split over it,
+        as in the JAX package."""
         self.optimizer = (api.AcceleratedGradientDescent(gradient, updater)
                           if optimizer is None else optimizer)
         if mesh is not None:

@@ -28,9 +28,15 @@ rows JAX gives it (an even split, the tail padded with zero rows of mask
 0), as views of X, so a 40 GB X on the card is not copied.  The padding
 rows add nothing to any sum, so they are not stored: a shard holds its
 real rows and a count of padding rows, which :meth:`ShardedRows.gather`
-materializes.  A mesh with another axis than ``data`` larger than one
-(tensor parallelism), and the feature-sharded layouts, come with a later
-slice and raise.
+materializes.
+
+A mesh may also have a ``model`` axis (tensor parallelism).  Row-sharded
+data lives on the slots of the data axis (:meth:`Mesh.slots`: index 0 on
+every other axis), so a data-parallel evaluation runs once a data index,
+as JAX's replicated weights compute the same sums on every model slot;
+``parallel.dist_smooth`` splits a softmax's classes over the model axis,
+and :func:`shard_batch_by_features` splits a dense X's columns over it
+(:class:`ShardedCols`, views of X, the padding columns not stored).
 """
 
 from __future__ import annotations
@@ -43,7 +49,6 @@ import numpy as np
 import torch
 
 from .. import native
-from .._later import reject_a8
 from ..core import tvec
 from ..ops.sparse import CSRMatrix, RowShardedCSR
 
@@ -106,20 +111,45 @@ class Mesh:
         here."""
         return self.devices.reshape(-1)[0]
 
+    def axis_slots(self, axis: str) -> list:
+        """This process's slots along ``axis``, in its order, at index 0
+        of every other axis."""
+        i = self.axis_names.index(axis)
+        idx = [0] * self.devices.ndim
+        idx[i] = slice(None)
+        return list(self.devices[tuple(idx)])
+
     def slots(self) -> list:
-        """This process's slots in the order of the data axis."""
+        """This process's slots of the data axis, in its order (index 0 of
+        every other axis): where row-sharded data lives.  A mesh with no
+        data axis: every slot."""
+        if DATA_AXIS in self.axis_names:
+            return self.axis_slots(DATA_AXIS)
         return list(self.devices.reshape(-1))
+
+    def grid(self, axis: str = DATA_AXIS, other: str = MODEL_AXIS) -> list:
+        """This process's slots as rows along ``axis`` (one a data index),
+        each row the slots along ``other`` in its order (``[[slot]]`` a
+        row when the mesh lacks ``other``)."""
+        if other not in self.axis_names:
+            return [[d] for d in self.axis_slots(axis)]
+        i, j = self.axis_names.index(axis), self.axis_names.index(other)
+        arr = np.moveaxis(self.devices, (i, j), (0, 1))
+        arr = arr.reshape(arr.shape[0], arr.shape[1], -1)[:, :, 0]
+        return [list(row) for row in arr]
 
     def __eq__(self, other):
         return (isinstance(other, Mesh)
                 and self.axis_names == other.axis_names
                 and self.devices.shape == other.devices.shape
-                and self.slots() == other.slots()
+                and list(self.devices.reshape(-1))
+                == list(other.devices.reshape(-1))
                 and self.processes == other.processes
                 and self.in_group == other.in_group)
 
     def __hash__(self):
-        return hash((self.axis_names, tuple(map(str, self.slots())),
+        return hash((self.axis_names,
+                     tuple(map(str, self.devices.reshape(-1))),
                      tuple(sorted(self.processes.items()))))
 
     def __repr__(self):
@@ -128,22 +158,24 @@ class Mesh:
                 f"{[str(d) for d in self.slots()]}{extra})")
 
 
-def check_data_mesh(mesh: Mesh, axis: str = DATA_AXIS) -> Mesh:
-    """``mesh`` when it is a data-parallel mesh this slice runs: a
-    :class:`Mesh` whose axes other than ``axis`` have size 1.  A
-    ``model`` axis (tensor parallelism) raises ``NotImplementedError``
-    naming the slice that brings it; anything that is not a ``Mesh``
-    raises ``TypeError``."""
+def check_mesh(mesh: Mesh) -> Mesh:
+    """``mesh`` when it is a :class:`Mesh`; anything else raises
+    ``TypeError``."""
     if not isinstance(mesh, Mesh):
         raise TypeError(
             f"mesh= takes a spark_agd_tpu_torch.parallel.mesh.Mesh, None "
             f"or False; got {type(mesh).__name__}")
+    return mesh
+
+
+def check_data_mesh(mesh: Mesh, axis: str = DATA_AXIS) -> Mesh:
+    """``mesh`` when it is a :class:`Mesh` with an ``axis`` axis, where
+    rows are sharded (its other axes, a ``model`` axis, hold the same
+    rows: JAX replicates them there).  Anything that is not a ``Mesh``
+    raises ``TypeError``; a mesh without ``axis`` raises ``ValueError``."""
+    check_mesh(mesh)
     if axis not in mesh.shape:
         raise ValueError(f"the mesh has no {axis!r} axis: {mesh}")
-    others = {n: s for n, s in mesh.shape.items() if n != axis and s > 1}
-    if others:
-        reject_a8("model_axis", f"a mesh with the axes {others} beside "
-                                f"{axis!r}")
     return mesh
 
 
@@ -343,21 +375,113 @@ def sharded_rows_batch(mesh: Mesh, xs, ys, ms, spans, rps: int, k: int,
         None if ms is None else ShardedRows(ms, pads, mesh, (rows,), rps))
 
 
+class ShardedCols:
+    """The columns of a dense X split over a mesh's model axis, one tensor
+    a model slot of this process (counterpart of an X placed
+    ``P(None, "model")``).
+
+    The width pads with zero columns to an even split of ``cols_per_shard``
+    a slot, as JAX pads it; ``shards[i]`` holds slot i's real columns (a
+    view of X where X lay on the slot's device already) and ``pads[i]``
+    counts its zero columns, which add nothing to any product and are not
+    stored.  ``shape`` is the padded ``(n, d_pad)``."""
+
+    def __init__(self, shards, pads, mesh: Mesh, shape, cols_per_shard,
+                 axis: str = MODEL_AXIS):
+        self.shards = list(shards)
+        self.pads = [int(p) for p in pads]
+        self.mesh = mesh
+        self.shape = tuple(int(v) for v in shape)
+        self.cols_per_shard = int(cols_per_shard)
+        self.axis = axis
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return 2
+
+    def gather(self) -> torch.Tensor:
+        """The whole padded X on the CPU."""
+        parts = []
+        for t, pad in zip(self.shards, self.pads):
+            parts.append(t.cpu())
+            if pad:
+                parts.append(torch.zeros((t.shape[0], pad), dtype=t.dtype))
+        return torch.cat(parts, dim=1)
+
+    def __repr__(self):
+        return (f"ShardedCols(shape={self.shape}, dtype={self.dtype}, "
+                f"shards={len(self.shards)}, pads={self.pads})")
+
+
 def shard_batch_by_features(mesh: Mesh, X, y, mask=None,
-                            axis: str = MODEL_AXIS):
-    """The dense D-axis layout (JAX ``mesh.py:103``): comes with the
-    tensor-parallel slice and raises."""
-    reject_a8("feature_sharding", "shard_batch_by_features")
+                            axis: str = MODEL_AXIS) -> ShardedBatch:
+    """Shard a dense batch's feature columns over ``axis`` (dense D-axis
+    parallelism, the dense twin of ``feature_sharded``'s CSR layout).
+
+    Columns pad with zeros to an even split (not stored:
+    :class:`ShardedCols`); y and the mask stay whole on the mesh's lead
+    device.  Consume with ``make_dist_smooth(..., mode="auto")`` and
+    weights placed by :func:`shard_weights_by_features`, which zero-pads
+    them to the batch's width: a pad column is inert only while its
+    weight is zero (its gradient is zero, and every prox of ``ops.prox``
+    keeps 0 at 0)."""
+    if isinstance(X, CSRMatrix):
+        raise ValueError(
+            "shard_batch_by_features is the DENSE D-axis layout; for "
+            "sparse data use parallel.feature_sharded."
+            "shard_csr_by_columns")
+    check_mesh(mesh)
+    if axis not in mesh.shape:
+        raise ValueError(f"the mesh has no {axis!r} axis: {mesh}")
+    if mesh.process_count > 1:
+        raise ValueError("shard_batch_by_features lays out one process's "
+                         "slots; the model axis does not span processes")
+    Xt = host_tensor(X)
+    if Xt.dim() != 2:
+        raise ValueError(f"X must be 2-D; got shape {tuple(Xt.shape)}")
+    n, d = Xt.shape
+    k = mesh.shape[axis]
+    cps = -(-d // k)
+    xs, pads = [], []
+    for i, dev in enumerate(mesh.axis_slots(axis)):
+        a, b = min(i * cps, d), min((i + 1) * cps, d)
+        xs.append(Xt[:, a:b].to(dev))
+        pads.append(cps - (b - a))
+    lead = mesh.lead
+    yt = host_tensor(y).to(lead)
+    mt = None if mask is None else host_tensor(mask).to(lead,
+                                                         torch.float32)
+    return ShardedBatch(ShardedCols(xs, pads, mesh, (n, cps * k), cps,
+                                    axis), yt, mt)
 
 
-def shard_weights_by_features(w, batch, mesh: Mesh, axis: str = MODEL_AXIS):
-    """Comes with the tensor-parallel slice and raises."""
-    reject_a8("feature_sharding", "shard_weights_by_features")
+def shard_weights_by_features(w, batch: ShardedBatch, mesh: Mesh,
+                              axis: str = MODEL_AXIS) -> torch.Tensor:
+    """A (D,) (or (D, K)) weight array for a
+    :func:`shard_batch_by_features` batch: zero-padded to the batch's
+    padded width, on the mesh's lead device, where the optimizer's carry
+    lives (each evaluation hands every model slot its rows of it).
+    Invert with :func:`unshard_weights_by_features`."""
+    wt = host_tensor(w)
+    d_pad = batch.X.shape[1]
+    if wt.shape[0] > d_pad:
+        raise ValueError(f"weights width {wt.shape[0]} exceeds the "
+                         f"batch's padded feature width {d_pad}")
+    wp = torch.zeros((d_pad,) + tuple(wt.shape[1:]), dtype=wt.dtype)
+    wp[:wt.shape[0]] = wt
+    return wp.to(mesh.lead)
 
 
-def unshard_weights_by_features(w_sharded, d: int):
-    """Comes with the tensor-parallel slice and raises."""
-    reject_a8("feature_sharding", "unshard_weights_by_features")
+def unshard_weights_by_features(w_sharded, d: int) -> np.ndarray:
+    """The unpadded (d, ...) weights of a D-padded state (the pad tail is
+    exact zeros by the inert-column contract)."""
+    a = w_sharded.detach().cpu().numpy() \
+        if isinstance(w_sharded, torch.Tensor) else np.asarray(w_sharded)
+    return a[:d]
 
 
 def _values_numpy(values: torch.Tensor) -> np.ndarray:
@@ -371,7 +495,9 @@ def _values_numpy(values: torch.Tensor) -> np.ndarray:
 
 def csr_batch_layout(mesh: Mesh, X: CSRMatrix, y, mask=None,
                      axis: str = DATA_AXIS,
-                     nnz_per_shard: Optional[int] = None) -> dict:
+                     nnz_per_shard: Optional[int] = None, *,
+                     extras: Optional[Dict[str, Any]] = None,
+                     extras_fill=-1) -> dict:
     """The host half of :func:`shard_csr_batch`: the per-shard layout of
     one process's CSR batch (:func:`csr_shard_layout`) in numpy, before
     any of it is placed on a slot."""
@@ -402,12 +528,15 @@ def csr_batch_layout(mesh: Mesh, X: CSRMatrix, y, mask=None,
     return csr_shard_layout(
         row_ids, col_ids, values, y_np, m_np, n_rows, n_features,
         mesh.shape[axis], with_csc=X.has_csc or X.want_csc,
-        nnz_per_shard=nnz_per_shard)
+        nnz_per_shard=nnz_per_shard, extras=extras,
+        extras_fill=extras_fill)
 
 
 def shard_csr_batch(mesh: Mesh, X: CSRMatrix, y, mask=None,
                     axis: str = DATA_AXIS,
-                    nnz_per_shard: Optional[int] = None) -> ShardedBatch:
+                    nnz_per_shard: Optional[int] = None,
+                    extras: Optional[Dict[str, Any]] = None,
+                    extras_fill=-1):
     """Shard a CSR batch's rows over the mesh ``axis`` (sparse DP).
 
     The layout is JAX's (:func:`csr_shard_layout`, computed on the host):
@@ -417,17 +546,36 @@ def shard_csr_batch(mesh: Mesh, X: CSRMatrix, y, mask=None,
     slots past a shard's real rows carry mask 0.  Each shard becomes a
     local ``CSRMatrix`` on its slot's device.  ``nnz_per_shard`` pins the
     padded entry count (the streamed path's fixed budget; a batch that
-    cannot fit raises ``ValueError``)."""
-    lay = csr_batch_layout(mesh, X, y, mask, axis, nnz_per_shard)
-    return place_csr_layout(lay, mesh, axis, X.shape[0], X.shape[1],
-                            values_dtype=X.values.dtype)
+    cannot fit raises ``ValueError``).
+
+    ``extras``: per-row arrays (each ``(n_rows, ...)``, in the input row
+    order) carried through the balancer's row permutation beside ``y``,
+    e.g. cross-validation fold ids.  Then the return is ``(ShardedBatch,
+    placed)``, each placed extra a :class:`ShardedRows` laid out as the
+    batch's ``y``; padding slots read ``extras_fill``."""
+    lay = csr_batch_layout(mesh, X, y, mask, axis, nnz_per_shard,
+                           extras=extras, extras_fill=extras_fill)
+    batch = place_csr_layout(lay, mesh, axis, X.shape[0], X.shape[1],
+                             values_dtype=X.values.dtype)
+    if extras is None:
+        return batch
+    rps, k = lay["rps"], lay["R"].shape[0]
+    placed = {}
+    for name in extras:
+        e = torch.from_numpy(np.ascontiguousarray(lay["E_" + name]))
+        placed[name] = ShardedRows(
+            [e[s].to(dev) for s, dev in enumerate(mesh.slots())],
+            [0] * k, mesh, (k * rps,) + tuple(e.shape[2:]), rps)
+    return batch, placed
 
 
 def csr_shard_layout(row_ids, col_ids, values, y, mask, n_rows: int,
                      n_features: int, n_shards: int, *,
                      with_csc: bool = False,
                      nnz_per_shard: Optional[int] = None,
-                     reduce_max=None) -> dict:
+                     reduce_max=None,
+                     extras: Optional[Dict[str, Any]] = None,
+                     extras_fill=-1) -> dict:
     """Host (numpy) construction of the per-shard CSR layout: the core of
     :func:`shard_csr_batch`, shared with multi-process ingest
     (``data.ingest.from_partitioned_files_csr``), which builds each
@@ -437,8 +585,19 @@ def csr_shard_layout(row_ids, col_ids, values, y, mask, n_rows: int,
     (rows a shard before balancing, padded entries a shard after): an
     allgather-max across processes, identity (default) in one.  Returns
     ``dict(R, C, V[, Rc, Cc, Vc], Y, M, rps, nnz_shard)`` with 2-D
-    ``(n_shards, ...)`` arrays.  The same code as the JAX package's with
-    its default ``balance=True``, so the same arrays."""
+    ``(n_shards, ...)`` arrays, and ``E_<name>`` ``(n_shards, rps,
+    ...)`` for each of ``extras`` (per-row arrays in the input row order,
+    scattered as ``y`` is; padding slots ``extras_fill``).  The same code
+    as the JAX package's with its default ``balance=True``, so the same
+    arrays."""
+    extras = {name: np.asarray(a) for name, a in (extras or {}).items()}
+    for name, arr in extras.items():
+        # before the balance, sort and pad: a wrong length fails free
+        if arr.shape[:1] != (n_rows,):
+            raise ValueError(
+                f"extras[{name!r}] has "
+                f"{arr.shape[0] if arr.ndim else 0} rows, expected "
+                f"{n_rows}")
     red = reduce_max or (lambda v: int(v))
     rps = red(max(1, -(-n_rows // n_shards) if n_rows else 1))
 
@@ -503,6 +662,12 @@ def csr_shard_layout(row_ids, col_ids, values, y, mask, n_rows: int,
             np.ones(n_rows, np.float32) if mask is None
             else np.asarray(mask, np.float32))
     out.update(Y=Y, M=M)
+    for name, arr in extras.items():
+        E = np.full((n_shards, rps) + arr.shape[1:], extras_fill,
+                    arr.dtype)
+        if n_rows:
+            E[shard_of_row, local_of_row] = arr
+        out["E_" + name] = E
     return out
 
 

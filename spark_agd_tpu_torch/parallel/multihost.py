@@ -23,6 +23,7 @@ from __future__ import annotations
 import datetime
 import math
 import os
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -270,16 +271,76 @@ def _collective_device(group=None) -> torch.device:
     return torch.device("cpu")
 
 
-def all_gather_bytes(t: torch.Tensor, group=None) -> list:
+# The collectives this process has issued since import or the last
+# reset_census(): kind -> {"count", "bytes", "max_bytes"}, bytes as this
+# rank sent them.  Kinds: "scalars" (control scalars and row counts, an
+# all-gather of a few bytes added in rank order: the JAX package's
+# scalar psums), "sums" (a replicated combine's packed loss, gradient
+# and count, the same: JAX's all-reduce of the gradient), "all-gather"
+# (all_gather_flat: the sharded update's weights) and "reduce-scatter"
+# (reduce_scatter_flat: its gradient).
+census: Dict[str, Dict[str, int]] = {}
+
+
+def reset_census() -> None:
+    census.clear()
+
+
+def _count_collective(kind: str, nbytes: int) -> None:
+    c = census.setdefault(kind, {"count": 0, "bytes": 0, "max_bytes": 0})
+    c["count"] += 1
+    c["bytes"] += int(nbytes)
+    c["max_bytes"] = max(c["max_bytes"], int(nbytes))
+
+
+def all_gather_bytes(t: torch.Tensor, group=None,
+                     kind: str = "scalars") -> list:
     """Every rank's copy of the uint8 tensor ``t`` (one shape on every
-    rank), in rank order, on ``t``'s device."""
+    rank), in rank order, on ``t``'s device; counted in :data:`census`
+    under ``kind``."""
     dist = _dist()
     dev = _collective_device(group)
     src = t.to(dev)
     out = [torch.empty_like(src)
            for _ in range(dist.get_world_size(group))]
+    _count_collective(kind, src.numel())
     dist.all_gather(out, src, group=group)
     return [o.to(t.device) for o in out]
+
+
+def all_gather_flat(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's 1-D ``t`` (one length on every rank) concatenated in
+    rank order (``all_gather_into_tensor``), on ``t``'s device."""
+    dist = _dist()
+    dev = _collective_device(group)
+    src = t.contiguous().to(dev)
+    out = torch.empty(src.numel() * dist.get_world_size(group),
+                      dtype=src.dtype, device=dev)
+    _count_collective("all-gather", src.numel() * src.element_size())
+    with warnings.catch_warnings():
+        # newer torch names it all_gather_single; the card's has this name
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, src, group=group)
+    return out.to(t.device)
+
+
+def reduce_scatter_flat(t: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's chunk of the ranks' sum of the 1-D ``t`` (one length, a
+    multiple of the group's size, on every rank): chunk ``rank`` of
+    ``world`` equal chunks (``reduce_scatter_tensor``), on ``t``'s
+    device.  Only this rank holds its chunk, so no other rank needs the
+    same bits of it."""
+    dist = _dist()
+    world = dist.get_world_size(group)
+    if t.numel() % world:
+        raise ValueError(f"reduce_scatter_flat: {t.numel()} elements do "
+                         f"not split over {world} ranks")
+    dev = _collective_device(group)
+    src = t.contiguous().to(dev)
+    out = torch.empty(src.numel() // world, dtype=src.dtype, device=dev)
+    _count_collective("reduce-scatter", src.numel() * src.element_size())
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.to(t.device)
 
 
 def process_allgather_int64(values) -> np.ndarray:

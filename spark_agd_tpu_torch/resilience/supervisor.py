@@ -24,9 +24,10 @@ No segment writes into the tensors of the warm state it started from
 (the optimizer loop updates nothing in place), so a failed segment is
 retried from an intact anchor.  The ``attempt`` ledger has the JAX
 package's entries; its ``attempt``/``recovery`` records come with the
-observability slice, as does ``telemetry=``, and a ``staged`` build
-with ``make_agd_run`` with the sharded update: they raise
-``NotImplementedError``.  ``heartbeat=``, ``monitor=`` and
+observability slice, as does ``telemetry=``, which raises
+``NotImplementedError``.  A ``staged`` build with ``make_agd_run`` (the
+sharded update) runs each segment through that hook.  ``heartbeat=``,
+``monitor=`` and
 ``scheduler=`` (``resilience.distributed``, ``resilience.scheduler``)
 run as the JAX package wires them.
 """
@@ -40,7 +41,7 @@ from typing import Any, Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .._later import NOT_PORTED, reject_later
+from .._later import reject_later
 from ..core import agd, tvec
 from ..core.agd import AGDConfig, AGDWarmState
 from ..utils import checkpoint as ckpt
@@ -210,12 +211,6 @@ def run_agd_supervised(
                 "only; the host driver never embeds data in a program")
         if smooth is None:
             raise ValueError("driver='host' needs smooth=...")
-    if staged is not None and getattr(staged[0], "make_agd_run",
-                                      None) is not None:
-        raise NotImplementedError(
-            f"a sharded-update build (make_agd_run) {NOT_PORTED} (it "
-            "arrives in a later slice: the model-parallel slice after the "
-            "mesh slice, parallel/sharded_update.py)")
     if scheduler is not None and getattr(scheduler, "rebuild", None) \
             is not None and staged is None:
         raise ValueError(
@@ -246,6 +241,20 @@ def run_agd_supervised(
 
     def run_segment(warm: AGDWarmState, k: int, poisoned: bool):
         cfg_k = dataclasses.replace(config, num_iterations=k)
+        agd_run = None if staged is None else getattr(
+            staged[0], "make_agd_run", None)
+        if agd_run is not None:
+            # the sharded update (parallel.sharded_update): the segment's
+            # whole loop runs on 1/N shards and speaks full trees at entry
+            # and exit, so the warm carry, rollback and checkpoints below
+            # work unchanged; a rebalance still swaps only the data
+            key = ("sharded", k, poisoned)
+            entry = seg_fns.get(key)
+            if entry is None or entry[0] is not staged:
+                entry = seg_fns[key] = (staged, agd_run(
+                    prox, reg_value, cfg_k, poison=poisoned,
+                    warm_entry=True), None)
+            return entry[1](warm, staged[1])
         sm, sl = segment_smooth(k, poisoned)
         return agd.run_agd(sm, prox, reg_value, warm.x, cfg_k,
                            smooth_loss=sl, warm=warm)

@@ -180,7 +180,14 @@ class TestCrossValidate:
         with pytest.raises(ValueError, match="prepare"):
             tapi.cross_validate((X, y), port.FusedLogisticGradient(), u,
                                 [0.1], initial_weights=w0, device="cpu")
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # a mesh= that is not a Mesh raises in both packages (JAX an
+        # AttributeError reading its shape, the port a TypeError naming
+        # the Mesh it takes); a real mesh computes (test_torch_grid_mesh)
+        with pytest.raises(AttributeError):
+            japi.cross_validate((X, y), jl.LogisticGradient(),
+                                jp.SquaredL2Updater(), [0.1],
+                                initial_weights=w0, mesh=object())
+        with pytest.raises(TypeError, match="Mesh"):
             tapi.cross_validate((X, y), g, u, [0.1], initial_weights=w0,
                                 device="cpu", mesh=object())
 

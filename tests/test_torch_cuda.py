@@ -2291,3 +2291,95 @@ def test_two_process_gloo_group_on_the_card(cuda, tmp_path):
     np.testing.assert_allclose(
         [float.fromhex(v) for v in results[0]["dense"]["hist"]], hist,
         rtol=1e-9)
+
+
+# --- model parallelism on the card (the model-parallel slice) -------------
+
+@pytest.mark.cuda
+def test_mesh_sweep_launches_the_lanes_kernel_a_slot_a_round(cuda):
+    """``sweep(mesh=)`` over 4 slots of the card with
+    ``FusedLogisticGradient``: one lanes launch a slot a round, every
+    lane held to the plain mesh sweep at the mesh tolerances."""
+    from spark_agd_tpu_torch.parallel import dist_smooth
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(46)
+    n, d = 50_003, 300
+    X = torch.randn((n, d), generator=gen, device=cuda)
+    y = (torch.rand(n, generator=gen, device=cuda) < 0.5).float()
+    w0 = torch.zeros(d, device=cuda)
+    regs = [1e-4, 1e-3, 1e-2, 1e-1]
+    kw = dict(num_iterations=8, convergence_tol=0.0, initial_weights=w0,
+              mesh=_card_mesh(4))
+    lanes_before = fk.lanes_launch_count
+    dist_smooth.reset_counts()
+    fused = port.sweep((X, y), port.FusedLogisticGradient(), port.L2Prox(),
+                       regs, **kw)
+    torch.cuda.synchronize()
+    rounds = dist_smooth.mesh_evaluations
+    assert fk.lanes_launch_count - lanes_before == 4 * rounds
+    plain = port.sweep((X, y), port.LogisticGradient(), port.L2Prox(),
+                       regs, **kw)
+    assert torch.equal(fused.num_iters, plain.num_iters)
+    np.testing.assert_allclose(fused.loss_history.numpy(),
+                               plain.loss_history.numpy(), rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_fused_softmax_on_a_model_axis_launches_once_a_data_slot(cuda):
+    """``FusedSoftmaxGradient`` on a {data: 2, model: 2} mesh of the card
+    (``mode="auto"``): W's classes gathered onto each data slot, one
+    softmax launch a data slot an evaluation, held to the plain
+    class-sharded evaluation in f64 at the kernel's own tolerance
+    (``_assert_softmax_close``: the loss at rel 1e-5, the gradient at
+    rtol 1e-4 and atol 1e-4 of its largest entry)."""
+    from spark_agd_tpu_torch.parallel import dist_smooth
+    from spark_agd_tpu_torch.parallel import mesh as mesh_lib
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_lib.make_mesh({"data": 2, "model": 2}, devices=[dev] * 4)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(48)
+    n, d, k = 40_003, 785, 10
+    X = torch.randn((n, d), generator=gen, device=cuda)
+    y = torch.randint(0, k, (n,), generator=gen, device=cuda)
+    W = torch.randn((d, k), generator=gen, device=cuda) / 30
+    before = fk.softmax_launch_count
+    sm = dist_smooth.make_dist_smooth(
+        port.FusedSoftmaxGradient(losses.SoftmaxGradient(k)), X, y,
+        mesh=mesh, mode="auto")[0]
+    f, g = sm(W)
+    torch.cuda.synchronize()
+    assert fk.softmax_launch_count - before == 2
+    pf, pg = dist_smooth.make_dist_smooth(
+        losses.SoftmaxGradient(k), X.double(), y, mesh=mesh,
+        mode="auto")[0](W.double())
+    _assert_softmax_close(f, g, pf.float(), pg.float())
+
+
+@pytest.mark.cuda
+def test_sharded_update_on_the_card_matches_the_replicated_fit(cuda):
+    """``run(sharded_update=True)`` over 4 slots of the card with the
+    plain gradient, held to the replicated mesh fit; the fused margin
+    kernel is refused as the JAX package refuses its own."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(47)
+    n, d = 20_003, 257
+    X = torch.randn((n, d), generator=gen, device=cuda, dtype=torch.float64)
+    y = (torch.rand(n, generator=gen, device=cuda) < 0.5).double()
+    kw = dict(reg_param=0.05, num_iterations=15, convergence_tol=0.0,
+              initial_weights=torch.zeros(d, dtype=torch.float64,
+                                          device=cuda),
+              mesh=_card_mesh(4), return_result=True)
+    _, hr, rr = port.run((X, y), port.LogisticGradient(), port.L2Prox(),
+                         **kw)
+    _, hs, rs = port.run((X, y), port.LogisticGradient(), port.L2Prox(),
+                         sharded_update=True, **kw)
+    assert int(rs.num_iters) == int(rr.num_iters)
+    assert abs(float(hs[-1]) - float(hr[-1])) <= 1e-9
+    np.testing.assert_allclose(rs.weights.cpu().numpy(),
+                               rr.weights.cpu().numpy(), rtol=0, atol=1e-7)
+    with pytest.raises(ValueError, match="fused"):
+        port.run((X.float(), y.float()), port.FusedLogisticGradient(),
+                 port.L2Prox(), sharded_update=True, **kw)

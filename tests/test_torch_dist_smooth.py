@@ -182,11 +182,30 @@ def test_staging_rules_and_rejections():
     with pytest.raises(ValueError, match="unknown mode"):
         tdist.make_dist_smooth(port.LogisticGradient(), b, mesh=m2,
                                mode="gspmd")
+    # a model axis computes now, as JAX's shard_map mode computes on it:
+    # each data index evaluates once, W whole (its classes split in the
+    # auto mode, tests/test_torch_tensor_parallel.py)
     mm = tmesh.make_mesh({"data": 2, "model": 2}, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="model"):
-        tdist.make_dist_smooth(port.SoftmaxGradient(3), X, y, mesh=mm)
-    with pytest.raises(NotImplementedError, match="sharded update"):
-        tdist.psum_scatter_combine(None, None, None, "data", None)
+    Xk, yk, mk = _data(rng, n=20, kind="softmax", k=3)
+    W = rng.standard_normal((6, 3))
+    jm = jmesh.make_mesh({"data": 2, "model": 2}, devices=jax.devices()[:4])
+    jf, jg = _jax_pair(jlosses.SoftmaxGradient(3), Xk, yk, mk, jm,
+                       "shard_map")[0](jnp.asarray(W))
+    tf, tg = tdist.make_dist_smooth(port.SoftmaxGradient(3), Xk, yk, mk,
+                                    mesh=mm)[0](torch.as_tensor(W))
+    np.testing.assert_allclose(float(tf), float(jf), rtol=1e-12)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-11)
+    # the sharded update's combine: (Σloss, n) as they are on one
+    # process, the gradient split into the slots' shards of its layout
+    from spark_agd_tpu_torch.parallel import sharded_update as tsu
+
+    g = torch.arange(7.0)
+    lay = tsu.ShardLayout.for_tree(g, 2)
+    ls, g_sh, n = tdist.psum_scatter_combine(
+        torch.tensor(3.0), g, torch.tensor(5), m2, lay)
+    assert float(ls) == 3.0 and int(n) == 5
+    np.testing.assert_array_equal(g_sh[0].numpy(), [0, 1, 2, 3])
+    np.testing.assert_array_equal(g_sh[1].numpy(), [4, 5, 6, 0])
     Xc = port.CSRMatrix.from_csr_arrays(
         np.arange(21) * 2, rng.integers(0, 6, 40), rng.random(40), 6,
         device="cpu")

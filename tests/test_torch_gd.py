@@ -17,6 +17,7 @@ import torch
 
 from spark_agd_tpu import api as japi
 from spark_agd_tpu.ops import losses as jlosses, prox as jprox
+from spark_agd_tpu.parallel import mesh as jmesh
 import spark_agd_tpu_torch as port
 from spark_agd_tpu_torch.parallel import mesh as tmesh
 from spark_agd_tpu_torch.core import gd, prng
@@ -267,11 +268,19 @@ def test_minibatch_entry_points_reject_what_they_do_not_take(monkeypatch):
     with pytest.raises(ValueError, match="initial_weights"):
         port.run_minibatch_sgd((X, y), port.LogisticGradient(),
                                port.L2Prox(), device="cpu")
-    # a mesh's model axis comes with a later slice
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port.run_minibatch_sgd((X, y), port.LogisticGradient(),
-                               port.L2Prox(), initial_weights=np.zeros(6),
-                               mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
+    # a mesh with a model axis computes what the JAX package computes
+    tw, th = port.run_minibatch_sgd(
+        (X, y), port.LogisticGradient(), port.L2Prox(),
+        initial_weights=np.zeros(6), num_iterations=5,
+        mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
+    jw, jh = japi.run_minibatch_sgd(
+        (X, y), jlosses.LogisticGradient(), jprox.L2Prox(),
+        initial_weights=np.zeros(6), num_iterations=5,
+        mesh=jmesh.make_mesh({"data": 1, "model": 2},
+                             devices=jax.devices()[:2]))
+    np.testing.assert_allclose(np.asarray(th), np.asarray(jh), rtol=1e-9)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-9,
+                               atol=1e-12)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port.run_minibatch_sgd((X, y), port.LogisticGradient(),

@@ -27,6 +27,7 @@ from spark_agd_tpu.models import glm as jglm
 from spark_agd_tpu.ops import losses as jlosses, prox as jprox
 from spark_agd_tpu.ops import sparse as jsparse
 from spark_agd_tpu.ops.pallas_kernels import PallasLogisticGradient
+from spark_agd_tpu.parallel import mesh as jmesh
 import spark_agd_tpu_torch as port
 from spark_agd_tpu_torch.parallel import mesh as tmesh
 from spark_agd_tpu_torch import convert
@@ -434,8 +435,10 @@ def test_lbfgs_class_drop_in_and_setters():
     path = opt.sweep((X, y), [0.1, 0.01], np.zeros(6))
     assert path.weights.shape == (2, 6)
     assert torch.equal(path.num_iters[0], ref.num_iters)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        opt.set_mesh(tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
+    # a mesh with a model axis is taken, as JAX's set_mesh takes it
+    mm = tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)
+    assert opt.set_mesh(mm) is opt and opt._mesh is mm
+    opt.set_mesh(None)
     with pytest.raises(NotImplementedError, match="telemetry"):
         port.run_lbfgs((X, y), port.LogisticGradient(), port.L2Prox(),
                        initial_weights=np.zeros(6), device="cpu",
@@ -578,9 +581,17 @@ def test_lbfgs_trainer_paths_still_raise_and_need_cuda(monkeypatch):
     # cross-validation is AGD-only in both packages: the JAX ValueError
     with pytest.raises(ValueError, match="requires an optimizer seat"):
         tglm.SoftmaxRegressionWithLBFGS(2).cross_validate(X, y, [0.1])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tglm.LogisticRegressionWithLBFGS(
-            mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
+    # a mesh with a model axis trains, as the JAX trainer trains on one
+    tm = tglm.LogisticRegressionWithLBFGS(
+        mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
+    jm = jglm.LogisticRegressionWithLBFGS(
+        mesh=jmesh.make_mesh({"data": 1, "model": 2},
+                             devices=jax.devices()[:2]))
+    tm.optimizer.set_num_iterations(5)
+    jm.optimizer.set_num_iterations(5)
+    np.testing.assert_allclose(tm.train(X, y).weights.numpy(),
+                               np.asarray(jm.train(X, y).weights),
+                               rtol=1e-7, atol=1e-12)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tglm.LogisticRegressionWithLBFGS().train(X, y)

@@ -211,7 +211,13 @@ class TestSweep:
                                            tp.L2Prox(), device="cpu")
         with pytest.raises(ValueError, match="1-D"):
             fit(w0, [[0.1, 0.2]])
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # a mesh= that is not a Mesh raises in both packages (JAX an
+        # AttributeError reading its shape, the port a TypeError naming
+        # the Mesh it takes); a real mesh computes (test_torch_grid_mesh)
+        with pytest.raises(AttributeError):
+            japi.make_lbfgs_sweep_runner((X, y), jl.LogisticGradient(),
+                                         jp.L2Prox(), mesh="data")
+        with pytest.raises(TypeError, match="Mesh"):
             port.make_lbfgs_sweep_runner((X, y), tl.LogisticGradient(),
                                          tp.L2Prox(), mesh="data",
                                          device="cpu")

@@ -85,19 +85,40 @@ def test_make_mesh_rules():
         tmesh.make_mesh({"data": 8}, devices=["cpu"] * 4)
     m2 = tmesh.make_mesh({"data": 2, "model": 2}, devices=["cpu"] * 4)
     assert m2.shape == {"data": 2, "model": 2}
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tmesh.check_data_mesh(m2)
+    # a model axis is taken: rows live on the data slots (model index 0)
+    assert tmesh.check_data_mesh(m2) is m2
+    assert len(m2.slots()) == 2 and len(m2.grid()) == 2
+    assert all(len(row) == 2 for row in m2.grid())
     # a size-1 model axis is a data mesh
     tmesh.check_data_mesh(tmesh.make_mesh({"data": 2, "model": 1},
                                           devices=["cpu"] * 2))
     with pytest.raises(TypeError, match="Mesh"):
         tmesh.check_data_mesh("data")
-    for fn in (tmesh.shard_batch_by_features,
-               tmesh.shard_weights_by_features):
-        with pytest.raises(NotImplementedError, match="feature"):
-            fn(m, None, None)
-    with pytest.raises(NotImplementedError, match="feature"):
-        tmesh.unshard_weights_by_features(None, 3)
+    with pytest.raises(ValueError, match="no 'data' axis"):
+        tmesh.check_data_mesh(tmesh.make_mesh({"model": 2},
+                                              devices=["cpu"] * 2))
+    # the feature-sharded dense layout equals JAX's (columns padded with
+    # zeros to an even split; the weights padded to the batch's width)
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((9, 13))
+    y = rng.standard_normal(9)
+    jm = jmesh.make_mesh({"model": 4}, devices=jax.devices()[:4])
+    tm4 = tmesh.make_mesh({"model": 4}, devices=["cpu"] * 4)
+    jb = jmesh.shard_batch_by_features(jm, X, y)
+    tb = tmesh.shard_batch_by_features(tm4, X, y)
+    assert tb.X.shape == tuple(jb.X.shape) == (9, 16)
+    np.testing.assert_array_equal(tb.X.gather().numpy(), np.asarray(jb.X))
+    w = rng.standard_normal(13)
+    jw = jmesh.shard_weights_by_features(w, jb, jm)
+    tw = tmesh.shard_weights_by_features(w, tb, tm4)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(
+        tmesh.unshard_weights_by_features(tw, 13),
+        jmesh.unshard_weights_by_features(jw, 13))
+    with pytest.raises(ValueError, match="DENSE"):
+        tmesh.shard_batch_by_features(
+            tm4, CSRMatrix.from_csr_arrays(np.arange(4), np.arange(3),
+                                           np.ones(3), 3, device="cpu"), y)
 
 
 def test_make_mesh_defaults_to_the_cards(monkeypatch):

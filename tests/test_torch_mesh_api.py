@@ -10,8 +10,8 @@ histories within 1e-9 and weights within 3e-7 (the parity standard of
 ``tests/test_agd_core.py``).  The API's rules: ``mesh=None`` shards over
 every visible card when there is more than one and no ``device=``; a
 ``ShardedBatch`` with another explicit mesh raises as the JAX package's
-does; what the model-parallel slice brings (a model axis, the grid fits
-over a mesh, the sharded update) raises naming it."""
+does; what the model-parallel slice brought (a model axis, the grid fits
+over a mesh, the sharded update) computes what the JAX package computes."""
 
 import jax
 import numpy as np
@@ -232,33 +232,64 @@ def test_mesh_none_shards_over_every_card(monkeypatch):
 
 
 def test_what_the_next_slice_brings_raises():
+    """What the model-parallel slice brought computes what the JAX
+    package computes: a mesh with a model axis, set_mesh of one, the
+    sharded update, the sweeps, cross-validation and the L-BFGS sweep
+    over a mesh (raw data and a ShardedBatch)."""
     X, y, w0 = _problem(90, n=40)
-    _, tm = _meshes(2)
+    jm, tm = _meshes(2)
     mm = tmesh.make_mesh({"data": 2, "model": 2}, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port.run((X, y), port.LogisticGradient(), port.L2Prox(),
-                 initial_weights=w0, mesh=mm)
+    jmm = jmesh.make_mesh({"data": 2, "model": 2},
+                          devices=jax.devices()[:4])
+    jres = japi.run((X, y), jlosses.LogisticGradient(), jprox.L2Prox(),
+                    initial_weights=w0, mesh=jmm, return_result=True,
+                    **CFG)[2]
+    tres = port.run((X, y), port.LogisticGradient(), port.L2Prox(),
+                    initial_weights=w0, mesh=mm, return_result=True,
+                    **CFG)[2]
+    _same(jres, tres)
     for opt in (port.AcceleratedGradientDescent(port.LogisticGradient(),
                                                 port.L2Prox()),
                 port.LBFGS(port.LogisticGradient(), port.L2Prox())):
-        with pytest.raises(NotImplementedError, match="model"):
-            opt.set_mesh(mm)
-        opt.set_mesh(tm)  # a data mesh is taken
-    with pytest.raises(NotImplementedError, match="sharded_update"):
-        port.run((X, y), port.LogisticGradient(), port.L2Prox(),
-                 initial_weights=w0, mesh=tm, sharded_update=True)
-    with pytest.raises(NotImplementedError, match="grid"):
-        port.sweep((X, y), port.LogisticGradient(), port.L2Prox(),
-                   [0.1, 0.01], initial_weights=w0, mesh=tm)
-    with pytest.raises(NotImplementedError, match="grid"):
-        port.cross_validate((X, y), port.LogisticGradient(), port.L2Prox(),
-                            [0.1], initial_weights=w0, mesh=tm)
-    with pytest.raises(NotImplementedError, match="grid"):
-        (port.LBFGS(port.LogisticGradient(), port.L2Prox()).set_mesh(tm)
-         .sweep((X, y), [0.1], w0))
-    with pytest.raises(NotImplementedError, match="grid"):
-        port.sweep(tmesh.shard_batch(tm, X, y), port.LogisticGradient(),
-                   port.L2Prox(), [0.1], initial_weights=w0)
+        assert opt.set_mesh(mm) is opt  # a model axis is taken
+        opt.set_mesh(tm)
+    jsh = japi.run((X, y), jlosses.LogisticGradient(), jprox.L2Prox(),
+                   initial_weights=w0, mesh=jm, sharded_update=True,
+                   return_result=True, **CFG)[2]
+    tsh = port.run((X, y), port.LogisticGradient(), port.L2Prox(),
+                   initial_weights=w0, mesh=tm, sharded_update=True,
+                   return_result=True, **CFG)[2]
+    _same(jsh, tsh)
+    kw = dict(num_iterations=5, convergence_tol=1e-12)
+    for data in ((X, y), tmesh.shard_batch(tm, X, y)):
+        js = japi.sweep((X, y), jlosses.LogisticGradient(), jprox.L2Prox(),
+                        [0.1, 0.01], initial_weights=w0, mesh=jm, **kw)
+        ts = port.sweep(data, port.LogisticGradient(), port.L2Prox(),
+                        [0.1, 0.01], initial_weights=w0,
+                        mesh=None if isinstance(data, tmesh.ShardedBatch)
+                        else tm, **kw)
+        np.testing.assert_array_equal(ts.num_iters.numpy(),
+                                      np.asarray(js.num_iters))
+        np.testing.assert_allclose(ts.loss_history.numpy(),
+                                   np.asarray(js.loss_history), rtol=1e-9)
+    jcv = japi.cross_validate((X, y), jlosses.LogisticGradient(),
+                              jprox.L2Prox(), [0.1], n_folds=2,
+                              initial_weights=w0, mesh=jm, **kw)
+    tcv = port.cross_validate((X, y), port.LogisticGradient(),
+                              port.L2Prox(), [0.1], n_folds=2,
+                              initial_weights=w0, mesh=tm, **kw)
+    np.testing.assert_array_equal(tcv.fold_ids.numpy(),
+                                  np.asarray(jcv.fold_ids))
+    np.testing.assert_allclose(tcv.val_loss.numpy(),
+                               np.asarray(jcv.val_loss), rtol=1e-9)
+    jl = (japi.LBFGS(jlosses.LogisticGradient(), jprox.L2Prox())
+          .set_mesh(jm).set_num_iterations(5).sweep((X, y), [0.1], w0))
+    tl = (port.LBFGS(port.LogisticGradient(), port.L2Prox()).set_mesh(tm)
+          .set_num_iterations(5).sweep((X, y), [0.1], w0))
+    np.testing.assert_array_equal(tl.num_iters.numpy(),
+                                  np.asarray(jl.num_iters))
+    np.testing.assert_allclose(tl.weights.numpy(), np.asarray(jl.weights),
+                               rtol=1e-7, atol=1e-12)
     with pytest.raises(TypeError, match="Mesh"):
         port.run((X, y), port.LogisticGradient(), port.L2Prox(),
                  initial_weights=w0, mesh="data")

@@ -229,6 +229,22 @@ def test_planted_mlp_on_cpu(monkeypatch):
 
 
 def test_mlp_trainer_rejects_a_mesh():
-    # a data mesh is taken; a model axis comes with a later slice
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tmlp.MLPClassifierWithAGD(H, K, mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
+    # a mesh with a model axis (the hidden units' axis in the JAX
+    # package) is taken: the trainer's fit sums what one device sums
+    import jax
+    from spark_agd_tpu.parallel import mesh as jmesh
+
+    X, y = _data(seed=3)
+    jp, tp = _params(seed=0)
+    j = jmlp.MLPClassifierWithAGD(H, K, reg_param=1e-3, mesh=jmesh.make_mesh(
+        {"data": 1, "model": 2}, devices=jax.devices()[:2]))
+    j.optimizer.setNumIterations(5).set_dist_mode("auto")
+    t = tmlp.MLPClassifierWithAGD(H, K, reg_param=1e-3, mesh=tmesh.make_mesh(
+        {"data": 1, "model": 2}, devices=["cpu"] * 2))
+    t.optimizer.setNumIterations(5).set_dist_mode("auto")
+    jm, tm = j.train(X, y, initial_params=jp), t.train(X, y,
+                                                       initial_params=tp)
+    for k in jm.params:
+        np.testing.assert_allclose(tm.params[k].numpy(),
+                                   np.asarray(jm.params[k]), rtol=3e-7,
+                                   atol=1e-12)

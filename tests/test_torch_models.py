@@ -312,10 +312,23 @@ def test_later_slice_methods_raise():
         lbfgs_trainer.optimizer.set_device("cpu").set_num_iterations(3)
         models, res = lbfgs_trainer.train_path(X, y, [0.1, 0.01])
         assert len(models) == 2 and res.loss_history.shape == (2, 4)
-    # a data mesh is ported; a model axis comes with a later slice
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tglm.SVMWithAGD(mesh=tmesh.make_mesh({"data": 1, "model": 2},
-                                             devices=["cpu"] * 2))
+    # a mesh with a model axis trains, as the JAX trainer trains on one
+    import jax
+    from spark_agd_tpu.parallel import mesh as jmesh
+
+    Xd, yd = X.astype(np.float64), y.astype(np.float64)
+    ts = tglm.SVMWithAGD(mesh=tmesh.make_mesh({"data": 1, "model": 2},
+                                              devices=["cpu"] * 2))
+    js = jglm.SVMWithAGD(mesh=jmesh.make_mesh({"data": 1, "model": 2},
+                                              devices=jax.devices()[:2]))
+    for t in (ts, js):
+        t.optimizer.set_num_iterations(4)
+    tm_, jm_ = ts.train(Xd, yd), js.train(Xd, yd)
+    # the trainer fits in f32: the f32 standard of the mesh paths
+    np.testing.assert_allclose(tm_.weights.numpy(), np.asarray(jm_.weights),
+                               rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(float(tm_.intercept), float(jm_.intercept),
+                               rtol=1e-5, atol=1e-7)
 
 
 def test_sparse_input_raises():

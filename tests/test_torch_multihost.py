@@ -21,6 +21,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from spark_agd_tpu import api as japi
 from spark_agd_tpu.data import ingest as jingest, libsvm as jlibsvm
@@ -235,19 +236,38 @@ def test_a_rank_past_the_last_row_joins_with_zero_sums(tmp_path):
     row.  It joins each collective with zero sums instead of leaving rank
     0 waiting, in memory and for a streamed tail batch of 3 rows; both
     fits held to the JAX package's on 8 virtual devices, the ranks
-    bit-equal."""
+    bit-equal.  So does a class-sharded softmax evaluation of 2 rows over
+    {data: 4, model: 2}, held to the same evaluation on one process; with
+    no rows on any rank it raises on every rank."""
     from spark_agd_tpu.core import agd as jagd, host_agd as jhost
     from spark_agd_tpu.core import smooth as jsmooth
     from spark_agd_tpu.data import streaming as jstream
 
+    from spark_agd_tpu_torch.parallel import dist_smooth as tdist
+
     rng = np.random.default_rng(5)
     X = rng.standard_normal((11, 5))
     y = (rng.random(11) < 1 / (1 + np.exp(-X[:, 0]))).astype(np.float64)
-    np.savez(tmp_path / "tail.npz", X=X, y=y)
+    labels = rng.integers(0, 3, 11)
+    W = rng.standard_normal((5, 3)) / 3
+    np.savez(tmp_path / "tail.npz", X=X, y=y, labels=labels, W=W)
     r0, r1 = _run_ranks(tmp_path, "cpu", "--tail")
     assert (r0["rank"], r1["rank"]) == (0, 1)
-    for kind in ("memory", "stream"):
+    for kind in ("memory", "stream", "class_sharded"):
         assert r0[kind] == r1[kind], kind
+    # the class-sharded evaluation on one process with the same mesh shape
+    f, g = tdist.make_dist_smooth(
+        port.SoftmaxGradient(3), X[:2], labels[:2],
+        mesh=tmesh.make_mesh({"data": 4, "model": 2}, devices=["cpu"] * 8),
+        mode="auto")[0](torch.from_numpy(W))
+    for r in (r0, r1):
+        assert "empty, on every rank" in r["class_sharded_empty"]
+    got = r0["class_sharded"]
+    np.testing.assert_allclose(float.fromhex(got["f"][0]), float(f),
+                               rtol=1e-12)
+    np.testing.assert_allclose([float.fromhex(v) for v in got["g"]],
+                               g.numpy().reshape(-1), rtol=1e-11,
+                               atol=1e-15)
 
     jm = jmesh.make_mesh({"data": 8}, devices=jax.devices()[:8])
     jw, jh, jr = japi.run(jmesh.shard_batch(jm, X[:3], y[:3]),

@@ -551,12 +551,20 @@ def test_later_slice_options_raise(problem, tmp_path):
     assert np.array_equal(res.loss_history, plain.loss_history)
     assert hb.beats == 12 // 5 + 2  # a beat a segment, and one at exit
 
-    def sharded(*da):
-        return build(*da)
-    sharded.make_agd_run = lambda *a, **k: None
-    with pytest.raises(NotImplementedError, match="sharded_update"):
-        run_agd_supervised(prox=px, reg_value=rv, w0=w0, config=cfg,
-                           staged=(sharded, dargs))
+    # a sharded-update build runs its segments through make_agd_run: the
+    # same fit as the replicated one, within the parity standard
+    from spark_agd_tpu_torch.parallel import sharded_update as tsu
+
+    X, y = problem[-1]
+    staged = tsu.make_sharded_staged(
+        losses.LogisticGradient(), torch.from_numpy(X), torch.from_numpy(y),
+        mesh=tmesh.make_mesh({"data": 2}, devices=["cpu"] * 2))
+    res = run_agd_supervised(prox=px, reg_value=rv, w0=w0, config=cfg,
+                             policy=_policy(), staged=staged)
+    tol = 1e-9 if X.dtype == np.float64 else 1e-5
+    assert res.num_iters == plain.num_iters
+    np.testing.assert_allclose(res.loss_history, plain.loss_history,
+                               rtol=tol)
     with pytest.raises(NotImplementedError, match="observability"):
         AutoCheckpointer("c.npz", telemetry=object())
     with pytest.raises(NotImplementedError, match="observability"):
@@ -626,11 +634,18 @@ def test_run_checkpointer_needs_resilience_and_resumes(problem, tmp_path):
         resilience=_policy(), checkpointer=AutoCheckpointer(path),
         return_result=True, **kw)
     assert sres.resumed_from == 12 and torch.equal(again, first[0])
-    for option in (dict(journal="j.wal"), dict(telemetry=object()),
-                   dict(mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))):
+    for option in (dict(journal="j.wal"), dict(telemetry=object())):
         with pytest.raises(NotImplementedError, match="later slice"):
             port.run((X, y), port.LogisticGradient(), port.L2Prox(),
                      resilience=True, **option, **kw)
+    # a mesh with a model axis runs supervised: its one data slot sums
+    # what the single-device fit sums
+    mw, mh = port.run((X, y), port.LogisticGradient(), port.L2Prox(),
+                      resilience=_policy(), **kw,
+                      mesh=tmesh.make_mesh({"data": 1, "model": 2},
+                                           devices=["cpu"] * 2))
+    assert torch.equal(mw, first[0])
+    np.testing.assert_array_equal(mh, first[1])
 
 
 SINGLE_HOST_NAMES = [

@@ -220,7 +220,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    # a data mesh is ported; a model axis still raises
+    # a mesh with a model axis and the sharded update are ported: the one
+    # computes what JAX computes, the other without a mesh raises JAX's
+    # ValueError
     dict(mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)),
     # the supervised path is ported: with it, the options of later
     # slices still raise
@@ -230,6 +232,33 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     dict(sharded_update=True)], ids=lambda o: next(iter(o)))
 def test_later_slice_options_raise(option):
     X, y = _logistic_data(n=16, d=3)
+    if "mesh" in option:
+        import jax
+        from spark_agd_tpu.parallel import mesh as jmesh
+
+        kw = dict(num_iterations=3, initial_weights=np.zeros(3))
+        tw, th = port.run((X.astype(np.float64), y.astype(np.float64)),
+                          port.LogisticGradient(), port.SquaredL2Updater(),
+                          device="cpu", **kw, **option)
+        jw, jh = jpkg.run(
+            (X.astype(np.float64), y.astype(np.float64)),
+            jpkg.LogisticGradient(), jpkg.SquaredL2Updater(),
+            mesh=jmesh.make_mesh({"data": 1, "model": 2},
+                                 devices=jax.devices()[:2]), **kw)
+        np.testing.assert_allclose(th, np.asarray(jh), rtol=1e-9)
+        np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-9)
+        return
+    if "sharded_update" in option:
+        with pytest.raises(ValueError, match="requires a mesh"):
+            jpkg.run((X, y), jpkg.LogisticGradient(),
+                     jpkg.SquaredL2Updater(), mesh=False,
+                     initial_weights=np.zeros(3, np.float32), **option)
+        with pytest.raises(ValueError, match="requires a mesh"):
+            port.run((X, y), port.LogisticGradient(),
+                     port.SquaredL2Updater(),
+                     initial_weights=np.zeros(3, np.float32), device="cpu",
+                     **option)
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         port.run((X, y), port.LogisticGradient(), port.SquaredL2Updater(),
                  initial_weights=np.zeros(3, np.float32), device="cpu",
@@ -244,10 +273,13 @@ def test_single_device_mesh_values_are_accepted():
                         initial_weights=np.zeros(3, np.float32),
                         device="cpu", mesh=mesh)
         assert len(h) == 2
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port.AcceleratedGradientDescent(
-            port.LogisticGradient(), port.SquaredL2Updater()).set_mesh(
-                tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2))
+    # a mesh with a model axis is taken too (the model-parallel slice)
+    mm = tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)
+    opt = port.AcceleratedGradientDescent(port.LogisticGradient(),
+                                          port.SquaredL2Updater())
+    assert opt.set_mesh(mm) is opt
+    w = opt.set_num_iterations(2).optimize((X, y), np.zeros(3, np.float32))
+    assert w.shape == (3,) and bool(torch.isfinite(w).all())
 
 
 def test_builder_setters_and_aliases():

@@ -797,20 +797,34 @@ def test_fused_logistic_stream_fit_matches_pallas_fit():
 
 
 @pytest.mark.parametrize("option", [
-    # a data mesh and its budget are ported: beside a model axis they
-    # still raise
+    # a mesh with a model axis (and the CSR budget beside it, inert on
+    # dense batches) is ported: the streamed smooth and the multi-lane
+    # evaluator compute what the JAX smooth computes
     dict(mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)),
     dict(csr_nnz_per_shard=256, mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)),
     dict(telemetry=object())], ids=lambda o: next(iter(o)))
 def test_streaming_smooth_later_slice_options_raise(option):
-    ds = streaming.StreamingDataset.from_arrays(*_dense(n=8), batch_rows=4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        streaming.make_streaming_smooth(losses.LogisticGradient(), ds,
-                                        device="cpu", **option)
-    if "telemetry" not in option:
-        with pytest.raises(NotImplementedError, match="mesh slice"):
-            streaming.make_streaming_eval_multi(losses.LogisticGradient(),
-                                                ds, device="cpu", **option)
+    X, y = _dense(n=8)
+    ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=4)
+    if "telemetry" in option:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            streaming.make_streaming_smooth(losses.LogisticGradient(), ds,
+                                            device="cpu", **option)
+        return
+    w = np.linspace(-0.5, 0.5, D)
+    jf, jg = jsmooth.make_smooth(jlosses.LogisticGradient(),
+                                 jnp.asarray(X), jnp.asarray(y))(
+        jnp.asarray(w))
+    sm, _ = streaming.make_streaming_smooth(losses.LogisticGradient(), ds,
+                                            device="cpu", **option)
+    tf, tg = sm(torch.as_tensor(w))
+    np.testing.assert_allclose(float(tf), float(jf), rtol=1e-12)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=1e-12)
+    ev = streaming.make_streaming_eval_multi(losses.LogisticGradient(), ds,
+                                             device="cpu", **option)
+    lf, lg = ev(torch.as_tensor(np.stack([w, 2 * w])))
+    np.testing.assert_allclose(float(lf[0]), float(jf), rtol=1e-12)
+    np.testing.assert_allclose(lg[0].numpy(), np.asarray(jg), rtol=1e-12)
 
 
 @pytest.mark.parametrize("option", [

@@ -123,9 +123,11 @@ def test_a_batch_past_the_budget_raises_and_the_sweeps_refuse_a_mesh():
                                           mesh=tm, csr_nnz_per_shard=8)
     with pytest.raises(ValueError, match="csr_nnz_per_shard"):
         sm(torch.zeros(d, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="grid"):
-        tstream.make_streaming_eval_multi(port.LogisticGradient(), tds,
-                                          mesh=tm)
+    # the multi-lane evaluator takes the mesh and its budget too
+    ev = tstream.make_streaming_eval_multi(port.LogisticGradient(), tds,
+                                           mesh=tm, csr_nnz_per_shard=8)
+    with pytest.raises(ValueError, match="csr_nnz_per_shard"):
+        ev(torch.zeros((2, d), dtype=torch.float64))
     with pytest.raises(ValueError, match="lead device"):
         tstream.make_streaming_smooth(port.LogisticGradient(), tds,
                                       mesh=tm, device="cuda:0")

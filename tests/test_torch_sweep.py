@@ -168,7 +168,14 @@ class TestSweep:
             tapi.sweep((X, y), tl.LogisticGradient(),
                        tp.SquaredL2Updater(), [[0.1]],
                        initial_weights=w0, device="cpu")
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # a mesh= that is not a Mesh raises in both packages (JAX an
+        # AttributeError reading its shape, the port a TypeError naming
+        # the Mesh it takes); a real mesh computes (test_torch_grid_mesh)
+        with pytest.raises(AttributeError):
+            japi.sweep((X, y), jl.LogisticGradient(),
+                       jp.SquaredL2Updater(), REGS, initial_weights=w0,
+                       mesh=object())
+        with pytest.raises(TypeError, match="Mesh"):
             tapi.sweep((X, y), tl.LogisticGradient(),
                        tp.SquaredL2Updater(), REGS, initial_weights=w0,
                        device="cpu", mesh=object())

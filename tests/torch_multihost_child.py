@@ -11,8 +11,9 @@ With ``--tail`` it fits ``PART_DIR/tail.npz`` instead, over an 8-slot
 mesh (four slots a rank) where the batch is too short to reach the last
 rank's slots: its 3 rows in memory (``shard_batch``), and its 11 rows
 streamed in batches of 8 (``make_streaming_smooth(mesh=)``, a tail batch
-of 3).  The rank that holds no rows joins every collective with zero
-sums.
+of 3), and one class-sharded softmax evaluation of its first 2 rows
+over a {data: 4, model: 2} mesh.  The rank that holds no rows joins every
+collective with zero sums.
 
 With ``--drill WORK`` it runs one rank of the multi-host resilience drill
 (``tests/test_torch_dist_resilience.py``): an f64 supervised fit over
@@ -21,8 +22,12 @@ its round-robin half of ``PART_DIR/part-*.libsvm`` (a 4-slot mesh), a
 a ``HeartbeatWriter`` beating into ``WORK/hb``; with ``--kill-at=N`` the
 rank SIGKILLs itself at the boundary of iteration N.
 
+With ``--sharded`` it fits the dense partitioned batch with the sharded
+weight update (``run(sharded_update=True)``) and prints the rank's census
+of collectives (``multihost.census``) beside the fit.
+
 Usage: python torch_multihost_child.py ADDR NPROC RANK PART_DIR [DEVICE]
-       [--tail | --drill WORK [--kill-at=N]]
+       [--tail | --sharded | --drill WORK [--kill-at=N]]
 """
 
 import datetime
@@ -73,6 +78,23 @@ def _tail_fits(port, mesh_lib, part_dir, device, nproc):
                          iters=int(r.num_iters),
                          backtracks=int(r.num_backtracks),
                          restarts=int(r.num_restarts))
+    # the class-sharded softmax (mode="auto" on a model axis): 2 rows over
+    # {data: 2 a rank, model: 2}, so rank 1's data slots hold none
+    from spark_agd_tpu_torch.parallel import dist_smooth
+
+    tp = mesh_lib.make_mesh({"data": 2 * nproc, "model": 2},
+                            devices=[device] * 4)
+    f, g = dist_smooth.make_dist_smooth(
+        port.SoftmaxGradient(3), X[:2], data["labels"][:2], mesh=tp,
+        mode="auto")[0](torch.from_numpy(data["W"]).to(device))
+    out["class_sharded"] = dict(f=_hex(f), g=_hex(g.cpu()))
+    try:  # no rows on any rank: every rank raises, none returns NaN
+        dist_smooth.make_dist_smooth(
+            port.SoftmaxGradient(3), X[:0], data["labels"][:0], mesh=tp,
+            mode="auto")[0](torch.from_numpy(data["W"]).to(device))
+        out["class_sharded_empty"] = "returned"
+    except ValueError as e:
+        out["class_sharded_empty"] = str(e)
     return out
 
 
@@ -165,6 +187,16 @@ def main():
     kw = dict(reg_param=0.05, num_iterations=10, convergence_tol=1e-12,
               initial_weights=w0, return_result=True)
     dense = ingest.from_partitioned_files(paths, mesh, n_features=9)
+    if "--sharded" in flags:
+        mh.reset_census()
+        w, h, r = port.run(dense, port.LogisticGradient(), port.L2Prox(),
+                           sharded_update=True, **kw)
+        out["sharded"] = dict(hist=_hex(h), w=_hex(w.cpu()),
+                              iters=int(r.num_iters),
+                              census=dict(mh.census))
+        print("RESULT " + json.dumps(out), flush=True)
+        mh.shutdown()
+        return
     w, h, r = port.run(dense, port.LogisticGradient(), port.L2Prox(), **kw)
     out["dense"] = dict(hist=_hex(h), w=_hex(w.cpu()),
                         iters=int(r.num_iters),
