@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Phase 43 of ``chip_smoke.py`` run several times on one card, each time
-after a fresh timing of phase 5's fit: the spread of the checkpointed
-fit's wall time against the plain fit's, and the seconds its saves,
+after a fresh run of phase 5's fit (the bits it holds the phase to): the
+spread of the checkpointed fits' median wall time against the plain
+fit's (each timed in turns within the phase), and the seconds its saves,
 beats and monitor checks held the fit.  Not part of the package.
 
 Usage, from the root of a checkout on a machine with one CUDA card:
@@ -59,8 +60,8 @@ def main(argv):
         except AssertionError as e:
             failed.append(str(e))
         lines.append(emitted[-1])
-    keys = ("a_over_phase5_wall", "hooks_over_phase5_wall", "a_held_s",
-            "hooks_held_s", "phase5_run_s")
+    keys = ("a_over_plain_median_wall", "hooks_over_plain_median_wall",
+            "a_held_s", "hooks_held_s", "phase5_run_s")
     emit({"phase": "dist_ckpt_repeat", "runs": runs, "card": smi,
           **{k: [line[k] for line in lines] for k in keys},
           "failed": failed, "at": time.strftime("%Y-%m-%dT%H:%M:%S")})

@@ -10,6 +10,10 @@ by hand in CUDA for Hopper (``csrc/margin_loss_grad.cu``,
 Layer map (dense and CSR data, one device or a mesh of them):
 
 ====  ==========================  ===========================================
+L7    serving and pipeline        ``serve`` (``ServeEngine``, the
+                                  micro-batching queue, the model
+                                  registry), ``pipeline`` (train →
+                                  canary → promote)
 L6    model layer                 ``models.glm`` trainers and models,
                                   ``models.mlp`` (config 5),
                                   ``models.evaluation`` metrics
@@ -141,6 +145,7 @@ from .models.mlp import (  # noqa: F401
     mlp_gradient,
 )
 from . import obs  # noqa: F401
+from . import serve  # noqa: F401  (serving one process; pipeline/ beside it)
 from .data.streaming import (  # noqa: F401
     StreamingDataset,
     make_streaming_eval_multi,

@@ -136,6 +136,7 @@ def run_agd_supervised(
     monitor=None,
     scheduler=None,
     seg_cache: Optional[dict] = None,
+    stream_iterations: bool = True,
     sleep: Callable[[float], None] = time.sleep,
     clock: Callable[[], float] = time.monotonic,
 ) -> SupervisedResult:
@@ -176,6 +177,10 @@ def run_agd_supervised(
     smooth_loss)`` pair per ``(segment length, poisoned)``, beside the
     ``staged`` pair it was built over (a pair built over other data is
     built anew); share one dict only across calls of one problem.
+
+    ``stream_iterations`` is taken as the JAX package takes it (whether
+    the per-iteration telemetry callback runs); it has no effect while
+    ``telemetry=`` is refused, so every value runs the same fit.
 
     ``heartbeat`` (a :class:`~spark_agd_tpu_torch.resilience.
     distributed.HeartbeatWriter`): beaten at every segment boundary and

@@ -2383,3 +2383,94 @@ def test_sharded_update_on_the_card_matches_the_replicated_fit(cuda):
     with pytest.raises(ValueError, match="fused"):
         port.run((X.float(), y.float()), port.FusedLogisticGradient(),
                  port.L2Prox(), sharded_update=True, **kw)
+
+
+def _serve_models(device, d=40):
+    """A logistic, a softmax and an MLP model on ``device``, their arrays
+    made with numpy from one seed."""
+    from spark_agd_tpu_torch.models import glm, mlp
+
+    r = np.random.default_rng(5)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    params = mlp.init_mlp_params(d, 16, 3, seed=2, device="cpu")
+    return {
+        "logistic": glm.LogisticRegressionModel(t(r.normal(size=d)), 0.2),
+        "softmax": glm.SoftmaxRegressionModel(t(r.normal(size=(d, 10))),
+                                              t(r.normal(size=10))),
+        "mlp": mlp.MLPModel({k: v.to(device) for k, v in params.items()}),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["logistic", "softmax", "mlp"])
+def test_serve_engine_on_the_card_matches_its_cpu_result(cuda, kind):
+    """Every op at every bucket and at the edge sizes: the card's answers
+    within f32 rtol 1e-5 of the same engine on the CPU (labels equal);
+    a repeated call gives the same bits; the census never changes."""
+    from spark_agd_tpu_torch.serve import ServeEngine
+
+    card = ServeEngine(_serve_models(cuda)[kind], max_batch=64)
+    host = ServeEngine(_serve_models("cpu")[kind], max_batch=64,
+                       device="cpu")
+    assert card.ladder.buckets == (8, 16, 32, 64)
+    assert all(p.inbuf.device.type == "cuda"
+               for p in card._programs.values())
+    census = card.compile_census()
+    r = np.random.default_rng(0)
+    for op in card.ops:
+        for n in (1, 7, 8, 9, 16, 32, 63, 64, 65, 200):
+            X = r.normal(size=(n, 40)).astype(np.float32)
+            got, want = card.predict(X, op), host.predict(X, op)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            if op == "predict_proba" or kind == "logistic":
+                np.testing.assert_allclose(got, want, rtol=1e-5,
+                                           atol=1e-6)
+            else:
+                assert np.array_equal(got, want), (op, n)
+            assert np.array_equal(card.predict(X, op), got)
+    assert card.compile_census() == census
+
+
+@pytest.mark.cuda
+def test_serve_queue_on_the_card_hot_swaps_mid_stream(cuda):
+    from spark_agd_tpu_torch.models import glm
+    from spark_agd_tpu_torch.serve import MicroBatchQueue, ServeEngine
+
+    models = {g: glm.LogisticRegressionModel(
+        torch.randn(40, generator=torch.Generator().manual_seed(g))
+        .to(cuda), 0.0) for g in (1, 2)}
+    eng = ServeEngine(models[1], generation=1, max_batch=16)
+    census = eng.compile_census()
+    r = np.random.default_rng(1)
+    results = []
+    with MicroBatchQueue(eng, max_wait_us=0) as q:
+        for i in range(40):
+            if i == 20:
+                eng.bind(models[2], 2)
+            X = r.normal(size=(3, 40)).astype(np.float32)
+            res = q.submit(X, "predict_proba").result(timeout=30)
+            want = models[res.generation].predict_proba(
+                torch.from_numpy(X).to(cuda)).cpu().numpy()
+            np.testing.assert_allclose(res.value, want, rtol=1e-5)
+            results.append(res.generation)
+    assert results == [1] * 20 + [2] * 20
+    assert eng.compile_census() == census and eng.hot_swaps == 1
+
+
+@pytest.mark.cuda
+def test_serving_and_pipeline_refuse_telemetry_on_the_card(cuda, tmp_path):
+    from spark_agd_tpu_torch import pipeline, serve
+
+    model = _serve_models(cuda)["logistic"]
+    with pytest.raises(NotImplementedError, match="observability"):
+        serve.ServeEngine(model, telemetry=object())
+    eng = serve.ServeEngine(model)
+    for make in (lambda: serve.MicroBatchQueue(eng, telemetry=object()),
+                 lambda: serve.ModelRegistry(str(tmp_path),
+                                             telemetry=object()),
+                 lambda: pipeline.Promoter(None, telemetry=object())):
+        with pytest.raises(NotImplementedError, match="observability"):
+            make()

@@ -159,7 +159,15 @@ def test_sources_import_nothing_of_jax(rel):
 # with the slice that brings it
 ROOT_NAMES_TO_PORT = {
     "Telemetry": "A.12, the observability slice",
-    "serve": "A.11, the serving slice",
+}
+
+# the JAX ``serve`` package's names that wait for the replica fleet and
+# its router (A.11b)
+SERVE_NAMES_TO_PORT = {
+    name: "A.11b, the replica fleet and its router"
+    for name in ("ReplicaHandle", "ReplicaServer", "discover_replicas",
+                 "FleetRouter", "NoReplicasLeft", "ReplicaLatencyTracker",
+                 "RouteResult")
 }
 
 
@@ -187,6 +195,21 @@ def test_port_root_exports_every_name_of_the_jax_root():
     for name in ("ShardedBatch", "make_mesh", "replicate", "shard_batch",
                  "shard_csr_batch"):
         assert getattr(port, name) is getattr(tmesh, name)
+
+
+@pytest.mark.parametrize("pkg", ["serve", "pipeline"])
+def test_port_subpackage_exports_the_jax_names(pkg):
+    jax_names = _root_public_names(ROOT / "spark_agd_tpu" / pkg
+                                   / "__init__.py")
+    port_names = _root_public_names(ROOT / "spark_agd_tpu_torch" / pkg
+                                    / "__init__.py")
+    waiting = SERVE_NAMES_TO_PORT if pkg == "serve" else {}
+    assert set(waiting) <= jax_names
+    assert port_names == jax_names - set(waiting)
+    jall = __import__(f"spark_agd_tpu.{pkg}", fromlist=["__all__"]).__all__
+    tall = getattr(port, pkg).__all__ if pkg == "serve" else __import__(
+        f"spark_agd_tpu_torch.{pkg}", fromlist=["__all__"]).__all__
+    assert sorted(tall) == sorted(n for n in jall if n not in waiting)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
