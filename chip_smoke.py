@@ -435,10 +435,38 @@ Phases, each printing one JSON line:
     the recorded verdicts, the records valid, each epoch's history held
     to a plain ``LogisticGradient`` epoch from the same start over their
     common path (rtol 1e-4), every launch the margin kernel's stream
-    mode (``launches_by_path["pipeline"]``).
+    mode (``launches_by_path["pipeline"]``); the trainer (so its
+    supervisor and checkpointers), the canary, the promoter, the
+    registry and HEAD's engine and queue report through one
+    ``obs.Telemetry`` (in memory and a JSONL file in ``/dev/shm``), as in
+    ``tools/pipeline_drill.py``: its records schema-valid, ``gate_promotion`` re-run
+    over its canary records giving the recorded verdicts, its promotion
+    records the decisions, an epoch span an epoch and no iteration
+    record (the epochs run ``stream_iterations=False``);
+52. fleet, after phase 51: ``tools/fleet_drill.py``'s story at the
+    flagship width (FLEET): phase 5's weights, kept on the host,
+    published into a ``ModelRegistry`` in ``/dev/shm`` and served by 3
+    ``ReplicaServer`` processes on the card (``--fleet-child``, started
+    together; a 4th started with them waits to join), a ``FleetRouter``
+    with a ``HostMonitor`` and a ``Telemetry`` in front; 4 client
+    threads x 500 requests of 1-16 rows under two tenants; replica 1
+    slowed 0.4 s a request from its 40th (a persistent
+    ``slow_replica``), replica 2 SIGKILLed at its 150th
+    (``kill_replica``); a second generation published after 1,000
+    requests; then the 4th replica joins, then one tenant floods past a
+    cap of 2.  Checked by values and counts only: every answer equal to
+    its generation's ``predict_proba`` on the card (f32 rtol 1e-5), no
+    admitted request dropped, replica 1 read SLOW and never LOST,
+    replica 2 evicted once with a retry and not brought back by the
+    join, a hedge won, every live replica on generation 2, the flood
+    shed typed (``shed_tenant``) while the quiet tenant is answered in
+    full, ``gate_fleet`` passing over every process's records, every
+    record schema-valid and naming the card; p50, p99 and requests per
+    second printed, not gated; no kernel launched (the replicas' products
+    are ``torch.matmul``).
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-51) and read just after it; the sparse paths launch neither kernel,
+22-52) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -5788,10 +5816,12 @@ def mp_child(port, spec, drill=None):
     return 0
 
 
-def start_children(args_list):
-    """Start one ``--mp-child`` process an argument tuple, all together."""
+def start_children(args_list, flag="--mp-child"):
+    """Start one ``flag`` child process (``--mp-child`` or
+    ``--fleet-child``) an argument tuple, all together: each a fresh
+    interpreter of this script, never a fork of this process."""
     script = os.path.abspath(__file__)
-    return [subprocess.Popen([sys.executable, script, "--mp-child", *a],
+    return [subprocess.Popen([sys.executable, script, flag, *a],
                              stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE, text=True,
                              cwd=os.path.dirname(script))
@@ -5804,10 +5834,12 @@ def run_children(args_list):
     return collect_children(start_children(args_list))
 
 
-def collect_children(procs):
+def collect_children(procs, killed=()):
     """Wait for each child under MP_CHILD_TIMEOUT_S, kill any left; on a
     failure print each child's stderr and raise.  Returns their RESULT
-    objects."""
+    objects.  The children at the indices ``killed`` must have died by
+    SIGKILL (their result is None): anywhere else a SIGKILL is a
+    failure."""
     outs = []
     try:
         for p in procs:
@@ -5824,9 +5856,12 @@ def collect_children(procs):
                 p.kill()
                 p.wait()
     results = []
-    for rc, out, err in outs:
+    for i, (rc, out, err) in enumerate(outs):
+        if i in killed and rc == -signal.SIGKILL:
+            results.append(None)
+            continue
         line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
-        if rc != 0 or not line:
+        if rc != 0 or not line or i in killed:
             for i, (_, _, e) in enumerate(outs):
                 print(f"--- child {i} stderr ---\n{e[-6000:]}",
                       file=sys.stderr, flush=True)
@@ -7489,7 +7524,8 @@ def pipeline_phase(port, fk, smi, launches):
     from spark_agd_tpu_torch import pipeline, serve
     from spark_agd_tpu_torch.core import smooth as smooth_lib
     from spark_agd_tpu_torch.models import evaluation, glm
-    from spark_agd_tpu_torch.obs import perfgate, schema
+    from spark_agd_tpu_torch.obs import (InMemorySink, JSONLSink, Telemetry,
+                                         perfgate, schema)
 
     t_phase = time.perf_counter()
     n, d, iters = PIPE["n"], PIPE["d"], PIPE["iters"]
@@ -7516,16 +7552,26 @@ def pipeline_phase(port, fk, smi, launches):
         return w + 25.0 * noise
 
     tmp = shm_dir("chip_smoke_pipeline_")
+    # the trainer, its supervisor and checkpointers, the canary and the
+    # promoter report through one bus, and so do the registry and HEAD's
+    # engine and queue, as in tools/pipeline_drill.py: the canary's
+    # shadow leg records every request, so HEAD's leg, whose latency the
+    # canary grades it against, pays for its records too
+    mem = InMemorySink()
+    tel = Telemetry([mem, JSONLSink(os.path.join(tmp, "records.jsonl"))])
     zero = torch.zeros(d, dtype=torch.float32, device="cuda")
-    registry = serve.ModelRegistry(os.path.join(tmp, "registry"))
+    registry = serve.ModelRegistry(os.path.join(tmp, "registry"),
+                                   telemetry=tel)
     registry.publish(make_model(zero))
-    engine = serve.ServeEngine(make_model(zero), generation=1, max_batch=64)
+    engine = serve.ServeEngine(make_model(zero), generation=1, max_batch=64,
+                               telemetry=tel)
     registry.refresh(engine)
     queue = serve.MicroBatchQueue(engine, max_wait_us=1500,
-                                  max_queue_rows=64 * 16).start()
+                                  max_queue_rows=64 * 16,
+                                  telemetry=tel).start()
     controller = pipeline.CanaryController(
         registry, engine, queue, holdout=(Xv, yv),
-        slice_fraction=PIPE["slice"],
+        slice_fraction=PIPE["slice"], telemetry=tel,
         min_shadow_requests=PIPE["min_shadow"], thresholds=thresholds)
     last_good = {"loss": holdout_loss(registry.current.model)}
 
@@ -7536,7 +7582,8 @@ def pipeline_phase(port, fk, smi, launches):
         return False, (f"holdout loss {live:.4f} regressed vs last "
                        f"healthy HEAD {last_good['loss']:.4f}")
 
-    promoter = pipeline.Promoter(registry, engine, post_check=post_check)
+    promoter = pipeline.Promoter(registry, engine, telemetry=tel,
+                                 post_check=post_check)
     fused = counting(port.FusedLogisticGradient)()
     px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), REG)
     trainer = pipeline.ContinuousTrainer(
@@ -7545,7 +7592,8 @@ def pipeline_phase(port, fk, smi, launches):
         make_model=make_model,
         policy=sup_policy(port, segment_iters=PIPE["segment"]),
         checkpoint_path=os.path.join(tmp, "ckpt", "epoch"),
-        checkpoint_every=PIPE["segment"], weight_fault=weight_fault)
+        checkpoint_every=PIPE["segment"], weight_fault=weight_fault,
+        telemetry=tel)
 
     stop = threading.Event()
     traffic = {"served": 0, "dropped": 0, "rejected": 0, "errors": []}
@@ -7642,6 +7690,7 @@ def pipeline_phase(port, fk, smi, launches):
         alive = any(t.is_alive() for t in threads)
         summary = queue.latency_summary()
         queue.stop()
+        tel.flush()
         shutil.rmtree(tmp, ignore_errors=True)
     record_margin_path(fk, launches, "pipeline")
     other = fk.lanes_launch_count + fk.softmax_launch_count
@@ -7659,6 +7708,19 @@ def pipeline_phase(port, fk, smi, launches):
         regates.append("refused" if gate.refused
                        else "fail" if gate.failures else "pass")
     records = [r.record for r in reports] + [dec.record for dec in decisions]
+    # the bus's own records: the canary records it carried, regraded
+    bus = list(mem.records)
+    bus_kinds = {}
+    for r in bus:
+        bus_kinds[r.get("kind")] = bus_kinds.get(r.get("kind"), 0) + 1
+    canaries = [r for r in bus if r.get("kind") == "canary"]
+    bus_regates = []
+    for rec in canaries:
+        gate = perfgate.gate_promotion(
+            [rec], thresholds=thresholds,
+            min_shadow_requests=PIPE["min_shadow"])
+        bus_regates.append("refused" if gate.refused
+                           else "fail" if gate.failures else "pass")
     checks = {
         "every_epoch_published": [e["generation"] for e in epochs]
         == list(range(2, PIPE["epochs"] + 2)),
@@ -7679,6 +7741,18 @@ def pipeline_phase(port, fk, smi, launches):
             regates == [r.verdict for r in reports],
         "records_valid": all(not schema.validate_record(r)
                              for r in records),
+        "telemetry_records_valid": bool(bus) and all(
+            not schema.validate_record(r) for r in bus),
+        "telemetry_gate_rerun_gives_the_recorded_verdicts":
+            bus_regates == [r["verdict"] for r in canaries]
+            == [r.verdict for r in reports],
+        "telemetry_one_epoch_span_an_epoch": len(
+            [r for r in bus if r.get("name") == "pipeline_epoch"
+             and r.get("status") == "ok"]) == PIPE["epochs"],
+        "telemetry_decisions_on_record": [
+            r["decision"] for r in bus if r.get("kind") == "promotion"]
+            == [dec.decision for dec in decisions],
+        "telemetry_streams_no_iteration": "iteration" not in bus_kinds,
         "epoch_histories_rtol_1e-4_vs_plain": all(
             e["history_rtol_1e-4_vs_plain"] for e in epochs),
         "launches_equal_evaluations": launches["pipeline"]
@@ -7696,8 +7770,362 @@ def pipeline_phase(port, fk, smi, launches):
         "errors": traffic["errors"][:3], "head_p50_ms":
         summary.get("p50_ms"), "head_p99_ms": summary.get("p99_ms"),
         "head_qps": summary.get("qps"), "launches": launches["pipeline"],
-        "modes": modes, "smooth_evaluations": fused.evaluations},
-        checks, t_phase, smi)
+        "modes": modes, "smooth_evaluations": fused.evaluations,
+        "telemetry_records": bus_kinds}, checks, t_phase, smi)
+
+
+# phase 52: the fleet drill's story (tools/fleet_drill.py) at the flagship
+# width: 3 replica processes on the card, replica 1 slowed 0.4 s a request
+# from its 40th, replica 2 SIGKILLed at its 150th, 4 clients x 500
+# requests of 1-16 rows under two tenants, a publish after 1,000
+# requests, then a 4th replica joining, then one tenant flooding; the
+# monitor's staleness window and the slow sleep are the drill's
+FLEET = dict(replicas=3, clients=4, requests=500, max_rows=16, pool=512,
+             tenants=("alice", "bob"), slow=1, slow_at=40, slow_s=0.4,
+             killed=2, kill_at=150, joined=3, publish_after=1_000,
+             join_requests=200, flood_tenant="mallory", flood_threads=8,
+             flood_requests=160, quiet_requests=48, flood_cap=2,
+             stale_after_s=4.0, slow_after_s=1.5, max_batch=64,
+             start_s=120.0, settle_s=20.0, seed=52)
+
+
+def fleet_child(spec):
+    """The child of phase 52 (``--fleet-child REPLICA DIR SPEC``): one
+    ``ReplicaServer`` process on the card, serving the newest generation
+    of ``DIR/registry`` with its telemetry in ``DIR/records.hNNN.jsonl``
+    and a chaos schedule from SPEC (``slow_at``/``slow_s``,
+    ``kill_at``).  With ``go`` in SPEC it makes its CUDA context first,
+    then waits for that file before it loads the registry (the join).
+    SIGTERM stops it; it prints one RESULT line."""
+    from spark_agd_tpu_torch import obs, serve
+    from spark_agd_tpu_torch.resilience import chaos
+
+    replica, workdir, spec = int(spec[0]), spec[1], json.loads(spec[2])
+    torch.zeros(1, device="cuda")  # the context, before the wait
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    if spec.get("go"):
+        deadline = time.monotonic() + MP_CHILD_TIMEOUT_S
+        while not os.path.exists(spec["go"]):
+            if stop.is_set() or time.monotonic() > deadline:
+                print("RESULT " + json.dumps({"replica": replica,
+                                              "joined": False}), flush=True)
+                return 0
+            time.sleep(0.02)
+    tel = obs.Telemetry([obs.JSONLSink(os.path.join(
+        workdir, f"records.h{replica:03d}.jsonl"))])
+    registry = serve.ModelRegistry(os.path.join(workdir, "registry"),
+                                   telemetry=tel)
+    loaded = registry.load_newest()
+    engine = serve.ServeEngine(loaded.model, generation=loaded.generation,
+                               max_batch=FLEET["max_batch"])
+    faults = []
+    if spec.get("slow_at") is not None:
+        faults.append(chaos.ScheduledFault(
+            "slow_replica", at_iter=spec["slow_at"], process=replica,
+            payload=spec["slow_s"], persist=True))
+    if spec.get("kill_at") is not None:
+        faults.append(chaos.ScheduledFault(
+            "kill_replica", at_iter=spec["kill_at"], process=replica))
+    server = serve.ReplicaServer(
+        os.path.join(workdir, "fleet"), replica, engine, registry=registry,
+        telemetry=tel,
+        chaos=chaos.ChaosSchedule(faults, telemetry=tel) if faults else None,
+        max_queue_rows=16 * FLEET["max_batch"], poll_every_s=0.1)
+    server.start()
+    while not stop.wait(0.05):
+        pass
+    server.stop()
+    tel.flush()
+    print("RESULT " + json.dumps({
+        "replica": replica, "joined": True,
+        "requests_seen": server.requests_seen,
+        "generation": int(engine.generation),
+        "hot_swaps": int(engine.hot_swaps)}), flush=True)
+    return 0
+
+
+def fleet_phase(port, fk, smi, weights):
+    """Phase 52: the replica fleet and its router on the card
+    (``tools/fleet_drill.py``'s story): phase 5's flagship logistic
+    weights, kept on the host, published into a ``ModelRegistry`` in
+    /dev/shm and served by ``ReplicaServer`` processes on the card,
+    routed by a ``FleetRouter`` with a ``HostMonitor`` and a
+    ``Telemetry``; every check decided by values and counts."""
+    from spark_agd_tpu_torch import serve
+    from spark_agd_tpu_torch.models import glm
+    from spark_agd_tpu_torch.obs import (InMemorySink, JSONLSink, Telemetry,
+                                         perfgate, schema)
+    from spark_agd_tpu_torch.resilience.distributed import HostMonitor
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fk.reset_launch_counts()
+    tmp = shm_dir("chip_smoke_fleet_")
+    fleet_dir = os.path.join(tmp, "fleet")
+    d = int(weights.shape[0])
+    gen = torch.Generator(device="cuda").manual_seed(FLEET["seed"])
+    w1 = weights.cuda()
+    models = {1: glm.LogisticRegressionModel(w1, 0.0),
+              2: glm.LogisticRegressionModel(
+                  w1 + 0.05 * torch.randn(d, generator=gen, device="cuda"),
+                  0.1)}
+    registry = serve.ModelRegistry(os.path.join(tmp, "registry"))
+    registry.publish(models[1])
+    rng = np.random.default_rng(FLEET["seed"])
+    pool = rng.standard_normal((FLEET["pool"], d), dtype=np.float32)
+    pool_c = torch.from_numpy(pool).cuda()
+    refs = {g: m.predict_proba(pool_c).cpu().numpy()
+            for g, m in models.items()}
+    go = os.path.join(tmp, "go")
+
+    def spec(r):
+        out = {}
+        if r == FLEET["slow"]:
+            out.update(slow_at=FLEET["slow_at"], slow_s=FLEET["slow_s"])
+        if r == FLEET["killed"]:
+            out.update(kill_at=FLEET["kill_at"])
+        if r == FLEET["joined"]:
+            out.update(go=go)
+        return json.dumps(out)
+
+    mem = InMemorySink()
+    tel = Telemetry([mem, JSONLSink(os.path.join(tmp, "records.parent"
+                                                       ".jsonl"))])
+    lock = threading.Lock()
+    answers, drops, sheds = [], [], []
+    verdicts_of = {r: set() for r in range(FLEET["replicas"] + 1)}
+    completed = [0]
+    published = threading.Event()
+    procs = start_children([(str(r), tmp, spec(r)) for r in range(
+        FLEET["replicas"] + 1)], flag="--fleet-child")
+    router = None
+    results = []
+    try:
+        def members(want):
+            deadline = time.monotonic() + FLEET["start_s"]
+            while time.monotonic() < deadline:
+                found = serve.discover_replicas(fleet_dir)
+                if want <= set(found):
+                    return found
+                for r in want:
+                    if procs[r].poll() is not None:
+                        raise AssertionError(
+                            f"fleet: replica {r} exited "
+                            f"({procs[r].returncode}) before it joined: "
+                            f"{procs[r].stderr.read()[-4000:]}")
+                time.sleep(0.05)
+            raise AssertionError(f"fleet: replicas {sorted(want)} did not "
+                                 f"announce within {FLEET['start_s']} s")
+
+        (handles, start_s) = timed(lambda: members(
+            set(range(FLEET["replicas"]))))
+        monitor = HostMonitor(fleet_dir,
+                              stale_after_s=FLEET["stale_after_s"],
+                              slow_after_s=FLEET["slow_after_s"],
+                              telemetry=tel)
+        router = serve.FleetRouter(handles, monitor=monitor, telemetry=tel,
+                                   tenant_max_outstanding=64,
+                                   request_timeout_s=30.0)
+        stop_poll = threading.Event()
+
+        def poll_verdicts():
+            while not stop_poll.wait(0.03):
+                for r, v in monitor.verdicts().items():
+                    with lock:
+                        verdicts_of.setdefault(r, set()).add(v)
+
+        poller = threading.Thread(target=poll_verdicts, daemon=True)
+        poller.start()
+
+        def soak(leg, n, threads, tenants, pace_s=0.0):
+            counter = iter(range(n))
+            lat = []
+
+            def client(c):
+                r = np.random.default_rng(FLEET["seed"] * 1000 + c
+                                          + 100 * len(leg))
+                while True:
+                    with lock:
+                        i = next(counter, None)
+                    if i is None:
+                        return
+                    k = int(r.integers(1, FLEET["max_rows"] + 1))
+                    lo = int(r.integers(0, FLEET["pool"] - k))
+                    tenant = tenants[i % len(tenants)]
+                    try:
+                        res = router.request(pool[lo:lo + k],
+                                             op="predict_proba",
+                                             tenant=tenant)
+                    except serve.ServeOverloaded as e:
+                        with lock:
+                            sheds.append((leg, tenant, str(e)))
+                        continue
+                    except Exception as e:  # noqa: BLE001 — a check
+                        with lock:
+                            drops.append((leg, repr(e)[:300]))
+                        continue
+                    ref = refs.get(res.generation)
+                    ok = ref is not None and hold_served(
+                        np.asarray(res.values, np.float32),
+                        ref[lo:lo + k])
+                    with lock:
+                        answers.append((leg, tenant, res.replica,
+                                        res.generation, ok))
+                        lat.append(res.latency_ms)
+                        completed[0] += 1
+                        if completed[0] == FLEET["publish_after"]:
+                            registry.publish(models[2])
+                            published.set()
+                    if pace_s:
+                        time.sleep(pace_s)
+
+            ts = [threading.Thread(target=client, args=(c,))
+                  for c in range(threads)]
+            t0 = time.perf_counter()
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=300)
+            if any(t.is_alive() for t in ts):
+                raise AssertionError(f"fleet: the {leg} clients hung")
+            return lat, time.perf_counter() - t0
+
+        n_main = FLEET["clients"] * FLEET["requests"]
+        lat_main, soak_s = soak("main", n_main, FLEET["clients"],
+                                FLEET["tenants"])
+        # every live replica serves generation 2: asked directly
+        live = [r for r in range(FLEET["replicas"])
+                if r != FLEET["killed"]]
+        probe = pool[:8]
+        on_g2 = set()
+        deadline = time.monotonic() + FLEET["settle_s"]
+        while on_g2 != set(live) and time.monotonic() < deadline:
+            for r in set(live) - on_g2:
+                resp = handles[r].predict(probe, op="predict_proba")
+                if resp["generation"] == 2 and hold_served(
+                        np.asarray(resp["values"], np.float32),
+                        refs[2][:8]):
+                    on_g2.add(r)
+            time.sleep(0.05)
+        stats_main = dataclasses.asdict(router.stats)
+        # the elastic join: replica 3 loads the newest generation
+        open(go, "w").close()
+        members({FLEET["joined"]})
+        monitor.poll()
+        alive = {r: h for r, h in serve.discover_replicas(fleet_dir).items()
+                 if monitor.verdicts().get(r) != "lost"}
+        delta = router.refresh_membership(alive)
+        soak("join", FLEET["join_requests"], FLEET["clients"],
+             FLEET["tenants"])
+        # one tenant floods past the admission cap; the quiet one flows
+        router.tenant_max_outstanding = FLEET["flood_cap"]
+        flood = threading.Thread(target=soak, args=(
+            "flood", FLEET["flood_requests"], FLEET["flood_threads"],
+            (FLEET["flood_tenant"],)))
+        flood.start()
+        soak("quiet", FLEET["quiet_requests"], 1, ("alice",), 0.005)
+        flood.join(timeout=300)
+        flood_done = not flood.is_alive()
+        router.tenant_max_outstanding = 64
+        stop_poll.set()
+        poller.join(timeout=10)
+        stats = dataclasses.asdict(router.stats)
+        members_after = router.members
+        router.close()
+        router = None
+        for i, p in enumerate(procs):
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        results = collect_children(procs, killed=(FLEET["killed"],))
+    finally:
+        if router is not None:
+            router.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    killed_rc = procs[FLEET["killed"]].returncode
+    tel.flush()
+    records = list(mem.records)
+    for path in sorted(glob.glob(os.path.join(tmp, "records.h*.jsonl"))):
+        records.extend(schema.read_jsonl(path))
+    shutil.rmtree(tmp, ignore_errors=True)
+    gate = perfgate.gate_fleet(records)
+    invalid = [r for r in records if schema.validate_record(
+        json.loads(json.dumps(r, default=str)))]
+    decisions = {}
+    for r in records:
+        if r.get("kind") == "fleet_route":
+            decisions[r["decision"]] = decisions.get(r["decision"], 0) + 1
+    evicts = [r.get("process") for r in records
+              if r.get("action") == "replica_evict"]
+    retries = [r for r in records if r.get("action") == "request_retry"]
+    by_leg = {}
+    for leg, tenant, replica, generation, ok in answers:
+        by_leg.setdefault(leg, []).append((tenant, replica, generation, ok))
+    flood_sheds = [s for s in sheds if s[0] == "flood"]
+    quiet = by_leg.get("quiet", [])
+    lat = sorted(lat_main)
+    checks = {
+        "every_answer_equals_its_generations_model": bool(answers)
+        and all(a[4] for a in answers),
+        "no_admitted_request_dropped": not drops,
+        "main_soak_all_answered": len(by_leg.get("main", [])) == n_main,
+        "slow_replica_read_slow": "slow" in verdicts_of[FLEET["slow"]],
+        "slow_replica_never_lost": "lost" not in verdicts_of[FLEET["slow"]],
+        "slow_replica_still_a_member": FLEET["slow"] in members_after,
+        "killed_replica_sigkilled": killed_rc == -signal.SIGKILL,
+        "killed_replica_evicted_once": evicts.count(FLEET["killed"]) == 1
+        and stats["evictions"] == 1,
+        "at_least_one_request_retry": len(retries) >= 1
+        and stats["retries"] >= 1,
+        "join_did_not_bring_back_the_killed": FLEET["joined"]
+        in delta["joined"] and FLEET["killed"] not in members_after,
+        "joined_replica_served": any(
+            a[1] == FLEET["joined"] for a in by_leg.get("join", [])),
+        "hedged_and_a_hedge_won": stats["hedges"] >= 1
+        and stats["hedges_won"] >= 1,
+        "both_generations_served": {a[2] for a in
+                                    by_leg.get("main", [])} == {1, 2},
+        "every_live_replica_serves_generation_2": on_g2 == set(live)
+        and all(r["generation"] == 2 for r in results
+                if r is not None and r.get("joined")),
+        "flood_tenant_shed_typed": len(flood_sheds) >= 1
+        and all("admission cap" in s[2] for s in flood_sheds)
+        and decisions.get("shed_tenant", 0) >= 1,
+        "flood_leg_finished": flood_done,
+        "quiet_tenant_all_answered": len(quiet)
+        == FLEET["quiet_requests"] and not [s for s in sheds
+                                            if s[1] == "alice"],
+        "gate_fleet_passes": gate.exit_code() == 0,
+        "records_schema_valid": not invalid,
+        "records_name_the_card": all(
+            r.get("device_kind") == torch.cuda.get_device_name(0)
+            for r in records),
+        "no_kernel_launched": fk.launch_count == 0
+        and fk.lanes_launch_count == 0 and fk.softmax_launch_count == 0,
+    }
+    finish("fleet", {
+        "width": d, "replicas": FLEET["replicas"],
+        "clients": FLEET["clients"], "requests": n_main,
+        "start_s": start_s, "soak_s": soak_s,
+        "p50_ms": lat[len(lat) // 2] if lat else None,
+        "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+        if lat else None,
+        "requests_per_s": len(lat) / soak_s if soak_s else None,
+        "stats_main": stats_main, "stats": stats,
+        "served_by_replica_main": {
+            str(r): sum(1 for a in by_leg.get("main", []) if a[1] == r)
+            for r in range(FLEET["replicas"])},
+        "verdicts_seen": {str(r): sorted(v) for r, v in
+                          verdicts_of.items()},
+        "join_delta": delta, "sheds": len(flood_sheds),
+        "drops": drops[:3], "decisions": decisions,
+        "gate": {"pre_share": gate.pre_share, "post_share": gate.post_share,
+                 "refusals": gate.refusals},
+        "records": len(records), "invalid_records": len(invalid),
+        "children": results}, checks, t_phase, smi)
 
 
 def main(argv):
@@ -7721,6 +8149,10 @@ def main(argv):
                         metavar=("BACKEND", "ADDR", "WORLD", "RANK", "DIR"),
                         help="run one rank of phase 42's, 44's or 45's "
                              "process group (started by the script itself)")
+    parser.add_argument("--fleet-child", nargs=3,
+                        metavar=("REPLICA", "DIR", "SPEC"),
+                        help="run one replica of phase 52's fleet (started "
+                             "by the script itself)")
     parser.add_argument("--drill", metavar="JSON",
                         help="with --mp-child: the supervised fits of "
                              "phases 44-45 this rank runs")
@@ -7740,6 +8172,8 @@ def main(argv):
     torch.backends.cudnn.allow_tf32 = False
     if args.mp_child:
         return mp_child(port, args.mp_child, args.drill)
+    if args.fleet_child:
+        return fleet_child(args.fleet_child)
 
     # 1. device
     smi = gpu_name_and_power()
@@ -7912,10 +8346,15 @@ def main(argv):
     torch.cuda.empty_cache()
     mlp_path(port, device_synth, smi, fk, keep=served)
     torch.cuda.empty_cache()
-    # 50-51. the three models served; the train -> canary -> promote loop
+    # 50-52. the three models served; the train -> canary -> promote loop;
+    # the flagship model served by a fleet of replica processes
+    fleet_w = served["logistic"]
     serve_phase(port, fk, smi, served)
     served.clear()
     pipeline_phase(port, fk, smi, launches)
+    torch.cuda.empty_cache()
+    fleet_phase(port, fk, smi, fleet_w)
+    del fleet_w
     torch.cuda.empty_cache()
 
     # 19. X past one row in shared memory: the cluster mode, the grid

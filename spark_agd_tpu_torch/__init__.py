@@ -145,7 +145,8 @@ from .models.mlp import (  # noqa: F401
     mlp_gradient,
 )
 from . import obs  # noqa: F401
-from . import serve  # noqa: F401  (serving one process; pipeline/ beside it)
+from . import serve  # noqa: F401  (the serving plane; pipeline/ beside it)
+from .obs import Telemetry  # noqa: F401
 from .data.streaming import (  # noqa: F401
     StreamingDataset,
     make_streaming_eval_multi,

@@ -12,9 +12,20 @@ NOT_PORTED = ("is not ported yet: the PyTorch port runs data and model "
               "streamed")
 
 # option -> the later slice that carries it
+# (the bus itself, obs/telemetry.py, and resilience/journal.py are
+# ported; what still refuses them: api.run / make_runner and the L-BFGS
+# runners, data/streaming.py's smooths, data/ingest.py,
+# resilience/scheduler.py, resilience/degrade.py and
+# resilience/distributed.py's load_for_topology with its
+# DistributedCheckpointer, whose records need the instrumented spans of
+# utils/profiling.py and obs/introspect.py)
 _SLICES = {
-    "journal": "the observability slice, resilience/journal.py with obs/",
-    "telemetry": "the observability slice, obs/",
+    "journal": ("the profiling and analysis slice, the last of the "
+                "observability work: utils/profiling.py, "
+                "obs/introspect.py, analysis/"),
+    "telemetry": ("the profiling and analysis slice, the last of the "
+                  "observability work: utils/profiling.py, "
+                  "obs/introspect.py, analysis/"),
 }
 
 

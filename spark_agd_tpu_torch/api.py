@@ -338,7 +338,7 @@ def run(
     checkpoints and a corruption-tolerant resume.  ``return_result=True``
     then returns the ``SupervisedResult`` third, and ``verbose=True``
     logs one line of its retries and rollbacks.  ``journal=`` comes with
-    the observability slice and raises."""
+    the profiling and analysis slice and raises."""
     if initial_weights is None:
         raise ValueError("initial_weights is required")
     reject_later(journal=journal)

@@ -104,6 +104,7 @@ def run_agd(
     smooth_loss: Callable | None = None,
     warm: AGDWarmState | None = None,
     on_iteration: Callable | None = None,
+    telemetry_cb: Callable | None = None,
     shard_dot: Callable | None = None,
 ) -> AGDResult:
     """Run AGD from ``w0`` (or continue ``warm``, of which ``w0`` is then
@@ -115,6 +116,12 @@ def run_agd(
     (``beta >= 1``).  A warm run executes up to ``num_iterations``
     further iterations.  ``on_iteration(state_dict)`` is called after
     every outer iteration with the continuation carry (:func:`_carry`).
+    ``telemetry_cb(**scalars)`` (``obs.Telemetry.iteration_callback``)
+    is called once an iteration with the scalars JAX's loop passes its
+    callback (``it``, the 1-based iteration of this call, ``loss``,
+    ``big_l``, ``theta``, ``step``, ``restarted``), as 0-d CPU tensors
+    and a bool: the loop holds them on the host already, so the callback
+    adds no device sync, and ``None`` runs the same loop.
 
     ``shard_dot(a, b) -> 0-d tensor`` (the twin of JAX's ``axis_name=``,
     the sharded weight update): the carry is a sharded tree
@@ -258,6 +265,9 @@ def run_agd(
 
         restart = (cfg.may_restart and not done
                    and bool(s(_dot(g_y, tvec.sub(x, x_old))) > 0.0))
+        if telemetry_cb is not None:
+            telemetry_cb(it=it, loss=loss, big_l=big_l, theta=theta,
+                         step=diag_step[it - 1], restarted=restart)
         if restart:
             z = x
             theta = s(math.inf)

@@ -22,7 +22,7 @@ A single process degenerates to: read everything, shard like
 processes).  A partition read runs under the shared retry engine
 (``resilience.retry``), and freshly read partitions go through the
 ``validate=`` policy; ``data.streaming.StreamingDataset.from_libsvm_parts``
-shares both.  ``telemetry=`` comes with the observability slice and
+shares both.  ``telemetry=`` comes with the profiling and analysis slice and
 raises.
 """
 

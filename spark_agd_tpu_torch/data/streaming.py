@@ -447,7 +447,7 @@ class StreamingDataset:
           sleeps run under the watchdog and ``corrupt_shard`` garbles
           the file before the parse that finds it.
 
-        ``telemetry=`` comes with the observability slice and raises.
+        ``telemetry=`` comes with the profiling and analysis slice and raises.
         """
         from . import ingest, libsvm
 
@@ -1128,7 +1128,7 @@ def make_streaming_smooth(
     batch that cannot fit raises with the knob's name; it is inert
     without a mesh.  Build a CSR dataset with ``with_csc="lazy"`` for
     the mesh: the sharder builds each shard's twin.  ``telemetry=`` comes
-    with the observability slice and raises.
+    with the profiling and analysis slice and raises.
     """
     reject_later(telemetry=telemetry)
     if mesh is not None and mesh is not False:

@@ -1,18 +1,75 @@
-"""``spark_agd_tpu_torch.obs`` — observability.  This slice carries the
-JAX package's stdlib-only modules as copies: ``schema`` (the canonical
-run-record schema, which ``utils.logging`` and the pipeline's canary and
-promotion records are stamped with), ``sinks``, ``flight`` (the flight
-recorder), ``trace`` (span contexts; a near-copy whose ``process_index``
-reads ``torch.distributed``), ``timeline``, ``scaling`` and ``perfgate``
-(``gate_promotion`` grades the pipeline's canary).  The telemetry bus
-comes with the observability slice."""
+"""``spark_agd_tpu_torch.obs`` — observability.
 
+Counterpart of ``spark_agd_tpu/obs/``.  The stdlib-only modules are
+copies of the JAX package's: the metrics registry (``registry``), the
+event bus (``events``), the sinks, the canonical run-record schema
+(``schema``), the flight recorder (``flight``), ``timeline``,
+``scaling`` and ``perfgate``; ``trace`` (span contexts) and
+``telemetry`` are near-copies whose process index reads
+``torch.distributed``, and ``telemetry``'s bus stamps every record with
+the device and the torch and CUDA versions.
+
+Pass ``telemetry=Telemetry(...)`` to the serving plane
+(``ServeEngine``, ``MicroBatchQueue``, ``ModelRegistry``,
+``ReplicaServer``, ``FleetRouter``), the pipeline
+(``ContinuousTrainer``, ``CanaryController``, ``Promoter``) and the
+supervised fit (``run_agd_supervised``, ``AutoCheckpointer``,
+``ChaosSchedule``, ``HeartbeatWriter``, ``HostMonitor``): they emit the
+JAX package's records.  The compiled-program introspection
+(``introspect``, ``program_cost`` records) and the fit entry points'
+``telemetry=`` come with the profiling and analysis slice.
+"""
+
+from .registry import (  # noqa: F401
+    Counter,
+    Gauge,
+    MetricsRegistry,
+    SpanTimer,
+    default_registry,
+)
+from .events import EventBus  # noqa: F401
+from .sinks import (  # noqa: F401
+    CSVSink,
+    InMemorySink,
+    JSONLSink,
+    LoggingSink,
+    Sink,
+    TensorBoardSink,
+)
+from .telemetry import Telemetry  # noqa: F401
 from . import (  # noqa: F401
     flight,
     perfgate,
     scaling,
     schema,
-    sinks,
     timeline,
     trace,
+)
+from .flight import FlightRecorder, dump_on_failure, load_dump  # noqa: F401
+from .trace import SpanContext, TracedSpan  # noqa: F401
+from .scaling import (  # noqa: F401
+    ContentionPolicy,
+    ContentionSentinel,
+    CurvePolicy,
+    CurveVerdict,
+    SpinProbe,
+    check_curve,
+    environment_key,
+    fit_serial_fraction,
+    host_fingerprint,
+    weak_scaling_efficiency,
+)
+from .schema import (  # noqa: F401
+    SCHEMA_VERSION,
+    attempt_record,
+    iteration_record,
+    new_run_id,
+    numerics_failure_record,
+    program_cost_record,
+    read_jsonl,
+    recovery_record,
+    run_record,
+    span_record,
+    stamp,
+    validate_record,
 )

@@ -32,7 +32,7 @@ other.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -166,6 +166,7 @@ class ShardedUpdateBuild:
             "config) (api.make_runner and the supervisor do)")
 
     def make_agd_run(self, prox, reg_value, config: "agd.AGDConfig", *,
+                     telemetry_cb: Optional[Callable] = None,
                      poison: bool = False,
                      warm_entry: bool = False) -> Callable:
         """``run(carry, data_args) -> AGDResult`` over full weight trees.
@@ -175,7 +176,9 @@ class ShardedUpdateBuild:
         sharding and the gathering happen inside.  ``poison=True`` wraps
         the shard smooth with the fault injector (the supervisor's
         drills).  ``reg_value`` is the plain penalty of a tree; the slots'
-        values of their shards are added here."""
+        values of their shards are added here.  ``telemetry_cb`` is
+        ``core.agd.run_agd``'s (the loop runs once for every slot, so it
+        is called once an iteration)."""
         mesh, gradient, dtype = self.mesh, self.gradient, self.dtype
         n_shards = mesh.shape[self.data_axis]
 
@@ -225,7 +228,7 @@ class ShardedUpdateBuild:
 
             res = agd.run_agd(
                 smooth, prox_sh, rv_sh, w0, config, smooth_loss=smooth_loss,
-                warm=warm,
+                warm=warm, telemetry_cb=telemetry_cb,
                 shard_dot=lambda a, b: layout.dot(a, b, mesh))
             # exit gather: results speak full trees, so checkpoints and a
             # resume in the other mode compose

@@ -16,17 +16,19 @@ candidate vs HEAD (``models.evaluation.log_loss``, relative threshold)
 AND shadow p50/p99 vs HEAD's percentiles.  Torn candidates
 (``CheckpointCorruptError``), spec mismatches (checked BEFORE a shadow
 engine is built) and thin shadow traffic all refuse rather than
-judge.  Every window's record is built by
-``obs.schema.canary_record`` and passes its validator.
+judge, and so does a window that ``contention_check()`` flags as noisy.
+Every window's record is built by ``obs.schema.canary_record`` and
+passes its validator; with ``telemetry=`` it is emitted (a ``canary``
+record inside a ``canary`` trace span, with the shadow leg's
+``serve_latency`` rollup).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import List, Optional
+from typing import Callable, List, Optional
 
-from .._later import reject_later
 from ..models.evaluation import log_loss
 from ..obs import perfgate, schema
 from ..serve.engine import ServeEngine, spec_of
@@ -50,7 +52,10 @@ class CanaryReport:
 class CanaryController:
     """See module docstring.
 
-    ``holdout=(Xv, yv)`` is the quality leg's held-out set.
+    ``holdout=(Xv, yv)`` is the quality leg's held-out set;
+    ``contention_check()`` (optional) flags a noisy measurement window
+    (the scaling observatory's sentinel doctrine): a flagged window
+    refuses the latency leg instead of grading on it.
     """
 
     def __init__(self, registry, engine, queue, *, telemetry=None,
@@ -60,19 +65,21 @@ class CanaryController:
                  perfgate.DEFAULT_QUALITY_THRESHOLD,
                  thresholds: Optional[dict] = None,
                  min_shadow_requests: int =
-                 perfgate.DEFAULT_MIN_SHADOW_REQUESTS):
-        reject_later(telemetry=telemetry)
+                 perfgate.DEFAULT_MIN_SHADOW_REQUESTS,
+                 contention_check: Optional[Callable[[], bool]] = None):
         if not 0.0 < slice_fraction <= 1.0:
             raise ValueError(
                 f"slice_fraction must be in (0, 1], got {slice_fraction}")
         self.registry = registry
         self.engine = engine
         self.queue = queue
+        self.telemetry = telemetry
         self.holdout = holdout
         self.slice_fraction = float(slice_fraction)
         self.quality_threshold = float(quality_threshold)
         self.thresholds = dict(thresholds or {})
         self.min_shadow_requests = int(min_shadow_requests)
+        self.contention_check = contention_check
         self._lock = threading.Lock()
         self._reset_window()
 
@@ -83,6 +90,7 @@ class CanaryController:
         self._shadow_futures: List = []
         self._seen = 0
         self._mirrored = 0
+        self._span = None
         self._epoch: Optional[int] = None
         self._quality_override: Optional[float] = None
         self._preflight_refusals: List[str] = []
@@ -142,6 +150,10 @@ class CanaryController:
                                "finish_canary() first")
         self._epoch = epoch
         self._quality_override = quality_override
+        if self.telemetry is not None:
+            self._span = self.telemetry.trace_span(
+                "canary", generation=int(generation), tool="pipeline")
+            self._span.__enter__()
         try:
             loaded = self.registry.load(int(generation))
         except (LookupError, CheckpointCorruptError) as e:
@@ -162,10 +174,11 @@ class CanaryController:
         self._candidate = loaded
         self._shadow_engine = ServeEngine(
             loaded.model, generation=loaded.generation,
-            max_batch=self.engine.max_batch, device=self.engine.device)
+            max_batch=self.engine.max_batch, telemetry=self.telemetry,
+            device=self.engine.device)
         with self._lock:
             self._shadow_queue = MicroBatchQueue(
-                self._shadow_engine).start()
+                self._shadow_engine, telemetry=self.telemetry).start()
         return True
 
     def finish_canary(self) -> CanaryReport:
@@ -210,6 +223,8 @@ class CanaryController:
             except Exception:  # noqa: BLE001
                 pass  # the summary's error count carries the evidence
         shadow = sq.latency_summary()
+        if self.telemetry is not None:
+            sq.emit_latency()
         sq.stop()
         head = self.queue.latency_summary()
 
@@ -219,6 +234,8 @@ class CanaryController:
                 fields[metric] = shadow[metric]
             if metric in head:
                 fields[f"baseline_{metric}"] = head[metric]
+        if self.contention_check is not None:
+            fields["contention_flagged"] = bool(self.contention_check())
         if self.holdout is not None and baseline is not None:
             Xv, yv = self.holdout
             qb = float(log_loss(
@@ -258,12 +275,20 @@ class CanaryController:
     def _close(self, verdict: str, generation: int, fields: dict,
                gate) -> CanaryReport:
         refusals = list(fields.get("refusals", []))
-        rec = schema.canary_record("(untracked)", int(generation),
-                                   verdict, **fields)
+        if self.telemetry is not None:
+            rec = self.telemetry.canary(
+                generation=int(generation), verdict=verdict, **fields)
+        else:
+            rec = schema.canary_record("(untracked)", int(generation),
+                                       verdict, **fields)
         report = CanaryReport(
             generation=int(generation),
             baseline_generation=fields.get("baseline_generation"),
             verdict=verdict, record=rec, gate=gate,
             refusals=refusals, epoch=self._epoch)
+        span = self._span
         self._reset_window()
+        if span is not None:
+            span.note(verdict=verdict)
+            span.__exit__(None, None, None)
         return report

@@ -12,7 +12,12 @@ built by ``obs.schema.promotion_record``:
   the optional ``post_check`` against the LIVE generation held;
 - ``rolled_back``: the post-repoint check FAILED — the promoter repoints
   HEAD back to the generation that served before (or walks
-  ``registry.previous()`` back to the prior verifiable generation).
+  ``registry.previous()`` back to the prior verifiable generation),
+  and with ``telemetry=`` emits the ``rollback_generation`` recovery
+  record and dumps the flight ring.
+
+With ``telemetry=`` each decision runs inside a ``promotion`` trace span
+and its record is emitted.
 
 ``post_check(loaded) -> (ok, reason)`` is the promoter's last line of
 defense — it runs AFTER the repoint, against the generation that is
@@ -23,11 +28,11 @@ cannot stay in production.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional, Tuple
 
-from .._later import reject_later
-from ..obs import schema
+from ..obs import flight as flight_lib, schema
 from ..utils.checkpoint import CheckpointCorruptError
 from .canary import CanaryReport
 
@@ -51,14 +56,29 @@ class Promoter:
     def __init__(self, registry, engine=None, *, telemetry=None,
                  post_check: Optional[
                      Callable[..., Tuple[bool, str]]] = None):
-        reject_later(telemetry=telemetry)
         self.registry = registry
         self.engine = engine
+        self.telemetry = telemetry
         self.post_check = post_check
 
     def decide(self, report: CanaryReport) -> PromotionDecision:
-        current = self.registry.current
-        from_gen = current.generation if current is not None else None
+        span = (self.telemetry.trace_span(
+                    "promotion",
+                    candidate_generation=int(report.generation),
+                    tool="pipeline")
+                if self.telemetry is not None else None)
+        with span if span is not None else contextlib.nullcontext():
+            current = self.registry.current
+            from_gen = (current.generation
+                        if current is not None else None)
+            decision = self._decide_locked(report, from_gen)
+            if span is not None:
+                span.note(decision=decision.decision,
+                          to_generation=decision.to_generation)
+            return decision
+
+    def _decide_locked(self, report: CanaryReport,
+                       from_gen: Optional[int]) -> PromotionDecision:
         evidence = {
             "verdict": report.verdict,
             "canary_refusals": list(report.refusals),
@@ -98,6 +118,17 @@ class Promoter:
                 break
             except (LookupError, CheckpointCorruptError):
                 target = self.registry.previous(target)
+        if self.telemetry is not None:
+            rec_fields = {"from_generation": int(report.generation),
+                          "reason": reason[:200],
+                          "source": "pipeline.promote",
+                          "tool": "pipeline"}
+            if rolled_to is not None:
+                rec_fields["generation"] = int(rolled_to)
+            self.telemetry.recovery(action="rollback_generation",
+                                    **rec_fields)
+            flight_lib.dump_on_failure(self.telemetry,
+                                       "promotion_rollback")
         return self._emit("rolled_back", report, from_gen, rolled_to,
                           "failed", evidence,
                           reason="post-promotion check failed: "
@@ -120,7 +151,11 @@ class Promoter:
             fields["epoch"] = int(report.epoch)
         if report.refusals:
             fields["refusals"] = list(report.refusals)
-        rec = schema.promotion_record("(untracked)", decision, **fields)
+        if self.telemetry is not None:
+            rec = self.telemetry.promotion(decision=decision, **fields)
+        else:
+            rec = schema.promotion_record("(untracked)", decision,
+                                          **fields)
         return PromotionDecision(
             decision=decision,
             candidate_generation=int(report.generation),

@@ -21,6 +21,7 @@ kernel.  The epoch's data and the weights go to the trainer's device
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -28,7 +29,6 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .._later import reject_later
 from ..core import agd
 from ..core import smooth as smooth_lib
 from ..core import tvec
@@ -79,7 +79,6 @@ class ContinuousTrainer:
                  checkpoint_keep: int = 2,
                  weight_fault: Optional[Callable] = None,
                  device=None):
-        reject_later(telemetry=telemetry)
         self.device = resolve_device(device)
         self.registry = registry
         self.gradient = gradient
@@ -88,6 +87,7 @@ class ContinuousTrainer:
         self.config = config or agd.AGDConfig()
         self.make_model = make_model
         self.policy = policy
+        self.telemetry = telemetry
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = checkpoint_every
         self.checkpoint_keep = max(1, int(checkpoint_keep))
@@ -106,19 +106,25 @@ class ContinuousTrainer:
         unchanged inside the epoch."""
         self.epoch += 1
         epoch = self.epoch
-        build, dargs = smooth_lib.make_smooth_staged(
-            self.gradient, _on(X, self.device), _on(y, self.device),
-            _on(mask, self.device))
-        if self._build is None:
-            self._build = build
-        result = run_agd_supervised(
-            prox=self.prox, reg_value=self.reg_value,
-            w0=self.weights, config=self.config,
-            policy=self.policy, checkpointer=self._checkpointer(epoch),
-            staged=(self._build, dargs),
-            seg_cache=self._seg_cache,
-            stream_iterations=False)
-        return self._publish(epoch, result)
+        span = (self.telemetry.trace_span("pipeline_epoch",
+                                          epoch=epoch, tool="pipeline")
+                if self.telemetry is not None else None)
+        with span if span is not None else contextlib.nullcontext():
+            build, dargs = smooth_lib.make_smooth_staged(
+                self.gradient, _on(X, self.device), _on(y, self.device),
+                _on(mask, self.device))
+            if self._build is None:
+                self._build = build
+            checkpointer = self._checkpointer(epoch)
+            result = run_agd_supervised(
+                prox=self.prox, reg_value=self.reg_value,
+                w0=self.weights, config=self.config,
+                policy=self.policy, telemetry=self.telemetry,
+                checkpointer=checkpointer,
+                staged=(self._build, dargs),
+                seg_cache=self._seg_cache,
+                stream_iterations=False)
+            return self._publish(epoch, span, result)
 
     def run_epoch_streamed(self, dataset, *, prefetch: int = 0,
                            stream_every_batches: Optional[int] = None,
@@ -135,28 +141,36 @@ class ContinuousTrainer:
         fold's cursor every N batches, so a preemption mid-pass resumes
         from the last committed batch instead of the epoch boundary.
         ``on_commit(count)`` is a drill's kill hook.  ``prefetch`` is
-        the background ingest depth of ``fold_stream``."""
+        the background ingest depth of ``fold_stream``.  With a
+        ``telemetry``, the streamed smooth's own records
+        (``stream_epoch``) come with the profiling and analysis slice:
+        ``make_streaming_smooth(telemetry=)`` raises until then."""
         from ..data import streaming
 
         self.epoch += 1
         epoch = self.epoch
-        checkpointer = self._checkpointer(epoch)
-        stream_ckpt = None
-        if checkpointer is not None and stream_every_batches:
-            stream_ckpt = streaming.StreamCheckpoint(
-                checkpointer, every_batches=int(stream_every_batches),
-                on_commit=on_commit)
-        sm, sl = streaming.make_streaming_smooth(
-            self.gradient, dataset, mesh=mesh, pad_to=pad_to,
-            prefetch=prefetch, stream_ckpt=stream_ckpt,
-            device=None if mesh is not None else self.device)
-        result = run_agd_supervised(
-            smooth=sm, smooth_loss=sl, prox=self.prox,
-            reg_value=self.reg_value, w0=self.weights,
-            config=self.config, policy=self.policy,
-            checkpointer=checkpointer, driver="host",
-            stream_iterations=False)
-        return self._publish(epoch, result)
+        span = (self.telemetry.trace_span(
+            "pipeline_epoch", epoch=epoch, tool="pipeline",
+            streamed=True) if self.telemetry is not None else None)
+        with span if span is not None else contextlib.nullcontext():
+            checkpointer = self._checkpointer(epoch)
+            stream_ckpt = None
+            if checkpointer is not None and stream_every_batches:
+                stream_ckpt = streaming.StreamCheckpoint(
+                    checkpointer, every_batches=int(stream_every_batches),
+                    on_commit=on_commit)
+            sm, sl = streaming.make_streaming_smooth(
+                self.gradient, dataset, mesh=mesh, pad_to=pad_to,
+                prefetch=prefetch, stream_ckpt=stream_ckpt,
+                telemetry=self.telemetry,
+                device=None if mesh is not None else self.device)
+            result = run_agd_supervised(
+                smooth=sm, smooth_loss=sl, prox=self.prox,
+                reg_value=self.reg_value, w0=self.weights,
+                config=self.config, policy=self.policy,
+                telemetry=self.telemetry, checkpointer=checkpointer,
+                driver="host", stream_iterations=False)
+            return self._publish(epoch, span, result)
 
     def _checkpointer(self, epoch: int) -> Optional[AutoCheckpointer]:
         if self.checkpoint_path is None:
@@ -165,11 +179,13 @@ class ContinuousTrainer:
             f"{self.checkpoint_path}.e{epoch:03d}.npz",
             every_iters=(self.checkpoint_every
                          or self.config.num_iterations),
-            keep=self.checkpoint_keep)
+            keep=self.checkpoint_keep,
+            telemetry=self.telemetry)
 
-    def _publish(self, epoch: int, result) -> EpochResult:
-        """The shared epoch tail: warm-start carry and the candidate's
-        publish through the manifest commit protocol."""
+    def _publish(self, epoch: int, span, result) -> EpochResult:
+        """The shared epoch tail: warm-start carry, the candidate's
+        publish through the manifest commit protocol, span
+        annotation."""
         self.weights = result.weights
         self.total_iters += result.num_iters
         final_loss = (float(result.loss_history[-1])
@@ -181,6 +197,11 @@ class ContinuousTrainer:
             self.make_model(publish_w),
             converged=result.converged,
             prior_iters=self.total_iters)
+        if span is not None:
+            span.note(generation=generation, final_loss=final_loss,
+                      iters=result.num_iters,
+                      retries=result.retries,
+                      rollbacks=result.rollbacks)
         return EpochResult(epoch=epoch, generation=generation,
                            final_loss=final_loss,
                            weights=result.weights, result=result)

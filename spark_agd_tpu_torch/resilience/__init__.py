@@ -6,13 +6,16 @@ copies of the JAX package's stdlib-only modules), fault injection
 (``faults``), the preemption-safe ``AutoCheckpointer`` (``autockpt``),
 the fault-aware supervisor (``supervisor``: retries, rollbacks,
 checkpoints, heartbeats, host monitoring, straggler scheduling) and
-seeded chaos campaigns (``chaos``).  Across processes: checksummed
+seeded chaos campaigns (``chaos``, the replica kinds of the serving
+fleet among them), and the crash-safe recovery journal (``journal``, a
+copy).  Across processes: checksummed
 generation manifests (``manifest``, a copy), the barrier-committed
 ``DistributedCheckpointer`` with elastic resume, ``HeartbeatWriter``
 and ``HostMonitor`` (``distributed``), quorum degradation (``degrade``)
 and the straggler scheduler with speculative segments (``scheduler``).
 ``api.run(..., resilience=ResiliencePolicy(...))`` is the one-argument
-entry point.  ``journal`` comes with the observability slice."""
+entry point; its ``journal=`` comes with the profiling and analysis
+slice."""
 
 from .errors import (  # noqa: F401
     FATAL,
@@ -54,6 +57,8 @@ from .distributed import (  # noqa: F401
     LoadedDistCheckpoint,
     load_for_topology,
 )
+from . import journal  # noqa: F401
+from .journal import Journal, JournalSink  # noqa: F401
 from . import chaos  # noqa: F401
 from .chaos import (  # noqa: F401
     ChaosCampaign,

@@ -35,7 +35,6 @@ from typing import Any, Optional
 
 import numpy as np
 
-from .._later import reject_later
 from ..utils import checkpoint as ckpt
 from .errors import Preempted
 
@@ -50,8 +49,10 @@ def generation_paths(path: str, keep: int) -> list:
 
 
 class AutoCheckpointer:
-    """See the module docstring.  ``telemetry=`` comes with the
-    observability slice and raises.
+    """See the module docstring.  ``telemetry`` (``obs.Telemetry``,
+    optional) receives one ``recovery`` record for each checkpoint
+    written, generation skipped, resume and preemption flush, as the
+    JAX package's does.
 
     :meth:`update` stores the latest state (its host copy) before it
     tests the cadence, so a signal at any point flushes a state no older
@@ -70,7 +71,6 @@ class AutoCheckpointer:
                  fingerprint: Optional[str] = None,
                  telemetry=None,
                  clock=time.monotonic):
-        reject_later(telemetry=telemetry)
         if keep < 1:
             raise ValueError("keep must be >= 1")
         if every_iters is not None and every_iters < 1:
@@ -82,6 +82,7 @@ class AutoCheckpointer:
         self.every_seconds = every_seconds
         self.keep = keep
         self.fingerprint = fingerprint
+        self.telemetry = telemetry
         self._clock = clock
         self._last_saved_iters: Optional[int] = None
         self._last_saved_t: Optional[float] = None
@@ -154,19 +155,20 @@ class AutoCheckpointer:
             if self._latest is None:
                 return False
             self._extra = dict(extra)
-            self._save(*self._latest)
+            self._save(*self._latest, action="checkpoint")
             return True
 
     def flush(self, *, reason: str = "flush") -> bool:
-        """Write the latest known state (False when none was seen).
-        ``reason`` names the action in the JAX package's records."""
+        """Write the latest known state (False when none was seen);
+        ``reason`` names the action of its ``recovery`` record."""
         with self._lock:
             if self._latest is None:
                 return False
-            self._save(*self._latest)
+            self._save(*self._latest, action=reason)
             return True
 
-    def _save(self, warm, hist, converged, aborted) -> None:
+    def _save(self, warm, hist, converged, aborted, *,
+              action: str = "checkpoint") -> None:
         t0 = time.perf_counter()
         self._rotate()
         ckpt.save_checkpoint(
@@ -176,6 +178,10 @@ class AutoCheckpointer:
         self._last_saved_iters = int(warm.prior_iters)
         self._last_saved_t = self._clock()
         self.saves += 1
+        if self.telemetry is not None:
+            self.telemetry.recovery(
+                action=action, path=self.path,
+                to_iter=int(warm.prior_iters), source="autockpt")
 
     def _rotate(self) -> None:
         """Shift the retention chain one slot (the oldest generation
@@ -193,8 +199,9 @@ class AutoCheckpointer:
         """Walk the generation chain newest to oldest; return the first
         loadable checkpoint (fingerprint-checked, its leaves on
         ``template``'s device), skipping corrupt generations with a
-        warning each.  None when no generation exists or survives: a
-        chain of corrupt files resumes from scratch."""
+        warning and a ``recovery`` record each.  None when no generation
+        exists or survives: a chain of corrupt files resumes from
+        scratch."""
         found_any = False
         for gen, path in enumerate(generation_paths(self.path, self.keep)):
             if not os.path.exists(path):
@@ -207,8 +214,17 @@ class AutoCheckpointer:
             except ckpt.CheckpointCorruptError as e:
                 ckpt.logger.warning("skipping corrupt checkpoint "
                                     "generation %d: %s", gen, e)
+                if self.telemetry is not None:
+                    self.telemetry.recovery(
+                        action="checkpoint_fallback", path=path,
+                        generation=gen, reason=str(e), source="autockpt")
                 continue
             if loaded is not None:
+                if gen > 0 and self.telemetry is not None:
+                    self.telemetry.recovery(
+                        action="resume", path=path, generation=gen,
+                        to_iter=int(loaded.warm.prior_iters),
+                        source="autockpt")
                 # seed the cadence so the next segment does not save
                 # again what was just read
                 self._last_saved_iters = int(loaded.warm.prior_iters)

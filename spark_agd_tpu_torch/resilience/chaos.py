@@ -30,16 +30,19 @@ NUMERIC, rollback), ``device_loss`` (TRANSIENT, retry), ``slow_host``
 ``sigkill`` (a dead host), ``fatal`` (:class:`InjectedFatalError`, FATAL,
 a typed give-up), ``truncate_ckpt`` and ``scramble_ckpt`` (corrupt the
 newest checkpoint at the next relaunch), the replica kinds
-``slow_replica`` and ``kill_replica`` (data here: their fleet draw,
-their schedule and ``before_request`` come with the serving slice, and
-:class:`ChaosSchedule` refuses them until then), and the reader kinds
+``slow_replica`` (sleep before serving a request, one-shot or
+persistent) and ``kill_replica`` (SIGKILL at a request boundary), which
+a serving replica (``serve.fleet``) fires through
+``before_request(request_index)`` (``at_iter`` = the request index),
+and the reader kinds
 ``slow_reader``, ``corrupt_shard`` and ``hang_reader``, which
 ``data.streaming.StreamingDataset.from_libsvm_parts(chaos=)`` fires
 through ``before_shard(visit, path=...)`` inside each retried shard
 load (``at_iter`` = the cumulative shard visit).
 
 Iterations, targets, payloads and corruption bytes all derive from the
-campaign seed.
+campaign seed.  ``telemetry=`` emits one ``chaos`` record a fired fault
+(flushed before a kill, so the kill is on record).
 """
 
 from __future__ import annotations
@@ -53,7 +56,6 @@ from typing import (Any, Callable, List, NamedTuple, Optional, Sequence,
 
 import numpy as np
 
-from .._later import NOT_PORTED, reject_later
 from . import faults as faults_lib
 from .autockpt import AutoCheckpointer, generation_paths
 from .errors import Preempted, SimulatedDeviceLoss, SupervisorGivingUp
@@ -61,8 +63,8 @@ from .errors import Preempted, SimulatedDeviceLoss, SupervisorGivingUp
 IN_RUN_KINDS = ("nan", "device_loss", "slow_host", "sigterm", "sigkill",
                 "fatal")
 FILE_KINDS = ("truncate_ckpt", "scramble_ckpt")
-# replica-scoped serve-fleet faults (``at_iter`` = request index), fired
-# per admitted request by the serving slice; appended
+# replica-scoped serve-fleet faults, fired per admitted request via
+# ChaosSchedule.before_request (``at_iter`` = request index); appended
 # AFTER the existing kinds so FAULT_KINDS.index-based sort keys (and
 # every seeded campaign that derives from them) are unchanged
 REPLICA_KINDS = ("slow_replica", "kill_replica")
@@ -134,41 +136,49 @@ class ChaosSchedule:
     writer) is beaten ``phase="slow"`` at the start of every injected
     sleep and every ``beat_interval_s`` during it, so a sleep longer
     than a monitor's staleness window reads as SLOW, not LOST
-    (``distributed.HostMonitor.verdicts``).  ``telemetry=`` (the
-    ``chaos`` records) comes with the observability slice and raises;
-    the replica kinds (``before_request``) come with the serving slice,
-    and a schedule of them raises."""
+    (``distributed.HostMonitor.verdicts``).
+
+    ``telemetry`` (optional): one ``chaos`` record a fired fault,
+    flushed before a sigkill or kill_replica is delivered, so the kill
+    itself is on record.  The replica kinds fire at request boundaries
+    (:meth:`before_request`), never at segment boundaries."""
 
     def __init__(self, faults: Sequence[ScheduledFault], *,
                  telemetry=None, seed: Optional[int] = None,
                  sleep: Callable[[float], None] = time.sleep,
                  slow_scale: Optional[Callable[[], float]] = None,
                  beat_interval_s: float = 0.25):
-        reject_later(telemetry=telemetry)
         for f in faults:
             if f.kind in FILE_KINDS:
                 raise ValueError(
                     f"{f.kind!r} is a FILE fault — applied by the "
                     "campaign driver at relaunch boundaries, not by "
                     "the in-run schedule (ChaosCampaign.file_faults)")
-            if f.kind in REPLICA_KINDS:
-                raise NotImplementedError(
-                    f"{f.kind!r} is a replica fault, fired per request "
-                    f"by a serving replica: {NOT_PORTED} (it arrives in "
-                    "a later slice: the serving slice, serve/)")
         ordered = sorted(faults, key=lambda f: (f.at_iter,
                                                 FAULT_KINDS.index(f.kind)))
         self._poison = [f for f in ordered if f.kind == "nan"]
         self._persistent = [f for f in ordered
                             if f.kind == "slow_host" and f.persist]
         self._persist_fired = [0] * len(self._persistent)
+        # replica-scoped faults fire at REQUEST boundaries
+        # (before_request), never at segment boundaries: keeping them
+        # out of _pending keeps before_segment's interrupt loop exact
+        self._replica_persistent = [f for f in ordered
+                                    if f.kind == "slow_replica"
+                                    and f.persist]
+        self._replica_fired = [0] * len(self._replica_persistent)
+        self._replica_pending = [f for f in ordered
+                                 if f.kind in REPLICA_KINDS
+                                 and not f.persist]
         # reader-scoped faults fire at SHARD visits (before_shard),
         # never at segment boundaries
         self._reader_pending = [f for f in ordered
                                 if f.kind in READER_KINDS]
         self._pending = [f for f in ordered
                          if f.kind != "nan" and not f.persist
-                         and f.kind not in READER_KINDS]
+                         and f.kind not in READER_KINDS
+                         and f.kind not in REPLICA_KINDS]
+        self._telemetry = telemetry
         self.seed = seed  # the campaign's
         self._sleep = sleep
         self._slow_scale = slow_scale
@@ -181,8 +191,20 @@ class ChaosSchedule:
         does), so injected sleeps keep beating (class docstring)."""
         self._heartbeat = heartbeat
 
-    def _emit(self, fault: ScheduledFault, global_iter: int) -> None:
+    def _emit(self, fault: ScheduledFault, global_iter: int,
+              payload: Optional[float] = None) -> None:
         self.fired.append((fault.kind, global_iter))
+        if self._telemetry is not None:
+            fields = {"at_iter": int(fault.at_iter),
+                      "fired_iter": int(global_iter)}
+            if fault.process is not None:
+                fields["process"] = int(fault.process)
+            eff = fault.payload if payload is None else payload
+            if eff:
+                fields["payload"] = float(eff)
+            if self.seed is not None:
+                fields["seed"] = int(self.seed)
+            self._telemetry.chaos(fault=fault.kind, **fields)
 
     def _scale(self) -> float:
         return (max(0.0, float(self._slow_scale()))
@@ -218,7 +240,7 @@ class ChaosSchedule:
             if eff > 1e-9:
                 # a straggler rebalanced fully away, or fully decayed,
                 # goes quiet
-                self._emit(f, global_iter)
+                self._emit(f, global_iter, payload=eff)
                 self._slow_sleep(eff, global_iter)
         while self._pending and self._pending[0].at_iter <= global_iter:
             f = self._pending.pop(0)
@@ -228,6 +250,8 @@ class ChaosSchedule:
                                  * self._scale(), global_iter)
                 continue  # a straggler interrupts nothing
             if f.kind == "sigkill":
+                if self._telemetry is not None:
+                    self._telemetry.flush()  # the kill must be on record
                 os.kill(os.getpid(), signal_lib.SIGKILL)
             if f.kind == "sigterm":
                 signal_lib.raise_signal(signal_lib.SIGTERM)
@@ -240,6 +264,37 @@ class ChaosSchedule:
                 raise InjectedFatalError(
                     f"injected fatal config error at iteration "
                     f"{global_iter}")
+
+    def before_request(self, request_index: int) -> None:
+        """The serve-fleet mirror of :meth:`before_segment`: a replica
+        calls this once per admitted request (``at_iter`` for replica
+        kinds = request index).  Persistent ``slow_replica`` faults
+        sleep at every request at or past their index (with the same
+        ``phase="slow"`` heartbeat sub-beats, so a slowed replica reads
+        SLOW and never LOST); one-shot ``slow_replica`` sleeps once;
+        ``kill_replica`` flushes telemetry and self-delivers SIGKILL."""
+        for i, f in enumerate(self._replica_persistent):
+            if f.at_iter > request_index:
+                continue
+            eff = float(f.payload) * (float(f.decay)
+                                      ** self._replica_fired[i])
+            eff *= self._scale()
+            self._replica_fired[i] += 1
+            if eff > 1e-9:
+                self._emit(f, request_index, payload=eff)
+                self._slow_sleep(eff, request_index)
+        while self._replica_pending \
+                and self._replica_pending[0].at_iter <= request_index:
+            f = self._replica_pending.pop(0)
+            self._emit(f, request_index)
+            if f.kind == "slow_replica":
+                self._slow_sleep(float(f.payload) or 0.25,
+                                 request_index)
+                continue
+            if f.kind == "kill_replica":
+                if self._telemetry is not None:
+                    self._telemetry.flush()  # the kill must be on record
+                os.kill(os.getpid(), signal_lib.SIGKILL)
 
     def before_shard(self, visit_index: int,
                      path: Optional[str] = None) -> None:
@@ -288,7 +343,8 @@ class ChaosSchedule:
         re-fire at every boundary by design, so counting them would
         make a degraded-host campaign read as eternally unfinished."""
         return (not self._pending and not self._poison
-                and not self._reader_pending)
+                and not self._reader_pending
+                and not self._replica_pending)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -377,6 +433,46 @@ class ChaosCampaign:
         return cls(seed=int(seed), faults=tuple(out), iters=int(iters),
                    process_count=int(process_count))
 
+    @classmethod
+    def generate_fleet(cls, seed: int, *, requests: int = 64,
+                       replica_count: int = 3, max_faults: int = 2,
+                       p_kill: float = 0.5) -> "ChaosCampaign":
+        """Draw one normalized replica-scoped fleet campaign,
+        deterministic in ``seed`` and equal to the JAX package's draw
+        (a separate draw path from :meth:`generate`).  Faults arm in the
+        first ~70% of the request budget; every fault targets ONE
+        replica (``process`` = replica index) and no replica is hit
+        twice, so at least one replica always stays healthy; with
+        probability ``p_kill`` a fault is ``kill_replica``, otherwise a
+        persistent ``slow_replica`` with a sub-1 decay."""
+        if replica_count < 2:
+            raise ValueError("a fleet campaign needs >= 2 replicas "
+                             "(one fault victim plus one survivor)")
+        rng = np.random.default_rng(int(seed))
+        n = int(rng.integers(1, max(2, max_faults + 1)))
+        n = min(n, replica_count - 1)  # one survivor, always
+        hi = max(3, int(requests * 0.7))
+        req_at = sorted(rng.choice(
+            np.arange(1, hi), size=min(n, hi - 1), replace=False))
+        victims = rng.choice(np.arange(replica_count),
+                             size=len(req_at), replace=False)
+        out = []
+        for at, victim in zip(req_at, victims):
+            if float(rng.random()) < p_kill:
+                out.append(ScheduledFault(
+                    kind="kill_replica", at_iter=int(at),
+                    process=int(victim)))
+            else:
+                out.append(ScheduledFault(
+                    kind="slow_replica", at_iter=int(at),
+                    process=int(victim),
+                    payload=float(rng.uniform(0.05, 0.2)),
+                    persist=True,
+                    decay=float(rng.uniform(0.85, 1.0))))
+        return cls(seed=int(seed), faults=tuple(out),
+                   iters=int(requests),
+                   process_count=int(replica_count))
+
     @property
     def expects_giveup(self) -> bool:
         return any(f.kind == "fatal" for f in self.faults)
@@ -388,6 +484,18 @@ class ChaosCampaign:
         target it or every process."""
         mine = [f for f in self.faults if f.kind in IN_RUN_KINDS
                 and (f.process is None or f.process == int(process))]
+        return ChaosSchedule(mine, telemetry=telemetry, seed=self.seed,
+                             sleep=sleep)
+
+    def schedule_for_replica(self, replica: int, *, telemetry=None,
+                             sleep: Callable[[float], None] = time.sleep,
+                             ) -> ChaosSchedule:
+        """The per-replica in-run schedule of a fleet campaign: the
+        REPLICA_KINDS faults targeting ``replica`` (a ``process`` of
+        None means every replica), behind the same ChaosSchedule
+        interface; the replica drives it via ``before_request``."""
+        mine = [f for f in self.faults if f.kind in REPLICA_KINDS
+                and (f.process is None or f.process == int(replica))]
         return ChaosSchedule(mine, telemetry=telemetry, seed=self.seed,
                              sleep=sleep)
 
@@ -418,7 +526,7 @@ class CampaignResult(NamedTuple):
 
 
 def _apply_file_fault(fault: ScheduledFault, ckpt_path: str, keep: int,
-                      seed: int) -> Optional[str]:
+                      seed: int, telemetry=None) -> Optional[str]:
     """Corrupt the newest EXISTING generation of the checkpoint chain
     per the fault's kind/payload; returns what was done (None when no
     checkpoint file exists yet to corrupt)."""
@@ -435,6 +543,9 @@ def _apply_file_fault(fault: ScheduledFault, ckpt_path: str, keep: int,
         faults_lib.scramble_file(target, seed=seed ^ fault.at_iter,
                                  n_bytes=n)
         what = f"scramble_ckpt:{os.path.basename(target)}:{n}B"
+    if telemetry is not None:
+        telemetry.chaos(fault=fault.kind, at_iter=int(fault.at_iter),
+                        outcome=what, seed=int(seed))
     return what
 
 
@@ -459,12 +570,12 @@ def run_campaign(
     fault count (every in-run fault is one-shot), so a campaign can
     never spin: exceeding the bound is reported as ``stalled``, which
     the drill counts as a failure (it would have been a hang).
-    ``telemetry=`` comes with the observability slice and raises."""
+    ``telemetry`` reaches the checkpointer, the supervisor and the
+    schedule, and records each applied file fault."""
     from .supervisor import run_agd_supervised
 
-    reject_later(telemetry=telemetry)
     ckpt_path = os.path.join(workdir, "chaos_ckpt.npz")
-    schedule = campaign.schedule_for(0)
+    schedule = campaign.schedule_for(0, telemetry=telemetry)
     file_queue = list(campaign.file_faults())
     file_applied: List[str] = []
     relaunches = 0
@@ -472,12 +583,13 @@ def run_campaign(
     while True:
         ck = AutoCheckpointer(ckpt_path,
                               every_iters=policy.segment_iters,
-                              keep=keep)
+                              keep=keep, telemetry=telemetry)
         try:
             res = run_agd_supervised(
                 prox=prox, reg_value=reg_value, w0=w0, config=config,
-                policy=policy, staged=staged, checkpointer=ck,
-                faults=schedule, seg_cache=seg_cache)
+                policy=policy, staged=staged, telemetry=telemetry,
+                checkpointer=ck, faults=schedule, seg_cache=seg_cache,
+                stream_iterations=False)
         except Preempted:
             relaunches += 1
             if relaunches > max_relaunches:
@@ -485,7 +597,8 @@ def run_campaign(
                                       schedule.fired, file_applied, None)
             if file_queue:
                 what = _apply_file_fault(
-                    file_queue.pop(0), ckpt_path, keep, campaign.seed)
+                    file_queue.pop(0), ckpt_path, keep, campaign.seed,
+                    telemetry=telemetry)
                 if what is not None:
                     file_applied.append(what)
             continue

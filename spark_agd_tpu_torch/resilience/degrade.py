@@ -30,7 +30,7 @@ each survivor's new rank is its place among the survivors
   the continuation: ``load`` is :func:`load_degraded`, saves are barrier
   commits of the surviving topology.
 
-``telemetry=`` comes with the observability slice and raises (the JAX
+``telemetry=`` comes with the profiling and analysis slice and raises (the JAX
 package's flight-recorder dump on a refused quorum is a no-op without
 telemetry).
 

@@ -44,7 +44,10 @@ names (``generation``, ``process_index``, ``process_count``,
 ``partitions``, ``rowstate::*``) are the JAX package's, so either
 package resumes the other's sets.
 
-``telemetry=`` comes with the observability slice and raises.
+``HeartbeatWriter`` and ``HostMonitor`` take ``telemetry=``
+(``heartbeat`` and ``host_lost`` records); ``load_for_topology`` and
+``DistributedCheckpointer`` raise for it until the profiling and
+analysis slice.
 """
 
 from __future__ import annotations
@@ -325,10 +328,12 @@ class DistributedCheckpointer(AutoCheckpointer):
                  process_count: Optional[int] = None,
                  exchange: Optional[Callable] = None,
                  clock=time.monotonic):
+        # its records come from load_for_topology and the commit, which
+        # carry telemetry= in the profiling and analysis slice
+        reject_later(telemetry=telemetry)
         super().__init__(directory, every_iters=every_iters,
                          every_seconds=every_seconds, keep=keep,
-                         fingerprint=fingerprint, telemetry=telemetry,
-                         clock=clock)
+                         fingerprint=fingerprint, clock=clock)
         self.directory = directory
         self.mesh_shape = dict(mesh_shape) if mesh_shape else None
         self.partitions = (None if partitions is None
@@ -369,7 +374,8 @@ class DistributedCheckpointer(AutoCheckpointer):
         if pending is not None:
             pending.result()
 
-    def _save(self, warm, hist, converged, aborted) -> None:
+    def _save(self, warm, hist, converged, aborted, *,
+              action: str = "checkpoint") -> None:
         t0 = time.perf_counter()
         self.wait()
         gen = self._next_generation
@@ -485,18 +491,18 @@ def heartbeat_name(process: int) -> str:
 class HeartbeatWriter:
     """One process's liveness beacon: :meth:`beat` atomically rewrites
     ``heartbeat.hNNN.json`` in ``directory`` (time, pid, iteration,
-    phase).  The supervisor beats it at every segment boundary
-    (``heartbeat=``) and once at exit.  ``telemetry=`` comes with the
-    observability slice and raises."""
+    phase) and emits a ``heartbeat`` record through the telemetry bus
+    when one is attached.  The supervisor beats it at every segment
+    boundary (``heartbeat=``) and once at exit."""
 
     def __init__(self, directory: str, *,
                  process_index: Optional[int] = None,
                  process_count: Optional[int] = None,
                  telemetry=None, clock=time.time):
-        reject_later(telemetry=telemetry)
         self.directory = directory
         self.process_index, self.process_count = _process_defaults(
             process_index, process_count)
+        self.telemetry = telemetry
         self._clock = clock
         self.beats = 0
 
@@ -516,6 +522,11 @@ class HeartbeatWriter:
             rec["phase"] = str(phase)
         manifest_lib._atomic_write_text(self.path, json.dumps(rec))
         self.beats += 1
+        if self.telemetry is not None:
+            fields = {k: rec[k] for k in ("process_count", "pid",
+                                          "iter", "phase") if k in rec}
+            self.telemetry.heartbeat(process=self.process_index,
+                                     **fields)
         return rec
 
 
@@ -530,14 +541,14 @@ class HostMonitor:
     of its own (:meth:`verdicts`): a latest beat with ``phase="slow"``
     (a chaos sleep beats so), or an age between ``slow_after_s`` and
     ``stale_after_s``.  Only LOST raises; a slow process is the
-    straggler scheduler's (``resilience.scheduler``).  ``telemetry=``
-    comes with the observability slice and raises."""
+    straggler scheduler's (``resilience.scheduler``).  With
+    ``telemetry``, the first loss of each process is a ``host_lost``
+    ``recovery`` record."""
 
     def __init__(self, directory: str, *, stale_after_s: float = 30.0,
                  slow_after_s: Optional[float] = None,
                  expected: Optional[Sequence[int]] = None,
                  telemetry=None, clock=time.time):
-        reject_later(telemetry=telemetry)
         if stale_after_s <= 0:
             raise ValueError("stale_after_s must be > 0")
         if slow_after_s is not None and not \
@@ -550,7 +561,9 @@ class HostMonitor:
                              else float(slow_after_s))
         self.expected = None if expected is None else sorted(
             int(p) for p in expected)
+        self.telemetry = telemetry
         self._clock = clock
+        self._reported: set = set()
 
     def poll(self) -> Dict[int, dict]:
         """Each process's last beat (the parsed file and ``age_s``)."""
@@ -598,7 +611,17 @@ class HostMonitor:
         return [p for p, v in self.verdicts().items() if v == "slow"]
 
     def check(self) -> None:
-        """Raise :class:`HostLost` for the first stale process."""
+        """Raise :class:`HostLost` for the first stale process (one
+        ``host_lost`` recovery record a process a monitor, so a retry
+        loop does not repeat it)."""
         for p, rec in sorted(self.poll().items()):
-            if rec["age_s"] > self.stale_after_s:
-                raise HostLost(p, stale_for_s=rec["age_s"])
+            if rec["age_s"] <= self.stale_after_s:
+                continue
+            if self.telemetry is not None and p not in self._reported:
+                self.telemetry.recovery(
+                    action="host_lost", process=p,
+                    reason=f"no heartbeat for {rec['age_s']:.1f}s "
+                           f"(last at iter {rec.get('iter')})",
+                    source="host_monitor")
+            self._reported.add(p)
+            raise HostLost(p, stale_for_s=rec["age_s"])

@@ -39,7 +39,7 @@ deterministic, so the backup's result is the same bits (a backup on
 another topology agrees to reduction-order noise instead).
 
 ``telemetry=`` (the ``skew_estimate`` and ``rebalance`` records) comes
-with the observability slice and raises.  Without a ``scheduler=`` the
+with the profiling and analysis slice and raises.  Without a ``scheduler=`` the
 supervisor path is unchanged.
 """
 
@@ -387,7 +387,7 @@ class StragglerScheduler:
     The sync is collective: every process must reach the same successful
     boundaries in lockstep.  The exchange refuses a mixed-iteration sync
     as the commit refuses mixed generations.  ``telemetry=`` comes with
-    the observability slice and raises.
+    the profiling and analysis slice and raises.
     """
 
     def __init__(self, partitions: Sequence[str], *,
@@ -575,7 +575,7 @@ def resolve_speculation(spec: SpeculationResult, committed_warm: Any, *,
     finished before the fleet's own result for the segment
     (``fleet_seconds``, when known) — either way the results MATCH, so
     taking whichever lands first is safe.  ``telemetry=`` comes with
-    the observability slice and raises."""
+    the profiling and analysis slice and raises."""
     reject_later(telemetry=telemetry)
     diff = warm_max_diff(spec.warm, committed_warm)
     matched = bool(diff <= tol) if tol > 0 else bool(diff == 0.0)

@@ -23,17 +23,21 @@ each one attempt under the shared failure taxonomy
 No segment writes into the tensors of the warm state it started from
 (the optimizer loop updates nothing in place), so a failed segment is
 retried from an intact anchor.  The ``attempt`` ledger has the JAX
-package's entries; its ``attempt``/``recovery`` records come with the
-observability slice, as does ``telemetry=``, which raises
-``NotImplementedError``.  A ``staged`` build with ``make_agd_run`` (the
-sharded update) runs each segment through that hook.  ``heartbeat=``,
-``monitor=`` and
-``scheduler=`` (``resilience.distributed``, ``resilience.scheduler``)
-run as the JAX package wires them.
+package's entries, and ``telemetry=`` (``obs.Telemetry``) emits its
+records: one ``attempt`` record an attempt, ``recovery`` records
+(``retry``, ``rollback``), the causal spans ``supervised_run``,
+``segment`` and ``boundary``, a flight dump when the supervisor gives up,
+and, with ``stream_iterations=True``, one ``iteration`` record an
+iteration (``core.agd.run_agd``'s ``telemetry_cb``).  A ``staged``
+build with ``make_agd_run`` (the sharded update) runs each segment
+through that hook.  ``heartbeat=``, ``monitor=`` and ``scheduler=``
+(``resilience.distributed``, ``resilience.scheduler``) run as the JAX
+package wires them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, List, NamedTuple, Optional
@@ -41,9 +45,9 @@ from typing import Any, Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .._later import reject_later
 from ..core import agd, tvec
 from ..core.agd import AGDConfig, AGDWarmState
+from ..obs import flight as flight_lib
 from ..utils import checkpoint as ckpt
 from . import errors, faults as faults_lib, retry as retry_lib
 
@@ -178,9 +182,11 @@ def run_agd_supervised(
     ``staged`` pair it was built over (a pair built over other data is
     built anew); share one dict only across calls of one problem.
 
-    ``stream_iterations`` is taken as the JAX package takes it (whether
-    the per-iteration telemetry callback runs); it has no effect while
-    ``telemetry=`` is refused, so every value runs the same fit.
+    ``stream_iterations`` (with ``telemetry``): whether each iteration
+    streams an ``iteration`` record (``telemetry.iteration_callback``
+    handed to ``core.agd.run_agd`` as ``telemetry_cb``); the values the
+    loop passes are on the host already, so either value runs the same
+    fit, bit for bit.
 
     ``heartbeat`` (a :class:`~spark_agd_tpu_torch.resilience.
     distributed.HeartbeatWriter`): beaten at every segment boundary and
@@ -201,7 +207,6 @@ def run_agd_supervised(
     generation boundary: ``staged`` becomes the rebuilt pair (the
     smooths built over the old data are dropped) and the checkpointer
     force-commits a generation carrying the new partition list."""
-    reject_later(telemetry=telemetry)
     if w0 is None or config is None:
         raise ValueError("w0 and config are required")
     if staged is None and smooth is None:
@@ -226,6 +231,8 @@ def run_agd_supervised(
     if place_w is not None:
         w0 = place_w(w0)
     stream = _compute_stream(w0)
+    tel_cb = (None if telemetry is None or not stream_iterations
+              else telemetry.iteration_callback("agd"))
 
     seg_fns = {} if seg_cache is None else seg_cache
 
@@ -257,12 +264,12 @@ def run_agd_supervised(
             entry = seg_fns.get(key)
             if entry is None or entry[0] is not staged:
                 entry = seg_fns[key] = (staged, agd_run(
-                    prox, reg_value, cfg_k, poison=poisoned,
-                    warm_entry=True), None)
+                    prox, reg_value, cfg_k, telemetry_cb=tel_cb,
+                    poison=poisoned, warm_entry=True), None)
             return entry[1](warm, staged[1])
         sm, sl = segment_smooth(k, poisoned)
         return agd.run_agd(sm, prox, reg_value, warm.x, cfg_k,
-                           smooth_loss=sl, warm=warm)
+                           smooth_loss=sl, warm=warm, telemetry_cb=tel_cb)
 
     def attempt(warm: AGDWarmState, k: int, poisoned: bool):
         if begin_attempt is not None:
@@ -274,211 +281,306 @@ def run_agd_supervised(
         with torch.cuda.stream(stream):
             return run_segment(warm, k, poisoned)
 
-    # -- resume ------------------------------------------------------------
-    hist: list = []
-    warm = None
-    if checkpointer is not None:
-        loaded = checkpointer.load(w0)
-        if loaded is not None:
-            if loaded.converged or loaded.aborted:
-                # terminal checkpoint: rerunning adds no iterations
-                return SupervisedResult(
-                    weights=loaded.warm.x,
-                    loss_history=np.asarray(loaded.loss_history),
-                    num_iters=int(loaded.warm.prior_iters),
-                    converged=loaded.converged,
-                    aborted_non_finite=loaded.aborted,
-                    retries=0, rollbacks=0,
-                    resumed_from=int(loaded.warm.prior_iters),
-                    attempts=[])
-            warm = loaded.warm
-            hist = list(np.asarray(loaded.loss_history))
-    if warm is None:
-        warm = AGDWarmState.initial(w0, config)
-    resumed_from = int(warm.prior_iters)
-
-    schedule = policy.backoff_schedule()
-    ledger: List[dict] = []
-    attempt_no = 0
-    seg_failures = 0   # consecutive transient failures of THIS segment
-    retries = rollbacks = 0
-    converged = aborted = False
-    total = int(config.num_iterations)
-    t_run0 = clock()
-
-    def record_attempt(outcome: str, start_iter: int, iters: int,
-                       seconds: float, error: Optional[str] = None,
-                       failure_kind: Optional[str] = None):
-        ledger.append({"attempt": attempt_no, "outcome": outcome,
-                       "start_iter": start_iter, "iters": iters,
-                       "seconds": round(seconds, 6), "error": error,
-                       "failure_kind": failure_kind, "algorithm": "agd"})
-
-    def numeric_rollback(reason: str):
-        nonlocal warm, rollbacks
-        if rollbacks >= policy.max_rollbacks:
-            raise errors.SupervisorGivingUp(
-                f"non-finite numerics persisted through "
-                f"{policy.max_rollbacks} rollbacks (last: {reason})",
-                ledger)
-        rollbacks += 1
-        warm = _rollback(warm, policy.rollback_l_factor)
-
-    def transient(start: int, e: BaseException):
-        """Count one transient failure of the segment at ``start``; give
-        up past ``max_attempts``, else back off."""
-        nonlocal seg_failures, retries
-        seg_failures += 1
-        retries += 1
-        if seg_failures >= policy.max_attempts:
-            raise errors.SupervisorGivingUp(
-                f"segment at iteration {start} failed {seg_failures} "
-                f"times (last: {e})", ledger) from e
-        delay = schedule.next_delay(seg_failures)
-        if delay:
-            sleep(delay)
-
-    if faults is not None and heartbeat is not None \
-            and hasattr(faults, "bind_heartbeat"):
-        # injected slow_host sleeps beat the heartbeat in sub-intervals,
-        # so a monitor reads the process SLOW, not LOST
-        faults.bind_heartbeat(heartbeat)
-
-    finished = False
+    # the causal trace (obs.trace): one ``supervised_run`` span a call,
+    # opened before the resume so the post-resume commit is part of the
+    # tree, with one child ``segment`` span an attempt
+    run_span = (telemetry.trace_span("supervised_run", algorithm="agd")
+                if telemetry is not None else None)
     try:
-        if checkpointer is not None:
-            checkpointer.install_signal_handlers()
-            checkpointer.update(warm, hist)  # generation 0 / post-resume
-        while int(warm.prior_iters) < total:
-            start = int(warm.prior_iters)
-            k = min(policy.segment_iters or total, total - start)
-            if policy.max_wall_seconds is not None:
-                elapsed = clock() - t_run0
-                if elapsed > policy.max_wall_seconds:
-                    attempt_no += 1
-                    record_attempt(
-                        "deadline", start, 0, elapsed,
-                        error=(f"wall-clock budget "
-                               f"{policy.max_wall_seconds:g}s exceeded"),
-                        failure_kind="deadline")
-                    raise errors.SupervisorGivingUp(
-                        f"DEADLINE: wall-clock budget "
-                        f"{policy.max_wall_seconds:g}s exhausted after "
-                        f"{elapsed:.3f}s at iteration {start} ({retries} "
-                        f"retries, {rollbacks} rollbacks so far); not "
-                        "retrying further", ledger)
-            # the boundary hooks are this process's own work (no
-            # collective): their seconds are what the scheduler folds
-            t_bnd = time.perf_counter()
-            if heartbeat is not None:
-                heartbeat.beat(iter=start, phase="segment")
-            if faults is not None or monitor is not None:
-                try:
-                    if faults is not None:
-                        faults.before_segment(start)
-                    if monitor is not None:
-                        monitor.check()
-                except Exception as e:  # noqa: BLE001 (classified below)
-                    attempt_no += 1
-                    kind = errors.classify_failure(e)
-                    record_attempt("failed", start, 0, 0.0,
-                                   error=f"{type(e).__name__}: {e}",
-                                   failure_kind=kind)
-                    if kind == errors.FATAL:
-                        # a fatal boundary fault gives up typed, as a
-                        # fatal segment failure does
-                        raise errors.SupervisorGivingUp(
-                            f"fatal failure at iteration {start}: "
-                            f"{type(e).__name__}: {e}", ledger) from e
-                    if kind != errors.TRANSIENT:
-                        raise
-                    transient(start, e)
-                    continue
-            boundary_s = time.perf_counter() - t_bnd
-            poisoned = faults is not None and faults.take_poison(start)
-
-            attempt_no += 1
-            t0 = time.perf_counter()
-            try:
-                res = retry_lib.run_with_watchdog(
-                    attempt, (warm, k, poisoned), {},
-                    policy.attempt_timeout, f"agd@{start}")
-            except errors.Preempted:
-                raise
-            except Exception as e:  # noqa: BLE001 (classified below)
-                kind = errors.classify_failure(e)
-                record_attempt("failed", start, 0,
-                               time.perf_counter() - t0,
-                               error=f"{type(e).__name__}: {e}",
-                               failure_kind=kind)
-                if kind == errors.NUMERIC:
-                    numeric_rollback(f"{type(e).__name__}: {e}")
-                    seg_failures = 0
-                    continue
-                if kind == errors.TRANSIENT:
-                    transient(start, e)
-                    continue
-                raise errors.SupervisorGivingUp(
-                    f"fatal failure at iteration {start}: "
-                    f"{type(e).__name__}: {e}", ledger) from e
-            dt = time.perf_counter() - t0
-
-            if bool(res.aborted_non_finite):
-                record_attempt("aborted_non_finite", start,
-                               int(res.num_iters), dt,
-                               failure_kind=errors.NUMERIC)
-                numeric_rollback("non-finite loss in segment")
-                seg_failures = 0
-                continue
-
-            done = int(res.num_iters)
-            record_attempt("ok", start, done, dt)
-            hist.extend(np.asarray(res.loss_history)[:done].tolist())
-            warm = ckpt.warm_from_result(res, start + done)
-            converged = bool(res.converged)
-            seg_failures = 0
+        with run_span if run_span is not None \
+                else contextlib.nullcontext():
+            # -- resume ----------------------------------------------------
+            hist: list = []
+            warm = None
             if checkpointer is not None:
-                checkpointer.update(warm, hist, converged=converged)
-            if scheduler is not None and not converged and done > 0:
-                decision = scheduler.after_segment(
-                    start_iter=start, iters=done, boundary_s=boundary_s,
-                    segment_s=dt)
-                if decision is not None:
-                    # the generation-boundary rebalance: swap in the
-                    # rebuilt data, then commit a generation that carries
-                    # the new assignment
-                    new_staged = scheduler.apply(decision,
-                                                 checkpointer=checkpointer)
-                    if new_staged is not None:
-                        for key in [key for key, entry in seg_fns.items()
-                                    if entry[0] is staged]:
-                            del seg_fns[key]
-                        staged = new_staged
-                    if checkpointer is not None:
-                        checkpointer.update(warm, hist,
-                                            converged=converged, force=True)
-            if converged or done == 0:
-                break
-        finished = True
-    finally:
-        if checkpointer is not None:
-            try:
-                _final_flush(checkpointer, warm, hist, converged, aborted,
-                             finished)
-            finally:
-                checkpointer.uninstall_signal_handlers()
-        if heartbeat is not None:
-            try:
-                heartbeat.beat(iter=int(warm.prior_iters), phase="exit")
-            except OSError:  # a dying filesystem must not mask the
-                pass         # real exit path
+                loaded = checkpointer.load(w0)
+                if loaded is not None:
+                    if loaded.converged or loaded.aborted:
+                        # terminal checkpoint: rerunning adds no iterations
+                        return SupervisedResult(
+                            weights=loaded.warm.x,
+                            loss_history=np.asarray(loaded.loss_history),
+                            num_iters=int(loaded.warm.prior_iters),
+                            converged=loaded.converged,
+                            aborted_non_finite=loaded.aborted,
+                            retries=0, rollbacks=0,
+                            resumed_from=int(loaded.warm.prior_iters),
+                            attempts=[])
+                    warm = loaded.warm
+                    hist = list(np.asarray(loaded.loss_history))
+            if warm is None:
+                warm = AGDWarmState.initial(w0, config)
+            resumed_from = int(warm.prior_iters)
+            if run_span is not None:
+                run_span.note(resumed_from=resumed_from)
 
-    return SupervisedResult(
-        weights=warm.x, loss_history=np.asarray(hist),
-        num_iters=int(warm.prior_iters), converged=converged,
-        aborted_non_finite=aborted, retries=retries,
-        rollbacks=rollbacks, resumed_from=resumed_from,
-        attempts=ledger)
+            schedule = policy.backoff_schedule()
+            ledger: List[dict] = []
+            attempt_no = 0
+            seg_failures = 0   # consecutive transient failures of THIS segment
+            retries = rollbacks = 0
+            converged = aborted = False
+            total = int(config.num_iterations)
+            t_run0 = clock()
+
+            def record_attempt(outcome: str, start_iter: int, iters: int,
+                               seconds: float, error: Optional[str] = None,
+                               failure_kind: Optional[str] = None):
+                entry = {"attempt": attempt_no, "outcome": outcome,
+                         "start_iter": start_iter, "iters": iters,
+                         "seconds": round(seconds, 6), "error": error,
+                         "failure_kind": failure_kind, "algorithm": "agd"}
+                ledger.append(entry)
+                if telemetry is not None:
+                    telemetry.attempt(**entry)
+
+            def recovery(action: str, **fields):
+                if telemetry is not None:
+                    telemetry.recovery(action=action, **fields)
+
+            def numeric_rollback(start: int, reason: str):
+                nonlocal warm, rollbacks
+                if rollbacks >= policy.max_rollbacks:
+                    raise errors.SupervisorGivingUp(
+                        f"non-finite numerics persisted through "
+                        f"{policy.max_rollbacks} rollbacks (last: {reason})",
+                        ledger)
+                rollbacks += 1
+                warm = _rollback(warm, policy.rollback_l_factor)
+                recovery("rollback", reason=reason,
+                         failure_kind=errors.NUMERIC, from_iter=start,
+                         to_iter=int(warm.prior_iters),
+                         big_l=float(warm.big_l), source="supervisor")
+
+            def transient(start: int, e: BaseException):
+                """Count one transient failure of the segment at
+                ``start``; give up past ``max_attempts``, else record the
+                retry and back off."""
+                nonlocal seg_failures, retries
+                seg_failures += 1
+                retries += 1
+                if seg_failures >= policy.max_attempts:
+                    raise errors.SupervisorGivingUp(
+                        f"segment at iteration {start} failed {seg_failures} "
+                        f"times (last: {e})", ledger) from e
+                delay = schedule.next_delay(seg_failures)
+                recovery("retry", reason=str(e),
+                         failure_kind=errors.TRANSIENT,
+                         attempt=seg_failures, backoff_s=delay,
+                         from_iter=start, source="supervisor")
+                if delay:
+                    sleep(delay)
+
+            if faults is not None and heartbeat is not None \
+                    and hasattr(faults, "bind_heartbeat"):
+                # injected slow_host sleeps beat the heartbeat in
+                # sub-intervals, so a monitor reads the process SLOW, not
+                # LOST
+                faults.bind_heartbeat(heartbeat)
+
+            finished = False
+            try:
+                if checkpointer is not None:
+                    checkpointer.install_signal_handlers()
+                    # generation 0 / post-resume
+                    checkpointer.update(warm, hist)
+                while int(warm.prior_iters) < total:
+                    start = int(warm.prior_iters)
+                    k = min(policy.segment_iters or total, total - start)
+                    if policy.max_wall_seconds is not None:
+                        elapsed = clock() - t_run0
+                        if elapsed > policy.max_wall_seconds:
+                            attempt_no += 1
+                            record_attempt(
+                                "deadline", start, 0, elapsed,
+                                error=(f"wall-clock budget "
+                                       f"{policy.max_wall_seconds:g}s "
+                                       "exceeded"),
+                                failure_kind="deadline")
+                            raise errors.SupervisorGivingUp(
+                                f"DEADLINE: wall-clock budget "
+                                f"{policy.max_wall_seconds:g}s exhausted "
+                                f"after {elapsed:.3f}s at iteration "
+                                f"{start} ({retries} retries, "
+                                f"{rollbacks} rollbacks so far); not "
+                                "retrying further", ledger)
+                    seg_span = (telemetry.trace_span(
+                        "segment", start_iter=start, iters=k)
+                        if telemetry is not None else None)
+                    with seg_span if seg_span is not None \
+                            else contextlib.nullcontext():
+                        # the boundary hooks are this process's own work
+                        # (no collective): their seconds are what the
+                        # scheduler folds, in a child span of their own
+                        # when hooks exist
+                        boundary_span = (telemetry.trace_span(
+                            "boundary", start_iter=start)
+                            if telemetry is not None
+                            and (heartbeat is not None
+                                 or faults is not None
+                                 or monitor is not None) else None)
+                        hook_exc: Optional[BaseException] = None
+                        t_bnd = time.perf_counter()
+                        with boundary_span if boundary_span is not None \
+                                else contextlib.nullcontext():
+                            if heartbeat is not None:
+                                heartbeat.beat(iter=start,
+                                               phase="segment")
+                            if faults is not None or monitor is not None:
+                                try:
+                                    if faults is not None:
+                                        faults.before_segment(start)
+                                    if monitor is not None:
+                                        monitor.check()
+                                # classified below
+                                except Exception as e:  # noqa: BLE001
+                                    hook_exc = e
+                                    if boundary_span is not None:
+                                        boundary_span.note(
+                                            status="error",
+                                            error=(f"{type(e).__name__}"
+                                                   f": {e}"))
+                        boundary_s = time.perf_counter() - t_bnd
+                        if hook_exc is not None:
+                            e = hook_exc
+                            attempt_no += 1
+                            kind = errors.classify_failure(e)
+                            record_attempt(
+                                "failed", start, 0, 0.0,
+                                error=f"{type(e).__name__}: {e}",
+                                failure_kind=kind)
+                            if seg_span is not None:
+                                seg_span.note(
+                                    status="error", outcome="failed",
+                                    attempt=attempt_no,
+                                    error=f"{type(e).__name__}: {e}")
+                            if kind == errors.FATAL:
+                                # a fatal boundary fault gives up typed,
+                                # as a fatal segment failure does
+                                raise errors.SupervisorGivingUp(
+                                    f"fatal failure at iteration "
+                                    f"{start}: {type(e).__name__}: "
+                                    f"{e}", ledger) from e
+                            if kind != errors.TRANSIENT:
+                                raise e
+                            transient(start, e)
+                            continue
+                        poisoned = (faults is not None
+                                    and faults.take_poison(start))
+
+                        attempt_no += 1
+                        t0 = time.perf_counter()
+                        try:
+                            res = retry_lib.run_with_watchdog(
+                                attempt, (warm, k, poisoned), {},
+                                policy.attempt_timeout, f"agd@{start}")
+                        except errors.Preempted:
+                            raise
+                        # classified below
+                        except Exception as e:  # noqa: BLE001
+                            kind = errors.classify_failure(e)
+                            record_attempt(
+                                "failed", start, 0,
+                                time.perf_counter() - t0,
+                                error=f"{type(e).__name__}: {e}",
+                                failure_kind=kind)
+                            if seg_span is not None:
+                                seg_span.note(
+                                    status="error", outcome="failed",
+                                    attempt=attempt_no,
+                                    failure_kind=kind,
+                                    error=f"{type(e).__name__}: {e}")
+                            if kind == errors.NUMERIC:
+                                numeric_rollback(
+                                    start, f"{type(e).__name__}: {e}")
+                                seg_failures = 0
+                                continue
+                            if kind == errors.TRANSIENT:
+                                transient(start, e)
+                                continue
+                            raise errors.SupervisorGivingUp(
+                                f"fatal failure at iteration {start}: "
+                                f"{type(e).__name__}: {e}", ledger) from e
+                        dt = time.perf_counter() - t0
+
+                        if bool(res.aborted_non_finite):
+                            record_attempt("aborted_non_finite", start,
+                                           int(res.num_iters), dt,
+                                           failure_kind=errors.NUMERIC)
+                            if seg_span is not None:
+                                seg_span.note(
+                                    status="error",
+                                    outcome="aborted_non_finite",
+                                    attempt=attempt_no)
+                            numeric_rollback(
+                                start, "non-finite loss in segment")
+                            seg_failures = 0
+                            continue
+
+                        done = int(res.num_iters)
+                        record_attempt("ok", start, done, dt)
+                        if seg_span is not None:
+                            seg_span.note(outcome="ok", attempt=attempt_no,
+                                          iters=done)
+                        hist.extend(
+                            np.asarray(res.loss_history)[:done].tolist())
+                        warm = ckpt.warm_from_result(res, start + done)
+                        converged = bool(res.converged)
+                        seg_failures = 0
+                        if checkpointer is not None:
+                            checkpointer.update(warm, hist,
+                                                converged=converged)
+                        if scheduler is not None and not converged \
+                                and done > 0:
+                            decision = scheduler.after_segment(
+                                start_iter=start, iters=done,
+                                boundary_s=boundary_s, segment_s=dt)
+                            if decision is not None:
+                                # the generation-boundary rebalance: swap
+                                # in the rebuilt data, then commit a
+                                # generation that carries the new
+                                # assignment
+                                new_staged = scheduler.apply(
+                                    decision, checkpointer=checkpointer)
+                                if new_staged is not None:
+                                    for key in [
+                                            key for key, entry
+                                            in seg_fns.items()
+                                            if entry[0] is staged]:
+                                        del seg_fns[key]
+                                    staged = new_staged
+                                if checkpointer is not None:
+                                    checkpointer.update(
+                                        warm, hist, converged=converged,
+                                        force=True)
+                    if converged or done == 0:
+                        break
+                finished = True
+            finally:
+                if checkpointer is not None:
+                    try:
+                        _final_flush(checkpointer, warm, hist, converged,
+                                     aborted, finished)
+                    finally:
+                        checkpointer.uninstall_signal_handlers()
+                if heartbeat is not None:
+                    try:
+                        heartbeat.beat(iter=int(warm.prior_iters),
+                                       phase="exit")
+                    except OSError:  # a dying filesystem must not mask the
+                        pass         # real exit path
+
+            return SupervisedResult(
+                weights=warm.x, loss_history=np.asarray(hist),
+                num_iters=int(warm.prior_iters), converged=converged,
+                aborted_non_finite=aborted, retries=retries,
+                rollbacks=rollbacks, resumed_from=resumed_from,
+                attempts=ledger)
+    except errors.SupervisorGivingUp:
+        # the give-up ships with its last seconds: dump the run's flight
+        # ring (nothing without a recorder and a directory)
+        flight_lib.dump_on_failure(telemetry, "supervisor_giving_up")
+        raise
 
 
 def _final_flush(checkpointer, warm, hist, converged, aborted,
@@ -506,9 +608,9 @@ def supervised_call(fn: Callable, *args, policy=None, telemetry=None,
     """Wrap any runner's fit (L-BFGS, sweeps, custom drivers) in the
     bounded-retry half of the policy, for results that carry no
     ``AGDWarmState`` to roll back to.  Transient failures retry with
-    backoff; NUMERIC and FATAL ones raise at once; the last failure
-    raises :class:`SupervisorGivingUp` with the ledger."""
-    reject_later(telemetry=telemetry)
+    backoff (each a ``recovery`` record); NUMERIC and FATAL ones raise
+    at once; the last failure raises :class:`SupervisorGivingUp` with
+    the ledger.  Each attempt is an ``attempt`` record."""
     policy = policy or ResiliencePolicy()
     ledger: List[dict] = []
     attempt = [0]
@@ -519,18 +621,25 @@ def supervised_call(fn: Callable, *args, policy=None, telemetry=None,
         try:
             out = fn(*a, **kw)
         except Exception as e:
-            ledger.append({"attempt": attempt[0], "outcome": "failed",
-                           "seconds": round(time.perf_counter() - t0, 6),
-                           "error": f"{type(e).__name__}: {e}",
-                           "failure_kind": errors.classify_failure(e)})
+            entry = {"attempt": attempt[0], "outcome": "failed",
+                     "seconds": round(time.perf_counter() - t0, 6),
+                     "error": f"{type(e).__name__}: {e}",
+                     "failure_kind": errors.classify_failure(e)}
+            ledger.append(entry)
+            if telemetry is not None:
+                telemetry.attempt(**entry)
             raise
-        ledger.append({"attempt": attempt[0], "outcome": "ok",
-                       "seconds": round(time.perf_counter() - t0, 6)})
+        entry = {"attempt": attempt[0], "outcome": "ok",
+                 "seconds": round(time.perf_counter() - t0, 6)}
+        ledger.append(entry)
+        if telemetry is not None:
+            telemetry.attempt(**entry)
         return out
 
     try:
         return retry_lib.call_with_retry(
-            attempted, *args, policy=policy, label=label, **kwargs)
+            attempted, *args, policy=policy, label=label,
+            telemetry=telemetry, **kwargs)
     except Exception as e:
         if isinstance(e, (errors.Preempted, errors.SupervisorGivingUp)):
             raise

@@ -25,10 +25,16 @@ The products are ``torch.matmul``, as the JAX package leaves them to XLA
 outside any Pallas kernel (``spark_agd_tpu/ops/sparse.py:278``).  The
 engine runs eagerly; it launches on the card unless it is given
 ``device="cpu"``, and it never moves work to another device.
+
+``telemetry=`` emits the JAX package's ``serve_warmup`` span and one
+``engine_call`` trace span a batch; the ``program_cost`` records of
+the JAX engine's compiled programs come with the profiling and analysis
+slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -37,7 +43,6 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .._later import reject_later
 from ..ops.losses import _mm
 
 # model class name -> the short kind the program labels use
@@ -256,7 +261,6 @@ class ServeEngine:
                  buckets: Optional[Sequence[int]] = None,
                  ops: Optional[Sequence[str]] = None,
                  telemetry=None, device=None):
-        reject_later(telemetry=telemetry)
         self.device = resolve_device(device)
         self.spec = spec_of(model)
         self.ladder = BucketLadder(max_batch, min_bucket, buckets)
@@ -266,6 +270,7 @@ class ServeEngine:
                 raise ValueError(
                     f"op {op!r} not served for kind {self.spec.kind!r} "
                     f"(supported: {self.spec.ops})")
+        self.telemetry = telemetry
         self._lock = threading.Lock()
         self._params = params_of(model, self.spec, device=self.device)
         self._generation = int(generation)
@@ -277,14 +282,21 @@ class ServeEngine:
 
     # -- warmup (build the whole ladder, run each program once) -----------
     def _build_programs(self) -> None:
-        for op in self.ops:
-            forward = _make_forward(self.spec, op)
-            for bucket in self.ladder.buckets:
-                inbuf = torch.zeros((bucket, self.spec.n_features),
-                                    dtype=self._dtype, device=self.device)
-                out = forward(self._params, inbuf).clone()
-                self._programs[(op, bucket)] = _Program(forward, inbuf, out)
-        self.warm()
+        # the JAX package's ``serve_warmup`` span; its ``program_cost``
+        # records (compiled-program introspection) come with the
+        # profiling and analysis slice
+        with (self.telemetry.span("serve_warmup")
+              if self.telemetry is not None else contextlib.nullcontext()):
+            for op in self.ops:
+                forward = _make_forward(self.spec, op)
+                for bucket in self.ladder.buckets:
+                    inbuf = torch.zeros((bucket, self.spec.n_features),
+                                        dtype=self._dtype,
+                                        device=self.device)
+                    out = forward(self._params, inbuf).clone()
+                    self._programs[(op, bucket)] = _Program(forward, inbuf,
+                                                            out)
+            self.warm()
 
     def warm(self) -> None:
         """Run every program once on the calling thread (its buffers'
@@ -357,13 +369,21 @@ class ServeEngine:
                 f"(ops: {self.ops}, ladder: {self.ladder.buckets})")
         with self._lock:
             generation = self._generation
-            prog.inbuf[:n].copy_(torch.from_numpy(X))
-            if n < bucket:
-                prog.inbuf[n:].zero_()
-            prog.out.copy_(prog.forward(self._params, prog.inbuf))
-            # the host copy owns its memory: the output buffer is the
-            # next call's
-            host = prog.out[:n].to("cpu", copy=True).numpy()
+            # one causal ``engine_call`` span a batch (obs.trace): it
+            # inherits the queue's serve_batch context through the
+            # context variable (the same worker thread)
+            with (self.telemetry.trace_span(
+                    "engine_call", op=op, bucket=bucket,
+                    generation=generation, tool="serve.engine")
+                  if self.telemetry is not None
+                  else contextlib.nullcontext()):
+                prog.inbuf[:n].copy_(torch.from_numpy(X))
+                if n < bucket:
+                    prog.inbuf[n:].zero_()
+                prog.out.copy_(prog.forward(self._params, prog.inbuf))
+                # the host copy owns its memory: the output buffer is
+                # the next call's
+                host = prog.out[:n].to("cpu", copy=True).numpy()
         return host, generation, bucket
 
     def predict(self, X, op: str = "predict") -> np.ndarray:

@@ -20,6 +20,10 @@ generation and binds its weights into the running engine — in-flight
 batches finish on the old generation and the next batch serves the new
 one.  Loaded models go to the registry's ``device`` (the current CUDA
 device unless the caller passes ``device="cpu"``).
+
+``telemetry=`` emits the JAX package's ``recovery`` records: a publish
+(``checkpoint``), a skipped generation (``checkpoint_fallback``) and a
+swap (``hot_swap``).
 """
 
 from __future__ import annotations
@@ -29,7 +33,6 @@ import os
 from typing import Any, List, Optional
 
 from .._device import resolve_device
-from .._later import reject_later
 from ..resilience import manifest as mf
 from ..utils.checkpoint import CheckpointCorruptError
 
@@ -56,8 +59,8 @@ class ModelRegistry:
     def __init__(self, directory: str, *, telemetry=None,
                  fingerprint: Optional[str] = None,
                  keep: int = DEFAULT_KEEP, device=None):
-        reject_later(telemetry=telemetry)
         self.directory = str(directory)
+        self.telemetry = telemetry
         self.device = resolve_device(device)
         self.fingerprint = fingerprint
         self.keep = max(1, int(keep))
@@ -92,6 +95,10 @@ class ModelRegistry:
                           prior_iters=int(prior_iters))
         mf.write_manifest(self.directory, man)
         mf.gc_generations(self.directory, self.keep)
+        if self.telemetry is not None:
+            self.telemetry.recovery(
+                action="checkpoint", generation=generation, path=shard,
+                source="serve.registry", tool="serve.registry")
         return generation
 
     # -- loading -----------------------------------------------------------
@@ -128,16 +135,21 @@ class ModelRegistry:
     def load_newest(self) -> Optional[LoadedModel]:
         """Walk committed generations newest → oldest, returning the
         first that verifies and loads; unverifiable generations are
-        skipped (the multi-generation ``.bak`` chain, serving edition).
-        None when nothing loadable exists."""
+        skipped with a ``checkpoint_fallback`` recovery record (the
+        multi-generation ``.bak`` chain, serving edition).  None when
+        nothing loadable exists."""
         for generation in mf.committed_generations(self.directory):
             man = mf.load_manifest(self.directory, generation)
             if man is None:
                 continue
             try:
                 return self._load_manifest(man)
-            except CheckpointCorruptError:
-                continue
+            except CheckpointCorruptError as e:
+                if self.telemetry is not None:
+                    self.telemetry.recovery(
+                        action="checkpoint_fallback",
+                        generation=generation, reason=str(e)[:200],
+                        source="serve.registry", tool="serve.registry")
         return None
 
     # -- hot swap ----------------------------------------------------------
@@ -147,7 +159,8 @@ class ModelRegistry:
 
     def refresh(self, engine=None) -> Optional[int]:
         """Poll for a newer loadable generation; when found, bind it
-        into ``engine`` (when given).  Returns the new generation id, or None when already
+        into ``engine`` (when given) and emit a ``hot_swap`` recovery
+        record.  Returns the new generation id, or None when already
         current (or nothing loadable).  A spec-incompatible generation
         propagates ``ServeSpecMismatch`` from the engine — the registry
         never half-swaps."""
@@ -161,7 +174,13 @@ class ModelRegistry:
             return None
         if engine is not None:
             engine.bind(loaded.model, loaded.generation)
+        previous = have
         self._current = loaded
+        if self.telemetry is not None:
+            self.telemetry.recovery(
+                action="hot_swap", generation=loaded.generation,
+                from_generation=previous, source="serve.registry",
+                tool="serve.registry")
         return loaded.generation
 
     # -- rollback ----------------------------------------------------------
@@ -169,7 +188,8 @@ class ModelRegistry:
         """The newest VERIFIABLE committed generation strictly older
         than ``generation`` (default: the currently-bound generation,
         falling back to HEAD's).  Unverifiable generations along the
-        walk are skipped, exactly like ``load_newest``; None when nothing older is
+        walk are skipped with a ``checkpoint_fallback`` recovery record,
+        exactly like ``load_newest``; None when nothing older is
         loadable — the rollback chain is exhausted."""
         if generation is None:
             if self._current is not None:
@@ -187,6 +207,12 @@ class ModelRegistry:
                 continue
             if not mf.verify_manifest(man, self.directory):
                 return g
+            if self.telemetry is not None:
+                self.telemetry.recovery(
+                    action="checkpoint_fallback", generation=g,
+                    reason="skipped while walking back: failed "
+                           "file-level verification",
+                    source="serve.registry", tool="serve.registry")
         return None
 
     def repoint(self, generation: int, engine=None) -> LoadedModel:
@@ -194,20 +220,37 @@ class ModelRegistry:
         (promotion) or backward (rollback).  The target must be a
         committed, verifiable generation: a missing manifest raises
         ``LookupError``, a torn shard raises ``CheckpointCorruptError``
-        — the registry never repoints at garbage.  On success the
-        manifest HEAD pointer is atomically rewritten (so a restart
-        serves this generation) and the model is bound into ``engine``
-        when given."""
+        (``checkpoint_fallback``-recorded) — the registry never repoints
+        at garbage.  On success the manifest HEAD pointer is atomically
+        rewritten (so a restart serves this generation), the model is
+        bound into ``engine`` when given, and a ``hot_swap`` recovery
+        record ties the movement into the trace."""
         man = mf.load_manifest(self.directory, generation)
         if man is None:
             raise LookupError(
                 f"no committed generation g{generation} in "
                 f"{self.directory!r}")
-        loaded = self._load_manifest(man)
+        try:
+            loaded = self._load_manifest(man)
+        except CheckpointCorruptError:
+            if self.telemetry is not None:
+                self.telemetry.recovery(
+                    action="checkpoint_fallback", generation=generation,
+                    reason="repoint refused: target failed "
+                           "verification",
+                    source="serve.registry", tool="serve.registry")
+            raise
         mf.repoint_head(self.directory, man)
         if engine is not None:
             engine.bind(loaded.model, loaded.generation)
+        previous = (self._current.generation
+                    if self._current is not None else 0)
         self._current = loaded
+        if self.telemetry is not None:
+            self.telemetry.recovery(
+                action="hot_swap", generation=loaded.generation,
+                from_generation=previous, source="serve.registry",
+                tool="serve.registry")
         return loaded
 
     def gc(self) -> List[str]:

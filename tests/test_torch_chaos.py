@@ -117,13 +117,20 @@ def test_schedule_for_targets_processes_and_lists_file_faults():
     assert s0.take_poison(4) and s1.take_poison(4)
     assert s0.exhausted and not s1.exhausted
     assert [f.kind for f in c.file_faults()] == ["truncate_ckpt"]
-    with pytest.raises(NotImplementedError, match="observability"):
-        ChaosSchedule([], telemetry=object())
-    # the replica kinds are data; their schedule comes with serve/
+    # telemetry= is ported (a chaos record a fired fault), and so are
+    # the replica kinds: they fire at request boundaries only
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    tel = Telemetry()
+    s = ChaosSchedule([ScheduledFault("nan", 2)], telemetry=tel, seed=9)
+    assert s.take_poison(3)
+    assert [(r["kind"], r["fault"], r["fired_iter"], r["seed"])
+            for r in tel.records] == [("chaos", "nan", 3, 9)]
     assert chaos.REPLICA_KINDS == jchaos.REPLICA_KINDS
     for kind in chaos.REPLICA_KINDS:
-        with pytest.raises(NotImplementedError, match="serve/"):
-            ChaosSchedule([ScheduledFault(kind, 3)])
+        s = ChaosSchedule([ScheduledFault(kind, 3)])
+        s.before_segment(10)  # never at a segment boundary
+        assert s.fired == [] and not s.exhausted
 
 
 # ---------------------------------------------------------------------------

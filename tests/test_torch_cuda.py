@@ -11,6 +11,8 @@ not installed:
 Tolerances are those of ``tests/test_pallas.py``: loss rtol 1e-5,
 gradient rtol 1e-4 with an absolute floor of 1e-4 of its largest entry."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -2462,15 +2464,117 @@ def test_serve_queue_on_the_card_hot_swaps_mid_stream(cuda):
 
 @pytest.mark.cuda
 def test_serving_and_pipeline_refuse_telemetry_on_the_card(cuda, tmp_path):
+    """telemetry= is ported: the engine, the queue, the registry and the
+    promoter take an ``obs.Telemetry`` on the card, and every record
+    names the card and passes the schema validator."""
     from spark_agd_tpu_torch import pipeline, serve
+    from spark_agd_tpu_torch.obs import Telemetry, schema
 
+    tel = Telemetry()
     model = _serve_models(cuda)["logistic"]
-    with pytest.raises(NotImplementedError, match="observability"):
-        serve.ServeEngine(model, telemetry=object())
-    eng = serve.ServeEngine(model)
-    for make in (lambda: serve.MicroBatchQueue(eng, telemetry=object()),
-                 lambda: serve.ModelRegistry(str(tmp_path),
-                                             telemetry=object()),
-                 lambda: pipeline.Promoter(None, telemetry=object())):
-        with pytest.raises(NotImplementedError, match="observability"):
-            make()
+    reg = serve.ModelRegistry(str(tmp_path), telemetry=tel)
+    reg.publish(model)
+    eng = serve.ServeEngine(model, generation=1, telemetry=tel)
+    with serve.MicroBatchQueue(eng, telemetry=tel, replica=0,
+                               max_wait_us=0) as q:
+        q.submit(np.ones((3, 40), np.float32), tenant="a").result(30)
+    assert pipeline.Promoter(reg, eng, telemetry=tel).telemetry is tel
+    kinds = [r["kind"] for r in tel.records]
+    assert {"span", "recovery", "serve_request", "serve_latency"} <= \
+        set(kinds)
+    name = torch.cuda.get_device_name(torch.cuda.current_device())
+    for rec in tel.records:
+        assert rec["device_kind"] == name and rec["cuda_version"]
+        assert schema.validate_record(rec) == [], rec
+
+
+@pytest.mark.cuda
+def test_a_one_replica_fleet_answers_on_the_card_through_the_wire(
+        cuda, tmp_path):
+    """A ``ReplicaServer`` over an engine on the card, reached through
+    ``discover_replicas`` and a ``FleetRouter``: every answer equals the
+    model's own ``predict_proba`` on the card at f32 rtol 1e-5, the f32
+    rows crossing the JSON wire exactly; a hot swap through the registry
+    reaches the replica."""
+    from spark_agd_tpu_torch.models import glm
+    from spark_agd_tpu_torch.obs import Telemetry
+    from spark_agd_tpu_torch.serve import (FleetRouter, ModelRegistry,
+                                           ReplicaServer, ServeEngine,
+                                           discover_replicas)
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    models = {g: glm.LogisticRegressionModel(
+        torch.randn(1_000, generator=gen, device=cuda) / 30.0, 0.1 * g)
+        for g in (1, 2)}
+    reg = ModelRegistry(str(tmp_path / "registry"))
+    reg.publish(models[1])
+    eng = ServeEngine(reg.load_newest().model, generation=1, max_batch=16)
+    tel = Telemetry()
+    fleet_dir = str(tmp_path / "fleet")
+    r = np.random.default_rng(0)
+    with ReplicaServer(fleet_dir, 0, eng, registry=reg, telemetry=tel,
+                       poll_every_s=0.05) as server:
+        handles = discover_replicas(fleet_dir)
+        assert list(handles) == [0] and handles[0].port == server.port
+        with FleetRouter(handles, telemetry=tel) as router:
+            seen = set()
+            for i in range(40):
+                if i == 20:
+                    reg.publish(models[2])
+                X = r.normal(size=(1 + i % 16, 1_000)).astype(np.float32)
+                res = router.request(X, op="predict_proba")
+                want = models[res.generation].predict_proba(
+                    torch.from_numpy(X).to(cuda)).cpu().numpy()
+                np.testing.assert_allclose(res.values, want, rtol=1e-5,
+                                           atol=1e-7)
+                seen.add(res.generation)
+                if i >= 20 and res.generation == 1:
+                    time.sleep(0.05)  # the poll loop's next look
+            assert seen == {1, 2} and router.stats.requests == 40
+    assert eng.generation == 2 and eng.hot_swaps >= 1
+    assert [r["replica"] for r in tel.records
+            if r["kind"] == "serve_request"] == [0] * 40
+
+
+@pytest.mark.cuda
+def test_telemetry_on_a_supervised_flagship_shape_fit(cuda):
+    """The flagship's 1,000 columns through ``FusedLogisticGradient`` in
+    segments, with a ``Telemetry`` streaming the iterations: the
+    iteration records' losses are the fit's history, bit for bit, and
+    the fit is the bits of the same fit without telemetry."""
+    from spark_agd_tpu_torch.core import smooth
+    from spark_agd_tpu_torch.data import device_synth
+    from spark_agd_tpu_torch.obs import Telemetry, schema
+    from spark_agd_tpu_torch.resilience import (ResiliencePolicy,
+                                                run_agd_supervised)
+
+    X, y = device_synth.class_logistic(200_003, 1_000, seed=13)
+    px, rv = smooth.make_prox(port.SquaredL2Updater(), 0.1)
+    w0 = torch.zeros(1_000, device=cuda)
+
+    def fit(**kw):
+        staged = smooth.make_smooth_staged(port.FusedLogisticGradient(),
+                                           X, y)
+        return run_agd_supervised(
+            prox=px, reg_value=rv, w0=w0,
+            config=port.AGDConfig(num_iterations=12, convergence_tol=0.0),
+            policy=ResiliencePolicy(segment_iters=4, jitter=0.0, seed=0),
+            staged=staged, **kw)
+
+    bare = fit()
+    tel = Telemetry()
+    fk.reset_launch_counts()
+    res = fit(telemetry=tel, stream_iterations=True)
+    torch.cuda.synchronize()
+    assert fk.launch_count > 0
+    assert set(m for m, c in fk.margin_mode_launches.items() if c) == {
+        fk.launch_shape(X).mode}
+    assert torch.equal(res.weights, bare.weights)
+    assert np.array_equal(res.loss_history, bare.loss_history)
+    # in emission order: each segment counts its iterations from 1
+    its = [r for r in tel.records if r["kind"] == "iteration"]
+    assert [r["loss"] for r in its] == list(res.loss_history)
+    assert [r["iter"] for r in its] == [1, 2, 3, 4] * 3
+    assert [r["kind"] for r in tel.records].count("attempt") == 3
+    for rec in tel.records:
+        assert schema.validate_record(rec) == [], rec

@@ -472,8 +472,21 @@ def test_heartbeat_verdicts_and_losses_match_jax(tmp_path):
     assert HostMonitor(str(tmp_path / "none"), expected=[0]).poll() == {}
     with pytest.raises(ValueError, match="slow_after_s"):
         HostMonitor(str(tmp_path), stale_after_s=1.0, slow_after_s=2.0)
-    with pytest.raises(NotImplementedError, match="observability"):
-        HeartbeatWriter(str(tmp_path), telemetry=object())
+    # telemetry= is ported: a beat is a heartbeat record, and the first
+    # loss of a process a host_lost record, once
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    tel = Telemetry()
+    HeartbeatWriter(str(tmp_path / "t"), process_index=2, process_count=3,
+                    telemetry=tel).beat(iter=4, phase="segment")
+    mon = HostMonitor(str(tmp_path / "t"), stale_after_s=1.0,
+                      telemetry=tel, clock=lambda: time.time() + 60.0)
+    for _ in range(2):
+        with pytest.raises(HostLost):
+            mon.check()
+    assert [(r["kind"], r.get("process"), r.get("action"))
+            for r in tel.records] == [("heartbeat", 2, None),
+                                      ("recovery", 2, "host_lost")]
 
 
 # ---------------------------------------------------------------------------

@@ -205,7 +205,8 @@ def _after_docstring(path: Path) -> str:
 
 @pytest.mark.parametrize("rel", ["resilience/errors.py",
                                  "resilience/retry.py", "obs/schema.py",
-                                 "resilience/manifest.py"])
+                                 "resilience/manifest.py",
+                                 "resilience/journal.py"])
 def test_copied_module_equals_the_original(rel):
     mine = ROOT / "spark_agd_tpu_torch" / rel
     theirs = ROOT / "spark_agd_tpu" / rel

@@ -1,5 +1,6 @@
 """The port's copies of the JAX package's stdlib-only ``obs`` modules:
-``sinks``, ``flight``, ``timeline``, ``scaling`` and ``perfgate`` equal
+``sinks``, ``flight``, ``timeline``, ``scaling``, ``perfgate``,
+``events`` and ``registry`` equal
 the originals after their module docstrings, line for line; ``trace``
 equals its original but for ``process_index``, which reads the rank of
 an initialized ``torch.distributed`` group instead of JAX's process
@@ -16,7 +17,8 @@ from spark_agd_tpu_torch.obs import (flight, perfgate, scaling, schema,
                                      sinks, timeline, trace)
 
 ROOT = Path(__file__).resolve().parents[1]
-COPIES = ("sinks", "flight", "timeline", "scaling", "perfgate")
+COPIES = ("sinks", "flight", "timeline", "scaling", "perfgate", "events",
+          "registry")
 
 
 def _after_docstring(path: Path) -> list:

@@ -79,8 +79,17 @@ def test_stream_iterations_has_no_effect_while_telemetry_is_refused():
     a, b = fit(stream_iterations=True), fit(stream_iterations=False)
     assert torch.equal(a.weights, b.weights)
     assert np.array_equal(a.loss_history, b.loss_history)
-    with pytest.raises(NotImplementedError, match="observability"):
-        fit(stream_iterations=False, telemetry=object())
+    # telemetry= is ported: streaming the iterations changes no bit, and
+    # without stream_iterations no iteration record is emitted
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    for stream in (True, False):
+        tel = Telemetry()
+        c = fit(stream_iterations=stream, telemetry=tel)
+        assert torch.equal(c.weights, a.weights)
+        assert np.array_equal(c.loss_history, a.loss_history)
+        losses = [r["loss"] for r in tel.iterations("agd")]
+        assert losses == (list(a.loss_history) if stream else [])
 
 
 # ---------------------------------------------------------------------------
@@ -178,12 +187,24 @@ def test_weight_fault_corrupts_publish_not_chain(tmp_path):
 
 
 def test_trainer_refuses_telemetry(tmp_path):
+    # telemetry= is ported: an epoch is a pipeline_epoch span noted with
+    # its generation, around the supervised fit's records
+    from spark_agd_tpu_torch.obs import Telemetry
+
     prox, reg_value = tsmooth.make_prox(TL2(), 0.01)
-    with pytest.raises(NotImplementedError, match="observability"):
-        tpipeline.ContinuousTrainer(
-            None, TLogistic(), prox=prox, reg_value=reg_value,
-            w0=np.zeros(D), make_model=lambda w: w, telemetry=object(),
-            device="cpu")
+    tel = Telemetry()
+    trainer = tpipeline.ContinuousTrainer(
+        tserve.ModelRegistry(str(tmp_path / "reg"), device="cpu"),
+        TLogistic(), prox=prox, reg_value=reg_value, w0=np.zeros(D),
+        config=tagd.AGDConfig(num_iterations=4), make_model=lambda w:
+        tglm.LogisticRegressionModel(w, 0.0), telemetry=tel,
+        device="cpu")
+    X, y = _data(seed=2, dtype=np.float64)
+    er = trainer.run_epoch(X, y)
+    epoch = [r for r in tel.spans("pipeline_epoch")
+             if r.get("status") != "open"]
+    assert len(epoch) == 1 and epoch[0]["generation"] == er.generation
+    assert not tel.iterations()  # epochs run stream_iterations=False
 
 
 # ---------------------------------------------------------------------------
@@ -348,9 +369,15 @@ def test_shadow_slice_is_deterministic(tmp_path):
 
 @pytest.mark.parametrize("cls", ["CanaryController", "Promoter"])
 def test_canary_and_promoter_refuse_telemetry(cls):
-    with pytest.raises(NotImplementedError, match="observability"):
-        if cls == "Promoter":
-            tpipeline.Promoter(None, telemetry=object())
-        else:
-            tpipeline.CanaryController(None, None, None,
-                                       telemetry=object())
+    # telemetry= is ported (the decisions' records are held to JAX's in
+    # tests/test_torch_telemetry.py), and so is contention_check=
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    tel = Telemetry()
+    if cls == "Promoter":
+        made = tpipeline.Promoter(None, telemetry=tel)
+    else:
+        made = tpipeline.CanaryController(None, None, None, telemetry=tel,
+                                          contention_check=lambda: True)
+        assert made.contention_check()
+    assert made.telemetry is tel

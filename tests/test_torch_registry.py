@@ -32,10 +32,14 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _logistic(seed=1, d=D):
+def _jweights(seed=1, d=D):
     r = np.random.default_rng(seed)
-    return tglm.LogisticRegressionModel(
-        _t(r.normal(size=d).astype(np.float32)), float(r.normal()) * 0.1)
+    return r.normal(size=d).astype(np.float32), float(r.normal()) * 0.1
+
+
+def _logistic(seed=1, d=D):
+    w, b = _jweights(seed, d)
+    return tglm.LogisticRegressionModel(_t(w), b)
 
 
 def _models(pkg):
@@ -288,8 +292,33 @@ def test_a_port_tamper_is_refused_by_the_jax_registry_too(tmp_path):
 
 def test_telemetry_is_refused_and_the_device_rule_holds(tmp_path,
                                                         monkeypatch):
-    with pytest.raises(NotImplementedError, match="observability"):
-        ModelRegistry(str(tmp_path), telemetry=object(), device="cpu")
+    # telemetry= is ported: publishes, a skipped torn generation and the
+    # swaps are the JAX registry's recovery records
+    from spark_agd_tpu.obs import Telemetry as JTelemetry
+    from spark_agd_tpu_torch.obs import Telemetry as TTelemetry
+    from torch_records import comparable
+
+    recs = []
+    for name, make, tel in (("j", JRegistry, JTelemetry()),
+                            ("t", ModelRegistry, TTelemetry())):
+        d = tmp_path / name
+        kw = {} if make is JRegistry else {"device": "cpu"}
+        reg = make(str(d), telemetry=tel, **kw)
+        for i in range(3):
+            reg.publish(_logistic(seed=i + 1) if make is ModelRegistry
+                        else jglm.LogisticRegressionModel(
+                            *_jweights(seed=i + 1)))
+        man = mf.load_manifest(str(d), 3)
+        scramble_file(str(d / man.shards[0].path), seed=3)
+        assert reg.refresh() == 2
+        assert reg.previous() == 1
+        reg.repoint(1)
+        recs.append(tel.records)
+    assert comparable(recs[1], drop=("reason",)) == comparable(
+        recs[0], drop=("reason",))
+    assert [r["action"] for r in recs[1]] == [
+        "checkpoint", "checkpoint", "checkpoint", "checkpoint_fallback",
+        "hot_swap", "hot_swap"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ModelRegistry(str(tmp_path))

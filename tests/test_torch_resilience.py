@@ -533,8 +533,15 @@ def test_the_watchdog_times_out_and_the_retry_gives_the_same_bits(problem):
 def test_later_slice_options_raise(problem, tmp_path):
     build, dargs, px, rv, w0, _ = problem
     cfg = agd.AGDConfig(num_iterations=2)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _supervise(problem, cfg, telemetry=object())
+    # telemetry= is ported: the fit is the same, and streams one
+    # iteration record an iteration
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    tel = Telemetry()
+    res = _supervise(problem, cfg, telemetry=tel)
+    bare = _supervise(problem, cfg)
+    assert torch.equal(res.weights, bare.weights)
+    assert [r["iter"] for r in tel.iterations("agd")] == [1, 2]
     # the multi-host slice's options run: a heartbeat, a monitor and a
     # scheduler leave a single-process fit's bits as they were
     from spark_agd_tpu_torch.resilience import (HeartbeatWriter,
@@ -565,10 +572,15 @@ def test_later_slice_options_raise(problem, tmp_path):
     assert res.num_iters == plain.num_iters
     np.testing.assert_allclose(res.loss_history, plain.loss_history,
                                rtol=tol)
-    with pytest.raises(NotImplementedError, match="observability"):
-        AutoCheckpointer("c.npz", telemetry=object())
-    with pytest.raises(NotImplementedError, match="observability"):
-        supervised_call(lambda: 1, telemetry=object())
+    # the checkpointer's and supervised_call's telemetry= are ported
+    tel = Telemetry()
+    ck = AutoCheckpointer(str(tmp_path / "c.npz"), telemetry=tel)
+    _supervise(problem, cfg, policy=_policy(), checkpointer=ck)
+    assert supervised_call(lambda: 1, telemetry=tel) == 1
+    assert {r["action"] for r in tel.records
+            if r["kind"] == "recovery"} == {"checkpoint"}
+    assert [r["outcome"] for r in tel.records
+            if r["kind"] == "attempt"][-1] == "ok"
 
 
 def test_policy_validation():

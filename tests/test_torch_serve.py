@@ -6,7 +6,9 @@ kind and op, at every bucket and at the edge sizes (1, a bucket's size
 the JAX ``ServeEngine`` serves on the same weights and rows (1e-12
 under x64, rtol 1e-6 at f32); hot swaps, spec mismatches and bad
 requests raise the exception types JAX raises; the program census never
-changes while serving; ``telemetry=`` raises, naming its slice."""
+changes while serving; ``telemetry=`` emits the JAX engine's spans
+(its ``program_cost`` records wait for the profiling and analysis
+slice)."""
 
 import dataclasses
 
@@ -15,9 +17,12 @@ import pytest
 import torch
 
 from spark_agd_tpu.models import glm as jglm, mlp as jmlp
+from spark_agd_tpu.obs import Telemetry as JTelemetry
 from spark_agd_tpu.serve import engine as jengine
 from spark_agd_tpu_torch.models import glm as tglm, mlp as tmlp
+from spark_agd_tpu_torch.obs import Telemetry as TTelemetry
 from spark_agd_tpu_torch.serve import engine as tengine
+from torch_records import comparable
 
 D = 12
 MAX_BATCH = 16   # ladder (4, 8, 16)
@@ -253,9 +258,23 @@ def test_programs_and_buffers():
 
 
 def test_telemetry_is_refused_naming_its_slice():
-    _, tm = _pair("logistic")
-    with pytest.raises(NotImplementedError, match="observability"):
-        tengine.ServeEngine(tm, telemetry=object(), device="cpu")
+    # telemetry= is ported: the warmup span and one engine_call span a
+    # batch, as the JAX engine emits them (less its program_cost records)
+    jm, tm = _pair("logistic")
+    jt, tt = JTelemetry(), TTelemetry()
+    je = jengine.ServeEngine(jm, max_batch=MAX_BATCH,
+                             min_bucket=MIN_BUCKET, telemetry=jt)
+    te = tengine.ServeEngine(tm, max_batch=MAX_BATCH,
+                             min_bucket=MIN_BUCKET, telemetry=tt,
+                             device="cpu")
+    for n in (3, 16):
+        je.serve_batch(_X(n), "predict_proba")
+        te.serve_batch(_X(n), "predict_proba")
+    assert comparable(tt.records) == comparable(jt.records)
+    # each causal span is an "open" record, then its closing record
+    assert [(r["name"], r.get("status")) for r in tt.spans()] == [
+        ("serve_warmup", None)] + [("engine_call", "open"),
+                                   ("engine_call", "ok")] * 2
 
 
 def test_engine_without_cuda_raises_unless_told_cpu(monkeypatch):

@@ -12,14 +12,18 @@ import numpy as np
 import pytest
 
 from spark_agd_tpu.models import glm as jglm
+from spark_agd_tpu.obs import Telemetry as JTelemetry
 from spark_agd_tpu.resilience.errors import ServeOverloaded as JOverloaded
 from spark_agd_tpu.serve import engine as jengine
 from spark_agd_tpu_torch.models import glm as tglm
 from spark_agd_tpu_torch.resilience.errors import (TRANSIENT,
                                                    ServeOverloaded,
                                                    classify_failure)
+from spark_agd_tpu.serve.queue import MicroBatchQueue as JQueue
+from spark_agd_tpu_torch.obs import Telemetry as TTelemetry
 from spark_agd_tpu_torch.serve import (MicroBatchQueue, ServeEngine,
                                        ServeResult)
+from torch_records import comparable
 
 D = 10
 MAX_BATCH = 16
@@ -275,6 +279,24 @@ def test_a_worker_that_cannot_warm_fails_start(engine, monkeypatch):
         q.submit(_X(1))
 
 
-def test_telemetry_is_refused_naming_its_slice(engine):
-    with pytest.raises(NotImplementedError, match="observability"):
-        MicroBatchQueue(engine, telemetry=object())
+def test_telemetry_is_refused_naming_its_slice(engine, jax_engine):
+    # telemetry= is ported: one request at a time (each its own batch),
+    # then an overload and the shutdown rollup give the JAX queue's
+    # records, replica and tenant stamped
+    recs = []
+    for pkg_queue, eng, tel in ((JQueue, jax_engine, JTelemetry()),
+                                (MicroBatchQueue, engine, TTelemetry())):
+        q = pkg_queue(eng, telemetry=tel, replica=3, max_wait_us=0,
+                      max_queue_rows=8).start()
+        for n, tenant in ((2, "a"), (5, None), (1, "b")):
+            q.submit(_X(n, seed=n), "predict_proba",
+                     tenant=tenant).result(timeout=WAIT)
+        with pytest.raises((ServeOverloaded, JOverloaded)):
+            q.submit(_X(9), tenant="a")
+        q.stop()
+        assert len(q.recent_latencies()) == 3
+        recs.append(tel.records)
+        assert tel.registry.counter("serve.tenant_rejected.a").value == 1
+    assert comparable(recs[1], drop=("generation",)) == comparable(
+        recs[0], drop=("generation",))
+    assert [r["kind"] for r in recs[1]].count("serve_request") == 4

@@ -9,6 +9,7 @@ device rule (entry points raise without CUDA unless told ``device="cpu"``);
 the on-device generators and the weight conversion."""
 
 import ast
+import inspect
 import os
 import subprocess
 import sys
@@ -118,6 +119,9 @@ import spark_agd_tpu_torch.obs.schema, spark_agd_tpu_torch.resilience.retry
 import spark_agd_tpu_torch.parallel.mesh, spark_agd_tpu_torch.parallel.multihost
 import spark_agd_tpu_torch.parallel.dist_smooth
 import spark_agd_tpu_torch.parallel.dryrun, spark_agd_tpu_torch.native
+import spark_agd_tpu_torch.obs.telemetry, spark_agd_tpu_torch.obs.events
+import spark_agd_tpu_torch.resilience.journal
+import spark_agd_tpu_torch.serve.fleet, spark_agd_tpu_torch.serve.router
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m == "jax" or m.startswith("jax.")
              or m == "spark_agd_tpu" or m.startswith("spark_agd_tpu."))
@@ -156,19 +160,13 @@ def test_sources_import_nothing_of_jax(rel):
 
 
 # the JAX package root's public names the port does not export yet, each
-# with the slice that brings it
-ROOT_NAMES_TO_PORT = {
-    "Telemetry": "A.12, the observability slice",
-}
+# with the slice that brings it (none: ``Telemetry`` came with the
+# telemetry bus)
+ROOT_NAMES_TO_PORT = {}
 
-# the JAX ``serve`` package's names that wait for the replica fleet and
-# its router (A.11b)
-SERVE_NAMES_TO_PORT = {
-    name: "A.11b, the replica fleet and its router"
-    for name in ("ReplicaHandle", "ReplicaServer", "discover_replicas",
-                 "FleetRouter", "NoReplicasLeft", "ReplicaLatencyTracker",
-                 "RouteResult")
-}
+# the JAX ``serve`` package's names that wait for a later slice (none:
+# the replica fleet and its router are ported)
+SERVE_NAMES_TO_PORT = {}
 
 
 def _root_public_names(path: Path):
@@ -403,3 +401,85 @@ def test_chip_smoke_refuses_without_cuda():
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+# the public methods of the JAX package's classes that the port's twins
+# lack or take other parameters for, each with its reason
+METHOD_EXCEPTIONS = {
+    ("serve.engine", "ServeEngine", "program_label"):
+        "a label of the compiled-program contract pins "
+        "(analysis/contracts.py), which come with the profiling and "
+        "analysis slice",
+    ("serve.engine", "ServeEngine", "compiled_programs"):
+        "the jax.stages.Compiled of each program, read by the contract "
+        "pins only (the profiling and analysis slice)",
+    ("resilience.scheduler", "StragglerScheduler", "__init__"):
+        "retrace= drops JAX's jitted segment programs after a rebalance; "
+        "the port's supervisor rebuilds a segment's smooth whenever the "
+        "staged data changes, so it has nothing to drop",
+}
+
+
+def _public_methods(cls):
+    """``name -> function`` for the public methods (and ``__init__``)
+    that ``cls`` defines or inherits from a class of its own package."""
+    out = {}
+    for klass in reversed(cls.__mro__):
+        if not klass.__module__.startswith(cls.__module__.split(".")[0]):
+            continue
+        for name, fn in vars(klass).items():
+            if name.startswith("_") and name != "__init__":
+                continue
+            if isinstance(fn, (staticmethod, classmethod)):
+                fn = fn.__func__
+            if inspect.isfunction(fn):
+                out[name] = fn
+    return out
+
+
+def _class_pairs(sub):
+    import importlib
+
+    pairs = []
+    for path in sorted((ROOT / "spark_agd_tpu" / sub).glob("*.py")):
+        mod = path.stem
+        if mod.startswith("_") or not (
+                ROOT / "spark_agd_tpu_torch" / sub / path.name).exists():
+            continue
+        jm = importlib.import_module(f"spark_agd_tpu.{sub}.{mod}")
+        tm = importlib.import_module(f"spark_agd_tpu_torch.{sub}.{mod}")
+        for name, jc in vars(jm).items():
+            if inspect.isclass(jc) and jc.__module__ == jm.__name__ \
+                    and not name.startswith("_"):
+                pairs.append((f"{sub}.{mod}", name, jc, getattr(tm, name,
+                                                                None)))
+    return pairs
+
+
+@pytest.mark.parametrize("sub", ["serve", "pipeline", "resilience", "obs"])
+def test_public_methods_take_the_jax_parameter_names(sub):
+    """Every class of the JAX package's ``sub`` modules that the port
+    carries has a twin whose public methods take the JAX parameter
+    names (the port may add its own, such as ``device=``), but for the
+    named exceptions."""
+    pairs = _class_pairs(sub)
+    assert pairs
+    faults = []
+    for mod, name, jc, tc in pairs:
+        assert tc is not None, f"{mod}.{name} has no twin"
+        tmethods = _public_methods(tc)
+        for meth, jf in _public_methods(jc).items():
+            why = METHOD_EXCEPTIONS.get((mod, name, meth))
+            tf = tmethods.get(meth)
+            if tf is None:
+                if why is None:
+                    faults.append(f"{mod}.{name}.{meth} is missing")
+                continue
+            missing = [p for p in inspect.signature(jf).parameters
+                       if p not in inspect.signature(tf).parameters]
+            if missing and why is None:
+                faults.append(f"{mod}.{name}.{meth} lacks {missing}")
+            if why is not None:
+                # an exception stays true, or it goes
+                assert missing, (mod, name, meth)
+    assert not faults, faults
