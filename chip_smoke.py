@@ -463,10 +463,27 @@ Phases, each printing one JSON line:
     full, ``gate_fleet`` passing over every process's records, every
     record schema-valid and naming the card; p50, p99 and requests per
     second printed, not gated; no kernel launched (the replicas' products
-    are ``torch.matmul``).
+    are ``torch.matmul``);
+53. telemetry, on phase 5's data after 47: (a) phase 5's fit through
+    ``run(telemetry=Telemetry(profile_dir=))``: its history and weights
+    bit-equal to phase 5's, its iteration records equal to the history,
+    the spans ``h2d_transfer``, ``trace``, ``compile``, ``execute`` and
+    the ``run`` record valid; the profiler's Chrome trace of ``execute``
+    parsed, holding the margin kernel's ``margin_stream`` symbol exactly
+    as often as the fit launched it, but for kernel records the profiler
+    dropped (launches in the trace without their kernel, counted and
+    printed; at most 1%); no CUDA activity in it fails the phase; the device-busy share of ``execute`` read from the trace and
+    the wall-time ratio of a telemetry fit to a plain one (medians of 3
+    each, in turns), printed with the card; (b) ``run_lbfgs`` and OWL-QN
+    with ``telemetry=``: each fit's iteration records equal its history;
+    (c) a 10-iteration flagship fit supervised with a
+    ``DistributedCheckpointer(telemetry=)`` every 5 (a ``ckpt_commit``
+    span a generation) and, after phase 37, ``run_agd_host`` over 3
+    pinned batches of 1,048,576 rows (a ``stream_epoch`` record a pass),
+    both on one ``Telemetry``.
 
 Launch counts are set to 0 just before each path (phases 5, 7, 10-19,
-22-52) and read just after it; the sparse paths launch neither kernel,
+22-53) and read just after it; the sparse paths launch neither kernel,
 nor do the MLP and the cross-validation.  Each phase from 13 on prints its fit wall times with the card's
 name and power limit.  Any failed check raises, and the script exits
 non-zero without the last line.  It also exits non-zero when CUDA is not
@@ -8128,6 +8145,266 @@ def fleet_phase(port, fk, smi, weights):
         "children": results}, checks, t_phase, smi)
 
 
+# phase 53: the fit's spans and its first profiler trace; the margin
+# kernel's symbol in the trace (the stream mode at the flagship's width)
+TEL_STREAM_BATCHES, TEL_STREAM_ITERS = 3, 1
+TEL_CKPT_ITERS, TEL_CKPT_EVERY = 10, 5
+MARGIN_STREAM_SYMBOL = "margin_stream"
+FIT_SPANS = ("h2d_transfer", "trace", "compile", "execute")
+
+
+def trace_events(log_dir):
+    """The events of the one Chrome trace ``utils.profiling`` wrote into
+    ``log_dir`` (a failure when there is not exactly one)."""
+    files = sorted(glob.glob(os.path.join(log_dir, "*.pt.trace.json")))
+    if len(files) != 1:
+        raise AssertionError(f"telemetry: {len(files)} trace files in "
+                             f"{log_dir}, not 1")
+    with open(files[0]) as f:
+        return json.load(f)["traceEvents"], os.path.getsize(files[0])
+
+
+def dropped_kernel_records(events):
+    """The kernel launches of a trace whose kernel record the profiler
+    dropped: ``cudaLaunchKernel`` runtime events whose correlation id no
+    kernel event carries (in a whole trace each launch has one)."""
+    kernels = {e["args"].get("correlation") for e in events
+               if e.get("cat") == "kernel"}
+    return sum(1 for e in events if e.get("cat") == "cuda_runtime"
+               and "LaunchKernel" in e.get("name", "")
+               and e["args"].get("correlation") not in kernels)
+
+
+def busy_share(events, name):
+    """The share of the host range ``name`` (a ``record_function``) in
+    which the card ran a kernel, a copy or a set: the union of the
+    device's intervals inside the range over the range's length."""
+    spans = [e for e in events if e.get("name") == name
+             and e.get("cat") == "user_annotation"]
+    if len(spans) != 1:
+        raise AssertionError(f"telemetry: {len(spans)} '{name}' ranges in "
+                             "the trace, not 1")
+    t0 = float(spans[0]["ts"])
+    t1 = t0 + float(spans[0]["dur"])
+    device = sorted(
+        (max(t0, float(e["ts"])), min(t1, float(e["ts"]) + float(e["dur"])))
+        for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                            "gpu_memset"))
+    busy, end = 0.0, t0
+    for a, b in device:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def records_valid(records):
+    """Every record valid under ``obs.schema`` and naming the card."""
+    from spark_agd_tpu_torch.obs import schema
+
+    kind = torch.cuda.get_device_name(0)
+    return all(schema.validate_record(r) == [] and r.get("device_kind")
+               == kind for r in records)
+
+
+def telemetry_phase(port, fk, smi, X, y, solo, launches, tel_c):
+    """Phase 53 (a, b and the checkpointed fit of c), on phase 5's data:
+    (a) phase 5's fit through ``run(telemetry=Telemetry(profile_dir=))``
+    (``FusedLogisticGradient``): its history and weights bit-equal to
+    phase 5's fit in this call, the iteration records equal to the
+    history, the spans ``h2d_transfer``, ``trace``, ``compile`` and
+    ``execute`` (in that order) and the ``run`` record, each record
+    valid; the profiler's trace of ``execute`` parsed, holding the
+    margin kernel's ``margin_stream`` symbol exactly as often as the fit
+    launched it, but for kernel records the profiler dropped
+    (:func:`dropped_kernel_records`), CUDA activity or a failure; the
+    device-busy share of
+    ``execute`` from the trace; the wall-time ratio of a telemetry fit to
+    a plain one (medians of STEADY_RUNS each, in turns).  (b) ``run_lbfgs``
+    and OWL-QN (``L1Prox``, L1_MAIN) with ``telemetry=``: each fit's
+    iteration records equal its history.  (c, first half) a
+    TEL_CKPT_ITERS-iteration flagship fit supervised with a
+    ``DistributedCheckpointer(telemetry=tel_c)`` every TEL_CKPT_EVERY in
+    ``/dev/shm``: a closed ``ckpt_commit`` span a generation, holding its
+    save's recovery record."""
+    from spark_agd_tpu_torch import resilience
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    t_phase = time.perf_counter()
+    res5, hist5 = solo[0], solo[1]
+    w0 = torch.zeros(D_MAIN, dtype=torch.float32, device="cuda")
+    kw = dict(reg_param=REG, num_iterations=ITERS, convergence_tol=TOL,
+              initial_weights=w0, return_result=True)
+    prof_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    checks = {}
+
+    # (a) the traced fit
+    tel = Telemetry(profile_dir=prof_dir)
+    fk.reset_launch_counts()
+    (w, hist, res), traced_s = timed(lambda: port.run(
+        (X, y), port.FusedLogisticGradient(), port.SquaredL2Updater(),
+        telemetry=tel, **kw))
+    traced_launches = fk.launch_count
+    modes = margin_modes(fk)
+    its = tel.iterations("agd")
+    spans = [r["name"] for r in tel.records if r["kind"] == "span"]
+    checks["bit_equal_to_phase5_history"] = bool(np.array_equal(hist,
+                                                                hist5))
+    checks["bit_equal_to_phase5_weights"] = bool(torch.equal(
+        w, res5.weights))
+    checks["iteration_records_equal_history"] = [
+        r["loss"] for r in its] == hist.tolist()
+    checks["iteration_count"] = len(its) == int(res.num_iters) == len(hist)
+    checks["four_spans_in_order"] = spans == list(FIT_SPANS)
+    checks["one_run_record"] = [r["kind"] for r in tel.records].count(
+        "run") == 1 and tel.records[-1]["kind"] == "run"
+    checks["records_valid"] = records_valid(tel.records)
+    checks["only_stream_mode"] = set(modes) == {"stream"}
+    events, trace_bytes = trace_events(prof_dir)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    in_trace = sum(MARGIN_STREAM_SYMBOL in e.get("name", "")
+                   for e in kernels)
+    checks["cuda_activity_in_trace"] = len(kernels) > 0
+    # exactly the fit's launches; where the profiler dropped kernel
+    # records (launches in the trace without their kernel: 7 of 1,844 in
+    # one run of three on the H100), the margin kernel's missing ones
+    # must be among those drops, and the drops under 1% of the launches
+    dropped = dropped_kernel_records(events)
+    checks["kernel_in_trace_as_launched"] = (
+        0 < in_trace <= traced_launches <= in_trace + dropped
+        and dropped <= 0.01 * len(kernels))
+    share, execute_ms = busy_share(events, "execute")
+    span_s = {r["name"]: r["seconds"] for r in tel.records
+              if r["kind"] == "span"}
+    shutil.rmtree(prof_dir, ignore_errors=True)
+
+    # the cost of the instrumentation: telemetry fits against plain ones
+    def plain():
+        return port.run((X, y), port.FusedLogisticGradient(),
+                        port.SquaredL2Updater(), **kw)
+
+    def with_telemetry(i):
+        return port.run((X, y), port.FusedLogisticGradient(),
+                        port.SquaredL2Updater(), telemetry=Telemetry(),
+                        **kw)
+
+    seconds, outs = alternating_walls(plain, {"telemetry": with_telemetry})
+    checks["timed_fits_bit_equal"] = all(
+        torch.equal(o[0], res5.weights) for name in outs
+        for o in outs[name])
+    ratio = median_ratio(seconds, "telemetry")
+
+    # (b) L-BFGS and OWL-QN
+    qn = {}
+    for algorithm, updater, reg in (("lbfgs", port.SquaredL2Updater(), REG),
+                                    ("owlqn", port.L1Prox(), L1_MAIN)):
+        t = Telemetry()
+        r, qn_s = timed(lambda: port.run_lbfgs(
+            (X, y), port.FusedLogisticGradient(), updater, reg_param=reg,
+            num_iterations=ITERS, initial_weights=w0, telemetry=t))
+        k = int(r.num_iters)
+        checks[f"{algorithm}_records_equal_history"] = [
+            x["loss"] for x in t.iterations(algorithm)] \
+            == r.loss_history[1:k + 1].tolist() and k > 0
+        checks[f"{algorithm}_records_valid"] = records_valid(t.records)
+        qn[algorithm] = {"iters": k, "seconds": qn_s,
+                         "records": len(t.records)}
+
+    # (c) the checkpointed fit, its commit spans on the shared bus
+    tmp = shm_dir("chip_smoke_tel_ckpt_")
+    try:
+        ck = resilience.DistributedCheckpointer(
+            tmp, every_iters=TEL_CKPT_EVERY, telemetry=tel_c)
+        (wc, hc), ckpt_s = timed(lambda: port.run(
+            (X, y), port.FusedLogisticGradient(), port.SquaredL2Updater(),
+            reg_param=REG, num_iterations=TEL_CKPT_ITERS,
+            convergence_tol=TOL, initial_weights=w0,
+            resilience=resilience.ResiliencePolicy(
+                segment_iters=TEL_CKPT_EVERY),
+            checkpointer=ck, telemetry=tel_c))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    commits = [r for r in tel_c.records if r.get("name") == "ckpt_commit"
+               and r["kind"] == "span" and r.get("status") != "open"]
+    saves = [r for r in tel_c.records if r["kind"] == "recovery"
+             and r.get("source") == "dist_ckpt"]
+    checks["a_commit_span_a_generation"] = (
+        [r["generation"] for r in commits]
+        == [r["generation"] for r in saves] == list(range(ck.saves))
+        and ck.saves >= TEL_CKPT_ITERS // TEL_CKPT_EVERY)
+    checks["checkpointed_history_is_phase5s"] = bool(np.array_equal(
+        hc, hist5[:TEL_CKPT_ITERS]))
+    record_margin_path(fk, launches, "telemetry")
+    finish("telemetry", {
+        "shape": [N_MAIN, D_MAIN], "launches_traced_fit": traced_launches,
+        "margin_stream_in_trace": in_trace, "trace_events": len(events),
+        "kernel_records_dropped": dropped,
+        "trace_kernel_events": len(kernels), "trace_mb": trace_bytes / 1e6,
+        "traced_fit_s": traced_s, "span_s": span_s,
+        "execute_ms_in_trace": execute_ms,
+        "execute_device_busy_share": share,
+        "telemetry_over_plain_wall": ratio,
+        "walls_s": seconds, "quasi_newton": qn,
+        "checkpointed_fit_s": ckpt_s, "commits": len(commits),
+        "launches": launches["telemetry"],
+        "modes": launches["modes"]["telemetry"]}, checks, t_phase, smi)
+    print(f"telemetry: traced fit, telemetry/plain wall {ratio:.4f} "
+          f"(median of {STEADY_RUNS} each), execute device-busy share "
+          f"{share:.4f}; {smi}", flush=True)
+
+
+def telemetry_stream(port, fk, streaming, smi, host, tel_c, launches):
+    """Phase 53 (c, second half): ``run_agd_host`` over
+    TEL_STREAM_BATCHES batches of phase 5's pinned rows (STREAM_ROWS a
+    batch) with ``make_streaming_smooth(telemetry=tel_c)``, the bus that
+    took phase 53's checkpointed fit: a ``stream_epoch`` record a pass,
+    numbered on, each with the pass's batches and rows; the records of
+    both fits valid."""
+    from spark_agd_tpu_torch.core import smooth as smooth_lib
+
+    t_phase = time.perf_counter()
+    rows = TEL_STREAM_BATCHES * STREAM_ROWS
+    Xh, yh = host["X"][:rows], host["y"][:rows]
+    ds = streaming.StreamingDataset.from_arrays(Xh, yh, STREAM_ROWS)
+    stats = []
+    before = len(tel_c.records)
+    sm, sl = streaming.make_streaming_smooth(
+        port.FusedLogisticGradient(), ds, prefetch=STREAM_PREFETCH,
+        pass_stats=stats, telemetry=tel_c)
+    px, rv = smooth_lib.make_prox(port.SquaredL2Updater(), REG)
+    cfg = port.AGDConfig(convergence_tol=TOL,
+                         num_iterations=TEL_STREAM_ITERS)
+    w0 = torch.zeros(Xh.shape[1], dtype=torch.float32, device="cuda")
+    fk.reset_launch_counts()
+    res, fit_s = timed(lambda: port.run_agd_host(
+        sm, px, rv, w0, cfg, smooth_loss=sl))
+    epochs = [r for r in tel_c.records[before:]
+              if r["kind"] == "stream_epoch"]
+    launches["telemetry"] += fk.launch_count
+    for mode, n in margin_modes(fk).items():
+        launches["modes"]["telemetry"][mode] = \
+            launches["modes"]["telemetry"].get(mode, 0) + n
+    checks = {
+        "a_stream_epoch_a_pass": len(epochs) == len(stats) >= 2,
+        "epochs_numbered": [r["epoch"] for r in epochs]
+        == list(range(1, len(stats) + 1)),
+        "epoch_batches_and_rows": all(
+            r["batches"] == TEL_STREAM_BATCHES and r["rows"] == rows
+            for r in epochs),
+        "a_launch_a_batch_a_pass":
+            fk.launch_count == TEL_STREAM_BATCHES * len(stats),
+        "finite": bool(np.isfinite(np.asarray(res.loss_history)[
+            :int(res.num_iters)]).all()),
+        "records_valid": records_valid(tel_c.records),
+    }
+    finish("telemetry_stream", {
+        "rows": rows, "passes": len(stats), "fit_s": fit_s,
+        "pass_s": [r["pass_s"] for r in epochs],
+        "stall_fraction": [r["stall_fraction"] for r in epochs],
+        "records": len(tel_c.records)}, checks, t_phase, smi)
+
+
 def main(argv):
     parser = argparse.ArgumentParser(
         description="Drive the PyTorch port on one CUDA card.")
@@ -8222,6 +8499,9 @@ def main(argv):
     lbfgs13, stream_ref = {}, {}  # phases 13 and 32 for phases 36-37
     cv_ref, stream33 = {}, {}  # phases 23 and 33 for phases 46 and 41
     served = {}  # phases 5, 7 and 18's weights on the host, for phase 50
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    tel53 = Telemetry()  # phase 53's bus: a checkpointed and a streamed fit
 
     def on_flagship(X, y, solo):
         served["logistic"] = solo[0].weights.detach().cpu()
@@ -8250,6 +8530,9 @@ def main(argv):
         torch.cuda.empty_cache()
         sharded_update(port, fk, smi, X, y, launches)
         torch.cuda.empty_cache()
+        # 53 (a, b, c's checkpointed fit). the fit's spans and its trace
+        telemetry_phase(port, fk, smi, X, y, solo, launches, tel53)
+        torch.cuda.empty_cache()
         flagship.update(host=pinned_copy(streaming, X, y), solo=solo)
 
     def on_softmax(Xa, y, solo):
@@ -8275,6 +8558,9 @@ def main(argv):
                  keep=stream33)
     supervised_stream(port, fk, streaming, smi, flagship["host"],
                       stream_ref, launches)
+    # 53 (c). a shallow streamed fit on phase 53's bus
+    telemetry_stream(port, fk, streaming, smi, flagship["host"], tel53,
+                     launches)
     # 41. the stream over a mesh of 2 slots, then the dry run
     mesh_stream(port, fk, streaming, smi, flagship["host"], stream_ref,
                 stream33.pop("res"), launches)
@@ -8382,7 +8668,7 @@ def main(argv):
              "stream_libsvm", "supervised_fit", "supervised_path_lbfgs",
              "supervised_stream", "chaos_soak", "mesh_fit", "mesh_stream",
              "dryrun", "multiprocess", "dist_ckpt_fit", "dist_fault_drill",
-             "straggler_rebalance", "pipeline")
+             "straggler_rebalance", "pipeline", "telemetry")
     margin["launches_by_path"] = {"main_path": margin["launches"],
                                   **{p: launches[p] for p in paths}}
     margin["modes_by_path"] = {"main_path": margin.pop("main_path_modes"),

@@ -41,21 +41,24 @@ checkpointer=...)`` runs the fit under the supervisor
 ``dist_mode="shard_map"``) runs the update on 1/N shards of the weights
 (``parallel.sharded_update``).  The grid fits (the sweeps, the L-BFGS
 sweep, cross-validation and the streamed sweeps) take ``mesh=`` too
-(``parallel.grid``).  ``journal=`` and telemetry are not in this slice:
-asking for them raises ``NotImplementedError`` naming the slice that
-brings them.
+(``parallel.grid``).  ``telemetry=`` (``run``, ``make_runner``,
+``run_lbfgs``, ``make_lbfgs_runner``; an ``obs.Telemetry``) streams one
+``iteration`` record an iteration, times the fit's phases in spans
+(``_make_instrumented_fit``) and, from ``run`` and ``run_lbfgs``, ends
+with a ``run`` record; ``run(resilience=..., journal=)`` appends the
+run's recovery decisions to a ``resilience.Journal``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from ._device import resolve_device, same_device
-from ._later import reject_later
 from .core import agd, gd, host_agd, lbfgs as lbfgs_lib, prng
 from .core import smooth as smooth_lib, tvec
 from .ops.losses import Gradient
@@ -241,6 +244,68 @@ def _stage(data, gradient: Gradient, device, mesh=False,
         gradient, batch, mesh=m, mode=dist_mode)
 
 
+def _weights_key(w) -> str:
+    """A weight tree's structure, shapes and dtypes, as one string."""
+    return repr(tvec.tmap(lambda a: (tuple(a.shape), str(a.dtype)), w))
+
+
+def _make_instrumented_fit(place_w, bind, execute, gradient, dev,
+                           telemetry):
+    """The telemetry twin of a runner's plain ``fit`` (the JAX package's
+    ``api.py:194-240``): the same fit, each phase under a span timer that
+    streams a ``span`` record as it closes and under a profiler range of
+    the same name (``utils.profiling.annotate``), in the JAX package's
+    order:
+
+    - ``h2d_transfer``: ``place_w``, the weights copied onto the run's
+      device;
+    - on the first call for each weight structure, shape and dtype,
+      ``trace`` and then ``compile``.  The port traces and compiles no
+      program, so they time what stands in their place: ``trace`` runs
+      ``bind()``, which binds the smooth closures to the operands that
+      ``gradient.prepare`` staged when the runner was built (the route
+      through the kernel wrappers is fixed there), and ``compile`` forces
+      the first-use ``nvcc`` build and load of every kernel library the
+      gradient launches on ``dev`` (``ops.fused_kernels.load_for``; on
+      the CPU, or for a gradient without a kernel, it does nothing), so
+      ``execute`` never absorbs it;
+    - ``execute``: ``execute(w, bound)``, the fit's loop, ending after
+      ``torch.cuda.synchronize(dev)`` on a CUDA device, so the span
+      measures the device's work, as the JAX package's
+      ``block_until_ready`` does.
+
+    When the telemetry carries a ``profile_dir``, the first ``execute``
+    is captured as a profiler trace (``utils.profiling.OneShotTrace``),
+    so the span timers and the device timeline line up by name."""
+    from .ops import fused_kernels
+    from .utils import profiling
+
+    cache = {}
+    capture = profiling.OneShotTrace(
+        getattr(telemetry, "profile_dir", None))
+
+    def fit(initial_weights):
+        with telemetry.span("h2d_transfer"), \
+                profiling.annotate("h2d_transfer"):
+            w = place_w(initial_weights)
+        key = _weights_key(w)
+        bound = cache.get(key)
+        if bound is None:
+            with telemetry.span("trace"), profiling.annotate("trace"):
+                bound = bind()
+            with telemetry.span("compile"), profiling.annotate("compile"):
+                fused_kernels.load_for(gradient, dev)
+            cache[key] = bound
+        with capture(), telemetry.span("execute"), \
+                profiling.annotate("execute"):
+            res = execute(w, bound)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return res
+
+    return fit
+
+
 def make_runner(
     data,
     gradient: Gradient,
@@ -263,9 +328,16 @@ def make_runner(
 ):
     """Build ``fit(initial_weights) -> AGDResult`` over data placed and
     prepared once (``gradient.prepare`` runs here, not per fit; on a
-    mesh once a shard)."""
+    mesh once a shard).
+
+    ``telemetry`` (an ``obs.Telemetry``, default off): the loop emits one
+    ``iteration`` record an iteration (iter, loss, L, theta, step,
+    restarted; ``core.agd.run_agd(telemetry_cb=)``) from the scalars it
+    holds on the host already, so it adds no device sync, and each
+    ``fit`` runs its phases under the spans of
+    :func:`_make_instrumented_fit`.  ``None`` runs the same fit with no
+    callback and no span."""
     _check_dist_mode(dist_mode)
-    reject_later(telemetry=telemetry)
     dev, (build, dargs) = _stage(data, gradient, device, mesh, dist_mode,
                                  sharded_update)
     px, rv = smooth_lib.make_prox(updater, reg_param)
@@ -274,23 +346,35 @@ def make_runner(
         l0=l0, l_exact=l_exact, beta=beta, alpha=alpha,
         may_restart=may_restart, loss_mode=loss_mode)
     agd_run = getattr(build, "make_agd_run", None)
+    tel_cb = (None if telemetry is None
+              else telemetry.iteration_callback("agd"))
+
+    def place_w(initial_weights):
+        return tvec.tmap(lambda a: _owned(a, dev), initial_weights)
+
     if agd_run is not None:
         # the sharded update: the whole loop over 1/N shards, full trees
         # in and out
-        run_sh = agd_run(px, rv, cfg)
+        def bind():
+            return agd_run(px, rv, cfg, telemetry_cb=tel_cb)
 
-        def fit_sharded(initial_weights):
-            w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
+        def execute(w0, run_sh):
             return run_sh(w0, dargs)
+    else:
+        def bind():
+            return build(*dargs)
 
-        fit_sharded.data_args = dargs
-        return fit_sharded
+        def execute(w0, closures):
+            sm, sl = closures
+            return agd.run_agd(sm, px, rv, w0, cfg, smooth_loss=sl,
+                               telemetry_cb=tel_cb)
 
-    def fit(initial_weights):
-        w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
-        sm, sl = build(*dargs)
-        return agd.run_agd(sm, px, rv, w0, cfg, smooth_loss=sl)
-
+    if telemetry is None:
+        def fit(initial_weights):
+            return execute(place_w(initial_weights), bind())
+    else:
+        fit = _make_instrumented_fit(place_w, bind, execute, gradient, dev,
+                                     telemetry)
     fit.data_args = dargs
     return fit
 
@@ -337,11 +421,18 @@ def run(
     a ``resilience.AutoCheckpointer``) adds preemption-safe
     checkpoints and a corruption-tolerant resume.  ``return_result=True``
     then returns the ``SupervisedResult`` third, and ``verbose=True``
-    logs one line of its retries and rollbacks.  ``journal=`` comes with
-    the profiling and analysis slice and raises."""
+    logs one line of its retries and rollbacks.
+
+    ``telemetry`` (an ``obs.Telemetry``, default off): the iteration
+    stream and the spans of :func:`make_runner` (on the supervised path,
+    the supervisor's records and its iteration stream), then one ``run``
+    record at the end.  ``journal`` (supervised path only; a path or an
+    open ``resilience.Journal``): every recovery decision of the run is
+    also appended to the crash-safe journal, through a ``JournalSink`` on
+    the run's bus; a path is opened (its torn tail repaired) and closed
+    by this call, an open ``Journal`` flushed and left open."""
     if initial_weights is None:
         raise ValueError("initial_weights is required")
-    reject_later(journal=journal)
     if resilience is not None:
         cfg = agd.AGDConfig(
             convergence_tol=convergence_tol, num_iterations=num_iterations,
@@ -350,8 +441,8 @@ def run(
         return _run_supervised(
             data, gradient, updater, cfg, reg_param, initial_weights,
             mesh, dist_mode, return_result, device, telemetry, verbose,
-            resilience, checkpointer, sharded_update)
-    if checkpointer is not None:
+            resilience, checkpointer, journal, sharded_update)
+    if checkpointer is not None or journal is not None:
         raise ValueError(
             "checkpointer=/journal= require the supervised path; pass "
             "resilience=True (or a ResiliencePolicy) as well")
@@ -364,6 +455,15 @@ def run(
     result = fit(initial_weights)
     n = int(result.num_iters)
     loss_history = result.loss_history[:n].numpy()
+    if telemetry is not None:
+        telemetry.run_summary(
+            tool="api.run", algorithm="agd", iters=n,
+            final_loss=float(loss_history[-1]) if n else None,
+            converged=bool(result.converged),
+            restarts=int(result.num_restarts),
+            backtracks=int(result.num_backtracks),
+            error=("aborted: non-finite loss"
+                   if bool(result.aborted_non_finite) else None))
     if verbose:
         from .utils import logging as logging_utils
 
@@ -376,23 +476,65 @@ def run(
 def _run_supervised(data, gradient, updater, cfg, reg_param,
                     initial_weights, mesh, dist_mode, return_result,
                     device, telemetry, verbose, resilience, checkpointer,
-                    sharded_update):
+                    journal, sharded_update):
     """The ``resilience=`` branch of :func:`run`: the staging of
     :func:`make_runner`, driven by
     ``resilience.supervisor.run_agd_supervised``."""
     from .resilience import supervisor as supervisor_lib
 
     _check_dist_mode(dist_mode)
-    reject_later(telemetry=telemetry)
     policy = None if resilience is True else resilience
     dev, staged = _stage(data, gradient, device, mesh, dist_mode,
                          sharded_update)
     px, rv = smooth_lib.make_prox(updater, reg_param)
-    sres = supervisor_lib.run_agd_supervised(
-        prox=px, reg_value=rv, w0=initial_weights, config=cfg,
-        policy=policy, checkpointer=checkpointer, staged=staged,
-        place_w=lambda w: tvec.tmap(lambda a: _owned(a, dev), w))
+
+    # journal= wiring: a JournalSink rides the run's event bus for the
+    # duration of this call.  A bare journal (telemetry=None) gets a
+    # Telemetry of decision records only, with the iteration stream off,
+    # so the fit runs as on the plain path.
+    jrnl = sink = None
+    own_journal = False
+    stream_iterations = telemetry is not None
+    if journal is not None:
+        from .obs import Telemetry
+        from .resilience import journal as journal_lib
+
+        if isinstance(journal, journal_lib.Journal):
+            jrnl = journal
+        else:
+            jrnl = journal_lib.Journal(os.fspath(journal))
+            own_journal = True
+        sink = journal_lib.JournalSink(jrnl)
+        if telemetry is None:
+            telemetry = Telemetry([sink])
+        else:
+            telemetry.bus.sinks.append(sink)
+        telemetry.journal_replay(**jrnl.replay_summary)
+
+    try:
+        sres = supervisor_lib.run_agd_supervised(
+            prox=px, reg_value=rv, w0=initial_weights, config=cfg,
+            policy=policy, telemetry=telemetry,
+            checkpointer=checkpointer, staged=staged,
+            place_w=lambda w: tvec.tmap(lambda a: _owned(a, dev), w),
+            stream_iterations=stream_iterations)
+    finally:
+        if sink is not None:
+            if sink in telemetry.bus.sinks:
+                telemetry.bus.sinks.remove(sink)
+            if own_journal:
+                jrnl.close()
+            else:
+                jrnl.flush()
     loss_history = np.asarray(sres.loss_history)
+    if telemetry is not None:
+        telemetry.run_summary(
+            tool="api.run", algorithm="agd", iters=int(sres.num_iters),
+            final_loss=(float(loss_history[-1]) if len(loss_history)
+                        else None),
+            converged=bool(sres.converged),
+            error=("aborted: non-finite loss"
+                   if sres.aborted_non_finite else None))
     if verbose:
         from .utils import logging as logging_utils
 
@@ -1077,7 +1219,11 @@ def make_lbfgs_runner(
     penalty folded into the objective; an L1 or elastic-net updater
     routes to OWL-QN through ``Prox.owlqn_decomposition``, checked
     before any staging.  ``fit.algorithm`` is ``"lbfgs"`` or
-    ``"owlqn"``.  ``mesh`` composes as in :func:`make_runner`."""
+    ``"owlqn"``.  ``mesh`` composes as in :func:`make_runner`.
+    ``telemetry``: an ``iteration`` record an accepted iteration from
+    the quasi-Newton loop (``algorithm`` the dispatch, ``lbfgs`` or
+    ``owlqn``) and the spans of :func:`_make_instrumented_fit`, as in
+    :func:`make_runner`."""
     decomp = updater.owlqn_decomposition(float(reg_param))
     if decomp is None:
         raise ValueError(
@@ -1087,15 +1233,18 @@ def make_lbfgs_runner(
             "AcceleratedGradientDescent")
     l1_coeff, extra = decomp
     _check_dist_mode(dist_mode)
-    reject_later(telemetry=telemetry)
     dev, (build, dargs) = _stage(data, gradient, device, mesh, dist_mode)
     cfg = lbfgs_lib.LBFGSConfig(
         num_corrections=num_corrections, convergence_tol=convergence_tol,
         num_iterations=num_iterations, grad_tol=grad_tol)
     algorithm = "owlqn" if l1_coeff > 0 else "lbfgs"
+    tel_cb = (None if telemetry is None
+              else telemetry.iteration_callback(algorithm))
 
-    def fit(initial_weights):
-        w0 = tvec.tmap(lambda a: _owned(a, dev), initial_weights)
+    def place_w(initial_weights):
+        return tvec.tmap(lambda a: _owned(a, dev), initial_weights)
+
+    def bind():
         sm = build(*dargs)[0]
 
         def objective(w):
@@ -1103,10 +1252,20 @@ def make_lbfgs_runner(
             pv, pg = extra(w)
             return f + pv, tvec.add(g, pg)
 
-        if l1_coeff > 0:
-            return lbfgs_lib.run_owlqn(objective, w0, l1_coeff, cfg)
-        return lbfgs_lib.run_lbfgs(objective, w0, cfg)
+        return objective
 
+    def execute(w0, objective):
+        if l1_coeff > 0:
+            return lbfgs_lib.run_owlqn(objective, w0, l1_coeff, cfg,
+                                       telemetry_cb=tel_cb)
+        return lbfgs_lib.run_lbfgs(objective, w0, cfg, telemetry_cb=tel_cb)
+
+    if telemetry is None:
+        def fit(initial_weights):
+            return execute(place_w(initial_weights), bind())
+    else:
+        fit = _make_instrumented_fit(place_w, bind, execute, gradient, dev,
+                                     telemetry)
     fit.algorithm = algorithm
     fit.data_args = dargs
     return fit
@@ -1128,7 +1287,9 @@ def run_lbfgs(
     device=None,
     telemetry=None,
 ):
-    """MLlib's ``LBFGS.runLBFGS``: returns the full ``LBFGSResult``."""
+    """MLlib's ``LBFGS.runLBFGS``: returns the full ``LBFGSResult``.
+    ``telemetry``: the stream and spans of :func:`make_lbfgs_runner`,
+    then one ``run`` record."""
     if initial_weights is None:
         raise ValueError("initial_weights is required")
     fit = make_lbfgs_runner(
@@ -1136,7 +1297,16 @@ def run_lbfgs(
         convergence_tol=convergence_tol, num_iterations=num_iterations,
         reg_param=reg_param, grad_tol=grad_tol, mesh=mesh,
         dist_mode=dist_mode, device=device, telemetry=telemetry)
-    return fit(initial_weights)
+    result = fit(initial_weights)
+    if telemetry is not None:
+        k = int(result.num_iters)
+        telemetry.run_summary(
+            tool="api.run_lbfgs", algorithm=fit.algorithm, iters=k,
+            final_loss=float(result.loss_history[k]),
+            converged=bool(result.converged),
+            error=("aborted: non-finite objective"
+                   if bool(result.aborted_non_finite) else None))
+    return result
 
 
 class LBFGS:

@@ -317,14 +317,15 @@ def _start(w0, warm, m, sc: _Scalars, extra=None):
 
 
 def _lbfgs_gen(w0, cfg: LBFGSConfig, sc: _Scalars, *, warm=None,
-               on_iteration=None):
+               on_iteration=None, telemetry_cb=None):
     """The L-BFGS loop as a generator (``f, g = yield w`` for each
     objective evaluation; returns an :class:`_Out`): the one body of
     decisions that the solo loops (:func:`_lbfgs_loop`) and the
     lock-step lanes (:func:`run_lanes`) run.  The fused twin
     (``sc.host`` false) also marks an abort when a failed line search
     ended on a non-finite trial, as the JAX loop does; the host twin, as
-    ``host_lbfgs.py``, does not."""
+    ``host_lbfgs.py``, does not.  ``telemetry_cb``: see
+    :func:`run_lbfgs`."""
     m = int(cfg.num_corrections)
     if m < 1:
         raise ValueError("num_corrections must be >= 1")
@@ -354,9 +355,13 @@ def _lbfgs_gen(w0, cfg: LBFGSConfig, sc: _Scalars, *, warm=None,
                 bool(abs(dg0) * abs(t_last) <= tol_f)
             reason = LS_STOP_NOISE_FLOOR if at_noise else phase
             aborted = not sc.host and not _finite(f_n)
+            if telemetry_cb is not None:
+                telemetry_cb(it=it, loss=f, accepted=False)
             break
         if not _finite(f_n):
             aborted = True
+            if telemetry_cb is not None:
+                telemetry_cb(it=it, loss=f, accepted=False)
             break
         w_n = tvec.axpby(1.0, w, float(t), d)
         _push_pair(pairs, m, tvec.sub(w_n, w), tvec.sub(g_n, g), sc)
@@ -369,6 +374,8 @@ def _lbfgs_gen(w0, cfg: LBFGSConfig, sc: _Scalars, *, warm=None,
         it += 1
         hist.append(f)
         steps.append((float(t), ev))
+        if telemetry_cb is not None:
+            telemetry_cb(it=it, loss=f, accepted=True)
         if on_iteration is not None:
             on_iteration({"w": w, "f": f, "g": g, "pairs": tuple(pairs),
                           "it": it})
@@ -377,11 +384,12 @@ def _lbfgs_gen(w0, cfg: LBFGSConfig, sc: _Scalars, *, warm=None,
 
 
 def _lbfgs_loop(objective, w0, cfg: LBFGSConfig, sc: _Scalars, *,
-                warm=None, on_iteration=None) -> _Out:
+                warm=None, on_iteration=None, telemetry_cb=None) -> _Out:
     """The L-BFGS loop on ``objective(w) -> (f, g)``: :func:`_lbfgs_gen`
     driven one evaluation at a time."""
     return _drive(_lbfgs_gen(w0, cfg, sc, warm=warm,
-                             on_iteration=on_iteration), objective)
+                             on_iteration=on_iteration,
+                             telemetry_cb=telemetry_cb), objective)
 
 
 def run_lanes(objective_multi, w0_stacked, cfg: LBFGSConfig,
@@ -426,7 +434,8 @@ def _pseudo_gradient(w, g, l1: float):
 
 
 def _owlqn_loop(objective_smooth, w0, l1_reg: float, cfg: LBFGSConfig,
-                sc: _Scalars, *, warm=None, on_iteration=None) -> _Out:
+                sc: _Scalars, *, warm=None, on_iteration=None,
+                telemetry_cb=None) -> _Out:
     """The OWL-QN loop (both twins).  ``hist`` holds the full objective
     ``F = f + l1·‖w‖₁``; ``warm.f`` is the smooth part's value."""
     m = int(cfg.num_corrections)
@@ -488,6 +497,8 @@ def _owlqn_loop(objective_smooth, w0, l1_reg: float, cfg: LBFGSConfig,
                 bool(abs(big_f_n - big_f) <= tol_f) and \
                 bool(abs(gain) <= tol_f)
             reason = LS_STOP_NOISE_FLOOR if at_noise else LS_STOP_ARMIJO
+            if telemetry_cb is not None:
+                telemetry_cb(it=it, loss=big_f, accepted=False)
             break
         # the pairs hold the smooth part's gradients (Andrew & Gao)
         _push_pair(pairs, m, tvec.sub(w_n, w), tvec.sub(g_n, g), sc)
@@ -500,6 +511,8 @@ def _owlqn_loop(objective_smooth, w0, l1_reg: float, cfg: LBFGSConfig,
         it += 1
         hist.append(big_f)
         steps.append((float(t), k))
+        if telemetry_cb is not None:
+            telemetry_cb(it=it, loss=big_f, accepted=True)
         if on_iteration is not None:
             on_iteration({"w": w, "f": f, "g": g, "pairs": tuple(pairs),
                           "it": it})
@@ -531,11 +544,22 @@ def _result(out: _Out, num_iterations: int, dt) -> LBFGSResult:
 
 
 def run_lbfgs(objective: Callable, w0: Any,
-              config: LBFGSConfig = LBFGSConfig()) -> LBFGSResult:
+              config: LBFGSConfig = LBFGSConfig(), *,
+              telemetry_cb: Callable | None = None) -> LBFGSResult:
     """Minimize ``objective(w) -> (f, g)`` from ``w0`` with decisions in
-    the carry dtype (the JAX fused loop's)."""
+    the carry dtype (the JAX fused loop's).
+
+    ``telemetry_cb`` (``obs.Telemetry.iteration_callback``), the JAX
+    loop's contract: called once an outer iteration with ``it``, ``loss``
+    (the objective after it, a 0-d CPU tensor of the carry dtype that
+    the loop holds on the host already, so the callback adds no device
+    sync) and ``accepted``; ``accepted=False`` marks a failed line
+    search's or a non-finite trial's last pass, which is not an executed
+    iteration (``it`` and ``loss`` are then the last accepted ones).
+    ``None`` runs the same loop."""
     dt = _carry_dtype(w0)
-    out = _lbfgs_loop(objective, w0, config, _Scalars(dt, host=False))
+    out = _lbfgs_loop(objective, w0, config, _Scalars(dt, host=False),
+                      telemetry_cb=telemetry_cb)
     return _result(out, config.num_iterations, dt)
 
 
@@ -558,13 +582,15 @@ def run_lbfgs_lanes(objective_multi: Callable, w0_stacked: Any,
 
 
 def run_owlqn(objective_smooth: Callable, w0: Any, l1_reg: float,
-              config: LBFGSConfig = LBFGSConfig()) -> LBFGSResult:
+              config: LBFGSConfig = LBFGSConfig(), *,
+              telemetry_cb: Callable | None = None) -> LBFGSResult:
     """Minimize ``objective_smooth(w) -> (f, g)`` plus ``l1_reg·‖w‖₁``
     from ``w0``; ``objective_smooth`` may fold in an L2 part, so an
     elastic net is ``make_objective``'s smooth part plus ``l1_reg``.
     ``loss_history`` holds the full objective; ``num_fn_evals`` counts
-    smooth evaluations."""
+    smooth evaluations.  ``telemetry_cb`` as in :func:`run_lbfgs`, its
+    ``loss`` the full objective."""
     dt = _carry_dtype(w0)
     out = _owlqn_loop(objective_smooth, w0, l1_reg, config,
-                      _Scalars(dt, host=False))
+                      _Scalars(dt, host=False), telemetry_cb=telemetry_cb)
     return _result(out, config.num_iterations, dt)

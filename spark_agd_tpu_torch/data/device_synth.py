@@ -1,9 +1,10 @@
 """On-device synthetic data: generated where it is consumed.
 
 Counterpart of ``spark_agd_tpu/data/device_synth.py:60-234``, with
-``planted_mlp`` (``:154-167``).  The data
-is drawn by a ``torch.Generator`` on the target device from ``seed``, so
-no bulk host-to-device copy happens.  X is allocated once and filled in
+``planted_mlp`` (``:154-167``) and the blockwise pairs
+(``linreg_params`` and ``linreg_block``, ``softmax_params`` and
+``softmax_block``).  The data is drawn by a ``torch.Generator`` on the
+target device from ``seed``, so no bulk host-to-device copy happens.  X is allocated once and filled in
 row blocks in place: at the benchmark scale (10M x 1000 f32, 40 GB) a
 second full-size temporary would not fit beside it, and at BASELINE
 config 4's 8.1M x 784 the trainer's intercept copy must fit beside X.
@@ -64,6 +65,36 @@ def planted_dense_linreg(n: int, d: int, noise: float = 0.1, *,
         e = torch.randn(block.shape[0], generator=gen, device=dev)
         y[r0:r0 + _BLOCK_ROWS] = block @ w + noise * e
     return X, y
+
+
+def linreg_params(d: int, *, seed: int = 0, device=None) -> torch.Tensor:
+    """The planted least-squares weight vector ``w ~ N(0, I/d)``, (d,)
+    f32: one definition for a caller that generates the data a row
+    block at a time with :func:`linreg_block` (BASELINE config 2 past
+    the memory of one full-size temporary)."""
+    dev = resolve_device(device)
+    return torch.randn(d, generator=_generator(dev, seed),
+                       device=dev) / math.sqrt(d)
+
+
+def linreg_block(w: torch.Tensor, rows: int, noise: float = 0.1, *,
+                 seed: int, block: int,
+                 out=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row block ``block`` of the planted least-squares data on w's
+    device: ``X ~ N(0, I)`` and ``y = X @ w + noise * e``, ``e ~ N(0,
+    1)``.  The block draws from its own generator, seeded by ``(seed,
+    block)`` as :func:`softmax_block`'s, so the data does not depend on
+    the order in which blocks are made.  ``out``, a (rows, d) f32
+    tensor, is filled in place.  The bits are not those of
+    :func:`planted_dense_linreg`, which draws every block from one
+    stream."""
+    d = w.shape[0]
+    gen = _generator(w.device, _block_seed(seed, block))
+    X = (torch.empty((rows, d), dtype=torch.float32, device=w.device)
+         if out is None else out)
+    X.normal_(generator=gen)
+    e = torch.randn(rows, generator=gen, device=w.device)
+    return X, X @ w + noise * e
 
 
 def softmax_params(d: int, k: int, *, seed: int = 0,

@@ -22,8 +22,9 @@ A single process degenerates to: read everything, shard like
 processes).  A partition read runs under the shared retry engine
 (``resilience.retry``), and freshly read partitions go through the
 ``validate=`` policy; ``data.streaming.StreamingDataset.from_libsvm_parts``
-shares both.  ``telemetry=`` comes with the profiling and analysis slice and
-raises.
+shares both.  ``telemetry=`` (an ``obs.Telemetry``) gets a ``recovery``
+record a retried read and the ``data.invalid_records`` counter of the rows
+``validate="drop"`` dropped, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .._later import reject_later
 from ..parallel import mesh as mesh_lib
 from ..parallel import multihost
 from ..resilience import retry as retry_lib
@@ -153,7 +153,9 @@ def from_partitioned_files(
     ``binarize_labels=False``.  Reads run under the retry engine
     (``retries``, default 3 attempts with backoff); ``validate``
     (``"raise"`` or ``"drop"``) rejects or drops rows with non-finite
-    values or indices out of range.
+    values or indices out of range.  ``telemetry``: a ``recovery``
+    record a retried read; the rows dropped on the
+    ``data.invalid_records`` counter.
 
     ``assignment``: an explicit partition list for this process instead
     of the round-robin rule (an empty list is legal: the process then
@@ -162,7 +164,6 @@ def from_partitioned_files(
     height instead of the allgather-max.  ``mesh`` defaults to
     ``mesh.make_mesh()`` (every visible card).  Returns a
     ``ShardedBatch`` whose mask excludes the padding rows."""
-    reject_later(telemetry=telemetry)
     if not paths:
         raise ValueError("no partition files")
     loader = _retrying_loader(loader or libsvm.load_libsvm, retries,
@@ -261,8 +262,8 @@ def from_partitioned_files_csr(
     costs two allgather-max reductions (rows a shard, padded entries a
     shard); a process with no partitions holds padding shards only.
     ``with_csc=True`` builds each shard's column-sorted twin on the host.
-    ``n_features`` pins the global width."""
-    reject_later(telemetry=telemetry)
+    ``n_features`` pins the global width; ``telemetry`` as in
+    :func:`from_partitioned_files`."""
     if not paths:
         raise ValueError("no partition files")
     loader = _retrying_loader(loader or libsvm.load_libsvm, retries,

@@ -68,7 +68,6 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, same_device
-from .._later import reject_later
 from ..core import tvec
 from ..ops.losses import Gradient
 from ..ops.sparse import CSRMatrix, _values_tensor
@@ -447,11 +446,15 @@ class StreamingDataset:
           sleeps run under the watchdog and ``corrupt_shard`` garbles
           the file before the parse that finds it.
 
-        ``telemetry=`` comes with the profiling and analysis slice and raises.
+        ``telemetry`` (an ``obs.Telemetry``): a ``recovery`` record a
+        retried read (and one where the native parser fell back to
+        Python), the rows ``validate="drop"`` dropped on the
+        ``data.invalid_records`` counter, a ``shard_quarantine`` record
+        a quarantined shard.
         """
+        from .. import native
         from . import ingest, libsvm
 
-        reject_later(telemetry=telemetry)
         paths = list(paths)
         if not paths:
             raise ValueError("from_libsvm_parts needs at least one path")
@@ -471,11 +474,17 @@ class StreamingDataset:
 
         def parse_part(path, visit_index=0, use_chaos=True):
             """One attempt at one shard: the chaos hook (inside the
-            retry loop, under the watchdog), parse, index-range check,
-            validation policy."""
+            retry loop, under the watchdog), parse, the native parser's
+            fallback record, index-range check, validation policy."""
             if use_chaos and chaos is not None:
                 chaos.before_shard(visit_index, path=path)
             d = libsvm.load_libsvm(path, n_features=n_features)
+            if telemetry is not None:
+                reason = native.pop_fallback_event("libsvm_parser.so")
+                if reason:
+                    telemetry.recovery(
+                        action="native_fallback", reason=reason,
+                        source="streaming")
             if len(d.indices) and int(d.indices.max()) >= n_features:
                 raise ValueError(
                     f"{path}: feature index {int(d.indices.max())} >= "
@@ -483,7 +492,7 @@ class StreamingDataset:
                     f"space would clamp or drop entries in the products")
             if validate:
                 d = ingest._validated_parts([path], [d], n_features,
-                                            validate, None)[0]
+                                            validate, telemetry)[0]
             y = d.binarized_labels() if binarize_labels else d.labels
             return d.indptr, d.indices, d.values, y.astype(np.float32)
 
@@ -504,7 +513,8 @@ class StreamingDataset:
             try:
                 return retry_lib.call_with_retry(
                     parse_part, path, visit_index=vi, policy=policy,
-                    label="stream_shard", on_retry=on_retry)
+                    label="stream_shard", telemetry=telemetry,
+                    on_retry=on_retry)
             except Exception as e:  # noqa: BLE001 — policy applied below
                 if quarantine is None:
                     raise
@@ -515,6 +525,13 @@ class StreamingDataset:
                     "quarantining shard %s after %d attempt(s): %s "
                     "(%d/%d shards healthy)", path, attempts[0],
                     quarantined[path], healthy, len(paths))
+                if telemetry is not None:
+                    telemetry.shard_quarantine(
+                        shard=path, reason=quarantined[path],
+                        attempts=attempts[0],
+                        shard_index=paths.index(path),
+                        healthy=healthy, total=len(paths),
+                        data_fraction=frac, source="streaming")
                 if frac < quarantine.min_data_fraction:
                     raise StreamDataLoss(
                         healthy, len(paths),
@@ -529,7 +546,7 @@ class StreamingDataset:
             for path in paths:  # the first non-empty part sizes the shape
                 arrays = retry_lib.call_with_retry(
                     parse_part, path, use_chaos=False, policy=policy,
-                    label="stream_shard")
+                    label="stream_shard", telemetry=telemetry)
                 m0 = _max_batch_nnz(arrays[0], batch_rows)
                 if m0:
                     first_cache[path] = arrays
@@ -1127,10 +1144,12 @@ def make_streaming_smooth(
     batch (default ``1.25 x batch nnz / shards``, rounded up to 128): a
     batch that cannot fit raises with the knob's name; it is inert
     without a mesh.  Build a CSR dataset with ``with_csc="lazy"`` for
-    the mesh: the sharder builds each shard's twin.  ``telemetry=`` comes
-    with the profiling and analysis slice and raises.
+    the mesh: the sharder builds each shard's twin.  ``telemetry`` (an
+    ``obs.Telemetry``): one ``stream_epoch`` record a completed pass of
+    either function (batches, rows, wall and stall seconds, the
+    quarantined shards), and a ``recovery(action="stream_resume")``
+    before it when the pass consumed a cursor, as in the JAX package.
     """
-    reject_later(telemetry=telemetry)
     if mesh is not None and mesh is not False:
         from ..parallel import mesh as mesh_lib
 
@@ -1152,6 +1171,31 @@ def make_streaming_smooth(
             ls, _, n = gradient.batch_loss_and_grad(w, X, y, mask)
             return ls, n
     pass_stats = [] if pass_stats is None else pass_stats
+    pass_counter = [0]  # completed passes, for the stream_epoch record
+
+    def _emit_pass(stats):
+        pass_stats.append(stats)
+        pass_counter[0] += 1
+        if telemetry is None or not stats:
+            return
+        resumed = stats.get("resumed_from_batch")
+        if resumed is not None:
+            telemetry.recovery(
+                action="stream_resume", resumed_from_batch=int(resumed),
+                source="streaming")
+        pass_s = stats.get("pass_s", 0.0)
+        stall_s = stats.get("stall_s", 0.0)
+        extra = {}
+        if resumed is not None:
+            extra["resumed_from_batch"] = int(resumed)
+        telemetry.stream_epoch(
+            epoch=pass_counter[0], batches=int(stats.get("batches", 0)),
+            rows=int(stats.get("rows", 0)), pass_s=float(pass_s),
+            stall_s=float(stall_s),
+            stall_fraction=float(stall_s / pass_s) if pass_s > 0 else 0.0,
+            skipped_batches=int(stats.get("skipped_batches", 0)),
+            quarantined=len(getattr(dataset, "quarantined", None) or {}),
+            prefetch=int(prefetch), source="streaming", **extra)
 
     def smooth(w):
         def unflatten(leaves):
@@ -1170,7 +1214,7 @@ def make_streaming_smooth(
             _place, dataset, w, prefetch=prefetch,
             stream_ckpt=stream_ckpt, acc_unflatten=unflatten,
             stats=stats)
-        pass_stats.append(stats)
+        _emit_pass(stats)
         nf = _mean_divisor(n, ls)
         return ls / nf, tvec.scale(1.0 / nf, gs)
 
@@ -1186,7 +1230,7 @@ def make_streaming_smooth(
             batch_loss_sums, lambda a, b: [a[0] + b[0]], _place, dataset,
             w, prefetch=prefetch, stream_ckpt=stream_ckpt,
             acc_unflatten=unflatten, stats=stats)
-        pass_stats.append(stats)
+        _emit_pass(stats)
         return ls / _mean_divisor(n, ls)
 
     return smooth, smooth_loss

@@ -5,6 +5,7 @@ equivalents (``evaluation.py``)."""
 
 from .evaluation import (  # noqa: F401
     binary_metrics,
+    cv_validation_scores,
     confusion_matrix,
     log_loss,
     multiclass_metrics,

@@ -14,10 +14,14 @@ Pass ``telemetry=Telemetry(...)`` to the serving plane
 ``ReplicaServer``, ``FleetRouter``), the pipeline
 (``ContinuousTrainer``, ``CanaryController``, ``Promoter``) and the
 supervised fit (``run_agd_supervised``, ``AutoCheckpointer``,
-``ChaosSchedule``, ``HeartbeatWriter``, ``HostMonitor``): they emit the
-JAX package's records.  The compiled-program introspection
-(``introspect``, ``program_cost`` records) and the fit entry points'
-``telemetry=`` come with the profiling and analysis slice.
+``ChaosSchedule``, ``HeartbeatWriter``, ``HostMonitor``,
+``DistributedCheckpointer``, ``StragglerScheduler``, ``load_degraded``),
+the fit entry points (``api.run``, ``make_runner``, ``run_lbfgs``,
+``make_lbfgs_runner``) and the data plane (``make_streaming_smooth``,
+``StreamingDataset.from_libsvm_parts``, ``ingest.from_partitioned_files``):
+they emit the JAX package's records.  ``python -m spark_agd_tpu_torch.obs
+--selfcheck`` checks the schema.  The compiled-program introspection
+(``introspect``, ``program_cost`` records) comes with a later slice.
 """
 
 from .registry import (  # noqa: F401

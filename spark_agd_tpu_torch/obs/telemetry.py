@@ -21,10 +21,13 @@ to the original, line for line, but for three places: the bus is a
 (the rank of an initialized ``torch.distributed`` group) instead of JAX;
 and those two pieces are defined here.
 
-``profile_dir=`` is stored, as the JAX package stores it; nothing in the
-port reads it until the profiling slice brings ``utils/profiling.py``.
-``telemetry=None`` everywhere runs the same code as before, with no
-callback and no host sync added.
+``profile_dir=`` is read by the fit entry points' instrumented fit
+(``api._make_instrumented_fit``): ``utils.profiling.OneShotTrace`` writes
+the first ``execute`` phase there as a ``torch.profiler`` Chrome trace
+(the class docstring below, pinned to the original, says "JAX profiler
+trace" and ``TraceAnnotation``; the port's are ``torch.profiler`` and
+``record_function``).  ``telemetry=None`` everywhere runs the same code
+as before, with no callback and no host sync added.
 """
 
 from __future__ import annotations

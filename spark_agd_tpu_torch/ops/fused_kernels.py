@@ -1009,3 +1009,22 @@ class FusedSoftmaxGradient(Gradient):
             X = stage_softmax(X, y, self.num_classes, mask)
         loss, grad = fused_softmax_loss_grad(self.num_classes, weights, X)
         return loss.to(weights.dtype), grad.to(weights.dtype), X.n_valid
+
+
+def load_for(gradient: Gradient, device) -> tuple:
+    """Build at first use and load every kernel library that ``gradient``
+    launches on ``device``: the margin kernel's for a
+    :class:`FusedMarginGradient`, the softmax kernel's for a
+    :class:`FusedSoftmaxGradient`, none for another gradient or on the
+    CPU.  Returns the libraries' names.  The instrumented fit of
+    ``api`` calls it in its ``compile`` span, so a fit's first
+    ``execute`` does not absorb the ``nvcc`` build."""
+    if torch.device(device).type != "cuda":
+        return ()
+    if isinstance(gradient, FusedMarginGradient):
+        library()
+        return ("margin_loss_grad",)
+    if isinstance(gradient, FusedSoftmaxGradient):
+        softmax_library()
+        return ("softmax_loss_grad",)
+    return ()

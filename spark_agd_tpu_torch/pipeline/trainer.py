@@ -142,9 +142,8 @@ class ContinuousTrainer:
         from the last committed batch instead of the epoch boundary.
         ``on_commit(count)`` is a drill's kill hook.  ``prefetch`` is
         the background ingest depth of ``fold_stream``.  With a
-        ``telemetry``, the streamed smooth's own records
-        (``stream_epoch``) come with the profiling and analysis slice:
-        ``make_streaming_smooth(telemetry=)`` raises until then."""
+        ``telemetry``, the streamed smooth adds its own records (a
+        ``stream_epoch`` a pass)."""
         from ..data import streaming
 
         self.epoch += 1

@@ -30,9 +30,10 @@ each survivor's new rank is its place among the survivors
   the continuation: ``load`` is :func:`load_degraded`, saves are barrier
   commits of the surviving topology.
 
-``telemetry=`` comes with the profiling and analysis slice and raises (the JAX
-package's flight-recorder dump on a refused quorum is a no-op without
-telemetry).
+With ``telemetry=``, as in the JAX package: a ``checkpoint_fallback``
+recovery record a refused generation, a ``degraded`` record and the
+``degraded_continue`` recovery action a degraded resume, and the flight
+recorder's dump (``obs.flight``) on a refused quorum.
 
 Quorum matrix (``min_quorum=0.5``, ``min_processes=1``):
 
@@ -55,7 +56,7 @@ from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .._later import reject_later
+from ..obs import flight as flight_lib
 from ..parallel import multihost
 from ..utils import checkpoint as ckpt
 from . import manifest as manifest_lib
@@ -176,8 +177,8 @@ def load_degraded(
     ``template``'s devices.  ``process_index`` is the caller's original
     index (in ``surviving``; default the lowest survivor); its new rank
     is its place there.  Raises :class:`QuorumLost` when the policy
-    refuses; None when no generation's surviving shards verify."""
-    reject_later(telemetry=telemetry)
+    refuses; None when no generation's surviving shards verify (each
+    refusal a ``checkpoint_fallback`` record with ``telemetry``)."""
     policy = policy or DegradePolicy()
     survivors = sorted(int(p) for p in surviving)
     if not survivors:
@@ -195,22 +196,26 @@ def load_degraded(
         try:
             m = manifest_lib.load_manifest(directory, gen)
         except (ValueError, OSError) as e:
-            _fallback(directory, gen, f"manifest unreadable: {e}")
+            _fallback(telemetry, directory, gen,
+                      f"manifest unreadable: {e}")
             continue
         decision = policy.decide(m.process_count, n_surv)
         if not decision.allowed:
             # quorum is a property of the topology, not of this
-            # generation: no older generation can fix it
+            # generation: no older generation can fix it.  The refusal
+            # ships with its last-seconds timeline (obs.flight).
+            flight_lib.dump_on_failure(telemetry, "quorum_lost")
             raise QuorumLost(decision.reason)
         problems = _verify_surviving(m, directory, survivors)
         if problems:
-            _fallback(directory, gen, "; ".join(problems))
+            _fallback(telemetry, directory, gen, "; ".join(problems))
             continue
         try:
             return _load_surviving(directory, m, template, survivors,
-                                   rank, n_surv, decision, fingerprint)
+                                   rank, n_surv, decision, fingerprint,
+                                   telemetry)
         except ckpt.CheckpointCorruptError as e:
-            _fallback(directory, gen, str(e))
+            _fallback(telemetry, directory, gen, str(e))
             continue
     if gens:
         logger.warning(
@@ -219,13 +224,18 @@ def load_degraded(
     return None
 
 
-def _fallback(directory: str, generation: int, reason: str) -> None:
+def _fallback(telemetry, directory: str, generation: int,
+              reason: str) -> None:
     logger.warning("degraded resume refusing generation %d under %r: %s",
                    generation, directory, reason)
+    if telemetry is not None:
+        telemetry.recovery(action="checkpoint_fallback", path=directory,
+                           generation=generation, reason=reason,
+                           source="degrade")
 
 
 def _load_surviving(directory, m, template, survivors, rank, n_surv,
-                    decision, fingerprint):
+                    decision, fingerprint, telemetry):
     per_host = []
     for p in survivors:
         path = m.shard_path(directory, p)
@@ -268,6 +278,20 @@ def _load_surviving(directory, m, template, survivors, rank, n_surv,
             [e[k] for _, _, e in per_host if k in e], axis=0)
         row_state[k[len(ROWSTATE_PREFIX):]] = whole[
             multihost.local_rows_slice(whole.shape[0], rank, n_surv)]
+
+    if telemetry is not None:
+        telemetry.degraded(
+            surviving=n_surv, saved_process_count=m.process_count,
+            lost=dead, quorum=round(decision.quorum, 4),
+            min_quorum=decision.required, generation=m.generation,
+            to_iter=int(lc.warm.prior_iters), process=rank,
+            dropped_partitions=len(dropped), source="degrade")
+        telemetry.recovery(
+            action="degraded_continue", path=directory,
+            generation=m.generation,
+            saved_process_count=m.process_count, process_count=n_surv,
+            process=rank, to_iter=int(lc.warm.prior_iters),
+            reason=decision.reason, source="degrade")
     logger.warning(
         "DEGRADED resume: generation %d saved by %d processes, "
         "continuing on %d survivor(s) (%s); %d data partition(s) "
@@ -316,7 +340,7 @@ class DegradedCheckpointer(DistributedCheckpointer):
             self.directory, template, surviving=self.surviving,
             policy=self.degrade_policy,
             process_index=self.original_process_index,
-            fingerprint=self.fingerprint)
+            fingerprint=self.fingerprint, telemetry=self.telemetry)
         if resumed is None:
             return None
         self.last_decision = resumed.decision

@@ -44,15 +44,19 @@ names (``generation``, ``process_index``, ``process_count``,
 ``partitions``, ``rowstate::*``) are the JAX package's, so either
 package resumes the other's sets.
 
-``HeartbeatWriter`` and ``HostMonitor`` take ``telemetry=``
-(``heartbeat`` and ``host_lost`` records); ``load_for_topology`` and
-``DistributedCheckpointer`` raise for it until the profiling and
-analysis slice.
+``telemetry=`` gives the JAX package's records: ``HeartbeatWriter`` a
+``heartbeat`` record a beat, ``HostMonitor`` a ``host_lost`` recovery
+record, ``load_for_topology`` a ``checkpoint_fallback`` record a refused
+generation and ``elastic_resume`` on a changed topology, and
+``DistributedCheckpointer`` a causal ``ckpt_commit`` span around each
+commit (``obs.trace``) holding the save's recovery record, and
+``resume`` on a load onto the same topology.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import logging
 import os
@@ -64,7 +68,6 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 
 import numpy as np
 
-from .._later import reject_later
 from ..parallel import multihost
 from ..utils import checkpoint as ckpt
 from . import manifest as manifest_lib
@@ -187,8 +190,9 @@ def load_for_topology(
     whose shards embed another generation than the manifest's.  None
     when nothing survives.  A fingerprint mismatch raises
     ``ValueError``: that is the wrong problem at a reused path, not
-    corruption to fall back from."""
-    reject_later(telemetry=telemetry)
+    corruption to fall back from.  With ``telemetry``, each refusal is a
+    ``checkpoint_fallback`` recovery record and a resume onto another
+    process count an ``elastic_resume`` one."""
     process_index, process_count = _process_defaults(process_index,
                                                      process_count)
     gens = manifest_lib.committed_generations(directory)
@@ -196,18 +200,18 @@ def load_for_topology(
         try:
             m = manifest_lib.load_manifest(directory, gen)
         except (ValueError, OSError) as e:
-            _fallback(directory, gen, f"manifest unreadable: {e}")
+            _fallback(telemetry, directory, gen, f"manifest unreadable: {e}")
             continue
         problems = manifest_lib.verify_manifest(m, directory)
         if problems:
-            _fallback(directory, gen, "; ".join(problems))
+            _fallback(telemetry, directory, gen, "; ".join(problems))
             continue
         try:
             return _load_generation(directory, m, template,
                                     process_index, process_count,
-                                    fingerprint)
+                                    fingerprint, telemetry)
         except ckpt.CheckpointCorruptError as e:
-            _fallback(directory, gen, str(e))
+            _fallback(telemetry, directory, gen, str(e))
             continue
     if gens:
         logger.warning(
@@ -216,13 +220,18 @@ def load_for_topology(
     return None
 
 
-def _fallback(directory: str, generation: int, reason: str) -> None:
+def _fallback(telemetry, directory: str, generation: int,
+              reason: str) -> None:
     logger.warning("refusing checkpoint generation %d under %r: %s",
                    generation, directory, reason)
+    if telemetry is not None:
+        telemetry.recovery(action="checkpoint_fallback", path=directory,
+                           generation=generation, reason=reason,
+                           source="dist_ckpt")
 
 
 def _load_generation(directory, m, template, process_index,
-                     process_count, fingerprint):
+                     process_count, fingerprint, telemetry):
     elastic = (m.process_count != process_count)
     if not elastic:
         # unchanged topology: this process reads back exactly its own
@@ -267,6 +276,14 @@ def _load_generation(directory, m, template, process_index,
         row_state[k[len(ROWSTATE_PREFIX):]] = whole[
             multihost.local_rows_slice(whole.shape[0], process_index,
                                        process_count)]
+
+    if telemetry is not None:
+        telemetry.recovery(
+            action="elastic_resume", path=directory,
+            generation=m.generation,
+            saved_process_count=m.process_count,
+            process_count=process_count, process=process_index,
+            to_iter=int(lc.warm.prior_iters), source="dist_ckpt")
     logger.warning(
         "elastic resume: generation %d was saved by %d processes, "
         "resuming as process %d/%d from iteration %d",
@@ -308,7 +325,10 @@ class DistributedCheckpointer(AutoCheckpointer):
     raises in the next of them.  A process killed hard loses the
     generation in flight, as if killed just before the boundary.  Over
     several processes the barrier is a collective on the fit's group,
-    so the whole save runs on the caller's thread.
+    so the whole save runs on the caller's thread; so it does with
+    ``telemetry``, whose records (the ``ckpt_commit`` span and, inside
+    it, the save's recovery record) then land in the order the JAX
+    package emits them.
 
     ``write_seconds`` keeps each shard write's wall time,
     ``commit_seconds`` each commit's (the exchange and, on the primary,
@@ -328,12 +348,10 @@ class DistributedCheckpointer(AutoCheckpointer):
                  process_count: Optional[int] = None,
                  exchange: Optional[Callable] = None,
                  clock=time.monotonic):
-        # its records come from load_for_topology and the commit, which
-        # carry telemetry= in the profiling and analysis slice
-        reject_later(telemetry=telemetry)
         super().__init__(directory, every_iters=every_iters,
                          every_seconds=every_seconds, keep=keep,
-                         fingerprint=fingerprint, clock=clock)
+                         fingerprint=fingerprint, telemetry=telemetry,
+                         clock=clock)
         self.directory = directory
         self.mesh_shape = dict(mesh_shape) if mesh_shape else None
         self.partitions = (None if partitions is None
@@ -344,11 +362,12 @@ class DistributedCheckpointer(AutoCheckpointer):
         self._exchange = exchange or _default_exchange
         self.commit_seconds: list = []
         self.save_seconds: list = []
-        # one process: the commit goes to a writer thread (class docstring)
+        # one process: the commit goes to a writer thread (class
+        # docstring), unless its records must keep their place
         self._writer = (concurrent.futures.ThreadPoolExecutor(
             1, thread_name_prefix="generation-commit")
             if self.process_count == 1 and multihost.process_count() <= 1
-            else None)
+            and telemetry is None else None)
         self._pending = None
         latest = manifest_lib.committed_generations(directory)
         self._next_generation = (latest[0] + 1) if latest else 0
@@ -392,25 +411,40 @@ class DistributedCheckpointer(AutoCheckpointer):
             payload[ROWSTATE_PREFIX + name] = (
                 np.asarray(arr) if self._writer is None else np.array(arr))
         if self._writer is None:
-            self._write_and_commit(warm, gen, payload, converged, aborted)
+            self._write_and_commit(warm, gen, payload, converged, aborted,
+                                   action)
         else:
             self._pending = self._writer.submit(
                 self._write_and_commit, warm, gen, payload, converged,
-                aborted)
+                aborted, action)
         self._next_generation = gen + 1
         self._last_saved_iters = int(warm.prior_iters)
         self._last_saved_t = self._clock()
         self.saves += 1
         self.save_seconds.append(time.perf_counter() - t0)
 
-    def _write_and_commit(self, warm, gen, payload, converged, aborted):
+    def _write_and_commit(self, warm, gen, payload, converged, aborted,
+                          action):
         t0 = time.perf_counter()
         shard_path = os.path.join(
             self.directory, manifest_lib.shard_name(gen, self.process_index))
         ckpt.atomic_savez(shard_path, payload)
         t1 = time.perf_counter()
         self.write_seconds.append(t1 - t0)
-        self._commit(warm, gen, shard_path, converged, aborted)
+        # the commit barrier rides as one causal ``ckpt_commit`` span
+        # (obs.trace), under the supervisor's run span
+        commit_span = (self.telemetry.trace_span(
+            "ckpt_commit", generation=int(gen),
+            to_iter=int(warm.prior_iters))
+            if self.telemetry is not None else contextlib.nullcontext())
+        with commit_span:
+            self._commit(warm, gen, shard_path, converged, aborted)
+            if self.telemetry is not None:
+                self.telemetry.recovery(
+                    action=action, path=self.directory, generation=gen,
+                    to_iter=int(warm.prior_iters),
+                    process=self.process_index,
+                    process_count=self.process_count, source="dist_ckpt")
         self.commit_seconds.append(time.perf_counter() - t1)
 
     def _commit(self, warm, gen, shard_path, converged, aborted):
@@ -456,7 +490,7 @@ class DistributedCheckpointer(AutoCheckpointer):
             self.directory, template,
             process_index=self.process_index,
             process_count=self.process_count,
-            fingerprint=self.fingerprint)
+            fingerprint=self.fingerprint, telemetry=self.telemetry)
         if loaded is not None:
             self._adopt(loaded)
             if self.stream_hook is not None and self.loaded_extras:
@@ -466,6 +500,12 @@ class DistributedCheckpointer(AutoCheckpointer):
                 # adopt the re-split assignment, so the next generation
                 # records the topology the run resumed onto
                 self.partitions = list(loaded.partitions)
+            if self.telemetry is not None and not loaded.elastic:
+                self.telemetry.recovery(
+                    action="resume", path=self.directory,
+                    generation=loaded.generation,
+                    to_iter=int(loaded.warm.prior_iters),
+                    process=self.process_index, source="dist_ckpt")
         return loaded
 
     def _adopt(self, loaded: LoadedDistCheckpoint) -> None:

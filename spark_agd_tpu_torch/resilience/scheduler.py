@@ -38,9 +38,11 @@ last committed generation; the carry is replicated and the math
 deterministic, so the backup's result is the same bits (a backup on
 another topology agrees to reduction-order noise instead).
 
-``telemetry=`` (the ``skew_estimate`` and ``rebalance`` records) comes
-with the profiling and analysis slice and raises.  Without a ``scheduler=`` the
-supervisor path is unchanged.
+Every decision is on record, as in the JAX package: a ``skew_estimate``
+record at each sync, a ``rebalance`` record and the ``rebalance``
+recovery action at each applied decision, and a ``speculative_exec``
+recovery record at each resolved speculation.  Without a ``scheduler=``
+the supervisor path is unchanged.
 """
 
 from __future__ import annotations
@@ -54,7 +56,6 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 
 import numpy as np
 
-from .._later import reject_later
 from ..utils import checkpoint as ckpt
 from .distributed import (_HEARTBEAT_RE, _default_exchange,
                           _process_defaults)
@@ -386,8 +387,9 @@ class StragglerScheduler:
 
     The sync is collective: every process must reach the same successful
     boundaries in lockstep.  The exchange refuses a mixed-iteration sync
-    as the commit refuses mixed generations.  ``telemetry=`` comes with
-    the profiling and analysis slice and raises.
+    as the commit refuses mixed generations.  ``telemetry``: a
+    ``skew_estimate`` record a sync, a ``rebalance`` record and
+    recovery action an applied decision.
     """
 
     def __init__(self, partitions: Sequence[str], *,
@@ -398,13 +400,13 @@ class StragglerScheduler:
                  process_count: Optional[int] = None,
                  exchange: Optional[Callable] = None,
                  heartbeat_dir: Optional[str] = None):
-        reject_later(telemetry=telemetry)
         self.union: Tuple[str, ...] = tuple(
             sorted(str(p) for p in partitions))
         if not self.union:
             raise ValueError("partitions must name at least one file")
         self.policy = policy or ReschedulePolicy()
         self.rebuild = rebuild
+        self.telemetry = telemetry
         self.process_index, self.process_count = _process_defaults(
             process_index, process_count)
         self._exchange = exchange or _default_exchange
@@ -463,6 +465,25 @@ class StragglerScheduler:
         self.last_snapshot = snap
         if self.heartbeat_dir is not None:
             self.tracker.observe_heartbeats(self.heartbeat_dir)
+        if self.telemetry is not None:
+            fields = {
+                "speeds": {str(p): round(v, 4)
+                           for p, v in snap.speeds.items()},
+                "consecutive": int(snap.consecutive),
+                "persistent": bool(snap.persistent),
+                "iter": done_iter,
+                "window_segments": int(self.policy.sync_every),
+                "threshold": float(self.policy.skew_threshold),
+                "process": self.process_index,
+                "source": "scheduler",
+            }
+            if snap.straggler is not None:
+                fields["straggler"] = int(snap.straggler)
+            if self.tracker.hb_slow:
+                fields["hb_slow"] = list(self.tracker.hb_slow)
+            self.telemetry.skew_estimate(skew=round(snap.skew, 4),
+                                         **fields)
+
         if not (self.policy.rebalance and snap.persistent
                 and self.rebalances < self.policy.max_rebalances):
             return None
@@ -487,14 +508,41 @@ class StragglerScheduler:
         """Adopt the decision: update the assignment table, point the
         checkpointer's next generation at the NEW partition list (the
         manifest-commit that makes the rebalance durable is the
-        supervisor's forced save right after), and return the caller's
-        rebuilt staged data (None without a ``rebuild`` hook)."""
+        supervisor's forced save right after), emit the ``rebalance``
+        record and recovery action, and return the caller's rebuilt
+        staged data (None without a ``rebuild`` hook)."""
         self.rebalances += 1
         self.tracker.consecutive = 0
         self.assignments = decision.assignments
         if checkpointer is not None and hasattr(checkpointer,
                                                 "partitions"):
             checkpointer.partitions = list(decision.mine)
+        if self.telemetry is not None:
+            fields = {
+                "speeds": {str(p): round(v, 4)
+                           for p, v in decision.speeds.items()},
+                "skew": round(float(decision.skew), 4),
+                "before": {str(p): int(c)
+                           for p, c in enumerate(decision.before)},
+                "after": {str(p): int(c)
+                          for p, c in enumerate(decision.after)},
+                "moved": int(decision.moved),
+                "process": self.process_index,
+                "source": "scheduler",
+            }
+            if decision.straggler is not None:
+                fields["straggler"] = int(decision.straggler)
+            gen = getattr(checkpointer, "_next_generation", None)
+            if gen is not None:
+                fields["generation"] = int(gen)
+            self.telemetry.rebalance(at_iter=int(decision.at_iter),
+                                     **fields)
+            self.telemetry.recovery(
+                action="rebalance", from_iter=int(decision.at_iter),
+                reason=(f"persistent straggler h{decision.straggler} "
+                        f"(skew {decision.skew:.2f}); moved "
+                        f"{decision.moved} partition(s)"),
+                process=self.process_index, source="scheduler")
         if self.rebuild is not None:
             return self.rebuild(decision)
         return None
@@ -574,9 +622,8 @@ def resolve_speculation(spec: SpeculationResult, committed_warm: Any, *,
     passes a small f64 tolerance instead.  ``won`` means the backup
     finished before the fleet's own result for the segment
     (``fleet_seconds``, when known) — either way the results MATCH, so
-    taking whichever lands first is safe.  ``telemetry=`` comes with
-    the profiling and analysis slice and raises."""
-    reject_later(telemetry=telemetry)
+    taking whichever lands first is safe; with ``telemetry``, emit the
+    ``speculative_exec`` recovery record."""
     diff = warm_max_diff(spec.warm, committed_warm)
     matched = bool(diff <= tol) if tol > 0 else bool(diff == 0.0)
     won = bool(fleet_seconds is not None
@@ -587,4 +634,10 @@ def resolve_speculation(spec: SpeculationResult, committed_warm: Any, *,
            "max_diff": float(diff)}
     if fleet_seconds is not None:
         out["fleet_seconds"] = round(float(fleet_seconds), 6)
+    if telemetry is not None:
+        fields = dict(out)
+        if straggler is not None:
+            fields["straggler"] = int(straggler)
+        telemetry.recovery(action="speculative_exec",
+                           source="scheduler", **fields)
     return out

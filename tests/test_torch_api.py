@@ -1,7 +1,6 @@
 """The port's API surface against the JAX package's: the keywords a
-reference call site passes (``dist_mode=``, ``verbose=``) either work or
-raise the port's ``NotImplementedError`` naming a later slice, never a
-``TypeError``; the packaging ships the native parser's sources; the
+reference call site passes (``dist_mode=``, ``verbose=``) work, never
+raising a ``TypeError``; the packaging ships the native parser's sources; the
 Optimizer family's names are exported."""
 
 import inspect

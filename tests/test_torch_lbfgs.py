@@ -439,10 +439,17 @@ def test_lbfgs_class_drop_in_and_setters():
     mm = tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)
     assert opt.set_mesh(mm) is opt and opt._mesh is mm
     opt.set_mesh(None)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        port.run_lbfgs((X, y), port.LogisticGradient(), port.L2Prox(),
-                       initial_weights=np.zeros(6), device="cpu",
-                       telemetry=object())
+    # telemetry= is ported: one iteration record an iteration, the
+    # objective after it
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    tel = Telemetry()
+    res = port.run_lbfgs((X, y), port.LogisticGradient(), port.L2Prox(),
+                         initial_weights=np.zeros(6), device="cpu",
+                         telemetry=tel)
+    k = int(res.num_iters)
+    assert [r["loss"] for r in tel.iterations("lbfgs")] == \
+        res.loss_history[1:k + 1].tolist()
     with pytest.raises(ValueError, match="dist_mode"):
         port.run_lbfgs((X, y), port.LogisticGradient(), port.L2Prox(),
                        initial_weights=np.zeros(6), device="cpu",

@@ -150,8 +150,13 @@ def test_single_process_ingest_matches_jax(tmp_path):
     assert tingest.local_partitions(paths[::-1]) == paths
     with pytest.raises(ValueError, match="no partition files"):
         tingest.from_partitioned_files([], tm)
-    with pytest.raises(NotImplementedError, match="observability"):
-        tingest.from_partitioned_files(paths, tm, telemetry=object())
+    # telemetry= is ported: a read that needs no retry records nothing
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    tel = Telemetry()
+    again = tingest.from_partitioned_files(paths, tm, telemetry=tel)
+    assert torch.equal(again.X.gather(), tb.X.gather())
+    assert tel.records == []
     bad = tmp_path / "part-bad.libsvm"
     bad.write_text("1 1:nan\n")
     with pytest.raises(tingest.libsvm.DataValidationError):

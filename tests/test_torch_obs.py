@@ -18,7 +18,7 @@ from spark_agd_tpu_torch.obs import (flight, perfgate, scaling, schema,
 
 ROOT = Path(__file__).resolve().parents[1]
 COPIES = ("sinks", "flight", "timeline", "scaling", "perfgate", "events",
-          "registry")
+          "registry", "__main__")
 
 
 def _after_docstring(path: Path) -> list:
@@ -113,3 +113,14 @@ def test_timeline_and_flight_on_the_same_records():
     mem.emit({"kind": "x"})
     assert mem.records == [{"kind": "x"}]
     assert scaling.environment_key({"platform": "gpu"}).startswith("env-")
+
+
+def test_the_obs_module_selfcheck_exits_0():
+    import subprocess
+    import sys
+
+    out = subprocess.run(
+        [sys.executable, "-m", "spark_agd_tpu_torch.obs", "--selfcheck"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert "selfcheck PASSED" in out.stdout

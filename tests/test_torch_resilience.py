@@ -646,10 +646,24 @@ def test_run_checkpointer_needs_resilience_and_resumes(problem, tmp_path):
         resilience=_policy(), checkpointer=AutoCheckpointer(path),
         return_result=True, **kw)
     assert sres.resumed_from == 12 and torch.equal(again, first[0])
-    for option in (dict(journal="j.wal"), dict(telemetry=object())):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            port.run((X, y), port.LogisticGradient(), port.L2Prox(),
-                     resilience=True, **option, **kw)
+    # journal= and telemetry= are ported: the journal holds the run's
+    # decisions, the telemetry its iterations and its run record
+    from spark_agd_tpu_torch.obs import Telemetry
+    from spark_agd_tpu_torch.resilience import journal as tjournal
+
+    tel = Telemetry()
+    jpath = str(tmp_path / "j.wal")
+    w, h = port.run((X, y), port.LogisticGradient(), port.L2Prox(),
+                    resilience=_policy(), journal=jpath, telemetry=tel,
+                    checkpointer=AutoCheckpointer(str(tmp_path / "j.npz")),
+                    **kw)
+    assert torch.equal(w, first[0])
+    assert [r["loss"] for r in tel.records
+            if r["kind"] == "iteration"] == h.tolist()
+    assert [r["kind"] for r in tel.records].count("run") == 1
+    replayed = tjournal.replay(jpath)
+    assert replayed.reason is None and replayed.records
+    assert replayed.records[0]["kind"] == "journal_replay"
     # a mesh with a model axis runs supervised: its one data slot sums
     # what the single-device fit sums
     mw, mh = port.run((X, y), port.LogisticGradient(), port.L2Prox(),

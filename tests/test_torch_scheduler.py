@@ -182,8 +182,11 @@ def test_scheduler_initial_table_lockstep_and_single_process():
     assert all(d is None for d in _drive(one, 4, boundary_s=0.5))
     with pytest.raises(ValueError, match="at least one"):
         StragglerScheduler([])
-    with pytest.raises(NotImplementedError, match="observability"):
-        StragglerScheduler(["a"], telemetry=object())
+    # telemetry= is ported (its records: tests/test_torch_telemetry.py)
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    tel = Telemetry()
+    assert StragglerScheduler(["a"], telemetry=tel).telemetry is tel
     d = RebalanceDecision(0, (("a",), ("b", "c")), ("a",), {}, 2.0, 1,
                           (2, 1), (1, 2))
     assert d.moved == 1

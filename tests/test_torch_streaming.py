@@ -13,6 +13,7 @@ contracts; the cursor codec's npz entries and a resumed pass; and at f32
 ``PallasLogisticGradient(interpret=True)`` over the same stream at the
 kernel tolerances (``tests/test_pallas.py``)."""
 
+import os
 import threading
 import time
 
@@ -36,7 +37,9 @@ from spark_agd_tpu_torch.data import libsvm, streaming
 from spark_agd_tpu_torch.models import glm as tglm
 from spark_agd_tpu_torch.ops import losses, prox
 from spark_agd_tpu_torch.ops.sparse import CSRMatrix
+from spark_agd_tpu_torch.obs import schema as tschema
 from spark_agd_tpu_torch.resilience import RetryPolicy, StreamDataLoss
+from torch_records import assert_same
 
 D = 7
 
@@ -793,7 +796,33 @@ def test_fused_logistic_stream_fit_matches_pallas_fit():
 
 
 # ---------------------------------------------------------------------------
-# the surface: later slices raise, the card is the default, predict_stream
+# the surface: the options the JAX package takes, the card is the default,
+# predict_stream
+
+
+def _stream_epochs(pkg, X, y):
+    """Two passes of ``smooth`` and one of ``smooth_loss`` over a
+    4-row-batch stream with a ``Telemetry`` of ``pkg``; its records."""
+    from spark_agd_tpu.obs import Telemetry as JTelemetry
+    from spark_agd_tpu_torch.obs import Telemetry
+
+    w = np.linspace(-0.5, 0.5, D)
+    if pkg == "jax":
+        tel = JTelemetry()
+        ds = jstreaming.StreamingDataset.from_arrays(X, y, batch_rows=4)
+        sm, sl = jstreaming.make_streaming_smooth(
+            jlosses.LogisticGradient(), ds, telemetry=tel)
+        w = jnp.asarray(w)
+    else:
+        tel = Telemetry()
+        ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=4)
+        sm, sl = streaming.make_streaming_smooth(
+            losses.LogisticGradient(), ds, device="cpu", telemetry=tel)
+        w = torch.as_tensor(w)
+    sm(w)
+    sm(2 * w)
+    sl(w)
+    return tel.records
 
 
 @pytest.mark.parametrize("option", [
@@ -802,14 +831,21 @@ def test_fused_logistic_stream_fit_matches_pallas_fit():
     # evaluator compute what the JAX smooth computes
     dict(mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)),
     dict(csr_nnz_per_shard=256, mesh=tmesh.make_mesh({"data": 1, "model": 2}, devices=["cpu"] * 2)),
-    dict(telemetry=object())], ids=lambda o: next(iter(o)))
+    dict(telemetry=True)], ids=lambda o: next(iter(o)))
 def test_streaming_smooth_later_slice_options_raise(option):
-    X, y = _dense(n=8)
+    X, y = _dense(n=10)
     ds = streaming.StreamingDataset.from_arrays(X, y, batch_rows=4)
     if "telemetry" in option:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            streaming.make_streaming_smooth(losses.LogisticGradient(), ds,
-                                            device="cpu", **option)
+        # telemetry= is ported: a stream_epoch record a pass, as JAX's
+        mine, theirs = _stream_epochs("torch", X, y), _stream_epochs(
+            "jax", X, y)
+        assert_same(mine, theirs, drop=("pass_s", "stall_s",
+                                        "stall_fraction"))
+        assert [(r["kind"], r["epoch"], r["batches"], r["rows"])
+                for r in mine] == [("stream_epoch", i, 3, 10)
+                                   for i in (1, 2, 3)]
+        for rec in mine:
+            assert tschema.validate_record(rec) == [], rec
         return
     w = np.linspace(-0.5, 0.5, D)
     jf, jg = jsmooth.make_smooth(jlosses.LogisticGradient(),
@@ -827,15 +863,82 @@ def test_streaming_smooth_later_slice_options_raise(option):
     np.testing.assert_allclose(lg[0].numpy(), np.asarray(jg), rtol=1e-12)
 
 
+def _parts_records(pkg, tmp_path, chaos, monkeypatch):
+    """A retried read of shard 1 (a transient ``OSError`` on its first
+    read) and a corrupt shard 2, garbled on disk or, with ``chaos``, by
+    a ``corrupt_shard`` fault on its visit, through ``pkg``'s
+    ``from_libsvm_parts`` with ``validate="drop"`` and a quarantine: the
+    ``Telemetry``, the rows of each of two passes, the quarantined
+    shards."""
+    from spark_agd_tpu.obs import Telemetry as JTelemetry
+    from spark_agd_tpu.resilience import chaos as jchaos
+    from spark_agd_tpu_torch.obs import Telemetry
+    from spark_agd_tpu_torch.resilience import chaos as tchaos
+
+    os.makedirs(tmp_path / pkg)
+    paths = _write_parts(tmp_path / pkg, seed=17)
+    with open(paths[3], "a") as f:  # a row validate="drop" drops
+        f.write("1 1:nan\n")
+    lib, mod, tel, policy = ((jlibsvm, jstreaming, JTelemetry(),
+                              JRetryPolicy) if pkg == "jax"
+                             else (libsvm, streaming, Telemetry(),
+                                   RetryPolicy))
+    if chaos:
+        ch = jchaos if pkg == "jax" else tchaos
+        schedule = ch.ChaosSchedule([ch.ScheduledFault(
+            kind="corrupt_shard", at_iter=2)], telemetry=tel)
+    else:
+        schedule = None
+        with open(paths[2], "wb") as f:
+            f.write(b"\x00 not libsvm at all\n")
+    real, failures = lib.load_libsvm, []
+
+    def flaky(path, n_features=None):
+        if path == paths[1] and not failures:
+            failures.append(path)
+            raise OSError("transient read error")
+        return real(path, n_features=n_features)
+
+    monkeypatch.setattr(lib, "load_libsvm", flaky)
+    ds = mod.StreamingDataset.from_libsvm_parts(
+        paths, n_features=D, batch_rows=16, nnz_pad=128, quarantine=True,
+        validate="drop", retries=_fast(policy), telemetry=tel,
+        chaos=schedule)
+    rows = [sum(int(np.asarray(m).sum()) for _, _, m in ds)
+            for _ in range(2)]
+    monkeypatch.setattr(lib, "load_libsvm", real)
+    return tel, rows, [os.path.basename(p) for p in ds.quarantined]
+
+
 @pytest.mark.parametrize("option", [
-    dict(telemetry=object()),
-    # chaos= is ported; beside it telemetry= still raises
-    dict(chaos=object(), telemetry=object())], ids=lambda o: next(iter(o)))
-def test_libsvm_parts_later_slice_options_raise(tmp_path, option):
-    paths = _write_parts(tmp_path, n_shards=1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        streaming.StreamingDataset.from_libsvm_parts(
-            paths, n_features=D, batch_rows=8, **option)
+    dict(telemetry=True),
+    # chaos= beside telemetry=: the fault's own record joins the stream
+    dict(chaos=True, telemetry=True)], ids=lambda o: next(iter(o)))
+def test_libsvm_parts_later_slice_options_raise(tmp_path, option,
+                                                monkeypatch):
+    # telemetry= is ported: a retried read's recovery record, the dropped
+    # row on the data.invalid_records counter, the quarantined shard's
+    # shard_quarantine record, as JAX's
+    chaos = "chaos" in option
+    tel, rows, quarantined = _parts_records("torch", tmp_path, chaos,
+                                            monkeypatch)
+    jtel, jrows, jquarantined = _parts_records("jax", tmp_path, chaos,
+                                               monkeypatch)
+    assert rows == jrows == [3 * 40, 3 * 40]
+    assert quarantined == jquarantined == ["part-00002"]
+    # the shard's path and the exception texts name each package's files
+    assert_same(tel.records, jtel.records, drop=("shard", "reason",
+                                                 "error"))
+    kinds = [r["kind"] for r in tel.records]
+    assert kinds.count("shard_quarantine") == 1
+    assert {r["action"] for r in tel.records
+            if r["kind"] == "recovery"} == {"retry"}
+    assert [r["fault"] for r in tel.records
+            if r["kind"] == "chaos"] == (["corrupt_shard"] if chaos else [])
+    bad = tel.registry.counter("data.invalid_records").value
+    assert bad == jtel.registry.counter("data.invalid_records").value == 2
+    for rec in tel.records:
+        assert tschema.validate_record(rec) == [], rec
 
 
 def test_a_stream_runs_on_the_card_unless_told_cpu(monkeypatch):

@@ -14,8 +14,10 @@ campaign, heartbeats and a host loss, a serving stack with a hot swap,
 and the canary's and promoter's decisions.  A flight dump written by
 either package is read by the other's ``load_dump``; ``obs`` and
 ``resilience`` export the JAX package's names (but ``introspect``'s),
-and every ``telemetry=``/``journal=`` site left to the profiling and
-analysis slice still raises, naming it."""
+and every former ``telemetry=``/``journal=`` refusal (the fit entry
+points, partitioned ingest, the distributed checkpointer and its
+loaders, the degraded loader and the straggler scheduler) emits the
+JAX package's records."""
 
 import ast
 import difflib
@@ -534,45 +536,267 @@ def test_obs_and_resilience_export_the_jax_names():
     assert tobs.Telemetry is ttelemetry.Telemetry
 
 
-def _later_sites(tmp_path):
-    """The ``telemetry=`` / ``journal=`` sites that wait for the profiling
-    and analysis slice, each called so that the option is the first
-    thing it checks."""
-    from spark_agd_tpu_torch import api, resilience
-    from spark_agd_tpu_torch.data import ingest
+def _site_run(pkg, X, y, tel, **kw):
+    """``api.run`` of ``pkg`` at f64 on the CPU."""
+    from spark_agd_tpu import api as japi
+    from spark_agd_tpu_torch import api as tapi
 
-    X = np.zeros((4, 2), np.float32)
-    y = np.zeros(4, np.float32)
-    t = TTelemetry()
-    kw = dict(initial_weights=np.zeros(2, np.float32), device="cpu")
-    return {
-        "run": lambda: api.run((X, y), TLogistic(), TL2(), telemetry=t,
-                               **kw),
-        "run_journal": lambda: api.run((X, y), TLogistic(), TL2(),
-                                       journal=str(tmp_path / "j.wal"),
-                                       **kw),
-        "make_runner": lambda: api.make_runner(
-            (X, y), TLogistic(), TL2(), telemetry=t, device="cpu"),
-        "run_lbfgs": lambda: api.run_lbfgs(
-            (X, y), TLogistic(), TL2(), telemetry=t, **kw),
-        "from_partitioned_files": lambda: ingest.from_partitioned_files(
-            [], telemetry=t),
-        "load_for_topology": lambda: resilience.load_for_topology(
-            str(tmp_path), np.zeros(2), telemetry=t),
-        "DistributedCheckpointer": lambda: resilience.DistributedCheckpointer(
-            str(tmp_path), telemetry=t),
-        "load_degraded": lambda: resilience.load_degraded(
-            str(tmp_path), np.zeros(2), surviving=[0], telemetry=t),
-        "StragglerScheduler": lambda: resilience.StragglerScheduler(
-            ["a"], telemetry=t),
-    }
+    if pkg == "jax":
+        return japi.run((X, y), JLogistic(), JL2(), mesh=False,
+                        initial_weights=np.zeros(D), telemetry=tel, **kw)
+    return tapi.run((X, y), TLogistic(), TL2(), device="cpu",
+                    initial_weights=np.zeros(D), telemetry=tel, **kw)
 
 
-@pytest.mark.parametrize("site", [
-    "run", "run_journal", "make_runner", "run_lbfgs",
-    "from_partitioned_files", "load_for_topology",
-    "DistributedCheckpointer", "load_degraded", "StragglerScheduler"])
+def _site_fit_kw():
+    return dict(reg_param=0.01, num_iterations=8, convergence_tol=0.0)
+
+
+def _site_records(site, pkg, tmp_path):
+    """Run ``site``, one of the former ``telemetry=``/``journal=``
+    refusals, through ``pkg`` with a fresh ``Telemetry``; its records,
+    the registry, and what else the site's check reads."""
+    from spark_agd_tpu import api as japi
+    from spark_agd_tpu.data import ingest as jingest
+    from spark_agd_tpu.parallel import mesh as jmesh
+    from spark_agd_tpu.resilience import (degrade as jdegrade,
+                                          distributed as jdist,
+                                          journal as jjournal,
+                                          scheduler as jsched)
+    from spark_agd_tpu_torch import api as tapi
+    from spark_agd_tpu_torch.data import ingest as tingest, libsvm
+    from spark_agd_tpu_torch.parallel import mesh as tmesh
+    from spark_agd_tpu_torch.resilience import (degrade as tdegrade,
+                                                distributed as tdist,
+                                                journal as tjournal,
+                                                scheduler as tsched)
+
+    jx = pkg == "jax"
+    tel = JTelemetry() if jx else TTelemetry()
+    X, y = _data(seed=5, n=120)
+    work = tmp_path / pkg
+    os.makedirs(work)
+    extra = None
+    if site == "run":
+        extra = np.asarray(_site_run(pkg, X, y, tel, **_site_fit_kw())[1])
+    elif site == "run_journal":
+        path = str(work / "run.wal")
+        res_mod = jres if jx else tres
+        _site_run(pkg, X, y, tel, journal=path,
+                  resilience=res_mod.ResiliencePolicy(segment_iters=4),
+                  checkpointer=res_mod.AutoCheckpointer(
+                      str(work / "c.npz"), every_iters=4, telemetry=tel),
+                  **_site_fit_kw())
+        extra = path
+    elif site == "make_runner":
+        mod = japi if jx else tapi
+        kw = dict(mesh=False) if jx else dict(device="cpu")
+        gradient, updater = ((JLogistic(), JL2()) if jx
+                             else (TLogistic(), TL2()))
+        fit = mod.make_runner((X, y), gradient, updater, telemetry=tel,
+                              **_site_fit_kw(), **kw)
+        fit(np.zeros(D))
+        fit(np.full(D, 0.1))  # the same shape: no trace, no compile
+    elif site == "run_lbfgs":
+        for reg_prox in ((JL2(), TL2()), (jres_l1(), tres_l1())):
+            if jx:
+                japi.run_lbfgs((X, y), JLogistic(), reg_prox[0],
+                               reg_param=0.01, num_iterations=10,
+                               initial_weights=np.zeros(D), mesh=False,
+                               telemetry=tel)
+            else:
+                tapi.run_lbfgs((X, y), TLogistic(), reg_prox[1],
+                               reg_param=0.01, num_iterations=10,
+                               initial_weights=np.zeros(D), device="cpu",
+                               telemetry=tel)
+    elif site == "from_partitioned_files":
+        paths = []
+        for k in range(3):
+            p = str(work / f"part-{k}")
+            libsvm.save_libsvm(p, X[40 * k:40 * (k + 1)].astype(np.float32),
+                               y[40 * k:40 * (k + 1)])
+            paths.append(p)
+        with open(paths[2], "a") as f:
+            f.write("1 1:nan\n")
+        lib = jingest.libsvm if jx else tingest.libsvm
+        failures = []
+
+        def flaky(path, n_features=None):
+            if path == paths[1] and not failures:
+                failures.append(path)
+                raise OSError("transient read error")
+            return lib.load_libsvm(path, n_features=n_features)
+
+        retries = (jres if jx else tres).RetryPolicy(
+            max_attempts=3, backoff_base=0.0, jitter=0.0, seed=0)
+        if jx:
+            import jax
+
+            m = jmesh.make_mesh({"data": 2}, devices=jax.devices()[:2])
+            b = jingest.from_partitioned_files(
+                paths, m, n_features=D, loader=flaky, retries=retries,
+                validate="drop", telemetry=tel)
+            extra = np.asarray(b.X).shape[0]
+        else:
+            m = tmesh.make_mesh({"data": 2}, devices=["cpu"] * 2)
+            b = tingest.from_partitioned_files(
+                paths, m, n_features=D, loader=flaky, retries=retries,
+                validate="drop", telemetry=tel)
+            extra = b.X.gather().shape[0]
+    elif site in ("load_for_topology", "DistributedCheckpointer",
+                  "load_degraded"):
+        dist = jdist if jx else tdist
+        staged, px, rv, w0 = _problem(pkg, seed=5)
+        agd_mod = jagd if jx else tagd
+        res_mod = jres if jx else tres
+
+        def fit(iters, ck_tel):
+            ck = dist.DistributedCheckpointer(
+                str(work / "gens"), every_iters=4, keep=3,
+                partitions=["p0", "p1"], telemetry=ck_tel)
+            return res_mod.run_agd_supervised(
+                prox=px, reg_value=rv, w0=w0,
+                config=agd_mod.AGDConfig(num_iterations=iters,
+                                         convergence_tol=0.0),
+                policy=res_mod.ResiliencePolicy(segment_iters=4),
+                checkpointer=ck, staged=staged, telemetry=ck_tel,
+                stream_iterations=False)
+
+        if site == "DistributedCheckpointer":
+            fit(8, tel)  # two generations, each a commit span
+            fit(12, tel)  # resumes from the newest: a resume record
+        else:
+            fit(8, None)
+            m = (jres if jx else tres).manifest.load_manifest(
+                str(work / "gens"))
+            with open(m.shard_path(str(work / "gens"), 0), "r+b") as f:
+                f.truncate(64)  # the newest generation, torn
+            if site == "load_for_topology":
+                extra = dist.load_for_topology(
+                    str(work / "gens"), w0, process_index=1,
+                    process_count=2, telemetry=tel).partitions
+            else:
+                deg = jdegrade if jx else tdegrade
+                extra = deg.load_degraded(
+                    str(work / "gens"), w0, surviving=[0],
+                    telemetry=tel).dropped_partitions
+    elif site == "StragglerScheduler":
+        sched = jsched if jx else tsched
+
+        def exchange(row):
+            other = row.copy()
+            other[1] = 400_000
+            return np.stack([row, other])
+
+        sc = sched.StragglerScheduler(
+            [f"p{i:02d}" for i in range(8)],
+            policy=sched.ReschedulePolicy(trigger_segments=2),
+            process_index=0, process_count=2, exchange=exchange,
+            telemetry=tel)
+        for i in range(4):
+            d = sc.after_segment(start_iter=4 * i, iters=4,
+                                 boundary_s=0.0002)
+            if d is not None:
+                sc.apply(d)
+        spec = sched.SpeculationResult(result=None, warm=_warm_of(pkg),
+                                       seconds=0.5, from_iter=4, iters=4)
+        sched.resolve_speculation(spec, _warm_of(pkg), fleet_seconds=1.0,
+                                  straggler=1, telemetry=tel)
+    return tel, extra
+
+
+def jres_l1():
+    from spark_agd_tpu.ops.prox import L1Prox
+
+    return L1Prox()
+
+
+def tres_l1():
+    from spark_agd_tpu_torch.ops.prox import L1Prox
+
+    return L1Prox()
+
+
+def _warm_of(pkg):
+    w = (jnp.arange(3.0) if pkg == "jax"
+         else torch.arange(3.0, dtype=torch.float64))
+    mod = jagd if pkg == "jax" else tagd
+    return mod.AGDWarmState(x=w, z=w, theta=0.5, big_l=2.0, bts=True,
+                            prior_iters=8)
+
+
+# each former refusal, with the kinds its records must hold (in order,
+# once the iterations are left out)
+SITES = {
+    "run": ["span", "span", "span", "span", "run"],
+    "run_journal": None,
+    "make_runner": ["span", "span", "span", "span", "span", "span"],
+    "run_lbfgs": ["span", "span", "span", "span", "run"] * 2,
+    "from_partitioned_files": ["recovery"],
+    "load_for_topology": ["recovery", "recovery"],
+    "DistributedCheckpointer": None,
+    "load_degraded": ["recovery", "degraded", "recovery"],
+    "StragglerScheduler": ["skew_estimate", "skew_estimate", "rebalance",
+                           "recovery", "skew_estimate", "skew_estimate",
+                           "recovery"],
+}
+
+
+@pytest.mark.parametrize("site", list(SITES))
 def test_later_sites_still_raise_naming_their_slice(site, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="profiling and analysis slice"):
-        _later_sites(tmp_path)[site]()
+    # the thirteen telemetry=/journal= refusals are gone: each site emits
+    # the JAX package's records, in kind, order and non-timing fields
+    mine, got = _site_records(site, "torch", tmp_path)
+    theirs, want = _site_records(site, "jax", tmp_path)
+    _valid(mine.records)
+    # paths and exception texts name each package's own files
+    assert_same(mine.records, theirs.records, approx=ITER_TOL,
+                drop=("reason", "error", "shard"))
+    kinds = [r["kind"] for r in mine.records if r["kind"] != "iteration"]
+    if SITES[site] is not None:
+        assert kinds == SITES[site], kinds
+    if site == "run":
+        assert [r["loss"] for r in mine.records
+                if r["kind"] == "iteration"] == got.tolist()
+    elif site == "run_journal":
+        # each package's journal file is read by the other's replay
+        for path in (got, want):
+            a = [(r["kind"], r.get("action"))
+                 for r in tjournal_replay(path)]
+            b = [(r["kind"], r.get("action"))
+                 for r in jjournal_replay(path)]
+            assert a == b and ("recovery", "checkpoint") in a
+    elif site == "make_runner":
+        names = [r["name"] for r in mine.records if r["kind"] == "span"]
+        assert names == ["h2d_transfer", "trace", "compile", "execute",
+                         "h2d_transfer", "execute"]
+    elif site == "from_partitioned_files":
+        assert got == want == 120
+        assert mine.registry.counter("data.invalid_records").value == 1
+    elif site == "DistributedCheckpointer":
+        # a closed commit span a generation, each holding its save's
+        # recovery record; the second fit resumes from the first's last
+        commits = [r for r in mine.records if r.get("name") == "ckpt_commit"
+                   and r["kind"] == "span" and r["status"] != "open"]
+        saves = [r for r in mine.records if r["kind"] == "recovery"
+                 and r["source"] == "dist_ckpt" and r["action"] != "resume"]
+        assert [r["generation"] for r in commits] == \
+            [r["generation"] for r in saves] == list(range(len(saves)))
+        resumes = [r for r in mine.records if r.get("action") == "resume"]
+        assert len(resumes) == 1 and resumes[0]["to_iter"] == 8
+    elif site == "load_for_topology":
+        assert got == want == ("p1",)
+    elif site == "load_degraded":
+        assert got == want == ()
+
+
+def tjournal_replay(path):
+    from spark_agd_tpu_torch.resilience import journal
+
+    return journal.replay(path).records
+
+
+def jjournal_replay(path):
+    from spark_agd_tpu.resilience import journal
+
+    return journal.replay(path).records
